@@ -1,0 +1,502 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # needs one GPU; takes no arguments
+
+It builds the port's kernels from the sources in this checkout, holds
+each one against its plain PyTorch version at the shapes of the gemma-2b
+serving path, checks the serving engine end to end on a small config
+against the same engine on the CPU, then serves gemma-2b at full width
+(18 layers, random bf16 weights from a seed) through
+``repro_torch.serving.ServingEngine`` and shows that the serving run
+went through the kernels (launch counts > 0).
+
+Output, one line each:
+  * the card's name and power limit, as ``nvidia-smi`` gives them;
+  * one JSON line per kernel phase: paged attention for every (q dtype,
+    pool dtype) pair the serving runs launch, plus fp8 (max abs error
+    against the plain version beside the reference's RMS, kernel / plain
+    / library ms by CUDA events, the bound); the Gumbel kernel;
+  * one JSON line per serving run (tokens/s, steps, buckets, and that
+    run's own kernel launches: the counts are zeroed just before each
+    run and read just after it, and every run must launch both kernels);
+  * ``{"kernels": [...]}``: every ported kernel with its launches in the
+    main bf16 serving run and its numbers at the main path's shapes;
+  * last, ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, so the script exits non-zero and prints no
+last line.  Without CUDA, or without the repository beside it, it exits
+non-zero at once.  It imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# paged attention: max abs error by q dtype.  bf16 q: the plain version
+# rounds dequantized pages and probabilities to bf16 while the kernel
+# stays in fp32, so the two differ by bf16 rounding of O(1) outputs.
+PAGED_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# (q dtype, pool dtype): the first three are what the serving runs launch
+# (bf16 weights with a bf16 or an int8 pool, fp32 weights with an fp32
+# pool); the first is the main path's.
+PAGED_CASES = (("bfloat16", "bfloat16"), ("bfloat16", "int8"),
+               ("float32", "float32"), ("float32", "int8"),
+               ("float32", "fp8_e4m3"))
+GUMBEL_TOL = 1e-4                  # fp32 logs of values up to ~20 in size
+
+# gemma-2b serving shapes
+PAGE_SIZE = 16
+MAX_BATCH = 16
+SPEC_K = 2
+NEW_TOKENS = 32
+TOKEN_BUDGET = 512
+CHUNK = 256
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` single-call CUDA-event timings."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# ----------------------------------------------------------------------
+# kernel phases
+# ----------------------------------------------------------------------
+
+def paged_inputs(torch, gen, dev, t_bucket: int = 256):
+    """A mixed prefill/decode flat batch at gemma-2b attention shapes:
+    Hkv=1, G=8, D=256, ps=16, 16 slots whose sequences hold 128-1024
+    tokens; two slots run a prefill chunk, the rest one decode token
+    each, and the bucket tail is padding."""
+    hkv, g, d, ps, s = 1, 8, 256, PAGE_SIZE, MAX_BATCH
+    lens = torch.randint(128, 1025, (s,), generator=gen).tolist()
+    p = 64                                      # pages bucket (1024/16)
+    n_pages = s * p + 8
+    perm = torch.randperm(n_pages, generator=gen)[: s * p].reshape(s, p)
+    tables = perm.to(torch.int32)
+    seg, pos = [], []
+    for slot in range(s):
+        if slot < 2:
+            chunk = 100
+            seg += [slot] * chunk
+            pos += list(range(lens[slot] - chunk, lens[slot]))
+        else:
+            seg.append(slot)
+            pos.append(lens[slot] - 1)
+    n_live = len(seg)
+    seg += [-1] * (t_bucket - n_live)
+    pos += [0] * (t_bucket - n_live)
+    k32 = torch.randn((n_pages, ps, hkv, d), generator=gen)
+    v32 = torch.randn((n_pages, ps, hkv, d), generator=gen)
+    q32 = torch.randn((t_bucket, hkv, g, d), generator=gen)
+    return dict(q32=q32.to(dev), k32=k32.to(dev), v32=v32.to(dev),
+                tables=tables.to(dev),
+                seg=torch.tensor(seg, dtype=torch.int32, device=dev),
+                pos=torch.tensor(pos, dtype=torch.int32, device=dev),
+                n_live=n_live, ps=ps, p=p)
+
+
+def paged_bound(x, q, pool_itemsize: int, quantized: bool,
+                peak: float) -> tuple:
+    """Least time for this call: every input byte read once (live pages
+    only: the work depends on the positions), the output written once;
+    operations 4*G*D per live (token, key) pair."""
+    ps = x["ps"]
+    tables = x["tables"].cpu()
+    seg = x["seg"].cpu().tolist()
+    pos = x["pos"].cpu().tolist()
+    t, hkv, g, d = q.shape
+    live_pages, keys = set(), 0
+    for slot, p_t in zip(seg, pos):
+        slot = min(max(slot, 0), tables.shape[0] - 1)
+        for pi in range(min(p_t // ps, tables.shape[1] - 1) + 1):
+            live_pages.add(int(tables[slot, pi]))
+        keys += p_t + 1
+    page_bytes = ps * hkv * d * pool_itemsize * 2
+    if quantized:
+        page_bytes += ps * hkv * 4 * 2
+    nbytes = (2 * q.numel() * q.element_size() + len(live_pages) * page_bytes
+              + tables.numel() * 4 + 2 * t * 4)
+    ops = 4 * keys * hkv * g * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_library_ms(torch, x, q, kp, vp, scale) -> float:
+    """One PyTorch call computing the same attention on the same inputs:
+    SDPA over the per-token gathered contiguous cache (gathered outside
+    the timed call).  A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    ps, p = x["ps"], x["p"]
+    t, hkv, g, d = q.shape
+    s = x["tables"].shape[0]
+    slot = x["seg"].long().clamp(0, s - 1)
+    gidx = (x["tables"].long()[:, :, None] * ps
+            + torch.arange(ps, device=q.device)).reshape(s, p * ps)[slot]
+    kc = kp.reshape(-1, hkv, d)[gidx].permute(0, 2, 1, 3).contiguous()
+    vc = vp.reshape(-1, hkv, d)[gidx].permute(0, 2, 1, 3).contiguous()
+    k_pos = torch.arange(p * ps, device=q.device)
+    mask = (k_pos[None, :] <= x["pos"].long()[:, None])[:, None, None, :]
+    qq = q.reshape(t, hkv * g, 1, d)
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qq, kc, vc, attn_mask=mask, scale=scale, enable_gqa=True))
+
+
+def phase_paged_attention(torch, dev) -> dict:
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.serving import quant
+
+    gen = torch.Generator().manual_seed(11)
+    x = paged_inputs(torch, gen, dev)
+    scale = 256 ** -0.5
+    live = x["seg"] >= 0
+    result = None
+    for q_dtype, pool in PAGED_CASES:
+        q = x["q32"].to(getattr(torch, q_dtype))
+        if pool in ("bfloat16", "float32"):
+            kp = x["k32"].to(getattr(torch, pool))
+            vp = x["v32"].to(getattr(torch, pool))
+            ksc = vsc = None
+        else:
+            kp, ksc = quant.quantize(x["k32"], pool)
+            vp, vsc = quant.quantize(x["v32"], pool)
+
+        def kern():
+            return DA.paged_attention_fwd(
+                q, kp, vp, x["tables"], x["seg"], x["pos"], scale=scale,
+                k_scale=ksc, v_scale=vsc)
+
+        def plain():
+            return DA.paged_attention_plain(
+                q, kp, vp, x["tables"], x["seg"], x["pos"], scale=scale,
+                k_scale=ksc, v_scale=vsc)
+
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out[live].float() - ref[live].float()).abs().max().item()
+        ref_rms = ref[live].float().pow(2).mean().sqrt().item()
+        finite = bool(torch.isfinite(out[live].float()).all())
+        tol = PAGED_TOL[q_dtype]
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=5)
+        peak = PEAK_OPS["bfloat16" if q.dtype == torch.bfloat16
+                        else "float32"]
+        bound_ms, bound_by = paged_bound(x, q, kp.element_size(),
+                                         ksc is not None, peak)
+        lib_ms = sdpa_library_ms(
+            torch, x, q, kp if ksc is None else
+            quant.dequantize(kp, ksc).to(q.dtype),
+            vp if vsc is None else quant.dequantize(vp, vsc).to(q.dtype),
+            scale)
+        row = {"phase": "kernel", "name": "paged_attention", "pool": pool,
+               "q_dtype": str(q.dtype).split(".")[-1],
+               "T": int(q.shape[0]), "live_tokens": x["n_live"],
+               "max_abs_err": err, "tol": tol, "ref_rms": ref_rms,
+               "max_err_over_ref_rms": err / ref_rms, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms}
+        emit(row)
+        if not finite or not err <= tol:
+            raise AssertionError(f"paged_attention[q {q_dtype}, pool {pool}]"
+                                 f" disagrees with its plain version: {err}")
+        if result is None:
+            result = row
+    return result
+
+
+def phase_gumbel(torch, dev) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.serving.sampling import position_uniforms
+
+    rows, vocab = MAX_BATCH * (SPEC_K + 1), 256000
+    gen = torch.Generator(device=dev).manual_seed(12)
+    logits = torch.randn((rows, vocab), generator=gen, device=dev) * 3.0
+    u = position_uniforms(torch.arange(rows, device=dev),
+                          torch.arange(rows, device=dev) + 100, vocab)
+    out = ops.gumbel_perturb(logits, u)
+    torch.cuda.synchronize()
+    ref = ops.gumbel_perturb_plain(logits, u)
+    err = (out - ref).abs().max().item()
+    ms = time_ms(torch, lambda: ops.gumbel_perturb(logits, u))
+    plain_ms = time_ms(torch, lambda: ops.gumbel_perturb_plain(logits, u))
+    bound_ms = 3 * rows * vocab * 4 / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "kernel", "name": "gumbel_perturb", "R": rows,
+           "V": vocab, "max_abs_err": err, "tol": GUMBEL_TOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+           "library_ms": None}
+    emit(row)
+    if not err <= GUMBEL_TOL or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"gumbel_perturb disagrees with its plain "
+                             f"version: {err}")
+    return row
+
+
+# ----------------------------------------------------------------------
+# serving phases
+# ----------------------------------------------------------------------
+
+def run_engine(torch, cfg, params, requests, dev, **kw):
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, params, page_size=PAGE_SIZE,
+                        num_pages=kw.pop("num_pages", 1280),
+                        max_batch=MAX_BATCH, token_budget=TOKEN_BUDGET,
+                        chunk_size=CHUNK, max_pages_per_seq=128,
+                        device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=n, sampling=sp)
+           for p, n, sp in requests]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = []
+    for i, (_, n, _) in zip(ids, requests):
+        req = eng.result(i)
+        if req is None or len(req.out_tokens) != n:
+            raise AssertionError(f"request {i} did not finish with {n} "
+                                 f"tokens")
+        if not all(0 <= tok < cfg.vocab_size for tok in req.out_tokens):
+            raise AssertionError(f"request {i} emitted a token out of "
+                                 f"range")
+        outs.append(list(req.out_tokens))
+    m = eng.metrics
+    if m["failed_requests"] or m["watchdog_trips"] or \
+            m["executor_failures"]:
+        raise AssertionError(f"serving faults: {m}")
+    if m["bucket_compiles"] > eng.bucket_count:
+        raise AssertionError("more step buckets than the bucket count")
+    m["bucket_count"] = eng.bucket_count
+    return outs, wall, m
+
+
+def _kernel_group(name: str) -> str:
+    n = name.lower()
+    if "paged_attention" in n:
+        return "paged_attention"
+    if "gumbel" in n:
+        return "gumbel_perturb"
+    if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "matmul")):
+        return "matmul"
+    if "sort" in n or "radix" in n or "cumsum" in n or "scan" in n:
+        return "sampling_sort_scan"
+    return "other"
+
+
+def counted(torch, what: str, fn):
+    """Run ``fn`` with every kernel launch count zeroed just before it;
+    read the counts just after and fail unless both kernels launched."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("paged_attention", "gumbel_perturb"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was never launched in {what}")
+    return result, counts
+
+
+def profile_serving(torch, cfg, params, requests, dev) -> dict:
+    """One serving run under ``torch.profiler``: device time by kernel
+    group, the busy share of the wall clock, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (_, wall, m), counts = counted(
+            torch, "the profiled run",
+            lambda: run_engine(torch, cfg, params, requests, dev))
+    groups, top = {}, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us or ev.device_type is None or \
+                "CUDA" not in str(ev.device_type):
+            continue
+        g = _kernel_group(ev.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        top.append((us / 1e3, ev.key[:60], ev.count))
+    top.sort(reverse=True)
+    busy = sum(groups.values())
+    return {"wall_ms": wall * 1e3, "device_ms_by_group": groups,
+            "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+            "steps": m["steps"], "launches": counts,
+            "top_kernels": [{"ms": t, "name": n, "calls": c}
+                            for t, n, c in top[:8]]}
+
+
+def phase_small_e2e(torch) -> None:
+    """The engine on a small config (gemma-smoke, fp32, through the
+    kernels) agrees token for token with the same engine on the CPU
+    (plain versions)."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.models import lm as LM
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg = gemma_2b.SMOKE
+    params = LM.init_params(cfg, seed=3, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    reqs = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
+             12, SamplingParams()) for n in (5, 17, 30, 9)]
+
+    def serve(dev):
+        eng = ServingEngine(cfg, params, page_size=4, num_pages=64,
+                            max_batch=4, device=dev)
+        ids = [eng.submit(p, max_new_tokens=n, sampling=sp)
+               for p, n, sp in reqs]
+        eng.run()
+        return [eng.result(i).out_tokens for i in ids]
+
+    on_cpu = serve("cpu")
+    on_cuda, counts = counted(torch, "the small CUDA run",
+                              lambda: serve("cuda"))
+    emit({"phase": "small_e2e", "config": cfg.name,
+          "equal": on_cpu == on_cuda, "launches": counts})
+    if on_cpu != on_cuda:
+        raise AssertionError(f"small config: CUDA {on_cuda} != CPU "
+                             f"{on_cpu}")
+
+
+def phase_serving(torch, dev) -> dict:
+    """gemma-2b at full width and depth, random weights from a seeded
+    generator on the card.  Returns the main (bf16) run's launch
+    counts."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.models import lm as LM
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg32 = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg32, param_dtype=torch.bfloat16)
+    params32 = LM.init_params(cfg32, seed=0, device=dev)
+    params = LM.cast_params(params32, torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    requests = []
+    for i in range(MAX_BATCH):
+        n = int(torch.randint(128, 1025, (1,), generator=gen))
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+        sp = SamplingParams() if i % 2 == 0 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=i)
+        requests.append((prompt.tolist(), NEW_TOKENS, sp))
+
+    runs, main_counts = {}, None
+    for name, c, p, reqs, kw in (
+            ("bf16", cfg, params, requests, {}),
+            ("bf16_int8kv", cfg, params, requests, {"kv_dtype": "int8"}),
+            ("fp32_greedy", cfg32, params32,
+             [r for r in requests if r[2].greedy], {}),
+            ("fp32_greedy_spec2", cfg32, params32,
+             [r for r in requests if r[2].greedy], {"spec_k": SPEC_K})):
+        (outs, wall, m), counts = counted(
+            torch, f"serving run {name}",
+            lambda: run_engine(torch, c, p, reqs, dev, **kw))
+        runs[name] = outs
+        if main_counts is None:
+            main_counts = counts
+        emit({"phase": "serving", "run": name, "model": c.name,
+              "layers": c.n_layers, "requests": len(reqs),
+              "new_tokens": sum(n for _, n, _ in reqs),
+              "prompt_tokens": sum(len(q) for q, _, _ in reqs),
+              "wall_s": wall,
+              "tokens_per_s": sum(n for _, n, _ in reqs) / wall,
+              "steps": m["steps"], "buckets": m["bucket_compiles"],
+              "bucket_count": m["bucket_count"],
+              "spec_acceptance_rate": m["spec_acceptance_rate"],
+              "kv_dtype": m["kv_dtype"], "launches": counts})
+    emit({"phase": "serving_profile", "run": "bf16",
+          **profile_serving(torch, cfg, params, requests, dev)})
+    if runs["fp32_greedy"] != runs["fp32_greedy_spec2"]:
+        raise AssertionError("spec_k=2 greedy output differs from "
+                             "spec_k=0")
+    emit({"phase": "serving_checks", "spec2_equals_spec0": True})
+    return main_counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print(smi_line(), flush=True)
+    from repro_torch.kernels import decode_attention as DA
+    t0 = time.perf_counter()
+    DA.build()
+    emit({"phase": "build", "kernel": "paged_attention",
+          "seconds": time.perf_counter() - t0})
+
+    rows = {"paged_attention": phase_paged_attention(torch, "cuda"),
+            "gumbel_perturb": phase_gumbel(torch, "cuda")}
+    phase_small_e2e(torch)
+    counts = phase_serving(torch, "cuda")
+
+    table = []
+    for name, route, source, replaces in (
+            ("paged_attention", "cuda",
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/decode_attention.py:322"),
+            ("gumbel_perturb", "triton",
+             "src/repro_torch/kernels/_gumbel_triton.py",
+             "src/repro/kernels/ops.py:336")):
+        r = rows[name]
+        table.append({"name": name, "route": route, "source": source,
+                      "replaces": replaces, "launches": counts[name],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"],
+                      "library_ms": r["library_ms"]})
+    print(smi_line(), flush=True)
+    emit({"kernels": table})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

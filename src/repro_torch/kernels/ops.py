@@ -1,0 +1,96 @@
+"""Public wrappers around the port's kernels.
+
+Counterpart of ``repro/kernels/ops.py`` for the serving slice:
+
+  * :func:`paged_attention` does the GQA grouping
+    ``(T, Hq, D) -> (T, Hkv, G, D)`` of ``ops.py:160-193`` and calls the
+    CUDA paged-attention kernel.  There is no ``_pad_last`` lane padding:
+    the kernel is templated on head_dim, so no page pool is ever copied
+    to a padded width, and no ``pages_per_tile`` (see the kernel's
+    source note);
+  * :func:`gumbel_perturb` is the Gumbel-max perturbation
+    ``logits + -log(-log(u))`` in fp32, a Triton kernel on CUDA.
+
+Source note for the Gumbel kernel.  It replaces
+``repro/kernels/ops.py::gumbel_perturb``, which ran the perturbation as
+one Pallas ``fused_elementwise`` kernel (``pallas_call`` at
+``ops.py:323``) over a ``(rows, 128)`` lane-major view.  On the H100 it
+is bound by bytes: two fp32 reads and one fp32 write per element, for
+gemma-2b ``R = S*(K+1)`` rows of ``V = 256000``, and two logs per
+element, far below the card's compute.  So the kernel is one flat
+elementwise pass over the contiguous buffer with 16-byte-friendly
+contiguous blocks; it needs no tiling, shared memory or tensor cores,
+which is why Triton serves as well as CUDA C++ here.  The TPU's
+``(rows, 128)`` view, sublane-rounded block rows and tail padding do not
+carry over: Triton masks the ragged tail itself.  The uniforms stay an
+input, as in the TPU kernel.
+
+Each wrapper takes the plain version only for CPU tensors; on a CUDA
+tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ._build import LaunchCounter
+from .decode_attention import paged_attention_fwd
+
+gumbel_counter = LaunchCounter("gumbel_perturb")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, tables: torch.Tensor,
+                    seg_ids: torch.Tensor, positions: torch.Tensor,
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Mixed prefill/decode attention directly over the physical KV page
+    pool.  q: (T, Hq, D) flat token batch; k_pages/v_pages (N, ps, Hkv,
+    D); tables (S, P), seg_ids/positions (T,) int32.  Token t attends
+    slot seg_ids[t]'s pages at key positions <= positions[t] (seg_ids < 0
+    is padding whose output the caller discards).  A quantized pool
+    passes (N, ps, Hkv) fp32 ``k_scale``/``v_scale``.  Returns (T, Hq, D)
+    in q's dtype."""
+    t, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    eff_scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(t, hkv, hq // hkv, d).contiguous()
+    out = paged_attention_fwd(qg, k_pages, v_pages, tables, seg_ids,
+                              positions, scale=eff_scale, window=window,
+                              k_scale=k_scale, v_scale=v_scale)
+    return out.reshape(t, hq, d)
+
+
+def gumbel_perturb_plain(logits: torch.Tensor,
+                         uniform: torch.Tensor) -> torch.Tensor:
+    """``logits + -log(-log(u))`` in fp32, elementwise."""
+    return logits.float() + -torch.log(-torch.log(uniform.float()))
+
+
+def gumbel_perturb(logits: torch.Tensor,
+                   uniform: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max perturbation for sampling: ``argmax`` of the result is
+    a categorical draw from ``softmax(logits)``.  ``uniform`` in (0, 1),
+    same shape as ``logits``.  Returns fp32."""
+    if logits.shape != uniform.shape:
+        raise ValueError(f"gumbel_perturb: shapes differ "
+                         f"{tuple(logits.shape)} vs {tuple(uniform.shape)}")
+    if logits.device.type == "cpu":
+        return gumbel_perturb_plain(logits, uniform)
+    if logits.device.type != "cuda" or uniform.device != logits.device:
+        raise ValueError(f"gumbel_perturb: unsupported devices "
+                         f"{logits.device}/{uniform.device}")
+    x = logits.float().contiguous()
+    u = uniform.float().contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        from . import _gumbel_triton
+        with torch.cuda.device(x.device):
+            _gumbel_triton.launch(x, u, out)
+        gumbel_counter.bump()
+    return out

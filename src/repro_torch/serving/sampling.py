@@ -1,0 +1,152 @@
+"""Token sampling for the serving executor, on the device.
+
+Counterpart of ``repro/serving/sampling.py``.  Logits never go to the
+host: the step's only device-to-host copies are the sampled token ids
+and the per-slot fault flags.
+
+Determinism contract.  The reference draws its noise from JAX threefry
+keys ``fold_in(key(seed), position)``, which torch cannot reproduce.
+What carries over is the contract: the uniform noise for a sampled token
+is a function of ``(seed, absolute position)`` only (and of the vocab
+lane), so a request replayed on a rebuilt engine, after a preemption, or
+inside a speculative batch draws the same token at every position.  The
+port's uniforms come from a counter-based hash of
+``(seed, position, lane)`` written in integer torch ops
+(:func:`position_uniforms`), which gives the same bits on the CPU and
+on CUDA.  ``temperature <= 0`` is plain argmax; filtering keeps ties at
+the top-k boundary and at the top-p cutoff.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..kernels import ops as kops
+
+__all__ = ["SamplingParams", "filter_logits", "sample_tokens",
+           "position_uniforms"]
+
+_NEG_INF = torch.finfo(torch.float32).min
+_MIN_TEMP = 1e-6
+_MIN_UNIFORM = 1e-20
+_M32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling configuration.
+
+    ``temperature <= 0`` means greedy (argmax); ``top_k <= 0`` disables
+    the top-k filter; ``top_p >= 1`` disables the nucleus filter.
+    ``seed`` roots the request's noise: equal seeds draw identical noise
+    at equal positions."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+    def validate(self) -> "SamplingParams":
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if not (0.0 < self.top_p <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.temperature < 0.0:
+            raise ValueError(
+                f"temperature must be >= 0, got {self.temperature}")
+        return self
+
+
+def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Row-wise: temperature-scale ``(R, V)`` logits and set everything
+    outside the top-k / top-p support to ``finfo(float32).min``.
+
+    ``top_k`` is a value threshold (the k-th largest scaled logit; ties
+    kept); ``top_p`` keeps the smallest sorted prefix whose exclusive
+    cumulative probability is below ``top_p``, then thresholds by value
+    (ties kept).  ``top_k <= 0`` and ``top_p >= 1`` are no-ops."""
+    v = logits.shape[-1]
+    scaled = logits.float() / torch.clamp(temperature.float(),
+                                          min=_MIN_TEMP)[:, None]
+    k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, v))
+    k_eff = k_eff.clamp(1, v).long()
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    kth = srt.gather(1, (k_eff - 1)[:, None])
+    keep = scaled >= kth
+    ranks = torch.arange(v, device=logits.device)[None, :]
+    in_k = ranks < k_eff[:, None]
+    srt_k = torch.where(in_k, srt, torch.full_like(srt, _NEG_INF))
+    probs = torch.softmax(srt_k, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = ((cum - probs) < top_p.float()[:, None]) & in_k
+    thr = torch.where(keep_sorted, srt_k,
+                      torch.full_like(srt_k, float("inf"))).amin(dim=-1)
+    keep = keep & (scaled >= thr[:, None])
+    return torch.where(keep, scaled, torch.full_like(scaled, _NEG_INF))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) without
+    overflowing int64: split ``c`` into 16-bit halves."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (xor-shift / multiply rounds) over
+    int64 tensors holding values in [0, 2**32)."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x
+
+
+def position_uniforms(seeds: torch.Tensor, positions: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+    """(R,) seeds × (R,) absolute positions -> (R, V) fp32 uniforms in
+    [_MIN_UNIFORM, 1).  Counter-based: each lane's bits are a hash of
+    (seed, position, lane), so they depend on nothing else (not the
+    row's place in the batch, not the device)."""
+    dev = seeds.device
+    s = seeds.long() & _M32
+    p = positions.long() & _M32
+    row = _hash32(_hash32(s ^ 0x9E3779B9) ^ p)                     # (R,)
+    lane = _hash32(torch.arange(vocab, device=dev, dtype=torch.int64)
+                   + 0x632BE5AB)                                    # (V,)
+    bits = _hash32(row[:, None] ^ lane[None, :])
+    # 23 bits, so (k + 0.5) / 2**23 is exact in fp32 and stays below 1
+    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+    return torch.clamp(u, min=_MIN_UNIFORM)
+
+
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  seeds: torch.Tensor, positions: torch.Tensor,
+                  uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample one token per ``(R, V)`` logits row.  Per-row ``(R,)``
+    temperature / top_k / top_p / seeds / positions.  Stochastic rows
+    take the Gumbel-max draw over the filtered support (the Gumbel
+    kernel, ``kernels.ops.gumbel_perturb``); rows with ``temperature <=
+    0`` return ``argmax(logits)``.  ``uniform`` (R, V) replaces the
+    position-keyed noise (tests feed both packages the same numbers).
+    Returns (R,) int32."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    filtered = filter_logits(logits, temperature, top_k, top_p)
+    if uniform is None:
+        uniform = position_uniforms(seeds, positions, v)
+    perturbed = kops.gumbel_perturb(filtered, uniform)
+    stochastic = torch.argmax(perturbed, dim=-1)
+    greedy = torch.argmax(logits, dim=-1)
+    return torch.where(temperature > 0.0, stochastic,
+                       greedy).to(torch.int32)

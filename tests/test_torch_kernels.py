@@ -1,0 +1,172 @@
+"""Port kernels against the JAX package: paged attention and the Gumbel
+perturbation.
+
+On the CPU the port's wrappers run their plain PyTorch versions; they
+are held against ``repro.kernels.ref.paged_attention`` (the jnp oracle)
+and ``repro.kernels.ops.paged_attention`` (the Pallas kernel in
+interpret mode, as tests/test_kernels.py runs it) on the same numpy
+inputs, at the 1e-5 kernel tier of docs/kernels.md.  The port is given
+the reference's own codes and scales for quantized pools.  Cases that
+hold the CUDA / Triton kernels against the plain versions need the card
+and skip elsewhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.serving import quant as jquant
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as TA
+from torch_port_helpers import cuda_device, requires_cuda, to_numpy, \
+    to_torch  # noqa: F401  (cuda_device is the fixture requires_cuda uses)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def paged_case(seed, hd, kv_dtype, hq=4, hkv=2, ps=4, n_pages=24):
+    """A mixed batch: a prefill chunk (slot 0), a fresh prefill start
+    (slot 1), decode tokens (slot 2) and one padding token (seg -1)."""
+    rng = np.random.default_rng(seed)
+    kp = rng.standard_normal((n_pages, ps, hkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, hkv, hd)).astype(np.float32)
+    q = rng.standard_normal((7, hq, hd)).astype(np.float32)
+    tables = rng.permutation(n_pages)[:12].reshape(3, 4).astype(np.int32)
+    seg = np.array([0, 0, 1, 2, 2, 2, -1], np.int32)
+    pos = np.array([3, 4, 0, 10, 14, 15, 0], np.int32)
+    ksc = vsc = None
+    if kv_dtype != "fp32":
+        kp, ksc = (np.asarray(a) for a in jquant.quantize(jnp.asarray(kp),
+                                                          kv_dtype))
+        vp, vsc = (np.asarray(a) for a in jquant.quantize(jnp.asarray(vp),
+                                                          kv_dtype))
+    return q, kp, vp, ksc, vsc, tables, seg, pos
+
+
+def port_paged(q, kp, vp, ksc, vsc, tables, seg, pos, window):
+    t = lambda a: None if a is None else to_torch(a)  # noqa: E731
+    return to_numpy(tops.paged_attention(
+        t(q), t(kp), t(vp), t(tables), t(seg), t(pos), window=window,
+        k_scale=t(ksc), v_scale=t(vsc)))
+
+
+@pytest.mark.parametrize("hd", [16, 128])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8", "fp8_e4m3"])
+def test_paged_plain_matches_jax_ref_and_pallas(kv_dtype, window, hd):
+    q, kp, vp, ksc, vsc, tables, seg, pos = paged_case(1, hd, kv_dtype)
+    out = port_paged(q, kp, vp, ksc, vsc, tables, seg, pos, window)
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    args = (j(q), j(kp), j(vp), j(tables), j(seg), j(pos))
+    kw = dict(window=window, k_scale=j(ksc), v_scale=j(vsc))
+    live = seg >= 0
+    exp_ref = np.asarray(jref.paged_attention(*args, **kw))
+    np.testing.assert_allclose(out[live], exp_ref[live], **TOL)
+    exp_pallas = np.asarray(jops.paged_attention(*args, **kw))
+    np.testing.assert_allclose(out[live], exp_pallas[live], **TOL)
+
+
+def test_paged_ragged_tables_and_shared_prefix():
+    """Ragged live-page counts and two slots sharing prefix pages (the
+    reference's own cases, test_kernels.py:166-207)."""
+    rng = np.random.default_rng(2)
+    kp = rng.standard_normal((40, 8, 2, 16)).astype(np.float32)
+    vp = rng.standard_normal((40, 8, 2, 16)).astype(np.float32)
+    q = rng.standard_normal((4, 8, 16)).astype(np.float32)
+    tables = np.zeros((4, 4), np.int32)
+    tables[0, :1] = [5]
+    tables[1, :4] = [7, 9, 11, 13]
+    tables[2, :3] = [7, 9, 2]              # shares slot 1's first pages
+    tables[3, :1] = [17]
+    seg = np.array([0, 1, 2, 3], np.int32)
+    pos = np.array([2, 29, 20, 0], np.int32)
+    out = port_paged(q, kp, vp, None, None, tables, seg, pos, None)
+    exp = np.asarray(jref.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(seg), jnp.asarray(pos)))
+    np.testing.assert_allclose(out, exp, **TOL)
+
+
+def test_model_paged_attention_is_the_wrapper():
+    q, kp, vp, ksc, vsc, tables, seg, pos = paged_case(3, 16, "int8")
+    t = to_torch
+    a = TA.paged_attention(t(q), t(kp), t(vp), t(tables), t(seg), t(pos),
+                           k_scale=t(ksc), v_scale=t(vsc))
+    b = DA.paged_attention_plain(
+        t(q).reshape(7, 2, 2, 16), t(kp), t(vp), t(tables), t(seg), t(pos),
+        scale=16 ** -0.5, k_scale=t(ksc), v_scale=t(vsc)).reshape(7, 4, 16)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert TA.paged_attention is tops.paged_attention
+    assert TA.select_paged_backend("ref", sharded=False) == "ref"
+    with pytest.raises(NotImplementedError):
+        TA.select_paged_backend("auto", sharded=True)
+
+
+def test_gumbel_plain_matches_jax():
+    rng = np.random.default_rng(4)
+    logits = (rng.standard_normal((6, 333)) * 3).astype(np.float32)
+    logits[0, :10] = np.finfo(np.float32).min      # filtered-out lanes
+    u = rng.uniform(1e-20, 1.0, (6, 333)).astype(np.float32)
+    exp = np.asarray(jops.gumbel_perturb(jnp.asarray(logits),
+                                         jnp.asarray(u)))
+    out = to_numpy(tops.gumbel_perturb(to_torch(logits), to_torch(u)))
+    # 1e-6 relative to the O(1) perturbed values: the two frameworks'
+    # fp32 logs differ in the last bits, so values near 0 get the same
+    # 1e-6 as an absolute floor
+    np.testing.assert_allclose(out, exp, rtol=1e-6, atol=1e-6)
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError):
+        tops.gumbel_perturb(x, x)
+    with pytest.raises(ValueError):
+        tops.gumbel_perturb(torch.zeros(2, 4), torch.zeros(2, 5))
+
+
+# ----------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ----------------------------------------------------------------------
+
+@requires_cuda
+@pytest.mark.parametrize("hd", [16, 128, 256])
+@pytest.mark.parametrize("kv_dtype", ["fp32", "bf16", "int8", "fp8_e4m3"])
+def test_cuda_paged_kernel_matches_plain(cuda_device, kv_dtype, hd):
+    q, kp, vp, ksc, vsc, tables, seg, pos = paged_case(
+        5, hd, "fp32" if kv_dtype == "bf16" else kv_dtype, hq=8, hkv=1)
+    dev = cuda_device
+    t = lambda a: None if a is None else to_torch(a).to(dev)  # noqa: E731
+    qq = t(q)
+    kk, vv = t(kp), t(vp)
+    if kv_dtype == "bf16":
+        qq, kk, vv = (x.to(torch.bfloat16) for x in (qq, kk, vv))
+    before = DA.counter.launches
+    out = tops.paged_attention(qq, kk, vv, t(tables), t(seg), t(pos),
+                               k_scale=t(ksc), v_scale=t(vsc), window=6)
+    torch.cuda.synchronize()
+    assert DA.counter.launches == before + 1
+    exp = DA.paged_attention_plain(
+        qq.reshape(7, 1, 8, hd), kk, vv, t(tables), t(seg), t(pos),
+        scale=hd ** -0.5, k_scale=t(ksc), v_scale=t(vsc),
+        window=6).reshape(7, 8, hd)
+    live = torch.as_tensor(seg >= 0, device=dev)
+    tol = 3e-2 if kv_dtype == "bf16" else 1e-5
+    torch.testing.assert_close(out[live].float(), exp[live].float(),
+                               rtol=tol, atol=tol)
+
+
+@requires_cuda
+def test_triton_gumbel_kernel_matches_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    logits = torch.randn((48, 256000), generator=g, device=cuda_device)
+    u = torch.rand((48, 256000), generator=g,
+                   device=cuda_device).clamp(1e-20, 1 - 1e-7)
+    before = tops.gumbel_counter.launches
+    out = tops.gumbel_perturb(logits, u)
+    assert tops.gumbel_counter.launches == before + 1
+    torch.testing.assert_close(out, tops.gumbel_perturb_plain(logits, u),
+                               rtol=1e-5, atol=1e-4)
