@@ -3,25 +3,43 @@
 
     python3 chip_smoke.py          # needs one GPU; takes no arguments
 
-It builds the port's kernels from the sources in this checkout, holds
-each one against its plain PyTorch version at the shapes of the gemma-2b
-serving path, checks the serving engine end to end on a small config
-against the same engine on the CPU, then serves gemma-2b at full width
-(18 layers, random bf16 weights from a seed) through
-``repro_torch.serving.ServingEngine`` and shows that the serving run
-went through the kernels (launch counts > 0).
+It builds the port's kernels from the sources in this checkout (one
+``nvcc`` per library, all started together), holds each one against its
+plain PyTorch version at the shapes of the gemma-2b paths, checks the
+serving engine end to end on a small config against the same engine on
+the CPU, then drives gemma-2b at full width (18 layers, random weights
+from a seed) through both of the port's paths:
+
+  * paged continuous-batching serving through
+    ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
+  * the dense-cache path: prefill through
+    ``repro_torch.launch.train.make_prefill_step`` (``lm.forward``, the
+    flash kernel) and greedy decode through ``make_serve_step``
+    (``lm.decode_step``, the decode kernel), then a prefill == decode
+    parity check at fp32 weights.
+
+Each run shows that it went through its kernels: the launch counts are
+zeroed just before it and read just after.
 
 Output, one line each:
   * the card's name and power limit, as ``nvidia-smi`` gives them;
   * one JSON line per kernel phase: paged attention for every (q dtype,
     pool dtype) pair the serving runs launch, plus fp8 (max abs error
     against the plain version beside the reference's RMS, kernel / plain
-    / library ms by CUDA events, the bound); the Gumbel kernel;
+    / library ms by CUDA events, the bound); the Gumbel kernel; flash
+    attention (gemma-2b prefill, an offset+window row, an fp32 row);
+    decode attention (gemma-2b decode at ragged lengths, fp32, window);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
-    run's own kernel launches: the counts are zeroed just before each
-    run and read just after it, and every run must launch both kernels);
-  * ``{"kernels": [...]}``: every ported kernel with its launches in the
-    main bf16 serving run and its numbers at the main path's shapes;
+    run's own kernel launches: every run must launch both kernels);
+  * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines, each
+    with its own launch counts;
+  * the profiled runs (``serving_profile``, ``dense_decode_profile``:
+    device time by kernel group and idle share), last, because a
+    profiler session slows the host for the timed runs after it;
+  * ``{"kernels": [...]}``: every ported kernel with its launches in its
+    path's main run (bf16 serving for paged attention and Gumbel, dense
+    prefill for flash, dense decode for decode attention) and its
+    numbers at that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -54,6 +72,32 @@ PAGED_CASES = (("bfloat16", "bfloat16"), ("bfloat16", "int8"),
                ("float32", "float32"), ("float32", "int8"),
                ("float32", "fp8_e4m3"))
 GUMBEL_TOL = 1e-4                  # fp32 logs of values up to ~20 in size
+# flash / decode attention against their plain versions, elementwise
+# |out - ref| <= tol + rtol * |ref|.  bf16: tol = rtol = 1e-2 (what
+# torch.testing.assert_close(rtol=1e-2, atol=1e-2) checks).  The kernel
+# rounds the unnormalised probabilities to bf16 and the plain version
+# the normalised ones, as the Pallas kernel and the jnp oracle do, so
+# the two differ by about one bf16 rounding of the output: up to 0.0156
+# for causal rows that average a few N(0, 1) values of magnitude 2-4.
+# fp32: tol 1e-5, or 2e-3 for the long reductions (Skv >= 1024), rtol 0:
+# the reference's tiers (docs/kernels.md).
+ATTN_BF16_TOL = 1e-2
+# (label, dtype, B, Hq, Hkv, Sq, Skv, D, window); all causal.  The first
+# row is gemma-2b prefill of (4, 1024) tokens, the dense_prefill shape.
+FLASH_ROWS = (("prefill", "bfloat16", 4, 8, 1, 1024, 1024, 256, None),
+              ("offset_window", "bfloat16", 4, 8, 1, 384, 1024, 256, 256),
+              ("fp32", "float32", 4, 8, 1, 256, 256, 256, None))
+# (label, dtype, B, Hkv, G, D, Smax, window); lengths ragged in 1..Smax.
+# The first row is gemma-2b decode at B = 8.
+DECODE_ROWS = (("decode", "bfloat16", 8, 1, 8, 256, 2048, None),
+               ("fp32", "float32", 8, 1, 8, 256, 2048, None),
+               ("window", "bfloat16", 8, 1, 8, 256, 2048, 256))
+# dense path: prefill (4, 1024); decode B = 8, 128-token prompts fed one
+# token a step, then 64 greedy tokens; parity on (2, 160) at fp32
+PREFILL_SHAPE = (4, 1024)
+DECODE_BATCH, DECODE_MAX_SEQ, DECODE_PROMPT, DECODE_NEW = 8, 1024, 128, 64
+PARITY_SHAPE = (2, 160)
+PARITY_RTOL = 5e-3                 # of the logits' RMS (rollout_parity)
 
 # gemma-2b serving shapes
 PAGE_SIZE = 16
@@ -268,6 +312,144 @@ def phase_gumbel(torch, dev) -> dict:
     return row
 
 
+def attn_bound(nbytes: int, ops: int, dtype: str) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_tol(dtype: str, skv: int) -> tuple:
+    """(tol, rtol) of a flash/decode row."""
+    if dtype == "bfloat16":
+        return ATTN_BF16_TOL, ATTN_BF16_TOL
+    return (2e-3 if skv >= 1024 else 1e-5), 0.0
+
+
+def check_row(torch, name: str, out, ref, tol: tuple) -> dict:
+    atol, rtol = tol
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    worst = (diff / (atol + rtol * ref.float().abs())).max().item()
+    ref_rms = ref.float().pow(2).mean().sqrt().item()
+    if not bool(torch.isfinite(out.float()).all()) or not worst <= 1.0:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs error {err}, {worst} x its limit "
+                             f"(tol {atol}, rtol {rtol})")
+    return {"max_abs_err": err, "tol": atol, "rtol": rtol,
+            "err_over_limit": worst, "ref_rms": ref_rms,
+            "max_err_over_ref_rms": err / ref_rms}
+
+
+def phase_flash(torch, dev) -> dict:
+    """The flash kernel against its plain version; the first row is the
+    dense_prefill shape and is the one reported in the kernel table."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import _build_mask
+
+    result = None
+    for label, dt, b, hq, hkv, sq, skv, d, window in FLASH_ROWS:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        q = torch.randn((b * hq, sq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b * hkv, skv, d), generator=gen,
+                        device=dev).to(dtype)
+        v = torch.randn((b * hkv, skv, d), generator=gen,
+                        device=dev).to(dtype)
+        kw = dict(causal=True, scale=d ** -0.5, window=window)
+        out = FA.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = FA.flash_attention_plain(q, k, v, **kw)
+        row = {"phase": "kernel", "name": "flash_attention", "row": label,
+               "dtype": dt, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
+               "Skv": skv, "D": d, "window": window}
+        row.update(check_row(torch, f"flash_attention[{label}]", out, ref,
+                             attn_tol(dt, skv)))
+        row["ms"] = time_ms(torch, lambda: FA.flash_attention_fwd(q, k, v,
+                                                                  **kw))
+        row["plain_ms"] = time_ms(
+            torch, lambda: FA.flash_attention_plain(q, k, v, **kw), reps=5)
+        mask = _build_mask(sq, skv, True, window, dev)
+        pairs = int(mask.sum().item())
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        row["bound_ms"], row["bound_by"] = attn_bound(
+            nbytes, 4 * pairs * d * b * hq, dt)
+        # yardstick: one SDPA call over K/V expanded to Hq (expanded
+        # outside the timed call); the port never calls it
+        q4 = q.reshape(b, hq, sq, d)
+        k4 = k.reshape(b, hkv, 1, skv, d).expand(b, hkv, hq // hkv, skv,
+                                                 d).reshape(b, hq, skv, d)
+        v4 = v.reshape(b, hkv, 1, skv, d).expand(b, hkv, hq // hkv, skv,
+                                                 d).reshape(b, hq, skv, d)
+        if sq == skv and window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=True, scale=d ** -0.5)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=mask, scale=d ** -0.5)
+        row["library_ms"] = time_ms(torch, lib)
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
+def phase_decode(torch, dev) -> dict:
+    """The decode kernel against its plain version at ragged lengths;
+    the first row is the dense_decode shape (the table's row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+
+    result = None
+    for label, dt, b, hkv, g, d, smax, window in DECODE_ROWS:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        q = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(dtype)
+        kc = torch.randn((b, hkv, smax, d), generator=gen,
+                         device=dev).to(dtype)
+        vc = torch.randn((b, hkv, smax, d), generator=gen,
+                         device=dev).to(dtype)
+        lens_h = torch.randint(1, smax + 1, (b,),
+                               generator=torch.Generator().manual_seed(15))
+        lens_h[0], lens_h[-1] = 1, smax
+        lens = lens_h.to(torch.int32).to(dev)
+        kw = dict(scale=d ** -0.5, window=window)
+        out = DA.decode_attention_fwd(q, kc, vc, lens, **kw)
+        torch.cuda.synchronize()
+        ref = DA.decode_attention_plain(q, kc, vc, lens, **kw)
+        row = {"phase": "kernel", "name": "decode_attention", "row": label,
+               "dtype": dt, "B": b, "Hkv": hkv, "G": g, "D": d,
+               "Smax": smax, "window": window, "lens": lens_h.tolist()}
+        row.update(check_row(torch, f"decode_attention[{label}]", out, ref,
+                             attn_tol(dt, smax)))
+        row["ms"] = time_ms(torch, lambda: DA.decode_attention_fwd(
+            q, kc, vc, lens, **kw))
+        row["plain_ms"] = time_ms(torch, lambda: DA.decode_attention_plain(
+            q, kc, vc, lens, **kw), reps=5)
+        live = sum(min(n, window) if window else n for n in lens_h.tolist())
+        nbytes = ((2 * q.numel()) * q.element_size() + 4 * b
+                  + 2 * live * hkv * d * kc.element_size())
+        row["bound_ms"], row["bound_by"] = attn_bound(
+            nbytes, 4 * live * hkv * g * d, dt)
+        pos = torch.arange(smax, device=dev)[None, :]
+        ok = pos < lens.long()[:, None]
+        if window:
+            ok = ok & (pos >= lens.long()[:, None] - window)
+        mask = ok[:, None, None, :]
+        q4 = q.reshape(b, hkv * g, 1, d)
+        k4 = kc[:, :, None].expand(b, hkv, g, smax, d).reshape(
+            b, hkv * g, smax, d)
+        v4 = vc[:, :, None].expand(b, hkv, g, smax, d).reshape(
+            b, hkv * g, smax, d)
+        row["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=d ** -0.5))
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
 # ----------------------------------------------------------------------
 # serving phases
 # ----------------------------------------------------------------------
@@ -312,6 +494,10 @@ def _kernel_group(name: str) -> str:
         return "paged_attention"
     if "gumbel" in n:
         return "gumbel_perturb"
+    if "flash_attention" in n:
+        return "flash_attention"
+    if "decode_attention" in n:
+        return "decode_attention"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "matmul")):
         return "matmul"
     if "sort" in n or "radix" in n or "cumsum" in n or "scan" in n:
@@ -319,29 +505,27 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def counted(torch, what: str, fn):
+SERVING_KERNELS = ("paged_attention", "gumbel_perturb")
+
+
+def counted(torch, what: str, fn, required=SERVING_KERNELS):
     """Run ``fn`` with every kernel launch count zeroed just before it;
-    read the counts just after and fail unless both kernels launched."""
+    read the counts just after and fail unless every ``required`` kernel
+    launched."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
     result = fn()
     torch.cuda.synchronize()
     counts = launch_counts()
-    for name in ("paged_attention", "gumbel_perturb"):
+    for name in required:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{name} was never launched in {what}")
     return result, counts
 
 
-def profile_serving(torch, cfg, params, requests, dev) -> dict:
-    """One serving run under ``torch.profiler``: device time by kernel
-    group, the busy share of the wall clock, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        (_, wall, m), counts = counted(
-            torch, "the profiled run",
-            lambda: run_engine(torch, cfg, params, requests, dev))
+def device_time(prof) -> tuple:
+    """Device ms by kernel group, and (ms, name, calls) of each kernel
+    sorted by time, from a ``torch.profiler`` run."""
     groups, top = {}, []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -354,6 +538,19 @@ def profile_serving(torch, cfg, params, requests, dev) -> dict:
         groups[g] = groups.get(g, 0.0) + us / 1e3
         top.append((us / 1e3, ev.key[:60], ev.count))
     top.sort(reverse=True)
+    return groups, top
+
+
+def profile_serving(torch, cfg, params, requests, dev) -> dict:
+    """One serving run under ``torch.profiler``: device time by kernel
+    group, the busy share of the wall clock, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (_, wall, m), counts = counted(
+            torch, "the profiled run",
+            lambda: run_engine(torch, cfg, params, requests, dev))
+    groups, top = device_time(prof)
     busy = sum(groups.values())
     return {"wall_ms": wall * 1e3, "device_ms_by_group": groups,
             "device_busy_ms": busy,
@@ -396,18 +593,26 @@ def phase_small_e2e(torch) -> None:
                              f"{on_cpu}")
 
 
-def phase_serving(torch, dev) -> dict:
+def gemma_models(torch, dev):
     """gemma-2b at full width and depth, random weights from a seeded
-    generator on the card.  Returns the main (bf16) run's launch
-    counts."""
+    generator on the card: (fp32 config, fp32 params, bf16 config, bf16
+    params).  Every gemma-2b phase uses these two copies."""
     from repro_torch.configs import gemma_2b
     from repro_torch.models import lm as LM
-    from repro_torch.serving.sampling import SamplingParams
 
     cfg32 = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.float32)
     cfg = dataclasses.replace(cfg32, param_dtype=torch.bfloat16)
     params32 = LM.init_params(cfg32, seed=0, device=dev)
     params = LM.cast_params(params32, torch.bfloat16)
+    return cfg32, params32, cfg, params
+
+
+def phase_serving(torch, dev, models) -> tuple:
+    """gemma-2b serving runs.  Returns the main (bf16) run's launch
+    counts, and a function that runs it again under the profiler."""
+    from repro_torch.serving.sampling import SamplingParams
+
+    cfg32, params32, cfg, params = models
     gen = torch.Generator().manual_seed(1)
     requests = []
     for i in range(MAX_BATCH):
@@ -441,13 +646,173 @@ def phase_serving(torch, dev) -> dict:
               "bucket_count": m["bucket_count"],
               "spec_acceptance_rate": m["spec_acceptance_rate"],
               "kv_dtype": m["kv_dtype"], "launches": counts})
-    emit({"phase": "serving_profile", "run": "bf16",
-          **profile_serving(torch, cfg, params, requests, dev)})
     if runs["fp32_greedy"] != runs["fp32_greedy_spec2"]:
         raise AssertionError("spec_k=2 greedy output differs from "
                              "spec_k=0")
     emit({"phase": "serving_checks", "spec2_equals_spec0": True})
-    return main_counts
+
+    def profiled():
+        emit({"phase": "serving_profile", "run": "bf16",
+              **profile_serving(torch, cfg, params, requests, dev)})
+    return main_counts, profiled
+
+
+# ----------------------------------------------------------------------
+# dense-cache phases (lm.forward / lm.decode_step)
+# ----------------------------------------------------------------------
+
+def phase_dense_prefill(torch, dev, models) -> dict:
+    """gemma-2b bf16 prefill of (4, 1024) tokens through
+    ``make_prefill_step``: one flash launch per layer."""
+    from repro_torch.launch.train import make_prefill_step
+
+    _, _, cfg, params = models
+    prefill = make_prefill_step(cfg, device=dev)
+    b, s = PREFILL_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(21))
+    tokens = tokens.to(dev)
+    prefill(params, {"tokens": tokens})          # warm-up, not counted
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    (logits, wall), counts = counted(torch, "the dense prefill run", run,
+                                     required=("flash_attention",))
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"dense prefill launched flash "
+                             f"{counts['flash_attention']} times, not "
+                             f"{cfg.n_layers}")
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits[:, -1].float()).all()):
+        raise AssertionError(f"dense prefill logits {tuple(logits.shape)} "
+                             f"are not finite (B, S, V)")
+    row = {"phase": "dense_prefill", "model": cfg.name,
+           "layers": cfg.n_layers, "batch": b, "seq": s, "wall_ms":
+           wall * 1e3, "tokens_per_s": b * s / wall, "launches": counts}
+    emit(row)
+    return counts
+
+
+def phase_dense_decode(torch, dev, models) -> tuple:
+    """gemma-2b bf16 greedy decode through ``make_serve_step``: 8 rows,
+    128-token prompts fed one token a step, then 64 greedy tokens; one
+    decode launch per layer per step.  Returns the run's launch counts,
+    and a function that profiles a window of further steps."""
+    from repro_torch.launch.train import make_serve_step
+    from repro_torch.models import lm as LM
+
+    _, _, cfg, params = models
+    b = DECODE_BATCH
+    serve = make_serve_step(cfg, batch=b, max_seq=DECODE_MAX_SEQ,
+                            cache_dtype=torch.bfloat16, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, DECODE_PROMPT),
+                            generator=torch.Generator().manual_seed(22))
+    prompts = prompts.to(dev)
+    warm = LM.init_cache(cfg, b, DECODE_MAX_SEQ, torch.bfloat16, dev)
+    serve(params, warm, prompts[:, :1], 0)       # warm-up, not counted
+    del warm
+    cache = LM.init_cache(cfg, b, DECODE_MAX_SEQ, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        for t in range(DECODE_PROMPT):
+            logits, _ = serve(params, cache, prompts[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out = [tok]
+        for i in range(DECODE_NEW - 1):
+            logits, _ = serve(params, cache, tok, DECODE_PROMPT + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return torch.cat(out, dim=1), t1 - t0, t2 - t1
+
+    (gen, feed_s, gen_s), counts = counted(
+        torch, "the dense decode run", run, required=("decode_attention",))
+    steps = DECODE_PROMPT + DECODE_NEW - 1
+    if counts["decode_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"dense decode launched decode attention "
+                             f"{counts['decode_attention']} times, not "
+                             f"{cfg.n_layers} x {steps}")
+    if tuple(gen.shape) != (b, DECODE_NEW) or \
+            not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        raise AssertionError("dense decode emitted tokens out of range")
+    wall = feed_s + gen_s
+    row = {"phase": "dense_decode", "model": cfg.name,
+           "layers": cfg.n_layers, "batch": b, "prompt": DECODE_PROMPT,
+           "new_tokens": DECODE_NEW, "steps": steps, "wall_s": wall,
+           "decode_tokens_per_s": b * steps / wall,
+           "generated_tokens_per_s": b * (DECODE_NEW - 1) / gen_s,
+           "ms_per_step": wall * 1e3 / steps, "launches": counts}
+    emit(row)
+
+    def profiled(window: int = 16):
+        from torch.profiler import ProfilerActivity, profile
+        pos0 = DECODE_PROMPT + DECODE_NEW - 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tok = gen[:, -1:]
+            for i in range(window):
+                logits, _ = serve(params, cache, tok, pos0 + i)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        groups, _ = device_time(prof)
+        busy = sum(groups.values())
+        emit({"phase": "dense_decode_profile", "steps": window,
+              "wall_ms": pwall * 1e3, "device_ms_by_group": groups,
+              "device_busy_ms": busy,
+              "device_idle_share": max(0.0, 1.0 - busy / (pwall * 1e3))})
+    return counts, profiled
+
+
+def phase_dense_parity(torch, dev, models) -> None:
+    """gemma-2b at fp32 weights: the last-position logits of ``forward``
+    on (2, 160) tokens (S >= 128: the flash kernel) against a
+    ``decode_step`` rollout over the same tokens (the decode kernel),
+    within 5e-3 of the logits' RMS (``rollout_parity``'s rtol, stated
+    relative because full-width logits are not O(1))."""
+    from repro_torch.models import lm as LM
+
+    cfg32, params32, _, _ = models
+    b, s = PARITY_SHAPE
+    tokens = torch.randint(0, cfg32.vocab_size, (b, s),
+                           generator=torch.Generator().manual_seed(23))
+    tokens = tokens.to(dev)
+
+    def run():
+        with torch.no_grad():
+            full, _ = LM.forward(cfg32, params32, tokens)
+            cache = LM.init_cache(cfg32, b, s, torch.float32, dev)
+            for t in range(s):
+                step, _ = LM.decode_step(cfg32, params32, cache,
+                                         tokens[:, t:t + 1], t)
+        return full[:, -1].float(), step[:, 0].float()
+
+    (pre, dec), counts = counted(
+        torch, "the dense parity run", run,
+        required=("flash_attention", "decode_attention"))
+    err = (pre - dec).abs().max().item()
+    rms = pre.pow(2).mean().sqrt().item()
+    agree = (pre.argmax(-1) == dec.argmax(-1)).tolist()
+    emit({"phase": "dense_parity", "model": cfg32.name, "dtype": "float32",
+          "batch": b, "seq": s, "max_abs_err": err, "logits_rms": rms,
+          "err_over_rms": err / rms, "rtol": PARITY_RTOL,
+          "argmax_agree": agree, "launches": counts})
+    if not bool(torch.isfinite(pre).all() & torch.isfinite(dec).all()) or \
+            not err <= PARITY_RTOL * rms:
+        raise AssertionError(f"prefill and decode disagree: {err} > "
+                             f"{PARITY_RTOL} x {rms}")
 
 
 def main() -> int:
@@ -464,16 +829,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     print(smi_line(), flush=True)
-    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    DA.build()
-    emit({"phase": "build", "kernel": "paged_attention",
+    _build.build_all()
+    emit({"phase": "build", "libraries": sorted(_build.LIBRARIES),
           "seconds": time.perf_counter() - t0})
 
     rows = {"paged_attention": phase_paged_attention(torch, "cuda"),
-            "gumbel_perturb": phase_gumbel(torch, "cuda")}
+            "gumbel_perturb": phase_gumbel(torch, "cuda"),
+            "flash_attention": phase_flash(torch, "cuda"),
+            "decode_attention": phase_decode(torch, "cuda")}
     phase_small_e2e(torch)
-    counts = phase_serving(torch, "cuda")
+    models = gemma_models(torch, "cuda")
+    counts, profile_serving_run = phase_serving(torch, "cuda", models)
+    counts["flash_attention"] = phase_dense_prefill(
+        torch, "cuda", models)["flash_attention"]
+    decode_counts, profile_decode = phase_dense_decode(torch, "cuda",
+                                                       models)
+    counts["decode_attention"] = decode_counts["decode_attention"]
+    phase_dense_parity(torch, "cuda", models)
+    # the profiled runs come last: a torch.profiler session leaves host
+    # overhead behind it that slowed the timed runs made after it
+    profile_serving_run()
+    profile_decode()
 
     table = []
     for name, route, source, replaces in (
@@ -482,7 +860,13 @@ def main() -> int:
              "src/repro/kernels/decode_attention.py:322"),
             ("gumbel_perturb", "triton",
              "src/repro_torch/kernels/_gumbel_triton.py",
-             "src/repro/kernels/ops.py:336")):
+             "src/repro/kernels/ops.py:336"),
+            ("flash_attention", "cuda",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:99"),
+            ("decode_attention", "cuda",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:90")):
         r = rows[name]
         table.append({"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": counts[name],

@@ -10,6 +10,11 @@ the repository root, keyed by a hash of the sources and the flags, so an
 edited kernel is never served from a stale build.  Nothing is built or
 loaded at import time.
 
+:data:`LIBRARIES` names every library and its sources;
+:func:`build_all` compiles them all at once, one ``nvcc`` process per
+library started together, so a cold start waits for the slowest build
+rather than their sum.
+
 Every kernel wrapper owns a :class:`LaunchCounter`; ``launch_counts()``
 and ``reset_launch_counts()`` read and zero all of them, which is how a
 run shows that it went through the kernels.
@@ -24,14 +29,23 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# library name -> its CUDA sources under csrc/
+LIBRARIES: Dict[str, Tuple[str, ...]] = {
+    "repro_paged_attention": ("paged_attention.cu",),
+    "repro_flash_attention": ("flash_attention.cu",),
+    "repro_decode_attention": ("decode_attention.cu",),
+}
+
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -81,13 +95,17 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile ``csrc/<sources>`` into ``lib<name>.so`` (once per source
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``LIBRARIES[name]`` into ``lib<name>.so`` (once per source
     hash) and load it.  Raises with nvcc's output when the build fails."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        paths = [CSRC / s for s in sources]
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        if name in _libs:
+            return _libs[name]
+        paths = [CSRC / s for s in LIBRARIES[name]]
         out_dir = BUILD_ROOT / _digest(paths)
         lib_path = out_dir / f"lib{name}.so"
         if not lib_path.exists():
@@ -101,5 +119,15 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
                     f"nvcc failed building {name} ({' '.join(cmd)}):\n"
                     f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, lib_path)
-        _libs[name] = ctypes.CDLL(str(lib_path))
-        return _libs[name]
+        lib = ctypes.CDLL(str(lib_path))
+        with _lock:
+            _libs[name] = lib
+        return lib
+
+
+def build_all() -> None:
+    """Build (or load the cached builds of) every library in
+    :data:`LIBRARIES`, all ``nvcc`` processes started together."""
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        for f in [pool.submit(load_library, n) for n in LIBRARIES]:
+            f.result()

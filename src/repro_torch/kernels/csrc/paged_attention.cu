@@ -46,31 +46,15 @@
 // `window` is supported because the reference kernel supports it, though
 // the serving executor passes none.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using repro_attn::kNegInf;
+using repro_attn::store;
+using repro_attn::to_f;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) {
-  return static_cast<float>(x);
-}
-__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kThreads)

@@ -1,19 +1,26 @@
-"""Paged attention over the physical KV page pool: the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Decode-time attention kernels: their wrappers and plain PyTorch
+versions.
 
-Counterpart of ``repro/kernels/decode_attention.py::paged_attention_fwd``
-(the Pallas ``_paged_kernel``).  The kernel is hand-written CUDA C++ for
-``sm_90a`` in ``csrc/paged_attention.cu``; its source note says what
+Counterpart of ``repro/kernels/decode_attention.py``:
+
+  * :func:`paged_attention_fwd` (the Pallas ``_paged_kernel``): a flat
+    mixed prefill/decode batch against the physical KV page pool, CUDA C++
+    in ``csrc/paged_attention.cu``;
+  * :func:`decode_attention_fwd` (the Pallas ``_decode_kernel``): one
+    query per row against a contiguous ``(B, Hkv, Smax, D)`` cache, CUDA
+    C++ in ``csrc/decode_attention.cu``.
+
+Both kernels are hand-written for ``sm_90a``; each source note says what
 bounds it on the H100 (bytes) and which TPU-isms were dropped (lane
-padding, the ``d % 128`` rule, the ``(g, 128)`` VMEM scratch,
-``pages_per_tile``, buffer donation).
+padding, the ``d % 128`` rule, the ``(g, 128)`` VMEM scratch, the
+sequential KV grid, ``pages_per_tile``, buffer donation).
 
-:func:`paged_attention_fwd` launches the kernel for CUDA tensors and
-raises when it cannot; it takes :func:`paged_attention_plain` only for
-tensors on the CPU.  There is no ``try`` that falls back.
+Each wrapper launches its kernel for CUDA tensors and raises when it
+cannot; it takes the plain version only for tensors on the CPU.  There is
+no ``try`` that falls back.
 
-The contiguous-cache kernels of the reference module
-(``decode_attention_fwd``, ``mixed_attention_fwd``) are not ported yet.
+``mixed_attention_fwd`` (per-slot contiguous caches routed by segment
+ids) is not ported: no path of the port reaches it (ROADMAP.md B2).
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 
 counter = LaunchCounter("paged_attention")
+decode_counter = LaunchCounter("decode_attention")
 
 
 def _lib() -> ctypes.CDLL:
-    lib = load_library("repro_paged_attention", ["paged_attention.cu"])
+    lib = load_library("repro_paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
@@ -45,11 +53,6 @@ def _lib() -> ctypes.CDLL:
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
-
-
-def build() -> None:
-    """Compile (or load the cached build of) the kernel library."""
-    _lib()
 
 
 def smem_bytes(g: int, d: int, ps: int) -> int:
@@ -150,13 +153,7 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
             if sc.dtype != torch.float32 or tuple(sc.shape) != (n, ps, hkv):
                 raise ValueError("paged_attention_fwd: scales must be "
                                  "(N, ps, Hkv) float32")
-    for x in tensors:
-        if x.device != q.device:
-            raise ValueError("paged_attention_fwd: all operands must be "
-                             "on one device")
-        if not x.is_contiguous():
-            raise ValueError("paged_attention_fwd: operands must be "
-                             "contiguous")
+    _check_operands("paged_attention_fwd", q, tensors)
     for x in (tables, seg_ids, positions):
         if x.dtype != torch.int32:
             raise TypeError("paged_attention_fwd: tables, seg_ids and "
@@ -181,3 +178,109 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                            f"(code {err})")
     counter.bump()
     return out
+
+
+# ----------------------------------------------------------------------
+# contiguous-cache decode attention
+# ----------------------------------------------------------------------
+
+def _decode_lib() -> ctypes.CDLL:
+    lib = load_library("repro_decode_attention")
+    fn = lib.repro_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cache_len: torch.Tensor,
+                           *, scale: float, window: Optional[int] = None
+                           ) -> torch.Tensor:
+    """The reference oracle's math (``repro/models/attention.py:322-335``)
+    in the kernel's layouts: q (B, Hkv, G, D); caches (B, Hkv, Smax, D);
+    cache_len (B,).  fp32 logits masked to finfo(float32).min outside
+    ``max(len - window, 0) <= k_pos < len``, fp32 softmax, probabilities
+    cast to q's dtype before the PV product.  Returns (B, Hkv, G, D)."""
+    smax = k_cache.shape[2]
+    logits = torch.einsum("bhgd,bhkd->bhgk", q.float(),
+                          k_cache.float()) * scale
+    pos = torch.arange(smax, device=q.device)[None, :]
+    clen = cache_len.long()[:, None]
+    valid = pos < clen
+    if window is not None:
+        valid = valid & (pos >= (clen - window).clamp(min=0))
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhgk,bhkd->bhgd", probs, v_cache.to(q.dtype))
+
+
+def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                         scale: float, window: Optional[int] = None
+                         ) -> torch.Tensor:
+    """q: (B, Hkv, G, D) query heads grouped by KV head; k_cache/v_cache:
+    (B, Hkv, Smax, D) in q's dtype (fp32 or bf16); cache_len: (B,) int32,
+    each row's live length.  Returns (B, Hkv, G, D) in q's dtype.
+
+    Lengths are >= 1 on every path of the port: a row with length 0 gives
+    zeros from the kernel and a uniform average from the plain version
+    (as the Pallas kernel and the jnp oracle differ).
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    on the current stream, or raise."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      scale=scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_fwd: unsupported device "
+                         f"{q.device}")
+    b, hkv, g, d = q.shape
+    if k_cache.ndim != 4 or tuple(k_cache.shape[:2]) != (b, hkv) or \
+            k_cache.shape[3] != d or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention_fwd: q {tuple(q.shape)} does "
+                         f"not match caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention_fwd: head_dim {d} is not "
+                         f"instantiated (have {HEAD_DIMS})")
+    if q.dtype not in _Q_CODES or k_cache.dtype != q.dtype or \
+            v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention_fwd: q/k/v dtypes {q.dtype}/"
+                        f"{k_cache.dtype}/{v_cache.dtype} unsupported (one "
+                        f"of float32, bfloat16 for all three)")
+    if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (b,):
+        raise TypeError("decode_attention_fwd: cache_len must be (B,) "
+                        "int32")
+    _check_operands("decode_attention_fwd", q,
+                    (q, k_cache, v_cache, cache_len))
+    if k_cache.data_ptr() % 16:
+        raise ValueError("decode_attention_fwd: k_cache must be 16-byte "
+                         "aligned (the kernel loads key rows in 16-byte "
+                         "vectors)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _decode_lib().repro_decode_attention
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
+             v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(), b,
+             hkv, g, k_cache.shape[2], float(scale),
+             int(window) if window else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed "
+                           f"(code {err})")
+    decode_counter.bump()
+    return out
+
+
+def _check_operands(who: str, ref: torch.Tensor, tensors) -> None:
+    """Every operand on ``ref``'s device and contiguous."""
+    for x in tensors:
+        if x.device != ref.device:
+            raise ValueError(f"{who}: all operands must be on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{who}: operands must be contiguous")

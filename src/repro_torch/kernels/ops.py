@@ -1,7 +1,16 @@
 """Public wrappers around the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py`` for the serving slice:
+Counterpart of ``repro/kernels/ops.py`` for the serving and dense-cache
+slices:
 
+  * :func:`flash_attention` flattens ``(B, Hq, S, D) -> (B*Hq, S, D)``
+    as ``ops.py:50-90`` does and calls the CUDA flash kernel; it is a
+    ``torch.autograd.Function`` whose backward recomputes through the
+    plain version, as the reference's ``custom_vjp`` differentiates its
+    jnp oracle (there is no backward kernel in either);
+  * :func:`decode_attention` does the GQA grouping
+    ``(B, Hq, 1, D) -> (B, Hkv, G, D)`` of ``ops.py:97-116`` and calls
+    the CUDA decode kernel;
   * :func:`paged_attention` does the GQA grouping
     ``(T, Hq, D) -> (T, Hkv, G, D)`` of ``ops.py:160-193`` and calls the
     CUDA paged-attention kernel.  There is no ``_pad_last`` lane padding:
@@ -36,9 +45,78 @@ from typing import Optional
 import torch
 
 from ._build import LaunchCounter
-from .decode_attention import paged_attention_fwd
+from .decode_attention import decode_attention_fwd, paged_attention_fwd
+from .flash_attention import flash_attention_fwd, flash_attention_plain
 
 gumbel_counter = LaunchCounter("gumbel_perturb")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU).  Backward:
+    autograd through :func:`flash_attention_plain` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        b, hq, sq, d = q.shape
+        _, hkv, skv, _ = k.shape
+        out = flash_attention_fwd(
+            q.reshape(b * hq, sq, d).contiguous(),
+            k.reshape(b * hkv, skv, d).contiguous(),
+            v.reshape(b * hkv, skv, d).contiguous(),
+            causal=causal, scale=scale, window=window)
+        ctx.save_for_backward(q, k, v)
+        ctx.attn = (causal, scale, window)
+        return out.reshape(b, hq, sq, d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        causal, scale, window = ctx.attn
+        b, hq, sq, d = q.shape
+        _, hkv, skv, _ = k.shape
+        with torch.enable_grad():
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            out = flash_attention_plain(
+                qq.reshape(b * hq, sq, d), kk.reshape(b * hkv, skv, d),
+                vv.reshape(b * hkv, skv, d), causal=causal, scale=scale,
+                window=window).reshape(b, hq, sq, d)
+            dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), grad)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D), GQA-aware; the queries
+    are the last Sq positions.  Returns (B, Hq, Sq, D) in q's dtype;
+    differentiable in q, k and v."""
+    eff_scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, eff_scale, window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Hq, 1, D) against the cache (B, Hkv, Smax, D) filled to
+    ``cache_len``: a host int, or a (B,) tensor, broadcast to (B,) int32
+    (lengths >= 1).  Returns (B, Hq, 1, D).  Inference only (no
+    backward, as in the reference)."""
+    b, hq, sq, d = q.shape
+    hkv = k_cache.shape[1]
+    if sq != 1:
+        raise ValueError(f"decode_attention: one query per row, got Sq={sq}")
+    eff_scale = scale if scale is not None else d ** -0.5
+    if isinstance(cache_len, torch.Tensor):
+        lens = cache_len.to(device=q.device, dtype=torch.int32
+                            ).reshape(-1).expand(b).contiguous()
+    else:
+        lens = torch.full((b,), int(cache_len), dtype=torch.int32,
+                          device=q.device)
+    out = decode_attention_fwd(q.reshape(b, hkv, hq // hkv, d).contiguous(),
+                               k_cache, v_cache, lens, scale=eff_scale,
+                               window=window)
+    return out.reshape(b, hq, 1, d)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

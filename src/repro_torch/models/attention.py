@@ -1,23 +1,132 @@
-"""Attention for the serving path, in PyTorch.
+"""Attention computation layer, in PyTorch.
 
-Counterpart of ``repro/models/attention.py`` for paged attention only.
-``sdpa``, ``mixed_attention`` and ``decode_attention`` come with the
-next slices (the contiguous-cache path and training).
+Counterpart of ``repro/models/attention.py`` for the serving and
+dense-cache paths: :func:`sdpa` (prefill / ``lm.forward``), its oracle
+:func:`sdpa_ref`, :func:`decode_attention` (``lm.decode_step``) and
+:func:`paged_attention` (the serving executor).
 
-There is one path: :func:`paged_attention` is ``kernels.ops.
-paged_attention``, whose wrapper launches the CUDA kernel for CUDA
-tensors (or raises) and runs the plain version for CPU tensors.  Unlike
-the reference there is no ``try``/``except`` around the kernel, no
-``d % 128`` rule (the kernel takes every instantiated head_dim and raises
-on any other), and no backend that would send CUDA tensors to the plain
-version.
+Backends are those of the reference: ``"auto"`` and ``"pallas"`` both
+mean the kernel wrapper of ``kernels.ops`` (the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors); ``"ref"`` is the plain
+oracle by name.  Unlike the reference there is no ``try``/``except``
+around a kernel: a kernel that cannot run raises.  Two TPU-isms of the
+reference are re-derived:
+
+  * ``_PALLAS_MIN_SEQ = 128`` sent short sequences to the jnp path, a TPU
+    tiling trade-off.  Here :func:`sdpa` calls the kernel for every Sq,
+    so no plain path runs on the card;
+  * the ``d % 128`` rule of the paged path: the CUDA kernels take every
+    instantiated head_dim and raise on any other.
+
+The reference's ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
+sequence sharding across a mesh and is not ported (ROADMAP.md queue A,
+item 9); neither is ``mixed_attention``, which no path of the port
+reaches (ROADMAP.md B2).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
+from ..kernels import decode_attention as DA
+from ..kernels import flash_attention as FA
 from ..kernels import ops as kops
 
 paged_attention = kops.paged_attention
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, Hkv, S, D) -> (B, Hkv*n_rep, S, D)."""
+    if n_rep == 1:
+        return k
+    b, h, s, d = k.shape
+    return k[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def _build_mask(q_len: int, kv_len: int, is_causal: bool,
+                window: Optional[int], device) -> Optional[torch.Tensor]:
+    """The (q_len, kv_len) bool mask of ``kernels.flash_attention.
+    visible_mask``; None when nothing is masked."""
+    if not is_causal and window is None:
+        return None
+    return FA.visible_mask(q_len, kv_len, is_causal, window, device)
+
+
+def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: Optional[torch.Tensor] = None, is_causal: bool = False,
+             scale: Optional[float] = None,
+             window: Optional[int] = None) -> torch.Tensor:
+    """Plain oracle.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D).  fp32
+    logits, masked to finfo(float32).min (a bool ``mask``) or offset (a
+    float one), fp32 softmax, probabilities cast to q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    if hkv != hq:
+        k = repeat_kv(k, hq // hkv)
+        v = repeat_kv(v, hq // hkv)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    structural = _build_mask(sq, k.shape[2], is_causal, window, q.device)
+    if structural is not None:
+        logits = torch.where(structural, logits,
+                             torch.finfo(torch.float32).min)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            logits = torch.where(mask, logits,
+                                 torch.finfo(torch.float32).min)
+        else:
+            logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(q.dtype))
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask: Optional[torch.Tensor] = None, is_causal: bool = False,
+         scale: Optional[float] = None, window: Optional[int] = None,
+         backend: str = "auto") -> torch.Tensor:
+    """Scaled dot-product attention, q (B, Hq, Sq, D) against k/v (B, Hkv,
+    Skv, D), the queries being the last Sq positions.  ``"auto"`` /
+    ``"pallas"`` take the flash kernel (differentiable); an explicit
+    ``mask`` has no kernel yet, so on a CUDA tensor it raises and on the
+    CPU it takes the oracle."""
+    if backend == "ref":
+        return sdpa_ref(q, k, v, mask, is_causal, scale, window)
+    if backend not in ("auto", "pallas"):
+        raise ValueError(f"unknown sdpa backend {backend!r}")
+    if mask is None:
+        return kops.flash_attention(q, k, v, causal=is_causal, scale=scale,
+                                    window=window)
+    if q.device.type == "cuda":
+        raise NotImplementedError(
+            "sdpa with an explicit mask has no CUDA kernel yet (the "
+            "fused/masked attention paths are ROADMAP.md queue A, item 12)")
+    return sdpa_ref(q, k, v, mask, is_causal, scale, window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None,
+                     backend: str = "auto") -> torch.Tensor:
+    """Single-position decode: q (B, Hq, 1, D) against a (B, Hkv, Smax,
+    D) cache filled up to ``cache_len`` (a host int or a (B,) tensor);
+    keys at ``max(len - window, 0) <= k_pos < len`` are visible."""
+    if backend in ("auto", "pallas"):
+        return kops.decode_attention(q, k_cache, v_cache, cache_len,
+                                     scale=scale, window=window)
+    if backend != "ref":
+        raise ValueError(f"unknown decode_attention backend {backend!r}")
+    b, hq, sq, d = q.shape
+    hkv = k_cache.shape[1]
+    if sq != 1:
+        raise ValueError(f"decode_attention: one query per row, got Sq={sq}")
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(b)
+    out = DA.decode_attention_plain(
+        q.reshape(b, hkv, hq // hkv, d), k_cache, v_cache, lens,
+        scale=scale if scale is not None else d ** -0.5, window=window)
+    return out.reshape(b, hq, 1, d)
 
 
 def select_paged_backend(requested: str, *, sharded: bool) -> str:

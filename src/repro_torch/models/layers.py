@@ -7,11 +7,14 @@ applied as ``x @ W``; norm weights and statistics are fp32.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import attention as A
 
 Params = Dict[str, torch.Tensor]
 
@@ -85,10 +88,19 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor,
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """(D/2,) fp32 inverse frequencies, computed on the CPU and moved to
+    ``device`` once per (head_dim, theta, device): a scalar made on the
+    card is a blocking host-to-device copy, which would stall every
+    layer of every step."""
+    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    return freqs.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -105,6 +117,80 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# attention block (prefill and contiguous-cache decode)
+# ----------------------------------------------------------------------
+
+
+def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+              head_dim: int, causal: bool = True,
+              window: Optional[int] = None,
+              rope_theta: Optional[float] = 10000.0,
+              positions: Optional[torch.Tensor] = None,
+              query_scale: Optional[float] = None,
+              cache: Optional[Params] = None,
+              cache_pos: Optional[int] = None,
+              cache_len=None,
+              abs_pos_arg: Optional[int] = None,
+              q_norm: bool = False,
+              backend: str = "auto"
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """x: (B, S, D).  Without ``cache``: causal/windowed self-attention
+    over the S positions (``sdpa``, the flash kernel).  With ``cache``
+    ({"k", "v"}: (B, Hkv, Smax, hd)): decode.  K/V are written at slot
+    ``cache_pos`` and the queries attend ``cache_len`` slots (default
+    ``cache_pos + S``) with ``decode_attention``.  Keys are stored roped
+    at their absolute positions.
+
+    The write is in place: the cache tensors are single-owner and the
+    returned ``new_cache`` holds the same tensors.  This is the port's
+    counterpart of the reference's ``dynamic_update_slice`` under
+    ``make_serve_step``'s cache donation (``launch/train.py:208``).
+    ``cache_pos`` (and ``abs_pos_arg``) are host ints: the port has no
+    jit, so positions need no device value and nothing syncs with the
+    device."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
+    k = k.reshape(b, s, n_kv_heads, head_dim).transpose(1, 2)
+    v = v.reshape(b, s, n_kv_heads, head_dim).transpose(1, 2)
+
+    if positions is None:
+        start = 0
+        if cache is not None and cache_pos is not None:
+            start = cache_pos if abs_pos_arg is None else abs_pos_arg
+        positions = torch.arange(start, start + s, device=x.device)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    if q_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+
+    scale = query_scale if query_scale is not None else head_dim ** -0.5
+
+    if cache is None:
+        out = A.sdpa(q, k, v, is_causal=causal, window=window, scale=scale,
+                     backend=backend)
+        new_cache = None
+    else:
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache[:, :, cache_pos:cache_pos + s] = k.to(k_cache.dtype)
+        v_cache[:, :, cache_pos:cache_pos + s] = v.to(v_cache.dtype)
+        clen = cache_pos + s if cache_len is None else cache_len
+        out = A.decode_attention(q, k_cache, v_cache, cache_len=clen,
+                                 scale=scale, window=window,
+                                 backend=backend)
+        new_cache = {"k": k_cache, "v": v_cache}
+
+    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+    return out @ p["wo"], new_cache
 
 
 # ----------------------------------------------------------------------

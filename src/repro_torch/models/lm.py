@@ -1,9 +1,12 @@
-"""LM configuration and parameters in PyTorch.
+"""The decoder LM in PyTorch: configuration, parameters, prefill and
+decode.
 
-Counterpart of ``repro/models/lm.py`` for the serving slice: the config
-dataclasses (torch dtypes), :func:`init_params` for ``attn``/``dense``
-blocks, and :func:`params_from_numpy`, which carries the reference's
-parameter pytree across.
+Counterpart of ``repro/models/lm.py`` for ``attn`` blocks with ``dense``
+or no FFN: the config dataclasses (torch dtypes), :func:`init_params`,
+:func:`params_from_numpy` (carries the reference's parameter pytree
+across), :func:`forward` (prefill; attention through the flash kernel),
+:func:`init_cache` and :func:`decode_step` (one token per row against the
+contiguous KV cache; attention through the decode kernel).
 
 The port keeps parameters as one per-layer list, the layout the serving
 executor iterates (the reference stacks groups for ``lax.scan`` and
@@ -13,13 +16,16 @@ unstacks them in ``serving/executor.py::split_layer_params``)::
      "layers": [{"norm1", "attn": {"wq", "wk", "wv", "wo"},
                  "norm2", "mlp": {"w_up", "w_down", ["w_gate"]}}, ...]}
 
-``forward`` and ``decode_step`` come with the next slice.
+The KV cache is a per-layer list as well, ``[{"k": (B, Hkv, Smax, hd),
+"v": ...}, ...]``, which :func:`decode_step` updates in place (the
+reference stacks it per group for ``lax.scan`` and donates it).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +34,7 @@ from .. import resolve_device
 from . import layers as L
 
 Params = Dict[str, Any]
+Cache = List[Dict[str, torch.Tensor]]
 
 
 @dataclass(frozen=True)
@@ -220,3 +227,110 @@ def params_from_numpy(cfg: LMConfig, tree: Params, device=None) -> Params:
                    for k, v in tree.items() if k not in ("groups", "tail")}
     out["layers"] = layers
     return out
+
+
+# ----------------------------------------------------------------------
+# block application
+# ----------------------------------------------------------------------
+
+def _norm(cfg: LMConfig, x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if cfg.norm == "layer":
+        return L.layer_norm(x, w, b, cfg.norm_eps)
+    return L.rms_norm(x, w, cfg.norm_eps, cfg.norm_offset)
+
+
+def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
+                 x: torch.Tensor, cache: Optional[Dict] = None,
+                 cache_pos: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """An attn block with a dense FFN or none.  ``cache_pos``: the host
+    int write position in decode."""
+    h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
+    out, new_cache = L.attention(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, causal=cfg.causal, window=None,
+        rope_theta=cfg.rope_theta, query_scale=cfg.query_scale,
+        cache=cache, cache_pos=cache_pos, q_norm=cfg.qk_norm, backend=cfg.attn_backend)
+    x = x + out
+    if spec.ffn == "dense":
+        h2 = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
+        x = x + L.mlp(p["mlp"], h2, cfg.act)
+    return x, new_cache
+
+
+def _embed(cfg: LMConfig, params: Params, tokens=None,
+           embeds=None) -> torch.Tensor:
+    if embeds is None:
+        x = params["embed"][tokens]
+    else:
+        x = embeds.to(cfg.param_dtype)
+    if cfg.embed_scale:
+        # the scale is rounded to x's dtype first, as the reference does
+        # (it matters for bf16 gemma); it stays a host number, since a
+        # scalar tensor made on the card is a blocking copy
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+# ----------------------------------------------------------------------
+# forward (prefill)
+# ----------------------------------------------------------------------
+
+def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux_loss).  ``tokens``: (B, S) integer
+    tensor on the params' device, or precomputed ``embeds`` (B, S, D).
+    ``aux_loss`` is a zero fp32 scalar (it is the MoE balance loss in the
+    reference, and MoE is not ported)."""
+    _check_supported(cfg)
+    x = _embed(cfg, params, tokens, embeds)
+    for spec, p in zip(cfg.layer_specs(), params["layers"]):
+        x, _ = _apply_block(cfg, spec, p, x)
+    logits = _head(cfg, params, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ----------------------------------------------------------------------
+# KV cache and decode step
+# ----------------------------------------------------------------------
+
+def _block_cache(cfg: LMConfig, spec: BlockSpec, batch: int, max_seq: int,
+                 dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    if spec.mixer != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: no cache for mixer {spec.mixer!r} yet (ROADMAP.md "
+            f"queue A, item 11)")
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
+    """An empty per-layer KV cache on ``device`` (default CUDA)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return [_block_cache(cfg, spec, batch, max_seq, dtype, dev)
+            for spec in cfg.layer_specs()]
+
+
+def decode_step(cfg: LMConfig, params: Params, cache: Cache,
+                tokens: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One serving step: ``tokens`` (B, 1), ``pos`` the host int write
+    position (== the number of tokens already in the cache).  Returns
+    (logits (B, 1, V), cache); the cache tensors are updated in place and
+    returned as they are."""
+    _check_supported(cfg)
+    x = _embed(cfg, params, tokens)
+    for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
+        x, _ = _apply_block(cfg, spec, p, x, cache=c, cache_pos=pos)
+    return _head(cfg, params, x), cache

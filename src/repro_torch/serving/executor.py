@@ -33,7 +33,6 @@ later work.
 
 from __future__ import annotations
 
-import math
 from typing import List, Tuple
 
 import numpy as np
@@ -133,12 +132,6 @@ class Executor:
             seeds.repeat_interleave(kp1), gen_pos.reshape(-1))
         return toks.reshape(s, kp1), bad
 
-    def _norm(self, x: torch.Tensor, lp, name: str) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.norm == "rms":
-            return L.rms_norm(x, lp[name], cfg.norm_eps, cfg.norm_offset)
-        return L.layer_norm(x, lp[name], lp.get(name + "_b"), cfg.norm_eps)
-
     def _body(self, k_pages: List[torch.Tensor],
               v_pages: List[torch.Tensor], k_scales: List[torch.Tensor],
               v_scales: List[torch.Tensor], tokens: torch.Tensor,
@@ -156,15 +149,10 @@ class Executor:
         hkv, hd = cfg.n_kv_heads, cfg.hd
         scale = cfg.query_scale or hd ** -0.5
 
-        x = self.params["embed"][tokens]                       # (T, D)
-        if cfg.embed_scale:
-            # the scale is rounded to the param dtype first, as the
-            # reference does (it matters for bf16 gemma)
-            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                                 device=x.device)
+        x = LM._embed(cfg, self.params, tokens)                # (T, D)
         qmode = self._kv_quant
         for li, lp in enumerate(self._layer_params):
-            h = self._norm(x, lp, "norm1")
+            h = LM._norm(cfg, x, lp["norm1"], lp.get("norm1_b"))
             q = (h @ lp["attn"]["wq"]).reshape(t, cfg.n_heads, hd)
             k = (h @ lp["attn"]["wk"]).reshape(t, hkv, hd)
             v = (h @ lp["attn"]["wv"]).reshape(t, hkv, hd)
@@ -195,6 +183,7 @@ class Executor:
                                 k_scale=ks_p, v_scale=vs_p)
             x = x + o.reshape(t, -1).to(x.dtype) @ lp["attn"]["wo"]
             if "mlp" in lp:
-                h2 = self._norm(x, lp, "norm2")
+                h2 = LM._norm(cfg, x, lp["norm2"], lp.get("norm2_b"))
                 x = x + L.mlp(lp["mlp"], h2, cfg.act)
-        return self._norm(x, self.params, "final_norm")
+        return LM._norm(cfg, x, self.params["final_norm"],
+                        self.params.get("final_norm_b"))

@@ -1,5 +1,5 @@
-"""Port kernels against the JAX package: paged attention and the Gumbel
-perturbation.
+"""Port kernels against the JAX package: paged attention, the Gumbel
+perturbation, flash attention and contiguous-cache decode attention.
 
 On the CPU the port's wrappers run their plain PyTorch versions; they
 are held against ``repro.kernels.ref.paged_attention`` (the jnp oracle)
@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.serving import quant as jquant
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
 from torch_port_helpers import cuda_device, requires_cuda, to_numpy, \
@@ -129,6 +130,120 @@ def test_wrappers_refuse_other_devices():
 
 
 # ----------------------------------------------------------------------
+# flash attention and contiguous-cache decode attention
+# ----------------------------------------------------------------------
+
+def flash_case(seed, b=2, hq=4, hkv=2, sq=64, skv=64, hd=16):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, hd)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, skv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, hd)).astype(np.float32)
+    return q, k, v
+
+
+# (hq, hkv, sq, skv, causal, window, scale); the JAX kernel runs in
+# interpret mode, which needs Sq and Skv within one 128 block or
+# multiples of it (a ragged last block reads out of bounds there)
+FLASH_CASES = {
+    "causal_gqa": (4, 2, 64, 64, True, None, None),
+    "bidirectional": (4, 2, 64, 64, False, None, None),
+    "window": (4, 2, 64, 64, True, 9, None),
+    "mqa": (4, 1, 64, 64, True, None, None),
+    "mha_window_nocausal": (2, 2, 48, 48, False, 7, None),
+    "sq_lt_skv": (4, 2, 32, 96, True, None, None),
+    "sq_lt_skv_window": (4, 1, 32, 96, True, 40, None),
+    "custom_scale": (4, 2, 64, 64, True, None, 0.37),
+    "multi_block": (2, 1, 128, 256, True, 100, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_jax_pallas(case):
+    hq, hkv, sq, skv, causal, window, scale = FLASH_CASES[case]
+    q, k, v = flash_case(6, hq=hq, hkv=hkv, sq=sq, skv=skv)
+    exp = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale, window=window))
+    out = to_numpy(tops.flash_attention(to_torch(q), to_torch(k),
+                                        to_torch(v), causal=causal,
+                                        scale=scale, window=window))
+    np.testing.assert_allclose(out, exp, **TOL)
+    ref = np.asarray(jref.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale, window=window))
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("case", ["causal_gqa", "sq_lt_skv_window", "mqa"])
+def test_flash_gradients_match_jax(case):
+    """The autograd.Function's backward (autograd through the plain
+    version) against ``jax.grad`` through the reference's custom_vjp; the
+    cotangent is a fixed random tensor.  fp32, 1e-5 as for the forward:
+    both differentiate the same fp32 math."""
+    import jax
+    hq, hkv, sq, skv, causal, window, scale = FLASH_CASES[case]
+    q, k, v = flash_case(7, hq=hq, hkv=hkv, sq=sq, skv=skv)
+    w = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jops.flash_attention(q_, k_, v_, causal=causal,
+                                            scale=scale, window=window)
+                       * jnp.asarray(w))
+
+    exp = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v))
+    tq, tk, tv = (to_torch(a).requires_grad_() for a in (q, k, v))
+    out = tops.flash_attention(tq, tk, tv, causal=causal, scale=scale,
+                               window=window)
+    (out * to_torch(w)).sum().backward()
+    for ours, ref in zip((tq.grad, tk.grad, tv.grad), exp):
+        np.testing.assert_allclose(to_numpy(ours), np.asarray(ref), **TOL)
+
+
+def decode_case(seed, b=3, hq=4, hkv=2, smax=40, hd=16):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, 1, hd)).astype(np.float32)
+    kc = rng.standard_normal((b, hkv, smax, hd)).astype(np.float32)
+    vc = rng.standard_normal((b, hkv, smax, hd)).astype(np.float32)
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("hkv", [1, 2])
+@pytest.mark.parametrize("lens,window", [
+    ((5, 40, 17), None), ((5, 40, 17), 8), ((1, 2, 39), 3), (23, None),
+    (40, 12)])
+def test_decode_plain_matches_jax(lens, window, hkv):
+    q, kc, vc = decode_case(9, hkv=hkv)
+    jl = jnp.asarray(np.asarray(lens, np.int32))
+    tl = torch.tensor(lens, dtype=torch.int32) if isinstance(lens, tuple) \
+        else lens
+    args = (jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jl)
+    out = to_numpy(tops.decode_attention(to_torch(q), to_torch(kc),
+                                         to_torch(vc), tl, window=window))
+    np.testing.assert_allclose(
+        out, np.asarray(jops.decode_attention(*args, window=window)), **TOL)
+    np.testing.assert_allclose(
+        out, np.asarray(jref.decode_attention(*args, window=window)), **TOL)
+
+
+def test_decode_wrapper_shapes_and_refusals():
+    q, kc, vc = decode_case(10)
+    t = to_torch
+    a = tops.decode_attention(t(q), t(kc), t(vc), torch.tensor([7]))
+    b = tops.decode_attention(t(q), t(kc), t(vc), 7)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert tuple(a.shape) == q.shape
+    with pytest.raises(ValueError, match="one query per row"):
+        tops.decode_attention(t(q).expand(3, 4, 2, 16), t(kc), t(vc), 7)
+    meta = torch.zeros((1, 2, 2, 16), device="meta")
+    with pytest.raises(ValueError):
+        DA.decode_attention_fwd(meta, meta, meta, torch.ones(1), scale=1.0)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(meta[0], meta[0], meta[0], causal=True,
+                               scale=1.0)
+
+
+# ----------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # ----------------------------------------------------------------------
 
@@ -170,3 +285,69 @@ def test_triton_gumbel_kernel_matches_plain(cuda_device):
     assert tops.gumbel_counter.launches == before + 1
     torch.testing.assert_close(out, tops.gumbel_perturb_plain(logits, u),
                                rtol=1e-5, atol=1e-4)
+
+
+# fp32 tolerances: the kernel and the plain version sum in other orders;
+# 1e-5 as the reference's kernel tier, 2e-3 for the long reductions
+# (Skv >= 1024).  bf16: 1e-2 absolute on O(1) outputs, where one bf16
+# rounding of the output is 4e-3.
+def _cuda_tol(dtype, skv):
+    if dtype == torch.bfloat16:
+        return 1e-2
+    return 2e-3 if skv >= 1024 else 1e-5
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("shape", [
+    # (b, hq, hkv, sq, skv, causal, window)
+    (2, 8, 1, 200, 200, True, None),
+    (1, 4, 2, 70, 333, True, 50),
+    (2, 2, 2, 65, 130, False, None),
+    (1, 4, 4, 1, 77, True, None),
+])
+def test_cuda_flash_kernel_matches_plain(cuda_device, shape, hd, dtype):
+    b, hq, hkv, sq, skv, causal, window = shape
+    g = torch.Generator(device=cuda_device).manual_seed(hd + sq)
+    q = torch.randn((b, hq, sq, hd), generator=g, device=cuda_device)
+    k = torch.randn((b, hkv, skv, hd), generator=g, device=cuda_device)
+    v = torch.randn((b, hkv, skv, hd), generator=g, device=cuda_device)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    before = FA.counter.launches
+    out = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.counter.launches == before + 1
+    exp = FA.flash_attention_plain(
+        q.reshape(b * hq, sq, hd), k.reshape(b * hkv, skv, hd),
+        v.reshape(b * hkv, skv, hd), causal=causal, scale=hd ** -0.5,
+        window=window).reshape(b, hq, sq, hd)
+    tol = _cuda_tol(dtype, skv)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 128, 256])
+@pytest.mark.parametrize("g_heads,window", [(8, None), (12, None), (3, 100)])
+def test_cuda_decode_kernel_matches_plain(cuda_device, g_heads, window, hd,
+                                          dtype):
+    b, hkv, smax = 5, 2, 700
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + g_heads)
+    q = torch.randn((b, hkv * g_heads, 1, hd), generator=gen,
+                    device=cuda_device).to(dtype)
+    kc = torch.randn((b, hkv, smax, hd), generator=gen,
+                     device=cuda_device).to(dtype)
+    vc = torch.randn((b, hkv, smax, hd), generator=gen,
+                     device=cuda_device).to(dtype)
+    lens = torch.tensor([1, 33, 256, 699, 700], dtype=torch.int32,
+                        device=cuda_device)
+    before = DA.decode_counter.launches
+    out = tops.decode_attention(q, kc, vc, lens, window=window)
+    torch.cuda.synchronize()
+    assert DA.decode_counter.launches == before + 1
+    exp = DA.decode_attention_plain(
+        q.reshape(b, hkv, g_heads, hd), kc, vc, lens, scale=hd ** -0.5,
+        window=window).reshape(b, hkv * g_heads, 1, hd)
+    tol = _cuda_tol(dtype, smax)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
