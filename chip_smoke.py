@@ -345,7 +345,6 @@ def phase_flash(torch, dev) -> dict:
     dense_prefill shape and is the one reported in the kernel table."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models.attention import _build_mask
 
     result = None
     for label, dt, b, hq, hkv, sq, skv, d, window in FLASH_ROWS:
@@ -369,7 +368,7 @@ def phase_flash(torch, dev) -> dict:
                                                                   **kw))
         row["plain_ms"] = time_ms(
             torch, lambda: FA.flash_attention_plain(q, k, v, **kw), reps=5)
-        mask = _build_mask(sq, skv, True, window, dev)
+        mask = FA.visible_mask(sq, skv, True, window, dev)
         pairs = int(mask.sum().item())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         row["bound_ms"], row["bound_by"] = attn_bound(

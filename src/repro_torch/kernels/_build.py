@@ -17,7 +17,8 @@ rather than their sum.
 
 Every kernel wrapper owns a :class:`LaunchCounter`; ``launch_counts()``
 and ``reset_launch_counts()`` read and zero all of them, which is how a
-run shows that it went through the kernels.
+run shows that it went through the kernels.  The attention wrappers also
+share :data:`HEAD_DIMS`, :data:`Q_CODES` and :func:`check_operands`.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,8 +47,20 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
 }
 
 _lock = threading.Lock()
-_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# operand rules every attention wrapper shares
+HEAD_DIMS = (16, 32, 64, 128, 256)     # head_dims the kernels instantiate
+Q_CODES = {torch.float32: 0, torch.bfloat16: 1}   # q dtype -> kernel code
+
+
+def check_operands(who: str, ref: torch.Tensor, tensors) -> None:
+    """Every operand on ``ref``'s device and contiguous."""
+    for x in tensors:
+        if x.device != ref.device:
+            raise ValueError(f"{who}: all operands must be on one device")
+        if not x.is_contiguous():
+            raise ValueError(f"{who}: operands must be contiguous")
 
 
 class LaunchCounter:
@@ -95,39 +109,52 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _start_build(name: str) -> Tuple[Path, Optional[tuple]]:
+    """The path of ``lib<name>.so`` for the current sources, and the
+    running ``nvcc`` job that builds it (None when it is built)."""
+    paths = [CSRC / s for s in LIBRARIES[name]]
+    lib_path = BUILD_ROOT / _digest(paths) / f"lib{name}.so"
+    if lib_path.exists():
+        return lib_path, None
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f".lib{name}.{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in paths]]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return lib_path, (proc, cmd, tmp)
+
+
+def _finish_build(name: str, lib_path: Path, job: Optional[tuple]) -> None:
+    """Wait for ``job`` (if any), then load the library."""
+    if job is not None:
+        proc, cmd, tmp = job
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {name} "
+                               f"({' '.join(cmd)}):\n{output}")
+        os.replace(tmp, lib_path)
+    _libs[name] = ctypes.CDLL(str(lib_path))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``LIBRARIES[name]`` into ``lib<name>.so`` (once per source
     hash) and load it.  Raises with nvcc's output when the build fails."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        name_lock = _name_locks.setdefault(name, threading.Lock())
-    with name_lock:
-        if name in _libs:
-            return _libs[name]
-        paths = [CSRC / s for s in LIBRARIES[name]]
-        out_dir = BUILD_ROOT / _digest(paths)
-        lib_path = out_dir / f"lib{name}.so"
-        if not lib_path.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in paths]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {name} ({' '.join(cmd)}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        with _lock:
-            _libs[name] = lib
-        return lib
+        if name not in _libs:
+            _finish_build(name, *_start_build(name))
+        return _libs[name]
 
 
 def build_all() -> None:
     """Build (or load the cached builds of) every library in
     :data:`LIBRARIES`, all ``nvcc`` processes started together."""
-    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
-        for f in [pool.submit(load_library, n) for n in LIBRARIES]:
-            f.result()
+    with _lock:
+        jobs = [(n, *_start_build(n)) for n in LIBRARIES if n not in _libs]
+        try:
+            for name, lib_path, job in jobs:
+                _finish_build(name, lib_path, job)
+        finally:
+            for _, _, job in jobs:
+                if job is not None and job[0].poll() is None:
+                    job[0].kill()
+                    job[0].wait()

@@ -30,13 +30,12 @@ from typing import Optional
 
 import torch
 
-from ._build import LaunchCounter, load_library
+from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
+                     load_library)
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_SMEM = 232448          # bytes of shared memory one block may use
 
-_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 
@@ -129,7 +128,7 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"paged_attention_fwd: head_dim {d} is not "
                          f"instantiated (have {HEAD_DIMS})")
-    if q.dtype not in _Q_CODES:
+    if q.dtype not in Q_CODES:
         raise TypeError(f"paged_attention_fwd: q dtype {q.dtype} "
                         f"unsupported")
     if k_pages.dtype not in _KV_CODES or v_pages.dtype != k_pages.dtype:
@@ -153,7 +152,7 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
             if sc.dtype != torch.float32 or tuple(sc.shape) != (n, ps, hkv):
                 raise ValueError("paged_attention_fwd: scales must be "
                                  "(N, ps, Hkv) float32")
-    _check_operands("paged_attention_fwd", q, tensors)
+    check_operands("paged_attention_fwd", q, tensors)
     for x in (tables, seg_ids, positions):
         if x.dtype != torch.int32:
             raise TypeError("paged_attention_fwd: tables, seg_ids and "
@@ -166,7 +165,7 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     fn = _lib().repro_paged_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], d,
+    err = fn(Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], d,
              q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_scale.data_ptr() if quantized else None,
              v_scale.data_ptr() if quantized else None,
@@ -247,7 +246,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention_fwd: head_dim {d} is not "
                          f"instantiated (have {HEAD_DIMS})")
-    if q.dtype not in _Q_CODES or k_cache.dtype != q.dtype or \
+    if q.dtype not in Q_CODES or k_cache.dtype != q.dtype or \
             v_cache.dtype != q.dtype:
         raise TypeError(f"decode_attention_fwd: q/k/v dtypes {q.dtype}/"
                         f"{k_cache.dtype}/{v_cache.dtype} unsupported (one "
@@ -255,7 +254,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (b,):
         raise TypeError("decode_attention_fwd: cache_len must be (B,) "
                         "int32")
-    _check_operands("decode_attention_fwd", q,
+    check_operands("decode_attention_fwd", q,
                     (q, k_cache, v_cache, cache_len))
     if k_cache.data_ptr() % 16:
         raise ValueError("decode_attention_fwd: k_cache must be 16-byte "
@@ -266,7 +265,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
         return out
     fn = _decode_lib().repro_decode_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
+    err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(), b,
              hkv, g, k_cache.shape[2], float(scale),
              int(window) if window else 0, stream)
@@ -276,11 +275,3 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     decode_counter.bump()
     return out
 
-
-def _check_operands(who: str, ref: torch.Tensor, tensors) -> None:
-    """Every operand on ``ref``'s device and contiguous."""
-    for x in tensors:
-        if x.device != ref.device:
-            raise ValueError(f"{who}: all operands must be on one device")
-        if not x.is_contiguous():
-            raise ValueError(f"{who}: operands must be contiguous")

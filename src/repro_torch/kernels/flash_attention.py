@@ -20,8 +20,8 @@ from typing import Optional
 
 import torch
 
-from ._build import LaunchCounter, load_library
-from .decode_attention import HEAD_DIMS, _Q_CODES, _check_operands
+from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
+                     load_library)
 
 counter = LaunchCounter("flash_attention")
 
@@ -103,17 +103,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd: head_dim {d} is not "
                          f"instantiated (have {HEAD_DIMS})")
-    if q.dtype not in _Q_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in Q_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_fwd: q/k/v dtypes {q.dtype}/"
                         f"{k.dtype}/{v.dtype} unsupported (one of float32, "
                         f"bfloat16 for all three)")
-    _check_operands("flash_attention_fwd", q, (q, k, v))
+    check_operands("flash_attention_fwd", q, (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     fn = _lib().repro_flash_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_Q_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), bhq, bhkv, sq, skv, float(scale), int(causal),
              int(window) if window else 0, stream)
     if err != 0:

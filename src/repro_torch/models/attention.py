@@ -5,12 +5,15 @@ dense-cache paths: :func:`sdpa` (prefill / ``lm.forward``), its oracle
 :func:`sdpa_ref`, :func:`decode_attention` (``lm.decode_step``) and
 :func:`paged_attention` (the serving executor).
 
-Backends are those of the reference: ``"auto"`` and ``"pallas"`` both
-mean the kernel wrapper of ``kernels.ops`` (the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors); ``"ref"`` is the plain
-oracle by name.  Unlike the reference there is no ``try``/``except``
-around a kernel: a kernel that cannot run raises.  Two TPU-isms of the
-reference are re-derived:
+``backend`` (the config's ``attn_backend``: ``"auto"``, ``"pallas"`` or
+``"ref"``) is validated and then selects nothing, as in the paged path:
+every call goes through the kernel wrapper of ``kernels.ops``, which
+launches the CUDA kernel for CUDA tensors and takes its plain version
+only for CPU tensors.  So no config puts plain attention on the card.
+The oracles stay callable by name: :func:`sdpa_ref` here and
+``kernels.decode_attention.decode_attention_plain``.  Unlike the
+reference there is no ``try``/``except`` around a kernel: a kernel that
+cannot run raises.  Two TPU-isms of the reference are re-derived:
 
   * ``_PALLAS_MIN_SEQ = 128`` sent short sequences to the jnp path, a TPU
     tiling trade-off.  Here :func:`sdpa` calls the kernel for every Sq,
@@ -18,7 +21,8 @@ reference are re-derived:
   * the ``d % 128`` rule of the paged path: the CUDA kernels take every
     instantiated head_dim and raise on any other.
 
-The reference's ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
+The reference's ``_build_mask`` is ``kernels.flash_attention.
+visible_mask``.  Its ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
 sequence sharding across a mesh and is not ported (ROADMAP.md queue A,
 item 9); neither is ``mixed_attention``, which no path of the port
 reaches (ROADMAP.md B2).
@@ -30,7 +34,6 @@ from typing import Optional
 
 import torch
 
-from ..kernels import decode_attention as DA
 from ..kernels import flash_attention as FA
 from ..kernels import ops as kops
 
@@ -45,13 +48,13 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
 
 
-def _build_mask(q_len: int, kv_len: int, is_causal: bool,
-                window: Optional[int], device) -> Optional[torch.Tensor]:
-    """The (q_len, kv_len) bool mask of ``kernels.flash_attention.
-    visible_mask``; None when nothing is masked."""
-    if not is_causal and window is None:
-        return None
-    return FA.visible_mask(q_len, kv_len, is_causal, window, device)
+BACKENDS = ("auto", "pallas", "ref")
+
+
+def _check_backend(who: str, backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown {who} backend {backend!r} "
+                         f"(one of {BACKENDS})")
 
 
 def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,10 +71,10 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v = repeat_kv(v, hq // hkv)
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    structural = _build_mask(sq, k.shape[2], is_causal, window, q.device)
-    if structural is not None:
-        logits = torch.where(structural, logits,
-                             torch.finfo(torch.float32).min)
+    if is_causal or window is not None:
+        visible = FA.visible_mask(sq, k.shape[2], is_causal, window,
+                                  q.device)
+        logits = torch.where(visible, logits, torch.finfo(torch.float32).min)
     if mask is not None:
         if mask.dtype == torch.bool:
             logits = torch.where(mask, logits,
@@ -87,18 +90,15 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          scale: Optional[float] = None, window: Optional[int] = None,
          backend: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention, q (B, Hq, Sq, D) against k/v (B, Hkv,
-    Skv, D), the queries being the last Sq positions.  ``"auto"`` /
-    ``"pallas"`` take the flash kernel (differentiable); an explicit
-    ``mask`` has no kernel yet, so on a CUDA tensor it raises and on the
-    CPU it takes the oracle."""
-    if backend == "ref":
-        return sdpa_ref(q, k, v, mask, is_causal, scale, window)
-    if backend not in ("auto", "pallas"):
-        raise ValueError(f"unknown sdpa backend {backend!r}")
+    Skv, D), the queries being the last Sq positions, through the flash
+    kernel (differentiable) for every backend.  An explicit ``mask`` has
+    no kernel yet, so on a CUDA tensor it raises and on the CPU it takes
+    the oracle."""
+    _check_backend("sdpa", backend)
     if mask is None:
         return kops.flash_attention(q, k, v, causal=is_causal, scale=scale,
                                     window=window)
-    if q.device.type == "cuda":
+    if q.device.type != "cpu":
         raise NotImplementedError(
             "sdpa with an explicit mask has no CUDA kernel yet (the "
             "fused/masked attention paths are ROADMAP.md queue A, item 12)")
@@ -110,30 +110,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      scale: Optional[float] = None,
                      window: Optional[int] = None,
                      backend: str = "auto") -> torch.Tensor:
-    """Single-position decode: q (B, Hq, 1, D) against a (B, Hkv, Smax,
-    D) cache filled up to ``cache_len`` (a host int or a (B,) tensor);
-    keys at ``max(len - window, 0) <= k_pos < len`` are visible."""
-    if backend in ("auto", "pallas"):
-        return kops.decode_attention(q, k_cache, v_cache, cache_len,
-                                     scale=scale, window=window)
-    if backend != "ref":
-        raise ValueError(f"unknown decode_attention backend {backend!r}")
-    b, hq, sq, d = q.shape
-    hkv = k_cache.shape[1]
-    if sq != 1:
-        raise ValueError(f"decode_attention: one query per row, got Sq={sq}")
-    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(b)
-    out = DA.decode_attention_plain(
-        q.reshape(b, hkv, hq // hkv, d), k_cache, v_cache, lens,
-        scale=scale if scale is not None else d ** -0.5, window=window)
-    return out.reshape(b, hq, 1, d)
+    """Single-position decode through the decode kernel for every
+    backend: q (B, Hq, 1, D) against a (B, Hkv, Smax, D) cache filled up
+    to ``cache_len`` (a host int or a (B,) tensor); keys at
+    ``max(len - window, 0) <= k_pos < len`` are visible."""
+    _check_backend("decode_attention", backend)
+    return kops.decode_attention(q, k_cache, v_cache, cache_len,
+                                 scale=scale, window=window)
 
 
 def select_paged_backend(requested: str, *, sharded: bool) -> str:
     """The reference pins its jnp path under a replica axis or a mesh; the
     port has no sharded serving yet, so that case raises.  Otherwise the
-    config's ``attn_backend`` is returned as given: the tensor's device
-    decides the path (module docstring)."""
+    config's ``attn_backend`` is validated and returned as given: the
+    tensor's device decides the path (module docstring)."""
+    _check_backend("paged attention", requested)
     if sharded:
         raise NotImplementedError(
             "sharded serving (replicas / meshes) is not ported yet; see "

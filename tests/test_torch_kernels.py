@@ -103,6 +103,8 @@ def test_model_paged_attention_is_the_wrapper():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert TA.paged_attention is tops.paged_attention
     assert TA.select_paged_backend("ref", sharded=False) == "ref"
+    with pytest.raises(ValueError):
+        TA.select_paged_backend("jnp", sharded=False)
     with pytest.raises(NotImplementedError):
         TA.select_paged_backend("auto", sharded=True)
 

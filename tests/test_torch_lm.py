@@ -24,12 +24,15 @@ from repro.configs import gemma_2b as jgemma
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import lm as JLM
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops as tops
 from repro_torch.launch.train import make_prefill_step, make_serve_step
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
-from torch_port_helpers import (port_cfg, port_params, tiny_cfg, to_numpy,
-                                to_torch)
+from torch_port_helpers import (cuda_device, port_cfg, port_params,  # noqa: F401
+                                requires_cuda, tiny_cfg, to_numpy, to_torch)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 PARITY_RTOL = 5e-3                      # tests/test_models_lm.py
@@ -254,9 +257,9 @@ def test_unported_features_raise():
 
 
 def test_sdpa_backends_and_mask_on_cpu():
-    """``auto`` and ``ref`` agree on the CPU; an explicit mask takes the
-    oracle there and matches the reference's sdpa_ref with the same mask;
-    unknown backends raise."""
+    """Every backend matches the oracles called by name on the CPU; an
+    explicit mask takes the oracle there and matches the reference's
+    sdpa_ref with the same mask; unknown backends raise."""
     rng = np.random.default_rng(15)
     q = rng.standard_normal((2, 4, 9, 16)).astype(np.float32)
     k = rng.standard_normal((2, 2, 9, 16)).astype(np.float32)
@@ -264,9 +267,11 @@ def test_sdpa_backends_and_mask_on_cpu():
     mask = rng.random((2, 1, 9, 9)) > 0.3
     mask[..., 0] = True
     t = to_torch
-    a = TA.sdpa(t(q), t(k), t(v), is_causal=True, window=4)
-    b = TA.sdpa(t(q), t(k), t(v), is_causal=True, window=4, backend="ref")
-    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    oracle = TA.sdpa_ref(t(q), t(k), t(v), is_causal=True, window=4)
+    for backend in TA.BACKENDS:
+        torch.testing.assert_close(
+            TA.sdpa(t(q), t(k), t(v), is_causal=True, window=4,
+                    backend=backend), oracle, rtol=1e-6, atol=1e-6)
     exp = JA.sdpa_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                       mask=jnp.asarray(mask), is_causal=True)
     out = TA.sdpa(t(q), t(k), t(v), mask=torch.from_numpy(mask),
@@ -274,11 +279,96 @@ def test_sdpa_backends_and_mask_on_cpu():
     np.testing.assert_allclose(to_numpy(out), np.asarray(exp), **TOL)
     with pytest.raises(ValueError):
         TA.sdpa(t(q), t(k), t(v), backend="triton")
+    with pytest.raises(ValueError):
+        TA.decode_attention(t(q[:, :, :1]), t(k), t(v), 5, backend="jnp")
     qd = t(q[:, :, :1])
-    torch.testing.assert_close(
-        TA.decode_attention(qd, t(k), t(v), 5),
-        TA.decode_attention(qd, t(k), t(v), 5, backend="ref"),
-        rtol=0, atol=0)
+    oracle = DA.decode_attention_plain(
+        qd.reshape(2, 2, 2, 16), t(k), t(v), torch.full((2,), 5),
+        scale=16 ** -0.5).reshape(2, 4, 1, 16)
+    for backend in TA.BACKENDS:
+        torch.testing.assert_close(
+            TA.decode_attention(qd, t(k), t(v), 5, backend=backend), oracle,
+            rtol=0, atol=0)
     np.testing.assert_array_equal(to_numpy(TA.repeat_kv(t(k), 2)),
                                   np.asarray(JA.repeat_kv(jnp.asarray(k),
                                                           2)))
+
+
+def _spy_kernels(monkeypatch):
+    """Count the calls that reach the flash and decode kernel functions
+    behind ``kernels.ops`` (the plain versions run under them on the
+    CPU, the kernels on the card)."""
+    calls = {"flash": 0, "decode": 0}
+
+    def spy(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(tops, "flash_attention_fwd",
+                        spy("flash", tops.flash_attention_fwd))
+    monkeypatch.setattr(tops, "decode_attention_fwd",
+                        spy("decode", tops.decode_attention_fwd))
+    return calls
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "ref"])
+def test_every_backend_goes_through_the_kernels(monkeypatch, backend):
+    """The config's attn_backend selects nothing: prefill and decode go
+    through the kernel functions once per layer whatever it says, so no
+    config runs plain attention on the card."""
+    tcfg = dataclasses.replace(port_cfg(jgemma.SMOKE), attn_backend=backend)
+    tp = TLM.init_params(tcfg, seed=13, device="cpu")
+    toks = torch.randint(0, tcfg.vocab_size, (2, 5),
+                         generator=torch.Generator().manual_seed(14))
+    calls = _spy_kernels(monkeypatch)
+    make_prefill_step(tcfg, device="cpu")(tp, {"tokens": toks})
+    assert calls == {"flash": tcfg.n_layers, "decode": 0}
+    serve = make_serve_step(tcfg, batch=2, max_seq=8,
+                            cache_dtype=torch.float32, device="cpu")
+    cache = TLM.init_cache(tcfg, 2, 8, torch.float32, device="cpu")
+    for t in range(3):
+        _, cache = serve(tp, cache, toks[:, t:t + 1], t)
+    assert calls == {"flash": tcfg.n_layers, "decode": 3 * tcfg.n_layers}
+    with pytest.raises(ValueError, match="backend"):
+        make_prefill_step(dataclasses.replace(tcfg, attn_backend="jnp"),
+                          device="cpu")(tp, {"tokens": toks})
+
+
+def _to_device(p, dev):
+    if isinstance(p, dict):
+        return {k: _to_device(v, dev) for k, v in p.items()}
+    if isinstance(p, list):
+        return [_to_device(v, dev) for v in p]
+    return p.to(dev)
+
+
+@requires_cuda
+def test_cuda_smoke_steps_launch_the_kernels(cuda_device):
+    """gemma SMOKE (attn_backend "ref") on the card: the prefill launches
+    the flash kernel and each decode step the decode kernel once per
+    layer, and both agree with the same steps on the CPU."""
+    tcfg = port_cfg(jgemma.SMOKE)
+    assert tcfg.attn_backend == "ref"
+    toks = torch.randint(0, tcfg.vocab_size, (2, 6),
+                         generator=torch.Generator().manual_seed(14))
+    cpu_params = TLM.init_params(tcfg, seed=13, device="cpu")
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        tp = _to_device(cpu_params, dev)
+        flash0, decode0 = FA.counter.launches, DA.decode_counter.launches
+        logits = make_prefill_step(tcfg, device=dev)(
+            tp, {"tokens": toks.to(dev)})
+        serve = make_serve_step(tcfg, batch=2, max_seq=8,
+                                cache_dtype=torch.float32, device=dev)
+        cache = TLM.init_cache(tcfg, 2, 8, torch.float32, device=dev)
+        for t in range(6):
+            lg, cache = serve(tp, cache, toks[:, t:t + 1].to(dev), t)
+        outs[str(dev)] = (logits.cpu(), lg.cpu())
+        launched = (FA.counter.launches - flash0,
+                    DA.decode_counter.launches - decode0)
+        assert launched == ((0, 0) if dev == "cpu"
+                            else (tcfg.n_layers, 6 * tcfg.n_layers))
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
