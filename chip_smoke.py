@@ -8,7 +8,8 @@ It builds the port's kernels from the sources in this checkout (one
 plain PyTorch version at the shapes of the gemma-2b paths, checks the
 serving engine end to end on a small config against the same engine on
 the CPU, then drives gemma-2b at full width (18 layers, random weights
-from a seed) through both of the port's paths:
+from a seed) through both of the port's gemma paths, and rwkv6-1.6b at
+full width and depth (24 layers) through its prefill and decode path:
 
   * paged continuous-batching serving through
     ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
@@ -16,7 +17,10 @@ from a seed) through both of the port's paths:
     ``repro_torch.launch.train.make_prefill_step`` (``lm.forward``, the
     flash kernel) and greedy decode through ``make_serve_step``
     (``lm.decode_step``, the decode kernel), then a prefill == decode
-    parity check at fp32 weights.
+    parity check at fp32 weights;
+  * the rwkv6 path: the same step builders over rwkv blocks (the WKV6
+    kernel in prefill and, from the cached state, in every decode step),
+    then the same parity check.
 
 Each run shows that it went through its kernels: the launch counts are
 zeroed just before it and read just after.
@@ -29,17 +33,22 @@ Output, one line each:
     / library ms by CUDA events, the bound); the Gumbel kernel; flash
     attention (gemma-2b prefill, an offset+window row, an fp32 row);
     decode attention (gemma-2b decode at ragged lengths, fp32, window);
+    WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
+    state);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels);
-  * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines, each
+  * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines, and
+    ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines, each
     with its own launch counts;
-  * the profiled runs (``serving_profile``, ``dense_decode_profile``:
-    device time by kernel group and idle share), last, because a
-    profiler session slows the host for the timed runs after it;
+  * the profiled runs (``serving_profile``, ``dense_prefill_profile``,
+    ``dense_decode_profile``, ``rwkv_prefill_profile``,
+    ``rwkv_decode_profile``: device time and calls by kernel group, idle
+    share), last, because a profiler session slows the host for the
+    timed runs after it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
     path's main run (bf16 serving for paged attention and Gumbel, dense
-    prefill for flash, dense decode for decode attention) and its
-    numbers at that path's shapes;
+    prefill for flash, dense decode for decode attention, rwkv prefill
+    for WKV6) and its numbers at that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -98,6 +107,20 @@ PREFILL_SHAPE = (4, 1024)
 DECODE_BATCH, DECODE_MAX_SEQ, DECODE_PROMPT, DECODE_NEW = 8, 1024, 128, 64
 PARITY_SHAPE = (2, 160)
 PARITY_RTOL = 5e-3                 # of the logits' RMS (rollout_parity)
+# WKV6 against its plain version: (label, dtype, B, H, S, D, with a
+# state0, decays).  The first row is the rwkv_prefill shape (rwkv6-1.6b,
+# 4 x 1024 tokens) with the model's decays: exp(-exp(-6 + N(0, 0.5^2)))
+# rounded to bf16, many exactly 1.0, so the state grows over the sweep;
+# the others take the reference tests' decays sigmoid(N(0, 1)) * 0.5 +
+# 0.45.  Tolerances: kernel_tol (fp32 1e-5, 2e-3 for S >= 1024; bf16
+# 1e-2 + 1e-2 |ref|: both round one fp32 sum, a tie can fall one bf16
+# step apart).
+RWKV6_ROWS = (("prefill", "bfloat16", 4, 32, 1024, 64, False, "model"),
+              ("decode", "bfloat16", 8, 32, 1, 64, True, "test"),
+              ("fp32_state", "float32", 4, 32, 256, 64, True, "test"))
+# fp32 operations per state element a step: r*S, k*v and the decay FMA
+# (the bonus term is a per-step scalar, v_j * sum_i r_i u_i k_i)
+WKV6_OPS = 5
 
 # gemma-2b serving shapes
 PAGE_SIZE = 16
@@ -312,14 +335,15 @@ def phase_gumbel(torch, dev) -> dict:
     return row
 
 
-def attn_bound(nbytes: int, ops: int, dtype: str) -> tuple:
+def kernel_bound(nbytes: int, ops: int, dtype: str) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def attn_tol(dtype: str, skv: int) -> tuple:
-    """(tol, rtol) of a flash/decode row."""
+def kernel_tol(dtype: str, skv: int) -> tuple:
+    """(tol, rtol) of a flash, decode or WKV6 row; ``skv`` is the length
+    of the reduction (keys, or steps of the recurrence)."""
     if dtype == "bfloat16":
         return ATTN_BF16_TOL, ATTN_BF16_TOL
     return (2e-3 if skv >= 1024 else 1e-5), 0.0
@@ -363,7 +387,7 @@ def phase_flash(torch, dev) -> dict:
                "dtype": dt, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
                "Skv": skv, "D": d, "window": window}
         row.update(check_row(torch, f"flash_attention[{label}]", out, ref,
-                             attn_tol(dt, skv)))
+                             kernel_tol(dt, skv)))
         row["ms"] = time_ms(torch, lambda: FA.flash_attention_fwd(q, k, v,
                                                                   **kw))
         row["plain_ms"] = time_ms(
@@ -371,7 +395,7 @@ def phase_flash(torch, dev) -> dict:
         mask = FA.visible_mask(sq, skv, True, window, dev)
         pairs = int(mask.sum().item())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        row["bound_ms"], row["bound_by"] = attn_bound(
+        row["bound_ms"], row["bound_by"] = kernel_bound(
             nbytes, 4 * pairs * d * b * hq, dt)
         # yardstick: one SDPA call over K/V expanded to Hq (expanded
         # outside the timed call); the port never calls it
@@ -420,7 +444,7 @@ def phase_decode(torch, dev) -> dict:
                "dtype": dt, "B": b, "Hkv": hkv, "G": g, "D": d,
                "Smax": smax, "window": window, "lens": lens_h.tolist()}
         row.update(check_row(torch, f"decode_attention[{label}]", out, ref,
-                             attn_tol(dt, smax)))
+                             kernel_tol(dt, smax)))
         row["ms"] = time_ms(torch, lambda: DA.decode_attention_fwd(
             q, kc, vc, lens, **kw))
         row["plain_ms"] = time_ms(torch, lambda: DA.decode_attention_plain(
@@ -428,7 +452,7 @@ def phase_decode(torch, dev) -> dict:
         live = sum(min(n, window) if window else n for n in lens_h.tolist())
         nbytes = ((2 * q.numel()) * q.element_size() + 4 * b
                   + 2 * live * hkv * d * kc.element_size())
-        row["bound_ms"], row["bound_by"] = attn_bound(
+        row["bound_ms"], row["bound_by"] = kernel_bound(
             nbytes, 4 * live * hkv * g * d, dt)
         pos = torch.arange(smax, device=dev)[None, :]
         ok = pos < lens.long()[:, None]
@@ -443,6 +467,65 @@ def phase_decode(torch, dev) -> dict:
         row["library_ms"] = time_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, scale=d ** -0.5))
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
+def rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays):
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dtype = getattr(torch, dt)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (randn(b, s, h, d) * 0.5 for _ in range(3))
+    if decays == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * randn(b, s, h, d)))
+    else:
+        w = torch.sigmoid(randn(b, s, h, d)) * 0.5 + 0.45
+    u = randn(h, d) * 0.1
+    s0 = randn(b, h, d, d) * 0.5 if state else None
+    # (B, H, S, D) views of (B, S, H*D) rows, as the layer passes them
+    return [x.to(dtype).transpose(1, 2) for x in (r, k, v, w)] + [u, s0]
+
+
+def phase_rwkv6(torch, dev) -> dict:
+    """The WKV6 kernel against its plain version; the first row is the
+    rwkv_prefill shape (the table's row).  No single PyTorch call
+    computes WKV6, so there is no library time."""
+    from repro_torch.kernels import rwkv6 as RW
+
+    result = None
+    for label, dt, b, h, s, d, state, decays in RWKV6_ROWS:
+        args = rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays)
+        out, st = RW.rwkv6_scan_fwd(*args)
+        torch.cuda.synchronize()
+        ref, ref_st = RW.rwkv6_scan_plain(*args)
+        row = {"phase": "kernel", "name": "rwkv6_scan", "row": label,
+               "dtype": dt, "B": b, "H": h, "S": s, "D": d,
+               "state0": state, "decays": decays}
+        row.update(check_row(torch, f"rwkv6_scan[{label}]", out, ref,
+                             kernel_tol(dt, s)))
+        st_err = (st - ref_st).abs().max().item()
+        st_tol = kernel_tol("float32", s)[0]
+        row.update(state_max_abs_err=st_err, state_tol=st_tol,
+                   state_ref_rms=ref_st.pow(2).mean().sqrt().item())
+        if not bool(torch.isfinite(st).all()) or not st_err <= st_tol:
+            raise AssertionError(f"rwkv6_scan[{label}] final state "
+                                 f"disagrees with the plain version: "
+                                 f"{st_err}")
+        row["ms"] = time_ms(torch, lambda: RW.rwkv6_scan_fwd(*args))
+        row["plain_ms"] = time_ms(torch, lambda: RW.rwkv6_scan_plain(*args),
+                                  reps=5)
+        item = args[0].element_size()
+        nbytes = (5 * b * h * s * d * item + h * d * 4
+                  + (2 if state else 1) * b * h * d * d * 4)
+        # the state math is fp32 whatever the input type: the fp32 peak
+        row["bound_ms"], row["bound_by"] = kernel_bound(
+            nbytes, WKV6_OPS * b * h * s * d * d, "float32")
+        row["library_ms"] = None
         emit(row)
         if result is None:
             result = row
@@ -497,6 +580,8 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "decode_attention" in n:
         return "decode_attention"
+    if "rwkv6" in n:
+        return "rwkv6_scan"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "matmul")):
         return "matmul"
     if "sort" in n or "radix" in n or "cumsum" in n or "scan" in n:
@@ -538,6 +623,28 @@ def device_time(prof) -> tuple:
         top.append((us / 1e3, ev.key[:60], ev.count))
     top.sort(reverse=True)
     return groups, top
+
+
+def profile_window(torch, phase: str, fn, **fields) -> None:
+    """Run ``fn`` under ``torch.profiler`` and emit a ``phase`` line:
+    device time and kernel calls by kernel group, busy ms and the idle
+    share of the wall clock (``fn`` ends in a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    groups, top = device_time(prof)
+    calls = {}
+    for _, name, n in top:
+        calls[_kernel_group(name)] = calls.get(_kernel_group(name), 0) + n
+    busy = sum(groups.values())
+    emit({"phase": phase, **fields, "wall_ms": wall * 1e3,
+          "device_ms_by_group": groups, "device_calls_by_group": calls,
+          "device_busy_ms": busy,
+          "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3))})
 
 
 def profile_serving(torch, cfg, params, requests, dev) -> dict:
@@ -657,19 +764,23 @@ def phase_serving(torch, dev, models) -> tuple:
 
 
 # ----------------------------------------------------------------------
-# dense-cache phases (lm.forward / lm.decode_step)
+# step-builder phases (lm.forward / lm.decode_step): the dense-cache
+# path of gemma-2b and the rwkv6 path of rwkv6-1.6b
 # ----------------------------------------------------------------------
 
-def phase_dense_prefill(torch, dev, models) -> dict:
-    """gemma-2b bf16 prefill of (4, 1024) tokens through
-    ``make_prefill_step``: one flash launch per layer."""
+def phase_prefill(torch, dev, models, phase: str, kernel: str,
+                  seed: int) -> tuple:
+    """bf16 prefill of (4, 1024) tokens through ``make_prefill_step``:
+    exactly one ``kernel`` launch per layer (flash attention for gemma,
+    WKV6 for rwkv6).  Returns the run's launch counts, and a function
+    that profiles one more prefill."""
     from repro_torch.launch.train import make_prefill_step
 
     _, _, cfg, params = models
     prefill = make_prefill_step(cfg, device=dev)
     b, s = PREFILL_SHAPE
     tokens = torch.randint(0, cfg.vocab_size, (b, s),
-                           generator=torch.Generator().manual_seed(21))
+                           generator=torch.Generator().manual_seed(seed))
     tokens = tokens.to(dev)
     prefill(params, {"tokens": tokens})          # warm-up, not counted
     torch.cuda.synchronize()
@@ -680,28 +791,34 @@ def phase_dense_prefill(torch, dev, models) -> dict:
         torch.cuda.synchronize()
         return logits, time.perf_counter() - t0
 
-    (logits, wall), counts = counted(torch, "the dense prefill run", run,
-                                     required=("flash_attention",))
-    if counts["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"dense prefill launched flash "
-                             f"{counts['flash_attention']} times, not "
-                             f"{cfg.n_layers}")
+    (logits, wall), counts = counted(torch, f"the {phase} run", run,
+                                     required=(kernel,))
+    if counts[kernel] != cfg.n_layers:
+        raise AssertionError(f"{phase} launched {kernel} {counts[kernel]} "
+                             f"times, not {cfg.n_layers}")
     if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
             not bool(torch.isfinite(logits[:, -1].float()).all()):
-        raise AssertionError(f"dense prefill logits {tuple(logits.shape)} "
-                             f"are not finite (B, S, V)")
-    row = {"phase": "dense_prefill", "model": cfg.name,
-           "layers": cfg.n_layers, "batch": b, "seq": s, "wall_ms":
-           wall * 1e3, "tokens_per_s": b * s / wall, "launches": counts}
-    emit(row)
-    return counts
+        raise AssertionError(f"{phase} logits {tuple(logits.shape)} are "
+                             f"not finite (B, S, V)")
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+          "batch": b, "seq": s, "wall_ms": wall * 1e3,
+          "tokens_per_s": b * s / wall, "launches": counts})
+
+    def profiled():
+        def once():
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        profile_window(torch, f"{phase}_profile", once, batch=b, seq=s)
+    return counts, profiled
 
 
-def phase_dense_decode(torch, dev, models) -> tuple:
-    """gemma-2b bf16 greedy decode through ``make_serve_step``: 8 rows,
-    128-token prompts fed one token a step, then 64 greedy tokens; one
-    decode launch per layer per step.  Returns the run's launch counts,
-    and a function that profiles a window of further steps."""
+def phase_decode_steps(torch, dev, models, phase: str, kernel: str,
+                       seed: int) -> tuple:
+    """bf16 greedy decode through ``make_serve_step``: 8 rows, 128-token
+    prompts fed one token a step, then 64 greedy tokens; exactly one
+    ``kernel`` launch per layer per step (decode attention for gemma,
+    WKV6 from the cached state for rwkv6).  Returns the run's launch
+    counts, and a function that profiles a window of further steps."""
     from repro_torch.launch.train import make_serve_step
     from repro_torch.models import lm as LM
 
@@ -710,7 +827,7 @@ def phase_dense_decode(torch, dev, models) -> tuple:
     serve = make_serve_step(cfg, batch=b, max_seq=DECODE_MAX_SEQ,
                             cache_dtype=torch.bfloat16, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (b, DECODE_PROMPT),
-                            generator=torch.Generator().manual_seed(22))
+                            generator=torch.Generator().manual_seed(seed))
     prompts = prompts.to(dev)
     warm = LM.init_cache(cfg, b, DECODE_MAX_SEQ, torch.bfloat16, dev)
     serve(params, warm, prompts[:, :1], 0)       # warm-up, not counted
@@ -735,58 +852,47 @@ def phase_dense_decode(torch, dev, models) -> tuple:
         return torch.cat(out, dim=1), t1 - t0, t2 - t1
 
     (gen, feed_s, gen_s), counts = counted(
-        torch, "the dense decode run", run, required=("decode_attention",))
+        torch, f"the {phase} run", run, required=(kernel,))
     steps = DECODE_PROMPT + DECODE_NEW - 1
-    if counts["decode_attention"] != cfg.n_layers * steps:
-        raise AssertionError(f"dense decode launched decode attention "
-                             f"{counts['decode_attention']} times, not "
-                             f"{cfg.n_layers} x {steps}")
+    if counts[kernel] != cfg.n_layers * steps:
+        raise AssertionError(f"{phase} launched {kernel} {counts[kernel]} "
+                             f"times, not {cfg.n_layers} x {steps}")
     if tuple(gen.shape) != (b, DECODE_NEW) or \
             not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
-        raise AssertionError("dense decode emitted tokens out of range")
+        raise AssertionError(f"{phase} emitted tokens out of range")
     wall = feed_s + gen_s
-    row = {"phase": "dense_decode", "model": cfg.name,
-           "layers": cfg.n_layers, "batch": b, "prompt": DECODE_PROMPT,
-           "new_tokens": DECODE_NEW, "steps": steps, "wall_s": wall,
-           "decode_tokens_per_s": b * steps / wall,
-           "generated_tokens_per_s": b * (DECODE_NEW - 1) / gen_s,
-           "ms_per_step": wall * 1e3 / steps, "launches": counts}
-    emit(row)
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+          "batch": b, "prompt": DECODE_PROMPT, "new_tokens": DECODE_NEW,
+          "steps": steps, "wall_s": wall,
+          "decode_tokens_per_s": b * steps / wall,
+          "generated_tokens_per_s": b * (DECODE_NEW - 1) / gen_s,
+          "ms_per_step": wall * 1e3 / steps, "launches": counts})
 
     def profiled(window: int = 16):
-        from torch.profiler import ProfilerActivity, profile
-        pos0 = DECODE_PROMPT + DECODE_NEW - 1
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        def window_steps():
             tok = gen[:, -1:]
             for i in range(window):
-                logits, _ = serve(params, cache, tok, pos0 + i)
+                logits, _ = serve(params, cache, tok, steps + i)
                 tok = logits[:, -1].argmax(-1, keepdim=True)
             torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
-        groups, _ = device_time(prof)
-        busy = sum(groups.values())
-        emit({"phase": "dense_decode_profile", "steps": window,
-              "wall_ms": pwall * 1e3, "device_ms_by_group": groups,
-              "device_busy_ms": busy,
-              "device_idle_share": max(0.0, 1.0 - busy / (pwall * 1e3))})
+        profile_window(torch, f"{phase}_profile", window_steps,
+                       steps=window)
     return counts, profiled
 
 
-def phase_dense_parity(torch, dev, models) -> None:
-    """gemma-2b at fp32 weights: the last-position logits of ``forward``
-    on (2, 160) tokens (S >= 128: the flash kernel) against a
-    ``decode_step`` rollout over the same tokens (the decode kernel),
-    within 5e-3 of the logits' RMS (``rollout_parity``'s rtol, stated
-    relative because full-width logits are not O(1))."""
+def phase_parity(torch, dev, models, phase: str, seed: int,
+                 launches_per_layer) -> None:
+    """fp32 weights: the last-position logits of ``forward`` on (2, 160)
+    tokens against a ``decode_step`` rollout over the same tokens, within
+    5e-3 of the logits' RMS (``rollout_parity``'s rtol, stated relative
+    because full-width logits are not O(1)).  ``launches_per_layer(s)``
+    maps each kernel the run must launch to its exact count per layer."""
     from repro_torch.models import lm as LM
 
     cfg32, params32, _, _ = models
     b, s = PARITY_SHAPE
     tokens = torch.randint(0, cfg32.vocab_size, (b, s),
-                           generator=torch.Generator().manual_seed(23))
+                           generator=torch.Generator().manual_seed(seed))
     tokens = tokens.to(dev)
 
     def run():
@@ -798,20 +904,37 @@ def phase_dense_parity(torch, dev, models) -> None:
                                          tokens[:, t:t + 1], t)
         return full[:, -1].float(), step[:, 0].float()
 
-    (pre, dec), counts = counted(
-        torch, "the dense parity run", run,
-        required=("flash_attention", "decode_attention"))
+    want = {k: n * cfg32.n_layers
+            for k, n in launches_per_layer(s).items()}
+    (pre, dec), counts = counted(torch, f"the {phase} run", run,
+                                 required=tuple(want))
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{phase} launched {counts}, not {want}")
     err = (pre - dec).abs().max().item()
     rms = pre.pow(2).mean().sqrt().item()
     agree = (pre.argmax(-1) == dec.argmax(-1)).tolist()
-    emit({"phase": "dense_parity", "model": cfg32.name, "dtype": "float32",
+    emit({"phase": phase, "model": cfg32.name, "dtype": "float32",
           "batch": b, "seq": s, "max_abs_err": err, "logits_rms": rms,
           "err_over_rms": err / rms, "rtol": PARITY_RTOL,
           "argmax_agree": agree, "launches": counts})
     if not bool(torch.isfinite(pre).all() & torch.isfinite(dec).all()) or \
             not err <= PARITY_RTOL * rms:
-        raise AssertionError(f"prefill and decode disagree: {err} > "
-                             f"{PARITY_RTOL} x {rms}")
+        raise AssertionError(f"{phase}: prefill and decode disagree: {err}"
+                             f" > {PARITY_RTOL} x {rms}")
+
+
+def rwkv_models(torch, dev):
+    """rwkv6-1.6b at full width and depth (24 layers), random weights
+    from a seeded generator on the card: (fp32 config, fp32 params, bf16
+    config, bf16 params), the bf16 copy made by ``cast_params``."""
+    from repro_torch.configs import rwkv6_1_6b
+    from repro_torch.models import lm as LM
+
+    cfg32 = dataclasses.replace(rwkv6_1_6b.CONFIG, param_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg32, param_dtype=torch.bfloat16)
+    params32 = LM.init_params(cfg32, seed=0, device=dev)
+    params = LM.cast_params(params32, torch.bfloat16)
+    return cfg32, params32, cfg, params
 
 
 def main() -> int:
@@ -837,20 +960,34 @@ def main() -> int:
     rows = {"paged_attention": phase_paged_attention(torch, "cuda"),
             "gumbel_perturb": phase_gumbel(torch, "cuda"),
             "flash_attention": phase_flash(torch, "cuda"),
-            "decode_attention": phase_decode(torch, "cuda")}
+            "decode_attention": phase_decode(torch, "cuda"),
+            "rwkv6_scan": phase_rwkv6(torch, "cuda")}
     phase_small_e2e(torch)
     models = gemma_models(torch, "cuda")
     counts, profile_serving_run = phase_serving(torch, "cuda", models)
-    counts["flash_attention"] = phase_dense_prefill(
-        torch, "cuda", models)["flash_attention"]
-    decode_counts, profile_decode = phase_dense_decode(torch, "cuda",
-                                                       models)
-    counts["decode_attention"] = decode_counts["decode_attention"]
-    phase_dense_parity(torch, "cuda", models)
+    dense, profile_dense_prefill = phase_prefill(
+        torch, "cuda", models, "dense_prefill", "flash_attention", 21)
+    counts["flash_attention"] = dense["flash_attention"]
+    dense, profile_dense_decode = phase_decode_steps(
+        torch, "cuda", models, "dense_decode", "decode_attention", 22)
+    counts["decode_attention"] = dense["decode_attention"]
+    phase_parity(torch, "cuda", models, "dense_parity", 23,
+                 lambda s: {"flash_attention": 1, "decode_attention": s})
+    rwkv = rwkv_models(torch, "cuda")
+    rwkv_counts, profile_rwkv_prefill = phase_prefill(
+        torch, "cuda", rwkv, "rwkv_prefill", "rwkv6_scan", 31)
+    counts["rwkv6_scan"] = rwkv_counts["rwkv6_scan"]
+    _, profile_rwkv_decode = phase_decode_steps(
+        torch, "cuda", rwkv, "rwkv_decode", "rwkv6_scan", 32)
+    phase_parity(torch, "cuda", rwkv, "rwkv_parity", 33,
+                 lambda s: {"rwkv6_scan": s + 1})
     # the profiled runs come last: a torch.profiler session leaves host
     # overhead behind it that slowed the timed runs made after it
     profile_serving_run()
-    profile_decode()
+    profile_dense_prefill()
+    profile_dense_decode()
+    profile_rwkv_prefill()
+    profile_rwkv_decode()
 
     table = []
     for name, route, source, replaces in (
@@ -865,7 +1002,9 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:99"),
             ("decode_attention", "cuda",
              "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:90")):
+             "src/repro/kernels/decode_attention.py:90"),
+            ("rwkv6_scan", "cuda", "src/repro_torch/kernels/csrc/rwkv6.cu",
+             "src/repro/kernels/rwkv6.py:64")):
         r = rows[name]
         table.append({"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": counts[name],

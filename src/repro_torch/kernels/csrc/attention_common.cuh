@@ -1,5 +1,6 @@
-// Helpers shared by the attention kernels (paged, flash, decode): element
-// loads as fp32, stores in the output type, and the masked-score value.
+// Helpers shared by the kernels (paged, flash and decode attention, WKV6):
+// element loads as fp32, stores in the output type, and the masked-score
+// value.
 #pragma once
 
 #include <cuda_runtime.h>

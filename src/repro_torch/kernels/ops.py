@@ -18,7 +18,14 @@ slices:
     to a padded width, and no ``pages_per_tile`` (see the kernel's
     source note);
   * :func:`gumbel_perturb` is the Gumbel-max perturbation
-    ``logits + -log(-log(u))`` in fp32, a Triton kernel on CUDA.
+    ``logits + -log(-log(u))`` in fp32, a Triton kernel on CUDA;
+  * :func:`rwkv6_scan` calls the CUDA WKV6 kernel on the (B, H, S, D)
+    views as they come, where ``ops.py:200-227`` flattens them to
+    (B*H, S, D) and pads the lanes, with an optional initial state; it
+    is a
+    ``torch.autograd.Function`` whose backward recomputes through the
+    plain version, as the reference's ``custom_vjp`` differentiates its
+    oracle (``ops.py:230-240``).
 
 Source note for the Gumbel kernel.  It replaces
 ``repro/kernels/ops.py::gumbel_perturb``, which ran the perturbation as
@@ -47,6 +54,7 @@ import torch
 from ._build import LaunchCounter
 from .decode_attention import decode_attention_fwd, paged_attention_fwd
 from .flash_attention import flash_attention_fwd, flash_attention_plain
+from .rwkv6 import rwkv6_scan_fwd, rwkv6_scan_plain
 
 gumbel_counter = LaunchCounter("gumbel_perturb")
 
@@ -172,3 +180,34 @@ def gumbel_perturb(logits: torch.Tensor,
             _gumbel_triton.launch(x, u, out)
         gumbel_counter.bump()
     return out
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU).  Backward:
+    autograd through :func:`rwkv6_scan_plain` on the saved inputs, for r,
+    k, v, w and u; ``state0`` is inference-only and gets no gradient (it
+    is held constant in the recomputation)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        return rwkv6_scan_fwd(r, k, v, w, u, state0)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        *saved, state0 = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_() for x in saved]
+            out, state = rwkv6_scan_plain(*ins, state0)
+            grads = torch.autograd.grad((out, state), ins, (g_out, g_state))
+        return (*grads, None)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state0: Optional[torch.Tensor] = None):
+    """r/k/v/w: (B, H, S, D), any strides, decays ``w`` in (0, 1]; u:
+    (H, D) fp32 bonus; state0: (B, H, D, D) fp32 or None (zeros).
+    Returns (out (B, H, S, D) in r's dtype, final state (B, H, D, D)
+    fp32).  Differentiable in r, k, v, w and u."""
+    return _RWKV6Scan.apply(r, k, v, w, u, state0)

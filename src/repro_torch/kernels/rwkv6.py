@@ -1,0 +1,154 @@
+"""WKV6 recurrence (RWKV-6 time mix): the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+Counterpart of ``repro/kernels/rwkv6.py::rwkv6_scan_fwd`` (the Pallas
+``_rwkv6_kernel``) and of the reference's lax.scan oracles
+``_wkv6_ref`` / ``_wkv6_ref_with_state`` (``repro/models/layers.py``),
+which both of the reference's call sites compute, in their (B, H, S, D)
+layout.  The kernel is hand-written CUDA C++ for ``sm_90a`` in
+``csrc/rwkv6.cu``.
+
+Source note.  On the H100 the recurrence is bound by operations: 5 fp32
+operations per state element per step (the bonus term is a per-step
+scalar, ``v_j * sum_i r_i u_i k_i``) against 5 rows of D inputs and
+outputs, and the state math is fp32 whatever the input type, so its
+bound is set by the 67 TFLOP/s fp32 peak (0.040 ms for the rwkv6-1.6b
+prefill row, B=4, H=32, S=1024, D=64).  The first kernel is simple: one
+block of D threads per (batch, head), thread j holding column j of the
+(D, D) state in registers for the whole sweep, steps staged in shared
+memory in chunks.  TPU-isms of the Pallas kernel that were dropped:
+
+  * the 128-lane padding of D, with ``w`` padded with ones
+    (``repro/kernels/ops.py:209-227``): the kernel is templated on D
+    (32, 64, 128);
+  * the sequential chunk grid that carries the state in VMEM scratch, and
+    its tail guard: a block sweeps exactly S steps;
+  * ``u`` broadcast to (B*H, D): the kernel indexes the (H, D) bonus by
+    head;
+  * the (B*H, S, D) relayout: the kernel reads r/k/v/w through their
+    strides, so the layer's transposed views of its (B, S, H*D)
+    projections are not copied, and it writes ``out`` into a (B, S, H, D)
+    buffer, which the layer reads back as (B, S, H*D) without a copy;
+  * no initial state: the kernel takes an optional ``state0``, so decode
+    runs through it too (the reference's decode ran the jnp oracle).
+
+:func:`rwkv6_scan_fwd` launches the kernel for CUDA tensors and raises
+when it cannot; it takes :func:`rwkv6_scan_plain` only for tensors on
+the CPU.  There is no ``try`` that falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import Q_CODES, LaunchCounter, check_operands, load_library
+
+HEAD_SIZES = (32, 64, 128)     # head sizes the kernel instantiates
+
+counter = LaunchCounter("rwkv6_scan")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("repro_rwkv6")
+    fn = lib.repro_rwkv6_scan
+    if fn.argtypes is None:
+        strides = [ctypes.c_longlong] * 3
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + strides
+                       + [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor,
+                     state0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference oracles' step loop: r/k/v/w (B, H, S, D), u (H, D)
+    fp32, state0 (B, H, D, D) fp32 or None (zeros).  Everything in fp32;
+    returns (out (B, H, S, D) in r's dtype, final state (B, H, D, D)
+    fp32).  Differentiable in r, k, v, w and u (the backward of
+    ``ops.rwkv6_scan`` recomputes through it)."""
+    b, h, s, d = r.shape
+    uu = u.float()[None, :, :, None]                        # (1, H, D, 1)
+    state = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+             if state0 is None else state0.float())
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    outs = []
+    for t in range(s):
+        kv = k32[:, :, t, :, None] * v32[:, :, t, None, :]  # (B, H, Dk, Dv)
+        outs.append(torch.einsum("bhd,bhde->bhe", r32[:, :, t],
+                                 state + uu * kv))
+        state = w32[:, :, t, :, None] * state + kv
+    out = (torch.stack(outs, dim=2) if outs
+           else torch.zeros_like(r32))
+    return out.to(r.dtype), state
+
+
+def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor,
+                   state0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: (B, H, S, D), one dtype (fp32 or bf16), any strides; u:
+    (H, D) fp32, contiguous; state0: (B, H, D, D) fp32, contiguous, or
+    None (zero initial state).
+    Returns (out (B, H, S, D) in r's dtype, final state (B, H, D, D)
+    fp32, a new tensor).  On CUDA ``out`` is a transposed view of a
+    contiguous (B, S, H, D) tensor.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    on the current stream, or raise.  The kernel reads r/k/v/w through
+    one set of strides with a unit last stride; inputs that do not share
+    such strides are made contiguous first."""
+    if r.device.type == "cpu":
+        return rwkv6_scan_plain(r, k, v, w, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_fwd: unsupported device {r.device}")
+    if any(x.device != r.device for x in (k, v, w)):
+        raise ValueError("rwkv6_scan_fwd: all operands must be on one "
+                         "device")
+    if r.ndim != 4 or any(x.shape != r.shape for x in (k, v, w)):
+        raise ValueError(f"rwkv6_scan_fwd: r/k/v/w must share one (B, H, "
+                         f"S, D) shape, got {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(w.shape)}")
+    b, h, s, d = r.shape
+    if d not in HEAD_SIZES:
+        raise ValueError(f"rwkv6_scan_fwd: head size {d} is not "
+                         f"instantiated (have {HEAD_SIZES})")
+    if r.dtype not in Q_CODES or any(x.dtype != r.dtype for x in (k, v, w)):
+        raise TypeError(f"rwkv6_scan_fwd: r/k/v/w dtypes {r.dtype}/"
+                        f"{k.dtype}/{v.dtype}/{w.dtype} unsupported (one of "
+                        f"float32, bfloat16 for all four)")
+    if u.dtype != torch.float32 or tuple(u.shape) != (h, d):
+        raise ValueError(f"rwkv6_scan_fwd: u must be ({h}, {d}) float32, "
+                         f"got {tuple(u.shape)} {u.dtype}")
+    if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in (k, v, w)):
+        r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+    tensors = [u]
+    if state0 is not None:
+        if state0.dtype != torch.float32 or \
+                tuple(state0.shape) != (b, h, d, d):
+            raise ValueError(f"rwkv6_scan_fwd: state0 must be ({b}, {h}, "
+                             f"{d}, {d}) float32, got {tuple(state0.shape)} "
+                             f"{state0.dtype}")
+        tensors.append(state0)
+    check_operands("rwkv6_scan_fwd", r, tensors)
+    out = torch.empty((b, s, h, d), dtype=r.dtype,
+                      device=r.device).transpose(1, 2)
+    state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    if b * h == 0:
+        return out, state
+    fn = _lib().repro_rwkv6_scan
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = fn(Q_CODES[r.dtype], d, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+             w.data_ptr(), *r.stride()[:3], u.data_ptr(),
+             None if state0 is None else state0.data_ptr(), out.data_ptr(),
+             *out.stride()[:3], state.data_ptr(), b, h, s, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan kernel launch failed (code {err})")
+    counter.bump()
+    return out, state

@@ -46,23 +46,38 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
     """Returns ``serve_step(params, cache, tokens, pos) -> (logits (B, 1,
     V), cache)``: one token per row at the host int position ``pos``,
     written into the cache in place.  The cache is
-    ``lm.init_cache(cfg, batch, max_seq, cache_dtype, device)``; the step
-    checks its shape and that ``pos`` lies inside it, where the
-    reference's ``dynamic_update_slice`` would clamp the write."""
-    LM._check_supported(cfg)
+    ``lm.init_cache(cfg, batch, max_seq, cache_dtype, device)``.  Each
+    step checks its layer count, and the entries (names, shapes, dtypes,
+    device) of the first layer of each kind of block against that layout,
+    whatever the mixer.  Where a layer caches keys by position, ``pos``
+    must lie inside ``max_seq``, where the reference's
+    ``dynamic_update_slice`` would clamp the write; a recurrent state
+    (rwkv) holds no positions, and there ``pos`` need only be >= 0."""
+    layout = LM.cache_layout(cfg, batch, max_seq, cache_dtype)
     dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.hd)
+    probes = [i for i, entry in enumerate(layout)
+              if entry not in layout[:i]]
+    positional = any(spec.mixer not in ("rwkv", "mamba")
+                     for spec in cfg.layer_specs())
+
+    def check(cache: LM.Cache) -> None:
+        got = {i: {n: (tuple(t.shape), t.dtype)
+                   for n, t in cache[i].items()}
+               for i in probes if i < len(cache)}
+        if len(cache) != len(layout) or \
+                any(got[i] != layout[i] for i in probes) or \
+                any(t.device.type != dev.type
+                    for i in probes for t in cache[i].values()):
+            raise ValueError(f"serve_step: cache ({len(cache)} layers, "
+                             f"first {got.get(0)}) is not the {cfg.name} "
+                             f"cache ({len(layout)} layers, first "
+                             f"{layout[0]}) on {dev} this step was built "
+                             f"for")
 
     def serve_step(params: LM.Params, cache: LM.Cache,
                    tokens: torch.Tensor, pos: int):
-        c0 = cache[0]["k"]
-        if tuple(c0.shape) != shape or c0.dtype != cache_dtype or \
-                c0.device.type != dev.type:
-            raise ValueError(f"serve_step: cache {tuple(c0.shape)} "
-                             f"{c0.dtype} on {c0.device} is not the "
-                             f"{shape} {cache_dtype} cache on {dev} this "
-                             f"step was built for")
-        if not 0 <= pos < max_seq:
+        check(cache)
+        if pos < 0 or (positional and pos >= max_seq):
             raise ValueError(f"serve_step: position {pos} outside the "
                              f"cache (max_seq {max_seq})")
         with torch.no_grad():

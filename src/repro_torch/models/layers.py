@@ -1,8 +1,9 @@
 """Functional LM building blocks in PyTorch (params are plain dicts).
 
-Counterpart of ``repro/models/layers.py`` for the attn/dense path.
-Layouts are the reference's: linear weights are stored ``(in, out)`` and
-applied as ``x @ W``; norm weights and statistics are fp32.
+Counterpart of ``repro/models/layers.py`` for the attn/dense path and the
+RWKV-6 block.  Layouts are the reference's: linear weights are stored
+``(in, out)`` and applied as ``x @ W``; norm weights and statistics are
+fp32.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kops
 from . import attention as A
 
 Params = Dict[str, torch.Tensor]
@@ -216,3 +218,117 @@ def mlp(p: Params, x: torch.Tensor, activation: str = "silu"
     else:
         h = _act(up, activation)
     return h @ p["w_down"]
+
+
+# ----------------------------------------------------------------------
+# RWKV-6 ("Finch"): data-dependent decay linear attention
+# ----------------------------------------------------------------------
+
+
+def rwkv6_init(gen: torch.Generator, d_model: int, *, head_dim: int = 64,
+               lora_r: int = 64, dtype=torch.bfloat16, device=None
+               ) -> Params:
+    """The reference's shapes and per-leaf dtypes
+    (``repro/models/layers.py:540-569``): the token-shift mixes ``mu_*``
+    and ``cm_mu_k`` (1-D) and every matrix in ``dtype``; ``decay_base``,
+    ``bonus`` (H, head_dim) and ``ln_out`` in fp32."""
+    n_heads = d_model // head_dim
+    d_cm = int(3.5 * d_model)
+
+    def mu():
+        return torch.full((d_model,), 0.5, dtype=dtype, device=device)
+
+    def dense(i, o):
+        return dense_init(gen, i, o, dtype, device)
+
+    return {
+        "mu_r": mu(), "mu_k": mu(), "mu_v": mu(), "mu_w": mu(), "mu_g": mu(),
+        "w_r": dense(d_model, d_model),
+        "w_k": dense(d_model, d_model),
+        "w_v": dense(d_model, d_model),
+        "w_g": dense(d_model, d_model),
+        "w_o": dense(d_model, d_model),
+        # data-dependent decay LoRA: w_t = exp(-exp(base + lora(x)))
+        "decay_base": torch.full((d_model,), -6.0, dtype=torch.float32,
+                                 device=device),
+        "decay_a": dense(d_model, lora_r),
+        "decay_b": dense(lora_r, d_model),
+        "bonus": torch.randn((n_heads, head_dim), generator=gen,
+                             dtype=torch.float32, device=device) * 0.02,
+        "ln_out": torch.ones((d_model,), dtype=torch.float32, device=device),
+        # channel mix (the FFN half of the block)
+        "cm_mu_k": mu(),
+        "cm_k": dense(d_model, d_cm),
+        "cm_v": dense(d_cm, d_model),
+        "cm_r": dense(d_model, d_model),
+    }
+
+
+def _token_shift(x: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x[t-1] along dim 1: zeros, or ``prev`` (B, 1, D) read in x's
+    dtype, at t=0."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def rwkv6(p: Params, x: torch.Tensor, *, head_dim: int = 64,
+          cache: Optional[Params] = None, backend: str = "auto"
+          ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Time mix + channel mix of the RWKV-6 block (pre-norm applied by the
+    caller; the caller adds the residual).  x: (B, S, D).
+
+    Without ``cache``: prefill from a zero state.  With ``cache``
+    ({"wkv": (B, H, hd, hd) fp32, "shift", "cm_shift": (B, 1, D)}): the
+    sequence continues from it, and the cache is updated in place (the
+    reference returns a new one): each entry is read before it is
+    overwritten, and the returned cache holds the same tensors.  The
+    shift rows are kept in the activation dtype (the reference returns
+    them as ``x[:, -1:]``), whatever the cache's dtype.
+
+    The decays are rounded to x's dtype before the recurrence, as the
+    reference does (``w.astype(x.dtype)``); at bf16 this maps every
+    ``w_log`` below about -6.24 to a decay of exactly 1.0.  ``backend``
+    is validated and selects nothing: every call, prefill and decode,
+    goes through ``kernels.ops.rwkv6_scan``."""
+    A._check_backend("rwkv6", backend)
+    b, s, d = x.shape
+    n_heads = d // head_dim
+
+    xs = _token_shift(x, cache["shift"] if cache is not None else None)
+
+    def mix(mu):
+        return x + (xs - x) * mu
+
+    r = mix(p["mu_r"]) @ p["w_r"]
+    k = mix(p["mu_k"]) @ p["w_k"]
+    v = mix(p["mu_v"]) @ p["w_v"]
+    g = F.silu(mix(p["mu_g"]) @ p["w_g"])
+    w_log = p["decay_base"] + (torch.tanh(mix(p["mu_w"]) @ p["decay_a"])
+                               @ p["decay_b"]).float()
+    w = torch.exp(-torch.exp(w_log))                     # (B, S, D) fp32
+
+    def heads(t):    # a view: the kernel reads it through its strides
+        return t.view(b, s, n_heads, head_dim).transpose(1, 2)
+
+    out, state = kops.rwkv6_scan(
+        heads(r), heads(k), heads(v), heads(w.to(x.dtype)), p["bonus"],
+        cache["wkv"] if cache is not None else None)
+    out = out.transpose(1, 2).reshape(b, s, d)     # a view on CUDA
+    tm_out = (rms_norm(out, p["ln_out"]) * g) @ p["w_o"]
+
+    # channel mix
+    y = x + tm_out
+    ys = _token_shift(y, cache["cm_shift"] if cache is not None else None)
+    xk = y + (ys - y) * p["cm_mu_k"]
+    cm = torch.square(F.relu(xk @ p["cm_k"])) @ p["cm_v"]
+    cm = torch.sigmoid(y @ p["cm_r"]) * cm
+    out_final = tm_out + cm
+
+    if cache is None:
+        return out_final, None
+    cache["wkv"].copy_(state)
+    cache["shift"].copy_(x[:, -1:])
+    cache["cm_shift"].copy_(y[:, -1:])
+    return out_final, cache

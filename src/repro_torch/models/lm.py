@@ -2,11 +2,14 @@
 decode.
 
 Counterpart of ``repro/models/lm.py`` for ``attn`` blocks with ``dense``
-or no FFN: the config dataclasses (torch dtypes), :func:`init_params`,
+or no FFN and ``rwkv`` blocks (RWKV-6, channel mix inside the block): the
+config dataclasses (torch dtypes), :func:`init_params`,
 :func:`params_from_numpy` (carries the reference's parameter pytree
-across), :func:`forward` (prefill; attention through the flash kernel),
-:func:`init_cache` and :func:`decode_step` (one token per row against the
-contiguous KV cache; attention through the decode kernel).
+across), :func:`cast_params`, :func:`forward` (prefill; attention through
+the flash kernel, WKV6 through its kernel), :func:`init_cache` and
+:func:`decode_step` (one token per row against the cache; attention
+through the decode kernel, WKV6 through its kernel from the cached
+state).
 
 The port keeps parameters as one per-layer list, the layout the serving
 executor iterates (the reference stacks groups for ``lax.scan`` and
@@ -14,11 +17,14 @@ unstacks them in ``serving/executor.py::split_layer_params``)::
 
     {"embed": (V, D), "final_norm": (D,), ["lm_head": (D, V)],
      "layers": [{"norm1", "attn": {"wq", "wk", "wv", "wo"},
-                 "norm2", "mlp": {"w_up", "w_down", ["w_gate"]}}, ...]}
+                 "norm2", "mlp": {"w_up", "w_down", ["w_gate"]}}
+                or {"norm1", "rwkv": {...}}, ...]}
 
-The KV cache is a per-layer list as well, ``[{"k": (B, Hkv, Smax, hd),
-"v": ...}, ...]``, which :func:`decode_step` updates in place (the
-reference stacks it per group for ``lax.scan`` and donates it).
+The cache is a per-layer list as well: ``{"k": (B, Hkv, Smax, hd), "v"}``
+for an attn layer, ``{"wkv": (B, H, hd, hd) fp32, "shift", "cm_shift":
+(B, 1, D)}`` for an rwkv layer.  :func:`decode_step` updates it in place
+(the reference stacks it per group for ``lax.scan`` and donates it, or
+returns new rwkv entries).
 """
 
 from __future__ import annotations
@@ -118,13 +124,18 @@ class LMConfig:
         return tuple(self.pattern) * self.n_groups + tuple(self.tail)
 
 
+# (mixer, ffn) pairs the port covers
+SUPPORTED_BLOCKS = frozenset({("attn", "dense"), ("attn", "none"),
+                              ("rwkv", "none")})
+
+
 def _check_supported(cfg: LMConfig) -> None:
     for spec in cfg.layer_specs():
-        if spec.mixer != "attn" or spec.ffn not in ("dense", "none"):
+        if (spec.mixer, spec.ffn) not in SUPPORTED_BLOCKS:
             raise NotImplementedError(
                 f"{cfg.name}: block {spec} is not ported yet; the port "
-                f"covers attn/dense blocks (other mixers and MoE are "
-                f"ROADMAP.md queue A, item 11)")
+                f"covers attn/dense|none and rwkv/none blocks (other "
+                f"mixers and MoE are ROADMAP.md queue A, item 11)")
     if cfg.qkv_bias or cfg.qk_norm or cfg.final_softcap or \
             cfg.input_mode != "tokens" or not cfg.lm_head:
         raise NotImplementedError(
@@ -159,8 +170,13 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
         p: Params = {"norm1": _norm_init(cfg, dev)}
         if cfg.norm == "layer":
             p["norm1_b"] = torch.zeros(cfg.d_model, device=dev)
-        p["attn"] = L.attn_init(gen, cfg.d_model, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.hd, dt, dev)
+        if spec.mixer == "rwkv":
+            p["rwkv"] = L.rwkv6_init(gen, cfg.d_model,
+                                     head_dim=cfg.rwkv_head_dim, dtype=dt,
+                                     device=dev)
+        else:
+            p["attn"] = L.attn_init(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.hd, dt, dev)
         if spec.ffn == "dense":
             p["norm2"] = _norm_init(cfg, dev)
             if cfg.norm == "layer":
@@ -200,10 +216,27 @@ def params_to(params: Params, device) -> Params:
     return _map(params, lambda a: a.to(device))
 
 
+# leaves that init_params (and the reference's) makes in fp32 whatever
+# param_dtype is: norm weights and biases, rwkv's ln_out, decay_base and
+# bonus (repro/models/layers.py:555-561)
+FP32_LEAVES = frozenset({"norm1", "norm1_b", "norm2", "norm2_b",
+                         "final_norm", "final_norm_b", "ln_out",
+                         "decay_base", "bonus"})
+
+
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
-    """Weight matrices (embeddings, projections) cast to ``dtype``; the
-    1-D norm weights stay fp32, as ``init_params`` makes them."""
-    return _map(params, lambda a: a.to(dtype) if a.ndim >= 2 else a)
+    """Every leaf that ``init_params`` makes in ``param_dtype`` cast to
+    ``dtype`` (embeddings, projections, rwkv's 1-D token-shift mixes);
+    the leaves of :data:`FP32_LEAVES` stay fp32.  So ``cast_params(
+    init_params(cfg32), dtype)`` has the dtypes of ``init_params`` at
+    ``param_dtype=dtype``, leaf for leaf."""
+    def cast(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [cast(v, name) for v in tree]
+        return tree if name in FP32_LEAVES else tree.to(dtype)
+    return cast(params)
 
 
 def params_from_numpy(cfg: LMConfig, tree: Params, device=None) -> Params:
@@ -244,14 +277,20 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                  x: torch.Tensor, cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """An attn block with a dense FFN or none.  ``cache_pos``: the host
-    int write position in decode."""
+    """An attn block with a dense FFN or none, or an rwkv block.
+    ``cache_pos``: the host int write position in decode (rwkv blocks
+    need none: their state holds the past)."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
-    out, new_cache = L.attention(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.hd, causal=cfg.causal, window=None,
-        rope_theta=cfg.rope_theta, query_scale=cfg.query_scale,
-        cache=cache, cache_pos=cache_pos, q_norm=cfg.qk_norm, backend=cfg.attn_backend)
+    if spec.mixer == "rwkv":
+        out, new_cache = L.rwkv6(p["rwkv"], h, head_dim=cfg.rwkv_head_dim,
+                                 cache=cache, backend=cfg.attn_backend)
+    else:
+        out, new_cache = L.attention(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, causal=cfg.causal, window=None,
+            rope_theta=cfg.rope_theta, query_scale=cfg.query_scale,
+            cache=cache, cache_pos=cache_pos, q_norm=cfg.qk_norm,
+            backend=cfg.attn_backend)
     x = x + out
     if spec.ffn == "dense":
         h2 = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
@@ -302,24 +341,41 @@ def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
 # KV cache and decode step
 # ----------------------------------------------------------------------
 
-def _block_cache(cfg: LMConfig, spec: BlockSpec, batch: int, max_seq: int,
-                 dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: no cache for mixer {spec.mixer!r} yet (ROADMAP.md "
-            f"queue A, item 11)")
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def _block_cache_layout(cfg: LMConfig, spec: BlockSpec, batch: int,
+                        max_seq: int, dtype: torch.dtype
+                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    if spec.mixer == "rwkv":
+        # the reference's shifts start in the cache dtype but each step
+        # returns them in the activation dtype; the port writes them in
+        # place, so they are held in that dtype from the start (zeros are
+        # exact in either)
+        hd = cfg.rwkv_head_dim
+        row = ((batch, 1, cfg.d_model), cfg.param_dtype)
+        return {"wkv": ((batch, cfg.d_model // hd, hd, hd), torch.float32),
+                "shift": row, "cm_shift": row}
+    kv = ((batch, cfg.n_kv_heads, max_seq, cfg.hd), dtype)
+    return {"k": kv, "v": kv}
+
+
+def cache_layout(cfg: LMConfig, batch: int, max_seq: int,
+                 dtype: torch.dtype = torch.bfloat16
+                 ) -> List[Dict[str, Tuple[Tuple[int, ...], torch.dtype]]]:
+    """Per layer, each cache entry's (shape, dtype), as :func:`init_cache`
+    makes it (the reference's ``_block_cache``, ``repro/models/lm.py:
+    363-393``)."""
+    _check_supported(cfg)
+    return [_block_cache_layout(cfg, spec, batch, max_seq, dtype)
+            for spec in cfg.layer_specs()]
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
-    """An empty per-layer KV cache on ``device`` (default CUDA)."""
-    _check_supported(cfg)
+    """An empty per-layer cache on ``device`` (default CUDA), zeros in
+    the layout of :func:`cache_layout`."""
+    layout = cache_layout(cfg, batch, max_seq, dtype)
     dev = resolve_device(device)
-    return [_block_cache(cfg, spec, batch, max_seq, dtype, dev)
-            for spec in cfg.layer_specs()]
+    return [{name: torch.zeros(shape, dtype=dt, device=dev)
+             for name, (shape, dt) in entry.items()} for entry in layout]
 
 
 def decode_step(cfg: LMConfig, params: Params, cache: Cache,

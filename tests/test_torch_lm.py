@@ -31,11 +31,12 @@ from repro_torch.launch.train import make_prefill_step, make_serve_step
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
-from torch_port_helpers import (cuda_device, port_cfg, port_params,  # noqa: F401
-                                requires_cuda, tiny_cfg, to_numpy, to_torch)
+from torch_port_helpers import (PARITY_RTOL, cuda_device,  # noqa: F401
+                                greedy_rollouts, port_cfg, port_params,
+                                port_rollout_parity, requires_cuda, tiny_cfg,
+                                to_numpy, to_torch)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-PARITY_RTOL = 5e-3                      # tests/test_models_lm.py
 
 
 def jax_cfg(which):
@@ -138,51 +139,15 @@ def test_forward_matches_jax(which):
     assert float(aux) == float(exp_aux) == 0.0
 
 
-def _greedy_rollouts(cfg, steps, prompt=4, batch=2, max_seq=32):
-    params = JLM.init_params(cfg, jax.random.key(7))
-    toks = np.random.default_rng(8).integers(
-        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
-    step = jax.jit(lambda p, c, t, pos: JLM.decode_step(cfg, p, c, t, pos))
-    jc = JLM.init_cache(cfg, batch, max_seq, jnp.float32)
-    tcfg, tp = port_cfg(cfg), port_params(cfg, params)
-    tc = TLM.init_cache(tcfg, batch, max_seq, torch.float32, device="cpu")
-    j_tok, t_tok = toks[:, :1], torch.from_numpy(toks[:, :1]).long()
-    j_logits, t_logits, j_out, t_out = [], [], [], []
-    for pos in range(steps):
-        jl, jc = step(params, jc, jnp.asarray(j_tok), jnp.int32(pos))
-        tl, tc = TLM.decode_step(tcfg, tp, tc, t_tok, pos)
-        j_logits.append(np.asarray(jl))
-        t_logits.append(to_numpy(tl))
-        if pos + 1 < prompt:
-            j_tok = toks[:, pos + 1:pos + 2]
-            t_tok = torch.from_numpy(j_tok).long()
-        else:
-            j_tok = np.asarray(jnp.argmax(jl[:, -1], -1))[:, None]
-            t_tok = tl[:, -1].argmax(-1, keepdim=True)
-            j_out.append(j_tok[:, 0])
-            t_out.append(t_tok[:, 0].numpy())
-    return j_logits, t_logits, np.stack(j_out, 1), np.stack(t_out, 1)
-
-
 @pytest.mark.parametrize("which", ["tiny", "tiny_mqa", "gemma_smoke"])
 def test_decode_rollout_matches_jax(which):
     """4 prompt tokens fed one a step, then greedy: logits at every step
     within 2e-5 and 17 greedy tokens identical."""
-    jl, tl, jt, tt = _greedy_rollouts(jax_cfg(which), steps=20)
+    jl, tl, jt, tt = greedy_rollouts(jax_cfg(which), steps=20)
     for a, b in zip(tl, jl):
         np.testing.assert_allclose(a, b, **TOL)
     assert jt.shape[1] == 17
     np.testing.assert_array_equal(tt, jt)
-
-
-def port_rollout_parity(tcfg, tp, tokens):
-    logits, _ = TLM.forward(tcfg, tp, tokens)
-    cache = TLM.init_cache(tcfg, tokens.shape[0], 16, torch.float32,
-                           device="cpu")
-    for t in range(tokens.shape[1]):
-        lg, cache = TLM.decode_step(tcfg, tp, cache, tokens[:, t:t + 1], t)
-    np.testing.assert_allclose(to_numpy(lg[:, 0]), to_numpy(logits[:, -1]),
-                               rtol=PARITY_RTOL, atol=PARITY_RTOL)
 
 
 @pytest.mark.parametrize("which", ["tiny", "tiny_mqa", "gemma_smoke"])

@@ -7,13 +7,17 @@ parameters cross as numpy arrays.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.models import lm as JLM
 from repro.models.lm import LMConfig
 from repro_torch.models import lm as TLM
+
+PARITY_RTOL = 5e-3                      # tests/test_models_lm.py
 
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -37,7 +41,6 @@ def port_cfg(cfg: LMConfig) -> TLM.LMConfig:
 
 def port_params(cfg: LMConfig, params):
     """Carry the reference's params across through numpy."""
-    import jax
     return TLM.params_from_numpy(port_cfg(cfg),
                                  jax.tree.map(np.asarray, params),
                                  device="cpu")
@@ -57,6 +60,52 @@ def to_torch(a) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
+
+
+def greedy_rollouts(cfg, steps, prompt=4, batch=2, max_seq=32,
+                    cache_dtype="float32"):
+    """The reference's and the port's ``decode_step`` from the same
+    reference params: ``prompt`` tokens fed one a step, then greedy, with
+    caches of ``cache_dtype`` on both sides.  Returns (JAX logits per
+    step, port logits per step, JAX greedy tokens, port greedy
+    tokens)."""
+    params = JLM.init_params(cfg, jax.random.key(7))
+    toks = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    step = jax.jit(lambda p, c, t, pos: JLM.decode_step(cfg, p, c, t, pos))
+    jc = JLM.init_cache(cfg, batch, max_seq, getattr(jnp, cache_dtype))
+    tcfg, tp = port_cfg(cfg), port_params(cfg, params)
+    tc = TLM.init_cache(tcfg, batch, max_seq, getattr(torch, cache_dtype),
+                        device="cpu")
+    j_tok, t_tok = toks[:, :1], torch.from_numpy(toks[:, :1]).long()
+    j_logits, t_logits, j_out, t_out = [], [], [], []
+    for pos in range(steps):
+        jl, jc = step(params, jc, jnp.asarray(j_tok), jnp.int32(pos))
+        tl, tc = TLM.decode_step(tcfg, tp, tc, t_tok, pos)
+        j_logits.append(np.asarray(jl))
+        t_logits.append(to_numpy(tl))
+        if pos + 1 < prompt:
+            j_tok = toks[:, pos + 1:pos + 2]
+            t_tok = torch.from_numpy(j_tok).long()
+        else:
+            j_tok = np.asarray(jnp.argmax(jl[:, -1], -1))[:, None]
+            t_tok = tl[:, -1].argmax(-1, keepdim=True)
+            j_out.append(j_tok[:, 0])
+            t_out.append(t_tok[:, 0].numpy())
+    return j_logits, t_logits, np.stack(j_out, 1), np.stack(t_out, 1)
+
+
+def port_rollout_parity(tcfg, tp, tokens):
+    """The port's own ``rollout_parity`` (tests/test_models_lm.py): the
+    last prefill logits equal a ``decode_step`` rollout's within
+    ``PARITY_RTOL``."""
+    logits, _ = TLM.forward(tcfg, tp, tokens)
+    cache = TLM.init_cache(tcfg, tokens.shape[0], 16, torch.float32,
+                           device="cpu")
+    for t in range(tokens.shape[1]):
+        lg, cache = TLM.decode_step(tcfg, tp, cache, tokens[:, t:t + 1], t)
+    np.testing.assert_allclose(to_numpy(lg[:, 0]), to_numpy(logits[:, -1]),
+                               rtol=PARITY_RTOL, atol=PARITY_RTOL)
 
 
 @pytest.fixture
