@@ -5,11 +5,13 @@
 
 It builds the port's kernels from the sources in this checkout (one
 ``nvcc`` per library, all started together), holds each one against its
-plain PyTorch version at the shapes of the gemma-2b paths, checks the
+plain PyTorch version at the shapes of the paths below, checks the
 serving engine end to end on a small config against the same engine on
 the CPU, then drives gemma-2b at full width (18 layers, random weights
-from a seed) through both of the port's gemma paths, and rwkv6-1.6b at
-full width and depth (24 layers) through its prefill and decode path:
+from a seed) through both of the port's gemma paths, rwkv6-1.6b at full
+width and depth (24 layers) through its prefill and decode path, and
+jamba-1.5-large at full width, cut to its first 5 layers (every kind of
+block; 48.1 GB at bf16), through the same step builders:
 
   * paged continuous-batching serving through
     ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
@@ -20,10 +22,19 @@ full width and depth (24 layers) through its prefill and decode path:
     parity check at fp32 weights;
   * the rwkv6 path: the same step builders over rwkv blocks (the WKV6
     kernel in prefill and, from the cached state, in every decode step),
-    then the same parity check.
+    then the same parity check;
+  * the jamba path: mamba blocks (the Mamba scan kernel in prefill and,
+    from the cached state, in every decode step), the GShard MoE and
+    attention without RoPE (flash in prefill, decode attention in
+    decode), then the parity check at fp32 on two layers of its 8-layer
+    period, mamba/moe and attn/dense (47.6 GB), with a dropless capacity
+    factor.
 
 Each run shows that it went through its kernels: the launch counts are
-zeroed just before it and read just after.
+zeroed just before it and read just after, and must equal what the
+model's layers launch, kernel by kernel.  Each model is freed before the
+next one is made; the profiled runs at the end make theirs again from
+the same seeds.
 
 Output, one line each:
   * the card's name and power limit, as ``nvidia-smi`` gives them;
@@ -34,21 +45,24 @@ Output, one line each:
     attention (gemma-2b prefill, an offset+window row, an fp32 row);
     decode attention (gemma-2b decode at ragged lengths, fp32, window);
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
-    state);
+    state); flash and decode attention at jamba's shapes; the Mamba scan
+    (jamba prefill, decode from a state, a ragged fp32 row with a state,
+    B and C as strided column views);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels);
-  * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines, and
-    ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines, each
-    with its own launch counts;
-  * the profiled runs (``serving_profile``, ``dense_prefill_profile``,
-    ``dense_decode_profile``, ``rwkv_prefill_profile``,
-    ``rwkv_decode_profile``: device time and calls by kernel group, idle
-    share), last, because a profiler session slows the host for the
-    timed runs after it;
+  * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines,
+    ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines, and
+    ``jamba_prefill``, ``jamba_decode`` and ``jamba_parity`` lines, each
+    with its own launch counts and peak device memory;
+  * the profiled runs (``serving_profile`` and the ``*_prefill_profile``
+    and ``*_decode_profile`` of the three step-builder paths: device time
+    and calls by kernel group, idle share), last, because a profiler
+    session slows the host for the timed runs after it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
     path's main run (bf16 serving for paged attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
-    for WKV6) and its numbers at that path's shapes;
+    for WKV6, jamba prefill for the Mamba scan) and its numbers at that
+    path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -59,6 +73,7 @@ non-zero at once.  It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -93,14 +108,19 @@ GUMBEL_TOL = 1e-4                  # fp32 logs of values up to ~20 in size
 ATTN_BF16_TOL = 1e-2
 # (label, dtype, B, Hq, Hkv, Sq, Skv, D, window); all causal.  The first
 # row is gemma-2b prefill of (4, 1024) tokens, the dense_prefill shape.
+# The last row is jamba's attention layer in jamba_prefill (64 query heads
+# over 8 KV heads of 128).
 FLASH_ROWS = (("prefill", "bfloat16", 4, 8, 1, 1024, 1024, 256, None),
               ("offset_window", "bfloat16", 4, 8, 1, 384, 1024, 256, 256),
-              ("fp32", "float32", 4, 8, 1, 256, 256, 256, None))
+              ("fp32", "float32", 4, 8, 1, 256, 256, 256, None),
+              ("jamba", "bfloat16", 4, 64, 8, 1024, 1024, 128, None))
 # (label, dtype, B, Hkv, G, D, Smax, window); lengths ragged in 1..Smax.
-# The first row is gemma-2b decode at B = 8.
+# The first row is gemma-2b decode at B = 8, the last jamba's attention
+# layer at B = 8.
 DECODE_ROWS = (("decode", "bfloat16", 8, 1, 8, 256, 2048, None),
                ("fp32", "float32", 8, 1, 8, 256, 2048, None),
-               ("window", "bfloat16", 8, 1, 8, 256, 2048, 256))
+               ("window", "bfloat16", 8, 1, 8, 256, 2048, 256),
+               ("jamba", "bfloat16", 8, 8, 8, 128, 2048, None))
 # dense path: prefill (4, 1024); decode B = 8, 128-token prompts fed one
 # token a step, then 64 greedy tokens; parity on (2, 160) at fp32
 PREFILL_SHAPE = (4, 1024)
@@ -121,6 +141,34 @@ RWKV6_ROWS = (("prefill", "bfloat16", 4, 32, 1024, 64, False, "model"),
 # fp32 operations per state element a step: r*S, k*v and the decay FMA
 # (the bonus term is a per-step scalar, v_j * sum_i r_i u_i k_i)
 WKV6_OPS = 5
+# The Mamba scan against its plain version: (label, dtype, B, S, Di, N,
+# with an h0, B/C as column views of a (B, S, R + 2N) projection).  The
+# first row is the jamba_prefill shape (jamba-1.5-large, 4 x 1024 tokens,
+# d_inner 16384, d_state 16), the second a jamba_decode step from the
+# cached state, the third an fp32 row whose S is not a multiple of the
+# kernel's 16-step chunk, the fourth the prefill shape with B and C read
+# through the layer's strides (R = dt_rank = 512).  Inputs follow the
+# reference tests: x, B, C ~ N(0, 0.5^2), dt = softplus(N(0, 1)) * 0.1,
+# A = -exp(N(0, 1)), D = 1.  Tolerances: kernel_tol.
+MAMBA_ROWS = (("prefill", "bfloat16", 4, 1024, 16384, 16, False, False),
+              ("decode", "bfloat16", 8, 1, 16384, 16, True, False),
+              ("fp32_state_ragged", "float32", 2, 200, 16384, 16, True,
+               False),
+              ("strided_bc", "bfloat16", 4, 1024, 16384, 16, False, True))
+MAMBA_DT_RANK = 512
+# fp32 operations per state element a step: dt*A, exp, the state FMA
+# (2), B*(dt*x), the C FMA (2)
+MAMBA_OPS = 7
+# exp evaluations a second on the SFUs: 132 SMs x 16 a clock x 1.98 GHz
+# (H100 SXM data sheet boost clock), the floor of one exp per state
+# element per step
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# jamba-1.5-large: the first 5 layers at bf16 (48.1 GB) for prefill and
+# decode; for the fp32 parity check two layers of its 8-layer period,
+# mamba/moe and attn/dense (47.6 GB), so that the check holds the Mamba
+# scan, the MoE and the attention in prefill against decode
+JAMBA_LAYERS = 5
+JAMBA_PARITY_PATTERN = (("mamba", "moe"), ("attn", "dense"))
 
 # gemma-2b serving shapes
 PAGE_SIZE = 16
@@ -159,6 +207,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def peak_gb(torch) -> float:
+    """Peak device memory allocated since the last reset, in GB."""
+    return torch.cuda.max_memory_allocated() / 1e9
 
 
 # ----------------------------------------------------------------------
@@ -532,6 +585,70 @@ def phase_rwkv6(torch, dev) -> dict:
     return result
 
 
+def mamba_inputs(torch, dev, dt, b, s, di, n, state, strided):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(17)
+    dtype = getattr(torch, dt)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = (randn(b, s, di) * 0.5).to(dtype)
+    dtv = (F.softplus(randn(b, s, di)) * 0.1).to(dtype)
+    if strided:
+        r = MAMBA_DT_RANK
+        proj = (randn(b, s, r + 2 * n) * 0.5).to(dtype)
+        bm, cm = proj[..., r:r + n], proj[..., r + n:]
+    else:
+        bm, cm = ((randn(b, s, n) * 0.5).to(dtype) for _ in range(2))
+    a = -torch.exp(randn(di, n))
+    d = torch.ones(di, device=dev)
+    h0 = randn(b, di, n) * 0.5 if state else None
+    return x, dtv, bm, cm, a, d, h0
+
+
+def phase_mamba(torch, dev) -> dict:
+    """The Mamba scan kernel against its plain version; the first row is
+    the jamba_prefill shape (the table's row).  No single PyTorch call
+    computes the selective scan, so there is no library time."""
+    from repro_torch.kernels import mamba as MB
+
+    result = None
+    for label, dt, b, s, di, n, state, strided in MAMBA_ROWS:
+        args = mamba_inputs(torch, dev, dt, b, s, di, n, state, strided)
+        y, h = MB.mamba_scan_fwd(*args)
+        torch.cuda.synchronize()
+        ref_y, ref_h = MB.mamba_scan_plain(*args)
+        row = {"phase": "kernel", "name": "mamba_scan", "row": label,
+               "dtype": dt, "B": b, "S": s, "Di": di, "N": n, "h0": state,
+               "strided_bc": strided}
+        row.update(check_row(torch, f"mamba_scan[{label}]", y, ref_y,
+                             kernel_tol(dt, s)))
+        st_err = (h - ref_h).abs().max().item()
+        st_tol = kernel_tol("float32", s)[0]
+        row.update(state_max_abs_err=st_err, state_tol=st_tol,
+                   state_ref_rms=ref_h.pow(2).mean().sqrt().item())
+        if not bool(torch.isfinite(h).all()) or not st_err <= st_tol:
+            raise AssertionError(f"mamba_scan[{label}] final state "
+                                 f"disagrees with the plain version: "
+                                 f"{st_err}")
+        row["ms"] = time_ms(torch, lambda: MB.mamba_scan_fwd(*args))
+        row["plain_ms"] = time_ms(torch, lambda: MB.mamba_scan_plain(*args),
+                                  reps=5)
+        # x and dt in, y out; B, C; A and D; the final state out (and h0)
+        nbytes = ((3 * b * s * di + 2 * b * s * n) * args[0].element_size()
+                  + (di * n + di) * 4 + (2 if state else 1) * b * di * n * 4)
+        # the state math is fp32 whatever the input type: the fp32 peak
+        row["bound_ms"], row["bound_by"] = kernel_bound(
+            nbytes, MAMBA_OPS * b * s * di * n, "float32")
+        row["exp_floor_ms"] = b * s * di * n / SFU_EXP_PER_S * 1e3
+        row["library_ms"] = None
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
 # ----------------------------------------------------------------------
 # serving phases
 # ----------------------------------------------------------------------
@@ -582,6 +699,8 @@ def _kernel_group(name: str) -> str:
         return "decode_attention"
     if "rwkv6" in n:
         return "rwkv6_scan"
+    if "mamba" in n:
+        return "mamba_scan"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "matmul")):
         return "matmul"
     if "sort" in n or "radix" in n or "cumsum" in n or "scan" in n:
@@ -607,30 +726,55 @@ def counted(torch, what: str, fn, required=SERVING_KERNELS):
     return result, counts
 
 
+MOE_RANGE = "moe_dispatch_combine"
+
+
+def _kernels_under(ev):
+    """(name, device us) of every kernel launched under a profiled CPU op
+    and its children."""
+    for k in ev.kernels:
+        yield k.name, k.duration
+    for child in ev.cpu_children:
+        yield from _kernels_under(child)
+
+
 def device_time(prof) -> tuple:
     """Device ms by kernel group, and (ms, name, calls) of each kernel
-    sorted by time, from a ``torch.profiler`` run."""
+    sorted by time, from a ``torch.profiler`` run.  The kernels launched
+    inside the MoE layer's ``moe_dispatch_combine`` range (its dispatch of
+    tokens to expert slots and its combine back, ``models/layers.py::
+    moe``) are moved to a group of that name; the range itself, which the
+    profiler may also report as a device annotation, is no kernel."""
     groups, top = {}, []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us or ev.device_type is None or \
-                "CUDA" not in str(ev.device_type):
+                "CUDA" not in str(ev.device_type) or ev.key == MOE_RANGE:
             continue
         g = _kernel_group(ev.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         top.append((us / 1e3, ev.key[:60], ev.count))
     top.sort(reverse=True)
+    for ev in prof.events():
+        if ev.name != MOE_RANGE or "CPU" not in str(ev.device_type):
+            continue
+        for name, us in _kernels_under(ev):
+            g = _kernel_group(name)
+            groups[g] -= us / 1e3
+            groups[MOE_RANGE] = groups.get(MOE_RANGE, 0.0) + us / 1e3
     return groups, top
 
 
 def profile_window(torch, phase: str, fn, **fields) -> None:
     """Run ``fn`` under ``torch.profiler`` and emit a ``phase`` line:
     device time and kernel calls by kernel group, busy ms and the idle
-    share of the wall clock (``fn`` ends in a synchronise)."""
+    share of the wall clock (``fn`` ends in a synchronise), and the peak
+    device memory."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -644,7 +788,8 @@ def profile_window(torch, phase: str, fn, **fields) -> None:
     emit({"phase": phase, **fields, "wall_ms": wall * 1e3,
           "device_ms_by_group": groups, "device_calls_by_group": calls,
           "device_busy_ms": busy,
-          "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3))})
+          "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+          "peak_mem_gb": peak_gb(torch)})
 
 
 def profile_serving(torch, cfg, params, requests, dev) -> dict:
@@ -715,7 +860,8 @@ def gemma_models(torch, dev):
 
 def phase_serving(torch, dev, models) -> tuple:
     """gemma-2b serving runs.  Returns the main (bf16) run's launch
-    counts, and a function that runs it again under the profiler."""
+    counts, and a function that runs it again under the profiler on the
+    bf16 params it is given."""
     from repro_torch.serving.sampling import SamplingParams
 
     cfg32, params32, cfg, params = models
@@ -757,31 +903,57 @@ def phase_serving(torch, dev, models) -> tuple:
                              "spec_k=0")
     emit({"phase": "serving_checks", "spec2_equals_spec0": True})
 
-    def profiled():
+    def profiled(bf16_params):
         emit({"phase": "serving_profile", "run": "bf16",
-              **profile_serving(torch, cfg, params, requests, dev)})
+              **profile_serving(torch, cfg, bf16_params, requests, dev)})
     return main_counts, profiled
 
 
 # ----------------------------------------------------------------------
 # step-builder phases (lm.forward / lm.decode_step): the dense-cache
-# path of gemma-2b and the rwkv6 path of rwkv6-1.6b
+# path of gemma-2b, the rwkv6 path of rwkv6-1.6b and the jamba path
 # ----------------------------------------------------------------------
 
-def phase_prefill(torch, dev, models, phase: str, kernel: str,
-                  seed: int) -> tuple:
+# the kernel each mixer launches in (prefill, decode)
+MIXER_KERNELS = {"attn": ("flash_attention", "decode_attention"),
+                 "rwkv": ("rwkv6_scan", "rwkv6_scan"),
+                 "mamba": ("mamba_scan", "mamba_scan")}
+
+
+def launches_per_pass(cfg, decode: bool) -> dict:
+    """Kernel launches of one ``forward`` (or one ``decode_step``): one
+    per layer, of its mixer's kernel."""
+    want = {}
+    for spec in cfg.layer_specs():
+        k = MIXER_KERNELS[spec.mixer][decode]
+        want[k] = want.get(k, 0) + 1
+    return want
+
+
+def check_launches(torch, what: str, fn, want: dict):
+    """``counted`` with exact counts: every kernel of ``want`` launched
+    exactly that often in ``fn``, and no other kernel at all."""
+    result, counts = counted(torch, what, fn, required=tuple(want))
+    if any(counts.get(k, 0) != want.get(k, 0)
+           for k in set(counts) | set(want)):
+        raise AssertionError(f"{what} launched {counts}, not {want}")
+    return result, counts
+
+
+def phase_prefill(torch, dev, cfg, params, phase: str, seed: int) -> tuple:
     """bf16 prefill of (4, 1024) tokens through ``make_prefill_step``:
-    exactly one ``kernel`` launch per layer (flash attention for gemma,
-    WKV6 for rwkv6).  Returns the run's launch counts, and a function
-    that profiles one more prefill."""
+    exactly one launch of each layer's mixer kernel (flash attention for
+    attn layers, WKV6 for rwkv, the Mamba scan for mamba).  Returns the
+    run's launch counts, and a function that profiles one more prefill
+    on the params it is given."""
     from repro_torch.launch.train import make_prefill_step
 
-    _, _, cfg, params = models
     prefill = make_prefill_step(cfg, device=dev)
     b, s = PREFILL_SHAPE
     tokens = torch.randint(0, cfg.vocab_size, (b, s),
                            generator=torch.Generator().manual_seed(seed))
     tokens = tokens.to(dev)
+    torch.cuda.reset_peak_memory_stats()
     prefill(params, {"tokens": tokens})          # warm-up, not counted
     torch.cuda.synchronize()
 
@@ -791,20 +963,18 @@ def phase_prefill(torch, dev, models, phase: str, kernel: str,
         torch.cuda.synchronize()
         return logits, time.perf_counter() - t0
 
-    (logits, wall), counts = counted(torch, f"the {phase} run", run,
-                                     required=(kernel,))
-    if counts[kernel] != cfg.n_layers:
-        raise AssertionError(f"{phase} launched {kernel} {counts[kernel]} "
-                             f"times, not {cfg.n_layers}")
+    (logits, wall), counts = check_launches(
+        torch, f"the {phase} run", run, launches_per_pass(cfg, False))
     if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
             not bool(torch.isfinite(logits[:, -1].float()).all()):
         raise AssertionError(f"{phase} logits {tuple(logits.shape)} are "
                              f"not finite (B, S, V)")
     emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
           "batch": b, "seq": s, "wall_ms": wall * 1e3,
-          "tokens_per_s": b * s / wall, "launches": counts})
+          "tokens_per_s": b * s / wall, "launches": counts,
+          "peak_mem_gb": peak_gb(torch)})
 
-    def profiled():
+    def profiled(params):
         def once():
             prefill(params, {"tokens": tokens})
             torch.cuda.synchronize()
@@ -812,23 +982,24 @@ def phase_prefill(torch, dev, models, phase: str, kernel: str,
     return counts, profiled
 
 
-def phase_decode_steps(torch, dev, models, phase: str, kernel: str,
+def phase_decode_steps(torch, dev, cfg, params, phase: str,
                        seed: int) -> tuple:
     """bf16 greedy decode through ``make_serve_step``: 8 rows, 128-token
     prompts fed one token a step, then 64 greedy tokens; exactly one
-    ``kernel`` launch per layer per step (decode attention for gemma,
-    WKV6 from the cached state for rwkv6).  Returns the run's launch
-    counts, and a function that profiles a window of further steps."""
+    launch of each layer's mixer kernel per step (decode attention for
+    attn layers, WKV6 or the Mamba scan from the cached state).  Returns
+    the run's launch counts, and a function that profiles a window of
+    further steps on the params it is given."""
     from repro_torch.launch.train import make_serve_step
     from repro_torch.models import lm as LM
 
-    _, _, cfg, params = models
     b = DECODE_BATCH
     serve = make_serve_step(cfg, batch=b, max_seq=DECODE_MAX_SEQ,
                             cache_dtype=torch.bfloat16, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (b, DECODE_PROMPT),
                             generator=torch.Generator().manual_seed(seed))
     prompts = prompts.to(dev)
+    torch.cuda.reset_peak_memory_stats()
     warm = LM.init_cache(cfg, b, DECODE_MAX_SEQ, torch.bfloat16, dev)
     serve(params, warm, prompts[:, :1], 0)       # warm-up, not counted
     del warm
@@ -851,12 +1022,10 @@ def phase_decode_steps(torch, dev, models, phase: str, kernel: str,
         t2 = time.perf_counter()
         return torch.cat(out, dim=1), t1 - t0, t2 - t1
 
-    (gen, feed_s, gen_s), counts = counted(
-        torch, f"the {phase} run", run, required=(kernel,))
     steps = DECODE_PROMPT + DECODE_NEW - 1
-    if counts[kernel] != cfg.n_layers * steps:
-        raise AssertionError(f"{phase} launched {kernel} {counts[kernel]} "
-                             f"times, not {cfg.n_layers} x {steps}")
+    want = {k: n * steps for k, n in launches_per_pass(cfg, True).items()}
+    (gen, feed_s, gen_s), counts = check_launches(
+        torch, f"the {phase} run", run, want)
     if tuple(gen.shape) != (b, DECODE_NEW) or \
             not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
         raise AssertionError(f"{phase} emitted tokens out of range")
@@ -866,9 +1035,10 @@ def phase_decode_steps(torch, dev, models, phase: str, kernel: str,
           "steps": steps, "wall_s": wall,
           "decode_tokens_per_s": b * steps / wall,
           "generated_tokens_per_s": b * (DECODE_NEW - 1) / gen_s,
-          "ms_per_step": wall * 1e3 / steps, "launches": counts})
+          "ms_per_step": wall * 1e3 / steps, "launches": counts,
+          "peak_mem_gb": peak_gb(torch)})
 
-    def profiled(window: int = 16):
+    def profiled(params, window: int = 16):
         def window_steps():
             tok = gen[:, -1:]
             for i in range(window):
@@ -880,20 +1050,20 @@ def phase_decode_steps(torch, dev, models, phase: str, kernel: str,
     return counts, profiled
 
 
-def phase_parity(torch, dev, models, phase: str, seed: int,
-                 launches_per_layer) -> None:
+def phase_parity(torch, dev, cfg32, params32, phase: str, seed: int) -> None:
     """fp32 weights: the last-position logits of ``forward`` on (2, 160)
     tokens against a ``decode_step`` rollout over the same tokens, within
     5e-3 of the logits' RMS (``rollout_parity``'s rtol, stated relative
-    because full-width logits are not O(1)).  ``launches_per_layer(s)``
-    maps each kernel the run must launch to its exact count per layer."""
+    because full-width logits are not O(1)), argmax equal on every row.
+    The run launches exactly one forward's and 160 decode steps' mixer
+    kernels."""
     from repro_torch.models import lm as LM
 
-    cfg32, params32, _, _ = models
     b, s = PARITY_SHAPE
     tokens = torch.randint(0, cfg32.vocab_size, (b, s),
                            generator=torch.Generator().manual_seed(seed))
     tokens = tokens.to(dev)
+    torch.cuda.reset_peak_memory_stats()
 
     def run():
         with torch.no_grad():
@@ -904,23 +1074,37 @@ def phase_parity(torch, dev, models, phase: str, seed: int,
                                          tokens[:, t:t + 1], t)
         return full[:, -1].float(), step[:, 0].float()
 
-    want = {k: n * cfg32.n_layers
-            for k, n in launches_per_layer(s).items()}
-    (pre, dec), counts = counted(torch, f"the {phase} run", run,
-                                 required=tuple(want))
-    if any(counts[k] != n for k, n in want.items()):
-        raise AssertionError(f"{phase} launched {counts}, not {want}")
+    want = launches_per_pass(cfg32, False)
+    for k, n in launches_per_pass(cfg32, True).items():
+        want[k] = want.get(k, 0) + n * s
+    (pre, dec), counts = check_launches(torch, f"the {phase} run", run,
+                                        want)
     err = (pre - dec).abs().max().item()
     rms = pre.pow(2).mean().sqrt().item()
     agree = (pre.argmax(-1) == dec.argmax(-1)).tolist()
-    emit({"phase": phase, "model": cfg32.name, "dtype": "float32",
-          "batch": b, "seq": s, "max_abs_err": err, "logits_rms": rms,
-          "err_over_rms": err / rms, "rtol": PARITY_RTOL,
-          "argmax_agree": agree, "launches": counts})
+    emit({"phase": phase, "model": cfg32.name, "layers": cfg32.n_layers,
+          "dtype": "float32", "batch": b, "seq": s, "max_abs_err": err,
+          "logits_rms": rms, "err_over_rms": err / rms, "rtol": PARITY_RTOL,
+          "argmax_agree": agree, "launches": counts,
+          "peak_mem_gb": peak_gb(torch)})
     if not bool(torch.isfinite(pre).all() & torch.isfinite(dec).all()) or \
-            not err <= PARITY_RTOL * rms:
+            not err <= PARITY_RTOL * rms or not all(agree):
         raise AssertionError(f"{phase}: prefill and decode disagree: {err}"
-                             f" > {PARITY_RTOL} x {rms}")
+                             f" vs {PARITY_RTOL} x {rms}, argmax {agree}")
+
+
+def gemma_models(torch, dev):
+    """gemma-2b at full width and depth, random weights from a seeded
+    generator on the card: (fp32 config, fp32 params, bf16 config, bf16
+    params).  Every gemma-2b phase uses these two copies."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.models import lm as LM
+
+    cfg32 = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.float32)
+    cfg = dataclasses.replace(cfg32, param_dtype=torch.bfloat16)
+    params32 = LM.init_params(cfg32, seed=0, device=dev)
+    params = LM.cast_params(params32, torch.bfloat16)
+    return cfg32, params32, cfg, params
 
 
 def rwkv_models(torch, dev):
@@ -935,6 +1119,128 @@ def rwkv_models(torch, dev):
     params32 = LM.init_params(cfg32, seed=0, device=dev)
     params = LM.cast_params(params32, torch.bfloat16)
     return cfg32, params32, cfg, params
+
+
+def jamba_model(torch, dev, dtype, n_layers: int, **fields):
+    """jamba-1.5-large at full width, cut to its first ``n_layers``
+    layers (of its own pattern, or of a ``pattern`` in ``fields``), made
+    at ``dtype`` directly from a seeded generator on the card (5 layers
+    at bf16 are 48.1 GB; the fp32 model of 5 would be 96 GB, so the bf16
+    one is never a cast of it).  Returns (config, params)."""
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.models import lm as LM
+
+    cfg = dataclasses.replace(jamba.CONFIG, n_layers=n_layers,
+                              param_dtype=dtype, **fields)
+    return cfg, LM.init_params(cfg, seed=0, device=dev)
+
+
+def free(torch) -> None:
+    """Return the memory of dropped models to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_phases(torch, dev) -> list:
+    """Every phase in order; returns the rows of the kernel table."""
+    from repro_torch.models.lm import BlockSpec
+
+    rows = {"paged_attention": phase_paged_attention(torch, dev),
+            "gumbel_perturb": phase_gumbel(torch, dev),
+            "flash_attention": phase_flash(torch, dev),
+            "decode_attention": phase_decode(torch, dev),
+            "rwkv6_scan": phase_rwkv6(torch, dev),
+            "mamba_scan": phase_mamba(torch, dev)}
+    phase_small_e2e(torch)
+
+    # each model is freed before the next is made: jamba's 48 GB do not
+    # fit beside gemma's 15 and rwkv's 9.6
+    gemma = gemma_models(torch, dev)
+    counts, profile_serving_run = phase_serving(torch, dev, gemma)
+    cfg32, params32, cfg, params = gemma
+    del gemma
+    dense, profile_dense_prefill = phase_prefill(
+        torch, dev, cfg, params, "dense_prefill", 21)
+    counts["flash_attention"] = dense["flash_attention"]
+    dense, profile_dense_decode = phase_decode_steps(
+        torch, dev, cfg, params, "dense_decode", 22)
+    counts["decode_attention"] = dense["decode_attention"]
+    phase_parity(torch, dev, cfg32, params32, "dense_parity", 23)
+    del params32, params
+    free(torch)
+
+    cfg32, params32, cfg, params = rwkv_models(torch, dev)
+    rwkv, profile_rwkv_prefill = phase_prefill(
+        torch, dev, cfg, params, "rwkv_prefill", 31)
+    counts["rwkv6_scan"] = rwkv["rwkv6_scan"]
+    _, profile_rwkv_decode = phase_decode_steps(
+        torch, dev, cfg, params, "rwkv_decode", 32)
+    phase_parity(torch, dev, cfg32, params32, "rwkv_parity", 33)
+    del params32, params
+    free(torch)
+
+    cfg, params = jamba_model(torch, dev, torch.bfloat16, JAMBA_LAYERS)
+    jamba, profile_jamba_prefill = phase_prefill(
+        torch, dev, cfg, params, "jamba_prefill", 41)
+    counts["mamba_scan"] = jamba["mamba_scan"]
+    _, profile_jamba_decode = phase_decode_steps(
+        torch, dev, cfg, params, "jamba_decode", 42)
+    del params
+    free(torch)
+    # dropless prefill (capacity factor E / k), as decode always is, so
+    # that the two compute the same function
+    cfg32, params32 = jamba_model(
+        torch, dev, torch.float32, len(JAMBA_PARITY_PATTERN),
+        capacity_factor=cfg.n_experts / cfg.top_k,
+        pattern=tuple(BlockSpec(*b) for b in JAMBA_PARITY_PATTERN))
+    phase_parity(torch, dev, cfg32, params32, "jamba_parity", 43)
+    del params32
+    free(torch)
+
+    # the profiled runs come last: a torch.profiler session leaves host
+    # overhead behind it that slowed the timed runs made after it.  Each
+    # model is made again from its seed, for the runs that profile it.
+    for make, profiles in (
+            (lambda: gemma_models(torch, dev)[3],
+             (profile_serving_run, profile_dense_prefill,
+              profile_dense_decode)),
+            (lambda: rwkv_models(torch, dev)[3],
+             (profile_rwkv_prefill, profile_rwkv_decode)),
+            (lambda: jamba_model(torch, dev, torch.bfloat16,
+                                 JAMBA_LAYERS)[1],
+             (profile_jamba_prefill, profile_jamba_decode))):
+        params = make()
+        for profiled in profiles:
+            profiled(params)
+        del params
+        free(torch)
+
+    table = []
+    for name, route, source, replaces in (
+            ("paged_attention", "cuda",
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/decode_attention.py:322"),
+            ("gumbel_perturb", "triton",
+             "src/repro_torch/kernels/_gumbel_triton.py",
+             "src/repro/kernels/ops.py:336"),
+            ("flash_attention", "cuda",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:99"),
+            ("decode_attention", "cuda",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:90"),
+            ("rwkv6_scan", "cuda", "src/repro_torch/kernels/csrc/rwkv6.cu",
+             "src/repro/kernels/rwkv6.py:64"),
+            ("mamba_scan", "cuda", "src/repro_torch/kernels/csrc/mamba.cu",
+             "src/repro/kernels/mamba.py:55")):
+        r = rows[name]
+        table.append({"name": name, "route": route, "source": source,
+                      "replaces": replaces, "launches": counts[name],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"],
+                      "library_ms": r["library_ms"]})
+    return table
 
 
 def main() -> int:
@@ -956,62 +1262,7 @@ def main() -> int:
     _build.build_all()
     emit({"phase": "build", "libraries": sorted(_build.LIBRARIES),
           "seconds": time.perf_counter() - t0})
-
-    rows = {"paged_attention": phase_paged_attention(torch, "cuda"),
-            "gumbel_perturb": phase_gumbel(torch, "cuda"),
-            "flash_attention": phase_flash(torch, "cuda"),
-            "decode_attention": phase_decode(torch, "cuda"),
-            "rwkv6_scan": phase_rwkv6(torch, "cuda")}
-    phase_small_e2e(torch)
-    models = gemma_models(torch, "cuda")
-    counts, profile_serving_run = phase_serving(torch, "cuda", models)
-    dense, profile_dense_prefill = phase_prefill(
-        torch, "cuda", models, "dense_prefill", "flash_attention", 21)
-    counts["flash_attention"] = dense["flash_attention"]
-    dense, profile_dense_decode = phase_decode_steps(
-        torch, "cuda", models, "dense_decode", "decode_attention", 22)
-    counts["decode_attention"] = dense["decode_attention"]
-    phase_parity(torch, "cuda", models, "dense_parity", 23,
-                 lambda s: {"flash_attention": 1, "decode_attention": s})
-    rwkv = rwkv_models(torch, "cuda")
-    rwkv_counts, profile_rwkv_prefill = phase_prefill(
-        torch, "cuda", rwkv, "rwkv_prefill", "rwkv6_scan", 31)
-    counts["rwkv6_scan"] = rwkv_counts["rwkv6_scan"]
-    _, profile_rwkv_decode = phase_decode_steps(
-        torch, "cuda", rwkv, "rwkv_decode", "rwkv6_scan", 32)
-    phase_parity(torch, "cuda", rwkv, "rwkv_parity", 33,
-                 lambda s: {"rwkv6_scan": s + 1})
-    # the profiled runs come last: a torch.profiler session leaves host
-    # overhead behind it that slowed the timed runs made after it
-    profile_serving_run()
-    profile_dense_prefill()
-    profile_dense_decode()
-    profile_rwkv_prefill()
-    profile_rwkv_decode()
-
-    table = []
-    for name, route, source, replaces in (
-            ("paged_attention", "cuda",
-             "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "src/repro/kernels/decode_attention.py:322"),
-            ("gumbel_perturb", "triton",
-             "src/repro_torch/kernels/_gumbel_triton.py",
-             "src/repro/kernels/ops.py:336"),
-            ("flash_attention", "cuda",
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:99"),
-            ("decode_attention", "cuda",
-             "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:90"),
-            ("rwkv6_scan", "cuda", "src/repro_torch/kernels/csrc/rwkv6.cu",
-             "src/repro/kernels/rwkv6.py:64")):
-        r = rows[name]
-        table.append({"name": name, "route": route, "source": source,
-                      "replaces": replaces, "launches": counts[name],
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+    table = run_phases(torch, "cuda")
     print(smi_line(), flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

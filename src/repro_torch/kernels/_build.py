@@ -45,6 +45,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "repro_flash_attention": ("flash_attention.cu",),
     "repro_decode_attention": ("decode_attention.cu",),
     "repro_rwkv6": ("rwkv6.cu",),
+    "repro_mamba": ("mamba.cu",),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
-// Helpers shared by the kernels (paged, flash and decode attention, WKV6):
-// element loads as fp32, stores in the output type, and the masked-score
-// value.
+// Helpers shared by the kernels (paged, flash and decode attention, WKV6,
+// the Mamba scan): element loads as fp32, stores in the output type, and
+// the masked-score value.
 #pragma once
 
 #include <cuda_runtime.h>

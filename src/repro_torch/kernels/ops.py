@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py`` for the serving and dense-cache
-slices:
+Counterpart of ``repro/kernels/ops.py`` for the serving, dense-cache,
+rwkv6 and jamba slices:
 
   * :func:`flash_attention` flattens ``(B, Hq, S, D) -> (B*Hq, S, D)``
     as ``ops.py:50-90`` does and calls the CUDA flash kernel; it is a
@@ -25,7 +25,13 @@ slices:
     is a
     ``torch.autograd.Function`` whose backward recomputes through the
     plain version, as the reference's ``custom_vjp`` differentiates its
-    oracle (``ops.py:230-240``).
+    oracle (``ops.py:230-240``);
+  * :func:`mamba_scan` calls the CUDA selective-scan kernel with an
+    optional initial state and returns the final state too (the
+    reference's ``ops.py:244-266`` returns y alone); it is a
+    ``torch.autograd.Function`` whose backward recomputes through the
+    plain version, as the reference's ``_mamba_bwd`` differentiates
+    ``ref.mamba_scan``.
 
 Source note for the Gumbel kernel.  It replaces
 ``repro/kernels/ops.py::gumbel_perturb``, which ran the perturbation as
@@ -54,6 +60,7 @@ import torch
 from ._build import LaunchCounter
 from .decode_attention import decode_attention_fwd, paged_attention_fwd
 from .flash_attention import flash_attention_fwd, flash_attention_plain
+from .mamba import mamba_scan_fwd, mamba_scan_plain
 from .rwkv6 import rwkv6_scan_fwd, rwkv6_scan_plain
 
 gumbel_counter = LaunchCounter("gumbel_perturb")
@@ -211,3 +218,34 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (out (B, H, S, D) in r's dtype, final state (B, H, D, D)
     fp32).  Differentiable in r, k, v, w and u."""
     return _RWKV6Scan.apply(r, k, v, w, u, state0)
+
+
+class _MambaScan(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU).  Backward:
+    autograd through :func:`mamba_scan_plain` on the saved inputs, for x,
+    dt, B, C, A and D; ``h0`` is inference-only and gets no gradient (it
+    is held constant in the recomputation)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, A, D, h0):
+        ctx.save_for_backward(x, dt, B, C, A, D, h0)
+        return mamba_scan_fwd(x, dt, B, C, A, D, h0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        *saved, h0 = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in saved]
+            y, h = mamba_scan_plain(*ins, h0)
+            grads = torch.autograd.grad((y, h), ins, (g_y, g_h))
+        return (*grads, None)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+               h0: Optional[torch.Tensor] = None):
+    """x/dt: (B, S, Di), B/C: (B, S, N), any strides; A: (Di, N) fp32
+    (negative); D: (Di,) fp32; h0: (B, Di, N) fp32 or None (zeros).
+    Returns (y (B, S, Di) in x's dtype, final state (B, Di, N) fp32).
+    Differentiable in x, dt, B, C, A and D."""
+    return _MambaScan.apply(x, dt, B, C, A, D, h0)

@@ -1,15 +1,16 @@
 """Functional LM building blocks in PyTorch (params are plain dicts).
 
-Counterpart of ``repro/models/layers.py`` for the attn/dense path and the
-RWKV-6 block.  Layouts are the reference's: linear weights are stored
-``(in, out)`` and applied as ``x @ W``; norm weights and statistics are
-fp32.
+Counterpart of ``repro/models/layers.py`` for the attn/dense path, the
+GShard MoE, the Mamba mixer and the RWKV-6 block.  Layouts are the
+reference's: linear weights are stored ``(in, out)`` and applied as
+``x @ W``; norm weights and statistics are fp32.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -218,6 +219,206 @@ def mlp(p: Params, x: torch.Tensor, activation: str = "silu"
     else:
         h = _act(up, activation)
     return h @ p["w_down"]
+
+
+# ----------------------------------------------------------------------
+# MoE: GShard-style capacity dispatch
+# ----------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             dtype, device, gated: bool = True, n_shared: int = 0,
+             d_ff_shared: Optional[int] = None,
+             n_padded: Optional[int] = None) -> Params:
+    """The reference's shapes and per-leaf dtypes
+    (``repro/models/layers.py:302-326``): the router (D, E) in fp32, the
+    (slots, in, out) expert weights and the shared MLP in ``dtype``.
+    Each expert is drawn on its own and written into the stacked weight,
+    so the fp32 draw of a whole (slots, in, out) weight is never held."""
+    n_slots = n_padded or n_experts     # padded slots never receive tokens
+
+    def experts(i, o):
+        w = torch.empty((n_slots, i, o), dtype=dtype, device=device)
+        for e in range(n_slots):
+            w[e] = dense_init(gen, i, o, dtype, device)
+        return w
+
+    p = {"router": dense_init(gen, d_model, n_experts, torch.float32,
+                              device),
+         "w_up": experts(d_model, d_ff),
+         "w_down": experts(d_ff, d_model)}
+    if gated:
+        p["w_gate"] = experts(d_model, d_ff)
+    if n_shared:
+        p["shared"] = mlp_init(gen, d_model, d_ff_shared or d_ff * n_shared,
+                               dtype, device, gated=gated)
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, the lower
+    index first among equal values (``torch.topk`` promises no order on
+    ties; a stable descending sort keeps it)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
+        capacity_factor: float = 1.25, activation: str = "silu",
+        n_padded: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style grouped token-choice top-k with per-group capacity
+    (``repro/models/layers.py:329-420``).  Returns (output (B, S, D),
+    Switch aux loss, an fp32 scalar).
+
+    Tokens are split into G groups and each group routes on its own with
+    capacity ``C = min(max(1, int(cf * Tg * k / E)), Tg)``; a (token,
+    choice) past its expert's capacity, in token-major then choice order,
+    is dropped.  The group count follows the reference's rule at data
+    degree 1 (the port runs on one device): groups of
+    ``REPRO_MOE_GROUP_TOKENS`` tokens (default 1024; 0 for one group),
+    then the largest count that divides the tokens.  One-hots and gates
+    are in x's dtype, router logits and probabilities in fp32.  As in the
+    reference every expert runs on its (G, C) slots, so each call reads
+    every expert's weights; dead padded slots (``n_padded``) are never
+    routed to."""
+    b, s, d = x.shape
+    t = b * s
+    tgt = int(os.environ.get("REPRO_MOE_GROUP_TOKENS", "1024"))
+    g = t // tgt if 0 < tgt < t else 1
+    while t % g:
+        g -= 1
+    tg = t // g
+    xt = x.reshape(g, tg, d)
+
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)   # (G, Tg, E)
+    e_slots = n_padded or n_experts
+    if e_slots != n_experts:
+        probs = F.pad(probs, (0, e_slots - n_experts))
+    gate_vals, gate_idx = _top_k(probs, top_k)                # (G, Tg, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    capacity = min(max(1, int(capacity_factor * tg * top_k / n_experts)),
+                   tg)
+
+    # position of each (token, choice) in its expert's queue, per group
+    onehot = F.one_hot(gate_idx, e_slots)                     # (G,Tg,k,E)
+    flat = onehot.reshape(g, tg * top_k, e_slots)
+    pos = ((flat.cumsum(1) - flat).reshape(g, tg, top_k, e_slots)
+           * onehot).sum(-1)                                  # (G, Tg, k)
+    kept = pos < capacity
+
+    # dispatch / combine (G, Tg, E, C); a slot one-hot is all zeros past
+    # the capacity, as jax.nn.one_hot is
+    slot = pos[..., None] == torch.arange(capacity, device=x.device)
+    disp = (onehot.to(x.dtype)[..., None] * slot.to(x.dtype)[..., None, :]
+            * kept[..., None, None].to(x.dtype))             # (G,Tg,k,E,C)
+    dispatch = disp.sum(2)
+    combine = (disp * gate_vals[..., None, None].to(x.dtype)).sum(2)
+
+    # the two einsums are profiled as one range, read by chip_smoke.py
+    with torch.profiler.record_function("moe_dispatch_combine"):
+        expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xt).reshape(
+            e_slots, g * capacity, d)
+    up = expert_in @ p["w_up"]                                # (E, GC, F)
+    if "w_gate" in p:
+        h = _act(expert_in @ p["w_gate"], activation) * up
+    else:
+        h = _act(up, activation)
+    expert_out = (h @ p["w_down"]).reshape(e_slots, g, capacity, d)
+    with torch.profiler.record_function("moe_dispatch_combine"):
+        yt = torch.einsum("gtec,egcd->gtd", combine, expert_out)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+    density = onehot.sum(2).float().mean((0, 1))              # (E,)
+    router_prob = probs.mean((0, 1))
+    aux = 0.01 * n_experts * torch.sum(
+        density[:n_experts] * router_prob[:n_experts])
+
+    y = yt.reshape(b, s, d)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, activation)
+    return y, aux
+
+
+# ----------------------------------------------------------------------
+# Mamba (selective SSM): Jamba's mixer
+# ----------------------------------------------------------------------
+
+
+def mamba_init(gen: torch.Generator, d_model: int, *, d_state: int = 16,
+               d_conv: int = 4, expand: int = 2, dtype=torch.bfloat16,
+               device=None) -> Params:
+    """The reference's shapes and per-leaf dtypes
+    (``repro/models/layers.py:425-447``): projections, ``conv_w`` and
+    ``conv_b`` in ``dtype``; ``dt_bias``, ``A_log``, ``D`` and ``norm``
+    in fp32."""
+    d_inner = expand * d_model
+    dt_rank = max(1, d_model // 16)
+    f32 = dict(dtype=torch.float32, device=device)
+    conv_w = torch.randn((d_conv, d_inner), generator=gen, **f32)
+    dt_init = torch.rand((d_inner,), generator=gen, **f32) * 0.1
+    return {
+        "in_proj": dense_init(gen, d_model, 2 * d_inner, dtype, device),
+        "conv_w": (conv_w / math.sqrt(d_conv)).to(dtype),
+        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=device),
+        "x_proj": dense_init(gen, d_inner, dt_rank + 2 * d_state, dtype,
+                             device),
+        "dt_proj": dense_init(gen, dt_rank, d_inner, dtype, device),
+        "dt_bias": torch.log(torch.expm1(dt_init.clamp(1e-3, 0.1))),
+        "A_log": torch.log(torch.arange(1, d_state + 1, **f32)).expand(
+            d_inner, d_state).contiguous(),
+        "D": torch.ones((d_inner,), **f32),
+        "out_proj": dense_init(gen, d_inner, d_model, dtype, device),
+        "norm": torch.ones((d_inner,), **f32),
+    }
+
+
+def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
+          d_conv: int = 4, expand: int = 2,
+          cache: Optional[Params] = None, backend: str = "auto"
+          ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The Mamba mixer (``repro/models/layers.py:473-535``; pre-norm by
+    the caller, which adds the residual).  x: (B, S, D).
+
+    Without ``cache``: prefill from a zero state.  With ``cache``
+    ({"conv": (B, d_conv - 1, Di) in the activation dtype, "ssm": (B, Di,
+    N) fp32}): the sequence continues from it, and the cache is updated in
+    place (the reference returns a new one); the returned cache holds the
+    same tensors.  The causal depthwise conv is a sum of d_conv shifted
+    slices accumulated in fp32 and rounded once, as the reference's
+    einsum over the windows is (no cuDNN convolution, so no TF32 either).
+    The scan is ``kernels.ops.mamba_scan`` in prefill and in decode, from
+    the cached state; ``backend`` is validated and selects nothing."""
+    A._check_backend("mamba", backend)
+    b, s, d = x.shape
+    dt_rank = max(1, d // 16)
+
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)           # (B, S, Di)
+    prev = (cache["conv"] if cache is not None else
+            xi.new_zeros((b, d_conv - 1, xi.shape[-1])))
+    pad = torch.cat([prev.to(xi.dtype), xi], dim=1)      # (B, K-1+S, Di)
+    pad32, w = pad.float(), p["conv_w"].float()
+    acc = pad32[:, :s] * w[0]
+    for k in range(1, d_conv):
+        acc = acc + pad32[:, k:k + s] * w[k]
+    xc = F.silu(acc.to(x.dtype) + p["conv_b"])
+
+    proj = xc @ p["x_proj"]                               # (B, S, R+2N)
+    dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
+                    + p["dt_bias"].to(x.dtype))           # (B, S, Di)
+    bm = proj[..., dt_rank:dt_rank + d_state]   # views: the kernel reads
+    cm = proj[..., dt_rank + d_state:]          # them through their strides
+    y, h = kops.mamba_scan(xc, dt, bm, cm, -torch.exp(p["A_log"]), p["D"],
+                           cache["ssm"] if cache is not None else None)
+
+    y = rms_norm(y, p["norm"]) * F.silu(z)
+    out = y @ p["out_proj"]
+    if cache is None:
+        return out, None
+    cache["conv"].copy_(pad[:, pad.shape[1] - (d_conv - 1):])
+    cache["ssm"].copy_(h)
+    return out, cache
 
 
 # ----------------------------------------------------------------------

@@ -1,30 +1,35 @@
 """The decoder LM in PyTorch: configuration, parameters, prefill and
 decode.
 
-Counterpart of ``repro/models/lm.py`` for ``attn`` blocks with ``dense``
-or no FFN and ``rwkv`` blocks (RWKV-6, channel mix inside the block): the
-config dataclasses (torch dtypes), :func:`init_params`,
-:func:`params_from_numpy` (carries the reference's parameter pytree
-across), :func:`cast_params`, :func:`forward` (prefill; attention through
-the flash kernel, WKV6 through its kernel), :func:`init_cache` and
-:func:`decode_step` (one token per row against the cache; attention
-through the decode kernel, WKV6 through its kernel from the cached
-state).
+Counterpart of ``repro/models/lm.py`` for ``attn`` and ``mamba`` blocks
+with a ``dense`` or ``moe`` FFN (or none after attn), and ``rwkv`` blocks
+(RWKV-6, channel mix inside the block): the config dataclasses (torch
+dtypes), :func:`init_params`, :func:`params_from_numpy` (carries the
+reference's parameter pytree across), :func:`cast_params`,
+:func:`forward` (prefill; attention through the flash kernel, WKV6 and
+the Mamba scan through theirs; returns the summed MoE aux loss),
+:func:`init_cache` and :func:`decode_step` (one token per row against
+the cache; attention through the decode kernel, WKV6 and the Mamba scan
+through theirs from the cached state; MoE dropless).
 
 The port keeps parameters as one per-layer list, the layout the serving
 executor iterates (the reference stacks groups for ``lax.scan`` and
 unstacks them in ``serving/executor.py::split_layer_params``)::
 
     {"embed": (V, D), "final_norm": (D,), ["lm_head": (D, V)],
-     "layers": [{"norm1", "attn": {"wq", "wk", "wv", "wo"},
-                 "norm2", "mlp": {"w_up", "w_down", ["w_gate"]}}
+     "layers": [{"norm1", "attn": {"wq", "wk", "wv", "wo"}
+                          or "mamba": {"in_proj", "conv_w", ...},
+                 "norm2", "mlp": {"w_up", "w_down", ["w_gate"]}
+                          or "moe": {"router", "w_up", "w_down",
+                                     "w_gate", ["shared"]}}
                 or {"norm1", "rwkv": {...}}, ...]}
 
 The cache is a per-layer list as well: ``{"k": (B, Hkv, Smax, hd), "v"}``
-for an attn layer, ``{"wkv": (B, H, hd, hd) fp32, "shift", "cm_shift":
-(B, 1, D)}`` for an rwkv layer.  :func:`decode_step` updates it in place
-(the reference stacks it per group for ``lax.scan`` and donates it, or
-returns new rwkv entries).
+for an attn layer, ``{"conv": (B, d_conv - 1, Di), "ssm": (B, Di, N)
+fp32}`` for a mamba layer, ``{"wkv": (B, H, hd, hd) fp32, "shift",
+"cm_shift": (B, 1, D)}`` for an rwkv layer.  :func:`decode_step` updates
+it in place (the reference stacks it per group for ``lax.scan`` and
+donates it, or returns new recurrent entries).
 """
 
 from __future__ import annotations
@@ -126,7 +131,8 @@ class LMConfig:
 
 # (mixer, ffn) pairs the port covers
 SUPPORTED_BLOCKS = frozenset({("attn", "dense"), ("attn", "none"),
-                              ("rwkv", "none")})
+                              ("attn", "moe"), ("mamba", "dense"),
+                              ("mamba", "moe"), ("rwkv", "none")})
 
 
 def _check_supported(cfg: LMConfig) -> None:
@@ -134,14 +140,16 @@ def _check_supported(cfg: LMConfig) -> None:
         if (spec.mixer, spec.ffn) not in SUPPORTED_BLOCKS:
             raise NotImplementedError(
                 f"{cfg.name}: block {spec} is not ported yet; the port "
-                f"covers attn/dense|none and rwkv/none blocks (other "
-                f"mixers and MoE are ROADMAP.md queue A, item 11)")
+                f"covers attn/dense|moe|none, mamba/dense|moe and "
+                f"rwkv/none blocks (other mixers are ROADMAP.md queue A, "
+                f"item 11)")
     if cfg.qkv_bias or cfg.qk_norm or cfg.final_softcap or \
-            cfg.input_mode != "tokens" or not cfg.lm_head:
+            cfg.moe_dense_residual or cfg.input_mode != "tokens" or \
+            not cfg.lm_head:
         raise NotImplementedError(
-            f"{cfg.name}: qkv bias, qk-norm, softcap, embeddings-in and "
-            f"encoder heads are not ported yet (ROADMAP.md queue A, "
-            f"item 11)")
+            f"{cfg.name}: qkv bias, qk-norm, softcap, the MoE dense "
+            f"residual, embeddings-in and encoder heads are not ported "
+            f"yet (ROADMAP.md queue A, item 11)")
 
 
 def _norm_init(cfg: LMConfig, device) -> torch.Tensor:
@@ -154,7 +162,9 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default CUDA).  Same shapes, scales and dtypes as the reference's
     ``init_params``; the numbers differ, since torch and JAX draw
-    differently from one seed."""
+    differently from one seed.  Every leaf is made in its own dtype, so
+    a bf16 model never passes through an fp32 copy of itself (the widest
+    fp32 draw is one weight matrix, or one expert's)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -174,15 +184,28 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
             p["rwkv"] = L.rwkv6_init(gen, cfg.d_model,
                                      head_dim=cfg.rwkv_head_dim, dtype=dt,
                                      device=dev)
+        elif spec.mixer == "mamba":
+            p["mamba"] = L.mamba_init(gen, cfg.d_model,
+                                      d_state=cfg.mamba_d_state,
+                                      d_conv=cfg.mamba_d_conv,
+                                      expand=cfg.mamba_expand, dtype=dt,
+                                      device=dev)
         else:
             p["attn"] = L.attn_init(gen, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.hd, dt, dev)
-        if spec.ffn == "dense":
+        if spec.ffn != "none":
             p["norm2"] = _norm_init(cfg, dev)
             if cfg.norm == "layer":
                 p["norm2_b"] = torch.zeros(cfg.d_model, device=dev)
+        if spec.ffn == "dense":
             p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, dev,
                                   gated=cfg.gated_mlp)
+        elif spec.ffn == "moe":
+            p["moe"] = L.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                  dt, dev, gated=True,
+                                  n_shared=cfg.n_shared_experts,
+                                  d_ff_shared=cfg.d_ff_shared,
+                                  n_padded=cfg.n_experts_padded)
         layers.append(p)
     params["layers"] = layers
     if not cfg.tie_embeddings:
@@ -218,18 +241,20 @@ def params_to(params: Params, device) -> Params:
 
 # leaves that init_params (and the reference's) makes in fp32 whatever
 # param_dtype is: norm weights and biases, rwkv's ln_out, decay_base and
-# bonus (repro/models/layers.py:555-561)
+# bonus (repro/models/layers.py:555-561), mamba's dt_bias, A_log, D and
+# norm (:438-446), the MoE router (:310)
 FP32_LEAVES = frozenset({"norm1", "norm1_b", "norm2", "norm2_b",
                          "final_norm", "final_norm_b", "ln_out",
-                         "decay_base", "bonus"})
+                         "decay_base", "bonus", "dt_bias", "A_log", "D",
+                         "norm", "router"})
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Every leaf that ``init_params`` makes in ``param_dtype`` cast to
-    ``dtype`` (embeddings, projections, rwkv's 1-D token-shift mixes);
-    the leaves of :data:`FP32_LEAVES` stay fp32.  So ``cast_params(
-    init_params(cfg32), dtype)`` has the dtypes of ``init_params`` at
-    ``param_dtype=dtype``, leaf for leaf."""
+    ``dtype`` (embeddings, projections, experts, mamba's conv, rwkv's 1-D
+    token-shift mixes); the leaves of :data:`FP32_LEAVES` stay fp32.
+    So ``cast_params(init_params(cfg32), dtype)`` has the dtypes of
+    ``init_params`` at ``param_dtype=dtype``, leaf for leaf."""
     def cast(tree, name=None):
         if isinstance(tree, dict):
             return {k: cast(v, k) for k, v in tree.items()}
@@ -274,16 +299,23 @@ def _norm(cfg: LMConfig, x: torch.Tensor, w: torch.Tensor,
 
 
 def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
-                 x: torch.Tensor, cache: Optional[Dict] = None,
+                 x: torch.Tensor, aux: torch.Tensor,
+                 cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """An attn block with a dense FFN or none, or an rwkv block.
-    ``cache_pos``: the host int write position in decode (rwkv blocks
-    need none: their state holds the past)."""
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """An attn or mamba block with a dense or MoE FFN (or none), or an
+    rwkv block; returns (x, aux + this block's MoE aux loss, new cache).
+    ``cache_pos``: the host int write position in decode (recurrent
+    blocks need none: their state holds the past)."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     if spec.mixer == "rwkv":
         out, new_cache = L.rwkv6(p["rwkv"], h, head_dim=cfg.rwkv_head_dim,
                                  cache=cache, backend=cfg.attn_backend)
+    elif spec.mixer == "mamba":
+        out, new_cache = L.mamba(p["mamba"], h, d_state=cfg.mamba_d_state,
+                                 d_conv=cfg.mamba_d_conv,
+                                 expand=cfg.mamba_expand, cache=cache,
+                                 backend=cfg.attn_backend)
     else:
         out, new_cache = L.attention(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -292,10 +324,22 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
             cache=cache, cache_pos=cache_pos, q_norm=cfg.qk_norm,
             backend=cfg.attn_backend)
     x = x + out
-    if spec.ffn == "dense":
+    if spec.ffn != "none":
         h2 = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
-        x = x + L.mlp(p["mlp"], h2, cfg.act)
-    return x, new_cache
+        if spec.ffn == "dense":
+            x = x + L.mlp(p["mlp"], h2, cfg.act)
+        else:
+            # decode is dropless (capacity = every token of the step), as
+            # in the reference (repro/models/lm.py:281-295)
+            cf = (cfg.capacity_factor if cache is None
+                  else float(cfg.n_experts) / cfg.top_k)
+            moe_out, moe_aux = L.moe(
+                p["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                capacity_factor=cf, activation=cfg.act,
+                n_padded=cfg.n_experts_padded)
+            x = x + moe_out
+            aux = aux + moe_aux
+    return x, aux, new_cache
 
 
 def _embed(cfg: LMConfig, params: Params, tokens=None,
@@ -327,14 +371,14 @@ def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), aux_loss).  ``tokens``: (B, S) integer
     tensor on the params' device, or precomputed ``embeds`` (B, S, D).
-    ``aux_loss`` is a zero fp32 scalar (it is the MoE balance loss in the
-    reference, and MoE is not ported)."""
+    ``aux_loss`` is the fp32 sum of the MoE layers' balance losses (zero
+    without MoE layers)."""
     _check_supported(cfg)
     x = _embed(cfg, params, tokens, embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x, _ = _apply_block(cfg, spec, p, x)
-    logits = _head(cfg, params, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux, _ = _apply_block(cfg, spec, p, x, aux)
+    return _head(cfg, params, x), aux
 
 
 # ----------------------------------------------------------------------
@@ -344,15 +388,20 @@ def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
 def _block_cache_layout(cfg: LMConfig, spec: BlockSpec, batch: int,
                         max_seq: int, dtype: torch.dtype
                         ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    # the reference's rwkv shift rows and mamba conv rows start in the
+    # cache dtype, but each step returns them in the activation dtype; the
+    # port writes them in place, so they are held in that dtype from the
+    # start (zeros are exact in either)
     if spec.mixer == "rwkv":
-        # the reference's shifts start in the cache dtype but each step
-        # returns them in the activation dtype; the port writes them in
-        # place, so they are held in that dtype from the start (zeros are
-        # exact in either)
         hd = cfg.rwkv_head_dim
         row = ((batch, 1, cfg.d_model), cfg.param_dtype)
         return {"wkv": ((batch, cfg.d_model // hd, hd, hd), torch.float32),
                 "shift": row, "cm_shift": row}
+    if spec.mixer == "mamba":
+        d_inner = cfg.mamba_expand * cfg.d_model
+        return {"conv": ((batch, cfg.mamba_d_conv - 1, d_inner),
+                         cfg.param_dtype),
+                "ssm": ((batch, d_inner, cfg.mamba_d_state), torch.float32)}
     kv = ((batch, cfg.n_kv_heads, max_seq, cfg.hd), dtype)
     return {"k": kv, "v": kv}
 
@@ -362,7 +411,7 @@ def cache_layout(cfg: LMConfig, batch: int, max_seq: int,
                  ) -> List[Dict[str, Tuple[Tuple[int, ...], torch.dtype]]]:
     """Per layer, each cache entry's (shape, dtype), as :func:`init_cache`
     makes it (the reference's ``_block_cache``, ``repro/models/lm.py:
-    363-393``)."""
+    363-393``, with the recurrent rows in the activation dtype)."""
     _check_supported(cfg)
     return [_block_cache_layout(cfg, spec, batch, max_seq, dtype)
             for spec in cfg.layer_specs()]
@@ -387,6 +436,8 @@ def decode_step(cfg: LMConfig, params: Params, cache: Cache,
     returned as they are."""
     _check_supported(cfg)
     x = _embed(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
-        x, _ = _apply_block(cfg, spec, p, x, cache=c, cache_pos=pos)
+        x, aux, _ = _apply_block(cfg, spec, p, x, aux, cache=c,
+                                 cache_pos=pos)
     return _head(cfg, params, x), cache

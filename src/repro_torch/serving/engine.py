@@ -68,6 +68,13 @@ class ServingEngine:
                 raise ValueError(
                     "paged engine serves full-attention models; hybrid/ssm "
                     "archs are not ported yet")
+            if spec.ffn == "moe":
+                # the reference's executor applies "mlp" FFNs only and
+                # skips an MoE layer's FFN without a word
+                # (repro/serving/executor.py:333); the port refuses
+                raise NotImplementedError(
+                    "paged engine applies dense FFNs only; MoE serving is "
+                    "not ported (ROADMAP.md queue C)")
         if mesh is not None or n_replicas != 1:
             raise NotImplementedError(
                 "sharded serving (mesh / n_replicas > 1) is not ported "

@@ -89,10 +89,10 @@ def test_init_params_shapes_and_unsupported_mixers():
         assert tuple(layer["mlp"][k].shape) == \
             ref["groups"][0]["mlp"][k][1:]
     import dataclasses
-    mamba = dataclasses.replace(port_cfg(cfg),
-                                pattern=(TLM.BlockSpec("mamba", "dense"),))
+    mla = dataclasses.replace(port_cfg(cfg),
+                              pattern=(TLM.BlockSpec("mla", "dense"),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.init_params(mamba, device="cpu")
+        TLM.init_params(mla, device="cpu")
 
 
 def mixed_batch(cfg, kv_quant, seed=4):
