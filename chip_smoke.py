@@ -11,7 +11,8 @@ the CPU, then drives gemma-2b at full width (18 layers, random weights
 from a seed) through both of the port's gemma paths, rwkv6-1.6b at full
 width and depth (24 layers) through its prefill and decode path, and
 jamba-1.5-large at full width, cut to its first 5 layers (every kind of
-block; 48.1 GB at bf16), through the same step builders:
+block; 48.1 GB at bf16), through the same step builders, and trains
+ResNet-50 at full width through the port's eager runtime:
 
   * paged continuous-batching serving through
     ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
@@ -28,7 +29,11 @@ block; 48.1 GB at bf16), through the same step builders:
     attention without RoPE (flash in prefill, decode attention in
     decode), then the parity check at fp32 on two layers of its 8-layer
     period, mamba/moe and attn/dense (47.6 GB), with a dropless capacity
-    factor.
+    factor;
+  * the eager runtime: ResNet-50 (224 x 224 RGB, batch 64, fp32, train
+    mode, SGD with momentum) through ``repro_torch``'s Tensor, tape,
+    dispatch cache and fusion queue, every flushed elementwise chain a
+    launch of the Triton kernel generated from it.
 
 Each run shows that it went through its kernels: the launch counts are
 zeroed just before it and read just after, and must equal what the
@@ -47,22 +52,32 @@ Output, one line each:
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
     state); flash and decode attention at jamba's shapes; the Mamba scan
     (jamba prefill, decode from a state, a ragged fp32 row with a state,
-    B and C as strided column views);
+    B and C as strided column views); the fused-elementwise kernel
+    (ResNet-50's add+relu and relu at their batch-64 shapes, fp32 and
+    bf16, a long chain with a 0-d and a broadcast operand, and every op
+    of the fusion queue in each dtype it takes, merged into a few
+    chains);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels);
   * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines,
     ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines, and
     ``jamba_prefill``, ``jamba_decode`` and ``jamba_parity`` lines, each
     with its own launch counts and peak device memory;
-  * the profiled runs (``serving_profile`` and the ``*_prefill_profile``
-    and ``*_decode_profile`` of the three step-builder paths: device time
-    and calls by kernel group, idle share), last, because a profiler
-    session slows the host for the timed runs after it;
+  * ``eager_train`` (images/s, ms a step, fused launches a step against
+    the count derived from the model, dispatch-cache totals, the
+    accounting allocator's peak beside PyTorch's, the first and last
+    loss) and ``eager_parity`` (fusion off against on; a small ResNet-50
+    on the card against the CPU);
+  * the profiled runs (``serving_profile``, the ``*_prefill_profile``
+    and ``*_decode_profile`` of the three step-builder paths and
+    ``eager_train_profile``: device time by kernel group or eager op,
+    idle share), last, because a profiler session slows the host for
+    the timed runs after it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
     path's main run (bf16 serving for paged attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
-    for WKV6, jamba prefill for the Mamba scan) and its numbers at that
-    path's shapes;
+    for WKV6, jamba prefill for the Mamba scan, eager_train for the
+    fused-elementwise kernel) and its numbers at that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -72,9 +87,11 @@ non-zero at once.  It imports neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -207,6 +224,24 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def time_ms_stream(torch, fn, calls: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of one call over ``calls`` calls queued back to
+    back between two CUDA events: with the queue kept full the host's
+    launch overhead is hidden, which single-call events (``time_ms``)
+    include when a kernel is shorter than its launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def peak_gb(torch) -> float:
@@ -701,6 +736,8 @@ def _kernel_group(name: str) -> str:
         return "rwkv6_scan"
     if "mamba" in n:
         return "mamba_scan"
+    if "fused_chain_kernel" in n:
+        return "fused_elementwise"
     if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "matmul")):
         return "matmul"
     if "sort" in n or "radix" in n or "cumsum" in n or "scan" in n:
@@ -727,6 +764,8 @@ def counted(torch, what: str, fn, required=SERVING_KERNELS):
 
 
 MOE_RANGE = "moe_dispatch_combine"
+# the eager runtime's per-op profiler ranges (``core.autograd.op_range``)
+EAGER_RANGE = "repro_torch::"
 
 
 def _kernels_under(ev):
@@ -744,14 +783,16 @@ def device_time(prof) -> tuple:
     inside the MoE layer's ``moe_dispatch_combine`` range (its dispatch of
     tokens to expert slots and its combine back, ``models/layers.py::
     moe``) are moved to a group of that name; the range itself, which the
-    profiler may also report as a device annotation, is no kernel."""
+    profiler may also report as a device annotation, is no kernel, and
+    neither are the eager runtime's ``repro_torch::`` op ranges."""
     groups, top = {}, []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us or ev.device_type is None or \
-                "CUDA" not in str(ev.device_type) or ev.key == MOE_RANGE:
+                "CUDA" not in str(ev.device_type) or ev.key == MOE_RANGE \
+                or ev.key.startswith(EAGER_RANGE):
             continue
         g = _kernel_group(ev.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
@@ -842,6 +883,621 @@ def phase_small_e2e(torch) -> None:
     if on_cpu != on_cuda:
         raise AssertionError(f"small config: CUDA {on_cuda} != CPU "
                              f"{on_cpu}")
+
+
+# ----------------------------------------------------------------------
+# the eager runtime: the fused-elementwise kernel and ResNet-50 training
+# ----------------------------------------------------------------------
+
+# fused_elementwise against its plain version, |out - ref| <= atol +
+# rtol |ref| by output dtype: fp32 1e-5 and 1e-5 (libdevice's and
+# PyTorch's CUDA math may differ by an ulp; values reach ~20), bf16 1e-2
+# and 1e-2 (both round one fp32 result to bf16, a tie can fall one step
+# apart); integer and bool outputs exact.
+FUSED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+# rows (a)-(d): (label, dtype, shape); (a) and (c) are ResNet-50's
+# relu(out + identity) at layer1's shape, batch 64 (two inputs, two
+# outputs), (b) the stem's relu, (d) a long chain with a 0-d and a
+# broadcast operand and transcendental ops
+FUSED_ROWS = (("add_relu", "float32", (64, 256, 56, 56)),
+              ("relu", "float32", (64, 64, 112, 112)),
+              ("add_relu_bf16", "bfloat16", (64, 256, 56, 56)),
+              ("long_chain", "float32", (4096, 4096)))
+FUSED_CASE_SHAPE = (1000, 37)      # row (e): a ragged last block
+
+# the eager_train cell: ResNet-50 at full width, 224 x 224 RGB, batch 64,
+# fp32, train mode, SGD(momentum 0.9, foreach), fusion on, one batch for
+# every step.  lr 0.025 is the usual 0.1 per 256 images scaled to 64
+# (Goyal et al.): at lr 0.1 the 12th step's loss on this batch landed
+# below the first step's in one run and above it in the next (5.646 and
+# 8.133 from 7.212 on an NVIDIA H100): it does not fall reliably.
+EAGER_BATCH, EAGER_IMAGE, EAGER_CLASSES = 64, 224, 1000
+EAGER_WARMUP, EAGER_STEPS, EAGER_PROFILE_STEPS = 2, 10, 2
+EAGER_LR, EAGER_MOMENTUM = 0.025, 0.9
+# eager_parity: fusion off vs on on the card (deterministic cuDNN): loss
+# to 1e-5 relative, each gradient to 1e-4 of its RMS.  Card vs CPU on
+# ResNet50(10): 128 x 128, batch 2 (at 32 x 32 layer4 normalizes 2 values
+# a channel, which makes fp32 results chaotic in either package): loss
+# 1e-5 relative, logits 1e-4 of their RMS, running stats 1e-4 relative
+# L2, gradients 5e-2 relative L2 over the model (ReLU and max-pool kinks
+# make them ill-conditioned).
+EAGER_PARITY_TOL = (1e-5, 1e-4)
+EAGER_SMALL = (2, 128, 10)
+EAGER_SMALL_TOL = {"loss": 1e-5, "logits": 1e-4, "stats": 1e-4,
+                   "grads": 5e-2}
+
+
+def fused_check(torch, label: str, outs, refs) -> float:
+    """Max abs error of every output against the plain version's, held
+    to ``FUSED_TOL`` (exact for integer and bool outputs); dtypes and
+    shapes must agree."""
+    worst = 0.0
+    for o, r in zip(outs, refs):
+        if o.dtype != r.dtype or o.shape != r.shape:
+            raise AssertionError(f"fused_elementwise {label}: {o.dtype} "
+                                 f"{tuple(o.shape)} vs plain {r.dtype} "
+                                 f"{tuple(r.shape)}")
+        if not r.dtype.is_floating_point:
+            if not torch.equal(o, r):
+                raise AssertionError(f"fused_elementwise {label}: "
+                                     f"{r.dtype} outputs differ")
+            continue
+        atol, rtol = FUSED_TOL[str(r.dtype).split(".")[1]]
+        diff = (o.float() - r.float()).abs()
+        bad = diff > atol + rtol * r.float().abs()
+        same_nan = torch.isnan(o.float()) & torch.isnan(r.float())
+        if bool((bad & ~same_nan).any()):
+            raise AssertionError(f"fused_elementwise {label} disagrees "
+                                 f"with its plain version: "
+                                 f"{diff[~same_nan].max().item()}")
+        if diff[~same_nan].numel():
+            worst = max(worst, diff[~same_nan].max().item())
+    return worst
+
+
+def fused_op_cases(torch, dev):
+    """Row (e): (label, fn, args) for every op of ``ELEMENTWISE_OPS``
+    through its public function, in each dtype it takes (fp32, bf16;
+    int32 and bool where the op takes them), plus Python-scalar,
+    broadcast and non-contiguous operands."""
+    import repro_torch as rt
+    import repro_torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    shape = FUSED_CASE_SHAPE
+
+    def t(x):
+        return rt.Tensor(x)
+
+    def randn(dt, s=shape):
+        return t(torch.randn(s, generator=gen, device=dev).to(dt))
+
+    def pos(dt):
+        return t((torch.rand(shape, generator=gen, device=dev) * 2 + 0.25
+                  ).to(dt))
+
+    def nonzero(dt):
+        r = torch.rand(shape, generator=gen, device=dev) + 0.5
+        sign = torch.randint(0, 2, shape, generator=gen, device=dev) * 2 - 1
+        return t((r * sign).to(dt))
+
+    def ints(lo, hi, s=shape):
+        return t(torch.randint(lo, hi, s, generator=gen, device=dev,
+                               dtype=torch.int32))
+
+    def bools():
+        return t(torch.rand(shape, generator=gen, device=dev) < 0.5)
+
+    unary = {
+        "neg": lambda a: -a, "abs": lambda a: a.abs(),
+        "clone": lambda a: a.clone(), "exp": lambda a: a.exp(),
+        "sin": lambda a: a.sin(), "cos": lambda a: a.cos(),
+        "tanh": lambda a: a.tanh(), "sigmoid": lambda a: a.sigmoid(),
+        "relu": lambda a: a.relu(), "erf": lambda a: a.erf(),
+        "relu6": F.relu6, "gelu_tanh": F.gelu,
+        "gelu_none": lambda a: F.gelu(a, "none"), "silu": F.silu,
+        "softplus": F.softplus, "hardswish": F.hardswish,
+        "leaky_relu": lambda a: F.leaky_relu(a, 0.2),
+        "elu": lambda a: F.elu(a, 1.5),
+        "clamp": lambda a: a.clamp(-0.5, 0.5),
+        "clamp_hi": lambda a: a.clamp(None, 0.3),
+        "dropout": lambda a: F.dropout(a, 0.25),
+    }
+    positive = {"log": lambda a: a.log(), "sqrt": lambda a: a.sqrt(),
+                "rsqrt": lambda a: a.rsqrt()}
+    binary = {"add": lambda a, b: a + b, "sub": lambda a, b: a - b,
+              "mul": lambda a, b: a * b,
+              "maximum": rt.maximum, "minimum": rt.minimum}
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for op, fn in unary.items():
+            cases.append((f"{op}/{name}", fn, (randn(dt),)))
+        for op, fn in positive.items():
+            cases.append((f"{op}/{name}", fn, (pos(dt),)))
+        for op, fn in binary.items():
+            cases.append((f"{op}/{name}", fn, (randn(dt), randn(dt))))
+        cases += [
+            (f"div/{name}", lambda a, b: a / b, (randn(dt), nonzero(dt))),
+            (f"mod/{name}", lambda a, b: a % b, (randn(dt) * 3.0,
+                                                 nonzero(dt))),
+            (f"pow/{name}", lambda a, b: a ** b, (pos(dt), randn(dt))),
+            (f"where/{name}", rt.where, (bools(), randn(dt), randn(dt))),
+            (f"masked_fill/{name}", lambda a, m: a.masked_fill(m, -1.5),
+             (randn(dt), bools())),
+            (f"scalar/{name}", lambda a: a * 2.5 + 1.0, (randn(dt),)),
+            (f"broadcast/{name}", lambda a, b: a + b,
+             (randn(dt), randn(dt, (shape[1],)))),
+            (f"transposed/{name}", lambda a, b: a * b,
+             (t(randn(dt, shape[::-1]).data.t()), randn(dt)))]
+        for to in ("float32", "bfloat16", "int32", "bool"):
+            cases.append((f"astype_{to}/{name}",
+                          lambda a, to=to: a.astype(to), (randn(dt) * 4,)))
+    iops = {"add": lambda a, b: a + b, "sub": lambda a, b: a - b,
+            "mul": lambda a, b: a * b, "maximum": rt.maximum,
+            "minimum": rt.minimum}
+    for op, fn in iops.items():
+        cases.append((f"{op}/int32", fn, (ints(-20, 20), ints(-20, 20))))
+    nz = ints(1, 10)
+    nz = t(nz.data * (torch.randint(0, 2, shape, generator=gen, device=dev,
+                                    dtype=torch.int32) * 2 - 1))
+    cases += [
+        ("div/int32", lambda a, b: a / b, (ints(-20, 20), nz)),
+        ("mod/int32", lambda a, b: a % b, (ints(-20, 20), nz)),
+        ("pow/int32", lambda a, b: a ** b, (ints(-3, 4), ints(-2, 6))),
+        ("neg/int32", lambda a: -a, (ints(-20, 20),)),
+        ("abs/int32", lambda a: a.abs(), (ints(-20, 20),)),
+        ("clone/int32", lambda a: a.clone(), (ints(-20, 20),)),
+        ("relu/int32", lambda a: a.relu(), (ints(-20, 20),)),
+        ("clamp/int32", lambda a: a.clamp(-3, 5), (ints(-20, 20),)),
+        ("clamp_float/int32", lambda a: a.clamp(0.0, 1.5),
+         (ints(-3, 3),)),
+        ("where/int32", rt.where, (bools(), ints(-9, 9), ints(-9, 9))),
+        ("masked_fill/int32", lambda a, m: a.masked_fill(m, 7),
+         (ints(-9, 9), bools())),
+        ("exp/int32", lambda a: a.exp(), (ints(-5, 5),)),
+        ("sqrt/int32", lambda a: a.sqrt(), (ints(0, 50),)),
+        ("sigmoid/int32", lambda a: a.sigmoid(), (ints(-5, 5),)),
+        ("scalar/int32", lambda a: a * 3 + 2.5, (ints(-9, 9),)),
+        ("clone/bool", lambda a: a.clone(), (bools(),)),
+        ("where/bool", rt.where, (bools(), bools(), bools())),
+        ("maximum/bool", rt.maximum, (bools(), bools())),
+        ("minimum/bool", rt.minimum, (bools(), bools())),
+        ("add/bool", lambda a, b: a + b, (bools(), bools())),
+        ("mul/bool", lambda a, b: a * b, (bools(), bools()))]
+    for to in ("float32", "bfloat16", "bool"):
+        cases.append((f"astype_{to}/int32", lambda a, to=to: a.astype(to),
+                      (ints(-3, 3),)))
+    for to in ("float32", "int32"):
+        cases.append((f"astype_{to}/bool", lambda a, to=to: a.astype(to),
+                      (bools(),)))
+    return cases
+
+
+def phase_fused_elementwise(torch, dev) -> dict:
+    """Kernel B6 against its plain version: rows (a)-(d) timed, row (e)
+    (every op, every dtype it takes) for correctness; and a chain with an
+    op that has no emitter raises without launching."""
+    import repro_torch as rt
+    import repro_torch.nn.functional as F
+    from repro_torch.core.fuse import ELEMENTWISE_OPS, capture_chain
+    from repro_torch.kernels import fused_elementwise as FE
+    from repro_torch.kernels import launch_counts
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    fns = {"add_relu": (lambda x, y: F.relu(x + y), 2),
+           "relu": (F.relu, 1),
+           "add_relu_bf16": (lambda x, y: F.relu(x + y), 2),
+           "long_chain": (lambda x, b: ((((x * 0.5 + b).tanh() * x).exp()
+                                         .sigmoid() - 0.25).erf()), 2)}
+    main = None
+    for label, dtype, shape in FUSED_ROWS:
+        fn, n_in = fns[label]
+        dt = getattr(torch, dtype)
+        xs = [rt.Tensor(torch.randn(shape, generator=gen, device=dev)
+                        .to(dt))]
+        if n_in == 2:
+            second = shape if label != "long_chain" else shape[-1:]
+            xs.append(rt.Tensor(torch.randn(second, generator=gen,
+                                            device=dev).to(dt)))
+        chain, ext = capture_chain(fn, *xs)
+        out = FE.fused_elementwise(chain, *ext)
+        torch.cuda.synchronize()
+        ref = FE.fused_elementwise_plain(chain, *ext)
+        err = fused_check(torch, label, out, ref)
+        nbytes = sum(x.numel() * x.element_size() for x in ext) + \
+            sum(o.numel() * o.element_size() for o in out)
+        ops = sum(o.numel() for o in out)    # one operation a step output
+        bound_ms, bound_by = kernel_bound(nbytes, ops, "float32")
+        # device time with the queue kept full (time_ms_stream): the
+        # Triton launcher's host time exceeds the smaller rows' kernels
+        ms = time_ms_stream(torch, lambda: FE.fused_elementwise(chain, *ext))
+        plain_ms = time_ms_stream(
+            torch, lambda: FE.fused_elementwise_plain(chain, *ext))
+        library_ms = None
+        if label == "relu":
+            library_ms = time_ms_stream(torch, lambda: torch.relu(ext[0]))
+        single_ms = time_ms(torch, lambda: FE.fused_elementwise(chain, *ext))
+        row = {"phase": "kernel", "name": "fused_elementwise",
+               "row": label, "dtype": dtype, "shape": list(shape),
+               "chain": [s[0] for s in chain.steps],
+               "inputs": [list(x.shape) for x in ext],
+               "max_abs_err": err, "tol": FUSED_TOL[dtype], "ms": ms,
+               "single_call_ms": single_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes,
+               "library_ms": library_ms}
+        emit(row)
+        main = main or row
+        del xs, ext, out, ref
+    free(torch)
+
+    # row (e): the cases' chains merged 16 at a time, so that a handful
+    # of generated kernels (one Triton compile each) check them all
+    worst, seen = {}, set()
+    cases = fused_op_cases(torch, dev)
+    captured = []
+    for label, fn, args in cases:
+        chain, ext = capture_chain(fn, *args)
+        seen.update(s[0] for s in chain.steps)
+        captured.append((label, chain, ext))
+    for i in range(0, len(captured), 16):
+        group = captured[i:i + 16]
+        chain, ext = FE.merge_chains([(c, e) for _, c, e in group])
+        out = FE.fused_elementwise(chain, *ext)
+        ref = FE.fused_elementwise_plain(chain, *ext)
+        j = 0
+        for label, c, _ in group:
+            n = len(c.steps)
+            err = fused_check(torch, label, out[j:j + n], ref[j:j + n])
+            kind = label.split("/")[1]
+            worst[kind] = max(worst.get(kind, 0.0), err)
+            j += n
+    missing = ELEMENTWISE_OPS - seen
+    if missing:
+        raise AssertionError(f"row (e) never ran {sorted(missing)}")
+    x = torch.randn(FUSED_CASE_SHAPE, device=dev)
+    bogus = FE.FusedChain(steps=(("no_such_op", (), (("e", 0),)),),
+                          fns=(torch.neg,), dtypes=(torch.float32,))
+    before = launch_counts()["fused_elementwise"]
+    try:
+        FE.fused_elementwise(bogus, x)
+    except NotImplementedError:
+        raised = True
+    else:
+        raised = False
+    if not raised or launch_counts()["fused_elementwise"] != before:
+        raise AssertionError("a chain with an op that has no emitter "
+                             "did not raise, or launched")
+    emit({"phase": "kernel", "name": "fused_elementwise", "row": "every_op",
+          "cases": len(cases), "ops": len(seen),
+          "max_abs_err_by_dtype": worst, "no_emitter_raises": raised})
+    return main
+
+
+def resnet_chains_per_step(model) -> int:
+    """Fused launches of one ResNet-50 training step with the fusion
+    queue on, derived from the model's code: the stem's
+    ``relu(bn1(conv1(x)))``, and per Bottleneck ``relu(bn1(...))``,
+    ``relu(bn2(...))`` and ``relu(out + identity)`` (one two-step chain),
+    each flushed by the convolution, pooling or next block that reads it
+    (``models/paper_models.py``).  ``cross_entropy`` is one op, the
+    backward of a chain is its plain version's VJP, and the optimizer
+    works on raw data, so none of them adds a chain."""
+    from repro_torch.models.paper_models import Bottleneck
+    blocks = sum(isinstance(m, Bottleneck) for m in model.modules())
+    return 1 + 3 * blocks
+
+
+def eager_batch(torch, b: int, size: int, classes: int, seed: int):
+    """Images (b, 3, size, size) ~ N(0, 1) and labels, from numpy."""
+    import numpy as np
+    import repro_torch as rt
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, 3, size, size), dtype=np.float32)
+    y = rng.integers(0, classes, b).astype(np.int32)
+    return rt.tensor(x), rt.tensor(y)
+
+
+def train_step(model, opt, x, y, fused: bool = True):
+    """The user's step: forward, ``loss.backward()`` on the tape,
+    ``optimizer.step()``, inside ``repro_torch.fuse.fusion()``."""
+    import repro_torch as rt
+    import repro_torch.nn.functional as F
+
+    opt.zero_grad()
+    with rt.fuse.fusion(fused):
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+    return loss
+
+
+def resnet(torch, classes: int):
+    """ResNet-50 in train mode, weights from ``manual_seed(0)``, with its
+    SGD optimizer (``EAGER_LR``, momentum 0.9, foreach)."""
+    import repro_torch as rt
+    import repro_torch.optim as optim
+    from repro_torch.models.paper_models import ResNet50
+
+    rt.manual_seed(0)
+    model = ResNet50(classes)
+    model.train()
+    opt = optim.SGD(list(model.parameters()), lr=EAGER_LR,
+                    momentum=EAGER_MOMENTUM)
+    return model, opt
+
+
+def eager_device_time(prof) -> dict:
+    """Device ms by group from a profiled eager run, and the largest
+    kernels linked to no host op.  The eager runtime
+    opens a ``repro_torch::<op>`` range around every op's forward and a
+    ``<op>.bwd`` one around its VJP (``core.autograd.op_range``); a
+    kernel belongs to the innermost range whose host interval holds the
+    start of the op that launched it (the VJP's ops run on PyTorch's
+    autograd device thread, which the range's thread waits for).  The
+    generated Triton kernel is grouped by its name wherever it runs."""
+    ranges = sorted(((ev.time_range.start, ev.time_range.end,
+                      ev.name[len(EAGER_RANGE):])
+                     for ev in prof.events()
+                     if ev.name.startswith(EAGER_RANGE)),
+                    key=lambda r: (r[0], -r[1]))
+    starts = [r[0] for r in ranges]
+    groups = {}
+
+    def group_of(t0, kernel):
+        if "fused_chain_kernel" in kernel:
+            return "fused_elementwise"
+        i = bisect.bisect_right(starts, t0) - 1
+        name = None
+        while i >= 0:
+            if ranges[i][1] >= t0:
+                name = ranges[i][2]
+                break
+            i -= 1
+        if name is None:
+            return "outside_ops"
+        bwd = name.endswith(".bwd")
+        op = name[:-4] if bwd else name
+        if op.startswith("fused["):
+            return "fused_backward"
+        return {"conv2d": "conv", "batch_norm": "batch_norm",
+                "linear": "matmul", "max_pool2d": "pool",
+                "adaptive_avg_pool2d": "pool", "cross_entropy": "loss",
+                "optimizer.step": "optimizer"}.get(op, "other")
+
+    linked = {}
+    for ev in prof.events():
+        for k in ev.kernels:
+            g = group_of(ev.time_range.start, k.name)
+            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration / 1e3
+    # kernels the profiler links to no host op (the Triton launcher's,
+    # and any other) are grouped by name
+    unlinked = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us or "CUDA" not in str(ev.device_type) or \
+                ev.key.startswith(EAGER_RANGE):
+            continue     # no kernel: a range the profiler also annotates
+        rest = us / 1e3 - linked.get(ev.key, 0.0)
+        if rest > 1e-3:
+            g = "unlinked:" + eager_kernel_group(ev.key)
+            groups[g] = groups.get(g, 0.0) + rest
+            unlinked.append((rest, ev.key[:60]))
+    unlinked.sort(reverse=True)
+    return groups, unlinked[:6]
+
+
+def eager_kernel_group(name: str) -> str:
+    n = name.lower()
+    if "fused_chain_kernel" in n:
+        return "fused_elementwise"
+    if any(s in n for s in ("conv", "xmma", "cudnn", "implicit", "fprop",
+                            "dgrad", "wgrad", "winograd")):
+        return "conv"
+    if any(s in n for s in ("gemm", "nvjet", "cutlass")):
+        return "matmul"
+    if "reduce" in n:
+        return "reduction"
+    return "elementwise"
+
+
+def phase_eager_train(torch, dev) -> tuple:
+    """ResNet-50 training at full width through the eager runtime with
+    the fusion queue on: ``EAGER_WARMUP`` + ``EAGER_STEPS`` steps on one
+    batch.  Every flushed chain must launch the generated kernel, exactly
+    ``resnet_chains_per_step`` times a step, and no other kernel of the
+    port; the loss must fall.  Returns the launch counts and a function
+    that profiles ``EAGER_PROFILE_STEPS`` more steps of a model made
+    again from the seed."""
+    import repro_torch as rt
+
+    model, opt = resnet(torch, EAGER_CLASSES)
+    x, y = eager_batch(torch, EAGER_BATCH, EAGER_IMAGE, EAGER_CLASSES, 51)
+    per_step = resnet_chains_per_step(model)
+    rt.reset_dispatch_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt.allocator.device_allocator().reset_peak_stats()
+    t0 = time.perf_counter()
+    first = train_step(model, opt, x, y)
+    for _ in range(EAGER_WARMUP - 1):
+        train_step(model, opt, x, y)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    def run():
+        t = time.perf_counter()
+        losses = [train_step(model, opt, x, y) for _ in range(EAGER_STEPS)]
+        torch.cuda.synchronize()
+        return losses, time.perf_counter() - t
+
+    (losses, wall), counts = check_launches(
+        torch, "the eager_train run", run,
+        {"fused_elementwise": per_step * EAGER_STEPS})
+    loss_first, loss_last = first.item(), losses[-1].item()
+    fused_bytes = fused_bytes_of_step(torch, model, opt, x, y)
+    stats = rt.dispatch_cache_stats()
+    acct = rt.allocator.memory_stats()
+    emit({"phase": "eager_train", "model": "resnet50", "batch": EAGER_BATCH,
+          "image": EAGER_IMAGE, "dtype": "float32", "steps": EAGER_STEPS,
+          "warmup_s": warm_s, "ms_per_step": wall / EAGER_STEPS * 1e3,
+          "images_per_s": EAGER_BATCH * EAGER_STEPS / wall,
+          "fused_launches_per_step": counts["fused_elementwise"]
+          / EAGER_STEPS, "derived_per_step": per_step, "launches": counts,
+          "dispatch": {k: v for k, v in stats.items() if k != "per_op"},
+          "fused_entries": stats["per_op"].get("__fused__"),
+          "fused_bytes_per_step": fused_bytes,
+          "fused_bound_ms_per_step": fused_bytes / HBM_BYTES_PER_S * 1e3,
+          "accounting_peak_gb": acct["peak_bytes_active"] / 1e9,
+          "accounting_reserved_gb": acct["peak_bytes_reserved"] / 1e9,
+          "peak_mem_gb": peak_gb(torch),
+          "loss_first": loss_first, "loss_last": loss_last})
+    if not (math.isfinite(loss_last) and loss_last < loss_first):
+        raise AssertionError(f"eager_train: the loss did not fall "
+                             f"({loss_first} -> {loss_last})")
+    del model, opt
+    free(torch)
+
+    def profiled():
+        model, opt = resnet(torch, EAGER_CLASSES)
+        for _ in range(EAGER_WARMUP):
+            train_step(model, opt, x, y)
+
+        def steps():
+            for _ in range(EAGER_PROFILE_STEPS):
+                train_step(model, opt, x, y)
+            torch.cuda.synchronize()
+
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            steps()
+            wall = time.perf_counter() - t
+        groups, _ = device_time(prof)
+        busy = sum(groups.values())
+        by_op, unlinked = eager_device_time(prof)
+        emit({"phase": "eager_train_profile", "steps": EAGER_PROFILE_STEPS,
+              "wall_ms": wall * 1e3, "device_busy_ms": busy,
+              "device_ms_by_group": by_op,
+              "top_unlinked": [{"ms": t, "name": n} for t, n in unlinked],
+              "device_ms_by_kernel_group": groups,
+              "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3))})
+    return counts, profiled
+
+
+def fused_bytes_of_step(torch, model, opt, x, y) -> int:
+    """Bytes the fused kernel must move in one training step: each
+    chain's inputs read once and its step outputs written once, summed
+    over the step's chains (one more step, run with a tally around the
+    kernel wrapper)."""
+    from repro_torch.kernels import fused_elementwise as FE
+
+    total = [0]
+    launch = FE.fused_elementwise
+
+    def tally(chain, *xs):
+        outs = launch(chain, *xs)
+        total[0] += sum(t.numel() * t.element_size() for t in (*xs, *outs))
+        return outs
+
+    FE.fused_elementwise = tally
+    try:
+        train_step(model, opt, x, y)
+    finally:
+        FE.fused_elementwise = launch
+    torch.cuda.synchronize()
+    return total[0]
+
+
+def grads_of(model) -> list:
+    return [p.grad.data.float() for p in model.parameters()]
+
+
+def phase_eager_parity(torch, dev) -> None:
+    """One ResNet-50 step (full width, the eager_train batch) with the
+    fusion queue off (no fused launch) and one with it on, from the same
+    weights: loss and gradients agree (deterministic cuDNN).  Then
+    ResNet50(10) at 128 x 128, batch 2, on the card against the same
+    model on the CPU: loss, logits, gradients and running stats after one
+    SGD step."""
+    import repro_torch as rt
+    import repro_torch.nn.functional as F
+
+    x, y = eager_batch(torch, EAGER_BATCH, EAGER_IMAGE, EAGER_CLASSES, 52)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for fused in (False, True):
+            model, opt = resnet(torch, EAGER_CLASSES)
+            want = ({"fused_elementwise": resnet_chains_per_step(model)}
+                    if fused else {})
+            loss, counts = check_launches(
+                torch, f"the eager_parity run (fusion {fused})",
+                lambda: train_step(model, opt, x, y, fused), want)
+            runs[fused] = (loss.item(), grads_of(model), counts)
+            del model, opt
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (l0, g0, _), (l1, g1, c1) = runs[False], runs[True]
+    loss_rel = abs(l1 - l0) / abs(l0)
+    grad_err = max(((a - b).abs().max() / a.pow(2).mean().sqrt()).item()
+                   for a, b in zip(g0, g1))
+    del runs, g0, g1
+    free(torch)
+
+    b, size, classes = EAGER_SMALL
+    xs, ys = eager_batch(torch, b, size, classes, 53)
+
+    def small_step(device):
+        with rt.default_device(device):
+            model, opt = resnet(torch, classes)
+            xd = rt.Tensor(xs.data.to(device))
+            yd = rt.Tensor(ys.data.to(device))
+            opt.zero_grad()
+            with rt.fuse.fusion():
+                logits = model(xd)
+                loss = F.cross_entropy(logits, yd)
+                loss.backward()
+                grads = [g.cpu() for g in grads_of(model)]
+                opt.step()
+            stats = [s.data.float().cpu() for s in model.buffers()]
+            return (loss.item(), logits.data.float().cpu(), grads, stats,
+                    resnet_chains_per_step(model))
+
+    cpu = small_step("cpu")
+    cuda, counts = check_launches(
+        torch, "the small CUDA ResNet-50 step", lambda: small_step(dev),
+        {"fused_elementwise": cpu[4]})
+
+    def rel_l2(a, b):
+        num = sum(float((x - y).pow(2).sum()) for x, y in zip(a, b))
+        return (num / sum(float(x.pow(2).sum()) for x in a)) ** 0.5
+
+    small = {"loss": abs(cuda[0] - cpu[0]) / abs(cpu[0]),
+             "logits": ((cuda[1] - cpu[1]).abs().max()
+                        / cpu[1].pow(2).mean().sqrt()).item(),
+             "grads": rel_l2(cpu[2], cuda[2]),
+             "stats": max(rel_l2([a], [b]) for a, b in zip(cpu[3], cuda[3]))}
+    emit({"phase": "eager_parity", "loss_fused_off": l0, "loss_fused_on": l1,
+          "loss_rel": loss_rel, "grad_max_err_over_rms": grad_err,
+          "tol": EAGER_PARITY_TOL, "launches_fused_on": c1,
+          "small_cuda_vs_cpu": small, "small_tol": EAGER_SMALL_TOL,
+          "small_shape": EAGER_SMALL, "small_launches": counts})
+    if not (loss_rel <= EAGER_PARITY_TOL[0]
+            and grad_err <= EAGER_PARITY_TOL[1]):
+        raise AssertionError(f"eager_parity: fusion on and off disagree: "
+                             f"loss {loss_rel}, grads {grad_err}")
+    if any(not small[k] <= EAGER_SMALL_TOL[k] for k in small):
+        raise AssertionError(f"eager_parity: ResNet-50 on the card and on "
+                             f"the CPU disagree: {small}")
+    free(torch)
 
 
 def gemma_models(torch, dev):
@@ -1093,20 +1749,6 @@ def phase_parity(torch, dev, cfg32, params32, phase: str, seed: int) -> None:
                              f" vs {PARITY_RTOL} x {rms}, argmax {agree}")
 
 
-def gemma_models(torch, dev):
-    """gemma-2b at full width and depth, random weights from a seeded
-    generator on the card: (fp32 config, fp32 params, bf16 config, bf16
-    params).  Every gemma-2b phase uses these two copies."""
-    from repro_torch.configs import gemma_2b
-    from repro_torch.models import lm as LM
-
-    cfg32 = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.float32)
-    cfg = dataclasses.replace(cfg32, param_dtype=torch.bfloat16)
-    params32 = LM.init_params(cfg32, seed=0, device=dev)
-    params = LM.cast_params(params32, torch.bfloat16)
-    return cfg32, params32, cfg, params
-
-
 def rwkv_models(torch, dev):
     """rwkv6-1.6b at full width and depth (24 layers), random weights
     from a seeded generator on the card: (fp32 config, fp32 params, bf16
@@ -1150,8 +1792,15 @@ def run_phases(torch, dev) -> list:
             "flash_attention": phase_flash(torch, dev),
             "decode_attention": phase_decode(torch, dev),
             "rwkv6_scan": phase_rwkv6(torch, dev),
-            "mamba_scan": phase_mamba(torch, dev)}
+            "mamba_scan": phase_mamba(torch, dev),
+            "fused_elementwise": phase_fused_elementwise(torch, dev)}
     phase_small_e2e(torch)
+
+    # the eager runtime: ResNet-50 training (each model freed at the end
+    # of its phase)
+    eager, profile_eager_train = phase_eager_train(torch, dev)
+    counts_eager = eager["fused_elementwise"]
+    phase_eager_parity(torch, dev)
 
     # each model is freed before the next is made: jamba's 48 GB do not
     # fit beside gemma's 15 and rwkv's 9.6
@@ -1165,6 +1814,7 @@ def run_phases(torch, dev) -> list:
     dense, profile_dense_decode = phase_decode_steps(
         torch, dev, cfg, params, "dense_decode", 22)
     counts["decode_attention"] = dense["decode_attention"]
+    counts["fused_elementwise"] = counts_eager
     phase_parity(torch, dev, cfg32, params32, "dense_parity", 23)
     del params32, params
     free(torch)
@@ -1214,6 +1864,8 @@ def run_phases(torch, dev) -> list:
             profiled(params)
         del params
         free(torch)
+    profile_eager_train()
+    free(torch)
 
     table = []
     for name, route, source, replaces in (
@@ -1232,7 +1884,10 @@ def run_phases(torch, dev) -> list:
             ("rwkv6_scan", "cuda", "src/repro_torch/kernels/csrc/rwkv6.cu",
              "src/repro/kernels/rwkv6.py:64"),
             ("mamba_scan", "cuda", "src/repro_torch/kernels/csrc/mamba.cu",
-             "src/repro/kernels/mamba.py:55")):
+             "src/repro/kernels/mamba.py:55"),
+            ("fused_elementwise", "triton",
+             "src/repro_torch/kernels/fused_elementwise.py",
+             "src/repro/kernels/ops.py:277")):
         r = rows[name]
         table.append({"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": counts[name],

@@ -1,34 +1,49 @@
-"""PyTorch/CUDA port of the ``repro`` serving path.
+"""PyTorch/CUDA port of ``repro`` (package ``repro_torch``).
 
 The package mirrors ``repro``'s subpackage and file names, so each file
 names the module it is held against.  It imports ``torch`` only: never
-``jax`` and nothing of ``repro``.
+``jax`` and nothing of ``repro``.  What it holds:
 
-Entry points run on CUDA unless the caller asks for the CPU.  There is
-no silent fallback: :func:`resolve_device` raises when no GPU is present
-and ``device="cpu"`` was not passed.
+  * the eager runtime (``core``: the imperative ``Tensor``, the
+    define-by-run tape, the dispatch cache, the fusion queue, streams
+    and the allocator's accounting), ``nn``, ``optim`` and the paper's
+    models (``models.paper_models``), with the torch-shaped flat
+    namespace of ``repro``::
+
+        import repro_torch as rt
+        x = rt.randn(4, 8, requires_grad=True)
+        with rt.fuse.fusion():
+            y = (x @ x.T).relu().sum()
+        y.backward()
+
+  * the LM serving path (``serving``), the prefill/decode step builders
+    (``launch.train``) and their models (``models.lm``);
+  * the hand-written Hopper kernels (``kernels``), each beside its plain
+    PyTorch version.
+
+Entry points run on CUDA unless the caller asks for the CPU: the eager
+factories place tensors on CUDA unless a ``with
+repro_torch.default_device("cpu"):`` scope says otherwise, and
+:func:`resolve_device` raises when no GPU is present and the CPU was not
+named.  There is no silent fallback.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from ._device import current_device, default_device, resolve_device
+from .core import *          # noqa: F401,F403  torch-like flat namespace
+from .core import allocator, autograd, dispatch, fuse, stream  # noqa: F401
+from .core.tensor import Tensor  # noqa: F401
 
-import torch
-
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
-    """``None`` means ``"cuda"``.  Raises ``RuntimeError`` when a CUDA
-    device is asked for (explicitly or by default) and none is present;
-    the CPU is used only when the caller names it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch entry points run on CUDA by default and no CUDA "
-            "device is available; pass device='cpu' to run the plain "
-            "PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+def __getattr__(name):
+    # lazy subpackage access: repro_torch.nn, repro_torch.optim, ...
+    import importlib
+    if name in ("nn", "optim", "models", "kernels", "configs", "launch",
+                "serving"):
+        mod = importlib.import_module(f"repro_torch.{name}")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

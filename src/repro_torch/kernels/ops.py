@@ -31,7 +31,11 @@ rwkv6 and jamba slices:
     reference's ``ops.py:244-266`` returns y alone); it is a
     ``torch.autograd.Function`` whose backward recomputes through the
     plain version, as the reference's ``_mamba_bwd`` differentiates
-    ``ref.mamba_scan``.
+    ``ref.mamba_scan``;
+  * :func:`fused_elementwise` / :func:`make_fused_elementwise` run a
+    fusion-queue chain as one Triton kernel generated from the chain
+    (``ops.py:277-357``; the kernel, its plain version and its source
+    note are in ``kernels/fused_elementwise.py``).
 
 Source note for the Gumbel kernel.  It replaces
 ``repro/kernels/ops.py::gumbel_perturb``, which ran the perturbation as
@@ -60,6 +64,9 @@ import torch
 from ._build import LaunchCounter
 from .decode_attention import decode_attention_fwd, paged_attention_fwd
 from .flash_attention import flash_attention_fwd, flash_attention_plain
+from .fused_elementwise import (FusedChain, fused_elementwise,  # noqa: F401
+                                fused_elementwise_plain,
+                                make_fused_elementwise)
 from .mamba import mamba_scan_fwd, mamba_scan_plain
 from .rwkv6 import rwkv6_scan_fwd, rwkv6_scan_plain
 
@@ -68,10 +75,13 @@ gumbel_counter = LaunchCounter("gumbel_perturb")
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel (the plain version on the CPU).  Backward:
-    autograd through :func:`flash_attention_plain` on the saved inputs."""
+    autograd through :func:`flash_attention_plain` on the saved inputs.
+    ``setup_context`` is separate from ``forward`` so that the function
+    also runs under ``torch.func.vjp`` (the eager runtime's
+    ``F.scaled_dot_product_attention``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window):
+    def forward(q, k, v, causal, scale, window):
         b, hq, sq, d = q.shape
         _, hkv, skv, _ = k.shape
         out = flash_attention_fwd(
@@ -79,9 +89,13 @@ class _FlashAttention(torch.autograd.Function):
             k.reshape(b * hkv, skv, d).contiguous(),
             v.reshape(b * hkv, skv, d).contiguous(),
             causal=causal, scale=scale, window=window)
+        return out.reshape(b, hq, sq, d)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, scale, window = inputs
         ctx.save_for_backward(q, k, v)
         ctx.attn = (causal, scale, window)
-        return out.reshape(b, hq, sq, d)
 
     @staticmethod
     def backward(ctx, grad):

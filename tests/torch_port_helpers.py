@@ -121,3 +121,34 @@ def cuda_device():
 
 # the marker of tests that need the card: they run only with a GPU
 requires_cuda = pytest.mark.usefixtures("cuda_device")
+
+
+@pytest.fixture
+def port_cpu():
+    """Runs the test with the port's eager factories on the CPU (their
+    default is CUDA), with a fresh dispatch cache."""
+    import repro_torch
+    repro_torch.reset_dispatch_cache()
+    with repro_torch.default_device("cpu"):
+        yield
+    repro_torch.reset_dispatch_cache()
+
+
+def jax_array(a, dtype: str):
+    """A numpy array as a jax array of ``dtype`` (bf16 rounded from
+    fp32 by JAX)."""
+    return jnp.asarray(a).astype(getattr(jnp, dtype))
+
+
+def port_tensor(a, dtype: str) -> torch.Tensor:
+    """A numpy array as a CPU torch tensor of ``dtype`` (bf16 rounded
+    from fp32 by torch: the same round-to-nearest-even as JAX)."""
+    return torch.from_numpy(np.array(a)).to(getattr(torch, dtype))
+
+
+def load_reference_state(port_module, ref_module) -> None:
+    """Load a reference module's ``state_dict()`` (parameters and
+    buffers, as numpy arrays) into the port's module of the same
+    architecture; both keep NCHW / OIHW layouts."""
+    port_module.load_state_dict(
+        {k: np.asarray(v.data) for k, v in ref_module.state_dict().items()})
