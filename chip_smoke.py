@@ -6,16 +6,26 @@
 It builds the port's kernels from the sources in this checkout (one
 ``nvcc`` per library, all started together), holds each one against its
 plain PyTorch version at the shapes of the paths below, checks the
-serving engine end to end on a small config against the same engine on
-the CPU, then drives gemma-2b at full width (18 layers, random weights
-from a seed) through both of the port's gemma paths, rwkv6-1.6b at full
-width and depth (24 layers) through its prefill and decode path, and
-jamba-1.5-large at full width, cut to its first 5 layers (every kind of
-block; 48.1 GB at bf16), through the same step builders, and trains
-ResNet-50 at full width through the port's eager runtime:
+serving engines (unified, legacy, draft-model speculation) end to end on
+a small config against the same engines on the CPU, then drives gemma-2b
+at full width (18 layers, random weights from a seed) through both of
+the port's gemma paths, rwkv6-1.6b at full width and depth (24 layers)
+through its prefill and decode path, and jamba-1.5-large at full width,
+cut to its first 5 layers (every kind of block; 48.1 GB at bf16),
+through the same step builders, and trains ResNet-50 at full width
+through the port's eager runtime:
 
   * paged continuous-batching serving through
     ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
+  * the gathered-cache path on a live serving engine's pool
+    (``PagedKVCache.gather``, then ``models.attention.mixed_attention``,
+    the mixed-attention kernel) against the paged kernel on the same
+    pool, and the serving front door on the same model: the legacy
+    engine (flash and decode attention) beside the unified one,
+    draft-model speculation (``DraftModelProposer``: flash attention in
+    every draft forward), ``AsyncFrontend`` streams under arrival
+    traffic, and ``launch/server.py``'s HTTP/SSE server over a loopback
+    socket;
   * the dense-cache path: prefill through
     ``repro_torch.launch.train.make_prefill_step`` (``lm.forward``, the
     flash kernel) and greedy decode through ``make_serve_step``
@@ -50,7 +60,10 @@ Output, one line each:
     attention (gemma-2b prefill, an offset+window row, an fp32 row);
     decode attention (gemma-2b decode at ragged lengths, fp32, window);
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
-    state); flash and decode attention at jamba's shapes; the Mamba scan
+    state); flash and decode attention at jamba's shapes; mixed attention
+    (the paged row's inputs gathered into per-slot caches at bf16, fp32,
+    with a window and bf16 q over fp32 caches, and the reference's small
+    serving preset's head_dim 32); the Mamba scan
     (jamba prefill, decode from a state, a ragged fp32 row with a state,
     B and C as strided column views); the fused-elementwise kernel
     (ResNet-50's add+relu and relu at their batch-64 shapes, fp32 and
@@ -59,6 +72,14 @@ Output, one line each:
     chains);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels);
+  * ``paged_vs_gathered`` (the two kernels on a live pool with shared
+    prefix pages and ragged tables, every layer), ``legacy_serving``
+    (tokens/s, exact flash and decode launches, the unified engine's
+    tokens/s on the same requests and the ratio), ``draft_spec`` (bf16
+    and fp32; acceptance, tokens/s, the draft's flash launches; fp32
+    output equal to spec_k=0), ``frontend_serving`` (p50/p99 TTFT and
+    inter-token latency, zero dropped tokens and leaked pages, one
+    terminal event per stream) and ``http_server``;
   * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines,
     ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines, and
     ``jamba_prefill``, ``jamba_decode`` and ``jamba_parity`` lines, each
@@ -77,7 +98,8 @@ Output, one line each:
     path's main run (bf16 serving for paged attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
-    fused-elementwise kernel) and its numbers at that path's shapes;
+    fused-elementwise kernel, paged_vs_gathered for mixed attention) and
+    its numbers at that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -688,13 +710,17 @@ def phase_mamba(torch, dev) -> dict:
 # serving phases
 # ----------------------------------------------------------------------
 
-def run_engine(torch, cfg, params, requests, dev, **kw):
+def serving_engine(cfg, params, dev, **kw):
+    """The gemma-2b serving engine every serving phase drives."""
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(cfg, params, page_size=PAGE_SIZE,
-                        num_pages=kw.pop("num_pages", 1280),
-                        max_batch=MAX_BATCH, token_budget=TOKEN_BUDGET,
-                        chunk_size=CHUNK, max_pages_per_seq=128,
-                        device=dev, **kw)
+    return ServingEngine(cfg, params, page_size=PAGE_SIZE, num_pages=1280,
+                         max_batch=MAX_BATCH, token_budget=TOKEN_BUDGET,
+                         chunk_size=CHUNK, max_pages_per_seq=128,
+                         device=dev, **kw)
+
+
+def run_engine(torch, cfg, params, requests, dev, **kw):
+    eng = serving_engine(cfg, params, dev, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ids = [eng.submit(p, max_new_tokens=n, sampling=sp)
@@ -853,16 +879,21 @@ def profile_serving(torch, cfg, params, requests, dev) -> dict:
 
 
 def phase_small_e2e(torch) -> None:
-    """The engine on a small config (gemma-smoke, fp32, through the
-    kernels) agrees token for token with the same engine on the CPU
-    (plain versions)."""
+    """Three engines on a small config (gemma-smoke, fp32, through the
+    kernels) agree token for token with the same engines on the CPU
+    (plain versions): the unified engine, the legacy engine, and the
+    unified engine with a 1-layer draft model proposing 2 tokens."""
     from repro_torch.configs import gemma_2b
     from repro_torch.models import lm as LM
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.legacy import LegacyServingEngine
     from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.spec import DraftModelProposer
 
     cfg = gemma_2b.SMOKE
     params = LM.init_params(cfg, seed=3, device="cpu")
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = LM.init_params(dcfg, seed=4, device="cpu")
     gen = torch.Generator().manual_seed(5)
     reqs = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist(),
              12, SamplingParams()) for n in (5, 17, 30, 9)]
@@ -875,14 +906,38 @@ def phase_small_e2e(torch) -> None:
         eng.run()
         return [eng.result(i).out_tokens for i in ids]
 
-    on_cpu = serve("cpu")
-    on_cuda, counts = counted(torch, "the small CUDA run",
-                              lambda: serve("cuda"))
-    emit({"phase": "small_e2e", "config": cfg.name,
-          "equal": on_cpu == on_cuda, "launches": counts})
-    if on_cpu != on_cuda:
-        raise AssertionError(f"small config: CUDA {on_cuda} != CPU "
-                             f"{on_cpu}")
+    def serve_legacy(dev):
+        eng = LegacyServingEngine(cfg, params, page_size=4, num_pages=64,
+                                  max_batch=4, device=dev)
+        ids = [eng.submit(p, max_new_tokens=n) for p, n, _ in reqs]
+        done = {r.req_id: r.out_tokens for r in eng.run()}
+        return [done.get(i) for i in ids]
+
+    def serve_draft(dev):
+        draft = DraftModelProposer(dcfg, LM.params_to(dparams, dev),
+                                   window=16)
+        eng = ServingEngine(cfg, params, page_size=4, num_pages=64,
+                            max_batch=4, spec_k=SPEC_K, proposer=draft,
+                            device=dev)
+        ids = [eng.submit(p, max_new_tokens=n, sampling=sp)
+               for p, n, sp in reqs]
+        eng.run()
+        return [eng.result(i).out_tokens for i in ids]
+
+    for engine, fn, required in (
+            ("unified", serve, SERVING_KERNELS),
+            ("legacy", serve_legacy, ("flash_attention",
+                                      "decode_attention")),
+            ("draft_spec", serve_draft,
+             SERVING_KERNELS + ("flash_attention",))):
+        on_cpu = fn("cpu")
+        on_cuda, counts = counted(torch, f"the small CUDA {engine} run",
+                                  lambda: fn("cuda"), required=required)
+        emit({"phase": "small_e2e", "engine": engine, "config": cfg.name,
+              "equal": on_cpu == on_cuda, "launches": counts})
+        if on_cpu != on_cuda:
+            raise AssertionError(f"small config, {engine} engine: CUDA "
+                                 f"{on_cuda} != CPU {on_cpu}")
 
 
 # ----------------------------------------------------------------------
@@ -1514,13 +1569,12 @@ def gemma_models(torch, dev):
     return cfg32, params32, cfg, params
 
 
-def phase_serving(torch, dev, models) -> tuple:
-    """gemma-2b serving runs.  Returns the main (bf16) run's launch
-    counts, and a function that runs it again under the profiler on the
-    bf16 params it is given."""
+def serving_requests(torch, cfg) -> list:
+    """The gemma-2b serving workload: 16 requests, prompts of 128-1024
+    tokens, 32 new tokens each; even requests greedy, odd ones
+    top-k/top-p sampled from their own seeds."""
     from repro_torch.serving.sampling import SamplingParams
 
-    cfg32, params32, cfg, params = models
     gen = torch.Generator().manual_seed(1)
     requests = []
     for i in range(MAX_BATCH):
@@ -1529,6 +1583,15 @@ def phase_serving(torch, dev, models) -> tuple:
         sp = SamplingParams() if i % 2 == 0 else SamplingParams(
             temperature=0.8, top_k=50, top_p=0.95, seed=i)
         requests.append((prompt.tolist(), NEW_TOKENS, sp))
+    return requests
+
+
+def phase_serving(torch, dev, models) -> tuple:
+    """gemma-2b serving runs.  Returns the main (bf16) run's launch
+    counts, a function that runs it again under the profiler on the bf16
+    params it is given, and each run's output tokens by run name."""
+    cfg32, params32, cfg, params = models
+    requests = serving_requests(torch, cfg)
 
     runs, main_counts = {}, None
     for name, c, p, reqs, kw in (
@@ -1562,7 +1625,501 @@ def phase_serving(torch, dev, models) -> tuple:
     def profiled(bf16_params):
         emit({"phase": "serving_profile", "run": "bf16",
               **profile_serving(torch, cfg, bf16_params, requests, dev)})
-    return main_counts, profiled
+    return main_counts, profiled, runs
+
+
+# ----------------------------------------------------------------------
+# the gathered-cache path (mixed attention, kernel B2) and the serving
+# front door: the legacy engine, draft-model speculation, the async
+# frontend and the HTTP/SSE server, all over the bf16 gemma-2b model of
+# the serving phase
+# ----------------------------------------------------------------------
+
+# mixed attention against its plain version: (label, q dtype, cache
+# dtype, Hkv, G, D, window).  Rows (a)-(c) and (e) take the paged row's
+# own inputs (``paged_inputs``: 16 slots of 128-1024 tokens, T = 256 of
+# which 214 live, the rest padding), the pool gathered through its tables
+# into (16, 1, 1024, 256) per-slot caches, so row (a) compares directly
+# with the paged row; (e) is bf16 q over the fp32 caches that ``gather``
+# gives from an int8/fp8 pool.  Row (d) is the reference's ``small``
+# serving preset's attention (4 KV heads of 32, G = 2, same slots and
+# positions), which the reference itself routes through this kernel
+# (head_dim 32 is not lane-aligned).  Every row holds padding tokens.
+# Tolerances: kernel_tol (bf16 1e-2 + 1e-2 |ref|; fp32 2e-3, L = 1024).
+MIXED_ROWS = (("bf16", "bfloat16", "bfloat16", 1, 8, 256, None),
+              ("fp32", "float32", "float32", 1, 8, 256, None),
+              ("bf16_window", "bfloat16", "bfloat16", 1, 8, 256, 256),
+              ("small_preset", "bfloat16", "bfloat16", 4, 2, 32, None),
+              ("bf16_q_fp32_cache", "bfloat16", "float32", 1, 8, 256,
+               None))
+# paged_vs_gathered: the paged kernel over a live pool against the mixed
+# kernel over the same pool gathered, bf16 (the paged check's limit)
+PAGED_VS_GATHERED_TOL = 1e-2
+SHARED_PREFIX = 512                # tokens the sharing requests have in common
+# frontend_serving: 16 streams arriving with seeded exponential gaps of
+# mean 20 ms; stream 3 is cancelled by the server after 8 tokens
+ARRIVAL_MEAN_S = 0.020
+CANCEL_STREAM, CANCEL_AFTER = 3, 8
+HTTP_STREAMS, HTTP_NEW_TOKENS = 4, 8
+
+
+def gathered_caches(torch, x):
+    """The paged row's fp32 pool gathered through its tables into
+    per-slot contiguous (S, Hkv, P*ps, D) caches."""
+    s, p = x["tables"].shape
+    ps = x["ps"]
+    n, _, hkv, d = x["k32"].shape
+    gidx = (x["tables"].long()[:, :, None] * ps
+            + torch.arange(ps, device=x["k32"].device)).reshape(s, p * ps)
+    return [c.reshape(n * ps, hkv, d)[gidx].transpose(1, 2).contiguous()
+            for c in (x["k32"], x["v32"])]
+
+
+def mixed_bound(seg, pos, window, q, kc) -> tuple:
+    """Least time for one mixed-attention call: q read once and the
+    output written once, seg and pos; every cache key that some token of
+    its slot sees, read once (the work depends on the positions);
+    operations 4*G*D per visible (token, key) pair and KV head."""
+    t, hkv, g, d = q.shape
+    s, _, l, _ = kc.shape
+    spans, pairs = {}, 0
+    for sl, p in zip(seg, pos):
+        hi = min(p, l - 1)
+        lo = max(0, p - window + 1) if window else 0
+        if hi >= lo:
+            spans.setdefault(min(max(sl, 0), s - 1), []).append((lo, hi))
+            pairs += hi - lo + 1
+    keys = 0
+    for ivs in spans.values():
+        end = -1
+        for lo, hi in sorted(ivs):
+            keys += max(0, hi - max(lo, end + 1) + 1)
+            end = max(end, hi)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * keys * hkv * d * kc.element_size() + 2 * t * 4)
+    dt = ("bfloat16" if q.element_size() == kc.element_size() == 2
+          else "float32")
+    return kernel_bound(nbytes, 4 * pairs * hkv * g * d, dt)
+
+
+def mixed_library_ms(torch, q, kc, vc, seg, pos, window, scale) -> float:
+    """One PyTorch call computing the same attention on the same inputs:
+    SDPA over the per-token gathered contiguous caches (gathered, and q
+    cast to the caches' dtype, outside the timed call), as
+    ``sdpa_library_ms``.  A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    t, hkv, g, d = q.shape
+    s, _, l, _ = kc.shape
+    slot = seg.long().clamp(0, s - 1)
+    kt, vt = kc[slot], vc[slot]
+    k_pos = torch.arange(l, device=q.device)[None, :]
+    p = pos.long()[:, None]
+    ok = k_pos <= p
+    if window:
+        ok = ok & (k_pos > p - window)
+    q4 = q.reshape(t, hkv * g, 1, d).to(kc.dtype)
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, kt, vt, attn_mask=ok[:, None, None, :], scale=scale,
+        enable_gqa=True))
+
+
+def phase_mixed_attention(torch, dev) -> dict:
+    """The mixed-attention kernel against its plain version (rows
+    ``MIXED_ROWS``); the first row is the table's."""
+    from repro_torch.kernels import decode_attention as DA
+
+    x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
+    kc32, vc32 = gathered_caches(torch, x)
+    seg, pos = x["seg"], x["pos"]
+    seg_h, pos_h = seg.cpu().tolist(), pos.cpu().tolist()
+    result = None
+    for label, qdt, cdt, hkv, g, d, window in MIXED_ROWS:
+        qdtype, cdtype = getattr(torch, qdt), getattr(torch, cdt)
+        if hkv == 1:
+            q = x["q32"].to(qdtype)
+            kc, vc = kc32.to(cdtype), vc32.to(cdtype)
+        else:
+            rg = torch.Generator(device=dev).manual_seed(18)
+            s, _, l, _ = kc32.shape
+            q = torch.randn((len(seg_h), hkv, g, d), generator=rg,
+                            device=dev).to(qdtype)
+            kc, vc = (torch.randn((s, hkv, l, d), generator=rg,
+                                  device=dev).to(cdtype) for _ in range(2))
+        kw = dict(scale=d ** -0.5, window=window)
+
+        def kern():
+            return DA.mixed_attention_fwd(q, kc, vc, seg, pos, **kw)
+
+        def plain():
+            return DA.mixed_attention_plain(q, kc, vc, seg, pos, **kw)
+
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        row = {"phase": "kernel", "name": "mixed_attention", "row": label,
+               "q_dtype": qdt, "cache_dtype": cdt, "T": len(seg_h),
+               "live_tokens": x["n_live"], "S": int(kc.shape[0]),
+               "Hkv": hkv, "G": g, "D": d, "L": int(kc.shape[2]),
+               "window": window}
+        row.update(check_row(torch, f"mixed_attention[{label}]", out, ref,
+                             kernel_tol(qdt, int(kc.shape[2]))))
+        row["ms"] = time_ms(torch, kern)
+        row["plain_ms"] = time_ms(torch, plain, reps=5)
+        row["bound_ms"], row["bound_by"] = mixed_bound(seg_h, pos_h, window,
+                                                       q, kc)
+        row["library_ms"] = mixed_library_ms(torch, q, kc, vc, seg, pos,
+                                             window, kw["scale"])
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
+def phase_paged_vs_gathered(torch, dev, cfg, params) -> dict:
+    """The gathered-cache path over a live gemma-2b engine's pool: 16
+    requests, 8 of them sharing a 512-token prefix (shared pages) with
+    ragged tails, stepped until all 16 decode.  For every layer,
+    ``kv.gather`` of every live slot, then the mixed kernel over the
+    gathered caches (``models.attention.mixed_attention``) and the paged
+    kernel over the pool in place, with the same q, segments and
+    positions (each slot's last position, a 64-token chunk for two
+    slots, padding to 256): they agree within 1e-2.  The run launches
+    exactly one mixed and one paged kernel a layer.  Returns its launch
+    counts."""
+    from repro_torch.models import attention as TA
+
+    base = serving_requests(torch, cfg)
+    shared = base[0][0][:SHARED_PREFIX]
+    reqs = [(shared + p[:16 + 37 * i % 400], 64, sp) if i % 2 else
+            (p, 64, sp) for i, (p, _, sp) in enumerate(base)]
+    eng = serving_engine(cfg, params, dev)
+    ids = [eng.submit(p, max_new_tokens=n, sampling=sp)
+           for p, n, sp in reqs]
+    for _ in range(200):
+        if all(i in eng.running and eng.running[i].out_tokens
+               for i in ids):
+            break
+        eng.step()
+    else:
+        raise AssertionError("paged_vs_gathered: the requests never all "
+                             "reached decode")
+    kv = eng.kv
+    seqs = sorted(eng.running)
+    lens = [kv.lengths[s] for s in seqs]
+    seg, pos = [], []
+    for i, n in enumerate(lens):
+        first = n - 64 if i < 2 else n - 1
+        seg += [i] * (n - first)
+        pos += list(range(first, n))
+    n_live = len(seg)
+    t = 256
+    seg += [-1] * (t - n_live)
+    pos += [0] * (t - n_live)
+    seg_t = torch.tensor(seg, dtype=torch.int32, device=dev)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    width = max(len(kv.tables[s]) for s in seqs)
+    tables = torch.zeros((len(seqs), width), dtype=torch.int32)
+    for i, s in enumerate(seqs):
+        tables[i, :len(kv.tables[s])] = torch.tensor(kv.tables[s])
+    tables = tables.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q = torch.randn((t, cfg.n_heads, cfg.hd), generator=gen,
+                    device=dev).to(kv.dtype)
+    scale = cfg.query_scale or cfg.hd ** -0.5
+    live = seg_t >= 0
+
+    def run():
+        errs = []
+        for layer in range(cfg.n_layers):
+            kc, vc, _ = kv.gather(seqs, layer)
+            gathered = TA.mixed_attention(q, kc, vc, seg_t, pos_t,
+                                          scale=scale)
+            paged = TA.paged_attention(q, kv.k[layer], kv.v[layer], tables,
+                                       seg_t, pos_t, scale=scale)
+            errs.append((gathered[live].float()
+                         - paged[live].float()).abs().max().item())
+        return errs
+
+    errs, counts = check_launches(
+        torch, "the paged_vs_gathered run", run,
+        {"mixed_attention": cfg.n_layers, "paged_attention": cfg.n_layers})
+    shared_pages = sum(1 for r in kv.pool.refs.values() if r > 1)
+    emit({"phase": "paged_vs_gathered", "model": cfg.name,
+          "layers": cfg.n_layers, "sequences": len(seqs),
+          "lengths": [min(lens), max(lens)], "T": t, "live_tokens": n_live,
+          "prefix_hits": kv.pool.stats.prefix_hits,
+          "shared_pages": shared_pages,
+          "max_abs_err_first_layer": errs[0],
+          "max_abs_err_last_layer": errs[-1], "max_abs_err": max(errs),
+          "tol": PAGED_VS_GATHERED_TOL, "launches": counts})
+    eng.drain()
+    if kv.pool.num_free != kv.pool.num_pages:
+        raise AssertionError("paged_vs_gathered: pages leaked")
+    if not shared_pages or len(set(lens)) < 2:
+        raise AssertionError("paged_vs_gathered: the pool holds no shared "
+                             "pages or no ragged tables")
+    if not max(errs) <= PAGED_VS_GATHERED_TOL:
+        raise AssertionError(f"paged_vs_gathered: the kernels disagree by "
+                             f"{max(errs)}")
+    return counts
+
+
+def phase_legacy_serving(torch, dev, cfg, params) -> list:
+    """The greedy requests of the serving run through
+    ``LegacyServingEngine`` (bf16 gemma-2b, full width and depth): one
+    flash launch a layer per prefill (re-prefills included) and one
+    decode launch a layer per step, exactly, as its ``prefills`` and
+    ``steps`` count them; then the unified engine on the same requests,
+    and the ratio of their tokens/s (the reference's gate is unified >=
+    1.5x legacy; the ratio is printed, not enforced).  Returns the
+    unified run's outputs."""
+    from repro_torch.serving.legacy import LegacyServingEngine
+
+    greedy = [r for r in serving_requests(torch, cfg) if r[2].greedy]
+    new_tokens = sum(n for _, n, _ in greedy)
+    eng = LegacyServingEngine(cfg, params, page_size=PAGE_SIZE,
+                              num_pages=1280, max_batch=MAX_BATCH,
+                              device=dev)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, max_new_tokens=n) for p, n, _ in greedy]
+        done = {r.req_id: r for r in eng.run()}
+        torch.cuda.synchronize()
+        return [done[i].out_tokens if i in done else None for i in ids], \
+            time.perf_counter() - t0
+
+    (outs, wall), counts = counted(
+        torch, "the legacy run", run,
+        required=("flash_attention", "decode_attention"))
+    m = eng.metrics
+    want = {"flash_attention": cfg.n_layers * m["prefills"],
+            "decode_attention": cfg.n_layers * m["steps"]}
+    if any(counts.get(k, 0) != want.get(k, 0)
+           for k in set(counts) | set(want)):
+        raise AssertionError(f"the legacy run launched {counts}, not {want}")
+    for (_, n, _), toks in zip(greedy, outs):
+        if toks is None or len(toks) != n or \
+                not all(0 <= tok < cfg.vocab_size for tok in toks):
+            raise AssertionError("the legacy run did not finish every "
+                                 "request in range")
+    (u_outs, u_wall, u_m), u_counts = counted(
+        torch, "the unified run on the legacy requests",
+        lambda: run_engine(torch, cfg, params, greedy, dev))
+    tps, u_tps = new_tokens / wall, new_tokens / u_wall
+    agree = sum(a == b for x, y in zip(outs, u_outs) for a, b in zip(x, y))
+    emit({"phase": "legacy_serving", "model": cfg.name,
+          "layers": cfg.n_layers, "requests": len(greedy),
+          "new_tokens": new_tokens, "wall_s": wall, "tokens_per_s": tps,
+          "prefills": m["prefills"], "steps": m["steps"], "launches": counts,
+          "unified_wall_s": u_wall, "unified_tokens_per_s": u_tps,
+          "unified_steps": u_m["steps"], "unified_launches": u_counts,
+          "unified_over_legacy": u_tps / tps, "reference_gate": 1.5,
+          "tokens_equal_to_unified": agree / new_tokens})
+    return u_outs
+
+
+def phase_draft_spec(torch, dev, models, bf16_greedy, fp32_greedy) -> None:
+    """``ServingEngine(spec_k=2, proposer=DraftModelProposer(...))`` on
+    the serving run's greedy requests; the draft is gemma-2b cut to 2
+    layers, from its own seed, window 64.  Every draft token is one
+    ``lm.forward`` of the draft, 2 flash launches; the run launches
+    exactly that many.  At fp32 weights the output must equal spec_k=0's
+    (the ``fp32_greedy`` serving run) token for token; at bf16 the
+    agreement with the bf16 spec_k=0 run is printed (bf16 GEMM rounding
+    depends on the batch shape, which speculation changes)."""
+    from repro_torch.models import lm as LM
+    from repro_torch.serving.spec import DraftModelProposer
+
+    class CountingDraft(DraftModelProposer):
+        forwards = 0
+
+        def propose(self, history, k):
+            out = super().propose(history, k)
+            self.forwards += len(out)
+            return out
+
+    cfg32, params32, cfg, params = models
+    greedy = [r for r in serving_requests(torch, cfg) if r[2].greedy]
+    dcfg32 = dataclasses.replace(cfg32, n_layers=2)
+    dparams32 = LM.init_params(dcfg32, seed=7, device=dev)
+    dcfg = dataclasses.replace(dcfg32, param_dtype=torch.bfloat16)
+    for label, c, p, dc, dp, want in (
+            ("bf16", cfg, params, dcfg,
+             LM.cast_params(dparams32, torch.bfloat16), bf16_greedy),
+            ("fp32", cfg32, params32, dcfg32, dparams32, fp32_greedy)):
+        draft = CountingDraft(dc, dp, window=64)
+        (outs, wall, m), counts = counted(
+            torch, f"the draft_spec run {label}",
+            lambda: run_engine(torch, c, p, greedy, dev, spec_k=SPEC_K,
+                               proposer=draft),
+            required=SERVING_KERNELS + ("flash_attention",))
+        flash = dcfg.n_layers * draft.forwards
+        if counts["flash_attention"] != flash or any(
+                counts.get(k, 0) for k in ("decode_attention",
+                                           "mixed_attention")):
+            raise AssertionError(f"draft_spec {label} launched {counts}, "
+                                 f"not {flash} flash")
+        n = sum(len(t) for t in outs)
+        agree = sum(a == b for x, y in zip(outs, want) for a, b in zip(x, y))
+        # greedy tokens that repeat the token before them
+        repeats = sum(tok == (req[0] + out)[len(req[0]) + j - 1]
+                      for req, out in zip(greedy, outs)
+                      for j, tok in enumerate(out))
+        emit({"phase": "draft_spec", "run": label, "model": c.name,
+              "layers": c.n_layers, "draft_layers": dc.n_layers,
+              "window": 64, "spec_k": SPEC_K, "requests": len(greedy),
+              "wall_s": wall, "tokens_per_s": n / wall, "steps": m["steps"],
+              "proposed_tokens": m["proposed_tokens"],
+              "accepted_tokens": m["accepted_tokens"],
+              "spec_acceptance_rate": m["spec_acceptance_rate"],
+              "draft_forwards": draft.forwards,
+              "tokens_repeating_previous": repeats / n,
+              "equal_to_spec0": outs == want,
+              "tokens_equal_to_spec0": agree / n, "launches": counts})
+        if label == "fp32" and outs != want:
+            raise AssertionError("draft_spec: spec_k=2 greedy output "
+                                 "differs from spec_k=0 at fp32")
+
+
+def percentile(xs, q: float) -> float:
+    """Nearest-rank percentile of a non-empty list."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+def phase_frontend_serving(torch, dev, cfg, params):
+    """``AsyncFrontend`` over a bf16 gemma-2b engine, fed the serving
+    run's 16 requests as streams that arrive with seeded exponential gaps
+    (mean 20 ms); stream 3 is cancelled by the server after 8 tokens.  The
+    consumers timestamp the events (the frontend reads no clock).  Fails
+    unless every stream ends with exactly one terminal event (the
+    cancelled one ``cancelled``, the others ``finished`` with all their
+    tokens), no token is dropped, the cancelled request's pages are free
+    in the same tick, and ``pool.num_free`` is back at its start after
+    ``close()``.  Returns the frontend, for the HTTP phase."""
+    import asyncio
+    import random
+    from repro_torch.serving.frontend import AsyncFrontend
+
+    requests = serving_requests(torch, cfg)
+    eng = serving_engine(cfg, params, dev)
+    fe = AsyncFrontend(eng, hwm_frac=1.0, low_priority_hwm_frac=1.0)
+    pool = eng.kv.pool
+    free0 = pool.num_free
+    rng = random.Random(20)
+    arrivals, t_arr = [], 0.0
+    for _ in requests:
+        arrivals.append(t_arr)
+        t_arr += rng.expovariate(1.0 / ARRIVAL_MEAN_S)
+    streams = {}
+
+    async def client(i, delay):
+        await asyncio.sleep(delay)
+        prompt, n, sp = requests[i]
+        rec = streams[i] = {"open": time.perf_counter(), "tokens": [],
+                            "terminal": []}
+        async for ev in fe.stream(prompt, n, sampling=sp):
+            now = time.perf_counter()
+            if ev.terminal:
+                rec["terminal"].append(ev.kind)
+                continue
+            rec["tokens"].append(now)
+            if i == CANCEL_STREAM and len(rec["tokens"]) == CANCEL_AFTER:
+                pages = list(eng.kv.tables[ev.req_id])
+                eng.cancel(ev.req_id)          # no await: the same tick
+                rec["freed_same_tick"] = (
+                    ev.req_id not in eng.kv.tables
+                    and all(p not in pool.refs for p in pages))
+
+    async def main():
+        runner = asyncio.ensure_future(fe.run())
+        t0 = time.perf_counter()
+        await asyncio.gather(*(client(i, d) for i, d in enumerate(arrivals)))
+        wall = time.perf_counter() - t0
+        fe.close()
+        await runner
+        return wall
+
+    wall, counts = counted(torch, "the frontend run",
+                           lambda: asyncio.run(main()))
+    ttft = [r["tokens"][0] - r["open"] for r in streams.values()]
+    itl = [b - a for r in streams.values()
+           for a, b in zip(r["tokens"], r["tokens"][1:])]
+    ok_terminals = all(
+        r["terminal"] == (["cancelled"] if i == CANCEL_STREAM
+                          else ["finished"])
+        for i, r in streams.items())
+    full = all(len(streams[i]["tokens"]) == requests[i][1]
+               for i in streams if i != CANCEL_STREAM)
+    row = {"phase": "frontend_serving", "model": cfg.name,
+           "layers": cfg.n_layers, "streams": len(streams),
+           "arrival_mean_ms": ARRIVAL_MEAN_S * 1e3,
+           "arrival_span_ms": arrivals[-1] * 1e3, "wall_s": wall,
+           "tokens_streamed": fe.metrics["tokens_streamed"],
+           "tokens_per_s": fe.metrics["tokens_streamed"] / wall,
+           "ttft_p50_ms": percentile(ttft, 50) * 1e3,
+           "ttft_p99_ms": percentile(ttft, 99) * 1e3,
+           "itl_p50_ms": percentile(itl, 50) * 1e3,
+           "itl_p99_ms": percentile(itl, 99) * 1e3,
+           "one_terminal_each": ok_terminals, "full_streams": full,
+           "tokens_dropped": fe.metrics["tokens_dropped"],
+           "cancelled_freed_same_tick":
+               streams[CANCEL_STREAM].get("freed_same_tick", False),
+           "pages_leaked": free0 - pool.num_free,
+           "steps": eng.metrics["steps"], "launches": counts}
+    emit(row)
+    if not (ok_terminals and full and row["cancelled_freed_same_tick"]) \
+            or row["tokens_dropped"] or row["pages_leaked"]:
+        raise AssertionError(f"frontend_serving failed its checks: {row}")
+    return fe
+
+
+def phase_http_server(torch, fe) -> None:
+    """``HttpFrontendServer`` on 127.0.0.1, an ephemeral port, over the
+    frontend of ``frontend_serving``: 4 concurrent streams through
+    ``sse_client`` (a real loopback socket), each must end ``finished``
+    with its tokens."""
+    import asyncio
+    from repro_torch.launch.server import HttpFrontendServer, sse_client
+
+    requests = serving_requests(torch, fe.engine.cfg)
+
+    async def one(server, i):
+        toks, terminal = [], []
+        async for ev, data in sse_client(
+                server.host, server.port,
+                {"prompt": requests[i][0][:256],
+                 "max_new_tokens": HTTP_NEW_TOKENS}):
+            if ev == "token":
+                toks.append(data["token"])
+            else:
+                terminal.append(ev)
+        return toks, terminal
+
+    async def main():
+        server = HttpFrontendServer(fe, "127.0.0.1", 0)
+        await server.start()
+        try:
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(one(server, i)
+                                         for i in range(HTTP_STREAMS)))
+            return server.port, res, time.perf_counter() - t0
+        finally:
+            await server.stop()
+
+    (port, res, wall), counts = counted(torch, "the http_server run",
+                                        lambda: asyncio.run(main()))
+    ok = [t == ["finished"] and len(toks) == HTTP_NEW_TOKENS
+          for toks, t in res]
+    emit({"phase": "http_server", "host": "127.0.0.1", "port": port,
+          "streams": HTTP_STREAMS, "wall_s": wall,
+          "tokens": [len(toks) for toks, _ in res],
+          "terminals": [t for _, t in res], "finished": ok,
+          "launches": counts})
+    if not all(ok):
+        raise AssertionError(f"http_server: streams did not finish: {res}")
 
 
 # ----------------------------------------------------------------------
@@ -1793,6 +2350,7 @@ def run_phases(torch, dev) -> list:
             "decode_attention": phase_decode(torch, dev),
             "rwkv6_scan": phase_rwkv6(torch, dev),
             "mamba_scan": phase_mamba(torch, dev),
+            "mixed_attention": phase_mixed_attention(torch, dev),
             "fused_elementwise": phase_fused_elementwise(torch, dev)}
     phase_small_e2e(torch)
 
@@ -1805,9 +2363,19 @@ def run_phases(torch, dev) -> list:
     # each model is freed before the next is made: jamba's 48 GB do not
     # fit beside gemma's 15 and rwkv's 9.6
     gemma = gemma_models(torch, dev)
-    counts, profile_serving_run = phase_serving(torch, dev, gemma)
+    counts, profile_serving_run, serving_runs = phase_serving(
+        torch, dev, gemma)
     cfg32, params32, cfg, params = gemma
-    del gemma
+    # the gathered-cache path and the front door, on the same bf16 model
+    counts["mixed_attention"] = phase_paged_vs_gathered(
+        torch, dev, cfg, params)["mixed_attention"]
+    unified_greedy = phase_legacy_serving(torch, dev, cfg, params)
+    phase_draft_spec(torch, dev, gemma, unified_greedy,
+                     serving_runs["fp32_greedy"])
+    frontend = phase_frontend_serving(torch, dev, cfg, params)
+    phase_http_server(torch, frontend)
+    del gemma, frontend
+    free(torch)
     dense, profile_dense_prefill = phase_prefill(
         torch, dev, cfg, params, "dense_prefill", 21)
     counts["flash_attention"] = dense["flash_attention"]
@@ -1887,7 +2455,10 @@ def run_phases(torch, dev) -> list:
              "src/repro/kernels/mamba.py:55"),
             ("fused_elementwise", "triton",
              "src/repro_torch/kernels/fused_elementwise.py",
-             "src/repro/kernels/ops.py:277")):
+             "src/repro/kernels/ops.py:277"),
+            ("mixed_attention", "cuda",
+             "src/repro_torch/kernels/csrc/mixed_attention.cu",
+             "src/repro/kernels/decode_attention.py:186")):
         r = rows[name]
         table.append({"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": counts[name],

@@ -44,6 +44,7 @@ LIBRARIES: Dict[str, Tuple[str, ...]] = {
     "repro_paged_attention": ("paged_attention.cu",),
     "repro_flash_attention": ("flash_attention.cu",),
     "repro_decode_attention": ("decode_attention.cu",),
+    "repro_mixed_attention": ("mixed_attention.cu",),
     "repro_rwkv6": ("rwkv6.cu",),
     "repro_mamba": ("mamba.cu",),
 }

@@ -8,19 +8,25 @@ Counterpart of ``repro/kernels/decode_attention.py``:
     in ``csrc/paged_attention.cu``;
   * :func:`decode_attention_fwd` (the Pallas ``_decode_kernel``): one
     query per row against a contiguous ``(B, Hkv, Smax, D)`` cache, CUDA
-    C++ in ``csrc/decode_attention.cu``.
+    C++ in ``csrc/decode_attention.cu``;
+  * :func:`mixed_attention_fwd` (the Pallas ``_mixed_kernel``): a flat
+    mixed prefill/decode batch against per-slot contiguous caches
+    ``(S, Hkv, L, D)`` chosen by segment ids (the gathered-cache path:
+    ``PagedKVCache.gather`` then attention), CUDA C++ in
+    ``csrc/mixed_attention.cu``.
 
-Both kernels are hand-written for ``sm_90a``; each source note says what
+The kernels are hand-written for ``sm_90a``; each source note says what
 bounds it on the H100 (bytes) and which TPU-isms were dropped (lane
 padding, the ``d % 128`` rule, the ``(g, 128)`` VMEM scratch, the
-sequential KV grid, ``pages_per_tile``, buffer donation).
+sequential KV grid, scalar prefetch, ``pages_per_tile``, buffer
+donation).
 
 Each wrapper launches its kernel for CUDA tensors and raises when it
 cannot; it takes the plain version only for tensors on the CPU.  There is
-no ``try`` that falls back.
-
-``mixed_attention_fwd`` (per-slot contiguous caches routed by segment
-ids) is not ported: no path of the port reaches it (ROADMAP.md B2).
+no ``try`` that falls back.  The paged plain version gathers the pool into
+per-slot caches and reduces to :func:`mixed_attention_plain`, as the
+reference's ``_paged_attention_ref`` reduces to ``mixed_attention``: the
+two plain versions are one oracle.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 
 counter = LaunchCounter("paged_attention")
 decode_counter = LaunchCounter("decode_attention")
+mixed_counter = LaunchCounter("mixed_attention")
 
 
 def _lib() -> ctypes.CDLL:
@@ -70,31 +77,19 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     fp32 or None; tables (S, P); seg_ids/positions (T,).  Returns
     (T, Hkv, G, D) in q's dtype.  Mirrors the reference oracle
     (``repro.models.attention.paged_attention`` with the ref backend):
-    dequantize to q's dtype, gather each token's slot row, fp32 logits
-    masked to finfo(float32).min, fp32 softmax, probabilities cast to
-    q's dtype before the PV product."""
-    t, hkv, g, d = q.shape
-    n, ps = k_pages.shape[0], k_pages.shape[1]
+    dequantize to q's dtype, gather every slot's pages into a contiguous
+    (S, Hkv, P*ps, D) cache, then :func:`mixed_attention_plain`."""
+    n, ps, hkv, d = k_pages.shape
     s, p = tables.shape
     if k_scale is not None:
         k_pages = (k_pages.float() * k_scale[..., None]).to(q.dtype)
         v_pages = (v_pages.float() * v_scale[..., None]).to(q.dtype)
-    slot = seg_ids.long().clamp(0, s - 1)
     gidx = (tables.long()[:, :, None] * ps
             + torch.arange(ps, device=q.device)).reshape(s, p * ps)
-    rows = gidx[slot]                                       # (T, L)
-    k = k_pages.reshape(n * ps, hkv, d)[rows]               # (T, L, Hkv, D)
-    v = v_pages.reshape(n * ps, hkv, d)[rows]
-    logits = torch.einsum("thgd,tlhd->thgl", q.float(), k.float()) * scale
-    k_pos = torch.arange(p * ps, device=q.device)[None, :]
-    pos = positions.long()[:, None]
-    valid = k_pos <= pos
-    if window is not None:
-        valid = valid & (k_pos > pos - window)
-    logits = torch.where(valid[:, None, None, :], logits,
-                         torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("thgl,tlhd->thgd", probs, v.to(q.dtype))
+    k_cache = k_pages.reshape(n * ps, hkv, d)[gidx].transpose(1, 2)
+    v_cache = v_pages.reshape(n * ps, hkv, d)[gidx].transpose(1, 2)
+    return mixed_attention_plain(q, k_cache, v_cache, seg_ids, positions,
+                                 scale=scale, window=window)
 
 
 def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
@@ -275,3 +270,123 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     decode_counter.bump()
     return out
 
+
+
+# ----------------------------------------------------------------------
+# mixed attention over per-slot contiguous caches (the gathered path)
+# ----------------------------------------------------------------------
+
+# (q dtype, cache dtype) pairs the kernel instantiates: what the gathered
+# path produces (an fp32 or bf16 pool in its own dtype, and bf16 queries
+# over the fp32 caches that ``gather`` dequantizes an int8/fp8 pool to)
+MIXED_PAIRS = ((torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32))
+
+
+def _mixed_lib() -> ctypes.CDLL:
+    lib = load_library("repro_mixed_attention")
+    fn = lib.repro_mixed_attention
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def mixed_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, seg_ids: torch.Tensor,
+                          positions: torch.Tensor, *, scale: float,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The reference's jnp path (``repro/models/attention.py:185-200``) in
+    the kernel's layouts: q (T, Hkv, G, D); caches (S, Hkv, L, D);
+    seg_ids/positions (T,).  Each token takes its slot's rows
+    (``clip(seg, 0, S-1)``), fp32 logits masked to finfo(float32).min
+    outside ``pos - window < k_pos <= pos``, fp32 softmax, probabilities
+    cast to q's dtype, then the PV product in the promoted dtype of q and
+    the caches.  Returns (T, Hkv, G, D) in q's dtype.  A token with no
+    visible key (``pos >= L`` under a window) averages V uniformly here
+    and gives zeros from the kernel, as the oracle and the Pallas kernel
+    differ."""
+    s, l = k_cache.shape[0], k_cache.shape[2]
+    slot = seg_ids.long().clamp(0, s - 1)
+    k = k_cache[slot]                                       # (T, Hkv, L, D)
+    v = v_cache[slot]
+    logits = torch.einsum("thgd,thld->thgl", q.float(), k.float()) * scale
+    k_pos = torch.arange(l, device=q.device)[None, :]
+    pos = positions.long()[:, None]
+    valid = k_pos <= pos
+    if window is not None:
+        valid = valid & (k_pos > pos - window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    ct = torch.promote_types(q.dtype, v.dtype)
+    return torch.einsum("thgl,thld->thgd", probs.to(ct),
+                        v.to(ct)).to(q.dtype)
+
+
+def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, seg_ids: torch.Tensor,
+                        positions: torch.Tensor, *, scale: float,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (T, Hkv, G, D) per-token query heads grouped by KV head;
+    k_cache/v_cache: (S, Hkv, L, D) per-slot contiguous caches, fp32 or
+    q's dtype (:data:`MIXED_PAIRS`); seg_ids/positions: (T,) int32, the
+    slot (< 0: padding, whose output the caller discards) and absolute
+    position of each token.  Token t attends its slot's keys at
+    ``pos - window < k_pos <= pos``.  Returns (T, Hkv, G, D) in q's
+    dtype.  Inference only.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    on the current stream, or raise."""
+    if q.device.type == "cpu":
+        return mixed_attention_plain(q, k_cache, v_cache, seg_ids,
+                                     positions, scale=scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"mixed_attention_fwd: unsupported device "
+                         f"{q.device}")
+    t, hkv, g, d = q.shape
+    if k_cache.ndim != 4 or k_cache.shape[1] != hkv or \
+            k_cache.shape[3] != d or v_cache.shape != k_cache.shape:
+        raise ValueError(f"mixed_attention_fwd: q {tuple(q.shape)} does "
+                         f"not match caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)}")
+    s, _, l, _ = k_cache.shape
+    if s == 0 or l == 0:
+        raise ValueError("mixed_attention_fwd: the caches hold no slot or "
+                         "no key")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"mixed_attention_fwd: head_dim {d} is not "
+                         f"instantiated (have {HEAD_DIMS})")
+    if (q.dtype, k_cache.dtype) not in MIXED_PAIRS or \
+            v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"mixed_attention_fwd: q/k/v dtypes {q.dtype}/"
+                        f"{k_cache.dtype}/{v_cache.dtype} unsupported (have "
+                        f"{MIXED_PAIRS})")
+    for x in (seg_ids, positions):
+        if x.dtype != torch.int32 or tuple(x.shape) != (t,):
+            raise TypeError("mixed_attention_fwd: seg_ids and positions "
+                            "must be (T,) int32")
+    check_operands("mixed_attention_fwd", q,
+                   (q, k_cache, v_cache, seg_ids, positions))
+    if k_cache.data_ptr() % 16:
+        raise ValueError("mixed_attention_fwd: k_cache must be 16-byte "
+                         "aligned (the kernel loads key rows in 16-byte "
+                         "vectors)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _mixed_lib().repro_mixed_attention
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(Q_CODES[q.dtype], Q_CODES[k_cache.dtype], d,
+             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             seg_ids.data_ptr(), positions.data_ptr(), out.data_ptr(), t,
+             hkv, g, s, l, float(scale), int(window) if window else 0,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"mixed_attention kernel launch failed "
+                           f"(code {err})")
+    mixed_counter.bump()
+    return out

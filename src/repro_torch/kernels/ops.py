@@ -1,7 +1,6 @@
 """Public wrappers around the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py`` for the serving, dense-cache,
-rwkv6 and jamba slices:
+Counterpart of ``repro/kernels/ops.py``:
 
   * :func:`flash_attention` flattens ``(B, Hq, S, D) -> (B*Hq, S, D)``
     as ``ops.py:50-90`` does and calls the CUDA flash kernel; it is a
@@ -11,6 +10,10 @@ rwkv6 and jamba slices:
   * :func:`decode_attention` does the GQA grouping
     ``(B, Hq, 1, D) -> (B, Hkv, G, D)`` of ``ops.py:97-116`` and calls
     the CUDA decode kernel;
+  * :func:`mixed_attention` does the GQA grouping
+    ``(T, Hq, D) -> (T, Hkv, G, D)`` of ``ops.py:123-147`` and calls the
+    CUDA mixed-attention kernel over per-slot contiguous caches, without
+    ``_pad_last`` (no cache is copied to a padded width);
   * :func:`paged_attention` does the GQA grouping
     ``(T, Hq, D) -> (T, Hkv, G, D)`` of ``ops.py:160-193`` and calls the
     CUDA paged-attention kernel.  There is no ``_pad_last`` lane padding:
@@ -62,7 +65,8 @@ from typing import Optional
 import torch
 
 from ._build import LaunchCounter
-from .decode_attention import decode_attention_fwd, paged_attention_fwd
+from .decode_attention import (decode_attention_fwd, mixed_attention_fwd,
+                               paged_attention_fwd)
 from .flash_attention import flash_attention_fwd, flash_attention_plain
 from .fused_elementwise import (FusedChain, fused_elementwise,  # noqa: F401
                                 fused_elementwise_plain,
@@ -146,6 +150,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                k_cache, v_cache, lens, scale=eff_scale,
                                window=window)
     return out.reshape(b, hq, 1, d)
+
+
+def mixed_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, seg_ids, positions,
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (T, Hq, D) flat token batch against per-slot contiguous caches
+    (S, Hkv, L, D); seg_ids/positions (T,) (tensors or sequences, taken
+    as int32 on q's device).  Token t attends slot seg_ids[t]'s keys at
+    positions <= positions[t] (and > positions[t] - window).  Returns
+    (T, Hq, D) in q's dtype.  Inference only (no backward, as in the
+    reference)."""
+    t, hq, d = q.shape
+    hkv = k_cache.shape[1]
+    eff_scale = scale if scale is not None else d ** -0.5
+    seg = torch.as_tensor(seg_ids, dtype=torch.int32, device=q.device)
+    pos = torch.as_tensor(positions, dtype=torch.int32, device=q.device)
+    out = mixed_attention_fwd(q.reshape(t, hkv, hq // hkv, d).contiguous(),
+                              k_cache, v_cache, seg.contiguous(),
+                              pos.contiguous(), scale=eff_scale,
+                              window=window)
+    return out.reshape(t, hq, d)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

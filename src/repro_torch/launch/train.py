@@ -4,9 +4,9 @@
 The reference wraps each step in ``jax.jit`` with parameter and cache
 shardings over a device mesh and donates the cache.  The port runs
 eagerly on one device: meshes and shardings are dropped (sharding is
-ROADMAP.md queue A, item 9), and donation becomes the in-place cache
+ROADMAP.md queue A7), and donation becomes the in-place cache
 update of ``lm.decode_step``.  ``make_train_step`` and ``train_loop``
-come with the training slice (ROADMAP.md queue A, item 10).
+come with the training slice (ROADMAP.md queue A5).
 """
 
 from __future__ import annotations

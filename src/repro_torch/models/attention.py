@@ -2,8 +2,11 @@
 
 Counterpart of ``repro/models/attention.py`` for the serving and
 dense-cache paths: :func:`sdpa` (prefill / ``lm.forward``), its oracle
-:func:`sdpa_ref`, :func:`decode_attention` (``lm.decode_step``) and
-:func:`paged_attention` (the serving executor).
+:func:`sdpa_ref`, :func:`decode_attention` (``lm.decode_step``),
+:func:`paged_attention` (the serving executor) and
+:func:`mixed_attention` (a flat token batch against per-slot contiguous
+caches: the gathered-cache path, ``serving.kv_cache.PagedKVCache.gather``
+then attention).
 
 ``backend`` (the config's ``attn_backend``: ``"auto"``, ``"pallas"`` or
 ``"ref"``) is validated and then selects nothing, as in the paged path:
@@ -11,21 +14,24 @@ every call goes through the kernel wrapper of ``kernels.ops``, which
 launches the CUDA kernel for CUDA tensors and takes its plain version
 only for CPU tensors.  So no config puts plain attention on the card.
 The oracles stay callable by name: :func:`sdpa_ref` here and
-``kernels.decode_attention.decode_attention_plain``.  Unlike the
+``kernels.decode_attention.decode_attention_plain`` /
+``mixed_attention_plain`` / ``paged_attention_plain``.  Unlike the
 reference there is no ``try``/``except`` around a kernel: a kernel that
 cannot run raises.  Two TPU-isms of the reference are re-derived:
 
   * ``_PALLAS_MIN_SEQ = 128`` sent short sequences to the jnp path, a TPU
     tiling trade-off.  Here :func:`sdpa` calls the kernel for every Sq,
     so no plain path runs on the card;
-  * the ``d % 128`` rule of the paged path: the CUDA kernels take every
-    instantiated head_dim and raise on any other.
+  * the ``d % 128`` rule of the paged path, under which the reference
+    falls back from the paged kernel to a gather and ``mixed_attention``
+    for lane-unaligned head_dims: the CUDA paged kernel takes every
+    instantiated head_dim and raises on any other, so
+    :func:`paged_attention` never gathers, and the mixed kernel is
+    reached through :func:`mixed_attention` itself.
 
 The reference's ``_build_mask`` is ``kernels.flash_attention.
 visible_mask``.  Its ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
-sequence sharding across a mesh and is not ported (ROADMAP.md queue A,
-item 9); neither is ``mixed_attention``, which no path of the port
-reaches (ROADMAP.md B2).
+sequence sharding across a mesh and is not ported (ROADMAP.md queue A7).
 """
 
 from __future__ import annotations
@@ -101,7 +107,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cpu":
         raise NotImplementedError(
             "sdpa with an explicit mask has no CUDA kernel yet (the "
-            "fused/masked attention paths are ROADMAP.md queue A, item 12)")
+            "fused/masked attention paths are ROADMAP.md queue A3)")
     return sdpa_ref(q, k, v, mask, is_causal, scale, window)
 
 
@@ -119,6 +125,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                  scale=scale, window=window)
 
 
+def mixed_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, seg_ids, positions,
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    backend: str = "auto") -> torch.Tensor:
+    """Attention for a flat token batch mixing prefill chunks and decode
+    tokens, against per-slot contiguous caches, through the mixed kernel
+    for every backend.
+
+    q: (T, Hq, D), one query per scheduled token; k_cache/v_cache:
+    (S, Hkv, L, D), per-slot contiguous K/V (gathered from pages, already
+    holding this step's keys); seg_ids: (T,) slot of each token (< 0 is
+    padding, whose output the caller discards); positions: (T,) absolute
+    position of each token.  Token t attends slot seg_ids[t]'s keys at
+    positions <= positions[t] (and > positions[t] - window), its own
+    included.  Returns (T, Hq, D) in q's dtype."""
+    _check_backend("mixed_attention", backend)
+    return kops.mixed_attention(q, k_cache, v_cache, seg_ids, positions,
+                                scale=scale, window=window)
+
+
 def select_paged_backend(requested: str, *, sharded: bool) -> str:
     """The reference pins its jnp path under a replica axis or a mesh; the
     port has no sharded serving yet, so that case raises.  Otherwise the
@@ -128,5 +155,5 @@ def select_paged_backend(requested: str, *, sharded: bool) -> str:
     if sharded:
         raise NotImplementedError(
             "sharded serving (replicas / meshes) is not ported yet; see "
-            "ROADMAP.md queue A, item 9")
+            "ROADMAP.md queue A7")
     return requested

@@ -141,15 +141,14 @@ def _check_supported(cfg: LMConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: block {spec} is not ported yet; the port "
                 f"covers attn/dense|moe|none, mamba/dense|moe and "
-                f"rwkv/none blocks (other mixers are ROADMAP.md queue A, "
-                f"item 11)")
+                f"rwkv/none blocks (other mixers are ROADMAP.md queue A6)")
     if cfg.qkv_bias or cfg.qk_norm or cfg.final_softcap or \
             cfg.moe_dense_residual or cfg.input_mode != "tokens" or \
             not cfg.lm_head:
         raise NotImplementedError(
             f"{cfg.name}: qkv bias, qk-norm, softcap, the MoE dense "
             f"residual, embeddings-in and encoder heads are not ported "
-            f"yet (ROADMAP.md queue A, item 11)")
+            f"yet (ROADMAP.md queue A6)")
 
 
 def _norm_init(cfg: LMConfig, device) -> torch.Tensor:

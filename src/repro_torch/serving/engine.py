@@ -11,8 +11,9 @@ paged-attention and Triton Gumbel kernels.  Fault tolerance (quarantine,
 the invariant watchdog, the fault injector) wraps the loop as in the
 reference.
 
-Not ported in this slice: meshes and data replicas (``mesh``,
-``n_replicas > 1`` raise), the legacy engine and the async front door.
+Not ported: meshes and data replicas (``mesh``, ``n_replicas > 1``
+raise).  The async front door (``frontend.AsyncFrontend``) and the
+legacy baseline (``legacy.LegacyServingEngine``) sit beside it.
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ class ServingEngine:
         if mesh is not None or n_replicas != 1:
             raise NotImplementedError(
                 "sharded serving (mesh / n_replicas > 1) is not ported "
-                "yet; see ROADMAP.md queue A, item 9")
+                "yet; see ROADMAP.md queue A7")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = LM.params_to(params, self.device)

@@ -21,9 +21,18 @@ What changes with torch:
     pre-compiled, so the rows are not padded to a power of two and
     ``upload_rows_total`` counts the rows actually sent.
 
-Not ported in this slice: the host write paths of the legacy engine and
-tests (``append``, ``write_batch``, ``write_prompt``), ``gather``, and
-``n_replicas > 1`` or a mesh (which raise).
+  * The host write paths (``append``, ``write_batch``, ``write_prompt``)
+    scatter in place into the single-owner tensors through
+    :meth:`flat_slots`, quantizing on the way for an int8/fp8 pool; the
+    reference rebinds a new array per layer.  ``append`` copies a shared
+    page first (COW); the prompt writes go through, as every sharer
+    pledges the same content.
+  * :meth:`gather` (the legacy engine's and the gathered-cache path's
+    read) returns contiguous (B, Hkv, L, D) K/V and (B,) int32 lengths
+    on the pool's device, dequantized to fp32 for a quantized pool, as
+    the reference does.
+
+Not ported: ``n_replicas > 1`` or a mesh (which raise).
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ class PagePool:
         if n_replicas != 1:
             raise MeshConfigError(
                 f"n_replicas={n_replicas}: data-parallel serving is not "
-                f"ported yet (ROADMAP.md queue A, item 9)")
+                f"ported yet (ROADMAP.md queue A7)")
         self.num_pages = num_pages
         self.n_replicas = 1
         self.pages_per_replica = num_pages
@@ -384,6 +393,114 @@ class PagedKVCache:
         return table[pos // self.page_size] * self.page_size \
             + pos % self.page_size
 
+    # -- host write paths (the legacy engine, tests) -----------------------
+    def _scatter(self, layer: int, idx: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+        """Write (n, Hkv, hd) K/V rows at flat slots ``idx`` of one
+        layer, in place; an int8/fp8 pool stores codes and, at the same
+        flat slots, their scales."""
+        npg, ps = self.pool.num_pages, self.page_size
+        k, v = k.to(self.device), v.to(self.device)
+        kf = self.k[layer].view(npg * ps, self.n_kv_heads, self.head_dim)
+        vf = self.v[layer].view(npg * ps, self.n_kv_heads, self.head_dim)
+        if self.quant_mode is None:
+            kf[idx] = k.to(kf.dtype)
+            vf[idx] = v.to(vf.dtype)
+            return
+        kq, k_sc = quant.quantize(k, self.quant_mode)
+        vq, v_sc = quant.quantize(v, self.quant_mode)
+        kf[idx] = kq
+        vf[idx] = vq
+        self.k_scale[layer].view(npg * ps, self.n_kv_heads)[idx] = k_sc
+        self.v_scale[layer].view(npg * ps, self.n_kv_heads)[idx] = v_sc
+
+    def append(self, seq_id: int,
+               layer_kv: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+               ) -> bool:
+        """Append ONE token's K/V for every layer: ``layer_kv[i]`` is a
+        ((Hkv, hd), (Hkv, hd)) pair.  Grows the table and copies a shared
+        page first.  False when out of pages."""
+        pos = self.lengths[seq_id]
+        page_pos, offset = divmod(pos, self.page_size)
+        table = self.tables[seq_id]
+        if page_pos >= len(table):
+            page = self._alloc_for(seq_id)
+            if page is None:
+                return False
+            table.append(page)
+            self._bump(seq_id)
+        page = self._writable_page(seq_id, page_pos)
+        if page is None:
+            return False
+        idx = torch.tensor([page * self.page_size + offset],
+                           dtype=torch.long, device=self.device)
+        for layer, (k_t, v_t) in enumerate(layer_kv):
+            self._scatter(layer, idx, k_t[None], v_t[None])
+        self.pool.filled[page] = max(self.pool.filled.get(page, 0),
+                                     offset + 1)
+        self.lengths[seq_id] = pos + 1
+        return True
+
+    def write_batch(self, seq_id: int,
+                    layer_kv: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                    start: int, end: int) -> bool:
+        """Write token span [start, end) with one in-place scatter per
+        layer: ``layer_kv[i]`` = ((end-start, Hkv, hd), same for v).
+        Allocates pages as needed.  False when out of pages."""
+        if end <= start:
+            return True
+        if not self.ensure_capacity(seq_id, end):
+            return False
+        if not self.make_writable(seq_id, start, end, divergent=False):
+            return False
+        idx = torch.from_numpy(self.flat_slots(seq_id, start, end)).to(
+            self.device)
+        for layer, (k_s, v_s) in enumerate(layer_kv):
+            self._scatter(layer, idx, k_s, v_s)
+        self.advance(seq_id, end)
+        return True
+
+    def write_prompt(self, seq_id: int,
+                     layer_kv: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                     n_tokens: int) -> bool:
+        """Batched prefill write of every prompt token PAST the
+        already-valid reused prefix: ``layer_kv[i]`` holds the full
+        prompt's (n_tokens, Hkv, hd) K/V; the valid prefix is skipped."""
+        skip = min(self.lengths[seq_id], n_tokens)
+        span = [(k[skip:], v[skip:]) for k, v in layer_kv]
+        return self.write_batch(seq_id, span, skip, n_tokens)
+
+    def gather(self, seq_ids: Sequence[int], layer: int,
+               pad_to: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Contiguous (B, Hkv, L, hd) K/V of a batch of sequences from
+        their page tables (L = ``pad_to`` or the longest length; rows
+        padded with page 0), and their (B,) int32 lengths, all on the
+        pool's device.  A quantized pool is dequantized to fp32.  The
+        executor attends the pages in place instead; this is the legacy
+        engine's and the gathered-cache path's read."""
+        max_len = max(self.lengths[s] for s in seq_ids)
+        pad_to = pad_to or max_len
+        max_pages = self.pages_needed(pad_to)
+        tables = np.zeros((len(seq_ids), max_pages), np.int64)
+        for i, s in enumerate(seq_ids):
+            t = self.tables[s][:max_pages]
+            tables[i, : len(t)] = t
+        idx = torch.from_numpy(tables).to(self.device)         # (B, P)
+        k = self.k[layer][idx]                          # (B, P, ps, Hkv, hd)
+        v = self.v[layer][idx]
+        if self.quant_mode is not None:
+            k = quant.dequantize(k, self.k_scale[layer][idx])
+            v = quant.dequantize(v, self.v_scale[layer][idx])
+        b = len(seq_ids)
+        shape = (b, max_pages * self.page_size, self.n_kv_heads,
+                 self.head_dim)
+        k = k.reshape(shape)[:, :pad_to].transpose(1, 2).contiguous()
+        v = v.reshape(shape)[:, :pad_to].transpose(1, 2).contiguous()
+        lens = torch.tensor([self.lengths[s] for s in seq_ids],
+                            dtype=torch.int32, device=self.device)
+        return k, v, lens
+
     # -- device mirror / single ownership ----------------------------------
     _EMPTY_ROW = (-1, -1)
 
@@ -408,7 +525,7 @@ class PagedKVCache:
             for i, sid in enumerate(seq_ids):
                 if sid < 0:
                     continue
-                t = self.tables[sid][:width]
+                t = self._device_row(sid, width)
                 out[i, : len(t)] = t
             self._mirror = torch.from_numpy(out).to(self.device)
             self._mirror_rows = list(targets)
@@ -424,7 +541,7 @@ class PagedKVCache:
                 for j, i in enumerate(dirty):
                     sid = seq_ids[i]
                     if sid >= 0:
-                        t = self.tables[sid][:width]
+                        t = self._device_row(sid, width)
                         rows[j, : len(t)] = t
                     self._mirror_rows[i] = targets[i]
                 idx = torch.as_tensor(dirty, dtype=torch.long)
@@ -434,6 +551,15 @@ class PagedKVCache:
         self.last_upload_rows = uploaded
         self.upload_rows_total += uploaded
         return self._mirror
+
+    def _device_row(self, sid: int, width: int) -> List[int]:
+        """A sequence's block-table row as the device sees it: a page id
+        outside the pool (a corrupted host table, which the watchdog
+        catches after the step) goes up as page 0, so no kernel reads
+        outside the page tensors.  The reference's gathers clamp or
+        fill such ids instead."""
+        n = self.pool.num_pages
+        return [p if 0 <= p < n else 0 for p in self.tables[sid][:width]]
 
     def take_kv(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Hand the page tensors to the executor, which updates them in

@@ -27,7 +27,7 @@ import torch
 from ..kernels import ops as kops
 
 __all__ = ["SamplingParams", "filter_logits", "sample_tokens",
-           "position_uniforms"]
+           "position_uniforms", "sample_ref"]
 
 _NEG_INF = torch.finfo(torch.float32).min
 _MIN_TEMP = 1e-6
@@ -150,3 +150,22 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temperature > 0.0, stochastic,
                        greedy).to(torch.int32)
+
+
+def sample_ref(logits: torch.Tensor, params: SamplingParams, position: int,
+               seed: Optional[int] = None) -> int:
+    """Host-side single-row reference: the token :func:`sample_tokens`
+    draws for one ``(V,)`` logits row at ``position`` under ``params``
+    (``seed`` overrides ``params.seed``)."""
+    seed = params.seed if seed is None else seed
+    logits = torch.as_tensor(logits, dtype=torch.float32)
+    dev = logits.device
+
+    def row(x, dtype):
+        return torch.tensor([x], dtype=dtype, device=dev)
+
+    tok = sample_tokens(logits[None], row(params.temperature, torch.float32),
+                        row(params.top_k, torch.int64),
+                        row(params.top_p, torch.float32),
+                        row(seed, torch.int64), row(position, torch.int64))
+    return int(tok[0])

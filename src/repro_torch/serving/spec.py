@@ -1,7 +1,8 @@
 """Speculative-decoding proposers for the serving scheduler.
 
-Copied from ``repro/serving/spec.py``.  ``DraftModelProposer`` needs
-the LM ``forward`` (and the flash kernel) and comes with a later slice.
+Copied from ``repro/serving/spec.py``; :class:`DraftModelProposer` runs
+the port's ``lm.forward``, so on the card every draft forward goes
+through the flash kernel.
 
 Decode throughput is bounded by one ``unified_step`` per token per
 sequence.  A proposer breaks that bound: it guesses ``k`` draft tokens
@@ -29,6 +30,8 @@ Proposers are host Python (control plane) behind one interface:
     propose the continuation.  Free (no model), and strong on
     repeat-heavy text (code, retrieval-augmented prompts, the argmax
     cycles small models fall into);
+  * :class:`DraftModelProposer` — greedy drafts from a (smaller) LM over
+    the history tail;
   * :class:`FixedProposer` — deterministic drafts for tests (force
     all-reject / all-accept interleavings).
 """
@@ -37,7 +40,10 @@ from __future__ import annotations
 
 from typing import List, Protocol, Sequence, runtime_checkable
 
-__all__ = ["Proposer", "NgramProposer", "FixedProposer"]
+import torch
+
+__all__ = ["Proposer", "NgramProposer", "DraftModelProposer",
+           "FixedProposer"]
 
 
 @runtime_checkable
@@ -87,6 +93,39 @@ class NgramProposer:
                     if span:
                         return [span[m % len(span)] for m in range(k)]
         return []
+
+
+class DraftModelProposer:
+    """Greedy drafts from a (smaller) LM over the history tail.
+
+    The two-model scheme behind the same ``Proposer`` interface: runs
+    ``lm.forward`` over the last ``window`` tokens and extends greedily
+    ``k`` times, on the device of the draft's params.  Host-blocking (one
+    token id comes back per draft) — meant for small draft configs."""
+
+    def __init__(self, cfg, params, window: int = 64):
+        self.cfg = cfg
+        self.params = params
+        self.window = window
+
+    def propose(self, history: Sequence[int], k: int) -> List[int]:
+        """Autoregressive greedy continuation of ``history`` under the
+        draft model; returns ``k`` tokens (or [] for empty history)."""
+        from ..models.lm import forward
+        if k <= 0 or not history:
+            return []
+        dev = self.params["embed"].device
+        toks = list(history)
+        out: List[int] = []
+        with torch.no_grad():
+            for _ in range(k):
+                ctx = torch.tensor([toks[-self.window:]], dtype=torch.long,
+                                   device=dev)
+                logits, _ = forward(self.cfg, self.params, ctx)
+                nxt = int(torch.argmax(logits[0, -1]))
+                out.append(nxt)
+                toks.append(nxt)
+        return out
 
 
 class FixedProposer:

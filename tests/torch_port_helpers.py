@@ -6,6 +6,7 @@ parameters cross as numpy arrays.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,16 @@ def tiny_cfg() -> LMConfig:
                     n_kv_heads=2, d_ff=128, vocab_size=97,
                     param_dtype=jnp.float32, remat="none",
                     attn_backend="ref")
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_models(n_layers: int = 2, seed: int = 0):
+    """The reference's tiny serving config cut to ``n_layers`` layers,
+    its params from ``jax.random.key(seed)``, and the port's copies of
+    both: (cfg, params, port cfg, port params)."""
+    cfg = dataclasses.replace(tiny_cfg(), n_layers=n_layers)
+    params = JLM.init_params(cfg, jax.random.key(seed))
+    return cfg, params, port_cfg(cfg), port_params(cfg, params)
 
 
 def port_cfg(cfg: LMConfig) -> TLM.LMConfig:
