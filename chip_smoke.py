@@ -57,7 +57,9 @@ Output, one line each:
     pool dtype) pair the serving runs launch, plus fp8 (max abs error
     against the plain version beside the reference's RMS, kernel / plain
     / library ms by CUDA events, the bound); the Gumbel kernel; flash
-    attention (gemma-2b prefill, an offset+window row, an fp32 row);
+    attention (gemma-2b prefill, an offset+window row, an fp32 row; each
+    with its kernel's variant, registers, spill bytes, shared memory and
+    blocks per SM);
     decode attention (gemma-2b decode at ragged lengths, fp32, window);
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
     state); flash and decode attention at jamba's shapes; mixed attention
@@ -476,7 +478,10 @@ def check_row(torch, name: str, out, ref, tol: tuple) -> dict:
 
 def phase_flash(torch, dev) -> dict:
     """The flash kernel against its plain version; the first row is the
-    dense_prefill shape and is the one reported in the kernel table."""
+    dense_prefill shape and is the one reported in the kernel table.
+    Each row carries the resources of the kernel it ran (variant "mma"
+    for bf16 on the tensor cores, "simt" for fp32; registers, spill
+    bytes, shared memory, blocks per SM)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
@@ -498,6 +503,7 @@ def phase_flash(torch, dev) -> dict:
                "Skv": skv, "D": d, "window": window}
         row.update(check_row(torch, f"flash_attention[{label}]", out, ref,
                              kernel_tol(dt, skv)))
+        row.update(FA.kernel_attributes(dtype, d))
         row["ms"] = time_ms(torch, lambda: FA.flash_attention_fwd(q, k, v,
                                                                   **kw))
         row["plain_ms"] = time_ms(

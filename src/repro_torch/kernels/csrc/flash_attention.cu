@@ -1,41 +1,92 @@
 // Flash attention forward, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel `_flash_kernel` / `flash_attention_fwd` of
-// repro/kernels/flash_attention.py and computes the same function: q
-// (B*Hq, Sq, D) against k/v (B*Hkv, Skv, D), query head bh reading kv head
-// bh / (Hq/Hkv); the queries are the LAST Sq positions (q_offset =
-// Skv - Sq); key j is visible to query i when j < Skv, j <= i + q_offset
-// (causal) and j > i + q_offset - window (window).  Scores and the online
-// softmax are fp32 (masked scores -1e30, l clamped at 1e-30); the
-// probabilities are rounded to v's type before the PV product, as the
-// Pallas kernel does.  Output in q's type.
-//
-// Design (first, simple version):
-//   * one block of 256 threads per (64-query tile, query head); the block
-//     walks the 64-key tiles of its live key range in a loop, which takes
-//     the place of the TPU's sequential KV grid dimension.  Tiles above the
-//     causal diagonal and below the window are never visited (the Pallas
-//     kernel skips them with `pl.when`);
-//   * Q, K and V tiles are staged in shared memory as fp32 (K rows padded
-//     by one word against bank conflicts): about 210 KB at head_dim 256,
-//     dynamic shared memory set with cudaFuncSetAttribute;
-//   * each thread owns a 4x4 block of the 64x64 score tile and a 4 x D/16
-//     block of the output accumulator, both in registers; the softmax
-//     statistics of a row are one warp's work.  CUDA-core FMAs, no tensor
-//     cores yet.
+// repro/kernels/flash_attention.py (pallas_call at :123) and computes the
+// same function: q (B*Hq, Sq, D) against k/v (B*Hkv, Skv, D), query head
+// bh reading kv head bh / (Hq/Hkv); the queries are the LAST Sq positions
+// (q_offset = Skv - Sq); key j is visible to query i when j < Skv,
+// j <= i + q_offset (causal) and j > i + q_offset - window (window).
+// Scores and the online softmax are fp32 (masked scores -1e30 give p = 0
+// exactly, l clamped at 1e-30); the unnormalised probabilities are
+// rounded to v's type before the PV product, as the Pallas kernel does
+// (a no-op for fp32).
+// Output in q's type.  Tiles wholly above the causal diagonal or below
+// the window are never visited (the Pallas kernel's `pl.when`).
 //
 // What bounds it on the H100: operations.  For gemma-2b prefill (D = 256,
 // G = 8 query heads per KV head, causal) it does 4*D flops per live
 // (query, key) pair against 2*D*2 bytes per key read once: far above the
-// ~295 flops/byte where the bf16 tensor cores become the limit.  This
-// version runs on the CUDA cores (67 TFLOP/s fp32 peak), so it cannot
-// reach the 989 TFLOP/s bound; wgmma tiles fed by TMA are the next step.
+// ~295 flops/byte where the bf16 tensor cores (989 TFLOP/s) become the
+// limit.
+//
+// bf16: tensor cores (`flash_attention_mma`).
+//   * One block of 4 warps (128 threads) per (query tile, query head).
+//     At D = 256 a warp owns 16 query rows (64-query tiles); at D <= 128
+//     it owns two 16-row m-tiles (128-query tiles), so that every K and
+//     V fragment read from shared memory feeds two mma's, as
+//     FlashAttention-2 does at those head dims.  blockIdx.x is the query
+//     head and blockIdx.y counts query tiles from the last one down, so
+//     the blocks issued first (x varies fastest) are every head's last
+//     tile, the causal tiles with the most keys, and the tail of the
+//     last wave is made of short tiles.  The heads of one KV head are
+//     neighbours in that order and share its K/V through L2.
+//   * mma.sync.m16n8k16 bf16 x bf16 -> fp32.  S = Q K^T: Q fragments by
+//     ldmatrix.x4 from shared memory (held in registers for D <= 64,
+//     re-read every k-step for D = 128 and 256, as FlashAttention-2 does
+//     at large head dims); K fragments by ldmatrix (non-transposed) from
+//     K rows stored (key, d).  O += P V: the S accumulators of two
+//     neighbouring n-tiles are the m16n8k16 A fragment, so P goes from
+//     registers to the tensor cores as packed bf16 pairs and never
+//     touches shared memory; V fragments by ldmatrix.trans from V rows
+//     stored (key, d).
+//   * The online softmax in registers: a thread holds two rows of each
+//     m-tile; a row's max is reduced over its quad (__shfl_xor 1, 2), m
+//     stays in registers, l is summed per thread and reduced over the
+//     quad once, at the end.  scale * log2(e) is folded into the scores
+//     and exp2f takes the place of exp.
+//   * A 2-stage ring of (K, V) tiles in shared memory, filled by
+//     cp.async.cg 16-byte copies; tile j+1's copy is issued before tile
+//     j's products.  A stage holds 32 keys at D >= 128 and 64 below.
+//     Rows past Skv (or Sq, for Q) are zero-filled through cp.async's
+//     src-size operand and never read.  Rows are padded by 16 bytes
+//     (stride D + 8 bf16), which makes every ldmatrix phase (8 rows of
+//     16 bytes) and the epilogue's bf16-pair stores free of bank
+//     conflicts; no swizzle.  Shared memory: the Q tile plus 2 x (K + V),
+//     101,376 bytes at D = 256 and 69,632 at D = 128: two blocks an SM.
+//   * The mask arithmetic runs only on the tiles that need it (the causal
+//     diagonal, the window's lower edge, the ragged last tile): a
+//     template flag chosen per tile, outside the inner loops.
+//   * Epilogue: normalise, round to bf16, stage each warp's rows in its
+//     own rows of the Q buffer, write them with 16-byte stores.
+//   * Registers: the O accumulator is MT * D/2 fp32 a thread (128 at
+//     D = 256 and at D = 128) beside MT * BK/2 for S (16 and 32).  With
+//     64-key tiles, D = 256 spilled (255 registers, 48 bytes a thread)
+//     and held one block an SM; 32-key tiles halve S and the ring, and
+//     no instantiation spills (240 registers at D = 256, 252 at 128).
+//     `repro_flash_attention_attrs` reports registers, spill bytes,
+//     shared memory and blocks per SM of each instantiation.
+//   * Not here yet: wgmma, TMA, warp specialisation, persistent blocks,
+//     folding the G query heads of one KV head into one tile.
+//
+// fp32: CUDA cores (`flash_attention_kernel`).  fp32 is the parity path,
+// held to 1e-5 (2e-3 at Skv >= 1024) against the plain version; the
+// tensor cores would take it in TF32 (about three decimal digits), so it
+// keeps the first design:
+//   * one block of 256 threads per (64-query tile, query head); the block
+//     walks the 64-key tiles of its live key range in a loop, which takes
+//     the place of the TPU's sequential KV grid dimension;
+//   * Q, K and V tiles are staged in shared memory as fp32 (K rows padded
+//     by one word against bank conflicts): about 210 KB at head_dim 256;
+//   * each thread owns a 4x4 block of the 64x64 score tile and a 4 x D/16
+//     block of the output accumulator, both in registers; the softmax
+//     statistics of a row are one warp's work.  CUDA-core FMAs
+//     (67 TFLOP/s fp32 peak).
 //
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * lane padding of head_dim to 128 (`_pad_last`, repro/kernels/ops.py):
 //     head_dim is a template parameter (16-256), nothing is padded;
-//   * the (block_q, 128) VMEM scratch for m and l: the stats are 64 floats
-//     each in shared memory;
+//   * the (block_q, 128) VMEM scratch for m and l: registers (bf16) or 64
+//     floats each in shared memory (fp32);
 //   * the sequential grid that carries the softmax state across KV tiles:
 //     a loop inside the block;
 //   * block_q = block_k = 128, sized for the MXU and VMEM: 64 x 64 here,
@@ -46,9 +97,6 @@
 namespace {
 
 using repro_attn::kNegInf;
-using repro_attn::round_to;
-using repro_attn::store;
-using repro_attn::to_f;
 using repro_attn::warp_max;
 using repro_attn::warp_sum;
 
@@ -62,12 +110,12 @@ constexpr size_t smem_floats() {
          kBQ * (kBK + 1) + 3 * kBQ;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q,   // (BHq, Sq, D)
-                       const T* __restrict__ k,   // (BHkv, Skv, D)
-                       const T* __restrict__ v,
-                       T* __restrict__ out,       // (BHq, Sq, D)
+flash_attention_kernel(const float* __restrict__ q,   // (BHq, Sq, D)
+                       const float* __restrict__ k,   // (BHkv, Skv, D)
+                       const float* __restrict__ v,
+                       float* __restrict__ out,       // (BHq, Sq, D)
                        int sq, int skv, int group, float scale, int causal,
                        int window) {
   constexpr int QS = D + 4;   // q row stride: two row groups per warp
@@ -93,15 +141,15 @@ flash_attention_kernel(const T* __restrict__ q,   // (BHq, Sq, D)
   const int lane = tid & 31;
   const int q_offset = skv - sq;
 
-  const T* qp = q + static_cast<size_t>(bh) * sq * D;
-  const T* kp = k + static_cast<size_t>(kvh) * skv * D;
-  const T* vp = v + static_cast<size_t>(kvh) * skv * D;
+  const float* qp = q + static_cast<size_t>(bh) * sq * D;
+  const float* kp = k + static_cast<size_t>(kvh) * skv * D;
+  const float* vp = v + static_cast<size_t>(kvh) * skv * D;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D;
     const int d = e - r * D;
     const int qi = q0 + r;
-    qs[r * QS + d] = qi < sq ? to_f(qp[static_cast<size_t>(qi) * D + d]) : 0.f;
+    qs[r * QS + d] = qi < sq ? qp[static_cast<size_t>(qi) * D + d] : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
@@ -130,8 +178,8 @@ flash_attention_kernel(const T* __restrict__ q,   // (BHq, Sq, D)
       const int kj = k0 + j;
       float kf = 0.f, vf = 0.f;
       if (kj < skv) {
-        kf = to_f(kp[static_cast<size_t>(kj) * D + d]);
-        vf = to_f(vp[static_cast<size_t>(kj) * D + d]);
+        kf = kp[static_cast<size_t>(kj) * D + d];
+        vf = vp[static_cast<size_t>(kj) * D + d];
       }
       ks[j * KS + d] = kf;
       vs[j * D + d] = vf;
@@ -182,8 +230,8 @@ flash_attention_kernel(const T* __restrict__ q,   // (BHq, Sq, D)
       const float p0 = s0 == kNegInf ? 0.f : expf(s0 - m_new);
       const float p1 = s1 == kNegInf ? 0.f : expf(s1 - m_new);
       const float sum = warp_sum(p0 + p1);
-      row[lane] = round_to(p0, T());
-      row[lane + 32] = round_to(p1, T());
+      row[lane] = p0;
+      row[lane + 32] = p1;
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         l_s[r] = alpha * l_s[r] + sum;
@@ -214,7 +262,7 @@ flash_attention_kernel(const T* __restrict__ q,   // (BHq, Sq, D)
     __syncthreads();
   }
 
-  T* op = out + static_cast<size_t>(bh) * sq * D;
+  float* op = out + static_cast<size_t>(bh) * sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -223,42 +271,504 @@ flash_attention_kernel(const T* __restrict__ q,   // (BHq, Sq, D)
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      store(op + static_cast<size_t>(qi) * D + tx + 16 * c, acc[i][c] / l);
+      op[static_cast<size_t>(qi) * D + tx + 16 * c] = acc[i][c] / l;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int bhq,
-           int bhkv, int sq, int skv, float scale, int causal, int window,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kernel = flash_attention_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys of a ring stage
+template <int D>
+__host__ __device__ constexpr int mma_key_tile() {
+  return D >= 128 ? 32 : 64;
+}
+
+// 16-row m-tiles of a warp
+template <int D>
+__host__ __device__ constexpr int mma_row_tiles() {
+  return D <= 128 ? 2 : 1;
+}
+
+// query rows of a block
+template <int D>
+__host__ __device__ constexpr int mma_block_q() {
+  return 16 * kMmaWarps * mma_row_tiles<D>();
+}
+
+// bf16 elements of a shared-memory row: 16 bytes of padding
+template <int D>
+__host__ __device__ constexpr int mma_row_stride() {
+  return D + 8;
+}
+
+// Q tile + 2 stages of (K, V) tiles
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * mma_row_stride<D>() *
+         (mma_block_q<D>() + 4 * mma_key_tile<D>());
+}
+
+// Blocks an SM should hold (__launch_bounds__): what shared memory allows
+// (227 KB), and what the registers allow if a thread needs its fp32 O and
+// S accumulators and 96 more.
+template <int D>
+constexpr int mma_min_blocks() {
+  constexpr int by_smem = static_cast<int>(232448 / mma_smem_bytes<D>());
+  constexpr int acc = mma_row_tiles<D>() * (D + mma_key_tile<D>()) / 2;
+  constexpr int by_regs = 65536 / kMmaThreads / (acc + 96);
+  constexpr int n = by_smem < by_regs ? by_smem : by_regs;
+  return n > 1 ? n : 1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !full (src-size 0:
+// nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16, lo in the low half: the element of the lower
+// column, as the mma fragments order a pair
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ROWS rows of D bf16 from src (rows r0 .. r0+ROWS-1 of n_rows) into a
+// shared tile of stride D + 8, by cp.async; rows >= n_rows become zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int r0,
+                                          int n_rows, int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  static_assert(ROWS * kChunks % kMmaThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kMmaThreads; ++i) {
+    const int c = tid + i * kMmaThreads;
+    const int r = c / kChunks;
+    const int col = (c - r * kChunks) * 8;
+    const bool ok = r0 + r < n_rows;
+    const bf16* g = src + static_cast<size_t>(ok ? r0 + r : 0) * D + col;
+    cp_async16(smem_u32(dst + r * mma_row_stride<D>() + col), g, ok);
+  }
+}
+
+// Where a thread's rows and a key tile stand: what the mask needs.
+struct TilePos {
+  int q_pos0;  // position of the thread's first row (m-tile 0, row g)
+  int k0;      // first key of the tile
+  int skv;
+  int causal;
+  int window;
+};
+
+// One key tile of one warp: S = Q K^T, the online softmax, O += P V, for
+// the warp's MT m-tiles (K and V fragments are read once for all of
+// them).  MASK: apply the visibility rule (only tiles that need it).
+template <int D, bool MASK>
+__device__ __forceinline__ void mma_tile(
+    float (&o)[mma_row_tiles<D>()][D / 8][4],
+    float (&m)[mma_row_tiles<D>()][2], float (&l)[mma_row_tiles<D>()][2],
+    const uint32_t (&qf)[mma_row_tiles<D>()][D <= 64 ? D / 16 : 1][4],
+    uint32_t q_addr, uint32_t k_addr, uint32_t v_addr, float scale_log2,
+    const TilePos& tp, int t) {
+  constexpr int RS = mma_row_stride<D>();
+  constexpr int BK = mma_key_tile<D>();
+  constexpr int MT = mma_row_tiles<D>();
+  constexpr int NT = BK / 8;  // n-tiles of S
+  float s[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if constexpr (D <= 64) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[i][e] = qf[i][kk][e];
+      } else {
+        ldsm_x4(q_addr + (i * 16 * RS + kk * 16) * 2, a[i]);
+      }
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(k_addr + (np * 16 * RS + kk * 16) * 2, b);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(s[i][2 * np], a[i], b[0], b[1]);
+        mma_bf16(s[i][2 * np + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    // scores in log2 units; masked ones -1e30
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[i][j][e] * scale_log2;
+        if constexpr (MASK) {
+          const int k_pos = tp.k0 + 8 * j + 2 * t + (e & 1);
+          const int q_pos = tp.q_pos0 + 16 * i + (e >> 1) * 8;
+          bool ok = k_pos < tp.skv;
+          if (tp.causal) ok = ok && k_pos <= q_pos;
+          if (tp.window > 0) ok = ok && k_pos > q_pos - tp.window;
+          x = ok ? x : kNegInf;
+        }
+        s[i][j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[i][r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[i][r] - m_new);
+      m[i][r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[i][j][e] - m[i][e >> 1]);
+        if constexpr (MASK) p = s[i][j][e] == kNegInf ? 0.f : p;
+        s[i][j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[i][r] = alpha[r] * l[i][r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[i][j][0] *= alpha[0];
+      o[i][j][1] *= alpha[0];
+      o[i][j][2] *= alpha[1];
+      o[i][j][3] *= alpha[1];
+    }
+  }
+
+  // O += P V; P rounded to bf16 as the A fragment
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      a[i][0] = pack_bf16(s[i][2 * kk][0], s[i][2 * kk][1]);
+      a[i][1] = pack_bf16(s[i][2 * kk][2], s[i][2 * kk][3]);
+      a[i][2] = pack_bf16(s[i][2 * kk + 1][0], s[i][2 * kk + 1][1]);
+      a[i][3] = pack_bf16(s[i][2 * kk + 1][2], s[i][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(v_addr + (kk * 16 * RS + dp * 16) * 2, b);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(o[i][2 * dp], a[i], b[0], b[1]);
+        mma_bf16(o[i][2 * dp + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>())
+flash_attention_mma(const bf16* __restrict__ q,  // (BHq, Sq, D)
+                    const bf16* __restrict__ k,  // (BHkv, Skv, D)
+                    const bf16* __restrict__ v,
+                    bf16* __restrict__ out,      // (BHq, Sq, D)
+                    int sq, int skv, int group, float scale_log2,
+                    int causal, int window) {
+  constexpr int RS = mma_row_stride<D>();
+  constexpr int BK = mma_key_tile<D>();
+  constexpr int MT = mma_row_tiles<D>();
+  constexpr int BQ = mma_block_q<D>();
+  constexpr int kTile = BK * RS;  // bf16 elements of a K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (BQ, RS)
+  bf16* ring = qs + BQ * RS;  // stage s: K at tile 2s, V at tile 2s + 1
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int kvh = bh / group;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column pair
+  const int row0 = warp * 16 * MT;  // the warp's first row in the tile
+  const int q_offset = skv - sq;
+
+  const bf16* qp = q + static_cast<size_t>(bh) * sq * D;
+  const bf16* kp = k + static_cast<size_t>(kvh) * skv * D;
+  const bf16* vp = v + static_cast<size_t>(kvh) * skv * D;
+
+  // live keys of this query tile: [k_begin, k_end)
+  const int last_q = min(q0 + BQ, sq) - 1;
+  int k_end = skv;
+  if (causal) k_end = min(k_end, last_q + q_offset + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 + q_offset - window + 1);
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  copy_rows<D, BQ>(qs, qp, q0, sq, tid);
+  if (n_tiles > 0) {
+    copy_rows<D, BK>(ring, kp, k_begin, skv, tid);
+    copy_rows<D, BK>(ring + kTile, vp, k_begin, skv, tid);
+  }
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane.  Q (A, x4): rows row0 + lane%16,
+  // columns +8 for lanes 16-31.  K (B, x4 = two n-tiles): keys lane%8
+  // (+8 for lanes 16-31), columns +8 for lanes 8-15 and 24-31.  V (B,
+  // x4.trans = two n-tiles of d): keys lane%8 (+8 for lanes 8-15 and
+  // 24-31), columns +8 for lanes 16-31.
+  const uint32_t q_addr =
+      smem_u32(qs + (row0 + (lane & 15)) * RS + (lane >> 4) * 8);
+  const int k_lane = ((lane & 7) + ((lane >> 4) << 3)) * RS +
+                     ((lane >> 3) & 1) * 8;
+  const int v_lane = ((lane & 7) + (((lane >> 3) & 1) << 3)) * RS +
+                     (lane >> 4) * 8;
+
+  float o[MT][D / 8][4];
+  float m[MT][2];
+  float l[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][j][e] = 0.f;
+    m[i][0] = m[i][1] = kNegInf;
+    l[i][0] = l[i][1] = 0.f;
+  }
+  uint32_t qf[MT][D <= 64 ? D / 16 : 1][4];
+
+  TilePos tp{q0 + row0 + g + q_offset, 0, skv, causal, window};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * BK;
+    bf16* stage = ring + (it & 1) * 2 * kTile;
+    if (it + 1 < n_tiles) {
+      bf16* next = ring + ((it + 1) & 1) * 2 * kTile;
+      copy_rows<D, BK>(next, kp, k0 + BK, skv, tid);
+      copy_rows<D, BK>(next + kTile, vp, k0 + BK, skv, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (D <= 64) {
+      if (it == 0) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            ldsm_x4(q_addr + (i * 16 * RS + kk * 16) * 2, qf[i][kk]);
+      }
+    }
+    const uint32_t k_addr = smem_u32(stage + k_lane);
+    const uint32_t v_addr = smem_u32(stage + kTile + v_lane);
+    tp.k0 = k0;
+    const bool need_mask = k0 + BK > skv ||
+                           (causal && k0 + BK - 1 > q0 + q_offset) ||
+                           (window > 0 && k0 <= last_q + q_offset - window);
+    if (need_mask)
+      mma_tile<D, true>(o, m, l, qf, q_addr, k_addr, v_addr, scale_log2, tp,
+                        t);
+    else
+      mma_tile<D, false>(o, m, l, qf, q_addr, k_addr, v_addr, scale_log2,
+                         tp, t);
+    __syncthreads();  // the stage is refilled next iteration
+  }
+  cp_async_wait<0>();  // the Q copy, when no tile was live
+  __syncthreads();
+
+  // epilogue: each warp stages its rows in its own rows of qs
+  bf16* os = qs + row0 * RS;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / fmaxf(quad_sum(l[i][r]), 1e-30f);
+      bf16* row = os + (16 * i + 8 * r + g) * RS + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 8 * j) =
+            pack_bf16(o[i][j][2 * r] * inv, o[i][j][2 * r + 1] * inv);
+    }
+  __syncwarp();
+  bf16* op = out + static_cast<size_t>(bh) * sq * D;
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int n = 0; n < 16 * MT * kChunks / 32; ++n) {
+    const int c = lane + 32 * n;
+    const int r = c / kChunks;
+    const int col = (c - r * kChunks) * 8;
+    const int qi = q0 + row0 + r;
+    if (qi < sq)
+      *reinterpret_cast<uint4*>(op + static_cast<size_t>(qi) * D + col) =
+          *reinterpret_cast<const uint4*>(os + r * RS + col);
+  }
+}
+
+// ---------------------------------------------------------------------
+// launchers
+
+// Dynamic shared memory above 48 KB is allowed per kernel (and device).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               int bhq, int bhkv, int sq, int skv, float scale, int causal,
+               int window, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<D>();
+  auto kernel = flash_attention_mma<D>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + kBQ - 1) / kBQ, bhq);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, bhq / bhkv,
-      scale, causal, window);
+  dim3 grid(bhq, (sq + mma_block_q<D>() - 1) / mma_block_q<D>());
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, skv,
+      bhq / bhkv, scale * kLog2e, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
-               int bhq, int bhkv, int sq, int skv, float scale, int causal,
-               int window, cudaStream_t stream) {
-#define FA_CASE(DD)                                                       \
-  case DD:                                                                \
-    return launch<T, DD>(q, k, v, out, bhq, bhkv, sq, skv, scale, causal, \
-                         window, stream);
+template <int D>
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                int bhq, int bhkv, int sq, int skv, float scale, int causal,
+                int window, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats<D>();
+  auto kernel = flash_attention_kernel<D>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((sq + kBQ - 1) / kBQ, bhq);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, skv,
+      bhq / bhkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// registers, local (spill) bytes, dynamic shared bytes, blocks per SM,
+// threads per block, keys per tile
+template <typename K>
+int kernel_attrs(K kernel, size_t smem, int threads, int key_tile,
+                 int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  out[4] = threads;
+  out[5] = key_tile;
+  return 0;
+}
+
+template <int D>
+int attrs_d(int dtype, int* out) {
+  if (dtype == 0)
+    return kernel_attrs(flash_attention_kernel<D>,
+                        sizeof(float) * smem_floats<D>(), kThreads, kBK,
+                        out);
+  return kernel_attrs(flash_attention_mma<D>, mma_smem_bytes<D>(),
+                      kMmaThreads, mma_key_tile<D>(), out);
+}
+
+#define FA_HEAD_DIMS(X) X(16) X(32) X(64) X(128) X(256)
+
+int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
+             void* out, int bhq, int bhkv, int sq, int skv, float scale,
+             int causal, int window, cudaStream_t stream) {
+#define FA_CASE(DD)                                                        \
+  case DD:                                                                 \
+    return dtype == 0 ? launch_simt<DD>(q, k, v, out, bhq, bhkv, sq, skv,  \
+                                        scale, causal, window, stream)     \
+                      : launch_mma<DD>(q, k, v, out, bhq, bhkv, sq, skv,   \
+                                       scale, causal, window, stream);
   switch (d) {
-    FA_CASE(16)
-    FA_CASE(32)
-    FA_CASE(64)
-    FA_CASE(128)
-    FA_CASE(256)
+    FA_HEAD_DIMS(FA_CASE)
     default:
       return -1;
   }
@@ -267,21 +777,35 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (q, k, v and out share it).  causal
-// is 0 or 1; window <= 0 means no window.  Returns the CUDA error of the
-// launch (0 on success), -1 for an unsupported head_dim, -3 for an
-// unsupported dtype.
+// dtype codes: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); q, k, v
+// and out share it.  causal is 0 or 1; window <= 0 means no window.
+// Returns the CUDA error of the launch (0 on success), -1 for an
+// unsupported head_dim, -3 for an unsupported dtype.
 extern "C" int repro_flash_attention(int dtype, int d, const void* q,
                                      const void* k, const void* v, void* out,
                                      int bhq, int bhkv, int sq, int skv,
                                      float scale, int causal, int window,
                                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, out, bhq, bhkv, sq, skv, scale,
-                             causal, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, out, bhq, bhkv, sq, skv,
-                                     scale, causal, window, st);
-  return -3;
+  if (dtype != 0 && dtype != 1) return -3;
+  return dispatch(dtype, d, q, k, v, out, bhq, bhkv, sq, skv, scale, causal,
+                  window, static_cast<cudaStream_t>(stream));
 }
+
+// The resources of the kernel that `repro_flash_attention` launches for
+// (dtype, d): out[0] registers a thread, out[1] local (spill) bytes a
+// thread, out[2] dynamic shared bytes a block, out[3] blocks an SM can
+// hold, out[4] threads a block, out[5] keys a tile.  Returns as
+// `repro_flash_attention` does.
+extern "C" int repro_flash_attention_attrs(int dtype, int d, int* out) {
+  if (dtype != 0 && dtype != 1) return -3;
+#define FA_ATTRS(DD) \
+  case DD:           \
+    return attrs_d<DD>(dtype, out);
+  switch (d) {
+    FA_HEAD_DIMS(FA_ATTRS)
+    default:
+      return -1;
+  }
+#undef FA_ATTRS
+}
+#undef FA_HEAD_DIMS

@@ -3,10 +3,16 @@ PyTorch version.
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_fwd``
 (the Pallas ``_flash_kernel``).  The kernel is hand-written CUDA C++ for
-``sm_90a`` in ``csrc/flash_attention.cu``; its source note says what
-bounds it on the H100 (operations) and which TPU-isms were dropped (lane
-padding, the ``(block_q, 128)`` VMEM scratch, the sequential KV grid that
-carries the softmax state).
+``sm_90a`` in ``csrc/flash_attention.cu``, in two variants behind one C
+entry: bf16 runs on the tensor cores (``mma.sync`` m16n8k16 tiles fed by
+``ldmatrix`` from a two-stage ``cp.async`` ring of K/V tiles, the
+softmax in registers, one block of 4 warps per query tile and head);
+fp32, the parity path, stays on the CUDA cores, since the tensor cores
+would take it in TF32.  The source note says what bounds it on the H100
+(operations) and which TPU-isms were dropped (lane padding, the
+``(block_q, 128)`` VMEM scratch, the sequential KV grid that carries the
+softmax state).  :func:`kernel_attributes` reports each instantiation's
+registers, spills, shared memory and blocks per SM.
 
 :func:`flash_attention_fwd` launches the kernel for CUDA tensors and
 raises when it cannot; it takes :func:`flash_attention_plain` only for
@@ -35,7 +41,30 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        attrs = lib.repro_flash_attention_attrs
+        attrs.argtypes = [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
+    """The resources of the kernel that :func:`flash_attention_fwd`
+    launches for ``dtype`` and ``head_dim`` on the current card: its
+    variant (``"mma"``: bf16 on the tensor cores, ``"simt"``: fp32 on the
+    CUDA cores), registers and local (spill) bytes a thread, dynamic
+    shared bytes and threads a block, blocks an SM holds, keys a tile."""
+    if dtype not in Q_CODES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"kernel_attributes: no kernel for {dtype}, "
+                         f"head_dim {head_dim}")
+    vals = (ctypes.c_int * 6)()
+    err = _lib().repro_flash_attention_attrs(Q_CODES[dtype], head_dim, vals)
+    if err != 0:
+        raise RuntimeError(f"flash_attention attributes failed (code {err})")
+    return {"variant": "mma" if dtype == torch.bfloat16 else "simt",
+            "registers": vals[0], "spill_bytes": vals[1],
+            "smem_bytes": vals[2], "blocks_per_sm": vals[3],
+            "threads": vals[4], "key_tile": vals[5]}
 
 
 def visible_mask(q_len: int, kv_len: int, causal: bool,
@@ -108,6 +137,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}/{v.dtype} unsupported (one of float32, "
                         f"bfloat16 for all three)")
     check_operands("flash_attention_fwd", q, (q, k, v))
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("flash_attention_fwd: q, k and v must be 16-byte "
+                         "aligned (the bf16 kernel copies rows in 16-byte "
+                         "cp.async chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

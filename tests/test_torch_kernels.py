@@ -291,23 +291,37 @@ def test_triton_gumbel_kernel_matches_plain(cuda_device):
 
 # fp32 tolerances: the kernel and the plain version sum in other orders;
 # 1e-5 as the reference's kernel tier, 2e-3 for the long reductions
-# (Skv >= 1024).  bf16: 1e-2 absolute on O(1) outputs, where one bf16
-# rounding of the output is 4e-3.
+# (Skv >= 1024).  bf16: 1e-2 + 1e-2 |ref| (assert_close's atol and rtol)
+# on O(1) outputs, where one bf16 rounding of the output is 4e-3.
 def _cuda_tol(dtype, skv):
     if dtype == torch.bfloat16:
         return 1e-2
     return 2e-3 if skv >= 1024 else 1e-5
 
 
+def test_flash_kernel_attributes_refuse_unknown_kernels():
+    """Checked before the library is built, so it runs on the CPU."""
+    with pytest.raises(ValueError, match="no kernel"):
+        FA.kernel_attributes(torch.float16, 64)
+    with pytest.raises(ValueError, match="no kernel"):
+        FA.kernel_attributes(torch.bfloat16, 96)
+
+
 @requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("shape", [
     # (b, hq, hkv, sq, skv, causal, window)
     (2, 8, 1, 200, 200, True, None),
     (1, 4, 2, 70, 333, True, 50),
     (2, 2, 2, 65, 130, False, None),
     (1, 4, 4, 1, 77, True, None),
+    # gemma-2b prefill's grouping and length (8 query heads over 1)
+    (1, 8, 1, 1024, 1024, True, None),
+    # jamba's grouping (16 query heads over 2)
+    (1, 16, 2, 512, 512, True, None),
+    # queries at an offset; a window whose edge crosses key tiles
+    (1, 4, 1, 300, 1000, True, 129),
 ])
 def test_cuda_flash_kernel_matches_plain(cuda_device, shape, hd, dtype):
     b, hq, hkv, sq, skv, causal, window = shape
@@ -326,6 +340,41 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, shape, hd, dtype):
         window=window).reshape(b, hq, sq, hd)
     tol = _cuda_tol(dtype, skv)
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 129])
+def test_cuda_flash_kernel_is_deterministic(cuda_device, window, dtype):
+    """No atomics: two calls on the same inputs agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((8, 300, 256), (1, 1000, 256), (1, 1000, 256)))
+    kw = dict(causal=True, scale=256 ** -0.5, window=window)
+    first = FA.flash_attention_fwd(q, k, v, **kw)
+    second = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_cuda_flash_kernel_attributes(cuda_device, hd, dtype):
+    attrs = FA.kernel_attributes(dtype, hd)
+    assert attrs["variant"] == ("mma" if dtype == torch.bfloat16
+                                else "simt")
+    assert 0 < attrs["registers"] <= 255
+    assert attrs["blocks_per_sm"] >= 1
+    assert attrs["smem_bytes"] <= 232448
+    if dtype == torch.bfloat16:
+        # the tile choice of the source note: 32-key ring stages from
+        # head_dim 128 keep every instantiation free of spills and two
+        # blocks an SM at gemma's and jamba's head dims
+        assert attrs["spill_bytes"] == 0
+        assert attrs["key_tile"] == (32 if hd >= 128 else 64)
+        if hd in (128, 256):
+            assert attrs["blocks_per_sm"] >= 2
 
 
 @requires_cuda
