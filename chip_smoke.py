@@ -56,7 +56,12 @@ Output, one line each:
   * one JSON line per kernel phase: paged attention for every (q dtype,
     pool dtype) pair the serving runs launch, plus fp8 (max abs error
     against the plain version beside the reference's RMS, kernel / plain
-    / library ms by CUDA events, the bound); the Gumbel kernel; flash
+    / library ms by CUDA events, the bound; the variant, "mma" for bf16 q
+    on the tensor cores and "simt" for fp32 q, its device launches a
+    call, and for "mma" the work list of query tiles and key splits,
+    which the device pre-pass must build exactly as
+    ``paged_tiles_plain`` does; registers, spill bytes, shared memory and
+    blocks per SM); the Gumbel kernel; flash
     attention (gemma-2b prefill, an offset+window row, an fp32 row; each
     with its kernel's variant, registers, spill bytes, shared memory and
     blocks per SM);
@@ -73,7 +78,8 @@ Output, one line each:
     of the fusion queue in each dtype it takes, merged into a few
     chains);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
-    run's own kernel launches: every run must launch both kernels);
+    run's own kernel launches: every run must launch both kernels; the
+    paged variant its q dtype runs);
   * ``paged_vs_gathered`` (the two kernels on a live pool with shared
     prefix pages and ragged tables, every layer), ``legacy_serving``
     (tokens/s, exact flash and decode launches, the unified engine's
@@ -97,7 +103,9 @@ Output, one line each:
     idle share), last, because a profiler session slows the host for
     the timed runs after it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
-    path's main run (bf16 serving for paged attention and Gumbel, dense
+    path's main run (wrapper calls: one bf16 paged call is three device
+    launches, its ``device_launches_per_call``; bf16 serving for paged
+    attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
     fused-elementwise kernel, paged_vs_gathered for mixed attention) and
@@ -357,7 +365,65 @@ def sdpa_library_ms(torch, x, q, kp, vp, scale) -> float:
         qq, kc, vc, attn_mask=mask, scale=scale, enable_gqa=True))
 
 
+def paged_plan(torch, DA, x, q, pool_dtype) -> dict:
+    """What the paged kernel launches for the row's inputs: its variant,
+    its resources (``DA.kernel_attributes``), the thread blocks of one
+    call, and for the bf16 variant the work list (tiles, splits, work
+    items) of ``paged_tiles_plain``, which must equal the device
+    pre-pass's."""
+    t, hkv, g, d = q.shape
+    ps, p = x["ps"], x["p"]
+    attrs = DA.kernel_attributes(q.dtype, pool_dtype, d, g, ps)
+    if attrs["variant"] == "simt":
+        return {**attrs, "device_launches_per_call": 1,
+                "work_items": t * hkv, "blocks_launched": t * hkv}
+    shape = DA.launch_shape(g, p, ps)
+    args = (x["tables"].shape, ps, shape["tile_tokens"],
+            shape["split_keys"])
+    want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(), *args)
+    got = DA.paged_tiles(x["seg"], x["pos"], *args)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("paged_attention: the device pre-pass's work "
+                             "list differs from paged_tiles_plain's")
+    splits = int(want[:, 5].sum())
+    # the launcher's grids: one pre-pass block; persistent main blocks,
+    # at most what the card holds at once, shared among the KV heads x
+    # row blocks; the combine's 8 rows a block
+    z = hkv * shape["row_blocks"]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    main = max(1, min(t * shape["max_splits"],
+                      attrs["blocks_per_sm"] * sms // z)) * z
+    combine = -(-t * hkv * g // 8) if shape["max_splits"] > 1 else 0
+    return {**attrs, "device_launches_per_call": shape["launches"],
+            "tile_tokens": shape["tile_tokens"],
+            "split_keys": shape["split_keys"], "tiles": len(want),
+            "splits": splits, "max_splits": int(want[:, 5].max()),
+            "work_items": splits * z, "worklist_equals_plain": True,
+            "blocks_launched": 1 + main + combine}
+
+
+def paged_case_tensors(torch, x, q_dtype, pool):
+    """q and the pool (with scales for int8 / fp8) of one PAGED_CASES
+    row."""
+    from repro_torch.serving import quant
+    q = x["q32"].to(getattr(torch, q_dtype))
+    if pool in ("bfloat16", "float32"):
+        return (q, x["k32"].to(getattr(torch, pool)),
+                x["v32"].to(getattr(torch, pool)), None, None)
+    kp, ksc = quant.quantize(x["k32"], pool)
+    vp, vsc = quant.quantize(x["v32"], pool)
+    return q, kp, vp, ksc, vsc
+
+
 def phase_paged_attention(torch, dev) -> dict:
+    """The paged kernel against its plain version for every PAGED_CASES
+    row; the first (bf16 q over a bf16 pool) is the one reported in the
+    kernel table.  Each row carries its variant ("mma": bf16 q on the
+    tensor cores; "simt": fp32 q on the CUDA cores), its work list
+    (tiles, splits, work items), its thread blocks a call and its
+    kernel's resources; ``ms`` is a single call by CUDA events (the
+    wrapper's host time included), ``queued_ms`` the time of one call
+    among 20 queued back to back."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.serving import quant
 
@@ -367,14 +433,7 @@ def phase_paged_attention(torch, dev) -> dict:
     live = x["seg"] >= 0
     result = None
     for q_dtype, pool in PAGED_CASES:
-        q = x["q32"].to(getattr(torch, q_dtype))
-        if pool in ("bfloat16", "float32"):
-            kp = x["k32"].to(getattr(torch, pool))
-            vp = x["v32"].to(getattr(torch, pool))
-            ksc = vsc = None
-        else:
-            kp, ksc = quant.quantize(x["k32"], pool)
-            vp, vsc = quant.quantize(x["v32"], pool)
+        q, kp, vp, ksc, vsc = paged_case_tensors(torch, x, q_dtype, pool)
 
         def kern():
             return DA.paged_attention_fwd(
@@ -394,6 +453,7 @@ def phase_paged_attention(torch, dev) -> dict:
         finite = bool(torch.isfinite(out[live].float()).all())
         tol = PAGED_TOL[q_dtype]
         ms = time_ms(torch, kern)
+        queued_ms = time_ms_stream(torch, kern)
         plain_ms = time_ms(torch, plain, reps=5)
         peak = PEAK_OPS["bfloat16" if q.dtype == torch.bfloat16
                         else "float32"]
@@ -409,8 +469,10 @@ def phase_paged_attention(torch, dev) -> dict:
                "T": int(q.shape[0]), "live_tokens": x["n_live"],
                "max_abs_err": err, "tol": tol, "ref_rms": ref_rms,
                "max_err_over_ref_rms": err / ref_rms, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms}
+               "queued_ms": queued_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms}
+        row.update(paged_plan(torch, DA, x, q, kp.dtype))
         emit(row)
         if not finite or not err <= tol:
             raise AssertionError(f"paged_attention[q {q_dtype}, pool {pool}]"
@@ -418,6 +480,78 @@ def phase_paged_attention(torch, dev) -> dict:
         if result is None:
             result = row
     return result
+
+
+def kernel_device_us(torch, fn, calls: int = 10) -> dict:
+    """Device microseconds a call of each kernel that ``fn`` launches
+    (``torch.profiler``, ``calls`` calls), and the host's microseconds to
+    enqueue one call (``fn`` run 100 times without a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fn()
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us:
+            dev_us[ev.key[:48]] = us / calls
+    return {"host_us_per_call": host_us, "device_us_per_call": dev_us}
+
+
+def paged_split_sweep(torch, dev, split_keys=(64, 128, 256, 512),
+                      rounds: int = 2) -> None:
+    """Not run by ``main``: the bf16 paged rows (bf16 and int8 pools) at
+    each keys-a-split setting, timed in turns (``rounds`` passes over the
+    settings, so a drift of the card shows as a spread), each checked
+    against the plain version; in the last round each kernel's device
+    time by ``torch.profiler`` (so a profiler session runs last).  One
+    ``paged_split_sweep`` line per (pool, setting, round)."""
+    from repro_torch.kernels import decode_attention as DA
+
+    x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
+    live = x["seg"] >= 0
+    default = DA.SPLIT_KEYS
+    try:
+        for rnd in range(rounds):
+            for pool in ("bfloat16", "int8"):
+                q, kp, vp, ksc, vsc = paged_case_tensors(torch, x,
+                                                         "bfloat16", pool)
+
+                def kern():
+                    return DA.paged_attention_fwd(
+                        q, kp, vp, x["tables"], x["seg"], x["pos"],
+                        scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
+                ref = DA.paged_attention_plain(
+                    q, kp, vp, x["tables"], x["seg"], x["pos"],
+                    scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
+                for ks in split_keys:
+                    DA.SPLIT_KEYS = ks
+                    err = (kern()[live].float()
+                           - ref[live].float()).abs().max().item()
+                    if not err <= PAGED_TOL["bfloat16"]:
+                        raise AssertionError(f"paged sweep {pool} {ks}: "
+                                             f"{err}")
+                    row = {"phase": "paged_split_sweep", "pool": pool,
+                           "split_keys": ks, "round": rnd,
+                           "ms": time_ms(torch, kern),
+                           "queued_ms": time_ms_stream(torch, kern),
+                           "max_abs_err": err,
+                           **paged_plan(torch, DA, x, q, kp.dtype)}
+                    if rnd == rounds - 1:
+                        row.update(kernel_device_us(torch, kern))
+                    emit(row)
+    finally:
+        DA.SPLIT_KEYS = default
 
 
 def phase_gumbel(torch, dev) -> dict:
@@ -1596,6 +1730,8 @@ def phase_serving(torch, dev, models) -> tuple:
     """gemma-2b serving runs.  Returns the main (bf16) run's launch
     counts, a function that runs it again under the profiler on the bf16
     params it is given, and each run's output tokens by run name."""
+    from repro_torch.kernels import decode_attention as DA
+
     cfg32, params32, cfg, params = models
     requests = serving_requests(torch, cfg)
 
@@ -1622,7 +1758,8 @@ def phase_serving(torch, dev, models) -> tuple:
               "steps": m["steps"], "buckets": m["bucket_compiles"],
               "bucket_count": m["bucket_count"],
               "spec_acceptance_rate": m["spec_acceptance_rate"],
-              "kv_dtype": m["kv_dtype"], "launches": counts})
+              "kv_dtype": m["kv_dtype"], "launches": counts,
+              "paged_variant": DA.variant(c.param_dtype)})
     if runs["fp32_greedy"] != runs["fp32_greedy_spec2"]:
         raise AssertionError("spec_k=2 greedy output differs from "
                              "spec_k=0")
@@ -2466,12 +2603,17 @@ def run_phases(torch, dev) -> list:
              "src/repro_torch/kernels/csrc/mixed_attention.cu",
              "src/repro/kernels/decode_attention.py:186")):
         r = rows[name]
-        table.append({"name": name, "route": route, "source": source,
-                      "replaces": replaces, "launches": counts[name],
-                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+        entry = {"name": name, "route": route, "source": source,
+                 "replaces": replaces, "launches": counts[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        # the variant of the reported row (flash, paged), and the device
+        # launches one counted paged call makes
+        for key in ("variant", "device_launches_per_call"):
+            if key in r:
+                entry[key] = r[key]
+        table.append(entry)
     return table
 
 

@@ -5,10 +5,92 @@
 // token t attends slot clip(seg[t], 0, S-1)'s pages through
 // tables[slot, page] at key positions <= pos[t] (and > pos[t] - window
 // when a window is given), with an online softmax in fp32
-// (NEG_INF = -1e30, l clamped at 1e-30).  Output (T, Hkv, G, D) in q's
-// dtype.
+// (NEG_INF = -1e30, l clamped at 1e-30).  The unnormalised probabilities
+// are rounded to bf16 before the PV product when q is bf16, as the Pallas
+// kernel does (`p.astype(v.dtype)`).  Output (T, Hkv, G, D) in q's dtype.
 //
-// Design (first, simple version):
+// What bounds it on the H100: bytes.  Each live page is ps*D*2 elements
+// of K and V, and each (token, key) pair costs 4*G*D flops: about 2*G = 16
+// flops per byte for gemma-2b (G = 8) in bf16, far below the ~295 flops
+// per byte where the tensor cores would bind.  The bytes that count are
+// each live page read once; what the kernel must avoid is reading a page
+// once per token (the tokens of a prefill chunk share their pages) and
+// leaving the card idle while a long sequence's pages are read by one
+// block.
+//
+// bf16 queries: tensor cores ("mma", three launches a call: the
+// pre-pass, the main kernel and the combine, which a table of one split
+// does not need).
+//   * Query tiles that share pages.  A tile is a maximal run of
+//     consecutive flat tokens with the same clipped slot, cut every M
+//     tokens; its rows are its tokens x the G query heads of one KV head
+//     (row = token * G + head), M = max(1, 64 / G), so M * G <= 64 rows
+//     (8 tokens at gemma-2b's G = 8; for G > 64 one token's heads are cut
+//     into 64-row blocks).  The executor lays out each span's tokens
+//     contiguously at consecutive positions, so a prefill chunk's K/V tiles
+//     are read once for up to M tokens and all their heads.  Every row
+//     masks by its own position and window: correctness never depends on
+//     the layout, other layouts only make more tiles.  Padding tokens (seg
+//     < 0) form slot-0 tiles at their own positions and are computed, so no
+//     output row is left unwritten.
+//   * Split-KV: split s of a tile covers keys [lo + s*KS, min(hi, lo +
+//     (s+1)*KS)) (KS: `split_keys`, chosen by the wrapper).  The decode
+//     tokens (one token, up to 64 pages) get their parallelism from the
+//     splits, the prefill chunks from their tiles.  A tile of one split
+//     normalises and writes its output.  Otherwise each split writes its
+//     rows' fp32 (m, l) and unnormalised O to a workspace, and
+//     `paged_attention_combine` (one warp per output row) merges them in
+//     split order: the output is the same bits every run.  (Merging in
+//     the main kernel, by whichever split of a tile finished last, put a
+//     chain of dependent L2 reads on one block per tile and was slower;
+//     PERF.md, PR 19.)
+//   * The work list is made on the card (`paged_attention_tiles`, one
+//     block): block-wide scans (the start of each token's run, the count
+//     of tile starts, the count of splits) give each tile its index and
+//     its first work item; the thread of a tile's first token writes its
+//     descriptor (first token, tokens, slot, key range [lo, hi) clipped to
+//     the table width x ps, splits, lowest and highest position), its
+//     work items (tile, split) and the tile's split count beside each of
+//     its tokens, for the combine.  No host sync: the host sizes
+//     everything from T and the table width.
+//   * Persistent blocks of 4 warps walk the work items (item x, x +
+//     gridDim.x, ...; gridDim.x: the blocks the card holds at once, at
+//     most the items there can be), for one KV head [and row block] each
+//     (gridDim.z).  A grid of one block per possible (tile, split) had
+//     been mostly blocks with nothing to do, each holding its ~100 KB of
+//     shared memory while it found that out.  A warp owns 16 rows.
+//     mma.sync.m16n8k16 bf16 x bf16 -> fp32, the fragment code of the
+//     flash kernel (attention_common.cuh): Q and K by ldmatrix, V by
+//     ldmatrix.trans, P from the S accumulators straight into the A
+//     fragment, the online softmax in registers (log2 units, exp2f).  A
+//     warp with no live row (a decode tile holds G rows) skips the
+//     products but still helps with the copies.
+//   * K/V are staged key by key through the table: the block first writes
+//     the pool row of each key of its split to shared memory (key k lives
+//     in page tables[slot, k / ps], row k % ps, so every page size works),
+//     then copies 32-key tiles by cp.async (16-byte chunks, rows past the
+//     split zero-filled) into a 2-stage ring of rows padded by 16 bytes for
+//     ldmatrix; tile j+1's copy is issued before tile j's products.
+//   * int8 and fp8_e4m3 pools: cp.async cannot convert, so the codes are
+//     staged as they are (a 2-stage ring of code tiles) and converted to
+//     bf16 in shared memory (exact: int8 and e4m3 values are bf16 values)
+//     into one bf16 stage before the products, by integer and fp32
+//     bit arithmetic rather than I2F/F2F conversions, which run at a
+//     fraction of the rate.  Each key's K scale
+//     multiplies its scores in fp32; its V scale multiplies its
+//     probabilities before they are rounded to bf16.  The fp32 pool never
+//     exists in memory.
+//   * The mask arithmetic runs only on key tiles that need it (the causal
+//     edge of the tile's lowest position, the window edge of its highest,
+//     the ragged end of the split), chosen per tile by a template flag.
+//   * Registers: O is D/2 fp32 a thread (128 at D = 256) beside 16 for S;
+//     shared memory at D = 256 is about 104 KB: two blocks an SM.
+//     `repro_paged_attention_attrs` reports registers, spill bytes, shared
+//     memory and blocks per SM of each instantiation.
+//
+// fp32 queries: CUDA cores ("simt", the first design; one launch a call).
+// fp32 is the parity path, held to 1e-5; the tensor cores would take it in
+// TF32 or bf16.
 //   * one block per (token, kv-head); the block holds all G query heads
 //     of the group, so a page is read once for the G heads;
 //   * the block reads its own table row and loops over the LIVE pages
@@ -20,39 +102,52 @@
 //     the PV update: each thread owns (head, d) accumulators in shared
 //     memory.  Accumulation is fp32 throughout.
 //
-// What bounds it on the H100: bytes.  Each token reads its sequence's
-// live pages (ps*D*2 elements per page) and does 4*G*D flops per key,
-// about 2*G = 16 flops per byte for gemma-2b (G = 8) in bf16, far
-// below the ~295 flops/byte where the tensor cores would bind.  Tokens
-// of one prefill chunk read the same pages, which then come from L2.
-// What this version does not do yet: split a long sequence's pages over
-// several blocks (flash-decoding), use TMA/cp.async double buffering,
-// or wgmma.  Those are later, measured work.
-//
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * lane padding (`_pad_last`, repro/kernels/ops.py:37-43): head_dim
 //     is a template parameter here; no pool copy is ever padded;
 //   * the `d % 128 == 0` auto rule and its try/except fallback
 //     (repro/models/attention.py:243-256): the kernel takes every
 //     instantiated head_dim, and the wrapper raises on any other;
-//   * the (g, 128) VMEM scratch for m and l: the stats are G floats in
-//     shared memory;
+//   * the (g, 128) VMEM scratch for m and l: registers (bf16) or G floats
+//     in shared memory (fp32);
+//   * the sequential grid over one token's pages that carries the softmax
+//     state: a loop in the block over its split's keys, and a merge of the
+//     splits by the last one to finish;
+//   * scalar prefetch of tables / seg_ids / positions routing a BlockSpec
+//     index map: the pre-pass builds the work list and each block reads
+//     its own table entries;
 //   * `pages_per_tile`: it packed pages into one grid step to amortize
-//     the TPU's per-grid-step overhead.  Here the block already loops
-//     over pages in-kernel, so the parameter is gone;
+//     the TPU's per-grid-step overhead.  Here a block loops over keys
+//     in-kernel, so the parameter is gone;
 //   * buffer donation: the page pool is a single-owner tensor updated in
 //     place by the executor; this kernel only reads it.
 //
 // `window` is supported because the reference kernel supports it, though
 // the serving executor passes none.
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace {
 
+using repro_attn::cp_async16;
+using repro_attn::cp_async_commit;
+using repro_attn::cp_async_wait;
+using repro_attn::kLog2e;
 using repro_attn::kNegInf;
+using repro_attn::ldsm_x4;
+using repro_attn::ldsm_x4_trans;
+using repro_attn::mma_bf16;
+using repro_attn::pack_bf16;
+using repro_attn::quad_max;
+using repro_attn::quad_sum;
+using repro_attn::smem_u32;
 using repro_attn::store;
 using repro_attn::to_f;
+
+// ---------------------------------------------------------------------
+// fp32 queries on the CUDA cores ("simt")
 
 constexpr int kThreads = 256;
 
@@ -182,39 +277,801 @@ paged_attention_kernel(const QT* __restrict__ q,          // (T, Hkv, G, D)
     store(op + e, acc[e] / fmaxf(l[e / D], 1e-30f));
 }
 
-template <typename QT, typename KT, int D>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const float* k_scale, const float* v_scale, const int* tables,
-           const int* seg, const int* pos, void* out, int t, int hkv, int g,
-           int ps, int s_slots, int p_pages, float scale, int window,
-           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * ps * D + 2 * g * D + g * ps + 3 * g);
-  auto kernel = paged_attention_kernel<QT, KT, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Dynamic shared memory above 48 KB is allowed per kernel (and device).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+size_t simt_smem_bytes(int d, int g, int ps) {
+  return sizeof(float) * (2 * ps * d + 2 * g * d + g * ps + 3 * g);
+}
+
+template <typename KT, int D>
+int launch_simt(const void* q, const void* k_pages, const void* v_pages,
+                const float* k_scale, const float* v_scale, const int* tables,
+                const int* seg, const int* pos, void* out, int t, int hkv,
+                int g, int ps, int s_slots, int p_pages, float scale,
+                int window, cudaStream_t stream) {
+  const size_t smem = simt_smem_bytes(D, g, ps);
+  auto kernel = paged_attention_kernel<float, KT, D>;
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(t, hkv);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k_pages),
+      static_cast<const float*>(q), static_cast<const KT*>(k_pages),
       static_cast<const KT*>(v_pages), k_scale, v_scale, tables, seg, pos,
-      static_cast<QT*>(out), hkv, g, ps, s_slots, p_pages, scale, window);
+      static_cast<float*>(out), hkv, g, ps, s_slots, p_pages, scale, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT, typename KT>
-int dispatch_d(int d, const void* q, const void* k_pages,
-               const void* v_pages, const float* k_scale,
-               const float* v_scale, const int* tables, const int* seg,
-               const int* pos, void* out, int t, int hkv, int g, int ps,
-               int s_slots, int p_pages, float scale, int window,
+// ---------------------------------------------------------------------
+// bf16 queries on the tensor cores ("mma")
+
+using bf16 = __nv_bfloat16;
+
+// a tile's descriptor in the work list: first token, tokens, slot, key
+// range [lo, hi), splits, lowest and highest position of its tokens
+constexpr int kTileFields = 8;
+constexpr int kRows = 64;           // query rows of a block: 4 warps x 16
+constexpr int kMmaThreads = 128;
+constexpr int kBK = 32;             // keys of a ring stage
+constexpr int kPrepassThreads = 1024;
+constexpr int kCombineThreads = 256;  // 8 rows a block, a warp each
+
+__device__ __forceinline__ int clip_slot(int s, int n) {
+  return s < 0 ? 0 : (s > n - 1 ? n - 1 : s);
+}
+
+// Inclusive scan of x over the block, by max (MAX) or by sum; *total gets
+// the block's whole max or sum.  -1 is the identity of max (every value
+// scanned by max is >= -1).
+template <bool MAX>
+__device__ int block_scan(int x, int* buf, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x = MAX ? max(x, y) : x + y;
+  }
+  if (lane == 31) buf[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < n_warps ? buf[lane] : (MAX ? -1 : 0);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = MAX ? max(w, y) : w + y;
+    }
+    buf[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) x = MAX ? max(x, buf[warp - 1]) : x + buf[warp - 1];
+  *total = buf[n_warps - 1];
+  __syncthreads();  // buf is reused by the next scan
+  return x;
+}
+
+// The work list, in one int32 workspace:
+//   [0] the number of tiles, [1] the number of work items;
+//   then T tile descriptors of kTileFields ints;
+//   then up to T * max_splits work items, split * T + tile, in tile order
+//   (a tile's splits are neighbours, so they run at the same time);
+//   then (T,) the split count of each token's tile, for the combine.
+// One block walks T in chunks of its size, carrying the last run start
+// and the tile and item counts.
+__global__ void __launch_bounds__(kPrepassThreads)
+paged_attention_tiles(const int* __restrict__ seg,
+                      const int* __restrict__ pos, int* __restrict__ tiles,
+                      int t, int s_slots, int key_cap, int tile_tokens,
+                      int split_keys, int max_splits, int window) {
+  __shared__ int buf[32];
+  int* desc = tiles + 2;
+  int* items = desc + t * kTileFields;
+  int* token_splits = items + t * max_splits;
+  int run_carry = 0, tile_carry = 0, item_carry = 0;
+  for (int base = 0; base < t; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const bool in = i < t;
+    const int slot = in ? clip_slot(seg[i], s_slots) : 0;
+    const bool run_start =
+        in && (i == 0 || clip_slot(seg[i - 1], s_slots) != slot);
+    int run_max, n_starts, n_items;
+    const int rs = max(block_scan<true>(run_start ? i : -1, buf, &run_max),
+                       run_carry);
+    const bool starts = in && (i - rs) % tile_tokens == 0;
+    const int idx = tile_carry - (starts ? 1 : 0) +
+                    block_scan<false>(starts ? 1 : 0, buf, &n_starts);
+    int n_splits = 0;
+    if (starts) {
+      int lo_pos = pos[i], hi_pos = lo_pos, n = 1;
+      while (n < tile_tokens && i + n < t &&
+             clip_slot(seg[i + n], s_slots) == slot) {
+        const int p = pos[i + n];
+        lo_pos = min(lo_pos, p);
+        hi_pos = max(hi_pos, p);
+        ++n;
+      }
+      const int lo = window > 0 ? max(0, lo_pos - window + 1) : 0;
+      const int hi = max(lo, min(hi_pos + 1, key_cap));
+      n_splits = max(1, (hi - lo + split_keys - 1) / split_keys);
+      int* d = desc + idx * kTileFields;
+      d[0] = i;
+      d[1] = n;
+      d[2] = slot;
+      d[3] = lo;
+      d[4] = hi;
+      d[5] = n_splits;
+      d[6] = lo_pos;
+      d[7] = hi_pos;
+      for (int j = 0; j < n; ++j) token_splits[i + j] = n_splits;
+    }
+    const int item0 = item_carry - n_splits +
+                      block_scan<false>(n_splits, buf, &n_items);
+    for (int s = 0; s < n_splits; ++s) items[item0 + s] = s * t + idx;
+    run_carry = max(run_carry, run_max);
+    tile_carry += n_starts;
+    item_carry += n_items;
+  }
+  if (threadIdx.x == 0) {
+    tiles[0] = tile_carry;
+    tiles[1] = item_carry;
+  }
+}
+
+// Shared memory of the mma kernel: the Q tile; for a bf16 pool a 2-stage
+// ring of (K, V) bf16 tiles; for a code pool a 2-stage ring of (K, V) code
+// tiles and one (K, V) bf16 stage they are converted into; then each key
+// of the split's pool row (and its K and V scales for a code pool).
+template <typename KT, int D>
+constexpr size_t mma_smem_bytes(int split_keys) {
+  constexpr bool kCodes = sizeof(KT) == 1;
+  constexpr size_t kTileBytes = sizeof(bf16) * kBK * (D + 8);
+  return sizeof(bf16) * kRows * (D + 8) + (kCodes ? 2 : 4) * kTileBytes +
+         (kCodes ? 4 * kBK * D : 0) +
+         static_cast<size_t>(split_keys) * (kCodes ? 12 : 4);
+}
+
+// kBK key rows j0 .. j0+kBK-1 of the split (pool rows key_tok[j]) of KV
+// head h into a shared tile of row stride D + 8 (bf16) or D (codes), by
+// cp.async; rows >= n_keys become zeros.
+template <typename KT, int D>
+__device__ __forceinline__ void copy_keys(KT* dst, const KT* pool,
+                                          const int* key_tok, int j0,
+                                          int n_keys, int h, int hkv,
+                                          int tid) {
+  constexpr int kElems = 16 / sizeof(KT);  // elements of a 16-byte chunk
+  constexpr int kChunks = D / kElems;
+  constexpr int kStride = sizeof(KT) == 1 ? D : D + 8;
+  for (int c = tid; c < kBK * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks;
+    const int col = (c - r * kChunks) * kElems;
+    const bool ok = j0 + r < n_keys;
+    const KT* src =
+        pool + (static_cast<size_t>(key_tok[ok ? j0 + r : 0]) * hkv + h) * D +
+        col;
+    cp_async16(smem_u32(dst + r * kStride + col), src, ok);
+  }
+}
+
+// Four int8 codes (one 32-bit word, the lowest code first) as two pairs
+// of bf16, exactly, without I2F (a quarter-rate instruction): code c
+// becomes the float with bits 0x4B000000 | (c + 128), which is 2^23 + 128
+// + c, minus 2^23 + 128.  An integer of at most 8 bits is a bf16 value:
+// the float's upper half.
+__device__ __forceinline__ void codes_to_bf16(uint32_t w, int8_t,
+                                              uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + k)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// Four fp8 e4m3 codes as two pairs of bf16, exactly: the code's sign and
+// exponent-mantissa bits moved to the top of a float give its value times
+// 2^-120 (normals and subnormals alike: fp32 keeps subnormals without
+// fast math), which times 2^120 has at most 4 significant bits, a bf16
+// value.  Codes 0x7F / 0xFF (NaN) never occur: the quantizer clamps to
+// +-448.
+__device__ __forceinline__ void codes_to_bf16(uint32_t w, __nv_fp8_e4m3,
+                                              uint32_t& lo, uint32_t& hi) {
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t b = w >> (8 * k);
+    f[k] = __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7Fu) << 20)) *
+           0x1p120f;
+  }
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// kBK rows of D codes -> bf16 rows of stride D + 8, eight codes a step
+template <typename KT, int D>
+__device__ __forceinline__ void convert_keys(bf16* dst, const KT* src,
+                                             int tid) {
+  constexpr int kSteps = D / 8;
+  for (int c = tid; c < kBK * kSteps; c += kMmaThreads) {
+    const int r = c / kSteps;
+    const int col = (c - r * kSteps) * 8;
+    const uint2 u = *reinterpret_cast<const uint2*>(src + r * D + col);
+    uint4 o;
+    codes_to_bf16(u.x, KT(), o.x, o.y);
+    codes_to_bf16(u.y, KT(), o.z, o.w);
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + col) = o;
+  }
+}
+
+// One key tile of one warp's 16 rows: S = Q K^T, the online softmax,
+// O += P V.  k0: the tile's first key; k_end: the split's end; pos_r: the
+// positions of the thread's rows g and g + 8; ksc / vsc: the tile's
+// per-key scales (CODES only).  MASK: apply the visibility rule.
+template <int D, bool MASK, bool CODES>
+__device__ __forceinline__ void mma_tile(float (&o)[D / 8][4], float (&m)[2],
+                                         float (&l)[2], uint32_t q_addr,
+                                         uint32_t k_addr, uint32_t v_addr,
+                                         float scale_log2, const float* ksc,
+                                         const float* vsc, int k0, int k_end,
+                                         const int (&pos_r)[2], int window,
+                                         int t) {
+  constexpr int RS = D + 8;
+  constexpr int NT = kBK / 8;  // n-tiles of S
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(q_addr + kk * 16 * 2, a);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(k_addr + (np * 16 * RS + kk * 16) * 2, b);
+      mma_bf16(s[2 * np], a, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+
+  // scores in log2 units; masked ones -1e30
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float2 ks2 = make_float2(1.f, 1.f);
+    if constexpr (CODES) ks2 = *reinterpret_cast<const float2*>(ksc + 8 * j +
+                                                                2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * ((e & 1) ? ks2.y : ks2.x) * scale_log2;
+      if constexpr (MASK) {
+        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+        const int p = pos_r[e >> 1];
+        bool ok = k_pos < k_end && k_pos <= p;
+        if (window > 0) ok = ok && k_pos > p - window;
+        x = ok ? x : kNegInf;
+      }
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(s[j][e] - m[e >> 1]);
+      if constexpr (MASK) p = s[j][e] == kNegInf ? 0.f : p;
+      s[j][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+  if constexpr (CODES) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 vs2 = *reinterpret_cast<const float2*>(vsc + 8 * j + 2 * t);
+      s[j][0] *= vs2.x;
+      s[j][1] *= vs2.y;
+      s[j][2] *= vs2.x;
+      s[j][3] *= vs2.y;
+    }
+  }
+
+  // O += P V; P rounded to bf16 as the A fragment
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(v_addr + (kk * 16 * RS + dp * 16) * 2, b);
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Persistent blocks over the work list: block (x, z) takes items x, x +
+// gridDim.x, ... for KV head z % Hkv and row block z / Hkv.
+template <typename KT, int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
+                    const KT* __restrict__ k_pages,    // (N, ps, Hkv, D)
+                    const KT* __restrict__ v_pages,
+                    const float* __restrict__ k_scale, // (N, ps, Hkv)|null
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ tables,    // (S, P)
+                    const int* __restrict__ pos,       // (T,)
+                    const int* __restrict__ tiles,     // the work list
+                    bf16* __restrict__ out,            // (T, Hkv, G, D)
+                    float* __restrict__ part_o,   // (T*Hkv*G, splits, D)
+                    float* __restrict__ part_ml,  // (T*Hkv*G, splits, 2)
+                    int t, int hkv, int g, int ps, int p_pages,
+                    int split_keys, int max_splits, float scale_log2,
+                    int window) {
+  constexpr bool kCodes = sizeof(KT) == 1;
+  constexpr int RS = D + 8;
+  constexpr int kTile = kBK * RS;  // bf16 elements of a K or V tile
+  constexpr int kChunks = D / 8;   // 16-byte chunks of a bf16 row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (kRows, RS)
+  // bf16 pool: stage s has K at tile 2s, V at 2s + 1; codes: one stage
+  bf16* kv = qs + kRows * RS;
+  KT* codes = reinterpret_cast<KT*>(kv + (kCodes ? 2 : 4) * kTile);
+  int* key_tok = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(codes) + (kCodes ? 4 * kBK * D : 0));
+  float* k_sc = reinterpret_cast<float*>(key_tok + split_keys);
+  float* v_sc = k_sc + split_keys;
+  const int ring_tile = kCodes ? kBK * D : kTile;  // elements of a stage half
+  KT* ring = kCodes ? codes : reinterpret_cast<KT*>(kv);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;  // fragment row (and row + 8)
+  const int t4 = lane & 3;   // fragment column pair
+  const int row0 = warp * 16;
+  const int h = blockIdx.z % hkv;
+  const int row_base = (blockIdx.z / hkv) * kRows;  // in the tile's rows
+
+  // ldmatrix row addresses of this lane (as the flash kernel's): Q (A,
+  // x4) rows row0 + lane%16, columns +8 for lanes 16-31; K (B, x4 = two
+  // n-tiles) keys lane%8 (+8 for lanes 16-31), columns +8 for lanes 8-15
+  // and 24-31; V (B, x4.trans) keys lane%8 (+8 for lanes 8-15 and 24-31),
+  // columns +8 for lanes 16-31.
+  const uint32_t q_addr =
+      smem_u32(qs + (row0 + (lane & 15)) * RS + (lane >> 4) * 8);
+  const int k_lane =
+      ((lane & 7) + ((lane >> 4) << 3)) * RS + ((lane >> 3) & 1) * 8;
+  const int v_lane =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * RS + (lane >> 4) * 8;
+
+  const int* descs = tiles + 2;
+  const int* items = descs + t * kTileFields;
+  const int n_slots = t * max_splits;  // entries of `items`
+  // the first item is read beside the item count, and each next one
+  // while the current one runs (an entry past the count is never used)
+  const int n_items = tiles[1];
+  int item = static_cast<int>(blockIdx.x) < n_slots ? items[blockIdx.x] : 0;
+
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int tile = item % t;
+    const int split = item / t;
+    const int w_next = w + gridDim.x;
+    const int item_next = w_next < n_slots ? items[w_next] : 0;
+    const int* desc = descs + tile * kTileFields;
+    const int first = desc[0];
+    const int n_rows = min(kRows, desc[1] * g - row_base);
+    if (n_rows <= 0) {  // no row block z of this tile
+      item = item_next;
+      continue;
+    }
+    const int slot = desc[2];
+    const int n_splits = desc[5];
+    const int k_begin = desc[3] + split * split_keys;
+    const int k_end = min(desc[4], k_begin + split_keys);
+    const int n_keys = k_end - k_begin;
+    const int min_pos = desc[6];
+    const int max_pos = desc[7];
+
+    // the Q rows: row r is head (row_base + r) % G of token first +
+    // (row_base + r) / G; rows past the tile are zeros
+    for (int c = tid; c < kRows * kChunks; c += kMmaThreads) {
+      const int r = c / kChunks;
+      const int col = (c - r * kChunks) * 8;
+      const bool ok = r < n_rows;
+      const int gr = row_base + (ok ? r : 0);
+      const bf16* src =
+          q + ((static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g) *
+                  D +
+          col;
+      cp_async16(smem_u32(qs + r * RS + col), src, ok);
+    }
+    // the pool row of every key of the split (and its scales); entries
+    // past n_keys are row 0 with scales 0, never read through a live score
+    const int* tab = tables + static_cast<size_t>(slot) * p_pages;
+    for (int j = tid; j < split_keys; j += kMmaThreads) {
+      int tok = 0;
+      float ks = 0.f, vs = 0.f;
+      if (j < n_keys) {
+        const int key = k_begin + j;
+        tok = tab[key / ps] * ps + key % ps;
+        if constexpr (kCodes) {
+          ks = k_scale[static_cast<size_t>(tok) * hkv + h];
+          vs = v_scale[static_cast<size_t>(tok) * hkv + h];
+        }
+      }
+      key_tok[j] = tok;
+      if constexpr (kCodes) {
+        k_sc[j] = ks;
+        v_sc[j] = vs;
+      }
+    }
+    __syncthreads();
+
+    const int n_kt = (n_keys + kBK - 1) / kBK;
+    if (n_kt > 0) {
+      copy_keys<KT, D>(ring, k_pages, key_tok, 0, n_keys, h, hkv, tid);
+      copy_keys<KT, D>(ring + ring_tile, v_pages, key_tok, 0, n_keys, h,
+                       hkv, tid);
+    }
+    cp_async_commit();
+
+    // this thread's rows' positions (rows past the tile see nothing)
+    int pos_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r + gq;
+      pos_r[r] = row < n_rows ? pos[first + (row_base + row) / g] : -1;
+    }
+    const bool warp_live = row0 < n_rows;
+
+    float o[D / 8][4];
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+    for (int it = 0; it < n_kt; ++it) {
+      if (it + 1 < n_kt) {
+        KT* next = ring + ((it + 1) & 1) * 2 * ring_tile;
+        copy_keys<KT, D>(next, k_pages, key_tok, (it + 1) * kBK, n_keys, h,
+                         hkv, tid);
+        copy_keys<KT, D>(next + ring_tile, v_pages, key_tok, (it + 1) * kBK,
+                         n_keys, h, hkv, tid);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* k_tile;
+      if constexpr (kCodes) {
+        const KT* stage = ring + (it & 1) * 2 * ring_tile;
+        convert_keys<KT, D>(kv, stage, tid);
+        convert_keys<KT, D>(kv + kTile, stage + ring_tile, tid);
+        __syncthreads();
+        k_tile = kv;
+      } else {
+        k_tile = kv + (it & 1) * 2 * kTile;
+      }
+      if (warp_live) {
+        const uint32_t k_addr = smem_u32(k_tile + k_lane);
+        const uint32_t v_addr = smem_u32(k_tile + kTile + v_lane);
+        const int k0 = k_begin + it * kBK;
+        const float* ksc = k_sc + it * kBK;
+        const float* vsc = v_sc + it * kBK;
+        const bool need_mask = k0 + kBK > k_end || k0 + kBK - 1 > min_pos ||
+                               (window > 0 && k0 <= max_pos - window);
+        if (need_mask)
+          mma_tile<D, true, kCodes>(o, m, l, q_addr, k_addr, v_addr,
+                                    scale_log2, ksc, vsc, k0, k_end, pos_r,
+                                    window, t4);
+        else
+          mma_tile<D, false, kCodes>(o, m, l, q_addr, k_addr, v_addr,
+                                     scale_log2, ksc, vsc, k0, k_end, pos_r,
+                                     window, t4);
+      }
+      __syncthreads();  // the stage is refilled next iteration
+    }
+    cp_async_wait<0>();  // the Q copy, when no key tile was live
+    __syncthreads();
+
+    if (n_splits == 1) {
+      // normalise; each warp stages its rows in its own rows of qs, then
+      // writes them with 16-byte stores
+      if (warp_live) {
+        bf16* os = qs + row0 * RS;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+          bf16* row = os + (8 * r + gq) * RS + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(row + 8 * j) =
+                pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+        }
+        __syncwarp();
+        for (int c = lane; c < 16 * kChunks; c += 32) {
+          const int r = c / kChunks;
+          const int col = (c - r * kChunks) * 8;
+          if (row0 + r >= n_rows) break;
+          const int gr = row_base + row0 + r;
+          const size_t orow =
+              (static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g;
+          *reinterpret_cast<uint4*>(out + orow * D + col) =
+              *reinterpret_cast<const uint4*>(os + r * RS + col);
+        }
+      }
+    } else {
+      // one split of several: its rows' unnormalised O and (m, l) in
+      // fp32, for the combine
+      if (warp_live) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float lsum = quad_sum(l[r]);
+          const int row = row0 + 8 * r + gq;
+          if (row >= n_rows) continue;
+          const int gr = row_base + row;
+          const size_t orow =
+              (static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g;
+          const size_t prow = orow * max_splits + split;
+          float* po = part_o + prow * D + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<float2*>(po + 8 * j) =
+                make_float2(o[j][2 * r], o[j][2 * r + 1]);
+          if (t4 == 0)
+            *reinterpret_cast<float2*>(part_ml + prow * 2) =
+                make_float2(m[r], lsum);
+        }
+      }
+    }
+    __syncthreads();  // shared memory is refilled by the next item
+    item = item_next;
+  }
+}
+
+// The splits of each output row merged in a fixed order: one warp per
+// row (token, KV head, query head) of a token whose tile has more than
+// one split.  The lanes read the splits' (m, l) a split each and reduce
+// them with shuffles in a fixed tree; then every lane accumulates its
+// columns over the splits in split order.
+__global__ void __launch_bounds__(kCombineThreads)
+paged_attention_combine(const int* __restrict__ tiles,
+                        const float* __restrict__ part_o,
+                        const float* __restrict__ part_ml,
+                        bf16* __restrict__ out, int t, int hkv, int g,
+                        int d, int max_splits) {
+  const int lane = threadIdx.x & 31;
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * (kCombineThreads / 32) +
+      (threadIdx.x >> 5);
+  if (row >= static_cast<size_t>(t) * hkv * g) return;
+  const int tok = static_cast<int>(row / (static_cast<size_t>(hkv) * g));
+  const int n = tiles[2 + t * (kTileFields + max_splits) + tok];
+  if (n <= 1) return;
+  const float* ml = part_ml + row * max_splits * 2;
+  float mx = kNegInf;
+  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, ml[2 * s]);
+  mx = repro_attn::warp_max(mx);
+  float lsum = 0.f;
+  for (int s = lane; s < n; s += 32)
+    lsum += ml[2 * s + 1] * exp2f(ml[2 * s] - mx);
+  const float inv = 1.f / fmaxf(repro_attn::warp_sum(lsum), 1e-30f);
+  for (int col = lane * 4; col < d; col += 128) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < n; ++s) {
+      const float w = exp2f(ml[2 * s] - mx);
+      const float4 x = *reinterpret_cast<const float4*>(
+          part_o + (row * max_splits + s) * d + col);
+      acc.x += x.x * w;
+      acc.y += x.y * w;
+      acc.z += x.z * w;
+      acc.w += x.w * w;
+    }
+    uint2 pk;
+    pk.x = pack_bf16(acc.x * inv, acc.y * inv);
+    pk.y = pack_bf16(acc.z * inv, acc.w * inv);
+    *reinterpret_cast<uint2*>(out + row * d + col) = pk;
+  }
+}
+
+int launch_tiles(const int* seg, const int* pos, int* tiles, int t,
+                 int s_slots, int p_pages, int ps, int tile_tokens,
+                 int split_keys, int max_splits, int window,
+                 cudaStream_t stream) {
+  paged_attention_tiles<<<1, kPrepassThreads, 0, stream>>>(
+      seg, pos, tiles, t, s_slots, p_pages * ps, tile_tokens, split_keys,
+      max_splits, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks the main grid's x dimension gets: as many work items as there
+// can be, at most what the card holds at once (blocks an SM x SMs,
+// shared among the z_blocks KV heads x row blocks).  The occupancy of an
+// instantiation is asked once per split_keys (its shared memory).
+template <typename KT, int D>
+int grid_x(size_t smem, int split_keys, int max_items, int z_blocks,
+           int* out) {
+  static int cached_keys = -1, cached_blocks = 0;
+  if (cached_keys != split_keys) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, paged_attention_mma<KT, D>, kMmaThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached_blocks = max(1, per_sm) * sms;
+    cached_keys = split_keys;
+  }
+  *out = max(1, min(max_items, cached_blocks / z_blocks));
+  return 0;
+}
+
+// Bytes of the work list in the workspace, rounded up to 256: the split
+// workspace (fp32) follows it.
+size_t worklist_bytes(int t, int max_splits) {
+  const size_t n = sizeof(int) * (2 + static_cast<size_t>(t) *
+                                          (kTileFields + max_splits + 1));
+  return (n + 255) / 256 * 256;
+}
+
+// the pre-pass, the main kernel and (with more than one split possible)
+// the combine, on one stream
+template <typename KT, int D>
+int launch_mma(const void* q, const void* k_pages, const void* v_pages,
+               const float* k_scale, const float* v_scale, const int* tables,
+               const int* seg, const int* pos, void* out, void* work, int t,
+               int hkv, int g, int ps, int s_slots, int p_pages, float scale,
+               int window, int tile_tokens, int split_keys, int max_splits,
                cudaStream_t stream) {
-#define PA_CASE(DD)                                                        \
-  case DD:                                                                 \
-    return launch<QT, KT, DD>(q, k_pages, v_pages, k_scale, v_scale,       \
-                              tables, seg, pos, out, t, hkv, g, ps,        \
-                              s_slots, p_pages, scale, window, stream);
+  int* tiles = static_cast<int*>(work);
+  float* part = max_splits > 1 ? reinterpret_cast<float*>(
+                                     static_cast<char*>(work) +
+                                     worklist_bytes(t, max_splits))
+                               : nullptr;
+  int err = launch_tiles(seg, pos, tiles, t, s_slots, p_pages, ps,
+                         tile_tokens, split_keys, max_splits, window, stream);
+  if (err != 0) return err;
+  const size_t smem = mma_smem_bytes<KT, D>(split_keys);
+  auto kernel = paged_attention_mma<KT, D>;
+  err = static_cast<int>(allow_smem(kernel, smem));
+  if (err != 0) return err;
+  const int z_blocks = hkv * ((tile_tokens * g + kRows - 1) / kRows);
+  int gx = 0;
+  err = grid_x<KT, D>(smem, split_keys, t * max_splits, z_blocks, &gx);
+  if (err != 0) return err;
+  float* part_ml =
+      part == nullptr
+          ? nullptr
+          : part + static_cast<size_t>(t) * hkv * g * max_splits * D;
+  kernel<<<dim3(gx, 1, z_blocks), kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const KT*>(k_pages),
+      static_cast<const KT*>(v_pages), k_scale, v_scale, tables, pos, tiles,
+      static_cast<bf16*>(out), part, part_ml, t, hkv, g, ps, p_pages,
+      split_keys, max_splits, scale * kLog2e, window);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || max_splits == 1) return err;
+  constexpr int kRowsABlock = kCombineThreads / 32;
+  const size_t rows = static_cast<size_t>(t) * hkv * g;
+  const unsigned blocks =
+      static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock);
+  paged_attention_combine<<<blocks, kCombineThreads, 0, stream>>>(
+      tiles, part, part_ml, static_cast<bf16*>(out), t, hkv, g, D,
+      max_splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// registers, local (spill) bytes, dynamic shared bytes, blocks per SM,
+// threads per block, keys per tile
+template <typename K>
+int kernel_attrs(K kernel, size_t smem, int threads, int key_tile,
+                 int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = blocks;
+  out[4] = threads;
+  out[5] = key_tile;
+  return 0;
+}
+
+// A call's arguments, passed down the dtype and head-dim dispatch.
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const float* k_scale;
+  const float* v_scale;
+  const int* tables;
+  const int* seg;
+  const int* pos;
+  void* out;
+  void* work;
+  int t, hkv, g, ps, s_slots, p_pages;
+  float scale;
+  int window, tile_tokens, split_keys, max_splits;
+  cudaStream_t stream;
+};
+
+// what to do once the pool type and head_dim are known: launch, or report
+// the attributes of the kernel a launch would run (attrs != null)
+template <typename KT, int D>
+int run(int q_dtype, const Args& a, int* attrs) {
+  if (q_dtype == 0) {
+    if (attrs != nullptr)
+      return kernel_attrs(paged_attention_kernel<float, KT, D>,
+                          simt_smem_bytes(D, a.g, a.ps), kThreads, a.ps,
+                          attrs);
+    return launch_simt<KT, D>(a.q, a.k_pages, a.v_pages, a.k_scale,
+                              a.v_scale, a.tables, a.seg, a.pos, a.out, a.t,
+                              a.hkv, a.g, a.ps, a.s_slots, a.p_pages,
+                              a.scale, a.window, a.stream);
+  }
+  if constexpr (std::is_same<KT, float>::value) {
+    return -2;  // bf16 queries take a bf16, int8 or fp8 pool
+  } else {
+    if (attrs != nullptr)
+      return kernel_attrs(paged_attention_mma<KT, D>,
+                          mma_smem_bytes<KT, D>(a.split_keys), kMmaThreads,
+                          kBK, attrs);
+    return launch_mma<KT, D>(a.q, a.k_pages, a.v_pages, a.k_scale, a.v_scale,
+                             a.tables, a.seg, a.pos, a.out, a.work, a.t,
+                             a.hkv, a.g, a.ps, a.s_slots, a.p_pages,
+                             a.scale, a.window, a.tile_tokens, a.split_keys,
+                             a.max_splits, a.stream);
+  }
+}
+
+template <typename KT>
+int dispatch_d(int q_dtype, int d, const Args& a, int* attrs) {
+#define PA_CASE(DD) \
+  case DD:          \
+    return run<KT, DD>(q_dtype, a, attrs);
   switch (d) {
     PA_CASE(16)
     PA_CASE(32)
@@ -227,31 +1084,20 @@ int dispatch_d(int d, const void* q, const void* k_pages,
 #undef PA_CASE
 }
 
-template <typename QT>
-int dispatch_kv(int kv_dtype, int d, const void* q, const void* k_pages,
-                const void* v_pages, const float* k_scale,
-                const float* v_scale, const int* tables, const int* seg,
-                const int* pos, void* out, int t, int hkv, int g, int ps,
-                int s_slots, int p_pages, float scale, int window,
-                cudaStream_t stream) {
+int dispatch(int q_dtype, int kv_dtype, int d, const Args& a, int* attrs) {
+  if (q_dtype != 0 && q_dtype != 1) return -3;
+  if (q_dtype == 1 && (a.split_keys <= 0 || a.split_keys % kBK != 0 ||
+                       a.tile_tokens <= 0 || a.max_splits <= 0))
+    return -4;
   switch (kv_dtype) {
     case 0:
-      return dispatch_d<QT, float>(d, q, k_pages, v_pages, k_scale, v_scale,
-                                   tables, seg, pos, out, t, hkv, g, ps,
-                                   s_slots, p_pages, scale, window, stream);
+      return dispatch_d<float>(q_dtype, d, a, attrs);
     case 1:
-      return dispatch_d<QT, __nv_bfloat16>(
-          d, q, k_pages, v_pages, k_scale, v_scale, tables, seg, pos, out,
-          t, hkv, g, ps, s_slots, p_pages, scale, window, stream);
+      return dispatch_d<__nv_bfloat16>(q_dtype, d, a, attrs);
     case 2:
-      return dispatch_d<QT, int8_t>(d, q, k_pages, v_pages, k_scale,
-                                    v_scale, tables, seg, pos, out, t, hkv,
-                                    g, ps, s_slots, p_pages, scale, window,
-                                    stream);
+      return dispatch_d<int8_t>(q_dtype, d, a, attrs);
     case 3:
-      return dispatch_d<QT, __nv_fp8_e4m3>(
-          d, q, k_pages, v_pages, k_scale, v_scale, tables, seg, pos, out,
-          t, hkv, g, ps, s_slots, p_pages, scale, window, stream);
+      return dispatch_d<__nv_fp8_e4m3>(q_dtype, d, a, attrs);
     default:
       return -2;
   }
@@ -259,30 +1105,75 @@ int dispatch_kv(int kv_dtype, int d, const void* q, const void* k_pages,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn.
-// q/out take 0 or 1; the pool takes any.  k_scale/v_scale are null for
-// an unquantized pool.  window <= 0 means no window.  Returns the CUDA
-// error of the launch (0 on success), -1 for an unsupported head_dim,
-// -2 for an unsupported pool dtype, -3 for an unsupported q dtype.
+// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn.  q/out
+// take 0 (the "simt" kernel, one launch, any pool) or 1 (the "mma" path:
+// the pre-pass, the main kernel and, when max_splits > 1, the combine; a
+// bf16, int8 or fp8 pool).  k_scale/v_scale are null for an unquantized
+// pool.  window <= 0 means no window.  The mma path also takes `work`, a
+// 256-byte aligned workspace of `repro_paged_workspace_bytes` bytes (the
+// int32 work list, then T * Hkv * G * max_splits * (D + 2) fp32 of split
+// results when max_splits > 1); tile_tokens (M) tokens at most a tile,
+// split_keys (KS, a multiple of 32) keys a split, max_splits >= ceil(P *
+// ps / KS).  Returns the first nonzero CUDA error of the launches (0 on
+// success), -1 for an unsupported head_dim, -2 for an unsupported pool
+// dtype, -3 for an unsupported q dtype, -4 for an invalid tiling.
 extern "C" int repro_paged_attention(
     int q_dtype, int kv_dtype, int d, const void* q, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale,
-    const void* tables, const void* seg, const void* pos, void* out, int t,
-    int hkv, int g, int ps, int s_slots, int p_pages, float scale,
-    int window, void* stream) {
-  const float* ksc = static_cast<const float*>(k_scale);
-  const float* vsc = static_cast<const float*>(v_scale);
-  const int* tb = static_cast<const int*>(tables);
-  const int* sg = static_cast<const int*>(seg);
-  const int* ps_ = static_cast<const int*>(pos);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0)
-    return dispatch_kv<float>(kv_dtype, d, q, k_pages, v_pages, ksc, vsc,
-                              tb, sg, ps_, out, t, hkv, g, ps, s_slots,
-                              p_pages, scale, window, st);
-  if (q_dtype == 1)
-    return dispatch_kv<__nv_bfloat16>(kv_dtype, d, q, k_pages, v_pages, ksc,
-                                      vsc, tb, sg, ps_, out, t, hkv, g, ps,
-                                      s_slots, p_pages, scale, window, st);
-  return -3;
+    const void* tables, const void* seg, const void* pos, void* out,
+    void* work, int t, int hkv, int g, int ps, int s_slots, int p_pages,
+    float scale, int window, int tile_tokens, int split_keys, int max_splits,
+    void* stream) {
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(tables), static_cast<const int*>(seg),
+               static_cast<const int*>(pos), out, work, t, hkv, g, ps,
+               s_slots, p_pages, scale, window, tile_tokens, split_keys,
+               max_splits, static_cast<cudaStream_t>(stream)};
+  return dispatch(q_dtype, kv_dtype, d, a, nullptr);
+}
+
+// Bytes of the mma path's workspace for T tokens of (Hkv, G, D) and
+// max_splits splits a tile at most.
+extern "C" long long repro_paged_workspace_bytes(int t, int hkv, int g,
+                                                 int d, int max_splits) {
+  size_t n = worklist_bytes(t, max_splits);
+  if (max_splits > 1)
+    n += sizeof(float) * static_cast<size_t>(t) * hkv * g * max_splits *
+         (d + 2);
+  return static_cast<long long>(n);
+}
+
+// The pre-pass alone: writes the work list of the mma path into `tiles`
+// (laid out for max_splits), as `repro_paged_attention` does before its
+// main kernel.  Returns the CUDA error of the launch, -4 for an invalid
+// tiling.
+extern "C" int repro_paged_tiles(const void* seg, const void* pos,
+                                 void* tiles, int t, int s_slots,
+                                 int p_pages, int ps, int tile_tokens,
+                                 int split_keys, int max_splits, int window,
+                                 void* stream) {
+  if (split_keys <= 0 || tile_tokens <= 0 || max_splits <= 0) return -4;
+  return launch_tiles(static_cast<const int*>(seg),
+                      static_cast<const int*>(pos), static_cast<int*>(tiles),
+                      t, s_slots, p_pages, ps, tile_tokens, split_keys,
+                      max_splits, window, static_cast<cudaStream_t>(stream));
+}
+
+// The resources of the main kernel that `repro_paged_attention` launches
+// for (q dtype, pool dtype, d) at group size g, page size ps and
+// split_keys: out[0] registers a thread, out[1] local (spill) bytes a
+// thread, out[2] dynamic shared bytes a block, out[3] blocks an SM can
+// hold, out[4] threads a block, out[5] keys a tile (the page size for the
+// simt kernel).  Returns as `repro_paged_attention` does.
+extern "C" int repro_paged_attention_attrs(int q_dtype, int kv_dtype, int d,
+                                           int g, int ps, int split_keys,
+                                           int* out) {
+  Args a{};
+  a.g = g;
+  a.ps = ps;
+  a.tile_tokens = 1;
+  a.split_keys = split_keys;
+  a.max_splits = 1;
+  return dispatch(q_dtype, kv_dtype, d, a, out);
 }

@@ -5,7 +5,10 @@ Counterpart of ``repro/kernels/decode_attention.py``:
 
   * :func:`paged_attention_fwd` (the Pallas ``_paged_kernel``): a flat
     mixed prefill/decode batch against the physical KV page pool, CUDA C++
-    in ``csrc/paged_attention.cu``;
+    in ``csrc/paged_attention.cu``: bf16 queries on the tensor cores
+    (variant ``"mma"``: a pre-pass builds the work list of query tiles
+    and their key splits, the main kernel runs them, a combine merges the
+    splits), fp32 queries on the CUDA cores (``"simt"``);
   * :func:`decode_attention_fwd` (the Pallas ``_decode_kernel``): one
     query per row against a contiguous ``(B, Hkv, Smax, D)`` cache, CUDA
     C++ in ``csrc/decode_attention.cu``;
@@ -32,6 +35,7 @@ two plain versions are one oracle.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -41,6 +45,16 @@ from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
 
 NEG_INF = -1e30
 MAX_SMEM = 232448          # bytes of shared memory one block may use
+
+# the bf16 paged kernel's work list: a query tile holds up to TILE_ROWS
+# rows (tokens x the G heads of one KV head), a split up to SPLIT_KEYS keys
+# (a multiple of KEY_TILE, the keys of one shared-memory stage)
+TILE_ROWS = 64
+SPLIT_KEYS = 128
+KEY_TILE = 32
+# the columns of a tile descriptor, as the pre-pass writes them
+TILE_FIELDS = ("first", "count", "slot", "lo", "hi", "splits", "min_pos",
+               "max_pos")
 
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
@@ -54,15 +68,147 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("repro_paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
-                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 6 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        ws = lib.repro_paged_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+        tiles = lib.repro_paged_tiles
+        tiles.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p])
+        tiles.restype = ctypes.c_int
+        attrs = lib.repro_paged_attention_attrs
+        attrs.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
 
 
 def smem_bytes(g: int, d: int, ps: int) -> int:
+    """Shared bytes of the fp32 ("simt") kernel's block."""
     return 4 * (2 * ps * d + 2 * g * d + g * ps + 3 * g)
+
+
+def tile_tokens(g: int) -> int:
+    """M: the tokens of one query tile of the bf16 kernel, so that M * G
+    <= TILE_ROWS (one token when G >= TILE_ROWS)."""
+    return max(1, TILE_ROWS // g)
+
+
+def launch_shape(g: int, p_pages: int, ps: int) -> dict:
+    """What the bf16 kernel is given for G query heads a KV head against a
+    table of ``p_pages`` pages of ``ps``, from the shapes alone (nothing
+    is read back): the tokens a tile holds, the keys a split holds, the
+    most splits a tile can have, its 64-row blocks, and the device
+    launches of a call (the pre-pass, the main kernel's persistent blocks
+    over at most T x ``max_splits`` work items, and the combine when a
+    tile can have more than one split)."""
+    return _launch_shape(g, p_pages, ps, SPLIT_KEYS)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_shape(g, p_pages, ps, split_keys) -> dict:
+    m = tile_tokens(g)
+    max_splits = max(1, -(-p_pages * ps // split_keys))
+    return {"tile_tokens": m, "split_keys": split_keys,
+            "max_splits": max_splits, "row_blocks": -(-m * g // TILE_ROWS),
+            "launches": 3 if max_splits > 1 else 2}
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_bytes(t, hkv, g, d, max_splits) -> int:
+    return int(_lib().repro_paged_workspace_bytes(t, hkv, g, d, max_splits))
+
+
+def paged_tiles_plain(seg_ids: torch.Tensor, positions: torch.Tensor,
+                      tables_shape, ps: int, tile_tokens: int,
+                      split_keys: int, window: Optional[int] = None
+                      ) -> torch.Tensor:
+    """The bf16 kernel's work list, as its pre-pass builds it: (n_tiles,
+    8) int32, one row per query tile with the columns of
+    :data:`TILE_FIELDS`.  A tile is a maximal run of consecutive tokens
+    with the same clipped slot ``clip(seg, 0, S-1)``, cut every
+    ``tile_tokens`` tokens; its key range is [lo, hi) with lo = max(0,
+    min_pos - window + 1) (0 without a window) and hi = min(max_pos + 1,
+    P * ps) (never below lo); splits = max(1, ceil((hi - lo) /
+    split_keys))."""
+    s, p = tables_shape
+    slots = seg_ids.long().clamp(0, s - 1).tolist()
+    pos = positions.tolist()
+    rows, i, t = [], 0, len(slots)
+    while i < t:
+        n = 1
+        while n < tile_tokens and i + n < t and slots[i + n] == slots[i]:
+            n += 1
+        lo_pos, hi_pos = min(pos[i:i + n]), max(pos[i:i + n])
+        lo = max(0, lo_pos - window + 1) if window else 0
+        hi = max(lo, min(hi_pos + 1, p * ps))
+        splits = max(1, -(-(hi - lo) // split_keys))
+        rows.append([i, n, slots[i], lo, hi, splits, lo_pos, hi_pos])
+        i += n
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1,
+                                                          len(TILE_FIELDS))
+
+
+def paged_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
+                tables_shape, ps: int, tile_tokens: int, split_keys: int,
+                window: Optional[int] = None) -> torch.Tensor:
+    """The work list of :func:`paged_tiles_plain`, built by the bf16
+    kernel's pre-pass for CUDA tensors (it reads the tile count back, so
+    it syncs: a check, not part of the kernel's call).  CPU tensors take
+    the plain version."""
+    if seg_ids.device.type == "cpu":
+        return paged_tiles_plain(seg_ids, positions, tables_shape, ps,
+                                 tile_tokens, split_keys, window)
+    t = seg_ids.shape[0]
+    s, p = tables_shape
+    max_splits = max(1, -(-p * ps // split_keys))
+    ws = torch.empty(2 + t * (len(TILE_FIELDS) + max_splits + 1),
+                     dtype=torch.int32, device=seg_ids.device)
+    if t == 0:
+        return ws[:0].reshape(0, len(TILE_FIELDS))
+    err = _lib().repro_paged_tiles(
+        seg_ids.data_ptr(), positions.data_ptr(), ws.data_ptr(), t, s, p,
+        ps, tile_tokens, split_keys, max_splits,
+        int(window) if window else 0,
+        torch.cuda.current_stream(seg_ids.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention pre-pass launch failed "
+                           f"(code {err})")
+    n = int(ws[0].item())
+    return ws[2:2 + n * len(TILE_FIELDS)].reshape(n, len(TILE_FIELDS))
+
+
+def variant(q_dtype: torch.dtype) -> str:
+    """The kernel a q dtype runs: ``"mma"`` (bf16, tensor cores) or
+    ``"simt"`` (fp32, CUDA cores)."""
+    return "mma" if q_dtype == torch.bfloat16 else "simt"
+
+
+def kernel_attributes(q_dtype: torch.dtype, pool_dtype: torch.dtype,
+                      head_dim: int, g: int, ps: int) -> dict:
+    """The resources of the kernel that :func:`paged_attention_fwd`
+    launches for these dtypes, head_dim, group size and page size on the
+    current card: its variant (``"mma"``: bf16 q on the tensor cores,
+    ``"simt"``: fp32 q on the CUDA cores), registers and local (spill)
+    bytes a thread, dynamic shared bytes and threads a block, blocks an
+    SM holds, keys a tile (the page for "simt")."""
+    if q_dtype not in Q_CODES or pool_dtype not in _KV_CODES or \
+            head_dim not in HEAD_DIMS:
+        raise ValueError(f"kernel_attributes: no kernel for {q_dtype} q, "
+                         f"{pool_dtype} pool, head_dim {head_dim}")
+    vals = (ctypes.c_int * 6)()
+    err = _lib().repro_paged_attention_attrs(
+        Q_CODES[q_dtype], _KV_CODES[pool_dtype], head_dim, g, ps,
+        SPLIT_KEYS, vals)
+    if err != 0:
+        raise RuntimeError(f"paged_attention attributes failed (code "
+                           f"{err})")
+    return {"variant": variant(q_dtype), "registers": vals[0],
+            "spill_bytes": vals[1], "smem_bytes": vals[2],
+            "blocks_per_sm": vals[3], "threads": vals[4],
+            "key_tile": vals[5]}
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -105,7 +251,12 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     fp32 for an int8/fp8 pool.  Returns (T, Hkv, G, D) in q's dtype.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise."""
+    on the current stream, or raise: bf16 q runs the tensor-core variant,
+    three device launches under one C call (the pre-pass that builds the
+    work list of query tiles and key splits on the card, the main kernel
+    over it, and the combine of the splits; two when the table allows one
+    split), fp32 q the CUDA-core variant, one launch.  ``counter`` counts
+    calls.  Neither reads anything back to the host."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, tables, seg_ids, positions, scale=scale,
@@ -137,9 +288,13 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if not quantized and k_pages.dtype != q.dtype:
         raise TypeError("paged_attention_fwd: an unquantized pool must "
                         "have q's dtype")
-    if smem_bytes(g, d, ps) > MAX_SMEM:
+    mma = variant(q.dtype) == "mma"
+    if not mma and smem_bytes(g, d, ps) > MAX_SMEM:
         raise ValueError(f"paged_attention_fwd: page_size {ps} x head_dim "
                          f"{d} needs more shared memory than a block has")
+    if SPLIT_KEYS <= 0 or SPLIT_KEYS % KEY_TILE:
+        raise ValueError(f"paged_attention_fwd: SPLIT_KEYS {SPLIT_KEYS} is "
+                         f"not a positive multiple of {KEY_TILE}")
     tensors = [q, k_pages, v_pages, tables, seg_ids, positions]
     if quantized:
         tensors += [k_scale, v_scale]
@@ -155,9 +310,19 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if seg_ids.shape != (t,) or positions.shape != (t,):
         raise ValueError("paged_attention_fwd: seg_ids/positions must "
                          "be (T,)")
+    if mma and any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention_fwd: q and the pages must be "
+                         "16-byte aligned (the bf16 kernel copies rows in "
+                         "16-byte cp.async chunks)")
     out = torch.empty_like(q)
     if t == 0:
         return out
+    shape = launch_shape(g, p, ps)
+    work = None
+    if mma:
+        work = torch.empty(_workspace_bytes(t, hkv, g, d,
+                                            shape["max_splits"]),
+                           dtype=torch.uint8, device=q.device)
     fn = _lib().repro_paged_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], d,
@@ -165,8 +330,11 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
              k_scale.data_ptr() if quantized else None,
              v_scale.data_ptr() if quantized else None,
              tables.data_ptr(), seg_ids.data_ptr(), positions.data_ptr(),
-             out.data_ptr(), t, hkv, g, ps, s, p, float(scale),
-             int(window) if window else 0, stream)
+             out.data_ptr(), None if work is None else work.data_ptr(),
+             t, hkv, g, ps, s, p,
+             float(scale), int(window) if window else 0,
+             shape["tile_tokens"], shape["split_keys"],
+             shape["max_splits"], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(code {err})")
