@@ -57,11 +57,11 @@ Output, one line each:
     pool dtype) pair the serving runs launch, plus fp8 (max abs error
     against the plain version beside the reference's RMS, kernel / plain
     / library ms by CUDA events, the bound; the variant, "mma" for bf16 q
-    on the tensor cores and "simt" for fp32 q, its device launches a
-    call, and for "mma" the work list of query tiles and key splits,
-    which the device pre-pass must build exactly as
-    ``paged_tiles_plain`` does; registers, spill bytes, shared memory and
-    blocks per SM); the Gumbel kernel; flash
+    on the tensor cores and "simt" for fp32 q, the device launches and
+    thread blocks of a call as the kernel's C entry reports them, and for
+    "mma" the work list of query tiles and key splits, which the device
+    pre-pass must build exactly as ``paged_tiles_plain`` does; registers,
+    spill bytes, shared memory and blocks per SM); the Gumbel kernel; flash
     attention (gemma-2b prefill, an offset+window row, an fp32 row; each
     with its kernel's variant, registers, spill bytes, shared memory and
     blocks per SM);
@@ -99,12 +99,15 @@ Output, one line each:
     on the card against the CPU);
   * the profiled runs (``serving_profile``, the ``*_prefill_profile``
     and ``*_decode_profile`` of the three step-builder paths and
-    ``eager_train_profile``: device time by kernel group or eager op,
-    idle share), last, because a profiler session slows the host for
-    the timed runs after it;
+    ``eager_train_profile``: device time and kernel calls by kernel group
+    or eager op, idle share; ``paged_attention_profile``: the bf16 paged
+    rows' device us a call by kernel and device launches a call), last,
+    because a profiler session slows the host for the timed runs after
+    it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
-    path's main run (wrapper calls: one bf16 paged call is three device
-    launches, its ``device_launches_per_call``; bf16 serving for paged
+    path's main run (wrapper calls; the paged entry adds the device
+    launches and device us of one bf16 x bf16 call, as
+    ``paged_attention_profile`` counted them; bf16 serving for paged
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
@@ -366,40 +369,31 @@ def sdpa_library_ms(torch, x, q, kp, vp, scale) -> float:
 
 
 def paged_plan(torch, DA, x, q, pool_dtype) -> dict:
-    """What the paged kernel launches for the row's inputs: its variant,
-    its resources (``DA.kernel_attributes``), the thread blocks of one
-    call, and for the bf16 variant the work list (tiles, splits, work
-    items) of ``paged_tiles_plain``, which must equal the device
-    pre-pass's."""
+    """What the paged kernel launched for the row's inputs (call it just
+    after a call): its variant and resources (``DA.kernel_attributes``),
+    the device launches and thread blocks of that call as the C entry
+    reports them (``DA.last_launch``), and for the bf16 variant the work
+    list (tiles, splits) of the device pre-pass, which must equal
+    ``paged_tiles_plain``'s."""
     t, hkv, g, d = q.shape
     ps, p = x["ps"], x["p"]
-    attrs = DA.kernel_attributes(q.dtype, pool_dtype, d, g, ps)
-    if attrs["variant"] == "simt":
-        return {**attrs, "device_launches_per_call": 1,
-                "work_items": t * hkv, "blocks_launched": t * hkv}
-    shape = DA.launch_shape(g, p, ps)
-    args = (x["tables"].shape, ps, shape["tile_tokens"],
-            shape["split_keys"])
-    want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(), *args)
-    got = DA.paged_tiles(x["seg"], x["pos"], *args)
+    plan = {**DA.kernel_attributes(q.dtype, pool_dtype, d, g, ps),
+            **DA.last_launch()}
+    if plan["variant"] == "simt":
+        return plan
+    tiling = DA.tiling(g, p, ps)
+    want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(),
+                                x["tables"].shape, ps,
+                                tiling["tile_tokens"], tiling["split_keys"])
+    got = DA.paged_tiles(x["seg"], x["pos"], x["tables"].shape, ps, g)
     if not torch.equal(got.cpu(), want):
         raise AssertionError("paged_attention: the device pre-pass's work "
                              "list differs from paged_tiles_plain's")
-    splits = int(want[:, 5].sum())
-    # the launcher's grids: one pre-pass block; persistent main blocks,
-    # at most what the card holds at once, shared among the KV heads x
-    # row blocks; the combine's 8 rows a block
-    z = hkv * shape["row_blocks"]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    main = max(1, min(t * shape["max_splits"],
-                      attrs["blocks_per_sm"] * sms // z)) * z
-    combine = -(-t * hkv * g // 8) if shape["max_splits"] > 1 else 0
-    return {**attrs, "device_launches_per_call": shape["launches"],
-            "tile_tokens": shape["tile_tokens"],
-            "split_keys": shape["split_keys"], "tiles": len(want),
-            "splits": splits, "max_splits": int(want[:, 5].max()),
-            "work_items": splits * z, "worklist_equals_plain": True,
-            "blocks_launched": 1 + main + combine}
+    return {**plan, "tile_tokens": tiling["tile_tokens"],
+            "split_keys": tiling["split_keys"], "tiles": len(want),
+            "splits": int(want[:, 5].sum()),
+            "max_splits": int(want[:, 5].max()),
+            "worklist_equals_plain": True}
 
 
 def paged_case_tensors(torch, x, q_dtype, pool):
@@ -420,10 +414,11 @@ def phase_paged_attention(torch, dev) -> dict:
     row; the first (bf16 q over a bf16 pool) is the one reported in the
     kernel table.  Each row carries its variant ("mma": bf16 q on the
     tensor cores; "simt": fp32 q on the CUDA cores), its work list
-    (tiles, splits, work items), its thread blocks a call and its
-    kernel's resources; ``ms`` is a single call by CUDA events (the
+    (tiles, splits), the device launches and thread blocks of a call and
+    its kernel's resources; ``ms`` is a single call by CUDA events (the
     wrapper's host time included), ``queued_ms`` the time of one call
-    among 20 queued back to back."""
+    among 20 queued back to back (the host's time still counts where it
+    exceeds the device's; ``profile_paged`` gives the device's alone)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.serving import quant
 
@@ -472,6 +467,7 @@ def phase_paged_attention(torch, dev) -> dict:
                "queued_ms": queued_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms}
+        kern()
         row.update(paged_plan(torch, DA, x, q, kp.dtype))
         emit(row)
         if not finite or not err <= tol:
@@ -482,76 +478,62 @@ def phase_paged_attention(torch, dev) -> dict:
     return result
 
 
-def kernel_device_us(torch, fn, calls: int = 10) -> dict:
-    """Device microseconds a call of each kernel that ``fn`` launches
-    (``torch.profiler``, ``calls`` calls), and the host's microseconds to
-    enqueue one call (``fn`` run 100 times without a synchronise)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        fn()
-    host_us = (time.perf_counter() - t0) * 1e4
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us:
-            dev_us[ev.key[:48]] = us / calls
-    return {"host_us_per_call": host_us, "device_us_per_call": dev_us}
-
-
-def paged_split_sweep(torch, dev, split_keys=(64, 128, 256, 512),
-                      rounds: int = 2) -> None:
-    """Not run by ``main``: the bf16 paged rows (bf16 and int8 pools) at
-    each keys-a-split setting, timed in turns (``rounds`` passes over the
-    settings, so a drift of the card shows as a spread), each checked
-    against the plain version; in the last round each kernel's device
-    time by ``torch.profiler`` (so a profiler session runs last).  One
-    ``paged_split_sweep`` line per (pool, setting, round)."""
+def profile_paged(torch, dev, calls: int = 20) -> dict:
+    """The bf16 paged rows (``paged_inputs``, seed 11) under
+    ``torch.profiler``: ``calls`` counted calls each; the device us a call
+    of each kernel they launched (pre-pass, main, combine) and in all, and
+    the device launches a counted call made, both as the profiler counted
+    them.  The counted calls are the profiler's second cycle: the first,
+    a warm-up, is dropped (a session's first kernels can go unrecorded).
+    Run with the profiled runs, last.  Returns the bf16 x bf16 line."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import decode_attention as DA
 
     x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
-    live = x["seg"] >= 0
-    default = DA.SPLIT_KEYS
-    try:
-        for rnd in range(rounds):
-            for pool in ("bfloat16", "int8"):
-                q, kp, vp, ksc, vsc = paged_case_tensors(torch, x,
-                                                         "bfloat16", pool)
+    result = None
+    for q_dtype, pool in PAGED_CASES:
+        if q_dtype != "bfloat16":
+            continue
+        q, kp, vp, ksc, vsc = paged_case_tensors(torch, x, q_dtype, pool)
 
-                def kern():
-                    return DA.paged_attention_fwd(
-                        q, kp, vp, x["tables"], x["seg"], x["pos"],
-                        scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
-                ref = DA.paged_attention_plain(
-                    q, kp, vp, x["tables"], x["seg"], x["pos"],
-                    scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
-                for ks in split_keys:
-                    DA.SPLIT_KEYS = ks
-                    err = (kern()[live].float()
-                           - ref[live].float()).abs().max().item()
-                    if not err <= PAGED_TOL["bfloat16"]:
-                        raise AssertionError(f"paged sweep {pool} {ks}: "
-                                             f"{err}")
-                    row = {"phase": "paged_split_sweep", "pool": pool,
-                           "split_keys": ks, "round": rnd,
-                           "ms": time_ms(torch, kern),
-                           "queued_ms": time_ms_stream(torch, kern),
-                           "max_abs_err": err,
-                           **paged_plan(torch, DA, x, q, kp.dtype)}
-                    if rnd == rounds - 1:
-                        row.update(kernel_device_us(torch, kern))
-                    emit(row)
-    finally:
-        DA.SPLIT_KEYS = default
+        def kern():
+            return DA.paged_attention_fwd(
+                q, kp, vp, x["tables"], x["seg"], x["pos"],
+                scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
+        kern()
+        torch.cuda.synchronize()
+        cycles = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: cycles.append(
+                         device_time(p)[1])) as prof:
+            for _ in range(2):
+                before = DA.counter.launches
+                for _ in range(calls):
+                    kern()
+                torch.cuda.synchronize()
+                prof.step()
+        n = DA.counter.launches - before
+        (top,) = cycles
+        kernels = {}
+        for ms, name, c in top:
+            if _kernel_group(name) == "paged_attention":
+                k = kernels.setdefault(name, {"device_us_per_call": 0.0,
+                                              "launches_per_call": 0.0})
+                k["device_us_per_call"] += ms * 1e3 / n
+                k["launches_per_call"] += c / n
+        row = {"phase": "paged_attention_profile", "pool": pool,
+               "q_dtype": q_dtype, "calls": n,
+               "device_us_per_call": sum(
+                   k["device_us_per_call"] for k in kernels.values()),
+               "device_launches_per_call": sum(
+                   k["launches_per_call"] for k in kernels.values()),
+               "kernels": kernels}
+        emit(row)
+        if result is None:
+            result = row
+    return result
 
 
 def phase_gumbel(torch, dev) -> dict:
@@ -1010,8 +992,11 @@ def profile_serving(torch, cfg, params, requests, dev) -> dict:
             lambda: run_engine(torch, cfg, params, requests, dev))
     groups, top = device_time(prof)
     busy = sum(groups.values())
+    calls = {}
+    for _, name, n in top:
+        calls[_kernel_group(name)] = calls.get(_kernel_group(name), 0) + n
     return {"wall_ms": wall * 1e3, "device_ms_by_group": groups,
-            "device_busy_ms": busy,
+            "device_calls_by_group": calls, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
             "steps": m["steps"], "launches": counts,
             "top_kernels": [{"ms": t, "name": n, "calls": c}
@@ -2577,6 +2562,7 @@ def run_phases(torch, dev) -> list:
         free(torch)
     profile_eager_train()
     free(torch)
+    paged_profile = profile_paged(torch, dev)
 
     table = []
     for name, route, source, replaces in (
@@ -2608,11 +2594,14 @@ def run_phases(torch, dev) -> list:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        # the variant of the reported row (flash, paged), and the device
-        # launches one counted paged call makes
-        for key in ("variant", "device_launches_per_call"):
-            if key in r:
-                entry[key] = r[key]
+        # the variant of the reported row (flash, paged)
+        if "variant" in r:
+            entry["variant"] = r["variant"]
+        if name == "paged_attention":
+            # as the profiler counted and timed them
+            entry["device_launches_per_call"] = paged_profile[
+                "device_launches_per_call"]
+            entry["device_us_per_call"] = paged_profile["device_us_per_call"]
         table.append(entry)
     return table
 

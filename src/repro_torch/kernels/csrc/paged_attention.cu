@@ -34,7 +34,8 @@
 //     < 0) form slot-0 tiles at their own positions and are computed, so no
 //     output row is left unwritten.
 //   * Split-KV: split s of a tile covers keys [lo + s*KS, min(hi, lo +
-//     (s+1)*KS)) (KS: `split_keys`, chosen by the wrapper).  The decode
+//     (s+1)*KS)) (KS = kSplitKeys = 128, chosen by measurement: 64 and
+//     256 were slower; PERF.md §6).  The decode
 //     tokens (one token, up to 64 pages) get their parallelism from the
 //     splits, the prefill chunks from their tiles.  A tile of one split
 //     normalises and writes its output.  Otherwise each split writes its
@@ -43,7 +44,7 @@
 //     split order: the output is the same bits every run.  (Merging in
 //     the main kernel, by whichever split of a tile finished last, put a
 //     chain of dependent L2 reads on one block per tile and was slower;
-//     PERF.md, PR 19.)
+//     PERF.md §6.)
 //   * The work list is made on the card (`paged_attention_tiles`, one
 //     block): block-wide scans (the start of each token's run, the count
 //     of tile starts, the count of splits) give each tile its index and
@@ -51,8 +52,8 @@
 //     descriptor (first token, tokens, slot, key range [lo, hi) clipped to
 //     the table width x ps, splits, lowest and highest position), its
 //     work items (tile, split) and the tile's split count beside each of
-//     its tokens, for the combine.  No host sync: the host sizes
-//     everything from T and the table width.
+//     its tokens, for the combine.  No host sync: the launcher sizes
+//     everything from T, G and the table width (`tiling`).
 //   * Persistent blocks of 4 warps walk the work items (item x, x +
 //     gridDim.x, ...; gridDim.x: the blocks the card holds at once, at
 //     most the items there can be), for one KV head [and row block] each
@@ -111,8 +112,8 @@
 //   * the (g, 128) VMEM scratch for m and l: registers (bf16) or G floats
 //     in shared memory (fp32);
 //   * the sequential grid over one token's pages that carries the softmax
-//     state: a loop in the block over its split's keys, and a merge of the
-//     splits by the last one to finish;
+//     state: a loop in the block over its split's keys, and a combine
+//     kernel that merges the splits in split order;
 //   * scalar prefetch of tables / seg_ids / positions routing a BlockSpec
 //     index map: the pre-pass builds the work list and each block reads
 //     its own table entries;
@@ -318,6 +319,8 @@ constexpr int kTileFields = 8;
 constexpr int kRows = 64;           // query rows of a block: 4 warps x 16
 constexpr int kMmaThreads = 128;
 constexpr int kBK = 32;             // keys of a ring stage
+constexpr int kSplitKeys = 128;     // keys of a split, a multiple of kBK
+static_assert(kSplitKeys % kBK == 0, "a split is whole ring stages");
 constexpr int kPrepassThreads = 1024;
 constexpr int kCombineThreads = 256;  // 8 rows a block, a warp each
 
@@ -368,7 +371,7 @@ __global__ void __launch_bounds__(kPrepassThreads)
 paged_attention_tiles(const int* __restrict__ seg,
                       const int* __restrict__ pos, int* __restrict__ tiles,
                       int t, int s_slots, int key_cap, int tile_tokens,
-                      int split_keys, int max_splits, int window) {
+                      int max_splits, int window) {
   __shared__ int buf[32];
   int* desc = tiles + 2;
   int* items = desc + t * kTileFields;
@@ -398,7 +401,7 @@ paged_attention_tiles(const int* __restrict__ seg,
       }
       const int lo = window > 0 ? max(0, lo_pos - window + 1) : 0;
       const int hi = max(lo, min(hi_pos + 1, key_cap));
-      n_splits = max(1, (hi - lo + split_keys - 1) / split_keys);
+      n_splits = max(1, (hi - lo + kSplitKeys - 1) / kSplitKeys);
       int* d = desc + idx * kTileFields;
       d[0] = i;
       d[1] = n;
@@ -428,12 +431,11 @@ paged_attention_tiles(const int* __restrict__ seg,
 // tiles and one (K, V) bf16 stage they are converted into; then each key
 // of the split's pool row (and its K and V scales for a code pool).
 template <typename KT, int D>
-constexpr size_t mma_smem_bytes(int split_keys) {
+constexpr size_t mma_smem_bytes() {
   constexpr bool kCodes = sizeof(KT) == 1;
   constexpr size_t kTileBytes = sizeof(bf16) * kBK * (D + 8);
   return sizeof(bf16) * kRows * (D + 8) + (kCodes ? 2 : 4) * kTileBytes +
-         (kCodes ? 4 * kBK * D : 0) +
-         static_cast<size_t>(split_keys) * (kCodes ? 12 : 4);
+         (kCodes ? 4 * kBK * D : 0) + kSplitKeys * (kCodes ? 12 : 4);
 }
 
 // kBK key rows j0 .. j0+kBK-1 of the split (pool rows key_tok[j]) of KV
@@ -635,8 +637,7 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
                     float* __restrict__ part_o,   // (T*Hkv*G, splits, D)
                     float* __restrict__ part_ml,  // (T*Hkv*G, splits, 2)
                     int t, int hkv, int g, int ps, int p_pages,
-                    int split_keys, int max_splits, float scale_log2,
-                    int window) {
+                    int max_splits, float scale_log2, int window) {
   constexpr bool kCodes = sizeof(KT) == 1;
   constexpr int RS = D + 8;
   constexpr int kTile = kBK * RS;  // bf16 elements of a K or V tile
@@ -649,8 +650,8 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
   KT* codes = reinterpret_cast<KT*>(kv + (kCodes ? 2 : 4) * kTile);
   int* key_tok = reinterpret_cast<int*>(
       reinterpret_cast<unsigned char*>(codes) + (kCodes ? 4 * kBK * D : 0));
-  float* k_sc = reinterpret_cast<float*>(key_tok + split_keys);
-  float* v_sc = k_sc + split_keys;
+  float* k_sc = reinterpret_cast<float*>(key_tok + kSplitKeys);
+  float* v_sc = k_sc + kSplitKeys;
   const int ring_tile = kCodes ? kBK * D : kTile;  // elements of a stage half
   KT* ring = kCodes ? codes : reinterpret_cast<KT*>(kv);
 
@@ -697,8 +698,8 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
     }
     const int slot = desc[2];
     const int n_splits = desc[5];
-    const int k_begin = desc[3] + split * split_keys;
-    const int k_end = min(desc[4], k_begin + split_keys);
+    const int k_begin = desc[3] + split * kSplitKeys;
+    const int k_end = min(desc[4], k_begin + kSplitKeys);
     const int n_keys = k_end - k_begin;
     const int min_pos = desc[6];
     const int max_pos = desc[7];
@@ -719,7 +720,7 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
     // the pool row of every key of the split (and its scales); entries
     // past n_keys are row 0 with scales 0, never read through a live score
     const int* tab = tables + static_cast<size_t>(slot) * p_pages;
-    for (int j = tid; j < split_keys; j += kMmaThreads) {
+    for (int j = tid; j < kSplitKeys; j += kMmaThreads) {
       int tok = 0;
       float ks = 0.f, vs = 0.f;
       if (j < n_keys) {
@@ -909,25 +910,39 @@ paged_attention_combine(const int* __restrict__ tiles,
   }
 }
 
+// The work list's shape for G query heads a KV head and a table of
+// p_pages pages of ps: M tokens at most a tile (M * G <= kRows, one token
+// when G >= kRows), the most splits a tile can have, and the 64-row
+// blocks a tile's rows take.
+struct Tiling {
+  int tile_tokens, max_splits, row_blocks;
+};
+
+Tiling tiling(int g, int p_pages, int ps) {
+  Tiling s;
+  s.tile_tokens = max(1, kRows / g);
+  s.max_splits = max(1, (p_pages * ps + kSplitKeys - 1) / kSplitKeys);
+  s.row_blocks = (s.tile_tokens * g + kRows - 1) / kRows;
+  return s;
+}
+
 int launch_tiles(const int* seg, const int* pos, int* tiles, int t,
-                 int s_slots, int p_pages, int ps, int tile_tokens,
-                 int split_keys, int max_splits, int window,
-                 cudaStream_t stream) {
+                 int s_slots, int p_pages, int ps, const Tiling& s,
+                 int window, cudaStream_t stream) {
   paged_attention_tiles<<<1, kPrepassThreads, 0, stream>>>(
-      seg, pos, tiles, t, s_slots, p_pages * ps, tile_tokens, split_keys,
-      max_splits, window);
+      seg, pos, tiles, t, s_slots, p_pages * ps, s.tile_tokens, s.max_splits,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks the main grid's x dimension gets: as many work items as there
 // can be, at most what the card holds at once (blocks an SM x SMs,
 // shared among the z_blocks KV heads x row blocks).  The occupancy of an
-// instantiation is asked once per split_keys (its shared memory).
+// instantiation is asked once.
 template <typename KT, int D>
-int grid_x(size_t smem, int split_keys, int max_items, int z_blocks,
-           int* out) {
-  static int cached_keys = -1, cached_blocks = 0;
-  if (cached_keys != split_keys) {
+int grid_x(size_t smem, int max_items, int z_blocks, int* out) {
+  static int card_blocks = 0;
+  if (card_blocks == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -936,10 +951,9 @@ int grid_x(size_t smem, int split_keys, int max_items, int z_blocks,
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, paged_attention_mma<KT, D>, kMmaThreads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cached_blocks = max(1, per_sm) * sms;
-    cached_keys = split_keys;
+    card_blocks = max(1, per_sm) * sms;
   }
-  *out = max(1, min(max_items, cached_blocks / z_blocks));
+  *out = max(1, min(max_items, card_blocks / z_blocks));
   return 0;
 }
 
@@ -951,6 +965,18 @@ size_t worklist_bytes(int t, int max_splits) {
   return (n + 255) / 256 * 256;
 }
 
+// What a call launched, written to `launched` when it is not null: device
+// launches, then the thread blocks of the pre-pass, the main kernel and
+// the combine.
+void record(int* launched, int launches, int prepass, int main_blocks,
+            int combine) {
+  if (launched == nullptr) return;
+  launched[0] = launches;
+  launched[1] = prepass;
+  launched[2] = main_blocks;
+  launched[3] = combine;
+}
+
 // the pre-pass, the main kernel and (with more than one split possible)
 // the combine, on one stream
 template <typename KT, int D>
@@ -958,43 +984,50 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
                const float* k_scale, const float* v_scale, const int* tables,
                const int* seg, const int* pos, void* out, void* work, int t,
                int hkv, int g, int ps, int s_slots, int p_pages, float scale,
-               int window, int tile_tokens, int split_keys, int max_splits,
-               cudaStream_t stream) {
+               int window, int* launched, cudaStream_t stream) {
+  const Tiling s = tiling(g, p_pages, ps);
   int* tiles = static_cast<int*>(work);
-  float* part = max_splits > 1 ? reinterpret_cast<float*>(
-                                     static_cast<char*>(work) +
-                                     worklist_bytes(t, max_splits))
-                               : nullptr;
-  int err = launch_tiles(seg, pos, tiles, t, s_slots, p_pages, ps,
-                         tile_tokens, split_keys, max_splits, window, stream);
+  float* part = s.max_splits > 1 ? reinterpret_cast<float*>(
+                                       static_cast<char*>(work) +
+                                       worklist_bytes(t, s.max_splits))
+                                 : nullptr;
+  int err = launch_tiles(seg, pos, tiles, t, s_slots, p_pages, ps, s,
+                         window, stream);
   if (err != 0) return err;
-  const size_t smem = mma_smem_bytes<KT, D>(split_keys);
+  constexpr size_t smem = mma_smem_bytes<KT, D>();
   auto kernel = paged_attention_mma<KT, D>;
   err = static_cast<int>(allow_smem(kernel, smem));
   if (err != 0) return err;
-  const int z_blocks = hkv * ((tile_tokens * g + kRows - 1) / kRows);
+  const int z_blocks = hkv * s.row_blocks;
   int gx = 0;
-  err = grid_x<KT, D>(smem, split_keys, t * max_splits, z_blocks, &gx);
+  err = grid_x<KT, D>(smem, t * s.max_splits, z_blocks, &gx);
   if (err != 0) return err;
   float* part_ml =
       part == nullptr
           ? nullptr
-          : part + static_cast<size_t>(t) * hkv * g * max_splits * D;
+          : part + static_cast<size_t>(t) * hkv * g * s.max_splits * D;
   kernel<<<dim3(gx, 1, z_blocks), kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const KT*>(k_pages),
       static_cast<const KT*>(v_pages), k_scale, v_scale, tables, pos, tiles,
       static_cast<bf16*>(out), part, part_ml, t, hkv, g, ps, p_pages,
-      split_keys, max_splits, scale * kLog2e, window);
+      s.max_splits, scale * kLog2e, window);
   err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || max_splits == 1) return err;
+  if (err != 0) return err;
+  if (s.max_splits == 1) {
+    record(launched, 2, 1, gx * z_blocks, 0);
+    return 0;
+  }
   constexpr int kRowsABlock = kCombineThreads / 32;
   const size_t rows = static_cast<size_t>(t) * hkv * g;
   const unsigned blocks =
       static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock);
   paged_attention_combine<<<blocks, kCombineThreads, 0, stream>>>(
       tiles, part, part_ml, static_cast<bf16*>(out), t, hkv, g, D,
-      max_splits);
-  return static_cast<int>(cudaGetLastError());
+      s.max_splits);
+  err = static_cast<int>(cudaGetLastError());
+  if (err == 0)
+    record(launched, 3, 1, gx * z_blocks, static_cast<int>(blocks));
+  return err;
 }
 
 // registers, local (spill) bytes, dynamic shared bytes, blocks per SM,
@@ -1034,7 +1067,8 @@ struct Args {
   void* work;
   int t, hkv, g, ps, s_slots, p_pages;
   float scale;
-  int window, tile_tokens, split_keys, max_splits;
+  int window;
+  int* launched;
   cudaStream_t stream;
 };
 
@@ -1047,23 +1081,23 @@ int run(int q_dtype, const Args& a, int* attrs) {
       return kernel_attrs(paged_attention_kernel<float, KT, D>,
                           simt_smem_bytes(D, a.g, a.ps), kThreads, a.ps,
                           attrs);
-    return launch_simt<KT, D>(a.q, a.k_pages, a.v_pages, a.k_scale,
-                              a.v_scale, a.tables, a.seg, a.pos, a.out, a.t,
-                              a.hkv, a.g, a.ps, a.s_slots, a.p_pages,
-                              a.scale, a.window, a.stream);
+    const int err = launch_simt<KT, D>(
+        a.q, a.k_pages, a.v_pages, a.k_scale, a.v_scale, a.tables, a.seg,
+        a.pos, a.out, a.t, a.hkv, a.g, a.ps, a.s_slots, a.p_pages, a.scale,
+        a.window, a.stream);
+    if (err == 0) record(a.launched, 1, 0, a.t * a.hkv, 0);
+    return err;
   }
   if constexpr (std::is_same<KT, float>::value) {
     return -2;  // bf16 queries take a bf16, int8 or fp8 pool
   } else {
     if (attrs != nullptr)
-      return kernel_attrs(paged_attention_mma<KT, D>,
-                          mma_smem_bytes<KT, D>(a.split_keys), kMmaThreads,
-                          kBK, attrs);
+      return kernel_attrs(paged_attention_mma<KT, D>, mma_smem_bytes<KT, D>(),
+                          kMmaThreads, kBK, attrs);
     return launch_mma<KT, D>(a.q, a.k_pages, a.v_pages, a.k_scale, a.v_scale,
                              a.tables, a.seg, a.pos, a.out, a.work, a.t,
                              a.hkv, a.g, a.ps, a.s_slots, a.p_pages,
-                             a.scale, a.window, a.tile_tokens, a.split_keys,
-                             a.max_splits, a.stream);
+                             a.scale, a.window, a.launched, a.stream);
   }
 }
 
@@ -1086,9 +1120,6 @@ int dispatch_d(int q_dtype, int d, const Args& a, int* attrs) {
 
 int dispatch(int q_dtype, int kv_dtype, int d, const Args& a, int* attrs) {
   if (q_dtype != 0 && q_dtype != 1) return -3;
-  if (q_dtype == 1 && (a.split_keys <= 0 || a.split_keys % kBK != 0 ||
-                       a.tile_tokens <= 0 || a.max_splits <= 0))
-    return -4;
   switch (kv_dtype) {
     case 0:
       return dispatch_d<float>(q_dtype, d, a, attrs);
@@ -1107,73 +1138,78 @@ int dispatch(int q_dtype, int kv_dtype, int d, const Args& a, int* attrs) {
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn.  q/out
 // take 0 (the "simt" kernel, one launch, any pool) or 1 (the "mma" path:
-// the pre-pass, the main kernel and, when max_splits > 1, the combine; a
-// bf16, int8 or fp8 pool).  k_scale/v_scale are null for an unquantized
-// pool.  window <= 0 means no window.  The mma path also takes `work`, a
-// 256-byte aligned workspace of `repro_paged_workspace_bytes` bytes (the
-// int32 work list, then T * Hkv * G * max_splits * (D + 2) fp32 of split
-// results when max_splits > 1); tile_tokens (M) tokens at most a tile,
-// split_keys (KS, a multiple of 32) keys a split, max_splits >= ceil(P *
-// ps / KS).  Returns the first nonzero CUDA error of the launches (0 on
-// success), -1 for an unsupported head_dim, -2 for an unsupported pool
-// dtype, -3 for an unsupported q dtype, -4 for an invalid tiling.
+// the pre-pass, the main kernel and, when a tile can have more than one
+// split, the combine; a bf16, int8 or fp8 pool).  k_scale/v_scale are
+// null for an unquantized pool.  window <= 0 means no window.  The mma
+// path also takes `work`, a 256-byte aligned workspace of
+// `repro_paged_workspace_bytes` bytes.  `launched`, when not null, gets 4
+// ints: the device launches made, then the thread blocks of the pre-pass,
+// the main kernel and the combine.  Returns the first nonzero CUDA error
+// of the launches (0 on success), -1 for an unsupported head_dim, -2 for
+// an unsupported pool dtype, -3 for an unsupported q dtype.
 extern "C" int repro_paged_attention(
     int q_dtype, int kv_dtype, int d, const void* q, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale,
     const void* tables, const void* seg, const void* pos, void* out,
     void* work, int t, int hkv, int g, int ps, int s_slots, int p_pages,
-    float scale, int window, int tile_tokens, int split_keys, int max_splits,
-    void* stream) {
+    float scale, int window, int* launched, void* stream) {
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(tables), static_cast<const int*>(seg),
                static_cast<const int*>(pos), out, work, t, hkv, g, ps,
-               s_slots, p_pages, scale, window, tile_tokens, split_keys,
-               max_splits, static_cast<cudaStream_t>(stream)};
+               s_slots, p_pages, scale, window, launched,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(q_dtype, kv_dtype, d, a, nullptr);
 }
 
-// Bytes of the mma path's workspace for T tokens of (Hkv, G, D) and
-// max_splits splits a tile at most.
-extern "C" long long repro_paged_workspace_bytes(int t, int hkv, int g,
-                                                 int d, int max_splits) {
-  size_t n = worklist_bytes(t, max_splits);
-  if (max_splits > 1)
-    n += sizeof(float) * static_cast<size_t>(t) * hkv * g * max_splits *
+// The mma path's work list for G query heads a KV head over a table of
+// p_pages pages of ps: out[0] tokens at most a tile, out[1] keys a split,
+// out[2] the most splits a tile can have.
+extern "C" void repro_paged_tiling(int g, int p_pages, int ps, int* out) {
+  const Tiling s = tiling(g, p_pages, ps);
+  out[0] = s.tile_tokens;
+  out[1] = kSplitKeys;
+  out[2] = s.max_splits;
+}
+
+// Bytes of the mma path's workspace for T tokens of (Hkv, G, D) over a
+// table of p_pages pages of ps: the int32 work list, then, when a tile can
+// have more than one split, T * Hkv * G * max_splits * (D + 2) fp32 of
+// split results (none for hkv = 0: the work list alone).
+extern "C" long long repro_paged_workspace_bytes(int t, int hkv, int g, int d,
+                                                 int p_pages, int ps) {
+  const Tiling s = tiling(g, p_pages, ps);
+  size_t n = worklist_bytes(t, s.max_splits);
+  if (s.max_splits > 1)
+    n += sizeof(float) * static_cast<size_t>(t) * hkv * g * s.max_splits *
          (d + 2);
   return static_cast<long long>(n);
 }
 
-// The pre-pass alone: writes the work list of the mma path into `tiles`
-// (laid out for max_splits), as `repro_paged_attention` does before its
-// main kernel.  Returns the CUDA error of the launch, -4 for an invalid
-// tiling.
+// The pre-pass alone: writes the mma path's work list for G query heads a
+// KV head into `tiles` (a workspace of at least
+// `repro_paged_workspace_bytes(t, 0, g, 0, p_pages, ps)` bytes), as
+// `repro_paged_attention` does before its main kernel.  Returns the CUDA
+// error of the launch.
 extern "C" int repro_paged_tiles(const void* seg, const void* pos,
-                                 void* tiles, int t, int s_slots,
-                                 int p_pages, int ps, int tile_tokens,
-                                 int split_keys, int max_splits, int window,
-                                 void* stream) {
-  if (split_keys <= 0 || tile_tokens <= 0 || max_splits <= 0) return -4;
+                                 void* tiles, int t, int s_slots, int p_pages,
+                                 int ps, int g, int window, void* stream) {
   return launch_tiles(static_cast<const int*>(seg),
                       static_cast<const int*>(pos), static_cast<int*>(tiles),
-                      t, s_slots, p_pages, ps, tile_tokens, split_keys,
-                      max_splits, window, static_cast<cudaStream_t>(stream));
+                      t, s_slots, p_pages, ps, tiling(g, p_pages, ps), window,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The resources of the main kernel that `repro_paged_attention` launches
-// for (q dtype, pool dtype, d) at group size g, page size ps and
-// split_keys: out[0] registers a thread, out[1] local (spill) bytes a
-// thread, out[2] dynamic shared bytes a block, out[3] blocks an SM can
-// hold, out[4] threads a block, out[5] keys a tile (the page size for the
-// simt kernel).  Returns as `repro_paged_attention` does.
+// for (q dtype, pool dtype, d) at group size g and page size ps: out[0]
+// registers a thread, out[1] local (spill) bytes a thread, out[2] dynamic
+// shared bytes a block, out[3] blocks an SM can hold, out[4] threads a
+// block, out[5] keys a tile (the page size for the simt kernel).  Returns
+// as `repro_paged_attention` does.
 extern "C" int repro_paged_attention_attrs(int q_dtype, int kv_dtype, int d,
-                                           int g, int ps, int split_keys,
-                                           int* out) {
+                                           int g, int ps, int* out) {
   Args a{};
   a.g = g;
   a.ps = ps;
-  a.tile_tokens = 1;
-  a.split_keys = split_keys;
-  a.max_splits = 1;
   return dispatch(q_dtype, kv_dtype, d, a, out);
 }

@@ -46,13 +46,8 @@ from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
 NEG_INF = -1e30
 MAX_SMEM = 232448          # bytes of shared memory one block may use
 
-# the bf16 paged kernel's work list: a query tile holds up to TILE_ROWS
-# rows (tokens x the G heads of one KV head), a split up to SPLIT_KEYS keys
-# (a multiple of KEY_TILE, the keys of one shared-memory stage)
-TILE_ROWS = 64
-SPLIT_KEYS = 128
-KEY_TILE = 32
-# the columns of a tile descriptor, as the pre-pass writes them
+# the columns of a tile descriptor of the bf16 paged kernel's work list,
+# as its pre-pass writes them
 TILE_FIELDS = ("first", "count", "slot", "lo", "hi", "splits", "min_pos",
                "max_pos")
 
@@ -60,6 +55,8 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 
 counter = LaunchCounter("paged_attention")
+# what the last paged call launched, as its C entry reports it
+_launched = (ctypes.c_int * 4)()
 decode_counter = LaunchCounter("decode_attention")
 mixed_counter = LaunchCounter("mixed_attention")
 
@@ -69,18 +66,23 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int),
+                                               ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        tiling_fn = lib.repro_paged_tiling
+        tiling_fn.argtypes = ([ctypes.c_int] * 3
+                              + [ctypes.POINTER(ctypes.c_int)])
+        tiling_fn.restype = None
         ws = lib.repro_paged_workspace_bytes
-        ws.argtypes = [ctypes.c_int] * 5
+        ws.argtypes = [ctypes.c_int] * 6
         ws.restype = ctypes.c_longlong
         tiles = lib.repro_paged_tiles
-        tiles.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+        tiles.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                           + [ctypes.c_void_p])
         tiles.restype = ctypes.c_int
         attrs = lib.repro_paged_attention_attrs
-        attrs.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         attrs.restype = ctypes.c_int
     return lib
 
@@ -90,35 +92,31 @@ def smem_bytes(g: int, d: int, ps: int) -> int:
     return 4 * (2 * ps * d + 2 * g * d + g * ps + 3 * g)
 
 
-def tile_tokens(g: int) -> int:
-    """M: the tokens of one query tile of the bf16 kernel, so that M * G
-    <= TILE_ROWS (one token when G >= TILE_ROWS)."""
-    return max(1, TILE_ROWS // g)
-
-
-def launch_shape(g: int, p_pages: int, ps: int) -> dict:
-    """What the bf16 kernel is given for G query heads a KV head against a
-    table of ``p_pages`` pages of ``ps``, from the shapes alone (nothing
-    is read back): the tokens a tile holds, the keys a split holds, the
-    most splits a tile can have, its 64-row blocks, and the device
-    launches of a call (the pre-pass, the main kernel's persistent blocks
-    over at most T x ``max_splits`` work items, and the combine when a
-    tile can have more than one split)."""
-    return _launch_shape(g, p_pages, ps, SPLIT_KEYS)
+@functools.lru_cache(maxsize=256)
+def tiling(g: int, p_pages: int, ps: int) -> dict:
+    """The bf16 kernel's work list for G query heads a KV head against a
+    table of ``p_pages`` pages of ``ps``, as its source fixes it: the
+    tokens a tile holds at most (64 rows / G), the keys a split holds, and
+    the most splits a tile can have."""
+    vals = (ctypes.c_int * 3)()
+    _lib().repro_paged_tiling(g, p_pages, ps, vals)
+    return {"tile_tokens": vals[0], "split_keys": vals[1],
+            "max_splits": vals[2]}
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_shape(g, p_pages, ps, split_keys) -> dict:
-    m = tile_tokens(g)
-    max_splits = max(1, -(-p_pages * ps // split_keys))
-    return {"tile_tokens": m, "split_keys": split_keys,
-            "max_splits": max_splits, "row_blocks": -(-m * g // TILE_ROWS),
-            "launches": 3 if max_splits > 1 else 2}
+def _workspace_bytes(t, hkv, g, d, p_pages, ps) -> int:
+    return int(_lib().repro_paged_workspace_bytes(t, hkv, g, d, p_pages,
+                                                  ps))
 
 
-@functools.lru_cache(maxsize=256)
-def _workspace_bytes(t, hkv, g, d, max_splits) -> int:
-    return int(_lib().repro_paged_workspace_bytes(t, hkv, g, d, max_splits))
+def last_launch() -> dict:
+    """What the last CUDA call of :func:`paged_attention_fwd` launched, as
+    its C entry reports it: device launches, and the thread blocks of the
+    pre-pass, the main kernel and the combine (the "simt" kernel is one
+    launch of main blocks)."""
+    return dict(zip(("device_launches", "prepass_blocks", "main_blocks",
+                     "combine_blocks"), _launched))
 
 
 def paged_tiles_plain(seg_ids: torch.Tensor, positions: torch.Tensor,
@@ -152,26 +150,22 @@ def paged_tiles_plain(seg_ids: torch.Tensor, positions: torch.Tensor,
 
 
 def paged_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
-                tables_shape, ps: int, tile_tokens: int, split_keys: int,
+                tables_shape, ps: int, g: int,
                 window: Optional[int] = None) -> torch.Tensor:
-    """The work list of :func:`paged_tiles_plain`, built by the bf16
-    kernel's pre-pass for CUDA tensors (it reads the tile count back, so
-    it syncs: a check, not part of the kernel's call).  CPU tensors take
-    the plain version."""
-    if seg_ids.device.type == "cpu":
-        return paged_tiles_plain(seg_ids, positions, tables_shape, ps,
-                                 tile_tokens, split_keys, window)
+    """The bf16 kernel's work list for G query heads a KV head, built by
+    its pre-pass on the card: :func:`paged_tiles_plain` at
+    :func:`tiling`'s tile tokens and split keys.  It reads the tile count
+    back, so it syncs: a check, not part of the kernel's call.  CUDA
+    tensors only."""
     t = seg_ids.shape[0]
     s, p = tables_shape
-    max_splits = max(1, -(-p * ps // split_keys))
-    ws = torch.empty(2 + t * (len(TILE_FIELDS) + max_splits + 1),
+    ws = torch.empty(_workspace_bytes(t, 0, g, 0, p, ps) // 4,
                      dtype=torch.int32, device=seg_ids.device)
     if t == 0:
         return ws[:0].reshape(0, len(TILE_FIELDS))
     err = _lib().repro_paged_tiles(
         seg_ids.data_ptr(), positions.data_ptr(), ws.data_ptr(), t, s, p,
-        ps, tile_tokens, split_keys, max_splits,
-        int(window) if window else 0,
+        ps, g, int(window) if window else 0,
         torch.cuda.current_stream(seg_ids.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention pre-pass launch failed "
@@ -200,8 +194,7 @@ def kernel_attributes(q_dtype: torch.dtype, pool_dtype: torch.dtype,
                          f"{pool_dtype} pool, head_dim {head_dim}")
     vals = (ctypes.c_int * 6)()
     err = _lib().repro_paged_attention_attrs(
-        Q_CODES[q_dtype], _KV_CODES[pool_dtype], head_dim, g, ps,
-        SPLIT_KEYS, vals)
+        Q_CODES[q_dtype], _KV_CODES[pool_dtype], head_dim, g, ps, vals)
     if err != 0:
         raise RuntimeError(f"paged_attention attributes failed (code "
                            f"{err})")
@@ -255,8 +248,9 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     three device launches under one C call (the pre-pass that builds the
     work list of query tiles and key splits on the card, the main kernel
     over it, and the combine of the splits; two when the table allows one
-    split), fp32 q the CUDA-core variant, one launch.  ``counter`` counts
-    calls.  Neither reads anything back to the host."""
+    split), fp32 q the CUDA-core variant, one launch; :func:`last_launch`
+    reads what the last call launched.  ``counter`` counts calls.  Neither
+    reads anything back to the host."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, tables, seg_ids, positions, scale=scale,
@@ -292,9 +286,6 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if not mma and smem_bytes(g, d, ps) > MAX_SMEM:
         raise ValueError(f"paged_attention_fwd: page_size {ps} x head_dim "
                          f"{d} needs more shared memory than a block has")
-    if SPLIT_KEYS <= 0 or SPLIT_KEYS % KEY_TILE:
-        raise ValueError(f"paged_attention_fwd: SPLIT_KEYS {SPLIT_KEYS} is "
-                         f"not a positive multiple of {KEY_TILE}")
     tensors = [q, k_pages, v_pages, tables, seg_ids, positions]
     if quantized:
         tensors += [k_scale, v_scale]
@@ -315,13 +306,11 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                          "16-byte aligned (the bf16 kernel copies rows in "
                          "16-byte cp.async chunks)")
     out = torch.empty_like(q)
-    if t == 0:
+    if out.numel() == 0:
         return out
-    shape = launch_shape(g, p, ps)
     work = None
     if mma:
-        work = torch.empty(_workspace_bytes(t, hkv, g, d,
-                                            shape["max_splits"]),
+        work = torch.empty(_workspace_bytes(t, hkv, g, d, p, ps),
                            dtype=torch.uint8, device=q.device)
     fn = _lib().repro_paged_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -332,9 +321,8 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
              tables.data_ptr(), seg_ids.data_ptr(), positions.data_ptr(),
              out.data_ptr(), None if work is None else work.data_ptr(),
              t, hkv, g, ps, s, p,
-             float(scale), int(window) if window else 0,
-             shape["tile_tokens"], shape["split_keys"],
-             shape["max_splits"], stream)
+             float(scale), int(window) if window else 0, _launched,
+             stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(code {err})")

@@ -147,9 +147,10 @@ def case(layout, pool, hkv=2, g=2, d=16, seed=7):
             np.asarray(seg, np.int32), np.asarray(pos, np.int32), window)
 
 
-# (tile tokens, split keys): the kernel's own at G = 2, and small ones
-# that cut these short sequences into several tiles and splits
-TILINGS = ((DA.tile_tokens(2), DA.SPLIT_KEYS), (2, 8), (3, 4))
+# (tile tokens, split keys): the kernel's own at G = 2 (64 rows / G, 128
+# keys a split; ``DA.tiling`` reads them from the source on the card), and
+# small ones that cut these short sequences into several tiles and splits
+TILINGS = ((32, 128), (2, 8), (3, 4))
 
 
 def _tiled(q, kp, vp, ksc, vsc, tables, seg, pos, window, tiling, hkv,
@@ -273,16 +274,32 @@ def test_tiles_clip_to_the_table_width_and_cover_every_token():
     assert sum(r[1] for r in rows) == 4
 
 
-def test_launch_shape_sizes_the_launch_from_shapes():
-    shape = DA.launch_shape(8, 64, 16)
-    assert (shape["tile_tokens"], shape["row_blocks"],
-            shape["max_splits"], shape["launches"]) == (
-                8, 1, -(-1024 // DA.SPLIT_KEYS), 3)
-    # G above a tile's rows: one token a tile, cut into 64-row blocks;
-    # one split possible: no combine
-    shape = DA.launch_shape(128, 2, 16)
-    assert (shape["tile_tokens"], shape["row_blocks"],
-            shape["max_splits"], shape["launches"]) == (1, 2, 1, 2)
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tiles_cover_every_token_with_its_key_range(seed):
+    """Random runs of segment ids: the tiles cover the tokens in order,
+    each holds one clipped slot and at most M tokens, and its key range
+    and splits are those of its tokens' positions."""
+    gen = torch.Generator().manual_seed(seed)
+    t, m, ks, ps, window = 200, 5, 16, 4, 9 if seed else None
+    ids = torch.randint(-1, 5, (t,), generator=gen)
+    seg = ids.repeat_interleave(torch.randint(1, 9, (t,), generator=gen))
+    seg = seg[:t].to(torch.int32)
+    pos = torch.randint(0, 60, (t,), generator=gen).to(torch.int32)
+    rows = DA.paged_tiles_plain(seg, pos, (4, 12), ps, m, ks,
+                                window).tolist()
+    slots = seg.long().clamp(0, 3)
+    nxt = 0
+    for first, count, slot, lo, hi, splits, lo_pos, hi_pos in rows:
+        assert first == nxt and 1 <= count <= m
+        nxt = first + count
+        toks = slice(first, nxt)
+        assert (slots[toks] == slot).all()
+        assert (lo_pos, hi_pos) == (int(pos[toks].min()),
+                                    int(pos[toks].max()))
+        assert lo == (max(0, lo_pos - window + 1) if window else 0)
+        assert hi == max(lo, min(hi_pos + 1, 12 * ps))
+        assert splits == max(1, -(-(hi - lo) // ks))
+    assert nxt == t
 
 
 # ----------------------------------------------------------------------
@@ -339,16 +356,18 @@ def _run(x, fn, window=None):
 @pytest.mark.parametrize("window", [None, 40])
 @pytest.mark.parametrize("ps", [4, 8, 16])
 @pytest.mark.parametrize("pool", ["bf16", "int8", "fp8_e4m3"])
-def test_cuda_paged_mma_matches_plain(cuda_device, monkeypatch, pool, ps,
-                                      window):
+def test_cuda_paged_mma_matches_plain(cuda_device, pool, ps, window):
     """bf16 q over each pool and page size, in the serving layout, with
-    64-key splits so that every long sequence takes several."""
-    monkeypatch.setattr(DA, "SPLIT_KEYS", 64)
+    sequences of up to 300 keys: up to 3 splits of 128 keys."""
     x = card_case(cuda_device, pool, ps)
     before = DA.counter.launches
     out = _run(x, DA.paged_attention_fwd, window)
     torch.cuda.synchronize()
     assert DA.counter.launches == before + 1
+    assert DA.last_launch()["device_launches"] == 3
+    if window is None:  # some sequence is cut into several splits
+        tiles = DA.paged_tiles(x["seg"], x["pos"], x["tables"].shape, ps, 8)
+        assert int(tiles[:, 5].max()) > 1
     ref = _run(x, DA.paged_attention_plain, window)
     live = x["seg"] >= 0
     assert bool(torch.isfinite(out.float()).all())
@@ -358,8 +377,7 @@ def test_cuda_paged_mma_matches_plain(cuda_device, monkeypatch, pool, ps,
 
 @requires_cuda
 @pytest.mark.parametrize("d", [16, 32, 64, 256])
-def test_cuda_paged_mma_head_dims(cuda_device, monkeypatch, d):
-    monkeypatch.setattr(DA, "SPLIT_KEYS", 96)
+def test_cuda_paged_mma_head_dims(cuda_device, d):
     x = card_case(cuda_device, "bf16", 16, d=d, hkv=1, g=4)
     out = _run(x, DA.paged_attention_fwd)
     ref = _run(x, DA.paged_attention_plain)
@@ -385,13 +403,10 @@ def test_cuda_paged_mma_group_sizes(cuda_device, g):
 @requires_cuda
 def test_cuda_paged_mma_serving_shape_and_determinism(cuda_device):
     """gemma-2b's attention (G = 8, D = 256, ps 16) at serving's 1024-key
-    cap: tiles of 8 tokens, up to 4 splits of the default 256 keys, every
-    call the same bits."""
+    cap: tiles of 8 tokens, several splits, every call the same bits."""
     x = card_case(cuda_device, "bf16", 16, d=256, hkv=1, g=8,
                   max_len=1024, chunk=100)
-    tiles = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(),
-                                 x["tables"].shape, 16, DA.tile_tokens(8),
-                                 DA.SPLIT_KEYS)
+    tiles = DA.paged_tiles(x["seg"], x["pos"], x["tables"].shape, 16, 8)
     assert int(tiles[:, 1].max()) == 8 and int(tiles[:, 5].max()) > 1
     a = _run(x, DA.paged_attention_fwd)
     b = _run(x, DA.paged_attention_fwd)
@@ -407,8 +422,9 @@ def test_cuda_paged_mma_serving_shape_and_determinism(cuda_device):
 @pytest.mark.parametrize("window", [None, 37])
 @pytest.mark.parametrize("t", [7, 1024, 2600])
 def test_cuda_prepass_matches_plain(cuda_device, t, window):
-    """The device pre-pass's work list equals paged_tiles_plain's, for T
-    of one chunk of its block and of several (the scans' carries)."""
+    """The device pre-pass's work list equals paged_tiles_plain's at the
+    kernel's tiling, for T of one chunk of its block and of several (the
+    scans' carries), at G = 8 (8-token tiles) and G = 3 (21)."""
     gen = torch.Generator().manual_seed(t)
     # runs of 1-20 tokens of one segment id (-1: padding), ids clipped
     # to the 4 slots of the table
@@ -416,17 +432,25 @@ def test_cuda_prepass_matches_plain(cuda_device, t, window):
     lens = torch.randint(1, 21, (t,), generator=gen)
     seg = ids.repeat_interleave(lens)[:t].to(torch.int32)
     pos = torch.randint(0, 500, (t,), generator=gen).to(torch.int32)
-    want = DA.paged_tiles_plain(seg, pos, (4, 20), 16, 8, 64, window)
-    got = DA.paged_tiles(seg.to(cuda_device), pos.to(cuda_device), (4, 20),
-                         16, 8, 64, window)
-    assert torch.equal(got.cpu(), want)
+    for g in (8, 3):
+        tiling = DA.tiling(g, 20, 16)
+        assert tiling["tile_tokens"] == 64 // g
+        want = DA.paged_tiles_plain(seg, pos, (4, 20), 16,
+                                    tiling["tile_tokens"],
+                                    tiling["split_keys"], window)
+        got = DA.paged_tiles(seg.to(cuda_device), pos.to(cuda_device),
+                             (4, 20), 16, g, window)
+        assert torch.equal(got.cpu(), want)
 
 
 @requires_cuda
 @pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8])
 def test_cuda_paged_kernel_attributes(cuda_device, pool):
+    """The D = 256 budget the source note rests on: no spill, two blocks
+    an SM, 32-key tiles."""
     a = DA.kernel_attributes(torch.bfloat16, pool, 256, 8, 16)
     assert a["variant"] == "mma" and a["threads"] == 128
-    assert a["blocks_per_sm"] >= 1 and a["smem_bytes"] > 0
+    assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 2
+    assert a["key_tile"] == 32 and a["smem_bytes"] > 0
     assert DA.kernel_attributes(torch.float32, torch.float32, 256, 8,
                                 16)["variant"] == "simt"
