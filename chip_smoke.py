@@ -65,7 +65,10 @@ Output, one line each:
     attention (gemma-2b prefill, an offset+window row, an fp32 row; each
     with its kernel's variant, registers, spill bytes, shared memory and
     blocks per SM);
-    decode attention (gemma-2b decode at ragged lengths, fp32, window);
+    decode attention (gemma-2b decode at ragged lengths, fp32, window;
+    each with its variant, "mma" for bf16 on the tensor cores with
+    split-KV and "simt" for fp32, its kernel's resources and the device
+    launches and thread blocks of a call as the C entry reports them);
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
     state); flash and decode attention at jamba's shapes; mixed attention
     (the paged row's inputs gathered into per-slot caches at bf16, fp32,
@@ -101,13 +104,16 @@ Output, one line each:
     and ``*_decode_profile`` of the three step-builder paths and
     ``eager_train_profile``: device time and kernel calls by kernel group
     or eager op, idle share; ``paged_attention_profile``: the bf16 paged
-    rows' device us a call by kernel and device launches a call), last,
+    rows' device us a call by kernel and device launches a call;
+    ``decode_attention_profile``: the same for the gemma bf16 and jamba
+    decode rows, main kernel and combine), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
-    path's main run (wrapper calls; the paged entry adds the device
-    launches and device us of one bf16 x bf16 call, as
-    ``paged_attention_profile`` counted them; bf16 serving for paged
+    path's main run (wrapper calls; the paged and decode entries add
+    their variant and the device launches and device us of one call of
+    the reported row, as ``paged_attention_profile`` and
+    ``decode_attention_profile`` counted them; bf16 serving for paged
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
@@ -478,15 +484,56 @@ def phase_paged_attention(torch, dev) -> dict:
     return result
 
 
-def profile_paged(torch, dev, calls: int = 20) -> dict:
-    """The bf16 paged rows (``paged_inputs``, seed 11) under
-    ``torch.profiler``: ``calls`` counted calls each; the device us a call
-    of each kernel they launched (pre-pass, main, combine) and in all, and
-    the device launches a counted call made, both as the profiler counted
-    them.  The counted calls are the profiler's second cycle: the first,
-    a warm-up, is dropped (a session's first kernels can go unrecorded).
-    Run with the profiled runs, last.  Returns the bf16 x bf16 line."""
+def profile_kernels(torch, kern, counter, group: str, want: int,
+                    part=lambda name: name, calls: int = 20,
+                    tries: int = 3) -> dict:
+    """``calls`` counted calls of ``kern`` under ``torch.profiler``: the
+    device us a call and device launches a call of each kernel of
+    ``group`` (keyed by ``part(name)``) and in all, as the profiler
+    counted them.  The counted calls are the profiler's second cycle: the
+    first, a warm-up, is dropped (a session's first kernels can go
+    unrecorded).  A session that counted other than ``want`` device
+    launches a call (the C entry's record; the profiler dropped kernel
+    records) is run again, up to ``tries`` sessions: ``sessions`` says how
+    many ran, and a count that still differs is reported as counted."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    for session in range(1, tries + 1):
+        cycles = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: cycles.append(
+                         device_time(p)[1])) as prof:
+            for _ in range(2):
+                before = counter.launches
+                for _ in range(calls):
+                    kern()
+                torch.cuda.synchronize()
+                prof.step()
+        n = counter.launches - before
+        (top,) = cycles
+        kernels = {}
+        for ms, name, c in top:
+            if _kernel_group(name) == group:
+                k = kernels.setdefault(part(name), {"device_us_per_call": 0.0,
+                                                    "launches_per_call": 0.0})
+                k["device_us_per_call"] += ms * 1e3 / n
+                k["launches_per_call"] += c / n
+        launches = sum(k["launches_per_call"] for k in kernels.values())
+        if abs(launches - want) < 1e-9:
+            break
+    return {"calls": n, "sessions": session,
+            "device_us_per_call": sum(
+                k["device_us_per_call"] for k in kernels.values()),
+            "device_launches_per_call": launches, "kernels": kernels}
+
+
+def profile_paged(torch, dev) -> dict:
+    """The bf16 paged rows (``paged_inputs``, seed 11) under
+    ``profile_kernels``: the device us a call of each kernel they
+    launched (pre-pass, main, combine) and in all, and the device launches
+    a call.  Run with the profiled runs, last.  Returns the bf16 x bf16
+    line."""
     from repro_torch.kernels import decode_attention as DA
 
     x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
@@ -502,34 +549,10 @@ def profile_paged(torch, dev, calls: int = 20) -> dict:
                 scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
         kern()
         torch.cuda.synchronize()
-        cycles = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1),
-                     on_trace_ready=lambda p: cycles.append(
-                         device_time(p)[1])) as prof:
-            for _ in range(2):
-                before = DA.counter.launches
-                for _ in range(calls):
-                    kern()
-                torch.cuda.synchronize()
-                prof.step()
-        n = DA.counter.launches - before
-        (top,) = cycles
-        kernels = {}
-        for ms, name, c in top:
-            if _kernel_group(name) == "paged_attention":
-                k = kernels.setdefault(name, {"device_us_per_call": 0.0,
-                                              "launches_per_call": 0.0})
-                k["device_us_per_call"] += ms * 1e3 / n
-                k["launches_per_call"] += c / n
         row = {"phase": "paged_attention_profile", "pool": pool,
-               "q_dtype": q_dtype, "calls": n,
-               "device_us_per_call": sum(
-                   k["device_us_per_call"] for k in kernels.values()),
-               "device_launches_per_call": sum(
-                   k["launches_per_call"] for k in kernels.values()),
-               "kernels": kernels}
+               "q_dtype": q_dtype,
+               **profile_kernels(torch, kern, DA.counter, "paged_attention",
+                                 DA.last_launch()["device_launches"])}
         emit(row)
         if result is None:
             result = row
@@ -649,32 +672,46 @@ def phase_flash(torch, dev) -> dict:
     return result
 
 
+def decode_inputs(torch, dev, row):
+    """q, caches, lengths (ragged in 1..Smax, the first 1 and the last
+    Smax; on the host and on the card) and the keyword arguments of a
+    DECODE_ROWS row."""
+    label, dt, b, hkv, g, d, smax, window = row
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(dtype)
+    kc = torch.randn((b, hkv, smax, d), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((b, hkv, smax, d), generator=gen, device=dev).to(dtype)
+    lens_h = torch.randint(1, smax + 1, (b,),
+                           generator=torch.Generator().manual_seed(15))
+    lens_h[0], lens_h[-1] = 1, smax
+    lens = lens_h.to(torch.int32).to(dev)
+    return q, kc, vc, lens_h, lens, dict(scale=d ** -0.5, window=window)
+
+
 def phase_decode(torch, dev) -> dict:
     """The decode kernel against its plain version at ragged lengths;
-    the first row is the dense_decode shape (the table's row)."""
+    the first row is the dense_decode shape (the table's row).  Each row
+    carries its variant ("mma": bf16 on the tensor cores, split-KV;
+    "simt": fp32 on the CUDA cores), its kernel's resources and the
+    device launches and thread blocks of a call as the C entry reports
+    them; ``ms`` is a single call by CUDA events (the wrapper's host time
+    included; ``profile_decode`` gives the device's alone)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
 
     result = None
-    for label, dt, b, hkv, g, d, smax, window in DECODE_ROWS:
-        dtype = getattr(torch, dt)
-        gen = torch.Generator(device=dev).manual_seed(14)
-        q = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(dtype)
-        kc = torch.randn((b, hkv, smax, d), generator=gen,
-                         device=dev).to(dtype)
-        vc = torch.randn((b, hkv, smax, d), generator=gen,
-                         device=dev).to(dtype)
-        lens_h = torch.randint(1, smax + 1, (b,),
-                               generator=torch.Generator().manual_seed(15))
-        lens_h[0], lens_h[-1] = 1, smax
-        lens = lens_h.to(torch.int32).to(dev)
-        kw = dict(scale=d ** -0.5, window=window)
+    for row_spec in DECODE_ROWS:
+        label, dt, b, hkv, g, d, smax, window = row_spec
+        q, kc, vc, lens_h, lens, kw = decode_inputs(torch, dev, row_spec)
         out = DA.decode_attention_fwd(q, kc, vc, lens, **kw)
         torch.cuda.synchronize()
-        ref = DA.decode_attention_plain(q, kc, vc, lens, **kw)
         row = {"phase": "kernel", "name": "decode_attention", "row": label,
                "dtype": dt, "B": b, "Hkv": hkv, "G": g, "D": d,
-               "Smax": smax, "window": window, "lens": lens_h.tolist()}
+               "Smax": smax, "window": window, "lens": lens_h.tolist(),
+               **DA.decode_kernel_attributes(q.dtype, d),
+               **DA.decode_last_launch()}
+        ref = DA.decode_attention_plain(q, kc, vc, lens, **kw)
         row.update(check_row(torch, f"decode_attention[{label}]", out, ref,
                              kernel_tol(dt, smax)))
         row["ms"] = time_ms(torch, lambda: DA.decode_attention_fwd(
@@ -699,6 +736,35 @@ def phase_decode(torch, dev) -> dict:
         row["library_ms"] = time_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, scale=d ** -0.5))
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
+def profile_decode(torch, dev) -> dict:
+    """The gemma bf16 and jamba rows of DECODE_ROWS under
+    ``profile_kernels``: the device us a call of the main kernel and of
+    the combine and in all, and the device launches a call.  Run with the
+    profiled runs, last.  Returns the gemma line."""
+    from repro_torch.kernels import decode_attention as DA
+
+    result = None
+    for row_spec in DECODE_ROWS:
+        if row_spec[0] not in ("decode", "jamba"):
+            continue
+        q, kc, vc, _, lens, kw = decode_inputs(torch, dev, row_spec)
+
+        def kern():
+            return DA.decode_attention_fwd(q, kc, vc, lens, **kw)
+        kern()
+        torch.cuda.synchronize()
+        row = {"phase": "decode_attention_profile", "row": row_spec[0],
+               "dtype": row_spec[1], "variant": DA.decode_variant(q.dtype),
+               **profile_kernels(
+                   torch, kern, DA.decode_counter, "decode_attention",
+                   DA.decode_last_launch()["device_launches"],
+                   part=lambda n: "combine" if "combine" in n else "main")}
         emit(row)
         if result is None:
             result = row
@@ -2563,6 +2629,7 @@ def run_phases(torch, dev) -> list:
     profile_eager_train()
     free(torch)
     paged_profile = profile_paged(torch, dev)
+    decode_profile = profile_decode(torch, dev)
 
     table = []
     for name, route, source, replaces in (
@@ -2594,14 +2661,16 @@ def run_phases(torch, dev) -> list:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        # the variant of the reported row (flash, paged)
+        # the variant of the reported row (flash, paged, decode)
         if "variant" in r:
             entry["variant"] = r["variant"]
-        if name == "paged_attention":
+        profiled = {"paged_attention": paged_profile,
+                    "decode_attention": decode_profile}.get(name)
+        if profiled is not None:
             # as the profiler counted and timed them
-            entry["device_launches_per_call"] = paged_profile[
+            entry["device_launches_per_call"] = profiled[
                 "device_launches_per_call"]
-            entry["device_us_per_call"] = paged_profile["device_us_per_call"]
+            entry["device_us_per_call"] = profiled["device_us_per_call"]
         table.append(entry)
     return table
 

@@ -1,7 +1,8 @@
 // Helpers shared by the kernels (paged, flash and decode attention, WKV6,
 // the Mamba scan): element loads as fp32, stores in the output type, the
-// masked-score value, and the tensor-core fragment helpers of the bf16
-// flash and paged kernels (cp.async, ldmatrix, mma.sync m16n8k16).
+// masked-score value, the tensor-core fragment helpers of the bf16 flash,
+// paged and decode kernels (cp.async, ldmatrix, mma.sync m16n8k16), and
+// the merge of split-KV results of the paged and decode kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -137,6 +138,60 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The n splits of one output row merged in split order by one warp: ml
+// holds each split's (m, l), m in log2 units, and po its unnormalised O
+// (d floats a split).  The lanes read the splits' (m, l) a split each and
+// reduce them with shuffles in a fixed tree; then every lane accumulates
+// its columns over the splits in split order, so every run gives the same
+// bits.  A lane takes 4 columns in each 128-column half of 256 columns,
+// and the split loop is unrolled by 8: up to 16 of its loads are in
+// flight at once (the merge waits on L2 latency, not bandwidth).  Writes
+// the normalised row to out (d bf16).
+__device__ __forceinline__ void combine_splits(const float* ml,
+                                               const float* po,
+                                               __nv_bfloat16* out, int n,
+                                               int d) {
+  const int lane = threadIdx.x & 31;
+  float mx = kNegInf;
+  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, ml[2 * s]);
+  mx = warp_max(mx);
+  float lsum = 0.f;
+  for (int s = lane; s < n; s += 32)
+    lsum += ml[2 * s + 1] * exp2f(ml[2 * s] - mx);
+  const float inv = 1.f / fmaxf(warp_sum(lsum), 1e-30f);
+  for (int c0 = lane * 4; c0 < d; c0 += 256) {
+    const int c1 = c0 + 128;
+    const bool two = c1 < d;
+    float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a1 = a0;
+#pragma unroll 8
+    for (int s = 0; s < n; ++s) {
+      const float w = exp2f(ml[2 * s] - mx);
+      const float* ps = po + s * d;
+      const float4 x = *reinterpret_cast<const float4*>(ps + c0);
+      const float4 y = two ? *reinterpret_cast<const float4*>(ps + c1)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      a0.x += x.x * w;
+      a0.y += x.y * w;
+      a0.z += x.z * w;
+      a0.w += x.w * w;
+      a1.x += y.x * w;
+      a1.y += y.y * w;
+      a1.z += y.z * w;
+      a1.w += y.w * w;
+    }
+    uint2 pk;
+    pk.x = pack_bf16(a0.x * inv, a0.y * inv);
+    pk.y = pack_bf16(a0.z * inv, a0.w * inv);
+    *reinterpret_cast<uint2*>(out + c0) = pk;
+    if (two) {
+      pk.x = pack_bf16(a1.x * inv, a1.y * inv);
+      pk.y = pack_bf16(a1.z * inv, a1.w * inv);
+      *reinterpret_cast<uint2*>(out + c1) = pk;
+    }
+  }
 }
 
 }  // namespace repro_attn

@@ -10,9 +10,10 @@
 // kernel does (`p.astype(v.dtype)`).  Output (T, Hkv, G, D) in q's dtype.
 //
 // What bounds it on the H100: bytes.  Each live page is ps*D*2 elements
-// of K and V, and each (token, key) pair costs 4*G*D flops: about 2*G = 16
-// flops per byte for gemma-2b (G = 8) in bf16, far below the ~295 flops
-// per byte where the tensor cores would bind.  The bytes that count are
+// of K and V (4*D bytes a key in bf16), and each (token, key) pair costs
+// 4*G*D flops: G = 8 flops a byte for a decode token of gemma-2b in bf16
+// (M*G for M tokens of a prefill chunk that share the page), far below
+// the ~295 flops a byte where the tensor cores would bind.  The bytes that count are
 // each live page read once; what the kernel must avoid is reading a page
 // once per token (the tokens of a prefill chunk share their pages) and
 // leaving the card idle while a long sequence's pages are read by one
@@ -864,18 +865,15 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
   }
 }
 
-// The splits of each output row merged in a fixed order: one warp per
-// row (token, KV head, query head) of a token whose tile has more than
-// one split.  The lanes read the splits' (m, l) a split each and reduce
-// them with shuffles in a fixed tree; then every lane accumulates its
-// columns over the splits in split order.
+// The splits of each output row merged in split order
+// (repro_attn::combine_splits): one warp per row (token, KV head, query
+// head) of a token whose tile has more than one split.
 __global__ void __launch_bounds__(kCombineThreads)
 paged_attention_combine(const int* __restrict__ tiles,
                         const float* __restrict__ part_o,
                         const float* __restrict__ part_ml,
                         bf16* __restrict__ out, int t, int hkv, int g,
                         int d, int max_splits) {
-  const int lane = threadIdx.x & 31;
   const size_t row =
       static_cast<size_t>(blockIdx.x) * (kCombineThreads / 32) +
       (threadIdx.x >> 5);
@@ -883,31 +881,9 @@ paged_attention_combine(const int* __restrict__ tiles,
   const int tok = static_cast<int>(row / (static_cast<size_t>(hkv) * g));
   const int n = tiles[2 + t * (kTileFields + max_splits) + tok];
   if (n <= 1) return;
-  const float* ml = part_ml + row * max_splits * 2;
-  float mx = kNegInf;
-  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, ml[2 * s]);
-  mx = repro_attn::warp_max(mx);
-  float lsum = 0.f;
-  for (int s = lane; s < n; s += 32)
-    lsum += ml[2 * s + 1] * exp2f(ml[2 * s] - mx);
-  const float inv = 1.f / fmaxf(repro_attn::warp_sum(lsum), 1e-30f);
-  for (int col = lane * 4; col < d; col += 128) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int s = 0; s < n; ++s) {
-      const float w = exp2f(ml[2 * s] - mx);
-      const float4 x = *reinterpret_cast<const float4*>(
-          part_o + (row * max_splits + s) * d + col);
-      acc.x += x.x * w;
-      acc.y += x.y * w;
-      acc.z += x.z * w;
-      acc.w += x.w * w;
-    }
-    uint2 pk;
-    pk.x = pack_bf16(acc.x * inv, acc.y * inv);
-    pk.y = pack_bf16(acc.z * inv, acc.w * inv);
-    *reinterpret_cast<uint2*>(out + row * d + col) = pk;
-  }
+  repro_attn::combine_splits(part_ml + row * max_splits * 2,
+                             part_o + row * max_splits * d, out + row * d, n,
+                             d);
 }
 
 // The work list's shape for G query heads a KV head and a table of

@@ -11,7 +11,9 @@ Counterpart of ``repro/kernels/decode_attention.py``:
     splits), fp32 queries on the CUDA cores (``"simt"``);
   * :func:`decode_attention_fwd` (the Pallas ``_decode_kernel``): one
     query per row against a contiguous ``(B, Hkv, Smax, D)`` cache, CUDA
-    C++ in ``csrc/decode_attention.cu``;
+    C++ in ``csrc/decode_attention.cu``: bf16 on the tensor cores
+    (variant ``"mma"``: split-KV over each row's live keys, a combine
+    merges the splits), fp32 on the CUDA cores (``"simt"``);
   * :func:`mixed_attention_fwd` (the Pallas ``_mixed_kernel``): a flat
     mixed prefill/decode batch against per-slot contiguous caches
     ``(S, Hkv, L, D)`` chosen by segment ids (the gathered-cache path:
@@ -58,6 +60,8 @@ counter = LaunchCounter("paged_attention")
 # what the last paged call launched, as its C entry reports it
 _launched = (ctypes.c_int * 4)()
 decode_counter = LaunchCounter("decode_attention")
+# what the last decode call launched, as its C entry reports it
+_decode_launched = (ctypes.c_int * 3)()
 mixed_counter = LaunchCounter("mixed_attention")
 
 
@@ -338,11 +342,59 @@ def _decode_lib() -> ctypes.CDLL:
     lib = load_library("repro_decode_attention")
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int),
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        ws = lib.repro_decode_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 6
+        ws.restype = ctypes.c_longlong
+        attrs = lib.repro_decode_attention_attrs
+        attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_workspace_bytes(b, hkv, g, d, smax, window) -> int:
+    return int(_decode_lib().repro_decode_workspace_bytes(b, hkv, g, d, smax,
+                                                          window))
+
+
+def decode_variant(dtype: torch.dtype) -> str:
+    """The decode kernel a dtype runs: ``"mma"`` (bf16, tensor cores,
+    split-KV) or ``"simt"`` (fp32, CUDA cores)."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def decode_last_launch() -> dict:
+    """What the last CUDA call of :func:`decode_attention_fwd` launched, as
+    its C entry reports it: device launches, and the thread blocks of the
+    main kernel and of the combine (0 when it was not launched)."""
+    return dict(zip(("device_launches", "main_blocks", "combine_blocks"),
+                    _decode_launched))
+
+
+def decode_kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
+    """The resources of the kernel that :func:`decode_attention_fwd`
+    launches for this dtype and head_dim on the current card: its variant,
+    registers and local (spill) bytes a thread, dynamic shared bytes and
+    threads a block, blocks an SM holds, keys a tile (a ring stage for
+    "mma") and keys a split (None for "simt", which does not split)."""
+    if dtype not in Q_CODES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"decode_kernel_attributes: no kernel for {dtype}, "
+                         f"head_dim {head_dim}")
+    vals = (ctypes.c_int * 7)()
+    err = _decode_lib().repro_decode_attention_attrs(Q_CODES[dtype],
+                                                     head_dim, vals)
+    if err != 0:
+        raise RuntimeError(f"decode_attention attributes failed (code "
+                           f"{err})")
+    return {"variant": decode_variant(dtype), "registers": vals[0],
+            "spill_bytes": vals[1], "smem_bytes": vals[2],
+            "blocks_per_sm": vals[3], "threads": vals[4],
+            "key_tile": vals[5], "split_keys": vals[6] or None}
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -368,6 +420,47 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bhgk,bhkd->bhgd", probs, v_cache.to(q.dtype))
 
 
+def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 cache_len: torch.Tensor, split_keys: int,
+                                 *, scale: float,
+                                 window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """The bf16 kernel's decomposition in plain PyTorch, same arguments and
+    layouts as :func:`decode_attention_plain`: row b's live keys [lo, len)
+    (len = clip(cache_len[b], 0, Smax), lo = max(0, len - window), 0
+    without a window) are cut into splits of ``split_keys``; each split
+    gives its fp32 (m, l, O) as the Pallas kernel's online softmax does
+    (scores masked at -1e30, probabilities rounded to q's dtype before the
+    PV product), and the splits are merged in split order: m = max m_s,
+    O = sum_s exp(m_s - m) O_s / max(sum_s exp(m_s - m) l_s, 1e-30).  A
+    row with no live key gives zeros, as the kernels do."""
+    b, hkv, g, d = q.shape
+    smax = k_cache.shape[2]
+    out = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for i, n in enumerate(cache_len.tolist()):
+        n = max(0, min(int(n), smax))
+        lo = max(0, n - window) if window else 0
+        m = torch.full((hkv, g, 1), NEG_INF, device=q.device)
+        l = torch.zeros((hkv, g, 1), device=q.device)
+        acc = torch.zeros((hkv, g, d), device=q.device)
+        for k0 in range(lo, n, split_keys):
+            k1 = min(n, k0 + split_keys)
+            s = torch.einsum("hgd,hkd->hgk", q[i].float(),
+                             k_cache[i, :, k0:k1].float()) * scale
+            m_s = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m_s)
+            o_s = torch.einsum("hgk,hkd->hgd", p.to(q.dtype).float(),
+                               v_cache[i, :, k0:k1].to(q.dtype).float())
+            m_new = torch.maximum(m, m_s)
+            a, a_s = torch.exp(m - m_new), torch.exp(m_s - m_new)
+            l = a * l + a_s * p.sum(-1, keepdim=True)
+            acc = a * acc + a_s * o_s
+            m = m_new
+        out[i] = acc / l.clamp(min=1e-30)
+    return out.to(q.dtype)
+
+
 def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                          scale: float, window: Optional[int] = None
@@ -381,7 +474,13 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     (as the Pallas kernel and the jnp oracle differ).
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise."""
+    on the current stream, or raise: bf16 runs the tensor-core variant
+    (split-KV over the live keys; two device launches, the main kernel and
+    the combine of the splits, one when ``min(Smax, window)`` fits one
+    split), fp32 the CUDA-core variant, one launch;
+    :func:`decode_last_launch` reads what the last call launched.
+    ``decode_counter`` counts calls.  Neither reads anything back to the
+    host."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       scale=scale, window=window)
@@ -407,25 +506,32 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                         "int32")
     check_operands("decode_attention_fwd", q,
                     (q, k_cache, v_cache, cache_len))
-    if k_cache.data_ptr() % 16:
-        raise ValueError("decode_attention_fwd: k_cache must be 16-byte "
-                         "aligned (the kernel loads key rows in 16-byte "
-                         "vectors)")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"decode_attention_fwd: {name} must be "
+                             f"16-byte aligned (the kernels copy rows in "
+                             f"16-byte chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    smax = k_cache.shape[2]
+    win = int(window) if window else 0
+    work = None
+    if decode_variant(q.dtype) == "mma":
+        nbytes = _decode_workspace_bytes(b, hkv, g, d, smax, win)
+        if nbytes:
+            work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     fn = _decode_lib().repro_decode_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
-             v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(), b,
-             hkv, g, k_cache.shape[2], float(scale),
-             int(window) if window else 0, stream)
+             v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+             None if work is None else work.data_ptr(), b, hkv, g, smax,
+             float(scale), win, _decode_launched, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(code {err})")
     decode_counter.bump()
     return out
-
 
 
 # ----------------------------------------------------------------------

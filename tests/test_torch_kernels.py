@@ -377,22 +377,54 @@ def test_cuda_flash_kernel_attributes(cuda_device, hd, dtype):
             assert attrs["blocks_per_sm"] >= 2
 
 
+# Decode cases on the card, in keys a split (KS, the bf16 kernel's
+# constant): B = 6 rows over 2 KV heads; (Smax, window, lengths).  Smax is
+# not a multiple of KS; the lengths sit at the split edges (KS - 1, KS,
+# KS + 1, 2 KS) and at Smax.  A window of 1.5 KS puts a split edge inside
+# each long row's window; a window of 3 KS is longer than most rows.  The
+# last case's grid has one split (Smax = KS, no combine) and a length past
+# Smax, which the kernel clips.
+def decode_card_case(case, ks):
+    smax = 4 * ks + 37
+    return {
+        "split_edges": (smax, None, [1, ks - 1, ks, ks + 1, 2 * ks, smax]),
+        "window_crosses_split": (smax, ks + ks // 2,
+                                 [1, ks, ks + ks // 2 + 3, 2 * ks + 5,
+                                  smax - 1, smax]),
+        "window_over_len": (smax, 3 * ks,
+                            [1, ks - 1, ks + 1, 2 * ks, 3 * ks - 1, smax]),
+        "one_split": (ks, None, [1, ks // 2, ks - 1, ks, ks + 9, 3]),
+    }[case]
+
+
+DECODE_CARD_CASES = ("split_edges", "window_crosses_split",
+                     "window_over_len", "one_split")
+
+
+def decode_card_inputs(dev, case, g_heads, hd, dtype, b=6, hkv=2):
+    """q (B, Hkv*G, 1, D), caches, lengths and window of a card case, with
+    KS read from the bf16 kernel's attributes."""
+    ks = DA.decode_kernel_attributes(torch.bfloat16, hd)["split_keys"]
+    smax, window, lens = decode_card_case(case, ks)
+    gen = torch.Generator(device=dev).manual_seed(hd + g_heads)
+    q = torch.randn((b, hkv * g_heads, 1, hd), generator=gen,
+                    device=dev).to(dtype)
+    kc = torch.randn((b, hkv, smax, hd), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((b, hkv, smax, hd), generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, lens, window, ks
+
+
 @requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 128, 256])
-@pytest.mark.parametrize("g_heads,window", [(8, None), (12, None), (3, 100)])
-def test_cuda_decode_kernel_matches_plain(cuda_device, g_heads, window, hd,
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("g_heads", [1, 3, 8, 12, 16, 24])
+@pytest.mark.parametrize("case", DECODE_CARD_CASES)
+def test_cuda_decode_kernel_matches_plain(cuda_device, case, g_heads, hd,
                                           dtype):
-    b, hkv, smax = 5, 2, 700
-    gen = torch.Generator(device=cuda_device).manual_seed(hd + g_heads)
-    q = torch.randn((b, hkv * g_heads, 1, hd), generator=gen,
-                    device=cuda_device).to(dtype)
-    kc = torch.randn((b, hkv, smax, hd), generator=gen,
-                     device=cuda_device).to(dtype)
-    vc = torch.randn((b, hkv, smax, hd), generator=gen,
-                     device=cuda_device).to(dtype)
-    lens = torch.tensor([1, 33, 256, 699, 700], dtype=torch.int32,
-                        device=cuda_device)
+    q, kc, vc, lens, window, _ = decode_card_inputs(cuda_device, case,
+                                                    g_heads, hd, dtype)
+    b, hkv, smax = kc.shape[0], kc.shape[1], kc.shape[2]
     before = DA.decode_counter.launches
     out = tops.decode_attention(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
@@ -402,3 +434,81 @@ def test_cuda_decode_kernel_matches_plain(cuda_device, g_heads, window, hd,
         window=window).reshape(b, hkv * g_heads, 1, hd)
     tol = _cuda_tol(dtype, smax)
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g_heads", [3, 24])
+@pytest.mark.parametrize("case", DECODE_CARD_CASES)
+def test_cuda_decode_kernel_launches_match_grid(cuda_device, case, g_heads,
+                                                dtype):
+    """The C entry's record of a call: bf16, (ceil(span / KS), B*Hkv,
+    ceil(G/16)) main blocks with span = min(Smax, window), and a combine
+    of one block a row (a warp) only when that grid has more than one
+    split; fp32, the CUDA-core kernel's (B, Hkv, ceil(G/8)) blocks
+    alone."""
+    q, kc, vc, lens, window, ks = decode_card_inputs(cuda_device, case,
+                                                     g_heads, 128, dtype)
+    b, hkv, smax = kc.shape[0], kc.shape[1], kc.shape[2]
+    DA.decode_attention_fwd(q.reshape(b, hkv, g_heads, 128), kc, vc, lens,
+                            scale=0.1, window=window)
+    got = DA.decode_last_launch()
+    if dtype == torch.float32:
+        assert got == {"device_launches": 1, "combine_blocks": 0,
+                       "main_blocks": b * hkv * -(-g_heads // 8)}
+        return
+    splits = -(-min(smax, window or smax) // ks)
+    main = splits * b * hkv * -(-g_heads // 16)
+    if splits == 1:
+        assert got == {"device_launches": 1, "main_blocks": main,
+                       "combine_blocks": 0}
+    else:
+        assert got == {"device_launches": 2, "main_blocks": main,
+                       "combine_blocks": b * hkv * g_heads}
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 300])
+def test_cuda_decode_kernel_is_deterministic(cuda_device, window, dtype):
+    """No atomics: the splits are merged in split order, so two calls on
+    the same inputs agree bit for bit; a row of length 0 gives zeros."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((8, 1, 8, 256), generator=gen,
+                    device=cuda_device).to(dtype)
+    kc, vc = (torch.randn((8, 1, 2048, 256), generator=gen,
+                          device=cuda_device).to(dtype) for _ in range(2))
+    lens = torch.tensor([0, 1, 127, 128, 129, 700, 2047, 2048],
+                        dtype=torch.int32, device=cuda_device)
+    kw = dict(scale=256 ** -0.5, window=window)
+    first = DA.decode_attention_fwd(q, kc, vc, lens, **kw)
+    second = DA.decode_attention_fwd(q, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not bool(first[0].any())
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_cuda_decode_kernel_attributes(cuda_device, hd, dtype):
+    attrs = DA.decode_kernel_attributes(dtype, hd)
+    assert attrs["variant"] == DA.decode_variant(dtype)
+    assert 0 < attrs["registers"] <= 255
+    assert attrs["blocks_per_sm"] >= 1
+    assert attrs["smem_bytes"] <= 232448
+    if dtype == torch.bfloat16:
+        assert attrs["variant"] == "mma" and attrs["spill_bytes"] == 0
+        assert attrs["split_keys"] % attrs["key_tile"] == 0
+    else:
+        assert attrs["variant"] == "simt" and attrs["split_keys"] is None
+
+
+def test_decode_kernel_attributes_refuse_unknown_kernels():
+    """Checked before the library is built, so it runs on the CPU."""
+    with pytest.raises(ValueError, match="no kernel"):
+        DA.decode_kernel_attributes(torch.float16, 64)
+    with pytest.raises(ValueError, match="no kernel"):
+        DA.decode_kernel_attributes(torch.bfloat16, 96)
+    assert DA.decode_variant(torch.bfloat16) == "mma"
+    assert DA.decode_variant(torch.float32) == "simt"
