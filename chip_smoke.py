@@ -493,11 +493,15 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
     counted them.  The counted calls are the profiler's second cycle: the
     first, a warm-up, is dropped (a session's first kernels can go
     unrecorded).  A session that counted other than ``want`` device
-    launches a call (the C entry's record; the profiler dropped kernel
-    records) is run again, up to ``tries`` sessions: ``sessions`` says how
-    many ran, and a count that still differs is reported as counted."""
+    launches a call (the C entry's record) is run again, up to ``tries``
+    sessions.  Every session's launches and device us a call are kept in
+    ``sessions`` beside the last one's, which is reported;
+    ``first_session_agrees`` flags a first session that differed (the
+    profiler dropped kernel records, or the C record is wrong).  Raises
+    when no session agrees with the C record."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    for session in range(1, tries + 1):
+    sessions = []
+    for _ in range(tries):
         cycles = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -519,13 +523,21 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
                                                     "launches_per_call": 0.0})
                 k["device_us_per_call"] += ms * 1e3 / n
                 k["launches_per_call"] += c / n
-        launches = sum(k["launches_per_call"] for k in kernels.values())
-        if abs(launches - want) < 1e-9:
-            break
-    return {"calls": n, "sessions": session,
+        sessions.append({
+            "device_launches_per_call": sum(
+                k["launches_per_call"] for k in kernels.values()),
             "device_us_per_call": sum(
-                k["device_us_per_call"] for k in kernels.values()),
-            "device_launches_per_call": launches, "kernels": kernels}
+                k["device_us_per_call"] for k in kernels.values())})
+        if abs(sessions[-1]["device_launches_per_call"] - want) < 1e-9:
+            break
+    else:
+        raise AssertionError(
+            f"{group}: no profiler session counted the C entry's {want} "
+            f"device launches a call: {sessions}")
+    return {"calls": n, "c_record_launches_per_call": want,
+            "sessions": sessions,
+            "first_session_agrees": len(sessions) == 1,
+            **sessions[-1], "kernels": kernels}
 
 
 def profile_paged(torch, dev) -> dict:
@@ -2671,6 +2683,7 @@ def run_phases(torch, dev) -> list:
             entry["device_launches_per_call"] = profiled[
                 "device_launches_per_call"]
             entry["device_us_per_call"] = profiled["device_us_per_call"]
+            entry["profiler_sessions"] = profiled["sessions"]
         table.append(entry)
     return table
 

@@ -25,9 +25,10 @@
 //   * split-KV over the live keys [lo, len), lo = max(0, len - window) (0
 //     without a window): split s covers [lo + s*KS, min(len, lo +
 //     (s+1)*KS)), KS = kSplitKeys = 128 (chosen by measurement: 64 and 256
-//     were slower, PERF.md §6).  The grid, (ceil(span / KS), B*Hkv,
+//     were slower, PERF.md §6).  The grid, (B*Hkv, ceil(span / KS),
 //     ceil(G/16)) with span = min(Smax, window), is sized on the host with
-//     no sync; a block past its row's live splits exits before it touches
+//     no sync (B*Hkv in x, which holds 2^31 - 1 blocks; y and z hold
+//     65535); a block past its row's live splits exits before it touches
 //     shared memory.  The window edge is a split's start, so only the
 //     ragged end of a split is masked, on the warp tiles that cross it;
 //   * K/V come by cp.async (16-byte chunks, rows past the split
@@ -40,9 +41,9 @@
 //     The warps' (m, l, O) are merged in shared memory, in warp order;
 //   * a row of one split normalises and writes its output.  Otherwise each
 //     split writes fp32 (m, l) and unnormalised O to a workspace, and
-//     `decode_attention_combine` (one warp a row, each row's split count
-//     from cache_len on the card, a block of one warp a row: blocks of 2
-//     and 8 rows were slower, PERF.md §6) merges them in split order
+//     `decode_attention_combine` (a block of one warp a row, each row's
+//     split count from cache_len on the card; blocks of 2 and 8 rows were
+//     slower, PERF.md §6) merges them in split order
 //     (repro_attn::combine_splits, shared with the paged kernel), so every
 //     run gives the same bits.  A grid of one split launches no combine;
 //   * registers at D = 256: O is 128 fp32 a thread and the Q fragments 64;
@@ -272,7 +273,7 @@ constexpr int kWarpKeys = 16;               // keys of a warp in a stage
 constexpr int kBK = kMmaWarps * kWarpKeys;  // keys of a ring stage
 constexpr int kSplitKeys = 128;             // keys of a split
 static_assert(kSplitKeys % kBK == 0, "a split is whole ring stages");
-constexpr int kCombineThreads = 32;  // a row a block (chosen by measurement)
+constexpr int kMaxGridYZ = 65535;  // gridDim.y and .z; x takes 2^31 - 1
 
 // the Q tile and a 2-stage ring of (K, V) tiles, rows padded by 8 bf16;
 // the warps' merge reuses the ring
@@ -386,7 +387,7 @@ __device__ __forceinline__ void mma_keys(float (&o)[D / 8][4], float (&m)[2],
   }
 }
 
-// Block (split, b * Hkv + h, head block): split `split` of row b's live
+// Block (b * Hkv + h, split, head block): split `split` of row b's live
 // keys for query heads [16 z, 16 z + 16) of KV head h.
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -405,8 +406,8 @@ decode_attention_mma(const bf16* __restrict__ q,        // (B, Hkv, G, D)
   constexpr int kChunks = D / 8;   // 16-byte chunks of a bf16 row
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
-  const int split = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
   int lo, len;
   live_keys(cache_len, bh / hkv, smax, window, &lo, &len);
   const int n_splits = row_splits(len - lo);
@@ -567,14 +568,13 @@ decode_attention_mma(const bf16* __restrict__ q,        // (B, Hkv, G, D)
 
 // The splits of each output row (b, h, head) of a row with more than one
 // split merged in split order, one warp a row.
-__global__ void __launch_bounds__(kCombineThreads)
+__global__ void __launch_bounds__(32)
 decode_attention_combine(const int* __restrict__ cache_len,
                          const float* __restrict__ part_o,
                          const float* __restrict__ part_ml,
                          bf16* __restrict__ out, int hkv, int g, int d,
-                         int smax, int window, int max_splits, int n_rows) {
-  const int row = blockIdx.x * (kCombineThreads / 32) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
+                         int smax, int window, int max_splits) {
+  const int row = blockIdx.x;
   int lo, len;
   live_keys(cache_len, row / (hkv * g), smax, window, &lo, &len);
   const int n = row_splits(len - lo);
@@ -606,6 +606,8 @@ int launch_mma(const void* q, const void* k_cache, const void* v_cache,
                int g, int smax, float scale, int window, int* launched,
                cudaStream_t stream) {
   const int ns = grid_splits(smax, window);
+  const int head_blocks = (g + kRows - 1) / kRows;
+  if (ns > kMaxGridYZ || head_blocks > kMaxGridYZ) return -2;
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = decode_attention_mma<D>;
   int err = static_cast<int>(allow_smem(kernel, smem));
@@ -614,7 +616,7 @@ int launch_mma(const void* q, const void* k_cache, const void* v_cache,
   float* part_o = ns > 1 ? static_cast<float*>(work) : nullptr;
   float* part_ml =
       ns > 1 ? part_o + static_cast<size_t>(n_rows) * ns * D : nullptr;
-  const dim3 grid(ns, b * hkv, (g + kRows - 1) / kRows);
+  const dim3 grid(b * hkv, ns, head_blocks);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_cache),
       static_cast<const bf16*>(v_cache), cache_len, static_cast<bf16*>(out),
@@ -626,13 +628,11 @@ int launch_mma(const void* q, const void* k_cache, const void* v_cache,
     record(launched, 1, main_blocks, 0);
     return 0;
   }
-  constexpr int kRowsABlock = kCombineThreads / 32;
-  const int blocks = (n_rows + kRowsABlock - 1) / kRowsABlock;
-  decode_attention_combine<<<blocks, kCombineThreads, 0, stream>>>(
+  decode_attention_combine<<<n_rows, 32, 0, stream>>>(
       cache_len, part_o, part_ml, static_cast<bf16*>(out), hkv, g, D, smax,
-      window, ns, n_rows);
+      window, ns);
   err = static_cast<int>(cudaGetLastError());
-  if (err == 0) record(launched, 2, main_blocks, blocks);
+  if (err == 0) record(launched, 2, main_blocks, n_rows);
   return err;
 }
 
@@ -726,7 +726,8 @@ int dispatch(int dtype, int d, const Args& a, int* attrs) {
 // `launched`, when not null, gets 3 ints: the device launches made, then
 // the thread blocks of the main kernel and of the combine.  Returns the
 // first nonzero CUDA error of the launches (0 on success), -1 for an
-// unsupported head_dim, -3 for an unsupported dtype.
+// unsupported head_dim, -2 when the mma grid's splits or head blocks pass
+// 65535 (gridDim.y / .z), -3 for an unsupported dtype.
 extern "C" int repro_decode_attention(int dtype, int d, const void* q,
                                       const void* k_cache,
                                       const void* v_cache,

@@ -527,6 +527,10 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
              v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
              None if work is None else work.data_ptr(), b, hkv, g, smax,
              float(scale), win, _decode_launched, stream)
+    if err == -2:
+        raise ValueError(f"decode_attention_fwd: min(Smax, window) = "
+                         f"{min(smax, win or smax)} keys or G = {g} heads "
+                         f"need more than 65535 splits or head blocks")
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(code {err})")

@@ -442,7 +442,7 @@ def test_cuda_decode_kernel_matches_plain(cuda_device, case, g_heads, hd,
 @pytest.mark.parametrize("case", DECODE_CARD_CASES)
 def test_cuda_decode_kernel_launches_match_grid(cuda_device, case, g_heads,
                                                 dtype):
-    """The C entry's record of a call: bf16, (ceil(span / KS), B*Hkv,
+    """The C entry's record of a call: bf16, (B*Hkv, ceil(span / KS),
     ceil(G/16)) main blocks with span = min(Smax, window), and a combine
     of one block a row (a warp) only when that grid has more than one
     split; fp32, the CUDA-core kernel's (B, Hkv, ceil(G/8)) blocks
@@ -465,6 +465,44 @@ def test_cuda_decode_kernel_launches_match_grid(cuda_device, case, g_heads,
     else:
         assert got == {"device_launches": 2, "main_blocks": main,
                        "combine_blocks": b * hkv * g_heads}
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_kernel_takes_a_wide_batch(cuda_device, dtype):
+    """B*Hkv = 65544 (row, KV head) pairs, more than a grid's y or z
+    holds, with two splits a row so that the combine runs too."""
+    b, hkv, g, d, smax = 8193, 8, 2, 16, 150
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q = torch.randn((b, hkv, g, d), generator=gen,
+                    device=cuda_device).to(dtype)
+    kc, vc = (torch.randn((b, hkv, smax, d), generator=gen,
+                          device=cuda_device).to(dtype) for _ in range(2))
+    lens = torch.randint(1, smax + 1, (b,), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    out = DA.decode_attention_fwd(q, kc, vc, lens, scale=d ** -0.5)
+    exp = DA.decode_attention_plain(q, kc, vc, lens, scale=d ** -0.5)
+    tol = _cuda_tol(dtype, smax)
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert DA.decode_last_launch() == {
+            "device_launches": 2, "main_blocks": 2 * b * hkv,
+            "combine_blocks": b * hkv * g}
+
+
+@requires_cuda
+def test_cuda_decode_kernel_refuses_too_many_splits(cuda_device):
+    """More than 65535 splits of 128 keys (the grid's y) is refused with a
+    clear error before anything launches."""
+    smax = 65535 * 128 + 1
+    q = torch.zeros((1, 1, 1, 16), dtype=torch.bfloat16, device=cuda_device)
+    kc = torch.zeros((1, 1, smax, 16), dtype=torch.bfloat16,
+                     device=cuda_device)
+    lens = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    before = DA.decode_counter.launches
+    with pytest.raises(ValueError, match="65535"):
+        DA.decode_attention_fwd(q, kc, kc, lens, scale=0.25)
+    assert DA.decode_counter.launches == before
 
 
 @requires_cuda
