@@ -73,7 +73,11 @@ Output, one line each:
     state); flash and decode attention at jamba's shapes; mixed attention
     (the paged row's inputs gathered into per-slot caches at bf16, fp32,
     with a window and bf16 q over fp32 caches, and the reference's small
-    serving preset's head_dim 32); the Mamba scan
+    serving preset's head_dim 32; each with its variant, "mma" for bf16
+    q over bf16 caches on the tensor cores and "simt" for the fp32-cache
+    pairs, the device launches and thread blocks of a call, its kernel's
+    resources and for "mma" the work list, which the device pre-pass
+    must build as the plain one does); the Mamba scan
     (jamba prefill, decode from a state, a ragged fp32 row with a state,
     B and C as strided column views); the fused-elementwise kernel
     (ResNet-50's add+relu and relu at their batch-64 shapes, fp32 and
@@ -106,14 +110,16 @@ Output, one line each:
     or eager op, idle share; ``paged_attention_profile``: the bf16 paged
     rows' device us a call by kernel and device launches a call;
     ``decode_attention_profile``: the same for the gemma bf16 and jamba
-    decode rows, main kernel and combine), last,
+    decode rows, main kernel and combine; ``mixed_attention_profile``:
+    mixed row (a), pre-pass, main kernel and combine), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
-    path's main run (wrapper calls; the paged and decode entries add
-    their variant and the device launches and device us of one call of
-    the reported row, as ``paged_attention_profile`` and
-    ``decode_attention_profile`` counted them; bf16 serving for paged
+    path's main run (wrapper calls; the paged, decode and mixed entries
+    add their variant and the device launches and device us of one call
+    of the reported row, as ``paged_attention_profile``,
+    ``decode_attention_profile`` and ``mixed_attention_profile`` counted
+    them; bf16 serving for paged
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
@@ -392,10 +398,17 @@ def paged_plan(torch, DA, x, q, pool_dtype) -> dict:
                                 x["tables"].shape, ps,
                                 tiling["tile_tokens"], tiling["split_keys"])
     got = DA.paged_tiles(x["seg"], x["pos"], x["tables"].shape, ps, g)
+    return {**plan, **worklist_check(torch, "paged_attention", tiling, want,
+                                     got)}
+
+
+def worklist_check(torch, name: str, tiling: dict, want, got) -> dict:
+    """The device pre-pass's work list ``got`` must equal the plain one,
+    ``want``; returns the tiling and the list's tiles and splits."""
     if not torch.equal(got.cpu(), want):
-        raise AssertionError("paged_attention: the device pre-pass's work "
-                             "list differs from paged_tiles_plain's")
-    return {**plan, "tile_tokens": tiling["tile_tokens"],
+        raise AssertionError(f"{name}: the device pre-pass's work list "
+                             f"differs from the plain one")
+    return {"tile_tokens": tiling["tile_tokens"],
             "split_keys": tiling["split_keys"], "tiles": len(want),
             "splits": int(want[:, 5].sum()),
             "max_splits": int(want[:, 5].max()),
@@ -958,6 +971,8 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "decode_attention" in n:
         return "decode_attention"
+    if "mixed_attention" in n:
+        return "mixed_attention"
     if "rwkv6" in n:
         return "rwkv6_scan"
     if "mamba" in n:
@@ -1929,28 +1944,71 @@ def mixed_library_ms(torch, q, kc, vc, seg, pos, window, scale) -> float:
         enable_gqa=True))
 
 
+def mixed_inputs(torch, dev):
+    """The inputs every MIXED_ROWS row shares: the paged row's (seed 11)
+    and its pool gathered into per-slot caches."""
+    x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
+    return x, gathered_caches(torch, x)
+
+
+def mixed_row_tensors(torch, dev, x, caches, row) -> tuple:
+    """q, k and v of one MIXED_ROWS row: the gathered caches at Hkv = 1,
+    seeded random ones (seed 18) otherwise."""
+    _, qdt, cdt, hkv, g, d, _ = row
+    qdtype, cdtype = getattr(torch, qdt), getattr(torch, cdt)
+    kc32, vc32 = caches
+    if hkv == 1:
+        return (x["q32"].to(qdtype), kc32.to(cdtype), vc32.to(cdtype))
+    rg = torch.Generator(device=dev).manual_seed(18)
+    s, _, l, _ = kc32.shape
+    q = torch.randn((x["seg"].shape[0], hkv, g, d), generator=rg,
+                    device=dev).to(qdtype)
+    kc, vc = (torch.randn((s, hkv, l, d), generator=rg,
+                          device=dev).to(cdtype) for _ in range(2))
+    return q, kc, vc
+
+
+def mixed_plan(torch, DA, x, q, kc, window) -> dict:
+    """What the mixed kernel launched for a row (call it just after a
+    call): its variant and resources (``DA.mixed_kernel_attributes``),
+    the device launches and thread blocks of that call as the C entry
+    reports them (``DA.mixed_last_launch``), and for the "mma" variant
+    the work list (tiles, splits) of the device pre-pass, which must
+    equal the plain one (``paged_tiles_plain`` over a table of one page
+    of L keys a slot)."""
+    t, hkv, g, d = q.shape
+    s, _, l, _ = kc.shape
+    plan = {**DA.mixed_kernel_attributes(q.dtype, kc.dtype, d),
+            **DA.mixed_last_launch()}
+    if plan["variant"] == "simt":
+        return plan
+    tiling = DA.mixed_tiling(g, l)
+    want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(), (s, 1), l,
+                                tiling["tile_tokens"], tiling["split_keys"],
+                                window)
+    got = DA.mixed_tiles(x["seg"], x["pos"], s, l, g, window)
+    return {**plan, **worklist_check(torch, "mixed_attention", tiling, want,
+                                     got)}
+
+
 def phase_mixed_attention(torch, dev) -> dict:
     """The mixed-attention kernel against its plain version (rows
-    ``MIXED_ROWS``); the first row is the table's."""
+    ``MIXED_ROWS``); the first row is the table's.  Each row carries its
+    variant ("mma": bf16 q over bf16 caches on the tensor cores; "simt":
+    the fp32-cache pairs on the CUDA cores), the device launches and
+    thread blocks of a call, its kernel's resources and, for "mma", its
+    work list (``mixed_plan``); ``ms`` is a single call by CUDA events
+    (the wrapper's host time included; ``profile_mixed`` gives the
+    device's alone)."""
     from repro_torch.kernels import decode_attention as DA
 
-    x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
-    kc32, vc32 = gathered_caches(torch, x)
+    x, caches = mixed_inputs(torch, dev)
     seg, pos = x["seg"], x["pos"]
     seg_h, pos_h = seg.cpu().tolist(), pos.cpu().tolist()
     result = None
-    for label, qdt, cdt, hkv, g, d, window in MIXED_ROWS:
-        qdtype, cdtype = getattr(torch, qdt), getattr(torch, cdt)
-        if hkv == 1:
-            q = x["q32"].to(qdtype)
-            kc, vc = kc32.to(cdtype), vc32.to(cdtype)
-        else:
-            rg = torch.Generator(device=dev).manual_seed(18)
-            s, _, l, _ = kc32.shape
-            q = torch.randn((len(seg_h), hkv, g, d), generator=rg,
-                            device=dev).to(qdtype)
-            kc, vc = (torch.randn((s, hkv, l, d), generator=rg,
-                                  device=dev).to(cdtype) for _ in range(2))
+    for spec in MIXED_ROWS:
+        label, qdt, cdt, hkv, g, d, window = spec
+        q, kc, vc = mixed_row_tensors(torch, dev, x, caches, spec)
         kw = dict(scale=d ** -0.5, window=window)
 
         def kern():
@@ -1975,10 +2033,44 @@ def phase_mixed_attention(torch, dev) -> dict:
                                                        q, kc)
         row["library_ms"] = mixed_library_ms(torch, q, kc, vc, seg, pos,
                                              window, kw["scale"])
+        kern()
+        row.update(mixed_plan(torch, DA, x, q, kc, window))
         emit(row)
         if result is None:
             result = row
     return result
+
+
+def mixed_part(name: str) -> str:
+    """A mixed-attention kernel's part, by its name."""
+    if "tiles" in name:
+        return "prepass"
+    return "combine" if "combine" in name else "main"
+
+
+def profile_mixed(torch, dev) -> dict:
+    """Row (a) of MIXED_ROWS under ``profile_kernels``: the device us a
+    call of the pre-pass, the main kernel and the combine and in all, and
+    the device launches a call.  Run with the profiled runs, last."""
+    from repro_torch.kernels import decode_attention as DA
+
+    x, caches = mixed_inputs(torch, dev)
+    spec = MIXED_ROWS[0]
+    q, kc, vc = mixed_row_tensors(torch, dev, x, caches, spec)
+
+    def kern():
+        return DA.mixed_attention_fwd(q, kc, vc, x["seg"], x["pos"],
+                                      scale=spec[5] ** -0.5, window=spec[6])
+    kern()
+    torch.cuda.synchronize()
+    row = {"phase": "mixed_attention_profile", "row": spec[0],
+           "variant": DA.mixed_variant(q.dtype, kc.dtype),
+           **profile_kernels(torch, kern, DA.mixed_counter,
+                             "mixed_attention",
+                             DA.mixed_last_launch()["device_launches"],
+                             part=mixed_part)}
+    emit(row)
+    return row
 
 
 def phase_paged_vs_gathered(torch, dev, cfg, params) -> dict:
@@ -2642,6 +2734,7 @@ def run_phases(torch, dev) -> list:
     free(torch)
     paged_profile = profile_paged(torch, dev)
     decode_profile = profile_decode(torch, dev)
+    mixed_profile = profile_mixed(torch, dev)
 
     table = []
     for name, route, source, replaces in (
@@ -2673,11 +2766,12 @@ def run_phases(torch, dev) -> list:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        # the variant of the reported row (flash, paged, decode)
+        # the variant of the reported row (flash, paged, decode, mixed)
         if "variant" in r:
             entry["variant"] = r["variant"]
         profiled = {"paged_attention": paged_profile,
-                    "decode_attention": decode_profile}.get(name)
+                    "decode_attention": decode_profile,
+                    "mixed_attention": mixed_profile}.get(name)
         if profiled is not None:
             # as the profiler counted and timed them
             entry["device_launches_per_call"] = profiled[

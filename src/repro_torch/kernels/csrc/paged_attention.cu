@@ -89,6 +89,10 @@
 //     shared memory at D = 256 is about 104 KB: two blocks an SM.
 //     `repro_paged_attention_attrs` reports registers, spill bytes, shared
 //     memory and blocks per SM of each instantiation.
+//   * The work list, the key tile, a work item's Q rows and end, and the
+//     combine live in attention_tiles.cuh, shared with the bf16 mixed
+//     kernel (mixed_attention.cu), which runs this design over contiguous
+//     per-slot caches.
 //
 // fp32 queries: CUDA cores ("simt", the first design; one launch a call).
 // fp32 is the parity path, held to 1e-5; the tensor cores would take it in
@@ -129,24 +133,31 @@
 
 #include <type_traits>
 
-#include "attention_common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
+using repro_attn::allow_smem;
 using repro_attn::cp_async16;
 using repro_attn::cp_async_commit;
 using repro_attn::cp_async_wait;
+using repro_attn::kBK;
+using repro_attn::kCombineThreads;
 using repro_attn::kLog2e;
+using repro_attn::kMmaThreads;
 using repro_attn::kNegInf;
-using repro_attn::ldsm_x4;
-using repro_attn::ldsm_x4_trans;
-using repro_attn::mma_bf16;
-using repro_attn::pack_bf16;
-using repro_attn::quad_max;
-using repro_attn::quad_sum;
+using repro_attn::kPrepassThreads;
+using repro_attn::kRows;
+using repro_attn::kSplitKeys;
+using repro_attn::kTileFields;
+using repro_attn::kernel_attrs;
+using repro_attn::mma_tile;
+using repro_attn::record;
 using repro_attn::smem_u32;
 using repro_attn::store;
+using repro_attn::Tiling;
 using repro_attn::to_f;
+using repro_attn::worklist_bytes;
 
 // ---------------------------------------------------------------------
 // fp32 queries on the CUDA cores ("simt")
@@ -279,14 +290,6 @@ paged_attention_kernel(const QT* __restrict__ q,          // (T, Hkv, G, D)
     store(op + e, acc[e] / fmaxf(l[e / D], 1e-30f));
 }
 
-// Dynamic shared memory above 48 KB is allowed per kernel (and device).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 size_t simt_smem_bytes(int d, int g, int ps) {
   return sizeof(float) * (2 * ps * d + 2 * g * d + g * ps + 3 * g);
 }
@@ -314,117 +317,14 @@ int launch_simt(const void* q, const void* k_pages, const void* v_pages,
 
 using bf16 = __nv_bfloat16;
 
-// a tile's descriptor in the work list: first token, tokens, slot, key
-// range [lo, hi), splits, lowest and highest position of its tokens
-constexpr int kTileFields = 8;
-constexpr int kRows = 64;           // query rows of a block: 4 warps x 16
-constexpr int kMmaThreads = 128;
-constexpr int kBK = 32;             // keys of a ring stage
-constexpr int kSplitKeys = 128;     // keys of a split, a multiple of kBK
-static_assert(kSplitKeys % kBK == 0, "a split is whole ring stages");
-constexpr int kPrepassThreads = 1024;
-constexpr int kCombineThreads = 256;  // 8 rows a block, a warp each
-
-__device__ __forceinline__ int clip_slot(int s, int n) {
-  return s < 0 ? 0 : (s > n - 1 ? n - 1 : s);
-}
-
-// Inclusive scan of x over the block, by max (MAX) or by sum; *total gets
-// the block's whole max or sum.  -1 is the identity of max (every value
-// scanned by max is >= -1).
-template <bool MAX>
-__device__ int block_scan(int x, int* buf, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x = MAX ? max(x, y) : x + y;
-  }
-  if (lane == 31) buf[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < n_warps ? buf[lane] : (MAX ? -1 : 0);
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w = MAX ? max(w, y) : w + y;
-    }
-    buf[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) x = MAX ? max(x, buf[warp - 1]) : x + buf[warp - 1];
-  *total = buf[n_warps - 1];
-  __syncthreads();  // buf is reused by the next scan
-  return x;
-}
-
-// The work list, in one int32 workspace:
-//   [0] the number of tiles, [1] the number of work items;
-//   then T tile descriptors of kTileFields ints;
-//   then up to T * max_splits work items, split * T + tile, in tile order
-//   (a tile's splits are neighbours, so they run at the same time);
-//   then (T,) the split count of each token's tile, for the combine.
-// One block walks T in chunks of its size, carrying the last run start
-// and the tile and item counts.
+// The work list (repro_attn::build_worklist), built by one block.
 __global__ void __launch_bounds__(kPrepassThreads)
 paged_attention_tiles(const int* __restrict__ seg,
                       const int* __restrict__ pos, int* __restrict__ tiles,
                       int t, int s_slots, int key_cap, int tile_tokens,
                       int max_splits, int window) {
-  __shared__ int buf[32];
-  int* desc = tiles + 2;
-  int* items = desc + t * kTileFields;
-  int* token_splits = items + t * max_splits;
-  int run_carry = 0, tile_carry = 0, item_carry = 0;
-  for (int base = 0; base < t; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const bool in = i < t;
-    const int slot = in ? clip_slot(seg[i], s_slots) : 0;
-    const bool run_start =
-        in && (i == 0 || clip_slot(seg[i - 1], s_slots) != slot);
-    int run_max, n_starts, n_items;
-    const int rs = max(block_scan<true>(run_start ? i : -1, buf, &run_max),
-                       run_carry);
-    const bool starts = in && (i - rs) % tile_tokens == 0;
-    const int idx = tile_carry - (starts ? 1 : 0) +
-                    block_scan<false>(starts ? 1 : 0, buf, &n_starts);
-    int n_splits = 0;
-    if (starts) {
-      int lo_pos = pos[i], hi_pos = lo_pos, n = 1;
-      while (n < tile_tokens && i + n < t &&
-             clip_slot(seg[i + n], s_slots) == slot) {
-        const int p = pos[i + n];
-        lo_pos = min(lo_pos, p);
-        hi_pos = max(hi_pos, p);
-        ++n;
-      }
-      const int lo = window > 0 ? max(0, lo_pos - window + 1) : 0;
-      const int hi = max(lo, min(hi_pos + 1, key_cap));
-      n_splits = max(1, (hi - lo + kSplitKeys - 1) / kSplitKeys);
-      int* d = desc + idx * kTileFields;
-      d[0] = i;
-      d[1] = n;
-      d[2] = slot;
-      d[3] = lo;
-      d[4] = hi;
-      d[5] = n_splits;
-      d[6] = lo_pos;
-      d[7] = hi_pos;
-      for (int j = 0; j < n; ++j) token_splits[i + j] = n_splits;
-    }
-    const int item0 = item_carry - n_splits +
-                      block_scan<false>(n_splits, buf, &n_items);
-    for (int s = 0; s < n_splits; ++s) items[item0 + s] = s * t + idx;
-    run_carry = max(run_carry, run_max);
-    tile_carry += n_starts;
-    item_carry += n_items;
-  }
-  if (threadIdx.x == 0) {
-    tiles[0] = tile_carry;
-    tiles[1] = item_carry;
-  }
+  repro_attn::build_worklist(seg, pos, tiles, t, s_slots, key_cap,
+                             tile_tokens, max_splits, window);
 }
 
 // Shared memory of the mma kernel: the Q tile; for a bf16 pool a 2-stage
@@ -513,115 +413,6 @@ __device__ __forceinline__ void convert_keys(bf16* dst, const KT* src,
   }
 }
 
-// One key tile of one warp's 16 rows: S = Q K^T, the online softmax,
-// O += P V.  k0: the tile's first key; k_end: the split's end; pos_r: the
-// positions of the thread's rows g and g + 8; ksc / vsc: the tile's
-// per-key scales (CODES only).  MASK: apply the visibility rule.
-template <int D, bool MASK, bool CODES>
-__device__ __forceinline__ void mma_tile(float (&o)[D / 8][4], float (&m)[2],
-                                         float (&l)[2], uint32_t q_addr,
-                                         uint32_t k_addr, uint32_t v_addr,
-                                         float scale_log2, const float* ksc,
-                                         const float* vsc, int k0, int k_end,
-                                         const int (&pos_r)[2], int window,
-                                         int t) {
-  constexpr int RS = D + 8;
-  constexpr int NT = kBK / 8;  // n-tiles of S
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(q_addr + kk * 16 * 2, a);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(k_addr + (np * 16 * RS + kk * 16) * 2, b);
-      mma_bf16(s[2 * np], a, b[0], b[1]);
-      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-
-  // scores in log2 units; masked ones -1e30
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    float2 ks2 = make_float2(1.f, 1.f);
-    if constexpr (CODES) ks2 = *reinterpret_cast<const float2*>(ksc + 8 * j +
-                                                                2 * t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = s[j][e] * ((e & 1) ? ks2.y : ks2.x) * scale_log2;
-      if constexpr (MASK) {
-        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
-        const int p = pos_r[e >> 1];
-        bool ok = k_pos < k_end && k_pos <= p;
-        if (window > 0) ok = ok && k_pos > p - window;
-        x = ok ? x : kNegInf;
-      }
-      s[j][e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float m_new = fmaxf(m[r], quad_max(mx[r]));
-    alpha[r] = exp2f(m[r] - m_new);
-    m[r] = m_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float p = exp2f(s[j][e] - m[e >> 1]);
-      if constexpr (MASK) p = s[j][e] == kNegInf ? 0.f : p;
-      s[j][e] = p;
-      sum[e >> 1] += p;
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    o[j][0] *= alpha[0];
-    o[j][1] *= alpha[0];
-    o[j][2] *= alpha[1];
-    o[j][3] *= alpha[1];
-  }
-  if constexpr (CODES) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 vs2 = *reinterpret_cast<const float2*>(vsc + 8 * j + 2 * t);
-      s[j][0] *= vs2.x;
-      s[j][1] *= vs2.y;
-      s[j][2] *= vs2.x;
-      s[j][3] *= vs2.y;
-    }
-  }
-
-  // O += P V; P rounded to bf16 as the A fragment
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(v_addr + (kk * 16 * RS + dp * 16) * 2, b);
-      mma_bf16(o[2 * dp], a, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // Persistent blocks over the work list: block (x, z) takes items x, x +
 // gridDim.x, ... for KV head z % Hkv and row block z / Hkv.
 template <typename KT, int D>
@@ -642,7 +433,6 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
   constexpr bool kCodes = sizeof(KT) == 1;
   constexpr int RS = D + 8;
   constexpr int kTile = kBK * RS;  // bf16 elements of a K or V tile
-  constexpr int kChunks = D / 8;   // 16-byte chunks of a bf16 row
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // (kRows, RS)
@@ -705,19 +495,8 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
     const int min_pos = desc[6];
     const int max_pos = desc[7];
 
-    // the Q rows: row r is head (row_base + r) % G of token first +
-    // (row_base + r) / G; rows past the tile are zeros
-    for (int c = tid; c < kRows * kChunks; c += kMmaThreads) {
-      const int r = c / kChunks;
-      const int col = (c - r * kChunks) * 8;
-      const bool ok = r < n_rows;
-      const int gr = row_base + (ok ? r : 0);
-      const bf16* src =
-          q + ((static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g) *
-                  D +
-          col;
-      cp_async16(smem_u32(qs + r * RS + col), src, ok);
-    }
+    repro_attn::load_q_tile<D>(qs, q, first, row_base, n_rows, h, hkv, g,
+                               tid);
     // the pool row of every key of the split (and its scales); entries
     // past n_keys are row 0 with scales 0, never read through a live score
     const int* tab = tables + static_cast<size_t>(slot) * p_pages;
@@ -810,96 +589,30 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
     cp_async_wait<0>();  // the Q copy, when no key tile was live
     __syncthreads();
 
-    if (n_splits == 1) {
-      // normalise; each warp stages its rows in its own rows of qs, then
-      // writes them with 16-byte stores
-      if (warp_live) {
-        bf16* os = qs + row0 * RS;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
-          bf16* row = os + (8 * r + gq) * RS + 2 * t4;
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j)
-            *reinterpret_cast<uint32_t*>(row + 8 * j) =
-                pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-        }
-        __syncwarp();
-        for (int c = lane; c < 16 * kChunks; c += 32) {
-          const int r = c / kChunks;
-          const int col = (c - r * kChunks) * 8;
-          if (row0 + r >= n_rows) break;
-          const int gr = row_base + row0 + r;
-          const size_t orow =
-              (static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g;
-          *reinterpret_cast<uint4*>(out + orow * D + col) =
-              *reinterpret_cast<const uint4*>(os + r * RS + col);
-        }
-      }
-    } else {
-      // one split of several: its rows' unnormalised O and (m, l) in
-      // fp32, for the combine
-      if (warp_live) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float lsum = quad_sum(l[r]);
-          const int row = row0 + 8 * r + gq;
-          if (row >= n_rows) continue;
-          const int gr = row_base + row;
-          const size_t orow =
-              (static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g;
-          const size_t prow = orow * max_splits + split;
-          float* po = part_o + prow * D + 2 * t4;
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j)
-            *reinterpret_cast<float2*>(po + 8 * j) =
-                make_float2(o[j][2 * r], o[j][2 * r + 1]);
-          if (t4 == 0)
-            *reinterpret_cast<float2*>(part_ml + prow * 2) =
-                make_float2(m[r], lsum);
-        }
-      }
-    }
+    repro_attn::finish_item<D>(o, m, l, qs, out, part_o, part_ml, n_splits,
+                               split, max_splits, first, row_base, n_rows, h,
+                               hkv, g, row0, lane, gq, t4, warp_live);
     __syncthreads();  // shared memory is refilled by the next item
     item = item_next;
   }
 }
 
 // The splits of each output row merged in split order
-// (repro_attn::combine_splits): one warp per row (token, KV head, query
-// head) of a token whose tile has more than one split.
+// (repro_attn::combine_row).
 __global__ void __launch_bounds__(kCombineThreads)
 paged_attention_combine(const int* __restrict__ tiles,
                         const float* __restrict__ part_o,
                         const float* __restrict__ part_ml,
                         bf16* __restrict__ out, int t, int hkv, int g,
                         int d, int max_splits) {
-  const size_t row =
-      static_cast<size_t>(blockIdx.x) * (kCombineThreads / 32) +
-      (threadIdx.x >> 5);
-  if (row >= static_cast<size_t>(t) * hkv * g) return;
-  const int tok = static_cast<int>(row / (static_cast<size_t>(hkv) * g));
-  const int n = tiles[2 + t * (kTileFields + max_splits) + tok];
-  if (n <= 1) return;
-  repro_attn::combine_splits(part_ml + row * max_splits * 2,
-                             part_o + row * max_splits * d, out + row * d, n,
-                             d);
+  repro_attn::combine_row(tiles, part_o, part_ml, out, t, hkv, g, d,
+                          max_splits);
 }
 
-// The work list's shape for G query heads a KV head and a table of
-// p_pages pages of ps: M tokens at most a tile (M * G <= kRows, one token
-// when G >= kRows), the most splits a tile can have, and the 64-row
-// blocks a tile's rows take.
-struct Tiling {
-  int tile_tokens, max_splits, row_blocks;
-};
-
+// The work list's shape (repro_attn::tiling) over a table of p_pages
+// pages of ps.
 Tiling tiling(int g, int p_pages, int ps) {
-  Tiling s;
-  s.tile_tokens = max(1, kRows / g);
-  s.max_splits = max(1, (p_pages * ps + kSplitKeys - 1) / kSplitKeys);
-  s.row_blocks = (s.tile_tokens * g + kRows - 1) / kRows;
-  return s;
+  return repro_attn::tiling(g, p_pages * ps);
 }
 
 int launch_tiles(const int* seg, const int* pos, int* tiles, int t,
@@ -917,40 +630,14 @@ int launch_tiles(const int* seg, const int* pos, int* tiles, int t,
 // instantiation is asked once.
 template <typename KT, int D>
 int grid_x(size_t smem, int max_items, int z_blocks, int* out) {
-  static int card_blocks = 0;
-  if (card_blocks == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, paged_attention_mma<KT, D>, kMmaThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    card_blocks = max(1, per_sm) * sms;
+  static int held = 0;
+  if (held == 0) {
+    const int err = repro_attn::card_blocks(paged_attention_mma<KT, D>,
+                                            kMmaThreads, smem, &held);
+    if (err != 0) return err;
   }
-  *out = max(1, min(max_items, card_blocks / z_blocks));
+  *out = max(1, min(max_items, held / z_blocks));
   return 0;
-}
-
-// Bytes of the work list in the workspace, rounded up to 256: the split
-// workspace (fp32) follows it.
-size_t worklist_bytes(int t, int max_splits) {
-  const size_t n = sizeof(int) * (2 + static_cast<size_t>(t) *
-                                          (kTileFields + max_splits + 1));
-  return (n + 255) / 256 * 256;
-}
-
-// What a call launched, written to `launched` when it is not null: device
-// launches, then the thread blocks of the pre-pass, the main kernel and
-// the combine.
-void record(int* launched, int launches, int prepass, int main_blocks,
-            int combine) {
-  if (launched == nullptr) return;
-  launched[0] = launches;
-  launched[1] = prepass;
-  launched[2] = main_blocks;
-  launched[3] = combine;
 }
 
 // the pre-pass, the main kernel and (with more than one split possible)
@@ -1004,29 +691,6 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
   if (err == 0)
     record(launched, 3, 1, gx * z_blocks, static_cast<int>(blocks));
   return err;
-}
-
-// registers, local (spill) bytes, dynamic shared bytes, blocks per SM,
-// threads per block, keys per tile
-template <typename K>
-int kernel_attrs(K kernel, size_t smem, int threads, int key_tile,
-                 int* out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(smem);
-  out[3] = blocks;
-  out[4] = threads;
-  out[5] = key_tile;
-  return 0;
 }
 
 // A call's arguments, passed down the dtype and head-dim dispatch.
@@ -1154,12 +818,8 @@ extern "C" void repro_paged_tiling(int g, int p_pages, int ps, int* out) {
 // split results (none for hkv = 0: the work list alone).
 extern "C" long long repro_paged_workspace_bytes(int t, int hkv, int g, int d,
                                                  int p_pages, int ps) {
-  const Tiling s = tiling(g, p_pages, ps);
-  size_t n = worklist_bytes(t, s.max_splits);
-  if (s.max_splits > 1)
-    n += sizeof(float) * static_cast<size_t>(t) * hkv * g * s.max_splits *
-         (d + 2);
-  return static_cast<long long>(n);
+  return static_cast<long long>(
+      repro_attn::workspace_bytes(t, hkv, g, d, p_pages * ps));
 }
 
 // The pre-pass alone: writes the mma path's work list for G query heads a

@@ -18,7 +18,10 @@ Counterpart of ``repro/kernels/decode_attention.py``:
     mixed prefill/decode batch against per-slot contiguous caches
     ``(S, Hkv, L, D)`` chosen by segment ids (the gathered-cache path:
     ``PagedKVCache.gather`` then attention), CUDA C++ in
-    ``csrc/mixed_attention.cu``.
+    ``csrc/mixed_attention.cu``: bf16 q over bf16 caches on the tensor
+    cores (variant ``"mma"``: the paged kernel's pre-pass, query tiles and
+    key splits over contiguous caches, a combine), fp32 caches on the CUDA
+    cores (``"simt"``).
 
 The kernels are hand-written for ``sm_90a``; each source note says what
 bounds it on the H100 (bytes) and which TPU-isms were dropped (lane
@@ -63,6 +66,8 @@ decode_counter = LaunchCounter("decode_attention")
 # what the last decode call launched, as its C entry reports it
 _decode_launched = (ctypes.c_int * 3)()
 mixed_counter = LaunchCounter("mixed_attention")
+# what the last mixed call launched, as its C entry reports it
+_mixed_launched = (ctypes.c_int * 4)()
 
 
 def _lib() -> ctypes.CDLL:
@@ -554,11 +559,110 @@ def _mixed_lib() -> ctypes.CDLL:
     lib = load_library("repro_mixed_attention")
     fn = lib.repro_mixed_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int),
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        tiling_fn = lib.repro_mixed_tiling
+        tiling_fn.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)]
+        tiling_fn.restype = None
+        ws = lib.repro_mixed_workspace_bytes
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+        tiles = lib.repro_mixed_tiles
+        tiles.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
+        tiles.restype = ctypes.c_int
+        attrs = lib.repro_mixed_attention_attrs
+        attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def mixed_tiling(g: int, seq_len: int) -> dict:
+    """The bf16 mixed kernel's work list for G query heads a KV head over
+    caches of ``seq_len`` keys a slot, as its source fixes it: the tokens
+    a tile holds at most (64 rows / G), the keys a split holds, and the
+    most splits a tile can have.  Its plain version is
+    :func:`paged_tiles_plain` with a table of one page of ``seq_len``."""
+    vals = (ctypes.c_int * 3)()
+    _mixed_lib().repro_mixed_tiling(g, seq_len, vals)
+    return {"tile_tokens": vals[0], "split_keys": vals[1],
+            "max_splits": vals[2]}
+
+
+@functools.lru_cache(maxsize=256)
+def _mixed_workspace_bytes(t, hkv, g, d, seq_len) -> int:
+    return int(_mixed_lib().repro_mixed_workspace_bytes(t, hkv, g, d,
+                                                        seq_len))
+
+
+def mixed_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
+                n_slots: int, seq_len: int, g: int,
+                window: Optional[int] = None) -> torch.Tensor:
+    """The bf16 mixed kernel's work list for G query heads a KV head,
+    built by its pre-pass on the card: :func:`paged_tiles_plain` over a
+    table of ``(n_slots, 1)`` pages of ``seq_len`` at
+    :func:`mixed_tiling`'s tile tokens and split keys.  It reads the tile
+    count back, so it syncs: a check, not part of the kernel's call.
+    CUDA tensors only."""
+    t = seg_ids.shape[0]
+    ws = torch.empty(_mixed_workspace_bytes(t, 0, g, 0, seq_len) // 4,
+                     dtype=torch.int32, device=seg_ids.device)
+    if t == 0:
+        return ws[:0].reshape(0, len(TILE_FIELDS))
+    err = _mixed_lib().repro_mixed_tiles(
+        seg_ids.data_ptr(), positions.data_ptr(), ws.data_ptr(), t,
+        n_slots, seq_len, g, int(window) if window else 0,
+        torch.cuda.current_stream(seg_ids.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mixed_attention pre-pass launch failed "
+                           f"(code {err})")
+    n = int(ws[0].item())
+    return ws[2:2 + n * len(TILE_FIELDS)].reshape(n, len(TILE_FIELDS))
+
+
+def mixed_variant(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> str:
+    """The mixed kernel a (q, cache) dtype pair runs: ``"mma"`` (bf16
+    over bf16, tensor cores, split-KV) or ``"simt"`` (fp32 caches, CUDA
+    cores)."""
+    return ("mma" if q_dtype == cache_dtype == torch.bfloat16
+            else "simt")
+
+
+def mixed_last_launch() -> dict:
+    """What the last CUDA call of :func:`mixed_attention_fwd` launched, as
+    its C entry reports it: device launches, and the thread blocks of the
+    pre-pass, the main kernel and the combine (the "simt" kernel is one
+    launch of main blocks)."""
+    return dict(zip(("device_launches", "prepass_blocks", "main_blocks",
+                     "combine_blocks"), _mixed_launched))
+
+
+def mixed_kernel_attributes(q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                            head_dim: int) -> dict:
+    """The resources of the main kernel that :func:`mixed_attention_fwd`
+    launches for this (q, cache) dtype pair and head_dim on the current
+    card: its variant, registers and local (spill) bytes a thread, dynamic
+    shared bytes and threads a block, blocks an SM holds, keys a tile."""
+    if (q_dtype, cache_dtype) not in MIXED_PAIRS or \
+            head_dim not in HEAD_DIMS:
+        raise ValueError(f"mixed_kernel_attributes: no kernel for "
+                         f"{q_dtype} q, {cache_dtype} caches, head_dim "
+                         f"{head_dim}")
+    vals = (ctypes.c_int * 6)()
+    err = _mixed_lib().repro_mixed_attention_attrs(
+        Q_CODES[q_dtype], Q_CODES[cache_dtype], head_dim, vals)
+    if err != 0:
+        raise RuntimeError(f"mixed_attention attributes failed (code "
+                           f"{err})")
+    return {"variant": mixed_variant(q_dtype, cache_dtype),
+            "registers": vals[0], "spill_bytes": vals[1],
+            "smem_bytes": vals[2], "blocks_per_sm": vals[3],
+            "threads": vals[4], "key_tile": vals[5]}
 
 
 def mixed_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -606,7 +710,14 @@ def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     dtype.  Inference only.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise."""
+    on the current stream, or raise: bf16 q over bf16 caches runs the
+    tensor-core variant, three device launches under one C call (the
+    pre-pass that builds the work list of query tiles and key splits on
+    the card, the main kernel over it, and the combine of the splits; two
+    when L fits one split), the fp32-cache pairs the CUDA-core variant,
+    one launch; :func:`mixed_last_launch` reads what the last call
+    launched.  ``mixed_counter`` counts calls.  Neither reads anything
+    back to the host."""
     if q.device.type == "cpu":
         return mixed_attention_plain(q, k_cache, v_cache, seg_ids,
                                      positions, scale=scale, window=window)
@@ -637,19 +748,25 @@ def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                             "must be (T,) int32")
     check_operands("mixed_attention_fwd", q,
                    (q, k_cache, v_cache, seg_ids, positions))
-    if k_cache.data_ptr() % 16:
-        raise ValueError("mixed_attention_fwd: k_cache must be 16-byte "
-                         "aligned (the kernel loads key rows in 16-byte "
-                         "vectors)")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"mixed_attention_fwd: {name} must be "
+                             f"16-byte aligned (the kernels copy rows in "
+                             f"16-byte chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    work = None
+    if mixed_variant(q.dtype, k_cache.dtype) == "mma":
+        work = torch.empty(_mixed_workspace_bytes(t, hkv, g, d, l),
+                           dtype=torch.uint8, device=q.device)
     fn = _mixed_lib().repro_mixed_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], Q_CODES[k_cache.dtype], d,
              q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             seg_ids.data_ptr(), positions.data_ptr(), out.data_ptr(), t,
-             hkv, g, s, l, float(scale), int(window) if window else 0,
+             seg_ids.data_ptr(), positions.data_ptr(), out.data_ptr(),
+             None if work is None else work.data_ptr(), t, hkv, g, s, l,
+             float(scale), int(window) if window else 0, _mixed_launched,
              stream)
     if err != 0:
         raise RuntimeError(f"mixed_attention kernel launch failed "

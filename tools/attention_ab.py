@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Parent against change, on one card: the paged and mixed attention
+kernels of two checkouts of the port, measured in turns.
+
+    python3 tools/attention_ab.py --parent DIR [--out FILE]
+
+DIR is another checkout of this repository (an unpacked ``git archive``
+of the parent commit, say).  The script runs four turns, parent, this
+tree, this tree, parent, each a process of its own that imports that
+tree's ``repro_torch`` (built into that tree's ``build/``) and this
+tree's ``chip_smoke`` helpers, and measures on the paged row's inputs
+(``chip_smoke.paged_inputs``, seed 11):
+
+  * the paged kernel on every ``PAGED_CASES`` row: the SHA-256 of its
+    output's bytes, a single call's ms by CUDA events, and for the bf16
+    rows the device us a call (``profile_kernels``);
+  * the mixed kernel on every ``MIXED_ROWS`` row: a single call's ms,
+    SDPA's ms on the same inputs, and the device us a call of each of
+    its kernels.
+
+It prints each turn's JSON line, then a summary: whether the paged
+outputs of every turn are the same bits, row by row; whether the two
+trees' paged libraries hold the same machine code (``cuobjdump -sass``,
+the source file's hash in the kernel names masked); and each number of
+the four turns side by side.  It exits non-zero when the paged bits
+differ.  Needs one CUDA card and the CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure(tree: str) -> dict:
+    """One turn: the measurements of ``tree``'s kernels."""
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as DA
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+
+    x = cs.paged_inputs(torch, torch.Generator().manual_seed(11), "cuda")
+    paged, paged_kerns = {}, {}
+    for q_dtype, pool in cs.PAGED_CASES:
+        q, kp, vp, ksc, vsc = cs.paged_case_tensors(torch, x, q_dtype, pool)
+
+        def kern(q=q, kp=kp, vp=vp, ksc=ksc, vsc=vsc):
+            return DA.paged_attention_fwd(
+                q, kp, vp, x["tables"], x["seg"], x["pos"],
+                scale=256 ** -0.5, k_scale=ksc, v_scale=vsc)
+        out = kern()
+        torch.cuda.synchronize()
+        key = f"{q_dtype}x{pool}"
+        paged[key] = {
+            "sha256": hashlib.sha256(
+                out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            ).hexdigest(),
+            "ms": cs.time_ms(torch, kern)}
+        if q_dtype == "bfloat16":
+            paged_kerns[key] = kern
+
+    xm, caches = cs.mixed_inputs(torch, "cuda")
+    mixed, mixed_kerns = {}, {}
+    for spec in cs.MIXED_ROWS:
+        label, window = spec[0], spec[6]
+        q, kc, vc = cs.mixed_row_tensors(torch, "cuda", xm, caches, spec)
+        kw = dict(scale=spec[5] ** -0.5, window=window)
+
+        def kern(q=q, kc=kc, vc=vc, kw=kw):
+            return DA.mixed_attention_fwd(q, kc, vc, xm["seg"], xm["pos"],
+                                          **kw)
+        kern()
+        torch.cuda.synchronize()
+        mixed[label] = {
+            "ms": cs.time_ms(torch, kern),
+            "sdpa_ms": cs.mixed_library_ms(torch, q, kc, vc, xm["seg"],
+                                           xm["pos"], window, kw["scale"])}
+        mixed_kerns[label] = kern
+
+    # the profiled readings last: a profiler session slows what follows
+    for key, kern in paged_kerns.items():
+        kern()
+        prof = cs.profile_kernels(torch, kern, DA.counter, "paged_attention",
+                                  DA.last_launch()["device_launches"])
+        paged[key]["device_us"] = prof["device_us_per_call"]
+        paged[key]["sessions"] = len(prof["sessions"])
+    for label, kern in mixed_kerns.items():
+        kern()
+        want = (DA.mixed_last_launch()["device_launches"]
+                if hasattr(DA, "mixed_last_launch") else 1)
+        prof = cs.profile_kernels(torch, kern, DA.mixed_counter,
+                                  "mixed_attention", want,
+                                  part=cs.mixed_part)
+        mixed[label]["device_us"] = prof["device_us_per_call"]
+        mixed[label]["parts_us"] = {
+            k: v["device_us_per_call"] for k, v in prof["kernels"].items()}
+        mixed[label]["sessions"] = len(prof["sessions"])
+    return {"tree": tree, "card": cs.smi_line(), "paged": paged,
+            "mixed": mixed, "paged_library": DA._lib()._name}
+
+
+def sass(library: str) -> dict:
+    """The machine code of a built library: each kernel's instructions by
+    its name, with the per-file hash of anonymous-namespace names
+    masked."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", library], check=True,
+                          capture_output=True, text=True).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        line = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "ANON", line)
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernels[name] = []
+        elif name is not None and "/*" in line:
+            kernels[name].append(line.strip())
+    return kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="the other checkout")
+    ap.add_argument("--measure", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help="also write the turns and the summary "
+                                  "to this JSON file")
+    args = ap.parse_args()
+    if args.measure:
+        print(json.dumps(measure(args.measure)), flush=True)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    turns = []
+    for label, tree in (("parent", args.parent), ("change", HERE),
+                        ("change", HERE), ("parent", args.parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--measure", os.path.abspath(tree)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"the {label} turn failed")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        line["turn"] = label
+        print(json.dumps(line), flush=True)
+        turns.append(line)
+    paged_keys = list(turns[0]["paged"])
+    parent_sass, change_sass = (sass(turns[i]["paged_library"])
+                                for i in (0, 1))
+    summary = {
+        "turns": [t["turn"] for t in turns],
+        "paged_sass_identical": parent_sass == change_sass,
+        "paged_sass_kernels": len(parent_sass),
+        "paged_sass_kernels_differing": sorted(
+            k for k in set(parent_sass) | set(change_sass)
+            if parent_sass.get(k) != change_sass.get(k)),
+        "paged_bits_equal": {
+            k: len({t["paged"][k]["sha256"] for t in turns}) == 1
+            for k in paged_keys},
+        "paged_ms": {k: [t["paged"][k]["ms"] for t in turns]
+                     for k in paged_keys},
+        "paged_device_us": {
+            k: [t["paged"][k]["device_us"] for t in turns]
+            for k in paged_keys if "device_us" in turns[0]["paged"][k]},
+        "mixed": {
+            label: {field: [t["mixed"][label][field] for t in turns]
+                    for field in ("ms", "sdpa_ms", "device_us")}
+            for label in turns[0]["mixed"]}}
+    print(json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"turns": turns, "summary": summary}, f, indent=1)
+    return 0 if all(summary["paged_bits_equal"].values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
