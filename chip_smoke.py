@@ -70,7 +70,9 @@ Output, one line each:
     split-KV and "simt" for fp32, its kernel's resources and the device
     launches and thread blocks of a call as the C entry reports them);
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
-    state); flash and decode attention at jamba's shapes; mixed attention
+    state; each with its kernel's registers, spill bytes, threads, shared
+    memory, blocks per SM, the state columns a thread holds and the parts
+    a column group is spread over); flash and decode attention at jamba's shapes; mixed attention
     (the paged row's inputs gathered into per-slot caches at bf16, fp32,
     with a window and bf16 q over fp32 caches, and the reference's small
     serving preset's head_dim 32; each with its variant, "mma" for bf16
@@ -83,7 +85,8 @@ Output, one line each:
     (ResNet-50's add+relu and relu at their batch-64 shapes, fp32 and
     bf16, a long chain with a 0-d and a broadcast operand, and every op
     of the fusion queue in each dtype it takes, merged into a few
-    chains);
+    chains; the relu row also against ``torch.relu`` in alternating
+    turns, every reading printed);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels; the
     paged variant its q dtype runs);
@@ -111,14 +114,17 @@ Output, one line each:
     rows' device us a call by kernel and device launches a call;
     ``decode_attention_profile``: the same for the gemma bf16 and jamba
     decode rows, main kernel and combine; ``mixed_attention_profile``:
-    mixed row (a), pre-pass, main kernel and combine), last,
+    mixed row (a), pre-pass, main kernel and combine;
+    ``rwkv6_scan_profile``: the WKV6 rows' device us a call, and at the
+    prefill row each instantiated count of columns a thread), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
     path's main run (wrapper calls; the paged, decode and mixed entries
-    add their variant and the device launches and device us of one call
-    of the reported row, as ``paged_attention_profile``,
-    ``decode_attention_profile`` and ``mixed_attention_profile`` counted
+    add their variant, and those and the WKV6 entry the device launches
+    and device us of one call of the reported row, as
+    ``paged_attention_profile``, ``decode_attention_profile``,
+    ``mixed_attention_profile`` and ``rwkv6_scan_profile`` counted
     them; bf16 serving for paged
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
@@ -205,6 +211,10 @@ RWKV6_ROWS = (("prefill", "bfloat16", 4, 32, 1024, 64, False, "model"),
 # fp32 operations per state element a step: r*S, k*v and the decay FMA
 # (the bonus term is a per-step scalar, v_j * sum_i r_i u_i k_i)
 WKV6_OPS = 5
+# the state columns a thread holds that the WKV6 kernel instantiates at
+# D = 64 (4 is its choice; 1 is one column a thread in 8 parts, 512
+# threads); rwkv6_scan_profile times each at the prefill row
+RWKV6_COLS = (1, 4, 8)
 # The Mamba scan against its plain version: (label, dtype, B, S, Di, N,
 # with an h0, B/C as column views of a (B, S, R + 2N) projection).  The
 # first row is the jamba_prefill shape (jamba-1.5-large, 4 x 1024 tokens,
@@ -816,8 +826,10 @@ def rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays):
 
 def phase_rwkv6(torch, dev) -> dict:
     """The WKV6 kernel against its plain version; the first row is the
-    rwkv_prefill shape (the table's row).  No single PyTorch call
-    computes WKV6, so there is no library time."""
+    rwkv_prefill shape (the table's row).  Each row carries its kernel's
+    resources, the state columns a thread holds and the parts a column
+    group is spread over (``rwkv6_kernel_attributes``).  No single PyTorch call computes WKV6,
+    so there is no library time."""
     from repro_torch.kernels import rwkv6 as RW
 
     result = None
@@ -828,7 +840,8 @@ def phase_rwkv6(torch, dev) -> dict:
         ref, ref_st = RW.rwkv6_scan_plain(*args)
         row = {"phase": "kernel", "name": "rwkv6_scan", "row": label,
                "dtype": dt, "B": b, "H": h, "S": s, "D": d,
-               "state0": state, "decays": decays}
+               "state0": state, "decays": decays,
+               **RW.rwkv6_kernel_attributes(args[0].dtype, d)}
         row.update(check_row(torch, f"rwkv6_scan[{label}]", out, ref,
                              kernel_tol(dt, s)))
         st_err = (st - ref_st).abs().max().item()
@@ -853,6 +866,89 @@ def phase_rwkv6(torch, dev) -> dict:
         if result is None:
             result = row
     return result
+
+
+def profile_rwkv6(torch, dev) -> dict:
+    """The RWKV6_ROWS under ``profile_kernels``: the device us a call of
+    the WKV6 kernel (one device launch a call), and at the prefill row
+    each instantiated count of state columns a thread (``RWKV6_COLS``)
+    with its resources and single call ms.  Run with the profiled runs, last.  Returns the prefill
+    line."""
+    from repro_torch.kernels import rwkv6 as RW
+
+    result = None
+    for label, dt, b, h, s, d, state, decays in RWKV6_ROWS:
+        args = rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays)
+        row = {"phase": "rwkv6_scan_profile", "row": label, "dtype": dt,
+               "cols": RW.rwkv6_kernel_attributes(args[0].dtype,
+                                                  d)["cols"],
+               **profile_kernels(torch, lambda: RW.rwkv6_scan_fwd(*args),
+                                 RW.counter, "rwkv6_scan", 1)}
+        if label == "prefill":
+            sweep = {}
+            for cols in RWKV6_COLS:
+                def kern(cols=cols):
+                    return RW.rwkv6_scan_fwd(*args, cols=cols)
+                prof = profile_kernels(torch, kern, RW.counter,
+                                       "rwkv6_scan", 1)
+                sweep[cols] = {
+                    "device_us_per_call": prof["device_us_per_call"],
+                    "first_session_agrees": prof["first_session_agrees"],
+                    "ms": time_ms(torch, kern),
+                    **RW.rwkv6_kernel_attributes(args[0].dtype, d, cols)}
+            row["cols_sweep"] = sweep
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
+def wkv6_turn(torch, tree: str) -> None:
+    """One turn of a comparison of two checkouts' WKV6 kernels on one
+    card: measures whichever ``repro_torch`` comes first on ``sys.path``
+    (``tree`` names it in the output), with this file's helpers, so a
+    parent checkout is measured with the same code as the change.  Emits
+    a ``wkv6_turn`` line (each RWKV6_ROWS row: error against the plain
+    version, single-call ms, device us a call by ``profile_kernels``)
+    after ``rwkv_prefill`` and ``rwkv_decode`` on rwkv6-1.6b and their
+    profiles (tokens/s, ms a step, device time by group, idle share).
+    Run each turn in a process of its own, in the order parent, change,
+    change, parent:
+
+        python3 -c "import sys; sys.path[:0] = ['TREE/src', '.'];
+                    import torch, chip_smoke;
+                    chip_smoke.wkv6_turn(torch, 'TREE')"
+    """
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6 as RW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    _build.load_library("repro_rwkv6")
+    rows, kerns = {}, {}
+    for label, dt, b, h, s, d, state, decays in RWKV6_ROWS:
+        args = rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays)
+        out, st = RW.rwkv6_scan_fwd(*args)
+        ref, ref_st = RW.rwkv6_scan_plain(*args)
+        kerns[label] = lambda args=args: RW.rwkv6_scan_fwd(*args)
+        rows[label] = {
+            **check_row(torch, f"rwkv6_scan[{label}]", out, ref,
+                        kernel_tol(dt, s)),
+            "state_max_abs_err": (st - ref_st).abs().max().item(),
+            "ms": time_ms(torch, kerns[label])}
+    _, _, cfg, params = rwkv_models(torch, dev)
+    _, prefill_profile = phase_prefill(torch, dev, cfg, params,
+                                       "rwkv_prefill", 31)
+    _, decode_profile = phase_decode_steps(torch, dev, cfg, params,
+                                           "rwkv_decode", 32)
+    # the profiler sessions last: they slow the host for timed runs after
+    for label, kern in kerns.items():
+        rows[label].update(profile_kernels(torch, kern, RW.counter,
+                                           "rwkv6_scan", 1))
+    prefill_profile(params)
+    decode_profile(params)
+    emit({"phase": "wkv6_turn", "tree": tree, "smi": smi_line(),
+          "rows": rows})
 
 
 def mamba_inputs(torch, dev, dt, b, s, di, n, state, strided):
@@ -1168,6 +1264,9 @@ def phase_small_e2e(torch) -> None:
 # and 1e-2 (both round one fp32 result to bf16, a tie can fall one step
 # apart); integer and bool outputs exact.
 FUSED_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+# turns of the relu row against torch.relu (``relu_turns``): the two
+# differ by a few percent, less than one reading's spread
+RELU_TURNS = 6
 # rows (a)-(d): (label, dtype, shape); (a) and (c) are ResNet-50's
 # relu(out + identity) at layer1's shape, batch 64 (two inputs, two
 # outputs), (b) the stem's relu, (d) a long chain with a 0-d and a
@@ -1347,6 +1446,25 @@ def fused_op_cases(torch, dev):
     return cases
 
 
+def relu_turns(torch, kern, library, turns: int = RELU_TURNS) -> dict:
+    """``time_ms_stream`` readings of ``kern`` and ``library`` taken in
+    alternating turns (kernel first in even turns, the library call in
+    odd ones), every reading kept, with each one's min and median."""
+    got = {"kernel": [], "library": []}
+    for i in range(turns):
+        order = ("kernel", "library") if i % 2 == 0 else \
+            ("library", "kernel")
+        for who in order:
+            got[who].append(time_ms_stream(
+                torch, kern if who == "kernel" else library))
+    for who in ("kernel", "library"):
+        xs = sorted(got[who])
+        got[f"{who}_min"] = xs[0]
+        got[f"{who}_median"] = (xs[(len(xs) - 1) // 2]
+                                + xs[len(xs) // 2]) / 2
+    return got
+
+
 def phase_fused_elementwise(torch, dev) -> dict:
     """Kernel B6 against its plain version: rows (a)-(d) timed, row (e)
     (every op, every dtype it takes) for correctness; and a chain with an
@@ -1387,9 +1505,11 @@ def phase_fused_elementwise(torch, dev) -> dict:
         ms = time_ms_stream(torch, lambda: FE.fused_elementwise(chain, *ext))
         plain_ms = time_ms_stream(
             torch, lambda: FE.fused_elementwise_plain(chain, *ext))
-        library_ms = None
+        library_ms = turns = None
         if label == "relu":
             library_ms = time_ms_stream(torch, lambda: torch.relu(ext[0]))
+            turns = relu_turns(torch, lambda: FE.fused_elementwise(
+                chain, *ext), lambda: torch.relu(ext[0]))
         single_ms = time_ms(torch, lambda: FE.fused_elementwise(chain, *ext))
         row = {"phase": "kernel", "name": "fused_elementwise",
                "row": label, "dtype": dtype, "shape": list(shape),
@@ -1400,6 +1520,8 @@ def phase_fused_elementwise(torch, dev) -> dict:
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes,
                "library_ms": library_ms}
+        if turns is not None:
+            row["turns_vs_library"] = turns
         emit(row)
         main = main or row
         del xs, ext, out, ref
@@ -2735,6 +2857,7 @@ def run_phases(torch, dev) -> list:
     paged_profile = profile_paged(torch, dev)
     decode_profile = profile_decode(torch, dev)
     mixed_profile = profile_mixed(torch, dev)
+    rwkv6_profile = profile_rwkv6(torch, dev)
 
     table = []
     for name, route, source, replaces in (
@@ -2771,7 +2894,8 @@ def run_phases(torch, dev) -> list:
             entry["variant"] = r["variant"]
         profiled = {"paged_attention": paged_profile,
                     "decode_attention": decode_profile,
-                    "mixed_attention": mixed_profile}.get(name)
+                    "mixed_attention": mixed_profile,
+                    "rwkv6_scan": rwkv6_profile}.get(name)
         if profiled is not None:
             # as the profiler counted and timed them
             entry["device_launches_per_call"] = profiled[

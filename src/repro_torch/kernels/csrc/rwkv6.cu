@@ -18,37 +18,75 @@
 // r/k/v/w are (B, H, S, D) views with a unit last stride and one set of
 // (b, h, t) strides between them (the layer passes transposed views of
 // its (B, S, H*D) projections, so nothing is copied into a head-major
-// layout), fp32 or bf16, read as fp32; u is (H, D) fp32; the states are
-// contiguous (B, H, D, D) fp32; out has its own (b, h, t) strides, in the
-// input type, rounded once from the fp32 sum.
+// layout), fp32 or bf16, read as fp32; every row and base pointer is
+// 16-byte aligned (the wrapper copies operands that are not); u is (H, D)
+// fp32; the states are contiguous (B, H, D, D) fp32; out has its own
+// (b, h, t) strides, 16-byte aligned rows, in the input type, rounded
+// once from the fp32 sum.
 //
-// Design (first, simple version; the layout of the RWKV authors' public
-// CUDA kernel):
-//   * one block of D threads per (b, h); thread j owns column j of the
-//     state, S[:, j], in D registers for the whole sweep, so the state never
-//     leaves the SM between steps;
-//   * the block stages kChunk steps of r, k, w and v in shared memory at a
-//     time (thread j loads element j of each step's row: coalesced), and
-//     reduces each step's bonus scalar sum_i r_i u_i k_i there (a warp sum,
-//     then one partial per warp); then each thread walks the chunk's steps
-//     in order.  The next chunk's loads are issued into registers before
-//     the walk, so their DRAM latency overlaps it (a version that loaded
-//     each step's row just before reducing it ran at twice the time).
-//     r/k/w are read by all threads at the same address (a broadcast),
-//     four at a time as float4, since shared-memory load instructions, not
-//     the FMAs, bound a step with scalar loads; v by its own thread;
-//   * two barriers per chunk, not per step.
+// What bounds it on the H100: operations, and on this serial form the
+// issue of each step's instructions.  Each step costs 5 fp32 operations
+// per state element in 3 instructions (the r FMA, k*v, the decay FMA);
+// the bonus scalar is O(D) a step.  The rwkv6-1.6b prefill row (B=4,
+// H=32, S=1024, D=64) needs 2.7 GFLOP against 86 MB: 0.040 ms at the
+// 67 TFLOP/s fp32 peak against 0.026 ms at 3.35 TB/s (the state math is
+// fp32 whatever the input type).  The steps of one (b, h) are serial,
+// and B*H = 128 blocks is about one per SM, so a step's D*D elements are
+// spread over a whole SM: 3 instructions x 4096 elements over 128 lanes
+// is 96 cycles a step.  Every element also needs r_i, k_i and w_i (its
+// row's) and v_j (its column's) from shared memory, a thread holding NC
+// columns x R rows loads 3R + NC floats for NC*R elements, and the
+// column sums are reduced across the threads that share a column.  Held
+// one column a thread (512 threads, R = 8), the loads and a reduction
+// each step put ~500 cycles on a step on an H100; four columns a thread
+// and reductions shared by a batch of steps take ~75 instructions a
+// thread a step (48 of them fp32), ~150 cycles of issue for the 8 warps
+// of an SM, and the step runs in about 1.7 times that.
 //
-// What bounds it on the H100: operations.  Each step costs 5 fp32
-// operations per state element (the r FMA, k*v, the decay FMA); the bonus
-// scalar is O(D) a step.  The rwkv6-1.6b prefill row (B=4, H=32, S=1024,
-// D=64) needs 2.7 GFLOP against 86 MB of bytes: 0.040 ms at the 67 TFLOP/s
-// fp32 peak against 0.026 ms at 3.35 TB/s.  The state math is fp32
-// whatever the input type, so the fp32 peak is the one that applies.  This
-// version is far from it: 128 blocks of 2 warps leave each SM's schedulers
-// mostly idle, and the sweep over S is serial.  The chunked form
-// (intra-chunk products on the tensor cores, the state carried between
-// chunks) and several blocks per (b, h) are the next steps.
+// Design:
+//   * one block per (b, h) of (D/NC) x P threads: NC = 4 columns and
+//     P = 16 parts a column, R = D/P rows a part (256 threads at D = 64,
+//     512 at D = 128); thread (g, p) = threadIdx.x / P, % P holds rows
+//     [p*R, (p+1)*R) of columns [g*NC, (g+1)*NC) of the state in
+//     registers for the whole sweep.  state0 comes in and the final state
+//     goes out through shared memory, a warp moving 512 contiguous bytes
+//     of them at a time: 16-byte accesses straight from the registers
+//     touch one 32-byte sector of each of 16 rows, four times the
+//     requests, and a decode step took 2.5 times as long with them;
+//   * the P parts of a column group sit in adjacent lanes.  The steps run
+//     in batches of U = P/NC (one at D = 128), and a batch's U x NC
+//     partial sums a thread are reduced over the P lanes by a fixed
+//     __shfl_xor reduce-scatter: log2(U*NC) rounds, each halving the sums
+//     a lane keeps, then plain butterfly rounds over the remaining lanes,
+//     leave each lane p < U*NC with one (step, column) output, which it
+//     stores (a chunk's last steps short of a batch, a decode step say,
+//     run one at a time).  The same bits on every run; and a batch's
+//     shuffles are shared by U steps: reduced a step at a time, their
+//     latency made each step ~1.6 times as long;
+//   * steps are staged by cp.async a chunk of kChunk at a time: the r, k,
+//     v and w rows of the next chunk are copied as 16-byte pieces, in the
+//     input type, while the current chunk's steps run.  When a chunk has
+//     landed, one warp a step converts its rows to fp32 into the working
+//     buffers and reduces the step's bonus scalar there, and stores v_j
+//     and v_j * bonus;
+//   * a thread reads its R rows of r, k and w for a step as 16-byte
+//     shared loads (8-byte at R = 2) and its NC values of v as one, a
+//     step ahead of their use.
+//     Threads with equal p read the same address (a broadcast), and the
+//     working rows are interleaved so that the P distinct addresses of
+//     one load are P consecutive pieces: distinct banks;
+//   * each step's output is written, rounded once, into a chunk tile in
+//     shared memory, which leaves as coalesced 16-byte stores when the
+//     next chunk starts;
+//   * two barriers per chunk, none per step.
+//
+// What is left: the loads, shuffles and loop take a third of the issue
+// slots, two warps a scheduler hide their latency only in part, and a
+// block's steps are one serial chain.  The chunked
+// form (intra-chunk products on the tensor cores, the state carried
+// between chunks) would cut both, but it divides by products of decays
+// that underflow in fp32 within a chunk and runs in TF32, short of the
+// fp32 tier.
 //
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * 128-lane padding of D, with w padded with ones (repro/kernels/ops.py
@@ -64,23 +102,143 @@
 //   * no initial-state input (so the reference ran decode through the jnp
 //     oracle): state0 is an optional input here, and decode uses it.
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace {
 
+using repro_attn::cp_async16;
+using repro_attn::cp_async_commit;
+using repro_attn::cp_async_wait;
+using repro_attn::smem_u32;
 using repro_attn::store;
 using repro_attn::to_f;
-using repro_attn::warp_sum;
 
-constexpr int kChunk = 16;   // steps staged in shared memory at a time
+constexpr int kChunk = 32;   // steps staged in shared memory at a time
 
 // (b, h, t) element strides of a (B, H, S, D) view; the last stride is 1
 struct Strides {
   long long b, h, t;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
+// The block of one instantiation: (D/NC) x P threads, R = D/P state rows
+// and NC columns a thread, V rows a shared load, and the dynamic shared
+// memory: the staged rows in the input type ([4][kChunk][D]: r, k, v, w),
+// the working rows in fp32 (r, k, w interleaved, v, v * bonus; [kChunk][D]
+// each) and the output tile ([kChunk][D], input type).
+template <typename T, int D, int NC, int P>
+struct Shape {
+  static_assert(P <= 32 && 32 % P == 0 && NC <= P && P % NC == 0 &&
+                    (NC == 1 || NC == 4 || NC == 8) && D / P >= 2,
+                "a column group's P parts share one warp");
+  static constexpr int kThreads = D / NC * P;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRows = D / P;
+  static constexpr int kVec = kRows < 4 ? kRows : 4;
+  static constexpr int kPiece = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kRawBytes = 4 * kChunk * D * sizeof(T);
+  static constexpr int kWorkBytes = 5 * kChunk * D * 4;
+  static constexpr int kOutBytes = kChunk * D * sizeof(T);
+  static constexpr int kSmem = kRawBytes + kWorkBytes + kOutBytes;
+  // blocks of up to 256 threads: two an SM at most 128 registers each
+  static constexpr int kMinBlocks = kThreads <= 256 ? 2 : 1;
+  // steps whose partial sums are reduced together (NC of them a step): as
+  // many as the column group has parts; one at 8 rows a thread, whose
+  // state leaves no registers for more
+  static constexpr int kBatch = kRows <= 4 ? P / NC : 1;
+};
+
+// Where element i of a step's row sits in its working row: the rows a
+// thread reads in one load of V are V consecutive floats, and the P
+// threads of a column group read P consecutive V-float pieces.
+template <int D, int P>
+__device__ __forceinline__ int work_pos(int i) {
+  constexpr int R = D / P, V = R < 4 ? R : 4;
+  const int p = i / R, rem = i % R;
+  return (rem / V) * (P * V) + p * V + rem % V;
+}
+
+// Where element (i, j) of the staged state sits: row-major, its 16-byte
+// pieces XOR-swizzled by the part that holds row i, so that the threads of
+// a quarter warp, which read one piece each of 8 rows of 8 parts, read 8
+// distinct groups of 4 banks.
+template <int D, int P>
+__device__ __forceinline__ int state_at(int i, int j) {
+  return i * D + ((((j / 4) ^ (i / (D / P) % 8))) * 4) + j % 4;
+}
+
+// N consecutive floats of shared or global memory, 16 (or 8) bytes a load
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float* o) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + q);
+      o[q] = x.x; o[q + 1] = x.y; o[q + 2] = x.z; o[q + 3] = x.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x; o[1] = x.y;
+  } else {
+    static_assert(N == 1, "N is 1, 2 or a multiple of 4");
+    o[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float* o) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4)
+      *reinterpret_cast<float4*>(p + q) =
+          make_float4(o[q], o[q + 1], o[q + 2], o[q + 3]);
+  } else {
+    static_assert(N == 1, "N is 1 or a multiple of 4");
+    p[0] = o[0];
+  }
+}
+
+// The N partial sums of each of N adjacent lanes reduced over those
+// lanes, one sum left in a[0] of each lane: in round n = N, N/2, ..., 2
+// (lane offset N/n) the lanes whose offset bit is set keep the upper half
+// of their n sums, the others the lower half, and each adds its partner's
+// sums of the half it keeps.  A lane ends with sum number
+// reduced_index<N>(lane).
+template <int N, int n = N>
+__device__ __forceinline__ void reduce_scatter(float (&a)[N], int lane) {
+  if constexpr (n > 1) {
+    const int off = N / n;
+    const bool upper = lane & off;
+#pragma unroll
+    for (int c = 0; c < n / 2; ++c) {
+      const float keep = upper ? a[c + n / 2] : a[c];
+      const float send = upper ? a[c] : a[c + n / 2];
+      a[c] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    reduce_scatter<N, n / 2>(a, lane);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ int reduced_index(int lane) {
+  int idx = 0;
+#pragma unroll
+  for (int n = N, off = 1; n > 1; n /= 2, off *= 2)
+    if (lane & off) idx += n / 2;
+  return idx;
+}
+
+// One thread's operands of a step: its R rows of r, k and w, and v at its
+// NC columns.
+template <int R, int NC>
+struct StepRows {
+  float r[R], k[R], w[R], v[NC];
+};
+
+template <typename T, int D, int NC, int P>
+__global__ void __launch_bounds__(Shape<T, D, NC, P>::kThreads,
+                                  Shape<T, D, NC, P>::kMinBlocks)
 rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ w,
              Strides in,
@@ -89,126 +247,332 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              T* __restrict__ out, Strides os,    // (B, H, S, D) view
              float* __restrict__ state_out,      // (B, H, D, D)
              int h, int s) {
-  constexpr int kWarps = D / 32;
-  // 16-byte aligned: the step loop reads r, k and w as float4
-  __shared__ __align__(16) float rs[kChunk][D];
-  __shared__ __align__(16) float ks[kChunk][D];
-  __shared__ __align__(16) float ws[kChunk][D];
-  __shared__ float vs[kChunk][D];
-  __shared__ float bonus[kChunk][kWarps];   // per-warp sum_i r_i u_i k_i
+  using L = Shape<T, D, NC, P>;
+  constexpr int C = kChunk, R = L::kRows, V = L::kVec;
+  constexpr int U = L::kBatch;
+  constexpr int kConv = (C + L::kWarps - 1) / L::kWarps;  // steps a warp
+  constexpr int kPiece4 = NC % 4 == 0 ? 4 : 1;  // state floats an access
+  constexpr int kStatePieces = D * D / 4 / L::kThreads;  // 16 B a thread
+  constexpr int kRowPieces = D / L::kPiece;   // 16-byte pieces a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* raw = reinterpret_cast<T*>(smem);
+  float* wr = reinterpret_cast<float*>(smem + L::kRawBytes);
+  float* wk = wr + C * D;
+  float* ww = wk + C * D;
+  float* wv = ww + C * D;
+  float* wvb = wv + C * D;   // v_j * bonus
+  T* tile = reinterpret_cast<T*>(smem + L::kRawBytes + L::kWorkBytes);
+  static_assert(L::kWorkBytes >= D * D * 4 && D * D / 4 % L::kThreads == 0,
+                "the state passes through `ss` in whole rounds");
 
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = tid / P, p = tid % P;
   const int bh = blockIdx.x;
   const int bi = bh / h, hi = bh % h;
-  const int j = threadIdx.x;
-  const long long row = bi * in.b + hi * in.h + j;
-  const long long orow = bi * os.b + hi * os.h + j;
-  const size_t sbase = static_cast<size_t>(bh) * D * D;
-  const float uj = u[static_cast<size_t>(hi) * D + j];
+  const long long ib = bi * in.b + hi * in.h;
+  const long long ob = bi * os.b + hi * os.h;
+  float* ss = wr;   // the state's way in and out, D*D floats
+  const size_t sb = static_cast<size_t>(bh) * D * D;
 
-  float st[D];
+  // the rows of steps t0..min(t0+C, s)-1 into `raw`, as one group
+  auto stage = [&](int t0) {
+    const T* src[4] = {r + ib, k + ib, v + ib, w + ib};
+    const int pieces = min(C, s - t0) * kRowPieces;
 #pragma unroll
-  for (int i = 0; i < D; ++i)
-    st[i] = state0 != nullptr ? state0[sbase + static_cast<size_t>(i) * D + j]
-                              : 0.f;
-
-  // The next chunk's elements, loaded into registers while the current
-  // chunk's steps run: all 4 * kChunk loads are in flight at once, and
-  // their latency hides behind the steps, not in front of them.
-  T pr[kChunk], pk[kChunk], pw[kChunk], pv[kChunk];
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      if (t0 + c < s) {
-        const long long off = row + (t0 + c) * in.t;
-        pr[c] = r[off];
-        pk[c] = k[off];
-        pw[c] = w[off];
-        pv[c] = v[off];
+    for (int a = 0; a < 4; ++a) {
+      for (int x = tid; x < pieces; x += L::kThreads) {
+        const int c = x / kRowPieces, q = x % kRowPieces;
+        cp_async16(smem_u32(raw + (a * C + c) * D + q * L::kPiece),
+                   src[a] + (t0 + c) * in.t + q * L::kPiece, true);
       }
+    }
+    cp_async_commit();
+  };
+  // this thread's operands of step c of the chunk
+  auto load_step = [&](int c, StepRows<R, NC>& o) {
+    const int step = c * D;
+    load_vec<NC>(wv + step + g * NC, o.v);
+#pragma unroll
+    for (int gq = 0; gq < R / V; ++gq) {
+      const int at = step + gq * P * V + p * V;
+      load_vec<V>(wr + at, o.r + gq * V);
+      load_vec<V>(wk + at, o.k + gq * V);
+      load_vec<V>(ww + at, o.w + gq * V);
     }
   };
-  fetch(0);
+  // the output tile of steps t0..t0+n-1, as 16-byte stores
+  auto write_tile = [&](int t0, int n) {
+    for (int x = tid; x < n * kRowPieces; x += L::kThreads) {
+      const int c = x / kRowPieces, q = x % kRowPieces;
+      *reinterpret_cast<uint4*>(out + ob + (t0 + c) * os.t + q * L::kPiece) =
+          *reinterpret_cast<const uint4*>(tile + c * D + q * L::kPiece);
+    }
+  };
 
-  for (int t0 = 0; t0 < s; t0 += kChunk) {
-    const int n = min(kChunk, s - t0);
-    __syncthreads();   // the previous chunk's readers are done
+  float ur[D / 32];   // u at the elements this lane converts
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      if (c < n) {     // n is the same for the whole block
-        const float rj = to_f(pr[c]), kj = to_f(pk[c]);
-        rs[c][j] = rj;
-        ks[c][j] = kj;
-        ws[c][j] = to_f(pw[c]);
-        vs[c][j] = to_f(pv[c]);
-        const float part = warp_sum(rj * uj * kj);
-        if (j % 32 == 0) bonus[c][j / 32] = part;
-      }
+  for (int m = 0; m < D / 32; ++m) ur[m] = u[hi * D + lane + 32 * m];
+
+  float st[R][NC];
+  if (state0 != nullptr) {
+    // every load in flight before the first store into `ss`
+    const float4* g4 = reinterpret_cast<const float4*>(state0 + sb);
+    float4 in4[kStatePieces];
+#pragma unroll
+    for (int q = 0; q < kStatePieces; ++q) in4[q] = g4[tid + q * L::kThreads];
+#pragma unroll
+    for (int q = 0; q < kStatePieces; ++q) {
+      const int x = tid + q * L::kThreads;
+      *reinterpret_cast<float4*>(
+          ss + state_at<D, P>(x / (D / 4), 4 * (x % (D / 4)))) = in4[q];
     }
     __syncthreads();
-    if (t0 + kChunk < s) fetch(t0 + kChunk);
-    for (int c = 0; c < n; ++c) {
-      const float vj = vs[c][j];
-      float ruk = 0.f;
+    if (s > 0) stage(0);
 #pragma unroll
-      for (int q = 0; q < kWarps; ++q) ruk += bonus[c][q];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < R; ++q) {
 #pragma unroll
-      for (int i = 0; i < D; i += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&rs[c][i]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[c][i]);
-        const float4 w4 = *reinterpret_cast<const float4*>(&ws[c][i]);
-        acc[0] += r4.x * st[i];
-        acc[1] += r4.y * st[i + 1];
-        acc[2] += r4.z * st[i + 2];
-        acc[3] += r4.w * st[i + 3];
-        st[i] = w4.x * st[i] + k4.x * vj;
-        st[i + 1] = w4.y * st[i + 1] + k4.y * vj;
-        st[i + 2] = w4.z * st[i + 2] + k4.z * vj;
-        st[i + 3] = w4.w * st[i + 3] + k4.w * vj;
-      }
-      store(out + orow + (t0 + c) * os.t,
-            (acc[0] + acc[1]) + (acc[2] + acc[3]) + vj * ruk);
+      for (int cc = 0; cc < NC; cc += kPiece4)
+        load_vec<kPiece4>(ss + state_at<D, P>(p * R + q, g * NC + cc),
+                          st[q] + cc);
+    }
+  } else {
+    if (s > 0) stage(0);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) st[q][cc] = 0.f;
     }
   }
 
+  for (int t0 = 0; t0 < s; t0 += C) {
+    const int n = min(C, s - t0);
+    cp_async_wait<0>();
+    __syncthreads();   // this chunk landed; the last one's steps are done
+    if (t0 > 0) write_tile(t0 - C, C);
+    // one warp a step (kConv steps a warp, loaded and reduced together):
+    // fp32 working rows, and the step's bonus scalar
+    float cr[kConv][D / 32], ck[kConv][D / 32], cw[kConv][D / 32],
+        cv[kConv][D / 32], part[kConv];
 #pragma unroll
-  for (int i = 0; i < D; ++i)
-    state_out[sbase + static_cast<size_t>(i) * D + j] = st[i];
+    for (int q = 0; q < kConv; ++q) {
+      const int c = warp + q * L::kWarps;
+      part[q] = 0.f;
+#pragma unroll
+      for (int m = 0; m < D / 32; ++m) {
+        const int i = c * D + lane + 32 * m;
+        const bool live = c < n;
+        cr[q][m] = live ? to_f(raw[i]) : 0.f;
+        ck[q][m] = live ? to_f(raw[C * D + i]) : 0.f;
+        cv[q][m] = live ? to_f(raw[2 * C * D + i]) : 0.f;
+        cw[q][m] = live ? to_f(raw[3 * C * D + i]) : 0.f;
+        part[q] += cr[q][m] * ur[m] * ck[q][m];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+#pragma unroll
+      for (int q = 0; q < kConv; ++q)
+        part[q] += __shfl_xor_sync(0xffffffffu, part[q], off);
+    }
+#pragma unroll
+    for (int q = 0; q < kConv; ++q) {
+      const int c = warp + q * L::kWarps;
+      if (c < n) {
+#pragma unroll
+        for (int m = 0; m < D / 32; ++m) {
+          const int i = lane + 32 * m;
+          const int pos = c * D + work_pos<D, P>(i);
+          wr[pos] = cr[q][m];
+          wk[pos] = ck[q][m];
+          ww[pos] = cw[q][m];
+          wv[c * D + i] = cv[q][m];
+          wvb[c * D + i] = cv[q][m] * part[q];
+        }
+      }
+    }
+    __syncthreads();   // working rows ready; `raw` is free again
+    if (t0 + C < s) stage(t0 + C);
+
+    // a step's operands are loaded one step ahead of their use, so their
+    // shared-memory latency hides behind the step before
+    StepRows<R, NC> cur;
+    load_step(0, cur);
+    // one step: the state update, and its NC partial sums into acc
+    auto step = [&](StepRows<R, NC>& next, int ahead, float* acc) {
+      load_step(min(ahead, C - 1), next);
+#pragma unroll
+      for (int x = 0; x < R; ++x) {
+        float (&row)[NC] = st[x];
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) {
+          acc[cc] = fmaf(cur.r[x], row[cc], acc[cc]);
+          row[cc] = fmaf(cur.w[x], row[cc], cur.k[x] * cur.v[cc]);
+        }
+      }
+      cur = next;
+    };
+    // B steps, their B x NC sums reduced together: lane p < B*NC of a
+    // column group ends with one (step, column) output and stores it
+    auto batch = [&](auto steps, int c) {
+      constexpr int B = decltype(steps)::value, NB = B * NC;
+      float acc[NB];
+#pragma unroll
+      for (int x = 0; x < NB; ++x) acc[x] = 0.f;
+#pragma unroll
+      for (int uu = 0; uu < B; ++uu) {
+        StepRows<R, NC> next;
+        step(next, c + uu + 1, acc + uu * NC);
+      }
+      reduce_scatter<NB>(acc, lane);
+#pragma unroll
+      for (int off = NB; off < P; off *= 2)
+        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
+      const int red = reduced_index<NB>(lane);
+      const int at = (c + red / NC) * D + g * NC + red % NC;
+      if (p < NB) store(tile + at, acc[0] + wvb[at]);
+    };
+    int c = 0;
+    for (; c + U <= n; c += U) batch(std::integral_constant<int, U>(), c);
+    // the chunk's last steps short of a batch (a decode step, say)
+    for (; c < n; ++c) batch(std::integral_constant<int, 1>(), c);
+  }
+
+  __syncthreads();   // every step is done: the working rows are free
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+#pragma unroll
+    for (int cc = 0; cc < NC; cc += kPiece4)
+      store_vec<kPiece4>(ss + state_at<D, P>(p * R + q, g * NC + cc),
+                         st[q] + cc);
+  }
+  __syncthreads();
+  if (s > 0) {
+    const int t0 = (s - 1) / C * C;
+    write_tile(t0, s - t0);
+  }
+  float4* g4 = reinterpret_cast<float4*>(state_out + sb);
+#pragma unroll
+  for (int q = 0; q < kStatePieces; ++q) {
+    const int x = tid + q * L::kThreads;
+    g4[x] = *reinterpret_cast<const float4*>(
+        ss + state_at<D, P>(x / (D / 4), 4 * (x % (D / 4))));
+  }
 }
 
-template <typename T, int D>
-int launch(const void* r, const void* k, const void* v, const void* w,
-           Strides in, const float* u, const float* state0, void* out,
-           Strides os, float* state_out, int bh, int h, int s,
-           cudaStream_t stream) {
-  rwkv6_kernel<T, D><<<bh, D, 0, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(w), in, u, state0,
-      static_cast<T*>(out), os, state_out, h, s);
-  return static_cast<int>(cudaGetLastError());
+// A call's arguments, passed down the dtype and shape dispatch.
+struct Args {
+  const void *r, *k, *v, *w;
+  Strides in;
+  const float* u;
+  const float* state0;
+  void* out;
+  Strides os;
+  float* state_out;
+  int bh, h, s;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int NC, int P>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(rwkv6_kernel<T, D, NC, P>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Shape<T, D, NC, P>::kSmem);
 }
 
-template <typename T>
-int dispatch_d(int d, const void* r, const void* k, const void* v,
-               const void* w, Strides in, const float* u,
-               const float* state0, void* out, Strides os, float* state_out,
-               int bh, int h, int s, cudaStream_t stream) {
+struct Launch {
+  const Args& a;
+  template <typename T, int D, int NC, int P>
+  int run() const {
+    using L = Shape<T, D, NC, P>;
+    cudaError_t err = allow_smem<T, D, NC, P>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rwkv6_kernel<T, D, NC, P><<<a.bh, L::kThreads, L::kSmem, a.stream>>>(
+        static_cast<const T*>(a.r), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.w), a.in, a.u,
+        a.state0, static_cast<T*>(a.out), a.os, a.state_out, a.h, a.s);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// registers, local (spill) bytes, threads, static and dynamic shared
+// bytes a block, blocks an SM, columns NC and parts P a thread's share of
+// the state spans, steps a chunk
+struct Attrs {
+  int* out;
+  template <typename T, int D, int NC, int P>
+  int run() const {
+    using L = Shape<T, D, NC, P>;
+    cudaError_t err = allow_smem<T, D, NC, P>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, rwkv6_kernel<T, D, NC, P>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, rwkv6_kernel<T, D, NC, P>, L::kThreads, L::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = fa.numRegs;
+    out[1] = static_cast<int>(fa.localSizeBytes);
+    out[2] = L::kThreads;
+    out[3] = static_cast<int>(fa.sharedSizeBytes);
+    out[4] = L::kSmem;
+    out[5] = blocks;
+    out[6] = NC;
+    out[7] = P;
+    out[8] = kChunk;
+    return 0;
+  }
+};
+
+// The instantiations: NC = 4 columns x P = 16 parts by default (cols 0),
+// and at D = 64 also one column x 8 parts and 8 columns x 16 parts, to
+// measure the choice.  -1: head size not instantiated; -2: cols not
+// instantiated at this head size.
+template <typename T, typename Op>
+int by_shape(int d, int cols, const Op& op) {
   switch (d) {
     case 32:
-      return launch<T, 32>(r, k, v, w, in, u, state0, out, os, state_out,
-                           bh, h, s, stream);
+      if (cols == 0 || cols == 4) return op.template run<T, 32, 4, 16>();
+      return -2;
     case 64:
-      return launch<T, 64>(r, k, v, w, in, u, state0, out, os, state_out,
-                           bh, h, s, stream);
+      if (cols == 0 || cols == 4) return op.template run<T, 64, 4, 16>();
+      if (cols == 1) return op.template run<T, 64, 1, 8>();
+      if (cols == 8) return op.template run<T, 64, 8, 16>();
+      return -2;
     case 128:
-      return launch<T, 128>(r, k, v, w, in, u, state0, out, os, state_out,
-                            bh, h, s, stream);
+      if (cols == 0 || cols == 4) return op.template run<T, 128, 4, 16>();
+      return -2;
     default:
       return -1;
   }
 }
 
+// dtype codes: 0 float32, 1 bfloat16; -3 for another
+template <typename Op>
+int by_type(int dtype, int d, int cols, const Op& op) {
+  if (dtype == 0) return by_shape<float>(d, cols, op);
+  if (dtype == 1) return by_shape<__nv_bfloat16>(d, cols, op);
+  return -3;
+}
+
 }  // namespace
+
+// As repro_rwkv6_scan, with the columns NC a thread holds chosen (0: the
+// default, 4).
+extern "C" int repro_rwkv6_scan_cols(
+    int cols, int dtype, int d, const void* r, const void* k,
+    const void* v, const void* w, long long in_b, long long in_h,
+    long long in_t, const void* u, const void* state0, void* out,
+    long long out_b, long long out_h, long long out_t, void* state_out,
+    int b, int h, int s, void* stream) {
+  const Args a{r, k, v, w, Strides{in_b, in_h, in_t},
+               static_cast<const float*>(u),
+               static_cast<const float*>(state0), out,
+               Strides{out_b, out_h, out_t},
+               static_cast<float*>(state_out), b * h, h, s,
+               static_cast<cudaStream_t>(stream)};
+  return by_type(dtype, d, cols, Launch{a});
+}
 
 // dtype codes: 0 float32, 1 bfloat16 (r, k, v, w and out share it); u,
 // state0 and state_out are float32; state0 may be null (zero initial
@@ -224,16 +588,13 @@ extern "C" int repro_rwkv6_scan(int dtype, int d, const void* r,
                                 long long out_b, long long out_h,
                                 long long out_t, void* state_out, int b,
                                 int h, int s, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* uf = static_cast<const float*>(u);
-  const float* s0 = static_cast<const float*>(state0);
-  float* so = static_cast<float*>(state_out);
-  const Strides in{in_b, in_h, in_t}, os{out_b, out_h, out_t};
-  if (dtype == 0)
-    return dispatch_d<float>(d, r, k, v, w, in, uf, s0, out, os, so, b * h,
-                             h, s, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, r, k, v, w, in, uf, s0, out, os, so,
-                                     b * h, h, s, st);
-  return -3;
+  return repro_rwkv6_scan_cols(0, dtype, d, r, k, v, w, in_b, in_h, in_t,
+                               u, state0, out, out_b, out_h, out_t,
+                               state_out, b, h, s, stream);
+}
+
+// The resources of the kernel a call with (dtype, d, cols) launches, into
+// out[9] (see Attrs).  Returns 0, a CUDA error, or -1/-2/-3 as above.
+extern "C" int repro_rwkv6_attrs(int dtype, int d, int cols, int* out) {
+  return by_type(dtype, d, cols, Attrs{out});
 }

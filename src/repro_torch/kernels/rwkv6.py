@@ -13,10 +13,21 @@ operations per state element per step (the bonus term is a per-step
 scalar, ``v_j * sum_i r_i u_i k_i``) against 5 rows of D inputs and
 outputs, and the state math is fp32 whatever the input type, so its
 bound is set by the 67 TFLOP/s fp32 peak (0.040 ms for the rwkv6-1.6b
-prefill row, B=4, H=32, S=1024, D=64).  The first kernel is simple: one
-block of D threads per (batch, head), thread j holding column j of the
-(D, D) state in registers for the whole sweep, steps staged in shared
-memory in chunks.  TPU-isms of the Pallas kernel that were dropped:
+prefill row, B=4, H=32, S=1024, D=64).  The steps are serial and B*H is
+about one (batch, head) per SM, so the kernel spreads each head's state
+over a whole SM: one block per (batch, head), each thread holding 4
+columns x D/16 rows of the state in registers, so that each row value
+it loads serves four columns (a column group's 16 parts sit in adjacent
+lanes, and a batch of steps' partial sums is reduced by one fixed
+shuffle reduce-scatter); the steps' rows staged by ``cp.async`` a
+32-step chunk ahead and converted to fp32 once in shared memory, laid
+out so that a thread's 16-byte loads hit distinct banks; the states and
+each chunk's outputs pass through shared memory as coalesced 16-byte
+accesses.  What is left is the issue of each serial step: loads,
+shuffles and loop take a third of its instructions, and two warps a
+scheduler hide their latency only in part (the source note of
+``csrc/rwkv6.cu`` has the reckoning).  TPU-isms of the Pallas kernel
+that were dropped:
 
   * the 128-lane padding of D, with ``w`` padded with ones
     (``repro/kernels/ops.py:209-227``): the kernel is templated on D
@@ -53,14 +64,40 @@ counter = LaunchCounter("rwkv6_scan")
 
 def _lib() -> ctypes.CDLL:
     lib = load_library("repro_rwkv6")
-    fn = lib.repro_rwkv6_scan
-    if fn.argtypes is None:
+    if lib.repro_rwkv6_scan.argtypes is None:
         strides = [ctypes.c_longlong] * 3
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + strides
-                       + [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        args = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + strides
+                + [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.repro_rwkv6_scan.argtypes = args
+        lib.repro_rwkv6_scan_cols.argtypes = [ctypes.c_int] + args
+        lib.repro_rwkv6_attrs.argtypes = ([ctypes.c_int] * 3
+                                          + [ctypes.POINTER(ctypes.c_int)])
+        for fn in (lib.repro_rwkv6_scan, lib.repro_rwkv6_scan_cols,
+                   lib.repro_rwkv6_attrs):
+            fn.restype = ctypes.c_int
     return lib
+
+
+def rwkv6_kernel_attributes(dtype: torch.dtype, d: int,
+                            cols: Optional[int] = None) -> dict:
+    """The resources of the kernel that :func:`rwkv6_scan_fwd` launches
+    for this dtype and head size on the current card: registers and local
+    (spill) bytes a thread, threads a block, static and dynamic shared
+    bytes a block, blocks an SM holds, the state columns a thread holds
+    and the parts a column group is spread over (``cols``: another
+    instantiated count of columns, for measuring), and the steps a staged
+    chunk holds."""
+    if dtype not in Q_CODES or d not in HEAD_SIZES:
+        raise ValueError(f"rwkv6_kernel_attributes: no kernel for {dtype}, "
+                         f"head size {d}")
+    vals = (ctypes.c_int * 9)()
+    err = _lib().repro_rwkv6_attrs(Q_CODES[dtype], d, cols or 0, vals)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan attributes failed (code {err})")
+    return dict(zip(("registers", "spill_bytes", "threads", "static_smem",
+                     "dynamic_smem", "blocks_per_sm", "cols", "parts",
+                     "chunk_steps"), vals))
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,9 +125,25 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(r.dtype), state
 
 
+def _aligned(x: torch.Tensor) -> bool:
+    """The base pointer and the (b, h, t) strides of a (B, H, S, D) view
+    with a unit last stride are multiples of 16 bytes: the kernel copies
+    rows in 16-byte pieces."""
+    return x.data_ptr() % 16 == 0 and all(
+        st * x.element_size() % 16 == 0 for st in x.stride()[:3])
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous in new 16-byte aligned memory if it is not so
+    already (``contiguous`` keeps a contiguous view's offset)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor,
-                   state0: Optional[torch.Tensor] = None
+                   state0: Optional[torch.Tensor] = None, *,
+                   cols: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B, H, S, D), one dtype (fp32 or bf16), any strides; u:
     (H, D) fp32, contiguous; state0: (B, H, D, D) fp32, contiguous, or
@@ -101,8 +154,11 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     on the current stream, or raise.  The kernel reads r/k/v/w through
-    one set of strides with a unit last stride; inputs that do not share
-    such strides are made contiguous first."""
+    one set of strides with a unit last stride and 16-byte aligned rows;
+    inputs that do not share such strides, or are not so aligned, are
+    copied into new contiguous tensors first (a copy, never the plain
+    version).  ``cols`` picks another instantiated count of state columns
+    a thread holds (None: 4), for measuring the choice."""
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state0)
     if r.device.type != "cuda":
@@ -126,8 +182,9 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if u.dtype != torch.float32 or tuple(u.shape) != (h, d):
         raise ValueError(f"rwkv6_scan_fwd: u must be ({h}, {d}) float32, "
                          f"got {tuple(u.shape)} {u.dtype}")
-    if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in (k, v, w)):
-        r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+    if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in (k, v, w)) \
+            or not all(_aligned(x) for x in (r, k, v, w)):
+        r, k, v, w = (_dense(x) for x in (r, k, v, w))
     tensors = [u]
     if state0 is not None:
         if state0.dtype != torch.float32 or \
@@ -137,17 +194,21 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{state0.dtype}")
         tensors.append(state0)
     check_operands("rwkv6_scan_fwd", r, tensors)
+    if state0 is not None:
+        state0 = _dense(state0)
     out = torch.empty((b, s, h, d), dtype=r.dtype,
                       device=r.device).transpose(1, 2)
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return out, state
-    fn = _lib().repro_rwkv6_scan
+    lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = fn(Q_CODES[r.dtype], d, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-             w.data_ptr(), *r.stride()[:3], u.data_ptr(),
-             None if state0 is None else state0.data_ptr(), out.data_ptr(),
-             *out.stride()[:3], state.data_ptr(), b, h, s, stream)
+    args = (Q_CODES[r.dtype], d, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), *r.stride()[:3], u.data_ptr(),
+            None if state0 is None else state0.data_ptr(), out.data_ptr(),
+            *out.stride()[:3], state.data_ptr(), b, h, s, stream)
+    err = (lib.repro_rwkv6_scan(*args) if cols is None
+           else lib.repro_rwkv6_scan_cols(cols, *args))
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed (code {err})")
     counter.bump()

@@ -60,6 +60,35 @@ def scan_inputs(seed, shape, state=False):
     return r, k, v, w, u, s0
 
 
+def model_inputs(seed, shape, state=False):
+    """``scan_inputs`` with the decays rwkv6-1.6b's layers give:
+    exp(-exp(-6 + N(0, 0.5^2))) rounded to bf16 (``layers.rwkv6`` rounds
+    them to the activation dtype), many of them exactly 1.0, so that the
+    state grows over the sweep instead of decaying."""
+    r, k, v, _, u, s0 = scan_inputs(seed, shape, state)
+    rng = np.random.default_rng(seed + 1000)
+    w = np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal(shape)))
+    w = torch.from_numpy(w.astype(np.float32)).bfloat16().float().numpy()
+    return r, k, v, w, u, s0
+
+
+def scan_float64(r, k, v, w, u, s0=None):
+    """The plain version's step loop in float64, on the inputs' device:
+    the oracle that measures how far each fp32 evaluation is from the
+    exact recurrence."""
+    r, k, v, w, u = (x.double() for x in (r, k, v, w, u))
+    b, h, s, d = r.shape
+    state = (torch.zeros((b, h, d, d), dtype=torch.float64, device=r.device)
+             if s0 is None else s0.double())
+    outs = []
+    for t in range(s):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        outs.append(torch.einsum("bhd,bhde->bhe", r[:, :, t],
+                                 state + u[None, :, :, None] * kv))
+        state = w[:, :, t, :, None] * state + kv
+    return torch.stack(outs, dim=2), state
+
+
 def port_scan(r, k, v, w, u, s0=None):
     out, st = RW.rwkv6_scan_plain(*(to_torch(a) for a in (r, k, v, w, u)),
                                   None if s0 is None else to_torch(s0))
@@ -107,6 +136,51 @@ def test_scan_plain_with_state_matches_jax(shape):
                              to_torch(u), to_torch(s0))
     np.testing.assert_allclose(to_numpy(o2), out, rtol=0, atol=0)
     np.testing.assert_allclose(to_numpy(s2), st, rtol=0, atol=0)
+
+
+def test_scan_plain_matches_jax_oracle_at_model_decays():
+    """S = 1024 at the model's decays (``model_inputs``), fp32, from a
+    state: the plain version against ``_wkv6_ref_with_state``.  With
+    decays of 1.0 nothing damps the rounding of 1024 steps, and the
+    outputs reach ~70, so this is the long-reduction tier, 2e-3 absolute
+    (docs/kernels.md); the two sum in other orders, and each sits a few
+    1e-5 from a float64 evaluation of the same loop."""
+    r, k, v, w, u, s0 = model_inputs(30, (1, 2, 1024, 64), state=True)
+    assert (w == 1.0).mean() > 0.05
+    out, st = port_scan(r, k, v, w, u, s0)
+    eo, es = JL._wkv6_ref_with_state(
+        *(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    assert np.abs(out).max() > 20
+    np.testing.assert_allclose(out, np.asarray(eo), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(st, np.asarray(es), rtol=0, atol=2e-3)
+
+
+def test_scan_wrapper_copies_misaligned_operands_densely():
+    """``_dense`` gives a contiguous, 16-byte aligned tensor equal to its
+    input: a new one for a view at an odd offset (``contiguous`` keeps
+    that offset) or with other strides, the input itself when it already
+    is one; ``_aligned`` tells them apart."""
+    base = torch.arange(2 * 3 * 5 * 64 + 1, dtype=torch.float32)
+    odd = base[1:].view(2, 3, 5, 64)
+    assert odd.is_contiguous() and not RW._aligned(odd)
+    fixed = RW._dense(odd)
+    assert fixed.data_ptr() % 16 == 0 and RW._aligned(fixed)
+    assert torch.equal(fixed, odd)
+    view = head_views(np.zeros((2, 3, 5, 64), np.float32))
+    assert RW._aligned(view) and not view.is_contiguous()
+    assert RW._dense(view).is_contiguous()
+    dense = RW._dense(fixed)
+    assert dense is fixed
+    wide = torch.zeros((2, 5, 3 * 64 + 1))[..., :3 * 64]
+    wide = wide.unflatten(-1, (3, 64)).transpose(1, 2)
+    assert not RW._aligned(wide)
+
+
+def test_kernel_attributes_refuse_other_head_sizes():
+    with pytest.raises(ValueError, match="no kernel"):
+        RW.rwkv6_kernel_attributes(torch.float32, 48)
+    with pytest.raises(ValueError, match="no kernel"):
+        RW.rwkv6_kernel_attributes(torch.float16, 64)
 
 
 def test_scan_gradients_match_jax():
@@ -450,3 +524,143 @@ def test_cuda_smoke_launches_the_wkv6_kernel(cuda_device):
         assert launched == (0 if dev == "cpu" else 7 * tcfg.n_layers)
     for a, b in zip(outs["cpu"], outs["cuda"]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+# the kernel stages 32 steps a chunk: a single step, a chunk less and
+# more one step, several chunks with a tail, and the prefill length
+MODEL_S = (1, 31, 33, 200, 1024)
+
+
+def within_float64_error(got, ref, exact, what):
+    """|got - ref| <= 1e-5 + 2 * max|ref - exact|: two fp32 evaluations
+    of the recurrence that sum in other orders each sit within their own
+    rounding error of the exact value; the plain version's is measured
+    against the float64 loop on these inputs (at the model's decays it
+    grows to a few 1e-5 by S = 200, where 1e-5 alone would not hold the
+    plain version to itself), and the kernel may carry as much."""
+    tol = 1e-5 + 2 * (ref.double() - exact).abs().max().item()
+    err = (got.double() - ref.double()).abs().max().item()
+    assert err <= tol, f"{what}: {err} > {tol}"
+
+
+def card_args(arrays, device, dtype):
+    r, k, v, w, u, s0 = arrays
+    args = [head_views(a, device=device, dtype=dtype) for a in (r, k, v, w)]
+    return args + [to_torch(u).to(device),
+                   None if s0 is None else to_torch(s0).to(device)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("s", MODEL_S)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_wkv6_kernel_at_model_decays(cuda_device, d, state, dtype, s):
+    """The kernel against its plain version at the model's decays
+    (``model_inputs``), one launch a call.  Out: fp32 within
+    ``within_float64_error``; bf16 elementwise within 1e-2 + 1e-2 |ref|
+    (both round one fp32 sum once; a tie can fall one bf16 step apart).
+    The final state is fp32 for both dtypes: ``within_float64_error``."""
+    dt = getattr(torch, dtype)
+    args = card_args(model_inputs(23, (2, 3, s, d), state), cuda_device, dt)
+    before = RW.counter.launches
+    out, st = RW.rwkv6_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert RW.counter.launches == before + 1
+    ref_out, ref_st = RW.rwkv6_scan_plain(*args)
+    exact_out, exact_st = scan_float64(*args)
+    assert out.dtype == dt and tuple(out.shape) == (2, 3, s, d)
+    if dtype == "float32":
+        within_float64_error(out, ref_out, exact_out, "out")
+    else:
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=1e-2,
+                                   atol=1e-2)
+    within_float64_error(st, ref_st, exact_st, "state")
+
+
+@requires_cuda
+@pytest.mark.parametrize("cols", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv6_other_layouts_match_plain(cuda_device, dtype, cols):
+    """The instantiations at D = 64 with one and eight state columns a
+    thread (measured against the default four in
+    ``chip_smoke.profile_rwkv6``) compute the same function: S = 200 from
+    a state, at the model's decays, as
+    ``test_cuda_wkv6_kernel_at_model_decays`` holds the default."""
+    dt = getattr(torch, dtype)
+    args = card_args(model_inputs(24, (2, 3, 200, 64), True), cuda_device,
+                     dt)
+    out, st = RW.rwkv6_scan_fwd(*args, cols=cols)
+    ref_out, ref_st = RW.rwkv6_scan_plain(*args)
+    exact_out, exact_st = scan_float64(*args)
+    if dtype == "float32":
+        within_float64_error(out, ref_out, exact_out, "out")
+    else:
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=1e-2,
+                                   atol=1e-2)
+    within_float64_error(st, ref_st, exact_st, "state")
+    attrs = RW.rwkv6_kernel_attributes(dt, 64, cols)
+    assert attrs["cols"] == cols
+    assert attrs["threads"] == 64 // cols * attrs["parts"]
+    assert attrs["spill_bytes"] == 0
+
+
+@requires_cuda
+def test_cuda_wkv6_kernel_gives_equal_bits_on_two_runs(cuda_device):
+    """At the rwkv_prefill shape (B=4, H=32, S=1024, D=64, bf16): the
+    shuffle tree and the step order are fixed, so two runs give the same
+    bits, out and state."""
+    args = card_args(model_inputs(25, (4, 32, 1024, 64)), cuda_device,
+                     torch.bfloat16)
+    out1, st1 = RW.rwkv6_scan_fwd(*args)
+    out2, st2 = RW.rwkv6_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(st1, st2)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv6_kernel_copies_misaligned_views(cuda_device, dtype):
+    """r at an odd element offset (contiguous, not 16-byte aligned), k
+    with a row stride that is no multiple of 16 bytes, and state0 at an
+    odd offset: the wrapper copies them and launches the kernel once,
+    which matches the plain version as ``test_cuda_wkv6_kernel_matches_
+    plain`` does (fp32 1e-5; bf16 1e-2 + 1e-2 |ref|)."""
+    b, h, s, d = 2, 3, 40, 64
+    dt = getattr(torch, dtype)
+    r, k, v, w, u, s0 = scan_inputs(26, (b, h, s, d), state=True)
+    args = card_args((r, k, v, w, u, s0), cuda_device, dt)
+    flat = torch.empty(b * h * s * d + 1, dtype=dt, device=cuda_device)
+    args[0] = flat[1:].view(b, h, s, d).copy_(args[0])
+    wide = torch.empty((b, s, h * d + 8 // args[1].element_size()),
+                       dtype=dt, device=cuda_device)[..., :h * d]
+    args[1] = wide.unflatten(-1, (h, d)).transpose(1, 2).copy_(args[1])
+    flat0 = torch.empty(b * h * d * d + 1, device=cuda_device)
+    args[5] = flat0[1:].view(b, h, d, d).copy_(args[5])
+    assert not RW._aligned(args[0]) and not RW._aligned(args[1])
+    assert args[5].data_ptr() % 16 != 0
+    before = RW.counter.launches
+    out, st = RW.rwkv6_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert RW.counter.launches == before + 1
+    ref_out, ref_st = RW.rwkv6_scan_plain(*args)
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=1e-2,
+                                   atol=1e-2)
+    torch.testing.assert_close(st, ref_st, rtol=0, atol=1e-5)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_wkv6_kernel_attributes(cuda_device, d, dtype):
+    """Four state columns a thread in 16 parts (D/4 x 16 threads: 256 at
+    D = 64) and no spill at every D; at D <= 64 two blocks share an SM,
+    so a decode step of B*H = 256 blocks runs in one wave."""
+    attrs = RW.rwkv6_kernel_attributes(getattr(torch, dtype), d)
+    assert attrs["cols"] == 4 and attrs["parts"] == 16
+    assert attrs["threads"] == 4 * d and attrs["spill_bytes"] == 0
+    assert attrs["chunk_steps"] == 32
+    assert attrs["blocks_per_sm"] >= (2 if d <= 64 else 1)
