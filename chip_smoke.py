@@ -72,7 +72,8 @@ Output, one line each:
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
     state; each with its kernel's registers, spill bytes, threads, shared
     memory, blocks per SM, the state columns a thread holds and the parts
-    a column group is spread over); flash and decode attention at jamba's shapes; mixed attention
+    a column group is spread over); flash and decode attention at jamba's
+    shapes; mixed attention
     (the paged row's inputs gathered into per-slot caches at bf16, fp32,
     with a window and bf16 q over fp32 caches, and the reference's small
     serving preset's head_dim 32; each with its variant, "mma" for bf16
@@ -115,8 +116,7 @@ Output, one line each:
     ``decode_attention_profile``: the same for the gemma bf16 and jamba
     decode rows, main kernel and combine; ``mixed_attention_profile``:
     mixed row (a), pre-pass, main kernel and combine;
-    ``rwkv6_scan_profile``: the WKV6 rows' device us a call, and at the
-    prefill row each instantiated count of columns a thread), last,
+    ``rwkv6_scan_profile``: the WKV6 rows' device us a call), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
@@ -211,10 +211,6 @@ RWKV6_ROWS = (("prefill", "bfloat16", 4, 32, 1024, 64, False, "model"),
 # fp32 operations per state element a step: r*S, k*v and the decay FMA
 # (the bonus term is a per-step scalar, v_j * sum_i r_i u_i k_i)
 WKV6_OPS = 5
-# the state columns a thread holds that the WKV6 kernel instantiates at
-# D = 64 (4 is its choice; 1 is one column a thread in 8 parts, 512
-# threads); rwkv6_scan_profile times each at the prefill row
-RWKV6_COLS = (1, 4, 8)
 # The Mamba scan against its plain version: (label, dtype, B, S, Di, N,
 # with an h0, B/C as column views of a (B, S, R + 2N) projection).  The
 # first row is the jamba_prefill shape (jamba-1.5-large, 4 x 1024 tokens,
@@ -828,8 +824,8 @@ def phase_rwkv6(torch, dev) -> dict:
     """The WKV6 kernel against its plain version; the first row is the
     rwkv_prefill shape (the table's row).  Each row carries its kernel's
     resources, the state columns a thread holds and the parts a column
-    group is spread over (``rwkv6_kernel_attributes``).  No single PyTorch call computes WKV6,
-    so there is no library time."""
+    group is spread over (``rwkv6_kernel_attributes``).  No single
+    PyTorch call computes WKV6, so there is no library time."""
     from repro_torch.kernels import rwkv6 as RW
 
     result = None
@@ -870,85 +866,20 @@ def phase_rwkv6(torch, dev) -> dict:
 
 def profile_rwkv6(torch, dev) -> dict:
     """The RWKV6_ROWS under ``profile_kernels``: the device us a call of
-    the WKV6 kernel (one device launch a call), and at the prefill row
-    each instantiated count of state columns a thread (``RWKV6_COLS``)
-    with its resources and single call ms.  Run with the profiled runs, last.  Returns the prefill
-    line."""
+    the WKV6 kernel (one device launch a call).  Run with the profiled
+    runs, last.  Returns the prefill line."""
     from repro_torch.kernels import rwkv6 as RW
 
     result = None
     for label, dt, b, h, s, d, state, decays in RWKV6_ROWS:
         args = rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays)
         row = {"phase": "rwkv6_scan_profile", "row": label, "dtype": dt,
-               "cols": RW.rwkv6_kernel_attributes(args[0].dtype,
-                                                  d)["cols"],
                **profile_kernels(torch, lambda: RW.rwkv6_scan_fwd(*args),
                                  RW.counter, "rwkv6_scan", 1)}
-        if label == "prefill":
-            sweep = {}
-            for cols in RWKV6_COLS:
-                def kern(cols=cols):
-                    return RW.rwkv6_scan_fwd(*args, cols=cols)
-                prof = profile_kernels(torch, kern, RW.counter,
-                                       "rwkv6_scan", 1)
-                sweep[cols] = {
-                    "device_us_per_call": prof["device_us_per_call"],
-                    "first_session_agrees": prof["first_session_agrees"],
-                    "ms": time_ms(torch, kern),
-                    **RW.rwkv6_kernel_attributes(args[0].dtype, d, cols)}
-            row["cols_sweep"] = sweep
         emit(row)
         if result is None:
             result = row
     return result
-
-
-def wkv6_turn(torch, tree: str) -> None:
-    """One turn of a comparison of two checkouts' WKV6 kernels on one
-    card: measures whichever ``repro_torch`` comes first on ``sys.path``
-    (``tree`` names it in the output), with this file's helpers, so a
-    parent checkout is measured with the same code as the change.  Emits
-    a ``wkv6_turn`` line (each RWKV6_ROWS row: error against the plain
-    version, single-call ms, device us a call by ``profile_kernels``)
-    after ``rwkv_prefill`` and ``rwkv_decode`` on rwkv6-1.6b and their
-    profiles (tokens/s, ms a step, device time by group, idle share).
-    Run each turn in a process of its own, in the order parent, change,
-    change, parent:
-
-        python3 -c "import sys; sys.path[:0] = ['TREE/src', '.'];
-                    import torch, chip_smoke;
-                    chip_smoke.wkv6_turn(torch, 'TREE')"
-    """
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import rwkv6 as RW
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = "cuda"
-    _build.load_library("repro_rwkv6")
-    rows, kerns = {}, {}
-    for label, dt, b, h, s, d, state, decays in RWKV6_ROWS:
-        args = rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays)
-        out, st = RW.rwkv6_scan_fwd(*args)
-        ref, ref_st = RW.rwkv6_scan_plain(*args)
-        kerns[label] = lambda args=args: RW.rwkv6_scan_fwd(*args)
-        rows[label] = {
-            **check_row(torch, f"rwkv6_scan[{label}]", out, ref,
-                        kernel_tol(dt, s)),
-            "state_max_abs_err": (st - ref_st).abs().max().item(),
-            "ms": time_ms(torch, kerns[label])}
-    _, _, cfg, params = rwkv_models(torch, dev)
-    _, prefill_profile = phase_prefill(torch, dev, cfg, params,
-                                       "rwkv_prefill", 31)
-    _, decode_profile = phase_decode_steps(torch, dev, cfg, params,
-                                           "rwkv_decode", 32)
-    # the profiler sessions last: they slow the host for timed runs after
-    for label, kern in kerns.items():
-        rows[label].update(profile_kernels(torch, kern, RW.counter,
-                                           "rwkv6_scan", 1))
-    prefill_profile(params)
-    decode_profile(params)
-    emit({"phase": "wkv6_turn", "tree": tree, "smi": smi_line(),
-          "rows": rows})
 
 
 def mamba_inputs(torch, dev, dt, b, s, di, n, state, strided):

@@ -41,7 +41,9 @@
 // each step put ~500 cycles on a step on an H100; four columns a thread
 // and reductions shared by a batch of steps take ~75 instructions a
 // thread a step (48 of them fp32), ~150 cycles of issue for the 8 warps
-// of an SM, and the step runs in about 1.7 times that.
+// of an SM, and the step runs in about 1.7 times that.  A decode step
+// (S = 1, from a state) is bound by bytes instead: the state's D*D fp32
+// in and out, 32 KB a (b, h) at D = 64.
 //
 // Design:
 //   * one block per (b, h) of (D/NC) x P threads: NC = 4 columns and
@@ -59,10 +61,10 @@
 //     __shfl_xor reduce-scatter: log2(U*NC) rounds, each halving the sums
 //     a lane keeps, then plain butterfly rounds over the remaining lanes,
 //     leave each lane p < U*NC with one (step, column) output, which it
-//     stores (a chunk's last steps short of a batch, a decode step say,
-//     run one at a time).  The same bits on every run; and a batch's
-//     shuffles are shared by U steps: reduced a step at a time, their
-//     latency made each step ~1.6 times as long;
+//     stores (a chunk's last steps short of a batch run one at a time).
+//     The same bits on every run; and a batch's shuffles are shared by U
+//     steps: reduced a step at a time, their latency made each step ~1.6
+//     times as long;
 //   * steps are staged by cp.async a chunk of kChunk at a time: the r, k,
 //     v and w rows of the next chunk are copied as 16-byte pieces, in the
 //     input type, while the current chunk's steps run.  When a chunk has
@@ -78,7 +80,18 @@
 //   * each step's output is written, rounded once, into a chunk tile in
 //     shared memory, which leaves as coalesced 16-byte stores when the
 //     next chunk starts;
-//   * two barriers per chunk, none per step.
+//   * two barriers per chunk, none per step;
+//   * a single step (S = 1: every decode step) keeps no state across
+//     steps, so it skips the staging, the working rows, the batches and
+//     the state's way through shared memory: the threads take the state
+//     in its memory order, a warp reading and writing 512 contiguous
+//     bytes straight from and to global memory, read r, k, w and v from
+//     global memory, and only the column sums cross threads (a shuffle
+//     tree, then one barrier and a fixed sum over the warps).
+//
+// Measured against the other layouts at D = 64 on an H100, prefill row:
+// one column a thread (8 parts, 512 threads) and eight columns a thread
+// (16 parts, 128 threads) both ran slower than four (PERF.md §6).
 //
 // What is left: the loads, shuffles and loop take a third of the issue
 // slots, two warps a scheduler hide their latency only in part, and a
@@ -104,7 +117,7 @@
 
 #include <type_traits>
 
-#include "attention_common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
@@ -116,22 +129,23 @@ using repro_attn::store;
 using repro_attn::to_f;
 
 constexpr int kChunk = 32;   // steps staged in shared memory at a time
+constexpr int kCols = 4;     // NC: state columns a thread holds
+constexpr int kParts = 16;   // P: threads a column group is spread over
 
 // (b, h, t) element strides of a (B, H, S, D) view; the last stride is 1
 struct Strides {
   long long b, h, t;
 };
 
-// The block of one instantiation: (D/NC) x P threads, R = D/P state rows
-// and NC columns a thread, V rows a shared load, and the dynamic shared
+// The block of one head size: (D/NC) x P threads, R = D/P state rows and
+// NC columns a thread, V rows a shared load, and the dynamic shared
 // memory: the staged rows in the input type ([4][kChunk][D]: r, k, v, w),
 // the working rows in fp32 (r, k, w interleaved, v, v * bonus; [kChunk][D]
 // each) and the output tile ([kChunk][D], input type).
-template <typename T, int D, int NC, int P>
+template <typename T, int D>
 struct Shape {
-  static_assert(P <= 32 && 32 % P == 0 && NC <= P && P % NC == 0 &&
-                    (NC == 1 || NC == 4 || NC == 8) && D / P >= 2,
-                "a column group's P parts share one warp");
+  static constexpr int NC = kCols, P = kParts;
+  static_assert(D % P == 0 && D / P >= 2, "a part holds two rows or more");
   static constexpr int kThreads = D / NC * P;
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kRows = D / P;
@@ -152,23 +166,23 @@ struct Shape {
 // Where element i of a step's row sits in its working row: the rows a
 // thread reads in one load of V are V consecutive floats, and the P
 // threads of a column group read P consecutive V-float pieces.
-template <int D, int P>
+template <int D>
 __device__ __forceinline__ int work_pos(int i) {
-  constexpr int R = D / P, V = R < 4 ? R : 4;
+  constexpr int R = D / kParts, V = R < 4 ? R : 4;
   const int p = i / R, rem = i % R;
-  return (rem / V) * (P * V) + p * V + rem % V;
+  return (rem / V) * (kParts * V) + p * V + rem % V;
 }
 
 // Where element (i, j) of the staged state sits: row-major, its 16-byte
 // pieces XOR-swizzled by the part that holds row i, so that the threads of
 // a quarter warp, which read one piece each of 8 rows of 8 parts, read 8
 // distinct groups of 4 banks.
-template <int D, int P>
+template <int D>
 __device__ __forceinline__ int state_at(int i, int j) {
-  return i * D + ((((j / 4) ^ (i / (D / P) % 8))) * 4) + j % 4;
+  return i * D + ((((j / 4) ^ (i / (D / kParts) % 8))) * 4) + j % 4;
 }
 
-// N consecutive floats of shared or global memory, 16 (or 8) bytes a load
+// N consecutive floats of shared memory, 16 (or 8) bytes a load
 template <int N>
 __device__ __forceinline__ void load_vec(const float* p, float* o) {
   if constexpr (N % 4 == 0) {
@@ -177,25 +191,10 @@ __device__ __forceinline__ void load_vec(const float* p, float* o) {
       const float4 x = *reinterpret_cast<const float4*>(p + q);
       o[q] = x.x; o[q + 1] = x.y; o[q + 2] = x.z; o[q + 3] = x.w;
     }
-  } else if constexpr (N == 2) {
+  } else {
+    static_assert(N == 2, "N is 2 or a multiple of 4");
     const float2 x = *reinterpret_cast<const float2*>(p);
     o[0] = x.x; o[1] = x.y;
-  } else {
-    static_assert(N == 1, "N is 1, 2 or a multiple of 4");
-    o[0] = *p;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_vec(float* p, const float* o) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N; q += 4)
-      *reinterpret_cast<float4*>(p + q) =
-          make_float4(o[q], o[q + 1], o[q + 2], o[q + 3]);
-  } else {
-    static_assert(N == 1, "N is 1 or a multiple of 4");
-    p[0] = o[0];
   }
 }
 
@@ -231,14 +230,89 @@ __device__ __forceinline__ int reduced_index(int lane) {
 
 // One thread's operands of a step: its R rows of r, k and w, and v at its
 // NC columns.
-template <int R, int NC>
+template <int R>
 struct StepRows {
-  float r[R], k[R], w[R], v[NC];
+  float r[R], k[R], w[R], v[kCols];
 };
 
-template <typename T, int D, int NC, int P>
-__global__ void __launch_bounds__(Shape<T, D, NC, P>::kThreads,
-                                  Shape<T, D, NC, P>::kMinBlocks)
+// A single step of one (b, h) (S = 1), with the state in its memory
+// order: 16-byte piece x = tid + q * kThreads of the state is row
+// x / (D/4), columns 4 * (x % (D/4)) + 0..3, so a thread holds 4 columns
+// of D/16 rows, 16 rows apart, and a warp moves 512 contiguous bytes a
+// piece.  The threads that share 4 columns are the lanes that differ
+// above bit log2(D/4) and the same lanes of every warp: a shuffle tree,
+// then the warps' sums in `red` ([kWarps][D] floats) added in warp order.
+// Every warp reduces the bonus scalar for itself.
+template <typename T, int D>
+__device__ __forceinline__ void single_step(
+    const T* r, const T* k, const T* v, const T* w, const float* u,
+    const float* state0, T* out, float* state_out, float* red) {
+  using L = Shape<T, D>;
+  constexpr int Q = D * D / 4 / L::kThreads;       // pieces a thread
+  constexpr int kGroups = D / 4;                   // 4-column groups
+  constexpr int kRowStride = L::kThreads / kGroups;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int i0 = tid / kGroups, j = 4 * (tid % kGroups);
+
+  float4 st[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    st[q] = state0 != nullptr
+                ? reinterpret_cast<const float4*>(state0)[tid + q * L::kThreads]
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  float ri[Q], ki[Q], wi[Q], vj[4];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = i0 + q * kRowStride;
+    ri[q] = to_f(r[i]);
+    ki[q] = to_f(k[i]);
+    wi[q] = to_f(w[i]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) vj[c] = to_f(v[j + c]);
+  float bonus = 0.f;
+#pragma unroll
+  for (int m = 0; m < D / 32; ++m) {
+    const int i = lane + 32 * m;
+    bonus += to_f(r[i]) * u[i] * to_f(k[i]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    bonus += __shfl_xor_sync(0xffffffffu, bonus, off);
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    float sq[4] = {st[q].x, st[q].y, st[q].z, st[q].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[c] = fmaf(ri[q], sq[c], acc[c]);
+      sq[c] = fmaf(wi[q], sq[c], ki[q] * vj[c]);
+    }
+    reinterpret_cast<float4*>(state_out)[tid + q * L::kThreads] =
+        make_float4(sq[0], sq[1], sq[2], sq[3]);
+  }
+#pragma unroll
+  for (int off = kGroups; off < 32; off *= 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+  }
+  if (lane < kGroups)
+    *reinterpret_cast<float4*>(red + warp * D + j) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  __syncthreads();
+  if (tid < D) {
+    float sum = 0.f;
+#pragma unroll
+    for (int x = 0; x < L::kWarps; ++x) sum += red[x * D + tid];
+    store(out + tid, sum + to_f(v[tid]) * bonus);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Shape<T, D>::kThreads,
+                                  Shape<T, D>::kMinBlocks)
 rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ w,
              Strides in,
@@ -247,11 +321,10 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              T* __restrict__ out, Strides os,    // (B, H, S, D) view
              float* __restrict__ state_out,      // (B, H, D, D)
              int h, int s) {
-  using L = Shape<T, D, NC, P>;
-  constexpr int C = kChunk, R = L::kRows, V = L::kVec;
-  constexpr int U = L::kBatch;
+  using L = Shape<T, D>;
+  constexpr int C = kChunk, NC = L::NC, P = L::P;
+  constexpr int R = L::kRows, V = L::kVec, U = L::kBatch;
   constexpr int kConv = (C + L::kWarps - 1) / L::kWarps;  // steps a warp
-  constexpr int kPiece4 = NC % 4 == 0 ? 4 : 1;  // state floats an access
   constexpr int kStatePieces = D * D / 4 / L::kThreads;  // 16 B a thread
   constexpr int kRowPieces = D / L::kPiece;   // 16-byte pieces a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -274,6 +347,13 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   float* ss = wr;   // the state's way in and out, D*D floats
   const size_t sb = static_cast<size_t>(bh) * D * D;
 
+  if (s == 1) {
+    single_step<T, D>(r + ib, k + ib, v + ib, w + ib, u + hi * D,
+                      state0 == nullptr ? nullptr : state0 + sb, out + ob,
+                      state_out + sb, wr);
+    return;
+  }
+
   // the rows of steps t0..min(t0+C, s)-1 into `raw`, as one group
   auto stage = [&](int t0) {
     const T* src[4] = {r + ib, k + ib, v + ib, w + ib};
@@ -289,7 +369,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     cp_async_commit();
   };
   // this thread's operands of step c of the chunk
-  auto load_step = [&](int c, StepRows<R, NC>& o) {
+  auto load_step = [&](int c, StepRows<R>& o) {
     const int step = c * D;
     load_vec<NC>(wv + step + g * NC, o.v);
 #pragma unroll
@@ -324,17 +404,13 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     for (int q = 0; q < kStatePieces; ++q) {
       const int x = tid + q * L::kThreads;
       *reinterpret_cast<float4*>(
-          ss + state_at<D, P>(x / (D / 4), 4 * (x % (D / 4)))) = in4[q];
+          ss + state_at<D>(x / (D / 4), 4 * (x % (D / 4)))) = in4[q];
     }
     __syncthreads();
     if (s > 0) stage(0);
 #pragma unroll
-    for (int q = 0; q < R; ++q) {
-#pragma unroll
-      for (int cc = 0; cc < NC; cc += kPiece4)
-        load_vec<kPiece4>(ss + state_at<D, P>(p * R + q, g * NC + cc),
-                          st[q] + cc);
-    }
+    for (int q = 0; q < R; ++q)
+      load_vec<NC>(ss + state_at<D>(p * R + q, g * NC), st[q]);
   } else {
     if (s > 0) stage(0);
 #pragma unroll
@@ -381,7 +457,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < D / 32; ++m) {
           const int i = lane + 32 * m;
-          const int pos = c * D + work_pos<D, P>(i);
+          const int pos = c * D + work_pos<D>(i);
           wr[pos] = cr[q][m];
           wk[pos] = ck[q][m];
           ww[pos] = cw[q][m];
@@ -395,10 +471,10 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
     // a step's operands are loaded one step ahead of their use, so their
     // shared-memory latency hides behind the step before
-    StepRows<R, NC> cur;
+    StepRows<R> cur;
     load_step(0, cur);
     // one step: the state update, and its NC partial sums into acc
-    auto step = [&](StepRows<R, NC>& next, int ahead, float* acc) {
+    auto step = [&](StepRows<R>& next, int ahead, float* acc) {
       load_step(min(ahead, C - 1), next);
 #pragma unroll
       for (int x = 0; x < R; ++x) {
@@ -420,7 +496,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       for (int x = 0; x < NB; ++x) acc[x] = 0.f;
 #pragma unroll
       for (int uu = 0; uu < B; ++uu) {
-        StepRows<R, NC> next;
+        StepRows<R> next;
         step(next, c + uu + 1, acc + uu * NC);
       }
       reduce_scatter<NB>(acc, lane);
@@ -433,17 +509,16 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     };
     int c = 0;
     for (; c + U <= n; c += U) batch(std::integral_constant<int, U>(), c);
-    // the chunk's last steps short of a batch (a decode step, say)
+    // the chunk's last steps short of a batch
     for (; c < n; ++c) batch(std::integral_constant<int, 1>(), c);
   }
 
   __syncthreads();   // every step is done: the working rows are free
 #pragma unroll
   for (int q = 0; q < R; ++q) {
-#pragma unroll
-    for (int cc = 0; cc < NC; cc += kPiece4)
-      store_vec<kPiece4>(ss + state_at<D, P>(p * R + q, g * NC + cc),
-                         st[q] + cc);
+    const float* o = st[q];
+    *reinterpret_cast<float4*>(ss + state_at<D>(p * R + q, g * NC)) =
+        make_float4(o[0], o[1], o[2], o[3]);
   }
   __syncthreads();
   if (s > 0) {
@@ -455,7 +530,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   for (int q = 0; q < kStatePieces; ++q) {
     const int x = tid + q * L::kThreads;
     g4[x] = *reinterpret_cast<const float4*>(
-        ss + state_at<D, P>(x / (D / 4), 4 * (x % (D / 4))));
+        ss + state_at<D>(x / (D / 4), 4 * (x % (D / 4))));
   }
 }
 
@@ -472,21 +547,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int NC, int P>
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(rwkv6_kernel<T, D, NC, P>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Shape<T, D, NC, P>::kSmem);
-}
-
 struct Launch {
   const Args& a;
-  template <typename T, int D, int NC, int P>
+  template <typename T, int D>
   int run() const {
-    using L = Shape<T, D, NC, P>;
-    cudaError_t err = allow_smem<T, D, NC, P>();
+    using L = Shape<T, D>;
+    cudaError_t err = repro_attn::allow_smem(rwkv6_kernel<T, D>, L::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    rwkv6_kernel<T, D, NC, P><<<a.bh, L::kThreads, L::kSmem, a.stream>>>(
+    rwkv6_kernel<T, D><<<a.bh, L::kThreads, L::kSmem, a.stream>>>(
         static_cast<const T*>(a.r), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.w), a.in, a.u,
         a.state0, static_cast<T*>(a.out), a.os, a.state_out, a.h, a.s);
@@ -494,85 +562,42 @@ struct Launch {
   }
 };
 
-// registers, local (spill) bytes, threads, static and dynamic shared
-// bytes a block, blocks an SM, columns NC and parts P a thread's share of
-// the state spans, steps a chunk
+// repro_attn::kernel_attrs (registers, local (spill) bytes, dynamic
+// shared bytes, blocks an SM, threads, and here the steps a chunk), then
+// the columns NC and parts P a thread's share of the state spans
 struct Attrs {
   int* out;
-  template <typename T, int D, int NC, int P>
+  template <typename T, int D>
   int run() const {
-    using L = Shape<T, D, NC, P>;
-    cudaError_t err = allow_smem<T, D, NC, P>();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, rwkv6_kernel<T, D, NC, P>);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rwkv6_kernel<T, D, NC, P>, L::kThreads, L::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    out[0] = fa.numRegs;
-    out[1] = static_cast<int>(fa.localSizeBytes);
-    out[2] = L::kThreads;
-    out[3] = static_cast<int>(fa.sharedSizeBytes);
-    out[4] = L::kSmem;
-    out[5] = blocks;
-    out[6] = NC;
-    out[7] = P;
-    out[8] = kChunk;
-    return 0;
+    using L = Shape<T, D>;
+    const int err = repro_attn::kernel_attrs(rwkv6_kernel<T, D>, L::kSmem,
+                                             L::kThreads, kChunk, out);
+    out[6] = L::NC;
+    out[7] = L::P;
+    return err;
   }
 };
 
-// The instantiations: NC = 4 columns x P = 16 parts by default (cols 0),
-// and at D = 64 also one column x 8 parts and 8 columns x 16 parts, to
-// measure the choice.  -1: head size not instantiated; -2: cols not
-// instantiated at this head size.
+// dtype codes: 0 float32, 1 bfloat16; -1 for another head size, -3 for
+// another dtype
 template <typename T, typename Op>
-int by_shape(int d, int cols, const Op& op) {
+int by_shape(int d, const Op& op) {
   switch (d) {
-    case 32:
-      if (cols == 0 || cols == 4) return op.template run<T, 32, 4, 16>();
-      return -2;
-    case 64:
-      if (cols == 0 || cols == 4) return op.template run<T, 64, 4, 16>();
-      if (cols == 1) return op.template run<T, 64, 1, 8>();
-      if (cols == 8) return op.template run<T, 64, 8, 16>();
-      return -2;
-    case 128:
-      if (cols == 0 || cols == 4) return op.template run<T, 128, 4, 16>();
-      return -2;
-    default:
-      return -1;
+    case 32: return op.template run<T, 32>();
+    case 64: return op.template run<T, 64>();
+    case 128: return op.template run<T, 128>();
+    default: return -1;
   }
 }
 
-// dtype codes: 0 float32, 1 bfloat16; -3 for another
 template <typename Op>
-int by_type(int dtype, int d, int cols, const Op& op) {
-  if (dtype == 0) return by_shape<float>(d, cols, op);
-  if (dtype == 1) return by_shape<__nv_bfloat16>(d, cols, op);
+int by_type(int dtype, int d, const Op& op) {
+  if (dtype == 0) return by_shape<float>(d, op);
+  if (dtype == 1) return by_shape<__nv_bfloat16>(d, op);
   return -3;
 }
 
 }  // namespace
-
-// As repro_rwkv6_scan, with the columns NC a thread holds chosen (0: the
-// default, 4).
-extern "C" int repro_rwkv6_scan_cols(
-    int cols, int dtype, int d, const void* r, const void* k,
-    const void* v, const void* w, long long in_b, long long in_h,
-    long long in_t, const void* u, const void* state0, void* out,
-    long long out_b, long long out_h, long long out_t, void* state_out,
-    int b, int h, int s, void* stream) {
-  const Args a{r, k, v, w, Strides{in_b, in_h, in_t},
-               static_cast<const float*>(u),
-               static_cast<const float*>(state0), out,
-               Strides{out_b, out_h, out_t},
-               static_cast<float*>(state_out), b * h, h, s,
-               static_cast<cudaStream_t>(stream)};
-  return by_type(dtype, d, cols, Launch{a});
-}
 
 // dtype codes: 0 float32, 1 bfloat16 (r, k, v, w and out share it); u,
 // state0 and state_out are float32; state0 may be null (zero initial
@@ -588,13 +613,17 @@ extern "C" int repro_rwkv6_scan(int dtype, int d, const void* r,
                                 long long out_b, long long out_h,
                                 long long out_t, void* state_out, int b,
                                 int h, int s, void* stream) {
-  return repro_rwkv6_scan_cols(0, dtype, d, r, k, v, w, in_b, in_h, in_t,
-                               u, state0, out, out_b, out_h, out_t,
-                               state_out, b, h, s, stream);
+  const Args a{r, k, v, w, Strides{in_b, in_h, in_t},
+               static_cast<const float*>(u),
+               static_cast<const float*>(state0), out,
+               Strides{out_b, out_h, out_t},
+               static_cast<float*>(state_out), b * h, h, s,
+               static_cast<cudaStream_t>(stream)};
+  return by_type(dtype, d, Launch{a});
 }
 
-// The resources of the kernel a call with (dtype, d, cols) launches, into
-// out[9] (see Attrs).  Returns 0, a CUDA error, or -1/-2/-3 as above.
-extern "C" int repro_rwkv6_attrs(int dtype, int d, int cols, int* out) {
-  return by_type(dtype, d, cols, Attrs{out});
+// The resources of the kernel a call with (dtype, d) launches, into
+// out[8] (see Attrs).  Returns 0, a CUDA error, or -1/-3 as above.
+extern "C" int repro_rwkv6_attrs(int dtype, int d, int* out) {
+  return by_type(dtype, d, Attrs{out});
 }

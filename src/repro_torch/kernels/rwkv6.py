@@ -23,7 +23,10 @@ shuffle reduce-scatter); the steps' rows staged by ``cp.async`` a
 32-step chunk ahead and converted to fp32 once in shared memory, laid
 out so that a thread's 16-byte loads hit distinct banks; the states and
 each chunk's outputs pass through shared memory as coalesced 16-byte
-accesses.  What is left is the issue of each serial step: loads,
+accesses.  A single step (S = 1, every decode step) is bound by the
+state's bytes instead, so it takes another layout in the same kernel:
+the state in its memory order straight from and to global memory, and
+only the column sums cross threads.  What is left is the issue of each serial step: loads,
 shuffles and loop take a third of its instructions, and two warps a
 scheduler hide their latency only in part (the source note of
 ``csrc/rwkv6.cu`` has the reckoning).  TPU-isms of the Pallas kernel
@@ -66,38 +69,34 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("repro_rwkv6")
     if lib.repro_rwkv6_scan.argtypes is None:
         strides = [ctypes.c_longlong] * 3
-        args = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + strides
-                + [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p]
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.repro_rwkv6_scan.argtypes = args
-        lib.repro_rwkv6_scan_cols.argtypes = [ctypes.c_int] + args
-        lib.repro_rwkv6_attrs.argtypes = ([ctypes.c_int] * 3
+        lib.repro_rwkv6_scan.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + strides
+            + [ctypes.c_void_p] * 3 + strides + [ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.repro_rwkv6_attrs.argtypes = ([ctypes.c_int] * 2
                                           + [ctypes.POINTER(ctypes.c_int)])
-        for fn in (lib.repro_rwkv6_scan, lib.repro_rwkv6_scan_cols,
-                   lib.repro_rwkv6_attrs):
+        for fn in (lib.repro_rwkv6_scan, lib.repro_rwkv6_attrs):
             fn.restype = ctypes.c_int
     return lib
 
 
-def rwkv6_kernel_attributes(dtype: torch.dtype, d: int,
-                            cols: Optional[int] = None) -> dict:
+def rwkv6_kernel_attributes(dtype: torch.dtype, d: int) -> dict:
     """The resources of the kernel that :func:`rwkv6_scan_fwd` launches
     for this dtype and head size on the current card: registers and local
-    (spill) bytes a thread, threads a block, static and dynamic shared
-    bytes a block, blocks an SM holds, the state columns a thread holds
-    and the parts a column group is spread over (``cols``: another
-    instantiated count of columns, for measuring), and the steps a staged
-    chunk holds."""
+    (spill) bytes a thread, dynamic shared bytes a block (the kernel has
+    no static shared memory), blocks an SM holds, threads a block, the
+    steps a staged chunk holds, the state columns a thread holds and the
+    parts a column group is spread over."""
     if dtype not in Q_CODES or d not in HEAD_SIZES:
         raise ValueError(f"rwkv6_kernel_attributes: no kernel for {dtype}, "
                          f"head size {d}")
-    vals = (ctypes.c_int * 9)()
-    err = _lib().repro_rwkv6_attrs(Q_CODES[dtype], d, cols or 0, vals)
+    vals = (ctypes.c_int * 8)()
+    err = _lib().repro_rwkv6_attrs(Q_CODES[dtype], d, vals)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan attributes failed (code {err})")
-    return dict(zip(("registers", "spill_bytes", "threads", "static_smem",
-                     "dynamic_smem", "blocks_per_sm", "cols", "parts",
-                     "chunk_steps"), vals))
+    return dict(zip(("registers", "spill_bytes", "smem_bytes",
+                     "blocks_per_sm", "threads", "chunk_steps", "cols",
+                     "parts"), vals))
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,8 +141,7 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
 
 def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor,
-                   state0: Optional[torch.Tensor] = None, *,
-                   cols: Optional[int] = None
+                   state0: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w: (B, H, S, D), one dtype (fp32 or bf16), any strides; u:
     (H, D) fp32, contiguous; state0: (B, H, D, D) fp32, contiguous, or
@@ -157,8 +155,7 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one set of strides with a unit last stride and 16-byte aligned rows;
     inputs that do not share such strides, or are not so aligned, are
     copied into new contiguous tensors first (a copy, never the plain
-    version).  ``cols`` picks another instantiated count of state columns
-    a thread holds (None: 4), for measuring the choice."""
+    version)."""
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state0)
     if r.device.type != "cuda":
@@ -203,12 +200,11 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, state
     lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    args = (Q_CODES[r.dtype], d, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), *r.stride()[:3], u.data_ptr(),
-            None if state0 is None else state0.data_ptr(), out.data_ptr(),
-            *out.stride()[:3], state.data_ptr(), b, h, s, stream)
-    err = (lib.repro_rwkv6_scan(*args) if cols is None
-           else lib.repro_rwkv6_scan_cols(cols, *args))
+    err = lib.repro_rwkv6_scan(
+        Q_CODES[r.dtype], d, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        w.data_ptr(), *r.stride()[:3], u.data_ptr(),
+        None if state0 is None else state0.data_ptr(), out.data_ptr(),
+        *out.stride()[:3], state.data_ptr(), b, h, s, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed (code {err})")
     counter.bump()

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Parent against change, on one card: the paged and mixed attention
-kernels of two checkouts of the port, measured in turns.
+"""Parent against change, on one card: one family of kernels of two
+checkouts of the port, measured in turns.
 
-    python3 tools/attention_ab.py --parent DIR [--out FILE]
+    python3 tools/kernel_ab.py --parent DIR [--kernels KIND] [--out FILE]
 
 DIR is another checkout of this repository (an unpacked ``git archive``
 of the parent commit, say).  The script runs four turns, parent, this
 tree, this tree, parent, each a process of its own that imports that
 tree's ``repro_torch`` (built into that tree's ``build/``) and this
-tree's ``chip_smoke`` helpers, and measures on the paged row's inputs
+tree's ``chip_smoke`` helpers, so both trees are measured by the same
+code.  KIND picks the rows a turn measures:
+
+``attention`` (the default), on the paged row's inputs
 (``chip_smoke.paged_inputs``, seed 11):
 
   * the paged kernel on every ``PAGED_CASES`` row: the SHA-256 of its
@@ -18,12 +21,20 @@ tree's ``chip_smoke`` helpers, and measures on the paged row's inputs
     SDPA's ms on the same inputs, and the device us a call of each of
     its kernels.
 
-It prints each turn's JSON line, then a summary: whether the paged
-outputs of every turn are the same bits, row by row; whether the two
-trees' paged libraries hold the same machine code (``cuobjdump -sass``,
-the source file's hash in the kernel names masked); and each number of
-the four turns side by side.  It exits non-zero when the paged bits
-differ.  Needs one CUDA card and the CUDA toolkit.
+  The summary says whether the paged outputs of every turn are the same
+  bits, row by row, and whether the two trees' paged libraries hold the
+  same machine code (``cuobjdump -sass``, the source file's hash in the
+  kernel names masked); the script exits non-zero when the paged bits
+  differ.
+
+``wkv6``: the WKV6 kernel on every ``RWKV6_ROWS`` row (its max abs error
+against the plain version, which must be within ``kernel_tol``, a single
+call's ms, the device us a call), then ``rwkv_prefill`` and
+``rwkv_decode`` on rwkv6-1.6b and their profiles (tokens/s, ms a step,
+busy and wall ms, idle share, WKV6 device ms).
+
+It prints each turn's JSON line, then a summary with each number of the
+four turns side by side.  Needs one CUDA card and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -48,15 +59,21 @@ def _chip_smoke():
     return mod
 
 
-def measure(tree: str) -> dict:
-    """One turn: the measurements of ``tree``'s kernels."""
+def measure(tree: str, kernels: str) -> dict:
+    """One turn: the measurements of ``tree``'s kernels of one kind."""
     sys.path.insert(0, os.path.join(tree, "src"))
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.kernels import decode_attention as DA
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
+    rows = (measure_attention if kernels == "attention"
+            else measure_wkv6)(torch, cs)
+    return {"tree": tree, "card": cs.smi_line(), **rows}
+
+
+def measure_attention(torch, cs) -> dict:
+    from repro_torch.kernels import decode_attention as DA
 
     x = cs.paged_inputs(torch, torch.Generator().manual_seed(11), "cuda")
     paged, paged_kerns = {}, {}
@@ -114,8 +131,48 @@ def measure(tree: str) -> dict:
         mixed[label]["parts_us"] = {
             k: v["device_us_per_call"] for k, v in prof["kernels"].items()}
         mixed[label]["sessions"] = len(prof["sessions"])
-    return {"tree": tree, "card": cs.smi_line(), "paged": paged,
-            "mixed": mixed, "paged_library": DA._lib()._name}
+    return {"paged": paged, "mixed": mixed,
+            "paged_library": DA._lib()._name}
+
+
+def measure_wkv6(torch, cs, dev: str = "cuda") -> dict:
+    from repro_torch.kernels import rwkv6 as RW
+    rows, kerns = {}, {}
+    for label, dt, b, h, s, d, state, decays in cs.RWKV6_ROWS:
+        args = cs.rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays)
+        out, st = RW.rwkv6_scan_fwd(*args)
+        ref, ref_st = RW.rwkv6_scan_plain(*args)
+        kerns[label] = lambda args=args: RW.rwkv6_scan_fwd(*args)
+        rows[label] = {
+            **cs.check_row(torch, f"rwkv6_scan[{label}]", out, ref,
+                           cs.kernel_tol(dt, s)),
+            "state_max_abs_err": (st - ref_st).abs().max().item(),
+            "ms": cs.time_ms(torch, kerns[label])}
+    # the model phases' lines, kept instead of printed
+    lines = []
+    cs.emit = lines.append
+    _, _, cfg, params = cs.rwkv_models(torch, dev)
+    _, prefill_profile = cs.phase_prefill(torch, dev, cfg, params,
+                                          "rwkv_prefill", 31)
+    _, decode_profile = cs.phase_decode_steps(torch, dev, cfg, params,
+                                              "rwkv_decode", 32)
+    # the profiler sessions last: they slow the host for timed runs after
+    for label, kern in kerns.items():
+        prof = cs.profile_kernels(torch, kern, RW.counter, "rwkv6_scan", 1)
+        rows[label]["device_us"] = prof["device_us_per_call"]
+        rows[label]["sessions"] = len(prof["sessions"])
+    prefill_profile(params)
+    decode_profile(params)
+    model = {}
+    for line in lines:
+        wkv6 = line.get("device_ms_by_group", {}).get("rwkv6_scan")
+        model[line["phase"]] = {
+            k: line[k] for k in ("tokens_per_s", "decode_tokens_per_s",
+                                 "wall_ms", "ms_per_step", "device_busy_ms",
+                                 "device_idle_share") if k in line}
+        if wkv6 is not None:
+            model[line["phase"]]["wkv6_ms"] = wkv6
+    return {"wkv6": rows, "model": model}
 
 
 def sass(library: str) -> dict:
@@ -140,12 +197,14 @@ def sass(library: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="the other checkout")
+    ap.add_argument("--kernels", choices=("attention", "wkv6"),
+                    default="attention", help="the rows a turn measures")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="also write the turns and the summary "
                                   "to this JSON file")
     args = ap.parse_args()
     if args.measure:
-        print(json.dumps(measure(args.measure)), flush=True)
+        print(json.dumps(measure(args.measure, args.kernels)), flush=True)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -153,6 +212,7 @@ def main() -> int:
     for label, tree in (("parent", args.parent), ("change", HERE),
                         ("change", HERE), ("parent", args.parent)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--kernels", args.kernels,
                                "--measure", os.path.abspath(tree)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -162,11 +222,31 @@ def main() -> int:
         line["turn"] = label
         print(json.dumps(line), flush=True)
         turns.append(line)
+    summary = (attention_summary if args.kernels == "attention"
+               else wkv6_summary)(turns)
+    summary["turns"] = [t["turn"] for t in turns]
+    print(json.dumps(summary), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"turns": turns, "summary": summary}, f, indent=1)
+    return 0 if all(summary.get("paged_bits_equal", {}).values()) else 1
+
+
+def side_by_side(turns, *path) -> list:
+    """The number at ``path`` in each turn's line."""
+    out = []
+    for t in turns:
+        for key in path:
+            t = t.get(key) if isinstance(t, dict) else None
+        out.append(t)
+    return out
+
+
+def attention_summary(turns) -> dict:
     paged_keys = list(turns[0]["paged"])
     parent_sass, change_sass = (sass(turns[i]["paged_library"])
                                 for i in (0, 1))
-    summary = {
-        "turns": [t["turn"] for t in turns],
+    return {
         "paged_sass_identical": parent_sass == change_sass,
         "paged_sass_kernels": len(parent_sass),
         "paged_sass_kernels_differing": sorted(
@@ -175,21 +255,25 @@ def main() -> int:
         "paged_bits_equal": {
             k: len({t["paged"][k]["sha256"] for t in turns}) == 1
             for k in paged_keys},
-        "paged_ms": {k: [t["paged"][k]["ms"] for t in turns]
+        "paged_ms": {k: side_by_side(turns, "paged", k, "ms")
                      for k in paged_keys},
         "paged_device_us": {
-            k: [t["paged"][k]["device_us"] for t in turns]
+            k: side_by_side(turns, "paged", k, "device_us")
             for k in paged_keys if "device_us" in turns[0]["paged"][k]},
         "mixed": {
-            label: {field: [t["mixed"][label][field] for t in turns]
+            label: {field: side_by_side(turns, "mixed", label, field)
                     for field in ("ms", "sdpa_ms", "device_us")}
             for label in turns[0]["mixed"]}}
-    print(json.dumps(summary), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"turns": turns, "summary": summary}, f, indent=1)
-    return 0 if all(summary["paged_bits_equal"].values()) else 1
 
+
+def wkv6_summary(turns) -> dict:
+    return {
+        "wkv6": {label: {field: side_by_side(turns, "wkv6", label, field)
+                         for field in ("device_us", "ms", "max_abs_err")}
+                 for label in turns[0]["wkv6"]},
+        "model": {phase: {field: side_by_side(turns, "model", phase, field)
+                          for field in fields}
+                  for phase, fields in turns[0]["model"].items()}}
 
 if __name__ == "__main__":
     sys.exit(main())
