@@ -86,8 +86,9 @@ Output, one line each:
     (ResNet-50's add+relu and relu at their batch-64 shapes, fp32 and
     bf16, a long chain with a 0-d and a broadcast operand, and every op
     of the fusion queue in each dtype it takes, merged into a few
-    chains; the relu row also against ``torch.relu`` in alternating
-    turns, every reading printed);
+    chains; each timed row with its device ms of 20 calls queued, a
+    single call's ms and the host us a call; the relu row also against
+    ``torch.relu`` in alternating turns, every reading printed);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels; the
     paged variant its q dtype runs);
@@ -116,7 +117,9 @@ Output, one line each:
     ``decode_attention_profile``: the same for the gemma bf16 and jamba
     decode rows, main kernel and combine; ``mixed_attention_profile``:
     mixed row (a), pre-pass, main kernel and combine;
-    ``rwkv6_scan_profile``: the WKV6 rows' device us a call), last,
+    ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
+    ``fused_elementwise_profile``: the fused rows' device us a launch),
+    last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
@@ -124,8 +127,8 @@ Output, one line each:
     add their variant, and those and the WKV6 entry the device launches
     and device us of one call of the reported row, as
     ``paged_attention_profile``, ``decode_attention_profile``,
-    ``mixed_attention_profile`` and ``rwkv6_scan_profile`` counted
-    them; bf16 serving for paged
+    ``mixed_attention_profile``, ``rwkv6_scan_profile`` and
+    ``fused_elementwise_profile`` counted them; bf16 serving for paged
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
@@ -517,7 +520,10 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
     ``sessions`` beside the last one's, which is reported;
     ``first_session_agrees`` flags a first session that differed (the
     profiler dropped kernel records, or the C record is wrong).  Raises
-    when no session agrees with the C record."""
+    when no session agrees with the C record.  With ``want`` None (a
+    kernel with no C record: the generated Triton kernels) one session
+    is kept as it came, and ``device_us_per_launch`` (the recorded
+    launches' mean) is the reading that dropped records do not bias."""
     from torch.profiler import ProfilerActivity, profile, schedule
     sessions = []
     for _ in range(tries):
@@ -542,12 +548,12 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
                                                     "launches_per_call": 0.0})
                 k["device_us_per_call"] += ms * 1e3 / n
                 k["launches_per_call"] += c / n
-        sessions.append({
-            "device_launches_per_call": sum(
-                k["launches_per_call"] for k in kernels.values()),
-            "device_us_per_call": sum(
-                k["device_us_per_call"] for k in kernels.values())})
-        if abs(sessions[-1]["device_launches_per_call"] - want) < 1e-9:
+        launches = sum(k["launches_per_call"] for k in kernels.values())
+        us = sum(k["device_us_per_call"] for k in kernels.values())
+        sessions.append({"device_launches_per_call": launches,
+                         "device_us_per_call": us,
+                         "device_us_per_launch": us / max(launches, 1e-9)})
+        if want is None or abs(launches - want) < 1e-9:
             break
     else:
         raise AssertionError(
@@ -879,6 +885,29 @@ def profile_rwkv6(torch, dev) -> dict:
         emit(row)
         if result is None:
             result = row
+    return result
+
+
+def profile_fused(torch, dev) -> dict:
+    """Rows (a)-(d) of the fused kernel under ``profile_kernels``: the
+    device us a launch, the recorded launches' mean (one launch a call;
+    the profiler drops some of the Triton kernel's records, so no count
+    is required).  Run with the profiled runs, last.  Returns the
+    add+relu line."""
+    from repro_torch.kernels import fused_elementwise as FE
+
+    result = None
+    for label, dtype, _, chain, ext in fused_rows(torch, dev):
+        kern = FE.make_fused_elementwise(chain)
+        row = {"phase": "fused_elementwise_profile", "row": label,
+               "dtype": dtype,
+               **profile_kernels(torch, lambda: kern(*ext),
+                                 FE.fused_counter, "fused_elementwise",
+                                 None)}
+        emit(row)
+        result = result or row
+        del ext
+    free(torch)
     return result
 
 
@@ -1396,15 +1425,12 @@ def relu_turns(torch, kern, library, turns: int = RELU_TURNS) -> dict:
     return got
 
 
-def phase_fused_elementwise(torch, dev) -> dict:
-    """Kernel B6 against its plain version: rows (a)-(d) timed, row (e)
-    (every op, every dtype it takes) for correctness; and a chain with an
-    op that has no emitter raises without launching."""
+def fused_rows(torch, dev):
+    """Rows (a)-(d) of ``FUSED_ROWS``: (label, dtype, shape, chain,
+    external inputs), the inputs made from seed 15 in row order."""
     import repro_torch as rt
     import repro_torch.nn.functional as F
-    from repro_torch.core.fuse import ELEMENTWISE_OPS, capture_chain
-    from repro_torch.kernels import fused_elementwise as FE
-    from repro_torch.kernels import launch_counts
+    from repro_torch.core.fuse import capture_chain
 
     gen = torch.Generator(device=dev).manual_seed(15)
     fns = {"add_relu": (lambda x, y: F.relu(x + y), 2),
@@ -1412,7 +1438,6 @@ def phase_fused_elementwise(torch, dev) -> dict:
            "add_relu_bf16": (lambda x, y: F.relu(x + y), 2),
            "long_chain": (lambda x, b: ((((x * 0.5 + b).tanh() * x).exp()
                                          .sigmoid() - 0.25).erf()), 2)}
-    main = None
     for label, dtype, shape in FUSED_ROWS:
         fn, n_in = fns[label]
         dt = getattr(torch, dtype)
@@ -1423,7 +1448,37 @@ def phase_fused_elementwise(torch, dev) -> dict:
             xs.append(rt.Tensor(torch.randn(second, generator=gen,
                                             device=dev).to(dt)))
         chain, ext = capture_chain(fn, *xs)
-        out = FE.fused_elementwise(chain, *ext)
+        del xs
+        yield label, dtype, shape, chain, ext
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host us a call of ``fn``, enqueued ``calls`` times back to back
+    without waiting: the wrapper's and the launcher's share of a call,
+    while the device is busier than the host."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
+
+
+def phase_fused_elementwise(torch, dev) -> dict:
+    """Kernel B9 against its plain version: rows (a)-(d) timed, row (e)
+    (every op, every dtype it takes) for correctness; and a chain with an
+    op that has no emitter raises without launching."""
+    from repro_torch.core.fuse import ELEMENTWISE_OPS, capture_chain
+    from repro_torch.kernels import fused_elementwise as FE
+    from repro_torch.kernels import launch_counts
+
+    main = None
+    for label, dtype, shape, chain, ext in fused_rows(torch, dev):
+        # the launcher a dispatch-cache entry of the eager runtime keeps
+        kern = FE.make_fused_elementwise(chain)
+        out = kern(*ext)
         torch.cuda.synchronize()
         ref = FE.fused_elementwise_plain(chain, *ext)
         err = fused_check(torch, label, out, ref)
@@ -1433,29 +1488,30 @@ def phase_fused_elementwise(torch, dev) -> dict:
         bound_ms, bound_by = kernel_bound(nbytes, ops, "float32")
         # device time with the queue kept full (time_ms_stream): the
         # Triton launcher's host time exceeds the smaller rows' kernels
-        ms = time_ms_stream(torch, lambda: FE.fused_elementwise(chain, *ext))
+        ms = time_ms_stream(torch, lambda: kern(*ext))
         plain_ms = time_ms_stream(
             torch, lambda: FE.fused_elementwise_plain(chain, *ext))
         library_ms = turns = None
         if label == "relu":
             library_ms = time_ms_stream(torch, lambda: torch.relu(ext[0]))
-            turns = relu_turns(torch, lambda: FE.fused_elementwise(
-                chain, *ext), lambda: torch.relu(ext[0]))
-        single_ms = time_ms(torch, lambda: FE.fused_elementwise(chain, *ext))
+            turns = relu_turns(torch, lambda: kern(*ext),
+                               lambda: torch.relu(ext[0]))
+        single_ms = time_ms(torch, lambda: kern(*ext))
         row = {"phase": "kernel", "name": "fused_elementwise",
                "row": label, "dtype": dtype, "shape": list(shape),
                "chain": [s[0] for s in chain.steps],
                "inputs": [list(x.shape) for x in ext],
                "max_abs_err": err, "tol": FUSED_TOL[dtype], "ms": ms,
                "single_call_ms": single_ms,
+               "host_us_per_call": host_us(torch, lambda: kern(*ext)),
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes,
-               "library_ms": library_ms}
+               "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "bytes": nbytes, "library_ms": library_ms}
         if turns is not None:
             row["turns_vs_library"] = turns
         emit(row)
         main = main or row
-        del xs, ext, out, ref
+        del ext, out, ref
     free(torch)
 
     # row (e): the cases' chains merged 16 at a time, so that a handful
@@ -2789,6 +2845,7 @@ def run_phases(torch, dev) -> list:
     decode_profile = profile_decode(torch, dev)
     mixed_profile = profile_mixed(torch, dev)
     rwkv6_profile = profile_rwkv6(torch, dev)
+    fused_profile = profile_fused(torch, dev)
 
     table = []
     for name, route, source, replaces in (
@@ -2826,12 +2883,16 @@ def run_phases(torch, dev) -> list:
         profiled = {"paged_attention": paged_profile,
                     "decode_attention": decode_profile,
                     "mixed_attention": mixed_profile,
-                    "rwkv6_scan": rwkv6_profile}.get(name)
+                    "rwkv6_scan": rwkv6_profile,
+                    "fused_elementwise": fused_profile}.get(name)
         if profiled is not None:
-            # as the profiler counted and timed them
+            # as the profiler counted and timed them (the fused kernel
+            # by the recorded launches' mean: the profiler drops some of
+            # the Triton kernel's records)
             entry["device_launches_per_call"] = profiled[
                 "device_launches_per_call"]
             entry["device_us_per_call"] = profiled["device_us_per_call"]
+            entry["device_us_per_launch"] = profiled["device_us_per_launch"]
             entry["profiler_sessions"] = profiled["sessions"]
         table.append(entry)
     return table

@@ -1,4 +1,4 @@
-"""Kernel B6: a fusion-queue chain as ONE generated Triton kernel.
+"""Kernel B9: a fusion-queue chain as ONE generated Triton kernel.
 
 Replaces ``repro/kernels/ops.py::fused_elementwise`` (the general form,
 ``pallas_call`` at ``ops.py:323``), which the reference's fusion queue
@@ -15,10 +15,32 @@ the reference's multi-output kernel does.
 
 Bound.  By bytes: each input is read once and each step output written
 once; an H100 moves 3.35 TB/s, and the chains of the eager runtime do a
-few operations per element.  So the kernel is one flat pass: a block of
-``BLOCK`` consecutive elements per program, 64-bit offsets, the ragged
-tail masked (the TPU kernel's ``(rows, 128)`` lane-major view, sublane
-rounding and padded tail do not carry over).
+few operations per element.  So the kernel is one flat streaming pass
+with no reuse (the TPU kernel's ``(rows, 128)`` lane-major view, sublane
+rounding and padded tail do not carry over), and its design keeps enough
+bytes in flight on every SM while spending few instructions on each
+element:
+
+  * one tile of ``BLOCK`` elements a program, 8 warps, each thread
+    moving one 16-byte piece of each fp32 operand; whole tiles carry no
+    mask, and only the last program's ragged tail tile is masked (a
+    persistent grid that walked the tiles in turn, with or without
+    Triton's loop pipelining, ran 5% slower on an H100, PERF.md §6);
+  * 32-bit offsets whenever every offset fits an int32 (``index_bits``;
+    the width is part of the module's cache key), 64-bit ones above;
+  * a broadcast or strided operand is read through its strides over the
+    output's dims with the size-1 dims dropped and neighbouring dims
+    collapsed, and the generated index math computes only the dims some
+    operand reads (``Layout.reads``): a row bias over a matrix costs one
+    ``%`` an element, not three divisions and three remainders;
+  * the host's share of a call is kept small: a :class:`ChainKernel`
+    keeps a plan per operand signature (shapes, strides, dtypes,
+    devices), so a repeated call derives no broadcast shape, layout or
+    module again, and it enters a device scope only when the current
+    device is another.
+
+The constants were chosen by timing (``BLOCK``, warps) choices in
+alternating turns on an H100 (``tools/fused_sweep.py``; PERF.md §6).
 
 Design.
   * Codegen.  :data:`EMITTERS` maps every name of the queue's
@@ -33,16 +55,16 @@ Design.
     ``div_rn``, as PyTorch's CUDA kernels compute them (no fast math).
   * Operands.  An operand of the output's shape is read flat; a 0-d (or
     one-element) operand is loaded once per program; any other broadcast,
-    and any non-contiguous view, is read through its strides over the
-    output shape (0 on broadcast dims), the dims collapsed to at most 4;
-    nothing is copied.  Bool operands and outputs travel as bytes.
-    Outputs are allocated contiguous by the wrapper.
+    and any non-contiguous view, is read through its strides (at most 4
+    collapsed dims); nothing is copied.  Bool operands and outputs travel
+    as bytes.  Outputs are allocated contiguous by the wrapper.
   * Loading.  ``@triton.jit`` reads its function's source with
     ``inspect``, so source made with ``exec`` cannot be compiled: each
     generated module is written to ``build/repro_torch/fused/<hash>.py``
     and imported with ``importlib``, cached by the chain's descriptor,
-    its dtypes and the operand kinds, not by shape (``n``, the sizes and
-    the strides are runtime arguments).  Triton is imported only there.
+    its dtypes, the operand kinds, the dims they read and the offset
+    width, not by shape (``n``, the sizes and the strides are runtime
+    arguments).  Triton is imported only there.
   * Launches are counted by ``launch_counts()["fused_elementwise"]``.
 
 :func:`fused_elementwise_plain` beside it replays the chain's torch ops
@@ -68,9 +90,9 @@ from ._build import BUILD_ROOT, LaunchCounter
 
 fused_counter = LaunchCounter("fused_elementwise")
 
-BLOCK = 1024
-NUM_WARPS = 4
-MAX_DIMS = 4
+BLOCK = 1024            # elements a program
+NUM_WARPS = 8
+MAX_DIMS = 4            # collapsed dims a strided operand may span
 
 
 class FusedChain(NamedTuple):
@@ -288,11 +310,25 @@ def _step_expr(name, static, args, arg_dtypes, out_dtype) -> str:
 FLAT, SCALAR, STRIDED = "f", "s", "b"
 
 
+class Layout(NamedTuple):
+    """Each operand's kind (flat, scalar or strided); the output's dims
+    with the size-1 dims dropped and neighbours that every strided
+    operand walks as one collapsed (outermost first); and each strided
+    operand's strides over those dims (0 on broadcast dims)."""
+    kinds: Tuple[str, ...]
+    sizes: List[int]
+    strides: List[List[int]]
+
+    @property
+    def reads(self) -> Tuple[Tuple[bool, ...], ...]:
+        """Which of the dims each strided operand reads (a nonzero
+        stride): the generated index math computes only those."""
+        return tuple(tuple(st != 0 for st in sts) for sts in self.strides)
+
+
 def operand_layout(xs: Sequence[torch.Tensor], shape: Tuple[int, ...]
-                   ) -> Tuple[Tuple[str, ...], List[int], List[List[int]]]:
-    """Each operand's kind (flat, scalar or strided), and for the strided
-    ones the collapsed sizes (padded to ``MAX_DIMS``) and their strides
-    over the output shape (0 on broadcast dims)."""
+                   ) -> Layout:
+    """The :class:`Layout` of operands ``xs`` broadcast to ``shape``."""
     kinds, strided = [], []
     for x in xs:
         if x.numel() == 1:
@@ -303,7 +339,7 @@ def operand_layout(xs: Sequence[torch.Tensor], shape: Tuple[int, ...]
             kinds.append(STRIDED)
             strided.append(list(x.expand(shape).stride()))
     if not strided:
-        return tuple(kinds), [], []
+        return Layout(tuple(kinds), [], [])
     dims = [d for d in range(len(shape)) if shape[d] != 1]
     sizes: List[int] = []
     strides: List[List[int]] = [[] for _ in strided]
@@ -321,9 +357,58 @@ def operand_layout(xs: Sequence[torch.Tensor], shape: Tuple[int, ...]
         raise NotImplementedError(
             f"fused_elementwise: a broadcast over {len(sizes)} dims after "
             f"collapsing (at most {MAX_DIMS}); shape {tuple(shape)}")
-    pad = MAX_DIMS - len(sizes)
-    return (tuple(kinds), [1] * pad + sizes,
-            [[0] * pad + st for st in strides])
+    return Layout(tuple(kinds), sizes, strides)
+
+
+def index_bits(n: int, layout: Layout) -> int:
+    """32 when every offset the kernel forms fits an int32: the flat
+    offsets up to the end of the last (ragged) tile, and each strided
+    operand's furthest element; else 64."""
+    reach = max([n + BLOCK] + [sum((size - 1) * abs(st) for size, st in
+                                   zip(layout.sizes, sts)) + 1
+                               for sts in layout.strides])
+    return 32 if reach <= 2 ** 31 - 1 else 64
+
+
+def index_code(reads: Sequence[Sequence[bool]]
+               ) -> Tuple[List[str], List[str], List[str]]:
+    """The generated index math of strided operands that read the dims
+    ``reads`` marks (``Layout.reads``): the kernel's geometry parameters,
+    the lines that compute the index of each dim some operand reads from
+    the flat offset ``offs``, and each operand's element offset.  For dim
+    d of D, ``i{d} = (offs // P{d}) % S{d}``, with ``P{d}`` the product of
+    the sizes inside d: the innermost needs no division, the outermost no
+    remainder."""
+    ndim = len(reads[0]) if reads else 0
+    dims = [[d for d, on in enumerate(r) if on] for r in reads]
+    used = sorted(set(d for r in dims for d in r))
+    params, lines = [], []
+    for d in used:
+        params += [f"P{d}"] * (d < ndim - 1) + [f"S{d}"] * (d > 0)
+        q = "offs" if d == ndim - 1 else f"(offs // P{d})"
+        lines.append(f"i{d} = {q}" + (f" % S{d}" if d > 0 else ""))
+    offsets = []
+    for k, r in enumerate(dims):
+        params += [f"st{k}_{d}" for d in r]
+        offsets.append(" + ".join(f"i{d} * st{k}_{d}" for d in r))
+    return params, lines, offsets
+
+
+def geometry(layout: Layout) -> List[int]:
+    """The values of ``index_code``'s parameters for ``layout``, in their
+    order."""
+    sizes = layout.sizes
+    reads = [[d for d, on in enumerate(r) if on] for r in layout.reads]
+    used = sorted(set(d for r in reads for d in r))
+    out = []
+    for d in used:
+        if d < len(sizes) - 1:
+            out.append(math.prod(sizes[d + 1:]))
+        if d > 0:
+            out.append(sizes[d])
+    for sts, r in zip(layout.strides, reads):
+        out += [sts[d] for d in r]
+    return out
 
 
 _HEADER = '''"""Generated by repro_torch.kernels.fused_elementwise; do not edit."""
@@ -365,57 +450,74 @@ def _ipow(a, b):
 
 
 def generate_source(chain: FusedChain, ext_dtypes: Sequence[torch.dtype],
-                    kinds: Sequence[str]) -> str:
+                    kinds: Sequence[str],
+                    reads: Sequence[Sequence[bool]] = (),
+                    bits: int = 32) -> str:
     """The Python source of the Triton module for ``chain`` over inputs
-    of ``ext_dtypes`` and ``kinds``: a ``fused_chain_kernel`` and its
-    ``launch(ins, outs, n, sizes, strides)``."""
+    of ``ext_dtypes`` and ``kinds``, each strided one reading the dims
+    that ``reads`` marks for it (``Layout.reads``), with ``bits``-bit
+    offsets (``index_bits``): a ``fused_chain_kernel`` and its
+    ``launch(ins, outs, n, geometry, programs)``.
+
+    Each of the ``programs`` = ceil(n / BLOCK) programs computes one tile
+    of ``BLOCK`` elements: a whole tile unmasked, the one ragged tail
+    tile (the last program's) masked."""
     n_in, n_out = len(ext_dtypes), len(chain.steps)
-    n_strided = sum(k == STRIDED for k in kinds)
-    params = [f"e{i}" for i in range(n_in)] + [f"o{j}" for j in
-                                               range(n_out)] + ["n"]
-    if n_strided:
-        params += ["S1", "S2", "S3"]
-        params += [f"st{i}_{d}" for i in range(n_in) if kinds[i] == STRIDED
-                   for d in range(MAX_DIMS)]
+    strided = [i for i in range(n_in) if kinds[i] == STRIDED]
+    if len(reads) != len(strided):
+        raise ValueError(f"fused_elementwise: {len(strided)} strided "
+                         f"operands, {len(reads)} read patterns")
+    geo, index_lines, offsets = index_code(reads)
+    params = ([f"e{i}" for i in range(n_in)]
+              + [f"o{j}" for j in range(n_out)] + ["n"] + geo)
+    start = "pid.to(tl.int64) * BLOCK" if bits == 64 else "pid * BLOCK"
+
+    def tile_body(indent: str, masked: bool) -> List[str]:
+        m = ", mask=mask" if masked else ""
+        out = list(index_lines)
+        for i, (dt, kind) in enumerate(zip(ext_dtypes, kinds)):
+            if kind == SCALAR:
+                continue
+            if kind == FLAT:
+                load = f"tl.load(e{i} + offs{m})"
+            else:
+                idx = offsets[strided.index(i)]
+                load = f"tl.load(e{i} + ({idx}){m})"
+            if dt == torch.bool:
+                load = f"({load} != 0)"
+            out.append(f"x{i} = {load}")
+        for j, ((name, static, slots), out_dt) in enumerate(
+                zip(chain.steps, chain.dtypes)):
+            args, arg_dts = [], []
+            for kind, k in slots:
+                args.append(f"x{k}" if kind == "e" else f"t{k}")
+                arg_dts.append(ext_dtypes[k] if kind == "e"
+                               else chain.dtypes[k])
+            out.append(f"t{j} = "
+                       + _step_expr(name, static, args, arg_dts, out_dt))
+            val = f"t{j}.to(tl.uint8)" if out_dt == torch.bool else f"t{j}"
+            out.append(f"tl.store(o{j} + offs, {val}{m})")
+        return [indent + line for line in out]
+
     body = ["    pid = tl.program_id(0)",
-            "    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)",
-            "    mask = offs < n"]
-    if n_strided:
-        body += ["    i3 = offs % S3", "    r = offs // S3",
-                 "    i2 = r % S2", "    r = r // S2",
-                 "    i1 = r % S1", "    i0 = r // S1"]
+            f"    offs = {start} + tl.arange(0, BLOCK)"]
     for i, (dt, kind) in enumerate(zip(ext_dtypes, kinds)):
         if kind == SCALAR:
             load = f"tl.load(e{i})"
-        elif kind == FLAT:
-            load = f"tl.load(e{i} + offs, mask=mask, other=1)"
-        else:
-            idx = " + ".join(f"i{d} * st{i}_{d}" for d in range(MAX_DIMS))
-            load = f"tl.load(e{i} + ({idx}), mask=mask, other=1)"
-        if dt == torch.bool:
-            load = f"({load} != 0)"
-        body.append(f"    x{i} = {load}")
-    for j, ((name, static, slots), out_dt) in enumerate(
-            zip(chain.steps, chain.dtypes)):
-        args, arg_dts = [], []
-        for kind, k in slots:
-            args.append(f"x{k}" if kind == "e" else f"t{k}")
-            arg_dts.append(ext_dtypes[k] if kind == "e" else chain.dtypes[k])
-        expr = _step_expr(name, static, args, arg_dts, out_dt)
-        body.append(f"    t{j} = {expr}")
-        val = f"t{j}.to(tl.uint8)" if out_dt == torch.bool else f"t{j}"
-        body.append(f"    tl.store(o{j} + offs, {val}, mask=mask)")
+            body.append(f"    x{i} = ({load} != 0)" if dt == torch.bool
+                        else f"    x{i} = {load}")
+    body += ["    if pid < n // BLOCK:   # a whole tile"]
+    body += tile_body("        ", masked=False)
+    body += ["    else:   # the ragged tail", "        mask = offs < n"]
+    body += tile_body("        ", masked=True)
     sig = ", ".join(params + ["BLOCK: tl.constexpr"])
-    geometry = ("*sizes[1:], *[s for st in strides for s in st], "
-                if n_strided else "")
     return (_HEADER
             + "@triton.jit\n"
             + f"def fused_chain_kernel({sig}):\n"
             + "\n".join(body) + "\n\n\n"
-            + "def launch(ins, outs, n, sizes, strides):\n"
-            + f"    grid = (triton.cdiv(n, {BLOCK}),)\n"
-            + f"    fused_chain_kernel[grid](*ins, *outs, n, {geometry}"
-            + f"BLOCK={BLOCK}, num_warps={NUM_WARPS})\n")
+            + "def launch(ins, outs, n, geometry, programs):\n"
+            + "    fused_chain_kernel[(programs,)](*ins, *outs, n, "
+            + f"*geometry, BLOCK={BLOCK}, num_warps={NUM_WARPS})\n")
 
 
 FUSED_ROOT = BUILD_ROOT / "fused"
@@ -442,20 +544,87 @@ def _load(source: str):
 
 
 def kernel_module(chain: FusedChain, ext_dtypes: Sequence[torch.dtype],
-                  kinds: Sequence[str]):
+                  kinds: Sequence[str],
+                  reads: Sequence[Sequence[bool]] = (), bits: int = 32):
     """The imported Triton module of ``chain`` (generated at first use;
-    cached by descriptor, dtypes and operand kinds, not by shape)."""
-    key = (chain.steps, chain.dtypes, tuple(ext_dtypes), tuple(kinds))
+    cached by descriptor, dtypes, operand kinds, the dims the strided
+    operands read and the offset width, not by shape: ``n``, the sizes
+    and the strides are runtime arguments)."""
+    key = (chain.steps, chain.dtypes, tuple(ext_dtypes), tuple(kinds),
+           tuple(reads), bits)
     with _lock:
         mod = _modules.get(key)
         if mod is None:
             mod = _modules[key] = _load(
-                generate_source(chain, ext_dtypes, kinds))
+                generate_source(chain, ext_dtypes, kinds, reads, bits))
         return mod
 
 
-def _as_bytes(t: torch.Tensor) -> torch.Tensor:
-    return t.view(torch.uint8) if t.dtype == torch.bool else t
+class _Plan(NamedTuple):
+    """What a call with one set of operand shapes, strides, dtypes and
+    devices launches: the output shape, element count and device (index),
+    the operands travelling as bytes, and the bound launcher."""
+    shape: Tuple[int, ...]
+    n: int
+    device: torch.device
+    index: int
+    as_bytes: Tuple[bool, ...]
+    launch: Callable
+
+
+class ChainKernel:
+    """A chain's kernel wrapper: ``ChainKernel(chain)(*xs)`` is
+    ``fused_elementwise(chain, *xs)``.  It keeps a :class:`_Plan` per
+    signature of its operands (shapes, strides, dtypes, devices), so a
+    repeated call derives no broadcast shape, layout or module again."""
+
+    def __init__(self, chain: FusedChain):
+        self.chain = chain
+        self.plans: Dict[tuple, _Plan] = {}
+
+    def plan(self, xs: Sequence[torch.Tensor]) -> _Plan:
+        dev = xs[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"fused_elementwise: unsupported device {dev}")
+        shape = tuple(torch.broadcast_shapes(*[x.shape for x in xs]))
+        layout = operand_layout(xs, shape)
+        n = math.prod(shape)
+        bits = index_bits(n, layout)
+        mod = kernel_module(self.chain, [x.dtype for x in xs], layout.kinds,
+                            layout.reads, bits)
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        args = (n, geometry(layout), -(-n // BLOCK))
+        return _Plan(shape, n, torch.device("cuda", index), index,
+                     tuple(x.dtype == torch.bool for x in xs) +
+                     tuple(dt == torch.bool for dt in self.chain.dtypes),
+                     lambda ins, outs: mod.launch(ins, outs, *args))
+
+    def __call__(self, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if not xs:
+            raise ValueError("fused_elementwise: a chain needs an input")
+        dev = xs[0].device
+        if any(x.device != dev for x in xs):
+            raise ValueError("fused_elementwise: all operands must be on "
+                             "one device")
+        if dev.type == "cpu":
+            return fused_elementwise_plain(self.chain, *xs)
+        sig = tuple((x.shape, x.stride(), x.dtype) for x in xs) + (dev,)
+        plan = self.plans.get(sig)
+        if plan is None:
+            plan = self.plans[sig] = self.plan(xs)
+        outs = tuple(torch.empty(plan.shape, dtype=dt, device=plan.device)
+                     for dt in self.chain.dtypes)
+        if plan.n:
+            ops = [t.view(torch.uint8) if b else t
+                   for t, b in zip(xs + outs, plan.as_bytes)]
+            if torch.cuda.current_device() == plan.index:
+                plan.launch(ops[:len(xs)], ops[len(xs):])
+            else:
+                with torch.cuda.device(plan.index):
+                    plan.launch(ops[:len(xs)], ops[len(xs):])
+            fused_counter.bump()
+        return outs
 
 
 def fused_elementwise(chain: FusedChain, *xs: torch.Tensor
@@ -463,37 +632,15 @@ def fused_elementwise(chain: FusedChain, *xs: torch.Tensor
     """Every step of ``chain`` over ``xs`` (broadcast to one shape), each
     returned as a contiguous tensor of its step's dtype.  CPU tensors
     take :func:`fused_elementwise_plain`; CUDA tensors launch the
-    generated Triton kernel."""
-    if not xs:
-        raise ValueError("fused_elementwise: a chain needs an input")
-    dev = xs[0].device
-    if any(x.device != dev for x in xs):
-        raise ValueError("fused_elementwise: all operands must be on one "
-                         "device")
-    if dev.type == "cpu":
-        return fused_elementwise_plain(chain, *xs)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_elementwise: unsupported device {dev}")
-    shape = tuple(torch.broadcast_shapes(*[x.shape for x in xs]))
-    kinds, sizes, strides = operand_layout(xs, shape)
-    mod = kernel_module(chain, [x.dtype for x in xs], kinds)
-    outs = tuple(torch.empty(shape, dtype=dt, device=dev)
-                 for dt in chain.dtypes)
-    n = math.prod(shape)
-    if n:
-        with torch.cuda.device(dev):
-            mod.launch([_as_bytes(x) for x in xs],
-                       [_as_bytes(o) for o in outs], n,
-                       sizes or [1] * MAX_DIMS, strides)
-        fused_counter.bump()
-    return outs
+    generated Triton kernel.  A caller that runs one chain repeatedly
+    keeps its :class:`ChainKernel` (``make_fused_elementwise``)."""
+    return ChainKernel(chain)(*xs)
 
 
-def make_fused_elementwise(chain: FusedChain) -> Callable:
-    """Dispatch-cache ``wrap`` hook: the forward of a flushed chain."""
-    def run(*xs):
-        return fused_elementwise(chain, *xs)
-    return run
+def make_fused_elementwise(chain: FusedChain) -> "ChainKernel":
+    """Dispatch-cache ``wrap`` hook: the forward of a flushed chain, kept
+    with the cache entry, so a repeated flush reuses its plans."""
+    return ChainKernel(chain)
 
 
 def merge_chains(chains: Sequence[Tuple[FusedChain, Sequence[torch.Tensor]]]
