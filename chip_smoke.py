@@ -82,7 +82,10 @@ Output, one line each:
     resources and for "mma" the work list, which the device pre-pass
     must build as the plain one does); the Mamba scan
     (jamba prefill, decode from a state, a ragged fp32 row with a state,
-    B and C as strided column views); the fused-elementwise kernel
+    B and C as strided column views; each with its kernel's registers,
+    spill bytes, threads, shared memory, blocks per SM, channels a block,
+    lanes a channel, the waves its grid runs in and the exponential its
+    dtype uses); the fused-elementwise kernel
     (ResNet-50's add+relu and relu at their batch-64 shapes, fp32 and
     bf16, a long chain with a 0-d and a broadcast operand, and every op
     of the fusion queue in each dtype it takes, merged into a few
@@ -118,8 +121,9 @@ Output, one line each:
     decode rows, main kernel and combine; ``mixed_attention_profile``:
     mixed row (a), pre-pass, main kernel and combine;
     ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
-    ``fused_elementwise_profile``: the fused rows' device us a launch),
-    last,
+    ``mamba_scan_profile``: the Mamba rows' device us a launch, device
+    launches a call and waves; ``fused_elementwise_profile``: the fused
+    rows' device us a launch), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
@@ -127,8 +131,9 @@ Output, one line each:
     add their variant, and those and the WKV6 entry the device launches
     and device us of one call of the reported row, as
     ``paged_attention_profile``, ``decode_attention_profile``,
-    ``mixed_attention_profile``, ``rwkv6_scan_profile`` and
-    ``fused_elementwise_profile`` counted them; bf16 serving for paged
+    ``mixed_attention_profile``, ``rwkv6_scan_profile``,
+    ``mamba_scan_profile`` and ``fused_elementwise_profile`` counted
+    them; bf16 serving for paged
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
@@ -911,6 +916,27 @@ def profile_fused(torch, dev) -> dict:
     return result
 
 
+def profile_mamba(torch, dev) -> dict:
+    """The MAMBA_ROWS under ``profile_kernels``: the device us a launch of
+    the Mamba kernel (one device launch a call) and the waves its grid
+    runs in.  Run with the profiled runs, last.  Returns the prefill
+    line."""
+    from repro_torch.kernels import mamba as MB
+
+    result = None
+    for label, dt, b, s, di, n, state, strided in MAMBA_ROWS:
+        args = mamba_inputs(torch, dev, dt, b, s, di, n, state, strided)
+        attrs = MB.mamba_kernel_attributes(args[0].dtype, n)
+        row = {"phase": "mamba_scan_profile", "row": label, "dtype": dt,
+               "waves": MB.waves(attrs, b, di),
+               **profile_kernels(torch, lambda: MB.mamba_scan_fwd(*args),
+                                 MB.counter, "mamba_scan", 1)}
+        emit(row)
+        result = result or row
+        del args
+    return result
+
+
 def mamba_inputs(torch, dev, dt, b, s, di, n, state, strided):
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -935,7 +961,9 @@ def mamba_inputs(torch, dev, dt, b, s, di, n, state, strided):
 
 def phase_mamba(torch, dev) -> dict:
     """The Mamba scan kernel against its plain version; the first row is
-    the jamba_prefill shape (the table's row).  No single PyTorch call
+    the jamba_prefill shape (the table's row).  Each row carries its
+    kernel's resources (``mamba_kernel_attributes``), the waves its grid
+    runs in and the exponential its dtype uses.  No single PyTorch call
     computes the selective scan, so there is no library time."""
     from repro_torch.kernels import mamba as MB
 
@@ -945,9 +973,12 @@ def phase_mamba(torch, dev) -> dict:
         y, h = MB.mamba_scan_fwd(*args)
         torch.cuda.synchronize()
         ref_y, ref_h = MB.mamba_scan_plain(*args)
+        attrs = MB.mamba_kernel_attributes(args[0].dtype, n)
         row = {"phase": "kernel", "name": "mamba_scan", "row": label,
                "dtype": dt, "B": b, "S": s, "Di": di, "N": n, "h0": state,
-               "strided_bc": strided}
+               "strided_bc": strided, **attrs,
+               "waves": MB.waves(attrs, b, di),
+               "exp": MB.EXP[args[0].dtype]}
         row.update(check_row(torch, f"mamba_scan[{label}]", y, ref_y,
                              kernel_tol(dt, s)))
         st_err = (h - ref_h).abs().max().item()
@@ -2845,6 +2876,7 @@ def run_phases(torch, dev) -> list:
     decode_profile = profile_decode(torch, dev)
     mixed_profile = profile_mixed(torch, dev)
     rwkv6_profile = profile_rwkv6(torch, dev)
+    mamba_profile = profile_mamba(torch, dev)
     fused_profile = profile_fused(torch, dev)
 
     table = []
@@ -2884,6 +2916,7 @@ def run_phases(torch, dev) -> list:
                     "decode_attention": decode_profile,
                     "mixed_attention": mixed_profile,
                     "rwkv6_scan": rwkv6_profile,
+                    "mamba_scan": mamba_profile,
                     "fused_elementwise": fused_profile}.get(name)
         if profiled is not None:
             # as the profiler counted and timed them (the fused kernel

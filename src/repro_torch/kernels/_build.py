@@ -18,7 +18,8 @@ rather than their sum.
 Every kernel wrapper owns a :class:`LaunchCounter`; ``launch_counts()``
 and ``reset_launch_counts()`` read and zero all of them, which is how a
 run shows that it went through the kernels.  The attention wrappers also
-share :data:`HEAD_DIMS`, :data:`Q_CODES` and :func:`check_operands`.
+share :data:`HEAD_DIMS`, :data:`Q_CODES` and :func:`check_operands`, and
+the WKV6 and Mamba wrappers :func:`dense_aligned`.
 """
 
 from __future__ import annotations
@@ -64,6 +65,14 @@ def check_operands(who: str, ref: torch.Tensor, tensors) -> None:
             raise ValueError(f"{who}: all operands must be on one device")
         if not x.is_contiguous():
             raise ValueError(f"{who}: operands must be contiguous")
+
+
+def dense_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous in new 16-byte aligned memory if it is not so
+    already (``contiguous`` keeps a contiguous view's offset): for the
+    kernels that copy rows in 16-byte pieces."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 class LaunchCounter:

@@ -8,20 +8,26 @@ mamba_scan``), with an optional initial state and the final state
 returned.  The kernel is hand-written CUDA C++ for ``sm_90a`` in
 ``csrc/mamba.cu``.
 
-Source note.  On the H100 the scan is bound by bytes: x and dt in and y
-out, against 7 fp32 operations a state element a step (0.120 ms of bytes
-against 0.112 ms of operations at the jamba-1.5-large prefill row, B=4,
-S=1024, Di=16384, N=16, bf16); its one exp a state element a step puts a
-further floor of about 0.26 ms on the SFUs.  The first kernel is simple:
-one thread per (batch, channel) holding the channel's N state values and
-its row of A in registers for the whole sweep, x and dt prefetched a
-chunk ahead, each chunk's B and C rows staged in shared memory.
-TPU-isms of the Pallas kernel that were dropped:
+Source note.  On the H100 the scan's bytes (x and dt in, y out: 0.120 ms
+at the jamba-1.5-large prefill row, B=4, S=1024, Di=16384, N=16, bf16)
+and its 7 fp32 operations a state element a step (0.112 ms) are not what
+sets its pace, nor quite its one exponential a state element a step
+(0.26 ms on the SFUs): the issue of each step's instructions is.  So the
+kernel spends as few instructions as it can on each state element: one
+thread a channel holds its N states and A row in registers (no shuffles;
+each B and C value loaded once for N states), the exponential of bf16
+rows is ``ex2.approx`` of ``dt * A * log2 e`` (one FMUL, one MUFU; fp32
+rows keep an exact ``expf``), and a chunk of steps' x, dt, B and C is
+staged by ``cp.async`` into shared memory a chunk ahead and converted
+once to fp32; y leaves through a shared tile as 16-byte stores.  A
+single step (S = 1, every decode step) takes its own path in the same
+kernel: operands straight from global memory, no barrier.  TPU-isms of
+the Pallas kernel that were dropped:
 
   * the transposed (N, Di_blk) state, N on sublanes and channels on the
     128 lanes, with ``block_di=512``: a thread owns a channel;
   * the sequential chunk grid (``chunk=64``) carrying the state in VMEM
-    scratch, which also had no tail guard (ROADMAP.md B7): one block
+    scratch, which also had no tail guard (ROADMAP.md B6): one block
     sweeps exactly S steps and never touches t >= S;
   * ``A.T`` and ``D`` relaid out by the wrapper: the kernel reads the
     (Di, N) and (Di,) fp32 arrays as they are;
@@ -30,7 +36,11 @@ TPU-isms of the Pallas kernel that were dropped:
     ran a jnp recurrence, ``layers.py:517-524``).
 
 B and C are read through their strides, so the layer's column slices of
-its (B, S, R + 2N) projection are not copied.
+its (B, S, R + 2N) projection are not copied.  For S > 1 the kernel
+copies rows in 16-byte pieces: an operand whose base pointer or rows are
+not 16-byte aligned, or whose rows (x, dt) are not whole pieces, is
+copied first (into rows padded to whole pieces), as the WKV6 wrapper
+does.
 
 :func:`mamba_scan_fwd` launches the kernel for CUDA tensors and raises
 when it cannot; it takes :func:`mamba_scan_plain` only for tensors on the
@@ -44,9 +54,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import Q_CODES, LaunchCounter, check_operands, load_library
+from ._build import (Q_CODES, LaunchCounter, check_operands, dense_aligned,
+                     load_library)
 
 STATE_SIZES = (8, 16)     # d_state values the kernel instantiates
+# the exponential each dtype's kernel evaluates (csrc/mamba.cu)
+EXP = {torch.bfloat16: "ex2.approx.ftz", torch.float32: "expf"}
 
 counter = LaunchCounter("mamba_scan")
 
@@ -61,7 +74,38 @@ def _lib() -> ctypes.CDLL:
                        + strides + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.repro_mamba_attrs.argtypes = ([ctypes.c_int] * 2
+                                          + [ctypes.POINTER(ctypes.c_int)])
+        lib.repro_mamba_attrs.restype = ctypes.c_int
     return lib
+
+
+ATTRIBUTES = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm",
+              "threads", "chunk_steps", "sms")
+
+
+def mamba_kernel_attributes(dtype: torch.dtype, n: int) -> dict:
+    """The resources of the kernel that :func:`mamba_scan_fwd` launches
+    for this dtype and state size on the current card: registers and
+    local (spill) bytes a thread, dynamic shared bytes a block (the
+    kernel has no static shared memory), blocks an SM holds, threads (one
+    a channel) a block, the steps a staged chunk holds, and the card's
+    SMs."""
+    if dtype not in Q_CODES or n not in STATE_SIZES:
+        raise ValueError(f"mamba_kernel_attributes: no kernel for {dtype}, "
+                         f"state size {n}")
+    vals = (ctypes.c_int * len(ATTRIBUTES))()
+    err = _lib().repro_mamba_attrs(Q_CODES[dtype], n, vals)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan attributes failed (code {err})")
+    return dict(zip(ATTRIBUTES, vals))
+
+
+def waves(attrs: dict, b: int, di: int) -> float:
+    """The waves of blocks a (B, *, Di) call runs in: its grid of
+    ceil(Di / threads) x B blocks over what the card holds at once."""
+    blocks = -(-di // attrs["threads"]) * b
+    return blocks / (attrs["blocks_per_sm"] * attrs["sms"])
 
 
 def mamba_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -91,6 +135,28 @@ def mamba_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, c32[:, t]))
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(x32)
     return (y + D.float() * x32).to(x.dtype), h
+
+
+def _aligned(t: torch.Tensor, row: int) -> bool:
+    """A (B, S, *) operand with a unit last stride whose base pointer and
+    (b, t) strides are multiples of 16 bytes, and whose rows of ``row``
+    elements are whole 16-byte pieces: the kernel stages it in 16-byte
+    pieces."""
+    item = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and row * item % 16 == 0
+            and all(st * item % 16 == 0 for st in t.stride()[:2]))
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """A (B, S, Di) operand copied into new (B, S, Di') memory whose rows
+    are padded with zeros to whole 16-byte pieces; returned as the (B, S,
+    Di) view of it."""
+    b, s, di = t.shape
+    piece = 16 // t.element_size()
+    out = t.new_zeros((b, s, -(-di // piece) * piece))[..., :di]
+    out.copy_(t)
+    return out
 
 
 def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -135,9 +201,13 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"mamba_scan_fwd: A must be ({di}, {n}) and D "
                          f"({di},) float32, got {tuple(A.shape)} {A.dtype}"
                          f", {tuple(D.shape)} {D.dtype}")
-    if x.stride(-1) != 1 or dt.stride() != x.stride():
-        x, dt = x.contiguous(), dt.contiguous()
-    B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (B, C))
+    if x.stride(-1) != 1 or dt.stride() != x.stride() or (
+            s > 1 and not (_aligned(x, di) and _aligned(dt, di))):
+        x, dt = _padded(x), _padded(dt)
+    if s > 1:
+        B, C = (t if _aligned(t, n) else dense_aligned(t) for t in (B, C))
+    else:
+        B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (B, C))
     tensors = [A, D]
     if h0 is not None:
         if h0.dtype != torch.float32 or tuple(h0.shape) != (b, di, n):
@@ -145,6 +215,9 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                              f" float32, got {tuple(h0.shape)} {h0.dtype}")
         tensors.append(h0)
     check_operands("mamba_scan_fwd", x, tensors)
+    A = dense_aligned(A)
+    if h0 is not None:
+        h0 = dense_aligned(h0)
     y = torch.empty((b, s, di), dtype=x.dtype, device=x.device)
     h = torch.empty((b, di, n), dtype=torch.float32, device=x.device)
     if b * di == 0:

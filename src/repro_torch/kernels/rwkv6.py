@@ -58,7 +58,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import Q_CODES, LaunchCounter, check_operands, load_library
+from ._build import (Q_CODES, LaunchCounter, check_operands, dense_aligned,
+                     load_library)
 
 HEAD_SIZES = (32, 64, 128)     # head sizes the kernel instantiates
 
@@ -132,13 +133,6 @@ def _aligned(x: torch.Tensor) -> bool:
         st * x.element_size() % 16 == 0 for st in x.stride()[:3])
 
 
-def _dense(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous in new 16-byte aligned memory if it is not so
-    already (``contiguous`` keeps a contiguous view's offset)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor,
                    state0: Optional[torch.Tensor] = None
@@ -181,7 +175,7 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {tuple(u.shape)} {u.dtype}")
     if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in (k, v, w)) \
             or not all(_aligned(x) for x in (r, k, v, w)):
-        r, k, v, w = (_dense(x) for x in (r, k, v, w))
+        r, k, v, w = (dense_aligned(x) for x in (r, k, v, w))
     tensors = [u]
     if state0 is not None:
         if state0.dtype != torch.float32 or \
@@ -192,7 +186,7 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tensors.append(state0)
     check_operands("rwkv6_scan_fwd", r, tensors)
     if state0 is not None:
-        state0 = _dense(state0)
+        state0 = dense_aligned(state0)
     out = torch.empty((b, s, h, d), dtype=r.dtype,
                       device=r.device).transpose(1, 2)
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)

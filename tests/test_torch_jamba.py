@@ -509,9 +509,81 @@ def test_scan_wrapper_refuses_other_devices():
                           torch.zeros(32))
 
 
+def test_kernel_attributes_refuse_unknown_dtype_or_state_size():
+    """Refused before any library is built, so the CPU says so too."""
+    with pytest.raises(ValueError, match="no kernel"):
+        MB.mamba_kernel_attributes(torch.float16, 16)
+    with pytest.raises(ValueError, match="no kernel"):
+        MB.mamba_kernel_attributes(torch.float32, 12)
+
+
+def test_waves_of_the_prefill_grid():
+    """ceil(Di / 128) x B blocks over blocks an SM x SMs: the jamba
+    prefill row's 512 blocks are 0.97 of a wave of 4 blocks on 132
+    SMs."""
+    attrs = {"threads": 128, "blocks_per_sm": 4, "sms": 132}
+    assert MB.waves(attrs, 4, 16384) == 512 / 528
+    assert MB.waves(attrs, 2, 300) == 6 / 528
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_copy_keeps_values_and_aligns_rows(dtype):
+    """An operand whose base pointer and rows are not 16-byte aligned is
+    copied into rows padded to whole 16-byte pieces; its values stay."""
+    base = torch.arange(2 * 5 * 301, dtype=torch.float32).to(dtype)
+    x = base.view(2, 5, 301)[..., 1:]             # (2, 5, 300), offset 1
+    assert not MB._aligned(x, 300)
+    p = MB._padded(x)
+    assert p.shape == x.shape and torch.equal(p, x)
+    piece = 16 // p.element_size()
+    assert p.stride(1) == -(-300 // piece) * piece
+    assert MB._aligned(p, -(-300 // piece) * piece)
+    assert MB._aligned(MB.dense_aligned(x[..., :16]), 16)
+
+
 # ----------------------------------------------------------------------
 # on the card
 # ----------------------------------------------------------------------
+
+def card_scan_args(dev, dt_, shape, state, seed=20, bc_offset=5,
+                   x_offset=0):
+    """Inputs of ``scan_inputs`` on the card: B and C column views of one
+    (B, S, bc_offset + 2N) projection, as the layer passes them (a
+    misaligned base pointer at bc_offset 5), x and dt views at element
+    ``x_offset`` of wider rows."""
+    b, s, di, n = shape
+    x, dt, bm, cm, a, d, h0 = scan_inputs(seed, shape, state=state)
+    proj = torch.from_numpy(np.concatenate(
+        [np.zeros((b, s, bc_offset), np.float32), bm, cm], -1)).to(dev, dt_)
+
+    def wide(v):
+        buf = torch.zeros((b, s, di + x_offset), device=dev, dtype=dt_)
+        buf[..., x_offset:] = to_torch(v).to(dev, dt_)
+        return buf[..., x_offset:]
+    return [wide(x), wide(dt), proj[..., bc_offset:bc_offset + n],
+            proj[..., bc_offset + n:], to_torch(a).to(dev),
+            to_torch(d).to(dev),
+            None if h0 is None else to_torch(h0).to(dev)]
+
+
+def assert_scan_close(args, dtype):
+    """One launch; y at the kernel tier (fp32 1e-5, bf16 1e-2 + 1e-2
+    |ref|), the final state fp32 within 1e-5."""
+    before = MB.counter.launches
+    y, h = MB.mamba_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert MB.counter.launches == before + 1
+    ref_y, ref_h = MB.mamba_scan_plain(*args)
+    assert y.dtype == args[0].dtype and h.dtype == torch.float32
+    assert y.is_contiguous() and y.shape == args[0].shape
+    if dtype == "float32":
+        torch.testing.assert_close(y, ref_y, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(y.float(), ref_y.float(), rtol=1e-2,
+                                   atol=1e-2)
+    torch.testing.assert_close(h, ref_h, rtol=0, atol=1e-5)
+    return y, h
+
 
 @requires_cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -520,30 +592,79 @@ def test_scan_wrapper_refuses_other_devices():
 def test_cuda_mamba_kernel_matches_plain(cuda_device, n, state, dtype):
     """The kernel against its plain version on the card, (B, S, Di) =
     (2, 200, 300): S not a multiple of the kernel's 16-step chunk, Di not
-    a multiple of its 128-channel block, B and C column views of one
-    (B, S, R + 2N) projection as the layer passes them.  fp32 within 1e-5
-    (the kernel tier); bf16 elementwise within 1e-2 + 1e-2 |ref| (both
-    round the same fp32 sum once); the final state fp32 within 1e-5."""
-    x, dt, bm, cm, a, d, h0 = scan_inputs(20, (2, 200, 300, n), state=state)
-    dev, dt_ = cuda_device, getattr(torch, dtype)
-    proj = torch.from_numpy(np.concatenate(
-        [np.zeros((2, 200, 5), np.float32), bm, cm], -1)).to(dev, dt_)
-    args = [to_torch(x).to(dev, dt_), to_torch(dt).to(dev, dt_),
-            proj[..., 5:5 + n], proj[..., 5 + n:], to_torch(a).to(dev),
-            to_torch(d).to(dev),
-            None if h0 is None else to_torch(h0).to(dev)]
-    before = MB.counter.launches
-    y, h = MB.mamba_scan_fwd(*args)
+    a multiple of its 128-channel block (and, in bf16, rows that are not
+    whole 16-byte pieces: copied into padded rows), B and C column views
+    of one (B, S, R + 2N) projection at a misaligned base pointer, as the
+    layer passes them (copied).  fp32 within 1e-5 (the kernel tier); bf16
+    elementwise within 1e-2 + 1e-2 |ref| (both round the same fp32 sum
+    once); the final state fp32 within 1e-5."""
+    assert_scan_close(card_scan_args(cuda_device, getattr(torch, dtype),
+                                     (2, 200, 300, n), state), dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("n", [8, 16])
+def test_cuda_mamba_single_step_matches_plain(cuda_device, n, state, dtype):
+    """S = 1, the kernel's single-step path (every decode step): B = 8,
+    Di = 300, B and C column views of one projection, at the tiers
+    above."""
+    assert_scan_close(card_scan_args(cuda_device, getattr(torch, dtype),
+                                     (8, 1, 300, n), state), dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("s", [2, 15, 16, 17, 47])
+def test_cuda_mamba_chunk_edges_match_plain(cuda_device, s):
+    """S around the 16-step chunk (one short of it, equal, one over, one
+    short of three), bf16, N = 16, from a state."""
+    assert_scan_close(card_scan_args(cuda_device, torch.bfloat16,
+                                     (2, s, 128, 16), True), "bfloat16")
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_misaligned_operands_match_plain(cuda_device, dtype):
+    """x and dt one element into wider rows (a misaligned base pointer:
+    copied into aligned rows), B and C aligned strided views of one
+    projection (read in place, R = 512 as the layer's), and the same
+    at S = 1."""
+    dt_ = getattr(torch, dtype)
+    for s in (70, 1):
+        args = card_scan_args(cuda_device, dt_, (2, s, 256, 16), True,
+                              bc_offset=512, x_offset=1)
+        assert args[0].data_ptr() % 16 != 0
+        assert args[2].data_ptr() % 16 == 0 and not args[2].is_contiguous()
+        assert_scan_close(args, dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [8, 16])
+def test_cuda_mamba_kernel_attributes(cuda_device, dtype, n):
+    """No spill, at most 128 registers, and at least 4 blocks of 128
+    threads an SM (16 warps: the prefill row's 512 blocks in one
+    wave)."""
+    attrs = MB.mamba_kernel_attributes(dtype, n)
+    assert attrs["spill_bytes"] == 0
+    assert attrs["registers"] <= 128
+    assert attrs["blocks_per_sm"] >= 4
+    assert attrs["threads"] == 128
+    assert attrs["chunk_steps"] == 16
+
+
+@requires_cuda
+@pytest.mark.parametrize("s", [1, 200])
+def test_cuda_mamba_kernel_gives_equal_bits_twice(cuda_device, s):
+    """Two runs on the same inputs give the same bits (no atomics, a
+    fixed reduction order)."""
+    args = card_scan_args(cuda_device, torch.bfloat16, (2, s, 300, 16),
+                          True)
+    y1, h1 = MB.mamba_scan_fwd(*args)
+    y2, h2 = MB.mamba_scan_fwd(*args)
     torch.cuda.synchronize()
-    assert MB.counter.launches == before + 1
-    ref_y, ref_h = MB.mamba_scan_plain(*args)
-    assert y.dtype == dt_ and h.dtype == torch.float32
-    if dtype == "float32":
-        torch.testing.assert_close(y, ref_y, rtol=0, atol=1e-5)
-    else:
-        torch.testing.assert_close(y.float(), ref_y.float(), rtol=1e-2,
-                                   atol=1e-2)
-    torch.testing.assert_close(h, ref_h, rtol=0, atol=1e-5)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 @requires_cuda

@@ -156,20 +156,20 @@ def test_scan_plain_matches_jax_oracle_at_model_decays():
 
 
 def test_scan_wrapper_copies_misaligned_operands_densely():
-    """``_dense`` gives a contiguous, 16-byte aligned tensor equal to its
-    input: a new one for a view at an odd offset (``contiguous`` keeps
-    that offset) or with other strides, the input itself when it already
-    is one; ``_aligned`` tells them apart."""
+    """``dense_aligned`` gives a contiguous, 16-byte aligned tensor equal
+    to its input: a new one for a view at an odd offset (``contiguous``
+    keeps that offset) or with other strides, the input itself when it
+    already is one; ``_aligned`` tells them apart."""
     base = torch.arange(2 * 3 * 5 * 64 + 1, dtype=torch.float32)
     odd = base[1:].view(2, 3, 5, 64)
     assert odd.is_contiguous() and not RW._aligned(odd)
-    fixed = RW._dense(odd)
+    fixed = RW.dense_aligned(odd)
     assert fixed.data_ptr() % 16 == 0 and RW._aligned(fixed)
     assert torch.equal(fixed, odd)
     view = head_views(np.zeros((2, 3, 5, 64), np.float32))
     assert RW._aligned(view) and not view.is_contiguous()
-    assert RW._dense(view).is_contiguous()
-    dense = RW._dense(fixed)
+    assert RW.dense_aligned(view).is_contiguous()
+    dense = RW.dense_aligned(fixed)
     assert dense is fixed
     wide = torch.zeros((2, 5, 3 * 64 + 1))[..., :3 * 64]
     wide = wide.unflatten(-1, (3, 64)).transpose(1, 2)

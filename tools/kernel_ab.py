@@ -33,6 +33,18 @@ call's ms, the device us a call), then ``rwkv_prefill`` and
 ``rwkv_decode`` on rwkv6-1.6b and their profiles (tokens/s, ms a step,
 busy and wall ms, idle share, WKV6 device ms).
 
+``mamba``: the Mamba scan on every ``MAMBA_ROWS`` row (its max abs error
+against the plain version within ``kernel_tol``, the final state's, a
+single call's ms, the device us a launch), then ``jamba_prefill`` and
+``jamba_decode`` on jamba-1.5-large's first 5 layers and their profiles
+(Mamba device ms), and ``jamba_parity``.
+
+``fused``: the fused-elementwise kernel on every ``FUSED_ROWS`` row (its
+max abs error within ``FUSED_TOL``, the device ms of 20 calls queued, a
+single call's ms, the host us a call, the device us a launch by the
+profiler, and the relu row's turns against ``torch.relu``), then
+``eager_train`` (ResNet-50) and its profile (fused device ms a step).
+
 It prints each turn's JSON line, then a summary with each number of the
 four turns side by side.  Needs one CUDA card and the CUDA toolkit.
 """
@@ -67,8 +79,9 @@ def measure(tree: str, kernels: str) -> dict:
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
-    rows = (measure_attention if kernels == "attention"
-            else measure_wkv6)(torch, cs)
+    rows = {"attention": measure_attention, "wkv6": measure_wkv6,
+            "mamba": measure_mamba, "fused": measure_fused}[kernels](
+                torch, cs)
     return {"tree": tree, "card": cs.smi_line(), **rows}
 
 
@@ -163,16 +176,93 @@ def measure_wkv6(torch, cs, dev: str = "cuda") -> dict:
         rows[label]["sessions"] = len(prof["sessions"])
     prefill_profile(params)
     decode_profile(params)
+    return {"wkv6": rows, "model": model_lines(lines, "rwkv6_scan")}
+
+
+def model_lines(lines: list, group: str) -> dict:
+    """The model phases' numbers from their captured lines, with the
+    device ms of kernel ``group`` where a profile line has it."""
     model = {}
     for line in lines:
-        wkv6 = line.get("device_ms_by_group", {}).get("rwkv6_scan")
+        if "phase" not in line:
+            continue
+        ms = line.get("device_ms_by_group", {}).get(group)
         model[line["phase"]] = {
             k: line[k] for k in ("tokens_per_s", "decode_tokens_per_s",
                                  "wall_ms", "ms_per_step", "device_busy_ms",
-                                 "device_idle_share") if k in line}
-        if wkv6 is not None:
-            model[line["phase"]]["wkv6_ms"] = wkv6
-    return {"wkv6": rows, "model": model}
+                                 "device_idle_share", "images_per_s",
+                                 "err_over_rms", "launches") if k in line}
+        if ms is not None:
+            model[line["phase"]][f"{group}_ms"] = ms
+    return model
+
+
+def measure_mamba(torch, cs, dev: str = "cuda") -> dict:
+    from repro_torch.kernels import mamba as MB
+    from repro_torch.models.lm import BlockSpec
+    rows, kerns = {}, {}
+    for label, dt, b, s, di, n, state, strided in cs.MAMBA_ROWS:
+        args = cs.mamba_inputs(torch, dev, dt, b, s, di, n, state, strided)
+        y, h = MB.mamba_scan_fwd(*args)
+        ref_y, ref_h = MB.mamba_scan_plain(*args)
+        kerns[label] = lambda args=args: MB.mamba_scan_fwd(*args)
+        rows[label] = {
+            **cs.check_row(torch, f"mamba_scan[{label}]", y, ref_y,
+                           cs.kernel_tol(dt, s)),
+            "state_max_abs_err": (h - ref_h).abs().max().item(),
+            "ms": cs.time_ms(torch, kerns[label])}
+    lines = []
+    cs.emit = lines.append
+    cfg, params = cs.jamba_model(torch, dev, torch.bfloat16, cs.JAMBA_LAYERS)
+    _, prefill_profile = cs.phase_prefill(torch, dev, cfg, params,
+                                          "jamba_prefill", 41)
+    _, decode_profile = cs.phase_decode_steps(torch, dev, cfg, params,
+                                              "jamba_decode", 42)
+    # the profiler sessions last: they slow the host for timed runs after
+    for label, kern in kerns.items():
+        prof = cs.profile_kernels(torch, kern, MB.counter, "mamba_scan", 1)
+        rows[label]["device_us"] = prof["device_us_per_call"]
+        rows[label]["sessions"] = len(prof["sessions"])
+    del kerns
+    prefill_profile(params)
+    decode_profile(params)
+    del params
+    cs.free(torch)
+    cfg32, params32 = cs.jamba_model(
+        torch, dev, torch.float32, len(cs.JAMBA_PARITY_PATTERN),
+        capacity_factor=cfg.n_experts / cfg.top_k,
+        pattern=tuple(BlockSpec(*b) for b in cs.JAMBA_PARITY_PATTERN))
+    cs.phase_parity(torch, dev, cfg32, params32, "jamba_parity", 43)
+    return {"mamba": rows, "model": model_lines(lines, "mamba_scan")}
+
+
+def measure_fused(torch, cs, dev: str = "cuda") -> dict:
+    from repro_torch.kernels import fused_elementwise as FE
+    rows = {}
+    for label, dtype, _, chain, ext in cs.fused_rows(torch, dev):
+        run = FE.make_fused_elementwise(chain)
+
+        def kern(run=run, ext=ext):
+            return run(*ext)
+        err = cs.fused_check(torch, label, kern(),
+                             FE.fused_elementwise_plain(chain, *ext))
+        rows[label] = {"max_abs_err": err,
+                       "ms": cs.time_ms_stream(torch, kern),
+                       "single_call_ms": cs.time_ms(torch, kern),
+                       "host_us": cs.host_us(torch, kern)}
+        if label == "relu":
+            rows[label]["turns_vs_library"] = cs.relu_turns(
+                torch, kern, lambda x=ext[0]: torch.relu(x))
+        prof = cs.profile_kernels(torch, kern, FE.fused_counter,
+                                  "fused_elementwise", None)
+        rows[label]["device_us_per_launch"] = prof["device_us_per_launch"]
+        del ext
+    cs.free(torch)
+    lines = []
+    cs.emit = lines.append
+    _, profiled = cs.phase_eager_train(torch, dev)
+    profiled()
+    return {"fused": rows, "model": model_lines(lines, "fused_elementwise")}
 
 
 def sass(library: str) -> dict:
@@ -197,7 +287,8 @@ def sass(library: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="the other checkout")
-    ap.add_argument("--kernels", choices=("attention", "wkv6"),
+    ap.add_argument("--kernels", choices=("attention", "wkv6", "mamba",
+                                          "fused"),
                     default="attention", help="the rows a turn measures")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="also write the turns and the summary "
@@ -223,7 +314,7 @@ def main() -> int:
         print(json.dumps(line), flush=True)
         turns.append(line)
     summary = (attention_summary if args.kernels == "attention"
-               else wkv6_summary)(turns)
+               else rows_summary)(turns)
     summary["turns"] = [t["turn"] for t in turns]
     print(json.dumps(summary), flush=True)
     if args.out:
@@ -266,11 +357,14 @@ def attention_summary(turns) -> dict:
             for label in turns[0]["mixed"]}}
 
 
-def wkv6_summary(turns) -> dict:
+def rows_summary(turns) -> dict:
+    """Each number of the kernel rows and the model phases, turn by
+    turn."""
+    kind = next(k for k in turns[0] if k not in ("tree", "card", "model"))
     return {
-        "wkv6": {label: {field: side_by_side(turns, "wkv6", label, field)
-                         for field in ("device_us", "ms", "max_abs_err")}
-                 for label in turns[0]["wkv6"]},
+        kind: {label: {field: side_by_side(turns, kind, label, field)
+                       for field in fields}
+               for label, fields in turns[0][kind].items()},
         "model": {phase: {field: side_by_side(turns, "model", phase, field)
                           for field in fields}
                   for phase, fields in turns[0]["model"].items()}}
