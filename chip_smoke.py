@@ -1811,19 +1811,24 @@ def fused_bytes_of_step(torch, model, opt, x, y) -> int:
     kernel wrapper)."""
     from repro_torch.kernels import fused_elementwise as FE
 
+    # the launcher a dispatch-cache entry keeps: ChainKernel's call (a
+    # parent checkout measured by tools/kernel_ab.py has none; its
+    # entries call fused_elementwise)
+    owner, name = ((FE.ChainKernel, "__call__") if hasattr(FE, "ChainKernel")
+                   else (FE, "fused_elementwise"))
     total = [0]
-    launch = FE.fused_elementwise
+    launch = getattr(owner, name)
 
-    def tally(chain, *xs):
-        outs = launch(chain, *xs)
+    def tally(first, *xs):
+        outs = launch(first, *xs)
         total[0] += sum(t.numel() * t.element_size() for t in (*xs, *outs))
         return outs
 
-    FE.fused_elementwise = tally
+    setattr(owner, name, tally)
     try:
         train_step(model, opt, x, y)
     finally:
-        FE.fused_elementwise = launch
+        setattr(owner, name, launch)
     torch.cuda.synchronize()
     return total[0]
 

@@ -186,7 +186,10 @@ def model_lines(lines: list, group: str) -> dict:
     for line in lines:
         if "phase" not in line:
             continue
-        ms = line.get("device_ms_by_group", {}).get(group)
+        # the eager profile files the Triton kernel, which no host op
+        # launches in the profiler's view, under "unlinked:<group>"
+        groups = line.get("device_ms_by_group", {})
+        ms = groups.get(group, groups.get(f"unlinked:{group}"))
         model[line["phase"]] = {
             k: line[k] for k in ("tokens_per_s", "decode_tokens_per_s",
                                  "wall_ms", "ms_per_step", "device_busy_ms",
