@@ -123,7 +123,7 @@ Output, one line each:
     ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
     ``mamba_scan_profile``: the Mamba rows' device us a launch, device
     launches a call and waves; ``fused_elementwise_profile``: the fused
-    rows' device us a launch), last,
+    rows' device us a call), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
@@ -525,10 +525,7 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
     ``sessions`` beside the last one's, which is reported;
     ``first_session_agrees`` flags a first session that differed (the
     profiler dropped kernel records, or the C record is wrong).  Raises
-    when no session agrees with the C record.  With ``want`` None (a
-    kernel with no C record: the generated Triton kernels) one session
-    is kept as it came, and ``device_us_per_launch`` (the recorded
-    launches' mean) is the reading that dropped records do not bias."""
+    when no session agrees with the C record."""
     from torch.profiler import ProfilerActivity, profile, schedule
     sessions = []
     for _ in range(tries):
@@ -553,12 +550,12 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
                                                     "launches_per_call": 0.0})
                 k["device_us_per_call"] += ms * 1e3 / n
                 k["launches_per_call"] += c / n
-        launches = sum(k["launches_per_call"] for k in kernels.values())
-        us = sum(k["device_us_per_call"] for k in kernels.values())
-        sessions.append({"device_launches_per_call": launches,
-                         "device_us_per_call": us,
-                         "device_us_per_launch": us / max(launches, 1e-9)})
-        if want is None or abs(launches - want) < 1e-9:
+        sessions.append({
+            "device_launches_per_call": sum(
+                k["launches_per_call"] for k in kernels.values()),
+            "device_us_per_call": sum(
+                k["device_us_per_call"] for k in kernels.values())})
+        if abs(sessions[-1]["device_launches_per_call"] - want) < 1e-9:
             break
     else:
         raise AssertionError(
@@ -895,10 +892,9 @@ def profile_rwkv6(torch, dev) -> dict:
 
 def profile_fused(torch, dev) -> dict:
     """Rows (a)-(d) of the fused kernel under ``profile_kernels``: the
-    device us a launch, the recorded launches' mean (one launch a call;
-    the profiler drops some of the Triton kernel's records, so no count
-    is required).  Run with the profiled runs, last.  Returns the
-    add+relu line."""
+    device us a call and a launch (the wrapper launches its kernel once a
+    call).  Run with the profiled runs, last.  Returns the add+relu
+    line."""
     from repro_torch.kernels import fused_elementwise as FE
 
     result = None
@@ -907,8 +903,7 @@ def profile_fused(torch, dev) -> dict:
         row = {"phase": "fused_elementwise_profile", "row": label,
                "dtype": dtype,
                **profile_kernels(torch, lambda: kern(*ext),
-                                 FE.fused_counter, "fused_elementwise",
-                                 None)}
+                                 FE.fused_counter, "fused_elementwise", 1)}
         emit(row)
         result = result or row
         del ext
@@ -1807,29 +1802,37 @@ def phase_eager_train(torch, dev) -> tuple:
 def fused_bytes_of_step(torch, model, opt, x, y) -> int:
     """Bytes the fused kernel must move in one training step: each
     chain's inputs read once and its step outputs written once, summed
-    over the step's chains (one more step, run with a tally around the
-    kernel wrapper)."""
+    over the step's chains (one more step, after steps that built every
+    chain's module, run with a tally around each generated module's
+    ``launch``).  Raises unless every fused launch of the step was
+    tallied."""
     from repro_torch.kernels import fused_elementwise as FE
 
-    # the launcher a dispatch-cache entry keeps: ChainKernel's call (a
-    # parent checkout measured by tools/kernel_ab.py has none; its
-    # entries call fused_elementwise)
-    owner, name = ((FE.ChainKernel, "__call__") if hasattr(FE, "ChainKernel")
-                   else (FE, "fused_elementwise"))
-    total = [0]
-    launch = getattr(owner, name)
+    mods = list(FE._modules.values())
+    saved = [mod.launch for mod in mods]
+    total, tallied = [0], [0]
 
-    def tally(first, *xs):
-        outs = launch(first, *xs)
-        total[0] += sum(t.numel() * t.element_size() for t in (*xs, *outs))
-        return outs
+    def tally(launch):
+        def run(ins, outs, *args):
+            total[0] += sum(t.numel() * t.element_size()
+                            for t in (*ins, *outs))
+            tallied[0] += 1
+            return launch(ins, outs, *args)
+        return run
 
-    setattr(owner, name, tally)
+    for mod, launch in zip(mods, saved):
+        mod.launch = tally(launch)
+    before = FE.fused_counter.launches
     try:
         train_step(model, opt, x, y)
     finally:
-        setattr(owner, name, launch)
+        for mod, launch in zip(mods, saved):
+            mod.launch = launch
     torch.cuda.synchronize()
+    launched = FE.fused_counter.launches - before
+    if not launched or tallied[0] != launched:
+        raise AssertionError(f"fused_bytes_of_step: {tallied[0]} of "
+                             f"{launched} fused launches tallied")
     return total[0]
 
 
@@ -2924,13 +2927,10 @@ def run_phases(torch, dev) -> list:
                     "mamba_scan": mamba_profile,
                     "fused_elementwise": fused_profile}.get(name)
         if profiled is not None:
-            # as the profiler counted and timed them (the fused kernel
-            # by the recorded launches' mean: the profiler drops some of
-            # the Triton kernel's records)
+            # as the profiler counted and timed them
             entry["device_launches_per_call"] = profiled[
                 "device_launches_per_call"]
             entry["device_us_per_call"] = profiled["device_us_per_call"]
-            entry["device_us_per_launch"] = profiled["device_us_per_launch"]
             entry["profiler_sessions"] = profiled["sessions"]
         table.append(entry)
     return table

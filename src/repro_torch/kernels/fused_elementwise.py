@@ -17,30 +17,17 @@ Bound.  By bytes: each input is read once and each step output written
 once; an H100 moves 3.35 TB/s, and the chains of the eager runtime do a
 few operations per element.  So the kernel is one flat streaming pass
 with no reuse (the TPU kernel's ``(rows, 128)`` lane-major view, sublane
-rounding and padded tail do not carry over), and its design keeps enough
-bytes in flight on every SM while spending few instructions on each
-element:
-
-  * one tile of ``BLOCK`` elements a program, 8 warps, each thread
-    moving one 16-byte piece of each fp32 operand; whole tiles carry no
-    mask, and only the last program's ragged tail tile is masked (a
-    persistent grid that walked the tiles in turn, with or without
-    Triton's loop pipelining, ran 5% slower on an H100, PERF.md §6);
-  * 32-bit offsets whenever every offset fits an int32 (``index_bits``;
-    the width is part of the module's cache key), 64-bit ones above;
-  * a broadcast or strided operand is read through its strides over the
-    output's dims with the size-1 dims dropped and neighbouring dims
-    collapsed, and the generated index math computes only the dims some
-    operand reads (``Layout.reads``): a row bias over a matrix costs one
-    ``%`` an element, not three divisions and three remainders;
-  * the host's share of a call is kept small: a :class:`ChainKernel`
-    keeps a plan per operand signature (shapes, strides, dtypes,
-    devices), so a repeated call derives no broadcast shape, layout or
-    module again, and it enters a device scope only when the current
-    device is another.
-
-The constants were chosen by timing (``BLOCK``, warps) choices in
-alternating turns on an H100 (``tools/fused_sweep.py``; PERF.md §6).
+rounding and padded tail do not carry over): one tile of ``BLOCK``
+consecutive elements a program at ``NUM_WARPS`` warps, each thread
+moving one 16-byte piece of each fp32 operand, with 64-bit offsets and
+every access masked against ``n``.  On an H100 a persistent grid that
+walked the tiles in turn ran 5% slower, and 32-bit offsets with unmasked
+whole tiles moved the relu row's device time by 0.3% (PERF.md §6), so
+neither is kept.
+The host's share of a call is kept small instead: a :class:`ChainKernel`
+keeps a plan per operand signature (shapes, strides, dtypes, devices),
+so a repeated call derives no broadcast shape, layout or module again,
+and it enters a device scope only when the current device is another.
 
 Design.
   * Codegen.  :data:`EMITTERS` maps every name of the queue's
@@ -62,9 +49,8 @@ Design.
     ``inspect``, so source made with ``exec`` cannot be compiled: each
     generated module is written to ``build/repro_torch/fused/<hash>.py``
     and imported with ``importlib``, cached by the chain's descriptor,
-    its dtypes, the operand kinds, the dims they read and the offset
-    width, not by shape (``n``, the sizes and the strides are runtime
-    arguments).  Triton is imported only there.
+    its dtypes and the operand kinds, not by shape (``n``, the sizes and
+    the strides are runtime arguments).  Triton is imported only there.
   * Launches are counted by ``launch_counts()["fused_elementwise"]``.
 
 :func:`fused_elementwise_plain` beside it replays the chain's torch ops
@@ -310,25 +296,11 @@ def _step_expr(name, static, args, arg_dtypes, out_dtype) -> str:
 FLAT, SCALAR, STRIDED = "f", "s", "b"
 
 
-class Layout(NamedTuple):
-    """Each operand's kind (flat, scalar or strided); the output's dims
-    with the size-1 dims dropped and neighbours that every strided
-    operand walks as one collapsed (outermost first); and each strided
-    operand's strides over those dims (0 on broadcast dims)."""
-    kinds: Tuple[str, ...]
-    sizes: List[int]
-    strides: List[List[int]]
-
-    @property
-    def reads(self) -> Tuple[Tuple[bool, ...], ...]:
-        """Which of the dims each strided operand reads (a nonzero
-        stride): the generated index math computes only those."""
-        return tuple(tuple(st != 0 for st in sts) for sts in self.strides)
-
-
 def operand_layout(xs: Sequence[torch.Tensor], shape: Tuple[int, ...]
-                   ) -> Layout:
-    """The :class:`Layout` of operands ``xs`` broadcast to ``shape``."""
+                   ) -> Tuple[Tuple[str, ...], List[int], List[List[int]]]:
+    """Each operand's kind (flat, scalar or strided), and for the strided
+    ones the collapsed sizes (padded to ``MAX_DIMS``) and their strides
+    over the output shape (0 on broadcast dims)."""
     kinds, strided = [], []
     for x in xs:
         if x.numel() == 1:
@@ -339,7 +311,7 @@ def operand_layout(xs: Sequence[torch.Tensor], shape: Tuple[int, ...]
             kinds.append(STRIDED)
             strided.append(list(x.expand(shape).stride()))
     if not strided:
-        return Layout(tuple(kinds), [], [])
+        return tuple(kinds), [], []
     dims = [d for d in range(len(shape)) if shape[d] != 1]
     sizes: List[int] = []
     strides: List[List[int]] = [[] for _ in strided]
@@ -357,58 +329,16 @@ def operand_layout(xs: Sequence[torch.Tensor], shape: Tuple[int, ...]
         raise NotImplementedError(
             f"fused_elementwise: a broadcast over {len(sizes)} dims after "
             f"collapsing (at most {MAX_DIMS}); shape {tuple(shape)}")
-    return Layout(tuple(kinds), sizes, strides)
+    pad = MAX_DIMS - len(sizes)
+    return (tuple(kinds), [1] * pad + sizes,
+            [[0] * pad + st for st in strides])
 
 
-def index_bits(n: int, layout: Layout) -> int:
-    """32 when every offset the kernel forms fits an int32: the flat
-    offsets up to the end of the last (ragged) tile, and each strided
-    operand's furthest element; else 64."""
-    reach = max([n + BLOCK] + [sum((size - 1) * abs(st) for size, st in
-                                   zip(layout.sizes, sts)) + 1
-                               for sts in layout.strides])
-    return 32 if reach <= 2 ** 31 - 1 else 64
-
-
-def index_code(reads: Sequence[Sequence[bool]]
-               ) -> Tuple[List[str], List[str], List[str]]:
-    """The generated index math of strided operands that read the dims
-    ``reads`` marks (``Layout.reads``): the kernel's geometry parameters,
-    the lines that compute the index of each dim some operand reads from
-    the flat offset ``offs``, and each operand's element offset.  For dim
-    d of D, ``i{d} = (offs // P{d}) % S{d}``, with ``P{d}`` the product of
-    the sizes inside d: the innermost needs no division, the outermost no
-    remainder."""
-    ndim = len(reads[0]) if reads else 0
-    dims = [[d for d, on in enumerate(r) if on] for r in reads]
-    used = sorted(set(d for r in dims for d in r))
-    params, lines = [], []
-    for d in used:
-        params += [f"P{d}"] * (d < ndim - 1) + [f"S{d}"] * (d > 0)
-        q = "offs" if d == ndim - 1 else f"(offs // P{d})"
-        lines.append(f"i{d} = {q}" + (f" % S{d}" if d > 0 else ""))
-    offsets = []
-    for k, r in enumerate(dims):
-        params += [f"st{k}_{d}" for d in r]
-        offsets.append(" + ".join(f"i{d} * st{k}_{d}" for d in r))
-    return params, lines, offsets
-
-
-def geometry(layout: Layout) -> List[int]:
-    """The values of ``index_code``'s parameters for ``layout``, in their
-    order."""
-    sizes = layout.sizes
-    reads = [[d for d, on in enumerate(r) if on] for r in layout.reads]
-    used = sorted(set(d for r in reads for d in r))
-    out = []
-    for d in used:
-        if d < len(sizes) - 1:
-            out.append(math.prod(sizes[d + 1:]))
-        if d > 0:
-            out.append(sizes[d])
-    for sts, r in zip(layout.strides, reads):
-        out += [sts[d] for d in r]
-    return out
+# The index of each of the MAX_DIMS collapsed dims from the flat offset
+# ``offs``, over the sizes ``S1``-``S3`` (``S0`` is implied); a strided
+# operand ``k`` reads element ``sum(i{d} * st{k}_{d})``.
+INDEX_LINES = ("i3 = offs % S3", "r = offs // S3", "i2 = r % S2",
+               "r = r // S2", "i1 = r % S1", "i0 = r // S1")
 
 
 _HEADER = '''"""Generated by repro_torch.kernels.fused_elementwise; do not edit."""
@@ -450,66 +380,44 @@ def _ipow(a, b):
 
 
 def generate_source(chain: FusedChain, ext_dtypes: Sequence[torch.dtype],
-                    kinds: Sequence[str],
-                    reads: Sequence[Sequence[bool]] = (),
-                    bits: int = 32) -> str:
+                    kinds: Sequence[str]) -> str:
     """The Python source of the Triton module for ``chain`` over inputs
-    of ``ext_dtypes`` and ``kinds``, each strided one reading the dims
-    that ``reads`` marks for it (``Layout.reads``), with ``bits``-bit
-    offsets (``index_bits``): a ``fused_chain_kernel`` and its
-    ``launch(ins, outs, n, geometry, programs)``.
-
-    Each of the ``programs`` = ceil(n / BLOCK) programs computes one tile
-    of ``BLOCK`` elements: a whole tile unmasked, the one ragged tail
-    tile (the last program's) masked."""
+    of ``ext_dtypes`` and ``kinds``: a ``fused_chain_kernel`` and its
+    ``launch(ins, outs, n, geometry, programs)`` (``geometry``'s
+    arguments, ``programs`` = ceil(n / ``BLOCK``))."""
     n_in, n_out = len(ext_dtypes), len(chain.steps)
     strided = [i for i in range(n_in) if kinds[i] == STRIDED]
-    if len(reads) != len(strided):
-        raise ValueError(f"fused_elementwise: {len(strided)} strided "
-                         f"operands, {len(reads)} read patterns")
-    geo, index_lines, offsets = index_code(reads)
-    params = ([f"e{i}" for i in range(n_in)]
-              + [f"o{j}" for j in range(n_out)] + ["n"] + geo)
-    start = "pid.to(tl.int64) * BLOCK" if bits == 64 else "pid * BLOCK"
-
-    def tile_body(indent: str, masked: bool) -> List[str]:
-        m = ", mask=mask" if masked else ""
-        out = list(index_lines)
-        for i, (dt, kind) in enumerate(zip(ext_dtypes, kinds)):
-            if kind == SCALAR:
-                continue
-            if kind == FLAT:
-                load = f"tl.load(e{i} + offs{m})"
-            else:
-                idx = offsets[strided.index(i)]
-                load = f"tl.load(e{i} + ({idx}){m})"
-            if dt == torch.bool:
-                load = f"({load} != 0)"
-            out.append(f"x{i} = {load}")
-        for j, ((name, static, slots), out_dt) in enumerate(
-                zip(chain.steps, chain.dtypes)):
-            args, arg_dts = [], []
-            for kind, k in slots:
-                args.append(f"x{k}" if kind == "e" else f"t{k}")
-                arg_dts.append(ext_dtypes[k] if kind == "e"
-                               else chain.dtypes[k])
-            out.append(f"t{j} = "
-                       + _step_expr(name, static, args, arg_dts, out_dt))
-            val = f"t{j}.to(tl.uint8)" if out_dt == torch.bool else f"t{j}"
-            out.append(f"tl.store(o{j} + offs, {val}{m})")
-        return [indent + line for line in out]
-
+    params = [f"e{i}" for i in range(n_in)] + [f"o{j}" for j in
+                                               range(n_out)] + ["n"]
+    if strided:
+        params += ["S1", "S2", "S3"]
+        params += [f"st{i}_{d}" for i in strided for d in range(MAX_DIMS)]
     body = ["    pid = tl.program_id(0)",
-            f"    offs = {start} + tl.arange(0, BLOCK)"]
+            "    offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)",
+            "    mask = offs < n"]
+    if strided:
+        body += ["    " + line for line in INDEX_LINES]
     for i, (dt, kind) in enumerate(zip(ext_dtypes, kinds)):
         if kind == SCALAR:
             load = f"tl.load(e{i})"
-            body.append(f"    x{i} = ({load} != 0)" if dt == torch.bool
-                        else f"    x{i} = {load}")
-    body += ["    if pid < n // BLOCK:   # a whole tile"]
-    body += tile_body("        ", masked=False)
-    body += ["    else:   # the ragged tail", "        mask = offs < n"]
-    body += tile_body("        ", masked=True)
+        elif kind == FLAT:
+            load = f"tl.load(e{i} + offs, mask=mask, other=1)"
+        else:
+            idx = " + ".join(f"i{d} * st{i}_{d}" for d in range(MAX_DIMS))
+            load = f"tl.load(e{i} + ({idx}), mask=mask, other=1)"
+        if dt == torch.bool:
+            load = f"({load} != 0)"
+        body.append(f"    x{i} = {load}")
+    for j, ((name, static, slots), out_dt) in enumerate(
+            zip(chain.steps, chain.dtypes)):
+        args, arg_dts = [], []
+        for kind, k in slots:
+            args.append(f"x{k}" if kind == "e" else f"t{k}")
+            arg_dts.append(ext_dtypes[k] if kind == "e" else chain.dtypes[k])
+        expr = _step_expr(name, static, args, arg_dts, out_dt)
+        body.append(f"    t{j} = {expr}")
+        val = f"t{j}.to(tl.uint8)" if out_dt == torch.bool else f"t{j}"
+        body.append(f"    tl.store(o{j} + offs, {val}, mask=mask)")
     sig = ", ".join(params + ["BLOCK: tl.constexpr"])
     return (_HEADER
             + "@triton.jit\n"
@@ -518,6 +426,14 @@ def generate_source(chain: FusedChain, ext_dtypes: Sequence[torch.dtype],
             + "def launch(ins, outs, n, geometry, programs):\n"
             + "    fused_chain_kernel[(programs,)](*ins, *outs, n, "
             + f"*geometry, BLOCK={BLOCK}, num_warps={NUM_WARPS})\n")
+
+
+def geometry(sizes: Sequence[int], strides: Sequence[Sequence[int]]
+             ) -> List[int]:
+    """The kernel's geometry arguments of an ``operand_layout``: ``S1``-
+    ``S3``, then each strided operand's strides (none without one)."""
+    return ([*sizes[1:], *[s for st in strides for s in st]]
+            if strides else [])
 
 
 FUSED_ROOT = BUILD_ROOT / "fused"
@@ -544,19 +460,15 @@ def _load(source: str):
 
 
 def kernel_module(chain: FusedChain, ext_dtypes: Sequence[torch.dtype],
-                  kinds: Sequence[str],
-                  reads: Sequence[Sequence[bool]] = (), bits: int = 32):
+                  kinds: Sequence[str]):
     """The imported Triton module of ``chain`` (generated at first use;
-    cached by descriptor, dtypes, operand kinds, the dims the strided
-    operands read and the offset width, not by shape: ``n``, the sizes
-    and the strides are runtime arguments)."""
-    key = (chain.steps, chain.dtypes, tuple(ext_dtypes), tuple(kinds),
-           tuple(reads), bits)
+    cached by descriptor, dtypes and operand kinds, not by shape)."""
+    key = (chain.steps, chain.dtypes, tuple(ext_dtypes), tuple(kinds))
     with _lock:
         mod = _modules.get(key)
         if mod is None:
             mod = _modules[key] = _load(
-                generate_source(chain, ext_dtypes, kinds, reads, bits))
+                generate_source(chain, ext_dtypes, kinds))
         return mod
 
 
@@ -587,14 +499,12 @@ class ChainKernel:
         if dev.type != "cuda":
             raise ValueError(f"fused_elementwise: unsupported device {dev}")
         shape = tuple(torch.broadcast_shapes(*[x.shape for x in xs]))
-        layout = operand_layout(xs, shape)
+        kinds, sizes, strides = operand_layout(xs, shape)
         n = math.prod(shape)
-        bits = index_bits(n, layout)
-        mod = kernel_module(self.chain, [x.dtype for x in xs], layout.kinds,
-                            layout.reads, bits)
+        mod = kernel_module(self.chain, [x.dtype for x in xs], kinds)
         index = dev.index if dev.index is not None else \
             torch.cuda.current_device()
-        args = (n, geometry(layout), -(-n // BLOCK))
+        args = (n, geometry(sizes, strides), -(-n // BLOCK))
         return _Plan(shape, n, torch.device("cuda", index), index,
                      tuple(x.dtype == torch.bool for x in xs) +
                      tuple(dt == torch.bool for dt in self.chain.dtypes),

@@ -339,9 +339,8 @@ def test_generated_source_of_each_op_parses(name):
             chain, ext = TFuse.capture_chain(lambda *t: fn(rt, TF, *t), *ts)
         except (RuntimeError, TypeError):
             continue  # torch refuses the op for this dtype
-        layout = FE.operand_layout(ext, (6, 10))
-        src = FE.generate_source(chain, [e.dtype for e in ext],
-                                 layout.kinds, layout.reads)
+        kinds_, _, _ = FE.operand_layout(ext, (6, 10))
+        src = FE.generate_source(chain, [e.dtype for e in ext], kinds_)
         tree = ast.parse(src)
         defs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
         assert {"fused_chain_kernel", "launch", "_floor_mod",
@@ -367,7 +366,7 @@ def test_operand_layout_collapses_dims():
     assert strides == [[0, 0, 0, 1], [0, 1, 0, 0], [60, 20, 1, 4]]
     kinds, sizes, strides = FE.operand_layout(
         [torch.zeros(6, 1), torch.zeros(6, 7)], (6, 7))
-    assert kinds == ("b", "f") and sizes == [6, 7]
+    assert kinds == ("b", "f") and sizes == [1, 1, 6, 7]
     with pytest.raises(NotImplementedError, match="dims"):
         FE.operand_layout([torch.zeros(2, 1, 2, 1, 2, 1, 2)[:, :, :, :, :,
                                                            :, :1]],
@@ -375,7 +374,7 @@ def test_operand_layout_collapses_dims():
 
 
 LAYOUT_CASES = {
-    # (base size, operand views of a flat base, output shape)
+    # (operand views of a flat base, output shape)
     "row_bias": (lambda b: [b[:40].view(4, 10), b[40:50]], (4, 10)),
     "column_bias": (lambda b: [b[:40].view(4, 10), b[50:54].view(4, 1)],
                     (4, 10)),
@@ -388,104 +387,75 @@ LAYOUT_CASES = {
                           b[130:136].view(6, 1)], (6, 10)),
     "four_dims": (lambda b: [b[:120].view(2, 3, 4, 5).permute(0, 2, 1, 3),
                              b[120:124].view(1, 4, 1, 1)], (2, 4, 3, 5)),
+    # more than one element, every stride 0 (``Tensor.expand`` of a
+    # one-element tensor)
+    "expanded_0d": (lambda b: [b[:40].view(4, 10),
+                               b[41].expand(4, 10)], (4, 10)),
+    "expanded_1x1": (lambda b: [b[:60].view(3, 4, 5),
+                                b[61:62].view(1, 1, 1).expand(3, 4, 5)],
+                     (3, 4, 5)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
 def test_generated_index_math_reads_each_operand(case):
-    """The generated index lines and offsets, evaluated over every flat
-    offset with the launcher's geometry, address exactly the element of
-    each strided operand that broadcasting puts there."""
+    """The generated index lines and each strided operand's offset,
+    evaluated over every flat offset with the launcher's geometry,
+    address exactly the element of each strided operand that
+    broadcasting puts there."""
     make, shape = LAYOUT_CASES[case]
     base = torch.arange(256)
     xs = make(base)
-    layout = FE.operand_layout(xs, shape)
-    params, lines, offsets = FE.index_code(layout.reads)
-    env = dict(zip(params, FE.geometry(layout)))
-    assert len(env) == len(params) == len(FE.geometry(layout))
-    n = math.prod(shape)
-    env["offs"] = np.arange(n)
-    for line in lines:
+    kinds, sizes, strides = FE.operand_layout(xs, shape)
+    strided = [x for x, k in zip(xs, kinds) if k == FE.STRIDED]
+    assert len(strided) == len(strides) > 0
+    geo = FE.geometry(sizes, strides)
+    env = dict(zip(["S1", "S2", "S3"], geo))
+    env["offs"] = np.arange(math.prod(shape))
+    for line in FE.INDEX_LINES:
         name, expr = line.split(" = ", 1)
         env[name] = eval(expr, {}, env)
-    strided = [x for x, k in zip(xs, layout.kinds) if k == FE.STRIDED]
-    assert len(strided) == len(offsets) > 0
-    for x, expr in zip(strided, offsets):
-        got = base.numpy()[x.storage_offset() + eval(expr, {}, env)]
+    src = FE.generate_source(
+        FE.FusedChain(tuple(("neg", (), (("e", i),)) for i in
+                            range(len(xs))), (torch.neg,) * len(xs),
+                      (torch.int64,) * len(xs)),
+        [x.dtype for x in xs], kinds)
+    for k, x in enumerate(strided):
+        i = [j for j, kind in enumerate(kinds) if kind == FE.STRIDED][k]
+        (idx,) = [ln.split(f"tl.load(e{i} + (", 1)[1].split("), mask")[0]
+                  for ln in src.splitlines() if f"tl.load(e{i} + (" in ln]
+        env.update(zip([f"st{i}_{d}" for d in range(FE.MAX_DIMS)],
+                       geo[3 + k * FE.MAX_DIMS:3 + (k + 1) * FE.MAX_DIMS]))
+        got = base.numpy()[x.storage_offset() + eval(idx, {}, env)]
         np.testing.assert_array_equal(
             got, x.expand(shape).reshape(-1).numpy())
 
 
 def test_size_1_dims_are_dropped_from_the_index_math():
-    """A row bias over (64, 1, 4096) reads one dim: one ``%`` an element,
-    no division, and only its size and stride are passed."""
-    layout = FE.operand_layout([torch.zeros(64, 1, 4096),
-                                torch.zeros(1, 1, 4096)], (64, 1, 4096))
-    params, lines, offsets = FE.index_code(layout.reads)
-    assert layout.sizes == [64, 4096] and layout.reads == ((False, True),)
-    assert params == ["S1", "st0_1"] and lines == ["i1 = offs % S1"]
-    assert offsets == ["i1 * st0_1"]
+    """A row bias over (64, 1, 4096): the size-1 dim is dropped, so the
+    operand's collapsed dims are the output's two (padded to four)."""
+    kinds, sizes, strides = FE.operand_layout(
+        [torch.zeros(64, 1, 4096), torch.zeros(1, 1, 4096)], (64, 1, 4096))
+    assert kinds == (FE.FLAT, FE.STRIDED)
+    assert sizes == [1, 1, 64, 4096] and strides == [[0, 0, 0, 1]]
+    assert FE.geometry(sizes, strides) == [1, 64, 4096, 0, 0, 0, 1]
+    assert FE.geometry(*FE.operand_layout([torch.zeros(3)], (3,))[1:]) == []
 
 
-def relu_chain():
-    x = rt.Tensor(torch.zeros(8))
-    return TFuse.capture_chain(lambda a: TF.relu(a), x)[0]
-
-
-def test_offset_width_follows_the_extent():
-    """32-bit offsets while every offset the kernel forms fits an int32
-    (up to the end of the last tile, and each strided operand's furthest
-    element), 64-bit above; the width changes the generated source."""
-    flat = FE.Layout((FE.FLAT,), [], [])
-    assert FE.index_bits(2 ** 30, flat) == 32
-    assert FE.index_bits(2 ** 31 - 1 - FE.BLOCK, flat) == 32
-    assert FE.index_bits(2 ** 31 - FE.BLOCK, flat) == 64
-    assert FE.index_bits(2 ** 31 + 5, flat) == 64
-    far = FE.Layout((FE.STRIDED,), [2, 1024], [[2 ** 31, 1]])
-    assert FE.index_bits(2048, far) == 64
-    near = FE.Layout((FE.STRIDED,), [2, 1024], [[2 ** 20, 1]])
-    assert FE.index_bits(2048, near) == 32
-    chain = relu_chain()
-    narrow = FE.generate_source(chain, [torch.float32], [FE.FLAT], bits=32)
-    wide = FE.generate_source(chain, [torch.float32], [FE.FLAT], bits=64)
-    assert "tl.int64" not in narrow
-    assert "pid.to(tl.int64) * BLOCK" in wide
-
-
-def generated_variants():
-    """Sources of one chain over flat, 0-d and strided operands, at both
-    offset widths."""
+def test_generated_source_compiles():
+    """One chain over flat, 0-d and strided operands, and one over flat
+    operands alone: each module compiles."""
     with rt.default_device("cpu"):
         x = rt.Tensor(torch.zeros(6, 10))
         b = rt.Tensor(torch.zeros(10))
         s = rt.Tensor(torch.tensor(2.0))
-        chain, ext = TFuse.capture_chain(
-            lambda x, b, s: ((x * s + b).tanh() > 0.5).astype("float32"),
-            x, b, s)
-    layout = FE.operand_layout(ext, (6, 10))
-    dtypes = [e.dtype for e in ext]
-    return [FE.generate_source(chain, dtypes, layout.kinds, layout.reads,
-                               bits) for bits in (32, 64)]
-
-
-def test_generated_source_compiles():
-    for src in generated_variants():
-        compile(src, "<fused>", "exec")
-
-
-def test_whole_tiles_carry_no_mask():
-    """A whole tile loads and stores unmasked; only the one ragged tail
-    tile is masked, every access of it."""
-    for src in generated_variants():
-        body = src[src.index("def fused_chain_kernel"):
-                   src.index("def launch")]
-        whole = body[body.index("if pid < n // BLOCK:"):
-                     body.index("else:   # the ragged tail")]
-        tail = body[body.index("else:   # the ragged tail"):]
-        assert "tl.load(e0" in whole and "mask" not in whole
-        accesses = [ln for ln in tail.splitlines()
-                    if "tl.load(" in ln or "tl.store(" in ln]
-        assert accesses and all("mask=mask" in ln for ln in accesses)
+        for fn, ts in ((lambda x, b, s: ((x * s + b).tanh() > 0.5)
+                        .astype("float32"), (x, b, s)),
+                       (lambda x: TF.relu(x + x), (x,))):
+            chain, ext = TFuse.capture_chain(fn, *ts)
+            kinds, _, _ = FE.operand_layout(ext, (6, 10))
+            compile(FE.generate_source(chain, [e.dtype for e in ext], kinds),
+                    "<fused>", "exec")
 
 
 def test_literals_round_trip():
@@ -585,14 +555,13 @@ def test_cuda_ragged_tails_match_plain(extra):
 
 @requires_cuda
 def test_cuda_relu_over_2_31_elements_takes_64_bit_offsets():
-    """relu over 2^31 + 5 fp32 elements (8.6 GB in, 8.6 GB out): the
-    64-bit variant, its whole tiles and its ragged tail, equal to
-    ``torch.relu`` bit for bit."""
+    """relu over 2^31 + 5 fp32 elements (8.6 GB in, 8.6 GB out): offsets
+    past 2^31 and the ragged tail, equal to ``torch.relu`` bit for
+    bit."""
     n = 2 ** 31 + 5
     x = torch.randn(n, device="cuda")
     with rt.default_device("cuda"):
         chain, ext = TFuse.capture_chain(lambda a: TF.relu(a), rt.Tensor(x))
-    assert FE.index_bits(n, FE.operand_layout(ext, (n,))) == 64
     (out,) = launch_one(chain, ext)
     ref = torch.relu(x)
     del x, ext
@@ -613,9 +582,29 @@ def test_cuda_broadcast_with_size_1_dims_matches_plain(dtype):
               for s in ((3, 1, 257, 129), (1, 1, 1, 129), (3, 1, 1, 1), ())]
         chain, ext = TFuse.capture_chain(
             lambda x, b, s, c: ((x + b) * s - c).sigmoid(), *ts)
-    layout = FE.operand_layout(ext, (3, 1, 257, 129))
-    assert layout.kinds == ("f", "b", "b", "s")
-    assert layout.sizes == [3, 257, 129]
+    kinds, sizes, _ = FE.operand_layout(ext, (3, 1, 257, 129))
+    assert kinds == ("f", "b", "b", "s")
+    assert sizes == [1, 3, 257, 129]
+    card_close(launch_one(chain, ext),
+               FE.fused_elementwise_plain(chain, *ext))
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_expanded_one_element_operand_matches_plain(dtype):
+    """relu(x + b.expand(...)) with b of one element: an operand of many
+    elements whose strides are all 0, read through them, values equal
+    the plain version's within the card tolerance."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    with rt.default_device("cuda"):
+        x = rt.Tensor(torch.randn(33, 1027, generator=g,
+                                  device="cuda").to(dt))
+        b = rt.Tensor(torch.randn(1, 1, generator=g, device="cuda").to(dt))
+        chain, ext = TFuse.capture_chain(
+            lambda x, b: TF.relu(x + b.expand(33, 1027)), x, b)
+    kinds, _, strides = FE.operand_layout(ext, (33, 1027))
+    assert kinds == ("f", "b") and strides == [[0, 0, 0, 0]]
     card_close(launch_one(chain, ext),
                FE.fused_elementwise_plain(chain, *ext))
 

@@ -257,8 +257,8 @@ def measure_fused(torch, cs, dev: str = "cuda") -> dict:
             rows[label]["turns_vs_library"] = cs.relu_turns(
                 torch, kern, lambda x=ext[0]: torch.relu(x))
         prof = cs.profile_kernels(torch, kern, FE.fused_counter,
-                                  "fused_elementwise", None)
-        rows[label]["device_us_per_launch"] = prof["device_us_per_launch"]
+                                  "fused_elementwise", 1)
+        rows[label]["device_us"] = prof["device_us_per_call"]
         del ext
     cs.free(torch)
     lines = []
