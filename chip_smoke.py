@@ -174,6 +174,11 @@ PAGED_CASES = (("bfloat16", "bfloat16"), ("bfloat16", "int8"),
                ("float32", "float32"), ("float32", "int8"),
                ("float32", "fp8_e4m3"))
 GUMBEL_TOL = 1e-4                  # fp32 logs of values up to ~20 in size
+# the Gumbel rows: serving's sampling step (MAX_BATCH x (SPEC_K + 1) rows
+# of gemma-2b's 256000 logits), and ragged (R, V) for the keyed kernel's
+# masked tile edges
+GUMBEL_SHAPE = (48, 256000)
+GUMBEL_RAGGED = ((1, 1000), (1, 256001), (3, 1000), (3, 256001))
 # flash / decode attention against their plain versions, elementwise
 # |out - ref| <= tol + rtol * |ref|.  bf16: tol = rtol = 1e-2 (what
 # torch.testing.assert_close(rtol=1e-2, atol=1e-2) checks).  The kernel
@@ -396,17 +401,15 @@ def sdpa_library_ms(torch, x, q, kp, vp, scale) -> float:
 
 def paged_plan(torch, DA, x, q, pool_dtype) -> dict:
     """What the paged kernel launched for the row's inputs (call it just
-    after a call): its variant and resources (``DA.kernel_attributes``),
-    the device launches and thread blocks of that call as the C entry
-    reports them (``DA.last_launch``), and for the bf16 variant the work
-    list (tiles, splits) of the device pre-pass, which must equal
+    after a call): its main kernel's variant and resources
+    (``DA.kernel_attributes``), the device launches and thread blocks of
+    that call as the C entry reports them (``DA.last_launch``), and the
+    work list (tiles, splits) of the device pre-pass, which must equal
     ``paged_tiles_plain``'s."""
     t, hkv, g, d = q.shape
     ps, p = x["ps"], x["p"]
     plan = {**DA.kernel_attributes(q.dtype, pool_dtype, d, g, ps),
             **DA.last_launch()}
-    if plan["variant"] == "simt":
-        return plan
     tiling = DA.tiling(g, p, ps)
     want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(),
                                 x["tables"].shape, ps,
@@ -445,10 +448,10 @@ def paged_case_tensors(torch, x, q_dtype, pool):
 def phase_paged_attention(torch, dev) -> dict:
     """The paged kernel against its plain version for every PAGED_CASES
     row; the first (bf16 q over a bf16 pool) is the one reported in the
-    kernel table.  Each row carries its variant ("mma": bf16 q on the
-    tensor cores; "simt": fp32 q on the CUDA cores), its work list
-    (tiles, splits), the device launches and thread blocks of a call and
-    its kernel's resources; ``ms`` is a single call by CUDA events (the
+    kernel table.  Each row carries its main kernel's variant ("mma":
+    bf16 q on the tensor cores; "simt": fp32 q on the CUDA cores), its
+    work list (tiles, splits), the device launches and thread blocks of a
+    call and its main kernel's resources; ``ms`` is a single call by CUDA events (the
     wrapper's host time included), ``queued_ms`` the time of one call
     among 20 queued back to back (the host's time still counts where it
     exceeds the device's; ``profile_paged`` gives the device's alone)."""
@@ -511,16 +514,17 @@ def phase_paged_attention(torch, dev) -> dict:
     return result
 
 
-def profile_kernels(torch, kern, counter, group: str, want: int,
+def profile_kernels(torch, kern, counter, group, want,
                     part=lambda name: name, calls: int = 20,
                     tries: int = 3) -> dict:
     """``calls`` counted calls of ``kern`` under ``torch.profiler``: the
     device us a call and device launches a call of each kernel of
-    ``group`` (keyed by ``part(name)``) and in all, as the profiler
-    counted them.  The counted calls are the profiler's second cycle: the
-    first, a warm-up, is dropped (a session's first kernels can go
-    unrecorded).  A session that counted other than ``want`` device
-    launches a call (the C entry's record) is run again, up to ``tries``
+    ``group`` (every kernel when it is None; keyed by ``part(name)``) and
+    in all, as the profiler counted them.  The counted calls are the
+    profiler's second cycle: the first, a warm-up, is dropped (a
+    session's first kernels can go unrecorded).  A session that counted
+    other than ``want`` device launches a call (the C entry's record; None
+    takes the first session as it is) is run again, up to ``tries``
     sessions.  Every session's launches and device us a call are kept in
     ``sessions`` beside the last one's, which is reported;
     ``first_session_agrees`` flags a first session that differed (the
@@ -545,7 +549,7 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
         (top,) = cycles
         kernels = {}
         for ms, name, c in top:
-            if _kernel_group(name) == group:
+            if group is None or _kernel_group(name) == group:
                 k = kernels.setdefault(part(name), {"device_us_per_call": 0.0,
                                                     "launches_per_call": 0.0})
                 k["device_us_per_call"] += ms * 1e3 / n
@@ -555,7 +559,8 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
                 k["launches_per_call"] for k in kernels.values()),
             "device_us_per_call": sum(
                 k["device_us_per_call"] for k in kernels.values())})
-        if abs(sessions[-1]["device_launches_per_call"] - want) < 1e-9:
+        if want is None or \
+                abs(sessions[-1]["device_launches_per_call"] - want) < 1e-9:
             break
     else:
         raise AssertionError(
@@ -568,18 +573,15 @@ def profile_kernels(torch, kern, counter, group: str, want: int,
 
 
 def profile_paged(torch, dev) -> dict:
-    """The bf16 paged rows (``paged_inputs``, seed 11) under
-    ``profile_kernels``: the device us a call of each kernel they
-    launched (pre-pass, main, combine) and in all, and the device launches
-    a call.  Run with the profiled runs, last.  Returns the bf16 x bf16
-    line."""
+    """Every PAGED_CASES row (``paged_inputs``, seed 11) under
+    ``profile_kernels``: the device us a call of its pre-pass, main
+    kernel and combine and in all, and the device launches a call.  Run
+    with the profiled runs, last.  Returns the bf16 x bf16 line."""
     from repro_torch.kernels import decode_attention as DA
 
     x = paged_inputs(torch, torch.Generator().manual_seed(11), dev)
     result = None
     for q_dtype, pool in PAGED_CASES:
-        if q_dtype != "bfloat16":
-            continue
         q, kp, vp, ksc, vsc = paged_case_tensors(torch, x, q_dtype, pool)
 
         def kern():
@@ -589,40 +591,134 @@ def profile_paged(torch, dev) -> dict:
         kern()
         torch.cuda.synchronize()
         row = {"phase": "paged_attention_profile", "pool": pool,
-               "q_dtype": q_dtype,
+               "q_dtype": q_dtype, "variant": DA.variant(q.dtype),
                **profile_kernels(torch, kern, DA.counter, "paged_attention",
-                                 DA.last_launch()["device_launches"])}
+                                 DA.last_launch()["device_launches"],
+                                 part=kernel_part)}
         emit(row)
         if result is None:
             result = row
     return result
 
 
+def gumbel_inputs(torch, dev, rows: int, vocab: int, seed: int = 12):
+    """Logits ~ N(0, 3^2) of (rows, vocab) and (rows,) seeds and
+    positions, as the serving executor keys a step's rows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((rows, vocab), generator=gen, device=dev) * 3.0
+    seeds = torch.arange(rows, device=dev)
+    return logits, seeds, seeds + 100
+
+
+def gumbel_bound(rows: int, vocab: int, streams: int) -> float:
+    """ms to move ``streams`` fp32 (rows, vocab) arrays once, and the
+    keyed kernel's (rows,) int64 seeds and positions."""
+    nbytes = streams * rows * vocab * 4 + (2 * rows * 8 if streams == 2
+                                            else 0)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def gumbel_check(torch, name: str, out, ref) -> float:
+    """The max abs error of a Gumbel kernel against its plain version;
+    raises past GUMBEL_TOL, on a non-finite value, or where a row's
+    argmax (the sampled token) differs."""
+    err = (out - ref).abs().max().item()
+    if not err <= GUMBEL_TOL or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{err}")
+    if not torch.equal(out.argmax(-1), ref.argmax(-1)):
+        raise AssertionError(f"{name}: a row's argmax differs from the "
+                             f"plain version's")
+    return err
+
+
 def phase_gumbel(torch, dev) -> dict:
+    """The Gumbel kernels against their plain versions at serving's
+    sampling shape (GUMBEL_SHAPE): the keyed kernel, which the serving
+    path runs (its ``plain_ms`` is ``gumbel_perturb_keyed_plain``, the
+    position-keyed uniforms then the perturbation in torch ops;
+    ``composition_ms`` the parent's serving path, the uniforms in torch
+    ops then the uniform kernel), and the uniform kernel; each with its
+    bytes bound, and the keyed kernel at ragged shapes
+    (GUMBEL_RAGGED).  Returns the keyed row, the kernel table's."""
     from repro_torch.kernels import ops
     from repro_torch.serving.sampling import position_uniforms
 
-    rows, vocab = MAX_BATCH * (SPEC_K + 1), 256000
-    gen = torch.Generator(device=dev).manual_seed(12)
-    logits = torch.randn((rows, vocab), generator=gen, device=dev) * 3.0
-    u = position_uniforms(torch.arange(rows, device=dev),
-                          torch.arange(rows, device=dev) + 100, vocab)
+    rows, vocab = GUMBEL_SHAPE
+    logits, seeds, pos = gumbel_inputs(torch, dev, rows, vocab)
+    u = position_uniforms(seeds, pos, vocab)
     out = ops.gumbel_perturb(logits, u)
     torch.cuda.synchronize()
-    ref = ops.gumbel_perturb_plain(logits, u)
-    err = (out - ref).abs().max().item()
-    ms = time_ms(torch, lambda: ops.gumbel_perturb(logits, u))
-    plain_ms = time_ms(torch, lambda: ops.gumbel_perturb_plain(logits, u))
-    bound_ms = 3 * rows * vocab * 4 / HBM_BYTES_PER_S * 1e3
-    row = {"phase": "kernel", "name": "gumbel_perturb", "R": rows,
-           "V": vocab, "max_abs_err": err, "tol": GUMBEL_TOL, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+    err = gumbel_check(torch, "gumbel_perturb", out,
+                       ops.gumbel_perturb_plain(logits, u))
+    emit({"phase": "kernel", "name": "gumbel_perturb", "entry": "uniform",
+          "R": rows, "V": vocab, "max_abs_err": err, "tol": GUMBEL_TOL,
+          "ms": time_ms(torch, lambda: ops.gumbel_perturb(logits, u)),
+          "plain_ms": time_ms(
+              torch, lambda: ops.gumbel_perturb_plain(logits, u)),
+          "bound_ms": gumbel_bound(rows, vocab, 3), "bound_by": "bytes",
+          "library_ms": None})
+    del u
+
+    ragged = []
+    for r, v in GUMBEL_RAGGED:
+        x, sd, ps = gumbel_inputs(torch, dev, r, v, seed=13)
+        got = ops.gumbel_perturb_keyed(x, sd, ps)
+        torch.cuda.synchronize()
+        ragged.append({"R": r, "V": v, "max_abs_err": gumbel_check(
+            torch, f"gumbel_perturb_keyed[{r}x{v}]", got,
+            ops.gumbel_perturb_keyed_plain(x, sd, ps))})
+
+    def keyed():
+        return ops.gumbel_perturb_keyed(logits, seeds, pos)
+
+    out = keyed()
+    torch.cuda.synchronize()
+    err = gumbel_check(torch, "gumbel_perturb_keyed", out,
+                       ops.gumbel_perturb_keyed_plain(logits, seeds, pos))
+    row = {"phase": "kernel", "name": "gumbel_perturb", "entry": "keyed",
+           "R": rows, "V": vocab, "max_abs_err": err, "tol": GUMBEL_TOL,
+           "argmax_equal": True, "ragged": ragged,
+           "ms": time_ms(torch, keyed), "host_us": host_us(torch, keyed),
+           "plain_ms": time_ms(torch, lambda: ops.gumbel_perturb_keyed_plain(
+               logits, seeds, pos)),
+           "composition_ms": time_ms(torch, lambda: ops.gumbel_perturb(
+               logits, position_uniforms(seeds, pos, vocab))),
+           "bound_ms": gumbel_bound(rows, vocab, 2), "bound_by": "bytes",
            "library_ms": None}
     emit(row)
-    if not err <= GUMBEL_TOL or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"gumbel_perturb disagrees with its plain "
-                             f"version: {err}")
     return row
+
+
+def profile_gumbel(torch, dev) -> dict:
+    """At GUMBEL_SHAPE, under ``profile_kernels``: the keyed kernel and
+    the uniform kernel (one launch a call each), and the parent's serving
+    path, ``position_uniforms`` then the uniform kernel (every kernel it
+    launches).  Run with the profiled runs, last.  Returns the keyed
+    kernel's line."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.sampling import position_uniforms
+
+    rows, vocab = GUMBEL_SHAPE
+    logits, seeds, pos = gumbel_inputs(torch, dev, rows, vocab)
+    u = position_uniforms(seeds, pos, vocab)
+    result = None
+    for entry, fn, group, want in (
+            ("keyed", lambda: ops.gumbel_perturb_keyed(logits, seeds, pos),
+             "gumbel_perturb", 1),
+            ("uniform", lambda: ops.gumbel_perturb(logits, u),
+             "gumbel_perturb", 1),
+            ("composition", lambda: ops.gumbel_perturb(
+                logits, position_uniforms(seeds, pos, vocab)), None, None)):
+        fn()
+        torch.cuda.synchronize()
+        row = {"phase": "gumbel_perturb_profile", "entry": entry, "R": rows,
+               "V": vocab, **profile_kernels(torch, fn, ops.gumbel_counter,
+                                             group, want)}
+        emit(row)
+        if result is None:
+            result = row
+    return result
 
 
 def kernel_bound(nbytes: int, ops: int, dtype: str) -> tuple:
@@ -1087,6 +1183,9 @@ def counted(torch, what: str, fn, required=SERVING_KERNELS):
 
 
 MOE_RANGE = "moe_dispatch_combine"
+# the serving executor's sampling tail (``serving/executor.py``): filter,
+# perturb, argmax
+SAMPLING_RANGE = "sampling"
 # the eager runtime's per-op profiler ranges (``core.autograd.op_range``)
 EAGER_RANGE = "repro_torch::"
 
@@ -1100,6 +1199,14 @@ def _kernels_under(ev):
         yield from _kernels_under(child)
 
 
+def range_kernels(prof, name: str) -> list:
+    """(name, device us) of every kernel launched under the CPU ranges
+    called ``name``."""
+    return [k for ev in prof.events()
+            if ev.name == name and "CPU" in str(ev.device_type)
+            for k in _kernels_under(ev)]
+
+
 def device_time(prof) -> tuple:
     """Device ms by kernel group, and (ms, name, calls) of each kernel
     sorted by time, from a ``torch.profiler`` run.  The kernels launched
@@ -1107,27 +1214,26 @@ def device_time(prof) -> tuple:
     tokens to expert slots and its combine back, ``models/layers.py::
     moe``) are moved to a group of that name; the range itself, which the
     profiler may also report as a device annotation, is no kernel, and
-    neither are the eager runtime's ``repro_torch::`` op ranges."""
+    neither are the sampling range nor the eager runtime's
+    ``repro_torch::`` op ranges."""
     groups, top = {}, []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us or ev.device_type is None or \
-                "CUDA" not in str(ev.device_type) or ev.key == MOE_RANGE \
-                or ev.key.startswith(EAGER_RANGE):
+                "CUDA" not in str(ev.device_type) or \
+                ev.key in (MOE_RANGE, SAMPLING_RANGE) or \
+                ev.key.startswith(EAGER_RANGE):
             continue
         g = _kernel_group(ev.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
         top.append((us / 1e3, ev.key[:60], ev.count))
     top.sort(reverse=True)
-    for ev in prof.events():
-        if ev.name != MOE_RANGE or "CPU" not in str(ev.device_type):
-            continue
-        for name, us in _kernels_under(ev):
-            g = _kernel_group(name)
-            groups[g] -= us / 1e3
-            groups[MOE_RANGE] = groups.get(MOE_RANGE, 0.0) + us / 1e3
+    for name, us in range_kernels(prof, MOE_RANGE):
+        g = _kernel_group(name)
+        groups[g] -= us / 1e3
+        groups[MOE_RANGE] = groups.get(MOE_RANGE, 0.0) + us / 1e3
     return groups, top
 
 
@@ -1158,7 +1264,10 @@ def profile_window(torch, phase: str, fn, **fields) -> None:
 
 def profile_serving(torch, cfg, params, requests, dev) -> dict:
     """One serving run under ``torch.profiler``: device time by kernel
-    group, the busy share of the wall clock, and the top kernels."""
+    group, the busy share of the wall clock, the top kernels, and the
+    sampling tail (the kernels under the executor's ``sampling`` range:
+    device ms, launches and Gumbel launches a step, its kernels by
+    name)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1170,10 +1279,23 @@ def profile_serving(torch, cfg, params, requests, dev) -> dict:
     calls = {}
     for _, name, n in top:
         calls[_kernel_group(name)] = calls.get(_kernel_group(name), 0) + n
+    tail, by_name = range_kernels(prof, SAMPLING_RANGE), {}
+    for name, us in tail:
+        k = by_name.setdefault(name[:60], [0.0, 0])
+        k[0] += us / 1e3
+        k[1] += 1
+    steps = m["steps"]
     return {"wall_ms": wall * 1e3, "device_ms_by_group": groups,
             "device_calls_by_group": calls, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
-            "steps": m["steps"], "launches": counts,
+            "steps": steps, "launches": counts,
+            "sampling": {
+                "device_ms": sum(us for _, us in tail) / 1e3,
+                "launches": len(tail),
+                "launches_per_step": len(tail) / steps,
+                "gumbel_launches_per_step": counts["gumbel_perturb"] / steps,
+                "kernels": sorted(([ms, c, n] for n, (ms, c) in
+                                   by_name.items()), reverse=True)},
             "top_kernels": [{"ms": t, "name": n, "calls": c}
                             for t, n, c in top[:8]]}
 
@@ -2189,8 +2311,8 @@ def phase_mixed_attention(torch, dev) -> dict:
     return result
 
 
-def mixed_part(name: str) -> str:
-    """A mixed-attention kernel's part, by its name."""
+def kernel_part(name: str) -> str:
+    """A paged or mixed attention kernel's part, by its name."""
     if "tiles" in name:
         return "prepass"
     return "combine" if "combine" in name else "main"
@@ -2216,7 +2338,7 @@ def profile_mixed(torch, dev) -> dict:
            **profile_kernels(torch, kern, DA.mixed_counter,
                              "mixed_attention",
                              DA.mixed_last_launch()["device_launches"],
-                             part=mixed_part)}
+                             part=kernel_part)}
     emit(row)
     return row
 
@@ -2881,6 +3003,7 @@ def run_phases(torch, dev) -> list:
     profile_eager_train()
     free(torch)
     paged_profile = profile_paged(torch, dev)
+    gumbel_profile = profile_gumbel(torch, dev)
     decode_profile = profile_decode(torch, dev)
     mixed_profile = profile_mixed(torch, dev)
     rwkv6_profile = profile_rwkv6(torch, dev)
@@ -2921,6 +3044,7 @@ def run_phases(torch, dev) -> list:
         if "variant" in r:
             entry["variant"] = r["variant"]
         profiled = {"paged_attention": paged_profile,
+                    "gumbel_perturb": gumbel_profile,
                     "decode_attention": decode_profile,
                     "mixed_attention": mixed_profile,
                     "rwkv6_scan": rwkv6_profile,

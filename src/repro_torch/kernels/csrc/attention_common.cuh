@@ -141,25 +141,39 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // The n splits of one output row merged in split order by one warp: ml
-// holds each split's (m, l), m in log2 units, and po its unnormalised O
-// (d floats a split).  The lanes read the splits' (m, l) a split each and
-// reduce them with shuffles in a fixed tree; then every lane accumulates
-// its columns over the splits in split order, so every run gives the same
-// bits.  A lane takes 4 columns in each 128-column half of 256 columns,
-// and the split loop is unrolled by 8: up to 16 of its loads are in
-// flight at once (the merge waits on L2 latency, not bandwidth).  Writes
-// the normalised row to out (d bf16).
+// holds each split's (m, l) and po its unnormalised O (d floats a split);
+// m is in log2 units when LOG2 (the bf16 kernels' exp2f softmax), else
+// in natural units (the fp32 kernels' expf).  The lanes read the splits'
+// (m, l) a split each and reduce them with shuffles in a fixed tree; then
+// every lane accumulates its columns over the splits in split order, so
+// every run gives the same bits.  A lane takes 4 columns in each
+// 128-column half of 256 columns, and the split loop is unrolled by 8: up
+// to 16 of its loads are in flight at once (the merge waits on L2
+// latency, not bandwidth).  Writes the normalised row to out (d of T).
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 a,
+                                       float inv) {
+  uint2 pk;
+  pk.x = pack_bf16(a.x * inv, a.y * inv);
+  pk.y = pack_bf16(a.z * inv, a.w * inv);
+  *reinterpret_cast<uint2*>(out) = pk;
+}
+__device__ __forceinline__ void store4(float* out, float4 a, float inv) {
+  *reinterpret_cast<float4*>(out) =
+      make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+}
+
+template <bool LOG2 = true, typename T>
 __device__ __forceinline__ void combine_splits(const float* ml,
-                                               const float* po,
-                                               __nv_bfloat16* out, int n,
-                                               int d) {
+                                               const float* po, T* out,
+                                               int n, int d) {
   const int lane = threadIdx.x & 31;
+  auto ex = [](float x) { return LOG2 ? exp2f(x) : expf(x); };
   float mx = kNegInf;
   for (int s = lane; s < n; s += 32) mx = fmaxf(mx, ml[2 * s]);
   mx = warp_max(mx);
   float lsum = 0.f;
   for (int s = lane; s < n; s += 32)
-    lsum += ml[2 * s + 1] * exp2f(ml[2 * s] - mx);
+    lsum += ml[2 * s + 1] * ex(ml[2 * s] - mx);
   const float inv = 1.f / fmaxf(warp_sum(lsum), 1e-30f);
   for (int c0 = lane * 4; c0 < d; c0 += 256) {
     const int c1 = c0 + 128;
@@ -168,7 +182,7 @@ __device__ __forceinline__ void combine_splits(const float* ml,
     float4 a1 = a0;
 #pragma unroll 8
     for (int s = 0; s < n; ++s) {
-      const float w = exp2f(ml[2 * s] - mx);
+      const float w = ex(ml[2 * s] - mx);
       const float* ps = po + s * d;
       const float4 x = *reinterpret_cast<const float4*>(ps + c0);
       const float4 y = two ? *reinterpret_cast<const float4*>(ps + c1)
@@ -182,15 +196,8 @@ __device__ __forceinline__ void combine_splits(const float* ml,
       a1.z += y.z * w;
       a1.w += y.w * w;
     }
-    uint2 pk;
-    pk.x = pack_bf16(a0.x * inv, a0.y * inv);
-    pk.y = pack_bf16(a0.z * inv, a0.w * inv);
-    *reinterpret_cast<uint2*>(out + c0) = pk;
-    if (two) {
-      pk.x = pack_bf16(a1.x * inv, a1.y * inv);
-      pk.y = pack_bf16(a1.z * inv, a1.w * inv);
-      *reinterpret_cast<uint2*>(out + c1) = pk;
-    }
+    store4(out + c0, a0, inv);
+    if (two) store4(out + c1, a1, inv);
   }
 }
 

@@ -1,7 +1,7 @@
-// The tensor-core tile machinery shared by the bf16 paged kernel
-// (paged_attention.cu) and the bf16 mixed kernel (mixed_attention.cu):
-// both run query tiles of same-slot tokens x G heads against split key
-// ranges, on mma.sync.
+// The tile machinery shared by the paged kernel (paged_attention.cu) and
+// the bf16 mixed kernel (mixed_attention.cu): both run query tiles of
+// same-slot tokens x G heads against split key ranges, bf16 on mma.sync,
+// fp32 (paged) on the CUDA cores.
 //
 //   * the work list: `build_worklist`, the body of each kernel's one-block
 //     pre-pass, and its shape on the host (`Tiling`, `worklist_bytes`);
@@ -10,6 +10,10 @@
 //   * a work item's Q rows (`load_q_tile`) and its end (`finish_item`):
 //     the normalised rows of a tile of one split, or the split's fp32
 //     (m, l) and unnormalised O for the combine;
+//   * the fp32 counterparts on the CUDA cores ("simt"): one 32-key tile of
+//     one warp's 8 rows (`simt_tile`: register micro-tiles, the online
+//     softmax in natural units with expf) and a work item's end
+//     (`finish_simt_item`), for every fp32 split-KV path;
 //   * the combine of one output row's splits (`combine_row`), on
 //     repro_attn::combine_splits;
 //   * host helpers: shared-memory opt-in, occupancy, kernel attributes,
@@ -249,22 +253,22 @@ __device__ __forceinline__ void mma_tile(float (&o)[D / 8][4], float (&m)[2],
   }
 }
 
-// The Q rows of a work item into qs (row stride D + 8), by cp.async: row r
-// is head (row_base + r) % G of token first + (row_base + r) / G; rows
-// past the tile (r >= n_rows) are zeros.  q is (T, Hkv, G, D).
-template <int D>
-__device__ __forceinline__ void load_q_tile(__nv_bfloat16* qs,
-                                            const __nv_bfloat16* q, int first,
+// The Q rows of a work item into qs (row stride RS: D + 8 for bf16), by
+// cp.async from kThreads threads: row r is head (row_base + r) % G of
+// token first + (row_base + r) / G; rows past the tile (r >= n_rows) are
+// zeros.  q is (T, Hkv, G, D).
+template <int D, typename T, int RS = D + 8, int kThreads = kMmaThreads>
+__device__ __forceinline__ void load_q_tile(T* qs, const T* q, int first,
                                             int row_base, int n_rows, int h,
                                             int hkv, int g, int tid) {
-  constexpr int RS = D + 8;
-  constexpr int kChunks = D / 8;  // 16-byte chunks of a bf16 row
-  for (int c = tid; c < kRows * kChunks; c += kMmaThreads) {
+  constexpr int kElems = 16 / sizeof(T);  // elements of a 16-byte chunk
+  constexpr int kChunks = D / kElems;
+  for (int c = tid; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks;
-    const int col = (c - r * kChunks) * 8;
+    const int col = (c - r * kChunks) * kElems;
     const bool ok = r < n_rows;
     const int gr = row_base + (ok ? r : 0);
-    const __nv_bfloat16* src =
+    const T* src =
         q + ((static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g) *
                 D +
         col;
@@ -337,13 +341,14 @@ __device__ __forceinline__ void finish_item(
 }
 
 // The combine's body: the splits of each output row merged in split order
-// (combine_splits), one warp per row (token, KV head, query head) of a
-// token whose tile has more than one split.
+// (combine_splits: m in log2 units when LOG2), one warp per row (token,
+// KV head, query head) of a token whose tile has more than one split.
+template <bool LOG2 = true, typename T>
 __device__ __forceinline__ void combine_row(const int* __restrict__ tiles,
                                             const float* __restrict__ part_o,
                                             const float* __restrict__ part_ml,
-                                            __nv_bfloat16* __restrict__ out,
-                                            int t, int hkv, int g, int d,
+                                            T* __restrict__ out, int t,
+                                            int hkv, int g, int d,
                                             int max_splits) {
   const size_t row =
       static_cast<size_t>(blockIdx.x) * (kCombineThreads / 32) +
@@ -352,8 +357,190 @@ __device__ __forceinline__ void combine_row(const int* __restrict__ tiles,
   const int tok = static_cast<int>(row / (static_cast<size_t>(hkv) * g));
   const int n = tiles[2 + t * (kTileFields + max_splits) + tok];
   if (n <= 1) return;
-  combine_splits(part_ml + row * max_splits * 2, part_o + row * max_splits * d,
-                 out + row * d, n, d);
+  combine_splits<LOG2>(part_ml + row * max_splits * 2,
+                       part_o + row * max_splits * d, out + row * d, n, d);
+}
+
+// ---------------------------------------------------------------------
+// fp32 on the CUDA cores ("simt"): the same work items, 8 warps a block,
+// 8 of the 64 rows a warp.  Lane (rg, cg) = (lane / 8, lane % 8) holds
+// rows 8 * warp + 2 * rg and + 1; of a 32-key tile it scores keys cg, cg
+// + 8, cg + 16 and cg + 24 (so the 8 lanes of a row hold its 32 keys and
+// reduce them with three shuffles), and of O it holds D / 8 columns, in
+// chunks of kCW at cg * kCW + 8 * kCW * n.  Shared rows are padded by
+// kSimtPad floats: the 16-byte loads of 8 lanes that read 8 different
+// rows then hit 8 different bank groups, and the rows of the 4 row
+// groups are broadcasts.
+
+constexpr int kSimtThreads = 256;
+constexpr int kSimtPad = 4;        // floats a shared row is padded by
+
+template <int D>
+struct SimtCols {
+  static constexpr int kCW = D >= 32 ? 4 : 2;  // columns of a chunk
+  static constexpr int kNC = D / (8 * kCW);    // chunks a lane
+};
+
+// kCW floats from shared memory / to global memory
+template <int N>
+__device__ __forceinline__ void load_cols(const float* p, float* v) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_cols(float* p, const float* v,
+                                           float inv) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) =
+        make_float4(v[0] * inv, v[1] * inv, v[2] * inv, v[3] * inv);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0] * inv, v[1] * inv);
+}
+
+// One 32-key tile of one lane's two rows: S = Q K^T (a 2 x 4 micro-tile),
+// the online softmax in fp32 with expf, P through the warp's rows of the
+// shared P buffer (pa: the lane's first row, stride kBK + kSimtPad), then
+// O += P V (a 2 x D / 8 micro-tile).  qa: the lane's first Q row (the
+// second follows at RS); kt / vt: the tile's K and V rows (stride RS); k0:
+// the tile's first key; k_end: the split's end; pos_r: the positions of
+// the lane's rows.  Every product and sum is taken in a fixed order with
+// explicit rounding (__fmul_rn, __fmaf_rn), so a row's result depends
+// neither on the other rows of its tile nor on the MASK instantiation.
+template <int D, bool MASK>
+__device__ __forceinline__ void simt_tile(
+    float (&o)[2][D / 8], float (&m)[2], float (&l)[2], const float* qa,
+    const float* kt, const float* vt, float* pa, float scale, int k0,
+    int k_end, const int (&pos_r)[2], int window, int cg) {
+  constexpr int RS = D + kSimtPad;
+  constexpr int PS = kBK + kSimtPad;
+  constexpr int kCW = SimtCols<D>::kCW;
+  constexpr int kNC = SimtCols<D>::kNC;
+  float s[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+  const float* kc = kt + cg * RS;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float4 q0 = *reinterpret_cast<const float4*>(qa + d);
+    const float4 q1 = *reinterpret_cast<const float4*>(qa + RS + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 k = *reinterpret_cast<const float4*>(kc + 8 * i * RS + d);
+      s[0][i] = __fmaf_rn(q0.x, k.x, s[0][i]);
+      s[0][i] = __fmaf_rn(q0.y, k.y, s[0][i]);
+      s[0][i] = __fmaf_rn(q0.z, k.z, s[0][i]);
+      s[0][i] = __fmaf_rn(q0.w, k.w, s[0][i]);
+      s[1][i] = __fmaf_rn(q1.x, k.x, s[1][i]);
+      s[1][i] = __fmaf_rn(q1.y, k.y, s[1][i]);
+      s[1][i] = __fmaf_rn(q1.z, k.z, s[1][i]);
+      s[1][i] = __fmaf_rn(q1.w, k.w, s[1][i]);
+    }
+  }
+
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = __fmul_rn(s[r][i], scale);
+      if constexpr (MASK) {
+        const int k_pos = k0 + cg + 8 * i;
+        bool ok = k_pos < k_end && k_pos <= pos_r[r];
+        if (window > 0) ok = ok && k_pos > pos_r[r] - window;
+        x = ok ? x : kNegInf;
+      }
+      s[r][i] = x;
+      mx = fmaxf(mx, x);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 8; o2 <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+    const float m_new = fmaxf(m[r], mx);
+    alpha[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float p = expf(s[r][i] - m_new);
+      if constexpr (MASK) p = s[r][i] == kNegInf ? 0.f : p;
+      pa[r * PS + cg + 8 * i] = p;
+      sum = __fadd_rn(sum, p);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 8; o2 <<= 1)
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o2));
+    l[r] = __fmaf_rn(l[r], alpha[r], sum);
+  }
+  __syncwarp();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) o[r][c] = __fmul_rn(o[r][c], alpha[r]);
+  const float* vc = vt + cg * kCW;
+#pragma unroll 2
+  for (int j = 0; j < kBK; j += 4) {
+    float p[2][4];
+    load_cols<4>(pa + j, p[0]);
+    load_cols<4>(pa + PS + j, p[1]);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int n = 0; n < kNC; ++n) {
+        float v[kCW];
+        load_cols<kCW>(vc + (j + jj) * RS + 8 * kCW * n, v);
+#pragma unroll
+        for (int e = 0; e < kCW; ++e) {
+          o[0][n * kCW + e] = __fmaf_rn(p[0][jj], v[e], o[0][n * kCW + e]);
+          o[1][n * kCW + e] = __fmaf_rn(p[1][jj], v[e], o[1][n * kCW + e]);
+        }
+      }
+    }
+  }
+}
+
+// The end of a simt work item for a lane's two rows (r0, r0 + 1 of the
+// block's 64): a tile of one split writes its normalised rows to out (T,
+// Hkv, G, D); a split of several writes its unnormalised O and (m, l),
+// m in natural units, for the combine (combine_row<false>).
+template <int D>
+__device__ __forceinline__ void finish_simt_item(
+    const float (&o)[2][D / 8], const float (&m)[2], const float (&l)[2],
+    float* out, float* part_o, float* part_ml, int n_splits, int split,
+    int max_splits, int first, int row_base, int n_rows, int h, int hkv,
+    int g, int r0, int cg) {
+  constexpr int kCW = SimtCols<D>::kCW;
+  constexpr int kNC = SimtCols<D>::kNC;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + r >= n_rows) continue;
+    const int gr = row_base + r0 + r;
+    const size_t orow =
+        (static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g;
+    float* dst;
+    float inv = 1.f;
+    if (n_splits == 1) {
+      dst = out + orow * D;
+      inv = 1.f / fmaxf(l[r], 1e-30f);
+    } else {
+      const size_t prow = orow * max_splits + split;
+      dst = part_o + prow * D;
+      if (cg == 0)
+        *reinterpret_cast<float2*>(part_ml + prow * 2) =
+            make_float2(m[r], l[r]);
+    }
+#pragma unroll
+    for (int n = 0; n < kNC; ++n)
+      store_cols<kCW>(dst + cg * kCW + 8 * kCW * n, o[r] + n * kCW, inv);
+  }
 }
 
 // ---------------------------------------------------------------------

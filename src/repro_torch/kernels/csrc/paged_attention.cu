@@ -94,28 +94,49 @@
 //     kernel (mixed_attention.cu), which runs this design over contiguous
 //     per-slot caches.
 //
-// fp32 queries: CUDA cores ("simt", the first design; one launch a call).
-// fp32 is the parity path, held to 1e-5; the tensor cores would take it in
-// TF32 or bf16.
-//   * one block per (token, kv-head); the block holds all G query heads
-//     of the group, so a page is read once for the G heads;
-//   * the block reads its own table row and loops over the LIVE pages
-//     only: [first page of the window, page of pos[t]];
-//   * each page is staged as a (ps, D) fp32 tile in shared memory for K
-//     and for V; int8 / fp8_e4m3 codes are dequantized there from the
-//     (N, ps, Hkv) fp32 scales, so the fp32 pool never exists in memory;
-//   * scores: one warp per (head, key) pair, a shuffle reduction over D;
-//     the PV update: each thread owns (head, d) accumulators in shared
-//     memory.  Accumulation is fp32 throughout.
-//
+// fp32 queries: CUDA cores ("simt", three launches a call as for bf16).
+// fp32 is the parity path, held to 1e-5, which TF32 misses, so the math
+// stays on the CUDA cores, and what bounds it is operations: 4*G*D flops
+// a live (token, key) pair at 67 TFLOP/s (at serving's mixed batch about
+// twice the time of reading the live fp32 pages once).  It runs the same
+// work list, pre-pass and split combine as the bf16 path:
+//   * persistent blocks of 8 warps walk the work items; a warp owns 8 of
+//     the tile's 64 rows, and a warp with no live row (a decode tile of
+//     G rows) skips the products but helps with the copies;
+//   * each split's 32-key K and V tiles are gathered through the table
+//     (the pool row of every key staged first, as for bf16) and copied by
+//     cp.async into a 2-stage ring of fp32 rows padded by 16 bytes; int8
+//     and fp8 codes are staged as they are and dequantized once into one
+//     fp32 stage with the (N, ps, Hkv) scales, so the fp32 pool never
+//     exists in memory; the tile's Q rows stay in shared memory.  Each
+//     K/V element is read from memory once a tile (not once a token, as
+//     the first design did: one block per token read its whole context);
+//   * S = Q K^T and O += P V are register micro-tiles (a lane: 2 rows x 4
+//     keys, then 2 rows x D / 8 columns; repro_attn::simt_tile), so each
+//     shared K/V load serves 2 rows and each Q load 4 keys, the 8 lanes
+//     of a row hold its 32 keys and the online softmax (fp32, exact
+//     expf) reduces them with three shuffles: the tile needs no block
+//     barrier between S and O, only the warp's;
+//   * a token's result does not depend on its tile-mates: without a
+//     window, splits start at key 0 in multiples of kSplitKeys, every row
+//     masks by its own position (a key tile or split a row cannot see
+//     adds exact zeros), every sum runs in a fixed order with explicit
+//     rounding, and the combine divides as the one-split end does;
+//   * shared memory at D = 256: Q 66.5 KB, the fp32 ring 133 KB, P 9 KB:
+//     one block of 256 threads an SM; O is 64 fp32 registers a lane.
+//     `repro_paged_attention_attrs` reports registers, spill bytes, shared
+//     memory and blocks per SM of each instantiation.
+//   Any page size works: keys are staged one by one through the table,
+//   never a page at a time (the first design refused page sizes whose
+//   (ps, D) K and V tiles did not fit in shared memory).
+
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * lane padding (`_pad_last`, repro/kernels/ops.py:37-43): head_dim
 //     is a template parameter here; no pool copy is ever padded;
 //   * the `d % 128 == 0` auto rule and its try/except fallback
 //     (repro/models/attention.py:243-256): the kernel takes every
 //     instantiated head_dim, and the wrapper raises on any other;
-//   * the (g, 128) VMEM scratch for m and l: registers (bf16) or G floats
-//     in shared memory (fp32);
+//   * the (g, 128) VMEM scratch for m and l: registers;
 //   * the sequential grid over one token's pages that carries the softmax
 //     state: a loop in the block over its split's keys, and a combine
 //     kernel that merges the splits in split order;
@@ -148,172 +169,18 @@ using repro_attn::kMmaThreads;
 using repro_attn::kNegInf;
 using repro_attn::kPrepassThreads;
 using repro_attn::kRows;
+using repro_attn::kSimtPad;
+using repro_attn::kSimtThreads;
 using repro_attn::kSplitKeys;
 using repro_attn::kTileFields;
 using repro_attn::kernel_attrs;
 using repro_attn::mma_tile;
 using repro_attn::record;
+using repro_attn::simt_tile;
 using repro_attn::smem_u32;
-using repro_attn::store;
 using repro_attn::Tiling;
 using repro_attn::to_f;
 using repro_attn::worklist_bytes;
-
-// ---------------------------------------------------------------------
-// fp32 queries on the CUDA cores ("simt")
-
-constexpr int kThreads = 256;
-
-template <typename QT, typename KT, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const QT* __restrict__ q,          // (T, Hkv, G, D)
-                       const KT* __restrict__ k_pages,    // (N, ps, Hkv, D)
-                       const KT* __restrict__ v_pages,
-                       const float* __restrict__ k_scale, // (N, ps, Hkv)|null
-                       const float* __restrict__ v_scale,
-                       const int* __restrict__ tables,    // (S, P)
-                       const int* __restrict__ seg,       // (T,)
-                       const int* __restrict__ pos,       // (T,)
-                       QT* __restrict__ out,              // (T, Hkv, G, D)
-                       int hkv, int g, int ps, int s_slots, int p_pages,
-                       float scale, int window) {
-  extern __shared__ float smem[];
-  float* ks = smem;               // (ps, D)
-  float* vs = ks + ps * D;        // (ps, D)
-  float* qs = vs + ps * D;        // (G, D)
-  float* acc = qs + g * D;        // (G, D)
-  float* sc = acc + g * D;        // (G, ps) scores, then probabilities
-  float* m = sc + g * ps;         // (G,)
-  float* l = m + g;               // (G,)
-  float* alpha = l + g;           // (G,)
-
-  const int t = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  int slot = seg[t];
-  slot = slot < 0 ? 0 : (slot > s_slots - 1 ? s_slots - 1 : slot);
-  const int p_t = pos[t];
-  const int* row = tables + static_cast<size_t>(slot) * p_pages;
-
-  const QT* qp = q + (static_cast<size_t>(t) * hkv + h) * g * D;
-  for (int e = tid; e < g * D; e += blockDim.x) {
-    qs[e] = to_f(qp[e]);
-    acc[e] = 0.f;
-  }
-  for (int e = tid; e < g; e += blockDim.x) {
-    m[e] = kNegInf;
-    l[e] = 0.f;
-  }
-
-  // live pages: from the first page that holds a key inside the window
-  // to the page holding pos[t] (causal); never past the table width
-  int last = p_t / ps;
-  if (last > p_pages - 1) last = p_pages - 1;
-  int first = 0;
-  if (window > 0) {
-    const int lo = p_t - window + 1;
-    if (lo > 0) first = lo / ps;
-  }
-  __syncthreads();
-
-  for (int pi = first; pi <= last; ++pi) {
-    const size_t page = static_cast<size_t>(row[pi]);
-    const int k_start = pi * ps;
-
-    for (int e = tid; e < ps * D; e += blockDim.x) {
-      const int j = e / D;
-      const int d = e - j * D;
-      const size_t tok = page * ps + j;
-      const size_t off = (tok * hkv + h) * D + d;
-      float kf = to_f(k_pages[off]);
-      float vf = to_f(v_pages[off]);
-      if (k_scale != nullptr) {
-        kf *= k_scale[tok * hkv + h];
-        vf *= v_scale[tok * hkv + h];
-      }
-      ks[e] = kf;
-      vs[e] = vf;
-    }
-    __syncthreads();
-
-    for (int pr = warp; pr < g * ps; pr += n_warps) {
-      const int gi = pr / ps;
-      const int j = pr - gi * ps;
-      float sum = 0.f;
-#pragma unroll
-      for (int d = lane; d < D; d += 32) sum += qs[gi * D + d] * ks[j * D + d];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const int kp = k_start + j;
-        const bool ok = kp <= p_t && (window <= 0 || kp > p_t - window);
-        sc[pr] = ok ? sum * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    for (int gi = tid; gi < g; gi += blockDim.x) {
-      const float m_prev = m[gi];
-      float m_new = m_prev;
-      for (int j = 0; j < ps; ++j) m_new = fmaxf(m_new, sc[gi * ps + j]);
-      float s = 0.f;
-      for (int j = 0; j < ps; ++j) {
-        const float p = expf(sc[gi * ps + j] - m_new);
-        sc[gi * ps + j] = p;
-        s += p;
-      }
-      const float a = expf(m_prev - m_new);
-      l[gi] = a * l[gi] + s;
-      m[gi] = m_new;
-      alpha[gi] = a;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < g * D; e += blockDim.x) {
-      const int gi = e / D;
-      const int d = e - gi * D;
-      float a = acc[e] * alpha[gi];
-      const float* pg = sc + gi * ps;
-      for (int j = 0; j < ps; ++j) a += pg[j] * vs[j * D + d];
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-
-  QT* op = out + (static_cast<size_t>(t) * hkv + h) * g * D;
-  for (int e = tid; e < g * D; e += blockDim.x)
-    store(op + e, acc[e] / fmaxf(l[e / D], 1e-30f));
-}
-
-size_t simt_smem_bytes(int d, int g, int ps) {
-  return sizeof(float) * (2 * ps * d + 2 * g * d + g * ps + 3 * g);
-}
-
-template <typename KT, int D>
-int launch_simt(const void* q, const void* k_pages, const void* v_pages,
-                const float* k_scale, const float* v_scale, const int* tables,
-                const int* seg, const int* pos, void* out, int t, int hkv,
-                int g, int ps, int s_slots, int p_pages, float scale,
-                int window, cudaStream_t stream) {
-  const size_t smem = simt_smem_bytes(D, g, ps);
-  auto kernel = paged_attention_kernel<float, KT, D>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(t, hkv);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const KT*>(k_pages),
-      static_cast<const KT*>(v_pages), k_scale, v_scale, tables, seg, pos,
-      static_cast<float*>(out), hkv, g, ps, s_slots, p_pages, scale, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------
-// bf16 queries on the tensor cores ("mma")
 
 using bf16 = __nv_bfloat16;
 
@@ -339,18 +206,49 @@ constexpr size_t mma_smem_bytes() {
          (kCodes ? 4 * kBK * D : 0) + kSplitKeys * (kCodes ? 12 : 4);
 }
 
+// The pool row of every key of the split [k_begin, k_begin + n_keys) of
+// `slot` into key_tok (key k lives in page tables[slot, k / ps], row k %
+// ps, so every page size works), and for a code pool its K and V scales;
+// entries past n_keys are row 0 with scales 0, never read through a live
+// score.
+template <bool CODES, int kThreads>
+__device__ __forceinline__ void stage_key_rows(
+    int* key_tok, float* k_sc, float* v_sc, const int* tables,
+    const float* k_scale, const float* v_scale, int slot, int p_pages,
+    int ps, int k_begin, int n_keys, int h, int hkv, int tid) {
+  const int* tab = tables + static_cast<size_t>(slot) * p_pages;
+  for (int j = tid; j < kSplitKeys; j += kThreads) {
+    int tok = 0;
+    float ks = 0.f, vs = 0.f;
+    if (j < n_keys) {
+      const int key = k_begin + j;
+      tok = tab[key / ps] * ps + key % ps;
+      if constexpr (CODES) {
+        ks = k_scale[static_cast<size_t>(tok) * hkv + h];
+        vs = v_scale[static_cast<size_t>(tok) * hkv + h];
+      }
+    }
+    key_tok[j] = tok;
+    if constexpr (CODES) {
+      k_sc[j] = ks;
+      v_sc[j] = vs;
+    }
+  }
+}
+
 // kBK key rows j0 .. j0+kBK-1 of the split (pool rows key_tok[j]) of KV
-// head h into a shared tile of row stride D + 8 (bf16) or D (codes), by
-// cp.async; rows >= n_keys become zeros.
-template <typename KT, int D>
+// head h into a shared tile of row stride kStride (the mma kernel: D + 8
+// for bf16, D for codes), by cp.async from kThreads threads; rows >=
+// n_keys become zeros.
+template <typename KT, int D, int kStride = (sizeof(KT) == 1 ? D : D + 8),
+          int kThreads = kMmaThreads>
 __device__ __forceinline__ void copy_keys(KT* dst, const KT* pool,
                                           const int* key_tok, int j0,
                                           int n_keys, int h, int hkv,
                                           int tid) {
   constexpr int kElems = 16 / sizeof(KT);  // elements of a 16-byte chunk
   constexpr int kChunks = D / kElems;
-  constexpr int kStride = sizeof(KT) == 1 ? D : D + 8;
-  for (int c = tid; c < kBK * kChunks; c += kMmaThreads) {
+  for (int c = tid; c < kBK * kChunks; c += kThreads) {
     const int r = c / kChunks;
     const int col = (c - r * kChunks) * kElems;
     const bool ok = j0 + r < n_keys;
@@ -497,26 +395,9 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
 
     repro_attn::load_q_tile<D>(qs, q, first, row_base, n_rows, h, hkv, g,
                                tid);
-    // the pool row of every key of the split (and its scales); entries
-    // past n_keys are row 0 with scales 0, never read through a live score
-    const int* tab = tables + static_cast<size_t>(slot) * p_pages;
-    for (int j = tid; j < kSplitKeys; j += kMmaThreads) {
-      int tok = 0;
-      float ks = 0.f, vs = 0.f;
-      if (j < n_keys) {
-        const int key = k_begin + j;
-        tok = tab[key / ps] * ps + key % ps;
-        if constexpr (kCodes) {
-          ks = k_scale[static_cast<size_t>(tok) * hkv + h];
-          vs = v_scale[static_cast<size_t>(tok) * hkv + h];
-        }
-      }
-      key_tok[j] = tok;
-      if constexpr (kCodes) {
-        k_sc[j] = ks;
-        v_sc[j] = vs;
-      }
-    }
+    stage_key_rows<kCodes, kMmaThreads>(key_tok, k_sc, v_sc, tables,
+                                        k_scale, v_scale, slot, p_pages, ps,
+                                        k_begin, n_keys, h, hkv, tid);
     __syncthreads();
 
     const int n_kt = (n_keys + kBK - 1) / kBK;
@@ -597,16 +478,208 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
   }
 }
 
+// ---------------------------------------------------------------------
+// fp32 queries on the CUDA cores ("simt")
+
+// Shared memory of the simt kernel: the Q tile (fp32 rows of D + kSimtPad);
+// for an fp32 pool a 2-stage ring of (K, V) fp32 tiles; for a code pool a
+// 2-stage ring of (K, V) code tiles and one (K, V) fp32 stage they are
+// dequantized into; the P rows; then each key of the split's pool row
+// (and its K and V scales for a code pool).
+template <typename KT, int D>
+constexpr size_t simt_smem_bytes() {
+  constexpr bool kCodes = sizeof(KT) == 1;
+  constexpr size_t kTileBytes = sizeof(float) * kBK * (D + kSimtPad);
+  return sizeof(float) * kRows * (D + kSimtPad) +
+         (kCodes ? 2 : 4) * kTileBytes + (kCodes ? 4 * kBK * D : 0) +
+         sizeof(float) * kRows * (kBK + kSimtPad) +
+         kSplitKeys * (kCodes ? 12 : 4);
+}
+
+// kBK rows of D codes -> fp32 rows of stride D + kSimtPad, each times its
+// key's scale (exact codes, one rounding: the plain version's
+// dequantization)
+template <typename KT, int D>
+__device__ __forceinline__ void dequantize_keys(float* dst, const KT* src,
+                                                const float* sc, int tid) {
+  constexpr int kSteps = D / 4;
+  for (int c = tid; c < kBK * kSteps; c += kSimtThreads) {
+    const int r = c / kSteps;
+    const int col = (c - r * kSteps) * 4;
+    const KT* x = src + r * D + col;
+    const float f = sc[r];
+    *reinterpret_cast<float4*>(dst + r * (D + kSimtPad) + col) =
+        make_float4(to_f(x[0]) * f, to_f(x[1]) * f, to_f(x[2]) * f,
+                    to_f(x[3]) * f);
+  }
+}
+
+// Persistent blocks over the work list, as paged_attention_mma: block (x,
+// z) takes items x, x + gridDim.x, ... for KV head z % Hkv and row block
+// z / Hkv; warp w owns rows 8w .. 8w + 7 of the block's 64.
+template <typename KT, int D>
+__global__ void __launch_bounds__(kSimtThreads, 1)
+paged_attention_simt(const float* __restrict__ q,      // (T, Hkv, G, D)
+                     const KT* __restrict__ k_pages,   // (N, ps, Hkv, D)
+                     const KT* __restrict__ v_pages,
+                     const float* __restrict__ k_scale,  // (N, ps, Hkv)|null
+                     const float* __restrict__ v_scale,
+                     const int* __restrict__ tables,   // (S, P)
+                     const int* __restrict__ pos,      // (T,)
+                     const int* __restrict__ tiles,    // the work list
+                     float* __restrict__ out,          // (T, Hkv, G, D)
+                     float* __restrict__ part_o,  // (T*Hkv*G, splits, D)
+                     float* __restrict__ part_ml,  // (T*Hkv*G, splits, 2)
+                     int t, int hkv, int g, int ps, int p_pages,
+                     int max_splits, float scale, int window) {
+  constexpr bool kCodes = sizeof(KT) == 1;
+  constexpr int RS = D + kSimtPad;
+  constexpr int kTile = kBK * RS;  // floats of a K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  float* qs = reinterpret_cast<float*>(smem_raw);  // (kRows, RS)
+  // fp32 pool: stage s has K at tile 2s, V at 2s + 1; codes: one stage
+  float* kv = qs + kRows * RS;
+  KT* codes = reinterpret_cast<KT*>(kv + (kCodes ? 2 : 4) * kTile);
+  float* pbuf = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(codes) + (kCodes ? 4 * kBK * D : 0));
+  int* key_tok = reinterpret_cast<int*>(pbuf + kRows * (kBK + kSimtPad));
+  float* k_sc = reinterpret_cast<float*>(key_tok + kSplitKeys);
+  float* v_sc = k_sc + kSplitKeys;
+  const int ring_tile = kCodes ? kBK * D : kTile;  // elements of a stage half
+  KT* ring = kCodes ? codes : reinterpret_cast<KT*>(kv);
+  constexpr int kStride = kCodes ? D : RS;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int cg = lane & 7;                      // key / column group
+  const int r0 = warp * 8 + (lane >> 3) * 2;    // the lane's first row
+  const int h = blockIdx.z % hkv;
+  const int row_base = (blockIdx.z / hkv) * kRows;  // in the tile's rows
+
+  const int* descs = tiles + 2;
+  const int* items = descs + t * kTileFields;
+  const int n_slots = t * max_splits;  // entries of `items`
+  const int n_items = tiles[1];
+  int item = static_cast<int>(blockIdx.x) < n_slots ? items[blockIdx.x] : 0;
+
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int tile = item % t;
+    const int split = item / t;
+    const int w_next = w + gridDim.x;
+    const int item_next = w_next < n_slots ? items[w_next] : 0;
+    const int* desc = descs + tile * kTileFields;
+    const int first = desc[0];
+    const int n_rows = min(kRows, desc[1] * g - row_base);
+    if (n_rows <= 0) {  // no row block z of this tile
+      item = item_next;
+      continue;
+    }
+    const int slot = desc[2];
+    const int n_splits = desc[5];
+    const int k_begin = desc[3] + split * kSplitKeys;
+    const int k_end = min(desc[4], k_begin + kSplitKeys);
+    const int n_keys = k_end - k_begin;
+    const int min_pos = desc[6];
+    const int max_pos = desc[7];
+
+    repro_attn::load_q_tile<D, float, RS, kSimtThreads>(
+        qs, q, first, row_base, n_rows, h, hkv, g, tid);
+    stage_key_rows<kCodes, kSimtThreads>(key_tok, k_sc, v_sc, tables,
+                                         k_scale, v_scale, slot, p_pages, ps,
+                                         k_begin, n_keys, h, hkv, tid);
+    __syncthreads();
+
+    const int n_kt = (n_keys + kBK - 1) / kBK;
+    if (n_kt > 0) {
+      copy_keys<KT, D, kStride, kSimtThreads>(ring, k_pages, key_tok, 0,
+                                              n_keys, h, hkv, tid);
+      copy_keys<KT, D, kStride, kSimtThreads>(ring + ring_tile, v_pages,
+                                              key_tok, 0, n_keys, h, hkv,
+                                              tid);
+    }
+    cp_async_commit();
+
+    // this lane's rows' positions (rows past the tile see nothing)
+    int pos_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      pos_r[r] = r0 + r < n_rows ? pos[first + (row_base + r0 + r) / g] : -1;
+    const bool warp_live = warp * 8 < n_rows;
+
+    float o[2][D / 8];
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) o[r][c] = 0.f;
+
+    for (int it = 0; it < n_kt; ++it) {
+      if (it + 1 < n_kt) {
+        KT* next = ring + ((it + 1) & 1) * 2 * ring_tile;
+        copy_keys<KT, D, kStride, kSimtThreads>(
+            next, k_pages, key_tok, (it + 1) * kBK, n_keys, h, hkv, tid);
+        copy_keys<KT, D, kStride, kSimtThreads>(
+            next + ring_tile, v_pages, key_tok, (it + 1) * kBK, n_keys, h,
+            hkv, tid);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* k_tile;
+      if constexpr (kCodes) {
+        const KT* stage = ring + (it & 1) * 2 * ring_tile;
+        dequantize_keys<KT, D>(kv, stage, k_sc + it * kBK, tid);
+        dequantize_keys<KT, D>(kv + kTile, stage + ring_tile,
+                               v_sc + it * kBK, tid);
+        __syncthreads();
+        k_tile = kv;
+      } else {
+        k_tile = kv + (it & 1) * 2 * kTile;
+      }
+      if (warp_live) {
+        const int k0 = k_begin + it * kBK;
+        const bool need_mask = k0 + kBK > k_end || k0 + kBK - 1 > min_pos ||
+                               (window > 0 && k0 <= max_pos - window);
+        float* pa = pbuf + r0 * (kBK + kSimtPad);
+        if (need_mask)
+          simt_tile<D, true>(o, m, l, qs + r0 * RS, k_tile, k_tile + kTile,
+                             pa, scale, k0, k_end, pos_r, window, cg);
+        else
+          simt_tile<D, false>(o, m, l, qs + r0 * RS, k_tile, k_tile + kTile,
+                              pa, scale, k0, k_end, pos_r, window, cg);
+      }
+      __syncthreads();  // the stage (and P) is refilled next iteration
+    }
+    cp_async_wait<0>();  // the Q copy, when no key tile was live
+    __syncthreads();
+
+    repro_attn::finish_simt_item<D>(o, m, l, out, part_o, part_ml, n_splits,
+                                    split, max_splits, first, row_base,
+                                    n_rows, h, hkv, g, r0, cg);
+    __syncthreads();  // shared memory is refilled by the next item
+    item = item_next;
+  }
+}
+
+// ---------------------------------------------------------------------
+// the launches, shared by both variants
+
 // The splits of each output row merged in split order
-// (repro_attn::combine_row).
+// (repro_attn::combine_row; m in log2 units for bf16, natural for fp32).
+template <bool LOG2, typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 paged_attention_combine(const int* __restrict__ tiles,
                         const float* __restrict__ part_o,
                         const float* __restrict__ part_ml,
-                        bf16* __restrict__ out, int t, int hkv, int g,
-                        int d, int max_splits) {
-  repro_attn::combine_row(tiles, part_o, part_ml, out, t, hkv, g, d,
-                          max_splits);
+                        T* __restrict__ out, int t, int hkv, int g, int d,
+                        int max_splits) {
+  repro_attn::combine_row<LOG2>(tiles, part_o, part_ml, out, t, hkv, g, d,
+                                max_splits);
 }
 
 // The work list's shape (repro_attn::tiling) over a table of p_pages
@@ -622,75 +695,6 @@ int launch_tiles(const int* seg, const int* pos, int* tiles, int t,
       seg, pos, tiles, t, s_slots, p_pages * ps, s.tile_tokens, s.max_splits,
       window);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks the main grid's x dimension gets: as many work items as there
-// can be, at most what the card holds at once (blocks an SM x SMs,
-// shared among the z_blocks KV heads x row blocks).  The occupancy of an
-// instantiation is asked once.
-template <typename KT, int D>
-int grid_x(size_t smem, int max_items, int z_blocks, int* out) {
-  static int held = 0;
-  if (held == 0) {
-    const int err = repro_attn::card_blocks(paged_attention_mma<KT, D>,
-                                            kMmaThreads, smem, &held);
-    if (err != 0) return err;
-  }
-  *out = max(1, min(max_items, held / z_blocks));
-  return 0;
-}
-
-// the pre-pass, the main kernel and (with more than one split possible)
-// the combine, on one stream
-template <typename KT, int D>
-int launch_mma(const void* q, const void* k_pages, const void* v_pages,
-               const float* k_scale, const float* v_scale, const int* tables,
-               const int* seg, const int* pos, void* out, void* work, int t,
-               int hkv, int g, int ps, int s_slots, int p_pages, float scale,
-               int window, int* launched, cudaStream_t stream) {
-  const Tiling s = tiling(g, p_pages, ps);
-  int* tiles = static_cast<int*>(work);
-  float* part = s.max_splits > 1 ? reinterpret_cast<float*>(
-                                       static_cast<char*>(work) +
-                                       worklist_bytes(t, s.max_splits))
-                                 : nullptr;
-  int err = launch_tiles(seg, pos, tiles, t, s_slots, p_pages, ps, s,
-                         window, stream);
-  if (err != 0) return err;
-  constexpr size_t smem = mma_smem_bytes<KT, D>();
-  auto kernel = paged_attention_mma<KT, D>;
-  err = static_cast<int>(allow_smem(kernel, smem));
-  if (err != 0) return err;
-  const int z_blocks = hkv * s.row_blocks;
-  int gx = 0;
-  err = grid_x<KT, D>(smem, t * s.max_splits, z_blocks, &gx);
-  if (err != 0) return err;
-  float* part_ml =
-      part == nullptr
-          ? nullptr
-          : part + static_cast<size_t>(t) * hkv * g * s.max_splits * D;
-  kernel<<<dim3(gx, 1, z_blocks), kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const KT*>(k_pages),
-      static_cast<const KT*>(v_pages), k_scale, v_scale, tables, pos, tiles,
-      static_cast<bf16*>(out), part, part_ml, t, hkv, g, ps, p_pages,
-      s.max_splits, scale * kLog2e, window);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  if (s.max_splits == 1) {
-    record(launched, 2, 1, gx * z_blocks, 0);
-    return 0;
-  }
-  constexpr int kRowsABlock = kCombineThreads / 32;
-  const size_t rows = static_cast<size_t>(t) * hkv * g;
-  const unsigned blocks =
-      static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock);
-  paged_attention_combine<<<blocks, kCombineThreads, 0, stream>>>(
-      tiles, part, part_ml, static_cast<bf16*>(out), t, hkv, g, D,
-      s.max_splits);
-  err = static_cast<int>(cudaGetLastError());
-  if (err == 0)
-    record(launched, 3, 1, gx * z_blocks, static_cast<int>(blocks));
-  return err;
 }
 
 // A call's arguments, passed down the dtype and head-dim dispatch.
@@ -712,32 +716,118 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The main kernel of a variant: fp32 q on the CUDA cores (SIMT) or bf16 q
+// on the tensor cores, with its threads and shared bytes; `attrs` reports
+// its resources, `held` the blocks the card holds at once, and `launch`
+// runs it over the work list.
+template <typename KT, int D, bool SIMT>
+struct Main {
+  using QT = std::conditional_t<SIMT, float, bf16>;
+  static constexpr int kThreads = SIMT ? kSimtThreads : kMmaThreads;
+  static constexpr size_t smem() {
+    if constexpr (SIMT)
+      return simt_smem_bytes<KT, D>();
+    else
+      return mma_smem_bytes<KT, D>();
+  }
+  static auto kernel() {
+    if constexpr (SIMT)
+      return paged_attention_simt<KT, D>;
+    else
+      return paged_attention_mma<KT, D>;
+  }
+  static int attrs(int* out) {
+    return kernel_attrs(kernel(), smem(), kThreads, kBK, out);
+  }
+  // Blocks the main grid's x dimension gets: as many work items as there
+  // can be, at most what the card holds at once (blocks an SM x SMs,
+  // shared among the z_blocks KV heads x row blocks).  The occupancy of
+  // an instantiation is asked once.
+  static int grid_x(int max_items, int z_blocks, int* out) {
+    static int held = 0;
+    if (held == 0) {
+      const int err =
+          repro_attn::card_blocks(kernel(), kThreads, smem(), &held);
+      if (err != 0) return err;
+    }
+    *out = max(1, min(max_items, held / z_blocks));
+    return 0;
+  }
+  static void run(const Args& a, dim3 grid, const Tiling& s, float* part,
+                  float* part_ml) {
+    const float scale = SIMT ? a.scale : a.scale * kLog2e;
+    const auto k = kernel();
+    k<<<grid, kThreads, smem(), a.stream>>>(
+        static_cast<const QT*>(a.q), static_cast<const KT*>(a.k_pages),
+        static_cast<const KT*>(a.v_pages), a.k_scale, a.v_scale, a.tables,
+        a.pos, static_cast<const int*>(a.work), static_cast<QT*>(a.out),
+        part, part_ml, a.t, a.hkv, a.g, a.ps, a.p_pages, s.max_splits,
+        scale, a.window);
+  }
+};
+
+// the pre-pass, the main kernel and (with more than one split possible)
+// the combine, on one stream
+template <typename KT, int D, bool SIMT>
+int launch(const Args& a) {
+  using M = Main<KT, D, SIMT>;
+  const Tiling s = tiling(a.g, a.p_pages, a.ps);
+  int* tiles = static_cast<int*>(a.work);
+  float* part = s.max_splits > 1 ? reinterpret_cast<float*>(
+                                       static_cast<char*>(a.work) +
+                                       worklist_bytes(a.t, s.max_splits))
+                                 : nullptr;
+  int err = launch_tiles(a.seg, a.pos, tiles, a.t, a.s_slots, a.p_pages,
+                         a.ps, s, a.window, a.stream);
+  if (err != 0) return err;
+  err = static_cast<int>(allow_smem(M::kernel(), M::smem()));
+  if (err != 0) return err;
+  const int z_blocks = a.hkv * s.row_blocks;
+  int gx = 0;
+  err = M::grid_x(a.t * s.max_splits, z_blocks, &gx);
+  if (err != 0) return err;
+  float* part_ml =
+      part == nullptr
+          ? nullptr
+          : part + static_cast<size_t>(a.t) * a.hkv * a.g * s.max_splits * D;
+  M::run(a, dim3(gx, 1, z_blocks), s, part, part_ml);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  if (s.max_splits == 1) {
+    record(a.launched, 2, 1, gx * z_blocks, 0);
+    return 0;
+  }
+  constexpr int kRowsABlock = kCombineThreads / 32;
+  const size_t rows = static_cast<size_t>(a.t) * a.hkv * a.g;
+  const unsigned blocks =
+      static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock);
+  paged_attention_combine<!SIMT><<<blocks, kCombineThreads, 0, a.stream>>>(
+      tiles, part, part_ml, static_cast<typename M::QT*>(a.out), a.t, a.hkv,
+      a.g, D, s.max_splits);
+  err = static_cast<int>(cudaGetLastError());
+  if (err == 0)
+    record(a.launched, 3, 1, gx * z_blocks, static_cast<int>(blocks));
+  return err;
+}
+
 // what to do once the pool type and head_dim are known: launch, or report
-// the attributes of the kernel a launch would run (attrs != null)
+// the attributes of the main kernel a launch would run (attrs != null).
+// fp32 q takes an fp32, int8 or fp8 pool; bf16 q a bf16, int8 or fp8 one.
 template <typename KT, int D>
 int run(int q_dtype, const Args& a, int* attrs) {
   if (q_dtype == 0) {
-    if (attrs != nullptr)
-      return kernel_attrs(paged_attention_kernel<float, KT, D>,
-                          simt_smem_bytes(D, a.g, a.ps), kThreads, a.ps,
-                          attrs);
-    const int err = launch_simt<KT, D>(
-        a.q, a.k_pages, a.v_pages, a.k_scale, a.v_scale, a.tables, a.seg,
-        a.pos, a.out, a.t, a.hkv, a.g, a.ps, a.s_slots, a.p_pages, a.scale,
-        a.window, a.stream);
-    if (err == 0) record(a.launched, 1, 0, a.t * a.hkv, 0);
-    return err;
+    if constexpr (std::is_same<KT, bf16>::value) {
+      return -2;
+    } else {
+      using M = Main<KT, D, true>;
+      return attrs != nullptr ? M::attrs(attrs) : launch<KT, D, true>(a);
+    }
   }
   if constexpr (std::is_same<KT, float>::value) {
-    return -2;  // bf16 queries take a bf16, int8 or fp8 pool
+    return -2;
   } else {
-    if (attrs != nullptr)
-      return kernel_attrs(paged_attention_mma<KT, D>, mma_smem_bytes<KT, D>(),
-                          kMmaThreads, kBK, attrs);
-    return launch_mma<KT, D>(a.q, a.k_pages, a.v_pages, a.k_scale, a.v_scale,
-                             a.tables, a.seg, a.pos, a.out, a.work, a.t,
-                             a.hkv, a.g, a.ps, a.s_slots, a.p_pages,
-                             a.scale, a.window, a.launched, a.stream);
+    using M = Main<KT, D, false>;
+    return attrs != nullptr ? M::attrs(attrs) : launch<KT, D, false>(a);
   }
 }
 
@@ -777,12 +867,12 @@ int dispatch(int q_dtype, int kv_dtype, int d, const Args& a, int* attrs) {
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 float8_e4m3fn.  q/out
-// take 0 (the "simt" kernel, one launch, any pool) or 1 (the "mma" path:
-// the pre-pass, the main kernel and, when a tile can have more than one
-// split, the combine; a bf16, int8 or fp8 pool).  k_scale/v_scale are
-// null for an unquantized pool.  window <= 0 means no window.  The mma
-// path also takes `work`, a 256-byte aligned workspace of
-// `repro_paged_workspace_bytes` bytes.  `launched`, when not null, gets 4
+// take 0 (the "simt" main kernel on the CUDA cores; an fp32, int8 or fp8
+// pool) or 1 (the "mma" main kernel on the tensor cores; a bf16, int8 or
+// fp8 pool); both launch the pre-pass, the main kernel and, when a tile
+// can have more than one split, the combine.  k_scale/v_scale are null
+// for an unquantized pool.  window <= 0 means no window.  `work` is a
+// 256-byte aligned workspace of `repro_paged_workspace_bytes` bytes.  `launched`, when not null, gets 4
 // ints: the device launches made, then the thread blocks of the pre-pass,
 // the main kernel and the combine.  Returns the first nonzero CUDA error
 // of the launches (0 on success), -1 for an unsupported head_dim, -2 for
@@ -802,7 +892,7 @@ extern "C" int repro_paged_attention(
   return dispatch(q_dtype, kv_dtype, d, a, nullptr);
 }
 
-// The mma path's work list for G query heads a KV head over a table of
+// The work list for G query heads a KV head over a table of
 // p_pages pages of ps: out[0] tokens at most a tile, out[1] keys a split,
 // out[2] the most splits a tile can have.
 extern "C" void repro_paged_tiling(int g, int p_pages, int ps, int* out) {
@@ -812,7 +902,7 @@ extern "C" void repro_paged_tiling(int g, int p_pages, int ps, int* out) {
   out[2] = s.max_splits;
 }
 
-// Bytes of the mma path's workspace for T tokens of (Hkv, G, D) over a
+// Bytes of the workspace for T tokens of (Hkv, G, D) over a
 // table of p_pages pages of ps: the int32 work list, then, when a tile can
 // have more than one split, T * Hkv * G * max_splits * (D + 2) fp32 of
 // split results (none for hkv = 0: the work list alone).
@@ -822,7 +912,7 @@ extern "C" long long repro_paged_workspace_bytes(int t, int hkv, int g, int d,
       repro_attn::workspace_bytes(t, hkv, g, d, p_pages * ps));
 }
 
-// The pre-pass alone: writes the mma path's work list for G query heads a
+// The pre-pass alone: writes the work list for G query heads a
 // KV head into `tiles` (a workspace of at least
 // `repro_paged_workspace_bytes(t, 0, g, 0, p_pages, ps)` bytes), as
 // `repro_paged_attention` does before its main kernel.  Returns the CUDA
@@ -840,7 +930,7 @@ extern "C" int repro_paged_tiles(const void* seg, const void* pos,
 // for (q dtype, pool dtype, d) at group size g and page size ps: out[0]
 // registers a thread, out[1] local (spill) bytes a thread, out[2] dynamic
 // shared bytes a block, out[3] blocks an SM can hold, out[4] threads a
-// block, out[5] keys a tile (the page size for the simt kernel).  Returns
+// block, out[5] keys a tile (g and ps change none of them).  Returns
 // as `repro_paged_attention` does.
 extern "C" int repro_paged_attention_attrs(int q_dtype, int kv_dtype, int d,
                                            int g, int ps, int* out) {

@@ -5,10 +5,11 @@ Counterpart of ``repro/kernels/decode_attention.py``:
 
   * :func:`paged_attention_fwd` (the Pallas ``_paged_kernel``): a flat
     mixed prefill/decode batch against the physical KV page pool, CUDA C++
-    in ``csrc/paged_attention.cu``: bf16 queries on the tensor cores
-    (variant ``"mma"``: a pre-pass builds the work list of query tiles
-    and their key splits, the main kernel runs them, a combine merges the
-    splits), fp32 queries on the CUDA cores (``"simt"``);
+    in ``csrc/paged_attention.cu``: a pre-pass builds the work list of
+    query tiles and their key splits, the main kernel runs them, a combine
+    merges the splits; the main kernel runs bf16 queries on the tensor
+    cores (variant ``"mma"``) and fp32 queries on the CUDA cores
+    (``"simt"``);
   * :func:`decode_attention_fwd` (the Pallas ``_decode_kernel``): one
     query per row against a contiguous ``(B, Hkv, Smax, D)`` cache, CUDA
     C++ in ``csrc/decode_attention.cu``: bf16 on the tensor cores
@@ -49,10 +50,9 @@ from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
                      load_library)
 
 NEG_INF = -1e30
-MAX_SMEM = 232448          # bytes of shared memory one block may use
 
-# the columns of a tile descriptor of the bf16 paged kernel's work list,
-# as its pre-pass writes them
+# the columns of a tile descriptor of the paged kernel's work list, as its
+# pre-pass writes them
 TILE_FIELDS = ("first", "count", "slot", "lo", "hi", "splits", "min_pos",
                "max_pos")
 
@@ -96,14 +96,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(g: int, d: int, ps: int) -> int:
-    """Shared bytes of the fp32 ("simt") kernel's block."""
-    return 4 * (2 * ps * d + 2 * g * d + g * ps + 3 * g)
-
-
 @functools.lru_cache(maxsize=256)
 def tiling(g: int, p_pages: int, ps: int) -> dict:
-    """The bf16 kernel's work list for G query heads a KV head against a
+    """The paged kernel's work list for G query heads a KV head against a
     table of ``p_pages`` pages of ``ps``, as its source fixes it: the
     tokens a tile holds at most (64 rows / G), the keys a split holds, and
     the most splits a tile can have."""
@@ -122,8 +117,8 @@ def _workspace_bytes(t, hkv, g, d, p_pages, ps) -> int:
 def last_launch() -> dict:
     """What the last CUDA call of :func:`paged_attention_fwd` launched, as
     its C entry reports it: device launches, and the thread blocks of the
-    pre-pass, the main kernel and the combine (the "simt" kernel is one
-    launch of main blocks)."""
+    pre-pass, the main kernel and the combine (0 when it was not
+    launched)."""
     return dict(zip(("device_launches", "prepass_blocks", "main_blocks",
                      "combine_blocks"), _launched))
 
@@ -132,7 +127,7 @@ def paged_tiles_plain(seg_ids: torch.Tensor, positions: torch.Tensor,
                       tables_shape, ps: int, tile_tokens: int,
                       split_keys: int, window: Optional[int] = None
                       ) -> torch.Tensor:
-    """The bf16 kernel's work list, as its pre-pass builds it: (n_tiles,
+    """The paged kernel's work list, as its pre-pass builds it: (n_tiles,
     8) int32, one row per query tile with the columns of
     :data:`TILE_FIELDS`.  A tile is a maximal run of consecutive tokens
     with the same clipped slot ``clip(seg, 0, S-1)``, cut every
@@ -161,7 +156,7 @@ def paged_tiles_plain(seg_ids: torch.Tensor, positions: torch.Tensor,
 def paged_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
                 tables_shape, ps: int, g: int,
                 window: Optional[int] = None) -> torch.Tensor:
-    """The bf16 kernel's work list for G query heads a KV head, built by
+    """The paged kernel's work list for G query heads a KV head, built by
     its pre-pass on the card: :func:`paged_tiles_plain` at
     :func:`tiling`'s tile tokens and split keys.  It reads the tile count
     back, so it syncs: a check, not part of the kernel's call.  CUDA
@@ -184,19 +179,19 @@ def paged_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
 
 
 def variant(q_dtype: torch.dtype) -> str:
-    """The kernel a q dtype runs: ``"mma"`` (bf16, tensor cores) or
-    ``"simt"`` (fp32, CUDA cores)."""
+    """The main kernel a q dtype runs: ``"mma"`` (bf16, tensor cores) or
+    ``"simt"`` (fp32, CUDA cores); both over the same work list."""
     return "mma" if q_dtype == torch.bfloat16 else "simt"
 
 
 def kernel_attributes(q_dtype: torch.dtype, pool_dtype: torch.dtype,
                       head_dim: int, g: int, ps: int) -> dict:
-    """The resources of the kernel that :func:`paged_attention_fwd`
-    launches for these dtypes, head_dim, group size and page size on the
-    current card: its variant (``"mma"``: bf16 q on the tensor cores,
-    ``"simt"``: fp32 q on the CUDA cores), registers and local (spill)
-    bytes a thread, dynamic shared bytes and threads a block, blocks an
-    SM holds, keys a tile (the page for "simt")."""
+    """The resources of the main kernel that :func:`paged_attention_fwd`
+    launches for these dtypes and head_dim on the current card (``g`` and
+    ``ps`` change none of them): its variant (``"mma"``: bf16 q on the
+    tensor cores, ``"simt"``: fp32 q on the CUDA cores), registers and
+    local (spill) bytes a thread, dynamic shared bytes and threads a
+    block, blocks an SM holds, keys a tile."""
     if q_dtype not in Q_CODES or pool_dtype not in _KV_CODES or \
             head_dim not in HEAD_DIMS:
         raise ValueError(f"kernel_attributes: no kernel for {q_dtype} q, "
@@ -253,13 +248,14 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     fp32 for an int8/fp8 pool.  Returns (T, Hkv, G, D) in q's dtype.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise: bf16 q runs the tensor-core variant,
-    three device launches under one C call (the pre-pass that builds the
-    work list of query tiles and key splits on the card, the main kernel
-    over it, and the combine of the splits; two when the table allows one
-    split), fp32 q the CUDA-core variant, one launch; :func:`last_launch`
-    reads what the last call launched.  ``counter`` counts calls.  Neither
-    reads anything back to the host."""
+    on the current stream, or raise: three device launches under one C
+    call (the pre-pass that builds the work list of query tiles and key
+    splits on the card, the main kernel over it, and the combine of the
+    splits; two when the table allows one split), the main kernel on the
+    tensor cores for bf16 q and on the CUDA cores for fp32 q (which takes
+    an fp32, int8 or fp8 pool, at any page size); :func:`last_launch`
+    reads what the last call launched.  ``counter`` counts calls.  It
+    reads nothing back to the host."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, tables, seg_ids, positions, scale=scale,
@@ -291,10 +287,6 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if not quantized and k_pages.dtype != q.dtype:
         raise TypeError("paged_attention_fwd: an unquantized pool must "
                         "have q's dtype")
-    mma = variant(q.dtype) == "mma"
-    if not mma and smem_bytes(g, d, ps) > MAX_SMEM:
-        raise ValueError(f"paged_attention_fwd: page_size {ps} x head_dim "
-                         f"{d} needs more shared memory than a block has")
     tensors = [q, k_pages, v_pages, tables, seg_ids, positions]
     if quantized:
         tensors += [k_scale, v_scale]
@@ -310,17 +302,15 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if seg_ids.shape != (t,) or positions.shape != (t,):
         raise ValueError("paged_attention_fwd: seg_ids/positions must "
                          "be (T,)")
-    if mma and any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
         raise ValueError("paged_attention_fwd: q and the pages must be "
-                         "16-byte aligned (the bf16 kernel copies rows in "
+                         "16-byte aligned (the kernel copies rows in "
                          "16-byte cp.async chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    work = None
-    if mma:
-        work = torch.empty(_workspace_bytes(t, hkv, g, d, p, ps),
-                           dtype=torch.uint8, device=q.device)
+    work = torch.empty(_workspace_bytes(t, hkv, g, d, p, ps),
+                       dtype=torch.uint8, device=q.device)
     fn = _lib().repro_paged_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], d,
@@ -328,7 +318,7 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
              k_scale.data_ptr() if quantized else None,
              v_scale.data_ptr() if quantized else None,
              tables.data_ptr(), seg_ids.data_ptr(), positions.data_ptr(),
-             out.data_ptr(), None if work is None else work.data_ptr(),
+             out.data_ptr(), work.data_ptr(),
              t, hkv, g, ps, s, p,
              float(scale), int(window) if window else 0, _launched,
              stream)

@@ -21,7 +21,9 @@ Counterpart of ``repro/kernels/ops.py``:
     to a padded width, and no ``pages_per_tile`` (see the kernel's
     source note);
   * :func:`gumbel_perturb` is the Gumbel-max perturbation
-    ``logits + -log(-log(u))`` in fp32, a Triton kernel on CUDA;
+    ``logits + -log(-log(u))`` in fp32, a Triton kernel on CUDA, and
+    :func:`gumbel_perturb_keyed` the same with ``u`` the port's
+    position-keyed uniforms, drawn inside its Triton kernel;
   * :func:`rwkv6_scan` calls the CUDA WKV6 kernel on the (B, H, S, D)
     views as they come, where ``ops.py:200-227`` flattens them to
     (B*H, S, D) and pads the lanes, with an optional initial state; it
@@ -40,19 +42,33 @@ Counterpart of ``repro/kernels/ops.py``:
     (``ops.py:277-357``; the kernel, its plain version and its source
     note are in ``kernels/fused_elementwise.py``).
 
-Source note for the Gumbel kernel.  It replaces
+Source note for the Gumbel kernels.  They replace
 ``repro/kernels/ops.py::gumbel_perturb``, which ran the perturbation as
 one Pallas ``fused_elementwise`` kernel (``pallas_call`` at
-``ops.py:323``) over a ``(rows, 128)`` lane-major view.  On the H100 it
-is bound by bytes: two fp32 reads and one fp32 write per element, for
-gemma-2b ``R = S*(K+1)`` rows of ``V = 256000``, and two logs per
-element, far below the card's compute.  So the kernel is one flat
-elementwise pass over the contiguous buffer with 16-byte-friendly
-contiguous blocks; it needs no tiling, shared memory or tensor cores,
-which is why Triton serves as well as CUDA C++ here.  The TPU's
-``(rows, 128)`` view, sublane-rounded block rows and tail padding do not
-carry over: Triton masks the ragged tail itself.  The uniforms stay an
-input, as in the TPU kernel.
+``ops.py:323``) over a ``(rows, 128)`` lane-major view, with the
+uniforms an input drawn by ``jax.random`` (threefry) beforehand.  On the
+H100 the perturbation is bound by bytes: for gemma-2b's ``R = S*(K+1)``
+rows of ``V = 256000`` it does two logs per element, far below the
+card's compute.  The serving path takes the keyed kernel
+(:func:`gumbel_perturb_keyed`): it draws the port's position-keyed
+uniforms (``kernels/_noise.py``) in registers, so the (R, V) uniform
+tensor, and the ~24 int64 passes that made it in torch ops, never
+exist, and a call reads the logits once and writes the result once.
+Its hash is exact ``uint32`` arithmetic (one ``mul.lo`` where the torch
+version splits each product into 16-bit halves), so it reproduces the
+torch version's uniforms bit for bit.  A program takes a 2-D tile of
+rows x lanes (4 x 1024): each lane's hash is computed once for the
+tile's rows, each row's once per program, and the elements are read
+and written as 16-byte accesses where the row width allows.  The logs
+are ``tl.log`` (libdevice ``logf``): near ``u = 1 - 2**-24``,
+``-log(u)`` is ~6e-8 and an approximate log's absolute error would
+move ``-log(-log(u))`` by O(1).  :func:`gumbel_perturb` keeps the
+uniforms an input, as the TPU kernel did (tests hand both packages the
+same numbers): one flat pass over three fp32 streams.  Neither needs
+tiling, shared memory or tensor cores, which is why Triton serves as
+well as CUDA C++; the TPU's ``(rows, 128)`` view, sublane-rounded
+block rows and tail padding do not carry over: Triton masks the ragged
+edges itself.
 
 Each wrapper takes the plain version only for CPU tensors; on a CUDA
 tensor it launches its kernel or raises.
@@ -65,6 +81,7 @@ from typing import Optional
 import torch
 
 from ._build import LaunchCounter
+from ._noise import position_uniforms
 from .decode_attention import (decode_attention_fwd, mixed_attention_fwd,
                                paged_attention_fwd)
 from .flash_attention import flash_attention_fwd, flash_attention_plain
@@ -225,6 +242,43 @@ def gumbel_perturb(logits: torch.Tensor,
         from . import _gumbel_triton
         with torch.cuda.device(x.device):
             _gumbel_triton.launch(x, u, out)
+        gumbel_counter.bump()
+    return out
+
+
+def gumbel_perturb_keyed_plain(logits: torch.Tensor, seeds: torch.Tensor,
+                               positions: torch.Tensor) -> torch.Tensor:
+    """:func:`gumbel_perturb_plain` of ``logits`` with the position-keyed
+    uniforms ``position_uniforms(seeds, positions, V)``."""
+    return gumbel_perturb_plain(
+        logits, position_uniforms(seeds, positions, logits.shape[-1]))
+
+
+def gumbel_perturb_keyed(logits: torch.Tensor, seeds: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max perturbation of (R, V) ``logits`` with the noise of
+    row r keyed by ``(seeds[r], positions[r])`` ((R,) integer tensors):
+    :func:`gumbel_perturb_keyed_plain` in one launch, the uniforms drawn
+    in registers.  Returns fp32."""
+    if logits.dim() != 2 or seeds.shape != (logits.shape[0],) or \
+            positions.shape != seeds.shape:
+        raise ValueError(f"gumbel_perturb_keyed: logits (R, V) with (R,) "
+                         f"seeds and positions, got {tuple(logits.shape)}, "
+                         f"{tuple(seeds.shape)}, {tuple(positions.shape)}")
+    if logits.device.type == "cpu":
+        return gumbel_perturb_keyed_plain(logits, seeds, positions)
+    if logits.device.type != "cuda" or seeds.device != logits.device or \
+            positions.device != logits.device:
+        raise ValueError(f"gumbel_perturb_keyed: unsupported devices "
+                         f"{logits.device}/{seeds.device}/"
+                         f"{positions.device}")
+    x = logits.float().contiguous()
+    out = torch.empty_like(x)
+    if x.numel():
+        from . import _gumbel_triton
+        with torch.cuda.device(x.device):
+            _gumbel_triton.launch_keyed(x, seeds.long().contiguous(),
+                                        positions.long().contiguous(), out)
         gumbel_counter.bump()
     return out
 

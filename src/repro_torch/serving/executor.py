@@ -126,10 +126,13 @@ class Executor:
         bad = (~torch.isfinite(logits).all(dim=-1)).reshape(s, kp1).any(-1)
         gen_pos = sample_pos[:, None] + torch.arange(
             kp1, device=sample_pos.device)[None, :]
-        toks = sampling.sample_tokens(
-            logits, temps.repeat_interleave(kp1),
-            top_ks.repeat_interleave(kp1), top_ps.repeat_interleave(kp1),
-            seeds.repeat_interleave(kp1), gen_pos.reshape(-1))
+        # the sampling tail is profiled as one range, read by chip_smoke.py
+        with torch.profiler.record_function("sampling"):
+            toks = sampling.sample_tokens(
+                logits, temps.repeat_interleave(kp1),
+                top_ks.repeat_interleave(kp1),
+                top_ps.repeat_interleave(kp1),
+                seeds.repeat_interleave(kp1), gen_pos.reshape(-1))
         return toks.reshape(s, kp1), bad
 
     def _body(self, k_pages: List[torch.Tensor],

@@ -11,10 +11,12 @@ is a function of ``(seed, absolute position)`` only (and of the vocab
 lane), so a request replayed on a rebuilt engine, after a preemption, or
 inside a speculative batch draws the same token at every position.  The
 port's uniforms come from a counter-based hash of
-``(seed, position, lane)`` written in integer torch ops
-(:func:`position_uniforms`), which gives the same bits on the CPU and
-on CUDA.  ``temperature <= 0`` is plain argmax; filtering keeps ties at
-the top-k boundary and at the top-p cutoff.
+``(seed, position, lane)`` (:func:`position_uniforms`, defined in
+``kernels/_noise.py`` and re-exported here), which gives the same bits
+on the CPU and on CUDA; on the card the keyed Gumbel kernel draws them
+in registers (``kernels.ops.gumbel_perturb_keyed``), so they are never
+written to memory.  ``temperature <= 0`` is plain argmax; filtering
+keeps ties at the top-k boundary and at the top-p cutoff.
 """
 
 from __future__ import annotations
@@ -25,14 +27,13 @@ from typing import Optional
 import torch
 
 from ..kernels import ops as kops
+from ..kernels._noise import position_uniforms
 
 __all__ = ["SamplingParams", "filter_logits", "sample_tokens",
            "position_uniforms", "sample_ref"]
 
 _NEG_INF = torch.finfo(torch.float32).min
 _MIN_TEMP = 1e-6
-_MIN_UNIFORM = 1e-20
-_M32 = 0xFFFFFFFF
 
 
 @dataclass(frozen=True)
@@ -92,60 +93,24 @@ def filter_logits(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(keep, scaled, torch.full_like(scaled, _NEG_INF))
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) without
-    overflowing int64: split ``c`` into 16-bit halves."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _hash32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (xor-shift / multiply rounds) over
-    int64 tensors holding values in [0, 2**32)."""
-    x = x & _M32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return x
-
-
-def position_uniforms(seeds: torch.Tensor, positions: torch.Tensor,
-                      vocab: int) -> torch.Tensor:
-    """(R,) seeds × (R,) absolute positions -> (R, V) fp32 uniforms in
-    [_MIN_UNIFORM, 1).  Counter-based: each lane's bits are a hash of
-    (seed, position, lane), so they depend on nothing else (not the
-    row's place in the batch, not the device)."""
-    dev = seeds.device
-    s = seeds.long() & _M32
-    p = positions.long() & _M32
-    row = _hash32(_hash32(s ^ 0x9E3779B9) ^ p)                     # (R,)
-    lane = _hash32(torch.arange(vocab, device=dev, dtype=torch.int64)
-                   + 0x632BE5AB)                                    # (V,)
-    bits = _hash32(row[:, None] ^ lane[None, :])
-    # 23 bits, so (k + 0.5) / 2**23 is exact in fp32 and stays below 1
-    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
-    return torch.clamp(u, min=_MIN_UNIFORM)
-
-
 def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
                   top_k: torch.Tensor, top_p: torch.Tensor,
                   seeds: torch.Tensor, positions: torch.Tensor,
                   uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample one token per ``(R, V)`` logits row.  Per-row ``(R,)``
     temperature / top_k / top_p / seeds / positions.  Stochastic rows
-    take the Gumbel-max draw over the filtered support (the Gumbel
-    kernel, ``kernels.ops.gumbel_perturb``); rows with ``temperature <=
-    0`` return ``argmax(logits)``.  ``uniform`` (R, V) replaces the
-    position-keyed noise (tests feed both packages the same numbers).
-    Returns (R,) int32."""
+    take the Gumbel-max draw over the filtered support; rows with
+    ``temperature <= 0`` return ``argmax(logits)``.  The noise is keyed
+    by ``(seed, position)`` and drawn inside the keyed Gumbel kernel
+    (``kernels.ops.gumbel_perturb_keyed``); ``uniform`` (R, V) replaces
+    it (tests feed both packages the same numbers) and goes through
+    ``kernels.ops.gumbel_perturb``.  Returns (R,) int32."""
     logits = logits.float()
-    v = logits.shape[-1]
     filtered = filter_logits(logits, temperature, top_k, top_p)
     if uniform is None:
-        uniform = position_uniforms(seeds, positions, v)
-    perturbed = kops.gumbel_perturb(filtered, uniform)
+        perturbed = kops.gumbel_perturb_keyed(filtered, seeds, positions)
+    else:
+        perturbed = kops.gumbel_perturb(filtered, uniform)
     stochastic = torch.argmax(perturbed, dim=-1)
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temperature > 0.0, stochastic,

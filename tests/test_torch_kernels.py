@@ -21,6 +21,7 @@ from repro.kernels import ref as jref
 from repro.serving import quant as jquant
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import _noise
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
 from torch_port_helpers import cuda_device, requires_cuda, to_numpy, \
@@ -121,6 +122,84 @@ def test_gumbel_plain_matches_jax():
     # fp32 logs differ in the last bits, so values near 0 get the same
     # 1e-6 as an absolute floor
     np.testing.assert_allclose(out, exp, rtol=1e-6, atol=1e-6)
+
+
+def _keyed_case(seed=6, rows=5, vocab=777):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((rows, vocab)) * 3).astype(np.float32)
+    logits[1, :20] = np.finfo(np.float32).min      # filtered-out lanes
+    # seeds and positions past 32 bits and negative: the hash takes their
+    # low 32 bits
+    seeds = np.array([0, 7, -3, 2 ** 40 + 5, 2 ** 32 - 1][:rows], np.int64)
+    pos = np.array([0, 100, 2 ** 33 + 9, 17, 4095][:rows], np.int64)
+    return logits, seeds, pos
+
+
+def test_gumbel_keyed_plain_is_the_uniform_composition():
+    """The keyed plain version is the uniform one over the position-keyed
+    uniforms, bit for bit."""
+    logits, seeds, pos = (to_torch(a) for a in _keyed_case())
+    out = tops.gumbel_perturb_keyed_plain(logits, seeds, pos)
+    u = _noise.position_uniforms(seeds, pos, logits.shape[1])
+    assert torch.equal(out, tops.gumbel_perturb_plain(logits, u))
+    assert torch.equal(tops.gumbel_perturb_keyed(logits, seeds, pos), out)
+
+
+def test_gumbel_keyed_matches_jax_given_the_same_uniforms():
+    """Fed the keyed version's uniforms, the reference's perturbation
+    (its Pallas fused_elementwise kernel in interpret mode) agrees at the
+    1e-5 kernel tier."""
+    logits, seeds, pos = _keyed_case()
+    u = _noise.position_uniforms(to_torch(seeds), to_torch(pos),
+                                 logits.shape[1])
+    exp = np.asarray(jops.gumbel_perturb(jnp.asarray(logits),
+                                         jnp.asarray(to_numpy(u))))
+    out = to_numpy(tops.gumbel_perturb_keyed(
+        to_torch(logits), to_torch(seeds), to_torch(pos)))
+    np.testing.assert_allclose(out, exp, rtol=1e-5, atol=1e-5)
+
+
+def _hash32_uint32(x):
+    """The keyed kernel's hash in native uint32 arithmetic: products and
+    sums wrap mod 2**32, shifts are logical."""
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(_noise.MUL1)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(_noise.MUL2)
+    return x ^ (x >> np.uint32(16))
+
+
+def test_gumbel_keyed_uint32_hash_reproduces_the_uniforms():
+    """What the Triton kernel computes in registers (one wrapping uint32
+    product where the torch version splits it into 16-bit halves, the
+    keys' low 32 bits) gives the torch version's uniforms bit for bit."""
+    _, seeds, pos = _keyed_case()
+    vocab = 70000
+    s = (seeds & 0xFFFFFFFF).astype(np.uint32)
+    p = (pos & 0xFFFFFFFF).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        row = _hash32_uint32(_hash32_uint32(s ^ np.uint32(_noise.SEED_SALT))
+                             ^ p)
+        lane = _hash32_uint32(np.arange(vocab, dtype=np.uint32)
+                              + np.uint32(_noise.LANE_SALT))
+        bits = _hash32_uint32(row[:, None] ^ lane[None, :])
+    u = ((bits >> np.uint32(9)).astype(np.float32) + np.float32(0.5)) * \
+        np.float32(1.0 / (1 << 23))
+    u = np.maximum(u, np.float32(_noise.MIN_UNIFORM))
+    exp = _noise.position_uniforms(to_torch(seeds), to_torch(pos), vocab)
+    np.testing.assert_array_equal(u, exp.numpy())
+
+
+def test_gumbel_keyed_refuses_bad_operands():
+    x = torch.zeros((2, 4))
+    keys = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tops.gumbel_perturb_keyed(x, keys[:1], keys)
+    with pytest.raises(ValueError):
+        tops.gumbel_perturb_keyed(x[0], keys, keys)
+    with pytest.raises(ValueError):
+        tops.gumbel_perturb_keyed(x.to("meta"), keys.to("meta"),
+                                  keys.to("meta"))
 
 
 def test_wrappers_refuse_other_devices():
@@ -287,6 +366,29 @@ def test_triton_gumbel_kernel_matches_plain(cuda_device):
     assert tops.gumbel_counter.launches == before + 1
     torch.testing.assert_close(out, tops.gumbel_perturb_plain(logits, u),
                                rtol=1e-5, atol=1e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", [(48, 256000), (1, 1000), (1, 256001),
+                                   (3, 1000), (3, 256001)])
+def test_triton_gumbel_keyed_kernel_matches_plain(cuda_device, shape):
+    """The keyed kernel against its plain composition at serving's
+    sampling shape and at ragged tile edges: within chip_smoke.py's
+    GUMBEL_TOL (1e-4: fp32 logs of values up to ~20), the same sampled
+    token (argmax) in every row, one launch counted."""
+    rows, vocab = shape
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    logits = torch.randn(shape, generator=g, device=cuda_device) * 3.0
+    seeds = torch.arange(rows, device=cuda_device) * 7919 - 3
+    pos = torch.arange(rows, device=cuda_device) + 2 ** 33
+    before = tops.gumbel_counter.launches
+    out = tops.gumbel_perturb_keyed(logits, seeds, pos)
+    torch.cuda.synchronize()
+    assert tops.gumbel_counter.launches == before + 1
+    ref = tops.gumbel_perturb_keyed_plain(logits, seeds, pos)
+    assert bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out.argmax(-1), ref.argmax(-1))
 
 
 # fp32 tolerances: the kernel and the plain version sum in other orders;

@@ -1,5 +1,6 @@
-"""The bf16 paged-attention kernel's decomposition: query tiles of
-same-slot tokens, key splits, and the combine of the splits.
+"""The paged-attention kernel's decomposition, which both its main
+kernels run (bf16 q on the tensor cores, fp32 q on the CUDA cores): query
+tiles of same-slot tokens, key splits, and the combine of the splits.
 
 On the CPU the work list comes from ``paged_tiles_plain`` (the kernel's
 pre-pass in plain PyTorch) and :func:`tiled_attention` computes attention
@@ -9,10 +10,11 @@ probabilities rounded to bf16 before the PV product at bf16 and the K / V
 scales of a quantized pool applied to scores and probabilities.  That is
 held against ``paged_attention_plain`` and, at fp32, the JAX reference
 (``repro.kernels.ref.paged_attention``, and the Pallas kernel in
-interpret mode) at the 1e-5 kernel tier.  On the card (``requires_cuda``)
-the kernel itself is held against the plain version, its device pre-pass
-against ``paged_tiles_plain``, and two calls against each other bit for
-bit.
+interpret mode) at the 1e-5 kernel tier (2e-3 over 1024 keys or more).
+On the card (``requires_cuda``) the kernel itself is held against the
+plain version, its device pre-pass against ``paged_tiles_plain``, two
+calls against each other bit for bit, and an fp32 token's row alone
+against the same token inside a mixed batch, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -228,6 +230,104 @@ def test_tiled_bf16_matches_plain(layout, pool):
                                **BF16_TOL)
 
 
+def _pallas(q, kp, vp, ksc, vsc, tables, seg, pos, window):
+    """The reference's Pallas paged kernel (interpret mode on the CPU),
+    (T, Hq, D) as numpy."""
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+    return np.asarray(jops.paged_attention(
+        j(q), j(kp), j(vp), j(tables), j(seg), j(pos), window=window,
+        k_scale=j(ksc), v_scale=j(vsc)))
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("pool", ["fp32", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("layout", ["reference", "long_run"])
+def test_tiled_fp32_pools_match_plain_and_pallas(layout, pool, window):
+    """fp32 q over each pool the fp32 ("simt") main kernel takes, at its
+    tiling for G = 2 (32 tokens a tile, 128 keys a split) and at a small
+    one: the plain version and the Pallas kernel, within 1e-5."""
+    q, kp, vp, ksc, vsc, tables, seg, pos, _ = case(layout, pool)
+    live = seg >= 0
+    t = lambda a: None if a is None else to_torch(a)  # noqa: E731
+    plain = DA.paged_attention_plain(
+        t(q).reshape(len(seg), 2, 2, 16), t(kp), t(vp), t(tables), t(seg),
+        t(pos), scale=16 ** -0.5, window=window, k_scale=t(ksc),
+        v_scale=t(vsc))
+    exp = _pallas(q, kp, vp, ksc, vsc, tables, seg, pos, window)
+    for tiling in ((32, 128), (3, 4)):
+        out = _tiled(q, kp, vp, ksc, vsc, tables, seg, pos, window, tiling,
+                     2)
+        np.testing.assert_allclose(to_numpy(out)[live],
+                                   to_numpy(plain)[live], **TOL)
+        np.testing.assert_allclose(to_numpy(out).reshape(exp.shape)[live],
+                                   exp[live], **TOL)
+
+
+def long_case(pool, seed=9):
+    """A slot of 1152 keys (72 pages of 16) read by a decode token at
+    1100, another slot's 4-token chunk at 1022-1025 (across the split
+    boundary at key 1024) and padding: splits of 128 keys up to 9 deep."""
+    rng = np.random.default_rng(seed)
+    tables = rng.permutation(160)[:144].reshape(2, 72).astype(np.int32)
+    seg = np.array([0, 1, 1, 1, 1, -1], np.int32)
+    pos = np.array([1100, 1022, 1023, 1024, 1025, 0], np.int32)
+    kp, vp, ksc, vsc = pool_case(rng, 160, 16, 1, 16, pool)
+    q = rng.standard_normal((6, 2, 16)).astype(np.float32)
+    return q, kp, vp, ksc, vsc, tables, seg, pos
+
+
+@pytest.mark.parametrize("pool", ["fp32", "int8"])
+def test_tiled_fp32_over_1024_keys_matches_plain_and_pallas(pool):
+    """Over 1024 keys the reference's tier is 2e-3 (a long fp32
+    reduction in another order)."""
+    q, kp, vp, ksc, vsc, tables, seg, pos = long_case(pool)
+    live = seg >= 0
+    t = lambda a: None if a is None else to_torch(a)  # noqa: E731
+    out = tiled_attention(
+        t(q).reshape(6, 1, 2, 16), t(kp), t(vp), t(tables), t(seg), t(pos),
+        scale=0.25, window=None, tile_tokens=32, split_keys=128,
+        k_scale=t(ksc), v_scale=t(vsc))
+    plain = DA.paged_attention_plain(
+        t(q).reshape(6, 1, 2, 16), t(kp), t(vp), t(tables), t(seg), t(pos),
+        scale=0.25, k_scale=t(ksc), v_scale=t(vsc))
+    tol = dict(rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(to_numpy(out)[live], to_numpy(plain)[live],
+                               **tol)
+    exp = _pallas(q, kp, vp, ksc, vsc, tables, seg, pos, None)
+    np.testing.assert_allclose(to_numpy(out).reshape(exp.shape)[live],
+                               exp[live], **tol)
+
+
+def test_a_tokens_splits_do_not_depend_on_its_tile_mates():
+    """Without a window a tile's splits start at key 0 in multiples of
+    the split size, whatever its other tokens: a token sees the same key
+    ranges alone as inside a mixed batch (where its tile-mates reach
+    further), and the batch's extra splits hold no key it can see.  So
+    the merge adds exact zeros and its row is the same: bit for bit on
+    the card (test_cuda_paged_simt_row_is_independent_of_its_batch);
+    here, where the decomposition's products are batched einsums, to
+    1e-6."""
+    q, kp, vp, ksc, vsc, tables, seg, pos = long_case("fp32")
+    t = lambda a: None if a is None else to_torch(a)  # noqa: E731
+    kw = dict(scale=0.25, window=None, tile_tokens=32, split_keys=128)
+    args = (t(kp), t(vp), t(tables))
+    batch = tiled_attention(t(q).reshape(6, 1, 2, 16), *args, t(seg),
+                            t(pos), **kw)
+    tiles = DA.paged_tiles_plain(t(seg), t(pos), tables.shape, 16, 32, 128)
+    for i in (1, 2):  # chunk tokens that share a tile with later ones
+        alone_tiles = DA.paged_tiles_plain(t(seg[i:i + 1]), t(pos[i:i + 1]),
+                                           tables.shape, 16, 32, 128)
+        (_, _, _, lo, hi, n, _, _), = alone_tiles.tolist()
+        (row,) = [r for r in tiles.tolist() if r[0] <= i < r[0] + r[1]]
+        assert lo == row[3] == 0 and row[4] > hi and row[5] == n + 1
+        # the batch's split past the token's own begins after its position
+        assert n * 128 > pos[i]
+        alone = tiled_attention(t(q[i:i + 1]).reshape(1, 1, 2, 16), *args,
+                                t(seg[i:i + 1]), t(pos[i:i + 1]), **kw)
+        np.testing.assert_allclose(to_numpy(alone)[0],
+                                   to_numpy(batch)[i], rtol=0, atol=1e-6)
+
+
 def _tiles(layout, m, ks):
     _, _, _, _, _, tables, seg, pos, window = case(layout, "fp32")
     ps = {"shared_prefix": 8}.get(layout, 4)
@@ -325,7 +425,7 @@ def serving_layout(gen, n_slots, chunk, n_pad, max_len, ps, p_pages):
 
 
 def card_case(dev, pool, ps, d=128, hkv=2, g=8, max_len=300, chunk=21,
-              seed=3):
+              seed=3, q_dtype=torch.bfloat16):
     gen = torch.Generator().manual_seed(seed)
     p_pages = -(-max_len // ps)
     seg, pos, tables = serving_layout(gen, 6, chunk, 5, max_len, ps,
@@ -334,13 +434,13 @@ def card_case(dev, pool, ps, d=128, hkv=2, g=8, max_len=300, chunk=21,
     k32 = torch.randn((n_pages, ps, hkv, d), generator=gen)
     v32 = torch.randn((n_pages, ps, hkv, d), generator=gen)
     q = torch.randn((len(seg), hkv, g, d), generator=gen)
-    if pool == "bf16":
-        kp, vp, ksc, vsc = k32.bfloat16(), v32.bfloat16(), None, None
+    if pool in ("bf16", "fp32"):
+        kp, vp, ksc, vsc = (k32.to(q_dtype), v32.to(q_dtype), None, None)
     else:
         kp, ksc = tquant.quantize(k32, pool)
         vp, vsc = tquant.quantize(v32, pool)
     move = lambda a: None if a is None else a.to(dev)  # noqa: E731
-    return dict(q=q.bfloat16().to(dev), kp=move(kp), vp=move(vp),
+    return dict(q=q.to(q_dtype).to(dev), kp=move(kp), vp=move(vp),
                 ksc=move(ksc), vsc=move(vsc), tables=tables.to(dev),
                 seg=torch.tensor(seg, dtype=torch.int32, device=dev),
                 pos=torch.tensor(pos, dtype=torch.int32, device=dev))
@@ -441,6 +541,80 @@ def test_cuda_prepass_matches_plain(cuda_device, t, window):
         got = DA.paged_tiles(seg.to(cuda_device), pos.to(cuda_device),
                              (4, 20), 16, g, window)
         assert torch.equal(got.cpu(), want)
+
+
+def first_design_smem(g, d, ps):
+    """Shared bytes of the first fp32 kernel's block (a (ps, D) K and V
+    page and the group's rows), which refused a page size past 232448."""
+    return 4 * (2 * ps * d + 2 * g * d + g * ps + 3 * g)
+
+
+def refused_page_size(g, d):
+    """The smallest power-of-two page size the first fp32 kernel
+    refused."""
+    ps = 16
+    while first_design_smem(g, d, ps) <= 232448:
+        ps *= 2
+    return ps
+
+
+@requires_cuda
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("pool", ["fp32", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_cuda_paged_simt_matches_plain(cuda_device, d, g, pool, window):
+    """fp32 q over each pool the CUDA-core main kernel takes, in the
+    serving layout with sequences of up to 300 keys (up to 3 splits), at
+    a page size the first fp32 kernel refused: within 1e-5, the three
+    launches recorded."""
+    ps = refused_page_size(g, d)
+    x = card_case(cuda_device, pool, ps, d=d, g=g, q_dtype=torch.float32)
+    before = DA.counter.launches
+    out = _run(x, DA.paged_attention_fwd, window)
+    torch.cuda.synchronize()
+    assert DA.counter.launches == before + 1
+    rec = DA.last_launch()
+    assert rec["device_launches"] == 3 and rec["prepass_blocks"] == 1
+    ref = _run(x, DA.paged_attention_plain, window)
+    live = x["seg"] >= 0
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out[live], ref[live], **TOL)
+
+
+@requires_cuda
+@pytest.mark.parametrize("pool", ["fp32", "int8"])
+def test_cuda_paged_simt_row_is_independent_of_its_batch(cuda_device,
+                                                         pool):
+    """gemma-2b's attention (G = 8, D = 256, ps 16) in the serving layout
+    at its 1024-key cap: a token's row run alone is bit for bit its row
+    inside the mixed batch, where its tile-mates reach further and its
+    tile has more splits (what lets speculation at fp32 equal spec_k=0)."""
+    x = card_case(cuda_device, pool, 16, d=256, hkv=1, g=8, max_len=1024,
+                  chunk=100, q_dtype=torch.float32)
+    full = _run(x, DA.paged_attention_fwd)
+    n_live = int((x["seg"] >= 0).sum())
+    for i in (0, 3, 57, 99, 100, n_live - 1):
+        one = {**x, "q": x["q"][i:i + 1].contiguous(),
+               "seg": x["seg"][i:i + 1].contiguous(),
+               "pos": x["pos"][i:i + 1].contiguous()}
+        alone = _run(one, DA.paged_attention_fwd)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[i]), i
+
+
+@requires_cuda
+@pytest.mark.parametrize("d", [16, 256])
+@pytest.mark.parametrize("pool", [torch.float32, torch.int8,
+                                  torch.float8_e4m3fn])
+def test_cuda_paged_simt_attributes(cuda_device, pool, d):
+    """The CUDA-core main kernel: 256 threads, 32-key tiles, no spill
+    (at D = 256 its O is 64 registers a lane), and its shared memory
+    within a block's."""
+    a = DA.kernel_attributes(torch.float32, pool, d, 8, 16)
+    assert a["variant"] == "simt" and a["threads"] == 256
+    assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1
+    assert a["key_tile"] == 32 and 0 < a["smem_bytes"] <= 232448
 
 
 @requires_cuda

@@ -225,6 +225,48 @@ def test_sample_tokens_with_injected_uniforms_matches():
     np.testing.assert_array_equal(out.numpy(), exp)
 
 
+def _keyed_rows():
+    logits, temps, top_ks, top_ps = (to_torch(a) for a in _sampling_rows())
+    seeds = torch.tensor([3, 3, 11, 2 ** 35, -4, 9])
+    positions = torch.tensor([5, 6, 5, 130, 7, 2 ** 32 + 1])
+    return logits, temps, top_ks, top_ps, seeds, positions
+
+
+def test_sample_tokens_keyed_equals_injected_position_uniforms():
+    """Without ``uniform`` the keyed perturbation draws the same tokens
+    as the uniform one fed ``position_uniforms`` of the same keys."""
+    logits, temps, top_ks, top_ps, seeds, positions = _keyed_rows()
+    keyed = tsampling.sample_tokens(logits, temps, top_ks, top_ps, seeds,
+                                    positions)
+    u = tsampling.position_uniforms(seeds, positions, logits.shape[1])
+    fed = tsampling.sample_tokens(logits, temps, top_ks, top_ps, seeds,
+                                  positions, uniform=u)
+    assert torch.equal(keyed, fed)
+
+
+def test_sample_tokens_draws_its_noise_in_the_keyed_kernel(monkeypatch):
+    """``uniform=None`` goes through ``gumbel_perturb_keyed`` once and
+    never through ``gumbel_perturb`` with a uniform tensor: the (R, V)
+    uniforms are not made on the serving path."""
+    from repro_torch.kernels import ops as kops
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        monkeypatch.setattr(kops, name, wrapped)
+    spy("gumbel_perturb_keyed", kops.gumbel_perturb_keyed)
+    spy("gumbel_perturb", kops.gumbel_perturb)
+    logits, temps, top_ks, top_ps, seeds, positions = _keyed_rows()
+    tsampling.sample_tokens(logits, temps, top_ks, top_ps, seeds,
+                            positions)
+    assert calls == ["gumbel_perturb_keyed"]
+    tsampling.sample_tokens(logits, temps, top_ks, top_ps, seeds,
+                            positions, uniform=torch.full_like(logits, 0.5))
+    assert calls == ["gumbel_perturb_keyed", "gumbel_perturb"]
+
+
 def test_position_uniforms_depend_on_seed_and_position_only():
     seeds = torch.tensor([7, 7, 8, 7])
     pos = torch.tensor([3, 4, 3, 3])

@@ -15,17 +15,29 @@ code.  KIND picks the rows a turn measures:
 (``chip_smoke.paged_inputs``, seed 11):
 
   * the paged kernel on every ``PAGED_CASES`` row: the SHA-256 of its
-    output's bytes, a single call's ms by CUDA events, and for the bf16
-    rows the device us a call (``profile_kernels``);
-  * the mixed kernel on every ``MIXED_ROWS`` row: a single call's ms,
-    SDPA's ms on the same inputs, and the device us a call of each of
-    its kernels.
+    output's bytes, a single call's ms by CUDA events, and the device us
+    a call of its pre-pass, main kernel and combine and in all
+    (``profile_kernels``);
+  * the mixed kernel on every ``MIXED_ROWS`` row: the SHA-256 of its
+    output, a single call's ms, SDPA's ms on the same inputs, and the
+    device us a call of each of its kernels.
 
-  The summary says whether the paged outputs of every turn are the same
-  bits, row by row, and whether the two trees' paged libraries hold the
+  The summary says, row by row, whether the outputs of every turn are
+  the same bits, and whether the two trees' paged libraries hold the
   same machine code (``cuobjdump -sass``, the source file's hash in the
-  kernel names masked); the script exits non-zero when the paged bits
-  differ.
+  kernel names masked); the script exits non-zero when the bits of a
+  bf16 paged row or of a mixed row differ between any two turns, or
+  those of an fp32 paged row between the two turns of one tree.
+
+``gumbel``: at ``GUMBEL_SHAPE``, the parent's serving path
+(``position_uniforms`` then the uniform kernel), the uniform kernel and,
+where the tree has it, the keyed kernel: each one's max abs error against
+the plain perturbation, a single call's ms, the host us a call and the
+device us and launches a call (``profile_kernels``: every kernel of the
+parent's path); then gemma-2b's bf16 serving run (tokens/s) and its
+profile (``profile_serving``: the sampling tail's device ms and launches
+a step; a tree whose executor has no ``sampling`` range gets one around
+``sample_tokens``, so both trees are read alike).
 
 ``wkv6``: the WKV6 kernel on every ``RWKV6_ROWS`` row (its max abs error
 against the plain version, which must be within ``kernel_tol``, a single
@@ -79,10 +91,15 @@ def measure(tree: str, kernels: str) -> dict:
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
-    rows = {"attention": measure_attention, "wkv6": measure_wkv6,
-            "mamba": measure_mamba, "fused": measure_fused}[kernels](
-                torch, cs)
+    rows = {"attention": measure_attention, "gumbel": measure_gumbel,
+            "wkv6": measure_wkv6, "mamba": measure_mamba,
+            "fused": measure_fused}[kernels](torch, cs)
     return {"tree": tree, "card": cs.smi_line(), **rows}
+
+
+def sha256(torch, out) -> str:
+    return hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def measure_attention(torch, cs) -> dict:
@@ -100,13 +117,9 @@ def measure_attention(torch, cs) -> dict:
         out = kern()
         torch.cuda.synchronize()
         key = f"{q_dtype}x{pool}"
-        paged[key] = {
-            "sha256": hashlib.sha256(
-                out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-            ).hexdigest(),
-            "ms": cs.time_ms(torch, kern)}
-        if q_dtype == "bfloat16":
-            paged_kerns[key] = kern
+        paged[key] = {"sha256": sha256(torch, out),
+                      "ms": cs.time_ms(torch, kern)}
+        paged_kerns[key] = kern
 
     xm, caches = cs.mixed_inputs(torch, "cuda")
     mixed, mixed_kerns = {}, {}
@@ -118,9 +131,10 @@ def measure_attention(torch, cs) -> dict:
         def kern(q=q, kc=kc, vc=vc, kw=kw):
             return DA.mixed_attention_fwd(q, kc, vc, xm["seg"], xm["pos"],
                                           **kw)
-        kern()
+        out = kern()
         torch.cuda.synchronize()
         mixed[label] = {
+            "sha256": sha256(torch, out),
             "ms": cs.time_ms(torch, kern),
             "sdpa_ms": cs.mixed_library_ms(torch, q, kc, vc, xm["seg"],
                                            xm["pos"], window, kw["scale"])}
@@ -130,8 +144,12 @@ def measure_attention(torch, cs) -> dict:
     for key, kern in paged_kerns.items():
         kern()
         prof = cs.profile_kernels(torch, kern, DA.counter, "paged_attention",
-                                  DA.last_launch()["device_launches"])
+                                  DA.last_launch()["device_launches"],
+                                  part=cs.kernel_part)
         paged[key]["device_us"] = prof["device_us_per_call"]
+        paged[key]["parts_us"] = {
+            k: v["device_us_per_call"] for k, v in prof["kernels"].items()}
+        paged[key]["device_launches"] = prof["device_launches_per_call"]
         paged[key]["sessions"] = len(prof["sessions"])
     for label, kern in mixed_kerns.items():
         kern()
@@ -139,13 +157,71 @@ def measure_attention(torch, cs) -> dict:
                 if hasattr(DA, "mixed_last_launch") else 1)
         prof = cs.profile_kernels(torch, kern, DA.mixed_counter,
                                   "mixed_attention", want,
-                                  part=cs.mixed_part)
+                                  part=cs.kernel_part)
         mixed[label]["device_us"] = prof["device_us_per_call"]
         mixed[label]["parts_us"] = {
             k: v["device_us_per_call"] for k, v in prof["kernels"].items()}
         mixed[label]["sessions"] = len(prof["sessions"])
     return {"paged": paged, "mixed": mixed,
             "paged_library": DA._lib()._name}
+
+
+def measure_gumbel(torch, cs, dev: str = "cuda") -> dict:
+    import inspect
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import executor, sampling
+
+    rows, vocab = cs.GUMBEL_SHAPE
+    logits, seeds, pos = cs.gumbel_inputs(torch, dev, rows, vocab)
+    u = sampling.position_uniforms(seeds, pos, vocab)
+    ref = ops.gumbel_perturb_plain(logits, u)
+    entries = {
+        "composition": (lambda: ops.gumbel_perturb(
+            logits, sampling.position_uniforms(seeds, pos, vocab)),
+            None, None),
+        "uniform": (lambda: ops.gumbel_perturb(logits, u),
+                    "gumbel_perturb", 1)}
+    if hasattr(ops, "gumbel_perturb_keyed"):
+        entries["keyed"] = (lambda: ops.gumbel_perturb_keyed(
+            logits, seeds, pos), "gumbel_perturb", 1)
+    gumbel = {}
+    for label, (fn, _, _) in entries.items():
+        out = fn()
+        torch.cuda.synchronize()
+        gumbel[label] = {
+            "max_abs_err": cs.gumbel_check(torch, label, out, ref),
+            "ms": cs.time_ms(torch, fn), "host_us": cs.host_us(torch, fn)}
+        del out
+
+    if 'record_function("sampling")' not in inspect.getsource(executor):
+        sample_tokens = sampling.sample_tokens
+
+        def ranged(*args, **kw):
+            with torch.profiler.record_function(cs.SAMPLING_RANGE):
+                return sample_tokens(*args, **kw)
+        sampling.sample_tokens = ranged
+    _, _, cfg, params = cs.gemma_models(torch, dev)
+    cs.free(torch)
+    requests = cs.serving_requests(torch, cfg)
+    (_, wall, m), counts = cs.counted(
+        torch, "the bf16 serving run",
+        lambda: cs.run_engine(torch, cfg, params, requests, dev))
+    model = {"serving": {
+        "tokens_per_s": sum(n for _, n, _ in requests) / wall,
+        "steps": m["steps"], "launches": counts}}
+    # the profiler sessions last: they slow the host for timed runs after
+    for label, (fn, group, want) in entries.items():
+        prof = cs.profile_kernels(torch, fn, ops.gumbel_counter, group,
+                                  want)
+        gumbel[label]["device_us"] = prof["device_us_per_call"]
+        gumbel[label]["device_launches"] = prof["device_launches_per_call"]
+        gumbel[label]["sessions"] = len(prof["sessions"])
+    prof = cs.profile_serving(torch, cfg, params, requests, dev)
+    model["serving_profile"] = {
+        k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                             "device_idle_share", "steps", "sampling")}
+    return {"gumbel": gumbel, "model": model}
 
 
 def measure_wkv6(torch, cs, dev: str = "cuda") -> dict:
@@ -290,8 +366,8 @@ def sass(library: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="the other checkout")
-    ap.add_argument("--kernels", choices=("attention", "wkv6", "mamba",
-                                          "fused"),
+    ap.add_argument("--kernels", choices=("attention", "gumbel", "wkv6",
+                                          "mamba", "fused"),
                     default="attention", help="the rows a turn measures")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="also write the turns and the summary "
@@ -323,7 +399,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"turns": turns, "summary": summary}, f, indent=1)
-    return 0 if all(summary.get("paged_bits_equal", {}).values()) else 1
+    return 0 if all(summary.get("bits_equal", {}).values()) else 1
 
 
 def side_by_side(turns, *path) -> list:
@@ -337,23 +413,37 @@ def side_by_side(turns, *path) -> list:
 
 
 def attention_summary(turns) -> dict:
+    """Bits: a bf16 paged row and every mixed row must be the same in all
+    four turns (the change keeps them), an fp32 paged row within each
+    tree's two turns (each tree's kernel gives the same bits every run)."""
     paged_keys = list(turns[0]["paged"])
     parent_sass, change_sass = (sass(turns[i]["paged_library"])
                                 for i in (0, 1))
+
+    def same(kind, key, which):
+        return len({turns[i][kind][key]["sha256"] for i in which}) == 1
+
+    bits = {f"paged {k}": same("paged", k, range(4)) for k in paged_keys
+            if k.startswith("bfloat16")}
+    bits.update({f"paged {k} within each tree":
+                 same("paged", k, (0, 3)) and same("paged", k, (1, 2))
+                 for k in paged_keys if not k.startswith("bfloat16")})
+    bits.update({f"mixed {k}": same("mixed", k, range(4))
+                 for k in turns[0]["mixed"]})
     return {
         "paged_sass_identical": parent_sass == change_sass,
         "paged_sass_kernels": len(parent_sass),
         "paged_sass_kernels_differing": sorted(
             k for k in set(parent_sass) | set(change_sass)
             if parent_sass.get(k) != change_sass.get(k)),
-        "paged_bits_equal": {
-            k: len({t["paged"][k]["sha256"] for t in turns}) == 1
-            for k in paged_keys},
-        "paged_ms": {k: side_by_side(turns, "paged", k, "ms")
-                     for k in paged_keys},
-        "paged_device_us": {
-            k: side_by_side(turns, "paged", k, "device_us")
-            for k in paged_keys if "device_us" in turns[0]["paged"][k]},
+        "bits_equal": bits,
+        "paged_fp32_bits_equal_parent_change": {
+            k: same("paged", k, range(4)) for k in paged_keys
+            if not k.startswith("bfloat16")},
+        "paged": {k: {field: side_by_side(turns, "paged", k, field)
+                      for field in ("ms", "device_us", "parts_us",
+                                    "device_launches")}
+                  for k in paged_keys},
         "mixed": {
             label: {field: side_by_side(turns, "mixed", label, field)
                     for field in ("ms", "sdpa_ms", "device_us")}
@@ -362,15 +452,19 @@ def attention_summary(turns) -> dict:
 
 def rows_summary(turns) -> dict:
     """Each number of the kernel rows and the model phases, turn by
-    turn."""
+    turn (a row or field only one tree has reads None in the other's
+    turns)."""
     kind = next(k for k in turns[0] if k not in ("tree", "card", "model"))
-    return {
-        kind: {label: {field: side_by_side(turns, kind, label, field)
-                       for field in fields}
-               for label, fields in turns[0][kind].items()},
-        "model": {phase: {field: side_by_side(turns, "model", phase, field)
-                          for field in fields}
-                  for phase, fields in turns[0]["model"].items()}}
+
+    def table(key):
+        fields = {}
+        for t in turns:
+            for label, row in t[key].items():
+                fields.setdefault(label, {}).update(dict.fromkeys(row))
+        return {label: {f: side_by_side(turns, key, label, f) for f in fs}
+                for label, fs in fields.items()}
+    return {kind: table(kind), "model": table("model")}
+
 
 if __name__ == "__main__":
     sys.exit(main())
