@@ -56,12 +56,18 @@ Output, one line each:
   * one JSON line per kernel phase: paged attention for every (q dtype,
     pool dtype) pair the serving runs launch, plus fp8 (max abs error
     against the plain version beside the reference's RMS, kernel / plain
-    / library ms by CUDA events, the bound; the variant, "mma" for bf16 q
-    on the tensor cores and "simt" for fp32 q, the device launches and
-    thread blocks of a call as the kernel's C entry reports them, and for
-    "mma" the work list of query tiles and key splits, which the device
-    pre-pass must build exactly as ``paged_tiles_plain`` does; registers,
-    spill bytes, shared memory and blocks per SM); the Gumbel kernel; flash
+    / library ms by CUDA events, the bound; the main kernel's variant,
+    "mma" for bf16 q on the tensor cores and "simt" for fp32 q on the
+    CUDA cores, the device launches and thread blocks of a call as the
+    kernel's C entry reports them, the work list of query tiles and key
+    splits, which the device pre-pass must build exactly as
+    ``paged_tiles_plain`` does; registers, spill bytes, shared memory and
+    blocks per SM); the Gumbel kernels at serving's 48 x 256000 (the
+    keyed kernel the serving path runs, its uniforms drawn in registers:
+    error, same argmax in every row, ragged shapes, single-call ms, host
+    us a call, its two-pass bound, the plain version's ms and the
+    parent's path's, ``position_uniforms`` then the uniform kernel; and
+    the uniform kernel against its three-pass bound); flash
     attention (gemma-2b prefill, an offset+window row, an fp32 row; each
     with its kernel's variant, registers, spill bytes, shared memory and
     blocks per SM);
@@ -94,7 +100,8 @@ Output, one line each:
     ``torch.relu`` in alternating turns, every reading printed);
   * one JSON line per serving run (tokens/s, steps, buckets, and that
     run's own kernel launches: every run must launch both kernels; the
-    paged variant its q dtype runs);
+    paged variant its q dtype runs; fp32 greedy with speculation must
+    equal it without, token for token);
   * ``paged_vs_gathered`` (the two kernels on a live pool with shared
     prefix pages and ragged tables, every layer), ``legacy_serving``
     (tokens/s, exact flash and decode launches, the unified engine's
@@ -115,8 +122,13 @@ Output, one line each:
   * the profiled runs (``serving_profile``, the ``*_prefill_profile``
     and ``*_decode_profile`` of the three step-builder paths and
     ``eager_train_profile``: device time and kernel calls by kernel group
-    or eager op, idle share; ``paged_attention_profile``: the bf16 paged
-    rows' device us a call by kernel and device launches a call;
+    or eager op, idle share; ``serving_profile`` also the sampling tail,
+    the kernels under the executor's ``sampling`` range: device ms,
+    launches and Gumbel launches a step; ``paged_attention_profile``:
+    every paged row's device us a call of its pre-pass, main kernel and
+    combine, and device launches a call; ``gumbel_perturb_profile``: the
+    keyed and uniform kernels' device us a call and the parent's path's
+    (every kernel it launches);
     ``decode_attention_profile``: the same for the gemma bf16 and jamba
     decode rows, main kernel and combine; ``mixed_attention_profile``:
     mixed row (a), pre-pass, main kernel and combine;
@@ -128,9 +140,10 @@ Output, one line each:
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
     path's main run (wrapper calls; the paged, decode and mixed entries
-    add their variant, and those and the WKV6 entry the device launches
-    and device us of one call of the reported row, as
-    ``paged_attention_profile``, ``decode_attention_profile``,
+    add their variant, and those, the Gumbel (keyed) and the WKV6 entry
+    the device launches and device us of one call of the reported row, as
+    ``paged_attention_profile``, ``gumbel_perturb_profile``,
+    ``decode_attention_profile``,
     ``mixed_attention_profile``, ``rwkv6_scan_profile``,
     ``mamba_scan_profile`` and ``fused_elementwise_profile`` counted
     them; bf16 serving for paged
@@ -408,7 +421,7 @@ def paged_plan(torch, DA, x, q, pool_dtype) -> dict:
     ``paged_tiles_plain``'s."""
     t, hkv, g, d = q.shape
     ps, p = x["ps"], x["p"]
-    plan = {**DA.kernel_attributes(q.dtype, pool_dtype, d, g, ps),
+    plan = {**DA.kernel_attributes(q.dtype, pool_dtype, d),
             **DA.last_launch()}
     tiling = DA.tiling(g, p, ps)
     want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(),
@@ -610,11 +623,12 @@ def gumbel_inputs(torch, dev, rows: int, vocab: int, seed: int = 12):
     return logits, seeds, seeds + 100
 
 
-def gumbel_bound(rows: int, vocab: int, streams: int) -> float:
-    """ms to move ``streams`` fp32 (rows, vocab) arrays once, and the
-    keyed kernel's (rows,) int64 seeds and positions."""
-    nbytes = streams * rows * vocab * 4 + (2 * rows * 8 if streams == 2
-                                            else 0)
+def gumbel_bound(rows: int, vocab: int, keyed: bool) -> float:
+    """ms to move a Gumbel call's bytes once: the keyed kernel reads the
+    fp32 (rows, vocab) logits and (rows,) int64 seeds and positions and
+    writes the result; the uniform kernel reads the uniforms too."""
+    nbytes = (2 * rows * vocab * 4 + 2 * rows * 8 if keyed
+              else 3 * rows * vocab * 4)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -656,7 +670,8 @@ def phase_gumbel(torch, dev) -> dict:
           "ms": time_ms(torch, lambda: ops.gumbel_perturb(logits, u)),
           "plain_ms": time_ms(
               torch, lambda: ops.gumbel_perturb_plain(logits, u)),
-          "bound_ms": gumbel_bound(rows, vocab, 3), "bound_by": "bytes",
+          "bound_ms": gumbel_bound(rows, vocab, keyed=False),
+          "bound_by": "bytes",
           "library_ms": None})
     del u
 
@@ -684,7 +699,8 @@ def phase_gumbel(torch, dev) -> dict:
                logits, seeds, pos)),
            "composition_ms": time_ms(torch, lambda: ops.gumbel_perturb(
                logits, position_uniforms(seeds, pos, vocab))),
-           "bound_ms": gumbel_bound(rows, vocab, 2), "bound_by": "bytes",
+           "bound_ms": gumbel_bound(rows, vocab, keyed=True),
+           "bound_by": "bytes",
            "library_ms": None}
     emit(row)
     return row

@@ -47,7 +47,10 @@ def _hash32(x):
     return x
 
 
-@triton.jit
+# R is not specialized: a serving step's row count varies (1 to S * (K +
+# 1)), and a specialization of R == 1 or R % 16 == 0 would compile the
+# kernel again inside a serving run
+@triton.jit(do_not_specialize=["R"])
 def gumbel_keyed_kernel(x_ptr, seed_ptr, pos_ptr, o_ptr, R, V,
                         ROWS: tl.constexpr, LANES: tl.constexpr):
     lanes = tl.program_id(0) * LANES + tl.arange(0, LANES)

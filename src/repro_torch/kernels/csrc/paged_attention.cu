@@ -927,15 +927,11 @@ extern "C" int repro_paged_tiles(const void* seg, const void* pos,
 }
 
 // The resources of the main kernel that `repro_paged_attention` launches
-// for (q dtype, pool dtype, d) at group size g and page size ps: out[0]
-// registers a thread, out[1] local (spill) bytes a thread, out[2] dynamic
-// shared bytes a block, out[3] blocks an SM can hold, out[4] threads a
-// block, out[5] keys a tile (g and ps change none of them).  Returns
-// as `repro_paged_attention` does.
+// for (q dtype, pool dtype, d): out[0] registers a thread, out[1] local
+// (spill) bytes a thread, out[2] dynamic shared bytes a block, out[3]
+// blocks an SM can hold, out[4] threads a block, out[5] keys a tile.
+// Returns as `repro_paged_attention` does.
 extern "C" int repro_paged_attention_attrs(int q_dtype, int kv_dtype, int d,
-                                           int g, int ps, int* out) {
-  Args a{};
-  a.g = g;
-  a.ps = ps;
-  return dispatch(q_dtype, kv_dtype, d, a, out);
+                                           int* out) {
+  return dispatch(q_dtype, kv_dtype, d, Args{}, out);
 }

@@ -91,7 +91,7 @@ def _lib() -> ctypes.CDLL:
                           + [ctypes.c_void_p])
         tiles.restype = ctypes.c_int
         attrs = lib.repro_paged_attention_attrs
-        attrs.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         attrs.restype = ctypes.c_int
     return lib
 
@@ -185,20 +185,19 @@ def variant(q_dtype: torch.dtype) -> str:
 
 
 def kernel_attributes(q_dtype: torch.dtype, pool_dtype: torch.dtype,
-                      head_dim: int, g: int, ps: int) -> dict:
+                      head_dim: int) -> dict:
     """The resources of the main kernel that :func:`paged_attention_fwd`
-    launches for these dtypes and head_dim on the current card (``g`` and
-    ``ps`` change none of them): its variant (``"mma"``: bf16 q on the
-    tensor cores, ``"simt"``: fp32 q on the CUDA cores), registers and
-    local (spill) bytes a thread, dynamic shared bytes and threads a
-    block, blocks an SM holds, keys a tile."""
+    launches for these dtypes and head_dim on the current card: its
+    variant (``"mma"``: bf16 q on the tensor cores, ``"simt"``: fp32 q on
+    the CUDA cores), registers and local (spill) bytes a thread, dynamic
+    shared bytes and threads a block, blocks an SM holds, keys a tile."""
     if q_dtype not in Q_CODES or pool_dtype not in _KV_CODES or \
             head_dim not in HEAD_DIMS:
         raise ValueError(f"kernel_attributes: no kernel for {q_dtype} q, "
                          f"{pool_dtype} pool, head_dim {head_dim}")
     vals = (ctypes.c_int * 6)()
     err = _lib().repro_paged_attention_attrs(
-        Q_CODES[q_dtype], _KV_CODES[pool_dtype], head_dim, g, ps, vals)
+        Q_CODES[q_dtype], _KV_CODES[pool_dtype], head_dim, vals)
     if err != 0:
         raise RuntimeError(f"paged_attention attributes failed (code "
                            f"{err})")

@@ -611,7 +611,7 @@ def test_cuda_paged_simt_attributes(cuda_device, pool, d):
     """The CUDA-core main kernel: 256 threads, 32-key tiles, no spill
     (at D = 256 its O is 64 registers a lane), and its shared memory
     within a block's."""
-    a = DA.kernel_attributes(torch.float32, pool, d, 8, 16)
+    a = DA.kernel_attributes(torch.float32, pool, d)
     assert a["variant"] == "simt" and a["threads"] == 256
     assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 1
     assert a["key_tile"] == 32 and 0 < a["smem_bytes"] <= 232448
@@ -622,9 +622,9 @@ def test_cuda_paged_simt_attributes(cuda_device, pool, d):
 def test_cuda_paged_kernel_attributes(cuda_device, pool):
     """The D = 256 budget the source note rests on: no spill, two blocks
     an SM, 32-key tiles."""
-    a = DA.kernel_attributes(torch.bfloat16, pool, 256, 8, 16)
+    a = DA.kernel_attributes(torch.bfloat16, pool, 256)
     assert a["variant"] == "mma" and a["threads"] == 128
     assert a["spill_bytes"] == 0 and a["blocks_per_sm"] >= 2
     assert a["key_tile"] == 32 and a["smem_bytes"] > 0
-    assert DA.kernel_attributes(torch.float32, torch.float32, 256, 8,
-                                16)["variant"] == "simt"
+    assert DA.kernel_attributes(torch.float32, torch.float32,
+                                256)["variant"] == "simt"

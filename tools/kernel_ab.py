@@ -20,14 +20,18 @@ code.  KIND picks the rows a turn measures:
     (``profile_kernels``);
   * the mixed kernel on every ``MIXED_ROWS`` row: the SHA-256 of its
     output, a single call's ms, SDPA's ms on the same inputs, and the
-    device us a call of each of its kernels.
+    device us a call of each of its kernels;
+  * gemma-2b's fp32 greedy serving runs, without and with speculation
+    (``spec_k`` = ``SPEC_K``): wall seconds, tokens/s, steps, paged
+    launches, and whether the two runs' tokens are equal.
 
   The summary says, row by row, whether the outputs of every turn are
   the same bits, and whether the two trees' paged libraries hold the
   same machine code (``cuobjdump -sass``, the source file's hash in the
   kernel names masked); the script exits non-zero when the bits of a
-  bf16 paged row or of a mixed row differ between any two turns, or
-  those of an fp32 paged row between the two turns of one tree.
+  bf16 paged row or of a mixed row differ between any two turns, those
+  of an fp32 paged row between the two turns of one tree, or the fp32
+  serving run with speculation draws other tokens than without.
 
 ``gumbel``: at ``GUMBEL_SHAPE``, the parent's serving path
 (``position_uniforms`` then the uniform kernel), the uniform kernel and,
@@ -140,6 +144,8 @@ def measure_attention(torch, cs) -> dict:
                                            xm["pos"], window, kw["scale"])}
         mixed_kerns[label] = kern
 
+    serving = fp32_serving(torch, cs)
+
     # the profiled readings last: a profiler session slows what follows
     for key, kern in paged_kerns.items():
         kern()
@@ -162,8 +168,31 @@ def measure_attention(torch, cs) -> dict:
         mixed[label]["parts_us"] = {
             k: v["device_us_per_call"] for k, v in prof["kernels"].items()}
         mixed[label]["sessions"] = len(prof["sessions"])
-    return {"paged": paged, "mixed": mixed,
+    return {"paged": paged, "mixed": mixed, "serving": serving,
             "paged_library": DA._lib()._name}
+
+
+def fp32_serving(torch, cs, dev: str = "cuda") -> dict:
+    """The fp32 greedy serving runs of ``chip_smoke.phase_serving``."""
+    cfg32, params32, _, _ = cs.gemma_models(torch, dev)
+    cs.free(torch)
+    requests = [r for r in cs.serving_requests(torch, cfg32) if r[2].greedy]
+    runs, tokens = {}, {}
+    for name, kw in (("fp32_greedy", {}),
+                     ("fp32_greedy_spec2", {"spec_k": cs.SPEC_K})):
+        (outs, wall, m), counts = cs.counted(
+            torch, name, lambda: cs.run_engine(torch, cfg32, params32,
+                                               requests, dev, **kw))
+        tokens[name] = outs
+        runs[name] = {"wall_s": wall,
+                      "tokens_per_s": sum(n for _, n, _ in requests) / wall,
+                      "steps": m["steps"],
+                      "paged_launches": counts["paged_attention"]}
+    runs["spec2_equals_spec0"] = (tokens["fp32_greedy"]
+                                  == tokens["fp32_greedy_spec2"])
+    del params32
+    cs.free(torch)
+    return runs
 
 
 def measure_gumbel(torch, cs, dev: str = "cuda") -> dict:
@@ -430,6 +459,8 @@ def attention_summary(turns) -> dict:
                  for k in paged_keys if not k.startswith("bfloat16")})
     bits.update({f"mixed {k}": same("mixed", k, range(4))
                  for k in turns[0]["mixed"]})
+    bits["fp32 serving: spec_k=2 tokens equal spec_k=0's"] = all(
+        t["serving"]["spec2_equals_spec0"] for t in turns)
     return {
         "paged_sass_identical": parent_sass == change_sass,
         "paged_sass_kernels": len(parent_sass),
@@ -447,7 +478,8 @@ def attention_summary(turns) -> dict:
         "mixed": {
             label: {field: side_by_side(turns, "mixed", label, field)
                     for field in ("ms", "sdpa_ms", "device_us")}
-            for label in turns[0]["mixed"]}}
+            for label in turns[0]["mixed"]},
+        "serving": side_by_side(turns, "serving")}
 
 
 def rows_summary(turns) -> dict:
