@@ -68,13 +68,18 @@ Output, one line each:
     us a call, its two-pass bound, the plain version's ms and the
     parent's path's, ``position_uniforms`` then the uniform kernel; and
     the uniform kernel against its three-pass bound); flash
-    attention (gemma-2b prefill, an offset+window row, an fp32 row; each
-    with its kernel's variant, registers, spill bytes, shared memory and
-    blocks per SM);
-    decode attention (gemma-2b decode at ragged lengths, fp32, window;
-    each with its variant, "mma" for bf16 on the tensor cores with
-    split-KV and "simt" for fp32, its kernel's resources and the device
-    launches and thread blocks of a call as the C entry reports them);
+    attention (gemma-2b prefill, an offset+window row, an fp32 row, and
+    the fp32 prefills of dense_parity and jamba_parity; each with its
+    kernel's variant, "mma" for bf16 and "tf32x3" for fp32, both on the
+    tensor cores, registers, spill bytes, shared memory and blocks per
+    SM, and its bound's rule: fp32 rows take 3xTF32's, three TF32
+    products at the TF32 rate, beside the fp32 CUDA-core bound);
+    decode attention (gemma-2b decode at ragged lengths, fp32, window,
+    and the fp32 decode steps of dense_parity and jamba_parity; each with
+    its variant, "mma" for bf16 on the tensor cores and "simt" for fp32
+    on the CUDA cores, both split-KV, its kernel's resources and the
+    device launches and thread blocks of a call as the C entry reports
+    them);
     WKV6 (rwkv6-1.6b prefill, decode from a state, an fp32 row with a
     state; each with its kernel's registers, spill bytes, threads, shared
     memory, blocks per SM, the state columns a thread holds and the parts
@@ -129,8 +134,10 @@ Output, one line each:
     combine, and device launches a call; ``gumbel_perturb_profile``: the
     keyed and uniform kernels' device us a call and the parent's path's
     (every kernel it launches);
-    ``decode_attention_profile``: the same for the gemma bf16 and jamba
-    decode rows, main kernel and combine; ``mixed_attention_profile``:
+    ``flash_attention_profile``: every flash row's device us a call, and
+    SDPA's on the same inputs, by kernel name;
+    ``decode_attention_profile``: every decode row's device us a call of
+    its main kernel and combine, and SDPA's; ``mixed_attention_profile``:
     mixed row (a), pre-pass, main kernel and combine;
     ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
     ``mamba_scan_profile``: the Mamba rows' device us a launch, device
@@ -143,7 +150,7 @@ Output, one line each:
     add their variant, and those, the Gumbel (keyed) and the WKV6 entry
     the device launches and device us of one call of the reported row, as
     ``paged_attention_profile``, ``gumbel_perturb_profile``,
-    ``decode_attention_profile``,
+    ``flash_attention_profile``, ``decode_attention_profile``,
     ``mixed_attention_profile``, ``rwkv6_scan_profile``,
     ``mamba_scan_profile`` and ``fused_elementwise_profile`` counted
     them; bf16 serving for paged
@@ -175,7 +182,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# dense peaks (H100 SXM data sheet): bf16 tensor cores, fp32 CUDA cores,
+# and fp32 in 3xTF32 on the tensor cores (three TF32 products at 494.7
+# TFLOP/s for each fp32 product: the fp32 flash kernel's work)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 494.7e12 / 3}
 # paged attention: max abs error by q dtype.  bf16 q: the plain version
 # rounds dequantized pages and probabilities to bf16 while the kernel
 # stays in fp32, so the two differ by bf16 rounding of O(1) outputs.
@@ -203,20 +213,26 @@ GUMBEL_RAGGED = ((1, 1000), (1, 256001), (3, 1000), (3, 256001))
 # the reference's tiers (docs/kernels.md).
 ATTN_BF16_TOL = 1e-2
 # (label, dtype, B, Hq, Hkv, Sq, Skv, D, window); all causal.  The first
-# row is gemma-2b prefill of (4, 1024) tokens, the dense_prefill shape.
-# The last row is jamba's attention layer in jamba_prefill (64 query heads
-# over 8 KV heads of 128).
+# row is gemma-2b prefill of (4, 1024) tokens, the dense_prefill shape;
+# "jamba" is jamba's attention layer in jamba_prefill (64 query heads
+# over 8 KV heads of 128); the last two are the fp32 prefills of
+# dense_parity and jamba_parity (PARITY_SHAPE).
 FLASH_ROWS = (("prefill", "bfloat16", 4, 8, 1, 1024, 1024, 256, None),
               ("offset_window", "bfloat16", 4, 8, 1, 384, 1024, 256, 256),
               ("fp32", "float32", 4, 8, 1, 256, 256, 256, None),
-              ("jamba", "bfloat16", 4, 64, 8, 1024, 1024, 128, None))
+              ("jamba", "bfloat16", 4, 64, 8, 1024, 1024, 128, None),
+              ("parity", "float32", 2, 8, 1, 160, 160, 256, None),
+              ("jamba_parity", "float32", 2, 64, 8, 160, 160, 128, None))
 # (label, dtype, B, Hkv, G, D, Smax, window); lengths ragged in 1..Smax.
-# The first row is gemma-2b decode at B = 8, the last jamba's attention
-# layer at B = 8.
+# The first row is gemma-2b decode at B = 8, "jamba" jamba's attention
+# layer at B = 8; the last two are the fp32 decode steps of dense_parity
+# and jamba_parity (B = 2, caches of PARITY_SHAPE's 160 keys).
 DECODE_ROWS = (("decode", "bfloat16", 8, 1, 8, 256, 2048, None),
                ("fp32", "float32", 8, 1, 8, 256, 2048, None),
                ("window", "bfloat16", 8, 1, 8, 256, 2048, 256),
-               ("jamba", "bfloat16", 8, 8, 8, 128, 2048, None))
+               ("jamba", "bfloat16", 8, 8, 8, 128, 2048, None),
+               ("parity", "float32", 2, 1, 8, 256, 160, None),
+               ("jamba_parity", "float32", 2, 8, 8, 128, 160, None))
 # dense path: prefill (4, 1024); decode B = 8, 128-token prompts fed one
 # token a step, then 64 greedy tokens; parity on (2, 160) at fp32
 PREFILL_SHAPE = (4, 1024)
@@ -737,8 +753,10 @@ def profile_gumbel(torch, dev) -> dict:
     return result
 
 
-def kernel_bound(nbytes: int, ops: int, dtype: str) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+def kernel_bound(nbytes: int, ops: int, rule: str) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` at the
+    memory rate and ``ops`` at ``PEAK_OPS[rule]``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[rule]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -770,21 +788,19 @@ def phase_flash(torch, dev) -> dict:
     """The flash kernel against its plain version; the first row is the
     dense_prefill shape and is the one reported in the kernel table.
     Each row carries the resources of the kernel it ran (variant "mma"
-    for bf16 on the tensor cores, "simt" for fp32; registers, spill
-    bytes, shared memory, blocks per SM)."""
-    import torch.nn.functional as F
+    for bf16, "tf32x3" for fp32 in three TF32 products, both on the
+    tensor cores; registers, spill bytes, shared memory, blocks per SM)
+    and its bound's rule (``bound_rule``, a ``PEAK_OPS`` key); fp32 rows
+    also carry the bound at the fp32 CUDA-core rate
+    (``bound_ms_float32``), the parent kernel's.  ``profile_flash`` gives
+    the device us of each row and of SDPA."""
     from repro_torch.kernels import flash_attention as FA
 
     result = None
-    for label, dt, b, hq, hkv, sq, skv, d, window in FLASH_ROWS:
+    for row_spec in FLASH_ROWS:
+        label, dt, b, hq, hkv, sq, skv, d, window = row_spec
         dtype = getattr(torch, dt)
-        gen = torch.Generator(device=dev).manual_seed(13)
-        q = torch.randn((b * hq, sq, d), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b * hkv, skv, d), generator=gen,
-                        device=dev).to(dtype)
-        v = torch.randn((b * hkv, skv, d), generator=gen,
-                        device=dev).to(dtype)
-        kw = dict(causal=True, scale=d ** -0.5, window=window)
+        q, k, v, kw = flash_inputs(torch, dev, row_spec)
         out = FA.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         ref = FA.flash_attention_plain(q, k, v, **kw)
@@ -801,22 +817,96 @@ def phase_flash(torch, dev) -> dict:
         mask = FA.visible_mask(sq, skv, True, window, dev)
         pairs = int(mask.sum().item())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        row["bound_ms"], row["bound_by"] = kernel_bound(
-            nbytes, 4 * pairs * d * b * hq, dt)
-        # yardstick: one SDPA call over K/V expanded to Hq (expanded
-        # outside the timed call); the port never calls it
-        q4 = q.reshape(b, hq, sq, d)
-        k4 = k.reshape(b, hkv, 1, skv, d).expand(b, hkv, hq // hkv, skv,
-                                                 d).reshape(b, hq, skv, d)
-        v4 = v.reshape(b, hkv, 1, skv, d).expand(b, hkv, hq // hkv, skv,
-                                                 d).reshape(b, hq, skv, d)
-        if sq == skv and window is None:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, is_causal=True, scale=d ** -0.5)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, attn_mask=mask, scale=d ** -0.5)
-        row["library_ms"] = time_ms(torch, lib)
+        ops = 4 * pairs * d * b * hq
+        row["bound_rule"] = "tf32x3" if dt == "float32" else dt
+        row["bound_ms"], row["bound_by"] = kernel_bound(nbytes, ops,
+                                                        row["bound_rule"])
+        if dt == "float32":
+            row["bound_ms_float32"] = kernel_bound(nbytes, ops, dt)[0]
+        row["library_ms"] = time_ms(torch, flash_library(
+            torch, q, k, v, (b, hq, hkv, sq, skv, d), window, mask))
+        emit(row)
+        if result is None:
+            result = row
+    return result
+
+
+def flash_library(torch, q, k, v, shape, window, mask):
+    """The yardstick of a FLASH_ROWS row: one SDPA call over K/V expanded
+    to Hq (expanded here, outside any timed call); the port never calls
+    it."""
+    import torch.nn.functional as F
+    b, hq, hkv, sq, skv, d = shape
+    q4 = q.reshape(b, hq, sq, d)
+    k4 = k.reshape(b, hkv, 1, skv, d).expand(b, hkv, hq // hkv, skv,
+                                             d).reshape(b, hq, skv, d)
+    v4 = v.reshape(b, hkv, 1, skv, d).expand(b, hkv, hq // hkv, skv,
+                                             d).reshape(b, hq, skv, d)
+    if sq == skv and window is None:
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=d ** -0.5)
+    return lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, scale=d ** -0.5)
+
+
+def flash_inputs(torch, dev, row):
+    """q, k, v and the keyword arguments of a FLASH_ROWS row (seed 13)."""
+    label, dt, b, hq, hkv, sq, skv, d, window = row
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((b * hq, sq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b * hkv, skv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b * hkv, skv, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, dict(causal=True, scale=d ** -0.5, window=window)
+
+
+class CallCount:
+    """A launch count for a library call, as ``profile_kernels`` reads a
+    kernel wrapper's."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def profile_library(torch, fn) -> dict:
+    """``profile_kernels`` of one PyTorch call: the device us a call of
+    each kernel it launches (by name) and in all."""
+    calls = CallCount()
+
+    def kern():
+        calls.launches += 1
+        return fn()
+    kern()
+    torch.cuda.synchronize()
+    prof = profile_kernels(torch, kern, calls, None, None)
+    return {"device_us_per_call": prof["device_us_per_call"],
+            "device_launches_per_call": prof["device_launches_per_call"],
+            "kernels": prof["kernels"]}
+
+
+def profile_flash(torch, dev) -> dict:
+    """Every FLASH_ROWS row under ``profile_kernels``: the kernel's device
+    us and device launches a call, and SDPA's (``library``: each of its
+    kernels by name) on the same inputs.  Run with the profiled runs,
+    last.  Returns the first row's line."""
+    from repro_torch.kernels import flash_attention as FA
+
+    result = None
+    for row_spec in FLASH_ROWS:
+        label, dt, b, hq, hkv, sq, skv, d, window = row_spec
+        q, k, v, kw = flash_inputs(torch, dev, row_spec)
+
+        def kern():
+            return FA.flash_attention_fwd(q, k, v, **kw)
+        kern()
+        torch.cuda.synchronize()
+        mask = FA.visible_mask(sq, skv, True, window, dev)
+        row = {"phase": "flash_attention_profile", "row": label,
+               "dtype": dt, "variant": FA.variant(q.dtype),
+               **profile_kernels(torch, kern, FA.counter, "flash_attention",
+                                 1),
+               "library": profile_library(torch, flash_library(
+                   torch, q, k, v, (b, hq, hkv, sq, skv, d), window, mask))}
         emit(row)
         if result is None:
             result = row
@@ -843,12 +933,11 @@ def decode_inputs(torch, dev, row):
 def phase_decode(torch, dev) -> dict:
     """The decode kernel against its plain version at ragged lengths;
     the first row is the dense_decode shape (the table's row).  Each row
-    carries its variant ("mma": bf16 on the tensor cores, split-KV;
-    "simt": fp32 on the CUDA cores), its kernel's resources and the
-    device launches and thread blocks of a call as the C entry reports
-    them; ``ms`` is a single call by CUDA events (the wrapper's host time
+    carries its variant ("mma": bf16 on the tensor cores; "simt": fp32 on
+    the CUDA cores; both split-KV), its kernel's resources and the device
+    launches and thread blocks of a call as the C entry reports them;
+    ``ms`` is a single call by CUDA events (the wrapper's host time
     included; ``profile_decode`` gives the device's alone)."""
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
 
     result = None
@@ -874,36 +963,45 @@ def phase_decode(torch, dev) -> dict:
                   + 2 * live * hkv * d * kc.element_size())
         row["bound_ms"], row["bound_by"] = kernel_bound(
             nbytes, 4 * live * hkv * g * d, dt)
-        pos = torch.arange(smax, device=dev)[None, :]
-        ok = pos < lens.long()[:, None]
-        if window:
-            ok = ok & (pos >= lens.long()[:, None] - window)
-        mask = ok[:, None, None, :]
-        q4 = q.reshape(b, hkv * g, 1, d)
-        k4 = kc[:, :, None].expand(b, hkv, g, smax, d).reshape(
-            b, hkv * g, smax, d)
-        v4 = vc[:, :, None].expand(b, hkv, g, smax, d).reshape(
-            b, hkv * g, smax, d)
-        row["library_ms"] = time_ms(
-            torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=d ** -0.5))
+        row["library_ms"] = time_ms(torch, decode_library(
+            torch, q, kc, vc, lens, window))
         emit(row)
         if result is None:
             result = row
     return result
 
 
+def decode_library(torch, q, kc, vc, lens, window):
+    """The yardstick of a DECODE_ROWS row: one SDPA call over the caches
+    expanded to every query head and the live keys as a mask (both made
+    here, outside any timed call); the port never calls it."""
+    import torch.nn.functional as F
+    b, hkv, g, d = q.shape
+    smax = kc.shape[2]
+    pos = torch.arange(smax, device=q.device)[None, :]
+    ok = pos < lens.long()[:, None]
+    if window:
+        ok = ok & (pos >= lens.long()[:, None] - window)
+    mask = ok[:, None, None, :]
+    q4 = q.reshape(b, hkv * g, 1, d)
+    k4 = kc[:, :, None].expand(b, hkv, g, smax, d).reshape(
+        b, hkv * g, smax, d)
+    v4 = vc[:, :, None].expand(b, hkv, g, smax, d).reshape(
+        b, hkv * g, smax, d)
+    return lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, scale=d ** -0.5)
+
+
 def profile_decode(torch, dev) -> dict:
-    """The gemma bf16 and jamba rows of DECODE_ROWS under
-    ``profile_kernels``: the device us a call of the main kernel and of
-    the combine and in all, and the device launches a call.  Run with the
-    profiled runs, last.  Returns the gemma line."""
+    """Every DECODE_ROWS row under ``profile_kernels``: the device us a
+    call of the main kernel and of the combine and in all, the device
+    launches a call, and SDPA's device us on the same inputs
+    (``library``).  Run with the profiled runs, last.  Returns the first
+    (gemma) line."""
     from repro_torch.kernels import decode_attention as DA
 
     result = None
     for row_spec in DECODE_ROWS:
-        if row_spec[0] not in ("decode", "jamba"):
-            continue
         q, kc, vc, _, lens, kw = decode_inputs(torch, dev, row_spec)
 
         def kern():
@@ -915,11 +1013,18 @@ def profile_decode(torch, dev) -> dict:
                **profile_kernels(
                    torch, kern, DA.decode_counter, "decode_attention",
                    DA.decode_last_launch()["device_launches"],
-                   part=lambda n: "combine" if "combine" in n else "main")}
+                   part=decode_part),
+               "library": profile_library(torch, decode_library(
+                   torch, q, kc, vc, lens, kw["window"]))}
         emit(row)
         if result is None:
             result = row
     return result
+
+
+def decode_part(name: str) -> str:
+    """The part of a call a decode kernel's name is: main or combine."""
+    return "combine" if "combine" in name else "main"
 
 
 def rwkv6_inputs(torch, dev, dt, b, h, s, d, state, decays):
@@ -2853,7 +2958,7 @@ def phase_parity(torch, dev, cfg32, params32, phase: str, seed: int) -> None:
     5e-3 of the logits' RMS (``rollout_parity``'s rtol, stated relative
     because full-width logits are not O(1)), argmax equal on every row.
     The run launches exactly one forward's and 160 decode steps' mixer
-    kernels."""
+    kernels; its line has the run's wall seconds."""
     from repro_torch.models import lm as LM
 
     b, s = PARITY_SHAPE
@@ -2874,13 +2979,16 @@ def phase_parity(torch, dev, cfg32, params32, phase: str, seed: int) -> None:
     want = launches_per_pass(cfg32, False)
     for k, n in launches_per_pass(cfg32, True).items():
         want[k] = want.get(k, 0) + n * s
+    t0 = time.perf_counter()
     (pre, dec), counts = check_launches(torch, f"the {phase} run", run,
                                         want)
+    wall = time.perf_counter() - t0
     err = (pre - dec).abs().max().item()
     rms = pre.pow(2).mean().sqrt().item()
     agree = (pre.argmax(-1) == dec.argmax(-1)).tolist()
     emit({"phase": phase, "model": cfg32.name, "layers": cfg32.n_layers,
-          "dtype": "float32", "batch": b, "seq": s, "max_abs_err": err,
+          "dtype": "float32", "batch": b, "seq": s, "wall_s": wall,
+          "max_abs_err": err,
           "logits_rms": rms, "err_over_rms": err / rms, "rtol": PARITY_RTOL,
           "argmax_agree": agree, "launches": counts,
           "peak_mem_gb": peak_gb(torch)})
@@ -3020,6 +3128,7 @@ def run_phases(torch, dev) -> list:
     free(torch)
     paged_profile = profile_paged(torch, dev)
     gumbel_profile = profile_gumbel(torch, dev)
+    flash_profile = profile_flash(torch, dev)
     decode_profile = profile_decode(torch, dev)
     mixed_profile = profile_mixed(torch, dev)
     rwkv6_profile = profile_rwkv6(torch, dev)
@@ -3061,6 +3170,7 @@ def run_phases(torch, dev) -> list:
             entry["variant"] = r["variant"]
         profiled = {"paged_attention": paged_profile,
                     "gumbel_perturb": gumbel_profile,
+                    "flash_attention": flash_profile,
                     "decode_attention": decode_profile,
                     "mixed_attention": mixed_profile,
                     "rwkv6_scan": rwkv6_profile,

@@ -1,8 +1,9 @@
 // Helpers shared by the kernels (paged, flash and decode attention, WKV6,
 // the Mamba scan): element loads as fp32, stores in the output type, the
 // masked-score value, the tensor-core fragment helpers of the bf16 flash,
-// paged and decode kernels (cp.async, ldmatrix, mma.sync m16n8k16), and
-// the merge of split-KV results of the paged and decode kernels.
+// paged and decode kernels (cp.async, ldmatrix, mma.sync m16n8k16), the
+// 3xTF32 products of the fp32 flash kernel (mma.sync m16n8k8), and the
+// merge of split-KV results of the paged and decode kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -128,6 +129,49 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 3xTF32: an fp32 operand x is split into big = tf32(x) and small =
+// tf32(x - big), both rounded to nearest with ties away from zero
+// (x - big is exact in fp32), and a product is taken as a_small b_big +
+// a_big b_small + a_big b_big in fp32 accumulators, the small x small term
+// dropped: a few units of 2^-22 of relative error a product, where TF32
+// alone (the big term) gives up to 2^-11, on the tensor cores.  It is
+// what CUTLASS calls OpMultiplyAddFastF32 and what PyTorch's fp32
+// memory-efficient attention runs on sm_80 and later.
+//
+// The rounding is cvt.rna's for finite values, in integer ops: half a
+// TF32 unit (0x1000) added to the bits, which carries into the magnitude,
+// then the 13 low bits cleared for big (its value is needed for x - big);
+// small keeps them, since the tensor cores read only the top 19 bits of a
+// tf32 operand.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32, from the (big, small) parts of both operands
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           uint32_t b0_big, uint32_t b1_big,
+                                           uint32_t b0_small,
+                                           uint32_t b1_small) {
+  mma_tf32(c, a_small, b0_big, b1_big);
+  mma_tf32(c, a_big, b0_small, b1_small);
+  mma_tf32(c, a_big, b0_big, b1_big);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

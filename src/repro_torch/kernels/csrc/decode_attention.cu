@@ -51,20 +51,34 @@
 //     block an SM).  `repro_decode_attention_attrs` reports registers,
 //     spill bytes, shared memory and blocks per SM of each instantiation.
 //
-// fp32 ("simt", CUDA cores; the first design, one launch a call).  fp32 is
-// the parity path, held to 1e-5; the tensor cores would take it in TF32 or
-// bf16.
-//   * one block of 8 warps per (row, kv head, chunk of up to 8 query
-//     heads); the block holds the chunk's query heads, so each key is read
-//     once for all of them;
-//   * the block loops over the LIVE keys only, [max(0, len - window), len),
-//     never over Smax.  The keys are cut into 32-key tiles dealt round-robin
-//     to the warps; in a tile each lane scores one key against all heads of
-//     the chunk (16-byte loads of its key row), the warp runs the online
-//     softmax with shuffles, and each lane accumulates D/32 output columns
-//     of every head in registers, reading V rows coalesced;
-//   * the warps' partial (m, l, acc) are merged in shared memory at the end
-//     (the split-K combine of flash-decoding, inside one block).
+// fp32 ("simt", CUDA cores; one launch a call, two with the combine).
+// fp32 is the parity path, held to 1e-5.  It is bound by bytes as bf16
+// is (4 flops a byte, against the ~20 at which the fp32 CUDA cores would
+// bind), so the tensor cores would not help it; what the first design
+// lacked was parallelism: one block per (row, KV head) is 8 blocks for
+// 132 SMs at gemma-2b.  It runs the bf16 path's split plan:
+//   * the grid (B*Hkv, ceil(span / KS), ceil(G/8)), span = min(Smax,
+//     window), KS = kSimtSplitKeys = 64, sized on the host with no sync;
+//     split s covers [lo + s*KS, min(len, lo + (s+1)*KS)), so the
+//     window's edge is a split's start; a block past its row's live
+//     splits exits;
+//   * one block of 4 warps per (row and KV head, split, chunk of up to 8
+//     query heads); the block holds the chunk's query heads, so each key
+//     is read once for all of them.  The split's keys are cut into
+//     16-key tiles dealt round-robin to the warps; in a tile two lanes
+//     score a key, each over half of D (16-byte loads of its key row,
+//     unrolled 8 deep), a shuffle adds the halves, the warp runs the
+//     online softmax with shuffles (natural units, expf), and each lane
+//     accumulates D/32 output columns of every head in registers,
+//     reading V rows in 16-byte loads.  A tile's time is the latency of
+//     its loads, so short tiles on many blocks beat long ones: 64 keys a
+//     split on 4 warps was the fastest of 8 tilings at dense_parity's
+//     decode shape, where the main path's fp32 calls are (PERF.md §6);
+//   * the warps' partial (m, l, acc) are merged in shared memory in warp
+//     order.  A row of one split normalises and writes; otherwise each
+//     split writes (m, l) and unnormalised O to the workspace and the
+//     combine (`decode_attention_combine`, natural units, fp32 out)
+//     merges them in split order, so every run gives the same bits.
 //
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * lane padding of head_dim to 128 (`_pad_last`, repro/kernels/ops.py):
@@ -91,60 +105,130 @@ using repro_attn::mma_bf16;
 using repro_attn::pack_bf16;
 using repro_attn::quad_max;
 using repro_attn::quad_sum;
-using repro_attn::round_to;
 using repro_attn::smem_u32;
-using repro_attn::store;
-using repro_attn::to_f;
 using repro_attn::warp_max;
 using repro_attn::warp_sum;
 
 // ---------------------------------------------------------------------
+// the split plan both variants share
+
+constexpr int kMaxGridYZ = 65535;  // gridDim.y and .z; x takes 2^31 - 1
+
+// live keys [lo, len) of row b (cache_len clipped to [0, Smax])
+__device__ __forceinline__ void live_keys(const int* cache_len, int b,
+                                          int smax, int window, int* lo,
+                                          int* len) {
+  *len = max(0, min(cache_len[b], smax));
+  *lo = window > 0 ? max(0, *len - window) : 0;
+}
+
+// splits of KS keys of a row with n live keys; a row with none has one,
+// which writes zeros
+template <int KS>
+__device__ __forceinline__ int row_splits(int n) {
+  return max(1, (n + KS - 1) / KS);
+}
+
+// splits of the grid: ceil(span / ks), span = min(Smax, window)
+int grid_splits(int smax, int window, int ks) {
+  const int span = window > 0 ? min(smax, window) : smax;
+  return max(1, (span + ks - 1) / ks);
+}
+
+// Dynamic shared memory above 48 KB is allowed per kernel (and device).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// ---------------------------------------------------------------------
 // fp32 on the CUDA cores ("simt")
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kGC = 8;       // query heads per block
+// warps a block, keys a split and keys a warp's tile: chosen by
+// tools/kernel_variants.py (PERF.md §6)
+constexpr int kSimtWarps = 4;
+constexpr int kThreads = 32 * kSimtWarps;
+constexpr int kGC = 8;                // query heads per block
+constexpr int kSimtSplitKeys = 64;
+constexpr int kSimtWarpKeys = 16;
+constexpr int kLanesPerKey = 32 / kSimtWarpKeys;
 
 template <int D>
 constexpr size_t smem_floats() {
-  return static_cast<size_t>(kGC) * D + kWarps * kGC * 32 +
-         kWarps * kGC * D + 2 * kWarps * kGC;
+  return static_cast<size_t>(kGC) * D + kSimtWarps * kGC * kSimtWarpKeys +
+         kSimtWarps * kGC * D + 2 * kSimtWarps * kGC;
 }
 
-template <typename T, int D>
+// N consecutive floats from p (16-byte aligned for N = 4) into o, or
+// zeros when p is null
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* o) {
+  if (p == nullptr) {
+#pragma unroll
+    for (int u = 0; u < N; ++u) o[u] = 0.f;
+  } else if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    o[0] = a.x; o[1] = a.y;
+  } else {
+    o[0] = *p;
+  }
+}
+
+// Block (b * Hkv + h, split, head chunk): split `split` of row b's live
+// keys for query heads [8 z, 8 z + 8) of KV head h.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q,        // (B, Hkv, G, D)
-                        const T* __restrict__ k_cache,  // (B, Hkv, Smax, D)
-                        const T* __restrict__ v_cache,
-                        const int* __restrict__ cache_len,  // (B,)
-                        T* __restrict__ out,            // (B, Hkv, G, D)
-                        int hkv, int g, int smax, float scale, int window) {
-  constexpr int DPL = D >= 32 ? D / 32 : 1;   // output columns per lane
+decode_attention_simt(const float* __restrict__ q,        // (B, Hkv, G, D)
+                      const float* __restrict__ k_cache,  // (B, Hkv, Smax, D)
+                      const float* __restrict__ v_cache,
+                      const int* __restrict__ cache_len,  // (B,)
+                      float* __restrict__ out,            // (B, Hkv, G, D)
+                      float* __restrict__ part_o,  // (B*Hkv*G, splits, D)
+                      float* __restrict__ part_ml,  // (B*Hkv*G, splits, 2)
+                      int hkv, int g, int smax, int max_splits, float scale,
+                      int window) {
+  // output columns of a lane: NV runs of V4 consecutive columns, run c
+  // at column (32 c + lane) V4, so that a lane reads a V row in vector
+  // loads (lanes past D at D = 16 hold nothing)
+  constexpr int DPL = D >= 32 ? D / 32 : 1;
+  constexpr int V4 = DPL < 4 ? DPL : 4;
+  constexpr int NV = DPL / V4;
+  constexpr int KW = kSimtWarpKeys;
+  constexpr int DP = D / kLanesPerKey;  // columns of a key a lane scores
   extern __shared__ float smem[];
   float* qs = smem;                           // (kGC, D)
-  float* pw = qs + kGC * D;                   // (kWarps, kGC, 32)
-  float* wacc = pw + kWarps * kGC * 32;       // (kWarps, kGC, D)
-  float* wm = wacc + kWarps * kGC * D;        // (kWarps, kGC)
-  float* wl = wm + kWarps * kGC;              // (kWarps, kGC)
+  float* pw = qs + kGC * D;                   // (kSimtWarps, kGC, KW)
+  float* wacc = pw + kSimtWarps * kGC * KW;   // (kSimtWarps, kGC, D)
+  float* wm = wacc + kSimtWarps * kGC * D;    // (kSimtWarps, kGC)
+  float* wl = wm + kSimtWarps * kGC;          // (kSimtWarps, kGC)
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
+  int lo, len;
+  live_keys(cache_len, bh / hkv, smax, window, &lo, &len);
+  const int n_splits = row_splits<kSimtSplitKeys>(len - lo);
+  if (split >= n_splits) return;
+  const int k_begin = lo + split * kSimtSplitKeys;
+  const int k_end = min(len, k_begin + kSimtSplitKeys);
   const int g0 = blockIdx.z * kGC;
   const int gc = min(kGC, g - g0);
+  const size_t row0 = static_cast<size_t>(bh) * g + g0;  // first out row
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const size_t row = static_cast<size_t>(b) * hkv + h;
 
-  const T* qp = q + (row * g + g0) * D;
+  const float* qp = q + row0 * D;
   for (int e = tid; e < kGC * D; e += kThreads)
-    qs[e] = e / D < gc ? to_f(qp[e]) : 0.f;
+    qs[e] = e / D < gc ? qp[e] : 0.f;
 
-  const int len = min(cache_len[b], smax);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const T* kp = k_cache + row * smax * D;
-  const T* vp = v_cache + row * smax * D;
-  float* my_p = pw + warp * kGC * 32;
+  const float* kp = k_cache + static_cast<size_t>(bh) * smax * D;
+  const float* vp = v_cache + static_cast<size_t>(bh) * smax * D;
+  float* my_p = pw + warp * kGC * KW;
   __syncthreads();
 
   float m[kGC], l[kGC], acc[kGC][DPL];
@@ -156,49 +240,66 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hkv, G, D)
     for (int c = 0; c < DPL; ++c) acc[gi][c] = 0.f;
   }
 
-  for (int t0 = lo + warp * 32; t0 < len; t0 += kWarps * 32) {
-    const int kj = t0 + lane;
-    const bool valid = kj < len;
+  // a warp's tile of KW keys: lane (part, key) scores key t0 + lane % KW
+  // over columns [part * DP, part * DP + DP)
+  const int part = lane / KW;
+  for (int t0 = k_begin + warp * KW; t0 < k_end; t0 += kSimtWarps * KW) {
+    const int kj = t0 + lane % KW;
+    const bool valid = kj < k_end;
     float s[kGC];
 #pragma unroll
     for (int gi = 0; gi < kGC; ++gi) s[gi] = 0.f;
     if (valid) {
-      const T* krow = kp + static_cast<size_t>(kj) * D;
-#pragma unroll 2
-      for (int d = 0; d < D; d += 8) {
+      // unrolled by 8 (up to 16 loads of 16 bytes in flight a lane): the
+      // warp's time on a tile is load latency
+      const float* krow = kp + static_cast<size_t>(kj) * D + part * DP;
+      const float* qrow = qs + part * DP;
+#pragma unroll 8
+      for (int d = 0; d < DP; d += 8) {
         float kv[8];
         load8(krow + d, kv);
 #pragma unroll
         for (int u = 0; u < 8; ++u)
 #pragma unroll
-          for (int gi = 0; gi < kGC; ++gi) s[gi] += qs[gi * D + d + u] * kv[u];
+          for (int gi = 0; gi < kGC; ++gi)
+            s[gi] += qrow[gi * D + d + u] * kv[u];
       }
     }
+    // whole scores: the parts summed over the lanes of a key
+#pragma unroll
+    for (int o = KW; o < 32; o <<= 1)
+#pragma unroll
+      for (int gi = 0; gi < kGC; ++gi)
+        s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], o);
 #pragma unroll
     for (int gi = 0; gi < kGC; ++gi) {
       const float sc = valid ? s[gi] * scale : kNegInf;
       const float m_new = fmaxf(m[gi], warp_max(sc));
       const float p = valid ? expf(sc - m_new) : 0.f;
       const float alpha = expf(m[gi] - m_new);
-      l[gi] = alpha * l[gi] + warp_sum(p);
+      l[gi] = alpha * l[gi] + warp_sum(part == 0 ? p : 0.f);
       m[gi] = m_new;
-      my_p[gi * 32 + lane] = round_to(p, T());
+      if (part == 0) my_p[gi * KW + lane] = p;
 #pragma unroll
       for (int c = 0; c < DPL; ++c) acc[gi][c] *= alpha;
     }
     __syncwarp();
-    const int n = min(32, len - t0);
+    const int n = min(KW, k_end - t0);
+#pragma unroll 8
     for (int j = 0; j < n; ++j) {
-      const T* vrow = vp + static_cast<size_t>(t0 + j) * D;
+      const float* vrow = vp + static_cast<size_t>(t0 + j) * D;
       float vv[DPL];
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int d = lane + 32 * c;
-        vv[c] = d < D ? to_f(vrow[d]) : 0.f;
+      for (int c = 0; c < NV; ++c) {
+        const int d = (32 * c + lane) * V4;
+        if (d < D)
+          load_n<V4>(vrow + d, vv + c * V4);
+        else
+          load_n<V4>(nullptr, vv + c * V4);
       }
 #pragma unroll
       for (int gi = 0; gi < kGC; ++gi) {
-        const float p = my_p[gi * 32 + j];
+        const float p = my_p[gi * KW + j];
 #pragma unroll
         for (int c = 0; c < DPL; ++c) acc[gi][c] += p * vv[c];
       }
@@ -206,7 +307,7 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hkv, G, D)
     __syncwarp();
   }
 
-  // merge the warps' partial softmax states
+  // merge the warps' partial softmax states, in warp order
 #pragma unroll
   for (int gi = 0; gi < kGC; ++gi) {
     if (lane == 0) {
@@ -214,51 +315,36 @@ decode_attention_kernel(const T* __restrict__ q,        // (B, Hkv, G, D)
       wl[warp * kGC + gi] = l[gi];
     }
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) wacc[(warp * kGC + gi) * D + d] = acc[gi][c];
+    for (int c = 0; c < NV; ++c) {
+      const int d = (32 * c + lane) * V4;
+#pragma unroll
+      for (int u = 0; u < V4; ++u)
+        if (d < D) wacc[(warp * kGC + gi) * D + d + u] = acc[gi][c * V4 + u];
     }
   }
   __syncthreads();
 
-  T* op = out + (row * g + g0) * D;
   for (int e = tid; e < gc * D; e += kThreads) {
     const int gi = e / D;
     const int d = e - gi * D;
     float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * kGC + gi]);
+    for (int w = 0; w < kSimtWarps; ++w) mx = fmaxf(mx, wm[w * kGC + gi]);
     float num = 0.f, den = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kSimtWarps; ++w) {
       const float f = expf(wm[w * kGC + gi] - mx);
       num += f * wacc[(w * kGC + gi) * D + d];
       den += f * wl[w * kGC + gi];
     }
-    store(op + e, num / fmaxf(den, 1e-30f));
+    const size_t r = row0 + gi;
+    if (n_splits == 1) {
+      out[r * D + d] = num / fmaxf(den, 1e-30f);
+    } else {
+      part_o[(r * max_splits + split) * D + d] = num;
+      if (d == 0)
+        *reinterpret_cast<float2*>(part_ml + (r * max_splits + split) * 2) =
+            make_float2(mx, den);
+    }
   }
-}
-
-// Dynamic shared memory above 48 KB is allowed per kernel (and device).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <int D>
-int launch_simt(const void* q, const void* k_cache, const void* v_cache,
-                const int* cache_len, void* out, int b, int hkv, int g,
-                int smax, float scale, int window, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  auto kernel = decode_attention_kernel<float, D>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(b, hkv, (g + kGC - 1) / kGC);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_cache),
-      static_cast<const float*>(v_cache), cache_len,
-      static_cast<float*>(out), hkv, g, smax, scale, window);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------
@@ -273,27 +359,12 @@ constexpr int kWarpKeys = 16;               // keys of a warp in a stage
 constexpr int kBK = kMmaWarps * kWarpKeys;  // keys of a ring stage
 constexpr int kSplitKeys = 128;             // keys of a split
 static_assert(kSplitKeys % kBK == 0, "a split is whole ring stages");
-constexpr int kMaxGridYZ = 65535;  // gridDim.y and .z; x takes 2^31 - 1
 
 // the Q tile and a 2-stage ring of (K, V) tiles, rows padded by 8 bf16;
 // the warps' merge reuses the ring
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (kRows + 4 * kBK) * (D + 8);
-}
-
-// live keys [lo, len) of row b (cache_len clipped to [0, Smax])
-__device__ __forceinline__ void live_keys(const int* cache_len, int b,
-                                          int smax, int window, int* lo,
-                                          int* len) {
-  *len = max(0, min(cache_len[b], smax));
-  *lo = window > 0 ? max(0, *len - window) : 0;
-}
-
-// splits of a row with n live keys; a row with none has one, which
-// writes zeros
-__device__ __forceinline__ int row_splits(int n) {
-  return max(1, (n + kSplitKeys - 1) / kSplitKeys);
 }
 
 // kBK rows of D from src (row stride D) into a shared tile of row stride
@@ -410,7 +481,7 @@ decode_attention_mma(const bf16* __restrict__ q,        // (B, Hkv, G, D)
   const int split = blockIdx.y;
   int lo, len;
   live_keys(cache_len, bh / hkv, smax, window, &lo, &len);
-  const int n_splits = row_splits(len - lo);
+  const int n_splits = row_splits<kSplitKeys>(len - lo);
   if (split >= n_splits) return;
   const int k_begin = lo + split * kSplitKeys;
   const int n_keys = max(0, min(len, k_begin + kSplitKeys) - k_begin);
@@ -567,28 +638,24 @@ decode_attention_mma(const bf16* __restrict__ q,        // (B, Hkv, G, D)
 }
 
 // The splits of each output row (b, h, head) of a row with more than one
-// split merged in split order, one warp a row.
+// split merged in split order, one warp a row; m in log2 units when LOG2
+// (the bf16 kernel's exp2f), else natural (fp32's expf).
+template <typename T, bool LOG2, int KS>
 __global__ void __launch_bounds__(32)
 decode_attention_combine(const int* __restrict__ cache_len,
                          const float* __restrict__ part_o,
                          const float* __restrict__ part_ml,
-                         bf16* __restrict__ out, int hkv, int g, int d,
+                         T* __restrict__ out, int hkv, int g, int d,
                          int smax, int window, int max_splits) {
   const int row = blockIdx.x;
   int lo, len;
   live_keys(cache_len, row / (hkv * g), smax, window, &lo, &len);
-  const int n = row_splits(len - lo);
+  const int n = row_splits<KS>(len - lo);
   if (n <= 1) return;
   const size_t r = static_cast<size_t>(row);
-  repro_attn::combine_splits(part_ml + r * max_splits * 2,
-                             part_o + r * max_splits * d, out + r * d, n,
-                             d);
-}
-
-// splits of the grid: ceil(span / KS), span = min(Smax, window)
-int grid_splits(int smax, int window) {
-  const int span = window > 0 ? min(smax, window) : smax;
-  return max(1, (span + kSplitKeys - 1) / kSplitKeys);
+  repro_attn::combine_splits<LOG2>(part_ml + r * max_splits * 2,
+                                   part_o + r * max_splits * d, out + r * d,
+                                   n, d);
 }
 
 // What a call launched, written to `launched` when it is not null: device
@@ -598,66 +665,6 @@ void record(int* launched, int launches, int main_blocks, int combine) {
   launched[0] = launches;
   launched[1] = main_blocks;
   launched[2] = combine;
-}
-
-template <int D>
-int launch_mma(const void* q, const void* k_cache, const void* v_cache,
-               const int* cache_len, void* out, void* work, int b, int hkv,
-               int g, int smax, float scale, int window, int* launched,
-               cudaStream_t stream) {
-  const int ns = grid_splits(smax, window);
-  const int head_blocks = (g + kRows - 1) / kRows;
-  if (ns > kMaxGridYZ || head_blocks > kMaxGridYZ) return -2;
-  constexpr size_t smem = mma_smem_bytes<D>();
-  auto kernel = decode_attention_mma<D>;
-  int err = static_cast<int>(allow_smem(kernel, smem));
-  if (err != 0) return err;
-  const int n_rows = b * hkv * g;
-  float* part_o = ns > 1 ? static_cast<float*>(work) : nullptr;
-  float* part_ml =
-      ns > 1 ? part_o + static_cast<size_t>(n_rows) * ns * D : nullptr;
-  const dim3 grid(b * hkv, ns, head_blocks);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_cache),
-      static_cast<const bf16*>(v_cache), cache_len, static_cast<bf16*>(out),
-      part_o, part_ml, hkv, g, smax, ns, scale * kLog2e, window);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const int main_blocks = static_cast<int>(grid.x * grid.y * grid.z);
-  if (ns == 1) {
-    record(launched, 1, main_blocks, 0);
-    return 0;
-  }
-  decode_attention_combine<<<n_rows, 32, 0, stream>>>(
-      cache_len, part_o, part_ml, static_cast<bf16*>(out), hkv, g, D, smax,
-      window, ns);
-  err = static_cast<int>(cudaGetLastError());
-  if (err == 0) record(launched, 2, main_blocks, n_rows);
-  return err;
-}
-
-// registers, local (spill) bytes, dynamic shared bytes, blocks per SM,
-// threads per block, keys a tile, keys a split (0: no split)
-template <typename K>
-int kernel_attrs(K kernel, size_t smem, int threads, int key_tile,
-                 int split_keys, int* out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(smem);
-  out[3] = blocks;
-  out[4] = threads;
-  out[5] = key_tile;
-  out[6] = split_keys;
-  return 0;
 }
 
 // A call's arguments, passed down the dtype and head-dim dispatch.
@@ -675,28 +682,109 @@ struct Args {
   cudaStream_t stream;
 };
 
+// What sets a variant's split plan and launch.  T: the element type; KS:
+// keys a split; HEADS: query heads a block; LOG2: the softmax's units.
+template <int D, bool F32>
+struct Variant;
+
+template <int D>
+struct Variant<D, true> {
+  using T = float;
+  static constexpr int KS = kSimtSplitKeys;
+  static constexpr int HEADS = kGC;
+  static constexpr int THREADS = kThreads;
+  static constexpr bool LOG2 = false;
+  static constexpr size_t smem() { return sizeof(float) * smem_floats<D>(); }
+  static auto kernel() { return &decode_attention_simt<D>; }
+  static float scale(float s) { return s; }
+  static constexpr int key_tile = kSimtWarpKeys;
+};
+
+template <int D>
+struct Variant<D, false> {
+  using T = bf16;
+  static constexpr int KS = kSplitKeys;
+  static constexpr int HEADS = kRows;
+  static constexpr int THREADS = kMmaThreads;
+  static constexpr bool LOG2 = true;
+  static constexpr size_t smem() { return mma_smem_bytes<D>(); }
+  static auto kernel() { return &decode_attention_mma<D>; }
+  static float scale(float s) { return s * kLog2e; }
+  static constexpr int key_tile = kBK;
+};
+
+// The main kernel over the grid (B*Hkv, ceil(span / KS), ceil(G/HEADS)),
+// then, when that grid has more than one split, the combine.
+template <int D, bool F32>
+int launch(const Args& a) {
+  using V = Variant<D, F32>;
+  using T = typename V::T;
+  const int ns = grid_splits(a.smax, a.window, V::KS);
+  const int head_blocks = (a.g + V::HEADS - 1) / V::HEADS;
+  if (ns > kMaxGridYZ || head_blocks > kMaxGridYZ) return -2;
+  constexpr size_t smem = V::smem();
+  auto kernel = V::kernel();
+  int err = static_cast<int>(allow_smem(kernel, smem));
+  if (err != 0) return err;
+  const int n_rows = a.b * a.hkv * a.g;
+  float* part_o = ns > 1 ? static_cast<float*>(a.work) : nullptr;
+  float* part_ml =
+      ns > 1 ? part_o + static_cast<size_t>(n_rows) * ns * D : nullptr;
+  const dim3 grid(a.b * a.hkv, ns, head_blocks);
+  kernel<<<grid, V::THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_cache),
+      static_cast<const T*>(a.v_cache), a.cache_len, static_cast<T*>(a.out),
+      part_o, part_ml, a.hkv, a.g, a.smax, ns, V::scale(a.scale), a.window);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int main_blocks = static_cast<int>(grid.x * grid.y * grid.z);
+  if (ns == 1) {
+    record(a.launched, 1, main_blocks, 0);
+    return 0;
+  }
+  decode_attention_combine<T, V::LOG2, V::KS><<<n_rows, 32, 0, a.stream>>>(
+      a.cache_len, part_o, part_ml, static_cast<T*>(a.out), a.hkv, a.g, D,
+      a.smax, a.window, ns);
+  err = static_cast<int>(cudaGetLastError());
+  if (err == 0) record(a.launched, 2, main_blocks, n_rows);
+  return err;
+}
+
+// registers, local (spill) bytes, dynamic shared bytes, blocks per SM,
+// threads per block, keys a tile (a warp's for simt, a ring stage's for
+// mma), keys a split
+template <int D, bool F32>
+int kernel_attrs(int* out) {
+  using V = Variant<D, F32>;
+  auto kernel = V::kernel();
+  cudaError_t err = allow_smem(kernel, V::smem());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      V::THREADS, V::smem());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(V::smem());
+  out[3] = blocks;
+  out[4] = V::THREADS;
+  out[5] = V::key_tile;
+  out[6] = V::KS;
+  return 0;
+}
+
 // launch, or report the attributes of the kernel a launch would run
 // (attrs != null)
 template <int D>
 int run(int dtype, const Args& a, int* attrs) {
-  if (dtype == 0) {
-    if (attrs != nullptr)
-      return kernel_attrs(decode_attention_kernel<float, D>,
-                          sizeof(float) * smem_floats<D>(), kThreads, 32, 0,
-                          attrs);
-    const int err =
-        launch_simt<D>(a.q, a.k_cache, a.v_cache, a.cache_len, a.out, a.b,
-                       a.hkv, a.g, a.smax, a.scale, a.window, a.stream);
-    if (err == 0)
-      record(a.launched, 1, a.b * a.hkv * ((a.g + kGC - 1) / kGC), 0);
-    return err;
-  }
-  if (attrs != nullptr)
-    return kernel_attrs(decode_attention_mma<D>, mma_smem_bytes<D>(),
-                        kMmaThreads, kBK, kSplitKeys, attrs);
-  return launch_mma<D>(a.q, a.k_cache, a.v_cache, a.cache_len, a.out, a.work,
-                       a.b, a.hkv, a.g, a.smax, a.scale, a.window,
-                       a.launched, a.stream);
+  if (dtype == 0)
+    return attrs != nullptr ? kernel_attrs<D, true>(attrs)
+                            : launch<D, true>(a);
+  return attrs != nullptr ? kernel_attrs<D, false>(attrs)
+                          : launch<D, false>(a);
 }
 
 int dispatch(int dtype, int d, const Args& a, int* attrs) {
@@ -718,15 +806,15 @@ int dispatch(int dtype, int d, const Args& a, int* attrs) {
 
 }  // namespace
 
-// dtype codes: 0 float32 (the "simt" kernel, one launch), 1 bfloat16 (the
-// "mma" kernel and, when the grid has more than one split, the combine);
-// q, caches and out share it.  cache_len is (B,) int32; window <= 0 means
-// no window.  The mma path takes `work`, a 16-byte aligned workspace of
-// `repro_decode_workspace_bytes` bytes (null when that is 0).
-// `launched`, when not null, gets 3 ints: the device launches made, then
-// the thread blocks of the main kernel and of the combine.  Returns the
-// first nonzero CUDA error of the launches (0 on success), -1 for an
-// unsupported head_dim, -2 when the mma grid's splits or head blocks pass
+// dtype codes: 0 float32 (the "simt" kernel), 1 bfloat16 (the "mma"
+// kernel); each launches its main kernel and, when the grid has more than
+// one split, the combine.  q, caches and out share the dtype.  cache_len
+// is (B,) int32; window <= 0 means no window.  `work` is a 16-byte aligned
+// workspace of `repro_decode_workspace_bytes` bytes (null when that is
+// 0).  `launched`, when not null, gets 3 ints: the device launches made,
+// then the thread blocks of the main kernel and of the combine.  Returns
+// the first nonzero CUDA error of the launches (0 on success), -1 for an
+// unsupported head_dim, -2 when the grid's splits or head blocks pass
 // 65535 (gridDim.y / .z), -3 for an unsupported dtype.
 extern "C" int repro_decode_attention(int dtype, int d, const void* q,
                                       const void* k_cache,
@@ -741,13 +829,14 @@ extern "C" int repro_decode_attention(int dtype, int d, const void* q,
   return dispatch(dtype, d, a, nullptr);
 }
 
-// Bytes of the mma path's workspace for (B, Hkv, G, D) queries over Smax
+// Bytes of the workspace for (B, Hkv, G, D) queries of `dtype` over Smax
 // keys under `window`: B * Hkv * G * splits * (D + 2) fp32 of split
-// results when the grid has more than one split, else 0.
-extern "C" long long repro_decode_workspace_bytes(int b, int hkv, int g,
-                                                  int d, int smax,
+// results when the dtype's grid has more than one split, else 0.
+extern "C" long long repro_decode_workspace_bytes(int dtype, int b, int hkv,
+                                                  int g, int d, int smax,
                                                   int window) {
-  const int ns = grid_splits(smax, window);
+  const int ns =
+      grid_splits(smax, window, dtype == 0 ? kSimtSplitKeys : kSplitKeys);
   if (ns == 1) return 0;
   return static_cast<long long>(sizeof(float)) * b * hkv * g * ns * (d + 2);
 }
@@ -755,9 +844,9 @@ extern "C" long long repro_decode_workspace_bytes(int b, int hkv, int g,
 // The resources of the kernel that `repro_decode_attention` launches for
 // (dtype, d): out[0] registers a thread, out[1] local (spill) bytes a
 // thread, out[2] dynamic shared bytes a block, out[3] blocks an SM can
-// hold, out[4] threads a block, out[5] keys a tile (a ring stage for
-// mma), out[6] keys a split (0 for simt, which does not split).  Returns
-// as `repro_decode_attention` does.
+// hold, out[4] threads a block, out[5] keys a tile (a warp's 32-key tile
+// for simt, a ring stage for mma), out[6] keys a split.  Returns as
+// `repro_decode_attention` does.
 extern "C" int repro_decode_attention_attrs(int dtype, int d, int* out) {
   return dispatch(dtype, d, Args{}, out);
 }

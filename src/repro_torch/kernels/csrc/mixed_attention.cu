@@ -70,9 +70,10 @@
 //
 // fp32 caches, under fp32 or bf16 q: CUDA cores ("simt", the first
 // design; one launch a call).  fp32 is the parity path, held to 1e-5,
-// which TF32 misses; the fp32 caches that `gather` makes from an int8/fp8
-// pool are code x scale, not bf16 values, so rounding them to bf16 would
-// change the function.
+// which TF32 alone misses (3xTF32 on the tensor cores would hold it, as
+// the fp32 flash kernel shows; not done here yet); the fp32 caches that
+// `gather` makes from an int8/fp8 pool are code x scale, not bf16 values,
+// so rounding them to bf16 would change the function.
 //   * one block of 8 warps per (token, kv head, chunk of up to 8 query
 //     heads); the block holds the chunk's query heads, so each key is read
 //     once for all of them;

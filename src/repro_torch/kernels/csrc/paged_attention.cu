@@ -95,10 +95,11 @@
 //     per-slot caches.
 //
 // fp32 queries: CUDA cores ("simt", three launches a call as for bf16).
-// fp32 is the parity path, held to 1e-5, which TF32 misses, so the math
-// stays on the CUDA cores, and what bounds it is operations: 4*G*D flops
-// a live (token, key) pair at 67 TFLOP/s (at serving's mixed batch about
-// twice the time of reading the live fp32 pages once).  It runs the same
+// fp32 is the parity path, held to 1e-5, which TF32 alone misses; 3xTF32
+// on the tensor cores holds it (the fp32 flash kernel runs so), but this
+// kernel keeps the CUDA cores for now, and what bounds it is operations:
+// 4*G*D flops a live (token, key) pair at 67 TFLOP/s (at serving's mixed
+// batch about twice the time of reading the live fp32 pages once).  It runs the same
 // work list, pre-pass and split combine as the bf16 path:
 //   * persistent blocks of 8 warps walk the work items; a warp owns 8 of
 //     the tile's 64 rows, and a warp with no live row (a decode tile of

@@ -12,9 +12,9 @@ Counterpart of ``repro/kernels/decode_attention.py``:
     (``"simt"``);
   * :func:`decode_attention_fwd` (the Pallas ``_decode_kernel``): one
     query per row against a contiguous ``(B, Hkv, Smax, D)`` cache, CUDA
-    C++ in ``csrc/decode_attention.cu``: bf16 on the tensor cores
-    (variant ``"mma"``: split-KV over each row's live keys, a combine
-    merges the splits), fp32 on the CUDA cores (``"simt"``);
+    C++ in ``csrc/decode_attention.cu``: split-KV over each row's live
+    keys and a combine that merges the splits, bf16 on the tensor cores
+    (variant ``"mma"``), fp32 on the CUDA cores (``"simt"``);
   * :func:`mixed_attention_fwd` (the Pallas ``_mixed_kernel``): a flat
     mixed prefill/decode batch against per-slot contiguous caches
     ``(S, Hkv, L, D)`` chosen by segment ids (the gathered-cache path:
@@ -342,7 +342,7 @@ def _decode_lib() -> ctypes.CDLL:
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
         ws = lib.repro_decode_workspace_bytes
-        ws.argtypes = [ctypes.c_int] * 6
+        ws.argtypes = [ctypes.c_int] * 7
         ws.restype = ctypes.c_longlong
         attrs = lib.repro_decode_attention_attrs
         attrs.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
@@ -351,14 +351,14 @@ def _decode_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=256)
-def _decode_workspace_bytes(b, hkv, g, d, smax, window) -> int:
-    return int(_decode_lib().repro_decode_workspace_bytes(b, hkv, g, d, smax,
-                                                          window))
+def _decode_workspace_bytes(code, b, hkv, g, d, smax, window) -> int:
+    return int(_decode_lib().repro_decode_workspace_bytes(code, b, hkv, g, d,
+                                                          smax, window))
 
 
 def decode_variant(dtype: torch.dtype) -> str:
-    """The decode kernel a dtype runs: ``"mma"`` (bf16, tensor cores,
-    split-KV) or ``"simt"`` (fp32, CUDA cores)."""
+    """The decode kernel a dtype runs: ``"mma"`` (bf16, tensor cores) or
+    ``"simt"`` (fp32, CUDA cores); both split the live keys."""
     return "mma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -374,8 +374,8 @@ def decode_kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     """The resources of the kernel that :func:`decode_attention_fwd`
     launches for this dtype and head_dim on the current card: its variant,
     registers and local (spill) bytes a thread, dynamic shared bytes and
-    threads a block, blocks an SM holds, keys a tile (a ring stage for
-    "mma") and keys a split (None for "simt", which does not split)."""
+    threads a block, blocks an SM holds, keys a tile (a warp's tile for
+    "simt", a ring stage for "mma") and keys a split."""
     if dtype not in Q_CODES or head_dim not in HEAD_DIMS:
         raise ValueError(f"decode_kernel_attributes: no kernel for {dtype}, "
                          f"head_dim {head_dim}")
@@ -388,7 +388,7 @@ def decode_kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     return {"variant": decode_variant(dtype), "registers": vals[0],
             "spill_bytes": vals[1], "smem_bytes": vals[2],
             "blocks_per_sm": vals[3], "threads": vals[4],
-            "key_tile": vals[5], "split_keys": vals[6] or None}
+            "key_tile": vals[5], "split_keys": vals[6]}
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -420,7 +420,7 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                  *, scale: float,
                                  window: Optional[int] = None
                                  ) -> torch.Tensor:
-    """The bf16 kernel's decomposition in plain PyTorch, same arguments and
+    """The kernels' split decomposition in plain PyTorch, same arguments and
     layouts as :func:`decode_attention_plain`: row b's live keys [lo, len)
     (len = clip(cache_len[b], 0, Smax), lo = max(0, len - window), 0
     without a window) are cut into splits of ``split_keys``; each split
@@ -468,10 +468,10 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     (as the Pallas kernel and the jnp oracle differ).
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise: bf16 runs the tensor-core variant
-    (split-KV over the live keys; two device launches, the main kernel and
-    the combine of the splits, one when ``min(Smax, window)`` fits one
-    split), fp32 the CUDA-core variant, one launch;
+    on the current stream, or raise: bf16 runs the tensor-core variant,
+    fp32 the CUDA-core one, each split-KV over the live keys (two device
+    launches, the main kernel and the combine of the splits, one when
+    ``min(Smax, window)`` fits one split of the variant's size);
     :func:`decode_last_launch` reads what the last call launched.
     ``decode_counter`` counts calls.  Neither reads anything back to the
     host."""
@@ -511,10 +511,10 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     smax = k_cache.shape[2]
     win = int(window) if window else 0
     work = None
-    if decode_variant(q.dtype) == "mma":
-        nbytes = _decode_workspace_bytes(b, hkv, g, d, smax, win)
-        if nbytes:
-            work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    nbytes = _decode_workspace_bytes(Q_CODES[q.dtype], b, hkv, g, d, smax,
+                                     win)
+    if nbytes:
+        work = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     fn = _decode_lib().repro_decode_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),

@@ -3,15 +3,17 @@ PyTorch version.
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention_fwd``
 (the Pallas ``_flash_kernel``).  The kernel is hand-written CUDA C++ for
-``sm_90a`` in ``csrc/flash_attention.cu``, in two variants behind one C
-entry: bf16 runs on the tensor cores (``mma.sync`` m16n8k16 tiles fed by
-``ldmatrix`` from a two-stage ``cp.async`` ring of K/V tiles, the
-softmax in registers, one block of 4 warps per query tile and head);
-fp32, the parity path, stays on the CUDA cores, since the tensor cores
-would take it in TF32.  The source note says what bounds it on the H100
-(operations) and which TPU-isms were dropped (lane padding, the
-``(block_q, 128)`` VMEM scratch, the sequential KV grid that carries the
-softmax state).  :func:`kernel_attributes` reports each instantiation's
+``sm_90a`` in ``csrc/flash_attention.cu``: two kernels behind one C
+entry, both on the tensor cores (``mma.sync`` tiles fed by ``ldmatrix``
+from a two-stage ``cp.async`` ring of K/V tiles, the softmax in
+registers, one block per query tile and head).  bf16 runs m16n8k16 bf16
+products (``"mma"``); fp32, the parity path, m16n8k8 TF32 products in
+3xTF32 (``"tf32x3"``: each operand split into a TF32 big part and a
+TF32 remainder, three products accumulated in fp32), which holds the
+fp32 tier where TF32 alone would not.  The source note says what bounds
+it on the H100 (operations) and which TPU-isms were dropped (lane
+padding, the ``(block_q, 128)`` VMEM scratch, the sequential KV grid
+that carries the softmax state).  :func:`kernel_attributes` reports each instantiation's
 registers, spills, shared memory and blocks per SM.
 
 :func:`flash_attention_fwd` launches the kernel for CUDA tensors and
@@ -51,9 +53,9 @@ def _lib() -> ctypes.CDLL:
 def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     """The resources of the kernel that :func:`flash_attention_fwd`
     launches for ``dtype`` and ``head_dim`` on the current card: its
-    variant (``"mma"``: bf16 on the tensor cores, ``"simt"``: fp32 on the
-    CUDA cores), registers and local (spill) bytes a thread, dynamic
-    shared bytes and threads a block, blocks an SM holds, keys a tile."""
+    variant (:func:`variant`), registers and local (spill) bytes a
+    thread, dynamic shared bytes and threads a block, blocks an SM holds,
+    keys a tile."""
     if dtype not in Q_CODES or head_dim not in HEAD_DIMS:
         raise ValueError(f"kernel_attributes: no kernel for {dtype}, "
                          f"head_dim {head_dim}")
@@ -61,10 +63,16 @@ def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
     err = _lib().repro_flash_attention_attrs(Q_CODES[dtype], head_dim, vals)
     if err != 0:
         raise RuntimeError(f"flash_attention attributes failed (code {err})")
-    return {"variant": "mma" if dtype == torch.bfloat16 else "simt",
-            "registers": vals[0], "spill_bytes": vals[1],
+    return {"variant": variant(dtype), "registers": vals[0],
+            "spill_bytes": vals[1],
             "smem_bytes": vals[2], "blocks_per_sm": vals[3],
             "threads": vals[4], "key_tile": vals[5]}
+
+
+def variant(dtype: torch.dtype) -> str:
+    """The flash kernel a dtype runs: ``"mma"`` (bf16) or ``"tf32x3"``
+    (fp32)."""
+    return "mma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def visible_mask(q_len: int, kv_len: int, causal: bool,
@@ -137,10 +145,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}/{v.dtype} unsupported (one of float32, "
                         f"bfloat16 for all three)")
     check_operands("flash_attention_fwd", q, (q, k, v))
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                         for x in (q, k, v)):
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("flash_attention_fwd: q, k and v must be 16-byte "
-                         "aligned (the bf16 kernel copies rows in 16-byte "
+                         "aligned (the kernel copies rows in 16-byte "
                          "cp.async chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -1,4 +1,4 @@
-"""The bf16 decode kernel's split-KV decomposition, on the CPU.
+"""The decode kernels' split-KV decomposition, on the CPU.
 
 ``decode_attention_split_plain`` cuts each row's live keys into splits of
 ``split_keys``, computes each split's (m, l, O) and merges them in split
@@ -11,6 +11,9 @@ orders), bf16 at 1e-2 + 1e-2 |ref| against the plain version, which rounds
 the normalised probabilities where the splits round the unnormalised ones
 (about one bf16 rounding of the O(1) outputs).
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -97,3 +100,31 @@ def test_split_plain_bf16_matches_plain(window):
         torch.from_numpy(lens), scale=d ** -0.5, window=window)
     torch.testing.assert_close(out.float(),
                                plain.reshape(out.shape).float(), **BF16_TOL)
+
+
+def fp32_split_keys() -> int:
+    """The fp32 decode kernel's keys a split, ``kSimtSplitKeys`` in
+    csrc/decode_attention.cu, read from the source (no card here)."""
+    src = (Path(DA.__file__).parent / "csrc" / "decode_attention.cu")
+    return int(re.search(r"kSimtSplitKeys = (\d+);",
+                         src.read_text()).group(1))
+
+
+# lengths 0, 1, at a split's edges (KS - 1, KS, KS + 1) and Smax; no
+# window, a window that puts a split edge inside the live keys, and one
+# longer than every length.  Smax is a multiple of the JAX kernel's
+# 256-key block, which its interpret mode needs (ROADMAP.md, queue C).
+@pytest.mark.parametrize("window", [None, "1.5 KS", "3 KS"])
+def test_split_plain_at_the_fp32_split_matches_pallas(window):
+    """The fp32 kernel's decomposition (natural-unit (m, l), expf) at its
+    own split size against the JAX package's Pallas kernel."""
+    ks = fp32_split_keys()
+    window = {None: None, "1.5 KS": ks + ks // 2, "3 KS": 3 * ks}[window]
+    smax = 256 * -(-2 * ks // 256)
+    q, kc, vc, lens = case(21, (0, 1, ks - 1, ks, ks + 1, smax), smax, 32)
+    out = to_numpy(split_plain(q, kc, vc, lens, ks, window))
+    assert not out[0].any()
+    jax_out = jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                    jnp.asarray(vc), jnp.asarray(lens),
+                                    window=window)
+    np.testing.assert_allclose(out, np.asarray(jax_out), **TOL)

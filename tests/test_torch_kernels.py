@@ -24,7 +24,8 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import _noise
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
-from torch_port_helpers import cuda_device, requires_cuda, to_numpy, \
+from torch_port_helpers import cuda_device, flash_attention_tf32, \
+    requires_cuda, tf32_round, to_numpy, \
     to_torch  # noqa: F401  (cuda_device is the fixture requires_cuda uses)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -281,6 +282,58 @@ def test_flash_gradients_match_jax(case):
         np.testing.assert_allclose(to_numpy(ours), np.asarray(ref), **TOL)
 
 
+# The fp32 flash kernel's arithmetic on the CPU: 3xTF32 products
+# (``matmul_tf32``) at the card test's fp32 shapes that the JAX kernel
+# takes in interpret mode (Sq and Skv within 128 or multiples of it):
+# (b, hq, hkv, sq, skv, causal, window)
+TF32_SHAPES = {"decode_like": (1, 4, 4, 1, 77, True, None),
+               "gemma_prefill": (1, 8, 1, 1024, 1024, True, None),
+               "jamba_grouping": (1, 16, 2, 512, 512, True, None)}
+
+
+def tf32_case(shape, hd):
+    b, hq, hkv, sq, skv, causal, window = TF32_SHAPES[shape]
+    rng = np.random.default_rng(hd + sq)
+    q = rng.standard_normal((b, hq, sq, hd)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, skv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, hd)).astype(np.float32)
+    exp = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    kw = dict(causal=causal, scale=hd ** -0.5, window=window)
+    return (to_torch(q), to_torch(k), to_torch(v)), kw, exp
+
+
+def test_tf32_round_is_to_nearest_ties_away():
+    """10 mantissa bits kept; a tie (half a TF32 unit) rounds away from
+    zero, as cvt.rna does; values already TF32 stay."""
+    u = 2.0 ** -10  # a TF32 unit at 1
+    x = torch.tensor([1 + u / 2, -(1 + u / 2), 1 + u / 2 - 2 ** -23,
+                      1 + u / 4, 3 * u, 1.0, 0.0])
+    np.testing.assert_array_equal(
+        tf32_round(x).numpy(),
+        np.float32([1 + u, -(1 + u), 1, 1, 3 * u, 1, 0]))
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("shape", sorted(TF32_SHAPES))
+def test_flash_3xtf32_matches_jax_pallas(shape, hd):
+    """Three TF32 products hold the fp32 tier (1e-5) against the JAX
+    kernel, so the fp32 flash kernel can run on the tensor cores."""
+    (q, k, v), kw, exp = tf32_case(shape, hd)
+    out = flash_attention_tf32(q, k, v, **kw).numpy()
+    np.testing.assert_allclose(out, exp, **TOL)
+
+
+def test_flash_tf32_big_term_alone_misses_the_tier():
+    """TF32 alone (11 significant bits an operand) misses 1e-5 at
+    head_dim 256 by far: why the kernel takes three products."""
+    (q, k, v), kw, exp = tf32_case("jamba_grouping", 256)
+    err = np.abs(flash_attention_tf32(q, k, v, terms=1, **kw).numpy()
+                 - exp).max()
+    assert err > 10 * TOL["atol"]
+
+
 def decode_case(seed, b=3, hq=4, hkv=2, smax=40, hd=16):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, hq, 1, hd)).astype(np.float32)
@@ -465,27 +518,30 @@ def test_cuda_flash_kernel_is_deterministic(cuda_device, window, dtype):
 def test_cuda_flash_kernel_attributes(cuda_device, hd, dtype):
     attrs = FA.kernel_attributes(dtype, hd)
     assert attrs["variant"] == ("mma" if dtype == torch.bfloat16
-                                else "simt")
+                                else "tf32x3")
     assert 0 < attrs["registers"] <= 255
     assert attrs["blocks_per_sm"] >= 1
     assert attrs["smem_bytes"] <= 232448
+    assert attrs["spill_bytes"] == 0
     if dtype == torch.bfloat16:
         # the tile choice of the source note: 32-key ring stages from
         # head_dim 128 keep every instantiation free of spills and two
         # blocks an SM at gemma's and jamba's head dims
-        assert attrs["spill_bytes"] == 0
         assert attrs["key_tile"] == (32 if hd >= 128 else 64)
         if hd in (128, 256):
             assert attrs["blocks_per_sm"] >= 2
+    else:
+        # 32-key stages, 8 warps: the two of a row group split D
+        assert attrs["key_tile"] == 32 and attrs["threads"] == 256
 
 
-# Decode cases on the card, in keys a split (KS, the bf16 kernel's
-# constant): B = 6 rows over 2 KV heads; (Smax, window, lengths).  Smax is
-# not a multiple of KS; the lengths sit at the split edges (KS - 1, KS,
-# KS + 1, 2 KS) and at Smax.  A window of 1.5 KS puts a split edge inside
-# each long row's window; a window of 3 KS is longer than most rows.  The
-# last case's grid has one split (Smax = KS, no combine) and a length past
-# Smax, which the kernel clips.
+# Decode cases on the card, in keys a split (KS, each variant's constant:
+# the kernel's attributes give it): B = 6 rows over 2 KV heads; (Smax,
+# window, lengths).  Smax is not a multiple of KS; the lengths sit at the
+# split edges (KS - 1, KS, KS + 1, 2 KS) and at Smax.  A window of 1.5 KS
+# puts a split edge inside each long row's window; a window of 3 KS is
+# longer than most rows.  The last case's grid has one split (Smax = KS,
+# no combine) and a length past Smax, which the kernel clips.
 def decode_card_case(case, ks):
     smax = 4 * ks + 37
     return {
@@ -505,8 +561,8 @@ DECODE_CARD_CASES = ("split_edges", "window_crosses_split",
 
 def decode_card_inputs(dev, case, g_heads, hd, dtype, b=6, hkv=2):
     """q (B, Hkv*G, 1, D), caches, lengths and window of a card case, with
-    KS read from the bf16 kernel's attributes."""
-    ks = DA.decode_kernel_attributes(torch.bfloat16, hd)["split_keys"]
+    KS read from the attributes of the dtype's kernel."""
+    ks = DA.decode_kernel_attributes(dtype, hd)["split_keys"]
     smax, window, lens = decode_card_case(case, ks)
     gen = torch.Generator(device=dev).manual_seed(hd + g_heads)
     q = torch.randn((b, hkv * g_heads, 1, hd), generator=gen,
@@ -515,6 +571,22 @@ def decode_card_inputs(dev, case, g_heads, hd, dtype, b=6, hkv=2):
     vc = torch.randn((b, hkv, smax, hd), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kc, vc, lens, window, ks
+
+
+# query heads a block of each variant: bf16 an m16 tile, fp32 a chunk of 8
+DECODE_BLOCK_HEADS = {torch.bfloat16: 16, torch.float32: 8}
+
+
+def decode_launch_record(dtype, b, hkv, g, splits):
+    """The C entry's record of a call over (B*Hkv, splits, ceil(G /
+    heads)) main blocks: a combine of one block (a warp) a row only when
+    the grid has more than one split."""
+    main = splits * b * hkv * -(-g // DECODE_BLOCK_HEADS[dtype])
+    if splits == 1:
+        return {"device_launches": 1, "main_blocks": main,
+                "combine_blocks": 0}
+    return {"device_launches": 2, "main_blocks": main,
+            "combine_blocks": b * hkv * g}
 
 
 @requires_cuda
@@ -544,29 +616,18 @@ def test_cuda_decode_kernel_matches_plain(cuda_device, case, g_heads, hd,
 @pytest.mark.parametrize("case", DECODE_CARD_CASES)
 def test_cuda_decode_kernel_launches_match_grid(cuda_device, case, g_heads,
                                                 dtype):
-    """The C entry's record of a call: bf16, (B*Hkv, ceil(span / KS),
-    ceil(G/16)) main blocks with span = min(Smax, window), and a combine
-    of one block a row (a warp) only when that grid has more than one
-    split; fp32, the CUDA-core kernel's (B, Hkv, ceil(G/8)) blocks
-    alone."""
+    """The C entry's record of a call: (B*Hkv, ceil(span / KS), ceil(G /
+    heads)) main blocks with span = min(Smax, window), heads 16 for bf16
+    and 8 for fp32, and a combine of one block a row only when that grid
+    has more than one split."""
     q, kc, vc, lens, window, ks = decode_card_inputs(cuda_device, case,
                                                      g_heads, 128, dtype)
     b, hkv, smax = kc.shape[0], kc.shape[1], kc.shape[2]
     DA.decode_attention_fwd(q.reshape(b, hkv, g_heads, 128), kc, vc, lens,
                             scale=0.1, window=window)
-    got = DA.decode_last_launch()
-    if dtype == torch.float32:
-        assert got == {"device_launches": 1, "combine_blocks": 0,
-                       "main_blocks": b * hkv * -(-g_heads // 8)}
-        return
     splits = -(-min(smax, window or smax) // ks)
-    main = splits * b * hkv * -(-g_heads // 16)
-    if splits == 1:
-        assert got == {"device_launches": 1, "main_blocks": main,
-                       "combine_blocks": 0}
-    else:
-        assert got == {"device_launches": 2, "main_blocks": main,
-                       "combine_blocks": b * hkv * g_heads}
+    assert DA.decode_last_launch() == decode_launch_record(
+        dtype, b, hkv, g_heads, splits)
 
 
 @requires_cuda
@@ -574,7 +635,8 @@ def test_cuda_decode_kernel_launches_match_grid(cuda_device, case, g_heads,
 def test_cuda_decode_kernel_takes_a_wide_batch(cuda_device, dtype):
     """B*Hkv = 65544 (row, KV head) pairs, more than a grid's y or z
     holds, with two splits a row so that the combine runs too."""
-    b, hkv, g, d, smax = 8193, 8, 2, 16, 150
+    b, hkv, g, d = 8193, 8, 2, 16
+    smax = DA.decode_kernel_attributes(dtype, d)["split_keys"] + 22
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     q = torch.randn((b, hkv, g, d), generator=gen,
                     device=cuda_device).to(dtype)
@@ -586,20 +648,19 @@ def test_cuda_decode_kernel_takes_a_wide_batch(cuda_device, dtype):
     exp = DA.decode_attention_plain(q, kc, vc, lens, scale=d ** -0.5)
     tol = _cuda_tol(dtype, smax)
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
-    if dtype == torch.bfloat16:
-        assert DA.decode_last_launch() == {
-            "device_launches": 2, "main_blocks": 2 * b * hkv,
-            "combine_blocks": b * hkv * g}
+    assert DA.decode_last_launch() == decode_launch_record(dtype, b, hkv, g,
+                                                           2)
 
 
 @requires_cuda
-def test_cuda_decode_kernel_refuses_too_many_splits(cuda_device):
-    """More than 65535 splits of 128 keys (the grid's y) is refused with a
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_kernel_refuses_too_many_splits(cuda_device, dtype):
+    """More than 65535 splits of KS keys (the grid's y) is refused with a
     clear error before anything launches."""
-    smax = 65535 * 128 + 1
-    q = torch.zeros((1, 1, 1, 16), dtype=torch.bfloat16, device=cuda_device)
-    kc = torch.zeros((1, 1, smax, 16), dtype=torch.bfloat16,
-                     device=cuda_device)
+    ks = DA.decode_kernel_attributes(dtype, 16)["split_keys"]
+    smax = 65535 * ks + 1
+    q = torch.zeros((1, 1, 1, 16), dtype=dtype, device=cuda_device)
+    kc = torch.zeros((1, 1, smax, 16), dtype=dtype, device=cuda_device)
     lens = torch.tensor([5], dtype=torch.int32, device=cuda_device)
     before = DA.decode_counter.launches
     with pytest.raises(ValueError, match="65535"):
@@ -637,11 +698,11 @@ def test_cuda_decode_kernel_attributes(cuda_device, hd, dtype):
     assert 0 < attrs["registers"] <= 255
     assert attrs["blocks_per_sm"] >= 1
     assert attrs["smem_bytes"] <= 232448
+    assert attrs["split_keys"] % attrs["key_tile"] == 0
     if dtype == torch.bfloat16:
         assert attrs["variant"] == "mma" and attrs["spill_bytes"] == 0
-        assert attrs["split_keys"] % attrs["key_tile"] == 0
     else:
-        assert attrs["variant"] == "simt" and attrs["split_keys"] is None
+        assert attrs["variant"] == "simt"
 
 
 def test_decode_kernel_attributes_refuse_unknown_kernels():

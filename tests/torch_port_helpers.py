@@ -163,3 +163,45 @@ def load_reference_state(port_module, ref_module) -> None:
     architecture; both keep NCHW / OIHW layouts."""
     port_module.load_state_dict(
         {k: np.asarray(v.data) for k, v in ref_module.state_dict().items()})
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: half a unit of
+    the 13 dropped bits added to the magnitude, then those bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                terms: int = 3) -> torch.Tensor:
+    """a @ b as the fp32 flash kernel takes it on the tensor cores: each
+    operand split into big = tf32(x) and small = tf32(x - big), and the
+    products a_small b_big + a_big b_small + a_big b_big summed in fp32
+    (``terms=3``, 3xTF32), or the big term alone (``terms=1``, TF32)."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    if terms == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def flash_attention_tf32(q, k, v, *, causal: bool, scale: float,
+                         window=None, terms: int = 3) -> torch.Tensor:
+    """Attention with both products in ``matmul_tf32``'s arithmetic and
+    an fp32 softmax: q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), the queries
+    the last Sq positions, as ``flash_attention_plain`` computes it."""
+    hq, sq = q.shape[1], q.shape[2]
+    hkv, skv = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    v = v.repeat_interleave(hq // hkv, dim=1)
+    s = matmul_tf32(q, k.transpose(-1, -2), terms) * scale
+    q_pos = torch.arange(sq)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        ok = ok & (k_pos <= q_pos)
+    if window is not None:
+        ok = ok & (k_pos > q_pos - window)
+    s = torch.where(ok, s, torch.finfo(torch.float32).min)
+    return matmul_tf32(torch.softmax(s, dim=-1), v, terms)

@@ -61,6 +61,18 @@ single call's ms, the host us a call, the device us a launch by the
 profiler, and the relu row's turns against ``torch.relu``), then
 ``eager_train`` (ResNet-50) and its profile (fused device ms a step).
 
+``dense32``: the dense-cache path's kernels.  Every ``FLASH_ROWS`` and
+``DECODE_ROWS`` row: the SHA-256 of its output and a single call's ms;
+the fp32 rows also SDPA's ms on the same inputs, and the device us a
+call of the kernel (each of its kernels) and of SDPA (by kernel name,
+``profile_kernels``).  Then ``dense_parity`` (gemma-2b) and
+``jamba_parity``: wall seconds, ``err_over_rms`` and launches.  The
+summary says whether the bf16 rows are the same bits in all four turns
+and the fp32 rows within each tree's two turns (the script exits
+non-zero when not), and whether the machine code of every bf16 kernel
+of the parent's flash and decode libraries is among the change's
+(``cuobjdump -sass``, names aside).
+
 It prints each turn's JSON line, then a summary with each number of the
 four turns side by side.  Needs one CUDA card and the CUDA toolkit.
 """
@@ -97,7 +109,8 @@ def measure(tree: str, kernels: str) -> dict:
     _build.build_all()
     rows = {"attention": measure_attention, "gumbel": measure_gumbel,
             "wkv6": measure_wkv6, "mamba": measure_mamba,
-            "fused": measure_fused}[kernels](torch, cs)
+            "fused": measure_fused, "dense32": measure_dense32}[kernels](
+                torch, cs)
     return {"tree": tree, "card": cs.smi_line(), **rows}
 
 
@@ -297,9 +310,10 @@ def model_lines(lines: list, group: str) -> dict:
         ms = groups.get(group, groups.get(f"unlinked:{group}"))
         model[line["phase"]] = {
             k: line[k] for k in ("tokens_per_s", "decode_tokens_per_s",
-                                 "wall_ms", "ms_per_step", "device_busy_ms",
-                                 "device_idle_share", "images_per_s",
-                                 "err_over_rms", "launches") if k in line}
+                                 "wall_ms", "wall_s", "ms_per_step",
+                                 "device_busy_ms", "device_idle_share",
+                                 "images_per_s", "err_over_rms",
+                                 "launches") if k in line}
         if ms is not None:
             model[line["phase"]][f"{group}_ms"] = ms
     return model
@@ -373,10 +387,86 @@ def measure_fused(torch, cs, dev: str = "cuda") -> dict:
     return {"fused": rows, "model": model_lines(lines, "fused_elementwise")}
 
 
+def measure_dense32(torch, cs, dev: str = "cuda") -> dict:
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.lm import BlockSpec
+
+    rows, profiled = {"flash": {}, "decode": {}}, []
+    for spec in cs.FLASH_ROWS:
+        label, dt, b, hq, hkv, sq, skv, d, window = spec
+        q, k, v, kw = cs.flash_inputs(torch, dev, spec)
+
+        def kern(q=q, k=k, v=v, kw=kw):
+            return FA.flash_attention_fwd(q, k, v, **kw)
+        lib = cs.flash_library(torch, q, k, v, (b, hq, hkv, sq, skv, d),
+                               window, FA.visible_mask(sq, skv, True, window,
+                                                       dev))
+        profiled.append(("flash", label, dt, kern, lib, FA.counter,
+                         "flash_attention"))
+    for spec in cs.DECODE_ROWS:
+        label, dt = spec[:2]
+        q, kc, vc, _, lens, kw = cs.decode_inputs(torch, dev, spec)
+
+        def kern(q=q, kc=kc, vc=vc, lens=lens, kw=kw):
+            return DA.decode_attention_fwd(q, kc, vc, lens, **kw)
+        lib = cs.decode_library(torch, q, kc, vc, lens, kw["window"])
+        profiled.append(("decode", label, dt, kern, lib, DA.decode_counter,
+                         "decode_attention"))
+    for kind, label, dt, kern, lib, _, _ in profiled:
+        out = kern()
+        torch.cuda.synchronize()
+        row = rows[kind][label] = {"dtype": dt, "sha256": sha256(torch, out),
+                                   "ms": cs.time_ms(torch, kern)}
+        if dt == "float32":
+            row["sdpa_ms"] = cs.time_ms(torch, lib)
+
+    lines = []
+    cs.emit = lines.append
+    cfg32, params32, _, _ = cs.gemma_models(torch, dev)
+    cs.free(torch)
+    cs.phase_parity(torch, dev, cfg32, params32, "dense_parity", 23)
+    del params32
+    cs.free(torch)
+    base = jamba.CONFIG
+    cfg32, params32 = cs.jamba_model(
+        torch, dev, torch.float32, len(cs.JAMBA_PARITY_PATTERN),
+        capacity_factor=base.n_experts / base.top_k,
+        pattern=tuple(BlockSpec(*b) for b in cs.JAMBA_PARITY_PATTERN))
+    cs.phase_parity(torch, dev, cfg32, params32, "jamba_parity", 43)
+    del params32
+    cs.free(torch)
+
+    # the profiler sessions last: they slow the host for timed runs after
+    for kind, label, dt, kern, lib, counter, group in profiled:
+        if dt != "float32":
+            continue
+        kern()
+        want = (DA.decode_last_launch()["device_launches"]
+                if kind == "decode" else 1)
+        # up to 6 sessions: after the parity runs the profiler has dropped
+        # kernel records in 3 sessions running
+        prof = cs.profile_kernels(torch, kern, counter, group, want, tries=6)
+        row = rows[kind][label]
+        row["device_us"] = prof["device_us_per_call"]
+        row["parts_us"] = {k: v["device_us_per_call"]
+                           for k, v in prof["kernels"].items()}
+        row["device_launches"] = prof["device_launches_per_call"]
+        sdpa = cs.profile_library(torch, lib)
+        row["sdpa_device_us"] = sdpa["device_us_per_call"]
+        row["sdpa_kernels"] = {k: v["device_us_per_call"]
+                               for k, v in sdpa["kernels"].items()}
+    return {**rows, "model": model_lines(lines, "flash_attention"),
+            "libraries": {"flash": FA._lib()._name,
+                          "decode": DA._decode_lib()._name}}
+
+
 def sass(library: str) -> dict:
     """The machine code of a built library: each kernel's instructions by
-    its name, with the per-file hash of anonymous-namespace names
-    masked."""
+    its name, with the per-file hash of anonymous-namespace names masked
+    and runs of spaces made one (cuobjdump pads every line to the
+    library's longest instruction)."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", library], check=True,
@@ -388,7 +478,7 @@ def sass(library: str) -> dict:
             name = line.split("Function :")[1].strip()
             kernels[name] = []
         elif name is not None and "/*" in line:
-            kernels[name].append(line.strip())
+            kernels[name].append(" ".join(line.split()))
     return kernels
 
 
@@ -396,7 +486,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="the other checkout")
     ap.add_argument("--kernels", choices=("attention", "gumbel", "wkv6",
-                                          "mamba", "fused"),
+                                          "mamba", "fused", "dense32"),
                     default="attention", help="the rows a turn measures")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
     ap.add_argument("--out", help="also write the turns and the summary "
@@ -421,8 +511,9 @@ def main() -> int:
         line["turn"] = label
         print(json.dumps(line), flush=True)
         turns.append(line)
-    summary = (attention_summary if args.kernels == "attention"
-               else rows_summary)(turns)
+    summary = {"attention": attention_summary,
+               "dense32": dense32_summary}.get(args.kernels,
+                                               rows_summary)(turns)
     summary["turns"] = [t["turn"] for t in turns]
     print(json.dumps(summary), flush=True)
     if args.out:
@@ -482,11 +573,47 @@ def attention_summary(turns) -> dict:
         "serving": side_by_side(turns, "serving")}
 
 
+def bf16_sass_kept(parent_lib: str, change_lib: str) -> dict:
+    """For each bf16 kernel of the parent's library, whether its machine
+    code is, instruction for instruction, that of a kernel of the
+    change's library (whatever the change named it)."""
+    parent, change = sass(parent_lib), sass(change_lib)
+    bodies = {tuple(body) for body in change.values()}
+    return {name: tuple(body) in bodies for name, body in parent.items()
+            if "bfloat16" in name}
+
+
+def dense32_summary(turns) -> dict:
+    """Bits: a bf16 flash or decode row must be the same in all four
+    turns (the change keeps them), an fp32 row within each tree's two
+    turns (each tree's kernel gives the same bits every run)."""
+    def same(kind, key, which):
+        return len({turns[i][kind][key]["sha256"] for i in which}) == 1
+
+    bits = {}
+    for kind in ("flash", "decode"):
+        for key, row in turns[0][kind].items():
+            if row["dtype"] == "bfloat16":
+                bits[f"{kind} {key}"] = same(kind, key, range(4))
+            else:
+                bits[f"{kind} {key} within each tree"] = (
+                    same(kind, key, (0, 3)) and same(kind, key, (1, 2)))
+    sass_kept = {lib: bf16_sass_kept(turns[0]["libraries"][lib],
+                                     turns[1]["libraries"][lib])
+                 for lib in ("flash", "decode")}
+    summary = rows_summary(turns)
+    return {"bits_equal": bits,
+            "bf16_sass_kept": {lib: all(v.values()) and bool(v)
+                               for lib, v in sass_kept.items()},
+            "bf16_sass_kernels": sass_kept, **summary}
+
+
 def rows_summary(turns) -> dict:
     """Each number of the kernel rows and the model phases, turn by
     turn (a row or field only one tree has reads None in the other's
     turns)."""
-    kind = next(k for k in turns[0] if k not in ("tree", "card", "model"))
+    kinds = [k for k in turns[0]
+             if k not in ("tree", "card", "model", "libraries", "turn")]
 
     def table(key):
         fields = {}
@@ -495,7 +622,7 @@ def rows_summary(turns) -> dict:
                 fields.setdefault(label, {}).update(dict.fromkeys(row))
         return {label: {f: side_by_side(turns, key, label, f) for f in fs}
                 for label, fs in fields.items()}
-    return {kind: table(kind), "model": table("model")}
+    return {**{kind: table(kind) for kind in kinds}, "model": table("model")}
 
 
 if __name__ == "__main__":
