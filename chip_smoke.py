@@ -543,36 +543,59 @@ def phase_paged_attention(torch, dev) -> dict:
     return result
 
 
+def window_pad(session: int) -> float:
+    """Seconds of host idle time on each side of a profiler cycle's
+    window in session ``session`` (0, 1, ...): 0.05 s, growing fourfold
+    a session up to 2 s."""
+    return min(2.0, 0.05 * 4 ** session)
+
+
 def profile_kernels(torch, kern, counter, group, want,
                     part=lambda name: name, calls: int = 20,
-                    tries: int = 3) -> dict:
+                    tries: int = 4) -> dict:
     """``calls`` counted calls of ``kern`` under ``torch.profiler``: the
     device us a call and device launches a call of each kernel of
     ``group`` (every kernel when it is None; keyed by ``part(name)``) and
     in all, as the profiler counted them.  The counted calls are the
     profiler's second cycle: the first, a warm-up, is dropped (a
-    session's first kernels can go unrecorded).  A session that counted
-    other than ``want`` device launches a call (the C entry's record; None
-    takes the first session as it is) is run again, up to ``tries``
-    sessions.  Every session's launches and device us a call are kept in
-    ``sessions`` beside the last one's, which is reported;
-    ``first_session_agrees`` flags a first session that differed (the
-    profiler dropped kernel records, or the C record is wrong).  Raises
-    when no session agrees with the C record."""
+    session's first kernels can go unrecorded).
+
+    The profiler keeps a device record only where its timestamp, mapped
+    onto the host's clock, falls inside the counted cycle's window, the
+    host time between the two ``prof.step()`` calls that open and close
+    it.  Where the device's clock has drifted from the host's, records
+    fall out of the window (none, or fewer than were launched) or the
+    warm-up's fall into it (more).  So the host idles ``window_pad``
+    seconds after the warm-up's kernels end and before the window
+    opens, after it opens and before the counted calls, and after their
+    kernels end and before it closes: a drift smaller than the pad
+    leaves every counted record inside and every warm-up record outside.
+
+    A session that counted other than ``want`` device launches a call
+    (the C entry's record; None asks for at least one launch) is run
+    again with a wider pad, up to ``tries`` sessions.  Every session's
+    pad, launches and device us a call are kept in ``sessions`` beside
+    the last one's, which is reported; ``first_session_agrees`` flags a
+    first session that differed.  Raises when no session agrees with the
+    C record."""
     from torch.profiler import ProfilerActivity, profile, schedule
     sessions = []
-    for _ in range(tries):
+    for session in range(tries):
+        pad = window_pad(session)
         cycles = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1),
                      on_trace_ready=lambda p: cycles.append(
                          device_time(p)[1])) as prof:
-            for _ in range(2):
+            for cycle in range(2):
+                if cycle:
+                    time.sleep(pad)
                 before = counter.launches
                 for _ in range(calls):
                     kern()
                 torch.cuda.synchronize()
+                time.sleep(pad)
                 prof.step()
         n = counter.launches - before
         (top,) = cycles
@@ -584,17 +607,19 @@ def profile_kernels(torch, kern, counter, group, want,
                 k["device_us_per_call"] += ms * 1e3 / n
                 k["launches_per_call"] += c / n
         sessions.append({
+            "window_pad_s": pad,
             "device_launches_per_call": sum(
                 k["launches_per_call"] for k in kernels.values()),
             "device_us_per_call": sum(
                 k["device_us_per_call"] for k in kernels.values())})
-        if want is None or \
-                abs(sessions[-1]["device_launches_per_call"] - want) < 1e-9:
+        launches = sessions[-1]["device_launches_per_call"]
+        if (launches > 0 if want is None else abs(launches - want) < 1e-9):
             break
     else:
         raise AssertionError(
-            f"{group}: no profiler session counted the C entry's {want} "
-            f"device launches a call: {sessions}")
+            f"{group}: no profiler session counted the C entry's "
+            f"{'one or more' if want is None else want} device launches a "
+            f"call: {sessions}")
     return {"calls": n, "c_record_launches_per_call": want,
             "sessions": sessions,
             "first_session_agrees": len(sessions) == 1,
