@@ -88,10 +88,11 @@ Output, one line each:
     (the paged row's inputs gathered into per-slot caches at bf16, fp32,
     with a window and bf16 q over fp32 caches, and the reference's small
     serving preset's head_dim 32; each with its variant, "mma" for bf16
-    q over bf16 caches on the tensor cores and "simt" for the fp32-cache
-    pairs, the device launches and thread blocks of a call, its kernel's
-    resources and for "mma" the work list, which the device pre-pass
-    must build as the plain one does); the Mamba scan
+    q over bf16 caches on the bf16 tensor cores and "tf32x3" for the
+    fp32-cache pairs in 3xTF32, the device launches and thread blocks of
+    a call, its kernel's resources, the work list, which the device
+    pre-pass must build as the plain one does, and its bound's rule, the
+    fp32-cache rows' beside the CUDA-core bound); the Mamba scan
     (jamba prefill, decode from a state, a ragged fp32 row with a state,
     B and C as strided column views; each with its kernel's registers,
     spill bytes, threads, shared memory, blocks per SM, channels a block,
@@ -138,7 +139,7 @@ Output, one line each:
     SDPA's on the same inputs, by kernel name;
     ``decode_attention_profile``: every decode row's device us a call of
     its main kernel and combine, and SDPA's; ``mixed_attention_profile``:
-    mixed row (a), pre-pass, main kernel and combine;
+    mixed rows (a), (b) and (e), pre-pass, main kernel and combine;
     ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
     ``mamba_scan_profile``: the Mamba rows' device us a launch, device
     launches a call and waves; ``fused_elementwise_profile``: the fused
@@ -2312,11 +2313,13 @@ def gathered_caches(torch, x):
             for c in (x["k32"], x["v32"])]
 
 
-def mixed_bound(seg, pos, window, q, kc) -> tuple:
+def mixed_bound(seg, pos, window, q, kc, rule=None) -> tuple:
     """Least time for one mixed-attention call: q read once and the
     output written once, seg and pos; every cache key that some token of
     its slot sees, read once (the work depends on the positions);
-    operations 4*G*D per visible (token, key) pair and KV head."""
+    operations 4*G*D per visible (token, key) pair and KV head, at the
+    ``PEAK_OPS`` rate of ``rule`` (default: bf16 for bf16 q over bf16
+    caches, the CUDA cores' fp32 otherwise)."""
     t, hkv, g, d = q.shape
     s, _, l, _ = kc.shape
     spans, pairs = {}, 0
@@ -2334,9 +2337,10 @@ def mixed_bound(seg, pos, window, q, kc) -> tuple:
             end = max(end, hi)
     nbytes = (2 * q.numel() * q.element_size()
               + 2 * keys * hkv * d * kc.element_size() + 2 * t * 4)
-    dt = ("bfloat16" if q.element_size() == kc.element_size() == 2
-          else "float32")
-    return kernel_bound(nbytes, 4 * pairs * hkv * g * d, dt)
+    if rule is None:
+        rule = ("bfloat16" if q.element_size() == kc.element_size() == 2
+                else "float32")
+    return kernel_bound(nbytes, 4 * pairs * hkv * g * d, rule)
 
 
 def mixed_library_ms(torch, q, kc, vc, seg, pos, window, scale) -> float:
@@ -2388,16 +2392,14 @@ def mixed_plan(torch, DA, x, q, kc, window) -> dict:
     """What the mixed kernel launched for a row (call it just after a
     call): its variant and resources (``DA.mixed_kernel_attributes``),
     the device launches and thread blocks of that call as the C entry
-    reports them (``DA.mixed_last_launch``), and for the "mma" variant
-    the work list (tiles, splits) of the device pre-pass, which must
-    equal the plain one (``paged_tiles_plain`` over a table of one page
-    of L keys a slot)."""
+    reports them (``DA.mixed_last_launch``), and the work list (tiles,
+    splits) of the device pre-pass, which every variant runs and which
+    must equal the plain one (``paged_tiles_plain`` over a table of one
+    page of L keys a slot)."""
     t, hkv, g, d = q.shape
     s, _, l, _ = kc.shape
     plan = {**DA.mixed_kernel_attributes(q.dtype, kc.dtype, d),
             **DA.mixed_last_launch()}
-    if plan["variant"] == "simt":
-        return plan
     tiling = DA.mixed_tiling(g, l)
     want = DA.paged_tiles_plain(x["seg"].cpu(), x["pos"].cpu(), (s, 1), l,
                                 tiling["tile_tokens"], tiling["split_keys"],
@@ -2410,12 +2412,15 @@ def mixed_plan(torch, DA, x, q, kc, window) -> dict:
 def phase_mixed_attention(torch, dev) -> dict:
     """The mixed-attention kernel against its plain version (rows
     ``MIXED_ROWS``); the first row is the table's.  Each row carries its
-    variant ("mma": bf16 q over bf16 caches on the tensor cores; "simt":
-    the fp32-cache pairs on the CUDA cores), the device launches and
-    thread blocks of a call, its kernel's resources and, for "mma", its
-    work list (``mixed_plan``); ``ms`` is a single call by CUDA events
-    (the wrapper's host time included; ``profile_mixed`` gives the
-    device's alone)."""
+    variant ("mma": bf16 q over bf16 caches on the bf16 tensor cores;
+    "tf32x3": the fp32-cache pairs on the tensor cores in 3xTF32), the
+    device launches and thread blocks of a call, its kernel's resources
+    and its work list (``mixed_plan``), and its bound's rule
+    (``bound_rule``, a ``PEAK_OPS`` key: "tf32x3" for the fp32-cache
+    rows, which also carry the bound at the fp32 CUDA-core rate,
+    ``bound_ms_float32``, the parent kernel's); ``ms`` is a single call
+    by CUDA events (the wrapper's host time included; ``profile_mixed``
+    gives the device's alone)."""
     from repro_torch.kernels import decode_attention as DA
 
     x, caches = mixed_inputs(torch, dev)
@@ -2445,8 +2450,12 @@ def phase_mixed_attention(torch, dev) -> dict:
                              kernel_tol(qdt, int(kc.shape[2]))))
         row["ms"] = time_ms(torch, kern)
         row["plain_ms"] = time_ms(torch, plain, reps=5)
-        row["bound_ms"], row["bound_by"] = mixed_bound(seg_h, pos_h, window,
-                                                       q, kc)
+        row["bound_rule"] = "tf32x3" if cdt == "float32" else "bfloat16"
+        row["bound_ms"], row["bound_by"] = mixed_bound(
+            seg_h, pos_h, window, q, kc, row["bound_rule"])
+        if cdt == "float32":
+            row["bound_ms_float32"] = mixed_bound(seg_h, pos_h, window, q,
+                                                  kc, "float32")[0]
         row["library_ms"] = mixed_library_ms(torch, q, kc, vc, seg, pos,
                                              window, kw["scale"])
         kern()
@@ -2464,29 +2473,41 @@ def kernel_part(name: str) -> str:
     return "combine" if "combine" in name else "main"
 
 
+# the MIXED_ROWS rows ``profile_mixed`` reads: (a), the table's, and the
+# two fp32-cache rows (b) and (e)
+MIXED_PROFILED = ("bf16", "fp32", "bf16_q_fp32_cache")
+
+
 def profile_mixed(torch, dev) -> dict:
-    """Row (a) of MIXED_ROWS under ``profile_kernels``: the device us a
-    call of the pre-pass, the main kernel and the combine and in all, and
-    the device launches a call.  Run with the profiled runs, last."""
+    """Rows ``MIXED_PROFILED`` of MIXED_ROWS under ``profile_kernels``,
+    one line each: the device us a call of the pre-pass, the main kernel
+    and the combine and in all, and the device launches a call.  Returns
+    row (a)'s, the table's.  Run with the profiled runs, last."""
     from repro_torch.kernels import decode_attention as DA
 
     x, caches = mixed_inputs(torch, dev)
-    spec = MIXED_ROWS[0]
-    q, kc, vc = mixed_row_tensors(torch, dev, x, caches, spec)
+    result = None
+    for spec in MIXED_ROWS:
+        if spec[0] not in MIXED_PROFILED:
+            continue
+        q, kc, vc = mixed_row_tensors(torch, dev, x, caches, spec)
 
-    def kern():
-        return DA.mixed_attention_fwd(q, kc, vc, x["seg"], x["pos"],
-                                      scale=spec[5] ** -0.5, window=spec[6])
-    kern()
-    torch.cuda.synchronize()
-    row = {"phase": "mixed_attention_profile", "row": spec[0],
-           "variant": DA.mixed_variant(q.dtype, kc.dtype),
-           **profile_kernels(torch, kern, DA.mixed_counter,
-                             "mixed_attention",
-                             DA.mixed_last_launch()["device_launches"],
-                             part=kernel_part)}
-    emit(row)
-    return row
+        def kern(q=q, kc=kc, vc=vc, spec=spec):
+            return DA.mixed_attention_fwd(q, kc, vc, x["seg"], x["pos"],
+                                          scale=spec[5] ** -0.5,
+                                          window=spec[6])
+        kern()
+        torch.cuda.synchronize()
+        row = {"phase": "mixed_attention_profile", "row": spec[0],
+               "variant": DA.mixed_variant(q.dtype, kc.dtype),
+               **profile_kernels(torch, kern, DA.mixed_counter,
+                                 "mixed_attention",
+                                 DA.mixed_last_launch()["device_launches"],
+                                 part=kernel_part)}
+        emit(row)
+        if result is None:
+            result = row
+    return result
 
 
 def phase_paged_vs_gathered(torch, dev, cfg, params) -> dict:

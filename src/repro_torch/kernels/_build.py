@@ -19,7 +19,8 @@ Every kernel wrapper owns a :class:`LaunchCounter`; ``launch_counts()``
 and ``reset_launch_counts()`` read and zero all of them, which is how a
 run shows that it went through the kernels.  The attention wrappers also
 share :data:`HEAD_DIMS`, :data:`Q_CODES` and :func:`check_operands`, and
-the WKV6 and Mamba wrappers :func:`dense_aligned`.
+the attention, WKV6 and Mamba wrappers :func:`dense_aligned`, which
+copies a strided or misaligned operand rather than refusing it.
 """
 
 from __future__ import annotations

@@ -19,10 +19,11 @@ Counterpart of ``repro/kernels/decode_attention.py``:
     mixed prefill/decode batch against per-slot contiguous caches
     ``(S, Hkv, L, D)`` chosen by segment ids (the gathered-cache path:
     ``PagedKVCache.gather`` then attention), CUDA C++ in
-    ``csrc/mixed_attention.cu``: bf16 q over bf16 caches on the tensor
-    cores (variant ``"mma"``: the paged kernel's pre-pass, query tiles and
-    key splits over contiguous caches, a combine), fp32 caches on the CUDA
-    cores (``"simt"``).
+    ``csrc/mixed_attention.cu``: the paged kernel's pre-pass, query tiles
+    and key splits over contiguous caches, and a combine; the main kernel
+    runs bf16 q over bf16 caches on the bf16 tensor cores (variant
+    ``"mma"``) and the fp32-cache pairs on the tensor cores in 3xTF32
+    (``"tf32x3"``).
 
 The kernels are hand-written for ``sm_90a``; each source note says what
 bounds it on the H100 (bytes) and which TPU-isms were dropped (lane
@@ -31,11 +32,15 @@ sequential KV grid, scalar prefetch, ``pages_per_tile``, buffer
 donation).
 
 Each wrapper launches its kernel for CUDA tensors and raises when it
-cannot; it takes the plain version only for tensors on the CPU.  There is
-no ``try`` that falls back.  The paged plain version gathers the pool into
-per-slot caches and reduces to :func:`mixed_attention_plain`, as the
-reference's ``_paged_attention_ref`` reduces to ``mixed_attention``: the
-two plain versions are one oracle.
+cannot; it takes the plain version only for tensors on the CPU.  There
+is no ``try`` that falls back.  A query (and, but for the paged pools, a
+cache) that is not contiguous or not 16-byte aligned is copied first
+(``dense_aligned``); the paged pools are single-owner and are never
+copied, so they must come dense and aligned.  The paged plain version
+gathers the pool into per-slot caches and reduces to
+:func:`mixed_attention_plain`, as the reference's
+``_paged_attention_ref`` reduces to ``mixed_attention``: the two plain
+versions are one oracle.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from typing import Optional
 import torch
 
 from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
-                     load_library)
+                     dense_aligned, load_library)
 
 NEG_INF = -1e30
 
@@ -286,6 +291,7 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if not quantized and k_pages.dtype != q.dtype:
         raise TypeError("paged_attention_fwd: an unquantized pool must "
                         "have q's dtype")
+    q = dense_aligned(q)
     tensors = [q, k_pages, v_pages, tables, seg_ids, positions]
     if quantized:
         tensors += [k_scale, v_scale]
@@ -301,10 +307,10 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if seg_ids.shape != (t,) or positions.shape != (t,):
         raise ValueError("paged_attention_fwd: seg_ids/positions must "
                          "be (T,)")
-    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
-        raise ValueError("paged_attention_fwd: q and the pages must be "
-                         "16-byte aligned (the kernel copies rows in "
-                         "16-byte cp.async chunks)")
+    if any(x.data_ptr() % 16 for x in (k_pages, v_pages)):
+        raise ValueError("paged_attention_fwd: the pages must be 16-byte "
+                         "aligned (the kernel copies rows in 16-byte "
+                         "cp.async chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -498,13 +504,9 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (b,):
         raise TypeError("decode_attention_fwd: cache_len must be (B,) "
                         "int32")
+    q, k_cache, v_cache = (dense_aligned(x) for x in (q, k_cache, v_cache))
     check_operands("decode_attention_fwd", q,
-                    (q, k_cache, v_cache, cache_len))
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"decode_attention_fwd: {name} must be "
-                             f"16-byte aligned (the kernels copy rows in "
-                             f"16-byte chunks)")
+                   (q, k_cache, v_cache, cache_len))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -572,7 +574,7 @@ def _mixed_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=256)
 def mixed_tiling(g: int, seq_len: int) -> dict:
-    """The bf16 mixed kernel's work list for G query heads a KV head over
+    """The mixed kernel's work list for G query heads a KV head over
     caches of ``seq_len`` keys a slot, as its source fixes it: the tokens
     a tile holds at most (64 rows / G), the keys a split holds, and the
     most splits a tile can have.  Its plain version is
@@ -592,8 +594,8 @@ def _mixed_workspace_bytes(t, hkv, g, d, seq_len) -> int:
 def mixed_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
                 n_slots: int, seq_len: int, g: int,
                 window: Optional[int] = None) -> torch.Tensor:
-    """The bf16 mixed kernel's work list for G query heads a KV head,
-    built by its pre-pass on the card: :func:`paged_tiles_plain` over a
+    """The mixed kernel's work list for G query heads a KV head, built by
+    its pre-pass on the card: :func:`paged_tiles_plain` over a
     table of ``(n_slots, 1)`` pages of ``seq_len`` at
     :func:`mixed_tiling`'s tile tokens and split keys.  It reads the tile
     count back, so it syncs: a check, not part of the kernel's call.
@@ -615,18 +617,18 @@ def mixed_tiles(seg_ids: torch.Tensor, positions: torch.Tensor,
 
 
 def mixed_variant(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> str:
-    """The mixed kernel a (q, cache) dtype pair runs: ``"mma"`` (bf16
-    over bf16, tensor cores, split-KV) or ``"simt"`` (fp32 caches, CUDA
-    cores)."""
+    """The main kernel a (q, cache) dtype pair runs over the shared work
+    list: ``"mma"`` (bf16 over bf16, bf16 tensor cores) or ``"tf32x3"``
+    (fp32 caches under fp32 or bf16 q, tensor cores in 3xTF32)."""
     return ("mma" if q_dtype == cache_dtype == torch.bfloat16
-            else "simt")
+            else "tf32x3")
 
 
 def mixed_last_launch() -> dict:
     """What the last CUDA call of :func:`mixed_attention_fwd` launched, as
-    its C entry reports it: device launches, and the thread blocks of the
-    pre-pass, the main kernel and the combine (the "simt" kernel is one
-    launch of main blocks)."""
+    its C entry reports it: device launches (3, or 2 when the caches fit
+    one split), and the thread blocks of the pre-pass, the main kernel and
+    the combine (0 when it was not launched)."""
     return dict(zip(("device_launches", "prepass_blocks", "main_blocks",
                      "combine_blocks"), _mixed_launched))
 
@@ -699,14 +701,15 @@ def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     dtype.  Inference only.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise: bf16 q over bf16 caches runs the
-    tensor-core variant, three device launches under one C call (the
-    pre-pass that builds the work list of query tiles and key splits on
-    the card, the main kernel over it, and the combine of the splits; two
-    when L fits one split), the fp32-cache pairs the CUDA-core variant,
-    one launch; :func:`mixed_last_launch` reads what the last call
-    launched.  ``mixed_counter`` counts calls.  Neither reads anything
-    back to the host."""
+    on the current stream, or raise: three device launches under one C
+    call (the pre-pass that builds the work list of query tiles and key
+    splits on the card, the main kernel over it, and the combine of the
+    splits; two when L fits one split), the main kernel on the bf16
+    tensor cores for bf16 q over bf16 caches (variant ``"mma"``) and in
+    3xTF32 on the tensor cores for the fp32-cache pairs (``"tf32x3"``);
+    :func:`mixed_last_launch` reads what the last call launched.
+    ``mixed_counter`` counts calls.  Neither reads anything back to the
+    host."""
     if q.device.type == "cpu":
         return mixed_attention_plain(q, k_cache, v_cache, seg_ids,
                                      positions, scale=scale, window=window)
@@ -735,26 +738,20 @@ def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
         if x.dtype != torch.int32 or tuple(x.shape) != (t,):
             raise TypeError("mixed_attention_fwd: seg_ids and positions "
                             "must be (T,) int32")
+    q, k_cache, v_cache = (dense_aligned(x) for x in (q, k_cache, v_cache))
     check_operands("mixed_attention_fwd", q,
                    (q, k_cache, v_cache, seg_ids, positions))
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"mixed_attention_fwd: {name} must be "
-                             f"16-byte aligned (the kernels copy rows in "
-                             f"16-byte chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    work = None
-    if mixed_variant(q.dtype, k_cache.dtype) == "mma":
-        work = torch.empty(_mixed_workspace_bytes(t, hkv, g, d, l),
-                           dtype=torch.uint8, device=q.device)
+    work = torch.empty(_mixed_workspace_bytes(t, hkv, g, d, l),
+                       dtype=torch.uint8, device=q.device)
     fn = _mixed_lib().repro_mixed_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], Q_CODES[k_cache.dtype], d,
              q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              seg_ids.data_ptr(), positions.data_ptr(), out.data_ptr(),
-             None if work is None else work.data_ptr(), t, hkv, g, s, l,
+             work.data_ptr(), t, hkv, g, s, l,
              float(scale), int(window) if window else 0, _mixed_launched,
              stream)
     if err != 0:

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
-                     load_library)
+                     dense_aligned, load_library)
 
 counter = LaunchCounter("flash_attention")
 
@@ -125,7 +125,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differ.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise."""
+    on the current stream, or raise; q, k or v not contiguous or not
+    16-byte aligned is copied first (``dense_aligned``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window)
@@ -144,11 +145,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_attention_fwd: q/k/v dtypes {q.dtype}/"
                         f"{k.dtype}/{v.dtype} unsupported (one of float32, "
                         f"bfloat16 for all three)")
+    q, k, v = (dense_aligned(x) for x in (q, k, v))
     check_operands("flash_attention_fwd", q, (q, k, v))
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attention_fwd: q, k and v must be 16-byte "
-                         "aligned (the kernel copies rows in 16-byte "
-                         "cp.async chunks)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

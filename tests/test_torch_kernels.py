@@ -24,8 +24,9 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import _noise
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
+from repro_torch.kernels import _build
 from torch_port_helpers import cuda_device, flash_attention_tf32, \
-    requires_cuda, tf32_round, to_numpy, \
+    requires_cuda, strided_operands, tf32_round, to_numpy, \
     to_torch  # noqa: F401  (cuda_device is the fixture requires_cuda uses)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -703,6 +704,61 @@ def test_cuda_decode_kernel_attributes(cuda_device, hd, dtype):
         assert attrs["variant"] == "mma" and attrs["spill_bytes"] == 0
     else:
         assert attrs["variant"] == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["odd_offset", "transposed", "sliced"])
+def test_dense_aligned_copies_strided_operands(view, dtype):
+    """What the attention wrappers do to q, k and v before a launch: an
+    operand that is not contiguous or not 16-byte aligned comes back as a
+    contiguous, 16-byte aligned copy of the same values; one that is both
+    comes back as itself, uncopied."""
+    x = torch.randn((3, 2, 5, 16)).to(dtype)
+    if view == "sliced":
+        y = torch.randn((3, 2, 5, 24)).to(dtype)[..., 4:20].copy_(x)
+    else:
+        y = strided_operands(x)[view == "transposed"]
+    assert not (y.is_contiguous() and y.data_ptr() % 16 == 0)
+    z = _build.dense_aligned(y)
+    assert z.is_contiguous() and z.data_ptr() % 16 == 0
+    assert torch.equal(z, x)
+    assert _build.dense_aligned(z) is z
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernel_copies_strided_operands(cuda_device, dtype):
+    """q, k and v at an odd element offset or transposed: the wrapper
+    copies them and gives the contiguous call's bits, one launch each."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((4, 70, 64), (2, 90, 64), (2, 90, 64)))
+    kw = dict(causal=True, scale=0.125, window=None)
+    want = FA.flash_attention_fwd(q, k, v, **kw)
+    for view in range(2):
+        args = [strided_operands(x)[view] for x in (q, k, v)]
+        before = FA.counter.launches
+        got = FA.flash_attention_fwd(*args, **kw)
+        assert FA.counter.launches == before + 1
+        assert got.is_contiguous() and torch.equal(got, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_kernel_copies_strided_operands(cuda_device, dtype):
+    """q and both caches at an odd element offset or transposed: the
+    wrapper copies them and gives the contiguous call's bits."""
+    q, kc, vc, lens, window, _ = decode_card_inputs(cuda_device,
+                                                    "split_edges", 4, 64,
+                                                    dtype)
+    q = q.reshape(q.shape[0], 2, 4, 64)
+    want = DA.decode_attention_fwd(q, kc, vc, lens, scale=0.125)
+    for view in range(2):
+        args = [strided_operands(x)[view] for x in (q, kc, vc)]
+        before = DA.decode_counter.launches
+        got = DA.decode_attention_fwd(*args, lens, scale=0.125)
+        assert DA.decode_counter.launches == before + 1
+        assert got.is_contiguous() and torch.equal(got, want)
 
 
 def test_decode_kernel_attributes_refuse_unknown_kernels():

@@ -22,7 +22,13 @@ tile and split by split and merges in split order (the paged
 decomposition over that table), against
 ``mixed_attention_plain``, the jnp oracle and the interpret-mode Pallas
 kernel (1e-5 at fp32; 1e-2 + 1e-2 |ref| at bf16, where it rounds the
-unnormalised probabilities to bf16 as the kernel does).
+unnormalised probabilities to bf16 as the kernel does).  The fp32-cache
+kernel (variant "tf32x3") runs the same work list in 3xTF32 on the
+tensor cores: :func:`tf32x3_mixed` computes attention in its order and
+arithmetic (stages of the split's keys, products in ``matmul_tf32``, the
+online softmax in log2 units), held against the same references at 1e-5
+for fp32 q and for bf16 q values, and shows that a token's row alone
+equals its row in a batch, bit for bit, with no window.
 """
 
 import jax.numpy as jnp
@@ -35,9 +41,11 @@ from repro.models import attention as JA
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as TA
+from repro_torch.serving import quant
 from test_torch_paged import tiled_attention
-from torch_port_helpers import cuda_device, requires_cuda, to_numpy, \
-    to_torch  # noqa: F401  (cuda_device is the fixture requires_cuda uses)
+from torch_port_helpers import cuda_device, matmul_tf32, requires_cuda, \
+    strided_operands, to_numpy, \
+    to_torch  # noqa: F401  (cuda_device: requires_cuda's fixture)
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # the decomposition against the plain version and the JAX references
@@ -67,19 +75,105 @@ def mixed_tiles_plain(seg, pos, n_slots, seq_len, tile_tokens, split_keys,
 
 
 def tiled_mixed_attention(q, kc, vc, seg, pos, *, scale, window,
-                          tile_tokens, split_keys):
-    """Mixed attention from the bf16 kernel's work list, the kernel's way:
-    the paged decomposition (``test_torch_paged.tiled_attention``: each
-    split's (m, l, unnormalised O), probabilities rounded to bf16 before
-    the PV product when q is bf16, the merge in split order) over a table
-    of one page a slot, slot s's whole cache being page s of L keys.  q
-    (T, Hkv, G, D); caches (S, Hkv, L, D).  A token with no visible key
-    gets zeros, as the kernel gives.  Returns (T, Hkv, G, D) in q's
-    dtype."""
+                          tile_tokens, split_keys, stage_keys=None):
+    """Mixed attention from the kernel's work list, the kernel's way.
+    Without ``stage_keys`` (the "mma" kernel's decomposition): the paged
+    decomposition (``test_torch_paged.tiled_attention``: each split's (m,
+    l, unnormalised O), probabilities rounded to bf16 before the PV
+    product when q is bf16, the merge in split order) over a table of one
+    page a slot, slot s's whole cache being page s of L keys.  With
+    ``stage_keys`` (fp32 caches, the "tf32x3" kernel): :func:`tf32x3_mixed`
+    in 3xTF32 arithmetic.  q (T, Hkv, G, D); caches (S, Hkv, L, D).  A
+    token with no visible key gets zeros, as the kernel gives.  Returns
+    (T, Hkv, G, D) in q's dtype."""
+    if stage_keys is not None:
+        return tf32x3_mixed(q, kc, vc, seg, pos, scale=scale, window=window,
+                            tile_tokens=tile_tokens, split_keys=split_keys,
+                            stage_keys=stage_keys)
     tables = torch.arange(kc.shape[0], dtype=torch.int32)[:, None]
     return tiled_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), tables,
                            seg, pos, scale=scale, window=window,
                            tile_tokens=tile_tokens, split_keys=split_keys)
+
+
+LOG2E = 1.4426950408889634
+
+
+def ordered_sum(p):
+    """The last dim summed left to right (keepdim): elementwise adds, so a
+    row's sum does not depend on how many rows the tensor holds."""
+    acc = p[..., :1]
+    for j in range(1, p.shape[-1]):
+        acc = acc + p[..., j:j + 1]
+    return acc
+
+
+def token_exp2(x):
+    """exp2 one token (first index) at a time: torch's vectorized exp2 and
+    its scalar tail differ in the last bit, so the elements of a call must
+    not depend on how many tokens the tensor holds."""
+    return torch.stack([torch.exp2(xi) for xi in x])
+
+
+def tf32x3_mixed(q, kc, vc, seg, pos, *, scale, window, tile_tokens,
+                 split_keys, stage_keys):
+    """Mixed attention over fp32 caches as the "tf32x3" kernel orders it:
+    the work list's tiles and splits (every split from key lo in steps of
+    ``split_keys``), each split's keys in stages of ``stage_keys`` (rows
+    past the split zero-filled), S = Q K^T and O += P V in 3xTF32
+    (``matmul_tf32``, one token's G x D rows at a time, so a row's
+    products do not depend on its tile-mates), the online softmax in log2
+    units with P kept in fp32, and the splits merged in split order (O_s
+    exp2(m_s - m) summed split by split, times 1 / max(l, 1e-30); a tile of
+    one split the same).  q (T, Hkv, G, D) fp32 or bf16 (exact in TF32);
+    caches (S, Hkv, L, D) fp32.  Returns (T, Hkv, G, D) in q's dtype."""
+    t, hkv, g, d = q.shape
+    n_slots, _, l, _ = kc.shape
+    tiles = mixed_tiles_plain(seg, pos, n_slots, l, tile_tokens, split_keys,
+                              window)
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    neg = torch.tensor(DA.NEG_INF)
+    out = torch.full((t, hkv, g, d), float("nan"))
+    for first, count, slot, lo, hi, splits, _, _ in tiles.tolist():
+        toks = range(first, first + count)
+        p_t = pos[first:first + count].long()[:, None, None, None]
+        parts = []
+        for sp in range(splits):
+            k_lo = lo + sp * split_keys
+            k_hi = min(hi, k_lo + split_keys)
+            m = torch.full((count, hkv, g, 1), DA.NEG_INF)
+            lsum = torch.zeros((count, hkv, g, 1))
+            o = torch.zeros((count, hkv, g, d))
+            for k0 in range(k_lo, k_hi, stage_keys):
+                keys = torch.arange(k0, k0 + stage_keys)
+                live = keys < k_hi
+                rows = keys.clamp(max=l - 1)
+                kst = kc[slot][:, rows].float() * live[None, :, None]
+                vst = vc[slot][:, rows].float() * live[None, :, None]
+                sc = torch.stack([matmul_tf32(q[i].float(),
+                                              kst.transpose(-1, -2))
+                                  for i in toks])
+                ok = live & (keys <= p_t)
+                if window:
+                    ok = ok & (keys > p_t - window)
+                x = torch.where(ok, sc * sl2, neg)
+                m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                alpha = token_exp2(m - m_new)
+                p = torch.where(ok, token_exp2(x - m_new), 0.0)
+                lsum = alpha * lsum + ordered_sum(p)
+                o = o * alpha + torch.stack(
+                    [matmul_tf32(p[i], vst) for i in range(count)])
+                m = m_new
+            parts.append((m, lsum, o))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lw = torch.zeros_like(mx)
+        acc = torch.zeros((count, hkv, g, d))
+        for m, lsum, o in parts:
+            w = token_exp2(m - mx)
+            lw = lw + lsum * w
+            acc = acc + o * w
+        out[first:first + count] = acc * (1.0 / lw.clamp(min=1e-30))
+    return out.to(q.dtype)
 
 
 # layouts of the decomposition tests: (seg, pos, S, L, window).  Positions
@@ -160,6 +254,88 @@ def test_tiled_mixed_matches_jax_oracle_and_pallas_fp32(layout, tiling):
     np.testing.assert_allclose(got, oracle[live], rtol=1e-5, atol=1e-5)
     pallas = np.asarray(jops.mixed_attention(*args, window=window))
     np.testing.assert_allclose(got, pallas[live], rtol=1e-5, atol=1e-5)
+
+
+# the "tf32x3" kernel's decomposition: (tile tokens, split keys, stage
+# keys): the kernel's own at G = 2 (32 tokens, 128 keys a split, 32 a
+# stage), and small ones that cut these sequences into several tiles,
+# splits and stages
+TF32_TILINGS = ((32, 128, 32), (2, 8, 4), (3, 4, 4))
+
+
+def jax_mixed_references(q, kc, vc, seg, pos, window):
+    """The jnp oracle's and the interpret-mode Pallas kernel's outputs, as
+    (T, Hkv, G, D) fp32 numpy arrays, on the same inputs."""
+    t, hkv, g, d = q.shape
+    args = [jnp.asarray(to_numpy(x)) for x in
+            (q.reshape(t, hkv * g, d), kc, vc)]
+    args += [jnp.asarray(seg.numpy()), jnp.asarray(pos.numpy())]
+    return [np.asarray(f(*args, window=window).astype(jnp.float32)).reshape(
+        t, hkv, g, d) for f in (
+            lambda *a, **k: JA.mixed_attention(*a, **k, backend="ref"),
+            jops.mixed_attention)]
+
+
+@pytest.mark.parametrize("tiling", TF32_TILINGS)
+@pytest.mark.parametrize("pair", ["fp32", "bf16_q_fp32_cache"])
+@pytest.mark.parametrize("layout", ["reference", "reference_window",
+                                    "long_run", "window_empties_split",
+                                    "gemma"])
+def test_tf32x3_mixed_matches_jax_oracle_and_pallas(layout, pair, tiling):
+    """The fp32-cache kernel's decomposition in its 3xTF32 arithmetic
+    against the jnp oracle and the Pallas kernel in interpret mode, fp32,
+    1e-5.  ``bf16_q_fp32_cache`` holds the queries at bf16 values in fp32
+    (the bf16-q kernel's arithmetic before its output is rounded to bf16);
+    ``gemma`` is gemma-2b's attention width (G = 8, D = 256) on the
+    reference layout."""
+    name, g, d = ((layout, 2, 16) if layout != "gemma"
+                  else ("reference", 8, 256))
+    q, kc, vc, seg, pos, window = layout_case(name, torch.float32, g=g, d=d)
+    if pair != "fp32":
+        q = q.to(torch.bfloat16).float()
+    tokens, split_keys, stage_keys = tiling
+    out = tiled_mixed_attention(q, kc, vc, seg, pos, scale=d ** -0.5,
+                                window=window, tile_tokens=min(tokens,
+                                                               64 // g),
+                                split_keys=split_keys,
+                                stage_keys=stage_keys)
+    live = (seg >= 0).numpy()
+    got = to_numpy(out)[live]
+    for ref in jax_mixed_references(q, kc, vc, seg, pos, window):
+        np.testing.assert_allclose(got, ref[live], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tiling", TF32_TILINGS)
+@pytest.mark.parametrize("layout", ["reference", "long_run", "straddle"])
+def test_tf32x3_mixed_row_is_independent_of_its_batch(layout, tiling):
+    """With no window, a token's row alone equals the same row in its
+    batch, bit for bit: the splits start at key 0 in steps of the split
+    size, every row masks by its own position, and the splits merge in
+    split order, so the stages a token's tile-mates add are masked for it
+    and change nothing."""
+    q, kc, vc, seg, pos, window = layout_case(layout, torch.float32)
+    assert window is None
+    kw = dict(scale=0.25, window=None, tile_tokens=tiling[0],
+              split_keys=tiling[1], stage_keys=tiling[2])
+    batch = tiled_mixed_attention(q, kc, vc, seg, pos, **kw)
+    for i in range(len(seg)):
+        alone = tiled_mixed_attention(q[i:i + 1], kc, vc, seg[i:i + 1],
+                                      pos[i:i + 1], **kw)
+        assert torch.equal(alone[0], batch[i]), i
+
+
+def test_tf32x3_mixed_bf16_q_is_the_fp32_result_rounded():
+    """bf16 q over fp32 caches: the decomposition's output is its result
+    for the same query values in fp32, rounded to bf16 (P stays fp32, as
+    ``p.astype(v.dtype)`` keeps it over fp32 caches)."""
+    q, kc, vc, seg, pos, window = layout_case("reference", torch.float32)
+    qb = q.to(torch.bfloat16)
+    kw = dict(scale=0.25, window=window, tile_tokens=2, split_keys=8,
+              stage_keys=4)
+    out = tiled_mixed_attention(qb, kc, vc, seg, pos, **kw)
+    wide = tiled_mixed_attention(qb.float(), kc, vc, seg, pos, **kw)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, wide.to(torch.bfloat16))
 
 
 def _mixed_tiles(layout, m, ks):
@@ -345,7 +521,7 @@ def test_wrapper_refuses_other_devices():
 # ----------------------------------------------------------------------
 
 @requires_cuda
-@pytest.mark.parametrize("hd", [16, 32, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("window", [None, 6])
 @pytest.mark.parametrize("pair", ["fp32", "bf16", "bf16_over_fp32"])
 def test_cuda_mixed_kernel_matches_plain(cuda_device, pair, window, hd):
@@ -523,18 +699,118 @@ def test_cuda_mixed_kernel_attributes(cuda_device, hd):
         assert a["blocks_per_sm"] >= 2
 
 
+FP32_CACHE_PAIRS = [(torch.float32, torch.float32),
+                    (torch.bfloat16, torch.float32)]
+
+
 @requires_cuda
-@pytest.mark.parametrize("pair", [(torch.float32, torch.float32),
-                                  (torch.bfloat16, torch.float32)])
-def test_cuda_mixed_fp32_caches_run_simt(cuda_device, pair):
-    """The two fp32-cache pairs stay on the CUDA cores: one launch."""
+@pytest.mark.parametrize("seq_len", [128, 300])
+@pytest.mark.parametrize("pair", FP32_CACHE_PAIRS)
+def test_cuda_mixed_fp32_caches_run_tf32x3(cuda_device, pair, seq_len):
+    """The two fp32-cache pairs run the 3xTF32 main kernel over the shared
+    work list: the pre-pass (one block), the main kernel and the combine,
+    3 device launches, or 2 when L fits one 128-key split."""
     qdt, cdt = pair
-    assert DA.mixed_variant(qdt, cdt) == "simt"
-    assert DA.mixed_kernel_attributes(qdt, cdt, 64)["variant"] == "simt"
-    q, kc, vc, seg, pos = mma_case(cuda_device, 64, 2)
+    assert DA.mixed_variant(qdt, cdt) == "tf32x3"
+    assert DA.mixed_kernel_attributes(qdt, cdt, 64)["variant"] == "tf32x3"
+    q, kc, vc, seg, pos = mma_case(cuda_device, 64, 2, seq_len=seq_len)
     DA.mixed_attention_fwd(q.to(qdt), kc.to(cdt), vc.to(cdt), seg, pos,
                            scale=0.125)
     torch.cuda.synchronize()
     launched = DA.mixed_last_launch()
-    assert launched["device_launches"] == 1
-    assert launched["prepass_blocks"] == 0 and launched["main_blocks"] > 0
+    one_split = seq_len <= DA.mixed_tiling(2, seq_len)["split_keys"]
+    assert launched["device_launches"] == (2 if one_split else 3)
+    assert launched["prepass_blocks"] == 1 and launched["main_blocks"] > 0
+    assert (launched["combine_blocks"] == 0) == one_split
+
+
+@requires_cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("pair", FP32_CACHE_PAIRS)
+def test_cuda_mixed_tf32x3_kernel_attributes(cuda_device, pair, hd):
+    """No spill at any head_dim, 8 warps, 32-key stages, and at least one
+    block an SM at D = 256 (the Q tile, two fp32 (K, V) stages and the
+    exchange in shared memory)."""
+    a = DA.mixed_kernel_attributes(*pair, hd)
+    assert a["variant"] == "tf32x3" and a["threads"] == 256
+    assert a["spill_bytes"] == 0 and a["key_tile"] == 32
+    assert a["blocks_per_sm"] >= 1 and a["smem_bytes"] <= 232448
+
+
+@requires_cuda
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("pair", FP32_CACHE_PAIRS)
+def test_cuda_mixed_tf32x3_row_is_independent_of_its_batch(cuda_device,
+                                                            pair, hd):
+    """With no window, every token's row alone equals its row in the
+    batch, bit for bit (the rule the fp32 greedy runs at spec_k 2 and 0
+    rest on): prefill chunks longer than a tile, decode tokens, padding,
+    caches of several splits."""
+    qdt, cdt = pair
+    g = 8 if hd == 256 else 2
+    q, kc, vc, seg, pos = mma_case(cuda_device, hd, g, hkv=1, seq_len=300,
+                                   chunk=21)
+    q, kc, vc = q.to(qdt), kc.to(cdt), vc.to(cdt)
+    batch = DA.mixed_attention_fwd(q, kc, vc, seg, pos, scale=hd ** -0.5)
+    for i in range(q.shape[0]):
+        alone = DA.mixed_attention_fwd(q[i:i + 1], kc, vc, seg[i:i + 1],
+                                       pos[i:i + 1], scale=hd ** -0.5)
+        assert torch.equal(alone[0], batch[i]), i
+
+
+@requires_cuda
+def test_cuda_gathered_int8_pool_matches_paged(cuda_device):
+    """bf16 q over an int8 pool: the gathered path (the pool dequantized
+    into fp32 per-slot caches of code x scale, then the mixed kernel's
+    bf16-over-fp32 pair) agrees with the paged kernel over the same pool
+    within the bf16 tier, 1e-2 + 1e-2 |paged| (the paged kernel rounds the
+    probabilities to bf16 before its PV product, the mixed one keeps them
+    fp32 over fp32 caches: one bf16 step of an output of magnitude 2-4
+    apart)."""
+    dev = cuda_device
+    gen = torch.Generator().manual_seed(31)
+    n_pages, ps, hkv, g, d, s, p = 40, 16, 1, 8, 256, 4, 8
+    k, v = (torch.randn((n_pages, ps, hkv, d), generator=gen)
+            for _ in range(2))
+    (kp, ksc), (vp, vsc) = (quant.quantize(x, "int8") for x in (k, v))
+    tables = torch.randperm(n_pages, generator=gen)[:s * p].reshape(s, p)
+    seg, pos = card_layout(gen, s, 10, 3, p * ps)
+    q = torch.randn((len(seg), hkv, g, d), generator=gen).bfloat16()
+    gidx = (tables[:, :, None] * ps + torch.arange(ps)).reshape(s, p * ps)
+    kc, vc = (quant.dequantize(c.reshape(n_pages * ps, hkv, d)[gidx],
+                               sc.reshape(n_pages * ps, hkv)[gidx])
+              .transpose(1, 2).contiguous() for c, sc in ((kp, ksc),
+                                                          (vp, vsc)))
+    to = dict(device=dev)
+    seg = torch.tensor(seg, dtype=torch.int32, **to)
+    pos = torch.tensor(pos, dtype=torch.int32, **to)
+    mixed = DA.mixed_attention_fwd(q.to(dev), kc.to(dev), vc.to(dev), seg,
+                                   pos, scale=d ** -0.5)
+    paged = DA.paged_attention_fwd(
+        q.to(dev), kp.to(dev), vp.to(dev), tables.to(torch.int32).to(dev),
+        seg, pos, scale=d ** -0.5, k_scale=ksc.to(dev), v_scale=vsc.to(dev))
+    assert DA.mixed_variant(q.dtype, kc.dtype) == "tf32x3"
+    live = seg >= 0
+    torch.testing.assert_close(mixed[live].float(), paged[live].float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@requires_cuda
+@pytest.mark.parametrize("pair", ["fp32", "bf16", "bf16_over_fp32"])
+def test_cuda_mixed_kernel_copies_strided_operands(cuda_device, pair):
+    """q and both caches at an odd element offset or transposed: the
+    wrapper copies them and gives the contiguous call's bits."""
+    q, kc, vc, seg, pos = mma_case(cuda_device, 64, 2, seq_len=200)
+    if pair != "bf16":
+        kc, vc = kc.float(), vc.float()
+    if pair == "fp32":
+        q = q.float()
+    want = DA.mixed_attention_fwd(q, kc, vc, seg, pos, scale=0.125)
+    for view in range(2):
+        args = [strided_operands(x)[view] for x in (q, kc, vc)]
+        before = DA.mixed_counter.launches
+        got = DA.mixed_attention_fwd(*args, seg, pos, scale=0.125)
+        assert DA.mixed_counter.launches == before + 1
+        assert got.is_contiguous() and torch.equal(got, want)
+
+

@@ -27,7 +27,8 @@ from repro.kernels import ref as jref
 from repro.serving import quant as jquant
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.serving import quant as tquant
-from torch_port_helpers import cuda_device, requires_cuda, to_numpy, \
+from torch_port_helpers import cuda_device, requires_cuda, \
+    strided_operands, to_numpy, \
     to_torch  # noqa: F401  (cuda_device is the fixture requires_cuda uses)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -473,6 +474,26 @@ def test_cuda_paged_mma_matches_plain(cuda_device, pool, ps, window):
     assert bool(torch.isfinite(out.float()).all())
     torch.testing.assert_close(out[live].float(), ref[live].float(),
                                **BF16_TOL)
+
+
+@requires_cuda
+@pytest.mark.parametrize("q_dtype,pool", [(torch.bfloat16, "int8"),
+                                          (torch.float32, "fp32")])
+def test_cuda_paged_kernel_copies_a_strided_query(cuda_device, q_dtype,
+                                                  pool):
+    """q at an odd element offset or transposed: the wrapper copies it and
+    gives the contiguous call's bits; a page pool that is not contiguous
+    is still refused (the pools are single-owner and never copied)."""
+    x = card_case(cuda_device, pool, 16, q_dtype=q_dtype)
+    want = _run(x, DA.paged_attention_fwd)
+    for view in strided_operands(x["q"]):
+        before = DA.counter.launches
+        got = _run({**x, "q": view}, DA.paged_attention_fwd)
+        assert DA.counter.launches == before + 1
+        assert got.is_contiguous() and torch.equal(got, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        _run({**x, "kp": strided_operands(x["kp"])[1]},
+             DA.paged_attention_fwd)
 
 
 @requires_cuda

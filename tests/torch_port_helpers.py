@@ -205,3 +205,14 @@ def flash_attention_tf32(q, k, v, *, causal: bool, scale: float,
         ok = ok & (k_pos > q_pos - window)
     s = torch.where(ok, s, torch.finfo(torch.float32).min)
     return matmul_tf32(torch.softmax(s, dim=-1), v, terms)
+
+
+def strided_operands(x):
+    """Two views of ``x``'s values that the kernels cannot read as they
+    are: the same values at an odd element offset (contiguous, not 16-byte
+    aligned), and a transposed copy transposed back (not contiguous)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    odd = flat[1:].view(x.shape).copy_(x)
+    swapped = x.transpose(0, -1).contiguous().transpose(0, -1)
+    assert odd.data_ptr() % 16 and not swapped.is_contiguous()
+    return odd, swapped

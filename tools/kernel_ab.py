@@ -20,18 +20,21 @@ code.  KIND picks the rows a turn measures:
     (``profile_kernels``);
   * the mixed kernel on every ``MIXED_ROWS`` row: the SHA-256 of its
     output, a single call's ms, SDPA's ms on the same inputs, and the
-    device us a call of each of its kernels;
+    device us a call of each of its kernels (pre-pass, main, combine);
   * gemma-2b's fp32 greedy serving runs, without and with speculation
     (``spec_k`` = ``SPEC_K``): wall seconds, tokens/s, steps, paged
     launches, and whether the two runs' tokens are equal.
 
   The summary says, row by row, whether the outputs of every turn are
-  the same bits, and whether the two trees' paged libraries hold the
-  same machine code (``cuobjdump -sass``, the source file's hash in the
-  kernel names masked); the script exits non-zero when the bits of a
-  bf16 paged row or of a mixed row differ between any two turns, those
-  of an fp32 paged row between the two turns of one tree, or the fp32
-  serving run with speculation draws other tokens than without.
+  the same bits, whether the two trees' paged libraries hold the same
+  machine code (``cuobjdump -sass``, the source file's hash in the
+  kernel names masked), and whether the machine code of each bf16 mixed
+  kernel of the parent's library (pre-pass, "mma" main kernel, bf16
+  combine) is among the change's; the script exits non-zero when the
+  bits of a bf16 paged row or of a bf16 mixed row differ between any two
+  turns, those of an fp32 paged row or an fp32-cache mixed row between
+  the two turns of one tree, or the fp32 serving run with speculation
+  draws other tokens than without.
 
 ``gumbel``: at ``GUMBEL_SHAPE``, the parent's serving path
 (``position_uniforms`` then the uniform kernel), the uniform kernel and,
@@ -151,6 +154,7 @@ def measure_attention(torch, cs) -> dict:
         out = kern()
         torch.cuda.synchronize()
         mixed[label] = {
+            "q_dtype": spec[1], "cache_dtype": spec[2],
             "sha256": sha256(torch, out),
             "ms": cs.time_ms(torch, kern),
             "sdpa_ms": cs.mixed_library_ms(torch, q, kc, vc, xm["seg"],
@@ -182,7 +186,8 @@ def measure_attention(torch, cs) -> dict:
             k: v["device_us_per_call"] for k, v in prof["kernels"].items()}
         mixed[label]["sessions"] = len(prof["sessions"])
     return {"paged": paged, "mixed": mixed, "serving": serving,
-            "paged_library": DA._lib()._name}
+            "paged_library": DA._lib()._name,
+            "mixed_library": DA._mixed_lib()._name}
 
 
 def fp32_serving(torch, cs, dev: str = "cuda") -> dict:
@@ -532,10 +537,22 @@ def side_by_side(turns, *path) -> list:
     return out
 
 
+def mixed_bf16_sass_kept(parent_lib: str, change_lib: str) -> dict:
+    """For each kernel of the parent's mixed library that a bf16 q over
+    bf16 caches runs (the pre-pass, the "mma" main kernel, the combine
+    that writes bf16), whether its machine code is, instruction for
+    instruction, that of a kernel of the change's library."""
+    parent, change = sass(parent_lib), sass(change_lib)
+    bodies = {tuple(body) for body in change.values()}
+    return {name: tuple(body) in bodies for name, body in parent.items()
+            if re.search(r"mixed_attention_(tiles|mma|combine)", name)}
+
+
 def attention_summary(turns) -> dict:
-    """Bits: a bf16 paged row and every mixed row must be the same in all
-    four turns (the change keeps them), an fp32 paged row within each
-    tree's two turns (each tree's kernel gives the same bits every run)."""
+    """Bits: a bf16 paged row and a bf16 mixed row must be the same in all
+    four turns (the change keeps them), an fp32 paged row and an
+    fp32-cache mixed row within each tree's two turns (each tree's kernel
+    gives the same bits every run)."""
     paged_keys = list(turns[0]["paged"])
     parent_sass, change_sass = (sass(turns[i]["paged_library"])
                                 for i in (0, 1))
@@ -548,8 +565,16 @@ def attention_summary(turns) -> dict:
     bits.update({f"paged {k} within each tree":
                  same("paged", k, (0, 3)) and same("paged", k, (1, 2))
                  for k in paged_keys if not k.startswith("bfloat16")})
+    mixed_keys = list(turns[0]["mixed"])
+    bf16_mixed = {k for k in mixed_keys
+                  if turns[0]["mixed"][k].get("cache_dtype") == "bfloat16"}
     bits.update({f"mixed {k}": same("mixed", k, range(4))
-                 for k in turns[0]["mixed"]})
+                 for k in mixed_keys if k in bf16_mixed})
+    bits.update({f"mixed {k} within each tree":
+                 same("mixed", k, (0, 3)) and same("mixed", k, (1, 2))
+                 for k in mixed_keys if k not in bf16_mixed})
+    mixed_sass = mixed_bf16_sass_kept(turns[0]["mixed_library"],
+                                      turns[1]["mixed_library"])
     bits["fp32 serving: spec_k=2 tokens equal spec_k=0's"] = all(
         t["serving"]["spec2_equals_spec0"] for t in turns)
     return {
@@ -558,6 +583,9 @@ def attention_summary(turns) -> dict:
         "paged_sass_kernels_differing": sorted(
             k for k in set(parent_sass) | set(change_sass)
             if parent_sass.get(k) != change_sass.get(k)),
+        "mixed_bf16_sass_kept": all(mixed_sass.values()) and bool(
+            mixed_sass),
+        "mixed_bf16_sass_kernels": mixed_sass,
         "bits_equal": bits,
         "paged_fp32_bits_equal_parent_change": {
             k: same("paged", k, range(4)) for k in paged_keys
@@ -568,7 +596,7 @@ def attention_summary(turns) -> dict:
                   for k in paged_keys},
         "mixed": {
             label: {field: side_by_side(turns, "mixed", label, field)
-                    for field in ("ms", "sdpa_ms", "device_us")}
+                    for field in ("ms", "sdpa_ms", "device_us", "parts_us")}
             for label in turns[0]["mixed"]},
         "serving": side_by_side(turns, "serving")}
 
