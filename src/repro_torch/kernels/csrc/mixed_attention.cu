@@ -124,7 +124,8 @@
 //     (tools/kernel_variants.py mixed, PERF.md):
 //     16-key stages (12% slower), Q's TF32 parts stored once at the load
 //     (it needs 16-key stages at D = 256), a second accumulator chain for
-//     S's remainder products, and a bf16 q's zero remainder product.
+//     S's remainder products, a bf16 q's zero remainder product, and 16
+//     warps of a quarter of D each (128 registers, 7% slower).
 //
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * lane padding of head_dim to 128 (`_pad_last`, repro/kernels/ops.py:37):
