@@ -12,8 +12,8 @@ at full width (18 layers, random weights from a seed) through both of
 the port's gemma paths, rwkv6-1.6b at full width and depth (24 layers)
 through its prefill and decode path, and jamba-1.5-large at full width,
 cut to its first 5 layers (every kind of block; 48.1 GB at bf16),
-through the same step builders, and trains ResNet-50 at full width
-through the port's eager runtime:
+through the same step builders, trains ResNet-50 and GNMT at full width
+through the port's eager runtime, and runs its compiled path:
 
   * paged continuous-batching serving through
     ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
@@ -43,7 +43,14 @@ through the port's eager runtime:
   * the eager runtime: ResNet-50 (224 x 224 RGB, batch 64, fp32, train
     mode, SGD with momentum) through ``repro_torch``'s Tensor, tape,
     dispatch cache and fusion queue, every flushed elementwise chain a
-    launch of the Triton kernel generated from it.
+    launch of the Triton kernel generated from it;
+  * the rest of the eager runtime: GNMT (vocab 32000, hidden 1024, 4
+    layers, batch 64 x 50/51 tokens, fp32, Adafactor) through
+    ``nn.LSTM`` and the fusion queue (Bahdanau attention's add -> tanh
+    chain, one fused launch a step); the jit bridge
+    (``repro_torch.compile``: ResNet-50's eval forward, an NCF
+    ``value_and_grad`` step, SDPA through the flash kernel's custom op,
+    a fused chain bypassed); masked SDPA on the card.
 
 Each run shows that it went through its kernels: the launch counts are
 zeroed just before it and read just after, and must equal what the
@@ -125,6 +132,13 @@ Output, one line each:
     accounting allocator's peak beside PyTorch's, the first and last
     loss) and ``eager_parity`` (fusion off against on; a small ResNet-50
     on the card against the CPU);
+  * ``gnmt_train`` (target tokens/s, ms a step, fused launches a step,
+    peak memory, the loss at steps 1 and 10), ``gnmt_parity`` (a GNMT of
+    hidden 256 on the card against the CPU), ``compiled_path`` (compiled
+    ResNet-50 and NCF against eager: compile seconds, graph breaks,
+    eager and compiled ms; one flash launch a compiled SDPA call with the
+    eager bits; no fused launch inside ``compile``) and ``masked_sdpa``
+    (fp32 and bf16, the card against the CPU, with ms);
   * the profiled runs (``serving_profile``, the ``*_prefill_profile``
     and ``*_decode_profile`` of the three step-builder paths and
     ``eager_train_profile``: device time and kernel calls by kernel group
@@ -143,7 +157,8 @@ Output, one line each:
     ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
     ``mamba_scan_profile``: the Mamba rows' device us a launch, device
     launches a call and waves; ``fused_elementwise_profile``: the fused
-    rows' device us a call), last,
+    rows' device us a call) and ``gnmt_train_profile`` (one GNMT step:
+    device time by kernel group, idle share), last,
     because a profiler session slows the host for the timed runs after
     it;
   * ``{"kernels": [...]}``: every ported kernel with its launches in its
@@ -2190,6 +2205,384 @@ def phase_eager_parity(torch, dev) -> None:
     free(torch)
 
 
+# ----------------------------------------------------------------------
+# the rest of the eager runtime: GNMT training, the compiled path and
+# masked attention
+# ----------------------------------------------------------------------
+
+# GNMTv2 at its published widths (the reference class's defaults): vocab
+# 32000, hidden 1024, 4 layers, a bidirectional first encoder layer and
+# a 4-layer decoder with Bahdanau attention; 64 pairs of 50 source and
+# 51 target tokens (the decoder reads the first 50 and predicts the last
+# 50), fp32, Adafactor (foreach) with the fusion queue on
+GNMT_WIDTHS = dict(vocab=32000, hidden=1024, layers=4)
+GNMT_BATCH, GNMT_SRC, GNMT_TGT = 64, 50, 51
+GNMT_STEPS = 10                    # step 1 counts, builds and warms
+# lr 1e-2 (the class's default) raised the loss over 10 steps (10.37 ->
+# 10.89); 3e-3 fell unevenly, 1e-3 to 8.03 (PERF.md §5)
+GNMT_LR = 1e-3
+# gnmt_parity: one step on the card against the same step on the CPU
+GNMT_PARITY_WIDTHS = dict(vocab=4000, hidden=256, layers=2)
+GNMT_PARITY_BATCH = (8, 20, 21)
+GNMT_PARITY_TOL = {"loss": 1e-4, "grads": 1e-3}
+# compiled_path: ResNet-50's eval forward, an NCF train step at its
+# published size, SDPA at gemma-2b's prefill shape
+COMPILED_RESNET = (64, 224, 1000)
+COMPILED_RESNET_TOL = 1e-3         # of the eager logits' RMS
+NCF_SIZE = dict(n_users=138_000, n_items=27_000)
+NCF_BATCH = 2048
+COMPILED_NCF_TOL = {"loss": 1e-5, "grads": 1e-4}
+COMPILED_SDPA_SHAPE = (1, 8, 1024, 256)
+# masked_sdpa: 4 x (8 query heads over 1 KV head) x 1024 x 256, an
+# explicit bool mask; PERF.md's tiers
+MASKED_SDPA_SHAPE = (4, 8, 1, 1024, 256)
+MASKED_SDPA_TOL = {"float32": (2e-3, 0.0), "bfloat16": (1e-2, 1e-2)}
+
+
+def gnmt_batch(torch, b: int, s_src: int, s_tgt: int, vocab: int,
+               seed: int):
+    """Source and target token ids (int32) from numpy."""
+    import numpy as np
+    import repro_torch as rt
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, vocab, (b, s_src)).astype(np.int32)
+    tgt = rng.integers(0, vocab, (b, s_tgt)).astype(np.int32)
+    return rt.tensor(src), rt.tensor(tgt)
+
+
+def gnmt(torch, widths: dict):
+    """GNMT with weights from ``manual_seed(0)`` and its Adafactor."""
+    import repro_torch as rt
+    import repro_torch.optim as optim
+    from repro_torch.models.paper_models import GNMT
+
+    rt.manual_seed(0)
+    model = GNMT(**widths)
+    return model, optim.Adafactor(list(model.parameters()), lr=GNMT_LR)
+
+
+def gnmt_step(model, opt, src, tgt):
+    """The user's step: teacher-forced logits of ``tgt[:, :-1]``,
+    cross-entropy against ``tgt[:, 1:]``, ``loss.backward()`` on the
+    tape, ``optimizer.step()``, inside ``repro_torch.fuse.fusion()``.
+    Returns (loss, logits)."""
+    import repro_torch as rt
+    import repro_torch.nn.functional as F
+
+    opt.zero_grad()
+    with rt.fuse.fusion():
+        logits = model(src, tgt[:, :-1])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tgt[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+    return loss, logits
+
+
+def phase_gnmt_train(torch, dev):
+    """GNMT at full width trained eagerly for ``GNMT_STEPS`` steps on one
+    batch: the first step alone (it builds the fused chain's kernel and
+    gives the fused launches a step, which must be at least one), then
+    the rest timed, each launching exactly as many fused kernels and no
+    other kernel of the port; the loss must fall.  Returns the launch
+    counts and a function that profiles one more step of a model made
+    again from the seed."""
+    import repro_torch as rt
+
+    model, opt = gnmt(torch, GNMT_WIDTHS)
+    src, tgt = gnmt_batch(torch, GNMT_BATCH, GNMT_SRC, GNMT_TGT,
+                          GNMT_WIDTHS["vocab"], 61)
+    rt.reset_dispatch_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (first, _), counts1 = counted(
+        torch, "the first gnmt_train step",
+        lambda: gnmt_step(model, opt, src, tgt), ("fused_elementwise",))
+    loss_first = first.item()
+    first_s = time.perf_counter() - t0
+    per_step = counts1["fused_elementwise"]
+    steps = GNMT_STEPS - 1
+
+    def run():
+        t = time.perf_counter()
+        out = [gnmt_step(model, opt, src, tgt)[0] for _ in range(steps)]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (losses, wall), counts = check_launches(
+        torch, "the gnmt_train run", run,
+        {"fused_elementwise": per_step * steps})
+    loss_last = losses[-1].item()
+    tokens = GNMT_BATCH * (GNMT_TGT - 1)
+    stats = rt.dispatch_cache_stats()
+    emit({"phase": "gnmt_train", "model": "gnmt", **GNMT_WIDTHS,
+          "batch": GNMT_BATCH, "src_len": GNMT_SRC, "tgt_len": GNMT_TGT,
+          "dtype": "float32", "optimizer": "Adafactor", "lr": GNMT_LR,
+          "steps": GNMT_STEPS, "timed_steps": steps,
+          "first_step_s": first_s, "ms_per_step": wall / steps * 1e3,
+          "target_tokens_per_s": tokens * steps / wall,
+          "fused_launches_per_step": per_step, "launches": counts,
+          "dispatch": {k: v for k, v in stats.items() if k != "per_op"},
+          "params": model.num_parameters(), "peak_mem_gb": peak_gb(torch),
+          "loss_step1": loss_first, "loss_step10": loss_last})
+    if not (math.isfinite(loss_last) and loss_last < loss_first):
+        raise AssertionError(f"gnmt_train: the loss did not fall "
+                             f"({loss_first} -> {loss_last})")
+    del model, opt, losses
+    free(torch)
+
+    def profiled():
+        model, opt = gnmt(torch, GNMT_WIDTHS)
+        gnmt_step(model, opt, src, tgt)
+
+        def one():
+            gnmt_step(model, opt, src, tgt)
+            torch.cuda.synchronize()
+
+        profile_window(torch, "gnmt_train_profile", one, steps=1)
+        del model, opt
+        free(torch)
+
+    return counts, profiled
+
+
+def phase_gnmt_parity(torch, dev) -> None:
+    """One step of a GNMT of hidden 256, vocab 4000 and 2 layers on the
+    card against the same step on the CPU (the plain path): loss within
+    1e-4 relative, gradients within 1e-3 relative L2 over the model; the
+    card's step launches the fused kernel."""
+    import repro_torch as rt
+
+    b, s_src, s_tgt = GNMT_PARITY_BATCH
+    src, tgt = gnmt_batch(torch, b, s_src, s_tgt,
+                          GNMT_PARITY_WIDTHS["vocab"], 62)
+
+    def one(device):
+        with rt.default_device(device):
+            model, opt = gnmt(torch, GNMT_PARITY_WIDTHS)
+            loss, _ = gnmt_step(model, opt, rt.Tensor(src.data.to(device)),
+                                rt.Tensor(tgt.data.to(device)))
+            return loss.item(), [g.cpu() for g in grads_of(model)]
+
+    cpu = one("cpu")
+    cuda, counts = counted(torch, "the gnmt_parity CUDA step",
+                           lambda: one(dev), ("fused_elementwise",))
+    num = sum(float((a - c).pow(2).sum()) for a, c in zip(cpu[1], cuda[1]))
+    grads = (num / sum(float(a.pow(2).sum()) for a in cpu[1])) ** 0.5
+    res = {"loss": abs(cuda[0] - cpu[0]) / abs(cpu[0]), "grads": grads}
+    emit({"phase": "gnmt_parity", **GNMT_PARITY_WIDTHS,
+          "batch": GNMT_PARITY_BATCH, "loss_cpu": cpu[0],
+          "loss_cuda": cuda[0], "cuda_vs_cpu": res, "tol": GNMT_PARITY_TOL,
+          "launches": counts})
+    if any(not res[k] <= GNMT_PARITY_TOL[k] for k in res):
+        raise AssertionError(f"gnmt_parity: the card and the CPU "
+                             f"disagree: {res}")
+
+
+def graph_breaks(torch) -> int:
+    from torch._dynamo.utils import counters
+    return sum(counters["graph_break"].values())
+
+
+def compiled_call(torch, fn, *args) -> tuple:
+    """The first call of a ``repro_torch.compile`` function (trace,
+    Inductor's compile and one run): (result, seconds, graph breaks it
+    added)."""
+    breaks = graph_breaks(torch)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, graph_breaks(torch) - breaks
+
+
+def compiled_resnet(torch, dev) -> dict:
+    """ResNet-50's eval forward at 64 x 224 x 224 fp32, compiled against
+    eager: logits within ``COMPILED_RESNET_TOL`` of their RMS."""
+    import repro_torch as rt
+
+    b, size, classes = COMPILED_RESNET
+    model, _ = resnet(torch, classes)
+    model.eval()
+    x, _ = eager_batch(torch, b, size, classes, 71)
+    with rt.no_grad():
+        eager = model(x).data
+        cf = rt.compile(lambda t: model(t))
+        out, seconds, breaks = compiled_call(torch, cf, x)
+        err = ((out.data - eager).abs().max()
+               / eager.pow(2).mean().sqrt()).item()
+        eager_ms = time_ms(torch, lambda: model(x).data, reps=5)
+        compiled_ms = time_ms(torch, lambda: cf(x).data, reps=5)
+    (entry,) = cf._compiled.values()
+    res = {"model": "resnet50", "batch": b, "image": size,
+           "dtype": "float32", "compile_s": seconds,
+           "trace_s": entry.seconds, "graph_breaks": breaks,
+           "graph_ops": sum(n.op == "call_function"
+                            for n in entry.graph.graph.nodes),
+           "eager_ms": eager_ms, "compiled_ms": compiled_ms,
+           "logits_err_over_rms": err, "tol": COMPILED_RESNET_TOL}
+    if not err <= COMPILED_RESNET_TOL:
+        raise AssertionError(f"compiled_path: compiled ResNet-50 logits "
+                             f"differ from eager: {res}")
+    return res
+
+
+def compiled_ncf(torch, dev) -> dict:
+    """``compile(value_and_grad(loss))`` of an NCF train step at its
+    published size (138,000 users, 27,000 items, batch 2048) against the
+    eager tape's loss and gradients."""
+    import numpy as np
+    import repro_torch as rt
+    import repro_torch.nn as nn
+    import repro_torch.nn.functional as F
+    from repro_torch.models.paper_models import NCF
+
+    rt.manual_seed(0)
+    model = NCF(**NCF_SIZE)
+    rng = np.random.default_rng(72)
+    users = rt.tensor(rng.integers(0, NCF_SIZE["n_users"], NCF_BATCH)
+                      .astype(np.int32))
+    items = rt.tensor(rng.integers(0, NCF_SIZE["n_items"], NCF_BATCH)
+                      .astype(np.int32))
+    labels = rt.tensor(rng.integers(0, 2, NCF_BATCH).astype(np.float32))
+
+    def loss_fn(params, u, i, y):
+        return F.binary_cross_entropy_with_logits(
+            nn.functional_call(model, params, u, i), y)
+
+    def eager_step():
+        model.zero_grad()
+        loss = loss_fn(dict(model.named_parameters()), users, items, labels)
+        loss.backward()
+        return loss
+
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    step = rt.compile(rt.value_and_grad(loss_fn))
+    (value, grads), seconds, breaks = compiled_call(
+        torch, step, params, users, items, labels)
+    loss = eager_step().item()
+    num = sum(float((grads[k].data - p.grad.data).pow(2).sum())
+              for k, p in model.named_parameters())
+    den = sum(float(p.grad.data.pow(2).sum()) for p in model.parameters())
+    res = {"model": "ncf", **NCF_SIZE, "batch": NCF_BATCH,
+           "compile_s": seconds, "graph_breaks": breaks,
+           "eager_ms": time_ms(torch, eager_step, reps=5),
+           "compiled_ms": time_ms(
+               torch, lambda: step(params, users, items, labels), reps=5),
+           "loss_eager": loss, "loss_compiled": float(value),
+           "loss_rel": abs(float(value) - loss) / abs(loss),
+           "grads_rel_l2": (num / den) ** 0.5, "tol": COMPILED_NCF_TOL}
+    if not (res["loss_rel"] <= COMPILED_NCF_TOL["loss"]
+            and res["grads_rel_l2"] <= COMPILED_NCF_TOL["grads"]):
+        raise AssertionError(f"compiled_path: the compiled NCF step "
+                             f"differs from the eager tape: {res}")
+    return res
+
+
+def compiled_kernels(torch, dev) -> dict:
+    """Inside ``repro_torch.compile``: an unmasked
+    ``F.scaled_dot_product_attention`` at gemma-2b's prefill shape (bf16,
+    causal) launches the flash kernel exactly once a call and gives the
+    eager call's bits; an elementwise chain under ``fusion()`` launches
+    no fused kernel (the queue is bypassed) and agrees with the eager
+    fused result."""
+    import repro_torch as rt
+    import repro_torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(73)
+    q, k, v = (rt.Tensor(torch.randn(COMPILED_SDPA_SHAPE, generator=gen,
+                                     device=dev, dtype=torch.bfloat16))
+               for _ in range(3))
+
+    def attend(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    eager = attend(q, k, v).data
+    cf = rt.compile(attend)
+    _, seconds, breaks = compiled_call(torch, cf, q, k, v)
+    out, counts = check_launches(torch, "a compiled SDPA call",
+                                 lambda: cf(q, k, v).data,
+                                 {"flash_attention": 1})
+    if not torch.equal(out, eager):
+        raise AssertionError("compiled_path: the compiled SDPA call does "
+                             "not give the eager call's bits")
+
+    def chain(t):
+        with rt.fuse.fusion():
+            return ((t * 2.0 + 1.0).tanh() * t).data
+
+    x = rt.Tensor(torch.randn(4096, 1024, generator=gen, device=dev))
+    fused_eager = chain(x)
+    cchain = rt.compile(chain)
+    cchain(x)
+    chained, chain_counts = counted(torch, "a compiled fused chain",
+                                    lambda: cchain(x), ())
+    chain_err = (chained - fused_eager).abs().max().item()
+    atol, rtol = FUSED_TOL["float32"]
+    res = {"sdpa_shape": COMPILED_SDPA_SHAPE, "sdpa_compile_s": seconds,
+           "sdpa_graph_breaks": breaks, "sdpa_launches": counts,
+           "sdpa_bits_equal": True, "chain_launches": chain_counts,
+           "chain_max_abs_err": chain_err, "chain_tol": FUSED_TOL["float32"]}
+    if any(chain_counts.values()) or not bool(
+            ((chained - fused_eager).abs()
+             <= atol + rtol * fused_eager.abs()).all()):
+        raise AssertionError(f"compiled_path: the fused chain inside "
+                             f"compile: {res}")
+    return res
+
+
+def phase_compiled_path(torch, dev) -> None:
+    """The jit bridge on the card: compiled ResNet-50 and NCF against
+    eager, and the kernels inside a compiled function."""
+    resnet_res = compiled_resnet(torch, dev)
+    free(torch)
+    ncf_res = compiled_ncf(torch, dev)
+    free(torch)
+    emit({"phase": "compiled_path", "resnet50_forward": resnet_res,
+          "ncf_value_and_grad": ncf_res,
+          "kernels": compiled_kernels(torch, dev),
+          "peak_mem_gb": peak_gb(torch)})
+    free(torch)
+
+
+def phase_masked_sdpa(torch, dev) -> None:
+    """``models.attention.sdpa`` with an explicit bool mask (random, every
+    row seeing its last key) at 4 x (8 query heads over 1) x 1024 x 256,
+    fp32 and bf16, on the card against the CPU, within PERF.md's tiers;
+    with the card's ms and that of ``torch``'s SDPA on the same mask."""
+    from repro_torch.models import attention as TA
+
+    b, hq, hkv, s, d = MASKED_SDPA_SHAPE
+    gen = torch.Generator().manual_seed(74)
+    mask = torch.rand((b, 1, s, s), generator=gen) > 0.5
+    mask[..., -1] = True
+    rows = []
+    for name, (atol, rtol) in MASKED_SDPA_TOL.items():
+        dt = getattr(torch, name)
+        q = torch.randn(b, hq, s, d, generator=gen).to(dt)
+        k, v = (torch.randn(b, hkv, s, d, generator=gen).to(dt)
+                for _ in range(2))
+        ref = TA.sdpa(q, k, v, mask=mask).float()
+        qc, kc, vc, mc = (x.to(dev) for x in (q, k, v, mask))
+        out = TA.sdpa(qc, kc, vc, mask=mc)
+        err = (out.float().cpu() - ref).abs()
+        ok = bool((err <= atol + rtol * ref.abs()).all())
+        library = torch.nn.functional.scaled_dot_product_attention
+        rows.append({"dtype": name, "max_abs_err": err.max().item(),
+                     "tol": (atol, rtol), "ok": ok,
+                     "ms": time_ms(torch, lambda: TA.sdpa(
+                         qc, kc, vc, mask=mc), reps=10),
+                     "library_ms": time_ms(torch, lambda: library(
+                         qc, kc.expand(b, hq, s, d),
+                         vc.expand(b, hq, s, d), attn_mask=mc), reps=10)})
+    emit({"phase": "masked_sdpa", "shape": MASKED_SDPA_SHAPE,
+          "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"masked_sdpa: the card and the CPU "
+                             f"disagree: {rows}")
+    free(torch)
+
+
 def gemma_models(torch, dev):
     """gemma-2b at full width and depth, random weights from a seeded
     generator on the card: (fp32 config, fp32 params, bf16 config, bf16
@@ -3097,6 +3490,11 @@ def run_phases(torch, dev) -> list:
     eager, profile_eager_train = phase_eager_train(torch, dev)
     counts_eager = eager["fused_elementwise"]
     phase_eager_parity(torch, dev)
+    # the rest of the eager runtime: GNMT, the jit bridge, masked SDPA
+    _, profile_gnmt_train = phase_gnmt_train(torch, dev)
+    phase_gnmt_parity(torch, dev)
+    phase_compiled_path(torch, dev)
+    phase_masked_sdpa(torch, dev)
 
     # each model is freed before the next is made: jamba's 48 GB do not
     # fit beside gemma's 15 and rwkv's 9.6
@@ -3172,6 +3570,7 @@ def run_phases(torch, dev) -> list:
         free(torch)
     profile_eager_train()
     free(torch)
+    profile_gnmt_train()
     paged_profile = profile_paged(torch, dev)
     gumbel_profile = profile_gumbel(torch, dev)
     flash_profile = profile_flash(torch, dev)
@@ -3252,6 +3651,9 @@ def main() -> int:
     emit({"phase": "build", "libraries": sorted(_build.LIBRARIES),
           "seconds": time.perf_counter() - t0})
     table = run_phases(torch, "cuda")
+    # the compile workers Inductor started for compiled_path
+    from torch._inductor import async_compile
+    async_compile.shutdown_compile_workers()
     print(smi_line(), flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

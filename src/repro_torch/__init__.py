@@ -15,6 +15,7 @@ names the module it is held against.  It imports ``torch`` only: never
         with rt.fuse.fusion():
             y = (x @ x.T).relu().sum()
         y.backward()
+        step = rt.compile(fn)   # the compiled path (the jit bridge)
 
   * the LM serving path (``serving``), the prefill/decode step builders
     (``launch.train``) and their models (``models.lm``);

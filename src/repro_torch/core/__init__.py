@@ -8,11 +8,13 @@ Layers:
                per-stream pools)
   stream     — streams/events over CUDA streams and events
   dispatch   — signature-keyed op/VJP cache (the eager fast path)
-  fuse       — the elementwise fusion queue (its chains run as one
-               generated Triton kernel on the card)
+  fuse       — the compiled path (the jit bridge: ``compile``,
+               ``value_and_grad``, ``grad``) and the elementwise fusion
+               queue (its chains run as one generated Triton kernel on
+               the card)
 
-The reference's jit bridge (``repro.compile``, ``value_and_grad``,
-``grad`` of ``fuse``) is not ported yet (ROADMAP.md queue A).
+As in the reference, ``grad`` here is the tape's (``autograd.grad``);
+the functional one is ``fuse.grad``.
 """
 
 from . import allocator
@@ -24,8 +26,9 @@ from .autograd import Function, enable_grad, grad, is_grad_enabled, no_grad
 from .dispatch import (
     dispatch_cache_stats,
     reset_dispatch_cache,
+    seeding,
 )
-from .fuse import block_until_ready, fusion
+from .fuse import block_until_ready, compile, fusion, value_and_grad
 from .stream import Event, Stream, current_stream, default_stream, \
     stream as stream_ctx, synchronize
 from .tensor import (

@@ -18,8 +18,10 @@ graph: node names (``mul``, ``fused[add+relu]``), error messages and
   closures (and so the saved activations) are dropped as soon as they
   are consumed.
 
-The reference's compiled split (no tape under a ``jax.jit`` trace) has
-no counterpart: the port has no ``jit`` (ROADMAP.md queue A).
+* **The compiled split** — inside the jit bridge's trace
+  (``repro_torch.compile``, ``value_and_grad``, ``grad``: :func:`tracing`)
+  no op records a node, as no op does under a ``jax.jit`` trace in the
+  reference; the bridge differentiates with ``torch.func`` instead.
 """
 
 from __future__ import annotations
@@ -59,6 +61,35 @@ _tls = threading.local()
 def is_grad_enabled() -> bool:
     """Whether ops currently record autograd tape nodes (thread-local)."""
     return getattr(_tls, "grad_enabled", True)
+
+
+class _TraceState(threading.local):
+    on = False      # a class default: no AttributeError on the hot path
+
+
+_trace = _TraceState()
+
+
+def is_tracing() -> bool:
+    """Whether ops run inside the jit bridge (:class:`tracing`), where
+    the reference's operands would be tracers: no tape node, no
+    dispatch-cache entry (but seeding), no fusion queue, no allocator
+    accounting.  (Dynamo never traces the port's Python: the bridge
+    hands it an FX graph.)"""
+    return _trace.on
+
+
+class tracing:
+    """Context manager: ops inside run as the jit bridge traces them
+    (:func:`is_tracing`)."""
+
+    def __enter__(self):
+        self._prev = _trace.on
+        _trace.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _trace.on = self._prev
 
 
 class _GradMode:
@@ -378,7 +409,7 @@ class Function:
             raw = cls.forward(ctx, *args, **kwargs)
 
         tensor_inputs = [a if isinstance(a, Tensor) else None for a in args]
-        needs_grad = is_grad_enabled() and any(
+        needs_grad = is_grad_enabled() and not is_tracing() and any(
             t is not None and (t.requires_grad or t.grad_fn is not None)
             for t in tensor_inputs
         )

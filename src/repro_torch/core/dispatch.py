@@ -25,9 +25,11 @@ operands.  Call sites that cannot pass ``static=None`` and stay
 uncached; unhashable statics take the uncached path and bump
 ``num_fallback_unhashable`` instead of raising.
 
-The reference's trace-time seeding (``seeding``, ``seed_op``) belongs to
-``repro.compile``, which is not ported (ROADMAP.md queue A):
-``num_seeded`` and the per-op ``seeded`` count stay 0.
+Trace-time seeding (``seeding``, ``seed_op``): while
+``repro_torch.compile(seed_cache=True)`` traces a function, every op
+dispatched with a ``static=`` descriptor pre-creates its eager entry
+from the traced signature (``num_seeded``, the per-op ``seeded``
+count), so a model traced once starts its eager life warm.
 """
 
 from __future__ import annotations
@@ -183,6 +185,22 @@ class DispatchCache:
             self.stats.num_entries = len(self._entries)
             return entry
 
+    def seed_entry(self, key, fn: Callable,
+                   diffable: Sequence[int]) -> None:
+        """Pre-create an entry (from a ``repro_torch.compile`` trace)
+        without counting a miss: the first eager dispatch after the
+        trace is then already warm."""
+        with self._lock:
+            if key in self._entries:
+                return
+            if len(self._entries) >= self.max_entries:
+                self._entries.clear()
+                self.stats.num_evictions += 1
+            self._entries[key] = CacheEntry(fn, diffable)
+            self.stats.num_seeded += 1
+            self._op_rec(key[0])["seeded"] += 1
+            self.stats.num_entries = len(self._entries)
+
     def record_uncached(self, name: str) -> None:
         with self._lock:
             self.stats.num_uncached += 1
@@ -255,6 +273,55 @@ def dispatch_cache_stats() -> Dict[str, Any]:
 def reset_dispatch_cache() -> None:
     """Drop every cached entry and zero the hit/miss counters."""
     _cache.clear()
+
+
+# ----------------------------------------------------------------------
+# trace-time seeding (dispatch-cache-aware ``repro_torch.compile``)
+# ----------------------------------------------------------------------
+
+_seed_tls = threading.local()
+
+
+def seeding_enabled() -> bool:
+    return getattr(_seed_tls, "on", False)
+
+
+class seeding:
+    """Context manager: while active, ops dispatched inside a
+    ``repro_torch.compile`` trace *seed* dispatch-cache entries from
+    their traced signatures instead of being invisible to the cache.
+    ``sink``, when given, collects the seeded op names."""
+
+    def __init__(self, enabled: bool = True, sink: Optional[list] = None):
+        self._enabled = enabled
+        self._sink = sink
+
+    def __enter__(self):
+        self._prev = (seeding_enabled(),
+                      getattr(_seed_tls, "sink", None))
+        _seed_tls.on = self._enabled
+        _seed_tls.sink = self._sink
+        return self
+
+    def __exit__(self, *exc):
+        _seed_tls.on, _seed_tls.sink = self._prev
+
+
+def seed_op(name: str, static, datas: Sequence[Any], fn: Callable,
+            diffable: Sequence[int]) -> None:
+    """Seed entries for one traced op.  Traced tensors carry concrete
+    shapes, dtypes and devices, so the eager key is reconstructible;
+    both grad-flag keys are seeded (an entry does not depend on the flag,
+    which only partitions the key space)."""
+    seeded = False
+    for grad in (False, True):
+        key = make_key(name, static, datas, grad)
+        if key is not None:
+            _cache.seed_entry(key, fn, diffable)
+            seeded = True
+    sink = getattr(_seed_tls, "sink", None)
+    if seeded and sink is not None and name not in sink:
+        sink.append(name)
 
 
 # ----------------------------------------------------------------------

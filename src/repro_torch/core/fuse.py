@@ -1,6 +1,28 @@
-"""The elementwise fusion queue (the §5 small-op fast path).
+"""The compiled path (the jit bridge) and the elementwise fusion queue.
 
-Counterpart of ``repro/core/fuse.py``'s fusion queue.  Inside
+Counterpart of ``repro/core/fuse.py``.  Two layers of the paper's
+performance story live here:
+
+1. **The jit bridge** (``compile``, ``value_and_grad``, ``grad``).  The
+   reference traces unmodified eager code with ``jax.jit``, its Tensor a
+   pytree node.  Here ``compile(fn)`` traces ``fn`` once per input
+   signature with ``make_fx`` over fake tensors (the Python runs once,
+   as under a JAX trace: control flow is resolved, the tape records
+   nothing, the dispatch cache is seeded on request, and Python side
+   effects happen once), then hands the traced graph, pure torch ops, to
+   ``torch.compile(dynamic=False)``, Inductor by default.  Dynamo so
+   sees one FX graph and never the port's Python, which has no graph
+   break.  The flash kernel's launch is a ``torch.library.custom_op``
+   with a fake (shape) function, so the graph keeps it as one node that
+   launches the kernel, counted, on every call; Inductor does not
+   replace it.  The other kernels have no such operator yet: inside the
+   trace their wrappers fail at a fake tensor's ``data_ptr``, and no
+   plain version stands in.  The fusion queue is bypassed inside the
+   trace, as the reference's is under ``jax.jit``.  ``value_and_grad`` and ``grad`` sit on
+   ``torch.func.grad_and_value`` / ``torch.func.grad``: differentiation
+   is the functional engine's, not the tape's.
+
+2. **The elementwise fusion queue** (the §5 small-op fast path).  Inside
 ``with repro_torch.fuse.fusion():`` every elementwise op (add, mul, exp,
 relu, ...) returns a *pending* tensor recording (op, statics, parents)
 instead of dispatching.  At a materialization point — ``.numpy()``,
@@ -31,24 +53,205 @@ the reference keeps both in one chain; so the generated kernel runs one
 pass over one shape.  Operands of other shapes (0-d scalars, broadcast
 rows) still enter a chain as external inputs.
 
-``repro.compile``, ``value_and_grad`` and ``grad`` of the reference's
-module (its jit bridge) are not ported yet (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
+import warnings
 import weakref
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..kernels import fused_elementwise as _fe
 from . import dispatch as _dispatch
 from . import stream as _stream
-from .autograd import Node, VersionCounter, is_grad_enabled, op_range
+from .autograd import (Node, VersionCounter, is_grad_enabled, is_tracing,
+                       op_range, tracing)
 from .tensor import Storage, Tensor, _is_inexact, _nbytes_of
+
+
+# ----------------------------------------------------------------------
+# the jit bridge (repro_torch.compile)
+# ----------------------------------------------------------------------
+
+class _Traced:
+    """One traced signature of a compiled function: the compiled graph
+    and how to rebuild the function's result from its tensor outputs."""
+
+    __slots__ = ("run", "graph", "out_spec", "out_consts", "seconds")
+
+    def __init__(self, run, graph, out_spec, out_consts, seconds):
+        self.run = run
+        self.graph = graph
+        self.out_spec = out_spec
+        self.out_consts = out_consts    # leaf index -> non-tensor leaf
+        self.seconds = seconds          # trace seconds (compiling is lazy)
+
+    def __call__(self, tensors):
+        outs = iter(self.run(*tensors))
+        leaves = [self.out_consts[i] if i in self.out_consts else next(outs)
+                  for i in range(self.out_spec.num_leaves)]
+        return pytree.tree_unflatten(leaves, self.out_spec)
+
+
+def _trace(f, args, static_argnums, leaves, spec, seed_sink,
+           compile_kwargs) -> _Traced:
+    """Trace ``f`` at these arguments (the tensor ``leaves`` of its
+    non-static arguments as graph inputs, every other leaf and the static
+    arguments as constants) and compile the graph."""
+    import time
+
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    is_tensor = [isinstance(x, torch.Tensor) for x in leaves]
+    out_box = {}
+
+    def flat_fn(*tensors):
+        it = iter(tensors)
+        full = [next(it) if t else x for x, t in zip(leaves, is_tensor)]
+        dyn, kwargs = pytree.tree_unflatten(full, spec)
+        it = iter(dyn)
+        call = [a if i in static_argnums else next(it)
+                for i, a in enumerate(args)]
+        with tracing(), _dispatch.seeding(seed_sink is not None, seed_sink):
+            out = f(*call, **kwargs)
+        out_leaves, out_box["spec"] = pytree.tree_flatten(out)
+        out_box["consts"] = {i: x for i, x in enumerate(out_leaves)
+                             if not isinstance(x, torch.Tensor)}
+        return [x for x in out_leaves if isinstance(x, torch.Tensor)]
+
+    t0 = time.perf_counter()
+    graph = make_fx(flat_fn, tracing_mode="fake",
+                    _allow_non_fake_inputs=True)(
+        *[x for x, t in zip(leaves, is_tensor) if t])
+    seconds = time.perf_counter() - t0
+    run = torch.compile(graph, **{"dynamic": False, **compile_kwargs})
+    return _Traced(run, graph, out_box["spec"], out_box["consts"], seconds)
+
+
+def compile(fn: Optional[Callable] = None, *, static_argnums=(),
+            donate_argnums=(), seed_cache: bool = False,
+            **compile_kwargs) -> Callable:
+    """Trace-and-compile an eager function (models, train steps, ...).
+
+    Works on any function whose tensor arguments are ``repro_torch.Tensor``
+    / ``torch.Tensor`` or trees (lists, tuples, dicts) of them.  Each
+    call signature (tensor shapes, dtypes and devices, the values of the
+    ``static_argnums`` arguments and of every non-tensor leaf) is traced
+    once and compiled by ``torch.compile(dynamic=False,
+    **compile_kwargs)`` (Inductor unless ``backend=`` says otherwise);
+    later calls of the signature replay it.  Inside the trace the tape
+    is off; use :func:`value_and_grad` to compile a differentiated step.
+    Tensors the function closes over (a module's parameters) are
+    constants of the trace, as under ``jax.jit``: a function of changing
+    weights takes them as arguments.  ``donate_argnums`` is accepted for
+    the reference's signature and donates nothing: PyTorch's caching
+    allocator reuses the memory.
+
+    ``seed_cache=True`` makes the compile dispatch-cache-aware: while the
+    function is traced, every op dispatched with a ``static=`` descriptor
+    seeds its eager dispatch-cache entry (``dispatch.seeding``), once per
+    signature, since the Python runs only while tracing.  The seeded op
+    names are on ``wrapper.seeded_ops``.
+
+    An unhashable static argument runs ``fn`` eagerly (uncached), warns
+    once and bumps the dispatch cache's ``num_fallback_unhashable``
+    counter instead of raising; every other failure raises.  The traced
+    signatures are on ``wrapper._compiled``.
+    """
+    static_argnums = ((static_argnums,) if isinstance(static_argnums, int)
+                      else tuple(static_argnums))
+    del donate_argnums
+
+    def wrap(f: Callable) -> Callable:
+        traced: Dict[Any, _Traced] = {}
+        warned = []
+        seeded_ops: list = []
+
+        @functools.wraps(f)
+        def wrapper(*args, **kwargs):
+            statics = tuple(args[i] for i in static_argnums
+                            if i < len(args))
+            leaves, spec = pytree.tree_flatten(
+                ([a for i, a in enumerate(args) if i not in static_argnums],
+                 kwargs))
+            # tensors key by shape, dtype and device; other leaves and
+            # the statics by value
+            key = (statics, repr(spec), tuple(
+                (tuple(x.shape), x.dtype, x.device)
+                if isinstance(x, torch.Tensor) else (type(x), x)
+                for x in leaves))
+            try:
+                hash(key)
+            except TypeError:
+                key = None
+            if key is None:
+                _dispatch.dispatch_cache().record_fallback("__compile__")
+                if not warned:
+                    warned.append(True)
+                    warnings.warn(
+                        f"repro_torch.compile({f.__name__}): non-hashable "
+                        f"static argument; running uncompiled "
+                        f"(cached counter: num_fallback_unhashable)")
+                return f(*args, **kwargs)
+            entry = traced.get(key)
+            if entry is None:
+                entry = traced[key] = _trace(
+                    f, args, static_argnums, leaves, spec,
+                    seeded_ops if seed_cache else None, compile_kwargs)
+            return entry([x for x in leaves if isinstance(x, torch.Tensor)])
+
+        wrapper._compiled = traced  # signature -> traced, compiled graph
+        wrapper.seeded_ops = seeded_ops  # op names seeded at trace time
+        return wrapper
+
+    if fn is not None:
+        return wrap(fn)
+    return wrap
+
+
+def _raw_output(fn: Callable, has_aux: bool) -> Callable:
+    """``fn`` run as the bridge traces it, its (first) output unwrapped
+    to a torch tensor."""
+    def scalar_fn(*args, **kwargs):
+        with tracing():
+            out = fn(*args, **kwargs)
+        if has_aux:
+            out, aux = out
+            return (out.data if isinstance(out, Tensor) else out), aux
+        return out.data if isinstance(out, Tensor) else out
+
+    return scalar_fn
+
+
+def value_and_grad(fn: Callable, argnums=0, has_aux: bool = False) -> Callable:
+    """Functional gradient of an eager-style function, for the compiled
+    path: ``(value, grads)``, or ``((value, aux), grads)`` with
+    ``has_aux``, as ``jax.value_and_grad`` returns them; grads have the
+    structure of the ``argnums`` arguments (a Tensor's is a Tensor).
+    Differentiation is ``torch.func``'s, not the tape's, as TorchScript
+    code is differentiated by its own engine."""
+    gv = torch.func.grad_and_value(_raw_output(fn, has_aux),
+                                   argnums=argnums, has_aux=has_aux)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        grads, value = gv(*args, **kwargs)
+        return value, grads
+
+    return wrapper
+
+
+def grad(fn: Callable, argnums=0, has_aux: bool = False) -> Callable:
+    """Functional gradient (``torch.func.grad``): ``grads``, or
+    ``(grads, aux)`` with ``has_aux``."""
+    return functools.wraps(fn)(torch.func.grad(
+        _raw_output(fn, has_aux), argnums=argnums, has_aux=has_aux))
 
 
 def block_until_ready(tree: Any) -> Any:
@@ -179,10 +382,12 @@ def _out_aval(name, static, fn, parent_sigs):
 def try_enqueue(name: str, fn: Callable, static, tensors) -> Optional[Tensor]:
     """Defer an elementwise op, returning its pending output tensor —
     or ``None`` when the op must dispatch immediately (fusion off,
-    not elementwise, operands on several devices, or shapes the op
-    refuses: the eager path then reports the error)."""
-    if not fusion_enabled() or name not in ELEMENTWISE_OPS:
-        return None
+    not elementwise, inside the jit bridge's trace, operands on several
+    devices, or shapes the op refuses: the eager path then reports the
+    error)."""
+    if not fusion_enabled() or name not in ELEMENTWISE_OPS or \
+            is_tracing() or torch.compiler.is_compiling():
+        return None  # inside a trace: it takes the op as it comes
     device = tensors[0].device
     if any(t.device != device for t in tensors):
         return None

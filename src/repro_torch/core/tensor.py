@@ -31,8 +31,16 @@ operand's floating dtype) that promote as JAX's weakly typed scalars
 do, and reductions of integers stay int32.
 
 Tensors are placed on ``repro_torch.current_device()`` (CUDA unless a
-``repro_torch.default_device`` scope names another).  The reference's
-tracer and pytree branches have no counterpart: the port has no ``jit``.
+``repro_torch.default_device`` scope names another).
+
+``Tensor`` is a ``torch.utils._pytree`` node (its child the wrapped
+torch tensor), as the reference's is a JAX pytree node, so the jit
+bridge (``fuse.compile``, ``value_and_grad``, ``grad``) and
+``torch.func`` flatten unmodified eager code's arguments and results.
+Inside the bridge's trace (``autograd.is_tracing()``, the reference's
+tracer operands) an op records no tape node, touches no dispatch-cache
+entry (it seeds one under ``dispatch.seeding``), enqueues nothing in the
+fusion queue and does no allocator accounting.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree
 
 from .. import _device
 from . import allocator as _alloc
@@ -53,6 +62,7 @@ from .autograd import (
     VersionCounter,
     backward as _backward,
     is_grad_enabled,
+    is_tracing,
     op_range,
 )
 
@@ -221,8 +231,10 @@ class Tensor:
         self._version = _version if _version is not None else VersionCounter()
         self._base: Optional[Tensor] = None
         self._view_index = None
-        self._storage = _storage if _storage is not None else Storage(
-            _nbytes_of(data), _stream.current_stream().stream_id)
+        if _storage is None and not is_tracing():
+            _storage = Storage(_nbytes_of(data),
+                               _stream.current_stream().stream_id)
+        self._storage = _storage
 
     # -- basic properties ----------------------------------------------
     @property
@@ -884,6 +896,8 @@ def _coerce(x: Any, like: Optional[Tensor] = None,
     if type(x) in (int, float, bool):
         dt = like.dtype if (like is not None and _is_inexact(like.dtype)) \
             else _SCALAR_DTYPES[type(x)]
+        if is_tracing():  # a traced constant must not enter the cache
+            return Tensor(torch.tensor(x, dtype=dt, device=dev))
         key = (type(x), x, dt, dev)
         arr = _scalar_cache.get(key)
         if arr is None:
@@ -913,7 +927,8 @@ def _wrap_outputs(raw, node: Optional[Node]):
             t.grad_fn = node
             t._output_index = i
         tensors.append(t)
-    _stream.current_stream().enqueue(*[t._d for t in tensors])
+    if not is_tracing():
+        _stream.current_stream().enqueue(*[t._d for t in tensors])
     return tensors[0] if single else tuple(tensors)
 
 
@@ -954,14 +969,22 @@ def _apply_op(name: str, fn: Callable, *tensors: Tensor,
 
     datas = [t._data for t in tensors]
     diffable = [i for i, t in enumerate(tensors) if _is_inexact(t.dtype)]
+    tracing = is_tracing()
     needs_grad = (
-        is_grad_enabled()
+        not tracing
+        and is_grad_enabled()
         and any(tensors[i].requires_grad or tensors[i].grad_fn is not None
                 for i in diffable)
     )
 
     entry = None
-    if _dispatch.is_enabled():
+    if tracing:
+        # the dispatch-cache-aware compile: a trace under
+        # ``dispatch.seeding`` pre-creates the eager entries of its ops
+        if cacheable and _dispatch.seeding_enabled() \
+                and _dispatch.is_enabled():
+            _dispatch.seed_op(name, static, datas, fn, diffable)
+    elif _dispatch.is_enabled():
         cache = _dispatch.dispatch_cache()
         if not cacheable:
             if static is not None:
@@ -1304,3 +1327,33 @@ def from_numpy(arr: np.ndarray) -> Tensor:
     """numpy interop (§4.2): shares the buffer on the CPU where dtype and
     layout allow; copies to the card otherwise."""
     return Tensor(_as_torch(torch.from_numpy(np.asarray(arr))))
+
+
+# ----------------------------------------------------------------------
+# pytree registration (the jit bridge and torch.func flatten Tensors)
+# ----------------------------------------------------------------------
+
+def _tensor_flatten(t: Tensor):
+    return [t._data], t.requires_grad
+
+
+def _tensor_unflatten(children, requires_grad) -> Tensor:
+    """A Tensor around a flattened (or traced, or transformed) torch
+    tensor, without allocator accounting, as the reference's unflatten
+    makes one without a storage."""
+    t = Tensor.__new__(Tensor)
+    t._data = children[0]
+    t.requires_grad = requires_grad
+    t.grad = None
+    t.grad_fn = None
+    t._output_index = 0
+    t._version = VersionCounter()
+    t._base = None
+    t._view_index = None
+    t._storage = None
+    return t
+
+
+torch.utils._pytree.register_pytree_node(
+    Tensor, _tensor_flatten, _tensor_unflatten,
+    serialized_type_name="repro_torch.Tensor")

@@ -125,8 +125,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differ.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    on the current stream, or raise; q, k or v not contiguous or not
-    16-byte aligned is copied first (``dense_aligned``)."""
+    on the current stream (through the ``repro_torch::flash_attention``
+    operator), or raise; q, k or v not contiguous or not 16-byte aligned
+    is copied first (``dense_aligned``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window)
@@ -145,6 +146,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_attention_fwd: q/k/v dtypes {q.dtype}/"
                         f"{k.dtype}/{v.dtype} unsupported (one of float32, "
                         f"bfloat16 for all three)")
+    return _flash_launch(q, k, v, float(scale), bool(causal),
+                         int(window) if window else 0)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool, window: int) -> torch.Tensor:
+    """The launch, as one operator: a graph traced by
+    ``repro_torch.compile`` keeps it as one node (its shape function
+    below), which launches the kernel, counted, on every call."""
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
     q, k, v = (dense_aligned(x) for x in (q, k, v))
     check_operands("flash_attention_fwd", q, (q, k, v))
     out = torch.empty_like(q)
@@ -153,10 +167,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _lib().repro_flash_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), bhq, bhkv, sq, skv, float(scale), int(causal),
-             int(window) if window else 0, stream)
+             out.data_ptr(), bhq, bhkv, sq, skv, scale, int(causal), window,
+             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(code {err})")
     counter.bump()
     return out
+
+
+@_flash_launch.register_fake
+def _(q, k, v, scale, causal, window):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -29,6 +29,11 @@ cannot run raises.  Two TPU-isms of the reference are re-derived:
     :func:`paged_attention` never gathers, and the mixed kernel is
     reached through :func:`mixed_attention` itself.
 
+An explicit ``mask`` goes to :func:`sdpa_masked` on every device: torch
+ops (scores, the mask, an fp32 softmax, PV), as the reference computes
+that case in XLA through ``sdpa_ref`` and not in a Pallas kernel, so no
+kernel of the table stands behind it.
+
 The reference's ``_build_mask`` is ``kernels.flash_attention.
 visible_mask``.  Its ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
 sequence sharding across a mesh and is not ported (ROADMAP.md queue A7).
@@ -91,24 +96,54 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(q.dtype))
 
 
+def sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor, is_causal: bool = False,
+                scale: Optional[float] = None,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Attention under an explicit ``mask`` (bool: True is visible; float:
+    added to the logits), broadcastable to (B, Hq, Sq, Skv), on any
+    device, with :func:`sdpa_ref`'s arithmetic: fp32 logits, masked to
+    finfo(float32).min, fp32 softmax, probabilities cast to q's dtype.
+    The query heads of one KV head are taken as one (G * Sq)-row matrix,
+    so K and V are never repeated per query head.  Differentiable."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g * sq, d).float()
+    logits = (torch.matmul(qg, k.float().transpose(-1, -2)) * scale
+              ).reshape(b, hkv, g, sq, skv)
+    low = torch.finfo(torch.float32).min
+    if is_causal or window is not None:
+        visible = FA.visible_mask(sq, skv, is_causal, window, q.device)
+        logits = torch.where(visible, logits, low)
+    mask = mask.reshape((1,) * (4 - mask.dim()) + tuple(mask.shape))
+    if mask.shape[1] == 1:
+        mask = mask.unsqueeze(2)           # one mask for every head
+    else:
+        mask = mask.reshape(mask.shape[0], hkv, g, *mask.shape[2:])
+    if mask.dtype == torch.bool:
+        logits = torch.where(mask, logits, low)
+    else:
+        logits = logits + mask.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(probs.reshape(b, hkv, g * sq, skv), v.to(q.dtype))
+    return out.reshape(b, hq, sq, d)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mask: Optional[torch.Tensor] = None, is_causal: bool = False,
          scale: Optional[float] = None, window: Optional[int] = None,
          backend: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention, q (B, Hq, Sq, D) against k/v (B, Hkv,
     Skv, D), the queries being the last Sq positions, through the flash
-    kernel (differentiable) for every backend.  An explicit ``mask`` has
-    no kernel yet, so on a CUDA tensor it raises and on the CPU it takes
-    the oracle."""
+    kernel (differentiable) for every backend.  An explicit ``mask``
+    takes :func:`sdpa_masked` (torch ops, on every device)."""
     _check_backend("sdpa", backend)
     if mask is None:
         return kops.flash_attention(q, k, v, causal=is_causal, scale=scale,
                                     window=window)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "sdpa with an explicit mask has no CUDA kernel yet (the "
-            "fused/masked attention paths are ROADMAP.md queue A3)")
-    return sdpa_ref(q, k, v, mask, is_causal, scale, window)
+    return sdpa_masked(q, k, v, mask, is_causal, scale, window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,10 +1,10 @@
 """The paper's Table 1 benchmark models, as eager Modules.
 
 Counterpart of ``repro/models/paper_models.py``: AlexNet, VGG-19,
-ResNet-50, MobileNet(v1) — images/sec; NCF (NeuMF) — samples/sec.  Same
-architectures, layer for layer, and the same initializers, so
-``repro_torch.manual_seed(s)`` then ``ResNet50()`` gives the reference's
-weights.  GNMTv2 waits for ``nn/rnn.py`` (ROADMAP.md queue A).
+ResNet-50, MobileNet(v1) — images/sec; GNMTv2 — tokens/sec; NCF (NeuMF)
+— samples/sec.  Same architectures, layer for layer, and the same
+initializers, so ``repro_torch.manual_seed(s)`` then ``ResNet50()``
+gives the reference's weights.
 """
 
 from __future__ import annotations
@@ -181,6 +181,53 @@ class MobileNet(nn.Module):
 
 
 # ----------------------------------------------------------------------
+# GNMTv2 (seq2seq LSTM with attention; tokens/sec benchmark)
+# ----------------------------------------------------------------------
+
+class BahdanauAttention(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.q = nn.Linear(dim, dim, bias=False)
+        self.k = nn.Linear(dim, dim, bias=False)
+        self.v = nn.Linear(dim, 1, bias=False)
+
+    def forward(self, query: Tensor, keys: Tensor) -> Tensor:
+        # query (B, Sq, D), keys (B, Sk, D); with the fusion queue on,
+        # the add -> tanh over (B, Sq, Sk, D) is one fused chain
+        scores = self.v(F.tanh(self.q(query).unsqueeze(2)
+                               + self.k(keys).unsqueeze(1))).squeeze(-1)
+        weights = F.softmax(scores, dim=-1)          # (B, Sq, Sk)
+        return weights @ keys
+
+
+class GNMT(nn.Module):
+    """4-layer encoder (1 bidir) / 4-layer decoder with attention —
+    GNMTv2 structure at configurable width."""
+
+    def __init__(self, vocab: int = 32000, hidden: int = 1024,
+                 layers: int = 4):
+        super().__init__()
+        self.embed_src = nn.Embedding(vocab, hidden)
+        self.embed_tgt = nn.Embedding(vocab, hidden)
+        self.enc_bidir = nn.LSTM(hidden, hidden, 1, bidirectional=True)
+        self.enc_proj = nn.Linear(2 * hidden, hidden, bias=False)
+        self.enc_stack = nn.LSTM(hidden, hidden, layers - 1)
+        self.attention = BahdanauAttention(hidden)
+        self.dec_stack = nn.LSTM(2 * hidden, hidden, layers)
+        self.out = nn.Linear(hidden, vocab)
+
+    def forward(self, src: Tensor, tgt: Tensor) -> Tensor:
+        enc = self.embed_src(src)
+        enc, _ = self.enc_bidir(enc)
+        enc = self.enc_proj(enc)
+        enc, _ = self.enc_stack(enc)
+        dec_in = self.embed_tgt(tgt)
+        ctx = self.attention(dec_in, enc)            # (B, St, D)
+        dec, _ = self.dec_stack(T.cat([dec_in, ctx], dim=-1))
+        return self.out(dec)
+
+
+# ----------------------------------------------------------------------
 # NCF / NeuMF (samples/sec benchmark)
 # ----------------------------------------------------------------------
 
@@ -210,5 +257,6 @@ PAPER_MODELS = {
     "vgg19": VGG19,
     "resnet50": ResNet50,
     "mobilenet": MobileNet,
+    "gnmt": GNMT,
     "ncf": NCF,
 }

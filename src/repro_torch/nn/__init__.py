@@ -1,6 +1,6 @@
 """repro_torch.nn — torch.nn-shaped neural network API (counterpart of
-``repro.nn``).  The recurrent layers (``nn/rnn.py``: LSTM, LSTMCell) are
-not ported yet (ROADMAP.md queue A)."""
+``repro.nn``), the recurrent layers (``nn/rnn.py``: LSTM, LSTMCell)
+included."""
 
 from . import functional
 from .layers import (
@@ -35,3 +35,4 @@ from .module import (
     functional_call,
     param_dict,
 )
+from .rnn import LSTM, LSTMCell

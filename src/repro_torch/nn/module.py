@@ -14,7 +14,10 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
-from ..core.tensor import Tensor, _as_torch
+import torch.utils._pytree
+
+from ..core.tensor import Tensor, _as_torch, _tensor_flatten, \
+    _tensor_unflatten
 from ..core.autograd import no_grad
 
 
@@ -29,6 +32,13 @@ class Parameter(Tensor):
 
     def __repr__(self):
         return "Parameter containing:\n" + super().__repr__()
+
+
+# a Parameter flattens as a Tensor does (``named_parameters()`` passed to
+# the jit bridge or ``torch.func``); it unflattens to a Tensor
+torch.utils._pytree.register_pytree_node(
+    Parameter, _tensor_flatten, _tensor_unflatten,
+    serialized_type_name="repro_torch.nn.Parameter")
 
 
 class Module:

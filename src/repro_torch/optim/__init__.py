@@ -10,15 +10,19 @@ enqueues nothing in the fusion queue.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import math
+from typing import Any, Callable, Dict, List
+
+import torch
 
 from ..core import dispatch as _dispatch
 from ..core.autograd import no_grad, op_range
 from . import functional as OF
 from .functional import clip_by_global_norm, global_norm, make_optimizer
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "clip_by_global_norm",
-           "global_norm", "make_optimizer"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "Adafactor",
+           "clip_by_global_norm", "cosine_schedule", "global_norm",
+           "make_optimizer"]
 
 
 class Optimizer:
@@ -197,3 +201,36 @@ class AdamW(Optimizer):
                                       decoupled=True,
                                       state_dtype=state_dtype), "adamw",
                          foreach=foreach)
+
+
+class Adafactor(Optimizer):
+    """Memory-factored Adam variant: second moments stored as row/col
+    factors for 2-D parameters (sublinear optimizer state)."""
+
+    def __init__(self, params, lr: float = 1e-2, decay: float = 0.8,
+                 clip_threshold: float = 1.0, weight_decay: float = 0.0,
+                 foreach: bool = True):
+        super().__init__(params, dict(lr=lr, decay=decay,
+                                      clip_threshold=clip_threshold,
+                                      weight_decay=weight_decay),
+                         "adafactor", foreach=foreach)
+
+
+# -- LR schedules -------------------------------------------------------
+
+def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                    min_ratio: float = 0.1) -> Callable[[Any], Any]:
+    """Linear warmup then cosine decay to ``min_ratio * base_lr``;
+    returns a ``step -> lr`` function giving a 0-d fp32 tensor, computed
+    in fp32 as the reference's is."""
+    def f(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        warm = base_lr * step / max(warmup_steps, 1)
+        progress = (step - warmup_steps) / max(total_steps - warmup_steps,
+                                               1)
+        progress = torch.clamp(progress, 0.0, 1.0)
+        cos = min_ratio + (1 - min_ratio) * 0.5 * (
+            1 + torch.cos(math.pi * progress))
+        return torch.where(step < warmup_steps, warm, base_lr * cos)
+
+    return f

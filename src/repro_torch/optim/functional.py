@@ -1,8 +1,8 @@
 """Functional optimizer cores: ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, state)`` pairs.
 
-Counterpart of ``repro/optim/functional.py`` for SGD and Adam/AdamW,
-with the same update math and the same state layout.  "Trees" here are
+Counterpart of ``repro/optim/functional.py`` for SGD, Adam/AdamW and
+Adafactor, with the same update math and the same state layout.  "Trees" here are
 a tensor, or a list, tuple or dict of them (the reference's pytrees).
 
 **Foreach variants**: ``sgd_update_foreach`` / ``adam_update_foreach``
@@ -11,9 +11,9 @@ update math to one concatenated raveled buffer per bucket, then split
 back — identical math (elementwise, so concatenation is exact) and the
 per-leaf state structure.  They are plain torch ops: the reference's
 foreach step is its own XLA program, and ``torch._foreach_*`` is a
-library kernel, so neither is used.
-
-Not ported yet: Adafactor, ``cosine_schedule`` (ROADMAP.md queue A).
+library kernel, so neither is used.  Adafactor's factored second moment
+is not elementwise over a concatenated buffer, so its foreach step is
+its per-leaf update over the whole list, as in the reference.
 """
 
 from __future__ import annotations
@@ -123,6 +123,78 @@ def adam_update(grads, state, params, *, lr: float, betas=(0.9, 0.999),
 
 
 # ----------------------------------------------------------------------
+# Adafactor (factored second moment)
+# ----------------------------------------------------------------------
+
+def adafactor_init(params, **_):
+    def fac(p):
+        if p.dim() >= 2:
+            return {"row": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                       device=p.device),
+                    "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                       dtype=torch.float32,
+                                       device=p.device)}
+        return {"v": torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)}
+
+    return {"fac": tree_map(fac, params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=tree_leaves(params)[0].device)}
+
+
+def _map_up_to(f, grads, params, fac):
+    """``f(g, p, f_leaf) -> (update, new_f_leaf)`` over the leaves of
+    ``grads``, with ``fac`` read at the same positions (each of its
+    leaves a dict of factors: the reference's ``flatten_up_to``).
+    Returns (updates tree, new fac tree)."""
+    if isinstance(grads, dict):
+        pairs = {k: _map_up_to(f, grads[k], params[k], fac[k])
+                 for k in grads}
+        return ({k: u for k, (u, _) in pairs.items()},
+                {k: n for k, (_, n) in pairs.items()})
+    if isinstance(grads, (list, tuple)):
+        pairs = [_map_up_to(f, g, p, s)
+                 for g, p, s in zip(grads, params, fac)]
+        return (type(grads)(u for u, _ in pairs),
+                type(grads)(n for _, n in pairs))
+    return f(grads, params, fac)
+
+
+def adafactor_update(grads, state, params, *, lr: float,
+                     decay: float = 0.8, eps: float = 1e-30,
+                     clip_threshold: float = 1.0,
+                     weight_decay: float = 0.0, **_):
+    step = state["step"] + 1
+    beta2 = 1.0 - step.float() ** (-decay)
+
+    def leaf(g, p, f):
+        g32 = g.float()
+        sq = torch.square(g32) + eps
+        if g.dim() >= 2:
+            row = beta2 * f["row"] + (1 - beta2) * sq.mean(dim=-1)
+            col = beta2 * f["col"] + (1 - beta2) * sq.mean(dim=-2)
+            row_mean = row.mean(dim=-1, keepdim=True)
+            vhat = (row[..., :, None]
+                    / torch.clamp(row_mean[..., None], min=eps)
+                    ) * col[..., None, :]
+            new_f = {"row": row, "col": col}
+        else:
+            vhat = beta2 * f["v"] + (1 - beta2) * sq
+            new_f = {"v": vhat}
+        u = g32 / torch.sqrt(torch.clamp(vhat, min=eps))
+        # update clipping (Adafactor's RMS rule)
+        rms = torch.sqrt(torch.mean(torch.square(u)))
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        u = -lr * u
+        if weight_decay:
+            u = u - lr * weight_decay * p.float()
+        return u.to(p.dtype), new_f
+
+    updates, fac = _map_up_to(leaf, grads, params, state["fac"])
+    return updates, {"fac": fac, "step": step}
+
+
+# ----------------------------------------------------------------------
 # fused multi-tensor ("foreach") updates
 # ----------------------------------------------------------------------
 
@@ -217,10 +289,13 @@ def adam_update_foreach(grads, state, params, *, lr: float,
     return updates, {"m": new_m, "v": new_v, "step": step}
 
 
+# Adafactor's "foreach" step is its per-leaf update over the whole list
+# (its factored moments are not elementwise over a concatenated buffer)
 FOREACH_UPDATES: Dict[str, Callable] = {
     "sgd": sgd_update_foreach,
     "adam": adam_update_foreach,
     "adamw": adam_update_foreach,
+    "adafactor": adafactor_update,
 }
 
 _FOREACH_STEPS: Dict[Tuple, Callable] = {}
@@ -269,6 +344,7 @@ OPTIMIZERS: Dict[str, Tuple[Callable, Callable]] = {
     "sgd": (sgd_init, sgd_update),
     "adam": (adam_init, adam_update),
     "adamw": (adam_init, adam_update),
+    "adafactor": (adafactor_init, adafactor_update),
 }
 
 

@@ -5,10 +5,10 @@ tape (``tests/test_autograd.py``) and numeric gradient checks of the
 ``torch.nn.functional`` where the reference's is ``jax.grad`` and
 ``jax.nn``.
 
-Left out: ``test_multi_output_node`` (needs ``nn.LSTM``, not ported) and
-``TestCompiledPath`` (``repro.compile`` / ``value_and_grad``, not
-ported); the dropout collision draws its masks from a
-``torch.Generator`` where the reference takes a JAX key.
+``test_multi_output_node`` is in ``test_torch_rnn.py`` (beside the
+LSTM it needs) and ``TestCompiledPath`` in ``test_torch_compile.py``
+(with the rest of the jit bridge).  The dropout collision draws its
+masks from a ``torch.Generator`` where the reference takes a JAX key.
 """
 
 import numpy as np

@@ -4,10 +4,9 @@
 CPU, plus the dispatch-cache counts of one program held equal to the
 reference's.
 
-Left out: ``test_compile_unhashable_static_falls_back`` and
-``test_fusion_inside_jit_is_bypassed`` (``repro.compile`` is not
-ported), the ``Adafactor`` case of ``test_foreach_equivalent_to_perleaf``
-(not ported).  ``test_pallas_interpret_matches_composite`` becomes the
+``test_compile_unhashable_static_falls_back`` and
+``test_fusion_inside_jit_is_bypassed`` are in ``test_torch_compile.py``
+with the rest of the jit bridge.  ``test_pallas_interpret_matches_composite`` becomes the
 plain version of the port's kernel on the same composite (the Pallas
 kernel itself is held against it in ``test_torch_fuse.py``).
 """
@@ -271,6 +270,7 @@ class TestForeachOptimizers:
                      weight_decay=1e-4)),
         ("Adam", dict(lr=1e-3)),
         ("AdamW", dict(lr=1e-3, weight_decay=0.01)),
+        ("Adafactor", dict(lr=1e-2)),
     ])
     def test_foreach_equivalent_to_perleaf(self, opt_cls, kw):
         fe = self._run(opt_cls, True, **kw)

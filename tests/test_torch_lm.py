@@ -223,7 +223,7 @@ def test_unported_features_raise():
 
 def test_sdpa_backends_and_mask_on_cpu():
     """Every backend matches the oracles called by name on the CPU; an
-    explicit mask takes the oracle there and matches the reference's
+    explicit mask takes sdpa_masked there and matches the reference's
     sdpa_ref with the same mask; unknown backends raise."""
     rng = np.random.default_rng(15)
     q = rng.standard_normal((2, 4, 9, 16)).astype(np.float32)

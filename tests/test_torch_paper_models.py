@@ -1,7 +1,8 @@
 """The paper's models on the port's eager runtime against the JAX
 package: the same seed gives the same weights, and one training step
-(train mode, fusion on, SGD with momentum) gives the same loss, logits,
-gradients, running statistics and updated parameters.
+(train mode, fusion on, SGD with momentum; Adafactor for GNMT) gives
+the same loss, logits, gradients, running statistics and updated
+parameters.
 
 Weights cross by ``state_dict`` as numpy arrays
 (``torch_port_helpers.load_reference_state``) where a test builds them
@@ -38,6 +39,9 @@ from torch_port_helpers import cuda_device, load_reference_state, \
     port_cpu, requires_cuda  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("port_cpu")
+
+
+GNMT_KW = dict(vocab=64, hidden=16, layers=2)
 
 
 def bottleneck(nn, P, downsample: bool):
@@ -92,13 +96,14 @@ def test_bottleneck_step_matches_reference(downsample, fused):
 
 
 @pytest.mark.parametrize("name", ["resnet50", "mobilenet", "alexnet",
-                                  "vgg19", "ncf"])
+                                  "vgg19", "ncf", "gnmt"])
 def test_same_seed_gives_the_reference_weights(name):
     """Every factory draws from one host numpy generator in both
     packages, so ``manual_seed(s)`` then the constructor gives equal
     weights, bit for bit."""
-    kw = {"ncf": dict(n_users=50, n_items=40)}.get(name, {})
-    if name != "ncf":
+    kw = {"ncf": dict(n_users=50, n_items=40),
+          "gnmt": dict(GNMT_KW)}.get(name, {})
+    if name not in ("ncf", "gnmt"):
         kw["num_classes"] = 10
     repro.manual_seed(3)
     jm = JPM.PAPER_MODELS[name](**kw)
@@ -161,6 +166,51 @@ def test_resnet50_training_step_matches_reference():
     params = [k for k, _ in jm.named_parameters()]
     assert rel_l2({k: np.asarray(js[k]) for k in params},
                   {k: ts[k] for k in params}) <= 5e-2
+
+
+def gnmt_step(P, F, O, model, src, tgt, fused=True):
+    """One GNMT training step: the logits of the teacher-forced
+    ``tgt[:, :-1]``, cross-entropy against ``tgt[:, 1:]``, backward on
+    the tape, one Adafactor step.  Returns (loss, logits, grads by
+    name)."""
+    opt = O.Adafactor(list(model.parameters()), lr=1e-2)
+    with P.fuse.fusion(fused):
+        logits = model(P.tensor(src), P.tensor(tgt[:, :-1]))
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               P.tensor(tgt[:, 1:].reshape(-1)))
+        loss.backward()
+    grads = {k: np.asarray(p.grad.numpy())
+             for k, p in model.named_parameters()}
+    opt.step()
+    return float(loss.item()), np.asarray(logits.numpy()), grads
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_gnmt_training_step_matches_reference(fused):
+    """GNMT (vocab 64, hidden 16, 2 layers), B=2, 6 source and 7 target
+    tokens, one step with the fusion queue on or off in the port (on in
+    the reference): loss within 1e-5 relative, logits within 1e-5 of
+    their RMS, gradients and the Adafactor-updated parameters within
+    1e-5 relative L2 over the model (fp32 throughout; the LSTMs' sums
+    run in different orders on the two sides)."""
+    repro.manual_seed(8)
+    jm = JPM.GNMT(**GNMT_KW)
+    tm = TPM.GNMT(**GNMT_KW)
+    load_reference_state(tm, jm)
+    rng = np.random.default_rng(9)
+    src = rng.integers(0, 64, (2, 6)).astype(np.int32)
+    tgt = rng.integers(0, 64, (2, 7)).astype(np.int32)
+    jl, jlog, jg = gnmt_step(repro, JF, JO, jm, src, tgt)
+    rt.reset_dispatch_cache()
+    tl, tlog, tg = gnmt_step(rt, TF, TO, tm, src, tgt, fused)
+    fused_ops = rt.dispatch_cache_stats()["per_op"].get("__fused__")
+    assert (fused_ops is not None) == fused
+    assert tlog.shape == (2, 6, 64)
+    assert abs(tl - jl) <= 1e-5 * abs(jl)
+    assert np.abs(tlog - jlog).max() <= 1e-5 * np.sqrt((jlog ** 2).mean())
+    assert rel_l2(jg, tg) <= 1e-5
+    js, ts = state(jm), state(tm)
+    assert rel_l2({k: np.asarray(v) for k, v in js.items()}, ts) <= 1e-5
 
 
 @requires_cuda
