@@ -50,7 +50,14 @@ through the port's eager runtime, and runs its compiled path:
     chain, one fused launch a step); the jit bridge
     (``repro_torch.compile``: ResNet-50's eval forward, an NCF
     ``value_and_grad`` step, SDPA through the flash kernel's custom op,
-    a fused chain bypassed); masked SDPA on the card.
+    a fused chain bypassed); masked SDPA on the card;
+  * LM training: ``data.DataLoader`` over ``SyntheticLMDataset`` with
+    and without pinned staging on its copy stream; gemma-2b (bf16,
+    remat "full", AdamW, 4 x 1024 tokens) through ``train_loop`` (the
+    flash kernel in every layer's forward and again in its recompute);
+    fp32 SMOKE gemma, jamba and rwkv6 training steps on the card
+    against the CPU (flash, Mamba and WKV6 kernels); a restart through
+    ``checkpoint.CheckpointManager``.
 
 Each run shows that it went through its kernels: the launch counts are
 zeroed just before it and read just after, and must equal what the
@@ -132,6 +139,13 @@ Output, one line each:
     accounting allocator's peak beside PyTorch's, the first and last
     loss) and ``eager_parity`` (fusion off against on; a small ResNet-50
     on the card against the CPU);
+  * ``data_loader`` (pinned batches equal to unpinned ones, batches/s
+    of both, staged bytes, the copy stream), ``lm_train`` (ms a step,
+    the median after step 2; target tokens/s; peak memory; every loss
+    and grad norm; 36 flash launches a step), ``lm_train_parity`` (per
+    model: loss, gradients and 3 SGD steps card against CPU, the fall
+    over 20 steps), ``lm_restart`` (3 steps after a restart, a bit-exact
+    restore, the async save's stall);
   * ``gnmt_train`` (target tokens/s, ms a step, fused launches a step,
     peak memory, the loss at steps 1 and 10), ``gnmt_parity`` (a GNMT of
     hidden 256 on the card against the CPU), ``compiled_path`` (compiled
@@ -157,7 +171,10 @@ Output, one line each:
     ``rwkv6_scan_profile``: the WKV6 rows' device us a call;
     ``mamba_scan_profile``: the Mamba rows' device us a launch, device
     launches a call and waves; ``fused_elementwise_profile``: the fused
-    rows' device us a call) and ``gnmt_train_profile`` (one GNMT step:
+    rows' device us a call), ``lm_train_profile`` (one gemma-2b train
+    step: device ms of matmul, flash forward, flash backward, loss,
+    optimizer and the rest; idle share, peak memory; the flash
+    backward's ms and memory alone) and ``gnmt_train_profile`` (one GNMT step:
     device time by kernel group, idle share), last,
     because a profiler session slows the host for the timed runs after
     it;
@@ -173,8 +190,9 @@ Output, one line each:
     attention and Gumbel, dense
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
-    fused-elementwise kernel, paged_vs_gathered for mixed attention) and
-    its numbers at that path's shapes;
+    fused-elementwise kernel, paged_vs_gathered for mixed attention;
+    the flash entry adds ``lm_train``'s launches) and its numbers at
+    that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -297,6 +315,25 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # scan, the MoE and the attention in prefill against decode
 JAMBA_LAYERS = 5
 JAMBA_PARITY_PATTERN = (("mamba", "moe"), ("attn", "dense"))
+# LM training.  lm_train: gemma-2b CONFIG at full width and depth (bf16,
+# remat "full") through train_loop, AdamW at the reference's lr and clip,
+# 10 steps of 4 x 1024 tokens; data_loader stages LOADER_BATCHES batches
+# of that shape
+LM_TRAIN_SHAPE = (4, 1024)
+LM_TRAIN_STEPS = 10
+LM_TRAIN_LR = 3e-4
+LOADER_BATCHES = 32
+# lm_train_parity: fp32 SMOKE models (remat "full") on the card against
+# the same code on the CPU: one loss and its gradients, then SGD steps on
+# one repeated (4, 64) batch
+LM_PARITY_SHAPE = (4, 64)
+LM_PARITY_LR = 0.1
+LM_PARITY_TOL = {"loss": 1e-5, "grads": 1e-4, "steps": 1e-4}
+LM_PARITY_STEPS = 20
+# the least fall of the loss over LM_PARITY_STEPS SGD steps: half of the
+# fall the same steps give on the CPU (gemma 0.5942, jamba 2.6145, rwkv6
+# 3.1302, from 5.5542 / 5.4101 / 5.3061; PERF.md §5)
+LM_PARITY_FALL = {"gemma": 0.2971, "jamba": 1.3072, "rwkv6": 1.5651}
 
 # gemma-2b serving shapes
 PAGE_SIZE = 16
@@ -3471,6 +3508,440 @@ def free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# LM training: the data loader, train_loop at full width, the profiled
+# step, parity against the CPU, restart
+# ----------------------------------------------------------------------
+
+def phase_data_loader(torch, dev) -> None:
+    """``SyntheticLMDataset(256000, 1024)`` through ``DataLoader`` (batch
+    4, 2 workers, shuffled with seed 0) onto the card, with and without
+    pinned staging, two passes of ``LOADER_BATCHES`` batches each (the
+    second timed): the batches equal bit for bit; every staging buffer
+    was page-locked and every copy was issued on the loader's copy
+    stream, not the default one."""
+    from repro_torch.core import allocator
+    from repro_torch.data import DataLoader, SyntheticLMDataset
+
+    b, s = LM_TRAIN_SHAPE
+    ds = SyntheticLMDataset(256000, s, seed=0)
+
+    def run(pin: bool):
+        # two passes over the same batches: the second is timed (the
+        # first starts the worker threads and fills the pinned pool)
+        dl = DataLoader(ds, batch_size=b, shuffle=True, seed=0,
+                        num_workers=2, pin_memory=pin)
+        for _ in range(2):
+            it, out = iter(dl), []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LOADER_BATCHES):
+                tokens, labels = next(it)
+                out.append((tokens.data, labels.data))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            it.close()
+        return dl, out, wall
+
+    host0 = allocator.host_allocator().memory_stats()
+    _, plain, plain_s = run(False)
+    dl, pinned, pinned_s = run(True)
+    host1 = allocator.host_allocator().memory_stats()
+    equal = all(torch.equal(a, c) and torch.equal(b_, d)
+                for (a, b_), (c, d) in zip(plain, pinned))
+    st = dl.staging
+    copy_id = dl._copy_stream.cuda_stream().stream_id
+    default_id = torch.cuda.default_stream().stream_id
+    emit({"phase": "data_loader", "dataset": "SyntheticLMDataset",
+          "vocab": 256000, "batch": b, "seq": s, "workers": 2,
+          "batches": LOADER_BATCHES,
+          "unpinned_batches_per_s": LOADER_BATCHES / plain_s,
+          "pinned_batches_per_s": LOADER_BATCHES / pinned_s,
+          "staged_copies": st.copies, "staged_bytes": st.bytes,
+          "all_pinned": st.all_pinned, "copy_streams": sorted(st.streams),
+          "copy_stream": copy_id, "default_stream": default_id,
+          "host_allocator_blocks": host1["num_cache_hits"]
+          - host0["num_cache_hits"] + host1["num_cache_misses"]
+          - host0["num_cache_misses"],
+          "host_allocator_peak_bytes_active": host1["peak_bytes_active"],
+          "pinned_equal_unpinned": equal})
+    if not equal or len(pinned) != LOADER_BATCHES:
+        raise AssertionError("data_loader: pinned batches differ from the "
+                             "unpinned ones")
+    if st.copies != 4 * LOADER_BATCHES or \
+            st.bytes != 4 * LOADER_BATCHES * b * s * 4 or \
+            not st.all_pinned or st.streams != {copy_id} or \
+            copy_id == default_id:
+        raise AssertionError(f"data_loader: the staging path did not run "
+                             f"as designed: {st}, copy stream {copy_id}, "
+                             f"default {default_id}")
+
+
+def lm_param_count(cfg) -> int:
+    """Parameters of an attn/dense LM config (embedding included)."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    mlp = (3 if cfg.gated_mlp else 2) * d * cfg.d_ff
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
+    return cfg.vocab_size * d + cfg.n_layers * (attn + mlp + 2 * d) + d + \
+        head
+
+
+def phase_lm_train(torch, dev) -> dict:
+    """gemma-2b at full width and depth (bf16, remat "full") trained for
+    ``LM_TRAIN_STEPS`` steps through ``train_loop`` (AdamW, lr 3e-4,
+    clip 1.0, batches of 4 x 1024 from the data loader): every loss and
+    grad norm finite, and exactly 2 x 18 flash launches a step (the
+    forward, then the remat recompute in the backward pass), no other
+    kernel.  Returns the run's launch counts."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.launch.train import train_loop
+
+    cfg = gemma_2b.CONFIG
+    b, s = LM_TRAIN_SHAPE
+    per_step = {k: 2 * n for k, n in launches_per_pass(cfg, False).items()}
+    want = {k: n * LM_TRAIN_STEPS for k, n in per_step.items()}
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = check_launches(
+        torch, "the lm_train run",
+        lambda: train_loop(cfg, steps=LM_TRAIN_STEPS, batch_size=b,
+                           seq_len=s, optimizer="adamw", lr=LM_TRAIN_LR,
+                           log_every=LM_TRAIN_STEPS, seed=0, device=dev),
+        want)
+    times = res["step_times_s"]
+    ms = sorted(times[2:])[len(times[2:]) // 2] * 1e3
+    finite = all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])
+    params = lm_param_count(cfg)
+    emit({"phase": "lm_train", "model": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": f"{cfg.n_heads}x{cfg.hd}",
+          "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size,
+          "dtype": "bfloat16", "remat": cfg.remat, "params": params,
+          "batch": b, "seq": s, "optimizer": "adamw", "lr": LM_TRAIN_LR,
+          "grad_clip": 1.0, "steps": res["steps"],
+          "first_step_s": times[0], "ms_per_step": ms,
+          "step_ms": [t * 1e3 for t in times],
+          "target_tokens_per_s": b * s / (ms / 1e3),
+          "model_tflops_per_s": 8 * params * b * s / (ms / 1e3) / 1e12,
+          "peak_mem_gb": peak_gb(torch), "losses": res["losses"],
+          "grad_norms": res["grad_norms"], "launches": counts,
+          "flash_launches_per_step": counts["flash_attention"]
+          / LM_TRAIN_STEPS})
+    if res["steps"] != LM_TRAIN_STEPS or not finite:
+        raise AssertionError(f"lm_train: {res['steps']} steps, losses "
+                             f"{res['losses']}, norms {res['grad_norms']}")
+    free(torch)
+    return counts
+
+
+LOSS_GROUP, OPT_GROUP = "loss_and_log_softmax", "optimizer"
+BACKWARD_EVENT = "autograd::engine::evaluate_function: "
+
+
+def lm_train_device_time(prof) -> dict:
+    """Device ms of one profiled train step by group: the flash kernel
+    (forward and remat recompute) by its name; the kernels under a
+    ``_FlashAttentionBackward`` autograd node (the plain version's ops
+    the backward differentiates); the loss's own ops (inside
+    ``lm.LOSS_RANGE``) and their backward nodes, matched by sequence
+    number; the clip and the optimizer update (``train.OPT_RANGE``);
+    then matmuls by kernel name and everything else.  Kernels the
+    profiler links to no host op are ``unlinked``."""
+    from repro_torch.launch.train import OPT_RANGE
+    from repro_torch.models.lm import LOSS_RANGE
+
+    events = prof.events()
+    loss_ops = set()
+
+    def mark(ev, inside: bool) -> None:
+        inside = inside or ev.name == LOSS_RANGE
+        if inside and ev.sequence_nr >= 0:
+            loss_ops.add((ev.thread, ev.sequence_nr))
+        for child in ev.cpu_children:
+            mark(child, inside)
+
+    for ev in events:
+        if ev.cpu_parent is None:
+            mark(ev, False)
+
+    def context(ev):
+        up = ev
+        while up is not None:          # ranges first, then loss nodes
+            if up.name == OPT_RANGE:
+                return OPT_GROUP
+            if up.name == LOSS_RANGE:
+                return LOSS_GROUP
+            if up.name.startswith(BACKWARD_EVENT) and \
+                    "_FlashAttentionBackward" in up.name:
+                return "flash_backward"
+            up = up.cpu_parent
+        up = ev
+        while up is not None:
+            if up.name.startswith(BACKWARD_EVENT) and (
+                    getattr(up, "fwd_thread", up.thread),
+                    up.sequence_nr) in loss_ops:
+                return LOSS_GROUP
+            up = up.cpu_parent
+        return None
+
+    groups, calls, linked = {}, {}, {}
+    for ev in events:
+        if not ev.kernels:
+            continue
+        ctx = context(ev)
+        for k in ev.kernels:
+            g = "flash_forward" if "flash_attention" in k.name else \
+                ctx or _kernel_group(k.name)
+            if g not in ("flash_forward", "flash_backward", LOSS_GROUP,
+                         OPT_GROUP, "matmul"):
+                g = "other"
+            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+            calls[g] = calls.get(g, 0) + 1
+            linked[k.name] = linked.get(k.name, 0.0) + k.duration / 1e3
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if not us or "CUDA" not in str(ev.device_type) or \
+                ev.key in (LOSS_RANGE, OPT_RANGE, MOE_RANGE):
+            continue
+        rest = us / 1e3 - linked.get(ev.key, 0.0)
+        if rest > 1e-3:
+            groups["unlinked"] = groups.get("unlinked", 0.0) + rest
+    return {"ms": groups, "calls": calls}
+
+
+def profile_lm_train(torch, dev) -> None:
+    """One lm_train step (gemma-2b, full width and depth, the same
+    batch shape) under ``torch.profiler``: device ms by group, the idle
+    share of the step's wall clock and the peak memory; then the flash
+    backward alone at the step's shapes: its device ms a call and the
+    memory it adds above its inputs (the plain version's score
+    tensors)."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = gemma_2b.CONFIG
+    b, s = LM_TRAIN_SHAPE
+    ds = SyntheticLMDataset(cfg.vocab_size, s, seed=0)
+    import numpy as np
+    items = [ds[i] for i in range(b)]
+    batch = {"tokens": torch.from_numpy(np.stack([t for t, _ in items])),
+             "labels": torch.from_numpy(np.stack([l for _, l in items]))}
+    state = init_train_state(cfg, optimizer="adamw", lr=LM_TRAIN_LR,
+                             device=dev)
+    step = make_train_step(cfg, optimizer="adamw", lr=LM_TRAIN_LR,
+                           device=dev)
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = peak_gb(torch)
+    loss = float(m["loss"])
+    by = lm_train_device_time(prof)
+    busy = sum(by["ms"].values())
+    del state, step, m, prof
+    free(torch)
+
+    # the flash backward alone: q (4, 8, 1024, 256), k/v (4, 1, 1024, 256)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    q = torch.randn(b, cfg.n_heads, s, cfg.hd, device=dev, generator=gen,
+                    dtype=torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(b, cfg.n_kv_heads, s, cfg.hd, device=dev,
+                        generator=gen, dtype=torch.bfloat16
+                        ).requires_grad_() for _ in range(2))
+    out = kops.flash_attention(q, k, v, causal=True)
+    grad = torch.randn_like(out)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+    torch.cuda.synchronize()
+    bwd_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), grad, retain_graph=True), reps=10, warmup=2)
+    emit({"phase": "lm_train_profile", "model": cfg.name,
+          "layers": cfg.n_layers, "batch": b, "seq": s, "steps": 1,
+          "wall_ms": wall * 1e3, "device_ms_by_group": by["ms"],
+          "device_calls_by_group": by["calls"], "device_busy_ms": busy,
+          "device_idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
+          "flash_backward_share_of_busy":
+              by["ms"].get("flash_backward", 0.0) / busy,
+          "peak_mem_gb": peak, "loss": loss,
+          "flash_backward_call_ms": bwd_ms,
+          "flash_backward_transient_gb": bwd_gb,
+          "flash_backward_share_of_peak": bwd_gb / peak})
+    del q, k, v, out, grad
+    free(torch)
+
+
+def parity_models(torch):
+    """The three SMOKE configs at fp32 with remat "full"."""
+    from repro_torch.configs import gemma_2b, jamba_1_5_large_398b, \
+        rwkv6_1_6b
+
+    return (("gemma", gemma_2b.SMOKE), ("jamba", jamba_1_5_large_398b.SMOKE),
+            ("rwkv6", rwkv6_1_6b.SMOKE))
+
+
+def phase_lm_train_parity(torch, dev) -> None:
+    """fp32 gemma (2 layers), jamba (mamba, MoE with its aux loss,
+    attention) and rwkv6 SMOKE models, remat "full", the same weights and
+    (4, 64) batch on the card and on the CPU: ``lm_loss`` within 1e-5
+    relative and its gradients within 1e-4 relative L2; then 3 SGD steps
+    of ``make_train_step`` within 1e-4 relative, and 20 on the card on
+    the repeated batch, whose loss must fall by ``LM_PARITY_FALL``.  Each
+    card run launches its mixer kernels exactly twice a layer a pass
+    (forward and recompute) and no other kernel (decode, paged and mixed
+    attention 0)."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.functional import (make_optimizer, tree_leaves,
+                                              tree_map)
+
+    b, s = LM_PARITY_SHAPE
+    for name, smoke in parity_models(torch):
+        cfg = dataclasses.replace(smoke, remat="full")
+        params = LM.init_params(cfg, seed=0, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                             generator=torch.Generator().manual_seed(5))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        per_pass = {k: 2 * n for k, n in launches_per_pass(cfg, False).items()}
+
+        def grads(device):
+            tree = tree_map(lambda x: x.detach().to(device)
+                            .requires_grad_(), params)
+            leaves = tree_leaves(tree)
+            loss = LM.lm_loss(cfg, tree, {k: v.to(device)
+                                          for k, v in batch.items()})
+            g = torch.autograd.grad(loss, leaves)
+            return loss.item(), [x.cpu() for x in g]
+
+        def steps(device, n):
+            # a copy: the step updates it in place
+            p = tree_map(lambda x: x.to(device, copy=True), params)
+            state = {"params": p,
+                     "opt": make_optimizer("sgd", lr=LM_PARITY_LR)[0](p),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
+            step = make_train_step(cfg, optimizer="sgd", lr=LM_PARITY_LR,
+                                   device=device)
+            return [float(step(state, batch)[1]["loss"]) for _ in range(n)]
+
+        cpu_loss, cpu_g = grads("cpu")
+        (card_loss, card_g), c1 = check_launches(
+            torch, f"the lm_train_parity {name} gradients",
+            lambda: grads(dev), per_pass)
+        cpu_steps = steps("cpu", 3)
+        card_steps, c2 = check_launches(
+            torch, f"the lm_train_parity {name} steps",
+            lambda: steps(dev, LM_PARITY_STEPS),
+            {k: n * LM_PARITY_STEPS for k, n in per_pass.items()})
+        loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        num = sum(float((x - y).double().pow(2).sum())
+                  for x, y in zip(card_g, cpu_g))
+        den = sum(float(y.double().pow(2).sum()) for y in cpu_g)
+        grad_rel = (num / den) ** 0.5
+        step_rel = max(abs(a - c) / abs(c)
+                       for a, c in zip(card_steps, cpu_steps))
+        fall = card_steps[0] - card_steps[-1]
+        emit({"phase": "lm_train_parity", "model": cfg.name,
+              "layers": cfg.n_layers, "dtype": "float32",
+              "remat": cfg.remat, "batch": b, "seq": s,
+              "loss_cpu": cpu_loss, "loss_card": card_loss,
+              "loss_rel": loss_rel, "grads_rel_l2": grad_rel,
+              "sgd_lr": LM_PARITY_LR, "cpu_losses": cpu_steps,
+              "card_losses": card_steps, "steps_rel": step_rel,
+              "fall": fall, "least_fall": LM_PARITY_FALL[name],
+              "tol": LM_PARITY_TOL, "launches_per_step": c1})
+        if not loss_rel <= LM_PARITY_TOL["loss"] or \
+                not grad_rel <= LM_PARITY_TOL["grads"] or \
+                not step_rel <= LM_PARITY_TOL["steps"] or \
+                not fall >= LM_PARITY_FALL[name]:
+            raise AssertionError(
+                f"lm_train_parity {name}: loss {loss_rel}, grads "
+                f"{grad_rel}, steps {step_rel}, fall {fall} (tolerances "
+                f"{LM_PARITY_TOL}, least fall {LM_PARITY_FALL[name]})")
+
+
+def phase_lm_restart(torch, dev) -> None:
+    """gemma SMOKE at bf16 (its norms fp32) on the card: ``train_loop``
+    with a checkpoint directory for 7 steps, then called again with
+    ``steps=10``, must report 3 steps; a state after 2 steps saved with
+    ``save_async`` and restored into another state equals it bit for
+    bit, every bf16 leaf included.  The line has the save's stall on the
+    step loop (the call's host time, the host copy of every leaf), the
+    step's time beside it, and the background write's time."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import gemma_2b
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          train_loop)
+    from repro_torch.optim.functional import tree_leaves
+
+    cfg = dataclasses.replace(gemma_2b.SMOKE, param_dtype=torch.bfloat16,
+                              remat="full")
+    b, s = LM_PARITY_SHAPE
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(batch_size=b, seq_len=s, optimizer="adamw", lr=1e-3,
+                  checkpoint_dir=os.path.join(d, "loop"),
+                  checkpoint_every=3, log_every=100, device=dev)
+        first = train_loop(cfg, steps=7, **kw)
+        second = train_loop(cfg, steps=10, **kw)
+
+        state = init_train_state(cfg, optimizer="adamw", lr=1e-3, seed=1,
+                                 device=dev)
+        step = make_train_step(cfg, lr=1e-3, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                             generator=torch.Generator().manual_seed(6))
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        mgr = CheckpointManager(os.path.join(d, "state"))
+        t0 = time.perf_counter()
+        mgr.save_async(state, 3)
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mgr.wait()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        like = init_train_state(cfg, optimizer="adamw", lr=1e-3, seed=2,
+                                device=dev)
+        restored = mgr.restore(3, like)
+    saved, back = tree_leaves(state), tree_leaves(restored)
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    exact = len(saved) == len(back) and all(
+        x.dtype == y.dtype and x.device == y.device and
+        torch.equal(x.view(bits[x.dtype]), y.view(bits[y.dtype]))
+        for x, y in zip(saved, back))
+    n_bf16 = sum(x.dtype == torch.bfloat16 for x in saved)
+    emit({"phase": "lm_restart", "model": cfg.name, "dtype": "bfloat16",
+          "batch": b, "seq": s, "first_call_steps": first["steps"],
+          "second_call_steps": second["steps"], "restored_bits_equal": exact,
+          "leaves": len(saved), "bf16_leaves": n_bf16,
+          "state_bytes": sum(x.numel() * x.element_size() for x in saved),
+          "step_ms": step_ms, "save_async_stall_ms": stall_ms,
+          "background_write_ms": write_ms})
+    if first["steps"] != 7 or second["steps"] != 3 or not exact or \
+            not n_bf16:
+        raise AssertionError(f"lm_restart: steps {first['steps']} then "
+                             f"{second['steps']}, bits equal {exact}")
+
+
 def run_phases(torch, dev) -> list:
     """Every phase in order; returns the rows of the kernel table."""
     from repro_torch.models.lm import BlockSpec
@@ -3551,6 +4022,14 @@ def run_phases(torch, dev) -> list:
     del params32
     free(torch)
 
+    # LM training: the data loader, gemma-2b through train_loop, parity
+    # against the CPU, restart
+    phase_data_loader(torch, dev)
+    counts_train = phase_lm_train(torch, dev)
+    phase_lm_train_parity(torch, dev)
+    phase_lm_restart(torch, dev)
+    free(torch)
+
     # the profiled runs come last: a torch.profiler session leaves host
     # overhead behind it that slowed the timed runs made after it.  Each
     # model is made again from its seed, for the runs that profile it.
@@ -3568,6 +4047,7 @@ def run_phases(torch, dev) -> list:
             profiled(params)
         del params
         free(torch)
+    profile_lm_train(torch, dev)
     profile_eager_train()
     free(torch)
     profile_gnmt_train()
@@ -3613,6 +4093,9 @@ def run_phases(torch, dev) -> list:
         # the variant of the reported row (flash, paged, decode, mixed)
         if "variant" in r:
             entry["variant"] = r["variant"]
+        if name == "flash_attention":
+            # lm_train's run: the forward and the remat recompute
+            entry["lm_train_launches"] = counts_train[name]
         profiled = {"paged_attention": paged_profile,
                     "gumbel_perturb": gumbel_profile,
                     "flash_attention": flash_profile,

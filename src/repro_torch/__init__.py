@@ -17,8 +17,10 @@ names the module it is held against.  It imports ``torch`` only: never
         y.backward()
         step = rt.compile(fn)   # the compiled path (the jit bridge)
 
-  * the LM serving path (``serving``), the prefill/decode step builders
-    (``launch.train``) and their models (``models.lm``);
+  * the LM serving path (``serving``), the train, prefill and decode
+    step builders and the trainer (``launch.train``), their models
+    (``models.lm``), the data loaders (``data``) and checkpointing
+    (``checkpoint``);
   * the hand-written Hopper kernels (``kernels``), each beside its plain
     PyTorch version.
 
@@ -43,7 +45,7 @@ def __getattr__(name):
     # lazy subpackage access: repro_torch.nn, repro_torch.optim, ...
     import importlib
     if name in ("nn", "optim", "models", "kernels", "configs", "launch",
-                "serving"):
+                "serving", "data", "checkpoint"):
         mod = importlib.import_module(f"repro_torch.{name}")
         globals()[name] = mod
         return mod

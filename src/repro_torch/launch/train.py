@@ -1,22 +1,165 @@
-"""Step builders: prefill and decode (counterpart of
-``repro/launch/train.py::make_prefill_step`` / ``make_serve_step``).
+"""Step builders and the trainer: train, prefill and decode steps, and
+``train_loop`` (counterpart of ``repro/launch/train.py``).
 
-The reference wraps each step in ``jax.jit`` with parameter and cache
-shardings over a device mesh and donates the cache.  The port runs
-eagerly on one device: meshes and shardings are dropped (sharding is
-ROADMAP.md queue A7), and donation becomes the in-place cache
-update of ``lm.decode_step``.  ``make_train_step`` and ``train_loop``
-come with the training slice (ROADMAP.md queue A5).
+The reference wraps each step in ``jax.jit`` with parameter, optimizer
+and cache shardings over a device mesh, and donates the state.  The port
+runs eagerly on one device: meshes and shardings are dropped (sharding
+is ROADMAP.md queue A7), and donation becomes updates in place: the
+train step writes the new parameters and optimizer state into the
+tensors it was given, leaf by leaf, so the model never has a second copy
+of its parameters, and the decode step writes the cache in place.
+
+``train_loop`` is the runnable trainer on synthetic LM data (data
+loader, checkpoint/restart, straggler-aware step timing), and
+``python -m repro_torch.launch.train`` its command line, the counterpart
+of ``examples/train_lm.py``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --size 2m --steps 20
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import argparse
+import os
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import default_device, resolve_device
+from ..configs import gemma_2b, jamba_1_5_large_398b, rwkv6_1_6b
 from ..models import lm as LM
+from ..optim.functional import (clip_by_global_norm, make_optimizer,
+                                tree_leaves, tree_map)
+
+# the profiler range around the gradient clip and the optimizer update
+OPT_RANGE = "train_step::optimizer"
+
+
+def _leaves_like(tree, like) -> list:
+    """``tree``'s subtrees at the positions of ``like``'s leaves, in
+    order: a parameter-shaped optimizer entry flattened down to the
+    parameters (Adafactor's per-leaf factor dicts stay whole)."""
+    if isinstance(like, dict):
+        return [x for k in like for x in _leaves_like(tree[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for t, l in zip(tree, like) for x in _leaves_like(t, l)]
+    return [tree]
+
+
+def _copy_into(dst, src) -> None:
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def make_train_step(cfg: LM.LMConfig, *, optimizer: str = "adamw",
+                    lr: float = 3e-4, grad_clip: float = 1.0,
+                    accum_steps: int = 1, foreach: bool = False,
+                    opt_kwargs: Optional[Dict] = None,
+                    device=None) -> Callable:
+    """Returns ``step(state, batch) -> (state, {"loss", "grad_norm"})``
+    over ``state = {"params", "opt", "step"}``: ``lm.lm_loss``, its
+    gradients, ``clip_by_global_norm`` to ``grad_clip``, then the update
+    of ``make_optimizer(optimizer, foreach=foreach, lr=lr,
+    **opt_kwargs)``.  The state's tensors are updated in place and the
+    same dict is returned; ``loss`` and ``grad_norm`` are fp32 tensors
+    on the device.  ``batch`` holds ``"tokens"`` (or ``"embeds"``),
+    ``"labels"`` and an optional ``"mask"``; inputs on another device
+    are moved to ``device`` (default CUDA).
+
+    ``accum_steps > 1`` splits the batch into that many microbatches
+    along its first axis; their losses and fp32 gradients are summed and
+    divided by ``accum_steps``, as the reference's scan does.  The
+    optimizer runs leaf by leaf (each leaf's update is made and written
+    before the next), except ``foreach=True`` for SGD and Adam, whose
+    bucketed update takes every leaf at once; Adafactor's foreach update
+    is its per-leaf one."""
+    LM._check_supported(cfg)
+    dev = resolve_device(device)
+    kw = dict(opt_kwargs or {})
+    kw.setdefault("lr", lr)
+    _, update_opt = make_optimizer(optimizer, foreach=foreach, **kw)
+    whole_list = foreach and optimizer != "adafactor"
+
+    def loss_and_grads(params, batch):
+        tree = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(tree)
+        loss = LM.lm_loss(cfg, tree, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), list(grads)
+
+    def microbatch(batch, i: int):
+        def part(x):
+            if x.dim() == 0:
+                return x
+            if x.shape[0] % accum_steps:
+                raise ValueError(f"train_step: batch of {x.shape[0]} does "
+                                 f"not split into {accum_steps} "
+                                 f"microbatches")
+            return x.reshape(accum_steps, x.shape[0] // accum_steps,
+                             *x.shape[1:])[i]
+        return {k: part(v) for k, v in batch.items()}
+
+    def update(params, grads, opt) -> None:
+        # (params, grads, optimizer state) of one update: every leaf at
+        # once for the bucketed updates, else one leaf at a time
+        leaves = tree_leaves(params)
+        state = {k: v if k == "step" else _leaves_like(v, params)
+                 for k, v in opt.items()}
+        if whole_list:
+            parts = [(leaves, grads, state)]
+        else:
+            parts = (([p], [g], {k: v if k == "step" else [v[i]]
+                                 for k, v in state.items()})
+                     for i, (p, g) in enumerate(zip(leaves, grads)))
+        for ps, gs, st in parts:
+            new_ps, new_st = update_opt(gs, st, ps)
+            _copy_into(ps, new_ps)
+            for k, v in new_st.items():
+                if k != "step":
+                    _copy_into(st[k], v)
+        # every leaf's update read the old step; it moves once, after all
+        if "step" in opt:
+            opt["step"].copy_(new_st["step"])
+
+    def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        params = state["params"]
+        if accum_steps <= 1:
+            loss, grads = loss_and_grads(params, batch)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for p in tree_leaves(params)]
+            for i in range(accum_steps):
+                l, g = loss_and_grads(params, microbatch(batch, i))
+                loss = loss + l
+                grads = [a + b for a, b in zip(grads, g)]
+            loss = loss / accum_steps
+            grads = [g / accum_steps for g in grads]
+        with torch.no_grad(), torch.profiler.record_function(OPT_RANGE):
+            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            update(params, grads, state["opt"])
+            state["step"] += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
+def init_train_state(cfg: LM.LMConfig, *, optimizer: str = "adamw",
+                     lr: float = 3e-4, seed: int = 0, device=None
+                     ) -> Dict[str, Any]:
+    """``{"params", "opt", "step"}``: ``lm.init_params(cfg, seed)`` on
+    ``device``, the optimizer's ``init`` of them (both packages start
+    the optimizer from ``init_opt(params)``) and an int32 step of 0."""
+    dev = resolve_device(device)
+    params = LM.init_params(cfg, seed=seed, device=dev)
+    init_opt, _ = make_optimizer(optimizer, lr=lr)
+    return {"params": params, "opt": init_opt(params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def make_prefill_step(cfg: LM.LMConfig, device=None) -> Callable:
@@ -84,3 +227,172 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
             return LM.decode_step(cfg, params, cache, tokens.to(dev), pos)
 
     return serve_step
+
+
+# ----------------------------------------------------------------------
+# the runnable trainer
+# ----------------------------------------------------------------------
+
+def train_loop(cfg: LM.LMConfig, *, steps: int, batch_size: int,
+               seq_len: int, optimizer: str = "adamw", lr: float = 3e-4,
+               foreach: bool = False,
+               checkpoint_dir: Optional[str] = None,
+               checkpoint_every: int = 100,
+               log_every: int = 10, seed: int = 0,
+               straggler_threshold: float = 3.0,
+               device=None) -> Dict[str, Any]:
+    """Training on synthetic LM data (``SyntheticLMDataset`` through a
+    ``DataLoader`` with the reference's settings: 2 workers, shuffled by
+    ``seed``, the last partial batch dropped).  Restores from the latest
+    checkpoint in ``checkpoint_dir`` if there is one (the first step is
+    the restored ``state["step"]``), saves asynchronously every
+    ``checkpoint_every`` steps and once at the end.  As in the
+    reference, a restarted run draws its batches from the start of
+    epoch 0 again.
+
+    Returns the reference's ``{"losses", "steps" (run in this call),
+    "wall_time_s", "final_loss"}`` and, besides, each step's
+    ``"grad_norms"`` and ``"step_times_s"`` (host seconds from the
+    step's call to its loss on the host)."""
+    from ..checkpoint import CheckpointManager
+    from ..data import DataLoader, SyntheticLMDataset
+
+    dev = resolve_device(device)
+    step_fn = make_train_step(cfg, optimizer=optimizer, lr=lr,
+                              foreach=foreach, device=dev)
+    state = init_train_state(cfg, optimizer=optimizer, lr=lr, seed=seed,
+                             device=dev)
+    ckpt = None
+    start_step = 0
+    if checkpoint_dir:
+        ckpt = CheckpointManager(checkpoint_dir)
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state = restored
+            start_step = int(state["step"])
+
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len, size=1 << 20,
+                            seed=seed)
+    loader = DataLoader(ds, batch_size=batch_size, shuffle=True,
+                        num_workers=2, seed=seed, drop_last=True)
+
+    history: List[float] = []
+    grad_norms: List[float] = []
+    step_times: List[float] = []
+    t_loop = time.perf_counter()
+    with default_device(dev):
+        it = iter(loader)
+        for step in range(start_step, steps):
+            try:
+                tokens, labels = next(it)
+            except StopIteration:
+                it = iter(loader)
+                tokens, labels = next(it)
+            batch = {"tokens": tokens.data, "labels": labels.data}
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            grad_norms.append(float(metrics["grad_norm"]))
+            step_times.append(dt)
+            # straggler watchdog: flag steps >> median
+            if len(step_times) > 10:
+                med = float(np.median(step_times[-50:]))
+                if dt > straggler_threshold * med:
+                    print(f"[straggler] step {step}: {dt:.3f}s "
+                          f"(median {med:.3f}s)")
+            history.append(loss)
+            if step % log_every == 0:
+                tok_s = batch_size * seq_len / dt
+                print(f"step {step:5d}  loss {loss:.4f}  "
+                      f"{dt*1e3:6.1f} ms/step  {tok_s:,.0f} tok/s")
+            if ckpt and step > 0 and step % checkpoint_every == 0:
+                ckpt.save_async(state, step)
+        it.close()
+    if ckpt:
+        ckpt.save(state, steps)
+        ckpt.wait()
+    wall = time.perf_counter() - t_loop
+    return {"losses": history, "steps": steps - start_step,
+            "wall_time_s": wall,
+            "final_loss": history[-1] if history else None,
+            "grad_norms": grad_norms, "step_times_s": step_times}
+
+
+# ----------------------------------------------------------------------
+# the command line (counterpart of examples/train_lm.py)
+# ----------------------------------------------------------------------
+
+SIZES = {
+    # name: (layers, d_model, heads, kv, d_ff, vocab)
+    "2m": (4, 128, 4, 2, 512, 2048),
+    "20m": (8, 384, 8, 4, 1536, 8192),
+    "100m": (12, 768, 12, 4, 3072, 16384),
+}
+
+# the reference's architectures (repro/configs/__init__.py::ARCHS); the
+# port has configs for three of them
+ARCHS = ("qwen2-moe-a2.7b", "arctic-480b", "rwkv6-1.6b",
+         "jamba-1.5-large-398b", "gemma-2b", "gemma3-1b", "yi-34b",
+         "minicpm3-4b", "llava-next-mistral-7b", "hubert-xlarge")
+PORTED_ARCHS = {"gemma-2b": gemma_2b, "rwkv6-1.6b": rwkv6_1_6b,
+                "jamba-1.5-large-398b": jamba_1_5_large_398b}
+
+
+def build_config(size: str) -> LM.LMConfig:
+    l, d, h, kv, ff, v = SIZES[size]
+    return LM.LMConfig(
+        name=f"gpt-{size}", n_layers=l, d_model=d, n_heads=h,
+        n_kv_heads=kv, d_ff=ff, vocab_size=v,
+        pattern=(LM.BlockSpec("attn", "dense"),),
+        param_dtype=torch.float32, remat="none", attn_backend="ref",
+        tie_embeddings=True)
+
+
+def smoke_config(arch: str) -> LM.LMConfig:
+    """The reduced (``SMOKE``) config of a ported architecture."""
+    if arch not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{arch}: no config in the port yet; it has "
+            f"{', '.join(sorted(PORTED_ARCHS))} (the others are "
+            f"ROADMAP.md queue A6)")
+    return PORTED_ARCHS[arch].SMOKE
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser(
+        description="Train an LM on synthetic data (checkpoint/resume).")
+    ap.add_argument("--size", choices=SIZES, default="2m")
+    ap.add_argument("--arch", choices=ARCHS, default=None,
+                    help="train an assigned arch's reduced config instead")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "adam", "sgd", "adafactor"])
+    ap.add_argument("--checkpoint-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_lm_ckpt"))
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.arch else build_config(args.size)
+    print(f"training {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
+          f"vocab={cfg.vocab_size} on {dev}")
+    result = train_loop(
+        cfg, steps=args.steps, batch_size=args.batch_size,
+        seq_len=args.seq_len, optimizer=args.optimizer, lr=args.lr,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, log_every=10, device=dev)
+    final = result["final_loss"]
+    print(f"\ndone: {result['steps']} steps in "
+          f"{result['wall_time_s']:.1f}s, final loss "
+          f"{'none' if final is None else f'{final:.4f}'}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

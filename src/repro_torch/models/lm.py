@@ -10,7 +10,9 @@ reference's parameter pytree across), :func:`cast_params`,
 the Mamba scan through theirs; returns the summed MoE aux loss),
 :func:`init_cache` and :func:`decode_step` (one token per row against
 the cache; attention through the decode kernel, WKV6 and the Mamba scan
-through theirs from the cached state; MoE dropless).
+through theirs from the cached state; MoE dropless), and
+:func:`lm_loss` (the training loss; ``forward`` checkpoints each group
+of layers under ``remat="full"``).
 
 The port keeps parameters as one per-layer list, the layout the serving
 executor iterates (the reference stacks groups for ``lax.scan`` and
@@ -40,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from . import layers as L
@@ -366,18 +369,80 @@ def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # forward (prefill)
 # ----------------------------------------------------------------------
 
+def _apply_blocks(cfg: LMConfig, specs, layers, x: torch.Tensor,
+                  aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    for spec, p in zip(specs, layers):
+        x, aux, _ = _apply_block(cfg, spec, p, x, aux)
+    return x, aux
+
+
 def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), aux_loss).  ``tokens``: (B, S) integer
     tensor on the params' device, or precomputed ``embeds`` (B, S, D).
     ``aux_loss`` is the fp32 sum of the MoE layers' balance losses (zero
-    without MoE layers)."""
+    without MoE layers).
+
+    With ``cfg.remat == "full"`` and autograd recording, each group of
+    ``len(cfg.pattern)`` layers runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint(group_body)``): only the group's
+    input is kept, and the backward pass runs the group's forward again,
+    kernels included.  The tail layers after the last whole group are
+    not checkpointed, as in the reference."""
     _check_supported(cfg)
     x = _embed(cfg, params, tokens, embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x, aux, _ = _apply_block(cfg, spec, p, x, aux)
+    specs, layers = cfg.layer_specs(), params["layers"]
+    g = len(cfg.pattern)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for i in range(0, cfg.n_groups * g, g):
+        group = (cfg, specs[i:i + g], layers[i:i + g])
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _apply_blocks, *group, x, aux, use_reentrant=False)
+        else:
+            x, aux = _apply_blocks(*group, x, aux)
+    tail = cfg.n_groups * g
+    x, aux = _apply_blocks(cfg, specs[tail:], layers[tail:], x, aux)
     return _head(cfg, params, x), aux
+
+
+# the profiler range around lm_loss's own ops (after the LM head)
+LOSS_RANGE = "lm_loss::cross_entropy"
+
+
+def lm_loss(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Next-token cross-entropy of :func:`forward`'s logits in fp32, plus
+    ``z_loss`` times the mean squared log-partition and the MoE aux loss
+    (the reference's ``lm_loss``).  ``batch``: ``"tokens"`` (or
+    ``"embeds"``), ``"labels"`` (B, S), optional ``"mask"`` (B, S)
+    weighting the positions.  The label's logit is gathered where the
+    reference sums a one-hot product: the sum adds exact zeros to the one
+    nonzero term, so both give the same fp32 value, and the gather never
+    makes the (B, S, V) mask.  The profiler range
+    ``lm_loss::cross_entropy`` holds the loss's own ops."""
+    logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"))
+    labels = batch["labels"]
+    with torch.profiler.record_function(LOSS_RANGE):
+        logits = logits.float()
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        shifted = logits - m
+        logz = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+        picked = shifted.gather(
+            -1, labels.long().unsqueeze(-1))[..., 0] + m[..., 0]
+        nll = logz - picked
+        mask = batch.get("mask")
+        if mask is None:
+            loss = nll.mean()
+            zl = torch.square(logz).mean()
+        else:
+            mask = mask.to(nll.dtype)
+            denom = torch.clamp(mask.sum(), min=1)
+            loss = (nll * mask).sum() / denom
+            zl = (torch.square(logz) * mask).sum() / denom
+        return loss + z_loss * zl + aux
 
 
 # ----------------------------------------------------------------------
