@@ -12,8 +12,12 @@ at full width (18 layers, random weights from a seed) through both of
 the port's gemma paths, rwkv6-1.6b at full width and depth (24 layers)
 through its prefill and decode path, and jamba-1.5-large at full width,
 cut to its first 5 layers (every kind of block; 48.1 GB at bf16),
-through the same step builders, trains ResNet-50 and GNMT at full width
-through the port's eager runtime, and runs its compiled path:
+through the same step builders, then the seven other architectures of
+the configs registry at full width (gemma3-1b, qwen2-moe-a2.7b,
+minicpm3-4b, llava-next-mistral-7b, hubert-xlarge, yi-34b, and
+arctic-480b cut to 2 of its 35 layers), trains ResNet-50 and GNMT at
+full width through the port's eager runtime, and runs its compiled
+path:
 
   * paged continuous-batching serving through
     ``repro_torch.serving.ServingEngine`` (paged attention, Gumbel);
@@ -40,6 +44,15 @@ through the port's eager runtime, and runs its compiled path:
     decode), then the parity check at fp32 on two layers of its 8-layer
     period, mamba/moe and attn/dense (47.6 GB), with a dropless capacity
     factor;
+  * the seven architectures: each through ``make_prefill_step`` on 4 x
+    1024 tokens (embeddings for llava and hubert) and, but for hubert
+    (an encoder), ``make_serve_step`` at B = 8 for 16 greedy steps past
+    a 1024-position cache (flash and decode attention at the shapes no
+    earlier path gives them: gemma3's window 512 and rings, G = 7 and
+    G = 1, hubert's bidirectional heads of 80 and MLA's 96 / 64 padded
+    to 128); then the fp32 parity check of gemma3 (8 layers, the window
+    cut to 64 so that the rollout wraps its rings) and of minicpm3 (2
+    layers, MLA at S = 160), and the padding's cost (``head_padding``);
   * the eager runtime: ResNet-50 (224 x 224 RGB, batch 64, fp32, train
     mode, SGD with momentum) through ``repro_torch``'s Tensor, tape,
     dispatch cache and fusion queue, every flushed elementwise chain a
@@ -131,9 +144,14 @@ Output, one line each:
     inter-token latency, zero dropped tokens and leaked pages, one
     terminal event per stream) and ``http_server``;
   * ``dense_prefill``, ``dense_decode`` and ``dense_parity`` lines,
-    ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines, and
-    ``jamba_prefill``, ``jamba_decode`` and ``jamba_parity`` lines, each
-    with its own launch counts and peak device memory;
+    ``rwkv_prefill``, ``rwkv_decode`` and ``rwkv_parity`` lines,
+    ``jamba_prefill``, ``jamba_decode`` and ``jamba_parity`` lines,
+    ``<arch>_prefill`` for gemma3, qwen2_moe, minicpm3, llava, hubert, yi
+    and arctic (its cut printed) and ``<arch>_decode`` for all but
+    hubert, ``gemma3_parity`` and ``minicpm3_parity``, each with its own
+    launch counts and peak device memory; ``head_padding`` (the padded
+    call, the kernel alone and the pads alone, by CUDA events, at
+    hubert's prefill and minicpm3's prefill and decode);
   * ``eager_train`` (images/s, ms a step, fused launches a step against
     the count derived from the model, dispatch-cache totals, the
     accounting allocator's peak beside PyTorch's, the first and last
@@ -191,7 +209,8 @@ Output, one line each:
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
     fused-elementwise kernel, paged_vs_gathered for mixed attention;
-    the flash entry adds ``lm_train``'s launches) and its numbers at
+    the flash entry adds ``lm_train``'s launches, the flash and decode
+    entries each new arch's run's, ``arch_launches``) and its numbers at
     that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
@@ -246,27 +265,60 @@ GUMBEL_RAGGED = ((1, 1000), (1, 256001), (3, 1000), (3, 256001))
 # fp32: tol 1e-5, or 2e-3 for the long reductions (Skv >= 1024), rtol 0:
 # the reference's tiers (docs/kernels.md).
 ATTN_BF16_TOL = 1e-2
-# (label, dtype, B, Hq, Hkv, Sq, Skv, D, window); all causal.  The first
-# row is gemma-2b prefill of (4, 1024) tokens, the dense_prefill shape;
-# "jamba" is jamba's attention layer in jamba_prefill (64 query heads
-# over 8 KV heads of 128); the last two are the fp32 prefills of
-# dense_parity and jamba_parity (PARITY_SHAPE).
+# (label, dtype, B, Hq, Hkv, Sq, Skv, D, window); causal but for the
+# rows of FLASH_BIDIRECTIONAL.  The first row is gemma-2b prefill of (4,
+# 1024) tokens, the dense_prefill shape; "jamba" is jamba's attention
+# layer in jamba_prefill (64 query heads over 8 KV heads of 128);
+# "parity" and "jamba_parity" are the fp32 prefills of dense_parity and
+# jamba_parity (PARITY_SHAPE).  The rest are the layers of the seven
+# architectures' prefills: gemma3's sliding layers (window 512), hubert's
+# bidirectional 16 heads of 80 and minicpm3's MLA (q/k 96, v 64), both
+# run padded to 128 (models.attention.padded_call, so the kernel sees
+# 128), yi / arctic's 56 heads over 8 (G = 7), qwen2-moe's 16 over 16,
+# and the fp32 prefills of gemma3_parity (window GEMMA3_PARITY_WINDOW)
+# and minicpm3_parity.
 FLASH_ROWS = (("prefill", "bfloat16", 4, 8, 1, 1024, 1024, 256, None),
               ("offset_window", "bfloat16", 4, 8, 1, 384, 1024, 256, 256),
               ("fp32", "float32", 4, 8, 1, 256, 256, 256, None),
               ("jamba", "bfloat16", 4, 64, 8, 1024, 1024, 128, None),
               ("parity", "float32", 2, 8, 1, 160, 160, 256, None),
-              ("jamba_parity", "float32", 2, 64, 8, 160, 160, 128, None))
+              ("jamba_parity", "float32", 2, 64, 8, 160, 160, 128, None),
+              ("gemma3_sliding", "bfloat16", 4, 4, 1, 1024, 1024, 256,
+               512),
+              ("hubert_padded", "bfloat16", 4, 16, 16, 1024, 1024, 128,
+               None),
+              ("minicpm3_mla_padded", "bfloat16", 4, 40, 40, 1024, 1024,
+               128, None),
+              ("yi_g7", "bfloat16", 4, 56, 8, 1024, 1024, 128, None),
+              ("qwen2_moe_g1", "bfloat16", 4, 16, 16, 1024, 1024, 128,
+               None),
+              ("gemma3_parity", "float32", 2, 4, 1, 160, 160, 256, 64),
+              ("minicpm3_parity", "float32", 2, 40, 40, 160, 160, 128,
+               None))
+FLASH_BIDIRECTIONAL = frozenset({"hubert_padded"})
 # (label, dtype, B, Hkv, G, D, Smax, window); lengths ragged in 1..Smax.
 # The first row is gemma-2b decode at B = 8, "jamba" jamba's attention
-# layer at B = 8; the last two are the fp32 decode steps of dense_parity
-# and jamba_parity (B = 2, caches of PARITY_SHAPE's 160 keys).
+# layer at B = 8; "parity" and "jamba_parity" are the fp32 decode steps
+# of dense_parity and jamba_parity (B = 2, caches of PARITY_SHAPE's 160
+# keys).  The rest are the decode layers of the seven architectures'
+# ARCH_DECODE runs: a gemma3 ring of 512 slots (no window: the ring is
+# the window), yi / arctic's G = 7, qwen2-moe's G = 1 and minicpm3's MLA
+# after expansion (G = 1, padded to 128) over ARCH_DECODE_MAX_SEQ keys,
+# and the fp32 decode steps of gemma3_parity (a ring of
+# GEMMA3_PARITY_WINDOW slots) and minicpm3_parity.
 DECODE_ROWS = (("decode", "bfloat16", 8, 1, 8, 256, 2048, None),
                ("fp32", "float32", 8, 1, 8, 256, 2048, None),
                ("window", "bfloat16", 8, 1, 8, 256, 2048, 256),
                ("jamba", "bfloat16", 8, 8, 8, 128, 2048, None),
                ("parity", "float32", 2, 1, 8, 256, 160, None),
-               ("jamba_parity", "float32", 2, 8, 8, 128, 160, None))
+               ("jamba_parity", "float32", 2, 8, 8, 128, 160, None),
+               ("gemma3_ring", "bfloat16", 8, 1, 4, 256, 512, None),
+               ("yi_g7", "bfloat16", 8, 8, 7, 128, 1040, None),
+               ("qwen2_moe_g1", "bfloat16", 8, 16, 1, 128, 1040, None),
+               ("minicpm3_mla_padded", "bfloat16", 8, 40, 1, 128, 1040,
+                None),
+               ("gemma3_parity", "float32", 2, 1, 4, 256, 64, None),
+               ("minicpm3_parity", "float32", 2, 40, 1, 128, 160, None))
 # dense path: prefill (4, 1024); decode B = 8, 128-token prompts fed one
 # token a step, then 64 greedy tokens; parity on (2, 160) at fp32
 PREFILL_SHAPE = (4, 1024)
@@ -315,6 +367,38 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # scan, the MoE and the attention in prefill against decode
 JAMBA_LAYERS = 5
 JAMBA_PARITY_PATTERN = (("mamba", "moe"), ("attn", "dense"))
+# the seven architectures of the configs registry that have no path
+# above: (phase prefix, arch, layers run or None for all).  Each at full
+# width, made at bf16 from seed 0 on the card, freed before the next;
+# arctic-480b is cut to 2 of its 35 layers (27.3 GB a layer, 128 experts
+# of 3 x 7168 x 4864).  <prefix>_prefill: make_prefill_step on
+# PREFILL_SHAPE tokens (hubert and llava: embeddings); <prefix>_decode
+# (not hubert, an encoder): make_serve_step at B = ARCH_DECODE_BATCH,
+# ARCH_DECODE_STEPS greedy steps past a cache of ARCH_DECODE_PAST
+# positions filled with N(0, 1) values from a seed
+ARCH_PHASES = (("gemma3", "gemma3-1b", None),
+               ("qwen2_moe", "qwen2-moe-a2.7b", None),
+               ("minicpm3", "minicpm3-4b", None),
+               ("llava", "llava-next-mistral-7b", None),
+               ("hubert", "hubert-xlarge", None),
+               ("yi", "yi-34b", None),
+               ("arctic", "arctic-480b", 2))
+ARCH_DECODE_BATCH, ARCH_DECODE_PAST, ARCH_DECODE_STEPS = 8, 1024, 16
+ARCH_DECODE_MAX_SEQ = ARCH_DECODE_PAST + ARCH_DECODE_STEPS
+# gemma3_parity: full width, one 6-layer group and the 2-layer tail, the
+# window cut to 64 so that the 160-step rollout wraps each ring twice;
+# minicpm3_parity: full width, 2 layers (S = 160, where the reference's
+# own MLA prefill raises under "auto")
+GEMMA3_PARITY_LAYERS, GEMMA3_PARITY_WINDOW = 8, 64
+MINICPM3_PARITY_LAYERS = 2
+# head-width padding (models.attention.padded_call), each case at its
+# main-path shape: (label, dtype, B, Hq, Hkv, Sq, Skv, D_qk, D_v, causal)
+PADDING_ROWS = (("hubert_prefill", "bfloat16", 4, 16, 16, 1024, 1024, 80,
+                 80, False),
+                ("minicpm3_prefill", "bfloat16", 4, 40, 40, 1024, 1024, 96,
+                 64, True),
+                ("minicpm3_decode", "bfloat16", 8, 40, 40, 1, 1040, 96, 64,
+                 True))
 # LM training.  lm_train: gemma-2b CONFIG at full width and depth (bf16,
 # remat "full") through train_loop, AdamW at the reference's lr and clip,
 # 10 steps of 4 x 1024 tokens; data_loader stages LOADER_BATCHES batches
@@ -884,7 +968,7 @@ def phase_flash(torch, dev) -> dict:
         ref = FA.flash_attention_plain(q, k, v, **kw)
         row = {"phase": "kernel", "name": "flash_attention", "row": label,
                "dtype": dt, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
-               "Skv": skv, "D": d, "window": window}
+               "Skv": skv, "D": d, "window": window, "causal": kw["causal"]}
         row.update(check_row(torch, f"flash_attention[{label}]", out, ref,
                              kernel_tol(dt, skv)))
         row.update(FA.kernel_attributes(dtype, d))
@@ -892,7 +976,7 @@ def phase_flash(torch, dev) -> dict:
                                                                   **kw))
         row["plain_ms"] = time_ms(
             torch, lambda: FA.flash_attention_plain(q, k, v, **kw), reps=5)
-        mask = FA.visible_mask(sq, skv, True, window, dev)
+        mask = FA.visible_mask(sq, skv, kw["causal"], window, dev)
         pairs = int(mask.sum().item())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         ops = 4 * pairs * d * b * hq
@@ -902,14 +986,15 @@ def phase_flash(torch, dev) -> dict:
         if dt == "float32":
             row["bound_ms_float32"] = kernel_bound(nbytes, ops, dt)[0]
         row["library_ms"] = time_ms(torch, flash_library(
-            torch, q, k, v, (b, hq, hkv, sq, skv, d), window, mask))
+            torch, q, k, v, (b, hq, hkv, sq, skv, d), window, mask,
+            kw["causal"]))
         emit(row)
         if result is None:
             result = row
     return result
 
 
-def flash_library(torch, q, k, v, shape, window, mask):
+def flash_library(torch, q, k, v, shape, window, mask, causal=True):
     """The yardstick of a FLASH_ROWS row: one SDPA call over K/V expanded
     to Hq (expanded here, outside any timed call); the port never calls
     it."""
@@ -922,7 +1007,7 @@ def flash_library(torch, q, k, v, shape, window, mask):
                                              d).reshape(b, hq, skv, d)
     if sq == skv and window is None:
         return lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, scale=d ** -0.5)
+            q4, k4, v4, is_causal=causal, scale=d ** -0.5)
     return lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=mask, scale=d ** -0.5)
 
@@ -935,7 +1020,8 @@ def flash_inputs(torch, dev, row):
     q = torch.randn((b * hq, sq, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b * hkv, skv, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b * hkv, skv, d), generator=gen, device=dev).to(dtype)
-    return q, k, v, dict(causal=True, scale=d ** -0.5, window=window)
+    return q, k, v, dict(causal=label not in FLASH_BIDIRECTIONAL,
+                         scale=d ** -0.5, window=window)
 
 
 class CallCount:
@@ -978,13 +1064,14 @@ def profile_flash(torch, dev) -> dict:
             return FA.flash_attention_fwd(q, k, v, **kw)
         kern()
         torch.cuda.synchronize()
-        mask = FA.visible_mask(sq, skv, True, window, dev)
+        mask = FA.visible_mask(sq, skv, kw["causal"], window, dev)
         row = {"phase": "flash_attention_profile", "row": label,
                "dtype": dt, "variant": FA.variant(q.dtype),
                **profile_kernels(torch, kern, FA.counter, "flash_attention",
                                  1),
                "library": profile_library(torch, flash_library(
-                   torch, q, k, v, (b, hq, hkv, sq, skv, d), window, mask))}
+                   torch, q, k, v, (b, hq, hkv, sq, skv, d), window, mask,
+                   kw["causal"]))}
         emit(row)
         if result is None:
             result = row
@@ -3294,6 +3381,8 @@ def phase_http_server(torch, fe) -> None:
 
 # the kernel each mixer launches in (prefill, decode)
 MIXER_KERNELS = {"attn": ("flash_attention", "decode_attention"),
+                 "sliding": ("flash_attention", "decode_attention"),
+                 "mla": ("flash_attention", "decode_attention"),
                  "rwkv": ("rwkv6_scan", "rwkv6_scan"),
                  "mamba": ("mamba_scan", "mamba_scan")}
 
@@ -3318,43 +3407,57 @@ def check_launches(torch, what: str, fn, want: dict):
     return result, counts
 
 
-def phase_prefill(torch, dev, cfg, params, phase: str, seed: int) -> tuple:
-    """bf16 prefill of (4, 1024) tokens through ``make_prefill_step``:
-    exactly one launch of each layer's mixer kernel (flash attention for
-    attn layers, WKV6 for rwkv, the Mamba scan for mamba).  Returns the
-    run's launch counts, and a function that profiles one more prefill
-    on the params it is given."""
+def head_width(cfg) -> int:
+    """The last dim of ``forward``'s output: the vocab, an encoder's
+    classes, or d_model for a bare encoder."""
+    if cfg.lm_head:
+        return cfg.vocab_size
+    return cfg.n_classes or cfg.d_model
+
+
+def phase_prefill(torch, dev, cfg, params, phase: str, seed: int,
+                  **fields) -> tuple:
+    """bf16 prefill of (4, 1024) tokens through ``make_prefill_step``
+    (bf16 N(0, 1) embeddings for an embeddings-mode config): exactly one
+    launch of each layer's mixer kernel (flash attention for attn,
+    sliding and mla layers, WKV6 for rwkv, the Mamba scan for mamba).
+    ``fields`` go into the line.  Returns the run's launch counts, and a
+    function that profiles one more prefill on the params it is given."""
     from repro_torch.launch.train import make_prefill_step
 
     prefill = make_prefill_step(cfg, device=dev)
     b, s = PREFILL_SHAPE
-    tokens = torch.randint(0, cfg.vocab_size, (b, s),
-                           generator=torch.Generator().manual_seed(seed))
-    tokens = tokens.to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.input_mode == "embeddings":
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen
+                                       ).to(dev, torch.bfloat16)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen).to(dev)}
     torch.cuda.reset_peak_memory_stats()
-    prefill(params, {"tokens": tokens})          # warm-up, not counted
+    prefill(params, batch)                       # warm-up, not counted
     torch.cuda.synchronize()
 
     def run():
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": tokens})
+        logits = prefill(params, batch)
         torch.cuda.synchronize()
         return logits, time.perf_counter() - t0
 
     (logits, wall), counts = check_launches(
         torch, f"the {phase} run", run, launches_per_pass(cfg, False))
-    if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+    if tuple(logits.shape) != (b, s, head_width(cfg)) or \
             not bool(torch.isfinite(logits[:, -1].float()).all()):
         raise AssertionError(f"{phase} logits {tuple(logits.shape)} are "
                              f"not finite (B, S, V)")
     emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
-          "batch": b, "seq": s, "wall_ms": wall * 1e3,
-          "tokens_per_s": b * s / wall, "launches": counts,
-          "peak_mem_gb": peak_gb(torch)})
+          **fields, "batch": b, "seq": s, "input": next(iter(batch)),
+          "wall_ms": wall * 1e3, "tokens_per_s": b * s / wall,
+          "launches": counts, "peak_mem_gb": peak_gb(torch)})
 
     def profiled(params):
         def once():
-            prefill(params, {"tokens": tokens})
+            prefill(params, batch)
             torch.cuda.synchronize()
         profile_window(torch, f"{phase}_profile", once, batch=b, seq=s)
     return counts, profiled
@@ -3472,6 +3575,175 @@ def phase_parity(torch, dev, cfg32, params32, phase: str, seed: int) -> None:
             not err <= PARITY_RTOL * rms or not all(agree):
         raise AssertionError(f"{phase}: prefill and decode disagree: {err}"
                              f" vs {PARITY_RTOL} x {rms}, argmax {agree}")
+
+
+def phase_decode_past(torch, dev, cfg, params, phase: str, seed: int,
+                      **fields) -> dict:
+    """bf16 greedy decode through ``make_serve_step``: ARCH_DECODE_BATCH
+    rows, ARCH_DECODE_STEPS steps at positions ARCH_DECODE_PAST onward,
+    over a cache whose first ARCH_DECODE_PAST positions hold N(0, 1)
+    values from ``seed`` (every entry of every layer: K/V, a sliding
+    layer's ring, MLA's latent and roped key), so that each step attends
+    a 1024-position past.  Exactly one decode-kernel launch per layer a
+    step; the tokens must lie in the vocab.  ``fields`` go into the
+    line.  Returns the run's launch counts."""
+    from repro_torch.launch.train import make_serve_step
+    from repro_torch.models import lm as LM
+
+    b, past, n = ARCH_DECODE_BATCH, ARCH_DECODE_PAST, ARCH_DECODE_STEPS
+    serve = make_serve_step(cfg, batch=b, max_seq=ARCH_DECODE_MAX_SEQ,
+                            cache_dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    cache = LM.init_cache(cfg, b, ARCH_DECODE_MAX_SEQ, torch.bfloat16, dev)
+    for entry in cache:
+        for t in entry.values():
+            # the position axis: 2 of (B, Hkv, S, D) and (B, 1, S, r),
+            # 1 of MLA's (B, S, rank); a ring is filled whole
+            axis = 1 if t.dim() == 3 else 2
+            live = t.narrow(axis, 0, min(past, t.shape[axis]))
+            live.copy_(torch.randn(live.shape, generator=gen, device=dev))
+    tok = torch.randint(0, cfg.vocab_size, (b, 1),
+                        generator=torch.Generator().manual_seed(seed)
+                        ).to(dev)
+    serve(params, cache, tok, past)              # warm-up, not counted
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        cur, out = tok, []
+        for i in range(n):
+            logits, _ = serve(params, cache, cur, past + i)
+            cur = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(cur)
+        torch.cuda.synchronize()
+        return torch.cat(out, dim=1), time.perf_counter() - t0
+
+    want = {k: c * n for k, c in launches_per_pass(cfg, True).items()}
+    (gen_tokens, wall), counts = check_launches(
+        torch, f"the {phase} run", run, want)
+    if tuple(gen_tokens.shape) != (b, n) or \
+            not bool(((gen_tokens >= 0) &
+                      (gen_tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"{phase} emitted tokens out of range")
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+          **fields, "batch": b, "past": past, "steps": n, "wall_s": wall,
+          "ms_per_step": wall * 1e3 / n,
+          "decode_tokens_per_s": b * n / wall, "launches": counts,
+          "peak_mem_gb": peak_gb(torch)})
+    return counts
+
+
+def arch_model(torch, dev, arch: str, n_layers=None, dtype=None,
+               **fields):
+    """An arch of the configs registry at full width, made at ``dtype``
+    (default its own, bf16) directly from seed 0 on the card, optionally
+    cut to its first ``n_layers`` layers.  Returns (config, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as LM
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              param_dtype=dtype or cfg.param_dtype,
+                              **fields)
+    return cfg, LM.init_params(cfg, seed=0, device=dev)
+
+
+def phase_archs(torch, dev) -> dict:
+    """Every ARCH_PHASES arch through its prefill and (for a decoder) its
+    decode phase, each model freed before the next; then the fp32 parity
+    checks of gemma3 (its rings wrapped) and minicpm3 (MLA at S = 160).
+    Returns each arch's prefill and decode launch counts."""
+    from repro_torch.configs import get_config
+
+    counts = {}
+    for i, (prefix, arch, n_layers) in enumerate(ARCH_PHASES):
+        cfg, params = arch_model(torch, dev, arch, n_layers)
+        cut = {}
+        if n_layers:
+            cut = {"cut": f"first {n_layers} of "
+                          f"{get_config(arch).n_layers} layers"}
+        counts[f"{prefix}_prefill"], _ = phase_prefill(
+            torch, dev, cfg, params, f"{prefix}_prefill", 50 + 2 * i, **cut)
+        if cfg.lm_head:
+            counts[f"{prefix}_decode"] = phase_decode_past(
+                torch, dev, cfg, params, f"{prefix}_decode", 51 + 2 * i,
+                **cut)
+        del params
+        free(torch)
+    cfg32, params32 = arch_model(torch, dev, "gemma3-1b",
+                                 GEMMA3_PARITY_LAYERS, torch.float32,
+                                 window=GEMMA3_PARITY_WINDOW)
+    phase_parity(torch, dev, cfg32, params32, "gemma3_parity", 70)
+    del params32
+    free(torch)
+    cfg32, params32 = arch_model(torch, dev, "minicpm3-4b",
+                                 MINICPM3_PARITY_LAYERS, torch.float32)
+    phase_parity(torch, dev, cfg32, params32, "minicpm3_parity", 71)
+    del params32
+    free(torch)
+    return counts
+
+
+def phase_head_padding(torch, dev) -> None:
+    """The cost of padding head widths the kernels lack
+    (``models.attention.padded_call``) at the main paths' shapes: each
+    PADDING_ROWS case's padded call (the pads, the kernel at 128, the
+    cut) against the plain version at the caller's width, then by CUDA
+    events the whole call, the kernel alone on already padded operands
+    and the three pads alone."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import attention as TA
+
+    for label, dt, b, hq, hkv, sq, skv, dqk, dv, causal in PADDING_ROWS:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        q = torch.randn((b, hq, sq, dqk), generator=gen, device=dev
+                        ).to(dtype)
+        k = torch.randn((b, hkv, skv, dqk), generator=gen, device=dev
+                        ).to(dtype)
+        v = torch.randn((b, hkv, skv, dv), generator=gen, device=dev
+                        ).to(dtype)
+        width = TA.padded_width(dqk, dv)
+        scale = dqk ** -0.5
+        if sq == 1:
+            lens = torch.full((b,), skv, dtype=torch.int32, device=dev)
+
+            def call():
+                return TA.decode_attention(q, k, v, lens)
+
+            def kernel(qp, kp, vp):
+                return kops.decode_attention(qp, kp, vp, lens, scale=scale)
+
+            def plain():
+                return TA.sdpa_ref(q, k, v, scale=scale)
+        else:
+            def call():
+                return TA.sdpa(q, k, v, is_causal=causal)
+
+            def kernel(qp, kp, vp):
+                return kops.flash_attention(qp, kp, vp, causal=causal,
+                                            scale=scale)
+
+            def plain():
+                return TA.sdpa_ref(q, k, v, is_causal=causal, scale=scale)
+
+        def pads():
+            return [F.pad(x, (0, width - x.shape[-1])) for x in (q, k, v)]
+        qp, kp, vp = pads()
+        out = call()
+        torch.cuda.synchronize()
+        row = {"phase": "head_padding", "row": label, "dtype": dt, "B": b,
+               "Hq": hq, "Hkv": hkv, "Sq": sq, "Skv": skv, "D_qk": dqk,
+               "D_v": dv, "padded_to": width, "causal": causal}
+        row.update(check_row(torch, f"head_padding[{label}]", out, plain(),
+                             kernel_tol(dt, skv)))
+        row["call_ms"] = time_ms(torch, call)
+        row["kernel_ms"] = time_ms(torch, lambda: kernel(qp, kp, vp))
+        row["pad_ms"] = time_ms(torch, pads)
+        row["pad_share"] = row["pad_ms"] / row["call_ms"]
+        emit(row)
 
 
 def rwkv_models(torch, dev):
@@ -4022,6 +4294,17 @@ def run_phases(torch, dev) -> list:
     del params32
     free(torch)
 
+    # the seven architectures that came with the configs registry, each
+    # at full width (arctic cut to 2 of 35 layers); the padding's cost
+    arch_counts = phase_archs(torch, dev)
+    counts["flash_attention_archs"] = {
+        k: v.get("flash_attention", 0) for k, v in arch_counts.items()
+        if k.endswith("_prefill")}
+    counts["decode_attention_archs"] = {
+        k: v.get("decode_attention", 0) for k, v in arch_counts.items()
+        if k.endswith("_decode")}
+    phase_head_padding(torch, dev)
+
     # LM training: the data loader, gemma-2b through train_loop, parity
     # against the CPU, restart
     phase_data_loader(torch, dev)
@@ -4096,6 +4379,9 @@ def run_phases(torch, dev) -> list:
         if name == "flash_attention":
             # lm_train's run: the forward and the remat recompute
             entry["lm_train_launches"] = counts_train[name]
+        if name in ("flash_attention", "decode_attention"):
+            # each new arch's prefill (flash) or decode run (decode)
+            entry["arch_launches"] = counts[f"{name}_archs"]
         profiled = {"paged_attention": paged_profile,
                     "gumbel_perturb": gumbel_profile,
                     "flash_attention": flash_profile,

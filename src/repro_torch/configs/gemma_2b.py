@@ -7,6 +7,7 @@ RMSNorm with (1+w) convention.  Copied from ``repro/configs/gemma_2b.py``.
 import torch
 
 from ..models.lm import BlockSpec, LMConfig
+from .common import lm_shapes
 
 CONFIG = LMConfig(
     name="gemma-2b",
@@ -25,3 +26,5 @@ SMOKE = LMConfig(
     act="gelu", norm_offset=1.0, embed_scale=True, tie_embeddings=True,
     param_dtype=torch.float32, remat="none", attn_backend="ref",
 )
+
+SHAPES = lm_shapes(long_ok=False)

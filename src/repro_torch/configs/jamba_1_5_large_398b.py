@@ -12,6 +12,7 @@ Vocab 65536, untied head.  Copied from
 import torch
 
 from ..models.lm import BlockSpec, LMConfig
+from .common import lm_shapes
 
 _PATTERN = tuple(
     BlockSpec(mixer=("attn" if i == 4 else "mamba"),
@@ -42,3 +43,5 @@ SMOKE = LMConfig(
     tie_embeddings=False, param_dtype=torch.float32, remat="none",
     attn_backend="ref",
 )
+
+SHAPES = lm_shapes(long_ok=True)

@@ -9,6 +9,7 @@ two token-shift rows, whatever the sequence length.  Copied from
 import torch
 
 from ..models.lm import BlockSpec, LMConfig
+from .common import lm_shapes
 
 CONFIG = LMConfig(
     name="rwkv6-1.6b",
@@ -27,3 +28,5 @@ SMOKE = LMConfig(
     rwkv_head_dim=32, rope_theta=None, tie_embeddings=False,
     param_dtype=torch.float32, remat="none", attn_backend="ref",
 )
+
+SHAPES = lm_shapes(long_ok=True)

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import default_device, resolve_device
-from ..configs import gemma_2b, jamba_1_5_large_398b, rwkv6_1_6b
+from ..configs import ARCHS, get_smoke_config
 from ..models import lm as LM
 from ..optim.functional import (clip_by_global_norm, make_optimizer,
                                 tree_leaves, tree_map)
@@ -194,8 +194,14 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
     device) of the first layer of each kind of block against that layout,
     whatever the mixer.  Where a layer caches keys by position, ``pos``
     must lie inside ``max_seq``, where the reference's
-    ``dynamic_update_slice`` would clamp the write; a recurrent state
-    (rwkv) holds no positions, and there ``pos`` need only be >= 0."""
+    ``dynamic_update_slice`` would clamp the write (a sliding layer's
+    ring of ``min(max_seq, window)`` slots needs no more than that); a
+    recurrent state (rwkv) holds no positions, and there ``pos`` need
+    only be >= 0.  An encoder (``lm_head=False``) has no decode step and
+    raises here."""
+    if not cfg.lm_head:
+        raise ValueError(f"{cfg.name}: an encoder (lm_head=False) has no "
+                         f"decode step")
     layout = LM.cache_layout(cfg, batch, max_seq, cache_dtype)
     dev = resolve_device(device)
     probes = [i for i, entry in enumerate(layout)
@@ -330,15 +336,6 @@ SIZES = {
     "100m": (12, 768, 12, 4, 3072, 16384),
 }
 
-# the reference's architectures (repro/configs/__init__.py::ARCHS); the
-# port has configs for three of them
-ARCHS = ("qwen2-moe-a2.7b", "arctic-480b", "rwkv6-1.6b",
-         "jamba-1.5-large-398b", "gemma-2b", "gemma3-1b", "yi-34b",
-         "minicpm3-4b", "llava-next-mistral-7b", "hubert-xlarge")
-PORTED_ARCHS = {"gemma-2b": gemma_2b, "rwkv6-1.6b": rwkv6_1_6b,
-                "jamba-1.5-large-398b": jamba_1_5_large_398b}
-
-
 def build_config(size: str) -> LM.LMConfig:
     l, d, h, kv, ff, v = SIZES[size]
     return LM.LMConfig(
@@ -347,16 +344,6 @@ def build_config(size: str) -> LM.LMConfig:
         pattern=(LM.BlockSpec("attn", "dense"),),
         param_dtype=torch.float32, remat="none", attn_backend="ref",
         tie_embeddings=True)
-
-
-def smoke_config(arch: str) -> LM.LMConfig:
-    """The reduced (``SMOKE``) config of a ported architecture."""
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: no config in the port yet; it has "
-            f"{', '.join(sorted(PORTED_ARCHS))} (the others are "
-            f"ROADMAP.md queue A6)")
-    return PORTED_ARCHS[arch].SMOKE
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -379,7 +366,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = smoke_config(args.arch) if args.arch else build_config(args.size)
+    # an arch's SMOKE is fed tokens whatever its input_mode, as the
+    # reference's trainer does: an embeddings-mode arch embeds them
+    cfg = (get_smoke_config(args.arch) if args.arch
+           else build_config(args.size))
     print(f"training {cfg.name}: {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab_size} on {dev}")
     result = train_loop(

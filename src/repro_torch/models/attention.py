@@ -34,6 +34,13 @@ ops (scores, the mask, an fp32 softmax, PV), as the reference computes
 that case in XLA through ``sdpa_ref`` and not in a Pallas kernel, so no
 kernel of the table stands behind it.
 
+Head widths: the kernels are instantiated at ``kernels._build.
+HEAD_DIMS`` with one width for q, k and v.  :func:`sdpa` and
+:func:`decode_attention` zero-pad any other width (hubert's 80), and a v
+narrower than q/k (MLA's 96 / 64), to the next instantiated width and
+cut the output back (:func:`padded_call`); the wrappers below them still
+raise on a width they cannot launch.
+
 The reference's ``_build_mask`` is ``kernels.flash_attention.
 visible_mask``.  Its ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
 sequence sharding across a mesh and is not ported (ROADMAP.md queue A7).
@@ -44,8 +51,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import flash_attention as FA
+from ..kernels._build import HEAD_DIMS
 from ..kernels import ops as kops
 
 paged_attention = kops.paged_attention
@@ -131,18 +140,63 @@ def sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, sq, d)
 
 
+def padded_width(d_qk: int, d_v: int) -> Optional[int]:
+    """The head width the kernels run q/k of width ``d_qk`` and v of
+    width ``d_v`` at: None when both are one instantiated width (no
+    padding), else the least instantiated width that holds both (hubert's
+    80 -> 128, MLA's 96 / 64 -> 128).  Raises when none does."""
+    if d_qk == d_v and d_qk in HEAD_DIMS:
+        return None
+    for w in HEAD_DIMS:
+        if w >= max(d_qk, d_v):
+            return w
+    raise ValueError(f"attention: head widths q/k {d_qk}, v {d_v} exceed "
+                     f"every instantiated width {HEAD_DIMS}")
+
+
+def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
+    return F.pad(x, (0, width - x.shape[-1]))
+
+
+def padded_call(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: Optional[float], **kw) -> torch.Tensor:
+    """``fn(q, k, v, scale=scale, **kw)`` (a kernel wrapper of
+    ``kernels.ops``) at an instantiated head width.  When q/k or v is not
+    one (:func:`padded_width`), all three are zero-padded to it, the
+    kernel runs with the caller's scale (default ``d_qk ** -0.5``, never
+    the padded width's), and the output is cut to v's width.  Exact:
+    zero columns add nothing to q.k, and the zero v columns are cut off.
+    The port's counterpart of the reference's 128-lane ``_pad_last``
+    (``repro/kernels/ops.py:63-66``), which pads every width not a
+    multiple of 128; here only the widths the kernels lack are padded.
+    Differentiable (padding and slicing are autograd ops)."""
+    d_qk, d_v = q.shape[-1], v.shape[-1]
+    if k.shape[-1] != d_qk:
+        raise ValueError(f"attention: q width {d_qk} != k width "
+                         f"{k.shape[-1]}")
+    scale = scale if scale is not None else d_qk ** -0.5
+    width = padded_width(d_qk, d_v)
+    if width is None:
+        return fn(q, k, v, scale=scale, **kw)
+    out = fn(_pad_to(q, width), _pad_to(k, width), _pad_to(v, width),
+             scale=scale, **kw)
+    return out[..., :d_v]
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mask: Optional[torch.Tensor] = None, is_causal: bool = False,
          scale: Optional[float] = None, window: Optional[int] = None,
          backend: str = "auto") -> torch.Tensor:
-    """Scaled dot-product attention, q (B, Hq, Sq, D) against k/v (B, Hkv,
-    Skv, D), the queries being the last Sq positions, through the flash
-    kernel (differentiable) for every backend.  An explicit ``mask``
-    takes :func:`sdpa_masked` (torch ops, on every device)."""
+    """Scaled dot-product attention, q (B, Hq, Sq, D) against k (B, Hkv,
+    Skv, D) and v (B, Hkv, Skv, Dv), the queries being the last Sq
+    positions, through the flash kernel (differentiable) for every
+    backend; a width the kernel lacks, or Dv != D, is padded
+    (:func:`padded_call`).  Returns (B, Hq, Sq, Dv).  An explicit
+    ``mask`` takes :func:`sdpa_masked` (torch ops, on every device)."""
     _check_backend("sdpa", backend)
     if mask is None:
-        return kops.flash_attention(q, k, v, causal=is_causal, scale=scale,
-                                    window=window)
+        return padded_call(kops.flash_attention, q, k, v, scale,
+                           causal=is_causal, window=window)
     return sdpa_masked(q, k, v, mask, is_causal, scale, window)
 
 
@@ -152,12 +206,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: Optional[int] = None,
                      backend: str = "auto") -> torch.Tensor:
     """Single-position decode through the decode kernel for every
-    backend: q (B, Hq, 1, D) against a (B, Hkv, Smax, D) cache filled up
-    to ``cache_len`` (a host int or a (B,) tensor); keys at
-    ``max(len - window, 0) <= k_pos < len`` are visible."""
+    backend: q (B, Hq, 1, D) against a k (B, Hkv, Smax, D) and v (B,
+    Hkv, Smax, Dv) cache filled up to ``cache_len`` (a host int or a
+    (B,) tensor); keys at ``max(len - window, 0) <= k_pos < len`` are
+    visible.  A width the kernel lacks, or Dv != D, is padded
+    (:func:`padded_call`).  Returns (B, Hq, 1, Dv)."""
     _check_backend("decode_attention", backend)
-    return kops.decode_attention(q, k_cache, v_cache, cache_len,
-                                 scale=scale, window=window)
+    return padded_call(
+        lambda q_, k_, v_, scale: kops.decode_attention(
+            q_, k_, v_, cache_len, scale=scale, window=window),
+        q, k_cache, v_cache, scale)
 
 
 def mixed_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,7 +1,8 @@
 """Functional LM building blocks in PyTorch (params are plain dicts).
 
-Counterpart of ``repro/models/layers.py`` for the attn/dense path, the
-GShard MoE, the Mamba mixer and the RWKV-6 block.  Layouts are the
+Counterpart of ``repro/models/layers.py``: attention (GQA, sliding
+window, qkv bias, qk-norm), MLA, the dense FFN, the GShard MoE, the
+Mamba mixer and the RWKV-6 block.  Layouts are the
 reference's: linear weights are stored ``(in, out)`` and applied as
 ``x @ W``; norm weights and statistics are fp32.
 """
@@ -41,13 +42,20 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
 
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int,
-              n_kv_heads: int, head_dim: int, dtype, device) -> Params:
-    return {
+              n_kv_heads: int, head_dim: int, dtype, device,
+              qkv_bias: bool = False) -> Params:
+    p = {
         "wq": dense_init(gen, d_model, n_heads * head_dim, dtype, device),
         "wk": dense_init(gen, d_model, n_kv_heads * head_dim, dtype, device),
         "wv": dense_init(gen, d_model, n_kv_heads * head_dim, dtype, device),
         "wo": dense_init(gen, n_heads * head_dim, d_model, dtype, device),
     }
+    if qkv_bias:
+        for name, width in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+            p[name] = torch.zeros(width * head_dim, dtype=dtype,
+                                  device=device)
+    return p
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
@@ -194,6 +202,103 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
 
     out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
     return out @ p["wo"], new_cache
+
+
+# ----------------------------------------------------------------------
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2)
+# ----------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, d_model: int, n_heads: int, *,
+             q_lora_rank: int, kv_lora_rank: int, nope_dim: int,
+             rope_dim: int, v_dim: int, dtype, device) -> Params:
+    """The reference's shapes and per-leaf dtypes
+    (``repro/models/layers.py:186-199``): the projections in ``dtype``,
+    ``q_norm`` and ``kv_norm`` ones in fp32."""
+    def dense(i, o):
+        return dense_init(gen, i, o, dtype, device)
+
+    return {
+        "wq_a": dense(d_model, q_lora_rank),
+        "wq_b": dense(q_lora_rank, n_heads * (nope_dim + rope_dim)),
+        "wkv_a": dense(d_model, kv_lora_rank + rope_dim),
+        "wkv_b": dense(kv_lora_rank, n_heads * (nope_dim + v_dim)),
+        "q_norm": torch.ones(q_lora_rank, dtype=torch.float32,
+                             device=device),
+        "kv_norm": torch.ones(kv_lora_rank, dtype=torch.float32,
+                              device=device),
+        "wo": dense(n_heads * v_dim, d_model),
+    }
+
+
+def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
+                  nope_dim: int, rope_dim: int, v_dim: int,
+                  kv_lora_rank: int, causal: bool = True,
+                  rope_theta: float = 10000.0,
+                  cache: Optional[Params] = None,
+                  cache_pos: Optional[int] = None,
+                  backend: str = "auto"
+                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Latent-compressed attention (``repro/models/layers.py:202-265``).
+    x: (B, S, D).  Queries go ``wq_a -> q_norm -> wq_b``; the keys and
+    values come from the latent ``c_kv`` (``kv_lora_rank`` wide, through
+    ``kv_norm``), expanded per head through ``wkv_b``, with one roped
+    key part ``k_rope`` shared by every head.  Scale ``(nope + rope) **
+    -0.5``.
+
+    With ``cache`` ({"c_kv": (B, Smax, rank), "k_rope": (B, 1, Smax,
+    rope)}, the only per-token state: MLA's memory saving) the step's
+    latent and roped key are written in place at ``cache_pos`` and the
+    queries attend the first ``cache_pos + S`` positions, the latent of
+    each expanded again as the reference does (the absorbed form is not
+    taken).  q and k are ``nope + rope`` wide and v ``v_dim``: the
+    attention wrappers pad them to one instantiated width."""
+    b, s, _ = x.shape
+    qd = nope_dim + rope_dim
+
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"])
+    q = (cq @ p["wq_b"]).reshape(b, s, n_heads, qd).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope_dim], q[..., nope_dim:]
+
+    kv_a = x @ p["wkv_a"]                               # (B, S, rank+rope)
+    c_kv = rms_norm(kv_a[..., :kv_lora_rank], p["kv_norm"])
+    k_rope = kv_a[..., kv_lora_rank:]                   # shared by heads
+
+    start = 0 if cache is None else cache_pos
+    positions = torch.arange(start, start + s, device=x.device)
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    k_rope = apply_rope(k_rope[:, None], positions, rope_theta)  # (B,1,S,r)
+
+    if cache is not None:
+        cache["c_kv"][:, cache_pos:cache_pos + s] = c_kv.to(
+            cache["c_kv"].dtype)
+        cache["k_rope"][:, :, cache_pos:cache_pos + s] = k_rope.to(
+            cache["k_rope"].dtype)
+        kv_len = cache_pos + s
+        # the cache's entries are read in the activation dtype, as the
+        # reference's dynamic_update_slice result meets x's weights
+        c_kv = cache["c_kv"][:, :kv_len].to(x.dtype)
+        k_rope = cache["k_rope"][:, :, :kv_len].to(x.dtype)
+    else:
+        kv_len = s
+
+    # the latent expanded to per-head K_nope and V
+    kv = (c_kv @ p["wkv_b"]).reshape(b, kv_len, n_heads, nope_dim + v_dim)
+    k_nope = kv[..., :nope_dim].transpose(1, 2)
+    v = kv[..., nope_dim:].transpose(1, 2)
+    k = torch.cat([k_nope, k_rope.expand(b, n_heads, kv_len, rope_dim)],
+                  dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    scale = qd ** -0.5
+
+    if cache is None:
+        out = A.sdpa(qfull, k, v, is_causal=causal, scale=scale,
+                     backend=backend)
+    else:
+        out = A.decode_attention(qfull, k, v, cache_len=kv_len, scale=scale,
+                                 backend=backend)
+    out = out.transpose(1, 2).reshape(b, s, n_heads * v_dim)
+    return out @ p["wo"], cache
 
 
 # ----------------------------------------------------------------------

@@ -1,35 +1,47 @@
 """The decoder LM in PyTorch: configuration, parameters, prefill and
 decode.
 
-Counterpart of ``repro/models/lm.py`` for ``attn`` and ``mamba`` blocks
-with a ``dense`` or ``moe`` FFN (or none after attn), and ``rwkv`` blocks
-(RWKV-6, channel mix inside the block): the config dataclasses (torch
-dtypes), :func:`init_params`, :func:`params_from_numpy` (carries the
-reference's parameter pytree across), :func:`cast_params`,
-:func:`forward` (prefill; attention through the flash kernel, WKV6 and
-the Mamba scan through theirs; returns the summed MoE aux loss),
-:func:`init_cache` and :func:`decode_step` (one token per row against
-the cache; attention through the decode kernel, WKV6 and the Mamba scan
-through theirs from the cached state; MoE dropless), and
-:func:`lm_loss` (the training loss; ``forward`` checkpoints each group
-of layers under ``remat="full"``).
+Counterpart of ``repro/models/lm.py`` for every block it builds: the
+``attn``, ``sliding`` (window in prefill, a ring cache in decode),
+``mla``, ``mamba`` and ``rwkv`` mixers (RWKV-6 keeps its channel mix
+inside the block), each with a ``dense``, ``moe`` (optionally beside a
+dense residual FFN) or no FFN; qkv bias, qk-norm, embeddings in, an
+encoder head and a final logit softcap.  It holds the config
+dataclasses (torch dtypes), :func:`init_params`,
+:func:`params_from_numpy` (carries the reference's parameter pytree
+across), :func:`cast_params`, :func:`forward` (prefill; attention
+through the flash kernel, WKV6 and the Mamba scan through theirs;
+returns the summed MoE aux loss), :func:`init_cache` and
+:func:`decode_step` (one token per row against the cache; attention
+through the decode kernel, WKV6 and the Mamba scan through theirs from
+the cached state; MoE dropless), and :func:`lm_loss` (the training
+loss; ``forward`` checkpoints each group of layers under
+``remat="full"``).
 
 The port keeps parameters as one per-layer list, the layout the serving
 executor iterates (the reference stacks groups for ``lax.scan`` and
 unstacks them in ``serving/executor.py::split_layer_params``)::
 
     {"embed": (V, D), "final_norm": (D,), ["lm_head": (D, V)],
-     "layers": [{"norm1", "attn": {"wq", "wk", "wv", "wo"}
+     ["cls_head": (D, n_classes)],
+     "layers": [{"norm1", "attn": {"wq", "wk", "wv", "wo",
+                                   ["bq", "bk", "bv"],
+                                   ["q_norm", "k_norm"]}
+                          or "attn": {"wq_a", "wq_b", "wkv_a", "wkv_b",
+                                      "q_norm", "kv_norm", "wo"} (mla)
                           or "mamba": {"in_proj", "conv_w", ...},
                  "norm2", "mlp": {"w_up", "w_down", ["w_gate"]}
                           or "moe": {"router", "w_up", "w_down",
-                                     "w_gate", ["shared"]}}
+                                     "w_gate", ["shared"]}
+                                 [+ "mlp", the dense residual]}
                 or {"norm1", "rwkv": {...}}, ...]}
 
 The cache is a per-layer list as well: ``{"k": (B, Hkv, Smax, hd), "v"}``
-for an attn layer, ``{"conv": (B, d_conv - 1, Di), "ssm": (B, Di, N)
-fp32}`` for a mamba layer, ``{"wkv": (B, H, hd, hd) fp32, "shift",
-"cm_shift": (B, 1, D)}`` for an rwkv layer.  :func:`decode_step` updates
+for an attn layer (``min(Smax, window)`` slots, a ring, for a sliding
+one), ``{"c_kv": (B, Smax, rank), "k_rope": (B, 1, Smax, rope)}`` for an
+mla layer, ``{"conv": (B, d_conv - 1, Di), "ssm": (B, Di, N) fp32}`` for
+a mamba layer, ``{"wkv": (B, H, hd, hd) fp32, "shift", "cm_shift": (B,
+1, D)}`` for an rwkv layer.  :func:`decode_step` updates
 it in place (the reference stacks it per group for ``lax.scan`` and
 donates it, or returns new recurrent entries).
 """
@@ -132,26 +144,23 @@ class LMConfig:
         return tuple(self.pattern) * self.n_groups + tuple(self.tail)
 
 
-# (mixer, ffn) pairs the port covers
-SUPPORTED_BLOCKS = frozenset({("attn", "dense"), ("attn", "none"),
-                              ("attn", "moe"), ("mamba", "dense"),
-                              ("mamba", "moe"), ("rwkv", "none")})
+MIXERS = ("attn", "sliding", "mla", "mamba", "rwkv")
+FFNS = ("dense", "moe", "none")
+# (mixer, ffn) pairs the port covers: every pair the reference's
+# _block_init builds
+SUPPORTED_BLOCKS = frozenset((m, f) for m in MIXERS for f in FFNS)
 
 
 def _check_supported(cfg: LMConfig) -> None:
+    """What the reference refuses too: a mixer or FFN it does not know,
+    an input mode other than tokens or embeddings."""
     for spec in cfg.layer_specs():
         if (spec.mixer, spec.ffn) not in SUPPORTED_BLOCKS:
-            raise NotImplementedError(
-                f"{cfg.name}: block {spec} is not ported yet; the port "
-                f"covers attn/dense|moe|none, mamba/dense|moe and "
-                f"rwkv/none blocks (other mixers are ROADMAP.md queue A6)")
-    if cfg.qkv_bias or cfg.qk_norm or cfg.final_softcap or \
-            cfg.moe_dense_residual or cfg.input_mode != "tokens" or \
-            not cfg.lm_head:
-        raise NotImplementedError(
-            f"{cfg.name}: qkv bias, qk-norm, softcap, the MoE dense "
-            f"residual, embeddings-in and encoder heads are not ported "
-            f"yet (ROADMAP.md queue A6)")
+            raise ValueError(f"{cfg.name}: unknown block {spec} (mixers "
+                             f"{MIXERS}, FFNs {FFNS})")
+    if cfg.input_mode not in ("tokens", "embeddings"):
+        raise ValueError(f"{cfg.name}: unknown input_mode "
+                         f"{cfg.input_mode!r}")
 
 
 def _norm_init(cfg: LMConfig, device) -> torch.Tensor:
@@ -192,9 +201,20 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
                                       d_conv=cfg.mamba_d_conv,
                                       expand=cfg.mamba_expand, dtype=dt,
                                       device=dev)
+        elif spec.mixer == "mla":
+            p["attn"] = L.mla_init(
+                gen, cfg.d_model, cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+                kv_lora_rank=cfg.kv_lora_rank, nope_dim=cfg.mla_nope_dim,
+                rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim, dtype=dt,
+                device=dev)
         else:
             p["attn"] = L.attn_init(gen, cfg.d_model, cfg.n_heads,
-                                    cfg.n_kv_heads, cfg.hd, dt, dev)
+                                    cfg.n_kv_heads, cfg.hd, dt, dev,
+                                    qkv_bias=cfg.qkv_bias)
+            if cfg.qk_norm:
+                for name in ("q_norm", "k_norm"):
+                    p["attn"][name] = torch.ones(
+                        cfg.hd, dtype=torch.float32, device=dev)
         if spec.ffn != "none":
             p["norm2"] = _norm_init(cfg, dev)
             if cfg.norm == "layer":
@@ -208,11 +228,18 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
                                   n_shared=cfg.n_shared_experts,
                                   d_ff_shared=cfg.d_ff_shared,
                                   n_padded=cfg.n_experts_padded)
+            if cfg.moe_dense_residual:
+                p["mlp"] = L.mlp_init(
+                    gen, cfg.d_model, cfg.d_ff_dense_residual or cfg.d_ff,
+                    dt, dev, gated=True)
         layers.append(p)
     params["layers"] = layers
-    if not cfg.tie_embeddings:
+    if cfg.lm_head and not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                          dt, dev)
+    if not cfg.lm_head and cfg.n_classes:
+        params["cls_head"] = L.dense_init(gen, cfg.d_model, cfg.n_classes,
+                                          dt, dev)
     return params
 
 
@@ -242,13 +269,14 @@ def params_to(params: Params, device) -> Params:
 
 
 # leaves that init_params (and the reference's) makes in fp32 whatever
-# param_dtype is: norm weights and biases, rwkv's ln_out, decay_base and
-# bonus (repro/models/layers.py:555-561), mamba's dt_bias, A_log, D and
-# norm (:438-446), the MoE router (:310)
+# param_dtype is: norm weights and biases, qk-norm and MLA's q_norm and
+# kv_norm (repro/models/lm.py:123-124, layers.py:195-196), rwkv's ln_out,
+# decay_base and bonus (layers.py:555-561), mamba's dt_bias, A_log, D
+# and norm (:438-446), the MoE router (:310)
 FP32_LEAVES = frozenset({"norm1", "norm1_b", "norm2", "norm2_b",
-                         "final_norm", "final_norm_b", "ln_out",
-                         "decay_base", "bonus", "dt_bias", "A_log", "D",
-                         "norm", "router"})
+                         "final_norm", "final_norm_b", "q_norm", "k_norm",
+                         "kv_norm", "ln_out", "decay_base", "bonus",
+                         "dt_bias", "A_log", "D", "norm", "router"})
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
@@ -305,10 +333,15 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                  cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """An attn or mamba block with a dense or MoE FFN (or none), or an
-    rwkv block; returns (x, aux + this block's MoE aux loss, new cache).
-    ``cache_pos``: the host int write position in decode (recurrent
-    blocks need none: their state holds the past)."""
+    """One block: its mixer, then its FFN (dense, MoE with an optional
+    dense residual beside it, or none); returns (x, aux + this block's
+    MoE aux loss, new cache).  ``cache_pos``: the host int absolute
+    position in decode (recurrent blocks need none: their state holds
+    the past).  A sliding layer windows its prefill and, in decode,
+    writes its ring at slot ``cache_pos % ring`` and attends the
+    ``min(cache_pos + S, ring)`` live slots with no window (the ring is
+    the window), its keys roped at their absolute positions, as the
+    reference does (``repro/models/lm.py:240-256``)."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     if spec.mixer == "rwkv":
         out, new_cache = L.rwkv6(p["rwkv"], h, head_dim=cfg.rwkv_head_dim,
@@ -318,12 +351,30 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                                  d_conv=cfg.mamba_d_conv,
                                  expand=cfg.mamba_expand, cache=cache,
                                  backend=cfg.attn_backend)
+    elif spec.mixer == "mla":
+        out, new_cache = L.mla_attention(
+            p["attn"], h, n_heads=cfg.n_heads, nope_dim=cfg.mla_nope_dim,
+            rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim,
+            kv_lora_rank=cfg.kv_lora_rank, causal=cfg.causal,
+            rope_theta=cfg.rope_theta, cache=cache, cache_pos=cache_pos,
+            backend=cfg.attn_backend)
     else:
+        sliding = spec.mixer == "sliding"
+        window = cfg.window if sliding else None
+        theta = (cfg.rope_theta_local
+                 if (sliding and cfg.rope_theta_local) else cfg.rope_theta)
+        write_pos, cache_len = cache_pos, None
+        if cache is not None and sliding:
+            ring = cache["k"].shape[2]
+            write_pos = cache_pos % ring
+            cache_len = min(cache_pos + h.shape[1], ring)
+            window = None                  # the ring is the window
         out, new_cache = L.attention(
             p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.hd, causal=cfg.causal, window=None,
-            rope_theta=cfg.rope_theta, query_scale=cfg.query_scale,
-            cache=cache, cache_pos=cache_pos, q_norm=cfg.qk_norm,
+            head_dim=cfg.hd, causal=cfg.causal, window=window,
+            rope_theta=theta, query_scale=cfg.query_scale,
+            cache=cache, cache_pos=write_pos, cache_len=cache_len,
+            abs_pos_arg=cache_pos, q_norm=cfg.qk_norm,
             backend=cfg.attn_backend)
     x = x + out
     if spec.ffn != "none":
@@ -339,6 +390,8 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                 p["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 capacity_factor=cf, activation=cfg.act,
                 n_padded=cfg.n_experts_padded)
+            if cfg.moe_dense_residual:
+                moe_out = moe_out + L.mlp(p["mlp"], h2, cfg.act)
             x = x + moe_out
             aux = aux + moe_aux
     return x, aux, new_cache
@@ -359,10 +412,19 @@ def _embed(cfg: LMConfig, params: Params, tokens=None,
 
 
 def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm, then the LM head (tied or not) and the optional
+    softcap ``tanh(logits / c) * c`` in fp32; an encoder
+    (``lm_head=False``) returns its ``cls_head`` logits, or the normed
+    hidden states without one."""
     x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    if not cfg.lm_head:
+        return x @ params["cls_head"] if cfg.n_classes else x
+    logits = x @ (params["embed"].T if cfg.tie_embeddings
+                  else params["lm_head"])
+    if cfg.final_softcap:
+        c = cfg.final_softcap
+        logits = torch.tanh(logits.float() / c) * c
+    return logits
 
 
 # ----------------------------------------------------------------------
@@ -466,7 +528,13 @@ def _block_cache_layout(cfg: LMConfig, spec: BlockSpec, batch: int,
         return {"conv": ((batch, cfg.mamba_d_conv - 1, d_inner),
                          cfg.param_dtype),
                 "ssm": ((batch, d_inner, cfg.mamba_d_state), torch.float32)}
-    kv = ((batch, cfg.n_kv_heads, max_seq, cfg.hd), dtype)
+    if spec.mixer == "mla":
+        return {"c_kv": ((batch, max_seq, cfg.kv_lora_rank), dtype),
+                "k_rope": ((batch, 1, max_seq, cfg.mla_rope_dim), dtype)}
+    slots = max_seq
+    if spec.mixer == "sliding":
+        slots = min(max_seq, cfg.window or max_seq)
+    kv = ((batch, cfg.n_kv_heads, slots, cfg.hd), dtype)
     return {"k": kv, "v": kv}
 
 
@@ -497,8 +565,12 @@ def decode_step(cfg: LMConfig, params: Params, cache: Cache,
     """One serving step: ``tokens`` (B, 1), ``pos`` the host int write
     position (== the number of tokens already in the cache).  Returns
     (logits (B, 1, V), cache); the cache tensors are updated in place and
-    returned as they are."""
+    returned as they are.  An encoder (``lm_head=False``) has no decode
+    step and raises (the reference's fails reading its ``lm_head``)."""
     _check_supported(cfg)
+    if not cfg.lm_head:
+        raise ValueError(f"{cfg.name}: an encoder (lm_head=False) has no "
+                         f"decode step")
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):

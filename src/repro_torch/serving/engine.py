@@ -76,6 +76,15 @@ class ServingEngine:
                 raise NotImplementedError(
                     "paged engine applies dense FFNs only; MoE serving is "
                     "not ported (ROADMAP.md queue C)")
+        if cfg.qkv_bias or cfg.qk_norm:
+            # the reference's executor projects q/k/v with neither the
+            # bias nor the qk-norm (repro/serving/executor.py:284-292)
+            # and so serves another function than decode_step; the port
+            # refuses
+            raise NotImplementedError(
+                "paged engine applies neither qkv bias nor qk-norm; serve "
+                "this config through the dense-cache step builders "
+                "(ROADMAP.md queue C)")
         if mesh is not None or n_replicas != 1:
             raise NotImplementedError(
                 "sharded serving (mesh / n_replicas > 1) is not ported "

@@ -10,7 +10,7 @@ import torch
 
 from repro.configs import gemma_2b as jgemma
 from repro.models import layers as JL
-from repro.models.lm import init_params
+from repro.models.lm import BlockSpec, init_params
 from repro.serving.executor import Executor as JExecutor
 from repro_torch.configs import gemma_2b as tgemma
 from repro_torch.models import layers as TL
@@ -89,10 +89,18 @@ def test_init_params_shapes_and_unsupported_mixers():
         assert tuple(layer["mlp"][k].shape) == \
             ref["groups"][0]["mlp"][k][1:]
     import dataclasses
-    mla = dataclasses.replace(port_cfg(cfg),
-                              pattern=(TLM.BlockSpec("mla", "dense"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.init_params(mla, device="cpu")
+    unknown = dataclasses.replace(port_cfg(cfg),
+                                  pattern=(TLM.BlockSpec("lstm", "dense"),))
+    with pytest.raises(ValueError, match="unknown block"):
+        TLM.init_params(unknown, device="cpu")
+    # mla builds, with the reference's shapes
+    mla_cfg = dataclasses.replace(
+        cfg, pattern=(BlockSpec("mla", "dense"),), q_lora_rank=32,
+        kv_lora_rank=16, mla_nope_dim=16, mla_rope_dim=8, mla_v_dim=16)
+    ref = jax.tree.map(np.shape, init_params(mla_cfg, jax.random.key(0)))
+    ours = TLM.init_params(port_cfg(mla_cfg), seed=0, device="cpu")
+    for k, t in ours["layers"][0]["attn"].items():
+        assert tuple(t.shape) == ref["groups"][0]["attn"][k][1:]
 
 
 def mixed_batch(cfg, kv_quant, seed=4):

@@ -376,8 +376,11 @@ def test_cli_arch_takes_the_ported_smoke_configs(tmp_path):
                       "1", "--batch-size", "2", "--seq-len", "8",
                       "--checkpoint-dir", str(tmp_path)])
     assert res["steps"] == 1
-    with pytest.raises(NotImplementedError, match="A6"):
-        train.main(["--device", "cpu", "--arch", "yi-34b"])
+    # every arch of the registry is ported; a name outside it is refused
+    from repro import configs as jconfigs
+    assert list(train.ARCHS) == jconfigs.ARCHS
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--arch", "gpt-5"])
 
 
 def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch, tmp_path):

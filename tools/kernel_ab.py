@@ -406,8 +406,9 @@ def measure_dense32(torch, cs, dev: str = "cuda") -> dict:
         def kern(q=q, k=k, v=v, kw=kw):
             return FA.flash_attention_fwd(q, k, v, **kw)
         lib = cs.flash_library(torch, q, k, v, (b, hq, hkv, sq, skv, d),
-                               window, FA.visible_mask(sq, skv, True, window,
-                                                       dev))
+                               window, FA.visible_mask(sq, skv, kw["causal"],
+                                                       window, dev),
+                               kw["causal"])
         profiled.append(("flash", label, dt, kern, lib, FA.counter,
                          "flash_attention"))
     for spec in cs.DECODE_ROWS:
