@@ -63,7 +63,20 @@ path:
     chain, one fused launch a step); the jit bridge
     (``repro_torch.compile``: ResNet-50's eval forward, an NCF
     ``value_and_grad`` step, SDPA through the flash kernel's custom op,
-    a fused chain bypassed); masked SDPA on the card;
+    a fused chain bypassed, and each other kernel launch called inside
+    a compiled function: one custom op, one launch, the eager bits);
+    masked SDPA on the card;
+  * the distributed slice: the paged kernel's log-sum-exp output
+    (``paged_attention_lse`` rows); gemma-2b with ``n_replicas=2`` on
+    the card (``replica_serving``); sharded serving on meshes of ranks
+    that the script starts itself (``run_ranks``: NCCL with a card a
+    rank where there are enough, else gloo with the ranks sharing
+    ``cuda:0``): fp32 gemma-2b cut to 2 layers on (2,1), (1,2), (2,2),
+    greedy and sampled, equal to the no-mesh engine, and bf16 gemma-2b
+    at full depth on (1,2) (its one KV head context-parallel) and (2,2)
+    (``sharded_serving``); DDP's synced gradients against one process's
+    full batch (``ddp``) and a 4-stage pipeline against the sequential
+    composition (``pipeline``);
   * LM training: ``data.DataLoader`` over ``SyntheticLMDataset`` with
     and without pinned staging on its copy stream; gemma-2b (bf16,
     remat "full", AdamW, 4 x 1024 tokens) through ``train_loop`` (the
@@ -2609,7 +2622,9 @@ def compiled_kernels(torch, dev) -> dict:
     causal) launches the flash kernel exactly once a call and gives the
     eager call's bits; an elementwise chain under ``fusion()`` launches
     no fused kernel (the queue is bypassed) and agrees with the eager
-    fused result."""
+    fused result; and every other kernel launch, called directly inside a
+    compiled function, is one operator launched once a call with the
+    eager bits (``compiled_launches``)."""
     import repro_torch as rt
     import repro_torch.nn.functional as F
 
@@ -2646,7 +2661,8 @@ def compiled_kernels(torch, dev) -> dict:
     res = {"sdpa_shape": COMPILED_SDPA_SHAPE, "sdpa_compile_s": seconds,
            "sdpa_graph_breaks": breaks, "sdpa_launches": counts,
            "sdpa_bits_equal": True, "chain_launches": chain_counts,
-           "chain_max_abs_err": chain_err, "chain_tol": FUSED_TOL["float32"]}
+           "chain_max_abs_err": chain_err, "chain_tol": FUSED_TOL["float32"],
+           "launch_ops": compiled_launches(torch, dev)}
     if any(chain_counts.values()) or not bool(
             ((chained - fused_eager).abs()
              <= atol + rtol * fused_eager.abs()).all()):
@@ -4214,11 +4230,614 @@ def phase_lm_restart(torch, dev) -> None:
                              f"{second['steps']}, bits equal {exact}")
 
 
+# ----------------------------------------------------------------------
+# the distributed slice: the paged kernel's lse, every launch under
+# compile, data replicas on one card, sharded serving on a mesh of ranks,
+# DDP and the pipeline
+# ----------------------------------------------------------------------
+
+# the paged kernel's log-sum-exp output against the plain version's
+LSE_RTOL = 1e-5
+LSE_CASES = (("bfloat16", "bfloat16"), ("float32", "float32"))
+# replicas on one card: turns of the 16 serving requests at n_replicas=2
+REPLICA_TURNS = 2
+# sharded serving: the fp32 parity meshes (gemma-2b at full width cut to
+# 2 layers, greedy and sampled), the bf16 full-depth meshes
+SHARDED_MESHES = ((2, 1), (1, 2), (2, 2))
+SHARDED_BF16_MESHES = ((1, 2), (2, 2))
+SHARDED_PARITY_LAYERS = 2
+SHARDED_SEED = 5
+SHARDED_SAMPLED = dict(temperature=0.8, top_k=20, seed=42)
+# DDP: Linear(16, W) -> ReLU -> Linear(W, 4), 2 ranks each on half of the
+# batch; buckets of 0.05 MB give two (the second layer, the first)
+DDP_WIDTH = 4096
+DDP_BATCH = 64
+DDP_BUCKET_MB = 0.05
+DDP_TOL = 1e-5                     # of the full-batch gradient's max
+# the pipeline: 4 stages of tanh(x @ w), 4 microbatches, fp32
+PIPE_WIDTH, PIPE_BATCH, PIPE_MICRO, PIPE_STAGES = 2048, 256, 4, 4
+PIPE_TOL = (2e-4, 2e-5)            # the reference test's rtol, atol
+RANK_TIMEOUT = 900                 # seconds a group of ranks may take
+
+
+def phase_paged_lse(torch, dev) -> list:
+    """The paged kernel's optional lse output at the paged row's inputs
+    (bf16 q over a bf16 pool: "mma"; fp32 over fp32: "simt"): the output
+    within the row's limit and bit for bit a call without lse; the lse
+    within ``LSE_RTOL`` relative of ``paged_attention_plain``'s; the ms of
+    a call with and without it."""
+    from repro_torch.kernels import decode_attention as DA
+
+    gen = torch.Generator().manual_seed(11)
+    x = paged_inputs(torch, gen, dev)
+    scale = 256 ** -0.5
+    live = x["seg"] >= 0
+    rows = []
+    for q_dtype, pool in LSE_CASES:
+        q, kp, vp, _, _ = paged_case_tensors(torch, x, q_dtype, pool)
+
+        def kern(lse=True):
+            return DA.paged_attention_fwd(q, kp, vp, x["tables"], x["seg"],
+                                          x["pos"], scale=scale,
+                                          return_lse=lse)
+
+        out, lse = kern()
+        bare = kern(False)
+        torch.cuda.synchronize()
+        ref, ref_lse = DA.paged_attention_plain(
+            q, kp, vp, x["tables"], x["seg"], x["pos"], scale=scale,
+            return_lse=True)
+        err = (out[live].float() - ref[live].float()).abs().max().item()
+        lse_err = ((lse[live] - ref_lse[live]).abs()
+                   / ref_lse[live].abs().clamp_min(1.0)).max().item()
+        peak = PEAK_OPS[q_dtype]
+        bound_ms, bound_by = paged_bound(x, q, kp.element_size(), False,
+                                         peak)
+        bound_ms += lse.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "kernel", "name": "paged_attention_lse",
+               "q_dtype": q_dtype, "pool": pool,
+               "variant": DA.variant(q.dtype), "T": int(q.shape[0]),
+               "live_tokens": x["n_live"], "max_abs_err": err,
+               "tol": PAGED_TOL[q_dtype], "lse_max_rel_err": lse_err,
+               "lse_rtol": LSE_RTOL,
+               "bits_equal_without_lse": bool(torch.equal(out, bare)),
+               "ms": time_ms(torch, kern),
+               "ms_without_lse": time_ms(torch, lambda: kern(False)),
+               "plain_ms": time_ms(torch, lambda: DA.paged_attention_plain(
+                   q, kp, vp, x["tables"], x["seg"], x["pos"], scale=scale,
+                   return_lse=True), reps=5),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        emit(row)
+        if not (err <= PAGED_TOL[q_dtype] and lse_err <= LSE_RTOL
+                and row["bits_equal_without_lse"]):
+            raise AssertionError(f"paged_attention lse[{q_dtype}]: {row}")
+        rows.append(row)
+    return rows
+
+
+def launch_cases(torch, dev) -> dict:
+    """A small call of each kernel launch of step 0 but flash (kernels 1-4
+    and 6-8 of the table), as (function, its tensors, its counter)."""
+    import repro_torch as rt
+    from repro_torch.core import fuse
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import fused_elementwise as FE
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(75)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    seg = torch.tensor([0, 0, 0, 1, 1, -1], **i32)
+    pos = torch.tensor([3, 4, 5, 9, 10, 0], **i32)
+    tables = torch.arange(8, **i32).reshape(2, 4)
+    pool, cache = rnd(8, 4, 2, 32), rnd(2, 2, 16, 32)
+    x = rnd(64, 33)
+    with rt.default_device(dev):
+        chain, ext = fuse.capture_chain(
+            lambda t: (t * 2.0 + 1.0).tanh() * t, rt.Tensor(x))
+    fused = FE.make_fused_elementwise(chain)
+    return {
+        "paged_attention": (
+            lambda q, kp, vp: DA.paged_attention_fwd(
+                q, kp, vp, tables, seg, pos, scale=0.2, return_lse=True),
+            [rnd(6, 2, 2, 32), pool, pool.flip(0).contiguous()],
+            "paged_attention"),
+        "mixed_attention": (
+            lambda q, k, v: DA.mixed_attention_fwd(
+                q, k, v, seg[1:], pos[1:], scale=0.2),
+            [rnd(5, 2, 2, 32), cache, cache.flip(2).contiguous()],
+            "mixed_attention"),
+        "decode_attention": (
+            lambda q, k, v: DA.decode_attention_fwd(
+                q, k, v, torch.tensor([5, 16], **i32), scale=0.2),
+            [rnd(2, 2, 4, 32), cache, cache.flip(2).contiguous()],
+            "decode_attention"),
+        "gumbel_perturb": (
+            lambda lg, u: kops.gumbel_perturb(lg, u),
+            [rnd(4, 300), torch.rand((4, 300), generator=gen).clamp(
+                1e-6, 1 - 1e-6).to(dev)], "gumbel_perturb"),
+        "gumbel_perturb_keyed": (
+            lambda lg, s, p: kops.gumbel_perturb_keyed(lg, s, p),
+            [rnd(4, 300), torch.arange(1, 5, device=dev),
+             torch.arange(10, 14, device=dev)], "gumbel_perturb"),
+        "fused_elementwise": (lambda *xs: fused(*xs), list(ext),
+                              "fused_elementwise"),
+        "rwkv6_scan": (
+            lambda r, k, v, w, u: kops.rwkv6_scan(r, k, v, w, u),
+            [rnd(1, 2, 8, 64), rnd(1, 2, 8, 64), rnd(1, 2, 8, 64),
+             (torch.rand((1, 2, 8, 64), generator=gen) * 0.5 + 0.4).to(dev),
+             rnd(2, 64)], "rwkv6_scan"),
+        "mamba_scan": (
+            lambda xx, dt, B, C, A, D: kops.mamba_scan(xx, dt, B, C, A, D),
+            [rnd(1, 8, 32), (torch.rand((1, 8, 32), generator=gen)
+                             * 0.1).to(dev), rnd(1, 8, 16), rnd(1, 8, 16),
+             (-torch.rand((32, 16), generator=gen) - 0.5).to(dev),
+             rnd(32)], "mamba_scan"),
+    }
+
+
+def compiled_launches(torch, dev) -> dict:
+    """``repro_torch.compile`` of each launch of ``launch_cases``: no graph
+    break, exactly one launch of its kernel a compiled call (counted
+    inside the compiled call), and the eager call's bits."""
+    import repro_torch as rt
+
+    res = {}
+    for name, (fn, args, counter) in launch_cases(torch, dev).items():
+        def flat(out):
+            return list(out) if isinstance(out, (tuple, list)) else [out]
+        with rt.default_device(dev):
+            eager = flat(fn(*args))
+            cf = rt.compile(fn)
+            _, seconds, breaks = compiled_call(torch, cf, *args)
+            out, counts = check_launches(
+                torch, f"compiled {name}", lambda: flat(cf(*args)),
+                {counter: 1})
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(out, eager))
+        same = all(torch.equal(a, b) for a, b in zip(out, eager))
+        res[name] = {"graph_breaks": breaks, "compile_s": seconds,
+                     "launches": counts[counter], "max_abs_err": err,
+                     "bits_equal": same}
+        if breaks or not same:
+            raise AssertionError(f"compiled {name}: {res[name]}")
+    return res
+
+
+def phase_replica_serving(torch, dev, models) -> dict:
+    """gemma-2b (bf16, full width and depth) with ``n_replicas=2`` on one
+    card: the 16 serving requests over ``REPLICA_TURNS`` turns, one
+    paged-kernel launch a layer serving both replicas; then fp32 gemma-2b
+    cut to 2 of 18 layers at full width: greedy tokens at R = 2 equal
+    R = 1's."""
+    cfg32, params32, cfg, params = models
+    requests = serving_requests(torch, cfg)
+    tps, counts, m = [], None, None
+    for _ in range(REPLICA_TURNS):
+        (outs, wall, m), counts = counted(
+            torch, "replica_serving", lambda: run_engine(
+                torch, cfg, params, requests, dev, n_replicas=2))
+        tps.append(sum(n for _, n, _ in requests) / wall)
+    line = {"phase": "replica_serving", "model": cfg.name,
+            "layers": cfg.n_layers, "n_replicas": m["n_replicas"],
+            "requests": len(requests), "turns": REPLICA_TURNS,
+            "tokens_per_s": tps, "tokens_per_s_spread":
+                (max(tps) - min(tps)) / (sum(tps) / len(tps)),
+            "steps": m["steps"], "launches": counts,
+            "page_hwm_per_replica": m["page_hwm_per_replica"],
+            "kv_bytes": m["kv_bytes"], "peak_mem_gb": peak_gb(torch)}
+    cfg2 = dataclasses.replace(cfg32, n_layers=SHARDED_PARITY_LAYERS)
+    params2 = {**params32, "layers": params32["layers"][
+        :SHARDED_PARITY_LAYERS]}
+    greedy = [r for r in requests if r[2].greedy]
+    one, _, _ = run_engine(torch, cfg2, params2, greedy, dev)
+    two, _, m2 = run_engine(torch, cfg2, params2, greedy, dev,
+                            n_replicas=2)
+    line["fp32_greedy_r2_equals_r1"] = one == two
+    line["fp32_page_hwm_per_replica"] = m2["page_hwm_per_replica"]
+    line["fp32_first_divergence"] = first_divergence(one, two)
+    emit(line)
+    if one != two:
+        raise AssertionError(f"replica_serving: fp32 greedy R=2 differs "
+                             f"from R=1 at {line['fp32_first_divergence']}")
+    return counts
+
+
+def first_divergence(a, b):
+    """(request, token index) of the first token two runs' outputs differ
+    in, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (s, t) in enumerate(zip(x, y)):
+            if s != t:
+                return [i, j]
+        if len(x) != len(y):
+            return [i, min(len(x), len(y))]
+    return None
+
+
+def sharded_parity_model(torch, dev):
+    """fp32 gemma-2b at full width cut to ``SHARDED_PARITY_LAYERS`` layers,
+    made from ``SHARDED_SEED`` (the same tensors in every process)."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.float32,
+                              n_layers=SHARDED_PARITY_LAYERS)
+    return cfg, LM.init_params(cfg, seed=SHARDED_SEED, device=dev)
+
+
+def sharded_requests(torch, cfg, sampled: bool) -> list:
+    """The 16 serving prompts, every one greedy or every one sampled
+    (temperature 0.8, top_k 20, seed 42)."""
+    from repro_torch.serving.sampling import SamplingParams
+    sp = SamplingParams(**SHARDED_SAMPLED) if sampled else SamplingParams()
+    return [(p, n, sp) for p, n, _ in serving_requests(torch, cfg)]
+
+
+def rank_sharded_parity(torch, dev, rank, world, shapes) -> dict:
+    """This rank's finished outputs on each mesh of ``shapes``, greedy and
+    sampled, with its kernel launches and merges."""
+    from repro_torch.launch.mesh import make_mesh
+    cfg, params = sharded_parity_model(torch, dev)
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for sampled in (False, True):
+            reqs = sharded_requests(torch, cfg, sampled)
+            (outs, wall, m), counts = counted(
+                torch, f"sharded parity {shape}", lambda: run_engine(
+                    torch, cfg, params, reqs, dev, mesh=mesh))
+            res[(tuple(shape), sampled)] = {
+                "outs": outs, "launches": counts, "wall_s": wall,
+                "lse_merges": m["lse_merges"], "kv_bytes": m["kv_bytes"]}
+    return res
+
+
+def rank_sharded_bf16(torch, dev, rank, world, shapes) -> dict:
+    """bf16 gemma-2b at full width and depth on each mesh of ``shapes``:
+    the 16 serving requests, this rank's tokens/s, launches, merges and
+    peak GB (while the engine shards the weights, and while it serves)."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16)
+    requests = serving_requests(torch, cfg)
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = LM.init_params(cfg, seed=0, device=dev)
+        eng = serving_engine(cfg, params, dev, mesh=mesh)
+        del params
+        free(torch)
+        build_gb = peak_gb(torch)
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+        def serve():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = [eng.submit(p, max_new_tokens=n, sampling=sp)
+                   for p, n, sp in requests]
+            eng.run()
+            torch.cuda.synchronize()
+            return ids, time.perf_counter() - t0
+
+        (ids, wall), counts = counted(torch, f"sharded bf16 {shape}", serve)
+        done = [eng.result(i) for i in ids]
+        if any(r is None or len(r.out_tokens) != NEW_TOKENS for r in done):
+            raise AssertionError(f"sharded bf16 {shape}: a request did not "
+                                 f"finish")
+        m = eng.metrics
+        res[tuple(shape)] = {
+            "tokens_per_s": NEW_TOKENS * len(requests) / wall,
+            "wall_s": wall, "steps": m["steps"], "launches": counts,
+            "lse_merges": m["lse_merges"],
+            "collectives": m["collectives"],
+            "page_hwm_per_replica": m["page_hwm_per_replica"],
+            "kv_bytes": m["kv_bytes"], "build_peak_gb": build_gb,
+            "held_gb": held_gb, "serve_peak_gb": peak_gb(torch),
+            "tokens": [list(r.out_tokens) for r in done]}
+        del eng
+        free(torch)
+    return res
+
+
+def ddp_net(torch, dev):
+    """The DDP model and batch, the same in every process."""
+    import repro_torch as rt
+    from repro_torch import nn
+    gen = torch.Generator().manual_seed(81)
+    with rt.default_device(dev):
+        model = nn.Sequential(nn.Linear(16, DDP_WIDTH), nn.ReLU(),
+                              nn.Linear(DDP_WIDTH, 4))
+    for p in model.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    x = torch.randn(DDP_BATCH, 16, generator=gen).to(dev)
+    y = torch.randn(DDP_BATCH, 4, generator=gen).to(dev)
+    return model, x, y
+
+
+def ddp_grads(model, x, y) -> dict:
+    import repro_torch as rt
+    model.zero_grad()
+    loss = ((model(rt.Tensor(x)) - rt.Tensor(y)) ** 2).mean()
+    loss.backward()
+    return {k: p.grad.data.clone() for k, p in model.named_parameters()}
+
+
+def rank_ddp(torch, dev, rank, world) -> dict:
+    """Each rank's half of the batch through DDP over the ``data`` axis,
+    plain and int8-compressed, two steps each."""
+    import repro_torch as rt
+    from repro_torch.distributed.ddp import DistributedDataParallel
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("data",))
+    res = {}
+    for compress in (None, "int8"):
+        model, x, y = ddp_net(torch, dev)
+        n = DDP_BATCH // world
+        xs, ys = x[rank * n:(rank + 1) * n], y[rank * n:(rank + 1) * n]
+        ddp = DistributedDataParallel(model, mesh=mesh,
+                                      bucket_mb=DDP_BUCKET_MB,
+                                      compress=compress)
+        steps = []
+        with rt.default_device(dev):
+            for _ in range(2):
+                ddp_grads(ddp, xs, ys)
+                t0 = time.perf_counter()
+                ddp.sync_gradients()
+                torch.cuda.synchronize()
+                steps.append(({k: p.grad.data.cpu() for k, p in
+                               model.named_parameters()},
+                              (time.perf_counter() - t0) * 1e3))
+        res[compress] = {"grads": [g for g, _ in steps],
+                         "sync_ms": [t for _, t in steps],
+                         "stats": dict(ddp.stats),
+                         "n_buckets": len(ddp.buckets),
+                         "residual_max": [float(r.abs().max()) for r in
+                                          ddp._residuals.values()]}
+    return res
+
+
+def pipe_inputs(torch):
+    gen = torch.Generator().manual_seed(82)
+    w = torch.randn(PIPE_STAGES, PIPE_WIDTH, PIPE_WIDTH,
+                    generator=gen) / PIPE_WIDTH ** 0.5
+    return w, torch.randn(PIPE_BATCH, PIPE_WIDTH, generator=gen)
+
+
+def tanh_stage(w, x):
+    import torch
+    return torch.tanh(x @ w)
+
+
+def rank_pipeline(torch, dev, rank, world) -> dict:
+    """``pipeline_apply`` over the ``pod`` axis of ``world`` ranks: the
+    output (rank 0) and the ms of a call after a warm-up."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("pod",))
+    w, x = pipe_inputs(torch)
+    w, x = w.to(dev), x.to(dev)
+
+    def run():
+        return pipeline_apply(tanh_stage, w, x, mesh=mesh,
+                              n_microbatches=PIPE_MICRO)
+    out = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return {"out": out.cpu() if rank == 0 else None,
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
+def rank_jobs(rank, world, jobs, dev="cuda") -> dict:
+    """The rank functions ``jobs`` ([(name, args), ...]) of this script in
+    one process group, in order (a group's start-up is paid once)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev == "cpu":
+        cpu_stand_ins(torch)
+    return {name: globals()[name](torch, dev, rank, world, *args)
+            for name, args in jobs}
+
+
+def cpu_stand_ins(torch) -> None:
+    """No-op stand-ins for the ``torch.cuda`` timing and memory calls, so
+    that a phase can be rehearsed on a CPU-only torch (``dev="cpu"``; the
+    kernels' plain versions run).  ``main`` never installs them."""
+    class Event:
+        def __init__(self, **_):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    for name, fn in (("synchronize", lambda *a: None),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0),
+                     ("memory_allocated", lambda *a: 0),
+                     ("empty_cache", lambda *a: None),
+                     ("device_count", lambda *a: 0)):
+        setattr(torch.cuda, name, fn)
+    torch.cuda.Event = Event
+
+
+def phase_sharded(torch, dev) -> dict:
+    """Sharded serving on meshes of ranks, DDP and the pipeline: a group
+    of 2 ranks ((2,1) and (1,2) parity, (1,2) bf16, DDP) and one of 4
+    ((2,2) parity and bf16, the pipeline), NCCL with a card a rank where
+    there are enough, else gloo with every rank on ``cuda:0`` (the
+    kernels on the card, the collectives staged through host memory).
+    Returns the paged-kernel launches of each bf16 rank."""
+    from repro_torch.launch.mesh import default_backend, run_ranks
+
+    cfg, params = sharded_parity_model(torch, dev)
+    base = {}
+    for sampled in (False, True):
+        reqs = sharded_requests(torch, cfg, sampled)
+        base[sampled] = run_engine(torch, cfg, params, reqs, dev)[0]
+    del params
+    free(torch)
+
+    groups = {}
+    for world in (2, PIPE_STAGES):
+        jobs = [(name, ([m for m in meshes if m[0] * m[1] == world],))
+                for name, meshes in (
+                    ("rank_sharded_parity", SHARDED_MESHES),
+                    ("rank_sharded_bf16", SHARDED_BF16_MESHES))]
+        jobs.append(("rank_ddp", ()) if world == 2 else
+                    ("rank_pipeline", ()))
+        t0 = time.perf_counter()
+        groups[world] = run_ranks(rank_jobs, world, (jobs, dev),
+                                  timeout=RANK_TIMEOUT)
+        emit({"phase": "rank_group", "ranks": world,
+              "backend": default_backend(world),
+              "cards": torch.cuda.device_count(),
+              "seconds": time.perf_counter() - t0})
+
+    ok, lines = True, []
+    for shape in SHARDED_MESHES:
+        world = shape[0] * shape[1]
+        for sampled in (False, True):
+            ranks = [g["rank_sharded_parity"][(shape, sampled)]
+                     for g in groups[world]]
+            equal = [r["outs"] == base[sampled] for r in ranks]
+            line = {"phase": "sharded_serving", "run": "fp32_parity",
+                    "mesh": list(shape), "ranks": world,
+                    "backend": default_backend(world),
+                    "layers": cfg.n_layers, "sampled": sampled,
+                    "equals_no_mesh": equal,
+                    "first_divergence": [first_divergence(
+                        base[sampled], r["outs"]) for r in ranks],
+                    "launches": [r["launches"] for r in ranks],
+                    "lse_merges": [r["lse_merges"] for r in ranks],
+                    "kv_bytes": [r["kv_bytes"] for r in ranks],
+                    "wall_s": [r["wall_s"] for r in ranks]}
+            emit(line)
+            ok = ok and all(equal) and all(
+                r["launches"]["paged_attention"] > 0 for r in ranks)
+    bf16 = {}
+    for shape in SHARDED_BF16_MESHES:
+        world = shape[0] * shape[1]
+        ranks = [g["rank_sharded_bf16"][shape] for g in groups[world]]
+        same = all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
+        line = {"phase": "sharded_serving", "run": "bf16",
+                "mesh": list(shape), "ranks": world,
+                "backend": default_backend(world), "layers": 18,
+                "requests": MAX_BATCH,
+                "tokens_per_s": [r["tokens_per_s"] for r in ranks],
+                "steps": ranks[0]["steps"],
+                "ranks_commit_the_same_tokens": same,
+                **{k: [r[k] for r in ranks] for k in (
+                    "launches", "lse_merges", "collectives",
+                    "page_hwm_per_replica", "kv_bytes", "build_peak_gb",
+                    "held_gb", "serve_peak_gb")}}
+        emit(line)
+        bf16[shape] = [r["launches"]["paged_attention"] for r in ranks]
+        ok = ok and same and all(
+            r["launches"]["paged_attention"] > 0 for r in ranks)
+        if shape[1] > 1 and not all(r["lse_merges"] > 0 for r in ranks):
+            ok = False        # gemma's one KV head: context parallel
+
+    phase_ddp(torch, dev, [g["rank_ddp"] for g in groups[2]])
+    phase_pipeline(torch, dev, [g["rank_pipeline"] for g in groups[4]])
+    if not ok:
+        raise AssertionError("sharded_serving: a mesh diverged or a rank "
+                             "launched no paged kernel (lines above)")
+    return bf16
+
+
+def phase_ddp(torch, dev, ranks) -> None:
+    """DDP's synced gradients against the full batch's in this process
+    (within ``DDP_TOL`` of its largest), and the int8 path against the
+    reference's arithmetic on each rank's bucket."""
+    from repro_torch.distributed.ddp import (DistributedDataParallel,
+                                             _compress_int8)
+    from repro_torch.launch.mesh import default_backend
+    model, x, y = ddp_net(torch, dev)
+    import repro_torch as rt
+    with rt.default_device(dev):
+        full = ddp_grads(model, x, y)
+        n = DDP_BATCH // 2
+        local = [ddp_grads(model, x[r * n:(r + 1) * n], y[r * n:(r + 1) * n])
+                 for r in range(2)]
+    scale = max(float(g.abs().max()) for g in full.values())
+    err = max(float((step[k] - full[k].cpu()).abs().max())
+              for r in ranks for step in r[None]["grads"] for k in full)
+    # int8: every rank's codes summed, times the rank's own scale
+    names = {id(p): k for k, p in model.named_parameters()}
+    buckets = DistributedDataParallel(model, bucket_mb=DDP_BUCKET_MB).buckets
+    int8_err = 0.0
+    for bucket in buckets:
+        keys = [names[id(p)] for p in bucket]
+        parts = [_compress_int8(torch.cat([g[k].reshape(-1) for k in keys])
+                                / 2, None) for g in local]
+        codes = sum(q.float() for q, _, _ in parts)
+        for r, res in enumerate(ranks):
+            got = torch.cat([res["int8"]["grads"][0][k].reshape(-1)
+                             for k in keys])
+            int8_err = max(int8_err, float(
+                (got - (codes * parts[r][1]).cpu()).abs().max()))
+    line = {"phase": "ddp", "ranks": 2, "backend": default_backend(2),
+            "cards": torch.cuda.device_count(), "width": DDP_WIDTH,
+            "batch": DDP_BATCH, "buckets": ranks[0][None]["n_buckets"],
+            "max_abs_err": err, "grad_max": scale, "tol": DDP_TOL,
+            "sync_ms": [r[None]["sync_ms"] for r in ranks],
+            "stats": [r[None]["stats"] for r in ranks],
+            "int8_stats": [r["int8"]["stats"] for r in ranks],
+            "int8_residual_max": [r["int8"]["residual_max"] for r in ranks],
+            "int8_max_abs_err_vs_reference_arithmetic": int8_err}
+    emit(line)
+    if not err <= DDP_TOL * scale or int8_err > 1e-6 * scale or \
+            line["buckets"] < 2:
+        raise AssertionError(f"ddp: {line}")
+
+
+def phase_pipeline(torch, dev, ranks) -> None:
+    """The pipeline's output (4 ranks) against the sequential composition
+    in this process, within ``PIPE_TOL``."""
+    from repro_torch.launch.mesh import default_backend
+    w, x = pipe_inputs(torch)
+    w, x = w.to(dev), x.to(dev)
+    ref = x
+    for i in range(PIPE_STAGES):
+        ref = tanh_stage(w[i], ref)
+    seq_ms = time_ms(torch, lambda: [tanh_stage(w[i], x)
+                                     for i in range(PIPE_STAGES)], reps=5)
+    out = ranks[0]["out"].to(dev)
+    rtol, atol = PIPE_TOL
+    err = (out - ref).abs().max().item()
+    ok = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+    emit({"phase": "pipeline", "stages": PIPE_STAGES,
+          "backend": default_backend(PIPE_STAGES),
+          "cards": torch.cuda.device_count(),
+          "microbatches": PIPE_MICRO, "width": PIPE_WIDTH,
+          "batch": PIPE_BATCH, "max_abs_err": err, "tol": PIPE_TOL,
+          "ms": [r["ms"] for r in ranks], "sequential_ms": seq_ms})
+    if not ok:
+        raise AssertionError(f"pipeline: {err} outside {PIPE_TOL}")
+
+
 def run_phases(torch, dev) -> list:
     """Every phase in order; returns the rows of the kernel table."""
     from repro_torch.models.lm import BlockSpec
 
     rows = {"paged_attention": phase_paged_attention(torch, dev),
+            "paged_attention_lse": phase_paged_lse(torch, dev),
             "gumbel_perturb": phase_gumbel(torch, dev),
             "flash_attention": phase_flash(torch, dev),
             "decode_attention": phase_decode(torch, dev),
@@ -4244,6 +4863,8 @@ def run_phases(torch, dev) -> list:
     gemma = gemma_models(torch, dev)
     counts, profile_serving_run, serving_runs = phase_serving(
         torch, dev, gemma)
+    counts["paged_attention_replicas"] = phase_replica_serving(
+        torch, dev, gemma)["paged_attention"]
     cfg32, params32, cfg, params = gemma
     # the gathered-cache path and the front door, on the same bf16 model
     counts["mixed_attention"] = phase_paged_vs_gathered(
@@ -4265,6 +4886,9 @@ def run_phases(torch, dev) -> list:
     phase_parity(torch, dev, cfg32, params32, "dense_parity", 23)
     del params32, params
     free(torch)
+    # sharded serving on meshes of ranks, DDP and the pipeline: each rank
+    # makes its own model, so nothing is held here meanwhile
+    counts["paged_attention_sharded"] = phase_sharded(torch, dev)
 
     cfg32, params32, cfg, params = rwkv_models(torch, dev)
     rwkv, profile_rwkv_prefill = phase_prefill(
@@ -4376,6 +5000,17 @@ def run_phases(torch, dev) -> list:
         # the variant of the reported row (flash, paged, decode, mixed)
         if "variant" in r:
             entry["variant"] = r["variant"]
+        if name == "paged_attention":
+            # the lse output's rows; the replicated run's launches (one a
+            # layer for both replicas) and each bf16 mesh rank's
+            entry["lse_rows"] = [
+                {k: lse[k] for k in ("q_dtype", "lse_max_rel_err", "ms",
+                                     "ms_without_lse", "max_abs_err")}
+                for lse in rows["paged_attention_lse"]]
+            entry["replica_launches"] = counts["paged_attention_replicas"]
+            entry["sharded_launches"] = {
+                "x".join(map(str, shape)): n for shape, n in
+                counts["paged_attention_sharded"].items()}
         if name == "flash_attention":
             # lm_train's run: the forward and the remat recompute
             entry["lm_train_launches"] = counts_train[name]

@@ -18,7 +18,7 @@ numpy has no bfloat16 or float8 without an extra package, so those
 leaves are stored as their bits (``uint16`` / ``uint8``) and the
 manifest's ``"dtypes"`` names their dtype; an archive of other dtypes is
 the reference's, and plain ``np.load`` reads any of them.  Elastic
-restore between meshes waits for sharding (ROADMAP.md queue A7).
+restore between meshes waits for sharded training (ROADMAP.md queue A7b).
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _python_dispatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -98,6 +99,53 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in LaunchCounter.registry:
         c.launches = 0
+
+
+def _tracing(args) -> bool:
+    """A graph is being traced: Dynamo is compiling, a dispatch mode is on
+    (``make_fx``, fake tensors, functionalization), or the first tensor
+    operand is a tensor subclass (a fake or functional tensor; a launch's
+    operands are all of one kind)."""
+    if torch.compiler.is_compiling() or \
+            _python_dispatch._get_current_dispatch_mode() is not None:
+        return True
+    for a in args:
+        t = a[0] if isinstance(a, (list, tuple)) and a else a
+        if isinstance(t, torch.Tensor):
+            return type(t) not in (torch.Tensor, torch.nn.Parameter)
+    return False
+
+
+class LaunchOp:
+    """A kernel launch ``body`` and its operator ``repro_torch::<name>``
+    (``torch.library.custom_op``, no mutated argument, CUDA).  While a
+    graph is traced (``repro_torch.compile``'s ``make_fx`` over fake
+    tensors, Dynamo) a call goes through the operator: one node of the
+    graph, shaped by the function given to :meth:`register_fake`, that
+    launches the kernel, counted, on every call of the compiled graph.
+    Eagerly a call runs ``body`` itself: the dispatcher's round trip
+    through Python cost ~30-50 us a launch on the H100 (PERF.md §6),
+    which host-bound steps would pay in full."""
+
+    def __init__(self, name: str, body):
+        self.body = body
+        self.op = torch.library.custom_op(f"repro_torch::{name}", body,
+                                          mutates_args=(),
+                                          device_types="cuda")
+
+    def register_fake(self, fn):
+        self.op.register_fake(fn)
+        return fn
+
+    def __call__(self, *args):
+        if _tracing(args):
+            return self.op(*args)
+        return self.body(*args)
+
+
+def launch_op(name: str):
+    """Decorator: the function is the body of :class:`LaunchOp` ``name``."""
+    return lambda body: LaunchOp(name, body)
 
 
 def _nvcc() -> str:

@@ -193,7 +193,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 // every run gives the same bits.  A lane takes 4 columns in each
 // 128-column half of 256 columns, and the split loop is unrolled by 8: up
 // to 16 of its loads are in flight at once (the merge waits on L2
-// latency, not bandwidth).  Writes the normalised row to out (d of T).
+// latency, not bandwidth).  Writes the normalised row to out (d of T)
+// and, when lse is not null, the row's natural log-sum-exp to *lse.
+// The natural log-sum-exp of a row from its running max m and sum l (m in
+// log2 units when LOG2): -inf for a row that saw no key (l = 0).
+template <bool LOG2>
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return LOG2 ? (m + log2f(l)) * 0.6931471805599453f : m + logf(l);
+}
+
 __device__ __forceinline__ void store4(__nv_bfloat16* out, float4 a,
                                        float inv) {
   uint2 pk;
@@ -209,7 +217,8 @@ __device__ __forceinline__ void store4(float* out, float4 a, float inv) {
 template <bool LOG2 = true, typename T>
 __device__ __forceinline__ void combine_splits(const float* ml,
                                                const float* po, T* out,
-                                               int n, int d) {
+                                               int n, int d,
+                                               float* lse = nullptr) {
   const int lane = threadIdx.x & 31;
   auto ex = [](float x) { return LOG2 ? exp2f(x) : expf(x); };
   float mx = kNegInf;
@@ -218,7 +227,9 @@ __device__ __forceinline__ void combine_splits(const float* ml,
   float lsum = 0.f;
   for (int s = lane; s < n; s += 32)
     lsum += ml[2 * s + 1] * ex(ml[2 * s] - mx);
-  const float inv = 1.f / fmaxf(warp_sum(lsum), 1e-30f);
+  lsum = warp_sum(lsum);
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  if (lse != nullptr && lane == 0) *lse = row_lse<LOG2>(mx, lsum);
   for (int c0 = lane * 4; c0 < d; c0 += 256) {
     const int c1 = c0 + 128;
     const bool two = c1 < d;

@@ -280,16 +280,17 @@ __device__ __forceinline__ void load_q_tile(T* qs, const T* q, int first,
 // the block's 64 (gq, t4: the lane's fragment row and column pair;
 // warp_live: the warp holds a row of the tile).  A tile of one split
 // normalises its rows: each warp stages them in its own rows of qs, then
-// writes them to out (T, Hkv, G, D) with 16-byte stores.  A split of
-// several writes its rows' unnormalised O and (m, l) in fp32, for the
-// combine.
+// writes them to out (T, Hkv, G, D) with 16-byte stores, and, when lse
+// (T, Hkv, G) is not null, each row's log-sum-exp.  A split of several
+// writes its rows' unnormalised O and (m, l) in fp32, for the combine.
 template <int D>
 __device__ __forceinline__ void finish_item(
     const float (&o)[D / 8][4], const float (&m)[2], const float (&l)[2],
     __nv_bfloat16* qs, __nv_bfloat16* out, float* part_o, float* part_ml,
     int n_splits,
     int split, int max_splits, int first, int row_base, int n_rows, int h,
-    int hkv, int g, int row0, int lane, int gq, int t4, bool warp_live) {
+    int hkv, int g, int row0, int lane, int gq, int t4, bool warp_live,
+    float* lse = nullptr) {
   constexpr int RS = D + 8;
   constexpr int kChunks = D / 8;
   if (n_splits == 1) {
@@ -297,7 +298,14 @@ __device__ __forceinline__ void finish_item(
       __nv_bfloat16* os = qs + row0 * RS;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+        const float lsum = quad_sum(l[r]);
+        const float inv = 1.f / fmaxf(lsum, 1e-30f);
+        const int lrow = row0 + 8 * r + gq;
+        if (lse != nullptr && t4 == 0 && lrow < n_rows) {
+          const int gr = row_base + lrow;
+          lse[(static_cast<size_t>(first + gr / g) * hkv + h) * g + gr % g] =
+              row_lse<true>(m[r], lsum);
+        }
         __nv_bfloat16* row = os + (8 * r + gq) * RS + 2 * t4;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
@@ -349,7 +357,8 @@ __device__ __forceinline__ void combine_row(const int* __restrict__ tiles,
                                             const float* __restrict__ part_ml,
                                             T* __restrict__ out, int t,
                                             int hkv, int g, int d,
-                                            int max_splits) {
+                                            int max_splits,
+                                            float* lse = nullptr) {
   const size_t row =
       static_cast<size_t>(blockIdx.x) * (kCombineThreads / 32) +
       (threadIdx.x >> 5);
@@ -358,7 +367,8 @@ __device__ __forceinline__ void combine_row(const int* __restrict__ tiles,
   const int n = tiles[2 + t * (kTileFields + max_splits) + tok];
   if (n <= 1) return;
   combine_splits<LOG2>(part_ml + row * max_splits * 2,
-                       part_o + row * max_splits * d, out + row * d, n, d);
+                       part_o + row * max_splits * d, out + row * d, n, d,
+                       lse == nullptr ? nullptr : lse + row);
 }
 
 // ---------------------------------------------------------------------
@@ -509,14 +519,15 @@ __device__ __forceinline__ void simt_tile(
 
 // The end of a simt work item for a lane's two rows (r0, r0 + 1 of the
 // block's 64): a tile of one split writes its normalised rows to out (T,
-// Hkv, G, D); a split of several writes its unnormalised O and (m, l),
-// m in natural units, for the combine (combine_row<false>).
+// Hkv, G, D), and, when lse (T, Hkv, G) is not null, their log-sum-exp;
+// a split of several writes its unnormalised O and (m, l), m in natural
+// units, for the combine (combine_row<false>).
 template <int D>
 __device__ __forceinline__ void finish_simt_item(
     const float (&o)[2][D / 8], const float (&m)[2], const float (&l)[2],
     float* out, float* part_o, float* part_ml, int n_splits, int split,
     int max_splits, int first, int row_base, int n_rows, int h, int hkv,
-    int g, int r0, int cg) {
+    int g, int r0, int cg, float* lse = nullptr) {
   constexpr int kCW = SimtCols<D>::kCW;
   constexpr int kNC = SimtCols<D>::kNC;
 #pragma unroll
@@ -530,6 +541,7 @@ __device__ __forceinline__ void finish_simt_item(
     if (n_splits == 1) {
       dst = out + orow * D;
       inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && cg == 0) lse[orow] = row_lse<false>(m[r], l[r]);
     } else {
       const size_t prow = orow * max_splits + split;
       dst = part_o + prow * D;

@@ -325,6 +325,7 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
                     const int* __restrict__ pos,       // (T,)
                     const int* __restrict__ tiles,     // the work list
                     bf16* __restrict__ out,            // (T, Hkv, G, D)
+                    float* __restrict__ lse,           // (T, Hkv, G)|null
                     float* __restrict__ part_o,   // (T*Hkv*G, splits, D)
                     float* __restrict__ part_ml,  // (T*Hkv*G, splits, 2)
                     int t, int hkv, int g, int ps, int p_pages,
@@ -473,7 +474,7 @@ paged_attention_mma(const bf16* __restrict__ q,        // (T, Hkv, G, D)
 
     repro_attn::finish_item<D>(o, m, l, qs, out, part_o, part_ml, n_splits,
                                split, max_splits, first, row_base, n_rows, h,
-                               hkv, g, row0, lane, gq, t4, warp_live);
+                               hkv, g, row0, lane, gq, t4, warp_live, lse);
     __syncthreads();  // shared memory is refilled by the next item
     item = item_next;
   }
@@ -529,6 +530,7 @@ paged_attention_simt(const float* __restrict__ q,      // (T, Hkv, G, D)
                      const int* __restrict__ pos,      // (T,)
                      const int* __restrict__ tiles,    // the work list
                      float* __restrict__ out,          // (T, Hkv, G, D)
+                     float* __restrict__ lse,          // (T, Hkv, G)|null
                      float* __restrict__ part_o,  // (T*Hkv*G, splits, D)
                      float* __restrict__ part_ml,  // (T*Hkv*G, splits, 2)
                      int t, int hkv, int g, int ps, int p_pages,
@@ -661,7 +663,7 @@ paged_attention_simt(const float* __restrict__ q,      // (T, Hkv, G, D)
 
     repro_attn::finish_simt_item<D>(o, m, l, out, part_o, part_ml, n_splits,
                                     split, max_splits, first, row_base,
-                                    n_rows, h, hkv, g, r0, cg);
+                                    n_rows, h, hkv, g, r0, cg, lse);
     __syncthreads();  // shared memory is refilled by the next item
     item = item_next;
   }
@@ -677,10 +679,10 @@ __global__ void __launch_bounds__(kCombineThreads)
 paged_attention_combine(const int* __restrict__ tiles,
                         const float* __restrict__ part_o,
                         const float* __restrict__ part_ml,
-                        T* __restrict__ out, int t, int hkv, int g, int d,
-                        int max_splits) {
+                        T* __restrict__ out, float* __restrict__ lse,
+                        int t, int hkv, int g, int d, int max_splits) {
   repro_attn::combine_row<LOG2>(tiles, part_o, part_ml, out, t, hkv, g, d,
-                                max_splits);
+                                max_splits, lse);
 }
 
 // The work list's shape (repro_attn::tiling) over a table of p_pages
@@ -709,6 +711,7 @@ struct Args {
   const int* seg;
   const int* pos;
   void* out;
+  float* lse;
   void* work;
   int t, hkv, g, ps, s_slots, p_pages;
   float scale;
@@ -762,7 +765,7 @@ struct Main {
         static_cast<const QT*>(a.q), static_cast<const KT*>(a.k_pages),
         static_cast<const KT*>(a.v_pages), a.k_scale, a.v_scale, a.tables,
         a.pos, static_cast<const int*>(a.work), static_cast<QT*>(a.out),
-        part, part_ml, a.t, a.hkv, a.g, a.ps, a.p_pages, s.max_splits,
+        a.lse, part, part_ml, a.t, a.hkv, a.g, a.ps, a.p_pages, s.max_splits,
         scale, a.window);
   }
 };
@@ -803,8 +806,8 @@ int launch(const Args& a) {
   const unsigned blocks =
       static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock);
   paged_attention_combine<!SIMT><<<blocks, kCombineThreads, 0, a.stream>>>(
-      tiles, part, part_ml, static_cast<typename M::QT*>(a.out), a.t, a.hkv,
-      a.g, D, s.max_splits);
+      tiles, part, part_ml, static_cast<typename M::QT*>(a.out), a.lse, a.t,
+      a.hkv, a.g, D, s.max_splits);
   err = static_cast<int>(cudaGetLastError());
   if (err == 0)
     record(a.launched, 3, 1, gx * z_blocks, static_cast<int>(blocks));
@@ -872,7 +875,10 @@ int dispatch(int q_dtype, int kv_dtype, int d, const Args& a, int* attrs) {
 // pool) or 1 (the "mma" main kernel on the tensor cores; a bf16, int8 or
 // fp8 pool); both launch the pre-pass, the main kernel and, when a tile
 // can have more than one split, the combine.  k_scale/v_scale are null
-// for an unquantized pool.  window <= 0 means no window.  `work` is a
+// for an unquantized pool.  lse, when not null, gets each output row's
+// natural log-sum-exp of its visible scaled logits ((T, Hkv, G) fp32,
+// -inf where no key is visible); a call without it writes the same out.
+// window <= 0 means no window.  `work` is a
 // 256-byte aligned workspace of `repro_paged_workspace_bytes` bytes.  `launched`, when not null, gets 4
 // ints: the device launches made, then the thread blocks of the pre-pass,
 // the main kernel and the combine.  Returns the first nonzero CUDA error
@@ -882,12 +888,13 @@ extern "C" int repro_paged_attention(
     int q_dtype, int kv_dtype, int d, const void* q, const void* k_pages,
     const void* v_pages, const void* k_scale, const void* v_scale,
     const void* tables, const void* seg, const void* pos, void* out,
-    void* work, int t, int hkv, int g, int ps, int s_slots, int p_pages,
-    float scale, int window, int* launched, void* stream) {
+    void* lse, void* work, int t, int hkv, int g, int ps, int s_slots,
+    int p_pages, float scale, int window, int* launched, void* stream) {
   const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(tables), static_cast<const int*>(seg),
-               static_cast<const int*>(pos), out, work, t, hkv, g, ps,
+               static_cast<const int*>(pos), out, static_cast<float*>(lse),
+               work, t, hkv, g, ps,
                s_slots, p_pages, scale, window, launched,
                static_cast<cudaStream_t>(stream)};
   return dispatch(q_dtype, kv_dtype, d, a, nullptr);

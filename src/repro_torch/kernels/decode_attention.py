@@ -47,12 +47,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
-                     dense_aligned, load_library)
+                     dense_aligned, launch_op, load_library)
 
 NEG_INF = -1e30
 
@@ -79,7 +79,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("repro_paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.POINTER(ctypes.c_int),
                                                ctypes.c_void_p])
@@ -217,12 +217,14 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           seg_ids: torch.Tensor, positions: torch.Tensor, *,
                           scale: float, window: Optional[int] = None,
                           k_scale: Optional[torch.Tensor] = None,
-                          v_scale: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          v_scale: Optional[torch.Tensor] = None,
+                          return_lse: bool = False):
     """Gather-then-attend version of the kernel, same arguments and
     layouts: q (T, Hkv, G, D); pages (N, ps, Hkv, D); scales (N, ps, Hkv)
     fp32 or None; tables (S, P); seg_ids/positions (T,).  Returns
-    (T, Hkv, G, D) in q's dtype.  Mirrors the reference oracle
+    (T, Hkv, G, D) in q's dtype, and with ``return_lse`` also the (T,
+    Hkv, G) fp32 log-sum-exp of each row's visible scaled logits (-inf
+    where none is visible).  Mirrors the reference oracle
     (``repro.models.attention.paged_attention`` with the ref backend):
     dequantize to q's dtype, gather every slot's pages into a contiguous
     (S, Hkv, P*ps, D) cache, then :func:`mixed_attention_plain`."""
@@ -236,7 +238,8 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     k_cache = k_pages.reshape(n * ps, hkv, d)[gidx].transpose(1, 2)
     v_cache = v_pages.reshape(n * ps, hkv, d)[gidx].transpose(1, 2)
     return mixed_attention_plain(q, k_cache, v_cache, seg_ids, positions,
-                                 scale=scale, window=window)
+                                 scale=scale, window=window,
+                                 return_lse=return_lse)
 
 
 def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
@@ -244,12 +247,17 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                         seg_ids: torch.Tensor, positions: torch.Tensor, *,
                         scale: float, window: Optional[int] = None,
                         k_scale: Optional[torch.Tensor] = None,
-                        v_scale: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        v_scale: Optional[torch.Tensor] = None,
+                        return_lse: bool = False):
     """q: (T, Hkv, G, D) per-token query heads grouped by KV head;
     k_pages/v_pages: (N, ps, Hkv, D) the physical pool; tables (S, P)
     int32; seg_ids/positions (T,) int32; k_scale/v_scale (N, ps, Hkv)
-    fp32 for an int8/fp8 pool.  Returns (T, Hkv, G, D) in q's dtype.
+    fp32 for an int8/fp8 pool.  Returns (T, Hkv, G, D) in q's dtype;
+    with ``return_lse`` the pair (out, lse), lse (T, Hkv, G) fp32 the
+    natural log-sum-exp of each row's visible scaled logits (-inf for a
+    row that sees no key), written where the kernel holds each row's max
+    and sum (the one-split end of the main kernel, or the combine).  A
+    call without it launches the same kernels and writes the same bits.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     on the current stream, or raise: three device launches under one C
@@ -259,11 +267,14 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     tensor cores for bf16 q and on the CUDA cores for fp32 q (which takes
     an fp32, int8 or fp8 pool, at any page size); :func:`last_launch`
     reads what the last call launched.  ``counter`` counts calls.  It
-    reads nothing back to the host."""
+    reads nothing back to the host.  The launch is the operator
+    ``repro_torch::paged_attention``, so ``repro_torch.compile`` traces
+    it as one node."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, tables, seg_ids, positions, scale=scale,
-            window=window, k_scale=k_scale, v_scale=v_scale)
+            window=window, k_scale=k_scale, v_scale=v_scale,
+            return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_fwd: unsupported device "
                          f"{q.device}")
@@ -291,7 +302,6 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if not quantized and k_pages.dtype != q.dtype:
         raise TypeError("paged_attention_fwd: an unquantized pool must "
                         "have q's dtype")
-    q = dense_aligned(q)
     tensors = [q, k_pages, v_pages, tables, seg_ids, positions]
     if quantized:
         tensors += [k_scale, v_scale]
@@ -299,7 +309,10 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
             if sc.dtype != torch.float32 or tuple(sc.shape) != (n, ps, hkv):
                 raise ValueError("paged_attention_fwd: scales must be "
                                  "(N, ps, Hkv) float32")
-    check_operands("paged_attention_fwd", q, tensors)
+    for x in tensors:
+        if x.device != q.device:
+            raise ValueError("paged_attention_fwd: all operands must be on "
+                             "one device")
     for x in (tables, seg_ids, positions):
         if x.dtype != torch.int32:
             raise TypeError("paged_attention_fwd: tables, seg_ids and "
@@ -307,31 +320,66 @@ def paged_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     if seg_ids.shape != (t,) or positions.shape != (t,):
         raise ValueError("paged_attention_fwd: seg_ids/positions must "
                          "be (T,)")
+    out, lse = _paged_launch(q, k_pages, v_pages, k_scale, v_scale, tables,
+                             seg_ids, positions, float(scale),
+                             int(window) if window else 0, bool(return_lse))
+    return (out, lse) if return_lse else out
+
+
+@launch_op("paged_attention")
+def _paged_launch(q: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, k_scale: Optional[torch.Tensor],
+                  v_scale: Optional[torch.Tensor], tables: torch.Tensor,
+                  seg_ids: torch.Tensor, positions: torch.Tensor,
+                  scale: float, window: int, with_lse: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of :func:`paged_attention_fwd` as one operator (its
+    shape function below); ``lse`` is (T, Hkv, G) fp32 when ``with_lse``,
+    else empty.  The pools and scales are single-owner and never copied:
+    they must come dense and 16-byte aligned."""
+    t, hkv, g, d = q.shape
+    n, ps = k_pages.shape[:2]
+    s, p = tables.shape
+    q = dense_aligned(q)
+    check_operands("paged_attention_fwd", q,
+                   [x for x in (q, k_pages, v_pages, k_scale, v_scale,
+                                tables, seg_ids, positions)
+                    if x is not None])
     if any(x.data_ptr() % 16 for x in (k_pages, v_pages)):
         raise ValueError("paged_attention_fwd: the pages must be 16-byte "
                          "aligned (the kernel copies rows in 16-byte "
                          "cp.async chunks)")
     out = torch.empty_like(q)
+    lse = torch.empty((t, hkv, g) if with_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, lse
     work = torch.empty(_workspace_bytes(t, hkv, g, d, p, ps),
                        dtype=torch.uint8, device=q.device)
     fn = _lib().repro_paged_attention
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], d,
              q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
+             None if k_scale is None else k_scale.data_ptr(),
+             None if v_scale is None else v_scale.data_ptr(),
              tables.data_ptr(), seg_ids.data_ptr(), positions.data_ptr(),
-             out.data_ptr(), work.data_ptr(),
-             t, hkv, g, ps, s, p,
-             float(scale), int(window) if window else 0, _launched,
-             stream)
+             out.data_ptr(), lse.data_ptr() if with_lse else None,
+             work.data_ptr(), t, hkv, g, ps, s, p, scale, window,
+             _launched, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(code {err})")
     counter.bump()
-    return out
+    return out, lse
+
+
+@_paged_launch.register_fake
+def _(q, k_pages, v_pages, k_scale, v_scale, tables, seg_ids, positions,
+      scale, window, with_lse):
+    t, hkv, g, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((t, hkv, g) if with_lse else (0,),
+                        dtype=torch.float32, device=q.device))
 
 
 # ----------------------------------------------------------------------
@@ -504,6 +552,17 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (b,):
         raise TypeError("decode_attention_fwd: cache_len must be (B,) "
                         "int32")
+    return _decode_launch(q, k_cache, v_cache, cache_len, float(scale),
+                          int(window) if window else 0)
+
+
+@launch_op("decode_attention")
+def _decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, cache_len: torch.Tensor,
+                   scale: float, win: int) -> torch.Tensor:
+    """The launch of :func:`decode_attention_fwd` as one operator (its
+    shape function below)."""
+    b, hkv, g, d = q.shape
     q, k_cache, v_cache = (dense_aligned(x) for x in (q, k_cache, v_cache))
     check_operands("decode_attention_fwd", q,
                    (q, k_cache, v_cache, cache_len))
@@ -511,7 +570,6 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     if out.numel() == 0:
         return out
     smax = k_cache.shape[2]
-    win = int(window) if window else 0
     work = None
     nbytes = _decode_workspace_bytes(Q_CODES[q.dtype], b, hkv, g, d, smax,
                                      win)
@@ -522,7 +580,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
              None if work is None else work.data_ptr(), b, hkv, g, smax,
-             float(scale), win, _decode_launched, stream)
+             scale, win, _decode_launched, stream)
     if err == -2:
         raise ValueError(f"decode_attention_fwd: min(Smax, window) = "
                          f"{min(smax, win or smax)} keys or G = {g} heads "
@@ -532,6 +590,11 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                            f"(code {err})")
     decode_counter.bump()
     return out
+
+
+@_decode_launch.register_fake
+def _(q, k_cache, v_cache, cache_len, scale, win):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 # ----------------------------------------------------------------------
@@ -659,7 +722,8 @@ def mixed_kernel_attributes(q_dtype: torch.dtype, cache_dtype: torch.dtype,
 def mixed_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, seg_ids: torch.Tensor,
                           positions: torch.Tensor, *, scale: float,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          return_lse: bool = False):
     """The reference's jnp path (``repro/models/attention.py:185-200``) in
     the kernel's layouts: q (T, Hkv, G, D); caches (S, Hkv, L, D);
     seg_ids/positions (T,).  Each token takes its slot's rows
@@ -667,9 +731,12 @@ def mixed_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     outside ``pos - window < k_pos <= pos``, fp32 softmax, probabilities
     cast to q's dtype, then the PV product in the promoted dtype of q and
     the caches.  Returns (T, Hkv, G, D) in q's dtype.  A token with no
-    visible key (``pos >= L`` under a window) averages V uniformly here
-    and gives zeros from the kernel, as the oracle and the Pallas kernel
-    differ."""
+    visible key (``pos >= L`` under a window, or ``pos < 0``) averages V
+    uniformly here and gives zeros from the kernel, as the oracle and the
+    Pallas kernel differ.  With ``return_lse`` also the (T, Hkv, G) fp32
+    ``logsumexp`` of the visible scaled logits, -inf where none is
+    visible (the weight such a row gets in
+    ``models.attention.merge_attention_partials``)."""
     s, l = k_cache.shape[0], k_cache.shape[2]
     slot = seg_ids.long().clamp(0, s - 1)
     k = k_cache[slot]                                       # (T, Hkv, L, D)
@@ -684,8 +751,13 @@ def mixed_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                          torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     ct = torch.promote_types(q.dtype, v.dtype)
-    return torch.einsum("thgl,thld->thgd", probs.to(ct),
-                        v.to(ct)).to(q.dtype)
+    out = torch.einsum("thgl,thld->thgd", probs.to(ct),
+                       v.to(ct)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(valid[:, None, None, :], logits,
+                                      float("-inf")), dim=-1)
+    return out, lse
 
 
 def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
@@ -738,6 +810,19 @@ def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
         if x.dtype != torch.int32 or tuple(x.shape) != (t,):
             raise TypeError("mixed_attention_fwd: seg_ids and positions "
                             "must be (T,) int32")
+    return _mixed_launch(q, k_cache, v_cache, seg_ids, positions,
+                         float(scale), int(window) if window else 0)
+
+
+@launch_op("mixed_attention")
+def _mixed_launch(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, seg_ids: torch.Tensor,
+                  positions: torch.Tensor, scale: float,
+                  window: int) -> torch.Tensor:
+    """The launch of :func:`mixed_attention_fwd` as one operator (its
+    shape function below)."""
+    t, hkv, g, d = q.shape
+    s, _, l, _ = k_cache.shape
     q, k_cache, v_cache = (dense_aligned(x) for x in (q, k_cache, v_cache))
     check_operands("mixed_attention_fwd", q,
                    (q, k_cache, v_cache, seg_ids, positions))
@@ -751,11 +836,15 @@ def mixed_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     err = fn(Q_CODES[q.dtype], Q_CODES[k_cache.dtype], d,
              q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              seg_ids.data_ptr(), positions.data_ptr(), out.data_ptr(),
-             work.data_ptr(), t, hkv, g, s, l,
-             float(scale), int(window) if window else 0, _mixed_launched,
-             stream)
+             work.data_ptr(), t, hkv, g, s, l, scale, window,
+             _mixed_launched, stream)
     if err != 0:
         raise RuntimeError(f"mixed_attention kernel launch failed "
                            f"(code {err})")
     mixed_counter.bump()
     return out
+
+
+@_mixed_launch.register_fake
+def _(q, k_cache, v_cache, seg_ids, positions, scale, window):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)

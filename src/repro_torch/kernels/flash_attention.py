@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from ._build import (HEAD_DIMS, Q_CODES, LaunchCounter, check_operands,
-                     dense_aligned, load_library)
+                     dense_aligned, launch_op, load_library)
 
 counter = LaunchCounter("flash_attention")
 
@@ -150,8 +150,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          int(window) if window else 0)
 
 
-@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
-                         device_types="cuda")
+@launch_op("flash_attention")
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, causal: bool, window: int) -> torch.Tensor:
     """The launch, as one operator: a graph traced by

@@ -72,7 +72,7 @@ from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
-from ._build import BUILD_ROOT, LaunchCounter
+from ._build import BUILD_ROOT, LaunchCounter, launch_op
 
 fused_counter = LaunchCounter("fused_elementwise")
 
@@ -484,15 +484,40 @@ class _Plan(NamedTuple):
     launch: Callable
 
 
+# every chain that reached a CUDA launch, by the key its operator takes
+_chain_keys: Dict[FusedChain, int] = {}
+_chains: List["ChainKernel"] = []
+
+
+def _chain_key(kernel: "ChainKernel") -> int:
+    """The integer key of ``kernel``'s chain: the static argument of the
+    ``repro_torch::fused_elementwise`` operator (a chain holds Python
+    functions, which an operator cannot take), so a graph traced by
+    ``repro_torch.compile`` keeps the launch as one node."""
+    with _lock:
+        try:
+            key = _chain_keys.get(kernel.chain)
+        except TypeError:          # an unhashable static: a key of its own
+            _chains.append(kernel)
+            return len(_chains) - 1
+        if key is None:
+            key = _chain_keys[kernel.chain] = len(_chains)
+            _chains.append(kernel)
+        return key
+
+
 class ChainKernel:
     """A chain's kernel wrapper: ``ChainKernel(chain)(*xs)`` is
     ``fused_elementwise(chain, *xs)``.  It keeps a :class:`_Plan` per
     signature of its operands (shapes, strides, dtypes, devices), so a
-    repeated call derives no broadcast shape, layout or module again."""
+    repeated call derives no broadcast shape, layout or module again.
+    The launch is the ``repro_torch::fused_elementwise`` operator over
+    the chain's key (:func:`_chain_key`)."""
 
     def __init__(self, chain: FusedChain):
         self.chain = chain
         self.plans: Dict[tuple, _Plan] = {}
+        self.key: int = -1
 
     def plan(self, xs: Sequence[torch.Tensor]) -> _Plan:
         dev = xs[0].device
@@ -519,6 +544,14 @@ class ChainKernel:
                              "one device")
         if dev.type == "cpu":
             return fused_elementwise_plain(self.chain, *xs)
+        if self.key < 0:
+            self.key = _chain_key(self)
+        return tuple(_fused_launch(self.key, list(xs)))
+
+    def launch(self, xs: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, ...]:
+        """The operator's body: every step's output, one kernel launch."""
+        dev = xs[0].device
         sig = tuple((x.shape, x.stride(), x.dtype) for x in xs) + (dev,)
         plan = self.plans.get(sig)
         if plan is None:
@@ -527,7 +560,7 @@ class ChainKernel:
                      for dt in self.chain.dtypes)
         if plan.n:
             ops = [t.view(torch.uint8) if b else t
-                   for t, b in zip(xs + outs, plan.as_bytes)]
+                   for t, b in zip([*xs, *outs], plan.as_bytes)]
             if torch.cuda.current_device() == plan.index:
                 plan.launch(ops[:len(xs)], ops[len(xs):])
             else:
@@ -535,6 +568,21 @@ class ChainKernel:
                     plan.launch(ops[:len(xs)], ops[len(xs):])
             fused_counter.bump()
         return outs
+
+
+@launch_op("fused_elementwise")
+def _fused_launch(key: int, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The launch of the chain registered under ``key``, as one operator
+    (its shape function below)."""
+    return list(_chains[key].launch(xs))
+
+
+@_fused_launch.register_fake
+def _(key, xs):
+    chain = _chains[key].chain
+    shape = tuple(torch.broadcast_shapes(*[x.shape for x in xs]))
+    return [torch.empty(shape, dtype=dt, device=xs[0].device)
+            for dt in chain.dtypes]
 
 
 def fused_elementwise(chain: FusedChain, *xs: torch.Tensor

@@ -55,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import (Q_CODES, LaunchCounter, check_operands, dense_aligned,
-                     load_library)
+                     launch_op, load_library)
 
 STATE_SIZES = (8, 16)     # d_state values the kernel instantiates
 # the exponential each dtype's kernel evaluates (csrc/mamba.cu)
@@ -201,6 +201,28 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"mamba_scan_fwd: A must be ({di}, {n}) and D "
                          f"({di},) float32, got {tuple(A.shape)} {A.dtype}"
                          f", {tuple(D.shape)} {D.dtype}")
+    tensors = [A, D]
+    if h0 is not None:
+        if h0.dtype != torch.float32 or tuple(h0.shape) != (b, di, n):
+            raise ValueError(f"mamba_scan_fwd: h0 must be ({b}, {di}, {n})"
+                             f" float32, got {tuple(h0.shape)} {h0.dtype}")
+        tensors.append(h0)
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError("mamba_scan_fwd: all operands must be on one "
+                             "device")
+    return _mamba_launch(x, dt, B, C, A, D, h0)
+
+
+@launch_op("mamba_scan")
+def _mamba_launch(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                  h0: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of :func:`mamba_scan_fwd` as one operator (its shape
+    function below)."""
+    b, s, di = x.shape
+    n = B.shape[-1]
     if x.stride(-1) != 1 or dt.stride() != x.stride() or (
             s > 1 and not (_aligned(x, di) and _aligned(dt, di))):
         x, dt = _padded(x), _padded(dt)
@@ -208,13 +230,7 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         B, C = (t if _aligned(t, n) else dense_aligned(t) for t in (B, C))
     else:
         B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (B, C))
-    tensors = [A, D]
-    if h0 is not None:
-        if h0.dtype != torch.float32 or tuple(h0.shape) != (b, di, n):
-            raise ValueError(f"mamba_scan_fwd: h0 must be ({b}, {di}, {n})"
-                             f" float32, got {tuple(h0.shape)} {h0.dtype}")
-        tensors.append(h0)
-    check_operands("mamba_scan_fwd", x, tensors)
+    check_operands("mamba_scan_fwd", x, [A, D] if h0 is None else [A, D, h0])
     A = dense_aligned(A)
     if h0 is not None:
         h0 = dense_aligned(h0)
@@ -233,3 +249,11 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         raise RuntimeError(f"mamba_scan kernel launch failed (code {err})")
     counter.bump()
     return y, h
+
+
+@_mamba_launch.register_fake
+def _(x, dt, B, C, A, D, h0):
+    b, _, di = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((b, di, B.shape[-1]), dtype=torch.float32,
+                        device=x.device))

@@ -80,7 +80,7 @@ from typing import Optional
 
 import torch
 
-from ._build import LaunchCounter
+from ._build import LaunchCounter, launch_op
 from ._noise import position_uniforms
 from .decode_attention import (decode_attention_fwd, mixed_attention_fwd,
                                paged_attention_fwd)
@@ -197,22 +197,26 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     scale: Optional[float] = None,
                     window: Optional[int] = None,
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """Mixed prefill/decode attention directly over the physical KV page
     pool.  q: (T, Hq, D) flat token batch; k_pages/v_pages (N, ps, Hkv,
     D); tables (S, P), seg_ids/positions (T,) int32.  Token t attends
     slot seg_ids[t]'s pages at key positions <= positions[t] (seg_ids < 0
     is padding whose output the caller discards).  A quantized pool
     passes (N, ps, Hkv) fp32 ``k_scale``/``v_scale``.  Returns (T, Hq, D)
-    in q's dtype."""
+    in q's dtype; with ``return_lse`` also each row's (T, Hq) fp32
+    log-sum-exp (``paged_attention_fwd``)."""
     t, hq, d = q.shape
     hkv = k_pages.shape[2]
     eff_scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(t, hkv, hq // hkv, d).contiguous()
     out = paged_attention_fwd(qg, k_pages, v_pages, tables, seg_ids,
                               positions, scale=eff_scale, window=window,
-                              k_scale=k_scale, v_scale=v_scale)
+                              k_scale=k_scale, v_scale=v_scale,
+                              return_lse=return_lse)
+    if return_lse:
+        return out[0].reshape(t, hq, d), out[1].reshape(t, hq)
     return out.reshape(t, hq, d)
 
 
@@ -235,8 +239,14 @@ def gumbel_perturb(logits: torch.Tensor,
     if logits.device.type != "cuda" or uniform.device != logits.device:
         raise ValueError(f"gumbel_perturb: unsupported devices "
                          f"{logits.device}/{uniform.device}")
-    x = logits.float().contiguous()
-    u = uniform.float().contiguous()
+    return _gumbel_launch(logits.float().contiguous(),
+                          uniform.float().contiguous())
+
+
+@launch_op("gumbel_perturb")
+def _gumbel_launch(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The launch of :func:`gumbel_perturb` as one operator (its shape
+    function below)."""
     out = torch.empty_like(x)
     if x.numel():
         from . import _gumbel_triton
@@ -244,6 +254,11 @@ def gumbel_perturb(logits: torch.Tensor,
             _gumbel_triton.launch(x, u, out)
         gumbel_counter.bump()
     return out
+
+
+@_gumbel_launch.register_fake
+def _(x, u):
+    return torch.empty_like(x)
 
 
 def gumbel_perturb_keyed_plain(logits: torch.Tensor, seeds: torch.Tensor,
@@ -272,15 +287,28 @@ def gumbel_perturb_keyed(logits: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"gumbel_perturb_keyed: unsupported devices "
                          f"{logits.device}/{seeds.device}/"
                          f"{positions.device}")
-    x = logits.float().contiguous()
+    return _gumbel_keyed_launch(logits.float().contiguous(),
+                                seeds.long().contiguous(),
+                                positions.long().contiguous())
+
+
+@launch_op("gumbel_perturb_keyed")
+def _gumbel_keyed_launch(x: torch.Tensor, seeds: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """The launch of :func:`gumbel_perturb_keyed` as one operator (its
+    shape function below)."""
     out = torch.empty_like(x)
     if x.numel():
         from . import _gumbel_triton
         with torch.cuda.device(x.device):
-            _gumbel_triton.launch_keyed(x, seeds.long().contiguous(),
-                                        positions.long().contiguous(), out)
+            _gumbel_triton.launch_keyed(x, seeds, positions, out)
         gumbel_counter.bump()
     return out
+
+
+@_gumbel_keyed_launch.register_fake
+def _(x, seeds, positions):
+    return torch.empty_like(x)
 
 
 class _RWKV6Scan(torch.autograd.Function):

@@ -59,7 +59,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import (Q_CODES, LaunchCounter, check_operands, dense_aligned,
-                     load_library)
+                     launch_op, load_library)
 
 HEAD_SIZES = (32, 64, 128)     # head sizes the kernel instantiates
 
@@ -173,9 +173,6 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if u.dtype != torch.float32 or tuple(u.shape) != (h, d):
         raise ValueError(f"rwkv6_scan_fwd: u must be ({h}, {d}) float32, "
                          f"got {tuple(u.shape)} {u.dtype}")
-    if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in (k, v, w)) \
-            or not all(_aligned(x) for x in (r, k, v, w)):
-        r, k, v, w = (dense_aligned(x) for x in (r, k, v, w))
     tensors = [u]
     if state0 is not None:
         if state0.dtype != torch.float32 or \
@@ -184,14 +181,35 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{d}, {d}) float32, got {tuple(state0.shape)} "
                              f"{state0.dtype}")
         tensors.append(state0)
+    for x in tensors:
+        if x.device != r.device:
+            raise ValueError("rwkv6_scan_fwd: all operands must be on one "
+                             "device")
+    out, state = _rwkv6_launch(r, k, v, w, u, state0)
+    return out.transpose(1, 2), state
+
+
+@launch_op("rwkv6_scan")
+def _rwkv6_launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  state0: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of :func:`rwkv6_scan_fwd` as one operator (its shape
+    function below): ``out`` is returned as the contiguous (B, S, H, D)
+    tensor the kernel writes, which the wrapper views as (B, H, S, D)."""
+    b, h, s, d = r.shape
+    if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in (k, v, w)) \
+            or not all(_aligned(x) for x in (r, k, v, w)):
+        r, k, v, w = (dense_aligned(x) for x in (r, k, v, w))
+    tensors = [u] if state0 is None else [u, state0]
     check_operands("rwkv6_scan_fwd", r, tensors)
     if state0 is not None:
         state0 = dense_aligned(state0)
-    out = torch.empty((b, s, h, d), dtype=r.dtype,
-                      device=r.device).transpose(1, 2)
+    buf = torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
+    out = buf.transpose(1, 2)
     state = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     if b * h == 0:
-        return out, state
+        return buf, state
     lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.repro_rwkv6_scan(
@@ -202,4 +220,11 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed (code {err})")
     counter.bump()
-    return out, state
+    return buf, state
+
+
+@_rwkv6_launch.register_fake
+def _(r, k, v, w, u, state0):
+    b, h, s, d = r.shape
+    return (torch.empty((b, s, h, d), dtype=r.dtype, device=r.device),
+            torch.empty((b, h, d, d), dtype=torch.float32, device=r.device))

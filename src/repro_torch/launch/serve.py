@@ -3,13 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve [--preset tiny|small]
         [--requests 32] [--max-new 8] [--chunk 16] [--json PATH]
         [--timeout-ms T] [--ttft-deadline-ms T] [--max-queue-depth N]
-        [--faults SPEC] [--fault-seed S] [--device cuda|cpu]
+        [--faults SPEC] [--fault-seed S] [--dp D] [--tp T]
+        [--device cuda|cpu]
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device``: the engine runs on CUDA unless ``--device cpu`` is given
 (without a GPU and without it, it raises; there is no fallback to the
-CPU).  ``--dp``/``--tp`` above 1 raise: sharded serving is not ported
-(ROADMAP.md queue A7).
+CPU).  ``--dp D --tp T`` with D*T > 1 serves on a (data, model) mesh of
+D*T ranks: the reference's command is one process over D*T devices;
+here the command starts its D*T ranks itself (``torch.multiprocessing``,
+start method ``spawn``, ``launch.mesh.run_ranks``: NCCL with a card a
+rank when there are enough, else gloo with the ranks sharing the card),
+every rank builds the same engine and serves the same workload, and
+rank 0's report is printed.
 
 Builds a synthetic mixed-length workload (long prompts interleaved with
 short ones), serves it through the paged continuous-batching engine, and
@@ -68,7 +74,7 @@ def preset_config(preset: str, name: str) -> LMConfig:
                     attn_backend="ref")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
     ap.add_argument("--requests", type=int, default=32)
@@ -93,21 +99,51 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          'executor_crash@9" (see serving.faults)')
     ap.add_argument("--fault-seed", type=int, default=0)
     ap.add_argument("--dp", type=int, default=1,
-                    help="data replicas (not ported: above 1 raises)")
+                    help="data replicas (slot space becomes dp*max_batch;"
+                         " dp*tp ranks are started for dp*tp > 1)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree (not ported: above 1 "
-                         "raises)")
+                    help="tensor-parallel degree over the model axis")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a GPU) or cpu")
     ap.add_argument("--json", default=None,
                     help="also dump metrics JSON to this path")
-    args = ap.parse_args(argv)
-    if args.dp * args.tp > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: sharded serving (data "
-            f"replicas, tensor parallelism) is not ported yet; see "
-            f"ROADMAP.md queue A7")
+    return ap
 
+
+def _serve_rank(rank: int, world: int, argv) -> dict:
+    """One rank of ``--dp``/``--tp``: the engine on the serving mesh."""
+    from .mesh import mesh_for_serving
+    args = parser().parse_args(argv)
+    return serve(args, mesh_for_serving(world, tp=args.tp),
+                 quiet=rank != 0)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = parser().parse_args(argv)
+    if args.dp < 1 or args.tp < 1:
+        raise ValueError(f"--dp {args.dp} --tp {args.tp}: both must be "
+                         f">= 1")
+    if args.dp * args.tp > 1:
+        from .mesh import run_ranks
+        report = run_ranks(_serve_rank, args.dp * args.tp,
+                           (list(argv) if argv is not None else None,),
+                           timeout=3600)[0]
+    else:
+        report = serve(args)
+    for k, v in report.items():
+        print(f"{k:>22}: {v}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"[json] {args.json}")
+    return report
+
+
+def serve(args, mesh=None, quiet: bool = False) -> dict:
+    """Serve the synthetic workload on one engine (on ``mesh`` when
+    given); returns the report.  ``quiet`` keeps a rank other than 0
+    from printing the per-request lines."""
+    say = (lambda *a: None) if quiet else print
     cfg = preset_config(args.preset, "serve")
     params = init_params(cfg, seed=0, device="cpu")
     faults = FaultInjector.parse(args.faults, seed=args.fault_seed) \
@@ -118,7 +154,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         chunk_size=args.chunk,
                         max_queue_depth=args.max_queue_depth,
                         kv_dtype=args.kv_dtype,
-                        faults=faults, device=args.device)
+                        faults=faults, device=args.device, mesh=mesh)
 
     prompts = synthetic_workload(args.requests, cfg.vocab_size)
     t0 = time.perf_counter()
@@ -131,7 +167,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         except ServingError as e:
             # typed per-request rejection — report it, keep serving
             rejected += 1
-            print(f"[rejected] request {i}: "
+            say(f"[rejected] request {i}: "
                   f"{type(e).__name__}: {e}")
     interrupted = False
     try:
@@ -141,17 +177,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         interrupted = True
         done = []
         partial = eng.drain()
-        print(f"\n[interrupt] drained {len(partial)} in-flight "
-              f"request(s); partial outputs:")
+        say(f"\n[interrupt] drained {len(partial)} in-flight "
+            f"request(s); partial outputs:")
         for r in partial:
-            print(f"  req {r.req_id}: {len(r.out_tokens)} token(s) "
-                  f"{r.out_tokens}")
+            say(f"  req {r.req_id}: {len(r.out_tokens)} token(s) "
+                f"{r.out_tokens}")
     wall = time.perf_counter() - t0
 
     for r in eng.aborted:
         if r.state.value != "cancelled":
-            print(f"[{r.state.value}] request {r.req_id}: {r.error} "
-                  f"({len(r.out_tokens)} partial token(s))")
+            say(f"[{r.state.value}] request {r.req_id}: {r.error} "
+                f"({len(r.out_tokens)} partial token(s))")
 
     m = eng.stats()
     ttfts = [r.first_token_at - r.submitted_at for r in done]
@@ -167,6 +203,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "bucket_compiles": m["bucket_compiles"],
         "bucket_budget": eng.bucket_count,
         "n_replicas": m["n_replicas"],
+        "tp": args.tp,
+        "lse_merges": m["lse_merges"],
         **{k: m[k] for k in ("steps", "prefills", "prefill_chunks",
                              "preemptions", "zero_decode_steps",
                              "decoded_tokens", "page_hwm",
@@ -179,12 +217,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                              "aged_admissions", "executor_failures",
                              "steps_exhausted")},
     }
-    for k, v in report.items():
-        print(f"{k:>22}: {v}")
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(report, f, indent=2)
-        print(f"[json] {args.json}")
     return report
 
 

@@ -4,7 +4,7 @@
 The reference wraps each step in ``jax.jit`` with parameter, optimizer
 and cache shardings over a device mesh, and donates the state.  The port
 runs eagerly on one device: meshes and shardings are dropped (sharding
-is ROADMAP.md queue A7), and donation becomes updates in place: the
+is ROADMAP.md queue A7b), and donation becomes updates in place: the
 train step writes the new parameters and optimizer state into the
 tensors it was given, leaf by leaf, so the model never has a second copy
 of its parameters, and the decode step writes the cache in place.

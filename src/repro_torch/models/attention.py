@@ -43,7 +43,10 @@ raise on a width they cannot launch.
 
 The reference's ``_build_mask`` is ``kernels.flash_attention.
 visible_mask``.  Its ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
-sequence sharding across a mesh and is not ported (ROADMAP.md queue A7).
+sequence sharding of training across a mesh and is not ported
+(ROADMAP.md queue A7b).  :func:`merge_attention_partials` merges
+attention over disjoint key sets by their log-sum-exps: the sharded
+serving executor's context-parallel KV.
 """
 
 from __future__ import annotations
@@ -239,14 +242,33 @@ def mixed_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                 scale=scale, window=window)
 
 
+def merge_attention_partials(outs, lses) -> torch.Tensor:
+    """Attention over a union of disjoint key sets from its parts: each
+    ``outs[i]`` (..., D) is the attention output over key set i and
+    ``lses[i]`` (...) fp32 the natural log-sum-exp of that set's visible
+    scaled logits (-inf where the set holds no visible key, as the paged
+    kernel's ``return_lse`` gives it).  Returns the output over all the
+    keys in ``outs[0]``'s dtype: each part weighted by ``exp(lse_i -
+    max_j lse_j)``, in fp32, then normalised; a row no part sees gives
+    zeros.  Torch ops, no kernel: the context-parallel executor merges
+    its model ranks' partials with it."""
+    lse = torch.stack([x.float() for x in lses])             # (n, ...)
+    top = lse.max(dim=0).values
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lse - top)                                 # 0 for -inf
+    num = sum(wi[..., None] * o.float() for wi, o in zip(w, outs))
+    den = w.sum(dim=0).clamp_min(torch.finfo(torch.float32).tiny)
+    return (num / den[..., None]).to(outs[0].dtype)
+
+
 def select_paged_backend(requested: str, *, sharded: bool) -> str:
-    """The reference pins its jnp path under a replica axis or a mesh; the
-    port has no sharded serving yet, so that case raises.  Otherwise the
-    config's ``attn_backend`` is validated and returned as given: the
-    tensor's device decides the path (module docstring)."""
+    """The config's ``attn_backend``, validated and returned as given,
+    whether or not the engine is sharded: the tensor's device decides the
+    path (module docstring).  The reference pins its jnp path under a
+    replica axis or a mesh; the port's replicated step attends every
+    replica's pages in one paged-kernel launch (their page ids are
+    global), and a meshed rank attends its own shard of the pool through
+    the same kernel (``serving.executor``), so nothing is pinned."""
+    del sharded
     _check_backend("paged attention", requested)
-    if sharded:
-        raise NotImplementedError(
-            "sharded serving (replicas / meshes) is not ported yet; see "
-            "ROADMAP.md queue A7")
     return requested

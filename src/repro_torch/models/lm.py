@@ -169,6 +169,12 @@ def _norm_init(cfg: LMConfig, device) -> torch.Tensor:
                       device=device)
 
 
+def abstract_params(cfg: LMConfig) -> Params:
+    """Shape-only parameters: :func:`init_params`'s tree on the ``meta``
+    device, allocating nothing (the sharding tables read only shapes)."""
+    return init_params(cfg, device="meta")
+
+
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default CUDA).  Same shapes, scales and dtypes as the reference's
@@ -177,8 +183,9 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
     a bf16 model never passes through an fp32 copy of itself (the widest
     fp32 draw is one weight matrix, or one expert's)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    gen = torch.Generator(device="cpu" if meta else dev).manual_seed(seed)
     dt = cfg.param_dtype
     params: Params = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
@@ -403,6 +410,11 @@ def _embed(cfg: LMConfig, params: Params, tokens=None,
         x = params["embed"][tokens]
     else:
         x = embeds.to(cfg.param_dtype)
+    return scale_embeddings(cfg, x)
+
+
+def scale_embeddings(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """``x`` times ``sqrt(d_model)`` when the config scales embeddings."""
     if cfg.embed_scale:
         # the scale is rounded to x's dtype first, as the reference does
         # (it matters for bf16 gemma); it stays a host number, since a

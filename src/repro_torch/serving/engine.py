@@ -11,9 +11,16 @@ paged-attention and Triton Gumbel kernels.  Fault tolerance (quarantine,
 the invariant watchdog, the fault injector) wraps the loop as in the
 reference.
 
-Not ported: meshes and data replicas (``mesh``, ``n_replicas > 1``
-raise).  The async front door (``frontend.AsyncFrontend``) and the
-legacy baseline (``legacy.LegacyServingEngine``) sit beside it.
+Sharded serving: a (data, model) ``mesh`` (``launch.mesh``) replicates
+the slot space over ``data`` (S slots -> R*S; ``num_pages`` and
+``token_budget`` stay PER replica) and tensor-parallels the layers over
+``model``; ``n_replicas`` alone (no mesh) runs the same replicated plan
+on one device.  Every rank of a mesh builds the same engine, receives the
+same submits and runs the same host scheduler over all R*S slots (the
+control plane is mesh-oblivious); the executor runs each rank's part and
+all-gathers the sampled tokens, so every rank commits the same step.
+The async front door (``frontend.AsyncFrontend``) and the legacy
+baseline (``legacy.LegacyServingEngine``) sit beside it.
 """
 
 from __future__ import annotations
@@ -85,16 +92,22 @@ class ServingEngine:
                 "paged engine applies neither qkv bias nor qk-norm; serve "
                 "this config through the dense-cache step builders "
                 "(ROADMAP.md queue C)")
-        if mesh is not None or n_replicas != 1:
-            raise NotImplementedError(
-                "sharded serving (mesh / n_replicas > 1) is not ported "
-                "yet; see ROADMAP.md queue A7")
+        # a (data, model) mesh replicates the slot space over `data`
+        # (`num_pages` and `token_budget` stay PER replica) and
+        # tensor-parallels the layers over `model`; `n_replicas` alone
+        # runs the same replicated plan on one device
+        if mesh is not None:
+            from ..launch.mesh import axis_sizes
+            n_replicas = axis_sizes(mesh).get("data", 1)
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = LM.params_to(params, self.device)
+        self.params = params if mesh is not None else \
+            LM.params_to(params, self.device)
         self.max_batch = max_batch
-        self.mesh = None
-        self.n_replicas = 1
+        self.mesh = mesh
+        self.n_replicas = n_replicas
         # the sampling contract: an explicit ``sampling`` wins;
         # otherwise ``greedy`` picks argmax (temperature 0) or plain
         # temperature-1.0 sampling
@@ -112,9 +125,11 @@ class ServingEngine:
         # fp32 scales
         self.kv = PagedKVCache(
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.hd, page_size=page_size, num_pages=num_pages,
+            head_dim=cfg.hd, page_size=page_size,
+            num_pages=num_pages * n_replicas, n_replicas=n_replicas,
             dtype=torch.float32 if cfg.param_dtype == torch.float32
-            else torch.bfloat16, kv_dtype=kv_dtype, device=self.device)
+            else torch.bfloat16, kv_dtype=kv_dtype, device=self.device,
+            mesh=mesh)
         self.scheduler = Scheduler(
             self.kv, max_batch=max_batch, chunk_size=chunk_size,
             token_budget=token_budget,
@@ -122,12 +137,15 @@ class ServingEngine:
             max_queue_depth=max_queue_depth,
             admit_hwm_frac=admit_hwm_frac, aging_steps=aging_steps,
             sampling=self.sampling, spec_k=spec_k, proposer=proposer,
-            n_replicas=1, clock=clock)
+            n_replicas=n_replicas, clock=clock)
         # size the device table mirror at the pages bucket cap up front:
         # the delta path then never pays a width-growth rebuild
         self.kv.mirror_width_hint = self.scheduler.p_buckets()[-1]
         self.executor = Executor(cfg, self.params, device=self.device,
-                                 kv_quant=self.kv.quant_mode)
+                                 kv_quant=self.kv.quant_mode, mesh=mesh,
+                                 n_replicas=n_replicas)
+        if mesh is not None:
+            self.params = self.executor.params     # this rank's shards
         self.watchdog = Watchdog(interval=watchdog_interval,
                                  stall_steps=stall_steps)
         # fault injection: ctor arg, else env (None = zero overhead)
@@ -341,13 +359,15 @@ class ServingEngine:
         executor/KV: ``bucket_compiles`` (distinct (T, P) step
         buckets executed — must stay ≤ :attr:`bucket_count`), ``page_hwm``
         (live-page high-water mark), ``page_hwm_per_replica`` (same,
-        per data replica), ``kv_bytes`` (total resident page-pool
+        per data replica), ``kv_bytes`` (this rank's resident page-pool
         bytes — codes plus scale overhead for a quantized pool),
         ``kv_dtype`` (the pool storage: "float32"/"bfloat16"/"int8"/
         "fp8_e4m3"), ``kv_bytes_per_seq`` (resident bytes of one
         max-length sequence: page bytes × ``max_pages_per_seq`` — the
         capacity-planning number that shows the quantization win),
-        ``n_replicas``, ``table_upload_rows`` (host→device
+        ``n_replicas``, ``lse_merges`` and ``collectives`` (the
+        executor's context-parallel merges and model-axis collectives;
+        0 without a mesh), ``table_upload_rows`` (host→device
         block-table rows flushed by the delta mirror), and
         ``table_full_rebuilds``."""
         m = dict(self.scheduler.metrics)
@@ -361,6 +381,7 @@ class ServingEngine:
         m["kv_bytes_per_seq"] = (ms["page_bytes"]
                                  * self.scheduler.max_pages_per_seq)
         m["n_replicas"] = self.n_replicas
+        m.update(self.executor.stats)
         m["table_upload_rows"] = self.kv.upload_rows_total
         m["table_full_rebuilds"] = self.kv.upload_full_rebuilds
         m["spec_acceptance_rate"] = (

@@ -32,7 +32,22 @@ What changes with torch:
     on the pool's device, dequantized to fp32 for a quantized pool, as
     the reference does.
 
-Not ported: ``n_replicas > 1`` or a mesh (which raise).
+Data replicas and meshes.  With ``n_replicas = R`` page ids stay
+GLOBAL, replica r owning the contiguous range [r*ppr, (r+1)*ppr), as in
+the reference; the host bookkeeping is the same on every rank of a mesh
+(the control plane is mesh-oblivious).  Without a mesh one set of page
+tensors holds every replica, and the device table rows hold global ids.
+On a (data, model) mesh each rank allocates only its own part of the
+pool, as ``distributed.sharding.serving_kv_spec`` places it
+(:class:`PoolShard`): its replica's page range over ``data``; its KV
+heads over ``model`` where they divide; otherwise its share of the
+replica's pages over ``model`` (context-parallel KV).  The rank's table
+mirror holds its replica's slot rows in ids of its own page tensors; a
+context-parallel rank's rows list only the pages it holds, in table
+order, and :meth:`PagedKVCache.local_positions` maps each token's
+position onto that compacted row.  Copy-on-write between two model
+ranks' pages is a broadcast over the model group; ``gather`` sums the
+ranks' parts over the mesh.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..distributed import collectives as C
 from . import quant
 from .errors import MeshConfigError
 
@@ -66,16 +82,19 @@ class PageStats:
 
 
 class PagePool:
-    """Refcounted free-list of physical page ids (one replica)."""
+    """Refcounted free-list of physical page ids.  With ``n_replicas >
+    1`` page ids stay global and replica r owns the contiguous range
+    ``[r*pages_per_replica, (r+1)*pages_per_replica)``; ``free`` stays
+    one flat list, and replica-targeted allocation scans it."""
 
     def __init__(self, num_pages: int, n_replicas: int = 1):
-        if n_replicas != 1:
+        if n_replicas < 1 or num_pages % n_replicas:
             raise MeshConfigError(
-                f"n_replicas={n_replicas}: data-parallel serving is not "
-                f"ported yet (ROADMAP.md queue A7)")
+                f"num_pages={num_pages} must divide across "
+                f"n_replicas={n_replicas}")
         self.num_pages = num_pages
-        self.n_replicas = 1
-        self.pages_per_replica = num_pages
+        self.n_replicas = n_replicas
+        self.pages_per_replica = num_pages // n_replicas
         self.free: List[int] = list(range(num_pages - 1, -1, -1))
         self.refs: Dict[int, int] = {}
         # content generation per page: bumped on every alloc, so prefix
@@ -84,22 +103,46 @@ class PagePool:
         # tokens actually WRITTEN into each live page
         self.filled: Dict[int, int] = {}
         self.stats = PageStats()
-        self.page_hwm_per_replica: List[int] = [0]
+        self.page_hwm_per_replica: List[int] = [0] * n_replicas
+
+    def replica_of(self, page: int) -> int:
+        return page // self.pages_per_replica
 
     def free_in(self, replica: int) -> int:
-        return len(self.free)
+        """Free pages owned by ``replica`` (O(free); host-side only)."""
+        if self.n_replicas == 1:
+            return len(self.free)
+        return sum(1 for p in self.free
+                   if p // self.pages_per_replica == replica)
+
+    def _live_in(self, replica: int) -> int:
+        return self.pages_per_replica - self.free_in(replica)
 
     def alloc(self, replica: Optional[int] = None) -> Optional[int]:
-        if not self.free:
-            self.stats.oom_rejections += 1
-            return None
-        page = self.free.pop()
+        """Pop a free page: from ``replica``'s range when given, from
+        anywhere otherwise (the fault injector's page stealer)."""
+        if replica is None or self.n_replicas == 1:
+            if not self.free:
+                self.stats.oom_rejections += 1
+                return None
+            page = self.free.pop()
+        else:
+            lo = replica * self.pages_per_replica
+            hi = lo + self.pages_per_replica
+            i = next((j for j in range(len(self.free) - 1, -1, -1)
+                      if lo <= self.free[j] < hi), None)
+            if i is None:
+                self.stats.oom_rejections += 1
+                return None
+            page = self.free.pop(i)
         self.refs[page] = 1
         self.gen[page] += 1
         self.filled[page] = 0
         self.stats.allocated_pages += 1
         self.stats.page_hwm = max(self.stats.page_hwm, len(self.refs))
-        self.page_hwm_per_replica[0] = self.stats.page_hwm
+        r = self.replica_of(page)
+        self.page_hwm_per_replica[r] = max(self.page_hwm_per_replica[r],
+                                           self._live_in(r))
         return page
 
     def retain(self, page: int) -> None:
@@ -117,21 +160,77 @@ class PagePool:
         return len(self.free)
 
 
+@dataclass(frozen=True)
+class PoolShard:
+    """The part of the page pool one rank holds: global pages [page_lo,
+    page_hi) and KV heads [head_lo, head_hi).  ``mode`` is ``"heads"``
+    (heads split over ``model``), ``"pages"`` (the replica's pages split
+    over ``model``: context-parallel KV) or ``"full"`` (the replica's
+    whole pool on every model rank, or no mesh at all)."""
+    page_lo: int
+    page_hi: int
+    head_lo: int
+    head_hi: int
+    mode: str = "full"
+    replica: int = 0
+    model_rank: int = 0
+    data_group: object = None
+    model_group: object = None
+
+    def holds(self, page: int) -> bool:
+        return self.page_lo <= page < self.page_hi
+
+    @property
+    def n_pages(self) -> int:
+        return self.page_hi - self.page_lo
+
+    @property
+    def n_heads(self) -> int:
+        return self.head_hi - self.head_lo
+
+
+def pool_shard(mesh, n_kv_heads: int, num_pages: int,
+               n_replicas: int) -> PoolShard:
+    """This rank's :class:`PoolShard` on ``mesh`` (None: the whole pool),
+    as ``serving_kv_spec`` places a (num_pages, ps, Hkv, hd) pool."""
+    if mesh is None:
+        return PoolShard(0, num_pages, 0, n_kv_heads)
+    from ..distributed.sharding import serving_kv_spec, shard_range
+    from ..launch.mesh import axis_sizes, coords
+    sizes, here = axis_sizes(mesh), coords(mesh)
+    spec = serving_kv_spec(n_kv_heads, mesh,
+                           pages_per_replica=num_pages // n_replicas)
+    p_lo, p_hi = (0, num_pages) if spec[0] is None else \
+        shard_range(num_pages, spec[0], sizes, here)
+    h_lo, h_hi = (0, n_kv_heads) if spec[2] is None else \
+        shard_range(n_kv_heads, spec[2], sizes, here)
+    mode = "heads" if spec[2] is not None else (
+        "pages" if isinstance(spec[0], tuple) or spec[0] == "model"
+        else "full")
+    names = mesh.mesh_dim_names
+    return PoolShard(p_lo, p_hi, h_lo, h_hi, mode,
+                     here.get("data", 0), here.get("model", 0),
+                     mesh.get_group("data") if "data" in names else None,
+                     mesh.get_group("model") if "model" in names else None)
+
+
 class PagedKVCache:
     """Physical paged KV storage + per-sequence block tables."""
 
     def __init__(self, *, n_layers: int, n_kv_heads: int, head_dim: int,
                  page_size: int = 16, num_pages: int = 256,
                  dtype: torch.dtype = torch.bfloat16, n_replicas: int = 1,
-                 kv_dtype: Optional[str] = None, device=None):
+                 kv_dtype: Optional[str] = None, device=None, mesh=None):
         self.device = resolve_device(device)
         self.n_layers = n_layers
         self.n_kv_heads = n_kv_heads
         self.head_dim = head_dim
         self.page_size = page_size
         self.pool = PagePool(num_pages, n_replicas)
-        self.n_replicas = 1
+        self.n_replicas = n_replicas
         self.pages_per_replica = self.pool.pages_per_replica
+        self.mesh = mesh
+        self.shard = pool_shard(mesh, n_kv_heads, num_pages, n_replicas)
         self.quant_mode = quant.canonical(kv_dtype)
         if self.quant_mode is not None:
             dtype = quant.storage_dtype(self.quant_mode)
@@ -141,14 +240,15 @@ class PagedKVCache:
             dtype = torch.bfloat16
         self.kv_dtype_name = self.quant_mode or str(dtype).split(".")[-1]
         self.seq_replica: Dict[int, int] = {}
-        shape = (num_pages, page_size, n_kv_heads, head_dim)
+        npg, nh = self.shard.n_pages, self.shard.n_heads
+        shape = (npg, page_size, nh, head_dim)
         self.k: Optional[List[torch.Tensor]] = [
             torch.zeros(shape, dtype=dtype, device=self.device)
             for _ in range(n_layers)]
         self.v: Optional[List[torch.Tensor]] = [
             torch.zeros(shape, dtype=dtype, device=self.device)
             for _ in range(n_layers)]
-        sshape = (num_pages, page_size, n_kv_heads)
+        sshape = (npg, page_size, nh)
         self.k_scale: Optional[List[torch.Tensor]] = None
         self.v_scale: Optional[List[torch.Tensor]] = None
         if self.quant_mode is not None:
@@ -197,6 +297,7 @@ class PagedKVCache:
             hit = self._prefix_index.get(key) if full_page else None
             if (hit is not None and hit[0] in self.pool.refs
                     and self.pool.gen[hit[0]] == hit[1]
+                    and self.pool.replica_of(hit[0]) == replica
                     and reused * self.page_size == start):
                 self.pool.retain(hit[0])
                 table.append(hit[0])
@@ -291,10 +392,11 @@ class PagedKVCache:
     def scrub_pages(self, pages: Sequence[int]) -> None:
         """Zero the K/V content (and scales) of ``pages`` in place.
         Requires the host to own the tensors (not taken)."""
+        pages = [p - self.shard.page_lo for p in pages
+                 if self.shard.holds(p)]
         if not pages or self.k is None:
             return
-        idx = torch.as_tensor(list(pages), dtype=torch.long,
-                              device=self.device)
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for layer in range(self.n_layers):
             self.k[layer][idx] = 0
             self.v[layer][idx] = 0
@@ -372,18 +474,81 @@ class PagedKVCache:
             new_page = self._alloc_for(seq_id)
             if new_page is None:
                 return None
-            for layer in range(self.n_layers):
-                self.k[layer][new_page] = self.k[layer][page]
-                self.v[layer][new_page] = self.v[layer][page]
-                if self.k_scale is not None:
-                    self.k_scale[layer][new_page] = self.k_scale[layer][page]
-                    self.v_scale[layer][new_page] = self.v_scale[layer][page]
+            self._copy_page(page, new_page)
             self.pool.release(page)
             table[page_pos] = new_page
             self.pool.stats.cow_copies += 1
             self._bump(seq_id)
             return new_page
         return page
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy page ``src`` (codes and scales, every layer) to page
+        ``dst`` of one replica, in place.  Only that replica's ranks act;
+        on a context-parallel rank the two pages may lie with two model
+        ranks, and the holder of ``src`` broadcasts it over the model
+        group."""
+        sh = self.shard
+        if self.mesh is not None and \
+                self.pool.replica_of(src) != sh.replica:
+            return
+        tensors = [self.k, self.v] + (
+            [self.k_scale, self.v_scale] if self.k_scale is not None else [])
+        if sh.holds(src) and sh.holds(dst):
+            for layers in tensors:
+                for t in layers:
+                    t[dst - sh.page_lo] = t[src - sh.page_lo]
+            return
+        if sh.mode != "pages":
+            raise AssertionError(f"pages {src}, {dst} of replica "
+                                 f"{sh.replica} not held here")
+        span = sh.n_pages
+        base = sh.replica * self.pages_per_replica
+        owner = C.global_rank(sh.model_group, (src - base) // span)
+        for layers in tensors:
+            for t in layers:
+                buf = t[src - sh.page_lo].clone() if sh.holds(src) else \
+                    torch.empty_like(t[0])
+                C.broadcast(buf, owner, sh.model_group)
+                if sh.holds(dst):
+                    t[dst - sh.page_lo] = buf
+
+    def flat_offset(self, replica: int) -> int:
+        """What turns a flat (page*ps + offset) index local to
+        ``replica``'s page range (the scheduler's ``write_idx``) into an
+        index into this rank's page tensors."""
+        return (replica * self.pages_per_replica
+                - self.shard.page_lo) * self.page_size
+
+    def local_positions(self, seq_ids: Sequence[int], seg_ids: np.ndarray,
+                        positions: np.ndarray) -> np.ndarray:
+        """Each token's position in its slot's row of :meth:
+        `device_tables`: the position itself, except on a
+        context-parallel rank, whose rows list only the pages it holds:
+        there it is the count of held keys at positions <= the token's,
+        minus one (-1: the rank holds none of them, and padding).  Keys
+        keep their order, so a token's visible held keys are a prefix of
+        the compacted row.  ``seq_ids`` are the slots' sequence ids (the
+        rows' order), ``seg_ids`` each token's slot (< 0: padding)."""
+        seg = np.asarray(seg_ids)
+        pos = np.asarray(positions)
+        if self.shard.mode != "pages":
+            return pos.astype(np.int32)
+        ps, sh = self.page_size, self.shard
+        width = max((len(self.tables[s]) for s in seq_ids if s >= 0),
+                    default=0) + 1
+        held = np.zeros((len(seq_ids), width), bool)
+        for i, sid in enumerate(seq_ids):
+            if sid >= 0:
+                t = np.asarray(self.tables[sid], np.int64)
+                held[i, :len(t)] = (t >= sh.page_lo) & (t < sh.page_hi)
+        before = np.concatenate([np.zeros((len(seq_ids), 1), np.int64),
+                                 np.cumsum(held, axis=1)], axis=1)
+        slot = np.clip(seg, 0, len(seq_ids) - 1)
+        col = np.clip(pos // ps, 0, width - 1)
+        out = before[slot, col] * ps + np.where(held[slot, col],
+                                                pos % ps + 1, 0) - 1
+        return np.where(seg >= 0, out, -1).astype(np.int32)
 
     def flat_slots(self, seq_id: int, start: int, end: int) -> np.ndarray:
         """Flat (page*page_size + offset) destination for each token
@@ -396,13 +561,19 @@ class PagedKVCache:
     # -- host write paths (the legacy engine, tests) -----------------------
     def _scatter(self, layer: int, idx: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> None:
-        """Write (n, Hkv, hd) K/V rows at flat slots ``idx`` of one
-        layer, in place; an int8/fp8 pool stores codes and, at the same
-        flat slots, their scales."""
-        npg, ps = self.pool.num_pages, self.page_size
-        k, v = k.to(self.device), v.to(self.device)
-        kf = self.k[layer].view(npg * ps, self.n_kv_heads, self.head_dim)
-        vf = self.v[layer].view(npg * ps, self.n_kv_heads, self.head_dim)
+        """Write (n, Hkv, hd) K/V rows at global flat slots ``idx`` of one
+        layer, in place (the rows, and heads, this rank holds); an
+        int8/fp8 pool stores codes and, at the same flat slots, their
+        scales."""
+        sh, ps = self.shard, self.page_size
+        npg, nh = sh.n_pages, sh.n_heads
+        idx = idx.to(self.device) - sh.page_lo * ps
+        keep = (idx >= 0) & (idx < npg * ps)
+        idx = idx[keep]
+        k = k.to(self.device)[keep][:, sh.head_lo:sh.head_hi]
+        v = v.to(self.device)[keep][:, sh.head_lo:sh.head_hi]
+        kf = self.k[layer].view(npg * ps, nh, self.head_dim)
+        vf = self.v[layer].view(npg * ps, nh, self.head_dim)
         if self.quant_mode is None:
             kf[idx] = k.to(kf.dtype)
             vf[idx] = v.to(vf.dtype)
@@ -411,8 +582,8 @@ class PagedKVCache:
         vq, v_sc = quant.quantize(v, self.quant_mode)
         kf[idx] = kq
         vf[idx] = vq
-        self.k_scale[layer].view(npg * ps, self.n_kv_heads)[idx] = k_sc
-        self.v_scale[layer].view(npg * ps, self.n_kv_heads)[idx] = v_sc
+        self.k_scale[layer].view(npg * ps, nh)[idx] = k_sc
+        self.v_scale[layer].view(npg * ps, nh)[idx] = v_sc
 
     def append(self, seq_id: int,
                layer_kv: Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -486,12 +657,18 @@ class PagedKVCache:
         for i, s in enumerate(seq_ids):
             t = self.tables[s][:max_pages]
             tables[i, : len(t)] = t
-        idx = torch.from_numpy(tables).to(self.device)         # (B, P)
+        sh = self.shard
+        held = torch.from_numpy((tables >= sh.page_lo)
+                                & (tables < sh.page_hi)).to(self.device)
+        idx = torch.from_numpy(tables - sh.page_lo).to(self.device)
+        idx = torch.where(held, idx, torch.zeros_like(idx))   # (B, P)
         k = self.k[layer][idx]                          # (B, P, ps, Hkv, hd)
         v = self.v[layer][idx]
         if self.quant_mode is not None:
             k = quant.dequantize(k, self.k_scale[layer][idx])
             v = quant.dequantize(v, self.v_scale[layer][idx])
+        if self.mesh is not None:
+            k, v = (self._sum_parts(x, held) for x in (k, v))
         b = len(seq_ids)
         shape = (b, max_pages * self.page_size, self.n_kv_heads,
                  self.head_dim)
@@ -500,6 +677,25 @@ class PagedKVCache:
         lens = torch.tensor([self.lengths[s] for s in seq_ids],
                             dtype=torch.int32, device=self.device)
         return k, v, lens
+
+    def _sum_parts(self, x: torch.Tensor, held: torch.Tensor
+                   ) -> torch.Tensor:
+        """The full (B, P, ps, Hkv, hd) gather from every rank's part:
+        each rank contributes the pages and heads it holds (one model
+        rank of a ``"full"`` replica), zeros elsewhere, summed in fp32
+        over the model and then the data group (exact: one part is
+        nonzero at each element)."""
+        sh = self.shard
+        full = torch.zeros(x.shape[:3] + (self.n_kv_heads,) + x.shape[4:],
+                           dtype=torch.float32, device=x.device)
+        if sh.mode != "full" or sh.model_rank == 0:
+            full[:, :, :, sh.head_lo:sh.head_hi] = torch.where(
+                held[:, :, None, None, None], x.float(),
+                torch.zeros((), device=x.device))
+        for group in (sh.model_group, sh.data_group):
+            if group is not None:
+                C.all_reduce_sum(full, group)
+        return full.to(x.dtype)
 
     # -- device mirror / single ownership ----------------------------------
     _EMPTY_ROW = (-1, -1)
@@ -512,7 +708,12 @@ class PagedKVCache:
         the dirty rows go up as one host-to-device copy and one in-place
         ``index_copy_``.  A steady decode step uploads zero rows.  A full
         rebuild happens only when the slot count or width outgrows the
-        mirror."""
+        mirror.  On a mesh of R > 1 replicas the rank's mirror holds its
+        own replica's S = len(seq_ids) / R rows (:meth:`_device_row`)."""
+        if self.mesh is not None and self.n_replicas > 1:
+            s_r = len(seq_ids) // self.n_replicas
+            r = self.shard.replica
+            seq_ids = list(seq_ids)[r * s_r:(r + 1) * s_r]
         s = len(seq_ids)
         targets = [(sid, self._seq_version[sid]) if sid >= 0
                    else self._EMPTY_ROW for sid in seq_ids]
@@ -553,13 +754,18 @@ class PagedKVCache:
         return self._mirror
 
     def _device_row(self, sid: int, width: int) -> List[int]:
-        """A sequence's block-table row as the device sees it: a page id
-        outside the pool (a corrupted host table, which the watchdog
-        catches after the step) goes up as page 0, so no kernel reads
-        outside the page tensors.  The reference's gathers clamp or
-        fill such ids instead."""
-        n = self.pool.num_pages
-        return [p if 0 <= p < n else 0 for p in self.tables[sid][:width]]
+        """A sequence's block-table row as the device sees it: ids into
+        this rank's page tensors (global ids without a mesh); a
+        context-parallel rank lists only the pages it holds, in table
+        order.  A page id outside them (a corrupted host table, which the
+        watchdog catches after the step) goes up as page 0, so no kernel
+        reads outside the page tensors.  The reference's gathers clamp
+        or fill such ids instead."""
+        sh = self.shard
+        table = self.tables[sid]
+        if sh.mode == "pages":
+            table = [p for p in table if sh.holds(p)]
+        return [p - sh.page_lo if sh.holds(p) else 0 for p in table[:width]]
 
     def take_kv(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Hand the page tensors to the executor, which updates them in
@@ -597,6 +803,10 @@ class PagedKVCache:
             page_bytes += (self.page_size * self.n_kv_heads * 2 * 4
                            * self.n_layers)
         used = self.pool.num_pages - self.pool.num_free
+        sh = self.shard
+        # this rank's tensors: its pages, of its heads
+        local_bytes = (page_bytes * sh.n_pages * sh.n_heads
+                       // self.n_kv_heads)
         return {
             "pages_total": self.pool.num_pages,
             "pages_used": used,
@@ -604,7 +814,7 @@ class PagedKVCache:
             "page_bytes": page_bytes,
             "kv_dtype": self.kv_dtype_name,
             "bytes_used": used * page_bytes,
-            "kv_bytes": self.pool.num_pages * page_bytes,
+            "kv_bytes": local_bytes,
             "page_hwm": self.pool.stats.page_hwm,
             "page_hwm_per_replica": list(self.pool.page_hwm_per_replica),
             "prefix_hit_rate": self.pool.stats.hit_rate,

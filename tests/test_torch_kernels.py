@@ -108,8 +108,10 @@ def test_model_paged_attention_is_the_wrapper():
     assert TA.select_paged_backend("ref", sharded=False) == "ref"
     with pytest.raises(ValueError):
         TA.select_paged_backend("jnp", sharded=False)
-    with pytest.raises(NotImplementedError):
-        TA.select_paged_backend("auto", sharded=True)
+    # a sharded engine attends through the same wrapper: no pinned path
+    assert TA.select_paged_backend("auto", sharded=True) == "auto"
+    with pytest.raises(ValueError):
+        TA.select_paged_backend("jnp", sharded=True)
 
 
 def test_gumbel_plain_matches_jax():

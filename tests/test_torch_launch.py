@@ -49,9 +49,18 @@ def test_server_selftest_two_streams_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
-def test_sharded_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="A7"):
-        serve.main(["--device", "cpu", *flags])
+def test_sharded_flags_raise(flags, capsys):
+    """``--dp``/``--tp`` serve on a mesh of ranks the command starts
+    itself (gloo on the CPU), with rank 0's report printed; only a count
+    below 1 still raises."""
+    argv = ["--device", "cpu", "--requests", "6", "--max-new", "4", *flags]
+    report = serve.main(argv)
+    assert report["served"] == 6 and report["aborted"] == 0
+    assert report["n_replicas"] == (2 if flags[0] == "--dp" else 1)
+    assert report["tp"] == (2 if flags[0] == "--tp" else 1)
+    assert "served:" in capsys.readouterr().out
+    with pytest.raises(ValueError):
+        serve.main(["--device", "cpu", flags[0], "0"])
 
 
 def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):

@@ -649,3 +649,57 @@ def test_cuda_paged_kernel_attributes(cuda_device, pool):
     assert a["key_tile"] == 32 and a["smem_bytes"] > 0
     assert DA.kernel_attributes(torch.float32, torch.float32,
                                 256)["variant"] == "simt"
+
+
+# ----------------------------------------------------------------------
+# the log-sum-exp output (the context-parallel merge's input)
+# ----------------------------------------------------------------------
+
+LSE_RTOL = 1e-5
+
+
+def _run_lse(x, fn, window=None):
+    return fn(x["q"], x["kp"], x["vp"], x["tables"], x["seg"], x["pos"],
+              scale=x["q"].shape[-1] ** -0.5, window=window,
+              k_scale=x["ksc"], v_scale=x["vsc"], return_lse=True)
+
+
+@requires_cuda
+@pytest.mark.parametrize("q_dtype,pool", [(torch.bfloat16, "bf16"),
+                                          (torch.float32, "fp32")])
+@pytest.mark.parametrize("max_len", [100, 300])
+def test_cuda_paged_lse_matches_plain(cuda_device, q_dtype, pool, max_len):
+    """The kernel's lse (written at the one-split end, or by the combine
+    when a row has several splits) within 1e-5 relative of the plain
+    version's ``logsumexp``; its output the bits of a call without lse;
+    a token that sees no key (position -1) gets -inf."""
+    x = card_case(cuda_device, pool, 16, d=256, hkv=1, g=8,
+                  max_len=max_len, chunk=40, q_dtype=q_dtype)
+    x["pos"][-6] = -1                      # a live token with no key
+    before = DA.counter.launches
+    out, lse = _run_lse(x, DA.paged_attention_fwd)
+    plain = _run(x, DA.paged_attention_fwd)
+    torch.cuda.synchronize()
+    assert DA.counter.launches == before + 2
+    assert lse.shape == out.shape[:3] and lse.dtype == torch.float32
+    assert torch.equal(out, plain)
+    _, ref = _run_lse(x, DA.paged_attention_plain)
+    live = (x["seg"] >= 0) & (x["pos"] >= 0)
+    torch.testing.assert_close(lse[live], ref[live], rtol=LSE_RTOL, atol=0)
+    assert bool(torch.isneginf(lse[-6]).all())
+    if max_len > 128:
+        tiles = DA.paged_tiles(x["seg"], x["pos"], x["tables"].shape, 16, 8)
+        assert int(tiles[:, 5].max()) > 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_cuda_paged_call_without_lse_keeps_its_bits(cuda_device, pool):
+    """Asking for the lse changes no bit of the output, at the serving
+    layout with splits, for both main kernels."""
+    for q_dtype in (torch.bfloat16, torch.float32):
+        if pool == "bf16" and q_dtype == torch.float32:
+            continue
+        x = card_case(cuda_device, pool, 8, q_dtype=q_dtype)
+        out, _ = _run_lse(x, DA.paged_attention_fwd)
+        assert torch.equal(out, _run(x, DA.paged_attention_fwd))

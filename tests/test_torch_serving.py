@@ -380,5 +380,9 @@ def test_entry_points_need_cuda_unless_cpu_asked(tiny, monkeypatch):
         TKV(n_layers=1, n_kv_heads=1, head_dim=8, num_pages=4)
     eng = TEngine(tcfg, tparams, num_pages=16, device="cpu")
     assert eng.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tparams, num_pages=16, n_replicas=2, device="cpu")
+    # data replicas serve (no longer refused); a bad count still raises
+    eng = TEngine(tcfg, tparams, num_pages=16, n_replicas=2, device="cpu")
+    assert eng.device.type == "cpu" and eng.n_replicas == 2
+    assert eng.kv.pool.num_pages == 32
+    with pytest.raises(ValueError):
+        TEngine(tcfg, tparams, num_pages=16, n_replicas=0, device="cpu")
