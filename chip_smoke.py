@@ -77,6 +77,32 @@ path:
     (``sharded_serving``); DDP's synced gradients against one process's
     full batch (``ddp``) and a 4-stage pipeline against the sequential
     composition (``pipeline``);
+  * meshed training and decode (``launch.train``'s steps with
+    ``mesh=``; jobs of the same two rank groups): the decode kernel's
+    log-sum-exp output (``decode_attention_lse`` rows at gemma-2b's
+    decode shape and at a rank's half of its slots, bf16 and fp32, with
+    and without lse: the output's bits unchanged); ``sharded_train``:
+    fp32 gemma-2b at full width cut to 2 layers on (2,1), (1,2), (2,2),
+    2 AdamW steps on a global 4 x 256 batch, each against the
+    one-process step on the card from the same state (loss, grad norm,
+    the assembled gradients, moments and parameters), and bf16 gemma-2b
+    at full width and depth (remat "full", 4 x 1024) on (2,2) and (1,2):
+    tokens/s, GB a rank, collectives and staged bytes a step, and a
+    checkpoint save's device peak (``save_peak``: the largest leaf
+    gathered as a save gathers it, one leaf at a time);
+    ``sharded_decode``: the fp32 2-layer model through the meshed
+    prefill and serve steps on (1,2) and (2,2) (gemma's one KV head:
+    the cache's slots split over ``model``, the ranks' partial attention
+    merged by the decode kernel's lse), greedy tokens equal to no mesh,
+    and gemma3-1b at full width cut to 2 layers on (1,2): its sliding
+    layers' 512-slot rings split over ``model`` and wrapped by 520
+    steps fed the no-mesh run's tokens, each step's logits ranking that
+    token first (within ``SLIDING_TOL`` of their RMS) and the logits of
+    three steps equal to no mesh's; ``elastic_restore``: gemma-2b's SMOKE config saved on (2,2) after
+    step 1, restored onto (1,2) and onto no mesh (the parameters and
+    both AdamW moments bit for bit the saved ones), step 2 against the
+    uninterrupted run's by ``sharded_train``'s parameter rule;
+    ``meshed_training_seconds``;
   * LM training: ``data.DataLoader`` over ``SyntheticLMDataset`` with
     and without pinned staging on its copy stream; gemma-2b (bf16,
     remat "full", AdamW, 4 x 1024 tokens) through ``train_loop`` (the
@@ -222,9 +248,11 @@ Output, one line each:
     prefill for flash, dense decode for decode attention, rwkv prefill
     for WKV6, jamba prefill for the Mamba scan, eager_train for the
     fused-elementwise kernel, paged_vs_gathered for mixed attention;
-    the flash entry adds ``lm_train``'s launches, the flash and decode
-    entries each new arch's run's, ``arch_launches``) and its numbers at
-    that path's shapes;
+    the flash entry adds ``lm_train``'s launches and each meshed train
+    rank's (``sharded_train_launches``), the decode entry each meshed
+    decode rank's (``sharded_decode_launches``) and the lse rows, the
+    flash and decode entries each new arch's run's, ``arch_launches``)
+    and its numbers at that path's shapes;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -240,8 +268,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -4258,6 +4288,45 @@ DDP_TOL = 1e-5                     # of the full-batch gradient's max
 PIPE_WIDTH, PIPE_BATCH, PIPE_MICRO, PIPE_STAGES = 2048, 256, 4, 4
 PIPE_TOL = (2e-4, 2e-5)            # the reference test's rtol, atol
 RANK_TIMEOUT = 900                 # seconds a group of ranks may take
+# meshed training (sharded_train): fp32 parity on the sharded serving
+# model (gemma-2b at full width cut to 2 layers), a global 4 x 256 batch,
+# 2 AdamW steps, each against the one-process step on the card from the
+# same state (rank 0 runs it); bf16 throughput on gemma-2b at full width,
+# remat "full", a global 4 x 1024 batch, 1 warm-up and 3 timed steps
+SHARDED_TRAIN_BATCH = (4, 256)
+SHARDED_TRAIN_LR = 1e-3
+# loss and grad norm relative; gradients of each leaf's largest; AdamW's
+# moments relative to each leaf's largest.  The parameters: AdamW moves
+# an element by lr * g / (|g| + eps) at step 1, so a gradient element
+# near eps moves by up to 2 lr more or less in the other run; all but 1
+# in 100 of a leaf's elements within 1e-5 of its largest.
+SHARDED_TRAIN_TOL = {"loss": 1e-5, "grads": 1e-5, "moments": 1e-5,
+                     "params": 1e-5, "params_beyond_frac": 1e-2}
+SHARDED_TRAIN_BF16_MESHES = ((2, 2), (1, 2))
+SHARDED_TRAIN_BF16_BATCH = (4, 1024)
+SHARDED_TRAIN_BF16_LAYERS = 18     # gemma-2b's depth
+SHARDED_TRAIN_BF16_STEPS = (1, 3)  # warm-up, timed
+# sharded_decode: the sharded serving model at fp32 through the meshed
+# prefill and serve steps, 8 rows, 8-token prompts fed one token a step,
+# then 16 greedy steps
+SHARDED_DECODE_MESHES = ((1, 2), (2, 2))
+SHARDED_DECODE_ROWS, SHARDED_DECODE_PROMPT = 8, 8
+SHARDED_DECODE_STEPS = 16
+# sharded_decode's sliding run: gemma3-1b at full width cut to its
+# first 2 layers (both sliding) at fp32 on (1,2): its one KV head
+# splits each sliding layer's 512-slot ring over model, and 520 steps
+# after the 8-token prompt wrap the ring.  The meshed run is fed the
+# no-mesh run's greedy tokens; each of its steps' logits must rank that
+# token first within SLIDING_TOL of the logits' RMS (a near-tie may go
+# either way at fp32 over 4160 choices), and its whole logits at
+# SLIDING_RECORD (before the ring's half, past it, past the wrap) must
+# equal the no-mesh run's within SLIDING_TOL of their RMS
+SLIDING_DECODE_LAYERS, SLIDING_DECODE_STEPS = 2, 520
+SLIDING_DECODE_MESH = (1, 2)
+SLIDING_RECORD = (100, 300, 515)
+SLIDING_TOL = 1e-3
+# elastic_restore: gemma-2b's SMOKE config at fp32, a global 4 x 64 batch
+ELASTIC_BATCH = (4, 64)
 
 
 def phase_paged_lse(torch, dev) -> list:
@@ -4313,6 +4382,77 @@ def phase_paged_lse(torch, dev) -> list:
                 and row["bits_equal_without_lse"]):
             raise AssertionError(f"paged_attention lse[{q_dtype}]: {row}")
         rows.append(row)
+    return rows
+
+
+def phase_decode_lse(torch, dev) -> list:
+    """The decode kernel's optional lse output at gemma-2b's decode shape
+    (the first two DECODE_ROWS rows: B = 8, G = 8, D = 256, 2048 slots at
+    ragged lengths; bf16 "mma" and fp32 "simt"), and at the sharded
+    decode's shape on a rank (the same rows over half the slots, one row
+    of them empty: -inf): the output within the row's limit and bit for
+    bit a call without lse; the lse within ``LSE_RTOL`` relative of
+    ``decode_attention_plain``'s; the ms of a call with and without it."""
+    from repro_torch.kernels import decode_attention as DA
+
+    t0 = time.perf_counter()
+    rows = []
+    for row_spec in DECODE_ROWS[:2]:
+        label, dt, b, hkv, g, d, smax, window = row_spec
+        q, kc, vc, lens_h, lens, kw = decode_inputs(torch, dev, row_spec)
+        for half in (False, True):
+            if half:
+                # the second of two ranks' slots, [Smax/2, Smax)
+                smax //= 2
+                kc, vc = kc[:, :, smax:].contiguous(), \
+                    vc[:, :, smax:].contiguous()
+                lens_h = (lens_h - smax).clamp(0, smax)
+                lens = lens_h.to(torch.int32).to(dev)
+
+            def kern(lse=True):
+                return DA.decode_attention_fwd(q, kc, vc, lens,
+                                               return_lse=lse, **kw)
+
+            out, lse = kern()
+            bare = kern(False)
+            torch.cuda.synchronize()
+            ref, ref_lse = DA.decode_attention_plain(q, kc, vc, lens,
+                                                     return_lse=True, **kw)
+            live = lens > 0
+            lse_err = ((lse[live] - ref_lse[live]).abs()
+                       / ref_lse[live].abs().clamp_min(1.0)).max().item()
+            empty_ok = bool(torch.isneginf(lse[~live]).all())
+            n_live = int(lens_h.sum())
+            nbytes = (2 * q.numel() * q.element_size() + 4 * b
+                      + 2 * n_live * hkv * d * kc.element_size()
+                      + lse.numel() * 4)
+            bound_ms, bound_by = kernel_bound(nbytes,
+                                              4 * n_live * hkv * g * d, dt)
+            row = {"phase": "kernel", "name": "decode_attention_lse",
+                   "row": label + ("_rank_half" if half else ""),
+                   "dtype": dt, "variant": DA.decode_variant(q.dtype),
+                   "B": b, "G": g, "D": d, "Smax": smax,
+                   "lens": lens_h.tolist(),
+                   **check_row(torch, f"decode_attention_lse[{label}]",
+                               out[live], ref[live], kernel_tol(dt, smax)),
+                   "lse_max_rel_err": lse_err, "lse_rtol": LSE_RTOL,
+                   "empty_rows_neg_inf": empty_ok,
+                   "bits_equal_without_lse": bool(torch.equal(out, bare)),
+                   "ms": time_ms(torch, kern),
+                   "ms_without_lse": time_ms(torch, lambda: kern(False)),
+                   "plain_ms": time_ms(torch, lambda: DA.
+                                       decode_attention_plain(
+                                           q, kc, vc, lens, return_lse=True,
+                                           **kw), reps=5),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+            emit(row)
+            if not (lse_err <= LSE_RTOL and empty_ok
+                    and row["bits_equal_without_lse"]):
+                raise AssertionError(f"decode_attention lse[{label}]: {row}")
+            rows.append(row)
+    emit({"phase": "decode_attention_lse",
+          "seconds": time.perf_counter() - t0})
     return rows
 
 
@@ -4637,6 +4777,460 @@ def rank_pipeline(torch, dev, rank, world) -> dict:
             "ms": (time.perf_counter() - t0) * 1e3}
 
 
+def train_batches(torch, cfg, shape, seed: int, n: int = 2) -> list:
+    """``n`` global batches of random tokens and labels (the same in
+    every process)."""
+    gen = torch.Generator().manual_seed(seed)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, shape,
+                                     generator=gen)} for _ in range(n)]
+
+
+def meshed_run(torch, fn, tally: dict):
+    """``fn()`` with the launch counts and collective stats zeroed just
+    before it; adds its launches, collectives, staged bytes and seconds
+    to ``tally``."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    C.reset_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    tally["seconds"] = tally.get("seconds", 0.0) + time.perf_counter() - t0
+    for k, n in launch_counts().items():
+        tally.setdefault("launches", {})
+        tally["launches"][k] = tally["launches"].get(k, 0) + n
+    tally["collectives"] = tally.get("collectives", 0) + C.stats["calls"]
+    tally["staged_bytes"] = (tally.get("staged_bytes", 0)
+                             + C.stats["staged_bytes"])
+    return out
+
+
+def scatter_pieces(torch, full, spec, mesh, like):
+    """This rank's piece (``local_shard`` under ``spec``) of the tensor
+    ``full`` that the first rank holds (None elsewhere), shaped as
+    ``like``: the first rank cuts every rank's piece and scatters them
+    (gloo, through pinned host memory).  The mesh's positions are the
+    group's ranks in order."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as S
+    recv = torch.empty(like.shape, dtype=like.dtype,
+                       pin_memory=like.is_cuda)
+    sends = None
+    if full is not None:
+        sends = [S.local_shard(full, spec, mesh, c).to(
+            "cpu", copy=True).contiguous()
+            for c in S.all_coords(mesh)]
+    dist.scatter(recv, sends, src=0)
+    return recv.to(like.device)
+
+
+def leaf_errors(torch, pieces, specs, mesh, refs, kind: str):
+    """Each leaf's one-process value (``refs``, on the first rank) against
+    the ranks' ``pieces`` (every rank calls): the first rank scatters each
+    rank its piece of the reference, each rank compares its own, and the
+    largest errors are reduced over the ranks: the largest error of a
+    leaf relative to that leaf's largest, the largest absolute error, and
+    for ``kind`` "params" the most elements of a leaf beyond 1e-5 of its
+    largest and whether every leaf's error is within 2 lr plus that
+    (``SHARDED_TRAIN_TOL``).  Each rank's piece is then set to the
+    reference's, so that the next step starts both runs from one state.
+    Returns the dict on every rank."""
+    import torch.distributed as dist
+    out = {"rel": 0.0, "abs": 0.0, "beyond": 0, "elements": 0,
+           "within_2lr": True}
+    for x, spec, ref in zip(pieces, specs, refs or [None] * len(pieces)):
+        mine = scatter_pieces(torch, ref, spec, mesh, x)
+        err = (x.float() - mine.float()).abs()
+        vals = torch.tensor([mine.abs().max().item(), err.max().item()])
+        dist.all_reduce(vals, op=dist.ReduceOp.MAX)
+        top, worst = max(vals[0].item(), 1e-30), vals[1].item()
+        tight = SHARDED_TRAIN_TOL["params"] * top
+        count = torch.tensor([int((err > tight).sum()), err.numel()])
+        dist.all_reduce(count)
+        out["rel"] = max(out["rel"], worst / top)
+        out["abs"] = max(out["abs"], worst)
+        if kind == "params":
+            n, total = int(count[0]), int(count[1])
+            if n * max(out["elements"], 1) >= out["beyond"] * total:
+                out["beyond"], out["elements"] = n, total
+            out["within_2lr"] &= worst <= 2 * SHARDED_TRAIN_LR + tight
+        x.copy_(mine)
+        del mine, err
+    return out
+
+
+def rank_sharded_train(torch, dev, rank, world, shapes) -> dict:
+    """fp32 parity of the meshed train step on each mesh of ``shapes``:
+    this rank's losses, grad norms, launches, collectives and seconds of
+    the meshed calls, and the errors of ``leaf_errors``: rank 0 also runs
+    the one-process step on the card, and every rank's pieces of the
+    gradients (step 1), AdamW moments and parameters (after each step)
+    are held to the matching pieces of it."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.functional import tree_leaves, tree_map
+    res = {}
+    for shape in shapes:
+        t_all = time.perf_counter()
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        cfg, full = sharded_parity_model(torch, dev)
+        specs = T.state_specs(cfg, mesh, lr=SHARDED_TRAIN_LR)
+        leaf_specs = T.spec_leaves(specs["params"], full)
+        first = rank == 0
+        ref = ref_step = None
+        if first:
+            ref = T.init_train_state(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                                     params=tree_map(torch.clone, full))
+            ref_step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR,
+                                         device=dev)
+        state = T.init_train_state(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                                   mesh=mesh, params=full)
+        del full
+        free(torch)
+        step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                                 mesh=mesh)
+        batches = train_batches(torch, cfg, SHARDED_TRAIN_BATCH, 91)
+        tally, out = {}, {"loss": [], "grad_norm": [], "ref_loss": [],
+                          "ref_grad_norm": [], "errors": {}}
+        ref_grads = ref_step.compute(ref["params"], batches[0])[1] \
+            if first else None
+        _, grads = meshed_run(torch, lambda: step.compute(
+            state["params"], batches[0]), tally)
+        out["errors"]["grads"] = leaf_errors(torch, grads, leaf_specs, mesh,
+                                             ref_grads, "grads")
+        del grads, ref_grads
+        free(torch)
+        for i, batch in enumerate(batches):
+            if first:
+                ref, m = ref_step(ref, batch)
+                out["ref_loss"].append(float(m["loss"]))
+                out["ref_grad_norm"].append(float(m["grad_norm"]))
+            state, m = meshed_run(torch, lambda: step(state, batch), tally)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            for key in ("m", "v", "params"):
+                tree = state["params"] if key == "params" else \
+                    state["opt"][key]
+                refs = None if not first else tree_leaves(
+                    ref["params"] if key == "params" else ref["opt"][key])
+                out["errors"][f"{key}_step{i + 1}"] = leaf_errors(
+                    torch, tree_leaves(tree), leaf_specs, mesh, refs, key)
+        del state, ref
+        free(torch)
+        out.update(tally)
+        out["phase_seconds"] = time.perf_counter() - t_all
+        res[tuple(shape)] = out
+    return res
+
+
+def rank_sharded_train_bf16(torch, dev, rank, world, shapes) -> dict:
+    """bf16 gemma-2b at full width (``SHARDED_TRAIN_BF16_LAYERS``), remat
+    "full", AdamW on each mesh of ``shapes``: 1 warm-up step, then 3
+    timed; this rank's tokens/s (global tokens over the timed steps'
+    seconds), GB held after the build and peak while stepping, launches,
+    collectives and staged bytes a step."""
+    from repro_torch.configs import gemma_2b
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16,
+                              n_layers=SHARDED_TRAIN_BF16_LAYERS)
+    warm, timed = SHARDED_TRAIN_BF16_STEPS
+    res = {}
+    for shape in shapes:
+        t_all = time.perf_counter()
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        state = T.init_train_state(
+            cfg, device=dev, mesh=mesh,
+            params=LM.init_params(cfg, seed=0, device=dev))
+        free(torch)
+        build_gb = peak_gb(torch)
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        step = T.make_train_step(cfg, device=dev, mesh=mesh)
+        batches = train_batches(torch, cfg, SHARDED_TRAIN_BF16_BATCH, 92,
+                                warm + timed)
+        for batch in batches[:warm]:
+            state, m = step(state, batch)
+        torch.cuda.reset_peak_memory_stats()
+        tally, losses = {}, []
+        for batch in batches[warm:]:
+            state, m = meshed_run(torch, lambda: step(state, batch), tally)
+            losses.append(float(m["loss"]))
+        step_gb = peak_gb(torch)
+        tokens = timed * math.prod(SHARDED_TRAIN_BF16_BATCH)
+        res[tuple(shape)] = {
+            "tokens_per_s": tokens / tally["seconds"],
+            "s_per_step": tally["seconds"] / timed, "losses": losses,
+            "build_peak_gb": build_gb, "held_gb": held_gb,
+            "step_peak_gb": step_gb,
+            **save_peak(torch, cfg, mesh, state),
+            "launches_per_step": {k: n / timed for k, n in
+                                  tally["launches"].items()},
+            "collectives_per_step": tally["collectives"] / timed,
+            "staged_gb_per_step": tally["staged_bytes"] / timed / 1e9,
+            "phase_seconds": time.perf_counter() - t_all}
+        del state
+        free(torch)
+    return res
+
+
+def save_peak(torch, cfg, mesh, state) -> dict:
+    """A checkpoint save's device memory on ``mesh``, its write left
+    out: a save gathers one whole leaf at a time, the first rank copies
+    it to host memory, and every rank drops it before the next
+    (``checkpoint._host_state``), so a rank's peak is its held state
+    plus the largest leaf's gather, which is made here as a save makes
+    it.  Returns that peak, the leaf's GB and the state's whole GB (what
+    the writing rank holds in host memory during a save)."""
+    from repro_torch.checkpoint import _first_rank, _host_state
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.optim.functional import tree_leaves
+    sizes = axis_sizes(mesh)
+    specs = T.spec_leaves(T.state_specs(cfg, mesh), state)
+    whole = [x.numel() * x.element_size() * math.prod(
+        sizes[a] for e in spec if e is not None
+        for a in (e if isinstance(e, tuple) else (e,)))
+        for x, spec in zip(tree_leaves(state), specs)]
+    i = max(range(len(whole)), key=whole.__getitem__)
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _host_state({"leaf": tree_leaves(state)[i]}, mesh, {"leaf": specs[i]},
+                _first_rank(mesh))
+    torch.cuda.synchronize()
+    return {"save_peak_gb": peak_gb(torch), "save_leaf_gb": whole[i] / 1e9,
+            "save_leaf_seconds": time.perf_counter() - t0,
+            "state_gb": sum(whole) / 1e9}
+
+
+def greedy_decode(torch, dev, cfg, params, mesh=None) -> dict:
+    """The meshed (or one-process) prefill's greedy token after
+    ``SHARDED_DECODE_ROWS`` prompts, then the prompts fed through the
+    serve step one token a step and ``SHARDED_DECODE_STEPS`` greedy
+    tokens; with the launches, the serve step's lse merges and the
+    seconds."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm as LM
+    b, p, n = (SHARDED_DECODE_ROWS, SHARDED_DECODE_PROMPT,
+               SHARDED_DECODE_STEPS)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p),
+                            generator=torch.Generator().manual_seed(93))
+    max_seq = p + n
+    prefill = T.make_prefill_step(cfg, device=dev, mesh=mesh)
+    serve = T.make_serve_step(cfg, batch=b, max_seq=max_seq,
+                              cache_dtype=torch.float32, device=dev,
+                              mesh=mesh)
+    cache = LM.init_cache(cfg, b, max_seq, torch.float32, dev)
+    if mesh is not None:
+        cache = T.shard_tree(mesh, S.cache_specs(cfg, cache, mesh), cache)
+    tally = {}
+
+    def run():
+        first = T.greedy_tokens(prefill(params, {"tokens": prompts})[:, -1],
+                                mesh, cfg.vocab_size)
+        for t in range(p):
+            logits, _ = serve(params, cache, prompts[:, t:t + 1], t)
+        out = [T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size)]
+        for i in range(n - 1):
+            logits, _ = serve(params, cache, out[-1][:, None].cpu(), p + i)
+            out.append(T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size))
+        return first.cpu(), torch.stack(out, 1).cpu()
+
+    first, tokens = meshed_run(torch, run, tally)
+    return {"first": first.tolist(), "tokens": tokens.tolist(),
+            "lse_merges": getattr(serve, "lse_merges", 0), **tally}
+
+
+def rank_sharded_decode(torch, dev, rank, world, shapes) -> dict:
+    """``greedy_decode`` of the sharded serving model (fp32) on each mesh
+    of ``shapes``, the parameters and the cache this rank's pieces."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        cfg, full = sharded_parity_model(torch, dev)
+        params = T.shard_tree(mesh, S.param_specs(cfg, full, mesh), full)
+        del full
+        free(torch)
+        res[tuple(shape)] = greedy_decode(torch, dev, cfg, params, mesh)
+        del params
+        free(torch)
+    return res
+
+
+def sliding_model(torch, dev):
+    """fp32 gemma3-1b at full width cut to ``SLIDING_DECODE_LAYERS``
+    layers, made from ``SHARDED_SEED``."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(gemma3_1b.CONFIG, param_dtype=torch.float32,
+                              n_layers=SLIDING_DECODE_LAYERS)
+    return cfg, LM.init_params(cfg, seed=SHARDED_SEED, device=dev)
+
+
+def sliding_decode(torch, dev, cfg, params, follow=None, mesh=None
+                   ) -> dict:
+    """``SHARDED_DECODE_ROWS`` 8-token prompts through the serve step one
+    token a step, then ``SLIDING_DECODE_STEPS`` steps, each fed the
+    previous step's greedy token, or ``follow``'s (the no-mesh run's
+    tokens) where given.  Returns the greedy tokens (without
+    ``follow``), or with it the count of steps and rows whose logits
+    rank ``follow``'s token first and the largest amount by which a
+    step's best logit passes that token's, relative to the logits' RMS
+    (from each rank's vocabulary slice, reduced over ``model``); the
+    whole logits at ``SLIDING_RECORD``; the launches, merges and
+    seconds."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm as LM
+    b, p, n = (SHARDED_DECODE_ROWS, SHARDED_DECODE_PROMPT,
+               SLIDING_DECODE_STEPS)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p),
+                            generator=torch.Generator().manual_seed(95))
+    max_seq = p + n
+    serve = T.make_serve_step(cfg, batch=b, max_seq=max_seq,
+                              cache_dtype=torch.float32, device=dev,
+                              mesh=mesh)
+    cache = LM.init_cache(cfg, b, max_seq, torch.float32, dev)
+    group = None
+    if mesh is not None:
+        cache = T.shard_tree(mesh, S.cache_specs(cfg, cache, mesh), cache)
+        group = mesh.get_group("model")
+    tally = {}
+
+    def gap_to(x, want):
+        """Per row: the best logit less ``want``'s, and the logits' RMS,
+        over the whole vocabulary."""
+        split = x.shape[-1] != cfg.vocab_size
+        lo = mesh.get_local_rank("model") * x.shape[-1] if split else 0
+        idx = want - lo
+        mine = (idx >= 0) & (idx < x.shape[-1])
+        at = torch.where(mine, x.gather(-1, idx.clamp(0, x.shape[-1] - 1)
+                                        [:, None])[:, 0], 0.0)
+        top, sums = x.max(-1).values, torch.stack([at, x.pow(2).sum(-1)])
+        if split:
+            C.all_reduce_max(top, group)
+            C.all_reduce_sum(sums, group)
+        return top - sums[0], (sums[1].sum() / (b * cfg.vocab_size)).sqrt()
+
+    def run():
+        tokens, first, gap, record = [], 0, 0.0, {}
+        for t in range(p):
+            logits, _ = serve(params, cache, prompts[:, t:t + 1], t)
+        for i in range(n):
+            x = logits[:, -1].float()
+            if follow is None:
+                nxt = x.argmax(-1)
+                tokens.append(nxt)
+            else:
+                nxt = torch.tensor(follow[i], device=x.device)
+                d, rms = gap_to(x, nxt)
+                first += int((d <= 0).sum())
+                gap = max(gap, float(d.max() / rms))
+            if i in SLIDING_RECORD:
+                record[i] = (x if x.shape[-1] == cfg.vocab_size else
+                             C.all_gather_cat(x.contiguous(), group, -1)
+                             ).cpu()
+            if i + 1 < n:
+                logits, _ = serve(params, cache, nxt[:, None].cpu(), p + i)
+        return tokens, first, gap, record
+
+    tokens, first, gap, record = meshed_run(torch, run, tally)
+    return {"tokens": torch.stack(tokens, 0).tolist() if tokens else None,
+            "ranked_first": first, "gap": gap, "record": record,
+            "lse_merges": getattr(serve, "lse_merges", 0), **tally}
+
+
+def rank_sliding_decode(torch, dev, rank, world, follow) -> dict:
+    """``sliding_decode`` of the sliding model on ``SLIDING_DECODE_MESH``
+    fed ``follow``, the parameters and the cache (rings included) this
+    rank's pieces."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(SLIDING_DECODE_MESH, ("data", "model"))
+    cfg, full = sliding_model(torch, dev)
+    params = T.shard_tree(mesh, S.param_specs(cfg, full, mesh), full)
+    del full
+    free(torch)
+    out = sliding_decode(torch, dev, cfg, params, follow, mesh)
+    del params
+    free(torch)
+    return out
+
+
+def elastic_model(torch):
+    from repro_torch.configs import gemma_2b
+    return gemma_2b.SMOKE
+
+
+def rank_elastic_save(torch, dev, rank, world, directory) -> dict:
+    """(2,2): step 1, a save of the state (assembled, the first rank
+    writes), step 2: the step-2 loss and the parameters after it."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg = elastic_model(torch)
+    specs = T.state_specs(cfg, mesh, lr=SHARDED_TRAIN_LR)
+    state = T.init_train_state(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                               mesh=mesh)
+    step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                             mesh=mesh)
+    b1, b2 = train_batches(torch, cfg, ELASTIC_BATCH, 94)
+    state, _ = step(state, b1)
+    CheckpointManager(directory).save(state, 1, mesh, specs)
+    saved = tree_cpu(gather_tree(mesh, specs, state))
+    state, m = step(state, b2)
+    whole = gather_tree(mesh, specs["params"], state["params"])
+    return {"loss": float(m["loss"]), "params": tree_cpu(whole),
+            "saved": saved, "seconds": time.perf_counter() - t0}
+
+
+def rank_elastic_restore(torch, dev, rank, world, directory) -> dict:
+    """Restore step 1 onto (1,2), then step 2: the restored state
+    (assembled), the loss and the parameters."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 2), ("data", "model"))
+    cfg = elastic_model(torch)
+    specs = T.state_specs(cfg, mesh, lr=SHARDED_TRAIN_LR)
+    like = T.init_train_state(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                              mesh=mesh)
+    state = CheckpointManager(directory).restore(1, like, mesh, specs)
+    restored = tree_cpu(gather_tree(mesh, specs, state))
+    step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR, device=dev,
+                             mesh=mesh)
+    state, m = step(state, train_batches(torch, cfg, ELASTIC_BATCH, 94)[1])
+    whole = gather_tree(mesh, specs["params"], state["params"])
+    return {"loss": float(m["loss"]), "step": int(state["step"]),
+            "params": tree_cpu(whole), "restored": restored,
+            "seconds": time.perf_counter() - t0}
+
+
+def tree_cpu(tree):
+    """A host copy of every leaf (never the leaf itself: a state is
+    updated in place)."""
+    from repro_torch.optim.functional import tree_map
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
 def rank_jobs(rank, world, jobs, dev="cuda") -> dict:
     """The rank functions ``jobs`` ([(name, args), ...]) of this script in
     one process group, in order (a group's start-up is paid once)."""
@@ -4677,12 +5271,18 @@ def cpu_stand_ins(torch) -> None:
 
 
 def phase_sharded(torch, dev) -> dict:
-    """Sharded serving on meshes of ranks, DDP and the pipeline: a group
-    of 2 ranks ((2,1) and (1,2) parity, (1,2) bf16, DDP) and one of 4
-    ((2,2) parity and bf16, the pipeline), NCCL with a card a rank where
-    there are enough, else gloo with every rank on ``cuda:0`` (the
-    kernels on the card, the collectives staged through host memory).
-    Returns the paged-kernel launches of each bf16 rank."""
+    """Sharded serving on meshes of ranks, DDP and the pipeline, and
+    meshed training and decode: a group of 4 ranks ((2,2) serving parity
+    and bf16, the pipeline; sharded_train's (2,2) parity and bf16,
+    sharded_decode's (2,2), elastic_restore's save on (2,2)) and then one
+    of 2 ((2,1) and (1,2) serving parity, (1,2) bf16, DDP;
+    sharded_train's (2,1) and (1,2) parity and (1,2) bf16,
+    sharded_decode's (1,2), elastic_restore onto (1,2)), NCCL with a card
+    a rank where there are enough, else gloo with every rank on
+    ``cuda:0`` (the kernels on the card, the collectives staged through
+    host memory).  Returns the paged-kernel launches of each bf16 serving
+    rank, and the flash and decode launches of each meshed training and
+    decode rank."""
     from repro_torch.launch.mesh import default_backend, run_ranks
 
     cfg, params = sharded_parity_model(torch, dev)
@@ -4690,17 +5290,29 @@ def phase_sharded(torch, dev) -> dict:
     for sampled in (False, True):
         reqs = sharded_requests(torch, cfg, sampled)
         base[sampled] = run_engine(torch, cfg, params, reqs, dev)[0]
+    decode_base = greedy_decode(torch, dev, cfg, params)
+    del params
+    free(torch)
+    cfg3, params = sliding_model(torch, dev)
+    decode_base["sliding"] = sliding_decode(torch, dev, cfg3, params)
     del params
     free(torch)
 
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_elastic_")
     groups = {}
-    for world in (2, PIPE_STAGES):
+    for world in (PIPE_STAGES, 2):
         jobs = [(name, ([m for m in meshes if m[0] * m[1] == world],))
                 for name, meshes in (
                     ("rank_sharded_parity", SHARDED_MESHES),
-                    ("rank_sharded_bf16", SHARDED_BF16_MESHES))]
-        jobs.append(("rank_ddp", ()) if world == 2 else
-                    ("rank_pipeline", ()))
+                    ("rank_sharded_bf16", SHARDED_BF16_MESHES),
+                    ("rank_sharded_train", SHARDED_MESHES),
+                    ("rank_sharded_train_bf16", SHARDED_TRAIN_BF16_MESHES),
+                    ("rank_sharded_decode", SHARDED_DECODE_MESHES))]
+        jobs += ([("rank_ddp", ()), ("rank_elastic_restore", (ckpt_dir,)),
+                  ("rank_sliding_decode",
+                   (decode_base["sliding"]["tokens"],))]
+                 if world == 2 else
+                 [("rank_pipeline", ()), ("rank_elastic_save", (ckpt_dir,))])
         t0 = time.perf_counter()
         groups[world] = run_ranks(rank_jobs, world, (jobs, dev),
                                   timeout=RANK_TIMEOUT)
@@ -4758,7 +5370,222 @@ def phase_sharded(torch, dev) -> dict:
     if not ok:
         raise AssertionError("sharded_serving: a mesh diverged or a rank "
                              "launched no paged kernel (lines above)")
-    return bf16
+    meshed = phase_meshed_training(torch, dev, groups, decode_base,
+                                   ckpt_dir)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"paged_attention": bf16, **meshed}
+
+
+def phase_meshed_training(torch, dev, groups, decode_base, ckpt_dir
+                          ) -> dict:
+    """The lines of the meshed training and decode jobs the rank groups
+    ran (``sharded_train`` fp32 parity and bf16, ``sharded_decode``,
+    ``elastic_restore``, with the restore onto no mesh made here), each
+    checked; returns each rank's flash launches of the train runs and
+    decode launches of the decode runs, by mesh."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as T
+    from repro_torch.optim.functional import tree_leaves
+
+    tol = SHARDED_TRAIN_TOL
+    ok, flash, decode, seconds = True, {}, {}, {}
+    for shape in SHARDED_MESHES:
+        world = shape[0] * shape[1]
+        ranks = [g["rank_sharded_train"][shape] for g in groups[world]]
+        r0 = ranks[0]
+        errs = r0["errors"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(r0["loss"], r0["ref_loss"]))
+        gnorm_rel = max(abs(a - b) / abs(b) for a, b in
+                        zip(r0["grad_norm"], r0["ref_grad_norm"]))
+        line = {"phase": "sharded_train", "run": "fp32_parity",
+                "mesh": list(shape), "ranks": world, "model": "gemma-2b",
+                "layers": SHARDED_PARITY_LAYERS,
+                "batch": list(SHARDED_TRAIN_BATCH), "optimizer": "adamw",
+                "lr": SHARDED_TRAIN_LR,
+                "loss": [r["loss"] for r in ranks],
+                "one_process_loss": r0["ref_loss"],
+                "grad_norm": [r["grad_norm"] for r in ranks],
+                "one_process_grad_norm": r0["ref_grad_norm"],
+                "loss_max_rel_err": loss_rel,
+                "grad_norm_max_rel_err": gnorm_rel,
+                "errors": errs, "tol": tol,
+                "flash_launches": [r["launches"].get("flash_attention", 0)
+                                   for r in ranks],
+                "launches": [r["launches"] for r in ranks],
+                "collectives": [r["collectives"] for r in ranks],
+                "staged_gb": [r["staged_bytes"] / 1e9 for r in ranks],
+                "meshed_seconds": [r["seconds"] for r in ranks],
+                "seconds": max(r["phase_seconds"] for r in ranks)}
+        emit(line)
+        seconds[f"train_fp32_{shape}"] = line["seconds"]
+        flash["x".join(map(str, shape))] = line["flash_launches"]
+        params_ok = all(
+            e["within_2lr"] and e["beyond"] <= max(
+                1, tol["params_beyond_frac"] * e["elements"])
+            for k, e in errs.items() if k.startswith("params"))
+        ok = ok and params_ok and loss_rel <= tol["loss"] and \
+            gnorm_rel <= tol["loss"] and \
+            errs["grads"]["rel"] <= tol["grads"] and all(
+                e["rel"] <= tol["moments"] for k, e in errs.items()
+                if k[0] in "mv") and all(
+                n > 0 for n in line["flash_launches"])
+    for shape in SHARDED_TRAIN_BF16_MESHES:
+        world = shape[0] * shape[1]
+        ranks = [g["rank_sharded_train_bf16"][shape] for g in groups[world]]
+        line = {"phase": "sharded_train", "run": "bf16", "mesh": list(shape),
+                "ranks": world, "model": "gemma-2b",
+                "layers": SHARDED_TRAIN_BF16_LAYERS, "layers_of": 18,
+                "batch": list(SHARDED_TRAIN_BF16_BATCH), "remat": "full",
+                "steps": {"warmup": SHARDED_TRAIN_BF16_STEPS[0],
+                          "timed": SHARDED_TRAIN_BF16_STEPS[1]},
+                **{k: [r[k] for r in ranks] for k in (
+                    "tokens_per_s", "s_per_step", "losses", "build_peak_gb",
+                    "held_gb", "step_peak_gb", "save_peak_gb",
+                    "save_leaf_gb", "save_leaf_seconds", "state_gb",
+                    "launches_per_step",
+                    "collectives_per_step", "staged_gb_per_step")},
+                "seconds": max(r["phase_seconds"] for r in ranks)}
+        emit(line)
+        seconds[f"train_bf16_{shape}"] = line["seconds"]
+        flash["bf16_" + "x".join(map(str, shape))] = [
+            r["launches_per_step"].get("flash_attention", 0) for r in ranks]
+        ok = ok and all(r["launches_per_step"].get("flash_attention", 0) > 0
+                        and all(math.isfinite(x) for x in r["losses"])
+                        for r in ranks)
+    for shape in SHARDED_DECODE_MESHES:
+        world = shape[0] * shape[1]
+        ranks = [g["rank_sharded_decode"][shape] for g in groups[world]]
+        equal = [r["first"] == decode_base["first"]
+                 and r["tokens"] == decode_base["tokens"] for r in ranks]
+        line = {"phase": "sharded_decode", "mesh": list(shape),
+                "ranks": world, "model": "gemma-2b",
+                "layers": SHARDED_PARITY_LAYERS, "dtype": "float32",
+                "rows": SHARDED_DECODE_ROWS,
+                "prompt": SHARDED_DECODE_PROMPT,
+                "steps": SHARDED_DECODE_STEPS, "equals_no_mesh": equal,
+                "lse_merges": [r["lse_merges"] for r in ranks],
+                "launches": [r["launches"] for r in ranks],
+                "collectives": [r["collectives"] for r in ranks],
+                "staged_gb": [r["staged_bytes"] / 1e9 for r in ranks],
+                "seconds": max(r["seconds"] for r in ranks),
+                "no_mesh_seconds": decode_base["seconds"]}
+        emit(line)
+        seconds[f"decode_{shape}"] = line["seconds"]
+        decode["x".join(map(str, shape))] = [
+            r["launches"].get("decode_attention", 0) for r in ranks]
+        ok = ok and all(equal) and all(
+            r["lse_merges"] > 0 and r["launches"].get("decode_attention", 0)
+            > 0 and r["launches"].get("flash_attention", 0) > 0
+            for r in ranks)
+
+    # the sliding rings split over model, wrapped
+    base = decode_base["sliding"]
+    ranks = [g["rank_sliding_decode"] for g in groups[2]]
+    equal = [r["ranked_first"] for r in ranks]
+    rec_err = [max(float((r["record"][i] - base["record"][i]).abs().max()
+                         / base["record"][i].pow(2).mean().sqrt())
+                   for i in SLIDING_RECORD) for r in ranks]
+    line = {"phase": "sharded_decode", "run": "sliding",
+            "mesh": list(SLIDING_DECODE_MESH), "ranks": 2,
+            "model": "gemma3-1b", "layers": SLIDING_DECODE_LAYERS,
+            "layers_of": 26, "dtype": "float32", "ring": 512,
+            "rows": SHARDED_DECODE_ROWS, "prompt": SHARDED_DECODE_PROMPT,
+            "steps": SLIDING_DECODE_STEPS,
+            "no_mesh_token_ranked_first": equal,
+            "tokens": SHARDED_DECODE_ROWS * SLIDING_DECODE_STEPS,
+            "max_gap_over_rms": [r["gap"] for r in ranks],
+            "recorded_steps": list(SLIDING_RECORD),
+            "recorded_max_err_over_rms": rec_err, "tol": SLIDING_TOL,
+            "lse_merges": [r["lse_merges"] for r in ranks],
+            "launches": [r["launches"] for r in ranks],
+            "collectives": [r["collectives"] for r in ranks],
+            "seconds": max(r["seconds"] for r in ranks),
+            "no_mesh_seconds": base["seconds"]}
+    emit(line)
+    seconds["decode_sliding"] = line["seconds"]
+    decode["sliding_" + "x".join(map(str, SLIDING_DECODE_MESH))] = [
+        r["launches"].get("decode_attention", 0) for r in ranks]
+    ok = ok and all(
+        r["gap"] <= SLIDING_TOL and e <= SLIDING_TOL and r["lse_merges"] > 0
+        and r["launches"].get("decode_attention", 0) > 0
+        for r, e in zip(ranks, rec_err))
+
+    # elastic restore: saved on (2,2) after step 1; onto (1,2) in the
+    # 2-rank group, and onto no mesh here
+    t0 = time.perf_counter()
+    saved = groups[4][0]["rank_elastic_save"]
+    cfg = elastic_model(torch)
+    like = T.init_train_state(cfg, lr=SHARDED_TRAIN_LR, device=dev)
+    state = CheckpointManager(ckpt_dir).restore(1, like)
+    restored = tree_cpu(state)
+    step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR, device=dev)
+    state, m = step(state, train_batches(torch, cfg, ELASTIC_BATCH, 94)[1])
+    runs = {"1x2": [(r["loss"], r["params"], r["restored"]) for r in
+                    (g["rank_elastic_restore"] for g in groups[2])],
+            "none": [(float(m["loss"]), tree_cpu(state["params"]),
+                      restored)]}
+    # the restored state (parameters and both AdamW moments) bit for bit
+    # the saved one; step 2 against the uninterrupted run's by
+    # sharded_train's rule: every leaf within 2 lr plus the tight limit,
+    # and no more than max(1, 1%) of a leaf's elements beyond the tight
+    # limit (1e-5 of the leaf's largest)
+    errs = {}
+    for name, got in runs.items():
+        worst = {"loss": 0.0, "abs": 0.0, "beyond": 0, "elements": 0,
+                 "params_ok": True, "restore_exact": True}
+        for loss, params, back in got:
+            worst["loss"] = max(worst["loss"], abs(loss - saved["loss"])
+                                / abs(saved["loss"]))
+            worst["restore_exact"] &= all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for part in ("params", "opt", "step")
+                for x, y in zip(tree_leaves(back[part]),
+                                tree_leaves(saved["saved"][part])))
+            for x, y in zip(tree_leaves(params),
+                            tree_leaves(saved["params"])):
+                err = (x - y).abs()
+                tight = tol["params"] * max(y.abs().max().item(), 1e-30)
+                n = int((err > tight).sum())
+                worst["abs"] = max(worst["abs"], err.max().item())
+                if n * max(worst["elements"], 1) >= \
+                        worst["beyond"] * err.numel():
+                    worst["beyond"], worst["elements"] = n, err.numel()
+                worst["params_ok"] &= (
+                    err.max().item() <= 2 * SHARDED_TRAIN_LR + tight
+                    and n <= max(1, tol["params_beyond_frac"]
+                                 * err.numel()))
+        errs[name] = worst
+    line = {"phase": "elastic_restore", "model": "gemma-smoke",
+            "dtype": "float32", "saved_on": [2, 2],
+            "restored_on": ["1x2", "none"],
+            "restore_exact": {k: v["restore_exact"]
+                              for k, v in errs.items()},
+            "loss_rel_err": {k: v["loss"] for k, v in errs.items()},
+            "params_max_abs_err": {k: v["abs"] for k, v in errs.items()},
+            "params_beyond": {k: [v["beyond"], v["elements"]]
+                              for k, v in errs.items()},
+            "params_ok": {k: v["params_ok"] for k, v in errs.items()},
+            "save_seconds": saved["seconds"],
+            "restore_seconds": [g["rank_elastic_restore"]["seconds"]
+                                for g in groups[2]],
+            "seconds": saved["seconds"] + max(
+                g["rank_elastic_restore"]["seconds"] for g in groups[2])
+            + time.perf_counter() - t0}
+    emit(line)
+    seconds["elastic"] = line["seconds"]
+    ok = ok and all(v["restore_exact"] and v["params_ok"]
+                    and v["loss"] <= tol["loss"]
+                    for v in errs.values()) and all(
+        g["rank_elastic_restore"]["step"] == 2 for g in groups[2])
+    emit({"phase": "meshed_training_seconds", "by_run": seconds,
+          "total": sum(seconds.values())})
+    if not ok:
+        raise AssertionError("sharded_train / sharded_decode / "
+                             "elastic_restore: a check failed (lines "
+                             "above)")
+    return {"flash_attention_train": flash,
+            "decode_attention_sharded": decode}
 
 
 def phase_ddp(torch, dev, ranks) -> None:
@@ -4841,6 +5668,7 @@ def run_phases(torch, dev) -> list:
             "gumbel_perturb": phase_gumbel(torch, dev),
             "flash_attention": phase_flash(torch, dev),
             "decode_attention": phase_decode(torch, dev),
+            "decode_attention_lse": phase_decode_lse(torch, dev),
             "rwkv6_scan": phase_rwkv6(torch, dev),
             "mamba_scan": phase_mamba(torch, dev),
             "mixed_attention": phase_mixed_attention(torch, dev),
@@ -4886,9 +5714,11 @@ def run_phases(torch, dev) -> list:
     phase_parity(torch, dev, cfg32, params32, "dense_parity", 23)
     del params32, params
     free(torch)
-    # sharded serving on meshes of ranks, DDP and the pipeline: each rank
-    # makes its own model, so nothing is held here meanwhile
-    counts["paged_attention_sharded"] = phase_sharded(torch, dev)
+    # sharded serving on meshes of ranks, DDP and the pipeline, meshed
+    # training and decode: each rank makes its own model, so nothing is
+    # held here meanwhile
+    sharded = phase_sharded(torch, dev)
+    counts["paged_attention_sharded"] = sharded["paged_attention"]
 
     cfg32, params32, cfg, params = rwkv_models(torch, dev)
     rwkv, profile_rwkv_prefill = phase_prefill(
@@ -5012,8 +5842,21 @@ def run_phases(torch, dev) -> list:
                 "x".join(map(str, shape)): n for shape, n in
                 counts["paged_attention_sharded"].items()}
         if name == "flash_attention":
-            # lm_train's run: the forward and the remat recompute
+            # lm_train's run: the forward and the remat recompute; the
+            # meshed train step's, each rank's by mesh
             entry["lm_train_launches"] = counts_train[name]
+            entry["sharded_train_launches"] = sharded[
+                "flash_attention_train"]
+        if name == "decode_attention":
+            # the meshed decode's, each rank's by mesh; the lse output's
+            # rows
+            entry["sharded_decode_launches"] = sharded[
+                "decode_attention_sharded"]
+            entry["lse_rows"] = [
+                {k: lse[k] for k in ("row", "dtype", "lse_max_rel_err",
+                                     "ms", "ms_without_lse", "max_abs_err",
+                                     "bits_equal_without_lse")}
+                for lse in rows["decode_attention_lse"]]
         if name in ("flash_attention", "decode_attention"):
             # each new arch's prefill (flash) or decode run (decode)
             entry["arch_launches"] = counts[f"{name}_archs"]

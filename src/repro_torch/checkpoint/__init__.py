@@ -17,8 +17,17 @@ keyed by the leaf's path (dict keys and list indices joined by ``SEP``,
 numpy has no bfloat16 or float8 without an extra package, so those
 leaves are stored as their bits (``uint16`` / ``uint8``) and the
 manifest's ``"dtypes"`` names their dtype; an archive of other dtypes is
-the reference's, and plain ``np.load`` reads any of them.  Elastic
-restore between meshes waits for sharded training (ROADMAP.md queue A7b).
+the reference's, and plain ``np.load`` reads any of them.
+
+Elastic restore: a state held as each rank's ``sharding.local_shard`` of
+its leaves on a mesh (the meshed train step's) is saved unsharded, in the
+same format: one leaf at a time, the ranks' pieces are all-gathered, the
+writing rank copies the whole leaf to host memory, and every rank frees
+it before the next (a rank's device holds one whole leaf more at most,
+and only the writer holds the state, in host memory).
+``restore(..., mesh=, specs=)`` hands each rank its ``local_shard`` on
+whatever mesh the new job has, so a run saved on one mesh resumes on
+another, or on none.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core.tensor import Tensor
+from ..distributed.sharding import gather_leaf, with_specs
 
 SEP = "|"
 
@@ -85,11 +95,26 @@ def _snapshot(leaf) -> Tuple[np.ndarray, Optional[str]]:
     return t.numpy(), None
 
 
-def _host_state(state) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
+def _host_state(state, mesh=None, specs=None, keep: bool = True
+                ) -> Tuple[Dict[str, np.ndarray], Dict[str, str]]:
     """Every leaf copied to host memory: (arrays by key, dtype names of
-    the leaves stored as bits)."""
+    the leaves stored as bits).  On a ``mesh`` (every rank calls) each
+    leaf is this rank's piece under its spec in ``specs``: the whole
+    leaf is gathered, copied only where ``keep`` (the writing rank), and
+    dropped before the next leaf is gathered; elsewhere both are
+    empty."""
+    spec_of = None
+    if mesh is not None:
+        spec_of = dict(_leaves(with_specs(
+            lambda leaf, spec: _Spec(spec), state, specs)))
     arrays, dtypes = {}, {}
     for key, leaf in _leaves(state):
+        if spec_of is not None:
+            leaf = gather_leaf(mesh, spec_of[key].spec,
+                               leaf.data if isinstance(leaf, Tensor)
+                               else leaf)
+            if not keep:
+                continue
         arrays[key], name = _snapshot(leaf)
         if name is not None:
             dtypes[key] = name
@@ -106,14 +131,31 @@ class CheckpointManager:
         self._save_count = 0
 
     # -- write ----------------------------------------------------------
-    def save(self, state, step: int) -> str:
+    def save(self, state, step: int, mesh=None, specs=None
+             ) -> Optional[str]:
+        """Write ``state`` now.  On a ``mesh`` (every rank of it calls),
+        ``state`` holds the rank's pieces of the leaves split as the spec
+        tree ``specs`` says: they are assembled leaf by leaf on the
+        mesh's first rank (module docstring), which writes, and the
+        others wait for the write (they return None)."""
         self.wait()
-        return self._write(*_host_state(state), step)
+        if mesh is None:
+            return self._write(*_host_state(state), step)
+        first = _first_rank(mesh)
+        arrays, dtypes = _host_state(state, mesh, specs, first)
+        path = self._write(arrays, dtypes, step) if first else None
+        _mesh_barrier(mesh)
+        return path
 
-    def save_async(self, state, step: int) -> None:
-        """Snapshot now (a host copy), write on a background thread."""
+    def save_async(self, state, step: int, mesh=None, specs=None) -> None:
+        """Snapshot now (a host copy; on a ``mesh`` the assembled leaves,
+        as :meth:`save`), write on a background thread (the mesh's first
+        rank only)."""
         self.wait()
-        arrays, dtypes = _host_state(state)
+        first = mesh is None or _first_rank(mesh)
+        arrays, dtypes = _host_state(state, mesh, specs, first)
+        if not first:
+            return
         self._thread = threading.Thread(
             target=self._write_in_background, args=(arrays, dtypes, step),
             daemon=True)
@@ -169,10 +211,24 @@ class CheckpointManager:
                     pass
         return sorted(steps)
 
-    def restore(self, step: int, like_state):
+    def restore(self, step: int, like_state, mesh=None, specs=None):
         """The checkpoint of ``step`` in the structure of ``like_state``:
         each leaf a tensor on that leaf's device and in its dtype (a
-        non-tensor leaf gives a CPU tensor of the stored dtype)."""
+        non-tensor leaf gives a CPU tensor of the stored dtype).  On a
+        ``mesh``, each leaf is this rank's ``local_shard`` of the stored
+        one under its spec in ``specs`` (the state's spec tree on the
+        new mesh), whatever mesh wrote it."""
+        cut = None
+        if mesh is not None:
+            from ..distributed.sharding import local_shard
+            from ..launch.mesh import coords
+            here = coords(mesh)
+            spec_of = dict(_leaves(with_specs(
+                lambda leaf, spec: _Spec(spec), like_state, specs)))
+
+            def cut(key, t):
+                return local_shard(t, spec_of[key].spec, mesh, here).clone(
+                    memory_format=torch.contiguous_format)
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             dtypes = json.load(f).get("dtypes", {})
@@ -184,6 +240,8 @@ class CheckpointManager:
                     t = torch.from_numpy(arr.view(_BITS[dt][1])).view(dt)
                 else:
                     t = torch.from_numpy(arr)
+                if cut is not None:
+                    t = cut(key, t)
                 if isinstance(like, Tensor):
                     like = like.data
                 if isinstance(like, torch.Tensor):
@@ -191,11 +249,32 @@ class CheckpointManager:
                 return t
             return _rebuild(like_state, leaf)
 
-    def restore_latest(self, like_state):
+    def restore_latest(self, like_state, mesh=None, specs=None):
         steps = self.all_steps()
         if not steps:
             return None
-        return self.restore(steps[-1], like_state)
+        return self.restore(steps[-1], like_state, mesh, specs)
+
+
+class _Spec:
+    """A spec held as a leaf (a ``PartitionSpec`` is a tuple, which the
+    tree walks would enter)."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def _first_rank(mesh) -> bool:
+    return all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names)
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for the others (a sum over each
+    axis)."""
+    from ..distributed import collectives as C
+    for a in mesh.mesh_dim_names:
+        C.all_reduce_sum(torch.zeros(1, device=mesh.device_type),
+                         mesh.get_group(a))
 
 
 def install_preemption_handler(manager: CheckpointManager, get_state,

@@ -1,5 +1,7 @@
 """Distributed execution on ``torch.distributed``: the sharding tables
-(``sharding``), the collectives over either backend (``collectives``),
-data-parallel gradient sync (``ddp``) and pipeline stages
-(``pipeline``).  Counterpart of ``repro/distributed``; ``act_sharding``
-waits for the meshed training step (ROADMAP.md queue A7b)."""
+(``sharding``), activation layouts and what each rank computes under a
+mesh (``act_sharding``: the meshed train, prefill and serve steps of
+``launch/train.py``), the collectives over either backend, with their
+autograd-aware forms (``collectives``), data-parallel gradient sync
+(``ddp``) and pipeline stages (``pipeline``).  Counterpart of
+``repro/distributed``."""

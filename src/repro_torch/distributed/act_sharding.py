@@ -1,0 +1,469 @@
+"""Activation sharding inside the model, and what each rank computes
+under a mesh (counterpart of ``repro/distributed/act_sharding.py``).
+
+The model code calls ``constrain(x, kind)`` where the reference does;
+the step builders open a :func:`scope` over the mesh.  Outside a scope
+(one process, the tests, serving) ``constrain`` is the identity.
+
+Kinds, and the spec :func:`spec_for` picks for them (the reference's
+choice, the same pure function of the global shape and the mesh):
+
+  btd     (B, S, D) residual stream     -> P(batch, None, None); with
+          ``REPRO_SEQ_SHARD=1`` P(batch, model, None)
+  btf     (B, S, F) FFN hidden          -> P(batch, None, model) (F
+          divides), or the sequence under ``REPRO_SEQ_SHARD=1``
+  bhsd    (B, H, S, Dh) attention       -> heads over model when they
+          divide, else (``REPRO_ATTN_FALLBACK``, default ``context``)
+          the sequence over model, or replicated (``replicate``)
+  logits  (B, S, V)                     -> P(batch, None, model)
+  ecd/ecf, gecd/gecf                    -> the MoE's expert layouts
+
+``None`` means the reference leaves the tensor unconstrained.
+
+GSPMD moves data to meet a spec; the port runs one process a mesh
+position (eager SPMD), so a rank's tensor is its local piece and
+``constrain`` puts the piece into the kind's layout: a slice where the
+spec shards a dimension the piece holds whole, an all-gather where the
+piece is split and the spec wants it whole (``have`` says how it is
+split).  Its gradients follow the same rule backwards, so the tensor the
+pieces assemble to, and its gradient, never change value.
+
+What each rank computes in a scope over a ``DeviceMesh`` of ``data`` and
+``model`` (the meshed train, prefill and serve steps):
+
+  * parameters are held as the rank's ``sharding.local_shard``
+    (``param_specs``); :func:`use_params` gathers a layer's leaves when
+    the layer runs: over ``data`` always (FSDP's gather-on-use; the
+    backward reduce-scatters the gradients to the shards, or sums them
+    for a leaf ``data`` does not split), over ``model`` where the layer
+    needs the leaf whole;
+  * tensor parallelism over ``model`` (Megatron): attention with its
+    query heads split (``wq``/``wk``/``wv`` by columns, ``wo`` by rows
+    and an all-reduce), the dense MLP (``w_up``/``w_gate`` by columns,
+    ``w_down`` by rows), the embedding and LM head by vocabulary.  K/V
+    whose heads do not divide ``model`` (gemma's one KV head) are
+    computed whole on every rank from the gathered ``wk``/``wv``, for
+    the rank's query heads; their gradient is summed over ``model``;
+  * query heads that do not divide ``model``: under the ``context``
+    fallback each rank attends its slice of the queries through
+    ``models.attention.context_sdpa`` (K/V all-gathered along the
+    sequence); otherwise the attention runs whole on every rank;
+  * MLA runs whole on every rank in training; MoE, mamba and rwkv
+    blocks, MLA decode and ``REPRO_SEQ_SHARD=1`` need a ``model`` axis
+    of 1 (``launch.train.check_mesh`` raises :class:`MeshTrainingError`
+    for the others; ROADMAP.md queue A7c).
+
+The gradient convention: a tensor a ``model`` group holds whole has the
+whole true gradient on every rank of the group; the ranks of a data
+group each hold the gradient of their own share of the loss, and the
+parameter gathers sum them.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from contextlib import contextmanager
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import collectives as C
+
+# The active scope.  A module global, not a thread-local as in the
+# reference: autograd runs a CUDA backward, and with it the remat
+# recompute of a checkpointed group, on its own device thread, which must
+# see the step's scope.  One step runs in a process at a time.
+_active: list = [None]
+
+
+class MeshTrainingError(NotImplementedError):
+    """A block or switch the meshed steps do not run on this mesh yet
+    (ROADMAP.md queue A7c names the work)."""
+
+
+class _Scope:
+    """The mesh's axes as the reference's scope reads them, and on a
+    ``DeviceMesh`` the rank's process groups and coordinates."""
+
+    def __init__(self, mesh, param_specs=None, cache_specs=None,
+                 held=None):
+        from ..launch.mesh import axis_sizes
+        sizes = axis_sizes(mesh)
+        self.batch = tuple(a for a in ("pod", "data") if a in sizes)
+        self.model = "model" if "model" in sizes else None
+        self.model_size = sizes.get("model", 1)
+        self.data_size = math.prod(sizes[a] for a in self.batch)
+        self.param_specs = param_specs
+        self.cache_specs = cache_specs
+        self.held = held
+        self.seq_pieces = False
+        self.merges = 0
+        self.used: Dict[str, torch.Tensor] = {}
+        self.groups: Dict[str, object] = {}
+        self.coords: Dict[str, int] = {}
+        if hasattr(mesh, "get_group"):
+            for a in sizes:
+                self.groups[a] = mesh.get_group(a)
+                self.coords[a] = mesh.get_local_rank(a)
+
+    @property
+    def spmd(self) -> bool:
+        return bool(self.groups)
+
+
+@contextmanager
+def scope(mesh, param_specs=None, cache_specs=None, held=None):
+    """Activate ``mesh`` (a ``DeviceMesh`` or a ``MeshShape``; ``None``
+    deactivates) for :func:`constrain` and the meshed layers;
+    ``param_specs`` is the parameter tree's spec tree and
+    ``cache_specs`` the decode cache's, which :func:`use_params` reads.
+    ``held``, a dict the caller keeps across scopes (no autograd), holds
+    each leaf's gathered form until the leaf changes (its version
+    counter), as FSDP's ``reshard_after_forward=False``: the meshed serve
+    step gathers its weights once, not every token.  Yields the scope."""
+    prev = _active[0]
+    _active[0] = (_Scope(mesh, param_specs, cache_specs, held)
+                  if mesh is not None else None)
+    try:
+        yield _active[0]
+    finally:
+        _active[0] = prev
+
+
+def _get() -> Optional[_Scope]:
+    return _active[0]
+
+
+def active() -> bool:
+    return _get() is not None
+
+
+# ----------------------------------------------------------------------
+# the spec choice (pure)
+# ----------------------------------------------------------------------
+
+def spec_for(kind: str, shape: Tuple[int, ...], s, *,
+             heads: Optional[int] = None, experts: Optional[int] = None):
+    """The spec the reference's ``constrain`` gives a tensor of global
+    ``shape`` and ``kind`` in scope ``s`` (``repro/distributed/
+    act_sharding.py:66-120``), or ``None`` where it leaves the tensor
+    unconstrained (no model axis, an unknown kind, a fallback that
+    applies nothing).  Reads ``REPRO_SEQ_SHARD`` and
+    ``REPRO_ATTN_FALLBACK`` as the reference does."""
+    from .sharding import P
+    if s is None or s.model is None:
+        return None
+    b_ok = shape[0] % max(s.data_size, 1) == 0 and shape[0] > 1
+    batch = s.batch if b_ok else None
+    seq_shard = os.environ.get("REPRO_SEQ_SHARD") == "1"
+    m = s.model_size
+    if kind == "btd":
+        if seq_shard and shape[1] % m == 0:
+            return P(batch, s.model, None)
+        return P(batch, None, None)
+    if kind == "btf":
+        if seq_shard and shape[1] % m == 0:
+            return P(batch, s.model, None)
+        return P(batch, None, s.model if shape[-1] % m == 0 else None)
+    if kind == "logits":
+        return P(batch, None, s.model if shape[-1] % m == 0 else None)
+    if kind == "bhsd":
+        h = heads if heads is not None else shape[1]
+        if h % m == 0:
+            return P(batch, s.model, None, None)
+        strategy = os.environ.get("REPRO_ATTN_FALLBACK", "context")
+        if strategy == "context" and shape[2] % m == 0:
+            return P(batch, None, s.model, None)
+        if strategy == "replicate":
+            return P(batch, None, None, None)
+        return None
+    if kind in ("ecd", "ecf"):
+        e = experts if experts is not None else shape[0]
+        if e % m == 0:
+            return P(s.model, None, None)
+        if kind == "ecf" and shape[-1] % m == 0:
+            return P(None, None, s.model)
+        return None
+    if kind in ("gecd", "gecf"):
+        e = experts if experts is not None else shape[1]
+        g_ax = s.batch if shape[0] % max(s.data_size, 1) == 0 else None
+        if e % m == 0:
+            return P(g_ax, s.model, None, None)
+        if kind == "gecf" and shape[-1] % m == 0:
+            return P(g_ax, None, None, s.model)
+        return P(g_ax, None, None, None)
+    return None
+
+
+def _axis_dim(spec, axis) -> Optional[int]:
+    """The dimension ``spec`` splits over ``axis`` (None: none)."""
+    for d, e in enumerate(spec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return d
+    return None
+
+
+# ----------------------------------------------------------------------
+# constrain
+# ----------------------------------------------------------------------
+
+def constrain(x: torch.Tensor, kind: str, *, heads: Optional[int] = None,
+              experts: Optional[int] = None,
+              have: Optional[int] = None) -> torch.Tensor:
+    """``x`` in the layout :func:`spec_for` picks for ``kind``.  Outside
+    a scope, or in a scope over a mesh shape (no ranks), or with a model
+    axis of one rank, it is ``x``.  In an SPMD scope ``x`` is this rank's
+    piece: batch rows of its data coordinate, and split over ``model``
+    along dimension ``have`` (``None``: whole); the piece is sliced or
+    all-gathered along ``model`` to the spec's layout, and the result is
+    returned (its gradient gathered or sliced back)."""
+    s = _get()
+    if s is None or not s.spmd or s.model_size == 1:
+        return x
+    shape = list(x.shape)
+    shape[0] *= s.data_size
+    if have is not None:
+        shape[have] *= s.model_size
+    spec = spec_for(kind, tuple(shape), s, heads=heads, experts=experts)
+    if spec is None:
+        return x
+    want = _axis_dim(spec, s.model)
+    if want == have:
+        return x
+    group = s.groups[s.model]
+    if have is not None:
+        x = C.gather_whole(x, group, have)
+    return x if want is None else C.split(x, group, want)
+
+
+# ----------------------------------------------------------------------
+# what a rank computes under an SPMD scope
+# ----------------------------------------------------------------------
+
+def spmd() -> Optional[_Scope]:
+    """The active scope when it runs on ranks (a ``DeviceMesh``)."""
+    s = _get()
+    return s if s is not None and s.spmd else None
+
+
+def model_size() -> int:
+    """Ranks of the model axis of the active SPMD scope (1 without)."""
+    s = spmd()
+    return s.model_size if s is not None else 1
+
+
+def model_group():
+    return spmd().groups["model"]
+
+
+def model_rank() -> int:
+    return spmd().coords["model"]
+
+
+def data_groups():
+    """The process groups of the batch axes (pod, data) of the scope."""
+    s = spmd()
+    return [s.groups[a] for a in s.batch]
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's f over ``model`` (identity; gradient summed)."""
+    return x if model_size() == 1 else C.copy_to(x, model_group())
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's g over ``model`` (partial sums summed; gradient
+    passed)."""
+    return x if model_size() == 1 else C.reduce_from(x, model_group())
+
+
+def context_parallel(n_heads: int, seq: int) -> bool:
+    """Whether a rank attends its slice of the queries of an attention
+    layer of ``n_heads`` over ``seq`` positions: :func:`spec_for` puts
+    ``bhsd`` on the sequence (heads that do not divide ``model``, the
+    ``context`` fallback)."""
+    s = spmd()
+    spec = spec_for("bhsd", (s.data_size, n_heads, seq, 1), s,
+                    heads=n_heads)
+    return spec is not None and _axis_dim(spec, s.model) == 2
+
+
+@contextmanager
+def sequence_pieces(on: bool = True):
+    """Mark the enclosed attention calls as taking this rank's sequence
+    pieces of q, k and v (``models.attention.sdpa``'s context branch);
+    ``on=False`` leaves the mark as it is."""
+    s = spmd()
+    if not on or s is None:
+        yield
+        return
+    prev = s.seq_pieces
+    s.seq_pieces = True
+    try:
+        yield
+    finally:
+        s.seq_pieces = prev
+
+
+def seq_pieces() -> bool:
+    s = spmd()
+    return s is not None and s.seq_pieces
+
+
+def _lookup(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def _use(x: torch.Tensor, spec, s: _Scope, keep_model: bool,
+         partial_model: bool) -> torch.Tensor:
+    """:func:`_gathered`, from the scope's ``held`` leaves when the leaf
+    has not changed since it was gathered."""
+    if s.held is None:
+        return _gathered(x, spec, s, keep_model, partial_model)
+    key = (id(x), keep_model, partial_model)
+    hit = s.held.get(key)
+    if hit is None or hit[0] is not x or hit[1] != x._version:
+        hit = (x, x._version, _gathered(x, spec, s, keep_model,
+                                        partial_model))
+        s.held[key] = hit
+    return hit[2]
+
+
+def _gathered(x: torch.Tensor, spec, s: _Scope, keep_model: bool,
+              partial_model: bool) -> torch.Tensor:
+    """One parameter leaf as the rank's computation uses it.  Over each
+    batch axis: gathered where the spec splits a dimension (the backward
+    sums the data ranks' gradients and keeps the shard), else passed with
+    its gradient summed.  Over ``model``: kept split (``keep_model``),
+    else gathered, the gradient summed over ``model`` when the rank's
+    use of the whole leaf is its own part of the work
+    (``partial_model``) and sliced when every rank does the same work."""
+    for a in s.batch:
+        d = _axis_dim(spec, a)
+        g = s.groups[a]
+        x = C.copy_to(x, g) if d is None else C.gather(x, g, d)
+    if s.model is None or s.model_size == 1:
+        return x
+    d = _axis_dim(spec, s.model)
+    g = s.groups[s.model]
+    if d is None:
+        return C.copy_to(x, g) if partial_model else x
+    if keep_model:
+        return x
+    return C.gather(x, g, d) if partial_model else C.gather_whole(x, g, d)
+
+
+def use_param(path: str, x: torch.Tensor) -> torch.Tensor:
+    """The top-level leaf ``path`` (``embed``, ``lm_head``, ...) as the
+    rank uses it; ``x`` itself outside an SPMD scope.  Gathered once a
+    scope (the tied embedding's lookup and LM head share one gather, and
+    so one reduction of its gradient)."""
+    s = spmd()
+    if s is None:
+        return x
+    if path not in s.used:
+        s.used[path] = _use(x, _lookup(s.param_specs, path), s, True,
+                            False)
+    return s.used[path]
+
+
+class LayerPlan(NamedTuple):
+    """How a rank runs one layer (:func:`use_params`).  ``attn``:
+    ``"one"`` (no SPMD scope, or a model axis of 1: the one-process
+    layer), ``"heads"`` (its query heads, and its KV heads when they
+    divide ``model``), ``"context"`` (decode against a cache whose slots
+    are split over ``model``) or ``"whole"`` (all of it; in training the
+    layer then asks :func:`context_parallel` whether it takes its slice
+    of the queries).  ``mlp_split``: the dense MLP runs split over
+    ``model`` (its hidden width divides).  ``model``: the ranks of the
+    model axis."""
+    attn: str = "one"
+    mlp_split: bool = False
+    model: int = 1
+
+
+ONE = LayerPlan()
+
+
+def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
+    """Layer ``index`` (block ``spec``) of the parameter tree as the
+    rank's computation of it uses it (the scheme of the module
+    docstring), and the layer's :class:`LayerPlan`.  Outside an SPMD
+    scope, ``(p, ONE)``.  What the meshed steps do not run is refused
+    before they start (``launch.train.check_mesh``)."""
+    s = spmd()
+    if s is None:
+        return p, ONE
+    tp = s.model_size
+    specs = _lookup(s.param_specs, f"layers/{index}")
+    kv_local = cfg.n_kv_heads % tp == 0
+    attn = "whole"
+    if spec.mixer in ("attn", "sliding"):
+        if s.cache_specs is not None:
+            # decode: the cache's split decides (heads, slots, or none)
+            d = _axis_dim(_lookup(s.cache_specs, f"{index}/k"), s.model)
+            attn = {1: "heads", 2: "context"}.get(d, "whole")
+        elif cfg.n_heads % tp == 0:
+            attn = "heads"
+    if tp == 1:
+        plan = ONE
+    else:
+        plan = LayerPlan(attn, "mlp" in specs and _axis_dim(
+            specs["mlp"]["w_up"], s.model) is not None, tp)
+    heads = attn == "heads"
+
+    def leaf(block: str, name: str, x, sp):
+        if block != "attn":
+            return _use(x, sp, s, True, False)
+        if not heads:                  # every rank the whole attention
+            return _use(x, sp, s, False, False)
+        if name in ("wq", "wo"):
+            return _use(x, sp, s, True, False)
+        if name in ("wk", "wv"):
+            return _use(x, sp, s, kv_local, not kv_local)
+        if name == "bq" or (name in ("bk", "bv") and kv_local):
+            x = _use(x, sp, s, True, False)
+            return C.split(x, s.groups[s.model], 0)
+        # bk/bv of whole K/V heads, q_norm/k_norm: whole leaves the
+        # rank applies to its own heads
+        return _use(x, sp, s, True, True)
+
+    def walk(block: str, name: str, x, sp):
+        if isinstance(x, dict):        # a block, or the MoE's shared MLP
+            return {n: walk(block if block else n, n, v, sp[n])
+                    for n, v in x.items()}
+        return leaf(block, name, x, sp)
+
+    return walk("", "", p, specs), plan
+
+
+def count_merge() -> None:
+    """Count one log-sum-exp merge of the ranks' attention partials."""
+    spmd().merges += 1
+
+
+def embed_split() -> bool:
+    """Whether the rank holds a vocabulary slice of the embedding (a
+    model axis of > 1 rank that the vocabulary divides)."""
+    s = spmd()
+    return s is not None and s.model_size > 1 and \
+        _axis_dim(s.param_specs["embed"], s.model) == 0
+
+
+def vocab_split(cfg) -> bool:
+    """Whether the rank's logits are its vocabulary slice: the head's
+    weight is split by vocabulary over a model axis of > 1 rank."""
+    s = spmd()
+    if s is None or s.model_size == 1:
+        return False
+    if not cfg.lm_head:
+        name = "cls_head" if cfg.n_classes else None
+        if name is None:
+            return False
+        return _axis_dim(s.param_specs[name], s.model) == 1
+    if cfg.tie_embeddings:
+        return _axis_dim(s.param_specs["embed"], s.model) == 0
+    return _axis_dim(s.param_specs["lm_head"], s.model) == 1

@@ -435,3 +435,34 @@ def assemble(shard_of: Callable[[Mapping[str, int]], torch.Tensor],
         out[idx] = piece.cpu()
         seen[idx] = True
     return out
+
+
+def with_specs(fn: Callable[[Any, Any], Any], tree, specs):
+    """``fn(leaf, spec)`` over ``tree``'s leaves (dicts and lists), the
+    spec tree ``specs`` read at the same positions (its specs are
+    tuples, so ``tree`` decides where the leaves are)."""
+    if isinstance(tree, Mapping):
+        return {k: with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(with_specs(fn, v, sp)
+                          for v, sp in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def gather_leaf(mesh, spec, x: torch.Tensor) -> torch.Tensor:
+    """The whole leaf from this rank's piece ``x`` under ``spec`` (every
+    rank calls): all-gathered over each axis of the spec, an entry of
+    several axes minor axis first, as :func:`local_shard` cut it."""
+    from . import collectives as C
+    for d, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):
+            x = C.all_gather_cat(x.contiguous(), mesh.get_group(a), d)
+    return x
+
+
+def gather_tree(mesh, specs, tree):
+    """The inverse of ``launch.train.shard_tree`` over a ``DeviceMesh``
+    (every rank calls): every leaf :func:`gather_leaf`; every rank gets
+    the whole tree."""
+    return with_specs(lambda x, spec: gather_leaf(mesh, spec, x), tree,
+                      specs)

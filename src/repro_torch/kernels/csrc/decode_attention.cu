@@ -80,6 +80,12 @@
 //     combine (`decode_attention_combine`, natural units, fp32 out)
 //     merges them in split order, so every run gives the same bits.
 //
+// Both variants can also write each row's natural log-sum-exp (`lse`, for
+// merging partials over disjoint key sets: the meshed decode step's cache
+// slots split over ranks), where the row's max and sum are held: the main
+// kernel for a row of one split, else the combine.  The output's
+// arithmetic does not change.
+//
 // TPU-isms of the Pallas kernel that do not carry over:
 //   * lane padding of head_dim to 128 (`_pad_last`, repro/kernels/ops.py):
 //     head_dim is a template parameter (16-256), nothing is padded;
@@ -188,6 +194,7 @@ decode_attention_simt(const float* __restrict__ q,        // (B, Hkv, G, D)
                       const float* __restrict__ v_cache,
                       const int* __restrict__ cache_len,  // (B,)
                       float* __restrict__ out,            // (B, Hkv, G, D)
+                      float* __restrict__ lse,  // (B, Hkv, G) or null
                       float* __restrict__ part_o,  // (B*Hkv*G, splits, D)
                       float* __restrict__ part_ml,  // (B*Hkv*G, splits, 2)
                       int hkv, int g, int smax, int max_splits, float scale,
@@ -338,6 +345,8 @@ decode_attention_simt(const float* __restrict__ q,        // (B, Hkv, G, D)
     const size_t r = row0 + gi;
     if (n_splits == 1) {
       out[r * D + d] = num / fmaxf(den, 1e-30f);
+      if (lse != nullptr && d == 0)
+        lse[r] = repro_attn::row_lse<false>(mx, den);
     } else {
       part_o[(r * max_splits + split) * D + d] = num;
       if (d == 0)
@@ -467,6 +476,7 @@ decode_attention_mma(const bf16* __restrict__ q,        // (B, Hkv, G, D)
                      const bf16* __restrict__ v_cache,
                      const int* __restrict__ cache_len,  // (B,)
                      bf16* __restrict__ out,            // (B, Hkv, G, D)
+                     float* __restrict__ lse,  // (B, Hkv, G) or null
                      float* __restrict__ part_o,  // (B*Hkv*G, splits, D)
                      float* __restrict__ part_ml,  // (B*Hkv*G, splits, 2)
                      int hkv, int g, int smax, int max_splits,
@@ -635,6 +645,8 @@ decode_attention_mma(const bf16* __restrict__ q,        // (B, Hkv, G, D)
     *reinterpret_cast<float2*>(part_ml +
                                ((row0 + tid) * max_splits + split) * 2) =
         make_float2(row_m[tid], row_l[tid]);
+  else if (lse != nullptr && tid < rows)
+    lse[row0 + tid] = repro_attn::row_lse<true>(row_m[tid], row_l[tid]);
 }
 
 // The splits of each output row (b, h, head) of a row with more than one
@@ -645,8 +657,9 @@ __global__ void __launch_bounds__(32)
 decode_attention_combine(const int* __restrict__ cache_len,
                          const float* __restrict__ part_o,
                          const float* __restrict__ part_ml,
-                         T* __restrict__ out, int hkv, int g, int d,
-                         int smax, int window, int max_splits) {
+                         T* __restrict__ out, float* __restrict__ lse,
+                         int hkv, int g, int d, int smax, int window,
+                         int max_splits) {
   const int row = blockIdx.x;
   int lo, len;
   live_keys(cache_len, row / (hkv * g), smax, window, &lo, &len);
@@ -655,7 +668,7 @@ decode_attention_combine(const int* __restrict__ cache_len,
   const size_t r = static_cast<size_t>(row);
   repro_attn::combine_splits<LOG2>(part_ml + r * max_splits * 2,
                                    part_o + r * max_splits * d, out + r * d,
-                                   n, d);
+                                   n, d, lse == nullptr ? nullptr : lse + r);
 }
 
 // What a call launched, written to `launched` when it is not null: device
@@ -674,6 +687,7 @@ struct Args {
   const void* v_cache;
   const int* cache_len;
   void* out;
+  float* lse;
   void* work;
   int b, hkv, g, smax;
   float scale;
@@ -734,7 +748,8 @@ int launch(const Args& a) {
   kernel<<<grid, V::THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k_cache),
       static_cast<const T*>(a.v_cache), a.cache_len, static_cast<T*>(a.out),
-      part_o, part_ml, a.hkv, a.g, a.smax, ns, V::scale(a.scale), a.window);
+      a.lse, part_o, part_ml, a.hkv, a.g, a.smax, ns, V::scale(a.scale),
+      a.window);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int main_blocks = static_cast<int>(grid.x * grid.y * grid.z);
@@ -743,8 +758,8 @@ int launch(const Args& a) {
     return 0;
   }
   decode_attention_combine<T, V::LOG2, V::KS><<<n_rows, 32, 0, a.stream>>>(
-      a.cache_len, part_o, part_ml, static_cast<T*>(a.out), a.hkv, a.g, D,
-      a.smax, a.window, ns);
+      a.cache_len, part_o, part_ml, static_cast<T*>(a.out), a.lse, a.hkv, a.g,
+      D, a.smax, a.window, ns);
   err = static_cast<int>(cudaGetLastError());
   if (err == 0) record(a.launched, 2, main_blocks, n_rows);
   return err;
@@ -809,9 +824,13 @@ int dispatch(int dtype, int d, const Args& a, int* attrs) {
 // dtype codes: 0 float32 (the "simt" kernel), 1 bfloat16 (the "mma"
 // kernel); each launches its main kernel and, when the grid has more than
 // one split, the combine.  q, caches and out share the dtype.  cache_len
-// is (B,) int32; window <= 0 means no window.  `work` is a 16-byte aligned
-// workspace of `repro_decode_workspace_bytes` bytes (null when that is
-// 0).  `launched`, when not null, gets 3 ints: the device launches made,
+// is (B,) int32; window <= 0 means no window.  `lse`, when not null, is
+// (B, Hkv, G) fp32 and gets each row's natural log-sum-exp of its visible
+// scaled logits (-inf for a row with no live key), written where the row's
+// max and sum are held: by the main kernel for a row of one split, else by
+// the combine.  The output's bits do not depend on it.  `work` is a
+// 16-byte aligned workspace of `repro_decode_workspace_bytes` bytes (null
+// when that is 0).  `launched`, when not null, gets 3 ints: the device launches made,
 // then the thread blocks of the main kernel and of the combine.  Returns
 // the first nonzero CUDA error of the launches (0 on success), -1 for an
 // unsupported head_dim, -2 when the grid's splits or head blocks pass
@@ -820,11 +839,24 @@ extern "C" int repro_decode_attention(int dtype, int d, const void* q,
                                       const void* k_cache,
                                       const void* v_cache,
                                       const void* cache_len, void* out,
-                                      void* work, int b, int hkv, int g,
-                                      int smax, float scale, int window,
-                                      int* launched, void* stream) {
-  const Args a{q, k_cache, v_cache, static_cast<const int*>(cache_len), out,
-               work, b, hkv, g, smax, scale, window, launched,
+                                      void* lse, void* work, int b, int hkv,
+                                      int g, int smax, float scale,
+                                      int window, int* launched,
+                                      void* stream) {
+  const Args a{q,
+               k_cache,
+               v_cache,
+               static_cast<const int*>(cache_len),
+               out,
+               static_cast<float*>(lse),
+               work,
+               b,
+               hkv,
+               g,
+               smax,
+               scale,
+               window,
+               launched,
                static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, d, a, nullptr);
 }

@@ -390,7 +390,7 @@ def _decode_lib() -> ctypes.CDLL:
     lib = load_library("repro_decode_attention")
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.POINTER(ctypes.c_int),
                                                ctypes.c_void_p])
@@ -447,13 +447,15 @@ def decode_kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cache_len: torch.Tensor,
-                           *, scale: float, window: Optional[int] = None
-                           ) -> torch.Tensor:
+                           *, scale: float, window: Optional[int] = None,
+                           return_lse: bool = False):
     """The reference oracle's math (``repro/models/attention.py:322-335``)
     in the kernel's layouts: q (B, Hkv, G, D); caches (B, Hkv, Smax, D);
     cache_len (B,).  fp32 logits masked to finfo(float32).min outside
     ``max(len - window, 0) <= k_pos < len``, fp32 softmax, probabilities
-    cast to q's dtype before the PV product.  Returns (B, Hkv, G, D)."""
+    cast to q's dtype before the PV product.  Returns (B, Hkv, G, D), and
+    with ``return_lse`` also the (B, Hkv, G) fp32 ``logsumexp`` of the
+    visible scaled logits, -inf for a row with none (length 0)."""
     smax = k_cache.shape[2]
     logits = torch.einsum("bhgd,bhkd->bhgk", q.float(),
                           k_cache.float()) * scale
@@ -462,10 +464,15 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     valid = pos < clen
     if window is not None:
         valid = valid & (pos >= (clen - window).clamp(min=0))
-    logits = torch.where(valid[:, None, None, :], logits,
+    masked = torch.where(valid[:, None, None, :], logits,
                          torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhgk,bhkd->bhgd", probs, v_cache.to(q.dtype))
+    probs = torch.softmax(masked, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgk,bhkd->bhgd", probs, v_cache.to(q.dtype))
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(valid[:, None, None, :], logits,
+                                      float("-inf")), dim=-1)
+    return out, lse
 
 
 def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -511,15 +518,22 @@ def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                         scale: float, window: Optional[int] = None
-                         ) -> torch.Tensor:
+                         scale: float, window: Optional[int] = None,
+                         return_lse: bool = False):
     """q: (B, Hkv, G, D) query heads grouped by KV head; k_cache/v_cache:
     (B, Hkv, Smax, D) in q's dtype (fp32 or bf16); cache_len: (B,) int32,
-    each row's live length.  Returns (B, Hkv, G, D) in q's dtype.
+    each row's live length.  Returns (B, Hkv, G, D) in q's dtype; with
+    ``return_lse`` the pair (out, lse), lse (B, Hkv, G) fp32 the natural
+    log-sum-exp of each row's visible scaled logits, written where the
+    kernel holds the row's max and sum (the main kernel for a row of one
+    split, else the combine); a call without it writes the same output
+    bits.
 
-    Lengths are >= 1 on every path of the port: a row with length 0 gives
-    zeros from the kernel and a uniform average from the plain version
-    (as the Pallas kernel and the jnp oracle differ).
+    A row with length 0 gives zeros from the kernel and a uniform
+    average from the plain version (as the Pallas kernel and the jnp
+    oracle differ), and an lse of -inf from both, so that a merge of
+    partials (``models.attention.merge_attention_partials``) gives it no
+    weight: the meshed decode step's ranks that hold no live slot.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     on the current stream, or raise: bf16 runs the tensor-core variant,
@@ -531,7 +545,8 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     host."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
-                                      scale=scale, window=window)
+                                      scale=scale, window=window,
+                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_fwd: unsupported device "
                          f"{q.device}")
@@ -552,23 +567,29 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (b,):
         raise TypeError("decode_attention_fwd: cache_len must be (B,) "
                         "int32")
-    return _decode_launch(q, k_cache, v_cache, cache_len, float(scale),
-                          int(window) if window else 0)
+    out, lse = _decode_launch(q, k_cache, v_cache, cache_len, float(scale),
+                              int(window) if window else 0,
+                              bool(return_lse))
+    return (out, lse) if return_lse else out
 
 
 @launch_op("decode_attention")
 def _decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, cache_len: torch.Tensor,
-                   scale: float, win: int) -> torch.Tensor:
+                   scale: float, win: int, with_lse: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch of :func:`decode_attention_fwd` as one operator (its
-    shape function below)."""
+    shape function below); ``lse`` is (B, Hkv, G) fp32 when
+    ``with_lse``, else empty."""
     b, hkv, g, d = q.shape
     q, k_cache, v_cache = (dense_aligned(x) for x in (q, k_cache, v_cache))
     check_operands("decode_attention_fwd", q,
                    (q, k_cache, v_cache, cache_len))
     out = torch.empty_like(q)
+    lse = torch.empty((b, hkv, g) if with_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out
+        return out, lse
     smax = k_cache.shape[2]
     work = None
     nbytes = _decode_workspace_bytes(Q_CODES[q.dtype], b, hkv, g, d, smax,
@@ -579,6 +600,7 @@ def _decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(Q_CODES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(),
              v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None,
              None if work is None else work.data_ptr(), b, hkv, g, smax,
              scale, win, _decode_launched, stream)
     if err == -2:
@@ -589,12 +611,15 @@ def _decode_launch(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"decode_attention kernel launch failed "
                            f"(code {err})")
     decode_counter.bump()
-    return out
+    return out, lse
 
 
 @_decode_launch.register_fake
-def _(q, k_cache, v_cache, cache_len, scale, win):
-    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+def _(q, k_cache, v_cache, cache_len, scale, win, with_lse):
+    b, hkv, g, _ = q.shape
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((b, hkv, g) if with_lse else (0,),
+                        dtype=torch.float32, device=q.device))
 
 
 # ----------------------------------------------------------------------

@@ -147,11 +147,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      scale: Optional[float] = None,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     return_lse: bool = False):
     """q: (B, Hq, 1, D) against the cache (B, Hkv, Smax, D) filled to
     ``cache_len``: a host int, or a (B,) tensor, broadcast to (B,) int32
-    (lengths >= 1).  Returns (B, Hq, 1, D).  Inference only (no
-    backward, as in the reference)."""
+    (lengths >= 1).  Returns (B, Hq, 1, D), and with ``return_lse`` also
+    the (B, Hq, 1) fp32 log-sum-exp of each row's visible scaled
+    logits.  Inference only (no backward, as in the reference)."""
     b, hq, sq, d = q.shape
     hkv = k_cache.shape[1]
     if sq != 1:
@@ -165,7 +167,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           device=q.device)
     out = decode_attention_fwd(q.reshape(b, hkv, hq // hkv, d).contiguous(),
                                k_cache, v_cache, lens, scale=eff_scale,
-                               window=window)
+                               window=window, return_lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return out.reshape(b, hq, 1, d), lse.reshape(b, hq, 1)
     return out.reshape(b, hq, 1, d)
 
 

@@ -3,11 +3,21 @@
 
 The reference wraps each step in ``jax.jit`` with parameter, optimizer
 and cache shardings over a device mesh, and donates the state.  The port
-runs eagerly on one device: meshes and shardings are dropped (sharding
-is ROADMAP.md queue A7b), and donation becomes updates in place: the
-train step writes the new parameters and optimizer state into the
-tensors it was given, leaf by leaf, so the model never has a second copy
-of its parameters, and the decode step writes the cache in place.
+runs eagerly, and donation becomes updates in place: the train step
+writes the new parameters and optimizer state into the tensors it was
+given, leaf by leaf, so the model never has a second copy of its
+parameters, and the decode step writes the cache in place.
+
+Without a mesh every step runs in one process.  With ``mesh=`` (a
+``DeviceMesh`` of ``data`` and ``model`` over the ranks of a process
+group; every rank calls the step: SPMD) each rank holds its
+``sharding.local_shard`` of every parameter (``param_specs``), optimizer
+leaf (:func:`opt_state_specs`) and cache entry (``cache_specs``):
+:func:`init_train_state` and :func:`shard_tree` cut them.  The steps take
+the global batch (the same on every rank) and cut the rank's rows
+(``batch_specs``); inside, ``distributed/act_sharding.py`` runs the
+layers (FSDP over ``data``, tensor parallelism over ``model``, the
+vocab-parallel loss), and the steps return the rank's pieces.
 
 ``train_loop`` is the runnable trainer on synthetic LM data (data
 loader, checkpoint/restart, straggler-aware step timing), and
@@ -21,6 +31,7 @@ of ``examples/train_lm.py``::
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -31,9 +42,14 @@ import torch
 
 from .. import default_device, resolve_device
 from ..configs import ARCHS, get_smoke_config
+from ..distributed import act_sharding as AS
+from ..distributed import collectives as C
+from ..distributed import sharding as S
+from ..distributed.act_sharding import MeshTrainingError
 from ..models import lm as LM
 from ..optim.functional import (clip_by_global_norm, make_optimizer,
                                 tree_leaves, tree_map)
+from .mesh import axis_sizes, coords
 
 # the profiler range around the gradient clip and the optimizer update
 OPT_RANGE = "train_step::optimizer"
@@ -54,11 +70,165 @@ def _copy_into(dst, src) -> None:
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
+def _update(update_opt, whole_list: bool, params, grads, opt) -> None:
+    """One optimizer update written in place: (params, grads, optimizer
+    state) every leaf at once for the bucketed updates, else one leaf at
+    a time."""
+    leaves = tree_leaves(params)
+    state = {k: v if k == "step" else _leaves_like(v, params)
+             for k, v in opt.items()}
+    if whole_list:
+        parts = [(leaves, grads, state)]
+    else:
+        parts = (([p], [g], {k: v if k == "step" else [v[i]]
+                             for k, v in state.items()})
+                 for i, (p, g) in enumerate(zip(leaves, grads)))
+    for ps, gs, st in parts:
+        new_ps, new_st = update_opt(gs, st, ps)
+        _copy_into(ps, new_ps)
+        for k, v in new_st.items():
+            if k != "step":
+                _copy_into(st[k], v)
+    # every leaf's update read the old step; it moves once, after all
+    if "step" in opt:
+        opt["step"].copy_(new_st["step"])
+
+
+def _microbatch(batch, accum_steps: int, i: int):
+    def part(x):
+        if x.dim() == 0:
+            return x
+        if x.shape[0] % accum_steps:
+            raise ValueError(f"train_step: batch of {x.shape[0]} does "
+                             f"not split into {accum_steps} "
+                             f"microbatches")
+        return x.reshape(accum_steps, x.shape[0] // accum_steps,
+                         *x.shape[1:])[i]
+    return {k: part(v) for k, v in batch.items()}
+
+
+# ----------------------------------------------------------------------
+# specs and shards of a state (the mesh half)
+# ----------------------------------------------------------------------
+
+def opt_state_specs(opt_state_abs, param_spec_tree):
+    """Optimizer-state specs (the reference's ``opt_state_specs``):
+    moment tensors (``m``, ``v``, ``momentum``) inherit the parameter's
+    spec; Adafactor's ``row`` drops the last dimension's entry and
+    ``col`` the second to last (the dimension each reduces); scalars
+    replicate."""
+    P = S.P
+
+    def fac_spec(p_spec, fac):
+        t = tuple(p_spec)
+        out = {}
+        for k in fac:
+            if k == "row":
+                out[k] = P(*t[:-1]) if len(t) else P()
+            elif k == "col":
+                out[k] = P(*(t[:-2] + t[-1:])) if len(t) >= 2 else P()
+            else:
+                out[k] = P(*t)
+        return out
+
+    def like(sub, specs, leaf_fn):
+        if isinstance(sub, dict) and not _is_fac(sub):
+            return {k: like(v, specs[k], leaf_fn) for k, v in sub.items()}
+        if isinstance(sub, (list, tuple)):
+            return [like(v, sp, leaf_fn) for v, sp in zip(sub, specs)]
+        return leaf_fn(specs, sub)
+
+    specs = {}
+    for key, sub in opt_state_abs.items():
+        if key in ("m", "v", "momentum"):
+            specs[key] = like(sub, param_spec_tree, lambda sp, _: sp)
+        elif key == "fac":
+            specs[key] = like(sub, param_spec_tree, fac_spec)
+        else:
+            specs[key] = tree_map(lambda _: P(), sub)
+    return specs
+
+
+def _is_fac(d: dict) -> bool:
+    return "row" in d or ("v" in d and not isinstance(d["v"], dict))
+
+
+def shard_tree(mesh, spec_tree, tree):
+    """This rank's pieces of ``tree`` (full tensors) on ``mesh``: each
+    leaf's ``sharding.local_shard`` under its spec, copied into memory of
+    its own, so the full tree can be freed."""
+    here = coords(mesh)
+    return S.with_specs(
+        lambda x, spec: S.local_shard(x, spec, mesh, here).clone(
+            memory_format=torch.contiguous_format), tree, spec_tree)
+
+
+def spec_leaves(spec_tree, params) -> list:
+    """The specs of ``params``'s leaves, in ``tree_leaves`` order."""
+    return _leaves_like(spec_tree, params)
+
+
+def state_specs(cfg: LM.LMConfig, mesh, *, optimizer: str = "adamw",
+                lr: float = 3e-4, opt_kwargs: Optional[Dict] = None):
+    """The spec tree of a train state ``{"params", "opt", "step"}`` on
+    ``mesh``: ``param_specs`` of the parameters, :func:`opt_state_specs`
+    of the optimizer's state, the step replicated."""
+    kw = dict(opt_kwargs or {})
+    kw.setdefault("lr", lr)
+    init_opt, _ = make_optimizer(optimizer, **kw)
+    params_abs = LM.abstract_params(cfg)
+    p_specs = S.param_specs(cfg, params_abs, mesh)
+    return {"params": p_specs,
+            "opt": opt_state_specs(init_opt(params_abs), p_specs),
+            "step": S.P()}
+
+
+def check_mesh(cfg: LM.LMConfig, mesh, optimizer: Optional[str] = None,
+               decode: bool = False) -> None:
+    """Raise :class:`~repro_torch.distributed.act_sharding.
+    MeshTrainingError` for what the meshed steps do not run yet: MoE,
+    mamba and rwkv blocks, MLA in a ``decode`` step, and
+    ``REPRO_SEQ_SHARD=1``, on a model axis of more than one rank, and
+    Adafactor (whose factored statistics reduce across the shards of a
+    leaf) on any mesh that splits a leaf.  The meshed layers rely on
+    this check: they do not repeat it."""
+    tp = axis_sizes(mesh).get("model", 1)
+    if tp > 1:
+        for spec in cfg.layer_specs():
+            if spec.mixer in ("mamba", "rwkv") or spec.ffn == "moe":
+                raise MeshTrainingError(
+                    f"{cfg.name}: {spec.mixer}/{spec.ffn} blocks run on a "
+                    f"mesh whose model axis is 1 (this one has {tp}; "
+                    f"ROADMAP.md queue A7c)")
+            if decode and spec.mixer == "mla":
+                raise MeshTrainingError(
+                    f"{cfg.name}: MLA decode on a mesh whose model axis "
+                    f"is {tp} (ROADMAP.md queue A7c)")
+        if os.environ.get("REPRO_SEQ_SHARD") == "1":
+            raise MeshTrainingError(
+                "REPRO_SEQ_SHARD=1 (a sequence-sharded residual stream) "
+                "on a model axis > 1 (ROADMAP.md queue A7c)")
+    if optimizer == "adafactor" and math.prod(axis_sizes(mesh).values()) > 1:
+        raise MeshTrainingError("adafactor on a mesh (ROADMAP.md queue "
+                                "A7c)")
+
+
+def _local_batch(cfg, batch, mesh, here, dev):
+    specs = S.batch_specs(cfg, batch, mesh)
+    return {k: S.local_shard(v, specs[k], mesh, here).to(dev)
+            for k, v in batch.items()}
+
+
+def _batch_groups(mesh) -> list:
+    return [mesh.get_group(a) for a in axis_sizes(mesh)
+            if a in ("pod", "data")]
+
+
 def make_train_step(cfg: LM.LMConfig, *, optimizer: str = "adamw",
                     lr: float = 3e-4, grad_clip: float = 1.0,
                     accum_steps: int = 1, foreach: bool = False,
                     opt_kwargs: Optional[Dict] = None,
-                    device=None) -> Callable:
+                    device=None, mesh=None) -> Callable:
     """Returns ``step(state, batch) -> (state, {"loss", "grad_norm"})``
     over ``state = {"params", "opt", "step"}``: ``lm.lm_loss``, its
     gradients, ``clip_by_global_norm`` to ``grad_clip``, then the update
@@ -75,105 +245,158 @@ def make_train_step(cfg: LM.LMConfig, *, optimizer: str = "adamw",
     optimizer runs leaf by leaf (each leaf's update is made and written
     before the next), except ``foreach=True`` for SGD and Adam, whose
     bucketed update takes every leaf at once; Adafactor's foreach update
-    is its per-leaf one."""
+    is its per-leaf one.
+
+    With ``mesh``, every rank of it calls the step with its pieces of the
+    state (:func:`init_train_state` with the mesh) and the global batch;
+    microbatches are cut from the global batch as without a mesh, then
+    each rank takes its rows.  The gradients reach each rank's pieces
+    already reduced (``distributed/act_sharding.py``); the global norm
+    sums each piece's squares once (a leaf held whole by several ranks
+    counts once) over every rank, and the update is the one-process
+    update on the pieces.  ``loss`` and ``grad_norm`` are the global
+    values on every rank.  :func:`check_mesh` names what it refuses.
+
+    ``step.compute(params, batch)`` returns the step's (loss, gradients
+    of the leaves in order) without the clip and the update."""
     LM._check_supported(cfg)
     dev = resolve_device(device)
     kw = dict(opt_kwargs or {})
     kw.setdefault("lr", lr)
     _, update_opt = make_optimizer(optimizer, foreach=foreach, **kw)
     whole_list = foreach and optimizer != "adafactor"
+    specs = None
+    if mesh is not None:
+        check_mesh(cfg, mesh, optimizer)
+        params_abs = LM.abstract_params(cfg)
+        specs = S.param_specs(cfg, params_abs, mesh)
+        here = coords(mesh)
+        sizes = axis_sizes(mesh)
+        # how many ranks hold each leaf's piece whole (its norm's share)
+        copies = [math.prod(n for a, n in sizes.items()
+                            if a not in _spec_axes(sp))
+                  for sp in spec_leaves(specs, params_abs)]
 
     def loss_and_grads(params, batch):
         tree = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(tree)
-        loss = LM.lm_loss(cfg, tree, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with AS.scope(mesh, specs):
+            # (the backward re-runs remat groups: it needs the scope too)
+            loss = LM.lm_loss(cfg, tree, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), list(grads)
 
-    def microbatch(batch, i: int):
-        def part(x):
-            if x.dim() == 0:
-                return x
-            if x.shape[0] % accum_steps:
-                raise ValueError(f"train_step: batch of {x.shape[0]} does "
-                                 f"not split into {accum_steps} "
-                                 f"microbatches")
-            return x.reshape(accum_steps, x.shape[0] // accum_steps,
-                             *x.shape[1:])[i]
-        return {k: part(v) for k, v in batch.items()}
-
-    def update(params, grads, opt) -> None:
-        # (params, grads, optimizer state) of one update: every leaf at
-        # once for the bucketed updates, else one leaf at a time
-        leaves = tree_leaves(params)
-        state = {k: v if k == "step" else _leaves_like(v, params)
-                 for k, v in opt.items()}
-        if whole_list:
-            parts = [(leaves, grads, state)]
+    def compute(params, batch: Dict[str, torch.Tensor]):
+        """(loss, gradients of the leaves in order) of the step, before
+        the clip; with a mesh the rank's reduced gradients of its pieces
+        and the global loss."""
+        if mesh is None:
+            micro = lambda b: {k: v.to(dev) for k, v in b.items()}
         else:
-            parts = (([p], [g], {k: v if k == "step" else [v[i]]
-                                 for k, v in state.items()})
-                     for i, (p, g) in enumerate(zip(leaves, grads)))
-        for ps, gs, st in parts:
-            new_ps, new_st = update_opt(gs, st, ps)
-            _copy_into(ps, new_ps)
-            for k, v in new_st.items():
-                if k != "step":
-                    _copy_into(st[k], v)
-        # every leaf's update read the old step; it moves once, after all
-        if "step" in opt:
-            opt["step"].copy_(new_st["step"])
-
-    def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        params = state["params"]
+            micro = lambda b: _local_batch(cfg, b, mesh, here, dev)
         if accum_steps <= 1:
-            loss, grads = loss_and_grads(params, batch)
+            loss, grads = loss_and_grads(params, micro(batch))
         else:
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                      for p in tree_leaves(params)]
             for i in range(accum_steps):
-                l, g = loss_and_grads(params, microbatch(batch, i))
+                l, g = loss_and_grads(
+                    params, micro(_microbatch(batch, accum_steps, i)))
                 loss = loss + l
                 grads = [a + b for a, b in zip(grads, g)]
             loss = loss / accum_steps
             grads = [g / accum_steps for g in grads]
+        if mesh is not None:
+            for group in _batch_groups(mesh):
+                C.all_reduce_sum(loss, group)
+        return loss, grads
+
+    def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        params = state["params"]
+        loss, grads = compute(params, batch)
         with torch.no_grad(), torch.profiler.record_function(OPT_RANGE):
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
-            update(params, grads, state["opt"])
+            if mesh is None:
+                grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            else:
+                grads, gnorm = _clip_meshed(grads, copies, grad_clip, mesh)
+            _update(update_opt, whole_list, params, grads, state["opt"])
             state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
+    step.compute = compute
     return step
 
 
+def _spec_axes(spec) -> set:
+    out = set()
+    for e in spec:
+        if isinstance(e, tuple):
+            out.update(e)
+        elif e is not None:
+            out.add(e)
+    return out
+
+
+def _clip_meshed(grads, copies, max_norm: float, mesh):
+    """``clip_by_global_norm`` over the ranks' pieces: each piece's
+    squares divided by the ranks that hold it whole, summed over every
+    axis of the mesh."""
+    sq = torch.stack([torch.sum(torch.square(g.float())) / n
+                      for g, n in zip(grads, copies)]).sum()
+    for a in axis_sizes(mesh):
+        C.all_reduce_sum(sq, mesh.get_group(a))
+    norm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
+    return [g * scale for g in grads], norm
+
+
 def init_train_state(cfg: LM.LMConfig, *, optimizer: str = "adamw",
-                     lr: float = 3e-4, seed: int = 0, device=None
+                     lr: float = 3e-4, seed: int = 0, device=None,
+                     mesh=None, params: Optional[LM.Params] = None
                      ) -> Dict[str, Any]:
     """``{"params", "opt", "step"}``: ``lm.init_params(cfg, seed)`` on
-    ``device``, the optimizer's ``init`` of them (both packages start
-    the optimizer from ``init_opt(params)``) and an int32 step of 0."""
+    ``device`` (or ``params``, full tensors, when given), the optimizer's
+    ``init`` of them (both packages start the optimizer from
+    ``init_opt(params)``) and an int32 step of 0.  With ``mesh``, the
+    parameters are this rank's pieces (:func:`shard_tree` of the full
+    ones, which are then freed) and the optimizer starts from them: the
+    pieces of the one-process state."""
     dev = resolve_device(device)
-    params = LM.init_params(cfg, seed=seed, device=dev)
+    if params is None:
+        params = LM.init_params(cfg, seed=seed, device=dev)
+    if mesh is not None:
+        params = shard_tree(mesh, S.param_specs(cfg, params, mesh), params)
     init_opt, _ = make_optimizer(optimizer, lr=lr)
     return {"params": params, "opt": init_opt(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def make_prefill_step(cfg: LM.LMConfig, device=None) -> Callable:
+def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None
+                      ) -> Callable:
     """Returns ``prefill(params, batch) -> logits (B, S, V)``, where
     ``batch`` holds ``"tokens"`` (B, S) or ``"embeds"`` (B, S, D).  Runs
     ``lm.forward`` without autograd on ``device`` (default CUDA); inputs
-    on another device are moved there."""
+    on another device are moved there.  With ``mesh``, ``params`` are the
+    rank's pieces, ``batch`` the global batch, and the result the rank's
+    piece of the logits: its batch rows, and its vocabulary slice where
+    the head splits the vocabulary over ``model`` (:func:`greedy_tokens`
+    reads the argmax across the slices)."""
     LM._check_supported(cfg)
     dev = resolve_device(device)
+    specs = None
+    if mesh is not None:
+        check_mesh(cfg, mesh)
+        specs = S.param_specs(cfg, LM.abstract_params(cfg), mesh)
+        here = coords(mesh)
 
     def prefill(params: LM.Params, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
+        if mesh is not None:
+            batch = _local_batch(cfg, batch, mesh, here, dev)
         tokens, embeds = batch.get("tokens"), batch.get("embeds")
-        with torch.no_grad():
+        with torch.no_grad(), AS.scope(mesh, specs):
             logits, _ = LM.forward(
                 cfg, params,
                 tokens=None if tokens is None else tokens.to(dev),
@@ -183,9 +406,37 @@ def make_prefill_step(cfg: LM.LMConfig, device=None) -> Callable:
     return prefill
 
 
+def greedy_tokens(logits: torch.Tensor, mesh=None,
+                  vocab_size: Optional[int] = None) -> torch.Tensor:
+    """The argmax over the vocabulary of ``logits`` (..., V), the lower
+    index first among equal values.  With ``mesh``, ``logits`` is a
+    rank's piece from a meshed step: its batch rows, and, when it is
+    narrower than ``vocab_size``, its vocabulary slice (each rank's best
+    value and index are gathered over ``model``, and the first rank
+    holding the maximum wins); every rank gets the global batch's tokens
+    (the rows gathered over the batch axes)."""
+    if mesh is None:
+        return logits.argmax(-1)
+    sizes = axis_sizes(mesh)
+    if logits.shape[-1] != vocab_size:
+        group = mesh.get_group("model")
+        idx = logits.argmax(-1, keepdim=True)
+        best = logits.float().gather(-1, idx)[..., 0]
+        idx = idx[..., 0] + mesh.get_local_rank("model") * logits.shape[-1]
+        vals = torch.stack(C.all_gather(best.contiguous(), group))
+        ids = torch.stack(C.all_gather(idx.contiguous(), group))
+        tokens = ids.gather(0, vals.argmax(0, keepdim=True))[0]
+    else:
+        tokens = logits.argmax(-1)
+    for a in reversed([a for a in sizes if a in ("pod", "data")]):
+        tokens = C.all_gather_cat(tokens.contiguous(), mesh.get_group(a),
+                                  0)
+    return tokens
+
+
 def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
                     cache_dtype: torch.dtype = torch.bfloat16,
-                    device=None) -> Callable:
+                    device=None, mesh=None) -> Callable:
     """Returns ``serve_step(params, cache, tokens, pos) -> (logits (B, 1,
     V), cache)``: one token per row at the host int position ``pos``,
     written into the cache in place.  The cache is
@@ -198,12 +449,31 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
     ring of ``min(max_seq, window)`` slots needs no more than that); a
     recurrent state (rwkv) holds no positions, and there ``pos`` need
     only be >= 0.  An encoder (``lm_head=False``) has no decode step and
-    raises here."""
+    raises here.
+
+    With ``mesh``, ``params`` are the rank's pieces, ``cache`` the
+    rank's pieces of the cache under ``cache_specs`` (:func:`shard_tree`
+    of ``init_cache``; the layout checked is the pieces'), ``tokens`` the
+    global (B, 1) batch, and the logits the rank's piece (its rows, its
+    vocabulary slice).  Where the KV heads do not divide ``model`` the
+    cache's slots are split over it, and each layer merges the ranks'
+    partial attention by their log-sum-exps (the decode kernel's
+    ``return_lse``)."""
     if not cfg.lm_head:
         raise ValueError(f"{cfg.name}: an encoder (lm_head=False) has no "
                          f"decode step")
     layout = LM.cache_layout(cfg, batch, max_seq, cache_dtype)
     dev = resolve_device(device)
+    if mesh is not None:
+        check_mesh(cfg, mesh, decode=True)
+        p_specs = S.param_specs(cfg, LM.abstract_params(cfg), mesh)
+        c_specs = S.cache_specs(
+            cfg, LM.abstract_cache(cfg, batch, max_seq, cache_dtype), mesh)
+        here = coords(mesh)
+        held: Dict = {}
+        layout = [{n: (_local_shape(shape, c_specs[i][n], mesh), dt)
+                   for n, (shape, dt) in entry.items()}
+                  for i, entry in enumerate(layout)]
     probes = [i for i, entry in enumerate(layout)
               if entry not in layout[:i]]
     positional = any(spec.mixer not in ("rwkv", "mamba")
@@ -229,10 +499,26 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
         if pos < 0 or (positional and pos >= max_seq):
             raise ValueError(f"serve_step: position {pos} outside the "
                              f"cache (max_seq {max_seq})")
-        with torch.no_grad():
-            return LM.decode_step(cfg, params, cache, tokens.to(dev), pos)
+        if mesh is None:
+            with torch.no_grad():
+                return LM.decode_step(cfg, params, cache, tokens.to(dev),
+                                      pos)
+        tokens = _local_batch(cfg, {"tokens": tokens}, mesh, here,
+                              dev)["tokens"]
+        with torch.no_grad(), AS.scope(mesh, p_specs, c_specs,
+                                       held) as scope:
+            out = LM.decode_step(cfg, params, cache, tokens, pos)
+            serve_step.lse_merges += scope.merges
+        return out
 
+    serve_step.lse_merges = 0
     return serve_step
+
+
+def _local_shape(shape, spec, mesh) -> tuple:
+    sizes = axis_sizes(mesh)
+    return tuple(n // math.prod(sizes[a] for a in _spec_axes((e,)))
+                 for n, e in zip(shape, spec))
 
 
 # ----------------------------------------------------------------------
@@ -246,7 +532,7 @@ def train_loop(cfg: LM.LMConfig, *, steps: int, batch_size: int,
                checkpoint_every: int = 100,
                log_every: int = 10, seed: int = 0,
                straggler_threshold: float = 3.0,
-               device=None) -> Dict[str, Any]:
+               device=None, mesh=None) -> Dict[str, Any]:
     """Training on synthetic LM data (``SyntheticLMDataset`` through a
     ``DataLoader`` with the reference's settings: 2 workers, shuffled by
     ``seed``, the last partial batch dropped).  Restores from the latest
@@ -255,6 +541,12 @@ def train_loop(cfg: LM.LMConfig, *, steps: int, batch_size: int,
     ``checkpoint_every`` steps and once at the end.  As in the
     reference, a restarted run draws its batches from the start of
     epoch 0 again.
+
+    With ``mesh`` every rank of it runs the loop over the meshed step
+    (each draws the same global batches), the state is the rank's pieces,
+    the checkpoints are saved whole (the mesh's first rank writes) and a
+    restore hands each rank its pieces on this mesh, whatever mesh saved
+    them; only the first rank prints.
 
     Returns the reference's ``{"losses", "steps" (run in this call),
     "wall_time_s", "final_loss"}`` and, besides, each step's
@@ -265,14 +557,17 @@ def train_loop(cfg: LM.LMConfig, *, steps: int, batch_size: int,
 
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, optimizer=optimizer, lr=lr,
-                              foreach=foreach, device=dev)
+                              foreach=foreach, device=dev, mesh=mesh)
     state = init_train_state(cfg, optimizer=optimizer, lr=lr, seed=seed,
-                             device=dev)
+                             device=dev, mesh=mesh)
+    specs = None if mesh is None else state_specs(
+        cfg, mesh, optimizer=optimizer, lr=lr)
+    speaks = mesh is None or not any(coords(mesh).values())
     ckpt = None
     start_step = 0
     if checkpoint_dir:
         ckpt = CheckpointManager(checkpoint_dir)
-        restored = ckpt.restore_latest(state)
+        restored = ckpt.restore_latest(state, mesh, specs)
         if restored is not None:
             state = restored
             start_step = int(state["step"])
@@ -302,21 +597,21 @@ def train_loop(cfg: LM.LMConfig, *, steps: int, batch_size: int,
             grad_norms.append(float(metrics["grad_norm"]))
             step_times.append(dt)
             # straggler watchdog: flag steps >> median
-            if len(step_times) > 10:
+            if len(step_times) > 10 and speaks:
                 med = float(np.median(step_times[-50:]))
                 if dt > straggler_threshold * med:
                     print(f"[straggler] step {step}: {dt:.3f}s "
                           f"(median {med:.3f}s)")
             history.append(loss)
-            if step % log_every == 0:
+            if step % log_every == 0 and speaks:
                 tok_s = batch_size * seq_len / dt
                 print(f"step {step:5d}  loss {loss:.4f}  "
                       f"{dt*1e3:6.1f} ms/step  {tok_s:,.0f} tok/s")
             if ckpt and step > 0 and step % checkpoint_every == 0:
-                ckpt.save_async(state, step)
+                ckpt.save_async(state, step, mesh, specs)
         it.close()
     if ckpt:
-        ckpt.save(state, steps)
+        ckpt.save(state, steps, mesh, specs)
         ckpt.wait()
     wall = time.perf_counter() - t_loop
     return {"losses": history, "steps": steps - start_step,

@@ -42,11 +42,17 @@ cut the output back (:func:`padded_call`); the wrappers below them still
 raise on a width they cannot launch.
 
 The reference's ``_build_mask`` is ``kernels.flash_attention.
-visible_mask``.  Its ``REPRO_SEQ_SHARD`` / ``context_sdpa`` branch is
-sequence sharding of training across a mesh and is not ported
-(ROADMAP.md queue A7b).  :func:`merge_attention_partials` merges
-attention over disjoint key sets by their log-sum-exps: the sharded
-serving executor's context-parallel KV.
+visible_mask``.  :func:`context_sdpa` is its context-parallel attention
+(each model rank its slice of the queries, K/V all-gathered along the
+sequence) through the flash kernel; :func:`sdpa` takes it for the
+sequence pieces the attention layer hands it under a mesh scope
+(``distributed/act_sharding.py``).  The reference takes that branch
+only under ``REPRO_SEQ_SHARD=1``, because without it GSPMD partitions
+the sequence-sharded attention itself; the port has no partitioner, so
+the branch follows the layout ``constrain`` gave q, k and v.
+:func:`merge_attention_partials` merges attention over disjoint key
+sets by their log-sum-exps: the sharded serving executor's
+context-parallel KV and the meshed decode step's.
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import act_sharding as AS
+from ..distributed import collectives as C
 from ..kernels import flash_attention as FA
 from ..kernels._build import HEAD_DIMS
 from ..kernels import ops as kops
@@ -186,6 +194,34 @@ def padded_call(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[..., :d_v]
 
 
+def context_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: Optional[float], causal: bool,
+                 window: Optional[int]) -> torch.Tensor:
+    """Context-parallel attention in an SPMD mesh scope (the reference's
+    ``context_sdpa``, ``repro/models/attention.py:78``): q, k and v are
+    this rank's pieces (B, H, S/n, D) of the sequence over the ``model``
+    axis's n ranks, rank i holding positions [i S/n, (i+1) S/n).  K and V
+    are all-gathered along the sequence (their gradients summed over the
+    ranks and sliced back); the rank's queries attend through the flash
+    kernel, which aligns its Sq queries to the last Sq keys: passing the
+    first (i+1) S/n gathered keys with ``causal=True`` gives the global
+    causal mask, and a window counts back from the same positions.
+    Non-causal attention takes every key, with no window (a window
+    without causality would need keys past the slice, which no config
+    has)."""
+    if not causal and window is not None:
+        raise ValueError("context_sdpa: a window without causal masking is "
+                         "not supported")
+    group = AS.model_group()
+    kg = C.gather(k, group, 2)
+    vg = C.gather(v, group, 2)
+    if causal:
+        end = (AS.model_rank() + 1) * q.shape[2]
+        kg, vg = kg[:, :, :end], vg[:, :, :end]
+    return padded_call(kops.flash_attention, q, kg, vg, scale,
+                       causal=causal, window=window)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mask: Optional[torch.Tensor] = None, is_causal: bool = False,
          scale: Optional[float] = None, window: Optional[int] = None,
@@ -195,8 +231,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions, through the flash kernel (differentiable) for every
     backend; a width the kernel lacks, or Dv != D, is padded
     (:func:`padded_call`).  Returns (B, Hq, Sq, Dv).  An explicit
-    ``mask`` takes :func:`sdpa_masked` (torch ops, on every device)."""
+    ``mask`` takes :func:`sdpa_masked` (torch ops, on every device).
+    Sequence pieces under a mesh scope (``act_sharding.
+    sequence_pieces``) take :func:`context_sdpa`."""
     _check_backend("sdpa", backend)
+    if mask is None and AS.seq_pieces():
+        return context_sdpa(q, k, v, scale, is_causal, window)
     if mask is None:
         return padded_call(kops.flash_attention, q, k, v, scale,
                            causal=is_causal, window=window)
@@ -207,18 +247,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
                      scale: Optional[float] = None,
                      window: Optional[int] = None,
-                     backend: str = "auto") -> torch.Tensor:
+                     backend: str = "auto", return_lse: bool = False):
     """Single-position decode through the decode kernel for every
     backend: q (B, Hq, 1, D) against a k (B, Hkv, Smax, D) and v (B,
     Hkv, Smax, Dv) cache filled up to ``cache_len`` (a host int or a
     (B,) tensor); keys at ``max(len - window, 0) <= k_pos < len`` are
     visible.  A width the kernel lacks, or Dv != D, is padded
-    (:func:`padded_call`).  Returns (B, Hq, 1, Dv)."""
+    (:func:`padded_call`).  Returns (B, Hq, 1, Dv), and with
+    ``return_lse`` also the (B, Hq, 1) fp32 log-sum-exp of each row's
+    visible scaled logits."""
     _check_backend("decode_attention", backend)
-    return padded_call(
-        lambda q_, k_, v_, scale: kops.decode_attention(
-            q_, k_, v_, cache_len, scale=scale, window=window),
-        q, k_cache, v_cache, scale)
+    if not return_lse:
+        return padded_call(
+            lambda q_, k_, v_, scale: kops.decode_attention(
+                q_, k_, v_, cache_len, scale=scale, window=window),
+            q, k_cache, v_cache, scale)
+    lse = []
+
+    def call(q_, k_, v_, scale):
+        out, row_lse = kops.decode_attention(
+            q_, k_, v_, cache_len, scale=scale, window=window,
+            return_lse=True)
+        lse.append(row_lse)
+        return out
+
+    out = padded_call(call, q, k_cache, v_cache, scale)
+    return out, lse[0]
 
 
 def mixed_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -5,6 +5,11 @@ window, qkv bias, qk-norm), MLA, the dense FFN, the GShard MoE, the
 Mamba mixer and the RWKV-6 block.  Layouts are the
 reference's: linear weights are stored ``(in, out)`` and applied as
 ``x @ W``; norm weights and statistics are fp32.
+
+Under a mesh scope (``distributed/act_sharding.py``) the attention layer
+and the dense MLP run the rank's part of a tensor-parallel layer on the
+leaves ``act_sharding.use_params`` prepared, as the layer plan it
+returned says, and call ``constrain`` where the reference does.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import act_sharding as AS
+from ..distributed import collectives as C
 from ..kernels import ops as kops
 from . import attention as A
 
@@ -146,7 +153,8 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               cache_len=None,
               abs_pos_arg: Optional[int] = None,
               q_norm: bool = False,
-              backend: str = "auto"
+              backend: str = "auto",
+              plan: str = "one"
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, S, D).  Without ``cache``: causal/windowed self-attention
     over the S positions (``sdpa``, the flash kernel).  With ``cache``
@@ -161,16 +169,24 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     ``make_serve_step``'s cache donation (``launch/train.py:208``).
     ``cache_pos`` (and ``abs_pos_arg``) are host ints: the port has no
     jit, so positions need no device value and nothing syncs with the
-    device."""
+    device.  ``plan``: how a rank of a mesh runs the layer
+    (``act_sharding.LayerPlan.attn``); ``"one"`` outside a mesh."""
     b, s, _ = x.shape
+    if plan == "whole" and cache is None and AS.context_parallel(n_heads,
+                                                                 s):
+        plan = "context"
+    if plan == "heads":
+        x = AS.copy_to_model(x)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
-    k = k.reshape(b, s, n_kv_heads, head_dim).transpose(1, 2)
-    v = v.reshape(b, s, n_kv_heads, head_dim).transpose(1, 2)
+    # this rank's heads (every head outside a scope)
+    hq, hkv = q.shape[-1] // head_dim, k.shape[-1] // head_dim
+    q = q.reshape(b, s, hq, head_dim).transpose(1, 2)
+    k = k.reshape(b, s, hkv, head_dim).transpose(1, 2)
+    v = v.reshape(b, s, hkv, head_dim).transpose(1, 2)
 
     if positions is None:
         start = 0
@@ -183,13 +199,37 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     if q_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    if plan == "heads" and hkv > 1 and hkv != n_kv_heads // AS.model_size():
+        # whole K/V heads beside this rank's query heads: the KV head of
+        # each (gemma's one KV head is shared as it is)
+        first = AS.model_rank() * hq
+        kv_of = (first + torch.arange(hq, device=x.device)) // (
+            n_heads // n_kv_heads)
+        k, v = k[:, kv_of], v[:, kv_of]
 
     scale = query_scale if query_scale is not None else head_dim ** -0.5
 
     if cache is None:
-        out = A.sdpa(q, k, v, is_causal=causal, window=window, scale=scale,
-                     backend=backend)
+        # the reference constrains q/k/v before RoPE and qk-norm; both act
+        # on each position alone, so the layout change commutes with them
+        have = 1 if plan == "heads" else None
+        q = AS.constrain(q, "bhsd", heads=n_heads, have=have)
+        if plan != "heads" or n_kv_heads % AS.model_size() == 0:
+            # (K/V computed whole for the rank's query heads stay whole)
+            k = AS.constrain(k, "bhsd", heads=n_kv_heads, have=have)
+            v = AS.constrain(v, "bhsd", heads=n_kv_heads, have=have)
+        with AS.sequence_pieces(plan == "context"):
+            out = A.sdpa(q, k, v, is_causal=causal, window=window,
+                         scale=scale, backend=backend)
+        out = AS.constrain(out, "bhsd", heads=n_heads,
+                           have=2 if plan == "context" else have)
+        if plan == "context":
+            out = C.gather_whole(out, AS.model_group(), 2)
         new_cache = None
+    elif plan == "context":
+        out = _context_decode(q, k, v, cache, cache_pos, cache_len,
+                              scale, window, backend)
+        new_cache = cache
     else:
         k_cache, v_cache = cache["k"], cache["v"]
         k_cache[:, :, cache_pos:cache_pos + s] = k.to(k_cache.dtype)
@@ -200,8 +240,44 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
                                  backend=backend)
         new_cache = {"k": k_cache, "v": v_cache}
 
-    out = out.transpose(1, 2).reshape(b, s, n_heads * head_dim)
-    return out @ p["wo"], new_cache
+    out = out.transpose(1, 2).reshape(b, s, hq * head_dim) @ p["wo"]
+    if plan == "heads":
+        out = AS.reduce_from_model(out)
+    return out, new_cache
+
+
+def _context_decode(q, k, v, cache, cache_pos: int, cache_len, scale,
+                    window, backend) -> torch.Tensor:
+    """Decode against a cache whose slots are split over ``model``: this
+    rank holds slots [r L, (r + 1) L) of every KV head.  The step's K/V
+    go to the rank that holds slot ``cache_pos``; each rank attends its
+    live slots (the decode kernel with its log-sum-exp), and the ranks'
+    partials are merged by their log-sum-exps
+    (``models.attention.merge_attention_partials``).  A rank with no live
+    slot gives zeros and a log-sum-exp of -inf, which weighs nothing."""
+    b, _, s, _ = q.shape
+    k_cache, v_cache = cache["k"], cache["v"]
+    n_loc = k_cache.shape[2]
+    off = AS.model_rank() * n_loc
+    for t in range(s):
+        slot = cache_pos + t - off
+        if 0 <= slot < n_loc:
+            k_cache[:, :, slot] = k[:, :, t].to(k_cache.dtype)
+            v_cache[:, :, slot] = v[:, :, t].to(v_cache.dtype)
+    clen = cache_pos + s if cache_len is None else cache_len
+    live = min(max(clen - off, 0), n_loc)
+    if live > 0:
+        out, lse = A.decode_attention(q, k_cache, v_cache, cache_len=live,
+                                      scale=scale, window=window,
+                                      backend=backend, return_lse=True)
+    else:
+        out = torch.zeros(q.shape[:-1] + v_cache.shape[-1:],
+                          dtype=q.dtype, device=q.device)
+        lse = torch.full(q.shape[:-1], float("-inf"), device=q.device)
+    group = AS.model_group()
+    AS.count_merge()
+    return A.merge_attention_partials(C.all_gather(out.contiguous(), group),
+                                      C.all_gather(lse.contiguous(), group))
 
 
 # ----------------------------------------------------------------------
@@ -316,14 +392,21 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(name)
 
 
-def mlp(p: Params, x: torch.Tensor, activation: str = "silu"
-        ) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, activation: str = "silu",
+        split: bool = False) -> torch.Tensor:
+    """The dense FFN.  With ``split`` (a mesh's layer plan), this rank's
+    hidden columns (``w_up``/``w_gate`` by columns, ``w_down`` by rows)
+    and the partial outputs summed over ``model``."""
+    if split:
+        x = AS.copy_to_model(x)
     up = x @ p["w_up"]
     if "w_gate" in p:
         h = _act(x @ p["w_gate"], activation) * up
     else:
         h = _act(up, activation)
-    return h @ p["w_down"]
+    h = AS.constrain(h, "btf", have=2 if split else None)
+    out = h @ p["w_down"]
+    return AS.reduce_from_model(out) if split else out
 
 
 # ----------------------------------------------------------------------
@@ -379,10 +462,12 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     Tokens are split into G groups and each group routes on its own with
     capacity ``C = min(max(1, int(cf * Tg * k / E)), Tg)``; a (token,
     choice) past its expert's capacity, in token-major then choice order,
-    is dropped.  The group count follows the reference's rule at data
-    degree 1 (the port runs on one device): groups of
+    is dropped.  The group count follows the reference's rule: groups of
     ``REPRO_MOE_GROUP_TOKENS`` tokens (default 1024; 0 for one group),
-    then the largest count that divides the tokens.  One-hots and gates
+    then the largest count that divides the tokens, over the tokens the
+    rank holds (in a mesh scope its data shard's: the reference's groups
+    per data shard); the balance loss's means run over every data
+    shard's groups, as the reference's do.  One-hots and gates
     are in x's dtype, router logits and probabilities in fp32.  As in the
     reference every expert runs on its (G, C) slots, so each call reads
     every expert's weights; dead padded slots (``n_padded``) are never
@@ -422,21 +507,38 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     combine = (disp * gate_vals[..., None, None].to(x.dtype)).sum(2)
 
     # the two einsums are profiled as one range, read by chip_smoke.py
+    def constrain(t, kind):
+        # t is expert-major, (E, G, C, .); the reference's layout is
+        # (G, E, C, .): viewed as that, constrained, viewed back
+        return AS.constrain(t.movedim(1, 0), kind,
+                            experts=e_slots).movedim(0, 1)
+
     with torch.profiler.record_function("moe_dispatch_combine"):
-        expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xt).reshape(
-            e_slots, g * capacity, d)
+        expert_in = constrain(torch.einsum("gtec,gtd->egcd", dispatch, xt),
+                              "gecd").reshape(e_slots, g * capacity, d)
     up = expert_in @ p["w_up"]                                # (E, GC, F)
     if "w_gate" in p:
         h = _act(expert_in @ p["w_gate"], activation) * up
     else:
         h = _act(up, activation)
-    expert_out = (h @ p["w_down"]).reshape(e_slots, g, capacity, d)
+    h = constrain(h.view(e_slots, g, capacity, -1), "gecf").reshape(
+        e_slots, g * capacity, -1)
+    expert_out = constrain((h @ p["w_down"]).reshape(e_slots, g, capacity,
+                                                     d), "gecd")
     with torch.profiler.record_function("moe_dispatch_combine"):
         yt = torch.einsum("gtec,egcd->gtd", combine, expert_out)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e
     density = onehot.sum(2).float().mean((0, 1))              # (E,)
     router_prob = probs.mean((0, 1))
+    mesh = AS.spmd()
+    if mesh is not None and mesh.data_size > 1:
+        # the reference's means run over every data shard's groups
+        for group in AS.data_groups():
+            density = C.all_reduce_sum(density.clone(), group)
+            router_prob = C.reduce_both(router_prob, group)
+        density = density / mesh.data_size
+        router_prob = router_prob / mesh.data_size
     aux = 0.01 * n_experts * torch.sum(
         density[:n_experts] * router_prob[:n_experts])
 

@@ -44,6 +44,15 @@ a mamba layer, ``{"wkv": (B, H, hd, hd) fp32, "shift", "cm_shift": (B,
 1, D)}`` for an rwkv layer.  :func:`decode_step` updates
 it in place (the reference stacks it per group for ``lax.scan`` and
 donates it, or returns new recurrent entries).
+
+Under a mesh scope (``distributed/act_sharding.py``, the meshed step
+builders of ``launch/train.py``) every layer's leaves pass through
+``act_sharding.use_params`` as the layer runs, the embedding and the LM
+head split the vocabulary over ``model`` (a masked lookup summed over
+the ranks; vocabulary-sliced logits), :func:`lm_loss` reduces its max,
+log-partition and label logit over the slices and returns the rank's
+share of the global mean, and ``constrain`` is called where the
+reference calls it.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ import torch
 import torch.utils.checkpoint
 
 from .. import resolve_device
+from ..distributed import act_sharding as AS
+from ..distributed import collectives as C
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -338,7 +349,8 @@ def _norm(cfg: LMConfig, x: torch.Tensor, w: torch.Tensor,
 def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                  x: torch.Tensor, aux: torch.Tensor,
                  cache: Optional[Dict] = None,
-                 cache_pos: Optional[int] = None
+                 cache_pos: Optional[int] = None,
+                 plan: AS.LayerPlan = AS.ONE
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """One block: its mixer, then its FFN (dense, MoE with an optional
     dense residual beside it, or none); returns (x, aux + this block's
@@ -348,7 +360,10 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
     writes its ring at slot ``cache_pos % ring`` and attends the
     ``min(cache_pos + S, ring)`` live slots with no window (the ring is
     the window), its keys roped at their absolute positions, as the
-    reference does (``repro/models/lm.py:240-256``)."""
+    reference does (``repro/models/lm.py:240-256``); where a mesh splits
+    the ring's slots over ``model`` (``plan.attn == "context"``), the
+    slot and the live count are the whole ring's.  ``plan``: how a rank
+    of a mesh runs the layer (``act_sharding.use_params``)."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     if spec.mixer == "rwkv":
         out, new_cache = L.rwkv6(p["rwkv"], h, head_dim=cfg.rwkv_head_dim,
@@ -372,7 +387,8 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                  if (sliding and cfg.rope_theta_local) else cfg.rope_theta)
         write_pos, cache_len = cache_pos, None
         if cache is not None and sliding:
-            ring = cache["k"].shape[2]
+            ring = cache["k"].shape[2] * (plan.model
+                                          if plan.attn == "context" else 1)
             write_pos = cache_pos % ring
             cache_len = min(cache_pos + h.shape[1], ring)
             window = None                  # the ring is the window
@@ -382,12 +398,12 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
             rope_theta=theta, query_scale=cfg.query_scale,
             cache=cache, cache_pos=write_pos, cache_len=cache_len,
             abs_pos_arg=cache_pos, q_norm=cfg.qk_norm,
-            backend=cfg.attn_backend)
+            backend=cfg.attn_backend, plan=plan.attn)
     x = x + out
     if spec.ffn != "none":
         h2 = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
         if spec.ffn == "dense":
-            x = x + L.mlp(p["mlp"], h2, cfg.act)
+            x = x + L.mlp(p["mlp"], h2, cfg.act, plan.mlp_split)
         else:
             # decode is dropless (capacity = every token of the step), as
             # in the reference (repro/models/lm.py:281-295)
@@ -398,7 +414,8 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                 capacity_factor=cf, activation=cfg.act,
                 n_padded=cfg.n_experts_padded)
             if cfg.moe_dense_residual:
-                moe_out = moe_out + L.mlp(p["mlp"], h2, cfg.act)
+                moe_out = moe_out + L.mlp(p["mlp"], h2, cfg.act,
+                                          plan.mlp_split)
             x = x + moe_out
             aux = aux + moe_aux
     return x, aux, new_cache
@@ -406,10 +423,18 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
 
 def _embed(cfg: LMConfig, params: Params, tokens=None,
            embeds=None) -> torch.Tensor:
-    if embeds is None:
-        x = params["embed"][tokens]
+    if embeds is not None:
+        return scale_embeddings(cfg, embeds.to(cfg.param_dtype))
+    w = AS.use_param("embed", params["embed"])
+    if AS.embed_split():
+        # this rank's vocabulary rows; other tokens look up zeros, and the
+        # ranks' rows are summed (one nonzero term a token: exact)
+        v_loc = w.shape[0]
+        t = tokens.long() - AS.model_rank() * v_loc
+        inside = ((t >= 0) & (t < v_loc)).unsqueeze(-1).to(w.dtype)
+        x = AS.reduce_from_model(w[t.clamp(0, v_loc - 1)] * inside)
     else:
-        x = embeds.to(cfg.param_dtype)
+        x = w[tokens]
     return scale_embeddings(cfg, x)
 
 
@@ -428,11 +453,20 @@ def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     softcap ``tanh(logits / c) * c`` in fp32; an encoder
     (``lm_head=False``) returns its ``cls_head`` logits, or the normed
     hidden states without one."""
-    x = _norm(cfg, x, params["final_norm"], params.get("final_norm_b"))
+    x = _norm(cfg, x, AS.use_param("final_norm", params["final_norm"]),
+              None if "final_norm_b" not in params else
+              AS.use_param("final_norm_b", params["final_norm_b"]))
+    split = AS.vocab_split(cfg)
+    if split:
+        x = AS.copy_to_model(x)
     if not cfg.lm_head:
-        return x @ params["cls_head"] if cfg.n_classes else x
-    logits = x @ (params["embed"].T if cfg.tie_embeddings
-                  else params["lm_head"])
+        if not cfg.n_classes:
+            return x
+        return x @ AS.use_param("cls_head", params["cls_head"])
+    logits = x @ (AS.use_param("embed", params["embed"]).T
+                  if cfg.tie_embeddings
+                  else AS.use_param("lm_head", params["lm_head"]))
+    logits = AS.constrain(logits, "logits", have=2 if split else None)
     if cfg.final_softcap:
         c = cfg.final_softcap
         logits = torch.tanh(logits.float() / c) * c
@@ -444,9 +478,16 @@ def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def _apply_blocks(cfg: LMConfig, specs, layers, x: torch.Tensor,
-                  aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    for spec, p in zip(specs, layers):
-        x, aux, _ = _apply_block(cfg, spec, p, x, aux)
+                  aux: torch.Tensor, first: int, grouped: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers ``first``, ``first + 1``, ... (their specs and parameters);
+    a group's output is constrained after each block, as in the
+    reference's ``group_body``."""
+    for i, (spec, p) in enumerate(zip(specs, layers)):
+        p, plan = AS.use_params(cfg, spec, first + i, p)
+        x, aux, _ = _apply_block(cfg, spec, p, x, aux, plan=plan)
+        if grouped:
+            x = AS.constrain(x, "btd")
     return x, aux
 
 
@@ -464,7 +505,7 @@ def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
     kernels included.  The tail layers after the last whole group are
     not checkpointed, as in the reference."""
     _check_supported(cfg)
-    x = _embed(cfg, params, tokens, embeds)
+    x = AS.constrain(_embed(cfg, params, tokens, embeds), "btd")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     specs, layers = cfg.layer_specs(), params["layers"]
     g = len(cfg.pattern)
@@ -473,11 +514,12 @@ def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
         group = (cfg, specs[i:i + g], layers[i:i + g])
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _apply_blocks, *group, x, aux, use_reentrant=False)
+                _apply_blocks, *group, x, aux, i, True, use_reentrant=False)
         else:
-            x, aux = _apply_blocks(*group, x, aux)
+            x, aux = _apply_blocks(*group, x, aux, i, True)
     tail = cfg.n_groups * g
-    x, aux = _apply_blocks(cfg, specs[tail:], layers[tail:], x, aux)
+    x, aux = _apply_blocks(cfg, specs[tail:], layers[tail:], x, aux, tail,
+                           False)
     return _head(cfg, params, x), aux
 
 
@@ -494,29 +536,67 @@ def lm_loss(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
     weighting the positions.  The label's logit is gathered where the
     reference sums a one-hot product: the sum adds exact zeros to the one
     nonzero term, so both give the same fp32 value, and the gather never
-    makes the (B, S, V) mask.  The profiler range
+    makes the (B, S, V) mask.  In a mesh scope whose head splits the
+    vocabulary over ``model`` the max, the log-partition's sum and the
+    label's logit are reduced over the slices (Megatron's vocab-parallel
+    cross entropy; the (B, S, V) logits are never gathered), and the
+    result is the rank's share of the global mean: its sums over the
+    global token count (or mask sum), plus its 1/data share of the MoE
+    aux loss; the data ranks' shares add up to the loss.  The profiler
+    range
     ``lm_loss::cross_entropy`` holds the loss's own ops."""
     logits, aux = forward(cfg, params, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"))
     labels = batch["labels"]
+    split = AS.vocab_split(cfg)
     with torch.profiler.record_function(LOSS_RANGE):
         logits = logits.float()
         m = logits.detach().amax(dim=-1, keepdim=True)
+        if split:
+            C.all_reduce_max(m, AS.model_group())
         shifted = logits - m
-        logz = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
-        picked = shifted.gather(
-            -1, labels.long().unsqueeze(-1))[..., 0] + m[..., 0]
-        nll = logz - picked
+        sumexp = torch.exp(shifted).sum(dim=-1)
+        if split:
+            # Megatron's vocab-parallel cross entropy: the slices' sums
+            # and the label's logit (one slice holds it) summed over model
+            v_loc = logits.shape[-1]
+            t = labels.long() - AS.model_rank() * v_loc
+            inside = (t >= 0) & (t < v_loc)
+            picked = shifted.gather(-1, t.clamp(0, v_loc - 1).unsqueeze(
+                -1))[..., 0] * inside.to(shifted.dtype)
+            sumexp = AS.reduce_from_model(sumexp)
+            picked = AS.reduce_from_model(picked)
+        else:
+            picked = shifted.gather(-1, labels.long().unsqueeze(-1))[..., 0]
+        logz = torch.log(sumexp) + m[..., 0]
+        nll = logz - (picked + m[..., 0])
         mask = batch.get("mask")
+        s = AS.spmd()
+        if s is None:
+            if mask is None:
+                loss = nll.mean()
+                zl = torch.square(logz).mean()
+            else:
+                mask = mask.to(nll.dtype)
+                denom = torch.clamp(mask.sum(), min=1)
+                loss = (nll * mask).sum() / denom
+                zl = (torch.square(logz) * mask).sum() / denom
+            return loss + z_loss * zl + aux
+        # the rank's share of the global mean: its sums over the global
+        # count; the data ranks' shares add up to the loss (the MoE aux,
+        # a global value, is shared equally)
         if mask is None:
-            loss = nll.mean()
-            zl = torch.square(logz).mean()
+            mask = torch.ones_like(nll)
+            denom = float(nll.numel() * s.data_size)
         else:
             mask = mask.to(nll.dtype)
-            denom = torch.clamp(mask.sum(), min=1)
-            loss = (nll * mask).sum() / denom
-            zl = (torch.square(logz) * mask).sum() / denom
-        return loss + z_loss * zl + aux
+            denom = mask.sum()
+            for group in AS.data_groups():
+                C.all_reduce_sum(denom, group)
+            denom = torch.clamp(denom, min=1)
+        loss = (nll * mask).sum() / denom
+        zl = (torch.square(logz) * mask).sum() / denom
+        return loss + z_loss * zl + aux / s.data_size
 
 
 # ----------------------------------------------------------------------
@@ -561,6 +641,16 @@ def cache_layout(cfg: LMConfig, batch: int, max_seq: int,
             for spec in cfg.layer_specs()]
 
 
+def abstract_cache(cfg: LMConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Cache:
+    """Shape-only cache: :func:`init_cache`'s tree on the ``meta``
+    device, allocating nothing (the reference's ``abstract_cache``; the
+    sharding tables read only shapes)."""
+    return [{name: torch.empty(shape, dtype=dt, device="meta")
+             for name, (shape, dt) in entry.items()}
+            for entry in cache_layout(cfg, batch, max_seq, dtype)]
+
+
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
     """An empty per-layer cache on ``device`` (default CUDA), zeros in
@@ -585,7 +675,9 @@ def decode_step(cfg: LMConfig, params: Params, cache: Cache,
                          f"decode step")
     x = _embed(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
+    for i, (spec, p, c) in enumerate(zip(cfg.layer_specs(),
+                                         params["layers"], cache)):
+        p, plan = AS.use_params(cfg, spec, i, p)
         x, aux, _ = _apply_block(cfg, spec, p, x, aux, cache=c,
-                                 cache_pos=pos)
+                                 cache_pos=pos, plan=plan)
     return _head(cfg, params, x), cache

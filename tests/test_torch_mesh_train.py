@@ -1,0 +1,425 @@
+"""Meshed training and step builders of the port, on gloo ranks on the
+CPU, against the port's one-process steps (and the JAX package where a
+function is pure).
+
+The reference's own meshed train step fails on every mesh (ROADMAP.md
+queue C), so it is no oracle; the meshed step is held to the port's
+one-process step, which ``tests/test_torch_train.py`` holds to the
+reference's pieces composed without a mesh.  Groups of 2 and 4 ranks
+(``run_ranks``, rank functions in ``tests/torch_dist_workers.py``) run
+every check of their size once for the file:
+
+  * the train step on (2,1), (1,2) and (2,2): the tiny config (2 KV
+    heads, split over model), gemma-2b's SMOKE (1 KV head: whole K/V
+    beside each rank's query heads; GeGLU; tied, vocab-parallel
+    embedding and loss) and a 3-head config (context-parallel attention
+    at model = 2), AdamW with accum_steps 1 and 2 and SGD with momentum:
+    loss and grad norm within 1e-6 relative, the assembled gradients
+    within 1e-5 of their largest, SGD's momentum within 1e-5 and AdamW's
+    moments within 1e-5 relative, the parameters as stated at
+    ``test_parameters``;
+  * ``context_sdpa`` on 2 ranks (causal, window, non-causal; GQA)
+    against the reference's ``sdpa_ref`` on the whole sequence (1e-5)
+    and its gradients against the port's one-process ``sdpa``'s;
+  * the meshed prefill and serve steps' greedy tokens against the
+    one-process steps' (1 KV head: the cache's slots split over model,
+    partials merged by their log-sum-exps; gemma3's sliding rings split
+    too, decoded past the ring's end);
+  * elastic restore: saved on (2,2) after step 1, restored onto (1,2)
+    and onto no mesh, step 2 equal to the uninterrupted run's.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_workers as W
+from repro.models import attention as JA
+from repro_torch.distributed import sharding as TS
+from repro_torch.launch import train as T
+from repro_torch.launch.mesh import MeshShape, run_ranks
+from repro_torch.models import attention as TA
+from repro_torch.models import lm as TLM
+from repro_torch.optim.functional import tree_leaves
+
+GROUP_TIMEOUT = 300
+TRAIN_CASES = [("tiny", "adamw", 1), ("gemma", "adamw", 1),
+               ("gemma", "adamw", 2), ("gemma", "sgd", 1),
+               ("odd", "adamw", 1), ("tiny", "sgd", 2)]
+SHAPES_2 = [(2, 1), (1, 2)]
+SHAPES_4 = [(2, 2)]
+DECODE_NAMES = ("tiny", "gemma", "gemma3")
+
+
+@pytest.fixture(scope="module")
+def groups(tmp_path_factory):
+    """Every check's rank results by world size; the 4-rank group saves
+    the elastic checkpoint the 2-rank group restores."""
+    ckpt = str(tmp_path_factory.mktemp("elastic"))
+    loop = str(tmp_path_factory.mktemp("loop"))
+    four = run_ranks(W.jobs_rank, 4, ([
+        ("mesh_train_rank", (SHAPES_4, TRAIN_CASES)),
+        ("mesh_decode_rank", (SHAPES_4, DECODE_NAMES)),
+        ("elastic_save_rank", (ckpt,))],), backend="gloo",
+        timeout=GROUP_TIMEOUT)
+    two = run_ranks(W.jobs_rank, 2, ([
+        ("mesh_train_rank", (SHAPES_2, TRAIN_CASES)),
+        ("context_sdpa_rank", ((1, 2),)),
+        ("mesh_decode_rank", ([(1, 2)], DECODE_NAMES)),
+        ("elastic_restore_rank", (ckpt, (1, 2))),
+        ("train_loop_rank", ((1, 2), loop)),
+        ("moe_train_rank", ())],), backend="gloo",
+        timeout=GROUP_TIMEOUT)
+    return {2: two, 4: four, "ckpt": ckpt, "loop": loop}
+
+
+@pytest.fixture(scope="module")
+def one_process():
+    """The port's one-process runs of every train case."""
+    return {case: W.run_train(W.train_cfg(case[0]), case[1], case[2])
+            for case in TRAIN_CASES}
+
+
+def _ranks(groups, shape, case):
+    world = shape[0] * shape[1]
+    return [g["mesh_train_rank"][(shape,) + case] for g in groups[world]]
+
+
+def _assembled(ranks, pick, full_shapes, specs, shape):
+    """Each leaf whole from the ranks' pieces (``pick(rank result)`` is
+    the list of pieces in leaf order)."""
+    mesh = MeshShape(("data", "model"), shape)
+    by_coords = {tuple(r["coords"].values()): r for r in ranks}
+    return [TS.assemble(lambda c, i=i: pick(by_coords[(c["data"],
+                                                       c["model"])])[i],
+                        full_shapes[i], specs[i], mesh)
+            for i in range(len(full_shapes))]
+
+
+def _leaf_specs(cfg, shape, optimizer):
+    mesh = MeshShape(("data", "model"), shape)
+    specs = T.state_specs(cfg, mesh, optimizer=optimizer,
+                          lr=W.TRAIN_LR)
+    return T.spec_leaves(specs["params"], TLM.abstract_params(cfg))
+
+
+ALL_SHAPES = SHAPES_2 + SHAPES_4
+_SECOND = {}
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+    return T.tree_map(lambda _: next(it), like)
+
+
+def _references(groups, one_process, shape, case):
+    """What each meshed step is held to: step 1, the one-process step 1
+    from the same initial state; step 2, the one-process step 2 from the
+    meshed run's own state after step 1 (assembled), so that each step is
+    compared on the same inputs.  Returns [(loss, grad norm, params,
+    {opt key: leaves}) of step 1, of step 2]."""
+    key = (shape, case)
+    if key not in _SECOND:
+        cfg = W.train_cfg(case[0])
+        specs = _leaf_specs(cfg, shape, case[1])
+        first = one_process[case]["steps"][0]
+        ranks = _ranks(groups, shape, case)
+
+        def whole(pick, like):
+            return _assembled(ranks, pick, [x.shape for x in like], specs,
+                              shape)
+
+        params = TLM.init_params(cfg, seed=0, device="cpu")
+        state = {"params": _unflatten(params, whole(
+            lambda r: r["steps"][0]["params"], first["params"])),
+            "step": torch.ones((), dtype=torch.int32)}
+        kw = {"momentum": 0.9} if case[1] == "sgd" else {}
+        from repro_torch.optim.functional import make_optimizer
+        opt = make_optimizer(case[1], lr=W.TRAIN_LR, **kw)[0](params)
+        for k, leaves in first["opt"].items():
+            opt[k] = _unflatten(opt[k], whole(
+                lambda r, k=k: r["steps"][0]["opt"][k], leaves))
+        if "step" in opt:
+            opt["step"] = torch.ones((), dtype=torch.int32)
+        state["opt"] = opt
+        step = T.make_train_step(cfg, optimizer=case[1], lr=W.TRAIN_LR,
+                                 accum_steps=case[2], opt_kwargs=kw,
+                                 device="cpu")
+        state, m = step(state, W.train_batches(cfg)[1])
+        second = {"loss": float(m["loss"]),
+                  "grad_norm": float(m["grad_norm"]),
+                  "params": tree_leaves(state["params"]),
+                  "opt": {k: tree_leaves(v) for k, v in state["opt"].items()
+                          if k != "step"}}
+        _SECOND[key] = [first, second]
+    return _SECOND[key]
+
+
+CASE_IDS = dict(ids=lambda c: "-".join(map(str, c)))
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+def test_loss_and_grad_norm(groups, one_process, shape, case):
+    want = _references(groups, one_process, shape, case)
+    for r in _ranks(groups, shape, case):
+        for got, ref in zip(r["steps"], want):
+            assert got["loss"] == pytest.approx(ref["loss"], rel=1e-6)
+            assert got["grad_norm"] == pytest.approx(ref["grad_norm"],
+                                                     rel=1e-6)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+def test_assembled_gradients(groups, one_process, shape, case):
+    cfg = W.train_cfg(case[0])
+    ref = one_process[case]["grads"]
+    specs = _leaf_specs(cfg, shape, case[1])
+    got = _assembled(_ranks(groups, shape, case), lambda r: r["grads"],
+                     [g.shape for g in ref], specs, shape)
+    for g, w in zip(got, ref):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+def test_optimizer_state(groups, one_process, shape, case):
+    """SGD's momentum within 1e-5 of its largest; AdamW's m and v within
+    1e-5 relative (of each leaf's largest), after each step."""
+    cfg = W.train_cfg(case[0])
+    specs = _leaf_specs(cfg, shape, case[1])
+    refs = _references(groups, one_process, shape, case)
+    for i, ref in enumerate(refs):
+        for key, leaves in ref["opt"].items():
+            got = _assembled(_ranks(groups, shape, case),
+                             lambda r: r["steps"][i]["opt"][key],
+                             [x.shape for x in leaves], specs, shape)
+            for g, w in zip(got, leaves):
+                assert (g - w).abs().max() <= 1e-5 * w.abs().max(), key
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+def test_parameters(groups, one_process, shape, case):
+    """The parameters after each step.  SGD's within 1e-5 of each leaf's
+    largest.  AdamW moves an element by lr * m_hat / (sqrt(v_hat) +
+    eps): at step 1 that is lr * g / (|g| + eps), so an element whose
+    gradient is near eps = 1e-8 (or whose sign the two reductions'
+    rounding flips) moves by anything up to 2 lr more or less than in
+    the other run, while the gradients agree to 1e-6 of their largest.
+    So an element may differ by up to 2 lr, and all but 1 in 100 of a
+    leaf's elements (or all but one, in a leaf of under 100) by 1e-5 of
+    its largest."""
+    cfg = W.train_cfg(case[0])
+    specs = _leaf_specs(cfg, shape, case[1])
+    for i, ref in enumerate(_references(groups, one_process, shape, case)):
+        got = _assembled(_ranks(groups, shape, case),
+                         lambda r: r["steps"][i]["params"],
+                         [x.shape for x in ref["params"]], specs, shape)
+        for g, w in zip(got, ref["params"]):
+            _assert_params_close(g, w, adamw=case[1] == "adamw")
+
+
+def _assert_params_close(got, want, adamw: bool):
+    """``test_parameters``'s rule for one leaf after one step."""
+    err = (got - want).abs()
+    tight = 1e-5 * max(want.abs().max().item(), 1e-30)
+    if not adamw:
+        assert err.max() <= tight
+        return
+    assert err.max() <= 2 * W.TRAIN_LR + tight
+    assert int((err > tight).sum()) <= max(1, err.numel() // 100)
+
+
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+def test_ranks_of_a_model_group_agree(groups, shape):
+    """A leaf ``model`` does not split is the same on every rank of its
+    model group after two steps (the replicas stay in step)."""
+    case = ("gemma", "adamw", 1)
+    cfg = W.train_cfg("gemma")
+    specs = _leaf_specs(cfg, shape, "adamw")
+    ranks = _ranks(groups, shape, case)
+    for i, spec in enumerate(specs):
+        if "model" in [e for e in spec]:
+            continue
+        for a in ranks:
+            for b in ranks:
+                if a["coords"]["data"] == b["coords"]["data"]:
+                    assert torch.equal(a["steps"][1]["params"][i],
+                                       b["steps"][1]["params"][i])
+
+
+# ----------------------------------------------------------------------
+# context-parallel attention
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,window", W.CONTEXT_CASES)
+def test_context_sdpa_matches_reference(groups, causal, window):
+    q, k, v, w = W.context_inputs()
+    ranks = [g["context_sdpa_rank"][(causal, window)] for g in groups[2]]
+    got = torch.cat([r["out"] for r in ranks], dim=2)
+    mask = None
+    s = q.shape[2]
+    if window is not None:
+        qp, kp = np.arange(s)[:, None], np.arange(s)[None, :]
+        mask = jnp.asarray((kp > qp - window)[None, None])
+    ref = JA.sdpa_ref(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                      mask=mask, is_causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window", W.CONTEXT_CASES)
+def test_context_sdpa_gradients(groups, causal, window):
+    q, k, v, w = (x.clone() for x in W.context_inputs())
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    (TA.sdpa(q, k, v, is_causal=causal, window=window) * w).sum().backward()
+    ranks = [g["context_sdpa_rank"][(causal, window)] for g in groups[2]]
+    for name, full in (("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
+        got = torch.cat([r[name] for r in ranks], dim=2)
+        assert (got - full).abs().max() <= 1e-5 * full.abs().max(), name
+
+
+# ----------------------------------------------------------------------
+# meshed prefill and serve steps
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", DECODE_NAMES)
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_meshed_greedy_decode(groups, shape, name):
+    cfg = W.train_cfg(name)
+    params = TLM.init_params(cfg, seed=0, device="cpu")
+    first, toks, _ = W.greedy_run(cfg, params)
+    world = shape[0] * shape[1]
+    for g in groups[world]:
+        got_first, got, merges = g["mesh_decode_rank"][(shape, name)]
+        assert torch.equal(got_first, first)
+        assert torch.equal(got, toks)
+        # one KV head over model = 2: the cache's slots are split and
+        # every layer of every step merges the ranks' partials
+        split = cfg.n_kv_heads % shape[1] != 0
+        assert (merges > 0) == split
+        if split:
+            assert merges == cfg.n_layers * (W.DECODE_PROMPT
+                                             + W.DECODE_STEPS - 1)
+
+
+# ----------------------------------------------------------------------
+# elastic restore
+# ----------------------------------------------------------------------
+
+def test_elastic_restore_onto_another_mesh(groups):
+    """Step 2 after a restore onto (1,2) equals the uninterrupted (2,2)
+    run's step 2 (the loss within 1e-6 relative, the parameters by
+    ``test_parameters``'s AdamW rule: the two meshes reduce in different
+    orders)."""
+    saved = groups[4][0]["elastic_save_rank"]
+    for r in groups[2]:
+        got = r["elastic_restore_rank"]
+        assert got["step"] == 2
+        assert got["loss"] == pytest.approx(saved["loss"], rel=1e-6)
+        for x, y in zip(tree_leaves(got["params"]),
+                        tree_leaves(saved["params"])):
+            _assert_params_close(x, y, adamw=True)
+
+
+def test_elastic_restore_hands_back_the_saved_state(groups):
+    """The state restored onto (1,2) and onto no mesh, every leaf of the
+    parameters and of both AdamW moments, equals the (2,2) state that was
+    saved, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    saved = groups[4][0]["elastic_save_rank"]["saved"]
+    cfg = W.train_cfg(W.ELASTIC_CFG)
+    like = T.init_train_state(cfg, lr=W.TRAIN_LR, device="cpu")
+    runs = [r["elastic_restore_rank"]["restored"] for r in groups[2]]
+    runs.append(CheckpointManager(groups["ckpt"]).restore(1, like))
+    for got in runs:
+        assert int(got["step"]) == int(saved["step"]) == 1
+        for part in ("params", "opt"):
+            want = tree_leaves(saved[part])
+            have = tree_leaves(got[part])
+            assert len(have) == len(want)
+            for x, y in zip(have, want):
+                assert x.dtype == y.dtype and torch.equal(x, y), part
+
+
+def test_elastic_restore_onto_no_mesh(groups):
+    from repro_torch.checkpoint import CheckpointManager
+    saved = groups[4][0]["elastic_save_rank"]
+    cfg = W.train_cfg(W.ELASTIC_CFG)
+    like = T.init_train_state(cfg, lr=W.TRAIN_LR, device="cpu")
+    state = CheckpointManager(groups["ckpt"]).restore(1, like)
+    step = T.make_train_step(cfg, lr=W.TRAIN_LR, device="cpu")
+    state, m = step(state, W.train_batches(cfg)[1])
+    assert float(m["loss"]) == pytest.approx(saved["loss"], rel=1e-6)
+    for x, y in zip(tree_leaves(state["params"]),
+                    tree_leaves(saved["params"])):
+        _assert_params_close(x, y, adamw=True)
+
+
+# ----------------------------------------------------------------------
+# what the meshed steps refuse
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b",
+                                  "rwkv6-1.6b"])
+def test_moe_mamba_rwkv_refuse_a_model_axis(arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.act_sharding import MeshTrainingError
+    cfg = get_smoke_config(arch)
+    with pytest.raises(MeshTrainingError, match="A7c"):
+        T.check_mesh(cfg, MeshShape(("data", "model"), (1, 2)))
+    T.check_mesh(cfg, MeshShape(("data", "model"), (2, 1)))
+
+
+def test_mla_decode_refuses_a_model_axis():
+    """MLA trains on a model axis > 1 (whole on every rank) but its
+    meshed decode is refused before a step runs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.act_sharding import MeshTrainingError
+    cfg = get_smoke_config("minicpm3-4b")
+    mesh = MeshShape(("data", "model"), (1, 2))
+    T.check_mesh(cfg, mesh)
+    with pytest.raises(MeshTrainingError, match="A7c"):
+        T.check_mesh(cfg, mesh, decode=True)
+    T.check_mesh(cfg, MeshShape(("data", "model"), (2, 1)), decode=True)
+
+
+def test_train_loop_on_a_mesh_resumes_without_one(groups, tmp_path):
+    """``train_loop(mesh=(1,2))`` gives the one-process loop's losses
+    (1e-6 relative) and its final checkpoint (the whole state, written
+    by the first rank) resumes a one-process loop at that step."""
+    from repro_torch.launch.train import train_loop
+    cfg = W.train_cfg("tiny")
+    kw = dict(batch_size=4, seq_len=16, log_every=100, device="cpu")
+    want = train_loop(cfg, steps=W.LOOP_STEPS, **kw)
+    for g in groups[2]:
+        got = g["train_loop_rank"]
+        assert got["steps"] == W.LOOP_STEPS
+        assert got["losses"] == pytest.approx(want["losses"], rel=1e-6)
+    resumed = train_loop(cfg, steps=W.LOOP_STEPS + 1,
+                         checkpoint_dir=groups["loop"], **kw)
+    assert resumed["steps"] == 1 and np.isfinite(resumed["final_loss"])
+
+
+def test_moe_data_parallel_step(groups):
+    """qwen2-moe's SMOKE on (2,1): each data rank routes its own rows as
+    one group (the reference's groups per data shard) and the balance
+    loss takes its means over both ranks' groups, as the one-process
+    step with two groups of the same rows does: loss and grad norm within
+    1e-6 relative, the gradients within 1e-5 of each leaf's largest."""
+    from repro_torch.configs import get_smoke_config
+    want = W.moe_train()
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    specs = _leaf_specs(cfg, (2, 1), "adamw")
+    ranks = [g["moe_train_rank"] for g in groups[2]]
+    got = _assembled(ranks, lambda r: r["grads"],
+                     [g.shape for g in want["grads"]], specs, (2, 1))
+    for g, w in zip(got, want["grads"]):
+        assert (g - w).abs().max() <= 1e-5 * max(w.abs().max(), 1e-30)
+    for r in ranks:
+        assert r["steps"][0]["loss"] == pytest.approx(
+            want["steps"][0]["loss"], rel=1e-6)
+        assert r["steps"][0]["grad_norm"] == pytest.approx(
+            want["steps"][0]["grad_norm"], rel=1e-6)

@@ -223,6 +223,283 @@ def pipeline_rank(rank, world, width, batch, n_micro, device):
 
 
 
+# ----------------------------------------------------------------------
+# meshed training and step builders
+# ----------------------------------------------------------------------
+
+TRAIN_BATCH = (4, 16)          # global (batch, sequence) of a train step
+TRAIN_LR = 1e-2
+
+
+def train_cfg(name: str):
+    """The meshed-training configs: ``tiny`` (4 heads, 2 KV heads, which
+    split over model = 2), ``gemma`` (gemma-2b's SMOKE: 4 heads, 1 KV
+    head, GeGLU, tied embeddings), ``gemma3`` (gemma3-1b's SMOKE: 1 KV
+    head, sliding layers whose decode ring of 8 slots splits over
+    model = 2) and ``odd`` (3 heads: the context-parallel attention at
+    model = 2), all fp32."""
+    from repro_torch.configs import gemma3_1b, gemma_2b
+    from repro_torch.models.lm import LMConfig
+    if name == "gemma":
+        return gemma_2b.SMOKE
+    if name == "gemma3":
+        return gemma3_1b.SMOKE
+    heads = {"tiny": (4, 2), "odd": (3, 3)}[name]
+    return LMConfig(name=name, n_layers=2, d_model=48 if name == "odd"
+                    else 64, n_heads=heads[0], n_kv_heads=heads[1],
+                    head_dim=16, d_ff=128, vocab_size=96,
+                    param_dtype=torch.float32, remat="none")
+
+
+MOE_GROUP_TOKENS = "32"     # the global 4 x 16 batch: a group a data rank
+
+
+def moe_train(mesh=None):
+    """``run_train`` of qwen2-moe's SMOKE config (AdamW), its MoE groups
+    ``MOE_GROUP_TOKENS`` tokens: on (2,1) each rank's rows are one group,
+    as the one-process run's two groups."""
+    import os
+    from repro_torch.configs import get_smoke_config
+    old = os.environ.get("REPRO_MOE_GROUP_TOKENS")
+    os.environ["REPRO_MOE_GROUP_TOKENS"] = MOE_GROUP_TOKENS
+    try:
+        return run_train(get_smoke_config("qwen2-moe-a2.7b"), "adamw", 1,
+                         mesh)
+    finally:
+        if old is None:
+            del os.environ["REPRO_MOE_GROUP_TOKENS"]
+        else:
+            os.environ["REPRO_MOE_GROUP_TOKENS"] = old
+
+
+def moe_train_rank(rank, world):
+    from repro_torch.launch.mesh import make_mesh
+    return moe_train(make_mesh((2, 1), ("data", "model")))
+
+
+def train_batches(cfg, n: int = 2, seed: int = 11):
+    gen = torch.Generator().manual_seed(seed)
+    b, s = TRAIN_BATCH
+    out = []
+    for _ in range(n):
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        mask = (torch.rand(b, s, generator=gen) > 0.2).float()
+        out.append({"tokens": tokens, "labels": labels, "mask": mask})
+    return out
+
+
+def run_train(cfg, optimizer, accum, mesh=None, device="cpu"):
+    """Two steps of ``optimizer`` from seed-0 parameters: the first
+    step's gradients, each step's loss, grad norm, parameters and
+    optimizer state (the rank's pieces on a mesh), and the coordinates."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import coords
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.functional import tree_leaves
+    kw = {"momentum": 0.9} if optimizer == "sgd" else {}
+    params = LM.init_params(cfg, seed=0, device=device)
+    state = T.init_train_state(cfg, optimizer=optimizer, lr=TRAIN_LR,
+                               device=device, mesh=mesh, params=params)
+    if kw:
+        from repro_torch.optim.functional import make_optimizer
+        state["opt"] = make_optimizer(optimizer, lr=TRAIN_LR, **kw)[0](
+            state["params"])
+    step = T.make_train_step(cfg, optimizer=optimizer, lr=TRAIN_LR,
+                             accum_steps=accum, opt_kwargs=kw,
+                             device=device, mesh=mesh)
+    batches = train_batches(cfg)
+    _, grads = step.compute(state["params"], batches[0])
+    out = {"grads": [g.cpu() for g in grads], "steps": [],
+           "coords": None if mesh is None else dict(coords(mesh))}
+    for batch in batches:
+        state, m = step(state, batch)
+        out["steps"].append({
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": [p.cpu().clone() for p in tree_leaves(
+                state["params"])],
+            "opt": {k: [x.cpu().clone() for x in tree_leaves(v)]
+                    for k, v in state["opt"].items() if k != "step"}})
+    return out
+
+
+def mesh_train_rank(rank, world, shapes, cases, device="cpu"):
+    """``run_train`` on each mesh of ``shapes`` for each (config,
+    optimizer, accum_steps) of ``cases``."""
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for name, optimizer, accum in cases:
+            res[(tuple(shape), name, optimizer, accum)] = run_train(
+                train_cfg(name), optimizer, accum, mesh, device)
+    return res
+
+
+CONTEXT_SHAPE = (2, 4, 2, 16, 16)    # B, Hq, Hkv, S, D
+CONTEXT_CASES = ((True, None), (True, 5), (False, None))  # causal, window
+
+
+def context_inputs(seed: int = 21):
+    """q, k, v over the whole sequence and the weights of the loss
+    ``sum(out * w)`` whose gradients the tests compare."""
+    b, hq, hkv, s, d = CONTEXT_SHAPE
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, hq, s, d, generator=gen)
+    k = torch.randn(b, hkv, s, d, generator=gen)
+    v = torch.randn(b, hkv, s, d, generator=gen)
+    w = torch.randn(b, hq, s, d, generator=gen)
+    return q, k, v, w
+
+
+def context_sdpa_rank(rank, world, shape):
+    """``context_sdpa`` on this rank's sequence pieces of q/k/v (mesh
+    ``shape``, the sequence over ``model``) for each case of
+    ``CONTEXT_CASES``: the output piece and the gradients of the pieces."""
+    from repro_torch.distributed import act_sharding as AS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import context_sdpa
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    n, r = shape[1], mesh.get_local_rank("model")
+    full = context_inputs()
+    s_loc = full[0].shape[2] // n
+    res = {}
+    for causal, window in CONTEXT_CASES:
+        q, k, v, w = (x[:, :, r * s_loc:(r + 1) * s_loc].clone()
+                      for x in full)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        with AS.scope(mesh):
+            out = context_sdpa(q, k, v, None, causal, window)
+            (out * w).sum().backward()
+        res[(causal, window)] = {"out": out.detach(), "dq": q.grad,
+                                 "dk": k.grad, "dv": v.grad}
+    return res
+
+
+DECODE_PROMPT, DECODE_STEPS, DECODE_ROWS = 8, 6, 4
+
+
+def decode_prompts(cfg, seed: int = 31):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (DECODE_ROWS, DECODE_PROMPT),
+                         generator=gen)
+
+
+def greedy_run(cfg, params, mesh=None, device="cpu", dtype=torch.float32):
+    """The meshed (or one-process) prefill's greedy token after the
+    prompt, then the prompt fed through the serve step one token a step
+    and ``DECODE_STEPS`` greedy tokens: (the prefill's tokens, the
+    decode's, the serve step's log-sum-exp merges)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm as LM
+    prompts = decode_prompts(cfg).to(device)
+    max_seq = DECODE_PROMPT + DECODE_STEPS
+    prefill = T.make_prefill_step(cfg, device=device, mesh=mesh)
+    serve = T.make_serve_step(cfg, batch=DECODE_ROWS, max_seq=max_seq,
+                              cache_dtype=dtype, device=device, mesh=mesh)
+    cache = LM.init_cache(cfg, DECODE_ROWS, max_seq, dtype, device)
+    if mesh is not None:
+        cache = T.shard_tree(mesh, S.cache_specs(cfg, cache, mesh), cache)
+    first = T.greedy_tokens(prefill(params, {"tokens": prompts})[:, -1],
+                            mesh, cfg.vocab_size)
+    for t in range(DECODE_PROMPT):
+        logits, _ = serve(params, cache, prompts[:, t:t + 1], t)
+    out = [T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size)]
+    for i in range(DECODE_STEPS - 1):
+        logits, _ = serve(params, cache, out[-1][:, None],
+                          DECODE_PROMPT + i)
+        out.append(T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size))
+    return (first.cpu(), torch.stack(out, 1).cpu(),
+            getattr(serve, "lse_merges", 0))
+
+
+def mesh_decode_rank(rank, world, shapes, names):
+    """``greedy_run`` on each mesh of ``shapes`` for each config."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import shard_tree
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import lm as LM
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for name in names:
+            cfg = train_cfg(name)
+            full = LM.init_params(cfg, seed=0, device="cpu")
+            params = shard_tree(mesh, S.param_specs(cfg, full, mesh), full)
+            res[(tuple(shape), name)] = greedy_run(cfg, params, mesh)
+    return res
+
+
+ELASTIC_CFG = "gemma"
+
+
+def _copy(tree):
+    """A copy of every leaf (the step updates a state in place, and a
+    leaf no axis splits gathers to itself)."""
+    from repro_torch.optim.functional import tree_map
+    return tree_map(lambda x: x.clone(), tree)
+
+
+def elastic_save_rank(rank, world, directory):
+    """(2,2): step 1, a save, step 2; the step-2 loss and the whole
+    parameters after it (assembled on every rank)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg = train_cfg(ELASTIC_CFG)
+    specs = T.state_specs(cfg, mesh, lr=TRAIN_LR)
+    state = T.init_train_state(cfg, lr=TRAIN_LR, device="cpu", mesh=mesh,
+                               params=LM.init_params(cfg, device="cpu"))
+    step = T.make_train_step(cfg, lr=TRAIN_LR, device="cpu", mesh=mesh)
+    b1, b2 = train_batches(cfg)
+    state, _ = step(state, b1)
+    CheckpointManager(directory).save(state, 1, mesh, specs)
+    saved = _copy(gather_tree(mesh, specs, state))
+    state, m = step(state, b2)
+    return {"loss": float(m["loss"]), "saved": saved,
+            "params": gather_tree(mesh, specs["params"], state["params"])}
+
+
+def elastic_restore_rank(rank, world, directory, shape):
+    """Restore step 1 onto ``shape``, then step 2: the restored state
+    (assembled), and the step's loss and the whole parameters after
+    it."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    cfg = train_cfg(ELASTIC_CFG)
+    specs = T.state_specs(cfg, mesh, lr=TRAIN_LR)
+    like = T.init_train_state(cfg, lr=TRAIN_LR, device="cpu", mesh=mesh)
+    state = CheckpointManager(directory).restore(1, like, mesh, specs)
+    restored = _copy(gather_tree(mesh, specs, state))
+    step = T.make_train_step(cfg, lr=TRAIN_LR, device="cpu", mesh=mesh)
+    state, m = step(state, train_batches(cfg)[1])
+    return {"loss": float(m["loss"]), "step": int(state["step"]),
+            "restored": restored,
+            "params": gather_tree(mesh, specs["params"], state["params"])}
+
+
+LOOP_STEPS = 3
+
+
+def train_loop_rank(rank, world, shape, directory):
+    """``train_loop`` over the meshed step on ``shape`` for LOOP_STEPS
+    steps, checkpointing into ``directory``: its result."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    return train_loop(train_cfg("tiny"), steps=LOOP_STEPS, batch_size=4,
+                      seq_len=16, checkpoint_dir=directory,
+                      checkpoint_every=2, log_every=100, device="cpu",
+                      mesh=mesh)
+
+
 def jobs_rank(rank, world, jobs):
     """Several rank functions of this module in one process group, in
     order: ``jobs`` is ``[(name, args), ...]``; returns ``{name: result}``.
