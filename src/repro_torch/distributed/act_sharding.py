@@ -48,10 +48,33 @@ What each rank computes in a scope over a ``DeviceMesh`` of ``data`` and
     fallback each rank attends its slice of the queries through
     ``models.attention.context_sdpa`` (K/V all-gathered along the
     sequence); otherwise the attention runs whole on every rank;
-  * MLA runs whole on every rank in training; MoE, mamba and rwkv
-    blocks, MLA decode and ``REPRO_SEQ_SHARD=1`` need a ``model`` axis
-    of 1 (``launch.train.check_mesh`` raises :class:`MeshTrainingError`
-    for the others; ROADMAP.md queue A7c).
+  * MoE: expert parallelism where the expert slots divide ``model``
+    (each rank runs its experts on its rows of the dispatched tokens;
+    the experts' outputs are gathered whole, and the router, dispatch
+    and combine run whole on every rank), else the experts' hidden
+    width split (Megatron: ``w_down``'s partial products summed over
+    ``model``); the shared expert and a dense residual run as the dense
+    MLP does;
+  * mamba: the rank's channels of d_inner.  ``in_proj``, stored split by
+    the columns of its ``[x | z]`` output, is gathered and re-cut to the
+    rank's x and z columns; the replicated per-channel leaves
+    (``conv_w``, ``conv_b``, ``dt_bias``, ``D``, ``norm``) are sliced to
+    them; ``x_proj``'s partial product (rows) is summed over ``model``;
+    the gated RMSNorm sums its squares over ``model``; ``out_proj``
+    (rows) is reduced;
+  * rwkv: the rank's heads (``w_r``/``w_k``/``w_v``/``w_g`` by columns,
+    ``w_o`` by rows); ``bonus``, ``decay_base`` and ``ln_out`` sliced to
+    them, the decay LoRA's two small leaves gathered (the rank computes
+    its columns), ``ln_out``'s squares summed over ``model``; the
+    channel mix splits ``cm_k``/``cm_v`` as the dense MLP does and
+    gathers ``cm_r`` whole.  In decode the token-shift rows, split over
+    ``model`` by ``cache_specs``, are gathered to read and sliced to
+    write.  A mamba or rwkv layer whose channels or heads do not divide
+    ``model`` runs whole on every rank;
+  * MLA runs whole on every rank in training; MLA decode and
+    ``REPRO_SEQ_SHARD=1`` need a ``model`` axis of 1, Adafactor a mesh
+    of one rank (``launch.train.check_mesh`` raises
+    :class:`MeshTrainingError`; ROADMAP.md queue A7c).
 
 The gradient convention: a tensor a ``model`` group holds whole has the
 whole true gradient on every rank of the group; the ranks of a data
@@ -278,6 +301,21 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if model_size() == 1 else C.reduce_from(x, model_group())
 
 
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The ranks' partial ``x`` summed over ``model``, the gradient summed
+    too: a sum every rank then reads whole for its own part of the work
+    (mamba's ``x_proj`` product, a norm's sum of squares over channels
+    the ranks split)."""
+    return x if model_size() == 1 else C.reduce_both(x, model_group())
+
+
+def model_slice(n: int) -> Tuple[int, int]:
+    """[lo, hi) of this rank's equal share of ``n`` along ``model``."""
+    step = n // model_size()
+    lo = (model_rank() if model_size() > 1 else 0) * step
+    return lo, lo + step
+
+
 def context_parallel(n_heads: int, seq: int) -> bool:
     """Whether a rank attends its slice of the queries of an attention
     layer of ``n_heads`` over ``seq`` positions: :func:`spec_for` puts
@@ -377,15 +415,29 @@ class LayerPlan(NamedTuple):
     divide ``model``), ``"context"`` (decode against a cache whose slots
     are split over ``model``) or ``"whole"`` (all of it; in training the
     layer then asks :func:`context_parallel` whether it takes its slice
-    of the queries).  ``mlp_split``: the dense MLP runs split over
-    ``model`` (its hidden width divides).  ``model``: the ranks of the
-    model axis."""
+    of the queries).  ``mlp_split``: the dense MLP (an MoE block's dense
+    residual, an rwkv block's channel mix) runs split over ``model`` (its
+    hidden width divides).  ``mixer``: a mamba or rwkv layer's
+    ``"channels"`` (the rank's channels or heads) or ``"whole"``.
+    ``moe``: ``"experts"`` (the rank's experts), ``"hidden"`` (every
+    expert's hidden columns of the rank) or ``"whole"``.
+    ``shared_split``: the MoE's shared expert runs split.  ``model``: the
+    ranks of the model axis."""
     attn: str = "one"
     mlp_split: bool = False
     model: int = 1
+    mixer: str = "one"
+    moe: str = "one"
+    shared_split: bool = False
 
 
 ONE = LayerPlan()
+
+# the replicated per-channel (or per-head) leaves of a mamba or rwkv
+# layer that a rank slices to its own, and the dimension it slices
+_CHANNEL_LEAVES = {"mamba": {"conv_w": 1, "conv_b": 0, "dt_bias": 0,
+                             "D": 0, "norm": 0},
+                   "rwkv": {"decay_base": 0, "bonus": 0, "ln_out": 0}}
 
 
 def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
@@ -408,14 +460,39 @@ def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
             attn = {1: "heads", 2: "context"}.get(d, "whole")
         elif cfg.n_heads % tp == 0:
             attn = "heads"
+
+    def split(path: str) -> Optional[int]:
+        """The dimension ``model`` splits of the leaf at ``path`` (None:
+        none, or no such leaf)."""
+        try:
+            return _axis_dim(_lookup(specs, path), s.model)
+        except KeyError:
+            return None
+
     if tp == 1:
         plan = ONE
     else:
-        plan = LayerPlan(attn, "mlp" in specs and _axis_dim(
-            specs["mlp"]["w_up"], s.model) is not None, tp)
+        mixer = "one"
+        if spec.mixer == "mamba":
+            mixer = "channels" if split("mamba/x_proj") == 0 else "whole"
+        elif spec.mixer == "rwkv":
+            divide = (cfg.d_model // cfg.rwkv_head_dim) % tp == 0
+            mixer = ("channels" if divide and split("rwkv/w_r") == 1
+                     else "whole")
+        moe = "one"
+        if spec.ffn == "moe":
+            moe = {0: "experts", 2: "hidden"}.get(split("moe/w_up"),
+                                                  "whole")
+        mlp_split = (split("rwkv/cm_k") == 1 and mixer == "channels"
+                     if spec.mixer == "rwkv" else split("mlp/w_up") == 1)
+        plan = LayerPlan(attn, mlp_split, tp, mixer, moe,
+                         split("moe/shared/w_up") == 1)
     heads = attn == "heads"
+    group = s.groups[s.model] if s.model else None
 
     def leaf(block: str, name: str, x, sp):
+        if block in ("mamba", "rwkv"):
+            return mixer_leaf(block, name, x, sp)
         if block != "attn":
             return _use(x, sp, s, True, False)
         if not heads:                  # every rank the whole attention
@@ -426,10 +503,30 @@ def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
             return _use(x, sp, s, kv_local, not kv_local)
         if name == "bq" or (name in ("bk", "bv") and kv_local):
             x = _use(x, sp, s, True, False)
-            return C.split(x, s.groups[s.model], 0)
+            return C.split(x, group, 0)
         # bk/bv of whole K/V heads, q_norm/k_norm: whole leaves the
         # rank applies to its own heads
         return _use(x, sp, s, True, True)
+
+    def mixer_leaf(block: str, name: str, x, sp):
+        if plan.mixer != "channels":   # every rank the whole layer
+            return _use(x, sp, s, False, False)
+        dim = _CHANNEL_LEAVES[block].get(name)
+        if dim is not None:            # the rank's channels or heads
+            return C.split(_use(x, sp, s, True, False), group, dim)
+        if name == "in_proj" or name == "decay_a":
+            # used whole for the rank's own channels: gradient summed
+            return _use(x, sp, s, False, True)
+        if name == "decay_b":
+            # whole, then the rank's columns (its channels' decays)
+            return C.split(_use(x, sp, s, False, False), group, 1)
+        if name == "cm_r":             # every rank the whole gate
+            return _use(x, sp, s, False, False)
+        if name.startswith("mu_"):
+            # the time mix's token-shift mixes feed the rank's own
+            # heads: gradient summed
+            return _use(x, sp, s, True, True)
+        return _use(x, sp, s, True, False)
 
     def walk(block: str, name: str, x, sp):
         if isinstance(x, dict):        # a block, or the MoE's shared MLP

@@ -401,6 +401,14 @@ def local_shard(x: torch.Tensor, spec, mesh, coords: Mapping[str, int]
     return x
 
 
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's piece of a tensor of ``shape`` under
+    ``spec``."""
+    sizes = axis_sizes(mesh)
+    return tuple(n // math.prod(sizes[a] for a in _axes(e))
+                 for n, e in zip(shape, spec))
+
+
 def all_coords(mesh):
     """Every mesh position as an axis -> coordinate dict, row-major."""
     sizes = axis_sizes(mesh)

@@ -163,6 +163,28 @@ def shard_tree(mesh, spec_tree, tree):
             memory_format=torch.contiguous_format), tree, spec_tree)
 
 
+def init_pieces(cfg: LM.LMConfig, mesh, *, seed: int = 0, device=None,
+                here=None) -> LM.Params:
+    """This rank's pieces of ``lm.init_params(cfg, seed)`` on ``mesh``,
+    equal to :func:`shard_tree` of the whole tree bit for bit, made
+    without it: each leaf is drawn whole from the same seed stream, cut
+    to the piece (a copy of its own) and dropped before the next is
+    drawn, so the rank holds its pieces and one whole leaf at most (the
+    counterpart of the reference's ``jax.jit(init, out_shardings=...)``).
+    ``here``: the coordinates of the pieces (default the rank's on a
+    ``DeviceMesh``; a ``MeshShape`` needs them)."""
+    here = coords(mesh) if here is None else here
+    rules = S.AxisRules.for_mesh(mesh)
+
+    def cut(path: str, leaf: torch.Tensor) -> torch.Tensor:
+        spec = S.param_spec(path, leaf, cfg, mesh, rules)
+        piece = S.local_shard(leaf, spec, mesh, here)
+        return leaf if piece.shape == leaf.shape else piece.clone(
+            memory_format=torch.contiguous_format)
+
+    return LM.init_params(cfg, seed=seed, device=device, cut=cut)
+
+
 def spec_leaves(spec_tree, params) -> list:
     """The specs of ``params``'s leaves, in ``tree_leaves`` order."""
     return _leaves_like(spec_tree, params)
@@ -186,24 +208,20 @@ def state_specs(cfg: LM.LMConfig, mesh, *, optimizer: str = "adamw",
 def check_mesh(cfg: LM.LMConfig, mesh, optimizer: Optional[str] = None,
                decode: bool = False) -> None:
     """Raise :class:`~repro_torch.distributed.act_sharding.
-    MeshTrainingError` for what the meshed steps do not run yet: MoE,
-    mamba and rwkv blocks, MLA in a ``decode`` step, and
-    ``REPRO_SEQ_SHARD=1``, on a model axis of more than one rank, and
-    Adafactor (whose factored statistics reduce across the shards of a
-    leaf) on any mesh that splits a leaf.  The meshed layers rely on
-    this check: they do not repeat it."""
+    MeshTrainingError` for what the meshed steps do not run yet: MLA in
+    a ``decode`` step and ``REPRO_SEQ_SHARD=1`` on a model axis of more
+    than one rank, and Adafactor (whose factored statistics reduce
+    across the shards of a leaf) on any mesh that splits a leaf.  MoE,
+    mamba and rwkv blocks run on any mesh (``distributed/
+    act_sharding.py``).  The meshed layers rely on this check: they do
+    not repeat it."""
     tp = axis_sizes(mesh).get("model", 1)
     if tp > 1:
-        for spec in cfg.layer_specs():
-            if spec.mixer in ("mamba", "rwkv") or spec.ffn == "moe":
-                raise MeshTrainingError(
-                    f"{cfg.name}: {spec.mixer}/{spec.ffn} blocks run on a "
-                    f"mesh whose model axis is 1 (this one has {tp}; "
-                    f"ROADMAP.md queue A7c)")
-            if decode and spec.mixer == "mla":
-                raise MeshTrainingError(
-                    f"{cfg.name}: MLA decode on a mesh whose model axis "
-                    f"is {tp} (ROADMAP.md queue A7c)")
+        if decode and any(spec.mixer == "mla"
+                          for spec in cfg.layer_specs()):
+            raise MeshTrainingError(
+                f"{cfg.name}: MLA decode on a mesh whose model axis "
+                f"is {tp} (ROADMAP.md queue A7c)")
         if os.environ.get("REPRO_SEQ_SHARD") == "1":
             raise MeshTrainingError(
                 "REPRO_SEQ_SHARD=1 (a sequence-sharded residual stream) "
@@ -360,13 +378,17 @@ def init_train_state(cfg: LM.LMConfig, *, optimizer: str = "adamw",
     ``device`` (or ``params``, full tensors, when given), the optimizer's
     ``init`` of them (both packages start the optimizer from
     ``init_opt(params)``) and an int32 step of 0.  With ``mesh``, the
-    parameters are this rank's pieces (:func:`shard_tree` of the full
-    ones, which are then freed) and the optimizer starts from them: the
-    pieces of the one-process state."""
+    parameters are this rank's pieces and the optimizer starts from
+    them: the pieces of the one-process state.  Made here, they are cut
+    leaf by leaf as they are drawn (:func:`init_pieces`: a rank holds its
+    pieces and one whole leaf at most); given, they are
+    :func:`shard_tree` of the full ones, which can then be freed."""
     dev = resolve_device(device)
     if params is None:
-        params = LM.init_params(cfg, seed=seed, device=dev)
-    if mesh is not None:
+        params = (LM.init_params(cfg, seed=seed, device=dev)
+                  if mesh is None else init_pieces(cfg, mesh, seed=seed,
+                                                   device=dev))
+    elif mesh is not None:
         params = shard_tree(mesh, S.param_specs(cfg, params, mesh), params)
     init_opt, _ = make_optimizer(optimizer, lr=lr)
     return {"params": params, "opt": init_opt(params),
@@ -471,7 +493,7 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
             cfg, LM.abstract_cache(cfg, batch, max_seq, cache_dtype), mesh)
         here = coords(mesh)
         held: Dict = {}
-        layout = [{n: (_local_shape(shape, c_specs[i][n], mesh), dt)
+        layout = [{n: (S.local_shape(shape, c_specs[i][n], mesh), dt)
                    for n, (shape, dt) in entry.items()}
                   for i, entry in enumerate(layout)]
     probes = [i for i, entry in enumerate(layout)
@@ -513,12 +535,6 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
 
     serve_step.lse_merges = 0
     return serve_step
-
-
-def _local_shape(shape, spec, mesh) -> tuple:
-    sizes = axis_sizes(mesh)
-    return tuple(n // math.prod(sizes[a] for a in _spec_axes((e,)))
-                 for n, e in zip(shape, spec))
 
 
 # ----------------------------------------------------------------------

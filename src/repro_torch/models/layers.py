@@ -6,10 +6,11 @@ Mamba mixer and the RWKV-6 block.  Layouts are the
 reference's: linear weights are stored ``(in, out)`` and applied as
 ``x @ W``; norm weights and statistics are fp32.
 
-Under a mesh scope (``distributed/act_sharding.py``) the attention layer
-and the dense MLP run the rank's part of a tensor-parallel layer on the
-leaves ``act_sharding.use_params`` prepared, as the layer plan it
-returned says, and call ``constrain`` where the reference does.
+Under a mesh scope (``distributed/act_sharding.py``) every layer runs the
+rank's part of it (attention heads, MLP columns, experts or their hidden
+columns, mamba channels, rwkv heads) on the leaves
+``act_sharding.use_params`` prepared, as the layer plan it returned
+says, and calls ``constrain`` where the reference does.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +33,17 @@ Params = Dict[str, torch.Tensor]
 # ----------------------------------------------------------------------
 # init helpers (explicit generator and device)
 # ----------------------------------------------------------------------
+
+# Each block's init passes every leaf through ``keep(name, leaf)`` as
+# soon as it is drawn, before the next is drawn: ``lm.init_params`` cuts a
+# rank's piece there (``launch.train.init_pieces``).
+Keep = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def whole(name: str, leaf: torch.Tensor) -> torch.Tensor:
+    """The ``keep`` that keeps every leaf whole."""
+    return leaf
+
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
@@ -50,27 +62,32 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype,
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int,
               n_kv_heads: int, head_dim: int, dtype, device,
-              qkv_bias: bool = False) -> Params:
+              qkv_bias: bool = False, keep: Keep = whole) -> Params:
+    def dense(name, i, o):
+        return keep(name, dense_init(gen, i, o, dtype, device))
+
     p = {
-        "wq": dense_init(gen, d_model, n_heads * head_dim, dtype, device),
-        "wk": dense_init(gen, d_model, n_kv_heads * head_dim, dtype, device),
-        "wv": dense_init(gen, d_model, n_kv_heads * head_dim, dtype, device),
-        "wo": dense_init(gen, n_heads * head_dim, d_model, dtype, device),
+        "wq": dense("wq", d_model, n_heads * head_dim),
+        "wk": dense("wk", d_model, n_kv_heads * head_dim),
+        "wv": dense("wv", d_model, n_kv_heads * head_dim),
+        "wo": dense("wo", n_heads * head_dim, d_model),
     }
     if qkv_bias:
         for name, width in (("bq", n_heads), ("bk", n_kv_heads),
                             ("bv", n_kv_heads)):
-            p[name] = torch.zeros(width * head_dim, dtype=dtype,
-                                  device=device)
+            p[name] = keep(name, torch.zeros(width * head_dim, dtype=dtype,
+                                             device=device))
     return p
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
-             gated: bool = True) -> Params:
-    p = {"w_up": dense_init(gen, d_model, d_ff, dtype, device),
-         "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
+             gated: bool = True, keep: Keep = whole) -> Params:
+    p = {"w_up": keep("w_up", dense_init(gen, d_model, d_ff, dtype, device)),
+         "w_down": keep("w_down", dense_init(gen, d_ff, d_model, dtype,
+                                             device))}
     if gated:
-        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype, device)
+        p["w_gate"] = keep("w_gate", dense_init(gen, d_model, d_ff, dtype,
+                                                device))
     return p
 
 
@@ -85,6 +102,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (offset + weight.float())).to(x.dtype)
+
+
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` of a tensor whose last dimension the ``model``
+    ranks split: ``x`` and ``weight`` are the rank's channels, and the
+    mean square is over every rank's (the squares' sum reduced over
+    ``model``, its gradient too)."""
+    x32 = x.float()
+    sq = AS.sum_over_model(x32.square().sum(dim=-1, keepdim=True))
+    y = x32 * torch.rsqrt(sq / (x.shape[-1] * AS.model_size()) + eps)
+    return (y * weight.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -287,23 +316,25 @@ def _context_decode(q, k, v, cache, cache_pos: int, cache_len, scale,
 
 def mla_init(gen: torch.Generator, d_model: int, n_heads: int, *,
              q_lora_rank: int, kv_lora_rank: int, nope_dim: int,
-             rope_dim: int, v_dim: int, dtype, device) -> Params:
+             rope_dim: int, v_dim: int, dtype, device,
+             keep: Keep = whole) -> Params:
     """The reference's shapes and per-leaf dtypes
     (``repro/models/layers.py:186-199``): the projections in ``dtype``,
     ``q_norm`` and ``kv_norm`` ones in fp32."""
-    def dense(i, o):
-        return dense_init(gen, i, o, dtype, device)
+    def dense(name, i, o):
+        return keep(name, dense_init(gen, i, o, dtype, device))
+
+    def ones(name, n):
+        return keep(name, torch.ones(n, dtype=torch.float32, device=device))
 
     return {
-        "wq_a": dense(d_model, q_lora_rank),
-        "wq_b": dense(q_lora_rank, n_heads * (nope_dim + rope_dim)),
-        "wkv_a": dense(d_model, kv_lora_rank + rope_dim),
-        "wkv_b": dense(kv_lora_rank, n_heads * (nope_dim + v_dim)),
-        "q_norm": torch.ones(q_lora_rank, dtype=torch.float32,
-                             device=device),
-        "kv_norm": torch.ones(kv_lora_rank, dtype=torch.float32,
-                              device=device),
-        "wo": dense(n_heads * v_dim, d_model),
+        "wq_a": dense("wq_a", d_model, q_lora_rank),
+        "wq_b": dense("wq_b", q_lora_rank, n_heads * (nope_dim + rope_dim)),
+        "wkv_a": dense("wkv_a", d_model, kv_lora_rank + rope_dim),
+        "wkv_b": dense("wkv_b", kv_lora_rank, n_heads * (nope_dim + v_dim)),
+        "q_norm": ones("q_norm", q_lora_rank),
+        "kv_norm": ones("kv_norm", kv_lora_rank),
+        "wo": dense("wo", n_heads * v_dim, d_model),
     }
 
 
@@ -417,7 +448,7 @@ def mlp(p: Params, x: torch.Tensor, activation: str = "silu",
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
              dtype, device, gated: bool = True, n_shared: int = 0,
              d_ff_shared: Optional[int] = None,
-             n_padded: Optional[int] = None) -> Params:
+             n_padded: Optional[int] = None, keep: Keep = whole) -> Params:
     """The reference's shapes and per-leaf dtypes
     (``repro/models/layers.py:302-326``): the router (D, E) in fp32, the
     (slots, in, out) expert weights and the shared MLP in ``dtype``.
@@ -425,21 +456,22 @@ def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
     so the fp32 draw of a whole (slots, in, out) weight is never held."""
     n_slots = n_padded or n_experts     # padded slots never receive tokens
 
-    def experts(i, o):
+    def experts(name, i, o):
         w = torch.empty((n_slots, i, o), dtype=dtype, device=device)
         for e in range(n_slots):
             w[e] = dense_init(gen, i, o, dtype, device)
-        return w
+        return keep(name, w)
 
-    p = {"router": dense_init(gen, d_model, n_experts, torch.float32,
-                              device),
-         "w_up": experts(d_model, d_ff),
-         "w_down": experts(d_ff, d_model)}
+    p = {"router": keep("router", dense_init(gen, d_model, n_experts,
+                                             torch.float32, device)),
+         "w_up": experts("w_up", d_model, d_ff),
+         "w_down": experts("w_down", d_ff, d_model)}
     if gated:
-        p["w_gate"] = experts(d_model, d_ff)
+        p["w_gate"] = experts("w_gate", d_model, d_ff)
     if n_shared:
         p["shared"] = mlp_init(gen, d_model, d_ff_shared or d_ff * n_shared,
-                               dtype, device, gated=gated)
+                               dtype, device, gated=gated,
+                               keep=lambda n, t: keep(f"shared/{n}", t))
     return p
 
 
@@ -453,7 +485,8 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
         capacity_factor: float = 1.25, activation: str = "silu",
-        n_padded: Optional[int] = None
+        n_padded: Optional[int] = None, plan: str = "one",
+        shared_split: bool = False
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard-style grouped token-choice top-k with per-group capacity
     (``repro/models/layers.py:329-420``).  Returns (output (B, S, D),
@@ -471,7 +504,18 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     are in x's dtype, router logits and probabilities in fp32.  As in the
     reference every expert runs on its (G, C) slots, so each call reads
     every expert's weights; dead padded slots (``n_padded``) are never
-    routed to."""
+    routed to.
+
+    ``plan`` (a mesh's ``LayerPlan.moe``): ``"experts"``, the rank holds
+    ``E / model`` experts and runs them on its rows of the dispatched
+    tokens, and their outputs are gathered whole along E; ``"hidden"``,
+    the rank holds every expert's share of the hidden columns, and the
+    experts' partial outputs are summed over ``model``.  Either way the
+    router, top-k, dispatch and combine run whole on every rank of a
+    model group (they hold the same tokens), so the router's gradient is
+    whole on every rank beside the aux loss's; the dispatched tokens'
+    gradient, each rank's part, is summed over ``model``.
+    ``shared_split``: the shared expert runs split as the dense MLP."""
     b, s, d = x.shape
     t = b * s
     tgt = int(os.environ.get("REPRO_MOE_GROUP_TOKENS", "1024"))
@@ -506,25 +550,40 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
     dispatch = disp.sum(2)
     combine = (disp * gate_vals[..., None, None].to(x.dtype)).sum(2)
 
+    split = plan in ("experts", "hidden")
+    e_have = 1 if plan == "experts" else None     # E split over model
+    f_have = 3 if plan == "hidden" else None      # F split over model
+    xd = AS.copy_to_model(xt) if split else xt
+    if plan == "experts":
+        lo, hi = AS.model_slice(e_slots)
+        dispatch = dispatch[:, :, lo:hi]
+    e_loc = dispatch.shape[2]
+
     # the two einsums are profiled as one range, read by chip_smoke.py
-    def constrain(t, kind):
+    def constrain(t, kind, have):
         # t is expert-major, (E, G, C, .); the reference's layout is
         # (G, E, C, .): viewed as that, constrained, viewed back
-        return AS.constrain(t.movedim(1, 0), kind,
-                            experts=e_slots).movedim(0, 1)
+        return AS.constrain(t.movedim(1, 0), kind, experts=e_slots,
+                            have=have).movedim(0, 1)
 
     with torch.profiler.record_function("moe_dispatch_combine"):
-        expert_in = constrain(torch.einsum("gtec,gtd->egcd", dispatch, xt),
-                              "gecd").reshape(e_slots, g * capacity, d)
+        expert_in = constrain(torch.einsum("gtec,gtd->egcd", dispatch, xd),
+                              "gecd", e_have).reshape(e_loc, g * capacity, d)
     up = expert_in @ p["w_up"]                                # (E, GC, F)
     if "w_gate" in p:
         h = _act(expert_in @ p["w_gate"], activation) * up
     else:
         h = _act(up, activation)
-    h = constrain(h.view(e_slots, g, capacity, -1), "gecf").reshape(
-        e_slots, g * capacity, -1)
-    expert_out = constrain((h @ p["w_down"]).reshape(e_slots, g, capacity,
-                                                     d), "gecd")
+    h = constrain(h.view(e_loc, g, capacity, -1), "gecf",
+                  e_have or f_have).reshape(e_loc, g * capacity, -1)
+    expert_out = (h @ p["w_down"]).reshape(e_loc, g, capacity, d)
+    if plan == "hidden":
+        expert_out = AS.reduce_from_model(expert_out)
+    expert_out = constrain(expert_out, "gecd", e_have)
+    if plan == "experts":
+        # every rank combines every expert's output: gathered whole, the
+        # backward takes the rank's experts' slice
+        expert_out = C.gather_whole(expert_out, AS.model_group(), 0)
     with torch.profiler.record_function("moe_dispatch_combine"):
         yt = torch.einsum("gtec,egcd->gtd", combine, expert_out)
 
@@ -544,7 +603,7 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
 
     y = yt.reshape(b, s, d)
     if "shared" in p:
-        y = y + mlp(p["shared"], x, activation)
+        y = y + mlp(p["shared"], x, activation, shared_split)
     return y, aux
 
 
@@ -555,7 +614,7 @@ def moe(p: Params, x: torch.Tensor, *, top_k: int, n_experts: int,
 
 def mamba_init(gen: torch.Generator, d_model: int, *, d_state: int = 16,
                d_conv: int = 4, expand: int = 2, dtype=torch.bfloat16,
-               device=None) -> Params:
+               device=None, keep: Keep = whole) -> Params:
     """The reference's shapes and per-leaf dtypes
     (``repro/models/layers.py:425-447``): projections, ``conv_w`` and
     ``conv_b`` in ``dtype``; ``dt_bias``, ``A_log``, ``D`` and ``norm``
@@ -565,26 +624,34 @@ def mamba_init(gen: torch.Generator, d_model: int, *, d_state: int = 16,
     f32 = dict(dtype=torch.float32, device=device)
     conv_w = torch.randn((d_conv, d_inner), generator=gen, **f32)
     dt_init = torch.rand((d_inner,), generator=gen, **f32) * 0.1
+    # a dict display evaluates in order: each leaf is kept before the
+    # next is drawn
     return {
-        "in_proj": dense_init(gen, d_model, 2 * d_inner, dtype, device),
-        "conv_w": (conv_w / math.sqrt(d_conv)).to(dtype),
-        "conv_b": torch.zeros((d_inner,), dtype=dtype, device=device),
-        "x_proj": dense_init(gen, d_inner, dt_rank + 2 * d_state, dtype,
-                             device),
-        "dt_proj": dense_init(gen, dt_rank, d_inner, dtype, device),
-        "dt_bias": torch.log(torch.expm1(dt_init.clamp(1e-3, 0.1))),
-        "A_log": torch.log(torch.arange(1, d_state + 1, **f32)).expand(
-            d_inner, d_state).contiguous(),
-        "D": torch.ones((d_inner,), **f32),
-        "out_proj": dense_init(gen, d_inner, d_model, dtype, device),
-        "norm": torch.ones((d_inner,), **f32),
+        "in_proj": keep("in_proj", dense_init(gen, d_model, 2 * d_inner,
+                                              dtype, device)),
+        "conv_w": keep("conv_w", (conv_w / math.sqrt(d_conv)).to(dtype)),
+        "conv_b": keep("conv_b", torch.zeros((d_inner,), dtype=dtype,
+                                             device=device)),
+        "x_proj": keep("x_proj", dense_init(gen, d_inner,
+                                            dt_rank + 2 * d_state, dtype,
+                                            device)),
+        "dt_proj": keep("dt_proj", dense_init(gen, dt_rank, d_inner, dtype,
+                                              device)),
+        "dt_bias": keep("dt_bias", torch.log(torch.expm1(
+            dt_init.clamp(1e-3, 0.1)))),
+        "A_log": keep("A_log", torch.log(torch.arange(
+            1, d_state + 1, **f32)).expand(d_inner, d_state).contiguous()),
+        "D": keep("D", torch.ones((d_inner,), **f32)),
+        "out_proj": keep("out_proj", dense_init(gen, d_inner, d_model,
+                                                dtype, device)),
+        "norm": keep("norm", torch.ones((d_inner,), **f32)),
     }
 
 
 def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
           d_conv: int = 4, expand: int = 2,
-          cache: Optional[Params] = None, backend: str = "auto"
-          ) -> Tuple[torch.Tensor, Optional[Params]]:
+          cache: Optional[Params] = None, backend: str = "auto",
+          plan: str = "one") -> Tuple[torch.Tensor, Optional[Params]]:
     """The Mamba mixer (``repro/models/layers.py:473-535``; pre-norm by
     the caller, which adds the residual).  x: (B, S, D).
 
@@ -596,12 +663,28 @@ def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
     slices accumulated in fp32 and rounded once, as the reference's
     einsum over the windows is (no cuDNN convolution, so no TF32 either).
     The scan is ``kernels.ops.mamba_scan`` in prefill and in decode, from
-    the cached state; ``backend`` is validated and selects nothing."""
+    the cached state; ``backend`` is validated and selects nothing.
+
+    ``plan == "channels"`` (a mesh's ``LayerPlan.mixer``): the rank runs
+    its channels of d_inner.  ``in_proj`` comes whole and the rank takes
+    its x and z columns; the per-channel leaves, ``dt_proj``, ``A_log``
+    and the cache come as the rank's channels; ``x_proj`` as its rows,
+    whose partial product is summed over ``model`` (dt's low rank, B and
+    C whole on every rank); the gated norm's mean square is over every
+    rank's channels; ``out_proj``'s partial product is reduced."""
     A._check_backend("mamba", backend)
     b, s, d = x.shape
     dt_rank = max(1, d // 16)
+    split = plan == "channels"
 
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)           # (B, S, Di)
+    if split:
+        x = AS.copy_to_model(x)
+        w = p["in_proj"]                                  # (D, 2 Di) whole
+        lo, hi = AS.model_slice(w.shape[1] // 2)
+        xi = x @ w[:, lo:hi]
+        z = x @ w[:, w.shape[1] // 2 + lo:w.shape[1] // 2 + hi]
+    else:
+        xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)       # (B, S, Di)
     prev = (cache["conv"] if cache is not None else
             xi.new_zeros((b, d_conv - 1, xi.shape[-1])))
     pad = torch.cat([prev.to(xi.dtype), xi], dim=1)      # (B, K-1+S, Di)
@@ -612,6 +695,8 @@ def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
     xc = F.silu(acc.to(x.dtype) + p["conv_b"])
 
     proj = xc @ p["x_proj"]                               # (B, S, R+2N)
+    if split:
+        proj = AS.sum_over_model(proj)
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
                     + p["dt_bias"].to(x.dtype))           # (B, S, Di)
     bm = proj[..., dt_rank:dt_rank + d_state]   # views: the kernel reads
@@ -619,8 +704,11 @@ def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
     y, h = kops.mamba_scan(xc, dt, bm, cm, -torch.exp(p["A_log"]), p["D"],
                            cache["ssm"] if cache is not None else None)
 
-    y = rms_norm(y, p["norm"]) * F.silu(z)
+    y = (rms_norm_split(y, p["norm"]) if split
+         else rms_norm(y, p["norm"])) * F.silu(z)
     out = y @ p["out_proj"]
+    if split:
+        out = AS.reduce_from_model(out)
     if cache is None:
         return out, None
     cache["conv"].copy_(pad[:, pad.shape[1] - (d_conv - 1):])
@@ -634,8 +722,8 @@ def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
 
 
 def rwkv6_init(gen: torch.Generator, d_model: int, *, head_dim: int = 64,
-               lora_r: int = 64, dtype=torch.bfloat16, device=None
-               ) -> Params:
+               lora_r: int = 64, dtype=torch.bfloat16, device=None,
+               keep: Keep = whole) -> Params:
     """The reference's shapes and per-leaf dtypes
     (``repro/models/layers.py:540-569``): the token-shift mixes ``mu_*``
     and ``cm_mu_k`` (1-D) and every matrix in ``dtype``; ``decay_base``,
@@ -643,32 +731,36 @@ def rwkv6_init(gen: torch.Generator, d_model: int, *, head_dim: int = 64,
     n_heads = d_model // head_dim
     d_cm = int(3.5 * d_model)
 
-    def mu():
-        return torch.full((d_model,), 0.5, dtype=dtype, device=device)
+    def mu(name):
+        return keep(name, torch.full((d_model,), 0.5, dtype=dtype,
+                                     device=device))
 
-    def dense(i, o):
-        return dense_init(gen, i, o, dtype, device)
+    def dense(name, i, o):
+        return keep(name, dense_init(gen, i, o, dtype, device))
 
     return {
-        "mu_r": mu(), "mu_k": mu(), "mu_v": mu(), "mu_w": mu(), "mu_g": mu(),
-        "w_r": dense(d_model, d_model),
-        "w_k": dense(d_model, d_model),
-        "w_v": dense(d_model, d_model),
-        "w_g": dense(d_model, d_model),
-        "w_o": dense(d_model, d_model),
+        "mu_r": mu("mu_r"), "mu_k": mu("mu_k"), "mu_v": mu("mu_v"),
+        "mu_w": mu("mu_w"), "mu_g": mu("mu_g"),
+        "w_r": dense("w_r", d_model, d_model),
+        "w_k": dense("w_k", d_model, d_model),
+        "w_v": dense("w_v", d_model, d_model),
+        "w_g": dense("w_g", d_model, d_model),
+        "w_o": dense("w_o", d_model, d_model),
         # data-dependent decay LoRA: w_t = exp(-exp(base + lora(x)))
-        "decay_base": torch.full((d_model,), -6.0, dtype=torch.float32,
-                                 device=device),
-        "decay_a": dense(d_model, lora_r),
-        "decay_b": dense(lora_r, d_model),
-        "bonus": torch.randn((n_heads, head_dim), generator=gen,
-                             dtype=torch.float32, device=device) * 0.02,
-        "ln_out": torch.ones((d_model,), dtype=torch.float32, device=device),
+        "decay_base": keep("decay_base", torch.full(
+            (d_model,), -6.0, dtype=torch.float32, device=device)),
+        "decay_a": dense("decay_a", d_model, lora_r),
+        "decay_b": dense("decay_b", lora_r, d_model),
+        "bonus": keep("bonus", torch.randn(
+            (n_heads, head_dim), generator=gen, dtype=torch.float32,
+            device=device) * 0.02),
+        "ln_out": keep("ln_out", torch.ones((d_model,), dtype=torch.float32,
+                                            device=device)),
         # channel mix (the FFN half of the block)
-        "cm_mu_k": mu(),
-        "cm_k": dense(d_model, d_cm),
-        "cm_v": dense(d_cm, d_model),
-        "cm_r": dense(d_model, d_model),
+        "cm_mu_k": mu("cm_mu_k"),
+        "cm_k": dense("cm_k", d_model, d_cm),
+        "cm_v": dense("cm_v", d_cm, d_model),
+        "cm_r": dense("cm_r", d_model, d_model),
     }
 
 
@@ -681,8 +773,26 @@ def _token_shift(x: torch.Tensor,
     return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _shift_row(row: torch.Tensor, d: int) -> torch.Tensor:
+    """A cached token-shift row (B, 1, D) read whole: a row ``cache_specs``
+    splits over ``model`` is gathered."""
+    if row.shape[-1] == d:
+        return row
+    return C.all_gather_cat(row, AS.model_group(), 2)
+
+
+def _keep_row(row: torch.Tensor, last: torch.Tensor) -> None:
+    """Write ``last`` (B, 1, D) into the cached row: the rank's slice of it
+    where the row is split over ``model``."""
+    if row.shape[-1] != last.shape[-1]:
+        lo, hi = AS.model_slice(last.shape[-1])
+        last = last[..., lo:hi]
+    row.copy_(last)
+
+
 def rwkv6(p: Params, x: torch.Tensor, *, head_dim: int = 64,
-          cache: Optional[Params] = None, backend: str = "auto"
+          cache: Optional[Params] = None, backend: str = "auto",
+          plan: str = "one", cm_split: bool = False
           ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Time mix + channel mix of the RWKV-6 block (pre-norm applied by the
     caller; the caller adds the residual).  x: (B, S, D).
@@ -699,15 +809,28 @@ def rwkv6(p: Params, x: torch.Tensor, *, head_dim: int = 64,
     reference does (``w.astype(x.dtype)``); at bf16 this maps every
     ``w_log`` below about -6.24 to a decay of exactly 1.0.  ``backend``
     is validated and selects nothing: every call, prefill and decode,
-    goes through ``kernels.ops.rwkv6_scan``."""
+    goes through ``kernels.ops.rwkv6_scan``.
+
+    ``plan == "channels"`` (a mesh's ``LayerPlan.mixer``): the rank runs
+    its heads.  ``w_r``/``w_k``/``w_v``/``w_g`` and ``decay_b`` come as
+    its channels' columns, ``bonus``, ``decay_base``, ``ln_out`` and the
+    ``wkv`` state as its heads, ``w_o`` as its rows (the partial product
+    reduced over ``model``); ``ln_out``'s mean square is over every
+    rank's channels.  ``cm_split``: the channel mix's ``cm_k`` columns and
+    ``cm_v`` rows are the rank's (its partial product reduced);
+    ``cm_r`` is whole.  Token-shift rows the cache splits over ``model``
+    are gathered to read and sliced to write."""
     A._check_backend("rwkv6", backend)
     b, s, d = x.shape
-    n_heads = d // head_dim
+    split = plan == "channels"
 
-    xs = _token_shift(x, cache["shift"] if cache is not None else None)
+    prev = _shift_row(cache["shift"], d) if cache is not None else None
+    # the time mix feeds the rank's own heads: its gradient is summed
+    xt = AS.copy_to_model(x) if split else x
+    xs = _token_shift(xt, prev)
 
     def mix(mu):
-        return x + (xs - x) * mu
+        return xt + (xs - xt) * mu
 
     r = mix(p["mu_r"]) @ p["w_r"]
     k = mix(p["mu_k"]) @ p["w_k"]
@@ -716,6 +839,8 @@ def rwkv6(p: Params, x: torch.Tensor, *, head_dim: int = 64,
     w_log = p["decay_base"] + (torch.tanh(mix(p["mu_w"]) @ p["decay_a"])
                                @ p["decay_b"]).float()
     w = torch.exp(-torch.exp(w_log))                     # (B, S, D) fp32
+    d_loc = r.shape[-1]                                  # the rank's channels
+    n_heads = d_loc // head_dim
 
     def heads(t):    # a view: the kernel reads it through its strides
         return t.view(b, s, n_heads, head_dim).transpose(1, 2)
@@ -723,20 +848,29 @@ def rwkv6(p: Params, x: torch.Tensor, *, head_dim: int = 64,
     out, state = kops.rwkv6_scan(
         heads(r), heads(k), heads(v), heads(w.to(x.dtype)), p["bonus"],
         cache["wkv"] if cache is not None else None)
-    out = out.transpose(1, 2).reshape(b, s, d)     # a view on CUDA
-    tm_out = (rms_norm(out, p["ln_out"]) * g) @ p["w_o"]
+    out = out.transpose(1, 2).reshape(b, s, d_loc)     # a view on CUDA
+    normed = (rms_norm_split(out, p["ln_out"]) if split
+              else rms_norm(out, p["ln_out"]))
+    tm_out = (normed * g) @ p["w_o"]
+    if split:
+        tm_out = AS.reduce_from_model(tm_out)
 
     # channel mix
     y = x + tm_out
-    ys = _token_shift(y, cache["cm_shift"] if cache is not None else None)
+    ys = _token_shift(y, _shift_row(cache["cm_shift"], d)
+                      if cache is not None else None)
     xk = y + (ys - y) * p["cm_mu_k"]
+    if cm_split:
+        xk = AS.copy_to_model(xk)
     cm = torch.square(F.relu(xk @ p["cm_k"])) @ p["cm_v"]
+    if cm_split:
+        cm = AS.reduce_from_model(cm)
     cm = torch.sigmoid(y @ p["cm_r"]) * cm
     out_final = tm_out + cm
 
     if cache is None:
         return out_final, None
     cache["wkv"].copy_(state)
-    cache["shift"].copy_(x[:, -1:])
-    cache["cm_shift"].copy_(y[:, -1:])
+    _keep_row(cache["shift"], x[:, -1:])
+    _keep_row(cache["cm_shift"], y[:, -1:])
     return out_final, cache

@@ -186,78 +186,97 @@ def abstract_params(cfg: LMConfig) -> Params:
     return init_params(cfg, device="meta")
 
 
-def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
+def init_params(cfg: LMConfig, seed: int = 0, device=None,
+                cut=None) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default CUDA).  Same shapes, scales and dtypes as the reference's
     ``init_params``; the numbers differ, since torch and JAX draw
     differently from one seed.  Every leaf is made in its own dtype, so
     a bf16 model never passes through an fp32 copy of itself (the widest
-    fp32 draw is one weight matrix, or one expert's)."""
+    fp32 draw is one weight matrix, or one expert's).  ``cut(path,
+    leaf)``, where given, takes each leaf as soon as it is drawn (its
+    '/'-joined tree path, ``layers/3/moe/w_up``) and returns what the
+    tree keeps (``launch.train.init_pieces``: the rank's piece)."""
     _check_supported(cfg)
     meta = device is not None and torch.device(device).type == "meta"
     dev = torch.device("meta") if meta else resolve_device(device)
     gen = torch.Generator(device="cpu" if meta else dev).manual_seed(seed)
     dt = cfg.param_dtype
+    cut = cut or L.whole
+
+    def at(prefix: str) -> L.Keep:
+        return lambda name, leaf: cut(prefix + name, leaf)
+
+    def norm(path: str) -> torch.Tensor:
+        return cut(path, _norm_init(cfg, dev))
+
+    def zeros(path: str) -> torch.Tensor:
+        return cut(path, torch.zeros(cfg.d_model, device=dev))
+
     params: Params = {
-        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-        "final_norm": _norm_init(cfg, dev),
+        "embed": cut("embed", L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                           dt, dev)),
+        "final_norm": norm("final_norm"),
     }
     if cfg.norm == "layer":
-        params["final_norm_b"] = torch.zeros(cfg.d_model, device=dev)
+        params["final_norm_b"] = zeros("final_norm_b")
     layers = []
-    for spec in cfg.layer_specs():
-        p: Params = {"norm1": _norm_init(cfg, dev)}
+    for i, spec in enumerate(cfg.layer_specs()):
+        pre = f"layers/{i}/"
+        p: Params = {"norm1": norm(pre + "norm1")}
         if cfg.norm == "layer":
-            p["norm1_b"] = torch.zeros(cfg.d_model, device=dev)
+            p["norm1_b"] = zeros(pre + "norm1_b")
         if spec.mixer == "rwkv":
             p["rwkv"] = L.rwkv6_init(gen, cfg.d_model,
                                      head_dim=cfg.rwkv_head_dim, dtype=dt,
-                                     device=dev)
+                                     device=dev, keep=at(pre + "rwkv/"))
         elif spec.mixer == "mamba":
             p["mamba"] = L.mamba_init(gen, cfg.d_model,
                                       d_state=cfg.mamba_d_state,
                                       d_conv=cfg.mamba_d_conv,
                                       expand=cfg.mamba_expand, dtype=dt,
-                                      device=dev)
+                                      device=dev, keep=at(pre + "mamba/"))
         elif spec.mixer == "mla":
             p["attn"] = L.mla_init(
                 gen, cfg.d_model, cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
                 kv_lora_rank=cfg.kv_lora_rank, nope_dim=cfg.mla_nope_dim,
                 rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim, dtype=dt,
-                device=dev)
+                device=dev, keep=at(pre + "attn/"))
         else:
             p["attn"] = L.attn_init(gen, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.hd, dt, dev,
-                                    qkv_bias=cfg.qkv_bias)
+                                    qkv_bias=cfg.qkv_bias,
+                                    keep=at(pre + "attn/"))
             if cfg.qk_norm:
                 for name in ("q_norm", "k_norm"):
-                    p["attn"][name] = torch.ones(
-                        cfg.hd, dtype=torch.float32, device=dev)
+                    p["attn"][name] = cut(pre + "attn/" + name, torch.ones(
+                        cfg.hd, dtype=torch.float32, device=dev))
         if spec.ffn != "none":
-            p["norm2"] = _norm_init(cfg, dev)
+            p["norm2"] = norm(pre + "norm2")
             if cfg.norm == "layer":
-                p["norm2_b"] = torch.zeros(cfg.d_model, device=dev)
+                p["norm2_b"] = zeros(pre + "norm2_b")
         if spec.ffn == "dense":
             p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt, dev,
-                                  gated=cfg.gated_mlp)
+                                  gated=cfg.gated_mlp, keep=at(pre + "mlp/"))
         elif spec.ffn == "moe":
             p["moe"] = L.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                   dt, dev, gated=True,
                                   n_shared=cfg.n_shared_experts,
                                   d_ff_shared=cfg.d_ff_shared,
-                                  n_padded=cfg.n_experts_padded)
+                                  n_padded=cfg.n_experts_padded,
+                                  keep=at(pre + "moe/"))
             if cfg.moe_dense_residual:
                 p["mlp"] = L.mlp_init(
                     gen, cfg.d_model, cfg.d_ff_dense_residual or cfg.d_ff,
-                    dt, dev, gated=True)
+                    dt, dev, gated=True, keep=at(pre + "mlp/"))
         layers.append(p)
     params["layers"] = layers
     if cfg.lm_head and not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                         dt, dev)
+        params["lm_head"] = cut("lm_head", L.dense_init(
+            gen, cfg.d_model, cfg.vocab_size, dt, dev))
     if not cfg.lm_head and cfg.n_classes:
-        params["cls_head"] = L.dense_init(gen, cfg.d_model, cfg.n_classes,
-                                          dt, dev)
+        params["cls_head"] = cut("cls_head", L.dense_init(
+            gen, cfg.d_model, cfg.n_classes, dt, dev))
     return params
 
 
@@ -367,12 +386,13 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     if spec.mixer == "rwkv":
         out, new_cache = L.rwkv6(p["rwkv"], h, head_dim=cfg.rwkv_head_dim,
-                                 cache=cache, backend=cfg.attn_backend)
+                                 cache=cache, backend=cfg.attn_backend,
+                                 plan=plan.mixer, cm_split=plan.mlp_split)
     elif spec.mixer == "mamba":
         out, new_cache = L.mamba(p["mamba"], h, d_state=cfg.mamba_d_state,
                                  d_conv=cfg.mamba_d_conv,
                                  expand=cfg.mamba_expand, cache=cache,
-                                 backend=cfg.attn_backend)
+                                 backend=cfg.attn_backend, plan=plan.mixer)
     elif spec.mixer == "mla":
         out, new_cache = L.mla_attention(
             p["attn"], h, n_heads=cfg.n_heads, nope_dim=cfg.mla_nope_dim,
@@ -412,7 +432,8 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
             moe_out, moe_aux = L.moe(
                 p["moe"], h2, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 capacity_factor=cf, activation=cfg.act,
-                n_padded=cfg.n_experts_padded)
+                n_padded=cfg.n_experts_padded, plan=plan.moe,
+                shared_split=plan.shared_split)
             if cfg.moe_dense_residual:
                 moe_out = moe_out + L.mlp(p["mlp"], h2, cfg.act,
                                           plan.mlp_split)
@@ -652,10 +673,20 @@ def abstract_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
-               dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               mesh=None) -> Cache:
     """An empty per-layer cache on ``device`` (default CUDA), zeros in
-    the layout of :func:`cache_layout`."""
+    the layout of :func:`cache_layout`.  With ``mesh``, the rank's pieces
+    of it under ``sharding.cache_specs`` (what the meshed serve step
+    takes)."""
     layout = cache_layout(cfg, batch, max_seq, dtype)
+    if mesh is not None:
+        from ..distributed import sharding as S
+        specs = S.cache_specs(cfg, abstract_cache(cfg, batch, max_seq,
+                                                  dtype), mesh)
+        layout = [{n: (S.local_shape(shape, specs[i][n], mesh), dt)
+                   for n, (shape, dt) in entry.items()}
+                  for i, entry in enumerate(layout)]
     dev = resolve_device(device)
     return [{name: torch.zeros(shape, dtype=dt, device=dev)
              for name, (shape, dt) in entry.items()} for entry in layout]

@@ -615,6 +615,20 @@ def test_cuda_mamba_single_step_matches_plain(cuda_device, n, state, dtype):
 
 
 @requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [64, 1])
+def test_cuda_mamba_kernel_at_a_rank_shard(cuda_device, s, dtype):
+    """A rank's channel shard of jamba-1.5-large at model = 2 (Di = 8192
+    of 16384, N = 16) from a state, B and C column views of the rank's
+    whole (B, S, 512 + 2N) projection, as the meshed layer passes them:
+    a prefill piece (S = 64) and a decode step (S = 1), at the tiers
+    above."""
+    assert_scan_close(card_scan_args(cuda_device, getattr(torch, dtype),
+                                     (2, s, 8192, 16), True,
+                                     bc_offset=512), dtype)
+
+
+@requires_cuda
 @pytest.mark.parametrize("s", [2, 15, 16, 17, 47])
 def test_cuda_mamba_chunk_edges_match_plain(cuda_device, s):
     """S around the 16-step chunk (one short of it, equal, one over, one

@@ -12,8 +12,12 @@ every check of their size once for the file:
   * the train step on (2,1), (1,2) and (2,2): the tiny config (2 KV
     heads, split over model), gemma-2b's SMOKE (1 KV head: whole K/V
     beside each rank's query heads; GeGLU; tied, vocab-parallel
-    embedding and loss) and a 3-head config (context-parallel attention
-    at model = 2), AdamW with accum_steps 1 and 2 and SGD with momentum:
+    embedding and loss), a 3-head config (context-parallel attention
+    at model = 2), the SMOKE configs of jamba (mamba channels, experts
+    and attention heads over model), rwkv6 (heads over model) and
+    qwen2-moe (experts and the shared expert over model), and qwen2-moe's
+    with 3 experts (the experts' hidden columns over model), AdamW with
+    accum_steps 1 and 2 and SGD with momentum:
     loss and grad norm within 1e-6 relative, the assembled gradients
     within 1e-5 of their largest, SGD's momentum within 1e-5 and AdamW's
     moments within 1e-5 relative, the parameters as stated at
@@ -24,18 +28,24 @@ every check of their size once for the file:
   * the meshed prefill and serve steps' greedy tokens against the
     one-process steps' (1 KV head: the cache's slots split over model,
     partials merged by their log-sum-exps; gemma3's sliding rings split
-    too, decoded past the ring's end);
+    too, decoded past the ring's end; jamba's, rwkv6's, qwen2-moe's and
+    arctic's SMOKE: the mamba and rwkv states split over model);
+  * jamba SMOKE's meshed forward at (1,2) against the JAX package's
+    forward without a mesh, on the same weights;
   * elastic restore: saved on (2,2) after step 1, restored onto (1,2)
     and onto no mesh, step 2 equal to the uninterrupted run's.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_dist_workers as W
+from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import attention as JA
+from repro.models import lm as JLM
 from repro_torch.distributed import sharding as TS
 from repro_torch.launch import train as T
 from repro_torch.launch.mesh import MeshShape, run_ranks
@@ -46,10 +56,51 @@ from repro_torch.optim.functional import tree_leaves
 GROUP_TIMEOUT = 300
 TRAIN_CASES = [("tiny", "adamw", 1), ("gemma", "adamw", 1),
                ("gemma", "adamw", 2), ("gemma", "sgd", 1),
-               ("odd", "adamw", 1), ("tiny", "sgd", 2)]
+               ("odd", "adamw", 1), ("tiny", "sgd", 2),
+               ("jamba", "adamw", 1), ("rwkv6", "adamw", 1),
+               ("qwen2moe", "adamw", 1), ("moe3", "adamw", 1)]
 SHAPES_2 = [(2, 1), (1, 2)]
 SHAPES_4 = [(2, 2)]
-DECODE_NAMES = ("tiny", "gemma", "gemma3")
+DECODE_NAMES = ("tiny", "gemma", "gemma3", "jamba", "rwkv6", "qwen2moe",
+                "arctic")
+FORWARD_NAME = "jamba"
+# a model axis of 4: jamba's mamba channels, experts and query heads
+# split four ways (its 2 KV heads computed whole, its decode cache's
+# slots split); rwkv6's 2 heads do not divide it (the layer runs whole
+# on every rank, its token-shift rows still split)
+MODEL_4 = (1, 4)
+MODEL_4_CASES = [("jamba", "adamw", 1), ("rwkv6", "adamw", 1)]
+MODEL_4_NAMES = ("jamba", "rwkv6")
+
+# The limits of the train-step tests: PR 31's for every case but three,
+# whose fp32 steps are worse conditioned (measured on the CPU):
+#   * jamba's SMOKE (eight layers, six of them mamba): a change of its
+#     weights by 1e-7 relative moves its step-1 gradients by up to 2.6e-5
+#     of a leaf's largest, and the meshed step's reordered sums leave up
+#     to 1.3e-5 (dt_proj): gradients and moments within 3e-5 of their
+#     largest, the grad norm within 3e-6 relative; its router as below;
+#   * qwen2-moe's SMOKE and its 3-expert cut: the zero-initialised bk
+#     learns only through RoPE, most of its elements' gradients below
+#     1e-3 of its largest, and AdamW moves such an element by
+#     lr * g / (|g| + eps), whose rounding the two runs do not share:
+#     the parameter rule's count of elements beyond 1e-5 leaves out those
+#     whose one-process gradient is below 1e-3 of the leaf's largest
+#     (every element stays within 2 lr).
+LIMITS = {"loss": 1e-6, "grads": 1e-5, "small_grads": 0.0}
+CASE_LIMITS = {"jamba": {"loss": 3e-6, "grads": 3e-5, "small_grads": 1e-3},
+               "qwen2moe": {"small_grads": 1e-3},
+               "moe3": {"small_grads": 1e-3}}
+
+
+def _limits(case) -> dict:
+    return {**LIMITS, **CASE_LIMITS.get(case[0], {})}
+
+
+def _jax_tree(name):
+    """The reference's seed-0 parameters of ``name``'s SMOKE config, as
+    numpy arrays."""
+    cfg = jax_smoke_config(W.SMOKE_ARCHS[name])
+    return jax.tree.map(np.asarray, JLM.init_params(cfg, jax.random.key(0)))
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +111,9 @@ def groups(tmp_path_factory):
     loop = str(tmp_path_factory.mktemp("loop"))
     four = run_ranks(W.jobs_rank, 4, ([
         ("mesh_train_rank", (SHAPES_4, TRAIN_CASES)),
+        ("mesh_train_rank", ([MODEL_4], MODEL_4_CASES)),
         ("mesh_decode_rank", (SHAPES_4, DECODE_NAMES)),
+        ("mesh_decode_rank", ([MODEL_4], MODEL_4_NAMES)),
         ("elastic_save_rank", (ckpt,))],), backend="gloo",
         timeout=GROUP_TIMEOUT)
     two = run_ranks(W.jobs_rank, 2, ([
@@ -69,7 +122,9 @@ def groups(tmp_path_factory):
         ("mesh_decode_rank", ([(1, 2)], DECODE_NAMES)),
         ("elastic_restore_rank", (ckpt, (1, 2))),
         ("train_loop_rank", ((1, 2), loop)),
-        ("moe_train_rank", ())],), backend="gloo",
+        ("moe_train_rank", ()),
+        ("mesh_forward_rank", ((1, 2), FORWARD_NAME,
+                               _jax_tree(FORWARD_NAME)))],), backend="gloo",
         timeout=GROUP_TIMEOUT)
     return {2: two, 4: four, "ckpt": ckpt, "loop": loop}
 
@@ -118,12 +173,13 @@ def _references(groups, one_process, shape, case):
     from the same initial state; step 2, the one-process step 2 from the
     meshed run's own state after step 1 (assembled), so that each step is
     compared on the same inputs.  Returns [(loss, grad norm, params,
-    {opt key: leaves}) of step 1, of step 2]."""
+    {opt key: leaves}, the step's gradients) of step 1, of step 2]."""
     key = (shape, case)
     if key not in _SECOND:
         cfg = W.train_cfg(case[0])
         specs = _leaf_specs(cfg, shape, case[1])
-        first = one_process[case]["steps"][0]
+        first = dict(one_process[case]["steps"][0],
+                     grads=one_process[case]["grads"])
         ranks = _ranks(groups, shape, case)
 
         def whole(pick, like):
@@ -146,8 +202,11 @@ def _references(groups, one_process, shape, case):
         step = T.make_train_step(cfg, optimizer=case[1], lr=W.TRAIN_LR,
                                  accum_steps=case[2], opt_kwargs=kw,
                                  device="cpu")
-        state, m = step(state, W.train_batches(cfg)[1])
-        second = {"loss": float(m["loss"]),
+        with W.moe_groups(cfg, W.MOE_GROUP_TOKENS):
+            batch = W.train_batches(cfg)[1]
+            grads = step.compute(state["params"], batch)[1]
+            state, m = step(state, batch)
+        second = {"loss": float(m["loss"]), "grads": grads,
                   "grad_norm": float(m["grad_norm"]),
                   "params": tree_leaves(state["params"]),
                   "opt": {k: tree_leaves(v) for k, v in state["opt"].items()
@@ -163,11 +222,12 @@ CASE_IDS = dict(ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("shape", ALL_SHAPES)
 def test_loss_and_grad_norm(groups, one_process, shape, case):
     want = _references(groups, one_process, shape, case)
+    rel = _limits(case)["loss"]
     for r in _ranks(groups, shape, case):
         for got, ref in zip(r["steps"], want):
-            assert got["loss"] == pytest.approx(ref["loss"], rel=1e-6)
+            assert got["loss"] == pytest.approx(ref["loss"], rel=rel)
             assert got["grad_norm"] == pytest.approx(ref["grad_norm"],
-                                                     rel=1e-6)
+                                                     rel=rel)
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
@@ -178,25 +238,28 @@ def test_assembled_gradients(groups, one_process, shape, case):
     specs = _leaf_specs(cfg, shape, case[1])
     got = _assembled(_ranks(groups, shape, case), lambda r: r["grads"],
                      [g.shape for g in ref], specs, shape)
+    tol = _limits(case)["grads"]
     for g, w in zip(got, ref):
-        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+        assert (g - w).abs().max() <= tol * w.abs().max()
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
 @pytest.mark.parametrize("shape", ALL_SHAPES)
 def test_optimizer_state(groups, one_process, shape, case):
     """SGD's momentum within 1e-5 of its largest; AdamW's m and v within
-    1e-5 relative (of each leaf's largest), after each step."""
+    1e-5 relative (of each leaf's largest), after each step (the
+    gradients' limit of ``CASE_LIMITS`` where it differs)."""
     cfg = W.train_cfg(case[0])
     specs = _leaf_specs(cfg, shape, case[1])
     refs = _references(groups, one_process, shape, case)
+    tol = _limits(case)["grads"]
     for i, ref in enumerate(refs):
         for key, leaves in ref["opt"].items():
             got = _assembled(_ranks(groups, shape, case),
                              lambda r: r["steps"][i]["opt"][key],
                              [x.shape for x in leaves], specs, shape)
             for g, w in zip(got, leaves):
-                assert (g - w).abs().max() <= 1e-5 * w.abs().max(), key
+                assert (g - w).abs().max() <= tol * w.abs().max(), key
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
@@ -210,26 +273,33 @@ def test_parameters(groups, one_process, shape, case):
     the other run, while the gradients agree to 1e-6 of their largest.
     So an element may differ by up to 2 lr, and all but 1 in 100 of a
     leaf's elements (or all but one, in a leaf of under 100) by 1e-5 of
-    its largest."""
+    its largest (the count leaving out the elements ``CASE_LIMITS``
+    names)."""
     cfg = W.train_cfg(case[0])
     specs = _leaf_specs(cfg, shape, case[1])
+    small = _limits(case)["small_grads"]
     for i, ref in enumerate(_references(groups, one_process, shape, case)):
         got = _assembled(_ranks(groups, shape, case),
                          lambda r: r["steps"][i]["params"],
                          [x.shape for x in ref["params"]], specs, shape)
-        for g, w in zip(got, ref["params"]):
-            _assert_params_close(g, w, adamw=case[1] == "adamw")
+        for g, w, grad in zip(got, ref["params"], ref["grads"]):
+            _assert_params_close(g, w, adamw=case[1] == "adamw",
+                                 free=grad.abs() < small * grad.abs().max())
 
 
-def _assert_params_close(got, want, adamw: bool):
-    """``test_parameters``'s rule for one leaf after one step."""
+def _assert_params_close(got, want, adamw: bool, free=None):
+    """``test_parameters``'s rule for one leaf after one step; ``free``
+    marks elements left out of the count beyond the tight limit."""
     err = (got - want).abs()
     tight = 1e-5 * max(want.abs().max().item(), 1e-30)
     if not adamw:
         assert err.max() <= tight
         return
     assert err.max() <= 2 * W.TRAIN_LR + tight
-    assert int((err > tight).sum()) <= max(1, err.numel() // 100)
+    beyond = err > tight
+    if free is not None:
+        beyond &= ~free
+    assert int(beyond.sum()) <= max(1, err.numel() // 100)
 
 
 @pytest.mark.parametrize("shape", ALL_SHAPES)
@@ -248,6 +318,27 @@ def test_ranks_of_a_model_group_agree(groups, shape):
                 if a["coords"]["data"] == b["coords"]["data"]:
                     assert torch.equal(a["steps"][1]["params"][i],
                                        b["steps"][1]["params"][i])
+
+
+@pytest.mark.parametrize("case", MODEL_4_CASES, **CASE_IDS)
+def test_model_axis_of_four(groups, one_process, case):
+    """The train step on (1,4): step 1's loss and grad norm and the
+    assembled gradients against the one-process step's, within the
+    case's limits."""
+    cfg = W.train_cfg(case[0])
+    lim = _limits(case)
+    first = one_process[case]["steps"][0]
+    ranks = _ranks(groups, MODEL_4, case)
+    for r in ranks:
+        assert r["steps"][0]["loss"] == pytest.approx(first["loss"],
+                                                      rel=lim["loss"])
+        assert r["steps"][0]["grad_norm"] == pytest.approx(
+            first["grad_norm"], rel=lim["loss"])
+    ref = one_process[case]["grads"]
+    got = _assembled(ranks, lambda r: r["grads"], [g.shape for g in ref],
+                     _leaf_specs(cfg, MODEL_4, case[1]), MODEL_4)
+    for g, w in zip(got, ref):
+        assert (g - w).abs().max() <= lim["grads"] * w.abs().max()
 
 
 # ----------------------------------------------------------------------
@@ -297,12 +388,27 @@ def test_meshed_greedy_decode(groups, shape, name):
         assert torch.equal(got_first, first)
         assert torch.equal(got, toks)
         # one KV head over model = 2: the cache's slots are split and
-        # every layer of every step merges the ranks' partials
-        split = cfg.n_kv_heads % shape[1] != 0
+        # every attention layer of every step merges the ranks' partials
+        attn = sum(spec.mixer in ("attn", "sliding")
+                   for spec in cfg.layer_specs())
+        split = attn > 0 and cfg.n_kv_heads % shape[1] != 0
         assert (merges > 0) == split
         if split:
-            assert merges == cfg.n_layers * (W.DECODE_PROMPT
-                                             + W.DECODE_STEPS - 1)
+            assert merges == attn * (W.DECODE_PROMPT + W.DECODE_STEPS - 1)
+
+
+@pytest.mark.parametrize("name", MODEL_4_NAMES)
+def test_meshed_greedy_decode_on_a_model_axis_of_four(groups, name):
+    """(1,4): jamba's mamba channels and experts four ways (its cache's
+    slots split, partials merged), rwkv6 whole on every rank beside its
+    split token-shift rows: the greedy tokens of no mesh."""
+    cfg = W.train_cfg(name)
+    params = TLM.init_params(cfg, seed=0, device="cpu")
+    first, toks, _ = W.greedy_run(cfg, params)
+    for g in groups[4]:
+        got_first, got, _ = g["mesh_decode_rank"][(MODEL_4, name)]
+        assert torch.equal(got_first, first)
+        assert torch.equal(got, toks)
 
 
 # ----------------------------------------------------------------------
@@ -365,12 +471,34 @@ def test_elastic_restore_onto_no_mesh(groups):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b",
                                   "rwkv6-1.6b"])
 def test_moe_mamba_rwkv_refuse_a_model_axis(arch):
+    """MoE, mamba and rwkv blocks are no longer refused: the meshed
+    train, prefill and serve steps run them on a model axis of 2 and 4
+    (the parity tests above hold them to the one-process steps)."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.distributed.act_sharding import MeshTrainingError
     cfg = get_smoke_config(arch)
+    for shape in ((1, 2), (2, 1), (2, 2), (1, 4)):
+        mesh = MeshShape(("data", "model"), shape)
+        T.check_mesh(cfg, mesh, "adamw")
+        T.check_mesh(cfg, mesh, decode=True)
+
+
+def test_sequence_sharding_refuses_a_model_axis(monkeypatch):
+    from repro_torch.distributed.act_sharding import MeshTrainingError
+    cfg = W.train_cfg("tiny")
+    monkeypatch.setenv("REPRO_SEQ_SHARD", "1")
     with pytest.raises(MeshTrainingError, match="A7c"):
         T.check_mesh(cfg, MeshShape(("data", "model"), (1, 2)))
     T.check_mesh(cfg, MeshShape(("data", "model"), (2, 1)))
+
+
+def test_adafactor_refuses_a_mesh():
+    from repro_torch.distributed.act_sharding import MeshTrainingError
+    cfg = W.train_cfg("jamba")
+    for shape in ((2, 1), (1, 2)):
+        with pytest.raises(MeshTrainingError, match="A7c"):
+            T.check_mesh(cfg, MeshShape(("data", "model"), shape),
+                         "adafactor")
+    T.check_mesh(cfg, MeshShape(("data", "model"), (1, 1)), "adafactor")
 
 
 def test_mla_decode_refuses_a_model_axis():
@@ -423,3 +551,43 @@ def test_moe_data_parallel_step(groups):
             want["steps"][0]["loss"], rel=1e-6)
         assert r["steps"][0]["grad_norm"] == pytest.approx(
             want["steps"][0]["grad_norm"], rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# the rank's pieces drawn leaf by leaf; the JAX package's forward
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["jamba", "rwkv6", "qwen2moe", "arctic",
+                                  "gemma", "moe3"])
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2), (1, 4)])
+def test_init_pieces_equal_shard_tree(name, shape):
+    """``init_pieces`` at every position of the mesh equals
+    ``local_shard`` of ``init_params``'s whole tree, bit for bit."""
+    cfg = W.train_cfg(name)
+    mesh = MeshShape(("data", "model"), shape)
+    full = TLM.init_params(cfg, seed=3, device="cpu")
+    specs = TS.param_specs(cfg, full, mesh)
+    for here in TS.all_coords(mesh):
+        got = T.init_pieces(cfg, mesh, seed=3, device="cpu", here=here)
+        want = TS.with_specs(lambda x, sp: TS.local_shard(x, sp, mesh, here),
+                             full, specs)
+        a, b = tree_leaves(got), tree_leaves(want)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_jamba_meshed_forward_matches_reference(groups):
+    """jamba SMOKE's meshed prefill logits at (1,2) (mamba channels,
+    experts, attention heads and the vocabulary over model) against the
+    JAX package's ``forward`` without a mesh on the same weights, within
+    1e-5."""
+    cfg = jax_smoke_config(W.SMOKE_ARCHS[FORWARD_NAME])
+    params = JLM.init_params(cfg, jax.random.key(0))
+    want, _ = JLM.forward(cfg, params,
+                          jnp.asarray(W.forward_tokens(W.train_cfg(
+                              FORWARD_NAME))))
+    for g in groups[2]:
+        got = g["mesh_forward_rank"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)

@@ -484,6 +484,33 @@ def test_cuda_wkv6_kernel_matches_plain(cuda_device, d, state, dtype):
 
 
 @requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [64, 1])
+@pytest.mark.parametrize("heads", [16, 8])
+def test_cuda_wkv6_kernel_at_a_rank_shard(cuda_device, heads, s, dtype):
+    """A rank's heads of rwkv6-1.6b at model = 2 and 4 (16 and 8 of 32
+    heads of 64) from a state, r/k/v/w transposed views as the meshed
+    layer passes them: a prefill piece (S = 64) and a decode step
+    (S = 1), at the tiers above."""
+    r, k, v, w, u, s0 = scan_inputs(23, (2, heads, s, 64), state=True)
+    dt = getattr(torch, dtype)
+    args = [head_views(a, device=cuda_device, dtype=dt)
+            for a in (r, k, v, w)]
+    args += [to_torch(u).to(cuda_device), to_torch(s0).to(cuda_device)]
+    before = RW.counter.launches
+    out, st = RW.rwkv6_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert RW.counter.launches == before + 1
+    ref_out, ref_st = RW.rwkv6_scan_plain(*args)
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=1e-2,
+                                   atol=1e-2)
+    torch.testing.assert_close(st, ref_st, rtol=0, atol=1e-5)
+
+
+@requires_cuda
 def test_cuda_wkv6_kernel_takes_mixed_layouts(cuda_device):
     """r/k/v/w with different strides (contiguous, and transposed views)
     give the plain version's result within 1e-5 at fp32."""

@@ -8,6 +8,8 @@ They are module-level functions so that ``spawn`` can pickle them.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
@@ -231,19 +233,30 @@ TRAIN_BATCH = (4, 16)          # global (batch, sequence) of a train step
 TRAIN_LR = 1e-2
 
 
+SMOKE_ARCHS = {"gemma": "gemma-2b", "gemma3": "gemma3-1b",
+               "jamba": "jamba-1.5-large-398b", "rwkv6": "rwkv6-1.6b",
+               "qwen2moe": "qwen2-moe-a2.7b", "arctic": "arctic-480b"}
+
+
 def train_cfg(name: str):
     """The meshed-training configs: ``tiny`` (4 heads, 2 KV heads, which
     split over model = 2), ``gemma`` (gemma-2b's SMOKE: 4 heads, 1 KV
     head, GeGLU, tied embeddings), ``gemma3`` (gemma3-1b's SMOKE: 1 KV
     head, sliding layers whose decode ring of 8 slots splits over
-    model = 2) and ``odd`` (3 heads: the context-parallel attention at
-    model = 2), all fp32."""
-    from repro_torch.configs import gemma3_1b, gemma_2b
+    model = 2), ``odd`` (3 heads: the context-parallel attention at
+    model = 2), the SMOKE configs of ``jamba`` (mamba, attention, MoE
+    and dense layers), ``rwkv6``, ``qwen2moe`` (a shared expert) and
+    ``arctic`` (a dense residual beside the MoE; 1 KV head), and
+    ``moe3`` (qwen2-moe's SMOKE with 3 experts, which do not divide
+    model = 2: the experts' hidden columns split), all fp32."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
     from repro_torch.models.lm import LMConfig
-    if name == "gemma":
-        return gemma_2b.SMOKE
-    if name == "gemma3":
-        return gemma3_1b.SMOKE
+    if name in SMOKE_ARCHS:
+        return get_smoke_config(SMOKE_ARCHS[name])
+    if name == "moe3":
+        return dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                                   name="moe3", n_experts=3)
     heads = {"tiny": (4, 2), "odd": (3, 3)}[name]
     return LMConfig(name=name, n_layers=2, d_model=48 if name == "odd"
                     else 64, n_heads=heads[0], n_kv_heads=heads[1],
@@ -254,22 +267,29 @@ def train_cfg(name: str):
 MOE_GROUP_TOKENS = "32"     # the global 4 x 16 batch: a group a data rank
 
 
+@contextmanager
+def moe_groups(cfg, tokens: str):
+    """``REPRO_MOE_GROUP_TOKENS`` set to ``tokens`` while a config with
+    MoE layers runs, so that a meshed run, each data rank routing its own
+    rows, and the one-process run group the same rows."""
+    import os
+    old = os.environ.get("REPRO_MOE_GROUP_TOKENS")
+    if cfg.n_experts:
+        os.environ["REPRO_MOE_GROUP_TOKENS"] = tokens
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_MOE_GROUP_TOKENS", None)
+        else:
+            os.environ["REPRO_MOE_GROUP_TOKENS"] = old
+
+
 def moe_train(mesh=None):
     """``run_train`` of qwen2-moe's SMOKE config (AdamW), its MoE groups
     ``MOE_GROUP_TOKENS`` tokens: on (2,1) each rank's rows are one group,
     as the one-process run's two groups."""
-    import os
-    from repro_torch.configs import get_smoke_config
-    old = os.environ.get("REPRO_MOE_GROUP_TOKENS")
-    os.environ["REPRO_MOE_GROUP_TOKENS"] = MOE_GROUP_TOKENS
-    try:
-        return run_train(get_smoke_config("qwen2-moe-a2.7b"), "adamw", 1,
-                         mesh)
-    finally:
-        if old is None:
-            del os.environ["REPRO_MOE_GROUP_TOKENS"]
-        else:
-            os.environ["REPRO_MOE_GROUP_TOKENS"] = old
+    return run_train(train_cfg("qwen2moe"), "adamw", 1, mesh)
 
 
 def moe_train_rank(rank, world):
@@ -292,15 +312,20 @@ def train_batches(cfg, n: int = 2, seed: int = 11):
 def run_train(cfg, optimizer, accum, mesh=None, device="cpu"):
     """Two steps of ``optimizer`` from seed-0 parameters: the first
     step's gradients, each step's loss, grad norm, parameters and
-    optimizer state (the rank's pieces on a mesh), and the coordinates."""
+    optimizer state (the rank's pieces on a mesh), and the coordinates.
+    MoE layers group ``MOE_GROUP_TOKENS`` tokens."""
+    with moe_groups(cfg, MOE_GROUP_TOKENS):
+        return _run_train(cfg, optimizer, accum, mesh, device)
+
+
+def _run_train(cfg, optimizer, accum, mesh, device):
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import coords
-    from repro_torch.models import lm as LM
     from repro_torch.optim.functional import tree_leaves
     kw = {"momentum": 0.9} if optimizer == "sgd" else {}
-    params = LM.init_params(cfg, seed=0, device=device)
+    # on a mesh the rank's pieces are drawn leaf by leaf
     state = T.init_train_state(cfg, optimizer=optimizer, lr=TRAIN_LR,
-                               device=device, mesh=mesh, params=params)
+                               device=device, mesh=mesh)
     if kw:
         from repro_torch.optim.functional import make_optimizer
         state["opt"] = make_optimizer(optimizer, lr=TRAIN_LR, **kw)[0](
@@ -385,12 +410,16 @@ def decode_prompts(cfg, seed: int = 31):
                          generator=gen)
 
 
+# the prefill's MoE groups: a data rank's rows of the (2,2) mesh
+DECODE_GROUP_TOKENS = str(DECODE_ROWS * DECODE_PROMPT // 2)
+
+
 def greedy_run(cfg, params, mesh=None, device="cpu", dtype=torch.float32):
     """The meshed (or one-process) prefill's greedy token after the
     prompt, then the prompt fed through the serve step one token a step
     and ``DECODE_STEPS`` greedy tokens: (the prefill's tokens, the
-    decode's, the serve step's log-sum-exp merges)."""
-    from repro_torch.distributed import sharding as S
+    decode's, the serve step's log-sum-exp merges).  On a mesh the cache
+    is the rank's pieces (``init_cache(mesh=)``)."""
     from repro_torch.launch import train as T
     from repro_torch.models import lm as LM
     prompts = decode_prompts(cfg).to(device)
@@ -398,11 +427,10 @@ def greedy_run(cfg, params, mesh=None, device="cpu", dtype=torch.float32):
     prefill = T.make_prefill_step(cfg, device=device, mesh=mesh)
     serve = T.make_serve_step(cfg, batch=DECODE_ROWS, max_seq=max_seq,
                               cache_dtype=dtype, device=device, mesh=mesh)
-    cache = LM.init_cache(cfg, DECODE_ROWS, max_seq, dtype, device)
-    if mesh is not None:
-        cache = T.shard_tree(mesh, S.cache_specs(cfg, cache, mesh), cache)
-    first = T.greedy_tokens(prefill(params, {"tokens": prompts})[:, -1],
-                            mesh, cfg.vocab_size)
+    cache = LM.init_cache(cfg, DECODE_ROWS, max_seq, dtype, device, mesh)
+    with moe_groups(cfg, DECODE_GROUP_TOKENS):
+        logits = prefill(params, {"tokens": prompts})
+    first = T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size)
     for t in range(DECODE_PROMPT):
         logits, _ = serve(params, cache, prompts[:, t:t + 1], t)
     out = [T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size)]
@@ -415,18 +443,16 @@ def greedy_run(cfg, params, mesh=None, device="cpu", dtype=torch.float32):
 
 
 def mesh_decode_rank(rank, world, shapes, names):
-    """``greedy_run`` on each mesh of ``shapes`` for each config."""
+    """``greedy_run`` on each mesh of ``shapes`` for each config, the
+    parameters drawn as the rank's pieces (``init_pieces``)."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.train import shard_tree
-    from repro_torch.distributed import sharding as S
-    from repro_torch.models import lm as LM
+    from repro_torch.launch.train import init_pieces
     res = {}
     for shape in shapes:
         mesh = make_mesh(tuple(shape), ("data", "model"))
         for name in names:
             cfg = train_cfg(name)
-            full = LM.init_params(cfg, seed=0, device="cpu")
-            params = shard_tree(mesh, S.param_specs(cfg, full, mesh), full)
+            params = init_pieces(cfg, mesh, seed=0, device="cpu")
             res[(tuple(shape), name)] = greedy_run(cfg, params, mesh)
     return res
 
@@ -500,11 +526,43 @@ def train_loop_rank(rank, world, shape, directory):
                       mesh=mesh)
 
 
+FORWARD_TOKENS = (2, 16)
+
+
+def forward_tokens(cfg, seed: int = 41) -> np.ndarray:
+    return np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, FORWARD_TOKENS).astype(np.int32)
+
+
+def mesh_forward_rank(rank, world, shape, name, tree):
+    """The meshed prefill step's logits (gathered whole over ``model``) of
+    config ``name`` from the reference's parameter pytree ``tree`` (numpy
+    arrays), on the tokens of ``forward_tokens``."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    cfg = train_cfg(name)
+    full = LM.params_from_numpy(cfg, tree, device="cpu")
+    params = T.shard_tree(mesh, S.param_specs(cfg, full, mesh), full)
+    prefill = T.make_prefill_step(cfg, device="cpu", mesh=mesh)
+    tokens = torch.from_numpy(forward_tokens(cfg)).long()
+    logits = prefill(params, {"tokens": tokens})
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = S.gather_leaf(mesh, S.P(None, None, "model"), logits)
+    return logits
+
+
 def jobs_rank(rank, world, jobs):
     """Several rank functions of this module in one process group, in
-    order: ``jobs`` is ``[(name, args), ...]``; returns ``{name: result}``.
-    One group for many checks saves the ranks' start-up."""
+    order: ``jobs`` is ``[(name, args), ...]``; returns ``{name: result}``
+    (a name given twice merges its dict results).  One group for many
+    checks saves the ranks' start-up."""
     import sys
     mod = sys.modules[__name__]
-    return {name: getattr(mod, name)(rank, world, *args)
-            for name, args in jobs}
+    out = {}
+    for name, args in jobs:
+        res = getattr(mod, name)(rank, world, *args)
+        out[name] = {**out[name], **res} if name in out else res
+    return out
