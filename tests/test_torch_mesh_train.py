@@ -72,7 +72,7 @@ MODEL_4 = (1, 4)
 MODEL_4_CASES = [("jamba", "adamw", 1), ("rwkv6", "adamw", 1)]
 MODEL_4_NAMES = ("jamba", "rwkv6")
 
-# The limits of the train-step tests: PR 31's for every case but three,
+# The limits of the train-step tests: LIMITS for every case but three,
 # whose fp32 steps are worse conditioned (measured on the CPU):
 #   * jamba's SMOKE (eight layers, six of them mamba): a change of its
 #     weights by 1e-7 relative moves its step-1 gradients by up to 2.6e-5
