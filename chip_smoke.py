@@ -73,8 +73,8 @@ path:
     rank where there are enough, else gloo with the ranks sharing
     ``cuda:0``): fp32 gemma-2b cut to 2 layers on (2,1), (1,2), (2,2),
     greedy and sampled, equal to the no-mesh engine, and bf16 gemma-2b
-    at full depth on (1,2) (its one KV head context-parallel) and (2,2)
-    (``sharded_serving``); DDP's synced gradients against one process's
+    at full width cut to ``SHARDED_BF16_LAYERS`` layers on (1,2) (its
+    one KV head context-parallel) and (2,2) (``sharded_serving``); DDP's synced gradients against one process's
     full batch (``ddp``) and a 4-stage pipeline against the sequential
     composition (``pipeline``);
   * meshed training and decode (``launch.train``'s steps with
@@ -83,10 +83,11 @@ path:
     decode shape and at a rank's half of its slots, bf16 and fp32, with
     and without lse: the output's bits unchanged); ``sharded_train``:
     fp32 gemma-2b at full width cut to 2 layers on (2,1), (1,2), (2,2),
-    2 AdamW steps on a global 4 x 256 batch, each against the
-    one-process step on the card from the same state (loss, grad norm,
-    the assembled gradients, moments and parameters), and bf16 gemma-2b
-    at full width and depth (remat "full", 4 x 1024) on (2,2) and (1,2):
+    ``SHARDED_TRAIN_STEPS`` AdamW step(s) on a global 4 x 256 batch,
+    each against the one-process step on the card from the same state
+    (loss, grad norm, the assembled gradients, moments and parameters),
+    and bf16 gemma-2b at full width cut to ``SHARDED_TRAIN_BF16_LAYERS``
+    layers (remat "full", 4 x 1024) on (2,2) and (1,2):
     tokens/s, GB a rank, collectives and staged bytes a step, and a
     checkpoint save's device peak (``save_peak``: the largest leaf
     gathered as a save gathers it, one leaf at a time);
@@ -4288,9 +4289,11 @@ LSE_CASES = (("bfloat16", "bfloat16"), ("float32", "float32"))
 # replicas on one card: turns of the 16 serving requests at n_replicas=2
 REPLICA_TURNS = 2
 # sharded serving: the fp32 parity meshes (gemma-2b at full width cut to
-# 2 layers, greedy and sampled), the bf16 full-depth meshes
+# 2 layers, greedy and sampled), the bf16 meshes (full width cut to
+# SHARDED_BF16_LAYERS of 18, for the script's time limit)
 SHARDED_MESHES = ((2, 1), (1, 2), (2, 2))
 SHARDED_BF16_MESHES = ((1, 2), (2, 2))
+SHARDED_BF16_LAYERS = 6
 SHARDED_PARITY_LAYERS = 2
 SHARDED_SEED = 5
 SHARDED_SAMPLED = dict(temperature=0.8, top_k=20, seed=42)
@@ -4306,9 +4309,13 @@ PIPE_TOL = (2e-4, 2e-5)            # the reference test's rtol, atol
 RANK_TIMEOUT = 900                 # seconds a group of ranks may take
 # meshed training (sharded_train): fp32 parity on the sharded serving
 # model (gemma-2b at full width cut to 2 layers), a global 4 x 256 batch,
-# 2 AdamW steps, each against the one-process step on the card from the
-# same state (rank 0 runs it); bf16 throughput on gemma-2b at full width,
-# remat "full", a global 4 x 1024 batch, 1 warm-up and 3 timed steps
+# SHARDED_TRAIN_STEPS AdamW steps, each against the one-process step on
+# the card from the same state (rank 0 runs it); bf16 throughput on
+# gemma-2b at full width cut to SHARDED_TRAIN_BF16_LAYERS, remat "full",
+# a global 4 x 1024 batch, 1 warm-up and 3 timed steps.  The parity's
+# step count (from 2) and the bf16 depth (from 18) are cut to keep the
+# script inside its time limit
+SHARDED_TRAIN_STEPS = 1
 SHARDED_TRAIN_BATCH = (4, 256)
 SHARDED_TRAIN_LR = 1e-3
 # loss and grad norm relative; gradients of each leaf's largest; AdamW's
@@ -4320,7 +4327,7 @@ SHARDED_TRAIN_TOL = {"loss": 1e-5, "grads": 1e-5, "moments": 1e-5,
                      "params": 1e-5, "params_beyond_frac": 1e-2}
 SHARDED_TRAIN_BF16_MESHES = ((2, 2), (1, 2))
 SHARDED_TRAIN_BF16_BATCH = (4, 1024)
-SHARDED_TRAIN_BF16_LAYERS = 18     # gemma-2b's depth
+SHARDED_TRAIN_BF16_LAYERS = 6      # of gemma-2b's 18
 SHARDED_TRAIN_BF16_STEPS = (1, 3)  # warm-up, timed
 # sharded_decode: the sharded serving model at fp32 through the meshed
 # prefill and serve steps, 8 rows, 8-token prompts fed one token a step,
@@ -4345,8 +4352,10 @@ SLIDING_TOL = 1e-3
 ELASTIC_BATCH = (4, 64)
 # meshed_blocks: MoE, mamba and rwkv blocks on a model axis of 2, in
 # phase_sharded's rank groups ((1,2) in the 2-rank group, (2,2) in the
-# 4-rank one).  meshed_blocks_parity (fp32): the train step, 2 AdamW
-# steps on a global 4 x 64 batch, against the one-process step rank 0
+# 4-rank one).  meshed_blocks_parity (fp32): the train step,
+# BLOCKS_PARITY_STEPS AdamW steps on a global 4 x 64 batch (qwen2-moe's
+# cut to 1 of 2 for the script's time limit; its depth is 1
+# already), against the one-process step rank 0
 # runs on the card (every rank waiting with its cache emptied), on
 # jamba's SMOKE config and on qwen2-moe-a2.7b and rwkv6-1.6b at full
 # width cut to BLOCKS_LAYERS; the MoE groups a data rank's rows at (2,2).
@@ -4364,6 +4373,7 @@ BLOCKS_MODELS = ("jamba", "qwen2-moe", "rwkv6")
 # (1,2) and 168 on (2,2) (7.3 GB at fp32; measured on one H100),
 # so its depth is cut to 1 of 24, in decode too
 BLOCKS_LAYERS = {"jamba": 2, "qwen2-moe": 1, "rwkv6": 2}
+BLOCKS_PARITY_STEPS = {"jamba": 2, "qwen2-moe": 1, "rwkv6": 2}
 BLOCKS_TRAIN_BATCH = (4, 64)
 BLOCKS_GROUP_TOKENS = 128          # 4 x 64 tokens over 2 data ranks
 # SHARDED_TRAIN_TOL's limits (the loss and grad norm within 1e-6)
@@ -4392,6 +4402,32 @@ BLOCKS_RECORD_TOL = 1e-4
 BLOCKS_DECODE_GROUP_TOKENS = 32     # the prefill's 8 x 8 over 2 data ranks
 BLOCKS_BF16 = (("jamba", ((1, 2),)), ("rwkv6", ((1, 2), (2, 2))))
 BLOCKS_BF16_DECODE = (8, 16)        # rows, steps
+# meshed_seq_shard: REPRO_SEQ_SHARD=1 (a sequence-sharded residual
+# stream) on (1,2), in phase_sharded's 2-rank group.  yi-34b at full
+# width (56 heads, 8 KV heads, head_dim 128, d_ff 20480, vocab 64000),
+# the config the switch was made for, cut to SEQ_LAYERS of its 60
+# layers: bf16, remat "full", AdamW, SEQ_TRAIN_STEPS steps at 1 x 4096
+# (train_4k's length) from the seed's state; a prefill of 1 x 32768
+# (prefill_32k's length) that fills the cache, then SEQ_DECODE_STEPS
+# greedy steps (the tokens of every turn must be equal).  Each runs in
+# the turns of SEQ_TURNS, the switch on and off, after one untimed
+# warm-up (the first call of a process pays for its pinned host buffers
+# and library handles); PERF.md's turns on, off, off, on came from the
+# phase alone.  fp32 parity: one AdamW step of yi's
+# SMOKE config (7 heads) and of SEQ_ODD (3 heads: neither divides
+# model = 2, so every head runs on the rank's rows) with the switch on,
+# against the one-process step, at the CPU tests' limits
+# (tests/test_torch_mesh_train.py: the loss and grad norm within 1e-6
+# relative, the gradients within 1e-5 of each leaf's largest)
+SEQ_MESH = (1, 2)
+SEQ_LAYERS = 2
+SEQ_TRAIN_BATCH = (1, 4096)
+SEQ_TRAIN_STEPS = 2
+SEQ_PREFILL = (1, 32768)
+SEQ_DECODE_STEPS = 8
+SEQ_TURNS = (True, False)
+SEQ_WARM = (1, 512)                 # the warm-up prefill's tokens
+SEQ_PARITY_TOL = {**SHARDED_TRAIN_TOL, "loss": 1e-6, "small_grads": 0.0}
 
 
 def phase_paged_lse(torch, dev) -> list:
@@ -4702,13 +4738,15 @@ def rank_sharded_parity(torch, dev, rank, world, shapes) -> dict:
 
 
 def rank_sharded_bf16(torch, dev, rank, world, shapes) -> dict:
-    """bf16 gemma-2b at full width and depth on each mesh of ``shapes``:
-    the 16 serving requests, this rank's tokens/s, launches, merges and
-    peak GB (while the engine shards the weights, and while it serves)."""
+    """bf16 gemma-2b at full width (``SHARDED_BF16_LAYERS`` layers) on
+    each mesh of ``shapes``: the 16 serving requests, this rank's
+    tokens/s, launches, merges and peak GB (while the engine shards the
+    weights, and while it serves)."""
     from repro_torch.configs import gemma_2b
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm as LM
-    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16,
+                              n_layers=SHARDED_BF16_LAYERS)
     requests = serving_requests(torch, cfg)
     res = {}
     for shape in shapes:
@@ -4972,7 +5010,8 @@ def rank_sharded_train(torch, dev, rank, world, shapes) -> dict:
         free(torch)
         step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR, device=dev,
                                  mesh=mesh)
-        batches = train_batches(torch, cfg, SHARDED_TRAIN_BATCH, 91)
+        batches = train_batches(torch, cfg, SHARDED_TRAIN_BATCH, 91,
+                                SHARDED_TRAIN_STEPS)
         tally, out = {}, {"loss": [], "grad_norm": [], "ref_loss": [],
                           "ref_grad_norm": [], "errors": {}}
         ref_grads = ref_step.compute(ref["params"], batches[0])[1] \
@@ -5315,9 +5354,10 @@ def blocks_cfg(torch, name: str, run: str):
     return cfg
 
 
-def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float) -> dict:
-    """Two AdamW steps of the meshed train step on ``mesh`` against the
-    one-process step.  Before each meshed step rank 0 runs the
+def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float,
+                      steps: int = 2) -> dict:
+    """``steps`` AdamW steps of the meshed train step on ``mesh`` against
+    the one-process step.  Before each meshed step rank 0 runs the
     one-process step while every rank waits with its cache emptied (the
     first from ``SHARDED_SEED``; its state stays on the card, the first
     step's gradients go to host memory); each rank's pieces of the
@@ -5335,7 +5375,7 @@ def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float) -> dict:
     leaf_specs = T.spec_leaves(T.state_specs(cfg, mesh, lr=lr)["params"],
                                LM.abstract_params(cfg))
     first = rank == 0
-    batches = train_batches(torch, cfg, BLOCKS_TRAIN_BATCH, 96)
+    batches = train_batches(torch, cfg, BLOCKS_TRAIN_BATCH, 96, steps)
     held = {}
 
     def ref_run(batch, with_grads: bool):
@@ -5415,7 +5455,8 @@ def rank_blocks_parity(torch, dev, rank, world, shapes) -> dict:
             with moe_group_tokens(BLOCKS_GROUP_TOKENS):
                 out = blocks_parity_run(torch, dev, rank, mesh,
                                         blocks_cfg(torch, name, "parity"),
-                                        tol["small_grads"])
+                                        tol["small_grads"],
+                                        BLOCKS_PARITY_STEPS[name])
             res[(tuple(shape), name)] = dict(
                 out, tol=tol, phase_seconds=time.perf_counter() - t0)
     return res
@@ -5525,6 +5566,184 @@ def rank_blocks_bf16(torch, dev, rank, world, runs) -> dict:
         # where nothing was gathered): dropped with it
         del params, cache, logits, serve, prefill
         free(torch)
+    return res
+
+
+@contextmanager
+def seq_switch(on: bool):
+    """``REPRO_SEQ_SHARD=1`` inside when ``on`` (else unset), restored
+    after: a step reads it where it is built and where it runs."""
+    old = os.environ.pop("REPRO_SEQ_SHARD", None)
+    if on:
+        os.environ["REPRO_SEQ_SHARD"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_SEQ_SHARD", None)
+        if old is not None:
+            os.environ["REPRO_SEQ_SHARD"] = old
+
+
+def seq_model(torch):
+    """yi-34b at full width cut to ``SEQ_LAYERS`` layers, bf16, remat
+    "full"."""
+    from repro_torch.configs import yi_34b
+    return dataclasses.replace(yi_34b.CONFIG, n_layers=SEQ_LAYERS,
+                               remat="full")
+
+
+def seq_parity_cfgs(torch) -> dict:
+    """The fp32 parity configs: yi's SMOKE, and ``odd`` (3 heads and KV
+    heads, 2 layers)."""
+    from repro_torch.configs import yi_34b
+    from repro_torch.models.lm import LMConfig
+    return {"yi-smoke": yi_34b.SMOKE,
+            "odd": LMConfig(name="odd", n_layers=2, d_model=48, n_heads=3,
+                            n_kv_heads=3, head_dim=16, d_ff=128,
+                            vocab_size=96, param_dtype=torch.float32,
+                            remat="none")}
+
+
+@contextmanager
+def seq_block_rows(record: list):
+    """Inside, every block appends the rows of the residual stream it
+    took to ``record``."""
+    from repro_torch.models import lm as LM
+    inner = LM._apply_block
+
+    def apply_block(cfg, spec, p, x, *args, **kw):
+        record.append(x.shape[1])
+        return inner(cfg, spec, p, x, *args, **kw)
+
+    LM._apply_block = apply_block
+    try:
+        yield
+    finally:
+        LM._apply_block = inner
+
+
+def rank_seq_shard(torch, dev, rank, world) -> dict:
+    """The meshed_seq_shard runs on ``SEQ_MESH`` (constants above), each
+    turn of ``SEQ_TURNS`` with the switch on or off: the serve run
+    (prefill filling the cache, then the greedy steps: seconds, tokens,
+    launches, collectives, staged bytes, peak GB, the rows each prefill
+    block took) and the train run (each step's seconds and loss, GB held
+    and peak, launches, collectives and staged bytes, the rows each block
+    took); then the fp32 parity runs with the switch on."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    t_all = time.perf_counter()
+    mesh = make_mesh(SEQ_MESH, ("data", "model"))
+    cfg = seq_model(torch)
+    res = {"serve": [], "train": [], "parity": {}}
+    gen = torch.Generator().manual_seed(99)
+    prompt = torch.randint(0, cfg.vocab_size, SEQ_PREFILL, generator=gen)
+    rows, steps = SEQ_PREFILL[0], SEQ_DECODE_STEPS
+    max_seq = SEQ_PREFILL[1] + steps
+    free(torch)
+    params = T.init_pieces(cfg, mesh, seed=SHARDED_SEED, device=dev)
+    res["pieces_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    def serve_run(tokens, max_seq, counted: bool):
+        prefill = T.make_prefill_step(cfg, device=dev, mesh=mesh,
+                                      max_seq=max_seq)
+        serve = T.make_serve_step(cfg, batch=rows, max_seq=max_seq,
+                                  device=dev, mesh=mesh)
+        cache = LM.init_cache(cfg, rows, max_seq, torch.bfloat16, dev,
+                              mesh)
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        pre, dec, block_rows = {}, {}, []
+        with seq_block_rows(block_rows):
+            logits = meshed_run(torch, lambda: prefill(
+                params, {"tokens": tokens}, cache), pre)
+        prefill_gb = peak_gb(torch)
+        tok = T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size)
+        finite = bool(torch.isfinite(logits[:, -1].float()).all())
+        del logits
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        n = steps if counted else 2
+
+        def decode():
+            out = [tok]
+            for i in range(n - 1):
+                logits, _ = serve(params, cache, out[-1][:, None],
+                                  tokens.shape[1] + i)
+                out.append(T.greedy_tokens(logits[:, -1], mesh,
+                                           cfg.vocab_size))
+            return torch.stack(out, 1)
+
+        out = meshed_run(torch, decode, dec)
+        return {"tokens": out.cpu().tolist(), "finite": finite,
+                "prefill_s": pre["seconds"],
+                "prefill_tokens_per_s": tokens.numel() / pre["seconds"],
+                "prefill_peak_gb": prefill_gb,
+                "prefill_launches": pre["launches"],
+                "prefill_collectives": pre["collectives"],
+                "prefill_staged_gb": pre["staged_bytes"] / 1e9,
+                "prefill_block_rows": sorted(set(block_rows)),
+                "decode_ms_per_step": dec["seconds"] / (n - 1) * 1e3,
+                "decode_peak_gb": peak_gb(torch),
+                "decode_launches": dec["launches"],
+                "decode_collectives_per_step": dec["collectives"] / (n - 1)}
+
+    with seq_switch(False):                         # the warm-up
+        serve_run(prompt[:, :SEQ_WARM[1]], SEQ_WARM[1] + 2, False)
+    for on in SEQ_TURNS:
+        with seq_switch(on):
+            res["serve"].append((on, serve_run(prompt, max_seq, True)))
+        free(torch)
+    del params
+    free(torch)
+
+    def train_run(n_steps: int):
+        torch.cuda.reset_peak_memory_stats()
+        state = T.init_train_state(cfg, device=dev, mesh=mesh,
+                                   seed=SHARDED_SEED)
+        free(torch)
+        state_gb = torch.cuda.memory_allocated() / 1e9
+        step = T.make_train_step(cfg, device=dev, mesh=mesh)
+        batches = train_batches(torch, cfg, SEQ_TRAIN_BATCH, 100, n_steps)
+        torch.cuda.reset_peak_memory_stats()
+        seconds, losses, block_rows = [], [], []
+        tally = {}
+        with seq_block_rows(block_rows):
+            for batch in batches:
+                t0 = tally.get("seconds", 0.0)
+                state, m = meshed_run(torch, lambda: step(state, batch),
+                                      tally)
+                seconds.append(tally["seconds"] - t0)
+                losses.append(float(m["loss"]))
+        del state, step
+        free(torch)
+        return {"s_per_step": seconds,
+                "tokens_per_s": [math.prod(SEQ_TRAIN_BATCH) / t
+                                 for t in seconds],
+                "losses": losses, "held_gb": state_gb,
+                "step_peak_gb": peak_gb(torch),
+                "launches_per_step": {k: c / n_steps for k, c in
+                                      tally["launches"].items()},
+                "launches": tally["launches"],
+                "collectives_per_step": tally["collectives"] / n_steps,
+                "staged_gb_per_step": tally["staged_bytes"] / n_steps
+                / 1e9,
+                "block_rows": sorted(set(block_rows))}
+
+    with seq_switch(False):                         # the warm-up
+        train_run(1)
+    for on in SEQ_TURNS:
+        with seq_switch(on):
+            res["train"].append((on, train_run(SEQ_TRAIN_STEPS)))
+    with seq_switch(True):
+        for name, pcfg in seq_parity_cfgs(torch).items():
+            t0 = time.perf_counter()
+            out = blocks_parity_run(torch, dev, rank, mesh, pcfg,
+                                    SEQ_PARITY_TOL["small_grads"], steps=1)
+            res["parity"][name] = dict(
+                out, phase_seconds=time.perf_counter() - t0)
+    res["phase_seconds"] = time.perf_counter() - t_all
     return res
 
 
@@ -5638,9 +5857,10 @@ def phase_sharded(torch, dev) -> dict:
     sharded_decode's (1,2), elastic_restore onto (1,2)), NCCL with a card
     a rank where there are enough, else gloo with every rank on
     ``cuda:0`` (the kernels on the card, the collectives staged through
-    host memory).  Returns the paged-kernel launches of each bf16 serving
-    rank, and the flash and decode launches of each meshed training and
-    decode rank."""
+    host memory).  The meshed-blocks jobs run in both groups and the
+    sequence-sharded ones (``rank_seq_shard``) last in the 2-rank group.
+    Returns the paged-kernel launches of each bf16 serving rank, and the
+    flash and decode launches of each meshed training and decode rank."""
     from repro_torch.launch.mesh import default_backend, run_ranks
 
     cfg, params = sharded_parity_model(torch, dev)
@@ -5680,6 +5900,8 @@ def phase_sharded(torch, dev) -> dict:
                  ("rank_blocks_bf16", ([(n, m) for n, ms in BLOCKS_BF16
                                         for m in ms
                                         if m[0] * m[1] == world],))]
+        if world == 2:
+            jobs.append(("rank_seq_shard", ()))
         t0 = time.perf_counter()
         groups[world] = run_ranks(rank_jobs, world, (jobs, dev),
                                   timeout=RANK_TIMEOUT)
@@ -5716,7 +5938,8 @@ def phase_sharded(torch, dev) -> dict:
         same = all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
         line = {"phase": "sharded_serving", "run": "bf16",
                 "mesh": list(shape), "ranks": world,
-                "backend": default_backend(world), "layers": 18,
+                "backend": default_backend(world),
+                "layers": SHARDED_BF16_LAYERS, "layers_of": 18,
                 "requests": MAX_BATCH,
                 "tokens_per_s": [r["tokens_per_s"] for r in ranks],
                 "steps": ranks[0]["steps"],
@@ -5741,7 +5964,9 @@ def phase_sharded(torch, dev) -> dict:
                                    ckpt_dir)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     blocks = phase_meshed_blocks(torch, dev, groups, blocks_base)
-    return {"paged_attention": bf16, **meshed, "meshed_blocks": blocks}
+    seq = phase_meshed_seq_shard(torch, dev, groups)
+    return {"paged_attention": bf16, **meshed, "meshed_blocks": blocks,
+            "meshed_seq_shard": seq}
 
 
 def phase_meshed_blocks(torch, dev, groups, base) -> dict:
@@ -5779,6 +6004,7 @@ def phase_meshed_blocks(torch, dev, groups, base) -> dict:
                     "model": cfg.name, "layers": cfg.n_layers,
                     "d_model": cfg.d_model, "dtype": "float32",
                     "batch": list(BLOCKS_TRAIN_BATCH), "optimizer": "adamw",
+                    "steps": BLOCKS_PARITY_STEPS[name],
                     "lr": SHARDED_TRAIN_LR,
                     "loss": [r["loss"] for r in ranks],
                     "one_process_loss": r0["ref_loss"],
@@ -5792,19 +6018,11 @@ def phase_meshed_blocks(torch, dev, groups, base) -> dict:
                     "seconds": max(r["phase_seconds"] for r in ranks)}
             emit(line)
             seconds[f"parity_{name}_{mesh}"] = line["seconds"]
-            params_ok = all(
-                e["within_2lr"] and e["beyond"] <= max(
-                    1, tol["params_beyond_frac"] * e["elements"])
-                for k, e in errs.items() if k.startswith("params"))
             kernels = mixers[name][:-1] if name != "rwkv6" else \
                 mixers[name]
-            good = params_ok and loss_rel <= tol["loss"] and \
-                gnorm_rel <= tol["loss"] and \
-                errs["grads"]["rel"] <= tol["grads"] and all(
-                    e["rel"] <= tol["moments"] * (2 if k[0] == "v" else 1)
-                    for k, e in errs.items() if k[0] in "mv") and all(
-                    r["launches"].get(k, 0) > 0 for r in ranks
-                    for k in kernels)
+            good = parity_within(errs, loss_rel, gnorm_rel, tol) and all(
+                r["launches"].get(k, 0) > 0 for r in ranks
+                for k in kernels)
             ok = ok and good
             counts[f"parity_{name}_{mesh}"] = {
                 k: [r["launches"].get(k, 0) for r in ranks]
@@ -5907,6 +6125,129 @@ def phase_meshed_blocks(torch, dev, groups, base) -> dict:
     return counts
 
 
+def parity_within(errs: dict, loss_rel: float, gnorm_rel: float,
+                  tol: dict) -> bool:
+    """Whether a ``blocks_parity_run``'s errors are within ``tol``: the
+    loss and grad norm, the gradients, AdamW's m (and v at twice the
+    moments' limit), the parameters within 2 lr and all but
+    ``params_beyond_frac`` of a leaf's elements within 1e-5 of its
+    largest."""
+    params_ok = all(
+        e["within_2lr"] and e["beyond"] <= max(
+            1, tol["params_beyond_frac"] * e["elements"])
+        for k, e in errs.items() if k.startswith("params"))
+    return params_ok and loss_rel <= tol["loss"] and \
+        gnorm_rel <= tol["loss"] and \
+        errs["grads"]["rel"] <= tol["grads"] and all(
+            e["rel"] <= tol["moments"] * (2 if k[0] == "v" else 1)
+            for k, e in errs.items() if k[0] in "mv")
+
+
+def phase_meshed_seq_shard(torch, dev, groups) -> dict:
+    """The lines of the 2-rank group's ``rank_seq_shard`` job
+    (``meshed_seq_shard_model``, ``meshed_seq_shard_serve``,
+    ``meshed_seq_shard_train``, ``meshed_seq_shard_parity``,
+    ``meshed_seq_shard_seconds``), each checked: the decode tokens with
+    the switch on equal to those with it off, finite logits, the flash
+    kernel launched in every prefill and train run and the decode kernel
+    in every decode run on every rank, each switch-on block given the
+    rank's S/m rows, finite losses, the fp32 parity within
+    ``SEQ_PARITY_TOL``.  Returns each rank's launches by run."""
+    from repro_torch.launch.mesh import default_backend
+    t0 = time.perf_counter()
+    ranks = [g["rank_seq_shard"] for g in groups[2]]
+    cfg = seq_model(torch)
+    m = SEQ_MESH[1]
+    base = {"mesh": list(SEQ_MESH), "ranks": 2,
+            "backend": default_backend(2), "model": cfg.name}
+    emit({"phase": "meshed_seq_shard_model", **base,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+          "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+          "layers": cfg.n_layers, "layers_of": 60,
+          "params": lm_param_count(cfg), "dtype": "bfloat16",
+          "pieces_gb": [r["pieces_gb"] for r in ranks]})
+    ok, counts = True, {}
+    first = ranks[0]["serve"][0][1]["tokens"]
+    for turn, on in enumerate(SEQ_TURNS):
+        runs = [r["serve"][turn][1] for r in ranks]
+        line = {"phase": "meshed_seq_shard_serve", **base, "turn": turn,
+                "seq_shard": on, "prefill": list(SEQ_PREFILL),
+                "decode_steps": SEQ_DECODE_STEPS,
+                **{k: [x[k] for x in runs] for k in (
+                    "prefill_s", "prefill_tokens_per_s", "prefill_peak_gb",
+                    "prefill_launches", "prefill_collectives",
+                    "prefill_staged_gb", "prefill_block_rows",
+                    "decode_ms_per_step", "decode_peak_gb",
+                    "decode_launches", "decode_collectives_per_step",
+                    "finite")},
+                "tokens": runs[0]["tokens"],
+                "tokens_equal_first_turn": all(x["tokens"] == first
+                                               for x in runs)}
+        emit(line)
+        rows = SEQ_PREFILL[1] // (m if on else 1)
+        ok = ok and line["tokens_equal_first_turn"] and all(
+            x["finite"] and x["prefill_block_rows"] == [rows]
+            and x["prefill_launches"].get("flash_attention", 0) > 0
+            and x["decode_launches"].get("decode_attention", 0) > 0
+            for x in runs)
+        tag = f"turn{turn}_{'on' if on else 'off'}"
+        counts[f"prefill_{tag}"] = {"flash_attention": [
+            x["prefill_launches"].get("flash_attention", 0) for x in runs]}
+        counts[f"decode_{tag}"] = {"decode_attention": [
+            x["decode_launches"].get("decode_attention", 0) for x in runs]}
+    for turn, on in enumerate(SEQ_TURNS):
+        runs = [r["train"][turn][1] for r in ranks]
+        line = {"phase": "meshed_seq_shard_train", **base, "turn": turn,
+                "seq_shard": on, "batch": list(SEQ_TRAIN_BATCH),
+                "steps": SEQ_TRAIN_STEPS, "optimizer": "adamw",
+                "remat": cfg.remat,
+                **{k: [x[k] for x in runs] for k in (
+                    "tokens_per_s", "s_per_step", "losses", "held_gb",
+                    "step_peak_gb", "launches_per_step",
+                    "collectives_per_step", "staged_gb_per_step",
+                    "block_rows")}}
+        emit(line)
+        rows = SEQ_TRAIN_BATCH[1] // (m if on else 1)
+        ok = ok and all(
+            x["block_rows"] == [rows] and all(
+                math.isfinite(v) for v in x["losses"])
+            and x["launches"].get("flash_attention", 0) > 0 for x in runs)
+        counts[f"train_turn{turn}_{'on' if on else 'off'}"] = {
+            "flash_attention": [x["launches"].get("flash_attention", 0)
+                                for x in runs]}
+    tol = SEQ_PARITY_TOL
+    for name, pcfg in seq_parity_cfgs(torch).items():
+        runs = [r["parity"][name] for r in ranks]
+        r0 = runs[0]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(r0["loss"], r0["ref_loss"]))
+        gnorm_rel = max(abs(a - b) / abs(b) for a, b in
+                        zip(r0["grad_norm"], r0["ref_grad_norm"]))
+        good = parity_within(r0["errors"], loss_rel, gnorm_rel, tol) and \
+            all(x["launches"].get("flash_attention", 0) > 0 for x in runs)
+        emit({"phase": "meshed_seq_shard_parity", **base, "model": name,
+              "n_heads": pcfg.n_heads, "n_kv_heads": pcfg.n_kv_heads,
+              "seq_shard": True, "dtype": "float32",
+              "batch": list(BLOCKS_TRAIN_BATCH), "steps": 1,
+              "loss": [x["loss"] for x in runs],
+              "one_process_loss": r0["ref_loss"],
+              "loss_max_rel_err": loss_rel,
+              "grad_norm_max_rel_err": gnorm_rel, "errors": r0["errors"],
+              "tol": tol, "within": good,
+              "launches": [x["launches"] for x in runs],
+              "collectives": [x["collectives"] for x in runs],
+              "seconds": max(x["phase_seconds"] for x in runs)})
+        ok = ok and good
+    emit({"phase": "meshed_seq_shard_seconds",
+          "rank_seconds": [r["phase_seconds"] for r in ranks],
+          "check_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("meshed_seq_shard: a check failed (lines "
+                             "above)")
+    return counts
+
+
 def phase_meshed_training(torch, dev, groups, decode_base, ckpt_dir
                           ) -> dict:
     """The lines of the meshed training and decode jobs the rank groups
@@ -5933,6 +6274,7 @@ def phase_meshed_training(torch, dev, groups, decode_base, ckpt_dir
                 "mesh": list(shape), "ranks": world, "model": "gemma-2b",
                 "layers": SHARDED_PARITY_LAYERS,
                 "batch": list(SHARDED_TRAIN_BATCH), "optimizer": "adamw",
+                "steps": SHARDED_TRAIN_STEPS,
                 "lr": SHARDED_TRAIN_LR,
                 "loss": [r["loss"] for r in ranks],
                 "one_process_loss": r0["ref_loss"],
@@ -6397,6 +6739,12 @@ def run_phases(torch, dev) -> list:
             entry["meshed_blocks_launches"] = {
                 run: n[name] for run, n in sharded["meshed_blocks"].items()
                 if name in n}
+        if name in ("flash_attention", "decode_attention"):
+            # yi-34b's runs with REPRO_SEQ_SHARD=1 and without: each
+            # rank's, by run
+            entry["meshed_seq_shard_launches"] = {
+                run: n[name] for run, n in
+                sharded["meshed_seq_shard"].items() if name in n}
         profiled = {"paged_attention": paged_profile,
                     "gumbel_perturb": gumbel_profile,
                     "flash_attention": flash_profile,

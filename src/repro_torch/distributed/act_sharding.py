@@ -71,10 +71,59 @@ What each rank computes in a scope over a ``DeviceMesh`` of ``data`` and
     ``model`` by ``cache_specs``, are gathered to read and sliced to
     write.  A mamba or rwkv layer whose channels or heads do not divide
     ``model`` runs whole on every rank;
-  * MLA runs whole on every rank in training; MLA decode and
-    ``REPRO_SEQ_SHARD=1`` need a ``model`` axis of 1, Adafactor a mesh
-    of one rank (``launch.train.check_mesh`` raises
-    :class:`MeshTrainingError`; ROADMAP.md queue A7c).
+  * MLA runs whole on every rank in training; MLA decode needs a
+    ``model`` axis of 1, Adafactor a mesh of one rank
+    (``launch.train.check_mesh`` raises :class:`MeshTrainingError`;
+    ROADMAP.md queue A7c).
+
+Under ``REPRO_SEQ_SHARD=1``, in a forward whose sequence S a ``model``
+axis of m > 1 ranks divides (:func:`seq_sharded`: the meshed train and
+prefill steps), the residual stream is sequence-sharded as
+``spec_for("btd")`` says: between blocks, and through the norms and the
+residual adds, a rank holds its S/m positions (rank i the positions
+[i S/m, (i+1) S/m)).  Inside a block it computes:
+
+  * Megatron's sequence parallelism where the layer is tensor parallel
+    (attention whose query heads divide ``model``, the split dense MLP,
+    mamba's channels): the input is all-gathered along S where the plan
+    above would copy it to the model group (:func:`copy_to_model` with
+    ``seq``; the backward reduce-scatters), and the partial output
+    reduce-scattered to the rank's rows where the plan would all-reduce
+    it (:func:`reduce_from_model` with ``seq``; the backward gathers).
+    ``param_specs``' layouts stay as they are and no weight is gathered
+    over ``model``;
+  * attention whose query heads do not divide ``model`` (``param_spec``
+    then leaves its weights unsplit over ``model``), the ``"rows"``
+    plan: the rank projects its own rows, ropes them at their absolute
+    positions and attends through ``models.attention.context_sdpa``
+    (K/V gathered along S); causal, sliding-window and bidirectional
+    alike.  A dense MLP whose hidden width does not divide ``model``
+    runs on the rows too.  A replicated weight used on the rank's rows
+    (these, and every norm's) has its gradient summed over ``model``;
+  * MoE (and its dense residual), MLA, rwkv, and a mamba layer that runs
+    whole: the input is gathered whole along S (:func:`whole_sequence`),
+    the layer runs its plan above on the whole sequence, and the rank
+    keeps its rows of the output (:func:`own_rows`).  So MoE's capacity
+    dispatch, token groups and aux loss, the scans, the token shift and
+    the causal conv see the whole sequence, as under GSPMD;
+  * the embedding's vocabulary-parallel lookup is reduce-scattered to
+    the rank's rows (a whole table's lookup is sliced); the rows are
+    gathered whole along S before the final norm and the head, since
+    ``logits`` keeps S whole, so the vocab-parallel loss takes the labels
+    and mask whole.
+
+Where the ``btf`` layout departs from :func:`spec_for`: under the switch
+the spec puts the FFN hidden's sequence over ``model``, but a block that
+holds the whole sequence keeps its hidden split by columns (the split
+MLP, the experts), which the port leaves as it is (it has no partitioner
+to move data between the two); only an MLP that runs on the rows is
+constrained, and that is a no-op.  A forward whose S the axis does not
+divide (every decode step: S = 1) runs the path above unchanged.  A
+prefill that fills a cache (``launch.train.make_prefill_step(max_seq=)``)
+writes each layer's entries in ``cache_specs``' layout: a head-split
+cache takes the rank's heads of K/V over the whole sequence (gathered
+along S first on the ``"rows"`` plan), a slot-split one the positions
+of the rank's slots.
 
 The gradient convention: a tensor a ``model`` group holds whole has the
 whole true gradient on every rank of the group; the ranks of a data
@@ -110,7 +159,7 @@ class _Scope:
     ``DeviceMesh`` the rank's process groups and coordinates."""
 
     def __init__(self, mesh, param_specs=None, cache_specs=None,
-                 held=None):
+                 held=None, fill_specs=None):
         from ..launch.mesh import axis_sizes
         sizes = axis_sizes(mesh)
         self.batch = tuple(a for a in ("pod", "data") if a in sizes)
@@ -119,6 +168,7 @@ class _Scope:
         self.data_size = math.prod(sizes[a] for a in self.batch)
         self.param_specs = param_specs
         self.cache_specs = cache_specs
+        self.fill_specs = fill_specs
         self.held = held
         self.seq_pieces = False
         self.merges = 0
@@ -136,17 +186,19 @@ class _Scope:
 
 
 @contextmanager
-def scope(mesh, param_specs=None, cache_specs=None, held=None):
+def scope(mesh, param_specs=None, cache_specs=None, held=None,
+          fill_specs=None):
     """Activate ``mesh`` (a ``DeviceMesh`` or a ``MeshShape``; ``None``
     deactivates) for :func:`constrain` and the meshed layers;
-    ``param_specs`` is the parameter tree's spec tree and
-    ``cache_specs`` the decode cache's, which :func:`use_params` reads.
+    ``param_specs`` is the parameter tree's spec tree, ``cache_specs``
+    the decode cache's and ``fill_specs`` that of the cache a prefill
+    fills, which :func:`use_params` reads.
     ``held``, a dict the caller keeps across scopes (no autograd), holds
     each leaf's gathered form until the leaf changes (its version
     counter), as FSDP's ``reshard_after_forward=False``: the meshed serve
     step gathers its weights once, not every token.  Yields the scope."""
     prev = _active[0]
-    _active[0] = (_Scope(mesh, param_specs, cache_specs, held)
+    _active[0] = (_Scope(mesh, param_specs, cache_specs, held, fill_specs)
                   if mesh is not None else None)
     try:
         yield _active[0]
@@ -240,7 +292,9 @@ def constrain(x: torch.Tensor, kind: str, *, heads: Optional[int] = None,
     piece: batch rows of its data coordinate, and split over ``model``
     along dimension ``have`` (``None``: whole); the piece is sliced or
     all-gathered along ``model`` to the spec's layout, and the result is
-    returned (its gradient gathered or sliced back)."""
+    returned (its gradient gathered or sliced back).  A sequence-sharded
+    stream's rows are passed with ``have=1``: where the spec puts the
+    sequence over ``model`` they are left as they are."""
     s = _get()
     if s is None or not s.spmd or s.model_size == 1:
         return x
@@ -290,15 +344,52 @@ def data_groups():
     return [s.groups[a] for a in s.batch]
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    """Megatron's f over ``model`` (identity; gradient summed)."""
-    return x if model_size() == 1 else C.copy_to(x, model_group())
+def copy_to_model(x: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """Megatron's f over ``model`` (identity; gradient summed).  With
+    ``seq`` (:func:`seq_sharded`), ``x`` is the rank's rows along
+    dimension 1 and comes back gathered whole (sequence parallelism's f:
+    the backward reduce-scatters)."""
+    if model_size() == 1:
+        return x
+    if seq:
+        return C.gather(x, model_group(), 1)
+    return C.copy_to(x, model_group())
 
 
-def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+def reduce_from_model(x: torch.Tensor, seq: bool = False) -> torch.Tensor:
     """Megatron's g over ``model`` (partial sums summed; gradient
-    passed)."""
-    return x if model_size() == 1 else C.reduce_from(x, model_group())
+    passed).  With ``seq``, the sum's rows of this rank along dimension
+    1 (a reduce-scatter; the backward gathers)."""
+    if model_size() == 1:
+        return x
+    if seq:
+        return C.reduce_split(x, model_group(), 1)
+    return C.reduce_from(x, model_group())
+
+
+def seq_sharded(seq: int) -> bool:
+    """Whether a forward over ``seq`` positions holds the residual
+    stream sequence-sharded: an SPMD scope whose model axis of > 1 rank
+    :func:`spec_for` puts on the sequence of ``btd`` (``REPRO_SEQ_SHARD=1``
+    and ``seq`` divisible; the module docstring)."""
+    s = spmd()
+    if s is None or s.model_size == 1:
+        return False
+    spec = spec_for("btd", (s.data_size, seq, 1), s)
+    return spec is not None and _axis_dim(spec, s.model) == 1
+
+
+def whole_sequence(x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows along dimension 1 gathered whole over ``model``
+    for a layer every rank of the group runs on the whole sequence (the
+    backward takes the rank's rows of the gradient)."""
+    return C.gather_whole(x, model_group(), 1)
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows along dimension 1 of ``x``, which every rank of
+    the model group holds whole (the backward gathers)."""
+    return C.split(x, model_group(), 1)
 
 
 def sum_over_model(x: torch.Tensor) -> torch.Tensor:
@@ -413,7 +504,8 @@ class LayerPlan(NamedTuple):
     ``"one"`` (no SPMD scope, or a model axis of 1: the one-process
     layer), ``"heads"`` (its query heads, and its KV heads when they
     divide ``model``), ``"context"`` (decode against a cache whose slots
-    are split over ``model``) or ``"whole"`` (all of it; in training the
+    are split over ``model``), ``"rows"`` (a sequence-sharded forward's
+    rows of every head) or ``"whole"`` (all of it; in training the
     layer then asks :func:`context_parallel` whether it takes its slice
     of the queries).  ``mlp_split``: the dense MLP (an MoE block's dense
     residual, an rwkv block's channel mix) runs split over ``model`` (its
@@ -422,13 +514,15 @@ class LayerPlan(NamedTuple):
     ``moe``: ``"experts"`` (the rank's experts), ``"hidden"`` (every
     expert's hidden columns of the rank) or ``"whole"``.
     ``shared_split``: the MoE's shared expert runs split.  ``model``: the
-    ranks of the model axis."""
+    ranks of the model axis.  ``cache_split``: the dimension ``model``
+    splits of the K/V cache a prefill fills (None: none)."""
     attn: str = "one"
     mlp_split: bool = False
     model: int = 1
     mixer: str = "one"
     moe: str = "one"
     shared_split: bool = False
+    cache_split: Optional[int] = None
 
 
 ONE = LayerPlan()
@@ -440,19 +534,21 @@ _CHANNEL_LEAVES = {"mamba": {"conv_w": 1, "conv_b": 0, "dt_bias": 0,
                    "rwkv": {"decay_base": 0, "bonus": 0, "ln_out": 0}}
 
 
-def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
+def use_params(cfg, spec, index: int, p: dict, seq: bool = False
+               ) -> Tuple[dict, LayerPlan]:
     """Layer ``index`` (block ``spec``) of the parameter tree as the
     rank's computation of it uses it (the scheme of the module
-    docstring), and the layer's :class:`LayerPlan`.  Outside an SPMD
-    scope, ``(p, ONE)``.  What the meshed steps do not run is refused
-    before they start (``launch.train.check_mesh``)."""
+    docstring), and the layer's :class:`LayerPlan`.  ``seq``: the forward
+    holds the residual stream sequence-sharded (:func:`seq_sharded`).
+    Outside an SPMD scope, ``(p, ONE)``.  What the meshed steps do not
+    run is refused before they start (``launch.train.check_mesh``)."""
     s = spmd()
     if s is None:
         return p, ONE
     tp = s.model_size
     specs = _lookup(s.param_specs, f"layers/{index}")
     kv_local = cfg.n_kv_heads % tp == 0
-    attn = "whole"
+    attn, cache_split = "whole", None
     if spec.mixer in ("attn", "sliding"):
         if s.cache_specs is not None:
             # decode: the cache's split decides (heads, slots, or none)
@@ -460,6 +556,11 @@ def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
             attn = {1: "heads", 2: "context"}.get(d, "whole")
         elif cfg.n_heads % tp == 0:
             attn = "heads"
+        elif seq:
+            attn = "rows"
+        if s.fill_specs is not None and s.model is not None:
+            cache_split = _axis_dim(_lookup(s.fill_specs, f"{index}/k"),
+                                    s.model)
 
     def split(path: str) -> Optional[int]:
         """The dimension ``model`` splits of the leaf at ``path`` (None:
@@ -486,15 +587,24 @@ def use_params(cfg, spec, index: int, p: dict) -> Tuple[dict, LayerPlan]:
         mlp_split = (split("rwkv/cm_k") == 1 and mixer == "channels"
                      if spec.mixer == "rwkv" else split("mlp/w_up") == 1)
         plan = LayerPlan(attn, mlp_split, tp, mixer, moe,
-                         split("moe/shared/w_up") == 1)
+                         split("moe/shared/w_up") == 1, cache_split)
     heads = attn == "heads"
     group = s.groups[s.model] if s.model else None
+    # a dense FFN that runs on the rank's rows of a sequence-sharded
+    # stream (its hidden does not split over model)
+    mlp_rows = seq and spec.ffn == "dense" and not plan.mlp_split
 
     def leaf(block: str, name: str, x, sp):
         if block in ("mamba", "rwkv"):
             return mixer_leaf(block, name, x, sp)
         if block != "attn":
-            return _use(x, sp, s, True, False)
+            # the norms, and such an FFN, are applied to the rank's rows:
+            # their gradient is summed over model
+            rows = seq and (block.startswith("norm")
+                            or (block == "mlp" and mlp_rows))
+            return _use(x, sp, s, True, rows)
+        if attn == "rows":             # every head on the rank's rows
+            return _use(x, sp, s, False, True)
         if not heads:                  # every rank the whole attention
             return _use(x, sp, s, False, False)
         if name in ("wq", "wo"):

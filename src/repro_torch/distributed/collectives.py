@@ -17,9 +17,11 @@ step (``distributed/act_sharding.py``): Megatron's pair
 sums the ranks' gradients (:func:`gather`, FSDP's gather-on-use and the
 K/V of context-parallel attention), the all-gather whose backward takes
 the rank's slice (:func:`gather_whole`) and the slice whose backward
-gathers (:func:`split`); the reduce-scatter is gloo's and NCCL's
-``reduce_scatter_tensor`` (:func:`reduce_scatter`).  ``stats`` counts the
-calls and the bytes each staged through the host.
+gathers (:func:`split`), and the reduce-scatter whose backward gathers
+(:func:`reduce_split`, the end of a row-parallel product under a
+sequence-sharded residual stream); the reduce-scatter is gloo's and
+NCCL's ``reduce_scatter_tensor`` (:func:`reduce_scatter`).  ``stats``
+counts the calls and the bytes each staged through the host.
 """
 
 from __future__ import annotations
@@ -258,6 +260,17 @@ class _Gather(torch.autograd.Function):
         return _slice(g, ctx.group, ctx.dim), None, None, None
 
 
+class _ReduceSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
 class _Split(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -306,6 +319,14 @@ def gather_whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _Gather.apply(x.contiguous(), group, dim, False)
+
+
+def reduce_split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' partial ``x`` summed over ``group``, and of the sum this
+    rank's slice along ``dim`` (a reduce-scatter); backward gathers the
+    slices' gradients (Megatron's sequence-parallel g)."""
+    return x if group_size(group) == 1 else _ReduceSplit.apply(x, group,
+                                                               dim)
 
 
 def split(x: torch.Tensor, group, dim: int) -> torch.Tensor:

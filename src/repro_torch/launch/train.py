@@ -209,23 +209,18 @@ def check_mesh(cfg: LM.LMConfig, mesh, optimizer: Optional[str] = None,
                decode: bool = False) -> None:
     """Raise :class:`~repro_torch.distributed.act_sharding.
     MeshTrainingError` for what the meshed steps do not run yet: MLA in
-    a ``decode`` step and ``REPRO_SEQ_SHARD=1`` on a model axis of more
-    than one rank, and Adafactor (whose factored statistics reduce
-    across the shards of a leaf) on any mesh that splits a leaf.  MoE,
-    mamba and rwkv blocks run on any mesh (``distributed/
-    act_sharding.py``).  The meshed layers rely on this check: they do
-    not repeat it."""
+    a ``decode`` step (or a prefill that fills its cache) on a model axis
+    of more than one rank, and Adafactor (whose factored statistics
+    reduce across the shards of a leaf) on any mesh that splits a leaf.
+    MoE, mamba and rwkv blocks, and ``REPRO_SEQ_SHARD=1``, run on any
+    mesh (``distributed/act_sharding.py``).  The meshed layers rely on
+    this check: they do not repeat it."""
     tp = axis_sizes(mesh).get("model", 1)
-    if tp > 1:
-        if decode and any(spec.mixer == "mla"
-                          for spec in cfg.layer_specs()):
-            raise MeshTrainingError(
-                f"{cfg.name}: MLA decode on a mesh whose model axis "
-                f"is {tp} (ROADMAP.md queue A7c)")
-        if os.environ.get("REPRO_SEQ_SHARD") == "1":
-            raise MeshTrainingError(
-                "REPRO_SEQ_SHARD=1 (a sequence-sharded residual stream) "
-                "on a model axis > 1 (ROADMAP.md queue A7c)")
+    if tp > 1 and decode and any(spec.mixer == "mla"
+                                 for spec in cfg.layer_specs()):
+        raise MeshTrainingError(
+            f"{cfg.name}: MLA decode on a mesh whose model axis "
+            f"is {tp} (ROADMAP.md queue A7c)")
     if optimizer == "adafactor" and math.prod(axis_sizes(mesh).values()) > 1:
         raise MeshTrainingError("adafactor on a mesh (ROADMAP.md queue "
                                 "A7c)")
@@ -395,7 +390,9 @@ def init_train_state(cfg: LM.LMConfig, *, optimizer: str = "adamw",
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None
+def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None, *,
+                      max_seq: Optional[int] = None,
+                      cache_dtype: torch.dtype = torch.bfloat16
                       ) -> Callable:
     """Returns ``prefill(params, batch) -> logits (B, S, V)``, where
     ``batch`` holds ``"tokens"`` (B, S) or ``"embeds"`` (B, S, D).  Runs
@@ -404,25 +401,47 @@ def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None
     rank's pieces, ``batch`` the global batch, and the result the rank's
     piece of the logits: its batch rows, and its vocabulary slice where
     the head splits the vocabulary over ``model`` (:func:`greedy_tokens`
-    reads the argmax across the slices)."""
+    reads the argmax across the slices).
+
+    With ``max_seq`` the step is ``prefill(params, batch, cache)``: it
+    also writes the S positions' entries into ``cache``
+    (``lm.init_cache(cfg, B, max_seq, cache_dtype)``; with ``mesh`` the
+    rank's pieces, ``init_cache(..., mesh=mesh)``) as S calls of
+    :func:`make_serve_step`'s step from position 0 would, so that the
+    serve step built with the same ``batch``, ``max_seq`` and
+    ``cache_dtype`` continues at position S.  An encoder
+    (``lm_head=False``) has no cache and raises here."""
     LM._check_supported(cfg)
     dev = resolve_device(device)
+    if max_seq is not None and not cfg.lm_head:
+        raise ValueError(f"{cfg.name}: an encoder (lm_head=False) has no "
+                         f"cache to fill")
     specs = None
     if mesh is not None:
-        check_mesh(cfg, mesh)
+        check_mesh(cfg, mesh, decode=max_seq is not None)
         specs = S.param_specs(cfg, LM.abstract_params(cfg), mesh)
         here = coords(mesh)
 
-    def prefill(params: LM.Params, batch: Dict[str, torch.Tensor]
-                ) -> torch.Tensor:
+    def prefill(params: LM.Params, batch: Dict[str, torch.Tensor],
+                cache: Optional[LM.Cache] = None) -> torch.Tensor:
+        if (cache is None) != (max_seq is None):
+            raise ValueError("prefill: a cache goes with a step built with "
+                             "max_seq, and only with one")
+        fill_specs = None
         if mesh is not None:
+            if cache is not None:
+                rows = next(iter(batch.values())).shape[0]
+                fill_specs = S.cache_specs(cfg, LM.abstract_cache(
+                    cfg, rows, max_seq, cache_dtype), mesh)
             batch = _local_batch(cfg, batch, mesh, here, dev)
         tokens, embeds = batch.get("tokens"), batch.get("embeds")
-        with torch.no_grad(), AS.scope(mesh, specs):
+        with torch.no_grad(), AS.scope(mesh, specs,
+                                       fill_specs=fill_specs):
             logits, _ = LM.forward(
                 cfg, params,
                 tokens=None if tokens is None else tokens.to(dev),
-                embeds=None if embeds is None else embeds.to(dev))
+                embeds=None if embeds is None else embeds.to(dev),
+                cache=cache)
         return logits
 
     return prefill

@@ -46,7 +46,9 @@ visible_mask``.  :func:`context_sdpa` is its context-parallel attention
 (each model rank its slice of the queries, K/V all-gathered along the
 sequence) through the flash kernel; :func:`sdpa` takes it for the
 sequence pieces the attention layer hands it under a mesh scope
-(``distributed/act_sharding.py``).  The reference takes that branch
+(``distributed/act_sharding.py``: the context fallback, and under
+``REPRO_SEQ_SHARD=1`` the rank's rows of a layer whose heads do not
+divide ``model``).  The reference takes that branch
 only under ``REPRO_SEQ_SHARD=1``, because without it GSPMD partitions
 the sequence-sharded attention itself; the port has no partitioner, so
 the branch follows the layout ``constrain`` gave q, k and v.

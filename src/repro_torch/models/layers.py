@@ -183,7 +183,10 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               abs_pos_arg: Optional[int] = None,
               q_norm: bool = False,
               backend: str = "auto",
-              plan: str = "one"
+              plan: str = "one",
+              seq: bool = False,
+              fill: Optional[Params] = None,
+              fill_split: Optional[int] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, S, D).  Without ``cache``: causal/windowed self-attention
     over the S positions (``sdpa``, the flash kernel).  With ``cache``
@@ -199,13 +202,24 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     ``cache_pos`` (and ``abs_pos_arg``) are host ints: the port has no
     jit, so positions need no device value and nothing syncs with the
     device.  ``plan``: how a rank of a mesh runs the layer
-    (``act_sharding.LayerPlan.attn``); ``"one"`` outside a mesh."""
+    (``act_sharding.LayerPlan.attn``); ``"one"`` outside a mesh.
+    ``seq``: ``x`` is the rank's rows of a sequence-sharded stream, and
+    so is the output (the ``"heads"`` plan gathers the sequence first and
+    reduce-scatters its output; the ``"rows"`` plan attends its rows'
+    queries against every rank's keys through ``context_sdpa``).
+
+    ``fill`` (a prefill, without ``cache``): the layer's cache entries,
+    into which the keys and values of the S positions are written as S
+    decode steps from position 0 would leave them (the last ``ring``
+    positions at slot ``p % ring`` for a sliding layer, whose prefill has
+    a ``window``); ``fill_split`` is the dimension ``model`` splits of
+    them (``LayerPlan.cache_split``)."""
+    if plan == "heads":
+        x = AS.copy_to_model(x, seq)
     b, s, _ = x.shape
     if plan == "whole" and cache is None and AS.context_parallel(n_heads,
                                                                  s):
         plan = "context"
-    if plan == "heads":
-        x = AS.copy_to_model(x)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -221,6 +235,8 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
         start = 0
         if cache is not None and cache_pos is not None:
             start = cache_pos if abs_pos_arg is None else abs_pos_arg
+        elif plan == "rows":
+            start = AS.model_rank() * s
         positions = torch.arange(start, start + s, device=x.device)
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
@@ -228,6 +244,13 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     if q_norm and "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    if fill is not None:
+        if plan == "rows":
+            k_all = C.all_gather_cat(k, AS.model_group(), 2)
+            v_all = C.all_gather_cat(v, AS.model_group(), 2)
+        else:
+            k_all, v_all = k, v
+        _fill_kv(fill, k_all, v_all, fill_split, window is not None)
     if plan == "heads" and hkv > 1 and hkv != n_kv_heads // AS.model_size():
         # whole K/V heads beside this rank's query heads: the KV head of
         # each (gemma's one KV head is shared as it is)
@@ -238,7 +261,14 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
 
     scale = query_scale if query_scale is not None else head_dim ** -0.5
 
-    if cache is None:
+    if cache is None and plan == "rows":
+        # (q, k and v are already in bhsd's layout: the sequence over
+        # model)
+        with AS.sequence_pieces():
+            out = A.sdpa(q, k, v, is_causal=causal, window=window,
+                         scale=scale, backend=backend)
+        new_cache = None
+    elif cache is None:
         # the reference constrains q/k/v before RoPE and qk-norm; both act
         # on each position alone, so the layout change commutes with them
         have = 1 if plan == "heads" else None
@@ -271,8 +301,41 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
 
     out = out.transpose(1, 2).reshape(b, s, hq * head_dim) @ p["wo"]
     if plan == "heads":
-        out = AS.reduce_from_model(out)
+        out = AS.reduce_from_model(out, seq)
     return out, new_cache
+
+
+def _fill_kv(cache: Params, k: torch.Tensor, v: torch.Tensor,
+             split: Optional[int], ring: bool) -> None:
+    """Write a prefill's keys and values (B, H, S, D) of positions [0,
+    S) into the layer's cache (B, Hc, Lc, D) as S decode steps would:
+    position p at slot p, or for a ``ring`` of n slots the last n
+    positions at slot ``p % n``.  ``split`` (a mesh): the cache holds the
+    rank's KV heads (1; ``k`` holds them, or every head, of which the
+    rank's are taken) or its slots [r Lc, (r + 1) Lc) of the n = m Lc
+    (2)."""
+    k_cache, v_cache = cache["k"], cache["v"]
+    n_loc = k_cache.shape[2]
+    if split == 1 and k.shape[1] != k_cache.shape[1]:
+        lo = AS.model_rank() * k_cache.shape[1]
+        k = k[:, lo:lo + k_cache.shape[1]]
+        v = v[:, lo:lo + k_cache.shape[1]]
+    n = n_loc * (AS.model_size() if split == 2 else 1)
+    s = k.shape[2]
+    if s > n and not ring:
+        raise ValueError(f"attention: a prefill of {s} positions does not "
+                         f"fit the cache's {n}")
+    lo = AS.model_rank() * n_loc if split == 2 else 0
+    pos = max(0, s - n)
+    while pos < s:
+        slot = pos % n
+        run = min(s - pos, n - slot)          # up to the ring's wrap
+        a, z = max(slot, lo), min(slot + run, lo + n_loc)
+        if a < z:                             # the slots this rank holds
+            src = slice(pos + a - slot, pos + z - slot)
+            k_cache[:, :, a - lo:z - lo] = k[:, :, src].to(k_cache.dtype)
+            v_cache[:, :, a - lo:z - lo] = v[:, :, src].to(v_cache.dtype)
+        pos += run
 
 
 def _context_decode(q, k, v, cache, cache_pos: int, cache_len, scale,
@@ -344,7 +407,8 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
                   rope_theta: float = 10000.0,
                   cache: Optional[Params] = None,
                   cache_pos: Optional[int] = None,
-                  backend: str = "auto"
+                  backend: str = "auto",
+                  fill: Optional[Params] = None
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Latent-compressed attention (``repro/models/layers.py:202-265``).
     x: (B, S, D).  Queries go ``wq_a -> q_norm -> wq_b``; the keys and
@@ -359,7 +423,9 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     queries attend the first ``cache_pos + S`` positions, the latent of
     each expanded again as the reference does (the absorbed form is not
     taken).  q and k are ``nope + rope`` wide and v ``v_dim``: the
-    attention wrappers pad them to one instantiated width."""
+    attention wrappers pad them to one instantiated width.  ``fill`` (a
+    prefill, without ``cache``): the layer's cache, into which the S
+    positions' latents and roped keys are written."""
     b, s, _ = x.shape
     qd = nope_dim + rope_dim
 
@@ -376,6 +442,13 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     q_rope = apply_rope(q_rope, positions, rope_theta)
     k_rope = apply_rope(k_rope[:, None], positions, rope_theta)  # (B,1,S,r)
 
+    if fill is not None:
+        if s > fill["c_kv"].shape[1]:
+            raise ValueError(f"mla_attention: a prefill of {s} positions "
+                             f"does not fit the cache's "
+                             f"{fill['c_kv'].shape[1]}")
+        fill["c_kv"][:, :s] = c_kv.to(fill["c_kv"].dtype)
+        fill["k_rope"][:, :, :s] = k_rope.to(fill["k_rope"].dtype)
     if cache is not None:
         cache["c_kv"][:, cache_pos:cache_pos + s] = c_kv.to(
             cache["c_kv"].dtype)
@@ -424,20 +497,28 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str = "silu",
-        split: bool = False) -> torch.Tensor:
+        split: bool = False, seq: bool = False) -> torch.Tensor:
     """The dense FFN.  With ``split`` (a mesh's layer plan), this rank's
     hidden columns (``w_up``/``w_gate`` by columns, ``w_down`` by rows)
-    and the partial outputs summed over ``model``."""
+    and the partial outputs summed over ``model``.  ``seq``: ``x`` is the
+    rank's rows of a sequence-sharded stream, and so is the output (split,
+    the rows are gathered first and the partial outputs reduce-scattered
+    back to them; else the rank runs its rows)."""
     if split:
-        x = AS.copy_to_model(x)
+        x = AS.copy_to_model(x, seq)
     up = x @ p["w_up"]
     if "w_gate" in p:
         h = _act(x @ p["w_gate"], activation) * up
     else:
         h = _act(up, activation)
-    h = AS.constrain(h, "btf", have=2 if split else None)
+    if seq and not split:
+        # the rank's rows: btf's layout under REPRO_SEQ_SHARD (a no-op).
+        # A hidden over the whole sequence keeps the plan's layout: the
+        # spec's without the switch, and under it the departure that
+        # act_sharding's docstring records
+        h = AS.constrain(h, "btf", have=1)
     out = h @ p["w_down"]
-    return AS.reduce_from_model(out) if split else out
+    return AS.reduce_from_model(out, seq) if split else out
 
 
 # ----------------------------------------------------------------------
@@ -651,7 +732,8 @@ def mamba_init(gen: torch.Generator, d_model: int, *, d_state: int = 16,
 def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
           d_conv: int = 4, expand: int = 2,
           cache: Optional[Params] = None, backend: str = "auto",
-          plan: str = "one") -> Tuple[torch.Tensor, Optional[Params]]:
+          plan: str = "one", seq: bool = False
+          ) -> Tuple[torch.Tensor, Optional[Params]]:
     """The Mamba mixer (``repro/models/layers.py:473-535``; pre-norm by
     the caller, which adds the residual).  x: (B, S, D).
 
@@ -671,14 +753,18 @@ def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
     and the cache come as the rank's channels; ``x_proj`` as its rows,
     whose partial product is summed over ``model`` (dt's low rank, B and
     C whole on every rank); the gated norm's mean square is over every
-    rank's channels; ``out_proj``'s partial product is reduced."""
+    rank's channels; ``out_proj``'s partial product is reduced.  With
+    ``seq`` (that plan on a sequence-sharded stream) ``x`` is the rank's
+    rows: gathered whole along the sequence first, and the partial output
+    reduce-scattered back to the rows."""
     A._check_backend("mamba", backend)
+    split = plan == "channels"
+    if split:
+        x = AS.copy_to_model(x, seq)
     b, s, d = x.shape
     dt_rank = max(1, d // 16)
-    split = plan == "channels"
 
     if split:
-        x = AS.copy_to_model(x)
         w = p["in_proj"]                                  # (D, 2 Di) whole
         lo, hi = AS.model_slice(w.shape[1] // 2)
         xi = x @ w[:, lo:hi]
@@ -708,7 +794,7 @@ def mamba(p: Params, x: torch.Tensor, *, d_state: int = 16,
          else rms_norm(y, p["norm"])) * F.silu(z)
     out = y @ p["out_proj"]
     if split:
-        out = AS.reduce_from_model(out)
+        out = AS.reduce_from_model(out, seq)
     if cache is None:
         return out, None
     cache["conv"].copy_(pad[:, pad.shape[1] - (d_conv - 1):])

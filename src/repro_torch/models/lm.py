@@ -369,7 +369,8 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
                  x: torch.Tensor, aux: torch.Tensor,
                  cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None,
-                 plan: AS.LayerPlan = AS.ONE
+                 plan: AS.LayerPlan = AS.ONE, seq: bool = False,
+                 fill: Optional[Dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """One block: its mixer, then its FFN (dense, MoE with an optional
     dense residual beside it, or none); returns (x, aux + this block's
@@ -382,24 +383,38 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
     reference does (``repro/models/lm.py:240-256``); where a mesh splits
     the ring's slots over ``model`` (``plan.attn == "context"``), the
     slot and the live count are the whole ring's.  ``plan``: how a rank
-    of a mesh runs the layer (``act_sharding.use_params``)."""
+    of a mesh runs the layer (``act_sharding.use_params``).  ``seq``:
+    ``x`` is the rank's rows of a sequence-sharded residual stream, and so
+    is the result (each layer's scheme in ``act_sharding``'s docstring).
+    ``fill`` (a prefill, without ``cache``): the layer's cache, written as
+    S decode steps from position 0 would leave it."""
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
+    # a recurrent mixer fills its cache by running from it (zeros)
+    state = cache if fill is None else fill
+    # mixers that run on the whole sequence under sequence sharding: the
+    # rank's rows gathered in, its rows of the output kept
+    whole = seq and not (spec.mixer in ("attn", "sliding")
+                         or (spec.mixer == "mamba"
+                             and plan.mixer == "channels"))
+    if whole:
+        h = AS.whole_sequence(h)
     if spec.mixer == "rwkv":
         out, new_cache = L.rwkv6(p["rwkv"], h, head_dim=cfg.rwkv_head_dim,
-                                 cache=cache, backend=cfg.attn_backend,
+                                 cache=state, backend=cfg.attn_backend,
                                  plan=plan.mixer, cm_split=plan.mlp_split)
     elif spec.mixer == "mamba":
         out, new_cache = L.mamba(p["mamba"], h, d_state=cfg.mamba_d_state,
                                  d_conv=cfg.mamba_d_conv,
-                                 expand=cfg.mamba_expand, cache=cache,
-                                 backend=cfg.attn_backend, plan=plan.mixer)
+                                 expand=cfg.mamba_expand, cache=state,
+                                 backend=cfg.attn_backend, plan=plan.mixer,
+                                 seq=seq and not whole)
     elif spec.mixer == "mla":
         out, new_cache = L.mla_attention(
             p["attn"], h, n_heads=cfg.n_heads, nope_dim=cfg.mla_nope_dim,
             rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim,
             kv_lora_rank=cfg.kv_lora_rank, causal=cfg.causal,
             rope_theta=cfg.rope_theta, cache=cache, cache_pos=cache_pos,
-            backend=cfg.attn_backend)
+            backend=cfg.attn_backend, fill=fill)
     else:
         sliding = spec.mixer == "sliding"
         window = cfg.window if sliding else None
@@ -418,13 +433,18 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
             rope_theta=theta, query_scale=cfg.query_scale,
             cache=cache, cache_pos=write_pos, cache_len=cache_len,
             abs_pos_arg=cache_pos, q_norm=cfg.qk_norm,
-            backend=cfg.attn_backend, plan=plan.attn)
+            backend=cfg.attn_backend, plan=plan.attn, seq=seq, fill=fill,
+            fill_split=plan.cache_split)
+    if whole:
+        out = AS.own_rows(out)
     x = x + out
     if spec.ffn != "none":
         h2 = _norm(cfg, x, p["norm2"], p.get("norm2_b"))
         if spec.ffn == "dense":
-            x = x + L.mlp(p["mlp"], h2, cfg.act, plan.mlp_split)
+            x = x + L.mlp(p["mlp"], h2, cfg.act, plan.mlp_split, seq)
         else:
+            if seq:
+                h2 = AS.whole_sequence(h2)
             # decode is dropless (capacity = every token of the step), as
             # in the reference (repro/models/lm.py:281-295)
             cf = (cfg.capacity_factor if cache is None
@@ -437,13 +457,18 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
             if cfg.moe_dense_residual:
                 moe_out = moe_out + L.mlp(p["mlp"], h2, cfg.act,
                                           plan.mlp_split)
+            if seq:
+                moe_out = AS.own_rows(moe_out)
             x = x + moe_out
             aux = aux + moe_aux
     return x, aux, new_cache
 
 
 def _embed(cfg: LMConfig, params: Params, tokens=None,
-           embeds=None) -> torch.Tensor:
+           embeds=None, seq: bool = False) -> torch.Tensor:
+    """The scaled embeddings; with ``seq`` (a sequence-sharded stream)
+    a vocabulary-parallel lookup's sum is reduce-scattered to the rank's
+    rows."""
     if embeds is not None:
         return scale_embeddings(cfg, embeds.to(cfg.param_dtype))
     w = AS.use_param("embed", params["embed"])
@@ -453,7 +478,7 @@ def _embed(cfg: LMConfig, params: Params, tokens=None,
         v_loc = w.shape[0]
         t = tokens.long() - AS.model_rank() * v_loc
         inside = ((t >= 0) & (t < v_loc)).unsqueeze(-1).to(w.dtype)
-        x = AS.reduce_from_model(w[t.clamp(0, v_loc - 1)] * inside)
+        x = AS.reduce_from_model(w[t.clamp(0, v_loc - 1)] * inside, seq)
     else:
         x = w[tokens]
     return scale_embeddings(cfg, x)
@@ -469,11 +494,16 @@ def scale_embeddings(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: LMConfig, params: Params, x: torch.Tensor,
+          seq: bool = False) -> torch.Tensor:
     """The final norm, then the LM head (tied or not) and the optional
     softcap ``tanh(logits / c) * c`` in fp32; an encoder
     (``lm_head=False``) returns its ``cls_head`` logits, or the normed
-    hidden states without one."""
+    hidden states without one.  With ``seq`` the rank's rows are gathered
+    whole along the sequence first (``logits`` keeps the sequence whole),
+    so the final norm runs as without the switch."""
+    if seq:
+        x = AS.whole_sequence(x)
     x = _norm(cfg, x, AS.use_param("final_norm", params["final_norm"]),
               None if "final_norm_b" not in params else
               AS.use_param("final_norm_b", params["final_norm_b"]))
@@ -499,25 +529,39 @@ def _head(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def _apply_blocks(cfg: LMConfig, specs, layers, x: torch.Tensor,
-                  aux: torch.Tensor, first: int, grouped: bool
+                  aux: torch.Tensor, first: int, grouped: bool,
+                  seq: bool = False, fills=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layers ``first``, ``first + 1``, ... (their specs and parameters);
     a group's output is constrained after each block, as in the
-    reference's ``group_body``."""
+    reference's ``group_body``.  ``seq``: ``x`` is the rank's rows of a
+    sequence-sharded stream; ``fills``: the layers' caches a prefill
+    fills."""
     for i, (spec, p) in enumerate(zip(specs, layers)):
-        p, plan = AS.use_params(cfg, spec, first + i, p)
-        x, aux, _ = _apply_block(cfg, spec, p, x, aux, plan=plan)
+        p, plan = AS.use_params(cfg, spec, first + i, p, seq)
+        x, aux, _ = _apply_block(cfg, spec, p, x, aux, plan=plan, seq=seq,
+                                 fill=None if fills is None else fills[i])
         if grouped:
-            x = AS.constrain(x, "btd")
+            x = AS.constrain(x, "btd", have=1 if seq else None)
     return x, aux
 
 
-def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
+def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None,
+            cache: Optional[Cache] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), aux_loss).  ``tokens``: (B, S) integer
     tensor on the params' device, or precomputed ``embeds`` (B, S, D).
     ``aux_loss`` is the fp32 sum of the MoE layers' balance losses (zero
-    without MoE layers).
+    without MoE layers).  With ``cache`` (:func:`init_cache`'s, or a
+    rank's pieces of it in a mesh scope with ``fill_specs``) the prefill
+    also writes every layer's entries as S :func:`decode_step` calls from
+    position 0 would leave them (K/V at their positions, a sliding ring's
+    last positions, the recurrent states after the S positions), so that
+    decoding continues at position S; the logits are the same.
+
+    In a mesh scope under ``REPRO_SEQ_SHARD=1`` whose model axis divides
+    S (``act_sharding.seq_sharded``) a rank holds its S/m rows of the
+    residual stream between blocks; the logits keep S whole.
 
     With ``cfg.remat == "full"`` and autograd recording, each group of
     ``len(cfg.pattern)`` layers runs under ``torch.utils.checkpoint``
@@ -526,22 +570,31 @@ def forward(cfg: LMConfig, params: Params, tokens=None, embeds=None
     kernels included.  The tail layers after the last whole group are
     not checkpointed, as in the reference."""
     _check_supported(cfg)
-    x = AS.constrain(_embed(cfg, params, tokens, embeds), "btd")
+    if cache is not None and len(cache) != cfg.n_layers:
+        raise ValueError(f"forward: a cache of {len(cache)} layers for "
+                         f"{cfg.name}'s {cfg.n_layers}")
+    seq = AS.seq_sharded((tokens if embeds is None else embeds).shape[1])
+    x = _embed(cfg, params, tokens, embeds, seq)
+    x = AS.constrain(x, "btd", have=1 if seq and embeds is None
+                     and AS.embed_split() else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     specs, layers = cfg.layer_specs(), params["layers"]
     g = len(cfg.pattern)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     for i in range(0, cfg.n_groups * g, g):
         group = (cfg, specs[i:i + g], layers[i:i + g])
+        fills = None if cache is None else cache[i:i + g]
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _apply_blocks, *group, x, aux, i, True, use_reentrant=False)
+                _apply_blocks, *group, x, aux, i, True, seq, fills,
+                use_reentrant=False)
         else:
-            x, aux = _apply_blocks(*group, x, aux, i, True)
+            x, aux = _apply_blocks(*group, x, aux, i, True, seq, fills)
     tail = cfg.n_groups * g
     x, aux = _apply_blocks(cfg, specs[tail:], layers[tail:], x, aux, tail,
-                           False)
-    return _head(cfg, params, x), aux
+                           False, seq,
+                           None if cache is None else cache[tail:])
+    return _head(cfg, params, x, seq), aux
 
 
 # the profiler range around lm_loss's own ops (after the LM head)

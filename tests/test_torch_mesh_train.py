@@ -33,7 +33,15 @@ every check of their size once for the file:
   * jamba SMOKE's meshed forward at (1,2) against the JAX package's
     forward without a mesh, on the same weights;
   * elastic restore: saved on (2,2) after step 1, restored onto (1,2)
-    and onto no mesh, step 2 equal to the uninterrupted run's.
+    and onto no mesh, step 2 equal to the uninterrupted run's;
+  * ``REPRO_SEQ_SHARD=1`` (a sequence-sharded residual stream): the
+    train step on (1,2) and (2,2) against the one-process step under the
+    same limits, each block taking the rank's S/m rows; a sequence the
+    model axis does not divide equal to the switch-off run bit for bit;
+    the prefill step filling the cache, then the serve step, giving the
+    one-process greedy tokens with the switch on and off; yi's and
+    jamba's SMOKE meshed forward against the JAX package's, and a 3-head
+    bidirectional encoder's against the one-process forward.
 """
 
 import jax
@@ -71,6 +79,27 @@ FORWARD_NAME = "jamba"
 MODEL_4 = (1, 4)
 MODEL_4_CASES = [("jamba", "adamw", 1), ("rwkv6", "adamw", 1)]
 MODEL_4_NAMES = ("jamba", "rwkv6")
+# REPRO_SEQ_SHARD=1: the train step's cases on (1,2) (MLA in training
+# among them: minicpm3's SMOKE) and on (2,2); the prefill and serve
+# steps' configs (gemma3's 8-slot ring wrapped by the 12-token prompt);
+# the configs of the meshed forward against the JAX package (yi's 7
+# heads do not divide model = 2: every head on the rank's rows)
+SEQ_CASES_2 = [("tiny", "adamw", 1), ("odd", "adamw", 1),
+               ("gemma", "adamw", 1), ("gemma3", "adamw", 1),
+               ("jamba", "adamw", 1), ("rwkv6", "adamw", 1),
+               ("qwen2moe", "adamw", 1), ("minicpm3", "adamw", 1)]
+SEQ_CASES_4 = [("tiny", "adamw", 1), ("jamba", "adamw", 1)]
+# (1,4): gemma3's 2 heads do not divide model = 4, so its sliding and
+# global layers attend the rank's rows (windows through context_sdpa),
+# and its prefill fills rings whose slots split four ways
+SEQ_MODEL_4 = ("gemma3",)
+SEQ_RUNS = ([((1, 2), c) for c in SEQ_CASES_2]
+            + [((2, 2), c) for c in SEQ_CASES_4]
+            + [(MODEL_4, (n, "adamw", 1)) for n in SEQ_MODEL_4])
+SEQ_DECODE_NAMES = ("gemma", "gemma3", "jamba", "rwkv6")
+SEQ_DECODE_RUNS = ([((1, 2), n) for n in SEQ_DECODE_NAMES]
+                   + [(MODEL_4, n) for n in SEQ_MODEL_4])
+SEQ_FORWARD_NAMES = ("yi", "jamba")
 
 # The limits of the train-step tests: LIMITS for every case but three,
 # whose fp32 steps are worse conditioned (measured on the CPU):
@@ -109,11 +138,17 @@ def groups(tmp_path_factory):
     the elastic checkpoint the 2-rank group restores."""
     ckpt = str(tmp_path_factory.mktemp("elastic"))
     loop = str(tmp_path_factory.mktemp("loop"))
+    trees = {name: _jax_tree(name)
+             for name in set(SEQ_FORWARD_NAMES) | {FORWARD_NAME}}
     four = run_ranks(W.jobs_rank, 4, ([
         ("mesh_train_rank", (SHAPES_4, TRAIN_CASES)),
         ("mesh_train_rank", ([MODEL_4], MODEL_4_CASES)),
         ("mesh_decode_rank", (SHAPES_4, DECODE_NAMES)),
         ("mesh_decode_rank", ([MODEL_4], MODEL_4_NAMES)),
+        ("seq_train_rank", (SHAPES_4, SEQ_CASES_4)),
+        ("seq_train_rank", ([MODEL_4], [(n, "adamw", 1)
+                                        for n in SEQ_MODEL_4])),
+        ("seq_decode_rank", (MODEL_4, SEQ_MODEL_4)),
         ("elastic_save_rank", (ckpt,))],), backend="gloo",
         timeout=GROUP_TIMEOUT)
     two = run_ranks(W.jobs_rank, 2, ([
@@ -124,7 +159,14 @@ def groups(tmp_path_factory):
         ("train_loop_rank", ((1, 2), loop)),
         ("moe_train_rank", ()),
         ("mesh_forward_rank", ((1, 2), FORWARD_NAME,
-                               _jax_tree(FORWARD_NAME)))],), backend="gloo",
+                               trees[FORWARD_NAME])),
+        ("seq_train_rank", ([(1, 2)], SEQ_CASES_2)),
+        ("seq_odd_length_rank", ((1, 2), "tiny")),
+        ("seq_decode_rank", ((1, 2), SEQ_DECODE_NAMES)),
+        ("seq_forward_rank", ((1, 2), {n: trees[n]
+                                       for n in SEQ_FORWARD_NAMES})),
+        ("seq_encoder_rank", ((1, 2),))],),
+        backend="gloo",
         timeout=GROUP_TIMEOUT)
     return {2: two, 4: four, "ckpt": ckpt, "loop": loop}
 
@@ -133,12 +175,12 @@ def groups(tmp_path_factory):
 def one_process():
     """The port's one-process runs of every train case."""
     return {case: W.run_train(W.train_cfg(case[0]), case[1], case[2])
-            for case in TRAIN_CASES}
+            for case in dict.fromkeys(TRAIN_CASES + SEQ_CASES_2)}
 
 
-def _ranks(groups, shape, case):
+def _ranks(groups, shape, case, job="mesh_train_rank"):
     world = shape[0] * shape[1]
-    return [g["mesh_train_rank"][(shape,) + case] for g in groups[world]]
+    return [g[job][(shape,) + case] for g in groups[world]]
 
 
 def _assembled(ranks, pick, full_shapes, specs, shape):
@@ -152,10 +194,14 @@ def _assembled(ranks, pick, full_shapes, specs, shape):
             for i in range(len(full_shapes))]
 
 
-def _leaf_specs(cfg, shape, optimizer):
+def _leaf_specs(cfg, shape, optimizer, seq=False):
+    """The parameters' specs in leaf order (``seq``: under
+    ``REPRO_SEQ_SHARD=1``, which leaves attention weights whose heads do
+    not divide ``model`` unsplit over it)."""
     mesh = MeshShape(("data", "model"), shape)
-    specs = T.state_specs(cfg, mesh, optimizer=optimizer,
-                          lr=W.TRAIN_LR)
+    with W.seq_shard(seq):
+        specs = T.state_specs(cfg, mesh, optimizer=optimizer,
+                              lr=W.TRAIN_LR)
     return T.spec_leaves(specs["params"], TLM.abstract_params(cfg))
 
 
@@ -168,19 +214,20 @@ def _unflatten(like, leaves):
     return T.tree_map(lambda _: next(it), like)
 
 
-def _references(groups, one_process, shape, case):
+def _references(groups, one_process, shape, case, job="mesh_train_rank"):
     """What each meshed step is held to: step 1, the one-process step 1
     from the same initial state; step 2, the one-process step 2 from the
     meshed run's own state after step 1 (assembled), so that each step is
     compared on the same inputs.  Returns [(loss, grad norm, params,
-    {opt key: leaves}, the step's gradients) of step 1, of step 2]."""
-    key = (shape, case)
+    {opt key: leaves}, the step's gradients) of step 1, of step 2].
+    ``job``: the rank function whose runs are held."""
+    key = (shape, case, job)
     if key not in _SECOND:
         cfg = W.train_cfg(case[0])
-        specs = _leaf_specs(cfg, shape, case[1])
+        specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
         first = dict(one_process[case]["steps"][0],
                      grads=one_process[case]["grads"])
-        ranks = _ranks(groups, shape, case)
+        ranks = _ranks(groups, shape, case, job)
 
         def whole(pick, like):
             return _assembled(ranks, pick, [x.shape for x in like], specs,
@@ -221,9 +268,14 @@ CASE_IDS = dict(ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
 @pytest.mark.parametrize("shape", ALL_SHAPES)
 def test_loss_and_grad_norm(groups, one_process, shape, case):
-    want = _references(groups, one_process, shape, case)
+    _check_loss_and_grad_norm(groups, one_process, shape, case)
+
+
+def _check_loss_and_grad_norm(groups, one_process, shape, case,
+                              job="mesh_train_rank"):
+    want = _references(groups, one_process, shape, case, job)
     rel = _limits(case)["loss"]
-    for r in _ranks(groups, shape, case):
+    for r in _ranks(groups, shape, case, job):
         for got, ref in zip(r["steps"], want):
             assert got["loss"] == pytest.approx(ref["loss"], rel=rel)
             assert got["grad_norm"] == pytest.approx(ref["grad_norm"],
@@ -233,10 +285,15 @@ def test_loss_and_grad_norm(groups, one_process, shape, case):
 @pytest.mark.parametrize("case", TRAIN_CASES, **CASE_IDS)
 @pytest.mark.parametrize("shape", ALL_SHAPES)
 def test_assembled_gradients(groups, one_process, shape, case):
+    _check_assembled_gradients(groups, one_process, shape, case)
+
+
+def _check_assembled_gradients(groups, one_process, shape, case,
+                               job="mesh_train_rank"):
     cfg = W.train_cfg(case[0])
     ref = one_process[case]["grads"]
-    specs = _leaf_specs(cfg, shape, case[1])
-    got = _assembled(_ranks(groups, shape, case), lambda r: r["grads"],
+    specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
+    got = _assembled(_ranks(groups, shape, case, job), lambda r: r["grads"],
                      [g.shape for g in ref], specs, shape)
     tol = _limits(case)["grads"]
     for g, w in zip(got, ref):
@@ -249,13 +306,18 @@ def test_optimizer_state(groups, one_process, shape, case):
     """SGD's momentum within 1e-5 of its largest; AdamW's m and v within
     1e-5 relative (of each leaf's largest), after each step (the
     gradients' limit of ``CASE_LIMITS`` where it differs)."""
+    _check_optimizer_state(groups, one_process, shape, case)
+
+
+def _check_optimizer_state(groups, one_process, shape, case,
+                           job="mesh_train_rank"):
     cfg = W.train_cfg(case[0])
-    specs = _leaf_specs(cfg, shape, case[1])
-    refs = _references(groups, one_process, shape, case)
+    specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
+    refs = _references(groups, one_process, shape, case, job)
     tol = _limits(case)["grads"]
     for i, ref in enumerate(refs):
         for key, leaves in ref["opt"].items():
-            got = _assembled(_ranks(groups, shape, case),
+            got = _assembled(_ranks(groups, shape, case, job),
                              lambda r: r["steps"][i]["opt"][key],
                              [x.shape for x in leaves], specs, shape)
             for g, w in zip(got, leaves):
@@ -275,11 +337,17 @@ def test_parameters(groups, one_process, shape, case):
     leaf's elements (or all but one, in a leaf of under 100) by 1e-5 of
     its largest (the count leaving out the elements ``CASE_LIMITS``
     names)."""
+    _check_parameters(groups, one_process, shape, case)
+
+
+def _check_parameters(groups, one_process, shape, case,
+                      job="mesh_train_rank"):
     cfg = W.train_cfg(case[0])
-    specs = _leaf_specs(cfg, shape, case[1])
+    specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
     small = _limits(case)["small_grads"]
-    for i, ref in enumerate(_references(groups, one_process, shape, case)):
-        got = _assembled(_ranks(groups, shape, case),
+    for i, ref in enumerate(_references(groups, one_process, shape, case,
+                                        job)):
+        got = _assembled(_ranks(groups, shape, case, job),
                          lambda r: r["steps"][i]["params"],
                          [x.shape for x in ref["params"]], specs, shape)
         for g, w, grad in zip(got, ref["params"], ref["grads"]):
@@ -482,13 +550,24 @@ def test_moe_mamba_rwkv_refuse_a_model_axis(arch):
         T.check_mesh(cfg, mesh, decode=True)
 
 
-def test_sequence_sharding_refuses_a_model_axis(monkeypatch):
+def test_sequence_sharding_is_accepted_on_a_model_axis(monkeypatch):
+    """``REPRO_SEQ_SHARD=1`` runs on a model axis of 2 and 4 (the
+    switch-on tests below hold it to the one-process steps); MLA decode
+    and Adafactor are still refused on such meshes, naming A7c."""
+    from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.act_sharding import MeshTrainingError
-    cfg = W.train_cfg("tiny")
     monkeypatch.setenv("REPRO_SEQ_SHARD", "1")
-    with pytest.raises(MeshTrainingError, match="A7c"):
-        T.check_mesh(cfg, MeshShape(("data", "model"), (1, 2)))
-    T.check_mesh(cfg, MeshShape(("data", "model"), (2, 1)))
+    cfg = W.train_cfg("tiny")
+    mla = get_smoke_config("minicpm3-4b")
+    for shape in ((1, 2), (2, 2), (1, 4)):
+        mesh = MeshShape(("data", "model"), shape)
+        T.check_mesh(cfg, mesh, "adamw")
+        T.check_mesh(cfg, mesh, decode=True)
+        T.check_mesh(mla, mesh, "adamw")
+        with pytest.raises(MeshTrainingError, match="A7c"):
+            T.check_mesh(mla, mesh, decode=True)
+        with pytest.raises(MeshTrainingError, match="A7c"):
+            T.check_mesh(cfg, mesh, "adafactor")
 
 
 def test_adafactor_refuses_a_mesh():
@@ -591,3 +670,130 @@ def test_jamba_meshed_forward_matches_reference(groups):
         got = g["mesh_forward_rank"]
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=1e-5, rtol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# REPRO_SEQ_SHARD=1: a sequence-sharded residual stream
+# ----------------------------------------------------------------------
+
+SEQ_IDS = dict(ids=lambda r: "x".join(map(str, r[0])) + "-" + r[1][0])
+
+
+@pytest.mark.parametrize("run", SEQ_RUNS, **SEQ_IDS)
+def test_seq_shard_loss_and_grad_norm(groups, one_process, run):
+    """The switch-on train step's loss and grad norm after each step
+    against the one-process step's (``test_loss_and_grad_norm``'s
+    limits)."""
+    _check_loss_and_grad_norm(groups, one_process, *run, "seq_train_rank")
+
+
+@pytest.mark.parametrize("run", SEQ_RUNS, **SEQ_IDS)
+def test_seq_shard_assembled_gradients(groups, one_process, run):
+    _check_assembled_gradients(groups, one_process, *run, "seq_train_rank")
+
+
+@pytest.mark.parametrize("run", SEQ_RUNS, **SEQ_IDS)
+def test_seq_shard_optimizer_state(groups, one_process, run):
+    _check_optimizer_state(groups, one_process, *run, "seq_train_rank")
+
+
+@pytest.mark.parametrize("run", SEQ_RUNS, **SEQ_IDS)
+def test_seq_shard_parameters(groups, one_process, run):
+    _check_parameters(groups, one_process, *run, "seq_train_rank")
+
+
+@pytest.mark.parametrize("run", SEQ_RUNS, **SEQ_IDS)
+def test_seq_shard_blocks_take_the_rank_rows(groups, run):
+    """Between blocks a rank holds only its S/m rows of the residual
+    stream: every block of the switch-on step (its forward and, under
+    remat, its recompute) took S / model rows."""
+    shape, case = run
+    for r in _ranks(groups, shape, case, "seq_train_rank"):
+        assert r["rows"] == [W.TRAIN_BATCH[1] // shape[1]]
+
+
+def test_seq_shard_odd_length_equals_switch_off(groups):
+    """A sequence of 15 on (1,2): the spec keeps S whole, and the step
+    with the switch on is the switch-off step bit for bit (the loss,
+    grad norm, gradients, parameters and moments of both steps)."""
+    for g in groups[2]:
+        on, off = (g["seq_odd_length_rank"][k] for k in (True, False))
+        assert on["rows"] == off["rows"] == [W.ODD_LENGTH[1]]
+        for a, b in zip(on["grads"], off["grads"]):
+            assert torch.equal(a, b)
+        for x, y in zip(on["steps"], off["steps"]):
+            assert x["loss"] == y["loss"]
+            assert x["grad_norm"] == y["grad_norm"]
+            for a, b in zip(x["params"], y["params"]):
+                assert torch.equal(a, b)
+            for k in x["opt"]:
+                for a, b in zip(x["opt"][k], y["opt"][k]):
+                    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("run", SEQ_DECODE_RUNS,
+                         ids=lambda r: "x".join(map(str, r[0])) + "-" + r[1])
+def test_seq_shard_prefill_and_decode(groups, run):
+    """The prefill step filling the cache, then the serve step: the
+    greedy tokens of the one-process steps with the switch on (the
+    prefill's blocks take the rank's 12 / model positions; decode's S = 1
+    does not divide model and runs the switch-off path) and with it
+    off."""
+    shape, name = run
+    cfg = W.train_cfg(name)
+    params = TLM.init_params(cfg, seed=0, device="cpu")
+    want, _ = W.filled_run(cfg, params)
+    for g in groups[shape[0] * shape[1]]:
+        for on in (True, False):
+            toks, _, rows = g["seq_decode_rank"][(name, on)]
+            assert torch.equal(toks, want), on
+            assert rows == [1, W.FILL_PROMPT // (shape[1] if on else 1)]
+
+
+@pytest.mark.parametrize("name", ["tiny", "gemma", "gemma3", "jamba",
+                                  "rwkv6", "minicpm3", "yi"])
+def test_prefill_fills_the_cache(name):
+    """One process: the prefill step that fills the cache, then the serve
+    step, gives the greedy tokens of the prompt fed through the serve
+    step one token a step (gemma3's 12-token prompt wraps its 8-slot
+    ring; MoE dropless in both, as decode is)."""
+    import dataclasses
+    cfg = W.train_cfg(name)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    params = TLM.init_params(cfg, seed=0, device="cpu")
+    filled, _ = W.filled_run(cfg, params)
+    stepped, _ = W.filled_run(cfg, params, fill=False)
+    assert torch.equal(filled, stepped)
+
+
+@pytest.mark.parametrize("name", SEQ_FORWARD_NAMES)
+def test_seq_shard_forward_matches_reference(groups, name):
+    """yi's and jamba's SMOKE meshed prefill logits at (1,2) with the
+    switch on against the JAX package's ``forward`` without a mesh on
+    the same weights, within 1e-5."""
+    cfg = jax_smoke_config(W.SMOKE_ARCHS[name])
+    params = JLM.init_params(cfg, jax.random.key(0))
+    want, _ = JLM.forward(cfg, params, jnp.asarray(
+        W.forward_tokens(W.train_cfg(name))))
+    for g in groups[2]:
+        got = g["seq_forward_rank"][name]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_seq_shard_bidirectional_encoder_forward(groups):
+    """A bidirectional encoder (hubert's SMOKE cut to 3 heads: every head
+    on the rank's rows, non-causal ``context_sdpa``; layer norm,
+    embeddings in, a classification head) with the switch on at (1,2):
+    the blocks take 8 of the 16 positions, and the logits equal the
+    one-process forward's within 1e-5."""
+    cfg = W.encoder_cfg()
+    params = TLM.init_params(cfg, seed=0, device="cpu")
+    want, _ = TLM.forward(cfg, params, embeds=W.encoder_embeds(cfg))
+    for g in groups[2]:
+        got, rows = g["seq_encoder_rank"]
+        assert rows == [W.FORWARD_TOKENS[1] // 2]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-5)

@@ -235,7 +235,8 @@ TRAIN_LR = 1e-2
 
 SMOKE_ARCHS = {"gemma": "gemma-2b", "gemma3": "gemma3-1b",
                "jamba": "jamba-1.5-large-398b", "rwkv6": "rwkv6-1.6b",
-               "qwen2moe": "qwen2-moe-a2.7b", "arctic": "arctic-480b"}
+               "qwen2moe": "qwen2-moe-a2.7b", "arctic": "arctic-480b",
+               "minicpm3": "minicpm3-4b", "yi": "yi-34b"}
 
 
 def train_cfg(name: str):
@@ -245,10 +246,11 @@ def train_cfg(name: str):
     head, sliding layers whose decode ring of 8 slots splits over
     model = 2), ``odd`` (3 heads: the context-parallel attention at
     model = 2), the SMOKE configs of ``jamba`` (mamba, attention, MoE
-    and dense layers), ``rwkv6``, ``qwen2moe`` (a shared expert) and
-    ``arctic`` (a dense residual beside the MoE; 1 KV head), and
-    ``moe3`` (qwen2-moe's SMOKE with 3 experts, which do not divide
-    model = 2: the experts' hidden columns split), all fp32."""
+    and dense layers), ``rwkv6``, ``qwen2moe`` (a shared expert),
+    ``arctic`` (a dense residual beside the MoE; 1 KV head),
+    ``minicpm3`` (MLA) and ``yi`` (7 heads, 1 KV head), and ``moe3``
+    (qwen2-moe's SMOKE with 3 experts, which do not divide model = 2:
+    the experts' hidden columns split), all fp32."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.lm import LMConfig
@@ -265,6 +267,41 @@ def train_cfg(name: str):
 
 
 MOE_GROUP_TOKENS = "32"     # the global 4 x 16 batch: a group a data rank
+
+
+@contextmanager
+def seq_shard(on: bool = True):
+    """``REPRO_SEQ_SHARD=1`` while a switch-on case builds and runs its
+    steps (``on=False``: unset); restored after."""
+    import os
+    old = os.environ.pop("REPRO_SEQ_SHARD", None)
+    if on:
+        os.environ["REPRO_SEQ_SHARD"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_SEQ_SHARD", None)
+        else:
+            os.environ["REPRO_SEQ_SHARD"] = old
+
+
+@contextmanager
+def block_rows(record: list):
+    """Every block's input rows (dimension 1 of the residual stream a
+    rank holds) appended to ``record`` while inside."""
+    from repro_torch.models import lm as LM
+    inner = LM._apply_block
+
+    def apply_block(cfg, spec, p, x, *args, **kw):
+        record.append(x.shape[1])
+        return inner(cfg, spec, p, x, *args, **kw)
+
+    LM._apply_block = apply_block
+    try:
+        yield
+    finally:
+        LM._apply_block = inner
 
 
 @contextmanager
@@ -297,9 +334,9 @@ def moe_train_rank(rank, world):
     return moe_train(make_mesh((2, 1), ("data", "model")))
 
 
-def train_batches(cfg, n: int = 2, seed: int = 11):
+def train_batches(cfg, n: int = 2, seed: int = 11, shape=TRAIN_BATCH):
     gen = torch.Generator().manual_seed(seed)
-    b, s = TRAIN_BATCH
+    b, s = shape
     out = []
     for _ in range(n):
         tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
@@ -309,16 +346,17 @@ def train_batches(cfg, n: int = 2, seed: int = 11):
     return out
 
 
-def run_train(cfg, optimizer, accum, mesh=None, device="cpu"):
-    """Two steps of ``optimizer`` from seed-0 parameters: the first
-    step's gradients, each step's loss, grad norm, parameters and
-    optimizer state (the rank's pieces on a mesh), and the coordinates.
-    MoE layers group ``MOE_GROUP_TOKENS`` tokens."""
+def run_train(cfg, optimizer, accum, mesh=None, device="cpu",
+              shape=TRAIN_BATCH):
+    """Two steps of ``optimizer`` from seed-0 parameters on batches of
+    ``shape``: the first step's gradients, each step's loss, grad norm,
+    parameters and optimizer state (the rank's pieces on a mesh), and
+    the coordinates.  MoE layers group ``MOE_GROUP_TOKENS`` tokens."""
     with moe_groups(cfg, MOE_GROUP_TOKENS):
-        return _run_train(cfg, optimizer, accum, mesh, device)
+        return _run_train(cfg, optimizer, accum, mesh, device, shape)
 
 
-def _run_train(cfg, optimizer, accum, mesh, device):
+def _run_train(cfg, optimizer, accum, mesh, device, shape):
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import coords
     from repro_torch.optim.functional import tree_leaves
@@ -333,7 +371,7 @@ def _run_train(cfg, optimizer, accum, mesh, device):
     step = T.make_train_step(cfg, optimizer=optimizer, lr=TRAIN_LR,
                              accum_steps=accum, opt_kwargs=kw,
                              device=device, mesh=mesh)
-    batches = train_batches(cfg)
+    batches = train_batches(cfg, shape=shape)
     _, grads = step.compute(state["params"], batches[0])
     out = {"grads": [g.cpu() for g in grads], "steps": [],
            "coords": None if mesh is None else dict(coords(mesh))}
@@ -358,6 +396,40 @@ def mesh_train_rank(rank, world, shapes, cases, device="cpu"):
         for name, optimizer, accum in cases:
             res[(tuple(shape), name, optimizer, accum)] = run_train(
                 train_cfg(name), optimizer, accum, mesh, device)
+    return res
+
+
+def seq_train_rank(rank, world, shapes, cases):
+    """``mesh_train_rank`` with ``REPRO_SEQ_SHARD=1``, each run with the
+    rows of the residual stream each block took (``"rows"``)."""
+    from repro_torch.launch.mesh import make_mesh
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for name, optimizer, accum in cases:
+            rows = []
+            with seq_shard(), block_rows(rows):
+                out = run_train(train_cfg(name), optimizer, accum, mesh)
+            res[(tuple(shape), name, optimizer, accum)] = dict(
+                out, rows=sorted(set(rows)))
+    return res
+
+
+ODD_LENGTH = (4, 15)    # a sequence no model axis > 1 of these tests divides
+
+
+def seq_odd_length_rank(rank, world, shape, name):
+    """``run_train`` of ``name`` on ``ODD_LENGTH`` batches on ``shape``,
+    with ``REPRO_SEQ_SHARD=1`` and without: {on: result}."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    res = {}
+    for on in (True, False):
+        rows = []
+        with seq_shard(on), block_rows(rows):
+            out = run_train(train_cfg(name), "adamw", 1, mesh,
+                            shape=ODD_LENGTH)
+        res[on] = dict(out, rows=sorted(set(rows)))
     return res
 
 
@@ -440,6 +512,62 @@ def greedy_run(cfg, params, mesh=None, device="cpu", dtype=torch.float32):
         out.append(T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size))
     return (first.cpu(), torch.stack(out, 1).cpu(),
             getattr(serve, "lse_merges", 0))
+
+
+FILL_PROMPT, FILL_STEPS = 12, 6     # the prompt wraps gemma3's 8-slot ring
+
+
+def filled_run(cfg, params, mesh=None, device="cpu", fill=True):
+    """The prefill step filling the cache (``make_prefill_step(max_seq=)``)
+    on ``FILL_PROMPT``-token prompts, then ``FILL_STEPS - 1`` greedy
+    steps of the serve step from there: (the greedy tokens, the serve
+    step's log-sum-exp merges).  The prefill's MoE groups a data rank's
+    rows at (2,2).  ``fill=False``: the prompts go through the serve step
+    one token a step instead of the prefill."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm as LM
+    gen = torch.Generator().manual_seed(33)
+    prompts = torch.randint(0, cfg.vocab_size, (DECODE_ROWS, FILL_PROMPT),
+                            generator=gen)
+    max_seq = FILL_PROMPT + FILL_STEPS
+    serve = T.make_serve_step(cfg, batch=DECODE_ROWS, max_seq=max_seq,
+                              cache_dtype=torch.float32, device=device,
+                              mesh=mesh)
+    cache = LM.init_cache(cfg, DECODE_ROWS, max_seq, torch.float32, device,
+                          mesh)
+    if fill:
+        prefill = T.make_prefill_step(cfg, device=device, mesh=mesh,
+                                      max_seq=max_seq,
+                                      cache_dtype=torch.float32)
+        with moe_groups(cfg, str(DECODE_ROWS * FILL_PROMPT // 2)):
+            logits = prefill(params, {"tokens": prompts}, cache)
+    else:
+        for t in range(FILL_PROMPT):
+            logits, _ = serve(params, cache, prompts[:, t:t + 1], t)
+    out = [T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size)]
+    for i in range(FILL_STEPS - 1):
+        logits, _ = serve(params, cache, out[-1][:, None], FILL_PROMPT + i)
+        out.append(T.greedy_tokens(logits[:, -1], mesh, cfg.vocab_size))
+    return torch.stack(out, 1).cpu(), serve.lse_merges
+
+
+def seq_decode_rank(rank, world, shape, names):
+    """``filled_run`` on ``shape`` for each config, the parameters the
+    rank's pieces, with ``REPRO_SEQ_SHARD=1`` and without: {(name, on):
+    (tokens, merges, rows of the prefill's blocks)}."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import init_pieces
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    res = {}
+    for name in names:
+        cfg = train_cfg(name)
+        for on in (True, False):
+            rows = []
+            with seq_shard(on), block_rows(rows):
+                params = init_pieces(cfg, mesh, seed=0, device="cpu")
+                toks, merges = filled_run(cfg, params, mesh)
+            res[(name, on)] = (toks, merges, sorted(set(rows)))
+    return res
 
 
 def mesh_decode_rank(rank, world, shapes, names):
@@ -552,6 +680,48 @@ def mesh_forward_rank(rank, world, shape, name, tree):
     if logits.shape[-1] != cfg.vocab_size:
         logits = S.gather_leaf(mesh, S.P(None, None, "model"), logits)
     return logits
+
+
+def encoder_cfg():
+    """hubert-xlarge's SMOKE (bidirectional, layer norm, embeddings in, a
+    classification head) cut to 3 heads of 16: heads that do not divide
+    model = 2."""
+    import dataclasses
+    from repro_torch.configs import hubert_xlarge
+    return dataclasses.replace(hubert_xlarge.SMOKE, name="enc3", d_model=48,
+                               n_heads=3, n_kv_heads=3, head_dim=16)
+
+
+def encoder_embeds(cfg, seed: int = 43):
+    return torch.randn(FORWARD_TOKENS + (cfg.d_model,),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def seq_encoder_rank(rank, world, shape):
+    """The meshed prefill step's logits (gathered whole over ``model``) of
+    ``encoder_cfg`` under ``REPRO_SEQ_SHARD=1`` from the rank's seed-0
+    pieces on ``encoder_embeds``, and the rows each block took."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    cfg = encoder_cfg()
+    rows = []
+    with seq_shard(), block_rows(rows):
+        params = T.init_pieces(cfg, mesh, seed=0, device="cpu")
+        logits = T.make_prefill_step(cfg, device="cpu", mesh=mesh)(
+            params, {"embeds": encoder_embeds(cfg)})
+    if logits.shape[-1] != cfg.n_classes:
+        logits = S.gather_leaf(mesh, S.P(None, None, "model"), logits)
+    return logits, sorted(set(rows))
+
+
+def seq_forward_rank(rank, world, shape, trees):
+    """``mesh_forward_rank`` under ``REPRO_SEQ_SHARD=1`` for each config
+    of ``trees`` ({name: the reference's parameter pytree})."""
+    with seq_shard():
+        return {name: mesh_forward_rank(rank, world, shape, name, tree)
+                for name, tree in trees.items()}
 
 
 def jobs_rank(rank, world, jobs):
