@@ -73,8 +73,8 @@ path:
     rank where there are enough, else gloo with the ranks sharing
     ``cuda:0``): fp32 gemma-2b cut to 2 layers on (2,1), (1,2), (2,2),
     greedy and sampled, equal to the no-mesh engine, and bf16 gemma-2b
-    at full width cut to ``SHARDED_BF16_LAYERS`` layers on (1,2) (its
-    one KV head context-parallel) and (2,2) (``sharded_serving``); DDP's synced gradients against one process's
+    at full depth on (1,2) (its one KV head context-parallel) and (2,2)
+    (``sharded_serving``); DDP's synced gradients against one process's
     full batch (``ddp``) and a 4-stage pipeline against the sequential
     composition (``pipeline``);
   * meshed training and decode (``launch.train``'s steps with
@@ -83,11 +83,10 @@ path:
     decode shape and at a rank's half of its slots, bf16 and fp32, with
     and without lse: the output's bits unchanged); ``sharded_train``:
     fp32 gemma-2b at full width cut to 2 layers on (2,1), (1,2), (2,2),
-    ``SHARDED_TRAIN_STEPS`` AdamW step(s) on a global 4 x 256 batch,
-    each against the one-process step on the card from the same state
-    (loss, grad norm, the assembled gradients, moments and parameters),
-    and bf16 gemma-2b at full width cut to ``SHARDED_TRAIN_BF16_LAYERS``
-    layers (remat "full", 4 x 1024) on (2,2) and (1,2):
+    2 AdamW steps on a global 4 x 256 batch, each against the
+    one-process step on the card from the same state (loss, grad norm,
+    the assembled gradients, moments and parameters), and bf16 gemma-2b
+    at full width and depth (remat "full", 4 x 1024) on (2,2) and (1,2):
     tokens/s, GB a rank, collectives and staged bytes a step, and a
     checkpoint save's device peak (``save_peak``: the largest leaf
     gathered as a save gathers it, one leaf at a time);
@@ -4289,11 +4288,9 @@ LSE_CASES = (("bfloat16", "bfloat16"), ("float32", "float32"))
 # replicas on one card: turns of the 16 serving requests at n_replicas=2
 REPLICA_TURNS = 2
 # sharded serving: the fp32 parity meshes (gemma-2b at full width cut to
-# 2 layers, greedy and sampled), the bf16 meshes (full width cut to
-# SHARDED_BF16_LAYERS of 18, for the script's time limit)
+# 2 layers, greedy and sampled), the bf16 full-depth meshes
 SHARDED_MESHES = ((2, 1), (1, 2), (2, 2))
 SHARDED_BF16_MESHES = ((1, 2), (2, 2))
-SHARDED_BF16_LAYERS = 6
 SHARDED_PARITY_LAYERS = 2
 SHARDED_SEED = 5
 SHARDED_SAMPLED = dict(temperature=0.8, top_k=20, seed=42)
@@ -4309,13 +4306,9 @@ PIPE_TOL = (2e-4, 2e-5)            # the reference test's rtol, atol
 RANK_TIMEOUT = 900                 # seconds a group of ranks may take
 # meshed training (sharded_train): fp32 parity on the sharded serving
 # model (gemma-2b at full width cut to 2 layers), a global 4 x 256 batch,
-# SHARDED_TRAIN_STEPS AdamW steps, each against the one-process step on
-# the card from the same state (rank 0 runs it); bf16 throughput on
-# gemma-2b at full width cut to SHARDED_TRAIN_BF16_LAYERS, remat "full",
-# a global 4 x 1024 batch, 1 warm-up and 3 timed steps.  The parity's
-# step count (from 2) and the bf16 depth (from 18) are cut to keep the
-# script inside its time limit
-SHARDED_TRAIN_STEPS = 1
+# 2 AdamW steps, each against the one-process step on the card from the
+# same state (rank 0 runs it); bf16 throughput on gemma-2b at full width,
+# remat "full", a global 4 x 1024 batch, 1 warm-up and 3 timed steps
 SHARDED_TRAIN_BATCH = (4, 256)
 SHARDED_TRAIN_LR = 1e-3
 # loss and grad norm relative; gradients of each leaf's largest; AdamW's
@@ -4327,7 +4320,7 @@ SHARDED_TRAIN_TOL = {"loss": 1e-5, "grads": 1e-5, "moments": 1e-5,
                      "params": 1e-5, "params_beyond_frac": 1e-2}
 SHARDED_TRAIN_BF16_MESHES = ((2, 2), (1, 2))
 SHARDED_TRAIN_BF16_BATCH = (4, 1024)
-SHARDED_TRAIN_BF16_LAYERS = 6      # of gemma-2b's 18
+SHARDED_TRAIN_BF16_LAYERS = 18     # gemma-2b's depth
 SHARDED_TRAIN_BF16_STEPS = (1, 3)  # warm-up, timed
 # sharded_decode: the sharded serving model at fp32 through the meshed
 # prefill and serve steps, 8 rows, 8-token prompts fed one token a step,
@@ -4352,10 +4345,8 @@ SLIDING_TOL = 1e-3
 ELASTIC_BATCH = (4, 64)
 # meshed_blocks: MoE, mamba and rwkv blocks on a model axis of 2, in
 # phase_sharded's rank groups ((1,2) in the 2-rank group, (2,2) in the
-# 4-rank one).  meshed_blocks_parity (fp32): the train step,
-# BLOCKS_PARITY_STEPS AdamW steps on a global 4 x 64 batch (qwen2-moe's
-# cut to 1 of 2 for the script's time limit; its depth is 1
-# already), against the one-process step rank 0
+# 4-rank one).  meshed_blocks_parity (fp32): the train step, 2 AdamW
+# steps on a global 4 x 64 batch, against the one-process step rank 0
 # runs on the card (every rank waiting with its cache emptied), on
 # jamba's SMOKE config and on qwen2-moe-a2.7b and rwkv6-1.6b at full
 # width cut to BLOCKS_LAYERS; the MoE groups a data rank's rows at (2,2).
@@ -4373,7 +4364,6 @@ BLOCKS_MODELS = ("jamba", "qwen2-moe", "rwkv6")
 # (1,2) and 168 on (2,2) (7.3 GB at fp32; measured on one H100),
 # so its depth is cut to 1 of 24, in decode too
 BLOCKS_LAYERS = {"jamba": 2, "qwen2-moe": 1, "rwkv6": 2}
-BLOCKS_PARITY_STEPS = {"jamba": 2, "qwen2-moe": 1, "rwkv6": 2}
 BLOCKS_TRAIN_BATCH = (4, 64)
 BLOCKS_GROUP_TOKENS = 128          # 4 x 64 tokens over 2 data ranks
 # SHARDED_TRAIN_TOL's limits (the loss and grad norm within 1e-6)
@@ -4738,15 +4728,13 @@ def rank_sharded_parity(torch, dev, rank, world, shapes) -> dict:
 
 
 def rank_sharded_bf16(torch, dev, rank, world, shapes) -> dict:
-    """bf16 gemma-2b at full width (``SHARDED_BF16_LAYERS`` layers) on
-    each mesh of ``shapes``: the 16 serving requests, this rank's
-    tokens/s, launches, merges and peak GB (while the engine shards the
-    weights, and while it serves)."""
+    """bf16 gemma-2b at full width and depth on each mesh of ``shapes``:
+    the 16 serving requests, this rank's tokens/s, launches, merges and
+    peak GB (while the engine shards the weights, and while it serves)."""
     from repro_torch.configs import gemma_2b
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm as LM
-    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16,
-                              n_layers=SHARDED_BF16_LAYERS)
+    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16)
     requests = serving_requests(torch, cfg)
     res = {}
     for shape in shapes:
@@ -5010,8 +4998,7 @@ def rank_sharded_train(torch, dev, rank, world, shapes) -> dict:
         free(torch)
         step = T.make_train_step(cfg, lr=SHARDED_TRAIN_LR, device=dev,
                                  mesh=mesh)
-        batches = train_batches(torch, cfg, SHARDED_TRAIN_BATCH, 91,
-                                SHARDED_TRAIN_STEPS)
+        batches = train_batches(torch, cfg, SHARDED_TRAIN_BATCH, 91)
         tally, out = {}, {"loss": [], "grad_norm": [], "ref_loss": [],
                           "ref_grad_norm": [], "errors": {}}
         ref_grads = ref_step.compute(ref["params"], batches[0])[1] \
@@ -5455,8 +5442,7 @@ def rank_blocks_parity(torch, dev, rank, world, shapes) -> dict:
             with moe_group_tokens(BLOCKS_GROUP_TOKENS):
                 out = blocks_parity_run(torch, dev, rank, mesh,
                                         blocks_cfg(torch, name, "parity"),
-                                        tol["small_grads"],
-                                        BLOCKS_PARITY_STEPS[name])
+                                        tol["small_grads"])
             res[(tuple(shape), name)] = dict(
                 out, tol=tol, phase_seconds=time.perf_counter() - t0)
     return res
@@ -5569,21 +5555,6 @@ def rank_blocks_bf16(torch, dev, rank, world, runs) -> dict:
     return res
 
 
-@contextmanager
-def seq_switch(on: bool):
-    """``REPRO_SEQ_SHARD=1`` inside when ``on`` (else unset), restored
-    after: a step reads it where it is built and where it runs."""
-    old = os.environ.pop("REPRO_SEQ_SHARD", None)
-    if on:
-        os.environ["REPRO_SEQ_SHARD"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("REPRO_SEQ_SHARD", None)
-        if old is not None:
-            os.environ["REPRO_SEQ_SHARD"] = old
-
-
 def seq_model(torch):
     """yi-34b at full width cut to ``SEQ_LAYERS`` layers, bf16, remat
     "full"."""
@@ -5604,24 +5575,6 @@ def seq_parity_cfgs(torch) -> dict:
                             remat="none")}
 
 
-@contextmanager
-def seq_block_rows(record: list):
-    """Inside, every block appends the rows of the residual stream it
-    took to ``record``."""
-    from repro_torch.models import lm as LM
-    inner = LM._apply_block
-
-    def apply_block(cfg, spec, p, x, *args, **kw):
-        record.append(x.shape[1])
-        return inner(cfg, spec, p, x, *args, **kw)
-
-    LM._apply_block = apply_block
-    try:
-        yield
-    finally:
-        LM._apply_block = inner
-
-
 def rank_seq_shard(torch, dev, rank, world) -> dict:
     """The meshed_seq_shard runs on ``SEQ_MESH`` (constants above), each
     turn of ``SEQ_TURNS`` with the switch on or off: the serve run
@@ -5630,6 +5583,7 @@ def rank_seq_shard(torch, dev, rank, world) -> dict:
     block took) and the train run (each step's seconds and loss, GB held
     and peak, launches, collectives and staged bytes, the rows each block
     took); then the fp32 parity runs with the switch on."""
+    from repro_torch.distributed import act_sharding as AS
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm as LM
@@ -5655,7 +5609,7 @@ def rank_seq_shard(torch, dev, rank, world) -> dict:
         free(torch)
         torch.cuda.reset_peak_memory_stats()
         pre, dec, block_rows = {}, {}, []
-        with seq_block_rows(block_rows):
+        with AS.record_rows(block_rows):
             logits = meshed_run(torch, lambda: prefill(
                 params, {"tokens": tokens}, cache), pre)
         prefill_gb = peak_gb(torch)
@@ -5689,10 +5643,10 @@ def rank_seq_shard(torch, dev, rank, world) -> dict:
                 "decode_launches": dec["launches"],
                 "decode_collectives_per_step": dec["collectives"] / (n - 1)}
 
-    with seq_switch(False):                         # the warm-up
+    with AS.sequence_sharding(False):                         # the warm-up
         serve_run(prompt[:, :SEQ_WARM[1]], SEQ_WARM[1] + 2, False)
     for on in SEQ_TURNS:
-        with seq_switch(on):
+        with AS.sequence_sharding(on):
             res["serve"].append((on, serve_run(prompt, max_seq, True)))
         free(torch)
     del params
@@ -5709,7 +5663,7 @@ def rank_seq_shard(torch, dev, rank, world) -> dict:
         torch.cuda.reset_peak_memory_stats()
         seconds, losses, block_rows = [], [], []
         tally = {}
-        with seq_block_rows(block_rows):
+        with AS.record_rows(block_rows):
             for batch in batches:
                 t0 = tally.get("seconds", 0.0)
                 state, m = meshed_run(torch, lambda: step(state, batch),
@@ -5731,12 +5685,12 @@ def rank_seq_shard(torch, dev, rank, world) -> dict:
                 / 1e9,
                 "block_rows": sorted(set(block_rows))}
 
-    with seq_switch(False):                         # the warm-up
+    with AS.sequence_sharding(False):                         # the warm-up
         train_run(1)
     for on in SEQ_TURNS:
-        with seq_switch(on):
+        with AS.sequence_sharding(on):
             res["train"].append((on, train_run(SEQ_TRAIN_STEPS)))
-    with seq_switch(True):
+    with AS.sequence_sharding(True):
         for name, pcfg in seq_parity_cfgs(torch).items():
             t0 = time.perf_counter()
             out = blocks_parity_run(torch, dev, rank, mesh, pcfg,
@@ -5938,8 +5892,7 @@ def phase_sharded(torch, dev) -> dict:
         same = all(r["tokens"] == ranks[0]["tokens"] for r in ranks)
         line = {"phase": "sharded_serving", "run": "bf16",
                 "mesh": list(shape), "ranks": world,
-                "backend": default_backend(world),
-                "layers": SHARDED_BF16_LAYERS, "layers_of": 18,
+                "backend": default_backend(world), "layers": 18,
                 "requests": MAX_BATCH,
                 "tokens_per_s": [r["tokens_per_s"] for r in ranks],
                 "steps": ranks[0]["steps"],
@@ -6004,7 +5957,7 @@ def phase_meshed_blocks(torch, dev, groups, base) -> dict:
                     "model": cfg.name, "layers": cfg.n_layers,
                     "d_model": cfg.d_model, "dtype": "float32",
                     "batch": list(BLOCKS_TRAIN_BATCH), "optimizer": "adamw",
-                    "steps": BLOCKS_PARITY_STEPS[name],
+                    "steps": 2,
                     "lr": SHARDED_TRAIN_LR,
                     "loss": [r["loss"] for r in ranks],
                     "one_process_loss": r0["ref_loss"],
@@ -6274,7 +6227,7 @@ def phase_meshed_training(torch, dev, groups, decode_base, ckpt_dir
                 "mesh": list(shape), "ranks": world, "model": "gemma-2b",
                 "layers": SHARDED_PARITY_LAYERS,
                 "batch": list(SHARDED_TRAIN_BATCH), "optimizer": "adamw",
-                "steps": SHARDED_TRAIN_STEPS,
+                "steps": 2,
                 "lr": SHARDED_TRAIN_LR,
                 "loss": [r["loss"] for r in ranks],
                 "one_process_loss": r0["ref_loss"],

@@ -214,6 +214,49 @@ def active() -> bool:
     return _get() is not None
 
 
+@contextmanager
+def sequence_sharding(on: bool = True):
+    """``REPRO_SEQ_SHARD=1`` inside when ``on`` (else unset), restored
+    after.  A step reads the switch where it is built (the parameter
+    specs) and where it runs (:func:`seq_sharded`), so both belong
+    inside."""
+    old = os.environ.pop("REPRO_SEQ_SHARD", None)
+    if on:
+        os.environ["REPRO_SEQ_SHARD"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_SEQ_SHARD", None)
+        if old is not None:
+            os.environ["REPRO_SEQ_SHARD"] = old
+
+
+# Where :func:`note_rows` appends, while :func:`record_rows` is open
+# (a module global like the scope, for remat's recompute on the backward
+# thread).
+_rows: list = [None]
+
+
+@contextmanager
+def record_rows(record: list):
+    """Inside, every block appends the rows (dimension 1) of the residual
+    stream it takes to ``record``: under the switch a rank's S/m between
+    blocks, the whole S without it, 1 in a decode step.  Yields
+    ``record``."""
+    prev = _rows[0]
+    _rows[0] = record
+    try:
+        yield record
+    finally:
+        _rows[0] = prev
+
+
+def note_rows(x: torch.Tensor) -> None:
+    """A block's input ``x`` (B, S, D) for :func:`record_rows`."""
+    if _rows[0] is not None:
+        _rows[0].append(x.shape[1])
+
+
 # ----------------------------------------------------------------------
 # the spec choice (pure)
 # ----------------------------------------------------------------------

@@ -391,9 +391,7 @@ def init_train_state(cfg: LM.LMConfig, *, optimizer: str = "adamw",
 
 
 def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None, *,
-                      max_seq: Optional[int] = None,
-                      cache_dtype: torch.dtype = torch.bfloat16
-                      ) -> Callable:
+                      max_seq: Optional[int] = None) -> Callable:
     """Returns ``prefill(params, batch) -> logits (B, S, V)``, where
     ``batch`` holds ``"tokens"`` (B, S) or ``"embeds"`` (B, S, D).  Runs
     ``lm.forward`` without autograd on ``device`` (default CUDA); inputs
@@ -405,11 +403,11 @@ def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None, *,
 
     With ``max_seq`` the step is ``prefill(params, batch, cache)``: it
     also writes the S positions' entries into ``cache``
-    (``lm.init_cache(cfg, B, max_seq, cache_dtype)``; with ``mesh`` the
-    rank's pieces, ``init_cache(..., mesh=mesh)``) as S calls of
-    :func:`make_serve_step`'s step from position 0 would, so that the
-    serve step built with the same ``batch``, ``max_seq`` and
-    ``cache_dtype`` continues at position S.  An encoder
+    (``lm.init_cache(cfg, B, max_seq, dtype)`` of any dtype; with
+    ``mesh`` the rank's pieces, ``init_cache(..., mesh=mesh)``), cast to
+    the cache's dtype, as S calls of :func:`make_serve_step`'s step from
+    position 0 would, so that the serve step built with the same
+    ``batch`` and ``max_seq`` continues at position S.  An encoder
     (``lm_head=False``) has no cache and raises here."""
     LM._check_supported(cfg)
     dev = resolve_device(device)
@@ -432,7 +430,7 @@ def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None, *,
             if cache is not None:
                 rows = next(iter(batch.values())).shape[0]
                 fill_specs = S.cache_specs(cfg, LM.abstract_cache(
-                    cfg, rows, max_seq, cache_dtype), mesh)
+                    cfg, rows, max_seq), mesh)
             batch = _local_batch(cfg, batch, mesh, here, dev)
         tokens, embeds = batch.get("tokens"), batch.get("embeds")
         with torch.no_grad(), AS.scope(mesh, specs,

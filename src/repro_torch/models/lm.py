@@ -388,6 +388,7 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
     is the result (each layer's scheme in ``act_sharding``'s docstring).
     ``fill`` (a prefill, without ``cache``): the layer's cache, written as
     S decode steps from position 0 would leave it."""
+    AS.note_rows(x)
     h = _norm(cfg, x, p["norm1"], p.get("norm1_b"))
     # a recurrent mixer fills its cache by running from it (zeros)
     state = cache if fill is None else fill

@@ -54,6 +54,7 @@ import torch_dist_workers as W
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import attention as JA
 from repro.models import lm as JLM
+from repro_torch.distributed import act_sharding as AS
 from repro_torch.distributed import sharding as TS
 from repro_torch.launch import train as T
 from repro_torch.launch.mesh import MeshShape, run_ranks
@@ -199,7 +200,7 @@ def _leaf_specs(cfg, shape, optimizer, seq=False):
     ``REPRO_SEQ_SHARD=1``, which leaves attention weights whose heads do
     not divide ``model`` unsplit over it)."""
     mesh = MeshShape(("data", "model"), shape)
-    with W.seq_shard(seq):
+    with AS.sequence_sharding(seq):
         specs = T.state_specs(cfg, mesh, optimizer=optimizer,
                               lr=W.TRAIN_LR)
     return T.spec_leaves(specs["params"], TLM.abstract_params(cfg))

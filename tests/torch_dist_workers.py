@@ -270,41 +270,6 @@ MOE_GROUP_TOKENS = "32"     # the global 4 x 16 batch: a group a data rank
 
 
 @contextmanager
-def seq_shard(on: bool = True):
-    """``REPRO_SEQ_SHARD=1`` while a switch-on case builds and runs its
-    steps (``on=False``: unset); restored after."""
-    import os
-    old = os.environ.pop("REPRO_SEQ_SHARD", None)
-    if on:
-        os.environ["REPRO_SEQ_SHARD"] = "1"
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("REPRO_SEQ_SHARD", None)
-        else:
-            os.environ["REPRO_SEQ_SHARD"] = old
-
-
-@contextmanager
-def block_rows(record: list):
-    """Every block's input rows (dimension 1 of the residual stream a
-    rank holds) appended to ``record`` while inside."""
-    from repro_torch.models import lm as LM
-    inner = LM._apply_block
-
-    def apply_block(cfg, spec, p, x, *args, **kw):
-        record.append(x.shape[1])
-        return inner(cfg, spec, p, x, *args, **kw)
-
-    LM._apply_block = apply_block
-    try:
-        yield
-    finally:
-        LM._apply_block = inner
-
-
-@contextmanager
 def moe_groups(cfg, tokens: str):
     """``REPRO_MOE_GROUP_TOKENS`` set to ``tokens`` while a config with
     MoE layers runs, so that a meshed run, each data rank routing its own
@@ -402,13 +367,14 @@ def mesh_train_rank(rank, world, shapes, cases, device="cpu"):
 def seq_train_rank(rank, world, shapes, cases):
     """``mesh_train_rank`` with ``REPRO_SEQ_SHARD=1``, each run with the
     rows of the residual stream each block took (``"rows"``)."""
+    from repro_torch.distributed import act_sharding as AS
     from repro_torch.launch.mesh import make_mesh
     res = {}
     for shape in shapes:
         mesh = make_mesh(tuple(shape), ("data", "model"))
         for name, optimizer, accum in cases:
             rows = []
-            with seq_shard(), block_rows(rows):
+            with AS.sequence_sharding(), AS.record_rows(rows):
                 out = run_train(train_cfg(name), optimizer, accum, mesh)
             res[(tuple(shape), name, optimizer, accum)] = dict(
                 out, rows=sorted(set(rows)))
@@ -421,12 +387,13 @@ ODD_LENGTH = (4, 15)    # a sequence no model axis > 1 of these tests divides
 def seq_odd_length_rank(rank, world, shape, name):
     """``run_train`` of ``name`` on ``ODD_LENGTH`` batches on ``shape``,
     with ``REPRO_SEQ_SHARD=1`` and without: {on: result}."""
+    from repro_torch.distributed import act_sharding as AS
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(tuple(shape), ("data", "model"))
     res = {}
     for on in (True, False):
         rows = []
-        with seq_shard(on), block_rows(rows):
+        with AS.sequence_sharding(on), AS.record_rows(rows):
             out = run_train(train_cfg(name), "adamw", 1, mesh,
                             shape=ODD_LENGTH)
         res[on] = dict(out, rows=sorted(set(rows)))
@@ -537,8 +504,7 @@ def filled_run(cfg, params, mesh=None, device="cpu", fill=True):
                           mesh)
     if fill:
         prefill = T.make_prefill_step(cfg, device=device, mesh=mesh,
-                                      max_seq=max_seq,
-                                      cache_dtype=torch.float32)
+                                      max_seq=max_seq)
         with moe_groups(cfg, str(DECODE_ROWS * FILL_PROMPT // 2)):
             logits = prefill(params, {"tokens": prompts}, cache)
     else:
@@ -555,6 +521,7 @@ def seq_decode_rank(rank, world, shape, names):
     """``filled_run`` on ``shape`` for each config, the parameters the
     rank's pieces, with ``REPRO_SEQ_SHARD=1`` and without: {(name, on):
     (tokens, merges, rows of the prefill's blocks)}."""
+    from repro_torch.distributed import act_sharding as AS
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import init_pieces
     mesh = make_mesh(tuple(shape), ("data", "model"))
@@ -563,7 +530,7 @@ def seq_decode_rank(rank, world, shape, names):
         cfg = train_cfg(name)
         for on in (True, False):
             rows = []
-            with seq_shard(on), block_rows(rows):
+            with AS.sequence_sharding(on), AS.record_rows(rows):
                 params = init_pieces(cfg, mesh, seed=0, device="cpu")
                 toks, merges = filled_run(cfg, params, mesh)
             res[(name, on)] = (toks, merges, sorted(set(rows)))
@@ -701,13 +668,14 @@ def seq_encoder_rank(rank, world, shape):
     """The meshed prefill step's logits (gathered whole over ``model``) of
     ``encoder_cfg`` under ``REPRO_SEQ_SHARD=1`` from the rank's seed-0
     pieces on ``encoder_embeds``, and the rows each block took."""
+    from repro_torch.distributed import act_sharding as AS
     from repro_torch.distributed import sharding as S
     from repro_torch.launch import train as T
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(tuple(shape), ("data", "model"))
     cfg = encoder_cfg()
     rows = []
-    with seq_shard(), block_rows(rows):
+    with AS.sequence_sharding(), AS.record_rows(rows):
         params = T.init_pieces(cfg, mesh, seed=0, device="cpu")
         logits = T.make_prefill_step(cfg, device="cpu", mesh=mesh)(
             params, {"embeds": encoder_embeds(cfg)})
@@ -719,7 +687,8 @@ def seq_encoder_rank(rank, world, shape):
 def seq_forward_rank(rank, world, shape, trees):
     """``mesh_forward_rank`` under ``REPRO_SEQ_SHARD=1`` for each config
     of ``trees`` ({name: the reference's parameter pytree})."""
-    with seq_shard():
+    from repro_torch.distributed import act_sharding as AS
+    with AS.sequence_sharding():
         return {name: mesh_forward_rank(rank, world, shape, name, tree)
                 for name, tree in trees.items()}
 
