@@ -4418,6 +4418,43 @@ SEQ_DECODE_STEPS = 8
 SEQ_TURNS = (True, False)
 SEQ_WARM = (1, 512)                 # the warm-up prefill's tokens
 SEQ_PARITY_TOL = {**SHARDED_TRAIN_TOL, "loss": 1e-6, "small_grads": 0.0}
+# meshed_a7c: Adafactor on a mesh and MLA decode on a model axis > 1, in
+# phase_sharded's rank groups (A7C_MESH in the 2-rank group; jamba's
+# fp32 Adafactor parity on (2,2) in the 4-rank one).  Adafactor bf16, remat
+# "full": A7C_TRAIN_STEPS steps at 1 x 4096 (train_4k's length) from the
+# seed's state, on jamba-1.5-large-398b cut to its first layer (a mamba
+# mixer and a dense FFN, as a one-layer pattern so that remat
+# checkpoints it; its second layer holds the 16 experts, which two ranks
+# on one card cannot train) and qwen2-moe-a2.7b cut to 2 of its 24
+# layers (its 60 experts over model).  Adafactor fp32 parity
+# (A7C_PARITY): jamba's and qwen2-moe's SMOKE configs on (1,2), jamba's
+# on (2,2), 2 steps on BLOCKS_TRAIN_BATCH against the one-process step
+# on the card, at BLOCKS_TOL's limits: the factors at
+# twice the moments' limit (as AdamW's v: squared gradients), and the
+# parameter count leaving out elements whose one-process sqrt(v_hat) is
+# below A7C_SMALL of the leaf's largest (a 1-D leaf's v is each element's
+# own, and moves it by about lr * g / |g|; the CPU tests' ADAFACTOR_LIMITS
+# leave out gradients below 1e-2 of the largest).  MLA decode bf16:
+# minicpm3-4b at full width and A7C_MLA_LAYERS of its 62 layers, a
+# prefill of A7C_MLA_PREFILL filling a cache of 1040 slots (520 a rank),
+# then A7C_MLA_STEPS greedy steps (the archs' decode shape), against the
+# no-mesh run on the same card (first_divergence).  MLA fp32 parity:
+# minicpm3-4b at full width, 2 of 62 layers, prompts of A7C_MLA_PARITY
+# rows x positions filling the cache, then greedy steps: the tokens
+# equal to the no-mesh run's, each step's logits within A7C_MLA_TOL of
+# their largest
+A7C_MESH = (1, 2)
+A7C_TRAIN_BATCH = (1, 4096)
+A7C_TRAIN_STEPS = 2
+A7C_TRAIN_MODELS = ("jamba", "qwen2-moe")
+A7C_PARITY = (((1, 2), ("jamba", "qwen2-moe")), ((2, 2), ("jamba",)))
+A7C_SMALL = 1e-2
+A7C_MLA_LAYERS = 62
+A7C_MLA_PREFILL = (8, 1024)
+A7C_MLA_STEPS = 16
+A7C_MLA_PARITY = (2, 160)
+A7C_MLA_PARITY_LAYERS, A7C_MLA_PARITY_STEPS = 2, 8
+A7C_MLA_TOL = 1e-5
 
 
 def phase_paged_lse(torch, dev) -> list:
@@ -5342,25 +5379,28 @@ def blocks_cfg(torch, name: str, run: str):
 
 
 def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float,
-                      steps: int = 2) -> dict:
-    """``steps`` AdamW steps of the meshed train step on ``mesh`` against
-    the one-process step.  Before each meshed step rank 0 runs the
-    one-process step while every rank waits with its cache emptied (the
-    first from ``SHARDED_SEED``; its state stays on the card, the first
-    step's gradients go to host memory); each rank's pieces of the
-    gradients (step 1), AdamW moments and parameters (after each step)
-    are held to them (``leaf_errors``; the
-    parameter count leaves out elements whose one-process sqrt(v) is
-    below ``small`` of the leaf's largest).  Returns the losses, grad
+                      steps: int = 2, optimizer: str = "adamw") -> dict:
+    """``steps`` steps of ``optimizer`` (AdamW or Adafactor) of the meshed
+    train step on ``mesh`` against the one-process step.  Before each
+    meshed step rank 0 runs the one-process step while every rank waits
+    with its cache emptied (the first from ``SHARDED_SEED``; its state
+    stays on the card, the first step's gradients go to host memory);
+    each rank's pieces of the gradients (step 1), the optimizer state
+    (AdamW's moments, Adafactor's factors) and the parameters (after
+    each step) are held to them (``leaf_errors``; the parameter count
+    leaves out elements whose one-process sqrt(v) is below ``small`` of
+    the leaf's largest, Adafactor's v_hat).  Returns the losses, grad
     norms, errors and the meshed calls' launches, collectives and
-    seconds."""
+    seconds (Adafactor's own reductions as ``update_reductions``)."""
     import torch.distributed as dist
     from repro_torch.launch import train as T
     from repro_torch.models import lm as LM
     from repro_torch.optim.functional import tree_leaves
     lr = SHARDED_TRAIN_LR
-    leaf_specs = T.spec_leaves(T.state_specs(cfg, mesh, lr=lr)["params"],
-                               LM.abstract_params(cfg))
+    kw = dict(lr=lr, optimizer=optimizer)
+    specs = T.state_specs(cfg, mesh, **kw)
+    leaf_specs = T.spec_leaves(specs["params"], LM.abstract_params(cfg))
+    keys = ("fac",) if optimizer == "adafactor" else ("m", "v")
     first = rank == 0
     batches = train_batches(torch, cfg, BLOCKS_TRAIN_BATCH, 96, steps)
     held = {}
@@ -5370,9 +5410,9 @@ def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float,
         state of the step before (updated in place): its gradients (where
         asked, in host memory), loss and grad norm."""
         if not held:
-            held["step"] = T.make_train_step(cfg, lr=lr, device=dev)
-            held["state"] = T.init_train_state(cfg, lr=lr,
-                                               seed=SHARDED_SEED, device=dev)
+            held["step"] = T.make_train_step(cfg, device=dev, **kw)
+            held["state"] = T.init_train_state(cfg, seed=SHARDED_SEED,
+                                               device=dev, **kw)
         state = held["state"]
         grads = None if not with_grads else [
             g.cpu() for g in held["step"].compute(state["params"],
@@ -5396,9 +5436,9 @@ def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float,
             out["ref_grad_norm"].append(gnorm)
         dist.barrier()
         if state is None:
-            state = T.init_train_state(cfg, lr=lr, seed=SHARDED_SEED,
-                                       device=dev, mesh=mesh)
-            step = T.make_train_step(cfg, lr=lr, device=dev, mesh=mesh)
+            state = T.init_train_state(cfg, seed=SHARDED_SEED, device=dev,
+                                       mesh=mesh, **kw)
+            step = T.make_train_step(cfg, device=dev, mesh=mesh, **kw)
             free(torch)
             _, grads = meshed_run(torch, lambda: step.compute(
                 state["params"], batch), tally)
@@ -5410,22 +5450,45 @@ def blocks_parity_run(torch, dev, rank, mesh, cfg, small: float,
         out["loss"].append(float(m["loss"]))
         out["grad_norm"].append(float(m["grad_norm"]))
         ref = held.get("state")
-        # AdamW's step divides by sqrt(v): where the one-process v is
-        # small an element's move is least determined (``small``)
-        rms = None if not first else [
-            x.sqrt() for x in tree_leaves(ref["opt"]["v"])]
-        for key in ("m", "v", "params"):
+        # the step divides by sqrt(v) (AdamW's, Adafactor's v_hat): where
+        # the one-process v is small an element's move is least
+        # determined (``small``)
+        rms = None if not first else (
+            adafactor_scale(T.spec_leaves(ref["opt"]["fac"],
+                                          ref["params"]))
+            if optimizer == "adafactor" else
+            [x.sqrt() for x in tree_leaves(ref["opt"]["v"])])
+        for key in keys + ("params",):
             tree = state["params"] if key == "params" else \
                 state["opt"][key]
             refs = None if not first else tree_leaves(
                 ref["params"] if key == "params" else ref["opt"][key])
             out["errors"][f"{key}_step{i + 1}"] = leaf_errors(
-                torch, tree_leaves(tree), leaf_specs, mesh, refs, key,
-                scale=rms, small=small)
+                torch, tree_leaves(tree),
+                leaf_specs if key != "fac" else T.spec_leaves(
+                    specs["opt"]["fac"], state["opt"]["fac"]),
+                mesh, refs, key, scale=rms if key == "params" else None,
+                small=small)
         del ref, ref_grads, rms
+    out["update_reductions"] = dict(step.update_reductions)
     del state, held
     free(torch)
     return {**out, **tally}
+
+
+def adafactor_scale(facs) -> list:
+    """sqrt(v_hat) of each leaf from its Adafactor factors (``{"row",
+    "col"}``, or ``{"v"}`` for a 1-D leaf), as the update divides by it."""
+    out = []
+    for f in facs:
+        if "v" in f:
+            out.append(f["v"].sqrt())
+            continue
+        row, col = f["row"], f["col"]
+        mean = row.mean(dim=-1, keepdim=True).clamp(min=1e-30)
+        out.append((row[..., :, None] / mean[..., None]
+                    * col[..., None, :]).sqrt())
+    return out
 
 
 def rank_blocks_parity(torch, dev, rank, world, shapes) -> dict:
@@ -5701,6 +5764,222 @@ def rank_seq_shard(torch, dev, rank, world) -> dict:
     return res
 
 
+def a7c_train_cfg(torch, name: str):
+    """The meshed_a7c Adafactor bf16 config of ``name`` (constants
+    above)."""
+    from repro_torch.configs import jamba_1_5_large_398b, qwen2_moe_a2_7b
+    if name == "jamba":
+        full = jamba_1_5_large_398b.CONFIG
+        return dataclasses.replace(full, n_layers=1,
+                                   pattern=full.pattern[:1], remat="full")
+    return dataclasses.replace(qwen2_moe_a2_7b.CONFIG, n_layers=2,
+                               remat="full")
+
+
+def a7c_mla_cfg(torch, layers: int, dtype):
+    """minicpm3-4b at full width cut to ``layers``, at ``dtype``."""
+    from repro_torch.configs import minicpm3_4b
+    return dataclasses.replace(minicpm3_4b.CONFIG, n_layers=layers,
+                               param_dtype=dtype)
+
+
+def tree_gb(tree) -> float:
+    from repro_torch.optim.functional import tree_leaves
+    return sum(x.numel() * x.element_size()
+               for x in tree_leaves(tree)) / 1e9
+
+
+def param_count(cfg) -> int:
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.functional import tree_leaves
+    return sum(x.numel() for x in tree_leaves(LM.abstract_params(cfg)))
+
+
+def a7c_train_run(torch, dev, mesh, name: str) -> dict:
+    """``A7C_TRAIN_STEPS`` Adafactor steps of ``name``'s bf16 config on
+    ``mesh`` from the rank's pieces of ``SHARDED_SEED``'s state: each
+    step's seconds, tokens/s and loss; GB held (the state; its optimizer
+    part beside the moments AdamW would hold for the same pieces) and
+    the steps' peak; launches, collectives and staged GB a step, and the
+    update's own reductions (calls and fp32 bytes) each step."""
+    from repro_torch.launch import train as T
+    from repro_torch.optim.functional import make_optimizer, tree_map
+    cfg = a7c_train_cfg(torch, name)
+    kw = dict(optimizer="adafactor", lr=SHARDED_TRAIN_LR)
+    free(torch)
+    state = T.init_train_state(cfg, seed=SHARDED_SEED, device=dev,
+                               mesh=mesh, **kw)
+    free(torch)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), state["params"])
+    adamw = make_optimizer("adamw", lr=SHARDED_TRAIN_LR)[0](meta)
+    step = T.make_train_step(cfg, device=dev, mesh=mesh, **kw)
+    batches = train_batches(torch, cfg, A7C_TRAIN_BATCH, 101,
+                            A7C_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    tally, seconds, losses, reductions = {}, [], [], []
+    for batch in batches:
+        t0, r0 = tally.get("seconds", 0.0), dict(step.update_reductions)
+        state, m = meshed_run(torch, lambda: step(state, batch), tally)
+        seconds.append(tally["seconds"] - t0)
+        losses.append(float(m["loss"]))
+        reductions.append({k: n - r0[k]
+                           for k, n in step.update_reductions.items()})
+    n = len(batches)
+    out = {"layers": cfg.n_layers, "params": param_count(cfg),
+           "s_per_step": seconds,
+           "tokens_per_s": [math.prod(A7C_TRAIN_BATCH) / t
+                            for t in seconds],
+           "losses": losses, "held_gb": held_gb,
+           "opt_gb": tree_gb(state["opt"]),
+           "adamw_opt_gb": tree_gb([adamw["m"], adamw["v"]]),
+           "step_peak_gb": peak_gb(torch),
+           "launches": tally["launches"],
+           "launches_per_step": {k: c / n for k, c in
+                                 tally["launches"].items()},
+           "collectives_per_step": tally["collectives"] / n,
+           "staged_gb_per_step": tally["staged_bytes"] / n / 1e9,
+           "update_reductions": reductions}
+    del state, step
+    free(torch)
+    return out
+
+
+def mla_decode_run(torch, dev, cfg, prompt_shape, steps: int, mesh=None,
+                   keep_logits: bool = False) -> dict:
+    """minicpm3 ``cfg`` from ``SHARDED_SEED`` (the rank's pieces on
+    ``mesh``): the prefill of ``prompt_shape`` (rows, positions) tokens
+    filling a cache of positions + ``steps`` slots in the model's dtype
+    (its slots split over model on ``mesh``), then ``steps`` greedy
+    serve steps, the first untimed (the meshed step gathers its weights
+    there).  Returns the greedy tokens (the prefill's and the steps'), GB
+    held (the weights, the cache) and peak, the prefill's seconds,
+    launches and collectives, and ms, launches, collectives, staged GB
+    and log-sum-exp merges a timed step; with ``keep_logits`` each
+    greedy token's logits whole (fp32, in host memory)."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm as LM
+    rows, length = prompt_shape
+    max_seq = length + steps
+    free(torch)
+    params = (LM.init_params(cfg, seed=SHARDED_SEED, device=dev)
+              if mesh is None else
+              T.init_pieces(cfg, mesh, seed=SHARDED_SEED, device=dev))
+    prompt = torch.randint(0, cfg.vocab_size, prompt_shape,
+                           generator=torch.Generator().manual_seed(102))
+    prefill = T.make_prefill_step(cfg, device=dev, mesh=mesh,
+                                  max_seq=max_seq)
+    serve = T.make_serve_step(cfg, batch=rows, max_seq=max_seq,
+                              cache_dtype=cfg.param_dtype, device=dev,
+                              mesh=mesh)
+    cache = LM.init_cache(cfg, rows, max_seq, cfg.param_dtype, dev, mesh)
+    free(torch)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    kept = []
+
+    def greedy(logits):
+        if keep_logits:
+            whole = logits if mesh is None or \
+                logits.shape[-1] == cfg.vocab_size else S.gather_leaf(
+                    mesh, S.P(None, "model"), logits.contiguous())
+            kept.append(whole.float().cpu())
+        return T.greedy_tokens(logits, mesh, cfg.vocab_size)
+
+    torch.cuda.reset_peak_memory_stats()
+    pre, dec = {}, {}
+    logits = meshed_run(torch, lambda: prefill(
+        params, {"tokens": prompt}, cache), pre)
+    finite = bool(torch.isfinite(logits[:, -1].float()).all())
+    out = [greedy(logits[:, -1])]
+    del logits
+    logits, _ = serve(params, cache, out[-1][:, None], length)
+    out.append(greedy(logits[:, -1]))
+    merges = serve.lse_merges
+
+    def decode():
+        for i in range(1, steps):
+            logits, _ = serve(params, cache, out[-1][:, None], length + i)
+            out.append(greedy(logits[:, -1]))
+        return logits
+
+    logits = meshed_run(torch, decode, dec)
+    finite = finite and bool(torch.isfinite(logits.float()).all())
+    timed = steps - 1
+    res = {"tokens": torch.stack(out, 1).cpu().tolist(), "finite": finite,
+           "held_gb": held_gb, "cache_gb": tree_gb(cache),
+           "peak_gb": peak_gb(torch), "prefill_s": pre["seconds"],
+           "prefill_launches": pre["launches"],
+           "prefill_collectives": pre["collectives"],
+           "decode_ms_per_step": dec["seconds"] / timed * 1e3,
+           "decode_launches_per_step": {k: n / timed for k, n in
+                                        dec["launches"].items()},
+           "decode_collectives_per_step": dec["collectives"] / timed,
+           "decode_staged_gb_per_step": dec["staged_bytes"] / timed / 1e9,
+           "lse_merges_per_step": (serve.lse_merges - merges) / timed,
+           "logits": kept}
+    del params, cache, serve, prefill, logits
+    free(torch)
+    return res
+
+
+def a7c_mla_runs(torch, dev, mesh=None) -> dict:
+    """The bf16 MLA decode run and the fp32 parity run (its logits kept)
+    on ``mesh``, or without one."""
+    t0 = time.perf_counter()
+    bf16 = mla_decode_run(
+        torch, dev, a7c_mla_cfg(torch, A7C_MLA_LAYERS, torch.bfloat16),
+        A7C_MLA_PREFILL, A7C_MLA_STEPS, mesh)
+    fp32 = mla_decode_run(
+        torch, dev, a7c_mla_cfg(torch, A7C_MLA_PARITY_LAYERS,
+                                torch.float32),
+        A7C_MLA_PARITY, A7C_MLA_PARITY_STEPS, mesh, keep_logits=True)
+    return {"bf16": bf16, "fp32": fp32,
+            "seconds": time.perf_counter() - t0}
+
+
+def a7c_parity_tol(name: str) -> dict:
+    return {**SHARDED_TRAIN_TOL, "loss": 1e-6, **BLOCKS_TOL.get(name, {}),
+            "small_grads": A7C_SMALL}
+
+
+def rank_a7c_parity(torch, dev, rank, world, runs) -> dict:
+    """The Adafactor fp32 parity (``blocks_parity_run``) of the SMOKE
+    configs of each (mesh, models) of ``runs``, the MoE groups
+    ``BLOCKS_GROUP_TOKENS`` tokens."""
+    from repro_torch.configs import jamba_1_5_large_398b, qwen2_moe_a2_7b
+    from repro_torch.launch.mesh import make_mesh
+    mods = {"jamba": jamba_1_5_large_398b, "qwen2-moe": qwen2_moe_a2_7b}
+    res = {}
+    for shape, names in runs:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for name in names:
+            mod = mods[name]
+            t0 = time.perf_counter()
+            with moe_group_tokens(BLOCKS_GROUP_TOKENS):
+                out = blocks_parity_run(torch, dev, rank, mesh, mod.SMOKE,
+                                        A7C_SMALL, optimizer="adafactor")
+            res[(tuple(shape), name)] = dict(
+                out, tol=a7c_parity_tol(name),
+                phase_seconds=time.perf_counter() - t0)
+    return res
+
+
+def rank_a7c(torch, dev, rank, world) -> dict:
+    """The meshed_a7c runs on ``A7C_MESH`` (constants above): the
+    Adafactor bf16 steps of each of ``A7C_TRAIN_MODELS``
+    (``a7c_train_run``) and the MLA runs (``a7c_mla_runs``)."""
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh(A7C_MESH, ("data", "model"))
+    res = {"train": {name: a7c_train_run(torch, dev, mesh, name)
+                     for name in A7C_TRAIN_MODELS}}
+    res["mla"] = a7c_mla_runs(torch, dev, mesh)
+    res["phase_seconds"] = time.perf_counter() - t0
+    return res
+
+
 def elastic_model(torch):
     from repro_torch.configs import gemma_2b
     return gemma_2b.SMOKE
@@ -5811,8 +6090,10 @@ def phase_sharded(torch, dev) -> dict:
     sharded_decode's (1,2), elastic_restore onto (1,2)), NCCL with a card
     a rank where there are enough, else gloo with every rank on
     ``cuda:0`` (the kernels on the card, the collectives staged through
-    host memory).  The meshed-blocks jobs run in both groups and the
-    sequence-sharded ones (``rank_seq_shard``) last in the 2-rank group.
+    host memory).  The meshed-blocks jobs and the Adafactor parity
+    (``rank_a7c_parity``) run in both groups, and the sequence-sharded
+    (``rank_seq_shard``) and meshed_a7c (``rank_a7c``) ones last in the
+    2-rank group.
     Returns the paged-kernel launches of each bf16 serving rank, and the
     flash and decode launches of each meshed training and decode rank."""
     from repro_torch.launch.mesh import default_backend, run_ranks
@@ -5831,6 +6112,7 @@ def phase_sharded(torch, dev) -> dict:
     free(torch)
     blocks_base = {name: blocks_decode(torch, dev, name)
                    for name in BLOCKS_MODELS}
+    a7c_base = a7c_mla_runs(torch, dev)
 
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_elastic_")
     groups = {}
@@ -5854,8 +6136,10 @@ def phase_sharded(torch, dev) -> dict:
                  ("rank_blocks_bf16", ([(n, m) for n, ms in BLOCKS_BF16
                                         for m in ms
                                         if m[0] * m[1] == world],))]
+        jobs.append(("rank_a7c_parity", ([r for r in A7C_PARITY
+                                           if math.prod(r[0]) == world],)))
         if world == 2:
-            jobs.append(("rank_seq_shard", ()))
+            jobs += [("rank_seq_shard", ()), ("rank_a7c", ())]
         t0 = time.perf_counter()
         groups[world] = run_ranks(rank_jobs, world, (jobs, dev),
                                   timeout=RANK_TIMEOUT)
@@ -5918,8 +6202,9 @@ def phase_sharded(torch, dev) -> dict:
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     blocks = phase_meshed_blocks(torch, dev, groups, blocks_base)
     seq = phase_meshed_seq_shard(torch, dev, groups)
+    a7c = phase_meshed_a7c(torch, dev, groups, a7c_base)
     return {"paged_attention": bf16, **meshed, "meshed_blocks": blocks,
-            "meshed_seq_shard": seq}
+            "meshed_seq_shard": seq, "meshed_a7c": a7c}
 
 
 def phase_meshed_blocks(torch, dev, groups, base) -> dict:
@@ -6081,10 +6366,10 @@ def phase_meshed_blocks(torch, dev, groups, base) -> dict:
 def parity_within(errs: dict, loss_rel: float, gnorm_rel: float,
                   tol: dict) -> bool:
     """Whether a ``blocks_parity_run``'s errors are within ``tol``: the
-    loss and grad norm, the gradients, AdamW's m (and v at twice the
-    moments' limit), the parameters within 2 lr and all but
-    ``params_beyond_frac`` of a leaf's elements within 1e-5 of its
-    largest."""
+    loss and grad norm, the gradients, AdamW's m (and v, and Adafactor's
+    factors, at twice the moments' limit), the parameters within 2 lr
+    and all but ``params_beyond_frac`` of a leaf's elements within 1e-5
+    of its largest."""
     params_ok = all(
         e["within_2lr"] and e["beyond"] <= max(
             1, tol["params_beyond_frac"] * e["elements"])
@@ -6092,8 +6377,9 @@ def parity_within(errs: dict, loss_rel: float, gnorm_rel: float,
     return params_ok and loss_rel <= tol["loss"] and \
         gnorm_rel <= tol["loss"] and \
         errs["grads"]["rel"] <= tol["grads"] and all(
-            e["rel"] <= tol["moments"] * (2 if k[0] == "v" else 1)
-            for k, e in errs.items() if k[0] in "mv")
+            e["rel"] <= tol["moments"] * (1 if k[0] == "m" else 2)
+            for k, e in errs.items() if k[0] in "mv"
+            or k.startswith("fac"))
 
 
 def phase_meshed_seq_shard(torch, dev, groups) -> dict:
@@ -6198,6 +6484,139 @@ def phase_meshed_seq_shard(torch, dev, groups) -> dict:
     if not ok:
         raise AssertionError("meshed_seq_shard: a check failed (lines "
                              "above)")
+    return counts
+
+
+def phase_meshed_a7c(torch, dev, groups, base) -> dict:
+    """The lines of the meshed_a7c jobs (``meshed_a7c_models``,
+    ``meshed_a7c_adafactor``, ``meshed_a7c_parity``,
+    ``meshed_a7c_mla_decode``, ``meshed_a7c_mla_parity``,
+    ``meshed_a7c_seconds``), each checked: finite Adafactor losses with
+    the Mamba (jamba) or flash (qwen2-moe) kernel launched on every
+    rank, the fp32 parity within ``a7c_parity_tol``, finite MLA logits
+    with the flash kernel in every prefill and the decode kernel in every
+    step on every rank, the fp32 MLA tokens equal to the no-mesh run's
+    and each step's logits within ``A7C_MLA_TOL`` of their largest.
+    ``base``: ``a7c_mla_runs`` without a mesh.  Returns each rank's
+    launches by run."""
+    from repro_torch.launch.mesh import default_backend
+    t0 = time.perf_counter()
+    ranks = [g["rank_a7c"] for g in groups[2]]
+    mesh = {"mesh": list(A7C_MESH), "ranks": 2,
+            "backend": default_backend(2)}
+    mla = a7c_mla_cfg(torch, A7C_MLA_LAYERS, torch.bfloat16)
+    emit({"phase": "meshed_a7c_models", **mesh, "adafactor": {
+        name: {"d_model": c.d_model, "layers": c.n_layers,
+               "cut": f"first {c.n_layers} of {n} layers",
+               "params": param_count(c), "remat": c.remat,
+               "batch": list(A7C_TRAIN_BATCH)}
+        for name, n in (("jamba", 72), ("qwen2-moe", 24))
+        for c in [a7c_train_cfg(torch, name)]},
+        "mla": {"model": mla.name, "d_model": mla.d_model,
+                "n_heads": mla.n_heads, "q_lora_rank": mla.q_lora_rank,
+                "kv_lora_rank": mla.kv_lora_rank,
+                "nope": mla.mla_nope_dim, "rope": mla.mla_rope_dim,
+                "v": mla.mla_v_dim, "vocab_size": mla.vocab_size,
+                "layers": mla.n_layers, "layers_of": 62,
+                "params": param_count(mla),
+                "prefill": list(A7C_MLA_PREFILL), "steps": A7C_MLA_STEPS,
+                "max_seq": A7C_MLA_PREFILL[1] + A7C_MLA_STEPS}})
+    ok, counts = True, {}
+    kernel = {"jamba": "mamba_scan", "qwen2-moe": "flash_attention"}
+    for name in A7C_TRAIN_MODELS:
+        runs = [r["train"][name] for r in ranks]
+        emit({"phase": "meshed_a7c_adafactor", **mesh, "model": name,
+              "dtype": "bfloat16", "steps": A7C_TRAIN_STEPS,
+              **{k: [x[k] for x in runs] for k in (
+                  "losses", "tokens_per_s", "s_per_step", "held_gb",
+                  "opt_gb", "adamw_opt_gb", "step_peak_gb",
+                  "launches_per_step", "collectives_per_step",
+                  "staged_gb_per_step", "update_reductions")}})
+        ok = ok and all(all(math.isfinite(v) for v in x["losses"])
+                        and x["launches"].get(kernel[name], 0) > 0
+                        for x in runs)
+        counts[f"adafactor_{name}"] = {k: [x["launches"].get(k, 0)
+                                           for x in runs]
+                                       for k in ("flash_attention",
+                                                 "mamba_scan")}
+    for shape, names in A7C_PARITY:
+        world = shape[0] * shape[1]
+        for name in names:
+            runs = [g["rank_a7c_parity"][(shape, name)]
+                    for g in groups[world]]
+            r0 = runs[0]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(r0["loss"], r0["ref_loss"]))
+            gnorm_rel = max(abs(a - b) / abs(b) for a, b in
+                            zip(r0["grad_norm"], r0["ref_grad_norm"]))
+            good = parity_within(r0["errors"], loss_rel, gnorm_rel,
+                                 r0["tol"])
+            emit({"phase": "meshed_a7c_parity", "mesh": list(shape),
+                  "ranks": world, "backend": default_backend(world),
+                  "model": f"{name} SMOKE", "optimizer": "adafactor",
+                  "dtype": "float32", "batch": list(BLOCKS_TRAIN_BATCH),
+                  "steps": len(r0["loss"]),
+                  "loss": [x["loss"] for x in runs],
+                  "one_process_loss": r0["ref_loss"],
+                  "loss_max_rel_err": loss_rel,
+                  "grad_norm_max_rel_err": gnorm_rel,
+                  "errors": r0["errors"], "tol": r0["tol"], "within": good,
+                  "update_reductions": [x["update_reductions"]
+                                        for x in runs],
+                  "launches": [x["launches"] for x in runs],
+                  "seconds": max(x["phase_seconds"] for x in runs)})
+            ok = ok and good
+    runs = [r["mla"]["bf16"] for r in ranks]
+    want = base["bf16"]["tokens"]
+    line = {"phase": "meshed_a7c_mla_decode", **mesh, "model": mla.name,
+            "dtype": "bfloat16", "layers": mla.n_layers,
+            "no_mesh": {k: base["bf16"][k] for k in (
+                "decode_ms_per_step", "prefill_s", "held_gb", "cache_gb",
+                "peak_gb", "decode_launches_per_step")},
+            **{k: [x[k] for x in runs] for k in (
+                "decode_ms_per_step", "decode_collectives_per_step",
+                "decode_staged_gb_per_step", "lse_merges_per_step",
+                "held_gb", "peak_gb", "cache_gb",
+                "decode_launches_per_step", "prefill_s",
+                "prefill_launches", "prefill_collectives", "finite")},
+            "first_divergence": [first_divergence(want, x["tokens"])
+                                 for x in runs]}
+    emit(line)
+    ok = ok and all(
+        x["finite"] and x["prefill_launches"].get("flash_attention", 0) > 0
+        and x["decode_launches_per_step"].get("decode_attention", 0) > 0
+        for x in runs)
+    counts["mla_prefill"] = {"flash_attention": [
+        x["prefill_launches"].get("flash_attention", 0) for x in runs]}
+    counts["mla_decode_per_step"] = {"decode_attention": [
+        x["decode_launches_per_step"].get("decode_attention", 0)
+        for x in runs]}
+    runs = [r["mla"]["fp32"] for r in ranks]
+    ref = base["fp32"]
+    errs = [max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(x["logits"], ref["logits"])) for x in runs]
+    equal = [x["tokens"] == ref["tokens"] for x in runs]
+    emit({"phase": "meshed_a7c_mla_parity", **mesh, "model": mla.name,
+          "dtype": "float32", "layers": A7C_MLA_PARITY_LAYERS,
+          "prompt": list(A7C_MLA_PARITY), "steps": A7C_MLA_PARITY_STEPS,
+          "tokens_equal_no_mesh": equal, "logits_max_rel_err": errs,
+          "tol": A7C_MLA_TOL,
+          "lse_merges_per_step": [x["lse_merges_per_step"] for x in runs],
+          "decode_launches_per_step": [x["decode_launches_per_step"]
+                                       for x in runs]})
+    ok = ok and all(equal) and max(errs) <= A7C_MLA_TOL and all(
+        x["decode_launches_per_step"].get("decode_attention", 0) > 0
+        for x in runs)
+    emit({"phase": "meshed_a7c_seconds",
+          "no_mesh_seconds": base["seconds"],
+          "rank_seconds": [r["phase_seconds"] for r in ranks],
+          "parity_seconds": {f"{x}x{y}": max(
+              g["rank_a7c_parity"][((x, y), n)]["phase_seconds"]
+              for g in groups[x * y] for n in names)
+              for (x, y), names in A7C_PARITY},
+          "check_seconds": time.perf_counter() - t0})
+    if not ok:
+        raise AssertionError("meshed_a7c: a check failed (lines above)")
     return counts
 
 
@@ -6698,6 +7117,12 @@ def run_phases(torch, dev) -> list:
             entry["meshed_seq_shard_launches"] = {
                 run: n[name] for run, n in
                 sharded["meshed_seq_shard"].items() if name in n}
+        if name in ("flash_attention", "decode_attention", "mamba_scan"):
+            # the Adafactor steps and minicpm3's MLA decode on (1,2):
+            # each rank's, by run
+            entry["meshed_a7c_launches"] = {
+                run: n[name] for run, n in sharded["meshed_a7c"].items()
+                if name in n}
         profiled = {"paged_attention": paged_profile,
                     "gumbel_perturb": gumbel_profile,
                     "flash_attention": flash_profile,

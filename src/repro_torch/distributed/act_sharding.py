@@ -71,10 +71,25 @@ What each rank computes in a scope over a ``DeviceMesh`` of ``data`` and
     ``model`` by ``cache_specs``, are gathered to read and sliced to
     write.  A mamba or rwkv layer whose channels or heads do not divide
     ``model`` runs whole on every rank;
-  * MLA runs whole on every rank in training; MLA decode needs a
-    ``model`` axis of 1, Adafactor a mesh of one rank
-    (``launch.train.check_mesh`` raises :class:`MeshTrainingError`;
-    ROADMAP.md queue A7c).
+  * MLA runs whole on every rank (its weights gathered over ``model``),
+    in training and in a prefill.  In decode, where ``cache_specs``
+    splits the latent cache's slots over ``model`` (``max_seq``
+    divisible), rank r holds slots [r L, (r + 1) L) of ``c_kv`` and
+    ``k_rope``: the step's latent and roped key go to the rank that holds
+    slot ``cache_pos``, each rank expands its own live slots through
+    ``wkv_b`` for every head and attends them through the decode kernel
+    with its log-sum-exp, and the ranks' partials are merged by their
+    log-sum-exps, as for a slot-split K/V cache (``"context"``).  The
+    reference splits the heads instead (``wq_b``/``wkv_b`` by columns)
+    and gathers the latent; both give the same values, and the slot
+    split keeps a rank's cache to its own slots.  A whole cache (``max_seq``
+    not divisible) decodes as one process does, on every rank;
+  * Adafactor's factored statistics are means over a whole leaf: the
+    meshed step's update (``launch.train.PieceMeans``) sums a piece's
+    row sums (over the last dimension), column sums and the RMS clip's
+    sum of squares over the axes that split the dimensions reduced, in
+    fp32, and divides by the whole sizes; a leaf replicated over an axis
+    is never summed over it.
 
 Under ``REPRO_SEQ_SHARD=1``, in a forward whose sequence S a ``model``
 axis of m > 1 ranks divides (:func:`seq_sharded`: the meshed train and
@@ -147,11 +162,6 @@ from . import collectives as C
 # recompute of a checkpointed group, on its own device thread, which must
 # see the step's scope.  One step runs in a process at a time.
 _active: list = [None]
-
-
-class MeshTrainingError(NotImplementedError):
-    """A block or switch the meshed steps do not run on this mesh yet
-    (ROADMAP.md queue A7c names the work)."""
 
 
 class _Scope:
@@ -547,18 +557,19 @@ class LayerPlan(NamedTuple):
     ``"one"`` (no SPMD scope, or a model axis of 1: the one-process
     layer), ``"heads"`` (its query heads, and its KV heads when they
     divide ``model``), ``"context"`` (decode against a cache whose slots
-    are split over ``model``), ``"rows"`` (a sequence-sharded forward's
-    rows of every head) or ``"whole"`` (all of it; in training the
-    layer then asks :func:`context_parallel` whether it takes its slice
-    of the queries).  ``mlp_split``: the dense MLP (an MoE block's dense
-    residual, an rwkv block's channel mix) runs split over ``model`` (its
-    hidden width divides).  ``mixer``: a mamba or rwkv layer's
+    are split over ``model``: K/V, or an MLA layer's latent), ``"rows"``
+    (a sequence-sharded forward's rows of every head) or ``"whole"`` (all
+    of it; in training the layer then asks :func:`context_parallel`
+    whether it takes its slice of the queries).  ``mlp_split``: the
+    dense MLP (an MoE block's dense residual, an rwkv block's channel
+    mix) runs split over ``model`` (its hidden width divides).  ``mixer``: a mamba or rwkv layer's
     ``"channels"`` (the rank's channels or heads) or ``"whole"``.
     ``moe``: ``"experts"`` (the rank's experts), ``"hidden"`` (every
     expert's hidden columns of the rank) or ``"whole"``.
     ``shared_split``: the MoE's shared expert runs split.  ``model``: the
     ranks of the model axis.  ``cache_split``: the dimension ``model``
-    splits of the K/V cache a prefill fills (None: none)."""
+    splits of the K/V cache (MLA's ``c_kv``) a prefill fills (None:
+    none)."""
     attn: str = "one"
     mlp_split: bool = False
     model: int = 1
@@ -583,8 +594,7 @@ def use_params(cfg, spec, index: int, p: dict, seq: bool = False
     rank's computation of it uses it (the scheme of the module
     docstring), and the layer's :class:`LayerPlan`.  ``seq``: the forward
     holds the residual stream sequence-sharded (:func:`seq_sharded`).
-    Outside an SPMD scope, ``(p, ONE)``.  What the meshed steps do not
-    run is refused before they start (``launch.train.check_mesh``)."""
+    Outside an SPMD scope, ``(p, ONE)``."""
     s = spmd()
     if s is None:
         return p, ONE
@@ -592,17 +602,23 @@ def use_params(cfg, spec, index: int, p: dict, seq: bool = False
     specs = _lookup(s.param_specs, f"layers/{index}")
     kv_local = cfg.n_kv_heads % tp == 0
     attn, cache_split = "whole", None
-    if spec.mixer in ("attn", "sliding"):
+    if spec.mixer in ("attn", "sliding", "mla"):
+        # the cache entry that shows the split, and its slots' dimension
+        key, slots = ("c_kv", 1) if spec.mixer == "mla" else ("k", 2)
         if s.cache_specs is not None:
             # decode: the cache's split decides (heads, slots, or none)
-            d = _axis_dim(_lookup(s.cache_specs, f"{index}/k"), s.model)
-            attn = {1: "heads", 2: "context"}.get(d, "whole")
-        elif cfg.n_heads % tp == 0:
+            d = _axis_dim(_lookup(s.cache_specs, f"{index}/{key}"),
+                          s.model)
+            if d == slots:
+                attn = "context"
+            elif d == 1 and key == "k":
+                attn = "heads"
+        elif spec.mixer != "mla" and cfg.n_heads % tp == 0:
             attn = "heads"
-        elif seq:
+        elif spec.mixer != "mla" and seq:
             attn = "rows"
         if s.fill_specs is not None and s.model is not None:
-            cache_split = _axis_dim(_lookup(s.fill_specs, f"{index}/k"),
+            cache_split = _axis_dim(_lookup(s.fill_specs, f"{index}/{key}"),
                                     s.model)
 
     def split(path: str) -> Optional[int]:

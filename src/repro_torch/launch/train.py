@@ -45,10 +45,9 @@ from ..configs import ARCHS, get_smoke_config
 from ..distributed import act_sharding as AS
 from ..distributed import collectives as C
 from ..distributed import sharding as S
-from ..distributed.act_sharding import MeshTrainingError
 from ..models import lm as LM
-from ..optim.functional import (clip_by_global_norm, make_optimizer,
-                                tree_leaves, tree_map)
+from ..optim.functional import (LeafMeans, clip_by_global_norm,
+                                make_optimizer, tree_leaves, tree_map)
 from .mesh import axis_sizes, coords
 
 # the profiler range around the gradient clip and the optimizer update
@@ -70,21 +69,25 @@ def _copy_into(dst, src) -> None:
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
-def _update(update_opt, whole_list: bool, params, grads, opt) -> None:
+def _update(update_opt, whole_list: bool, params, grads, opt,
+            means: Optional[list] = None) -> None:
     """One optimizer update written in place: (params, grads, optimizer
     state) every leaf at once for the bucketed updates, else one leaf at
-    a time."""
+    a time.  ``means``: Adafactor's :class:`~repro_torch.optim.
+    functional.LeafMeans` of each leaf (a meshed step's)."""
     leaves = tree_leaves(params)
     state = {k: v if k == "step" else _leaves_like(v, params)
              for k, v in opt.items()}
     if whole_list:
-        parts = [(leaves, grads, state)]
+        parts = [(leaves, grads, state, means)]
     else:
         parts = (([p], [g], {k: v if k == "step" else [v[i]]
-                             for k, v in state.items()})
+                             for k, v in state.items()},
+                  None if means is None else [means[i]])
                  for i, (p, g) in enumerate(zip(leaves, grads)))
-    for ps, gs, st in parts:
-        new_ps, new_st = update_opt(gs, st, ps)
+    for ps, gs, st, ms in parts:
+        new_ps, new_st = update_opt(gs, st, ps,
+                                    **({} if ms is None else {"means": ms}))
         _copy_into(ps, new_ps)
         for k, v in new_st.items():
             if k != "step":
@@ -205,25 +208,41 @@ def state_specs(cfg: LM.LMConfig, mesh, *, optimizer: str = "adamw",
             "step": S.P()}
 
 
-def check_mesh(cfg: LM.LMConfig, mesh, optimizer: Optional[str] = None,
-               decode: bool = False) -> None:
-    """Raise :class:`~repro_torch.distributed.act_sharding.
-    MeshTrainingError` for what the meshed steps do not run yet: MLA in
-    a ``decode`` step (or a prefill that fills its cache) on a model axis
-    of more than one rank, and Adafactor (whose factored statistics
-    reduce across the shards of a leaf) on any mesh that splits a leaf.
-    MoE, mamba and rwkv blocks, and ``REPRO_SEQ_SHARD=1``, run on any
-    mesh (``distributed/act_sharding.py``).  The meshed layers rely on
-    this check: they do not repeat it."""
-    tp = axis_sizes(mesh).get("model", 1)
-    if tp > 1 and decode and any(spec.mixer == "mla"
-                                 for spec in cfg.layer_specs()):
-        raise MeshTrainingError(
-            f"{cfg.name}: MLA decode on a mesh whose model axis "
-            f"is {tp} (ROADMAP.md queue A7c)")
-    if optimizer == "adafactor" and math.prod(axis_sizes(mesh).values()) > 1:
-        raise MeshTrainingError("adafactor on a mesh (ROADMAP.md queue "
-                                "A7c)")
+class PieceMeans(LeafMeans):
+    """Adafactor's means over a leaf from this rank's piece of it (spec
+    ``spec`` of the leaf's whole ``shape`` on ``mesh``): along a
+    dimension the spec splits over mesh axes, the piece's fp32 sums are
+    summed over those axes' groups and divided by the whole size; a
+    dimension the piece holds whole takes the piece's own mean.  An axis
+    over which the leaf is replicated is never summed over (that would
+    count it once a replica).  ``tally`` counts the sums' collectives and
+    the fp32 bytes each reduced."""
+
+    def __init__(self, spec, shape, mesh, tally: Dict[str, int]):
+        sizes = axis_sizes(mesh)
+        self.axes = [[a for a in sizes if sizes[a] > 1
+                      and a in _spec_axes((e,))] for e in spec]
+        self.shape, self.mesh, self.tally = tuple(shape), mesh, tally
+
+    def _sum(self, s: torch.Tensor, axes, n: int) -> torch.Tensor:
+        for a in axes:
+            C.all_reduce_sum(s, self.mesh.get_group(a))
+            self.tally["calls"] += 1
+            self.tally["bytes"] += s.numel() * s.element_size()
+        return s / n
+
+    def mean(self, x, dim, pdim, keepdim=False):
+        axes = self.axes[pdim]
+        if not axes:
+            return x.mean(dim=dim, keepdim=keepdim)
+        return self._sum(x.sum(dim=dim, keepdim=keepdim), axes,
+                         self.shape[pdim])
+
+    def mean_all(self, x):
+        axes = [a for ax in self.axes for a in ax]
+        if not axes:
+            return torch.mean(x)
+        return self._sum(torch.sum(x), axes, math.prod(self.shape))
 
 
 def _local_batch(cfg, batch, mesh, here, dev):
@@ -267,20 +286,20 @@ def make_train_step(cfg: LM.LMConfig, *, optimizer: str = "adamw",
     already reduced (``distributed/act_sharding.py``); the global norm
     sums each piece's squares once (a leaf held whole by several ranks
     counts once) over every rank, and the update is the one-process
-    update on the pieces.  ``loss`` and ``grad_norm`` are the global
-    values on every rank.  :func:`check_mesh` names what it refuses.
+    update on the pieces (:func:`make_update`: Adafactor's row and column
+    means and its RMS clip complete the pieces' sums over the axes that
+    split each leaf; ``step.update_reductions`` counts their collectives
+    and bytes).  ``loss`` and ``grad_norm`` are the global values on
+    every rank.  Every block, switch and optimizer runs on any mesh.
 
     ``step.compute(params, batch)`` returns the step's (loss, gradients
     of the leaves in order) without the clip and the update."""
     LM._check_supported(cfg)
     dev = resolve_device(device)
-    kw = dict(opt_kwargs or {})
-    kw.setdefault("lr", lr)
-    _, update_opt = make_optimizer(optimizer, foreach=foreach, **kw)
-    whole_list = foreach and optimizer != "adafactor"
+    update = make_update(cfg, optimizer=optimizer, lr=lr, foreach=foreach,
+                         opt_kwargs=opt_kwargs, mesh=mesh)
     specs = None
     if mesh is not None:
-        check_mesh(cfg, mesh, optimizer)
         params_abs = LM.abstract_params(cfg)
         specs = S.param_specs(cfg, params_abs, mesh)
         here = coords(mesh)
@@ -334,12 +353,46 @@ def make_train_step(cfg: LM.LMConfig, *, optimizer: str = "adamw",
                 grads, gnorm = clip_by_global_norm(grads, grad_clip)
             else:
                 grads, gnorm = _clip_meshed(grads, copies, grad_clip, mesh)
-            _update(update_opt, whole_list, params, grads, state["opt"])
+            update(params, grads, state["opt"])
             state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
     step.compute = compute
+    step.update_reductions = update.reductions
     return step
+
+
+def make_update(cfg: LM.LMConfig, *, optimizer: str = "adamw",
+                lr: float = 3e-4, foreach: bool = False,
+                opt_kwargs: Optional[Dict] = None, mesh=None) -> Callable:
+    """Returns ``update(params, grads, opt) -> None``, the optimizer
+    update :func:`make_train_step`'s step runs after the clip: the
+    parameters and the state ``opt`` written in place from ``grads`` (the
+    leaves' gradients in order).  With ``mesh`` they are the rank's
+    pieces: Adafactor takes its means over each whole leaf through
+    :class:`PieceMeans`, whose collectives and bytes ``update.
+    reductions`` counts; the other optimizers are elementwise."""
+    kw = dict(opt_kwargs or {})
+    kw.setdefault("lr", lr)
+    _, update_opt = make_optimizer(optimizer, foreach=foreach, **kw)
+    whole_list = foreach and optimizer != "adafactor"
+    reductions = {"calls": 0, "bytes": 0}
+    factored = mesh is not None and optimizer == "adafactor"
+    if factored:
+        params_abs = LM.abstract_params(cfg)
+        specs = S.param_specs(cfg, params_abs, mesh)
+
+    def update(params, grads, opt) -> None:
+        means = None
+        if factored:
+            # each leaf's spec and whole shape, in the order of params
+            means = [PieceMeans(sp, whole.shape, mesh, reductions)
+                     for sp, whole in zip(spec_leaves(specs, params),
+                                          _leaves_like(params_abs, params))]
+        _update(update_opt, whole_list, params, grads, opt, means)
+
+    update.reductions = reductions
+    return update
 
 
 def _spec_axes(spec) -> set:
@@ -416,7 +469,6 @@ def make_prefill_step(cfg: LM.LMConfig, device=None, mesh=None, *,
                          f"cache to fill")
     specs = None
     if mesh is not None:
-        check_mesh(cfg, mesh, decode=max_seq is not None)
         specs = S.param_specs(cfg, LM.abstract_params(cfg), mesh)
         here = coords(mesh)
 
@@ -497,14 +549,15 @@ def make_serve_step(cfg: LM.LMConfig, *, batch: int, max_seq: int,
     vocabulary slice).  Where the KV heads do not divide ``model`` the
     cache's slots are split over it, and each layer merges the ranks'
     partial attention by their log-sum-exps (the decode kernel's
-    ``return_lse``)."""
+    ``return_lse``); so does an MLA layer, whose latent cache's slots
+    split over ``model`` whenever ``max_seq`` divides it
+    (``layers.mla_attention``)."""
     if not cfg.lm_head:
         raise ValueError(f"{cfg.name}: an encoder (lm_head=False) has no "
                          f"decode step")
     layout = LM.cache_layout(cfg, batch, max_seq, cache_dtype)
     dev = resolve_device(device)
     if mesh is not None:
-        check_mesh(cfg, mesh, decode=True)
         p_specs = S.param_specs(cfg, LM.abstract_params(cfg), mesh)
         c_specs = S.cache_specs(
             cfg, LM.abstract_cache(cfg, batch, max_seq, cache_dtype), mesh)

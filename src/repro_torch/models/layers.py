@@ -305,6 +305,18 @@ def attention(p: Params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     return out, new_cache
 
 
+def _write_span(dst: torch.Tensor, src: torch.Tensor, dim: int, pos: int,
+                lo: int) -> None:
+    """Write ``src``'s positions [pos, pos + n) along ``dim`` into
+    ``dst`` (cast to its dtype), which holds slots [lo, lo +
+    dst.shape[dim]); positions outside them are skipped."""
+    a = max(pos, lo)
+    z = min(pos + src.shape[dim], lo + dst.shape[dim])
+    if a < z:
+        dst.narrow(dim, a - lo, z - a).copy_(src.narrow(dim, a - pos,
+                                                        z - a))
+
+
 def _fill_kv(cache: Params, k: torch.Tensor, v: torch.Tensor,
              split: Optional[int], ring: bool) -> None:
     """Write a prefill's keys and values (B, H, S, D) of positions [0,
@@ -330,11 +342,8 @@ def _fill_kv(cache: Params, k: torch.Tensor, v: torch.Tensor,
     while pos < s:
         slot = pos % n
         run = min(s - pos, n - slot)          # up to the ring's wrap
-        a, z = max(slot, lo), min(slot + run, lo + n_loc)
-        if a < z:                             # the slots this rank holds
-            src = slice(pos + a - slot, pos + z - slot)
-            k_cache[:, :, a - lo:z - lo] = k[:, :, src].to(k_cache.dtype)
-            v_cache[:, :, a - lo:z - lo] = v[:, :, src].to(v_cache.dtype)
+        _write_span(k_cache, k[:, :, pos:pos + run], 2, slot, lo)
+        _write_span(v_cache, v[:, :, pos:pos + run], 2, slot, lo)
         pos += run
 
 
@@ -343,28 +352,34 @@ def _context_decode(q, k, v, cache, cache_pos: int, cache_len, scale,
     """Decode against a cache whose slots are split over ``model``: this
     rank holds slots [r L, (r + 1) L) of every KV head.  The step's K/V
     go to the rank that holds slot ``cache_pos``; each rank attends its
-    live slots (the decode kernel with its log-sum-exp), and the ranks'
-    partials are merged by their log-sum-exps
-    (``models.attention.merge_attention_partials``).  A rank with no live
-    slot gives zeros and a log-sum-exp of -inf, which weighs nothing."""
-    b, _, s, _ = q.shape
+    live slots and the ranks' partials are merged
+    (:func:`_merged_decode`)."""
+    s = q.shape[2]
     k_cache, v_cache = cache["k"], cache["v"]
     n_loc = k_cache.shape[2]
     off = AS.model_rank() * n_loc
-    for t in range(s):
-        slot = cache_pos + t - off
-        if 0 <= slot < n_loc:
-            k_cache[:, :, slot] = k[:, :, t].to(k_cache.dtype)
-            v_cache[:, :, slot] = v[:, :, t].to(v_cache.dtype)
+    _write_span(k_cache, k, 2, cache_pos, off)
+    _write_span(v_cache, v, 2, cache_pos, off)
     clen = cache_pos + s if cache_len is None else cache_len
     live = min(max(clen - off, 0), n_loc)
+    return _merged_decode(q, k_cache, v_cache, live, scale, window, backend)
+
+
+def _merged_decode(q, k, v, live: int, scale, window,
+                   backend) -> torch.Tensor:
+    """Decode attention of ``q`` over this rank's first ``live`` slots of
+    ``k`` / ``v`` (its slots of a cache split over ``model``), merged
+    with the other ranks' partials by their log-sum-exps (the decode
+    kernel's ``return_lse``, ``models.attention.
+    merge_attention_partials``).  A rank with no live slot gives zeros
+    and a log-sum-exp of -inf, which weighs nothing."""
     if live > 0:
-        out, lse = A.decode_attention(q, k_cache, v_cache, cache_len=live,
-                                      scale=scale, window=window,
-                                      backend=backend, return_lse=True)
+        out, lse = A.decode_attention(q, k, v, cache_len=live, scale=scale,
+                                      window=window, backend=backend,
+                                      return_lse=True)
     else:
-        out = torch.zeros(q.shape[:-1] + v_cache.shape[-1:],
-                          dtype=q.dtype, device=q.device)
+        out = torch.zeros(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                          device=q.device)
         lse = torch.full(q.shape[:-1], float("-inf"), device=q.device)
     group = AS.model_group()
     AS.count_merge()
@@ -408,7 +423,9 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
                   cache: Optional[Params] = None,
                   cache_pos: Optional[int] = None,
                   backend: str = "auto",
-                  fill: Optional[Params] = None
+                  fill: Optional[Params] = None,
+                  plan: str = "one",
+                  fill_split: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Latent-compressed attention (``repro/models/layers.py:202-265``).
     x: (B, S, D).  Queries go ``wq_a -> q_norm -> wq_b``; the keys and
@@ -425,7 +442,15 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     taken).  q and k are ``nope + rope`` wide and v ``v_dim``: the
     attention wrappers pad them to one instantiated width.  ``fill`` (a
     prefill, without ``cache``): the layer's cache, into which the S
-    positions' latents and roped keys are written."""
+    positions' latents and roped keys are written.
+
+    On a mesh the layer runs whole on every rank (``plan`` ``"whole"``),
+    except against a cache whose slots are split over ``model``: rank r
+    holds slots [r L, (r + 1) L) of ``c_kv`` and ``k_rope``.  A prefill
+    (``fill_split`` set) writes the rank's slots; a decode step
+    (``plan`` ``"context"``) writes the step's entries where the rank
+    holds their slot, expands and attends the rank's live slots, and
+    merges the ranks' partials (:func:`_merged_decode`)."""
     b, s, _ = x.shape
     qd = nope_dim + rope_dim
 
@@ -443,18 +468,21 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     k_rope = apply_rope(k_rope[:, None], positions, rope_theta)  # (B,1,S,r)
 
     if fill is not None:
-        if s > fill["c_kv"].shape[1]:
+        lo = _slots_from(fill, fill_split is not None)
+        n = fill["c_kv"].shape[1] * (AS.model_size()
+                                     if fill_split is not None else 1)
+        if s > n:
             raise ValueError(f"mla_attention: a prefill of {s} positions "
-                             f"does not fit the cache's "
-                             f"{fill['c_kv'].shape[1]}")
-        fill["c_kv"][:, :s] = c_kv.to(fill["c_kv"].dtype)
-        fill["k_rope"][:, :, :s] = k_rope.to(fill["k_rope"].dtype)
+                             f"does not fit the cache's {n}")
+        _write_span(fill["c_kv"], c_kv, 1, 0, lo)
+        _write_span(fill["k_rope"], k_rope, 2, 0, lo)
     if cache is not None:
-        cache["c_kv"][:, cache_pos:cache_pos + s] = c_kv.to(
-            cache["c_kv"].dtype)
-        cache["k_rope"][:, :, cache_pos:cache_pos + s] = k_rope.to(
-            cache["k_rope"].dtype)
-        kv_len = cache_pos + s
+        lo = _slots_from(cache, plan == "context")
+        _write_span(cache["c_kv"], c_kv, 1, cache_pos, lo)
+        _write_span(cache["k_rope"], k_rope, 2, cache_pos, lo)
+        # the rank's live slots (every slot up to the step's own, on one
+        # process)
+        kv_len = min(max(cache_pos + s - lo, 0), cache["c_kv"].shape[1])
         # the cache's entries are read in the activation dtype, as the
         # reference's dynamic_update_slice result meets x's weights
         c_kv = cache["c_kv"][:, :kv_len].to(x.dtype)
@@ -474,11 +502,19 @@ def mla_attention(p: Params, x: torch.Tensor, *, n_heads: int,
     if cache is None:
         out = A.sdpa(qfull, k, v, is_causal=causal, scale=scale,
                      backend=backend)
+    elif plan == "context":
+        out = _merged_decode(qfull, k, v, kv_len, scale, None, backend)
     else:
         out = A.decode_attention(qfull, k, v, cache_len=kv_len, scale=scale,
                                  backend=backend)
     out = out.transpose(1, 2).reshape(b, s, n_heads * v_dim)
     return out @ p["wo"], cache
+
+
+def _slots_from(cache: Params, split: bool) -> int:
+    """The first slot of an MLA cache this rank holds: r L of a cache
+    whose L slots a rank are split over ``model`` (``split``), else 0."""
+    return AS.model_rank() * cache["c_kv"].shape[1] if split else 0
 
 
 # ----------------------------------------------------------------------

@@ -415,7 +415,8 @@ def _apply_block(cfg: LMConfig, spec: BlockSpec, p: Params,
             rope_dim=cfg.mla_rope_dim, v_dim=cfg.mla_v_dim,
             kv_lora_rank=cfg.kv_lora_rank, causal=cfg.causal,
             rope_theta=cfg.rope_theta, cache=cache, cache_pos=cache_pos,
-            backend=cfg.attn_backend, fill=fill)
+            backend=cfg.attn_backend, fill=fill, plan=plan.attn,
+            fill_split=plan.cache_split)
     else:
         sliding = spec.mixer == "sliding"
         window = cfg.window if sliding else None

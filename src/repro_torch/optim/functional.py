@@ -160,20 +160,45 @@ def _map_up_to(f, grads, params, fac):
     return f(grads, params, fac)
 
 
+class LeafMeans:
+    """The means Adafactor takes over a leaf: ``mean(x, dim, pdim)``
+    over dimension ``dim`` of ``x`` (the leaf's squared gradient, or its
+    ``row`` factor), which runs along the leaf's dimension ``pdim``
+    (``row``: -1, ``col`` and ``row_mean``: -2), and ``mean_all(x)`` over
+    every element (the RMS clip).  This one takes them over ``x`` itself:
+    a leaf held whole.  The meshed train step passes, per leaf, one that
+    completes a piece's sums over the ranks that split the leaf
+    (``launch.train``)."""
+
+    def mean(self, x: torch.Tensor, dim: int, pdim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        return x.mean(dim=dim, keepdim=keepdim)
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.mean(x)
+
+
+WHOLE = LeafMeans()
+
+
 def adafactor_update(grads, state, params, *, lr: float,
                      decay: float = 0.8, eps: float = 1e-30,
                      clip_threshold: float = 1.0,
-                     weight_decay: float = 0.0, **_):
+                     weight_decay: float = 0.0, means=None, **_):
+    """The reference's update.  ``means``: one :class:`LeafMeans` a
+    leaf, in ``tree_leaves`` order (default: every leaf whole)."""
     step = state["step"] + 1
     beta2 = 1.0 - step.float() ** (-decay)
+    by_leaf = iter(means) if means is not None else None
 
     def leaf(g, p, f):
+        m = WHOLE if by_leaf is None else next(by_leaf)
         g32 = g.float()
         sq = torch.square(g32) + eps
         if g.dim() >= 2:
-            row = beta2 * f["row"] + (1 - beta2) * sq.mean(dim=-1)
-            col = beta2 * f["col"] + (1 - beta2) * sq.mean(dim=-2)
-            row_mean = row.mean(dim=-1, keepdim=True)
+            row = beta2 * f["row"] + (1 - beta2) * m.mean(sq, -1, -1)
+            col = beta2 * f["col"] + (1 - beta2) * m.mean(sq, -2, -2)
+            row_mean = m.mean(row, -1, -2, keepdim=True)
             vhat = (row[..., :, None]
                     / torch.clamp(row_mean[..., None], min=eps)
                     ) * col[..., None, :]
@@ -183,7 +208,7 @@ def adafactor_update(grads, state, params, *, lr: float,
             new_f = {"v": vhat}
         u = g32 / torch.sqrt(torch.clamp(vhat, min=eps))
         # update clipping (Adafactor's RMS rule)
-        rms = torch.sqrt(torch.mean(torch.square(u)))
+        rms = torch.sqrt(m.mean_all(torch.square(u)))
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         u = -lr * u
         if weight_decay:
@@ -349,9 +374,11 @@ OPTIMIZERS: Dict[str, Tuple[Callable, Callable]] = {
 
 
 def make_optimizer(name: str, foreach: bool = False, **hparams):
-    """Returns (init_fn(params)->state, update_fn(grads, state, params)
-    -> (new_params, new_state)) with hyperparameters bound; ``params``
-    a list of tensors (or, per leaf, any tree when ``foreach=False``)."""
+    """Returns (init_fn(params)->state, update_fn(grads, state, params,
+    **per_call) -> (new_params, new_state)) with hyperparameters bound
+    (``per_call``: arguments of one call, Adafactor's ``means``);
+    ``params`` a list of tensors (or, per leaf, any tree when
+    ``foreach=False``)."""
     init, _ = OPTIMIZERS[name]
     update = FOREACH_UPDATES[name] if foreach else OPTIMIZERS[name][1]
     if name == "adamw":
@@ -363,8 +390,9 @@ def make_optimizer(name: str, foreach: bool = False, **hparams):
     def init_fn(params):
         return init(params, **hparams)
 
-    def update_fn(grads, state, params):
-        updates, new_state = update(grads, state, params, **hparams)
+    def update_fn(grads, state, params, **per_call):
+        updates, new_state = update(grads, state, params, **hparams,
+                                    **per_call)
         return tree_map(lambda p, u: p + u, params, updates), new_state
 
     return init_fn, update_fn

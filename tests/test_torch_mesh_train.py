@@ -41,8 +41,23 @@ every check of their size once for the file:
     the prefill step filling the cache, then the serve step, giving the
     one-process greedy tokens with the switch on and off; yi's and
     jamba's SMOKE meshed forward against the JAX package's, and a 3-head
-    bidirectional encoder's against the one-process forward.
+    bidirectional encoder's against the one-process forward;
+  * Adafactor on (2,1), (1,2), (2,2) and (1,4) (the tiny config, the
+    SMOKE configs of gemma, jamba and qwen2-moe, and the tiny config with
+    accum_steps 2; gemma's with ``REPRO_SEQ_SHARD=1`` on (1,2)): loss,
+    grad norm, the assembled row/col/v factors and the parameters
+    against the one-process steps; the meshed update on (2,2) against
+    the JAX package's ``adafactor_update``; ``train_loop`` on each mesh;
+    an Adafactor state saved on (1,2) restored onto (2,1) and onto no
+    mesh, bit for bit;
+  * MLA decode (minicpm3's SMOKE): the prefill that fills the latent
+    cache, then greedy decode on (1,2), (2,2) and (1,4), the switch on
+    and off, a cache whose slots split over model and a whole one, the
+    one-process tokens; the meshed logits at (1,2) against the JAX
+    package's ``decode_step``.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -88,7 +103,8 @@ MODEL_4_NAMES = ("jamba", "rwkv6")
 SEQ_CASES_2 = [("tiny", "adamw", 1), ("odd", "adamw", 1),
                ("gemma", "adamw", 1), ("gemma3", "adamw", 1),
                ("jamba", "adamw", 1), ("rwkv6", "adamw", 1),
-               ("qwen2moe", "adamw", 1), ("minicpm3", "adamw", 1)]
+               ("qwen2moe", "adamw", 1), ("minicpm3", "adamw", 1),
+               ("gemma", "adafactor", 1)]
 SEQ_CASES_4 = [("tiny", "adamw", 1), ("jamba", "adamw", 1)]
 # (1,4): gemma3's 2 heads do not divide model = 4, so its sliding and
 # global layers attend the rank's rows (windows through context_sdpa),
@@ -101,6 +117,17 @@ SEQ_DECODE_NAMES = ("gemma", "gemma3", "jamba", "rwkv6")
 SEQ_DECODE_RUNS = ([((1, 2), n) for n in SEQ_DECODE_NAMES]
                    + [(MODEL_4, n) for n in SEQ_MODEL_4])
 SEQ_FORWARD_NAMES = ("yi", "jamba")
+# Adafactor: its factors reduce over the ranks that split a leaf (the
+# experts' 3-D leaves, mamba's and attention's split columns)
+ADAFACTOR_CASES = [("tiny", "adafactor", 1), ("gemma", "adafactor", 1),
+                   ("jamba", "adafactor", 1), ("qwen2moe", "adafactor", 1),
+                   ("tiny", "adafactor", 2)]
+ADAFACTOR_SHAPES = SHAPES_2 + SHAPES_4 + [MODEL_4]
+# MLA decode: the shapes of the 2- and 4-rank groups
+MLA_SHAPES = {2: [(1, 2)], 4: [(2, 2), MODEL_4]}
+MLA_NAME = "minicpm3"
+UPDATE_NAME = "jamba"          # the meshed update against the JAX package
+UPDATE_SHAPE = (2, 2)
 
 # The limits of the train-step tests: LIMITS for every case but three,
 # whose fp32 steps are worse conditioned (measured on the CPU):
@@ -120,10 +147,20 @@ LIMITS = {"loss": 1e-6, "grads": 1e-5, "small_grads": 0.0}
 CASE_LIMITS = {"jamba": {"loss": 3e-6, "grads": 3e-5, "small_grads": 1e-3},
                "qwen2moe": {"small_grads": 1e-3},
                "moe3": {"small_grads": 1e-3}}
+# Adafactor's over CASE_LIMITS: a 1-D leaf keeps each element's own
+# second moment, and qwen2-moe's bk (the zero-initialised leaf above)
+# moves the elements whose gradients lie between 1e-3 and 5e-3 of its
+# largest by lr * g / sqrt(v) with g and sqrt(v) both that small: after
+# step 2 up to 4 of its 64 elements beyond 1e-5 of its largest (2.3e-4
+# lr at most; measured on the CPU), so the count leaves out elements
+# below 1e-2 of the largest gradient
+ADAFACTOR_LIMITS = {"qwen2moe": {"small_grads": 1e-2}}
 
 
 def _limits(case) -> dict:
-    return {**LIMITS, **CASE_LIMITS.get(case[0], {})}
+    extra = ADAFACTOR_LIMITS.get(case[0], {}) if case[1] == "adafactor" \
+        else {}
+    return {**LIMITS, **CASE_LIMITS.get(case[0], {}), **extra}
 
 
 def _jax_tree(name):
@@ -133,17 +170,31 @@ def _jax_tree(name):
     return jax.tree.map(np.asarray, JLM.init_params(cfg, jax.random.key(0)))
 
 
+def _update_grads(tree, n: int = 2, seed: int = 51):
+    """``n`` gradient pytrees shaped as ``tree``, normal, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), tree) for _ in range(n)]
+
+
 @pytest.fixture(scope="module")
 def groups(tmp_path_factory):
     """Every check's rank results by world size; the 4-rank group saves
     the elastic checkpoint the 2-rank group restores."""
     ckpt = str(tmp_path_factory.mktemp("elastic"))
     loop = str(tmp_path_factory.mktemp("loop"))
-    trees = {name: _jax_tree(name)
-             for name in set(SEQ_FORWARD_NAMES) | {FORWARD_NAME}}
+    ada_ckpt = str(tmp_path_factory.mktemp("adafactor"))
+    trees = {name: _jax_tree(name) for name in set(SEQ_FORWARD_NAMES)
+             | {FORWARD_NAME, MLA_NAME, UPDATE_NAME}}
+    update_grads = _update_grads(trees[UPDATE_NAME])
     four = run_ranks(W.jobs_rank, 4, ([
         ("mesh_train_rank", (SHAPES_4, TRAIN_CASES)),
         ("mesh_train_rank", ([MODEL_4], MODEL_4_CASES)),
+        ("mesh_train_rank", (SHAPES_4 + [MODEL_4], ADAFACTOR_CASES)),
+        ("mla_decode_rank", (MLA_SHAPES[4],)),
+        ("adafactor_update_rank", (UPDATE_SHAPE, trees[UPDATE_NAME],
+                                   update_grads)),
+        ("adafactor_loop_rank", (SHAPES_4 + [MODEL_4],)),
         ("mesh_decode_rank", (SHAPES_4, DECODE_NAMES)),
         ("mesh_decode_rank", ([MODEL_4], MODEL_4_NAMES)),
         ("seq_train_rank", (SHAPES_4, SEQ_CASES_4)),
@@ -154,6 +205,11 @@ def groups(tmp_path_factory):
         timeout=GROUP_TIMEOUT)
     two = run_ranks(W.jobs_rank, 2, ([
         ("mesh_train_rank", (SHAPES_2, TRAIN_CASES)),
+        ("mesh_train_rank", (SHAPES_2, ADAFACTOR_CASES)),
+        ("mla_decode_rank", (MLA_SHAPES[2],)),
+        ("mla_reference_rank", ((1, 2), trees[MLA_NAME])),
+        ("adafactor_elastic_rank", (ada_ckpt,)),
+        ("adafactor_loop_rank", (SHAPES_2,)),
         ("context_sdpa_rank", ((1, 2),)),
         ("mesh_decode_rank", ([(1, 2)], DECODE_NAMES)),
         ("elastic_restore_rank", (ckpt, (1, 2))),
@@ -169,14 +225,17 @@ def groups(tmp_path_factory):
         ("seq_encoder_rank", ((1, 2),))],),
         backend="gloo",
         timeout=GROUP_TIMEOUT)
-    return {2: two, 4: four, "ckpt": ckpt, "loop": loop}
+    return {2: two, 4: four, "ckpt": ckpt, "loop": loop,
+            "adafactor_ckpt": ada_ckpt,
+            "update": (trees[UPDATE_NAME], update_grads)}
 
 
 @pytest.fixture(scope="module")
 def one_process():
     """The port's one-process runs of every train case."""
     return {case: W.run_train(W.train_cfg(case[0]), case[1], case[2])
-            for case in dict.fromkeys(TRAIN_CASES + SEQ_CASES_2)}
+            for case in dict.fromkeys(TRAIN_CASES + SEQ_CASES_2
+                                      + ADAFACTOR_CASES)}
 
 
 def _ranks(groups, shape, case, job="mesh_train_rank"):
@@ -195,15 +254,27 @@ def _assembled(ranks, pick, full_shapes, specs, shape):
             for i in range(len(full_shapes))]
 
 
-def _leaf_specs(cfg, shape, optimizer, seq=False):
+@functools.lru_cache(maxsize=None)
+def _spec_leaves(name, shape, optimizer, seq, key):
+    return _leaf_specs(W.train_cfg(name), shape, optimizer, seq, key)
+
+
+def _leaf_specs(cfg, shape, optimizer, seq=False, key="params"):
     """The parameters' specs in leaf order (``seq``: under
     ``REPRO_SEQ_SHARD=1``, which leaves attention weights whose heads do
-    not divide ``model`` unsplit over it)."""
+    not divide ``model`` unsplit over it); ``key`` an optimizer state
+    entry: its leaves' (Adafactor's ``fac``: the factors' specs, row and
+    col or v a leaf; the moments and momentum: the parameters')."""
+    from repro_torch.optim.functional import make_optimizer
     mesh = MeshShape(("data", "model"), shape)
     with AS.sequence_sharding(seq):
         specs = T.state_specs(cfg, mesh, optimizer=optimizer,
                               lr=W.TRAIN_LR)
-    return T.spec_leaves(specs["params"], TLM.abstract_params(cfg))
+    params_abs = TLM.abstract_params(cfg)
+    if key != "fac":
+        return T.spec_leaves(specs["params"], params_abs)
+    fac = make_optimizer(optimizer, lr=W.TRAIN_LR)[0](params_abs)["fac"]
+    return T.spec_leaves(specs["opt"]["fac"], fac)
 
 
 ALL_SHAPES = SHAPES_2 + SHAPES_4
@@ -225,14 +296,15 @@ def _references(groups, one_process, shape, case, job="mesh_train_rank"):
     key = (shape, case, job)
     if key not in _SECOND:
         cfg = W.train_cfg(case[0])
-        specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
+        seq = job == "seq_train_rank"
         first = dict(one_process[case]["steps"][0],
                      grads=one_process[case]["grads"])
         ranks = _ranks(groups, shape, case, job)
 
-        def whole(pick, like):
-            return _assembled(ranks, pick, [x.shape for x in like], specs,
-                              shape)
+        def whole(pick, like, key="params"):
+            return _assembled(ranks, pick, [x.shape for x in like],
+                              _spec_leaves(case[0], shape, case[1], seq,
+                                           key), shape)
 
         params = TLM.init_params(cfg, seed=0, device="cpu")
         state = {"params": _unflatten(params, whole(
@@ -243,7 +315,7 @@ def _references(groups, one_process, shape, case, job="mesh_train_rank"):
         opt = make_optimizer(case[1], lr=W.TRAIN_LR, **kw)[0](params)
         for k, leaves in first["opt"].items():
             opt[k] = _unflatten(opt[k], whole(
-                lambda r, k=k: r["steps"][0]["opt"][k], leaves))
+                lambda r, k=k: r["steps"][0]["opt"][k], leaves, k))
         if "step" in opt:
             opt["step"] = torch.ones((), dtype=torch.int32)
         state["opt"] = opt
@@ -291,9 +363,9 @@ def test_assembled_gradients(groups, one_process, shape, case):
 
 def _check_assembled_gradients(groups, one_process, shape, case,
                                job="mesh_train_rank"):
-    cfg = W.train_cfg(case[0])
     ref = one_process[case]["grads"]
-    specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
+    specs = _spec_leaves(case[0], shape, case[1], job == "seq_train_rank",
+                         "params")
     got = _assembled(_ranks(groups, shape, case, job), lambda r: r["grads"],
                      [g.shape for g in ref], specs, shape)
     tol = _limits(case)["grads"]
@@ -312,12 +384,12 @@ def test_optimizer_state(groups, one_process, shape, case):
 
 def _check_optimizer_state(groups, one_process, shape, case,
                            job="mesh_train_rank"):
-    cfg = W.train_cfg(case[0])
-    specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
     refs = _references(groups, one_process, shape, case, job)
     tol = _limits(case)["grads"]
     for i, ref in enumerate(refs):
         for key, leaves in ref["opt"].items():
+            specs = _spec_leaves(case[0], shape, case[1],
+                                 job == "seq_train_rank", key)
             got = _assembled(_ranks(groups, shape, case, job),
                              lambda r: r["steps"][i]["opt"][key],
                              [x.shape for x in leaves], specs, shape)
@@ -343,8 +415,8 @@ def test_parameters(groups, one_process, shape, case):
 
 def _check_parameters(groups, one_process, shape, case,
                       job="mesh_train_rank"):
-    cfg = W.train_cfg(case[0])
-    specs = _leaf_specs(cfg, shape, case[1], job == "seq_train_rank")
+    specs = _spec_leaves(case[0], shape, case[1], job == "seq_train_rank",
+                         "params")
     small = _limits(case)["small_grads"]
     for i, ref in enumerate(_references(groups, one_process, shape, case,
                                         job)):
@@ -352,7 +424,11 @@ def _check_parameters(groups, one_process, shape, case,
                          lambda r: r["steps"][i]["params"],
                          [x.shape for x in ref["params"]], specs, shape)
         for g, w, grad in zip(got, ref["params"], ref["grads"]):
-            _assert_params_close(g, w, adamw=case[1] == "adamw",
+            # Adafactor's 1-D leaves keep an element's own second moment
+            # (v), and move as AdamW's do
+            per_element = case[1] == "adamw" or (case[1] == "adafactor"
+                                                 and w.dim() < 2)
+            _assert_params_close(g, w, adamw=per_element,
                                  free=grad.abs() < small * grad.abs().max())
 
 
@@ -534,64 +610,215 @@ def test_elastic_restore_onto_no_mesh(groups):
 
 
 # ----------------------------------------------------------------------
-# what the meshed steps refuse
+# Adafactor on a mesh
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b",
-                                  "rwkv6-1.6b"])
-def test_moe_mamba_rwkv_refuse_a_model_axis(arch):
-    """MoE, mamba and rwkv blocks are no longer refused: the meshed
-    train, prefill and serve steps run them on a model axis of 2 and 4
-    (the parity tests above hold them to the one-process steps)."""
-    from repro_torch.configs import get_smoke_config
-    cfg = get_smoke_config(arch)
-    for shape in ((1, 2), (2, 1), (2, 2), (1, 4)):
-        mesh = MeshShape(("data", "model"), shape)
-        T.check_mesh(cfg, mesh, "adamw")
-        T.check_mesh(cfg, mesh, decode=True)
+@pytest.mark.parametrize("case", ADAFACTOR_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ADAFACTOR_SHAPES)
+def test_adafactor_loss_and_grad_norm(groups, one_process, shape, case):
+    """Adafactor's meshed steps: the loss and grad norm of each step
+    against the one-process step's (``test_loss_and_grad_norm``'s
+    limits)."""
+    _check_loss_and_grad_norm(groups, one_process, shape, case)
 
 
-def test_sequence_sharding_is_accepted_on_a_model_axis(monkeypatch):
-    """``REPRO_SEQ_SHARD=1`` runs on a model axis of 2 and 4 (the
-    switch-on tests below hold it to the one-process steps); MLA decode
-    and Adafactor are still refused on such meshes, naming A7c."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.distributed.act_sharding import MeshTrainingError
-    monkeypatch.setenv("REPRO_SEQ_SHARD", "1")
-    cfg = W.train_cfg("tiny")
-    mla = get_smoke_config("minicpm3-4b")
-    for shape in ((1, 2), (2, 2), (1, 4)):
-        mesh = MeshShape(("data", "model"), shape)
-        T.check_mesh(cfg, mesh, "adamw")
-        T.check_mesh(cfg, mesh, decode=True)
-        T.check_mesh(mla, mesh, "adamw")
-        with pytest.raises(MeshTrainingError, match="A7c"):
-            T.check_mesh(mla, mesh, decode=True)
-        with pytest.raises(MeshTrainingError, match="A7c"):
-            T.check_mesh(cfg, mesh, "adafactor")
+@pytest.mark.parametrize("case", ADAFACTOR_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ADAFACTOR_SHAPES)
+def test_adafactor_factors(groups, one_process, shape, case):
+    """The row/col factors (v for a 1-D leaf), assembled from the ranks'
+    pieces, after each step within the gradients' limit of each leaf's
+    largest: the second step's carry the first's."""
+    _check_optimizer_state(groups, one_process, shape, case)
 
 
-def test_adafactor_refuses_a_mesh():
-    from repro_torch.distributed.act_sharding import MeshTrainingError
-    cfg = W.train_cfg("jamba")
-    for shape in ((2, 1), (1, 2)):
-        with pytest.raises(MeshTrainingError, match="A7c"):
-            T.check_mesh(cfg, MeshShape(("data", "model"), shape),
-                         "adafactor")
-    T.check_mesh(cfg, MeshShape(("data", "model"), (1, 1)), "adafactor")
+@pytest.mark.parametrize("case", ADAFACTOR_CASES, **CASE_IDS)
+@pytest.mark.parametrize("shape", ADAFACTOR_SHAPES)
+def test_adafactor_parameters(groups, one_process, shape, case):
+    """The parameters after each step by ``test_parameters``' rules: a
+    factored leaf (2-D and up) by SGD's, within 1e-5 of its largest
+    (its update divides by the factored second moment, not by an
+    element's own); a 1-D leaf, whose v is each element's own (a step of
+    about lr * g / |g|), by AdamW's (gemma's norms, jamba's conv_b and
+    qwen2-moe's bk leave up to 14 of 64 elements beyond 1e-5 at step 2,
+    2.3e-4 lr at most, on the CPU)."""
+    _check_parameters(groups, one_process, shape, case)
 
 
-def test_mla_decode_refuses_a_model_axis():
-    """MLA trains on a model axis > 1 (whole on every rank) but its
-    meshed decode is refused before a step runs."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.distributed.act_sharding import MeshTrainingError
-    cfg = get_smoke_config("minicpm3-4b")
-    mesh = MeshShape(("data", "model"), (1, 2))
-    T.check_mesh(cfg, mesh)
-    with pytest.raises(MeshTrainingError, match="A7c"):
-        T.check_mesh(cfg, mesh, decode=True)
-    T.check_mesh(cfg, MeshShape(("data", "model"), (2, 1)), decode=True)
+def test_meshed_adafactor_update_matches_reference(groups):
+    """The meshed update on (2,2) (jamba's SMOKE: experts, mamba channels
+    and heads over model, FSDP over data), two updates from the
+    reference's parameters, assembled from the pieces: the parameters,
+    the factors and the step equal the JAX package's
+    ``adafactor_update`` on the whole tree (every layer one group: each
+    leaf a stack of one, as ``tests/test_torch_train.py`` gives it)
+    within 1e-6 of each leaf's largest.  The reference factors a 1-D
+    leaf's stack of one as a row of one, whose col is the port's v."""
+    from repro.optim.functional import make_optimizer as jmake
+    tree, grads = groups["update"]
+    cfg = W.train_cfg(UPDATE_NAME)
+    assert jax_smoke_config(W.SMOKE_ARCHS[UPDATE_NAME]).n_groups == 1
+    init, update = jmake("adafactor", lr=W.TRAIN_LR)
+    update = jax.jit(update)
+    p = jax.tree.map(jnp.asarray, tree)
+    o = init(p)
+    ranks = [g["adafactor_update_rank"] for g in groups[4]]
+    for i, g in enumerate(grads):
+        p, o = update(jax.tree.map(jnp.asarray, g), o, p)
+        want_p = TLM.params_from_numpy(cfg, jax.tree.map(np.asarray, p),
+                                       device="cpu")
+        want_f = tree_leaves(_port_factors(o["fac"]))
+        for r in ranks:
+            got = r["steps"][i]
+            assert got["step"] == int(o["step"]) == i + 1
+            for x, y in zip(tree_leaves(got["params"]),
+                            tree_leaves(want_p)):
+                assert (x - y).abs().max() <= 1e-6 * y.abs().max()
+            have = tree_leaves(got["fac"])
+            assert len(have) == len(want_f)
+            for x, y in zip(have, want_f):
+                assert x.shape == y.shape
+                assert (x - y).abs().max() <= 1e-6 * y.abs().max()
+    assert all(r["reductions"]["calls"] > 0 for r in ranks)
+
+
+def _port_factors(fac):
+    """The reference's factor tree of a model whose layers are one group
+    in the port's layout: each layer's factors of its stack's one entry;
+    a 1-D leaf's stack (1, D), a row of one, as the port's ``v``: the
+    reference's ``col``, (D,) whole, which its ``row / row_mean`` of one
+    leaves as the second moment."""
+    def tensor(a, stacked: bool):
+        return torch.from_numpy(np.array(a[0] if stacked else a))
+
+    def walk(t, stacked: bool):
+        if isinstance(t, dict) and "row" in t and "col" in t:
+            if stacked and np.ndim(t["row"]) == 1:
+                return {"v": tensor(t["col"], False)}
+            return {k: tensor(t[k], stacked) for k in ("row", "col")}
+        if isinstance(t, dict) and "v" in t:
+            return {"v": tensor(t["v"], stacked)}
+        if isinstance(t, dict):
+            return {k: walk(v, stacked) for k, v in t.items()}
+        return [walk(v, stacked) for v in t]
+
+    out = {k: walk(v, False) for k, v in fac.items()
+           if k not in ("groups", "tail")}
+    out["layers"] = ([walk(g, True) for g in fac["groups"]]
+                     + [walk(t, False) for t in fac.get("tail", [])])
+    return out
+
+
+def test_adafactor_state_restores_onto_another_mesh(groups):
+    """An Adafactor state saved on (1,2) after one step, restored onto
+    (2,1) and onto no mesh: every leaf of the parameters, the row/col/v
+    factors and the steps equals the saved state bit for bit; step 2 on
+    (2,1) gives (1,2)'s loss within 1e-6 relative."""
+    from repro_torch.checkpoint import CheckpointManager
+    cfg = W.train_cfg(W.ELASTIC_CFG)
+    like = T.init_train_state(cfg, optimizer="adafactor", lr=W.TRAIN_LR,
+                              device="cpu")
+    for g in groups[2]:
+        r = g["adafactor_elastic_rank"]
+        runs = [r["restored"], CheckpointManager(
+            groups["adafactor_ckpt"]).restore(1, like)]
+        for got in runs:
+            want = tree_leaves(r["saved"])
+            have = tree_leaves(got)
+            assert len(have) == len(want)
+            assert int(got["step"]) == int(got["opt"]["step"]) == 1
+            for x, y in zip(have, want):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+        assert r["losses"][1] == pytest.approx(r["losses"][0], rel=1e-6)
+
+
+@pytest.mark.parametrize("shape", ADAFACTOR_SHAPES)
+def test_adafactor_train_loop_on_a_mesh(groups, shape):
+    """``train_loop(mesh=, optimizer="adafactor")`` gives the one-process
+    loop's losses within 1e-6 relative."""
+    from repro_torch.launch.train import train_loop
+    want = train_loop(W.train_cfg("tiny"), steps=W.LOOP_STEPS,
+                      batch_size=4, seq_len=16, optimizer="adafactor",
+                      lr=W.TRAIN_LR, log_every=100, device="cpu")
+    for g in groups[shape[0] * shape[1]]:
+        got = g["adafactor_loop_rank"][shape]
+        assert got == pytest.approx(want["losses"], rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# MLA decode on a model axis > 1
+# ----------------------------------------------------------------------
+
+MLA_RUNS = [(shape, max_seq) for world in (2, 4)
+            for shape in MLA_SHAPES[world] for max_seq in W.MLA_MAX_SEQS]
+
+
+@pytest.mark.parametrize("run", MLA_RUNS,
+                         ids=lambda r: "x".join(map(str, r[0])) + f"-{r[1]}")
+def test_mla_prefill_and_decode_on_a_mesh(groups, run):
+    """minicpm3's SMOKE: the prefill that fills the latent cache, then
+    greedy decode, gives the one-process tokens with the switch on and
+    off; where ``max_seq`` divides model the cache's slots are split and
+    each decode step of each MLA layer merges the ranks' partials, else
+    the cache is whole and nothing is merged."""
+    shape, max_seq = run
+    cfg = W.train_cfg(MLA_NAME)
+    params = TLM.init_params(cfg, seed=0, device="cpu")
+    want, _ = W.filled_run(cfg, params)
+    split = max_seq % shape[1] == 0
+    layers = sum(spec.mixer == "mla" for spec in cfg.layer_specs())
+    for g in groups[shape[0] * shape[1]]:
+        for on in (True, False) if split else (False,):
+            toks, merges, rows, _ = g["mla_decode_rank"][(shape, max_seq,
+                                                          on)]
+            assert torch.equal(toks, want), on
+            assert merges == (layers * (W.FILL_STEPS - 1) if split else 0)
+            assert rows == [1, W.FILL_PROMPT // (shape[1] if on else 1)]
+
+
+@pytest.mark.parametrize("run", MLA_RUNS,
+                         ids=lambda r: "x".join(map(str, r[0])) + f"-{r[1]}")
+def test_mla_cache_holds_the_rank_slots(groups, run):
+    """A rank's latent cache: its rows of the batch and, where
+    ``max_seq`` divides model, its max_seq / model slots of ``c_kv`` and
+    ``k_rope`` (else every slot)."""
+    shape, max_seq = run
+    cfg = W.train_cfg(MLA_NAME)
+    slots = max_seq // shape[1] if max_seq % shape[1] == 0 else max_seq
+    rows = W.DECODE_ROWS // shape[0]
+    for g in groups[shape[0] * shape[1]]:
+        _, _, _, cache = g["mla_decode_rank"][(shape, max_seq, False)]
+        assert cache == {"c_kv": (rows, slots, cfg.kv_lora_rank),
+                         "k_rope": (rows, 1, slots, cfg.mla_rope_dim)}
+
+
+def test_mla_meshed_decode_matches_reference(groups):
+    """minicpm3 SMOKE's meshed prefill filling a slot-split cache at
+    (1,2), then the serve step fed fixed tokens: the logits of the
+    prompt's last position and of each step against the JAX package's
+    ``decode_step`` without a mesh fed the prompt and the same tokens one
+    a step, on the same weights, within 1e-5 (``attn_backend="ref"``:
+    the reference's MLA at S >= 128 needs it, ROADMAP.md queue C)."""
+    cfg = jax_smoke_config(W.SMOKE_ARCHS[MLA_NAME])
+    assert cfg.attn_backend == "ref"
+    params = JLM.init_params(cfg, jax.random.key(0))
+    tcfg = W.train_cfg(MLA_NAME)
+    tokens = torch.cat([W.fill_prompts(tcfg), W.mla_forced_tokens(tcfg)],
+                       1).numpy().astype(np.int32)
+    cache = JLM.init_cache(cfg, W.DECODE_ROWS, tokens.shape[1],
+                           jnp.float32)
+    step = jax.jit(JLM.decode_step, static_argnums=0)
+    want = []
+    for t in range(tokens.shape[1]):
+        logits, cache = step(cfg, params, cache, jnp.asarray(
+            tokens[:, t:t + 1]), t)
+        if t >= W.FILL_PROMPT - 1:
+            want.append(np.asarray(logits))
+    for g in groups[2]:
+        got = g["mla_reference_rank"]
+        assert got["merges"] == tcfg.n_layers * W.MLA_FORCED
+        assert len(got["logits"]) == len(want)
+        for x, y in zip(got["logits"], want):
+            np.testing.assert_allclose(x.numpy(), y, atol=1e-5, rtol=1e-5)
 
 
 def test_train_loop_on_a_mesh_resumes_without_one(groups, tmp_path):

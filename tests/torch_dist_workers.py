@@ -484,24 +484,31 @@ def greedy_run(cfg, params, mesh=None, device="cpu", dtype=torch.float32):
 FILL_PROMPT, FILL_STEPS = 12, 6     # the prompt wraps gemma3's 8-slot ring
 
 
-def filled_run(cfg, params, mesh=None, device="cpu", fill=True):
+def fill_prompts(cfg):
+    gen = torch.Generator().manual_seed(33)
+    return torch.randint(0, cfg.vocab_size, (DECODE_ROWS, FILL_PROMPT),
+                         generator=gen)
+
+
+def filled_run(cfg, params, mesh=None, device="cpu", fill=True,
+               max_seq=FILL_PROMPT + FILL_STEPS, record=None):
     """The prefill step filling the cache (``make_prefill_step(max_seq=)``)
     on ``FILL_PROMPT``-token prompts, then ``FILL_STEPS - 1`` greedy
     steps of the serve step from there: (the greedy tokens, the serve
     step's log-sum-exp merges).  The prefill's MoE groups a data rank's
     rows at (2,2).  ``fill=False``: the prompts go through the serve step
-    one token a step instead of the prefill."""
+    one token a step instead of the prefill.  ``record``, a dict, gets
+    the first layer's cache entry shapes (``"cache"``)."""
     from repro_torch.launch import train as T
     from repro_torch.models import lm as LM
-    gen = torch.Generator().manual_seed(33)
-    prompts = torch.randint(0, cfg.vocab_size, (DECODE_ROWS, FILL_PROMPT),
-                            generator=gen)
-    max_seq = FILL_PROMPT + FILL_STEPS
+    prompts = fill_prompts(cfg)
     serve = T.make_serve_step(cfg, batch=DECODE_ROWS, max_seq=max_seq,
                               cache_dtype=torch.float32, device=device,
                               mesh=mesh)
     cache = LM.init_cache(cfg, DECODE_ROWS, max_seq, torch.float32, device,
                           mesh)
+    if record is not None:
+        record["cache"] = {k: tuple(v.shape) for k, v in cache[0].items()}
     if fill:
         prefill = T.make_prefill_step(cfg, device=device, mesh=mesh,
                                       max_seq=max_seq)
@@ -535,6 +542,80 @@ def seq_decode_rank(rank, world, shape, names):
                 toks, merges = filled_run(cfg, params, mesh)
             res[(name, on)] = (toks, merges, sorted(set(rows)))
     return res
+
+
+# MLA decode: a latent cache whose slots model = 2 and 4 divide, and one
+# they do not (held whole on every rank)
+MLA_MAX_SEQS = (20, 19)
+
+
+def mla_decode_rank(rank, world, shapes):
+    """``filled_run`` of minicpm3's SMOKE (MLA) on each mesh of
+    ``shapes``, the parameters the rank's pieces: for each max_seq of
+    ``MLA_MAX_SEQS``, with ``REPRO_SEQ_SHARD=1`` and without (the whole
+    cache without it): {(shape, max_seq, on): (tokens, merges, rows of
+    the prefill's blocks, the first layer's cache entry shapes)}."""
+    from repro_torch.distributed import act_sharding as AS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import init_pieces
+    cfg = train_cfg("minicpm3")
+    res = {}
+    for shape in shapes:
+        mesh = make_mesh(tuple(shape), ("data", "model"))
+        for max_seq in MLA_MAX_SEQS:
+            turns = (True, False) if max_seq % shape[1] == 0 else (False,)
+            for on in turns:
+                rows, record = [], {}
+                with AS.sequence_sharding(on), AS.record_rows(rows):
+                    params = init_pieces(cfg, mesh, seed=0, device="cpu")
+                    toks, merges = filled_run(cfg, params, mesh,
+                                              max_seq=max_seq,
+                                              record=record)
+                res[(tuple(shape), max_seq, on)] = (
+                    toks, merges, sorted(set(rows)), record["cache"])
+    return res
+
+
+MLA_FORCED = 4      # decode steps fed fixed tokens after the prompt
+
+
+def mla_forced_tokens(cfg):
+    gen = torch.Generator().manual_seed(35)
+    return torch.randint(0, cfg.vocab_size, (DECODE_ROWS, MLA_FORCED),
+                         generator=gen)
+
+
+def mla_reference_rank(rank, world, shape, tree):
+    """minicpm3 SMOKE from the reference's parameter pytree ``tree`` on
+    ``shape``: the prefill filling a slot-split cache with
+    ``fill_prompts``, then the serve step fed ``mla_forced_tokens``: the
+    logits (gathered whole over ``model``) of the prompt's last position
+    and of each step."""
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    cfg = train_cfg("minicpm3")
+    full = LM.params_from_numpy(cfg, tree, device="cpu")
+    params = T.shard_tree(mesh, S.param_specs(cfg, full, mesh), full)
+    max_seq = FILL_PROMPT + MLA_FORCED
+    prefill = T.make_prefill_step(cfg, device="cpu", mesh=mesh,
+                                  max_seq=max_seq)
+    serve = T.make_serve_step(cfg, batch=DECODE_ROWS, max_seq=max_seq,
+                              cache_dtype=torch.float32, device="cpu",
+                              mesh=mesh)
+    cache = LM.init_cache(cfg, DECODE_ROWS, max_seq, torch.float32, "cpu",
+                          mesh)
+    logits = [prefill(params, {"tokens": fill_prompts(cfg)}, cache)[:, -1:]]
+    forced = mla_forced_tokens(cfg)
+    for i in range(MLA_FORCED):
+        logits.append(serve(params, cache, forced[:, i:i + 1],
+                            FILL_PROMPT + i)[0])
+    whole = lambda x: (x if x.shape[-1] == cfg.vocab_size else
+                       S.gather_leaf(mesh, S.P(None, None, "model"), x))
+    return {"logits": [whole(x) for x in logits],
+            "merges": serve.lse_merges}
 
 
 def mesh_decode_rank(rank, world, shapes, names):
@@ -619,6 +700,80 @@ def train_loop_rank(rank, world, shape, directory):
                       seq_len=16, checkpoint_dir=directory,
                       checkpoint_every=2, log_every=100, device="cpu",
                       mesh=mesh)
+
+
+def adafactor_update_rank(rank, world, shape, tree, grads):
+    """The meshed Adafactor update (``launch.train.make_update``) of
+    jamba's SMOKE on ``shape``: the rank's pieces of the reference's
+    parameter pytree ``tree``, updated in place from its pieces of each
+    gradient pytree of ``grads`` (numpy, the reference's layout): after
+    each update the parameters and the factors, assembled whole, and the
+    step; and the update's reductions."""
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.functional import make_optimizer, tree_leaves
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    cfg = train_cfg("jamba")
+    specs = T.state_specs(cfg, mesh, optimizer="adafactor", lr=TRAIN_LR)
+    params = T.shard_tree(mesh, specs["params"],
+                          LM.params_from_numpy(cfg, tree, device="cpu"))
+    opt = make_optimizer("adafactor", lr=TRAIN_LR)[0](params)
+    update = T.make_update(cfg, optimizer="adafactor", lr=TRAIN_LR,
+                           mesh=mesh)
+    out = []
+    for g in grads:
+        pieces = T.shard_tree(mesh, specs["params"],
+                              LM.params_from_numpy(cfg, g, device="cpu"))
+        update(params, tree_leaves(pieces), opt)
+        out.append({"params": _copy(gather_tree(mesh, specs["params"],
+                                                params)),
+                    "fac": _copy(gather_tree(mesh, specs["opt"]["fac"],
+                                             opt["fac"])),
+                    "step": int(opt["step"])})
+    return {"steps": out, "reductions": dict(update.reductions)}
+
+
+def adafactor_elastic_rank(rank, world, directory):
+    """Adafactor on gemma's SMOKE: step 1 on (1,2), a save, step 2; the
+    state restored onto (2,1), then step 2 there.  Returns the saved and
+    the restored state (assembled whole) and both step-2 losses."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    cfg = train_cfg(ELASTIC_CFG)
+    kw = dict(optimizer="adafactor", lr=TRAIN_LR)
+    b1, b2 = train_batches(cfg)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    specs = T.state_specs(cfg, mesh, **kw)
+    state = T.init_train_state(cfg, device="cpu", mesh=mesh, **kw)
+    step = T.make_train_step(cfg, device="cpu", mesh=mesh, **kw)
+    state, _ = step(state, b1)
+    CheckpointManager(directory).save(state, 1, mesh, specs)
+    saved = _copy(gather_tree(mesh, specs, state))
+    losses = [float(step(state, b2)[1]["loss"])]
+    mesh = make_mesh((2, 1), ("data", "model"))
+    specs = T.state_specs(cfg, mesh, **kw)
+    like = T.init_train_state(cfg, device="cpu", mesh=mesh, **kw)
+    state = CheckpointManager(directory).restore(1, like, mesh, specs)
+    restored = _copy(gather_tree(mesh, specs, state))
+    step = T.make_train_step(cfg, device="cpu", mesh=mesh, **kw)
+    losses.append(float(step(state, b2)[1]["loss"]))
+    return {"saved": saved, "restored": restored, "losses": losses}
+
+
+def adafactor_loop_rank(rank, world, shapes):
+    """``train_loop(optimizer="adafactor")`` of the tiny config for
+    ``LOOP_STEPS`` steps on each mesh of ``shapes``: {shape: losses}."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_loop
+    return {tuple(shape): train_loop(
+        train_cfg("tiny"), steps=LOOP_STEPS, batch_size=4, seq_len=16,
+        optimizer="adafactor", lr=TRAIN_LR, log_every=100, device="cpu",
+        mesh=make_mesh(tuple(shape), ("data", "model")))["losses"]
+        for shape in shapes}
 
 
 FORWARD_TOKENS = (2, 16)
