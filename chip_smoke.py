@@ -118,6 +118,17 @@ path:
     tokens/s, decode ms a step, GB held and peak, collectives and staged
     GB, each rank's Mamba, WKV6, flash and decode launches;
     ``meshed_blocks_seconds``;
+  * the dry run (``repro_torch.launch.dryrun``, on the host's CPU, each
+    trace in a process of its own on a fake process group, on ``meta``):
+    ``dryrun_check``: the exact configuration ``sharded_train``'s bf16
+    run trained on the card (gemma-2b, 18 layers, remat "full", AdamW,
+    4 x 1024 tokens, (2,2) and (1,2)), predicted against what rank 0
+    measured: bytes held before the step within ``DRYRUN_HELD_TOL`` of
+    ``held_gb``, the step's peak within ``DRYRUN_PEAK_TOL`` of
+    ``step_peak_gb``, collective calls a step equal; ``dryrun_cell``:
+    gemma-2b's train_4k, prefill_32k and decode_32k on the (16, 16)
+    production mesh, each record's line and trace seconds;
+    ``dryrun_seconds`` (under ``DRYRUN_SECONDS``);
   * LM training: ``data.DataLoader`` over ``SyntheticLMDataset`` with
     and without pinned staging on its copy stream; gemma-2b (bf16,
     remat "full", AdamW, 4 x 1024 tokens) through ``train_loop`` (the
@@ -4322,6 +4333,11 @@ SHARDED_TRAIN_BF16_MESHES = ((2, 2), (1, 2))
 SHARDED_TRAIN_BF16_BATCH = (4, 1024)
 SHARDED_TRAIN_BF16_LAYERS = 18     # gemma-2b's depth
 SHARDED_TRAIN_BF16_STEPS = (1, 3)  # warm-up, timed
+# the dry run's predictions of the bf16 run against rank 0's measurements
+# (relative), the production cells it traces, and its time limit
+DRYRUN_HELD_TOL, DRYRUN_PEAK_TOL = 0.05, 0.15
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_SECONDS = 60.0
 # sharded_decode: the sharded serving model at fp32 through the meshed
 # prefill and serve steps, 8 rows, 8-token prompts fed one token a step,
 # then 16 greedy steps
@@ -6204,7 +6220,91 @@ def phase_sharded(torch, dev) -> dict:
     seq = phase_meshed_seq_shard(torch, dev, groups)
     a7c = phase_meshed_a7c(torch, dev, groups, a7c_base)
     return {"paged_attention": bf16, **meshed, "meshed_blocks": blocks,
-            "meshed_seq_shard": seq, "meshed_a7c": a7c}
+            "meshed_seq_shard": seq, "meshed_a7c": a7c,
+            "train_bf16": {shape: [g["rank_sharded_train_bf16"][shape]
+                                   for g in groups[shape[0] * shape[1]]]
+                           for shape in SHARDED_TRAIN_BF16_MESHES}}
+
+
+def phase_dryrun(torch, dev, train_bf16) -> dict:
+    """The dry run on this host's CPU (each trace in a process of its own,
+    rank 0 of a fake process group, on ``meta``; nothing on the card).
+    (a) ``dryrun_check``: the bf16 gemma-2b train step that
+    ``sharded_train`` ran on the card, on each of its meshes, predicted
+    against what rank 0 measured there (``train_bf16``: each mesh's rank
+    results): the bytes live before the step against ``held_gb``, the
+    step's peak against ``step_peak_gb``, its collective calls against
+    ``collectives_per_step``.  (b) ``dryrun_cell``: gemma-2b's
+    ``DRYRUN_CELLS`` on the (16, 16) production mesh.  The traces run
+    side by side; fails on a prediction out of its limit, a cell that is
+    not ``ok`` or a phase over ``DRYRUN_SECONDS``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import ShapeSpec, gemma_2b
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(gemma_2b.CONFIG, param_dtype=torch.bfloat16,
+                              n_layers=SHARDED_TRAIN_BF16_LAYERS)
+    b, s = SHARDED_TRAIN_BF16_BATCH
+    spec = ShapeSpec("train", s, b)
+    with ThreadPoolExecutor(len(train_bf16) + len(DRYRUN_CELLS)) as pool:
+        preds = {shape: pool.submit(dryrun.trace_cell, cfg, spec,
+                                    (shape, ("data", "model")),
+                                    optimizer="adamw", skip_cost=True)
+                 for shape in train_bf16}
+        cells = {name: pool.submit(dryrun.run_cell, "gemma-2b", name,
+                                   "single") for name in DRYRUN_CELLS}
+        preds = {k: f.result() for k, f in preds.items()}
+        cells = {k: f.result() for k, f in cells.items()}
+    ok = True
+    for shape, ranks in train_bf16.items():
+        pred, r0 = preds[shape], ranks[0]
+        mem = pred["memory"]
+        held = mem["argument_bytes"] / 1e9
+        peak = mem["bytes"] / 1e9
+        calls = pred["collectives"]["calls"]
+        line = {"phase": "dryrun_check", "mesh": list(shape),
+                "model": "gemma-2b", "layers": SHARDED_TRAIN_BF16_LAYERS,
+                "batch": [b, s], "remat": cfg.remat, "optimizer": "adamw",
+                "held_gb": {"predicted": held, "measured": r0["held_gb"],
+                            "ratio": held / r0["held_gb"],
+                            "tol": DRYRUN_HELD_TOL},
+                "peak_gb": {"predicted": peak,
+                            "measured": r0["step_peak_gb"],
+                            "ratio": peak / r0["step_peak_gb"],
+                            "tol": DRYRUN_PEAK_TOL},
+                "collective_calls": {
+                    "predicted": calls,
+                    "measured": r0["collectives_per_step"],
+                    "ratio": calls / r0["collectives_per_step"]},
+                "measured_ranks": {k: [r[k] for r in ranks] for k in (
+                    "held_gb", "step_peak_gb", "collectives_per_step")},
+                "predicted_collectives": pred["collectives"],
+                "trace_s": pred["trace_s"]}
+        emit(line)
+        ok = ok and abs(line["held_gb"]["ratio"] - 1) <= DRYRUN_HELD_TOL \
+            and abs(line["peak_gb"]["ratio"] - 1) <= DRYRUN_PEAK_TOL \
+            and calls == r0["collectives_per_step"]
+    for name, rec in cells.items():
+        rl = rec["roofline"]
+        emit({"phase": "dryrun_cell", "arch": rec["arch"],
+              "shape": rec["shape"], "mesh": rec["mesh"],
+              "status": rec["status"], "n_devices": rec["n_devices"],
+              "trace_s": rec["trace_s"], "memory": rec["memory"],
+              "fits_80gb": rec["fits_80gb"], "cost": rec["cost"],
+              "collective_calls": rec["collectives"]["calls"],
+              "dominant": rl["dominant"], "compute_s": rl["compute_s"],
+              "memory_s": rl["memory_s"],
+              "collective_s": rl["collective_s"],
+              "useful_ratio": rl["useful_ratio"]})
+        ok = ok and rec["status"] == "ok"
+    seconds = time.perf_counter() - t0
+    emit({"phase": "dryrun_seconds", "phase_seconds": seconds,
+          "limit": DRYRUN_SECONDS})
+    if not ok or seconds > DRYRUN_SECONDS:
+        raise AssertionError("dryrun: a prediction out of its limit, a "
+                             "cell not ok or the phase over its time "
+                             "(lines above)")
+    return {"check": preds, "cells": cells, "phase_seconds": seconds}
 
 
 def phase_meshed_blocks(torch, dev, groups, base) -> dict:
@@ -6964,6 +7064,7 @@ def run_phases(torch, dev) -> list:
     # held here meanwhile
     sharded = phase_sharded(torch, dev)
     counts["paged_attention_sharded"] = sharded["paged_attention"]
+    phase_dryrun(torch, dev, sharded["train_bf16"])
 
     cfg32, params32, cfg, params = rwkv_models(torch, dev)
     rwkv, profile_rwkv_prefill = phase_prefill(

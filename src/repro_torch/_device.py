@@ -5,7 +5,9 @@
 runtime's factories (``repro_torch.randn``, ``zeros``, ``tensor``, ...)
 place their tensors on :func:`current_device`, which is CUDA unless the
 caller enters ``with repro_torch.default_device("cpu"):``.  There is no
-fallback to the CPU: the CPU is used only when it is asked for.
+fallback to the CPU: the CPU is used only when it is asked for, and
+``meta`` (shapes and dtypes without memory: the dry run,
+``launch/dryrun.py``) only when it is named.
 """
 
 from __future__ import annotations
@@ -21,14 +23,14 @@ DeviceLike = Optional[Union[str, torch.device]]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``"cuda"``.  Raises ``RuntimeError`` when a CUDA
     device is asked for (explicitly or by default) and none is present;
-    the CPU is used only when the caller names it."""
+    the CPU and ``meta`` are used only when the caller names them."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch entry points run on CUDA by default and no CUDA "
             "device is available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -20,25 +20,76 @@ the rank's slice (:func:`gather_whole`) and the slice whose backward
 gathers (:func:`split`), and the reduce-scatter whose backward gathers
 (:func:`reduce_split`, the end of a row-parallel product under a
 sequence-sharded residual stream); the reduce-scatter is gloo's and
-NCCL's ``reduce_scatter_tensor`` (:func:`reduce_scatter`).  ``stats``
-counts the calls and the bytes each staged through the host.
+NCCL's ``reduce_scatter_tensor`` (:func:`reduce_scatter`).
+
+``stats`` counts the calls and the bytes each staged through the host,
+and tallies each call by kind (``"kinds"``) and by mesh axis
+(``"axes"``): its calls and its result buffer's bytes, the sizes the
+reference's roofline sums over the collectives of its compiled program
+(``repro/launch/roofline.py``), here summed where each call is made.
+The kinds are the reference's: all-gather (the gathered whole),
+all-reduce (the reduced tensor), reduce-scatter (the rank's slice),
+all-to-all (none is called yet) and send/recv, the reference's
+collective-permute (each message, counted by the rank that sends and
+by the rank that receives it), and broadcast besides.  A group's axis
+is the name :func:`label_axes` gave it (``launch/mesh.make_mesh`` labels
+every mesh it builds), else ``"world"`` for the default group and
+``"other"``.  A group of one rank makes no call and counts nothing.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 
-# collectives called (group size > 1) and bytes staged through the host
-# (each copy out and back counted once); reset with reset_stats()
-stats = {"calls": 0, "staged_bytes": 0}
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "send/recv", "broadcast")
+
+# collectives called (group size > 1), bytes staged through the host
+# (each copy out and back counted once), and each kind's and each mesh
+# axis's calls and result bytes; reset with reset_stats()
+stats: Dict = {}
+
+# process group name -> the mesh axis it spans (label_axes)
+_axis_names: Dict[str, str] = {}
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, staged_bytes=0)
+    stats.update(calls=0, staged_bytes=0,
+                 kinds={k: {"calls": 0, "bytes": 0} for k in KINDS},
+                 axes={})
+
+
+reset_stats()
+
+
+def label_axes(mesh) -> None:
+    """Name each axis group of the ``DeviceMesh`` ``mesh`` after its axis
+    in the per-axis tally of ``stats``."""
+    for axis in mesh.mesh_dim_names:
+        _axis_names[mesh.get_group(axis).group_name] = axis
+
+
+def _axis(group) -> str:
+    if group is None or group == dist.group.WORLD:
+        return _axis_names.get(dist.group.WORLD.group_name, "world")
+    return _axis_names.get(group.group_name, "other")
+
+
+def _count(kind: str, group, nbytes: int) -> None:
+    stats["calls"] += 1
+    stats["kinds"][kind]["calls"] += 1
+    stats["kinds"][kind]["bytes"] += nbytes
+    axis = stats["axes"].setdefault(_axis(group), {"calls": 0, "bytes": 0})
+    axis["calls"] += 1
+    axis["bytes"] += nbytes
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -71,7 +122,7 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     if group_size(group) == 1:
         return x
-    stats["calls"] += 1
+    _count("all-reduce", group, _nbytes(x))
     if _staged(x, group):
         h = _host(x)
         dist.all_reduce(h, op=op, group=group)
@@ -101,7 +152,7 @@ def all_reduce_sum_async(x: torch.Tensor, group) -> _Pending:
     the result's ``wait()`` returns ``x`` once it holds the sum."""
     if group_size(group) == 1:
         return _Pending(None, None, x)
-    stats["calls"] += 1
+    _count("all-reduce", group, _nbytes(x))
     if _staged(x, group):
         h = _host(x)
         return _Pending(dist.all_reduce(h, group=group, async_op=True), h, x)
@@ -115,7 +166,7 @@ def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     if n == 1:
         return [x]
     x = x.contiguous()
-    stats["calls"] += 1
+    _count("all-gather", group, n * _nbytes(x))
     if _staged(x, group):
         h = _host(x)
         outs = [torch.empty_like(h) for _ in range(n)]
@@ -144,7 +195,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     front = x.movedim(dim, 0).contiguous()
     out = torch.empty((front.shape[0] // n,) + front.shape[1:],
                       dtype=x.dtype, device=x.device)
-    stats["calls"] += 1
+    _count("reduce-scatter", group, _nbytes(out))
     if _staged(x, group):
         h = _host(front)
         ho = torch.empty(out.shape, dtype=x.dtype, pin_memory=True)
@@ -160,7 +211,7 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     place; returns ``x``."""
     if group_size(group) == 1:
         return x
-    stats["calls"] += 1
+    _count("broadcast", group, _nbytes(x))
     if _staged(x, group):
         h = _host(x)
         dist.broadcast(h, src=src, group=group)
@@ -172,6 +223,7 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
 
 def send(x: torch.Tensor, dst: int, group=None) -> None:
     """Send ``x`` to the global rank ``dst`` (blocking)."""
+    _count("send/recv", group, _nbytes(x))
     if _staged(x, group):
         x = _host(x)
     dist.send(x.contiguous(), dst=dst, group=group)
@@ -180,6 +232,7 @@ def send(x: torch.Tensor, dst: int, group=None) -> None:
 def recv(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """Receive into ``x`` from the global rank ``src`` (blocking);
     returns ``x``."""
+    _count("send/recv", group, _nbytes(x))
     if _staged(x, group):
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         dist.recv(h, src=src, group=group)

@@ -32,10 +32,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _python_dispatch
+from torch.utils.flop_counter import register_flop_formula
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -102,18 +103,26 @@ def reset_launch_counts() -> None:
 
 
 def _tracing(args) -> bool:
-    """A graph is being traced: Dynamo is compiling, a dispatch mode is on
-    (``make_fx``, fake tensors, functionalization), or the first tensor
-    operand is a tensor subclass (a fake or functional tensor; a launch's
-    operands are all of one kind)."""
+    """A launch goes through its operator: a graph is being traced
+    (Dynamo is compiling, a dispatch mode is on: ``make_fx``, fake
+    tensors, functionalization, the dry run's counters), the first
+    tensor operand is a tensor subclass (a fake or functional tensor; a
+    launch's operands are all of one kind), or it is on ``meta`` (the
+    dry run: the operator's Meta kernel is its shape function)."""
     if torch.compiler.is_compiling() or \
             _python_dispatch._get_current_dispatch_mode() is not None:
         return True
     for a in args:
         t = a[0] if isinstance(a, (list, tuple)) and a else a
         if isinstance(t, torch.Tensor):
-            return type(t) not in (torch.Tensor, torch.nn.Parameter)
+            return (type(t) not in (torch.Tensor, torch.nn.Parameter)
+                    or t.is_meta)
     return False
+
+
+# the operator of each kernel -> ``cost(*args) -> (flops, bytes)`` of one
+# launch (:meth:`LaunchOp.register_cost`; the dry run's byte count)
+KERNEL_COSTS: Dict[object, Callable] = {}
 
 
 class LaunchOp:
@@ -123,18 +132,35 @@ class LaunchOp:
     tensors, Dynamo) a call goes through the operator: one node of the
     graph, shaped by the function given to :meth:`register_fake`, that
     launches the kernel, counted, on every call of the compiled graph.
-    Eagerly a call runs ``body`` itself: the dispatcher's round trip
-    through Python cost ~30-50 us a launch on the H100 (PERF.md §6),
-    which host-bound steps would pay in full."""
+    So does a call on ``meta`` tensors, which that function answers
+    with the outputs' shapes and dtypes and launches nothing.  Eagerly
+    a call runs ``body`` itself: the dispatcher's round trip through
+    Python cost ~30-50 us a launch on the H100 (PERF.md §6), which
+    host-bound steps would pay in full."""
 
     def __init__(self, name: str, body):
         self.body = body
         self.op = torch.library.custom_op(f"repro_torch::{name}", body,
                                           mutates_args=(),
                                           device_types="cuda")
+        self.packet = getattr(torch.ops.repro_torch, name)
 
     def register_fake(self, fn):
         self.op.register_fake(fn)
+        return fn
+
+    def register_cost(self, fn):
+        """``fn(*args) -> (flops, bytes)``: one launch's work from its
+        operands' shapes, 2·m·n·k FLOPs for each product (elementwise
+        operations count 0, as in ``FlopCounterMode``) and each operand
+        read once and each output written once.  The FLOPs become the
+        operator's formula in ``torch.utils.flop_counter`` (a
+        ``FlopCounterMode`` made after this counts the launch, on
+        ``meta`` and on the card alike); :data:`KERNEL_COSTS` keeps
+        ``fn``."""
+        register_flop_formula(self.packet, get_raw=True)(
+            lambda *args, out_val=None, **kwargs: fn(*args, **kwargs)[0])
+        KERNEL_COSTS[self.packet] = fn
         return fn
 
     def __call__(self, *args):

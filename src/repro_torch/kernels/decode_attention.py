@@ -542,12 +542,14 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     ``min(Smax, window)`` fits one split of the variant's size);
     :func:`decode_last_launch` reads what the last call launched.
     ``decode_counter`` counts calls.  Neither reads anything back to the
-    host."""
+    host.  ``meta`` tensors (the dry run) are checked as CUDA ones and
+    get the outputs' shapes and dtypes from the operator's shape
+    function; :func:`decode_cost` is its cost."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       scale=scale, window=window,
                                       return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention_fwd: unsupported device "
                          f"{q.device}")
     b, hkv, g, d = q.shape
@@ -620,6 +622,23 @@ def _(q, k_cache, v_cache, cache_len, scale, win, with_lse):
     return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
             torch.empty((b, hkv, g) if with_lse else (0,),
                         dtype=torch.float32, device=q.device))
+
+
+@_decode_launch.register_cost
+def decode_cost(q, k_cache, v_cache, cache_len, scale, win, with_lse):
+    """(FLOPs, bytes) of one launch with every row's cache full:
+    ``min(Smax, window)`` live keys a row (the dry run decodes at the
+    last position, where that is exact; a shorter cache does less).
+    Scores and PV, 2·D each for every live key of every query head; q
+    read, the output (and lse) written, the lengths and the live keys
+    and values read once."""
+    b, hkv, g, d = q.shape
+    smax = k_cache.shape[2]
+    live = min(smax, win) if win else smax
+    nbytes = (2 * q.numel() * q.element_size() + 4 * b
+              + 2 * b * live * hkv * d * k_cache.element_size()
+              + (4 * b * hkv * g if with_lse else 0))
+    return 4 * b * hkv * g * d * live, nbytes
 
 
 # ----------------------------------------------------------------------

@@ -127,11 +127,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     on the current stream (through the ``repro_torch::flash_attention``
     operator), or raise; q, k or v not contiguous or not 16-byte aligned
-    is copied first (``dense_aligned``)."""
+    is copied first (``dense_aligned``).  ``meta`` tensors (the dry run)
+    are checked as CUDA ones and get the output's shape and dtype from
+    the operator's shape function; :func:`flash_cost` is its cost."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
     bhq, sq, d = q.shape
@@ -178,3 +180,24 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_launch.register_fake
 def _(q, k, v, scale, causal, window):
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def visible_pairs(q_len: int, kv_len: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """The (query, key) pairs :func:`visible_mask` lets through, counted
+    without making the mask."""
+    pos = torch.arange(kv_len - q_len, kv_len, dtype=torch.int64)
+    hi = pos if causal else torch.full_like(pos, kv_len - 1)
+    lo = (pos - window + 1).clamp(min=0) if window else torch.zeros_like(pos)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+@_flash_launch.register_cost
+def flash_cost(q, k, v, scale, causal, window):
+    """(FLOPs, bytes) of one launch: QK^T and PV, 2·D each for every
+    visible (query, key) pair of every query head; q, k, v read and the
+    output written once."""
+    bhq, sq, d = q.shape
+    pairs = visible_pairs(sq, k.shape[1], causal, window or None)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4 * bhq * pairs * d, nbytes

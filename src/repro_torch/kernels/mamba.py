@@ -172,10 +172,13 @@ def mamba_scan_fwd(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     on the current stream, or raise.  The kernel reads x and dt through
     one set of strides and B and C through their own, each with a unit
-    last stride; operands without one are made contiguous first."""
+    last stride; operands without one are made contiguous first.
+    ``meta`` tensors (the dry run) are checked as CUDA ones and get the
+    outputs' shapes and dtypes from the operator's shape function;
+    :func:`mamba_cost` is its cost."""
     if x.device.type == "cpu":
         return mamba_scan_plain(x, dt, B, C, A, D, h0)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"mamba_scan_fwd: unsupported device {x.device}")
     if any(t.device != x.device for t in (dt, B, C)):
         raise ValueError("mamba_scan_fwd: all operands must be on one "
@@ -257,3 +260,16 @@ def _(x, dt, B, C, A, D, h0):
     return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
             torch.empty((b, di, B.shape[-1]), dtype=torch.float32,
                         device=x.device))
+
+
+@_mamba_launch.register_cost
+def mamba_cost(x, dt, B, C, A, D, h0):
+    """(FLOPs, bytes) of one launch: the product of each step's states
+    with C, 2·N for every channel and step (the state updates are
+    elementwise and count 0); x, dt, B, C, A, D (and h0) read, y and the
+    final state written once."""
+    b, s, di = x.shape
+    n = B.shape[-1]
+    nbytes = ((3 * b * s * di + 2 * b * s * n) * x.element_size()
+              + (di * n + di) * 4 + (1 if h0 is None else 2) * b * di * n * 4)
+    return 2 * b * s * di * n, nbytes

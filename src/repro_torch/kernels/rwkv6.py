@@ -149,10 +149,12 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one set of strides with a unit last stride and 16-byte aligned rows;
     inputs that do not share such strides, or are not so aligned, are
     copied into new contiguous tensors first (a copy, never the plain
-    version)."""
+    version).  ``meta`` tensors (the dry run) are checked as CUDA ones
+    and get the outputs' shapes and dtypes from the operator's shape
+    function; :func:`rwkv6_cost` is its cost."""
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state0)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan_fwd: unsupported device {r.device}")
     if any(x.device != r.device for x in (k, v, w)):
         raise ValueError("rwkv6_scan_fwd: all operands must be on one "
@@ -228,3 +230,15 @@ def _(r, k, v, w, u, state0):
     b, h, s, d = r.shape
     return (torch.empty((b, s, h, d), dtype=r.dtype, device=r.device),
             torch.empty((b, h, d, d), dtype=torch.float32, device=r.device))
+
+
+@_rwkv6_launch.register_cost
+def rwkv6_cost(r, k, v, w, u, state0):
+    """(FLOPs, bytes) of one launch: the product of r with each step's
+    (D, D) state, 2·D² for every head and step (the state updates are
+    elementwise and count 0); r, k, v, w, u (and state0) read, the output
+    and the final state written once."""
+    b, h, s, d = r.shape
+    nbytes = (5 * b * h * s * d * r.element_size() + h * d * 4
+              + (1 if state0 is None else 2) * b * h * d * d * 4)
+    return 2 * b * h * s * d * d, nbytes

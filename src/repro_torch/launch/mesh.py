@@ -20,8 +20,11 @@ so on one card every rank shares ``cuda:0``.
 is all the sharding tables (``distributed/sharding.py``) read; a
 ``DeviceMesh`` and a ``MeshShape`` both pass through :func:`axis_sizes`.
 
-``make_production_mesh`` (the 256/512-chip pod meshes) waits for the
-dry run that reads it (ROADMAP.md queue A8).
+:func:`make_production_mesh` builds the reference's production meshes,
+(16, 16) over (data, model) and (2, 16, 16) over (pod, data, model),
+over a default group of exactly 256 or 512 ranks: the dry run
+(``launch/dryrun.py``) makes one with a fake process group in a single
+process and traces a rank's step on it.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..distributed import collectives as C
 from ..serving.errors import MeshConfigError
 
 
@@ -77,11 +81,13 @@ def _device_type() -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 
-def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]
-              ) -> DeviceMesh:
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+              device_type: Optional[str] = None) -> DeviceMesh:
     """A mesh of ``shape`` over ranks ``0 .. prod(shape) - 1`` of the
     default process group, in row-major order (the last axis varies
-    fastest), named ``axes``.  Every rank of the group calls it."""
+    fastest), named ``axes``, of ``device_type`` (default ``cuda`` when
+    the host has a card, else ``cpu``).  Every rank of the group calls
+    it."""
     if len(shape) != len(axes):
         raise MeshConfigError(f"mesh shape {shape} and axes {axes} differ "
                               f"in length")
@@ -93,7 +99,34 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]
             f"mesh {shape} needs {n} rank(s) of an initialized process "
             f"group; {world_size()} available")
     ranks = torch.arange(n).reshape(shape)
-    return DeviceMesh(_device_type(), ranks, mesh_dim_names=tuple(axes))
+    mesh = DeviceMesh(device_type or _device_type(), ranks,
+                      mesh_dim_names=tuple(axes))
+    C.label_axes(mesh)
+    return mesh
+
+
+# multi_pod -> (shape, axes) of the reference's production meshes
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The reference's production mesh over the default process group:
+    (data=16, model=16), 256 ranks, or (pod=2, data=16, model=16), 512
+    (:data:`PRODUCTION_MESHES`).  The group must have exactly that many
+    ranks, else :class:`MeshConfigError`.  The mesh's device type follows
+    the group's backend (``cuda`` for NCCL, else ``cpu``: the dry run's
+    fake group), never whether this host has a card."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or world_size() != n:
+        raise MeshConfigError(
+            f"the production mesh {shape} needs a process group of "
+            f"exactly {n} ranks; {world_size()} available")
+    return make_mesh(shape, axes, device_type=(
+        "cuda" if dist.get_backend() == "nccl" else "cpu"))
 
 
 def make_local_mesh(tp: Optional[int] = None) -> DeviceMesh:

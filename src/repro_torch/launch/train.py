@@ -430,9 +430,16 @@ def init_train_state(cfg: LM.LMConfig, *, optimizer: str = "adamw",
     them: the pieces of the one-process state.  Made here, they are cut
     leaf by leaf as they are drawn (:func:`init_pieces`: a rank holds its
     pieces and one whole leaf at most); given, they are
-    :func:`shard_tree` of the full ones, which can then be freed."""
+    :func:`shard_tree` of the full ones, which can then be freed.  On
+    ``meta`` (the dry run) they are :func:`shard_tree` of
+    ``lm.abstract_params``: shapes alone, no number drawn."""
     dev = resolve_device(device)
-    if params is None:
+    if params is None and dev.type == "meta":
+        params = LM.abstract_params(cfg)
+        if mesh is not None:
+            params = shard_tree(mesh, S.param_specs(cfg, params, mesh),
+                                params)
+    elif params is None:
         params = (LM.init_params(cfg, seed=seed, device=dev)
                   if mesh is None else init_pieces(cfg, mesh, seed=seed,
                                                    device=dev))

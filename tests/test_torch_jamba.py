@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import jamba_1_5_large_398b as jjamba
 from repro.kernels import ops as jops
@@ -502,8 +503,10 @@ def test_paged_engine_refuses_moe_blocks():
 
 
 def test_scan_wrapper_refuses_other_devices():
-    x = torch.zeros((1, 4, 32), device="meta")
-    bc = torch.zeros((1, 4, 16), device="meta")
+    # a device with no route (meta has one: the dry run's shapes)
+    with FakeTensorMode():
+        x = torch.zeros((1, 4, 32), device="xla")
+        bc = torch.zeros((1, 4, 16), device="xla")
     with pytest.raises(ValueError, match="unsupported device"):
         MB.mamba_scan_fwd(x, x, bc, bc, torch.zeros((32, 16)),
                           torch.zeros(32))

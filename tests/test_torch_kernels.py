@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -372,11 +373,15 @@ def test_decode_wrapper_shapes_and_refusals():
     assert tuple(a.shape) == q.shape
     with pytest.raises(ValueError, match="one query per row"):
         tops.decode_attention(t(q).expand(3, 4, 2, 16), t(kc), t(vc), 7)
-    meta = torch.zeros((1, 2, 2, 16), device="meta")
+    # a device with no route (meta has one: the dry run's shapes)
+    with FakeTensorMode():
+        other = torch.zeros((1, 2, 2, 16), device="xla")
+        other3 = torch.zeros((2, 2, 16), device="xla")
     with pytest.raises(ValueError):
-        DA.decode_attention_fwd(meta, meta, meta, torch.ones(1), scale=1.0)
+        DA.decode_attention_fwd(other, other, other, torch.ones(1),
+                                scale=1.0)
     with pytest.raises(ValueError):
-        FA.flash_attention_fwd(meta[0], meta[0], meta[0], causal=True,
+        FA.flash_attention_fwd(other3, other3, other3, causal=True,
                                scale=1.0)
 
 

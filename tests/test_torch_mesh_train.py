@@ -50,6 +50,10 @@ every check of their size once for the file:
     the JAX package's ``adafactor_update``; ``train_loop`` on each mesh;
     an Adafactor state saved on (1,2) restored onto (2,1) and onto no
     mesh, bit for bit;
+  * the dry run's collectives tally (calls and result bytes by kind and
+    by mesh axis) of one AdamW train step of gemma's SMOKE, traced on
+    ``meta`` on a fake (2,2) group, against the same step's on gloo
+    ranks;
   * MLA decode (minicpm3's SMOKE): the prefill that fills the latent
     cache, then greedy decode on (1,2), (2,2) and (1,4), the switch on
     and off, a cache whose slots split over model and a whole one, the
@@ -128,6 +132,8 @@ MLA_SHAPES = {2: [(1, 2)], 4: [(2, 2), MODEL_4]}
 MLA_NAME = "minicpm3"
 UPDATE_NAME = "jamba"          # the meshed update against the JAX package
 UPDATE_SHAPE = (2, 2)
+# the dry run's collectives tally against the same step on gloo ranks
+DRYRUN_NAME, DRYRUN_SHAPE = "gemma", (2, 2)
 
 # The limits of the train-step tests: LIMITS for every case but three,
 # whose fp32 steps are worse conditioned (measured on the CPU):
@@ -201,6 +207,7 @@ def groups(tmp_path_factory):
         ("seq_train_rank", ([MODEL_4], [(n, "adamw", 1)
                                         for n in SEQ_MODEL_4])),
         ("seq_decode_rank", (MODEL_4, SEQ_MODEL_4)),
+        ("dryrun_tally_rank", (DRYRUN_SHAPE, DRYRUN_NAME)),
         ("elastic_save_rank", (ckpt,))],), backend="gloo",
         timeout=GROUP_TIMEOUT)
     two = run_ranks(W.jobs_rank, 2, ([
@@ -1025,3 +1032,24 @@ def test_seq_shard_bidirectional_encoder_forward(groups):
         assert rows == [W.FORWARD_TOKENS[1] // 2]
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+def test_dryrun_collectives_tally_matches_the_ranks(groups):
+    """The dry run's prediction of a step's collectives (rank 0 of a fake
+    group, on ``meta``) equals what rank 0 of the gloo group counted
+    running it: calls and result bytes of each kind and each axis."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    b, s = W.TRAIN_BATCH
+    pred = dryrun.trace_cell(W.train_cfg(DRYRUN_NAME),
+                             ShapeSpec("train", s, b),
+                             (DRYRUN_SHAPE, ("data", "model")),
+                             optimizer="adamw", skip_cost=True,
+                             timeout=GROUP_TIMEOUT)
+    got = groups[4][0]["dryrun_tally_rank"]
+    assert pred["collectives"] == got
+    assert got["calls"] > 0
+    assert set(got["axes"]) == {"data", "model"}
+    assert all(got["kinds"][k]["calls"] for k in ("all-gather",
+                                                  "all-reduce",
+                                                  "reduce-scatter"))

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import gemma_2b as jgemma
 from repro.configs import rwkv6_1_6b as jrwkv
@@ -443,8 +444,10 @@ def test_serve_step_rejects_a_wrong_rwkv_cache():
 
 
 def test_scan_wrapper_refuses_other_devices():
-    r = torch.zeros((1, 2, 4, 32), device="meta")
-    u = torch.zeros((2, 32), device="meta")
+    # a device with no route (meta has one: the dry run's shapes)
+    with FakeTensorMode():
+        r = torch.zeros((1, 2, 4, 32), device="xla")
+        u = torch.zeros((2, 32), device="xla")
     with pytest.raises(ValueError, match="unsupported device"):
         RW.rwkv6_scan_fwd(r, r, r, r, u)
 

@@ -8,6 +8,7 @@ They are module-level functions so that ``spawn`` can pickle them.
 
 from __future__ import annotations
 
+import copy
 from contextlib import contextmanager
 
 import numpy as np
@@ -846,6 +847,81 @@ def seq_forward_rank(rank, world, shape, trees):
     with AS.sequence_sharding():
         return {name: mesh_forward_rank(rank, world, shape, name, tree)
                 for name, tree in trees.items()}
+
+
+def dryrun_tally_rank(rank, world, shape, name):
+    """The collectives tally (``collectives.stats``: calls, and calls and
+    result bytes by kind and by mesh axis) of one AdamW train step of
+    ``name`` on ``shape``, on a batch of tokens and labels of
+    ``TRAIN_BATCH``: what the dry run predicts for the same step."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(tuple(shape), ("data", "model"))
+    cfg = train_cfg(name)
+    state = T.init_train_state(cfg, device="cpu", mesh=mesh)
+    step = T.make_train_step(cfg, device="cpu", mesh=mesh)
+    batch = train_batches(cfg, n=1)[0]
+    del batch["mask"]
+    C.reset_stats()
+    step(state, batch)
+    return copy.deepcopy({k: v for k, v in C.stats.items()
+                          if k != "staged_bytes"})
+
+
+def production_meshes_child() -> dict:
+    """In a process of its own: for fake process groups of 256, 512 and
+    4 ranks, what ``make_production_mesh`` gives for each ``multi_pod``:
+    (shape, axis names), or the ``MeshConfigError`` it raised."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.serving.errors import MeshConfigError
+    out = {}
+    for world in (256, 512, 4):
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+        try:
+            for multi in (False, True):
+                try:
+                    mesh = make_production_mesh(multi_pod=multi)
+                    out[(world, multi)] = (tuple(mesh.mesh.shape),
+                                           tuple(mesh.mesh_dim_names))
+                except MeshConfigError as e:
+                    out[(world, multi)] = ("MeshConfigError", str(e))
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def scan_memo_child(name, shape, batch) -> dict:
+    """In a process of its own, rank 0 of a fake group of ``shape``'s
+    ranks: ``dryrun.trace_step`` of one AdamW train step of ``name`` on
+    a ``batch`` (B, S), with the scans' backward memoized (the dry run's
+    way) and run in full: {memoized: result}."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    spec = ShapeSpec("train", batch[1], batch[0])
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=shape[0] * shape[1])
+    out = {}
+    try:
+        mesh = make_mesh(tuple(shape), ("data", "model"), device_type="cpu")
+        for memoized in (True, False):
+            funcs = dryrun._ScanMemo.FUNCTIONS
+            if not memoized:
+                dryrun._ScanMemo.FUNCTIONS = ()
+            try:
+                out[memoized] = dryrun.trace_step(train_cfg(name), spec,
+                                                  mesh)
+            finally:
+                dryrun._ScanMemo.FUNCTIONS = funcs
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 def jobs_rank(rank, world, jobs):
